@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving path on one CUDA card and check it.
+"""Drive the PyTorch/H100 port's serving and training paths on one CUDA
+card and check them.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,21 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             the prefill logits of one request against the plain chain on
             the card, then 8 requests of 20-600 prompt tokens and 32 new
             tokens each, with every request finished, no KV block leaked and
-            every kernel of the path launched.
+            every kernel of the path launched;
+5. flash    the three flash-attention kernels (``flash_fwd``,
+            ``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain
+            versions at the training slice's shape (B 4, S 2048, 32 heads,
+            D 128, causal) in fp32 (tolerance 1e-4) and bf16 (2e-2, or the
+            fp32-distance ratio rule below), and on small cases: GQA 32/8
+            at D 64, non-causal, ragged S 1000, Sq != Sk (full and
+            causal), segment ids and the two bias layouts; kernel, plain, bound and
+            ``scaled_dot_product_attention`` times in bf16;
+6. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
+            train step (remat, dense head): one warm step and 5 timed steps
+            on one seeded batch of 4 x 2048 tokens, with finite and falling
+            losses and the flash kernels' launch counts as predicted; then
+            one step's loss and every gradient at 2 layers through the
+            flash kernels against the dense attention path.
 
 Prints one JSON line of per-kernel numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -41,6 +56,15 @@ BF16_SLACK = 1.5
 MAIN_PATH = ("decode_block", "prefill_block", "rms_norm_rows",
              "gemm_xw_small_m", "gemm_xw_tiled", "rope_kv_write",
              "paged_attention")
+# the training slice: flash launches per step of a 4-layer model under
+# remat (forward, recomputed forward, dq, dk/dv per layer)
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS = 4, 4, 2048, 1, 5
+FLASH_PER_STEP = {"flash_fwd": 2 * TRAIN_LAYERS,
+                  "flash_bwd_dq": TRAIN_LAYERS,
+                  "flash_bwd_dkv": TRAIN_LAYERS}
+# a whole bf16 step through the flash kernels against the dense attention
+# path: relative L2 distance of the loss and of every gradient leaf
+STEP_REL_L2 = 5e-2
 
 
 class SmokeFailure(Exception):
@@ -701,6 +725,296 @@ def phase_engine(cfg, dev="cuda"):
     return counts
 
 
+def flash_bytes_ops(B, Sq, Sk, Hq, Hkv, D, causal, itemsize):
+    """(bytes, operations) of flash_fwd, flash_bwd_dq and flash_bwd_dkv:
+    each input read once, each output written once; the products over the
+    (q, k) pairs the mask leaves (a causal row i sees min(i + 1, Sk))."""
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    prod = 2 * B * Hq * D * pairs
+    qb, kb, rows = (B * Sq * Hq * D * itemsize, B * Sk * Hkv * D * itemsize,
+                    B * Hq * Sq * 4)
+    return {"flash_fwd": (2 * qb + 2 * kb + rows, 2 * prod),
+            "flash_bwd_dq": (3 * qb + 2 * kb + 2 * rows, 3 * prod),
+            "flash_bwd_dkv": (2 * qb + 4 * kb + 2 * rows, 4 * prod)}
+
+
+# (label, B, Sq, Sk, Hq, Hkv, D, causal, segment ids, bias batch/head dims)
+FLASH_CASES = [
+    ("slice", TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 128, True, False, None),
+    ("gqa 32/8 D64", 2, 512, 512, 32, 8, 64, True, False, None),
+    ("non-causal", 2, 512, 512, 8, 8, 128, False, False, None),
+    ("ragged S 1000", 1, 1000, 1000, 8, 8, 128, True, False, None),
+    ("Sq 300 != Sk 1000", 2, 300, 1000, 8, 4, 128, False, False, None),
+    ("causal Sq 1000 != Sk 300", 1, 1000, 300, 8, 4, 128, True, False,
+     None),
+    ("segment ids", 2, 1024, 1024, 8, 8, 128, True, True, None),
+    ("bias [1,Hq,S,S]", 2, 512, 512, 8, 8, 128, False, False, (1, 8)),
+    ("bias [B,1,S,S]", 2, 512, 512, 8, 8, 128, True, False, (2, 1)),
+]
+
+
+def flash_inputs(case, gen, dev):
+    import torch
+    _, B, Sq, Sk, Hq, Hkv, D, causal, seg, bias = case
+    t = {n: torch.randn(shape, device=dev, generator=gen) for n, shape in (
+        ("q", (B, Sq, Hq, D)), ("k", (B, Sk, Hkv, D)), ("v", (B, Sk, Hkv, D)),
+        ("do", (B, Sq, Hq, D)))}
+    extra = [None, None, None]
+    if seg:       # sorted runs, Sq == Sk, causal: every row sees itself
+        ids = torch.randint(0, 4, (B, Sq), device=dev, generator=gen)
+        extra[0] = extra[1] = ids.sort(dim=1).values.to(torch.int32)
+    if bias is not None:
+        extra[2] = torch.randn(bias + (Sq, Sk), device=dev, generator=gen)
+    return t, dict(scale=D ** -0.5, causal=causal), extra
+
+
+def phase_flash(results, dev="cuda"):
+    """The three flash kernels against their plain versions; bf16 times at
+    the training slice's shape."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_attention as fc
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    err, ratios = {}, {n: [] for n in names}
+    for case in FLASH_CASES:
+        t32, kw, extra = flash_inputs(case, gen, dev)
+        for dtn, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+            q, k, v, do = (t32[n].to(dt) for n in ("q", "k", "v", "do"))
+            args = (kw["scale"], kw["causal"], *extra)
+            out_p, lse_p = fa.flash_fwd_ref(q, k, v, *args)
+            out, lse = fc.flash_fwd_cuda(q, k, v, *args)
+            delta = fa.flash_delta(out_p, do)
+            dq = fc.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, *args)
+            dk, dv = fc.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, *args)
+            torch.cuda.synchronize()
+            plain = fa.flash_bwd_ref(q, k, v, out_p, lse_p, do, *args)
+            got = {"flash_fwd": [("out", out, out_p)],
+                   "flash_bwd_dq": [("dq", dq, plain[0])],
+                   "flash_bwd_dkv": [("dk", dk, plain[1]),
+                                     ("dv", dv, plain[2])]}
+            e_lse = check_close(f"flash {case[0]} {dtn} lse", lse, lse_p,
+                                TOL["float32"])
+            if dtn == "bfloat16":
+                q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+                o32, l32 = fa.flash_fwd_ref(q32, k32, v32, *args)
+                truth = {"out": o32, **dict(zip(("dq", "dk", "dv"),
+                         fa.flash_bwd_ref(q32, k32, v32, o32, l32, do32,
+                                          *args)))}
+            line = [f"lse {e_lse:.1e}"]
+            for kname, outs in got.items():
+                for what, g, p in outs:
+                    label = f"flash {case[0]} {dtn} {what}"
+                    if dtn == "float32":
+                        e = check_close(label, g, p, TOL[dtn])
+                    else:
+                        e = check_layer_out(label, g, p, truth[what],
+                                            TOL[dtn], ratios[kname])
+                    err[kname, dtn] = max(err.get((kname, dtn), 0.0), e)
+                    line.append(f"{what} {e:.1e}")
+            info(f"flash {case[0]} {dtn}: max |kernel - plain| "
+                 f"{', '.join(line)}")
+            del plain, got
+            torch.cuda.empty_cache()
+
+    # ---- bf16 timings at the slice's shape
+    t32, kw, extra = flash_inputs(FLASH_CASES[0], gen, dev)
+    q, k, v, do = (t32[n].to(torch.bfloat16) for n in ("q", "k", "v", "do"))
+    args = (kw["scale"], kw["causal"], *extra)
+    out, lse = fc.flash_fwd_cuda(q, k, v, *args)
+    delta = fa.flash_delta(out, do)
+    bo = flash_bytes_ops(*FLASH_CASES[0][1:8], 2)
+    calls = {"flash_fwd": lambda: fc.flash_fwd_cuda(q, k, v, *args),
+             "flash_bwd_dq": lambda: fc.flash_bwd_dq_cuda(
+                 q, k, v, do, lse, delta, *args),
+             "flash_bwd_dkv": lambda: fc.flash_bwd_dkv_cuda(
+                 q, k, v, do, lse, delta, *args)}
+    plain_fwd, plain_fwd_call = time_ms(
+        lambda: fa.flash_fwd_ref(q, k, v, *args), 3)
+    plain_bwd, plain_bwd_call = time_ms(
+        lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, *args), 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20)[0]
+    lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), 10)[0]
+    for name in names:
+        ms, call = time_ms(calls[name], 20, per_launch=True)
+        bms, bby = bound_ms(*bo[name])
+        fwd = name == "flash_fwd"
+        results.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:"
+            + {"flash_fwd": "269", "flash_bwd_dq": "540",
+               "flash_bwd_dkv": "588"}[name],
+            shape=f"B {TRAIN_B}, S {TRAIN_S}, 32 q / 32 kv heads, D 128, "
+                  "causal",
+            max_abs_err=err[name, "bfloat16"],
+            max_abs_err_fp32=err[name, "float32"], ms=ms, call_ms=call,
+            plain_ms=plain_fwd if fwd else plain_bwd,
+            plain_call_ms=plain_fwd_call if fwd else plain_bwd_call,
+            plain_what="flash_fwd_ref" if fwd else
+            "flash_bwd_ref (dq, dk and dv together)",
+            bound_ms=bms, bound_by=bby,
+            library_ms=lib_fwd if fwd else lib_fwd_bwd,
+            library_what="scaled_dot_product_attention forward" if fwd else
+            "scaled_dot_product_attention forward + backward (autograd)",
+            bf16_vs_fp32_ratio=max(ratios[name], default=None)))
+        r = results[-1]
+        info(f"{name} bf16 {r['shape']}: device {ms} ms (per call "
+             f"{call:.4f}), bound {bms:.4f} ms ({bby}), plain {r['plain_ms']}"
+             f" ms, library {r['library_ms']} ms ({r['library_what']}); "
+             f"max |err| bf16 {r['max_abs_err']:.2e} fp32 "
+             f"{r['max_abs_err_fp32']:.2e}")
+
+
+def rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def tree_leaves(tree):
+    out = [(k, tree[k]) for k in ("wte", "head", "lnf_w")]
+    return out + [(f"blocks.{k}", v) for k, v in sorted(
+        tree["blocks"].items())]
+
+
+def phase_train(dev="cuda"):
+    """llama_7b(num_layers=4) bf16 through the one-device train step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models.llama import llama_7b
+    from paddle_tpu_torch.ops.cuda import layer
+    from paddle_tpu_torch.parallel.train_step import build_llama_train_step
+
+    cfg = llama_7b(num_layers=TRAIN_LAYERS, dtype="bfloat16",
+                   fused_head=False)
+    t0 = time.perf_counter()
+    step, init = build_llama_train_step(cfg, remat=True)
+    state = init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in tree_leaves(state["params"]))
+    info(f"train: llama_7b x {TRAIN_LAYERS} layers bf16, {n_params} params, "
+         f"state built in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+    ids_t = torch.from_numpy(ids).to(dev)
+    labels_t = torch.from_numpy(np.roll(ids, -1, axis=1)).to(dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    layer.reset_counts()
+    losses, times = [], []
+    for i in range(TRAIN_WARM + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        state, loss = step(state, ids_t, labels_t)
+        losses.append(float(loss))
+        if i >= TRAIN_WARM:
+            times.append(time.perf_counter() - ts)
+    counts = layer.launch_counts()
+    mem = torch.cuda.max_memory_allocated()
+    n = TRAIN_WARM + TRAIN_STEPS
+    want = {k: c * n for k, c in FLASH_PER_STEP.items()}
+    got = {k: c for k, c in counts.items() if c}
+    if got != want:
+        raise SmokeFailure(f"train: launch counts {got}, predicted {want} "
+                           f"(every other kernel 0)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise SmokeFailure(f"train: losses {losses} not finite and falling")
+    step_ms = 1e3 * sum(times) / len(times)
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, loss = step(state, ids_t, labels_t)
+        torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - ts) * 1e3
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by[ev.key] = (us / 1e3, ev.count)
+    busy = sum(ms for ms, _ in by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
+    groups = {}
+    for k, (ms, _) in by.items():
+        g = ("flash kernels" if "pt::flash" in k else
+             "fp32 GEMMs (head)" if "f32f32" in k or "sgemm" in k else
+             "bf16 GEMMs (cuBLAS)" if "gemm" in k or "nvjet" in k else
+             "other torch kernels")
+        groups[g] = groups.get(g, 0.0) + ms
+    info(f"train: losses {[round(x, 5) for x in losses]}; step "
+         f"{step_ms:.1f} ms (times {[round(1e3 * t, 1) for t in times]}), "
+         f"{tok_s:.0f} tokens/s, max memory allocated {mem / 2**30:.2f} GiB; "
+         f"launches over {n} steps {got}")
+    info(f"train: profiled step {prof_ms:.1f} ms wall, device busy "
+         f"{busy:.1f} ms ({100 * busy / prof_ms:.1f}%); by kernel (ms, "
+         f"launches): " + "; ".join(
+             f"{k.split('(')[0][:60]} {ms:.2f} x{c}" for k, (ms, c) in top))
+    info("train: device time by group (ms, share of busy): " + "; ".join(
+        f"{g} {ms:.2f} ({100 * ms / busy:.1f}%)" for g, ms in sorted(
+            groups.items(), key=lambda kv: -kv[1])))
+    del state
+    torch.cuda.empty_cache()
+
+    # one step's loss and gradients at 2 layers: flash kernels vs dense
+    cfg2 = llama_7b(num_layers=2, dtype="bfloat16", fused_head=False)
+    res = {}
+    for flash in (True, False):
+        s2, i2 = build_llama_train_step(cfg2, remat=True, use_flash=flash)
+        st = i2(SEED)
+        res[flash] = s2.loss_and_grads(st, ids_t, labels_t)
+        if not flash:
+            st32 = {"params": {k: (v.float() if not isinstance(v, dict) else
+                                   {n: w.float() for n, w in v.items()})
+                               for k, v in st["params"].items()},
+                    "opt": st["opt"]}
+        del st
+    s32, _ = build_llama_train_step(llama_7b(num_layers=2, fused_head=False),
+                                    remat=True, use_flash=False)
+    truth = s32.loss_and_grads(st32, ids_t, labels_t)
+    del st32
+    worst = 0.0
+    rows = [("loss", res[True][0], res[False][0], truth[0])] + [
+        (n, g, d, t) for (n, g), (_, d), (_, t) in zip(
+            tree_leaves(res[True][1]), tree_leaves(res[False][1]),
+            tree_leaves(truth[1]))]
+    for name, g, d, t in rows:
+        r = rel_l2(g, d)
+        worst = max(worst, r)
+        if not torch.isfinite(g).all():
+            raise SmokeFailure(f"train step check {name}: non-finite")
+        if r > STEP_REL_L2:
+            g_t, d_t = rel_l2(g, t), rel_l2(d, t)
+            if g_t > BF16_SLACK * d_t:
+                raise SmokeFailure(
+                    f"train step check {name}: flash vs dense rel L2 {r:.3e}"
+                    f" > {STEP_REL_L2}, and flash is further from fp32 "
+                    f"({g_t:.3e}) than {BF16_SLACK} x dense ({d_t:.3e})")
+        info(f"train step check {name}: rel L2 flash vs dense {r:.3e}, "
+             f"flash vs fp32 {rel_l2(g, t):.3e}, dense vs fp32 "
+             f"{rel_l2(d, t):.3e}")
+    info(f"train step check (llama_7b x 2 layers, bf16, {TRAIN_B} x "
+         f"{TRAIN_S}): worst rel L2 flash vs dense {worst:.3e} (bound "
+         f"{STEP_REL_L2})")
+    del res, truth
+    torch.cuda.empty_cache()
+    return counts, dict(step_ms=step_ms, tokens_per_s=tok_s,
+                        max_memory_bytes=mem, busy_share=busy / prof_ms,
+                        device_ms_by_group=groups, losses=losses)
+
+
 def main():
     try:
         import torch
@@ -721,15 +1035,22 @@ def main():
         phase_kernels(cfg, kernels)
         torch.cuda.empty_cache()
         counts = phase_engine(cfg)
+        del cfg
+        torch.cuda.empty_cache()
+        phase_flash(kernels)
+        torch.cuda.empty_cache()
+        train_counts, train = phase_train()
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         info(f"FAILED: {type(e).__name__}: {e}")
         return 1
     for k in kernels:
-        k["launches"] = counts.get(k["name"], 0)
+        k["launches"] = (train_counts if k["name"] in FLASH_PER_STEP
+                         else counts).get(k["name"], 0)
         for key, fallback in (("ms", "call_ms"), ("plain_ms", "plain_call_ms")):
             if k[key] is None:           # the profiler recorded no kernels
                 k[key] = k[fallback]
                 k["timing"] = "cuda events"
+    info(f"train summary {json.dumps(train)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

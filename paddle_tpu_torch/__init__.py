@@ -1,13 +1,14 @@
-"""PyTorch + CUDA port of the ``paddle_tpu`` serving path for NVIDIA Hopper.
+"""PyTorch + CUDA port of ``paddle_tpu`` for NVIDIA Hopper.
 
 The JAX package ``paddle_tpu`` stays the reference; this package is its
 counterpart for one H100.  It covers greedy Llama serving through the
-continuous-batching engine (:class:`inference.serving.ContinuousBatchingEngine`):
-bucketed chunk prefill through the ``prefill_block`` op and the batched
-paged-KV decode step through the ``decode_block`` op.  On a CUDA tensor
-both ops launch hand-written kernels (``kernels/csrc``); on a CPU tensor
-they run their plain PyTorch versions, which the tests hold against the
-JAX package.
+continuous-batching engine (:class:`inference.serving.ContinuousBatchingEngine`:
+bucketed chunk prefill through the ``prefill_block`` op, the batched
+paged-KV decode step through the ``decode_block`` op) and the one-device
+Llama train step (:func:`parallel.build_llama_train_step`, attention
+through the ``flash_attention`` op).  On a CUDA tensor the ops launch
+hand-written kernels (``kernels/csrc``); on a CPU tensor they run their
+plain PyTorch versions, which the tests hold against the JAX package.
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (:mod:`paddle_tpu_torch.device`).  The package imports no JAX.

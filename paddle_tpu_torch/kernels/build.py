@@ -26,8 +26,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["KernelBuildError", "KernelLaunchError", "LayerArgs", "library",
-           "check", "NVCC_FLAGS"]
+__all__ = ["KernelBuildError", "KernelLaunchError", "LayerArgs",
+           "FlashArgs", "library", "check", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -57,6 +57,17 @@ class LayerArgs(ctypes.Structure):
                     "gate_w", "up_w", "down_w", "cos", "sin", "block_table",
                     "lengths", "blk", "off", "pool_k", "pool_v", "y", "q",
                     "k", "v", "attn", "x_mid", "hbuf", "out")])
+
+
+class FlashArgs(ctypes.Structure):
+    """Mirror of ``struct FlashArgs`` in ``csrc/common.cuh``."""
+    _fields_ = ([(n, ctypes.c_int) for n in
+                 ("dtype", "B", "Sq", "Sk", "Hq", "Hkv", "D", "causal")]
+                + [("bias_sb", ctypes.c_longlong),
+                   ("bias_sh", ctypes.c_longlong), ("scale", ctypes.c_float)]
+                + [(n, ctypes.c_void_p) for n in
+                   ("q", "k", "v", "dout", "delta", "bias", "seg_q", "seg_k",
+                    "lse", "out", "dq", "dk", "dv")])
 
 
 _lock = threading.Lock()
@@ -121,7 +132,10 @@ def _build(so: Path, cu) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ptr = ctypes.POINTER(LayerArgs)
+    fptr = ctypes.POINTER(FlashArgs)
     sigs = {"pt_decode_block": [ptr, P], "pt_prefill_block": [ptr, P],
+            "pt_flash_fwd": [fptr, P], "pt_flash_bwd_dq": [fptr, P],
+            "pt_flash_bwd_dkv": [fptr, P],
             "pt_rope_kv_write": [ptr, P], "pt_paged_attention": [ptr, P],
             "pt_rms_norm_rows": [I, I, I, P, P, P, Fl, P],
             "pt_gemm_xw": [I, I, I, I, I, P, P, P, P, P, P],

@@ -34,6 +34,25 @@ struct LayerArgs {
   void *out;                  // [M, H]
 };
 
+// One flash-attention launch (flash_attention.cu).  Tensors are contiguous
+// [B, S, H, D] (q, out, dout, dq: Sq x Hq; k, v, dk, dv: Sk x Hkv); lse
+// and delta fp32 [B, Hq, Sq]; segment ids int32 [B, Sq] / [B, Sk] (both or
+// neither); bias fp32 [B|1, Hq|1, Sq, Sk] with element strides bias_sb /
+// bias_sh for its batch and head (0 where broadcast).  Mirrored field for
+// field by the ctypes Structure in paddle_tpu_torch/kernels/build.py.
+struct FlashArgs {
+  int dtype;                  // PT_F32 | PT_BF16
+  int B, Sq, Sk, Hq, Hkv, D;
+  int causal;                 // top-left aligned: q_pos >= k_pos
+  long long bias_sb, bias_sh;
+  float scale;
+  const void *q, *k, *v, *dout;
+  const float *delta, *bias;
+  const int *seg_q, *seg_k;
+  float *lse;                 // written by flash_fwd, read by the backward
+  void *out, *dq, *dk, *dv;
+};
+
 namespace pt {
 
 typedef __nv_bfloat16 bf16;
@@ -80,6 +99,9 @@ enum {
   CNT_GEMM_XW_F32,
   CNT_ROPE_KV_WRITE,
   CNT_PAGED_ATTENTION,
+  CNT_FLASH_FWD,
+  CNT_FLASH_BWD_DQ,
+  CNT_FLASH_BWD_DKV,
   CNT_NUM
 };
 
@@ -95,3 +117,6 @@ cudaError_t launch_gemm_xw(int dtype, int M, int K, int N, int epi,
                            const void *R, void *Y, cudaStream_t s);
 cudaError_t launch_rope_kv_write(const LayerArgs *a, cudaStream_t s);
 cudaError_t launch_paged_attention(const LayerArgs *a, cudaStream_t s);
+cudaError_t launch_flash_fwd(const FlashArgs *a, cudaStream_t s);
+cudaError_t launch_flash_bwd_dq(const FlashArgs *a, cudaStream_t s);
+cudaError_t launch_flash_bwd_dkv(const FlashArgs *a, cudaStream_t s);

@@ -1,10 +1,14 @@
-"""Llama configuration, RoPE tables and seeded parameters for serving.
+"""Llama configuration, RoPE tables, seeded parameters and the functional
+block of the train step.
 
 Counterpart of ``paddle_tpu/models/llama.py`` restricted to what the
-serving engine reads: the config fields, ``llama_tiny`` / ``llama_7b``,
-the RoPE tables (``_rope_cos_sin``) and a parameter tree in the
-train-step layout (``wte [V, H]``, ``head [H, V]``, ``lnf_w [H]``,
-``blocks`` stacked ``[L, ...]``), drawn from a ``torch.Generator``.
+serving engine and the one-device train step read: the config fields,
+``llama_tiny`` / ``llama_7b``, the RoPE tables (``_rope_cos_sin``), a
+parameter tree in the train-step layout (``wte [V, H]``, ``head [H, V]``,
+``lnf_w [H]``, ``blocks`` stacked ``[L, ...]``) drawn from a
+``torch.Generator``, and the pure block of the train step
+(:func:`apply_rope`, :func:`_gqa_attention`, :func:`block_apply`) for
+dense layers without tensor parallelism.
 """
 
 from __future__ import annotations
@@ -15,8 +19,11 @@ from typing import Dict, Optional
 
 import torch
 
+from ..ops.decode_block import rotate_half
+from .generation import _dense_masked_attention
+
 __all__ = ["LlamaConfig", "llama_tiny", "llama_7b", "init_params",
-           "torch_dtype"]
+           "torch_dtype", "apply_rope", "rms_norm", "block_apply"]
 
 
 @dataclasses.dataclass
@@ -33,9 +40,15 @@ class LlamaConfig:
     initializer_range: float = 0.02
     dtype: str = "float32"
     rope_scaling: Optional[dict] = None
-    # mixture-of-experts FFNs are outside this port's slice; the field is
-    # kept so the engine can refuse such configs by name
+    # mixture-of-experts FFNs are outside this port's slices; the field is
+    # kept so the engine and the train step can refuse such configs by name
     moe_num_experts: int = 0
+    # the JAX train step keeps an untied head whatever this says; kept for
+    # config parity
+    tie_word_embeddings: bool = False
+    # logits-free fused linear-CE head (the JAX default); the port's train
+    # step has only the dense head so far and refuses True by name
+    fused_head: bool = True
 
     @property
     def head_dim(self) -> int:
@@ -77,14 +90,19 @@ def torch_dtype(name) -> torch.dtype:
 
 
 def _rope_cos_sin(seq_len: int, head_dim: int, theta: float, dtype,
-                  scaling: Optional[dict] = None, device=None):
+                  scaling: Optional[dict] = None, device=None,
+                  dynamic: bool = False):
     """RoPE tables ``[seq_len, head_dim]`` with HuggingFace-compatible
     ``linear`` and ``llama3`` scaling, computed in fp32 and cast to
     ``dtype``.  ``dynamic`` NTK scaling depends on the current sequence
-    length, which a serving table baked at ``max_position_embeddings``
-    cannot represent, so it raises."""
-    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                                        device=device) / head_dim))
+    length: the train step, which builds its table at the step's own
+    length, passes ``dynamic=True`` and gets the JAX package's branch
+    (theta rescaled once ``seq_len`` exceeds the original length); a
+    serving table baked at ``max_position_embeddings`` cannot represent it,
+    so there it raises."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    inv = 1.0 / (theta ** exps)
     t = torch.arange(seq_len, dtype=torch.float32, device=device)
     if scaling:
         kind = scaling.get("rope_type", scaling.get("type"))
@@ -94,6 +112,15 @@ def _rope_cos_sin(seq_len: int, head_dim: int, theta: float, dtype,
         factor = float(scaling.get("factor", 1.0))
         if kind == "linear":
             t = t / factor
+        elif kind == "dynamic" and dynamic:
+            orig = int(scaling.get("original_max_position_embeddings") or 0)
+            if not orig:
+                raise ValueError("dynamic rope_scaling needs "
+                                 "'original_max_position_embeddings'")
+            if seq_len > orig:
+                base = theta * (factor * seq_len / orig - (factor - 1)) ** (
+                    head_dim / (head_dim - 2))
+                inv = 1.0 / (base ** exps)
         elif kind == "dynamic":
             raise NotImplementedError(
                 "dynamic-NTK rope depends on the current sequence length; "
@@ -151,3 +178,49 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
                         if name.startswith("ln") else normal(L, *shape))
     return {"wte": normal(v, h), "head": normal(h, v),
             "lnf_w": torch.ones(h, dtype=dt, device=dev), "blocks": blocks}
+
+
+# ------------------------------------------------------------ train step
+def apply_rope(q, k, cos, sin):
+    """q, k ``[b, s, h, d]``; cos/sin ``[s, d]`` (rotate-half RoPE)."""
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+
+
+def _gqa_attention(q, k, v, causal: bool = True):
+    """Dense attention, the train step's ``use_flash=False`` path: q
+    ``[b, s, hq, d]``, k/v ``[b, s, hkv, d]``; logits in the input dtype,
+    softmax in fp32, probabilities cast back before the value product."""
+    s = q.shape[1]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    return _dense_masked_attention(q, k, v, mask.tril() if causal else mask,
+                                   1.0 / math.sqrt(q.shape[-1]))
+
+
+def rms_norm(x, w, eps: float):
+    """The train step's RMSNorm: scale computed in fp32, the normalised
+    value rounded to x's dtype, then times the gain."""
+    ms = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(ms + eps)).to(x.dtype) * w
+
+
+def block_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
+                cfg: LlamaConfig, cos, sin, attn_fn=None) -> torch.Tensor:
+    """One dense Llama block of the train step (the JAX ``block_apply``
+    without tensor or sequence parallelism and without MoE).  ``attn_fn(q,
+    k, v)`` takes ``[b, s, h, d]`` with grouped kv heads; None takes the
+    dense :func:`_gqa_attention`."""
+    b, s = x.shape[0], x.shape[1]
+    eps = cfg.rms_norm_eps
+    res = x
+    y = rms_norm(x, params["ln1_w"], eps)
+    q = (y @ params["q_w"]).reshape(b, s, -1, cfg.head_dim)
+    k = (y @ params["k_w"]).reshape(b, s, -1, cfg.head_dim)
+    v = (y @ params["v_w"]).reshape(b, s, -1, cfg.head_dim)
+    q, k = apply_rope(q, k, cos, sin)
+    attn = attn_fn(q, k, v) if attn_fn is not None else \
+        _gqa_attention(q, k, v, causal=True)
+    x = res + attn.reshape(b, s, -1) @ params["o_w"]
+    y = rms_norm(x, params["ln2_w"], eps)
+    h = torch.nn.functional.silu(y @ params["gate_w"]) * (y @ params["up_w"])
+    return x + h @ params["down_w"]

@@ -243,3 +243,101 @@ def test_rms_norm_rope_attention_kernels_match_plain(dt):
            K.paged_attention_ref(rq, pk_r, pv_r, block_table=c["bt"],
                                  lengths=c["lengths"]), dt)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------- flash attention
+# (B, Sq, Sk, Hq, Hkv, D, causal, segments, bias shape or None)
+FLASH_CASES = [(2, 128, 128, 4, 4, 128, True, False, None),
+               (1, 100, 100, 4, 2, 64, True, False, None),
+               (2, 70, 130, 2, 1, 64, False, False, None),
+               (2, 130, 70, 2, 1, 64, True, False, None),
+               (2, 96, 96, 2, 2, 64, True, True, None),
+               (2, 64, 64, 4, 2, 64, False, False, (1, 4)),
+               (2, 80, 80, 4, 2, 128, True, False, (2, 1))]
+FLASH_IDS = ["mha-causal-d128", "gqa-ragged-d64", "sq-ne-sk-full",
+             "sq-gt-sk-causal", "segments", "bias-1hq", "bias-b1-d128"]
+
+
+def _flash_case(case, dt, seed=7):
+    from paddle_tpu_torch.ops.flash_attention import flash_fwd_ref
+    B, Sq, Sk, Hq, Hkv, D, causal, seg, bias = case
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt)
+    c = dict(q=t(B, Sq, Hq, D), k=t(B, Sk, Hkv, D), v=t(B, Sk, Hkv, D),
+             do=t(B, Sq, Hq, D), scale=D ** -0.5, causal=causal)
+    c["seg_q"] = c["seg_k"] = c["bias"] = None
+    if seg:                                 # contiguous runs: no empty row
+        s = np.sort(rng.integers(0, 3, (B, Sq)), axis=1).astype(np.int32)
+        c["seg_q"] = c["seg_k"] = torch.from_numpy(s).cuda()
+    if bias is not None:
+        c["bias"] = torch.from_numpy(rng.standard_normal(
+            bias + (Sq, Sk)).astype(np.float32)).cuda()
+    c["out"], c["lse"] = flash_fwd_ref(c["q"], c["k"], c["v"], c["scale"],
+                                       causal, c["seg_q"], c["seg_k"],
+                                       c["bias"])
+    return c
+
+
+def _flash_ok(name, got, plain, truth, dt):
+    """fp32: within 1e-4 of the plain version.  bf16: within 2e-2, or no
+    further from the fp32 result than 1.5 x the plain bf16 version (the
+    kernel rounds p against its running max, the plain version against
+    the row's final max)."""
+    g, p, t = got.float(), plain.float(), truth.float()
+    assert torch.isfinite(g).all(), name
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    if bool(((g - p).abs() <= tol + tol * p.abs()).all()):
+        return
+    assert dt == torch.bfloat16, f"{name}: {float((g - p).abs().max())}"
+    assert float((g - t).abs().max()) <= 1.5 * float((p - t).abs().max()), \
+        name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=FLASH_IDS)
+def test_flash_kernels_match_plain(dt, case):
+    _need_card()
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_attention as fc
+    c = _flash_case(case, dt)
+    f32 = {k: v.float() if isinstance(v, torch.Tensor) and
+           v.is_floating_point() else v for k, v in c.items()}
+    extra = (c["seg_q"], c["seg_k"], c["bias"])
+    args = (c["q"], c["k"], c["v"], c["scale"], c["causal"])
+    args32 = (f32["q"], f32["k"], f32["v"], c["scale"], c["causal"])
+    layer.reset_counts()
+    out, lse = fc.flash_fwd_cuda(*args, *extra)
+    delta = fa.flash_delta(c["out"], c["do"])
+    bw = (c["do"], c["lse"], delta, c["scale"], c["causal"], *extra)
+    dq = fc.flash_bwd_dq_cuda(c["q"], c["k"], c["v"], *bw)
+    dk, dv = fc.flash_bwd_dkv_cuda(c["q"], c["k"], c["v"], *bw)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    t_out, t_lse = fa.flash_fwd_ref(*args32, *extra)
+    _flash_ok("out", out, c["out"], t_out, dt)
+    torch.testing.assert_close(lse, c["lse"], rtol=1e-4, atol=1e-4)
+    plain = fa.flash_bwd_ref(c["q"], c["k"], c["v"], c["out"], c["lse"],
+                             c["do"], c["scale"], c["causal"], *extra)
+    truth = fa.flash_bwd_ref(*args32[:3], f32["out"], c["lse"], f32["do"],
+                             c["scale"], c["causal"], *extra)
+    for name, g, p, t in zip(("dq", "dk", "dv"), (dq, dk, dv), plain, truth):
+        _flash_ok(name, g, p, t, dt)
+
+
+@pytest.mark.gpu
+def test_flash_attention_op_launches_kernels_and_refuses_head_dim():
+    _need_card()
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+    q = torch.randn(1, 64, 2, 64, device="cuda", requires_grad=True)
+    layer.reset_counts()
+    flash_attention(q, q, q, causal=True).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(*[torch.randn(1, 8, 2, 32, device="cuda")] * 3)

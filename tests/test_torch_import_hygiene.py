@@ -59,9 +59,11 @@ from paddle_tpu_torch.models.llama import llama_tiny, init_params
 from paddle_tpu_torch.device import make_generator
 cfg = llama_tiny()
 params = init_params(cfg, make_generator(0, "cpu"), device="cpu")
+from paddle_tpu_torch.parallel import build_llama_train_step
 for call in (lambda: ContinuousBatchingEngine(cfg, params),
              lambda: init_params(cfg, make_generator(0, "cpu")),
-             lambda: make_generator(0)):
+             lambda: make_generator(0),
+             lambda: build_llama_train_step(llama_tiny(fused_head=False))):
     try:
         call()
     except RuntimeError as e:
