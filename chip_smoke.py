@@ -28,12 +28,29 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             at D 64, non-causal, ragged S 1000, Sq != Sk (full and
             causal), segment ids and the two bias layouts; kernel, plain, bound and
             ``scaled_dot_product_attention`` times in bf16;
-6. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
-            train step (remat, dense head): one warm step and 5 timed steps
-            on one seeded batch of 4 x 2048 tokens, with finite and falling
-            losses and the flash kernels' launch counts as predicted; then
+6. linear_ce the four linear-CE head kernels (``linear_ce_fwd``;
+            ``linear_ce_dz``, ``linear_ce_dx``, ``linear_ce_dw`` per vocab
+            slab of the backward) against their plain versions at the
+            Llama head's shape (T 8192, H 4096, V 32000) in bf16 and fp32,
+            at the GPT head's (T 8192, H 768, V 32768, fp32 x with a bf16
+            head), and on small cases: ignore_index with T off the row
+            tiles, label smoothing with an uneven last slab, the [H, V]
+            layout through the op; kernel, plain, bound and dense-chain
+            (``x @ w.T`` then ``F.cross_entropy``) times;
+7. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
+            train step (remat, the fused linear-CE head of the config
+            default): one warm step and 5 timed steps on one seeded batch
+            of 4 x 2048 tokens, with finite and falling losses and the
+            flash and linear-CE kernels' launch counts as predicted; then
             one step's loss and every gradient at 2 layers through the
-            flash kernels against the dense attention path.
+            flash kernels against the dense attention path, and through
+            the fused head against the dense head;
+8. gpt      the JAX bench's GPT row (V 32768, H 768, 12 layers, 12 heads,
+            bf16, no remat) trained by the one-device GPT step at batch
+            8 x 1024: flash attention at head_dim 64 and the fused head
+            (fp32 x from the fp32 final LayerNorm, bf16 tied wte), one
+            warm and 5 timed steps, finite falling losses and launch
+            counts as predicted.
 
 Prints one JSON line of per-kernel numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -62,6 +79,16 @@ TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS = 4, 4, 2048, 1, 5
 FLASH_PER_STEP = {"flash_fwd": 2 * TRAIN_LAYERS,
                   "flash_bwd_dq": TRAIN_LAYERS,
                   "flash_bwd_dkv": TRAIN_LAYERS}
+# the fused head's launches per step: one forward, and one dz, dx and dw
+# launch per vocab slab of default_chunk(V) = 2048 columns (16 slabs for
+# V 32000 and for V 32768)
+LCE_SLABS = 16
+LCE_PER_STEP = {"linear_ce_fwd": 1, "linear_ce_dz": LCE_SLABS,
+                "linear_ce_dx": LCE_SLABS, "linear_ce_dw": LCE_SLABS}
+# the GPT row of the JAX bench (bench.py --config gpt on an accelerator)
+GPT_LAYERS, GPT_B, GPT_S = 12, 8, 1024
+GPT_PER_STEP = {"flash_fwd": GPT_LAYERS, "flash_bwd_dq": GPT_LAYERS,
+                "flash_bwd_dkv": GPT_LAYERS, **LCE_PER_STEP}
 # a whole bf16 step through the flash kernels against the dense attention
 # path: relative L2 distance of the loss and of every gradient leaf
 STEP_REL_L2 = 5e-2
@@ -874,40 +901,266 @@ def phase_flash(results, dev="cuda"):
              f"{r['max_abs_err_fp32']:.2e}")
 
 
+# ------------------------------------------------------------ linear-CE
+# (label, T, H, V, chunk, x dtype, w dtype, ignore_index, label smoothing):
+# the Llama and GPT heads of the train phases (V 32000 in 16 slabs of 2048,
+# the last 1280 wide), then small cases
+LCE_CASES = [
+    ("llama head bf16", 8192, 4096, 32000, 2048, "bfloat16", "bfloat16",
+     None, 0.0),
+    ("llama head fp32", 8192, 4096, 32000, 2048, "float32", "float32", None,
+     0.0),
+    ("gpt head fp32 x bf16 w", 8192, 768, 32768, 2048, "float32",
+     "bfloat16", None, 0.0),
+    ("ignore_index T 1000", 1000, 1024, 5000, 2048, "bfloat16", "bfloat16",
+     -100, 0.0),
+    ("smoothing 0.1 last slab 903", 515, 768, 4999, 1024, "float32",
+     "bfloat16", None, 0.1),
+]
+LCE_TIMED = {"llama head bf16": "main", "gpt head fp32 x bf16 w": "gpt"}
+LCE_NAMES = ("linear_ce_fwd", "linear_ce_dz", "linear_ce_dx",
+             "linear_ce_dw")
+LCE_REPLACES = {"linear_ce_fwd": "paddle_tpu/ops/pallas/linear_ce.py:152",
+                "linear_ce_dz": "paddle_tpu/ops/pallas/linear_ce.py:253",
+                "linear_ce_dx": "paddle_tpu/ops/pallas/linear_ce.py:253",
+                "linear_ce_dw": "paddle_tpu/ops/pallas/linear_ce.py:270"}
+
+
 def rel_l2(a, b):
     a, b = a.double(), b.double()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def lce_bytes_ops(T, H, V, xs, ws):
+    """(bytes, operations, peak-rate dtype) of each linear-CE kernel over
+    one call (all its slabs): each input read once, each output written
+    once, the product 2 T H V; a product with an fp32 operand runs at the
+    fp32 rate."""
+    ops = 2 * T * H * V
+    dt = {2: "bfloat16", 4: "float32"}
+    both = "bfloat16" if xs == ws == 2 else "float32"
+    dz_out = T * V * ws + (T * V * xs if xs != ws else 0)
+    return {"linear_ce_fwd": (T * H * xs + V * H * ws + 3 * T * 4, ops, both),
+            "linear_ce_dz": (T * H * xs + V * H * ws + 3 * T * 4 + dz_out,
+                             ops, both),
+            "linear_ce_dx": (T * V * ws + V * H * ws + T * H * xs, ops,
+                             dt[ws]),
+            "linear_ce_dw": (T * V * xs + T * H * xs + V * H * ws, ops,
+                             dt[xs])}
+
+
+def lce_inputs(case, gen, dev):
+    """x ~ N(0, 1) (a normalised activation), w ~ N(0, 0.02) (the init
+    std), random labels (every 7th ignored where the case has
+    ignore_index) and an N(0, 1) nll cotangent, zero at ignored labels."""
+    import torch
+    _, T, H, V, _, xdn, wdn, ignore, _ = case
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    x = torch.randn(T, H, device=dev, generator=gen).to(dts[xdn])
+    w = (0.02 * torch.randn(V, H, device=dev, generator=gen)).to(dts[wdn])
+    lab = torch.randint(0, V, (T,), device=dev, generator=gen)
+    g = torch.randn(T, device=dev, generator=gen)
+    if ignore is not None:
+        lab[::7] = ignore
+        g = torch.where(lab != ignore, g, 0.0)
+    return x, w, lab, g
+
+
+def check_lce(name, got, plain, truth, bf16, ratios):
+    """fp32 inputs: within 1e-4 of the plain version, elementwise and in
+    relative L2.  A bf16 operand: the ratio rule of :func:`check_layer_out`
+    against ``truth`` (the plain version with dz kept in fp32), and a
+    relative L2 distance from the plain version within 2e-2, or no more
+    than BF16_SLACK x the plain version's own from the truth."""
+    if not bf16:
+        err = check_close(name, got, plain, TOL["float32"])
+        r = rel_l2(got, plain)
+        if r > TOL["float32"]:
+            raise SmokeFailure(f"{name}: rel L2 {r:.3e} > {TOL['float32']}")
+        return err
+    err = check_layer_out(name, got, plain, truth, TOL["bfloat16"], ratios)
+    r = rel_l2(got, plain)
+    if r > TOL["bfloat16"] and \
+            rel_l2(got, truth) > BF16_SLACK * rel_l2(plain, truth):
+        raise SmokeFailure(f"{name}: rel L2 {r:.3e} from the plain version "
+                           f"and further from fp32 than it")
+    return err
+
+
+def lce_times(case, x, w, lab, lse, g):
+    """Device ms per call of each kernel (its launches over one forward or
+    backward call), the plain versions' and the dense chain's, and the
+    bounds."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import fused_cross_entropy as fce
+    from paddle_tpu_torch.ops.cuda import linear_ce as lc
+    _, T, H, V, chunk, _, _, ignore, eps = case
+    kw = dict(label_smoothing=eps)
+    out = {}
+    ms, call = time_ms(lambda: lc.linear_ce_fwd_cuda(
+        x, w, lab, ignore_index=ignore, **kw), 5, per_launch=True)
+    out["linear_ce_fwd"] = dict(ms=ms, call_ms=call)
+    by = {}
+    _, call = time_ms(lambda: lc.linear_ce_bwd_cuda(
+        x, w, lab, lse, g, chunk=chunk, **kw), 3, by)
+    for name in LCE_NAMES[1:]:
+        hit = [(mean, n) for k, (mean, n) in by.items() if name + "<" in k]
+        out[name] = dict(ms=sum(mean * n for mean, n in hit) if hit else None,
+                         launches_per_call=sum(n for _, n in hit),
+                         call_ms=call)
+    plain_fwd = time_ms(lambda: fce.lce_fwd_ref(
+        x, w, lab, chunk=chunk, ignore_index=ignore, **kw), 2)
+    plain_bwd = time_ms(lambda: fce.lce_bwd_ref(
+        x, w, lab, lse, g, chunk=chunk, **kw), 1)
+
+    def dense(xx, ww):
+        return F.cross_entropy((xx @ ww.to(xx.dtype).t()).float(), lab,
+                               reduction="none")
+    lib_fwd = time_ms(lambda: dense(x, w), 5)[0]
+    xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+    lib_fb = time_ms(lambda: torch.autograd.grad(
+        (dense(xr, wr) * g).sum(), (xr, wr)), 3)[0]
+    bo = lce_bytes_ops(T, H, V, x.element_size(), w.element_size())
+    for name in LCE_NAMES:
+        fwd = name == "linear_ce_fwd"
+        nbytes, ops, dtn = bo[name]
+        bms, bby = bound_ms(nbytes, ops, dtn)
+        out[name].update(
+            plain_ms=(plain_fwd if fwd else plain_bwd)[0],
+            plain_call_ms=(plain_fwd if fwd else plain_bwd)[1],
+            bound_ms=bms, bound_by=bby,
+            library_ms=lib_fwd if fwd else lib_fb)
+    return out
+
+
+def phase_linear_ce(results, dev="cuda"):
+    """The four linear-CE kernels against their plain versions; times at
+    the Llama (main path) and GPT heads' shapes."""
+    import torch
+    from paddle_tpu_torch.ops import fused_cross_entropy as fce
+    from paddle_tpu_torch.ops.cuda import linear_ce as lc
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    err, ratios, timed = {}, {n: [] for n in LCE_NAMES}, {}
+    for case in LCE_CASES:
+        label, T, H, V, chunk, xdn, wdn, ignore, eps = case
+        x, w, lab, g = lce_inputs(case, gen, dev)
+        bf16 = "bfloat16" in (xdn, wdn)
+        dtn = "bfloat16" if bf16 else "float32"
+        kw = dict(label_smoothing=eps)
+        nll, lse = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw)
+        c0 = (V - 1) // chunk * chunk          # the last, narrowest slab
+        dz_w, dz_x = lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, V - c0,
+                                          **kw)
+        dx, dw = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        nll_p, lse_p = fce.lce_fwd_ref(x, w, lab, chunk=chunk,
+                                       ignore_index=ignore, **kw)
+        # nll and lse are fp32 sums of products of the same operands on both
+        # sides, whatever their dtype: held at the fp32 tolerance
+        e = {"linear_ce_fwd": max(
+            check_close(f"lce {label} nll", nll, nll_p, TOL["float32"]),
+            check_close(f"lce {label} lse", lse, lse_p, TOL["float32"]))}
+        dz_t = fce.lce_dz_ref(x, w[c0:], lab, lse, g, c0, V, eps)
+        e["linear_ce_dz"] = max(check_lce(
+            f"lce {label} dz ({dz.dtype}, slab {c0}:{V})", dz,
+            dz_t.to(dz.dtype), dz_t, dz.dtype == torch.bfloat16,
+            ratios["linear_ce_dz"]) for dz in (dz_w, dz_x))
+        dx_p, dw_p = fce.lce_bwd_ref(x, w, lab, lse, g, chunk=chunk, **kw)
+        dx_t = dw_t = None
+        if bf16:                  # dz kept in fp32, the grads unrounded
+            dx_t, dw_t = fce.lce_bwd_ref(x.float(), w.float(), lab, lse, g,
+                                         chunk=chunk, **kw)
+        e["linear_ce_dx"] = check_lce(f"lce {label} dx", dx, dx_p, dx_t,
+                                      bf16, ratios["linear_ce_dx"])
+        e["linear_ce_dw"] = check_lce(f"lce {label} dw", dw, dw_p, dw_t,
+                                      bf16, ratios["linear_ce_dw"])
+        for name, v in e.items():
+            err[name, dtn] = max(err.get((name, dtn), 0.0), v)
+        info(f"lce {label} (T {T}, H {H}, V {V}, chunk {chunk}, x {xdn}, "
+             f"w {wdn}): max |kernel - plain| " + ", ".join(
+                 f"{k[10:]} {v:.2e}" for k, v in e.items()))
+        del nll_p, lse_p, dz_t, dx_p, dw_p, dx_t, dw_t, dx, dw, dz_w, dz_x
+        torch.cuda.empty_cache()
+        if label in LCE_TIMED:
+            timed[LCE_TIMED[label]] = (label, lce_times(case, x, w, lab,
+                                                        lse, g))
+        del x, w, lab, g, nll, lse
+        torch.cuda.empty_cache()
+
+    # the [H, V] Llama layout through the op, fwd + bwd, against the plain
+    # versions on the transposed head
+    x = torch.randn(2, 300, 512, device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_(True)
+    head = (0.02 * torch.randn(512, 3000, device=dev, generator=gen)).to(
+        torch.bfloat16).requires_grad_(True)
+    lab = torch.randint(0, 3000, (2, 300), device=dev, generator=gen)
+    g = torch.randn(2, 300, device=dev, generator=gen)
+    (fce.linear_cross_entropy(x, head, lab, w_layout="hv", chunk=1024)
+     * g).sum().backward()
+    torch.cuda.synchronize()
+    x2, w2, lab2 = x.detach().reshape(600, 512), head.detach().t(), \
+        lab.reshape(-1)
+    _, lse = fce.lce_fwd_ref(x2, w2, lab2, chunk=1024)
+    dx_p, dw_p = fce.lce_bwd_ref(x2, w2, lab2, lse, g.reshape(-1),
+                                 chunk=1024)
+    dx_t, dw_t = fce.lce_bwd_ref(x2.float(), w2.float(), lab2, lse,
+                                 g.reshape(-1), chunk=1024)
+    e_dx = check_lce("lce hv layout dx", x.grad.reshape(600, 512), dx_p,
+                     dx_t, True, ratios["linear_ce_dx"])
+    e_dw = check_lce("lce hv layout dw", head.grad, dw_p.t(), dw_t.t(), True,
+                     ratios["linear_ce_dw"])
+    info(f"lce [H, V] layout through the op (T 600, H 512, V 3000, chunk "
+         f"1024, bf16): max |kernel - plain| dx {e_dx:.2e}, dw {e_dw:.2e}")
+
+    label, main = timed["main"]
+    gpt_label, gpt = timed["gpt"]
+    for name in LCE_NAMES:
+        r, q = main[name], gpt[name]
+        fwd = name == "linear_ce_fwd"
+        results.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/linear_ce.cu",
+            replaces=LCE_REPLACES[name],
+            shape="x [8192, 4096] bf16, w [32000, 4096] bf16" + (
+                "" if fwd else ", 16 slabs of 2048 vocab rows"),
+            max_abs_err=err[name, "bfloat16"],
+            max_abs_err_fp32=err[name, "float32"],
+            ms=r["ms"], call_ms=r["call_ms"],
+            launches_per_call=1 if fwd else r["launches_per_call"],
+            plain_ms=r["plain_ms"], plain_call_ms=r["plain_call_ms"],
+            plain_what="lce_fwd_ref" if fwd else
+            "lce_bwd_ref (dz, dx and dw together)",
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            library_what="x @ w.T then F.cross_entropy, forward (two calls)"
+            if fwd else "x @ w.T then F.cross_entropy, forward + backward "
+            "(two calls and their autograd)",
+            bf16_vs_fp32_ratio=max(ratios[name], default=None),
+            gpt={k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}))
+        info(f"{name} {label}: device {r['ms']} ms per call, bound "
+             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+             f"{r['plain_ms']} ms, dense chain {r['library_ms']} ms; "
+             f"{gpt_label}: device {q['ms']} ms, bound {q['bound_ms']:.4f} "
+             f"ms ({q['bound_by']}), plain {q['plain_ms']} ms, dense chain "
+             f"{q['library_ms']} ms")
+
+
 def tree_leaves(tree):
-    out = [(k, tree[k]) for k in ("wte", "head", "lnf_w")]
-    return out + [(f"blocks.{k}", v) for k, v in sorted(
-        tree["blocks"].items())]
+    return [(k, v) for k, v in tree.items() if k != "blocks"] + [
+        (f"blocks.{k}", v) for k, v in sorted(tree["blocks"].items())]
 
 
-def phase_train(dev="cuda"):
-    """llama_7b(num_layers=4) bf16 through the one-device train step."""
-    import numpy as np
+def run_steps(tag, step, state, ids_t, labels_t, per_step):
+    """One warm and TRAIN_STEPS timed steps on one batch, the launch
+    counts zeroed before and read after (they must be ``per_step`` per
+    step, every other kernel 0), finite falling losses; then one profiled
+    step.  Returns ``(counts, summary)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.models.llama import llama_7b
     from paddle_tpu_torch.ops.cuda import layer
-    from paddle_tpu_torch.parallel.train_step import build_llama_train_step
-
-    cfg = llama_7b(num_layers=TRAIN_LAYERS, dtype="bfloat16",
-                   fused_head=False)
-    t0 = time.perf_counter()
-    step, init = build_llama_train_step(cfg, remat=True)
-    state = init(SEED)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for _, p in tree_leaves(state["params"]))
-    info(f"train: llama_7b x {TRAIN_LAYERS} layers bf16, {n_params} params, "
-         f"state built in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(SEED)
-    ids = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
-    ids_t = torch.from_numpy(ids).to(dev)
-    labels_t = torch.from_numpy(np.roll(ids, -1, axis=1)).to(dev)
-
     torch.cuda.reset_peak_memory_stats()
     layer.reset_counts()
     losses, times = [], []
@@ -921,16 +1174,16 @@ def phase_train(dev="cuda"):
     counts = layer.launch_counts()
     mem = torch.cuda.max_memory_allocated()
     n = TRAIN_WARM + TRAIN_STEPS
-    want = {k: c * n for k, c in FLASH_PER_STEP.items()}
+    want = {k: c * n for k, c in per_step.items()}
     got = {k: c for k, c in counts.items() if c}
     if got != want:
-        raise SmokeFailure(f"train: launch counts {got}, predicted {want} "
+        raise SmokeFailure(f"{tag}: launch counts {got}, predicted {want} "
                            f"(every other kernel 0)")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
-        raise SmokeFailure(f"train: losses {losses} not finite and falling")
+        raise SmokeFailure(f"{tag}: losses {losses} not finite and falling")
     step_ms = 1e3 * sum(times) / len(times)
-    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    tok_s = ids_t.numel() / (step_ms / 1e3)
 
     torch.cuda.synchronize()
     ts = time.perf_counter()
@@ -950,69 +1203,176 @@ def phase_train(dev="cuda"):
     groups = {}
     for k, (ms, _) in by.items():
         g = ("flash kernels" if "pt::flash" in k else
-             "fp32 GEMMs (head)" if "f32f32" in k or "sgemm" in k else
+             "linear-CE kernels" if "pt::lce" in k else
+             "fp32 GEMMs (cuBLAS)" if "f32f32" in k or "sgemm" in k else
              "bf16 GEMMs (cuBLAS)" if "gemm" in k or "nvjet" in k else
              "other torch kernels")
         groups[g] = groups.get(g, 0.0) + ms
-    info(f"train: losses {[round(x, 5) for x in losses]}; step "
+    info(f"{tag}: losses {[round(x, 5) for x in losses]}; step "
          f"{step_ms:.1f} ms (times {[round(1e3 * t, 1) for t in times]}), "
          f"{tok_s:.0f} tokens/s, max memory allocated {mem / 2**30:.2f} GiB; "
          f"launches over {n} steps {got}")
-    info(f"train: profiled step {prof_ms:.1f} ms wall, device busy "
+    info(f"{tag}: profiled step {prof_ms:.1f} ms wall, device busy "
          f"{busy:.1f} ms ({100 * busy / prof_ms:.1f}%); by kernel (ms, "
          f"launches): " + "; ".join(
              f"{k.split('(')[0][:60]} {ms:.2f} x{c}" for k, (ms, c) in top))
-    info("train: device time by group (ms, share of busy): " + "; ".join(
+    info(f"{tag}: device time by group (ms, share of busy): " + "; ".join(
         f"{g} {ms:.2f} ({100 * ms / busy:.1f}%)" for g, ms in sorted(
             groups.items(), key=lambda kv: -kv[1])))
+    return counts, dict(step_ms=step_ms, tokens_per_s=tok_s,
+                        max_memory_bytes=mem, busy_share=busy / prof_ms,
+                        device_ms_by_group=groups, losses=losses,
+                        launches_per_step=per_step)
+
+
+def check_steps(tag, runs, truth, pairs):
+    """Relative L2 distance of the loss and of every gradient leaf between
+    two bf16 configurations of one step: within STEP_REL_L2, or the first
+    no further from the fp32 step ``truth`` than BF16_SLACK x the second.
+    A pair ``(what, a_key, b_key, loss_tol)`` also holds the two losses
+    within ``loss_tol`` of each other, relative."""
+    import torch
+    for what, a_key, b_key, *loss_tol in pairs:
+        a, b = runs[a_key], runs[b_key]
+        r = rel_l2(a[0], b[0])
+        if loss_tol and r > loss_tol[0]:
+            raise SmokeFailure(f"{tag} step check loss: {what} rel L2 "
+                               f"{r:.3e} > {loss_tol[0]}")
+        rows = [("loss", a[0], b[0], truth[0])] + [
+            (n, x, y, t) for (n, x), (_, y), (_, t) in zip(
+                tree_leaves(a[1]), tree_leaves(b[1]), tree_leaves(truth[1]))]
+        worst = 0.0
+        for name, x, y, t in rows:
+            r = rel_l2(x, y)
+            worst = max(worst, r)
+            if not torch.isfinite(x).all():
+                raise SmokeFailure(f"{tag} step check {name}: non-finite")
+            if r > STEP_REL_L2 and rel_l2(x, t) > BF16_SLACK * rel_l2(y, t):
+                raise SmokeFailure(
+                    f"{tag} step check {name}: {what} rel L2 {r:.3e} > "
+                    f"{STEP_REL_L2}, and {a_key} is further from fp32 "
+                    f"({rel_l2(x, t):.3e}) than {BF16_SLACK} x {b_key} "
+                    f"({rel_l2(y, t):.3e})")
+            info(f"{tag} step check {name}: {what}: rel L2 {r:.3e}; vs fp32 "
+                 f"{rel_l2(x, t):.3e} ({a_key}) / {rel_l2(y, t):.3e} "
+                 f"({b_key})")
+        info(f"{tag} step check, {what}: worst rel L2 {worst:.3e} (bound "
+             f"{STEP_REL_L2})")
+
+
+def fp32_state(state):
+    return {"params": {k: (v.float() if not isinstance(v, dict) else
+                           {n: w.float() for n, w in v.items()})
+                       for k, v in state["params"].items()},
+            "opt": state["opt"]}
+
+
+def phase_train(dev="cuda"):
+    """llama_7b(num_layers=4) bf16 through the one-device train step, with
+    the fused head of the config default."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.llama import llama_7b
+    from paddle_tpu_torch.parallel.train_step import build_llama_train_step
+
+    cfg = llama_7b(num_layers=TRAIN_LAYERS, dtype="bfloat16")
+    t0 = time.perf_counter()
+    step, init = build_llama_train_step(cfg, remat=True)
+    state = init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in tree_leaves(state["params"]))
+    info(f"train: llama_7b x {TRAIN_LAYERS} layers bf16, fused head, "
+         f"{n_params} params, state built in {time.perf_counter() - t0:.1f} "
+         f"s")
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))
+    ids_t = torch.from_numpy(ids).to(dev)
+    labels_t = torch.from_numpy(np.roll(ids, -1, axis=1)).to(dev)
+    counts, summary = run_steps("train", step, state, ids_t, labels_t,
+                                {**FLASH_PER_STEP, **LCE_PER_STEP})
     del state
     torch.cuda.empty_cache()
 
-    # one step's loss and gradients at 2 layers: flash kernels vs dense
-    cfg2 = llama_7b(num_layers=2, dtype="bfloat16", fused_head=False)
+    # one step's loss and gradients at 2 layers: the flash kernels against
+    # the dense attention path, and the fused head against the dense head
+    runs = {"flash + dense head": dict(use_flash=True, fused_head=False),
+            "dense attention + dense head": dict(use_flash=False,
+                                                 fused_head=False),
+            "flash + fused head": dict(use_flash=True, fused_head=True)}
     res = {}
-    for flash in (True, False):
-        s2, i2 = build_llama_train_step(cfg2, remat=True, use_flash=flash)
+    for key, kw in runs.items():
+        s2, i2 = build_llama_train_step(
+            llama_7b(num_layers=2, dtype="bfloat16"), remat=True, **kw)
         st = i2(SEED)
-        res[flash] = s2.loss_and_grads(st, ids_t, labels_t)
-        if not flash:
-            st32 = {"params": {k: (v.float() if not isinstance(v, dict) else
-                                   {n: w.float() for n, w in v.items()})
-                               for k, v in st["params"].items()},
-                    "opt": st["opt"]}
+        res[key] = s2.loss_and_grads(st, ids_t, labels_t)
+        if kw["fused_head"]:
+            st32 = fp32_state(st)
         del st
-    s32, _ = build_llama_train_step(llama_7b(num_layers=2, fused_head=False),
-                                    remat=True, use_flash=False)
+    s32, _ = build_llama_train_step(llama_7b(num_layers=2), remat=True,
+                                    use_flash=False, fused_head=False)
     truth = s32.loss_and_grads(st32, ids_t, labels_t)
     del st32
-    worst = 0.0
-    rows = [("loss", res[True][0], res[False][0], truth[0])] + [
-        (n, g, d, t) for (n, g), (_, d), (_, t) in zip(
-            tree_leaves(res[True][1]), tree_leaves(res[False][1]),
-            tree_leaves(truth[1]))]
-    for name, g, d, t in rows:
-        r = rel_l2(g, d)
-        worst = max(worst, r)
-        if not torch.isfinite(g).all():
-            raise SmokeFailure(f"train step check {name}: non-finite")
-        if r > STEP_REL_L2:
-            g_t, d_t = rel_l2(g, t), rel_l2(d, t)
-            if g_t > BF16_SLACK * d_t:
-                raise SmokeFailure(
-                    f"train step check {name}: flash vs dense rel L2 {r:.3e}"
-                    f" > {STEP_REL_L2}, and flash is further from fp32 "
-                    f"({g_t:.3e}) than {BF16_SLACK} x dense ({d_t:.3e})")
-        info(f"train step check {name}: rel L2 flash vs dense {r:.3e}, "
-             f"flash vs fp32 {rel_l2(g, t):.3e}, dense vs fp32 "
-             f"{rel_l2(d, t):.3e}")
-    info(f"train step check (llama_7b x 2 layers, bf16, {TRAIN_B} x "
-         f"{TRAIN_S}): worst rel L2 flash vs dense {worst:.3e} (bound "
-         f"{STEP_REL_L2})")
+    check_steps(f"train (llama_7b x 2 layers, bf16, {TRAIN_B} x {TRAIN_S})",
+                res, truth,
+                (("flash vs dense attention", "flash + dense head",
+                  "dense attention + dense head"),
+                 ("fused vs dense head", "flash + fused head",
+                  "flash + dense head", TOL["float32"])))
     del res, truth
     torch.cuda.empty_cache()
-    return counts, dict(step_ms=step_ms, tokens_per_s=tok_s,
-                        max_memory_bytes=mem, busy_share=busy / prof_ms,
-                        device_ms_by_group=groups, losses=losses)
+    return counts, summary
+
+
+def phase_gpt_train(dev="cuda"):
+    """The JAX bench's GPT row through the one-device GPT step: flash at
+    head_dim 64, the fused head on fp32 x and the bf16 tied wte."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.parallel.train_step import build_gpt_train_step
+
+    def config(**kw):
+        return GPTConfig(vocab_size=32768, hidden_size=768, num_heads=12,
+                         max_position_embeddings=GPT_S, **kw)
+    cfg = config(num_layers=GPT_LAYERS, dtype="bfloat16")
+    t0 = time.perf_counter()
+    step, init = build_gpt_train_step(cfg, remat=False)
+    state = init(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in tree_leaves(state["params"]))
+    info(f"gpt: V 32768, H 768, {GPT_LAYERS} layers, 12 heads, bf16, fused "
+         f"head, no remat, {n_params} params, state built in "
+         f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, cfg.vocab_size, (GPT_B, GPT_S))
+    ids_t = torch.from_numpy(ids).to(dev)
+    labels_t = torch.from_numpy(np.roll(ids, -1, axis=1)).to(dev)
+    counts, summary = run_steps("gpt", step, state, ids_t, labels_t,
+                                GPT_PER_STEP)
+    del state
+    torch.cuda.empty_cache()
+
+    # one step at 2 layers: the fused head against the dense head
+    res = {}
+    for fused in (True, False):
+        s2, i2 = build_gpt_train_step(config(num_layers=2, dtype="bfloat16"),
+                                      remat=False, fused_head=fused)
+        st = i2(SEED)
+        res[fused] = s2.loss_and_grads(st, ids_t, labels_t)
+        if fused:
+            st32 = fp32_state(st)
+        del st
+    s32, _ = build_gpt_train_step(config(num_layers=2), remat=False,
+                                  use_flash=False, fused_head=False)
+    truth = s32.loss_and_grads(st32, ids_t, labels_t)
+    del st32
+    check_steps(f"gpt (2 layers, bf16, {GPT_B} x {GPT_S})",
+                {"fused head": res[True], "dense head": res[False]}, truth,
+                (("fused vs dense head", "fused head", "dense head",
+                  TOL["float32"]),))
+    del res, truth
+    torch.cuda.empty_cache()
+    return counts, summary
 
 
 def main():
@@ -1039,18 +1399,26 @@ def main():
         torch.cuda.empty_cache()
         phase_flash(kernels)
         torch.cuda.empty_cache()
+        phase_linear_ce(kernels)
+        torch.cuda.empty_cache()
         train_counts, train = phase_train()
+        gpt_counts, gpt = phase_gpt_train()
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         info(f"FAILED: {type(e).__name__}: {e}")
         return 1
     for k in kernels:
-        k["launches"] = (train_counts if k["name"] in FLASH_PER_STEP
-                         else counts).get(k["name"], 0)
+        if k["name"] in GPT_PER_STEP:      # the training kernels
+            by = {"train": train_counts[k["name"]],
+                  "gpt": gpt_counts[k["name"]]}
+            k["launches"], k["launches_by_phase"] = sum(by.values()), by
+        else:
+            k["launches"] = counts.get(k["name"], 0)
         for key, fallback in (("ms", "call_ms"), ("plain_ms", "plain_call_ms")):
             if k[key] is None:           # the profiler recorded no kernels
                 k[key] = k[fallback]
                 k["timing"] = "cuda events"
     info(f"train summary {json.dumps(train)}")
+    info(f"gpt summary {json.dumps(gpt)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@ counterpart for one H100.  It covers greedy Llama serving through the
 continuous-batching engine (:class:`inference.serving.ContinuousBatchingEngine`:
 bucketed chunk prefill through the ``prefill_block`` op, the batched
 paged-KV decode step through the ``decode_block`` op) and the one-device
-Llama train step (:func:`parallel.build_llama_train_step`, attention
-through the ``flash_attention`` op).  On a CUDA tensor the ops launch
+Llama and GPT train steps (:func:`parallel.build_llama_train_step`,
+:func:`parallel.build_gpt_train_step`: attention through the
+``flash_attention`` op, the head through the logits-free
+``linear_cross_entropy`` op).  On a CUDA tensor the ops launch
 hand-written kernels (``kernels/csrc``); on a CPU tensor they run their
 plain PyTorch versions, which the tests hold against the JAX package.
 

@@ -1,16 +1,18 @@
 """Hand a JAX parameter tree or train state to the port.
 
-The JAX train step stores blocks pipeline-stacked ``[S, per, ...]``;
-:func:`params_from_numpy` takes that tree as numpy arrays (or anything
-``numpy.asarray`` accepts), collapses the blocks to ``[L, ...]`` as the
-JAX engine's ``_collapse_blocks`` does, and returns torch tensors, so
-both packages compute with the same numbers.  :func:`state_from_numpy`
-does the same for a whole one-device train state, Adam moments included.
+The JAX train steps store blocks pipeline-stacked ``[S, per, ...]``;
+:func:`params_from_numpy` takes such a tree (Llama's ``wte``, ``head``,
+``lnf_w``; GPT's ``wte``, ``wpe``, ``lnf_w``, ``lnf_b``; and ``blocks``) as
+numpy arrays (or anything ``numpy.asarray`` accepts), collapses the blocks
+to ``[L, ...]`` as the JAX engine's ``_collapse_blocks`` does, and returns
+torch tensors, so both packages compute with the same numbers.
+:func:`state_from_numpy` does the same for a whole one-device train state,
+Adam moments included.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -22,28 +24,35 @@ from .models.llama import torch_dtype
 __all__ = ["params_from_numpy", "state_from_numpy"]
 
 
-def _to_torch(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def _to_torch(a, dtype: Optional[torch.dtype],
+              device: torch.device) -> torch.Tensor:
+    """A torch copy of ``a`` in ``dtype``, or in its own dtype when None
+    (ml_dtypes bfloat16 arrays from JAX become torch.bfloat16)."""
     arr = np.asarray(a)
-    if arr.dtype.name == "bfloat16":      # ml_dtypes arrays from JAX
-        arr = arr.astype(np.float32)
-    return torch.from_numpy(np.array(arr, order="C", copy=True)).to(
-        device=device, dtype=dtype)
+    bf16 = arr.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.array(arr.astype(np.float32) if bf16 else arr,
+                                  order="C", copy=True))
+    if dtype is None:
+        dtype = torch.bfloat16 if bf16 else t.dtype
+    return t.to(device=device, dtype=dtype)
 
 
-def params_from_numpy(tree: Dict[str, object], dtype="float32",
+def params_from_numpy(tree: Dict[str, object], dtype=None,
                       device=None) -> Dict[str, object]:
-    """``{"wte", "head", "lnf_w", "blocks": {name: [S, per, ...]}}`` ->
-    the port's tree with blocks ``[L, ...]`` in ``dtype`` on ``device``."""
+    """``{top-level leaves..., "blocks": {name: [S, per, ...]}}`` -> the
+    port's tree with blocks ``[L, ...]`` on ``device``.  Every leaf is cast
+    to ``dtype`` when one is given, else keeps its own dtype (GPT's fp32
+    ``lnf_w`` / ``lnf_b`` beside bf16 weights)."""
     dev = resolve_device(device)
-    dt = torch_dtype(dtype)
+    dt = None if dtype is None else torch_dtype(dtype)
+    out = {k: _to_torch(v, dt, dev) for k, v in tree.items() if k != "blocks"}
     blocks = {k: _to_torch(v, dt, dev) for k, v in tree["blocks"].items()}
-    out = {k: _to_torch(tree[k], dt, dev) for k in ("wte", "head", "lnf_w")}
     out["blocks"] = {k: v.contiguous()
                      for k, v in _collapse_blocks(blocks).items()}
     return out
 
 
-def state_from_numpy(state: Dict[str, object], dtype="float32",
+def state_from_numpy(state: Dict[str, object], dtype=None,
                      device=None) -> Dict[str, object]:
     """A one-device JAX train state ``{"params", "opt": {"m", "v", "t"}}``
     -> the port's: params through :func:`params_from_numpy`; each flat
@@ -53,8 +62,8 @@ def state_from_numpy(state: Dict[str, object], dtype="float32",
     params = params_from_numpy(state["params"], dtype, dev)
 
     def moments(tree):
-        out = {k: _to_torch(tree[k], torch.float32, dev).reshape(
-            params[k].shape) for k in ("wte", "head", "lnf_w")}
+        out = {k: _to_torch(v, torch.float32, dev).reshape(params[k].shape)
+               for k, v in tree.items() if k != "blocks"}
         out["blocks"] = {k: _to_torch(v, torch.float32, dev).reshape(
             params["blocks"][k].shape) for k, v in tree["blocks"].items()}
         return out

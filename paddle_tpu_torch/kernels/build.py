@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "LayerArgs",
-           "FlashArgs", "library", "check", "NVCC_FLAGS"]
+           "FlashArgs", "LceArgs", "library", "check", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -68,6 +68,17 @@ class FlashArgs(ctypes.Structure):
                 + [(n, ctypes.c_void_p) for n in
                    ("q", "k", "v", "dout", "delta", "bias", "seg_q", "seg_k",
                     "lse", "out", "dq", "dk", "dv")])
+
+
+class LceArgs(ctypes.Structure):
+    """Mirror of ``struct LceArgs`` in ``csrc/common.cuh``."""
+    _fields_ = ([(n, ctypes.c_int) for n in
+                 ("x_dtype", "w_dtype", "T", "H", "V", "c0", "width", "ldz",
+                  "has_ignore", "ignore_index", "first", "last")]
+                + [("eps", ctypes.c_float)]
+                + [(n, ctypes.c_void_p) for n in
+                   ("x", "w", "labels", "g", "nll", "lse", "dz_w", "dz_x",
+                    "dx_acc", "dx", "dw")])
 
 
 _lock = threading.Lock()
@@ -133,9 +144,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ptr = ctypes.POINTER(LayerArgs)
     fptr = ctypes.POINTER(FlashArgs)
+    lptr = ctypes.POINTER(LceArgs)
     sigs = {"pt_decode_block": [ptr, P], "pt_prefill_block": [ptr, P],
             "pt_flash_fwd": [fptr, P], "pt_flash_bwd_dq": [fptr, P],
             "pt_flash_bwd_dkv": [fptr, P],
+            "pt_linear_ce_fwd": [lptr, P], "pt_linear_ce_dz": [lptr, P],
+            "pt_linear_ce_dx": [lptr, P], "pt_linear_ce_dw": [lptr, P],
             "pt_rope_kv_write": [ptr, P], "pt_paged_attention": [ptr, P],
             "pt_rms_norm_rows": [I, I, I, P, P, P, Fl, P],
             "pt_gemm_xw": [I, I, I, I, I, P, P, P, P, P, P],

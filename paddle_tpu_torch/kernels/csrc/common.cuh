@@ -53,6 +53,28 @@ struct FlashArgs {
   void *out, *dq, *dk, *dv;
 };
 
+// One launch of the linear-CE head (linear_ce.cu).  x [T, H] in x_dtype,
+// w [V, H] in w_dtype, both contiguous; labels int32 [T]; nll, lse, g fp32
+// [T].  The backward kernels work on the vocab slab [c0, c0 + width) with
+// dz scratch [T, ldz] (ldz = width rounded up to 8).  Mirrored field for
+// field by the ctypes Structure in paddle_tpu_torch/kernels/build.py.
+struct LceArgs {
+  int x_dtype, w_dtype;       // PT_F32 | PT_BF16
+  int T, H, V;
+  int c0, width, ldz;         // backward: the slab and dz's leading dim
+  int has_ignore, ignore_index;
+  int first, last;            // linear_ce_dx: first slab / last slab
+  float eps;                  // label smoothing
+  const void *x, *w;
+  const int *labels;
+  const float *g;             // cotangent of nll, 0 at ignore_index
+  float *nll, *lse;           // written by linear_ce_fwd; lse read back
+  void *dz_w, *dz_x;          // dz in w's / x's dtype (one buffer if equal)
+  float *dx_acc;              // [T, H] fp32 accumulator over the slabs
+  void *dx;                   // [T, H] x's dtype (dx_acc itself for fp32 x)
+  void *dw;                   // [V, H] w's dtype
+};
+
 namespace pt {
 
 typedef __nv_bfloat16 bf16;
@@ -102,6 +124,10 @@ enum {
   CNT_FLASH_FWD,
   CNT_FLASH_BWD_DQ,
   CNT_FLASH_BWD_DKV,
+  CNT_LINEAR_CE_FWD,
+  CNT_LINEAR_CE_DZ,
+  CNT_LINEAR_CE_DX,
+  CNT_LINEAR_CE_DW,
   CNT_NUM
 };
 
@@ -120,3 +146,7 @@ cudaError_t launch_paged_attention(const LayerArgs *a, cudaStream_t s);
 cudaError_t launch_flash_fwd(const FlashArgs *a, cudaStream_t s);
 cudaError_t launch_flash_bwd_dq(const FlashArgs *a, cudaStream_t s);
 cudaError_t launch_flash_bwd_dkv(const FlashArgs *a, cudaStream_t s);
+cudaError_t launch_linear_ce_fwd(const LceArgs *a, cudaStream_t s);
+cudaError_t launch_linear_ce_dz(const LceArgs *a, cudaStream_t s);
+cudaError_t launch_linear_ce_dx(const LceArgs *a, cudaStream_t s);
+cudaError_t launch_linear_ce_dw(const LceArgs *a, cudaStream_t s);

@@ -46,8 +46,8 @@ class LlamaConfig:
     # the JAX train step keeps an untied head whatever this says; kept for
     # config parity
     tie_word_embeddings: bool = False
-    # logits-free fused linear-CE head (the JAX default); the port's train
-    # step has only the dense head so far and refuses True by name
+    # logits-free fused linear-CE head (ops/fused_cross_entropy.py), the
+    # JAX default; False takes the dense fp32-logits head
     fused_head: bool = True
 
     @property

@@ -24,11 +24,13 @@ __all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
 #: the library's launch counters, in the order of the ``CNT_*`` enum in
 #: ``kernels/csrc/common.cuh``: the two layer entry points, then one per
 #: ``__global__`` kernel (the GEMM's three kernels apart), then the three
-#: flash-attention kernels of the training path
+#: flash-attention kernels and the four linear-CE head kernels of the
+#: training path
 KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "gemm_xw_small_m", "gemm_xw_tiled", "gemm_xw_f32",
            "rope_kv_write", "paged_attention", "flash_fwd", "flash_bwd_dq",
-           "flash_bwd_dkv")
+           "flash_bwd_dkv", "linear_ce_fwd", "linear_ce_dz", "linear_ce_dx",
+           "linear_ce_dw")
 
 WEIGHTS = ("ln1_w", "q_w", "k_w", "v_w", "o_w", "ln2_w", "gate_w", "up_w",
            "down_w")

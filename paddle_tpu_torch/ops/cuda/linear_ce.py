@@ -1,0 +1,135 @@
+"""The linear-CE head's kernels on the card: ``linear_ce_fwd``,
+``linear_ce_dz``, ``linear_ce_dx`` and ``linear_ce_dw``
+(``kernels/csrc/linear_ce.cu``).
+
+Each wrapper checks its tensors, allocates its outputs and scratch and
+launches on the current stream; it takes CUDA tensors only and raises on
+anything the kernels do not take (a hidden size that is not a multiple of
+8, no tokens, a dtype other than float32 / bfloat16).  ``x`` and ``w`` are
+made contiguous (a no-op except for the transposed ``[H, V]`` Llama head)
+and labels int32.  :func:`linear_ce_bwd_cuda` sweeps the vocab in slabs of
+``chunk`` rows of ``w``, launching ``linear_ce_dz``, ``linear_ce_dx`` and
+``linear_ce_dw`` once per slab.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...kernels import build
+from . import layer
+
+__all__ = ["linear_ce_fwd_cuda", "linear_ce_dz_cuda", "linear_ce_bwd_cuda"]
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _args(x2, w, labels, label_smoothing=0.0, ignore_index=None):
+    """Check the inputs every kernel reads; return ``(LceArgs, tensors)``
+    with the checked tensors to keep alive."""
+    if not isinstance(x2, torch.Tensor) or x2.device.type != "cuda":
+        raise ValueError("linear-CE kernels need CUDA tensors")
+    dev = x2.device
+    if x2.ndim != 2 or w.ndim != 2 or w.shape[1] != x2.shape[1]:
+        raise ValueError(f"linear-CE kernels take x [T, H] and w [V, H]; got "
+                         f"{tuple(x2.shape)} and {tuple(w.shape)}")
+    T, H = x2.shape
+    V = w.shape[0]
+    if T == 0 or V == 0:
+        raise ValueError(f"linear-CE kernels need tokens and a vocabulary, "
+                         f"got T={T}, V={V}")
+    if H % 8:
+        raise ValueError(f"linear-CE kernels take a hidden size that is a "
+                         f"multiple of 8, got {H}")
+    x2, w = x2.contiguous(), w.contiguous()
+    layer.check_tensor(x2, "x", (T, H), x2.dtype, dev)
+    layer.check_tensor(w, "w", (V, H), w.dtype, dev)
+    labels = labels.to(device=dev, dtype=torch.int32).contiguous()
+    layer.check_tensor(labels, "labels", (T,), torch.int32, dev)
+    a = build.LceArgs(
+        x_dtype=layer.dtype_code(x2.dtype), w_dtype=layer.dtype_code(w.dtype),
+        T=T, H=H, V=V, has_ignore=int(ignore_index is not None),
+        ignore_index=int(ignore_index or 0), eps=float(label_smoothing),
+        x=x2.data_ptr(), w=w.data_ptr(), labels=labels.data_ptr())
+    return a, [x2, w, labels]
+
+
+def _launch(fn_name, a):
+    build.check(getattr(build.library(), fn_name)(ctypes.byref(a),
+                                                  layer.stream_handle()),
+                fn_name)
+
+
+def linear_ce_fwd_cuda(x2, w, labels, *, ignore_index=None,
+                       label_smoothing=0.0):
+    """``(nll [T], lse [T])`` fp32 from ``linear_ce_fwd``; x ``[T, H]``,
+    w ``[V, H]``."""
+    a, keep = _args(x2, w, labels, label_smoothing, ignore_index)
+    nll = torch.empty(a.T, dtype=torch.float32, device=x2.device)
+    lse = torch.empty(a.T, dtype=torch.float32, device=x2.device)
+    a.nll, a.lse = nll.data_ptr(), lse.data_ptr()
+    _launch("pt_linear_ce_fwd", a)
+    del keep
+    return nll, lse
+
+
+def _bwd_args(x2, w, labels, lse, g, label_smoothing, width):
+    """The backward's ``LceArgs``, its tensors, and dz scratch for slabs up
+    to ``width`` rows: ``[T, round8(width)]`` in w's dtype, and in x's where
+    the two differ."""
+    a, keep = _args(x2, w, labels, label_smoothing)
+    x2, w = keep[0], keep[1]
+    lse = lse.to(device=x2.device, dtype=torch.float32).contiguous()
+    g = g.to(device=x2.device, dtype=torch.float32).contiguous()
+    layer.check_tensor(lse, "lse", (a.T,), torch.float32, x2.device)
+    layer.check_tensor(g, "g", (a.T,), torch.float32, x2.device)
+    dz_w = torch.empty((a.T, _round8(width)), dtype=w.dtype, device=w.device)
+    dz_x = dz_w if x2.dtype == w.dtype else torch.empty(
+        dz_w.shape, dtype=x2.dtype, device=w.device)
+    a.lse, a.g = lse.data_ptr(), g.data_ptr()
+    a.dz_w, a.dz_x = dz_w.data_ptr(), dz_x.data_ptr()
+    return a, keep + [lse, g, dz_w, dz_x]
+
+
+def _slab(a, c0, width):
+    a.c0, a.width, a.ldz = c0, width, _round8(width)
+
+
+def linear_ce_dz_cuda(x2, w, labels, lse, g, c0, width, *,
+                      label_smoothing=0.0):
+    """dz of the vocab slab ``[c0, c0 + width)`` from ``linear_ce_dz``:
+    ``(dz in w's dtype, dz in x's dtype)``, each ``[T, width]`` (one tensor
+    twice when the dtypes agree)."""
+    a, keep = _bwd_args(x2, w, labels, lse, g, label_smoothing, width)
+    _slab(a, int(c0), int(width))
+    _launch("pt_linear_ce_dz", a)
+    dz_w, dz_x = keep[-2], keep[-1]           # [T, ldz], ldz = round8(width)
+    return dz_w[:, :width], dz_x[:, :width]
+
+
+def linear_ce_bwd_cuda(x2, w, labels, lse, g, *, chunk, label_smoothing=0.0):
+    """``(dx [T, H] in x's dtype, dw [V, H] in w's dtype)``: per slab of
+    ``chunk`` vocab rows, ``linear_ce_dz`` then ``linear_ce_dx`` (into an
+    fp32 accumulator; the last slab writes dx) then ``linear_ce_dw``.  ``g``
+    is the nll cotangent, already zero at ignored labels."""
+    V = w.shape[0]
+    C = max(1, min(int(chunk), V))
+    a, keep = _bwd_args(x2, w, labels, lse, g, label_smoothing, C)
+    dev, T, H = x2.device, a.T, a.H
+    dx = torch.empty((T, H), dtype=x2.dtype, device=dev)
+    acc = dx if x2.dtype == torch.float32 else torch.empty(
+        (T, H), dtype=torch.float32, device=dev)
+    dw = torch.empty((V, H), dtype=w.dtype, device=dev)
+    a.dx_acc, a.dx, a.dw = acc.data_ptr(), dx.data_ptr(), dw.data_ptr()
+    for c0 in range(0, V, C):
+        _slab(a, c0, min(C, V - c0))
+        a.first, a.last = int(c0 == 0), int(c0 + C >= V)
+        for fn_name in ("pt_linear_ce_dz", "pt_linear_ce_dx",
+                        "pt_linear_ce_dw"):
+            _launch(fn_name, a)
+    del keep
+    return dx, dw

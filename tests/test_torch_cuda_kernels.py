@@ -127,6 +127,8 @@ def test_layer_counts_follow_the_chain():
                      (csrc / "common.cuh").read_text(), re.S).group(1)
     names = [n.strip()[4:].lower() for n in enum.split(",") if n.strip()]
     assert tuple(names) == layer.KERNELS
+    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "linear_ce_fwd",
+            "linear_ce_dz", "linear_ce_dx", "linear_ce_dw"} <= set(names)
     src = "".join(f.read_text() for f in sorted(csrc.glob("*.cu")))
     for name in names:
         assert src.count(f"count_launch(CNT_{name.upper()},") == 1, name
@@ -341,3 +343,94 @@ def test_flash_attention_op_launches_kernels_and_refuses_head_dim():
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(*[torch.randn(1, 8, 2, 32, device="cuda")] * 3)
+
+
+# ---------------------------------------------------------- linear-CE head
+# (T, H, V, chunk, ignore_index, label_smoothing): T off the 64 / 128 row
+# tiles, V off the 128-column tiles, an uneven last slab (300 = 2 x 128 +
+# 44, its dz scratch padded to 48 columns)
+LCE_CASES = [(100, 64, 300, 128, -100, 0.0), (64, 32, 97, 40, None, 0.1)]
+LCE_IDS = ["ignore-index", "smoothing"]
+LCE_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.bfloat16)]
+LCE_DTYPE_IDS = ["fp32", "bf16", "fp32x-bf16w"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dts", LCE_DTYPES, ids=LCE_DTYPE_IDS)
+@pytest.mark.parametrize("case", LCE_CASES, ids=LCE_IDS)
+def test_linear_ce_kernels_match_plain(dts, case):
+    """nll / lse (fp32 outputs: 1e-4 whatever the inputs' dtype, the
+    products differ only in summation order), the last slab's dz, and
+    dx / dw (1e-4 in fp32, 2e-2 with a bf16 operand) against the plain
+    versions; one fwd launch and one dz, dx and dw launch per slab."""
+    _need_card()
+    from paddle_tpu_torch.ops import fused_cross_entropy as fce
+    from paddle_tpu_torch.ops.cuda import linear_ce as lc
+    xdt, wdt = dts
+    T, Hd, V, chunk, ignore, eps = case
+    rng = np.random.default_rng(11)
+
+    def t(*shape, scale=1.0, dt=torch.float32):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to("cuda", dt)
+    x, w, g = t(T, Hd, dt=xdt), t(V, Hd, scale=0.3, dt=wdt), t(T)
+    lab = torch.from_numpy(rng.integers(0, V, T)).cuda()
+    if ignore is not None:
+        lab[::7] = ignore
+        g = torch.where(lab != ignore, g, 0.0)
+    kw = dict(label_smoothing=eps)
+    layer.reset_counts()
+    nll, lse = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw)
+    dx, dw = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    slabs = -(-V // chunk)
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {
+        "linear_ce_fwd": 1, "linear_ce_dz": slabs, "linear_ce_dx": slabs,
+        "linear_ce_dw": slabs}
+    nll_p, lse_p = fce.lce_fwd_ref(x, w, lab, chunk=chunk,
+                                   ignore_index=ignore, **kw)
+    torch.testing.assert_close(nll, nll_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+    tol = TOL[torch.float32 if xdt == wdt == torch.float32
+              else torch.bfloat16]
+    c0 = (slabs - 1) * chunk                # the uneven last slab
+    dz_w, dz_x = lc.linear_ce_dz_cuda(x, w, lab, lse_p, g, c0, V - c0, **kw)
+    dz_p = fce.lce_dz_ref(x, w[c0:], lab, lse_p, g, c0, V, eps)
+    assert dz_w.dtype == wdt and dz_x.dtype == xdt
+    torch.testing.assert_close(dz_w.float(), dz_p.to(wdt).float(), **tol)
+    torch.testing.assert_close(dz_x.float(), dz_p.to(xdt).float(), **tol)
+    dx_p, dw_p = fce.lce_bwd_ref(x, w, lab, lse_p, g, chunk=chunk, **kw)
+    assert dx.dtype == xdt and dw.dtype == wdt
+    torch.testing.assert_close(dx.float(), dx_p.float(), **tol)
+    torch.testing.assert_close(dw.float(), dw_p.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_linear_cross_entropy_op_launches_kernels_and_refuses_widths():
+    """The op on the card: the [H, V] layout through the kernels (grads in
+    that layout), and a hidden size the kernels do not take raises."""
+    _need_card()
+    from paddle_tpu_torch.ops.fused_cross_entropy import (
+        linear_cross_entropy, lce_bwd_ref, lce_fwd_ref)
+    x = torch.randn(2, 50, 64, device="cuda", requires_grad=True)
+    head = (0.3 * torch.randn(64, 700, device="cuda")).requires_grad_(True)
+    lab = torch.randint(0, 700, (2, 50), device="cuda")
+    layer.reset_counts()
+    linear_cross_entropy(x, head, lab, w_layout="hv", chunk=256).sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {
+        "linear_ce_fwd": 1, "linear_ce_dz": 3, "linear_ce_dx": 3,
+        "linear_ce_dw": 3}
+    x2, w = x.detach().reshape(100, 64), head.detach().t()
+    _, lse = lce_fwd_ref(x2, w, lab.reshape(-1), chunk=256)
+    dx, dw = lce_bwd_ref(x2, w, lab.reshape(-1), lse, torch.ones(
+        100, device="cuda"), chunk=256)
+    torch.testing.assert_close(x.grad.reshape(100, 64), dx, **TOL[
+        torch.float32])
+    torch.testing.assert_close(head.grad, dw.t(), **TOL[torch.float32])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        linear_cross_entropy(torch.randn(4, 12, device="cuda"),
+                             torch.randn(10, 12, device="cuda"),
+                             torch.zeros(4, dtype=torch.long, device="cuda"))

@@ -13,6 +13,11 @@ b 2, s 40, fp32:
   99.9 % of the elements and within 2 * lr * steps everywhere (Adam's
   first steps move a param by about lr * sign(g), which flips where |g|
   is near eps);
+* the same with the fused linear-CE head (``fused_head=True``, the
+  config default; the JAX step runs the XLA tier of
+  ``linear_cross_entropy`` on the CPU): loss and grads against the JAX
+  step's own first gradient, read back from its Adam first moment, 1e-5;
+  three steps as above;
 * every configuration outside the one-device step raises
   ``NotImplementedError``.
 """
@@ -29,7 +34,8 @@ from paddle_tpu.ops.pallas.flash_attention import flash_attention as j_flash
 from paddle_tpu.parallel.topology import HybridTopology, set_topology
 from paddle_tpu_torch.bridge import params_from_numpy, state_from_numpy
 from paddle_tpu_torch.models import llama as tllama
-from paddle_tpu_torch.parallel.train_step import build_llama_train_step
+from paddle_tpu_torch.parallel.train_step import (ADAM_B1,
+                                                  build_llama_train_step)
 
 B, S, LR, STEPS = 2, 40, 1e-4, 3
 ROPE = {"rope_type": "dynamic", "factor": 2.0,
@@ -37,35 +43,51 @@ ROPE = {"rope_type": "dynamic", "factor": 2.0,
 
 
 def _cfgs(**kw):
-    kw = dict(num_layers=2, fused_head=False, rope_scaling=ROPE, **kw)
+    kw = dict(dict(num_layers=2, fused_head=False, rope_scaling=ROPE), **kw)
     return jllama.llama_tiny(**kw), tllama.llama_tiny(**kw)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The JAX one-device step: its initial state and ids (numpy), its
-    losses and its params after STEPS steps."""
-    jcfg, _ = _cfgs()
+def _jax_steps(jcfg):
+    """Run the JAX one-device step: its initial state and its state after
+    one step (numpy), ids, its losses and its params after STEPS steps."""
     topo = dist.init_topology(devices=jax.devices()[:1])
     try:
         step, init = jllama.build_llama_train_step(
             jcfg, topo, num_microbatches=1, learning_rate=LR, use_flash=True,
             remat=True)
         state = init(0)
-        state0 = jax.tree.map(lambda a: np.array(a, copy=True),
-                              jax.device_get(state))
+
+        def host(tree):
+            return jax.tree.map(lambda a: np.array(a, copy=True),
+                                jax.device_get(tree))
+        state0 = host(state)
         rng = np.random.default_rng(0)
         ids = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
         labels = np.roll(ids, -1, axis=1)
         losses = []
-        for _ in range(STEPS):
+        for i in range(STEPS):
             state, loss = step(state, ids, labels)
             losses.append(float(loss))
-        final = jax.tree.map(np.asarray, jax.device_get(state["params"]))
+            if i == 0:
+                state1 = host(state)
+        final = host(state["params"])
     finally:
         set_topology(HybridTopology())
-    return dict(state0=state0, ids=ids, labels=labels, losses=losses,
-                final=final)
+    return dict(state0=state0, state1=state1, ids=ids, labels=labels,
+                losses=losses, final=final)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX step with the dense head."""
+    return _jax_steps(_cfgs()[0])
+
+
+@pytest.fixture(scope="module")
+def jax_fused_run():
+    """The JAX step with the fused head (the config default; the XLA tier
+    of ``linear_cross_entropy`` on the CPU)."""
+    return _jax_steps(_cfgs(fused_head=True)[0])
 
 
 def _jax_loss(params, ids, labels, cfg):
@@ -107,25 +129,48 @@ def test_loss_and_grads_match_jax_block_apply(jax_run):
                                    atol=1e-5, err_msg=name)
 
 
-def test_three_steps_match_jax_train_step(jax_run):
-    _, tcfg = _cfgs()
-    state = state_from_numpy(jax_run["state0"], "float32", "cpu")
+def _three_steps(run, tcfg):
+    state = state_from_numpy(run["state0"], "float32", "cpu")
     assert state["opt"]["t"] == 0
     assert state["opt"]["m"]["blocks"]["q_w"].shape == \
         state["params"]["blocks"]["q_w"].shape
     step, _ = build_llama_train_step(tcfg, device="cpu", learning_rate=LR)
     losses = []
     for _ in range(STEPS):
-        state, loss = step(state, jax_run["ids"], jax_run["labels"])
+        state, loss = step(state, run["ids"], run["labels"])
         losses.append(float(loss))
-    np.testing.assert_allclose(losses, jax_run["losses"], rtol=1e-5)
+    np.testing.assert_allclose(losses, run["losses"], rtol=1e-5)
     assert losses[-1] < losses[0]
     assert state["opt"]["t"] == STEPS
-    ref = params_from_numpy(jax_run["final"], "float32", "cpu")
+    ref = params_from_numpy(run["final"], "float32", "cpu")
     for (name, p), (_, r) in zip(_leaves(state["params"]), _leaves(ref)):
         d = (p - r).abs()
         assert float((d <= 1e-6).float().mean()) >= 0.999, name
         assert float(d.max()) <= 2 * LR * STEPS, name
+
+
+def test_three_steps_match_jax_train_step(jax_run):
+    _three_steps(jax_run, _cfgs()[1])
+
+
+def test_fused_head_loss_and_grads_match_jax_train_step(jax_fused_run):
+    """The fused head (the config default): loss and every grad against
+    the JAX step's own first gradient, read back from its Adam first
+    moment after one step from zero moments (``m = (1 - b1) g``)."""
+    run = jax_fused_run
+    step, _ = build_llama_train_step(_cfgs(fused_head=True)[1],
+                                     device="cpu")
+    state = state_from_numpy(run["state0"], "float32", "cpu")
+    loss, grads = step.loss_and_grads(state, run["ids"], run["labels"])
+    np.testing.assert_allclose(float(loss), run["losses"][0], rtol=1e-5)
+    m1 = state_from_numpy(run["state1"], "float32", "cpu")["opt"]["m"]
+    for (name, g), (_, m) in zip(_leaves(grads), _leaves(m1)):
+        np.testing.assert_allclose(g.numpy(), m.numpy() / (1 - ADAM_B1),
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_fused_head_three_steps_match_jax_train_step(jax_fused_run):
+    _three_steps(jax_fused_run, _cfgs(fused_head=True)[1])
 
 
 def test_remat_and_dense_attention_agree():
@@ -182,9 +227,7 @@ def test_dynamic_rope_tables_at_the_step_length():
         tllama._rope_cos_sin(S, 16, 10000.0, torch.float32, ROPE)
 
 
-REFUSED = {"config-fused-head": ({}, {}),
-           "fused-head": ({"fused_head": True}, {}),
-           "moe": ({"fused_head": False}, {"moe_num_experts": 4}),
+REFUSED = {"moe": ({"fused_head": False}, {"moe_num_experts": 4}),
            "dp": ({"fused_head": False, "dp": 2}, {}),
            "mp": ({"fused_head": False, "mp": 2}, {}),
            "pp": ({"fused_head": False, "pp": 2}, {}),
