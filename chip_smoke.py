@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving and training paths on one CUDA
-card and check them.
+"""Drive the PyTorch/H100 port's serving, training and generation paths
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -50,7 +50,29 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             8 x 1024: flash attention at head_dim 64 and the fused head
             (fp32 x from the fp32 final LayerNorm, bf16 tied wte), one
             warm and 5 timed steps, finite falling losses and launch
-            counts as predicted.
+            counts as predicted;
+9. decode_attn  the decode-attention kernel against its plain version at
+            the generation step's shape (B 8, a 256-row cache, 32 heads,
+            D 128, lengths ragged from 1 to 256) in fp32 (1e-4) and bf16
+            (2e-2 or the ratio rule), and at GPT-125M's heads, GQA 32/8 at
+            D 64, T 1000 (two 512-row blocks) and length 1; kernel, plain,
+            bound and ``scaled_dot_product_attention`` times;
+10. quant_linear the weight-only int8 and int4 kernels against their plain
+            versions at M 8 (decode) and M 1024 (prefill) on the three
+            llama_7b weight shapes, per channel, bf16 and fp32 x, and on
+            groups of 64 and 128 and an odd K; times per llama_7b layer
+            (its seven matmuls), plain, bound and cuBLAS on the
+            dequantized bf16 weight;
+11. generate ``llama_7b`` at full width and depth (32 layers, seeded
+            ``init_params``) through ``llama_generate`` at the JAX bench's
+            decode row (B 8, prompt 128 from numpy seed 0, 128 new tokens,
+            greedy) in bf16 and through ``quantize_llama_params`` in int8
+            and int4, and GPT-125M (V 32768) through ``gpt_generate``: one
+            warm and 3 timed rollouts each, tokens/s, ms a decode step, a
+            profiled step's device-busy share, launch counts as predicted;
+            then at 2 layers the prefill and first decode step logits of
+            the kernel path against the plain path on the card, both held
+            to an fp32 plain run.
 
 Prints one JSON line of per-kernel numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -141,7 +163,7 @@ def check_layer_out(name, got, plain, truth, tol, ratios=None):
     if not (torch.isfinite(p).all() and torch.isfinite(t).all()):
         raise SmokeFailure(f"{name}: non-finite values in the reference")
     g_t, p_t = max_err(g, t), max_err(p, t)
-    ratio = g_t / p_t if p_t > 0 else float("inf")
+    ratio = g_t / p_t if p_t > 0 else (1.0 if g_t == 0 else float("inf"))
     if ratios is not None:
         ratios.append(ratio)
     within = bool(((g - p).abs() <= tol + tol * p.abs()).all())
@@ -1375,6 +1397,518 @@ def phase_gpt_train(dev="cuda"):
     return counts, summary
 
 
+# ------------------------------------------------------ decode attention
+# (label, B, Hq, Hkv, D, T, lengths): the generation step's shape at
+# llama_7b width (B 8, a 256-row cache, MHA, D 128) with ragged lengths,
+# then GPT-125M's heads and the small cases
+DATTN_CASES = [
+    ("llama_7b B 8 T 256 ragged", 8, 32, 32, 128, 256,
+     (1, 37, 74, 110, 147, 183, 220, 256)),
+    ("gpt_125m B 8 T 256, 12 heads D 64", 8, 12, 12, 64, 256,
+     (256, 1, 129, 200, 64, 255, 17, 130)),
+    ("gqa 32/8 D 64", 4, 32, 8, 64, 300, (300, 1, 99, 200)),
+    ("T 1000 (two 512-row blocks)", 2, 16, 16, 128, 1000, (1000, 613)),
+    ("length 1", 3, 8, 8, 128, 64, (1, 1, 1)),
+]
+
+
+def dattn_bytes_ops(B, Hq, Hkv, D, lengths, itemsize):
+    """Each valid K and V row read once, q read and out written once;
+    q.k and p.v over the valid rows."""
+    rows = sum(lengths)
+    return (2 * rows * Hkv * D * itemsize + 2 * B * Hq * D * itemsize
+            + 4 * B, 4 * rows * Hq * D)
+
+
+def phase_decode_attn(results, dev="cuda"):
+    """Kernel 3 against its plain version; times at the main path's
+    shape with every row at the longest step's 256 cached rows."""
+    import torch
+    from paddle_tpu_torch.ops import decode_attention as tda
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    err, ratios = {}, []
+    for label, B, Hq, Hkv, D, T, lengths in DATTN_CASES:
+        q32 = torch.randn(B, Hq, D, device=dev, generator=gen)
+        k32, v32 = (torch.randn(B, T, Hkv, D, device=dev, generator=gen)
+                    for _ in range(2))
+        lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for dtn, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+            q, k, v = (t.to(dt) for t in (q32, k32, v32))
+            got = tda.decode_attention(q, k, v, lt)
+            torch.cuda.synchronize()
+            plain = tda.decode_attention_ref(q, k, v, lt)
+            name = f"decode_attention {label} {dtn}"
+            if dtn == "float32":
+                e = check_close(name, got, plain, TOL[dtn])
+                info(f"{name}: max |kernel - plain| {e:.2e}")
+            else:
+                truth = tda.decode_attention_ref(q.float(), k.float(),
+                                                 v.float(), lt)
+                e = check_layer_out(name, got, plain, truth, TOL[dtn], ratios)
+            err[dtn] = max(err.get(dtn, 0.0), e)
+
+    _, B, Hq, Hkv, D, T, _ = DATTN_CASES[0]
+    q = torch.randn(B, Hq, D, device=dev, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(B, T, Hkv, D, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    lt = torch.full((B,), T, dtype=torch.int32, device=dev)
+    ms, call = time_ms(lambda: tda.decode_attention(q, k, v, lt), 50,
+                       per_launch=True)
+    plain, plain_call = time_ms(lambda: tda.decode_attention_ref(q, k, v, lt),
+                                10)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(T, device=dev)[None, :] < lt[:, None])[:, None,
+                                                                 None, :]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask), 50)[0]
+    bms, bby = bound_ms(*dattn_bytes_ops(B, Hq, Hkv, D, [T] * B, 2))
+    results.append(dict(
+        name="decode_attention", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/decode_attention.cu",
+        replaces="paddle_tpu/ops/pallas/decode_attention.py:106",
+        shape=f"q [{B}, {Hq}, {D}], cache [{B}, {T}, {Hkv}, {D}] bf16, "
+              f"every length {T}",
+        max_abs_err=err["bfloat16"], max_abs_err_fp32=err["float32"], ms=ms,
+        call_ms=call, plain_ms=plain, plain_call_ms=plain_call, bound_ms=bms,
+        bound_by=bby, library_ms=lib,
+        library_what="scaled_dot_product_attention, q [B, H, 1, D], "
+                     "boolean length mask",
+        bf16_vs_fp32_ratio=max(ratios, default=None)))
+    r = results[-1]
+    info(f"decode_attention bf16 {r['shape']}: device {ms} ms (per call "
+         f"{call:.4f}), bound {bms:.4f} ms ({bby}), plain {plain} ms, SDPA "
+         f"{lib} ms; max |err| bf16 {err['bfloat16']:.2e} fp32 "
+         f"{err['float32']:.2e}")
+
+
+# -------------------------------------------------- weight-only matmuls
+# one llama_7b layer's seven block matmuls, [K, N]
+LAYER_MATMULS = (("q_w", 4096, 4096), ("k_w", 4096, 4096),
+                 ("v_w", 4096, 4096), ("o_w", 4096, 4096),
+                 ("gate_w", 4096, 11008), ("up_w", 4096, 11008),
+                 ("down_w", 11008, 4096))
+WO_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+WO_ROWS = {"small_m": 8, "tiled": 1024}          # decode B 8, prefill 8 x 128
+# (width, M, K, N, group_size): grouped scales and an odd K
+WO_SMALL = [("int8", 8, 4096, 4096, 64), ("int8", 8, 4096, 4096, 128),
+            ("int8", 300, 4096, 1024, 64), ("int8", 300, 4096, 1024, 128),
+            ("int4", 8, 4096, 4096, 64), ("int4", 8, 11008, 4096, 128),
+            ("int4", 300, 4096, 1024, 64), ("int4", 300, 4096, 1024, 128),
+            ("int4", 8, 4095, 1024, -1), ("int4", 300, 4095, 1024, 64)]
+WO_REPLACES = {"int8": "paddle_tpu/ops/pallas/quant_linear.py:150",
+               "int4": "paddle_tpu/ops/pallas/quant_linear.py:264"}
+
+
+def wo_fns(width):
+    from paddle_tpu_torch.ops import quant_linear as tql
+    if width == "int4":
+        return tql.weight_only_matmul_int4, tql.weight_only_matmul_int4_ref
+    return tql.weight_only_matmul, tql.weight_only_matmul_ref
+
+
+def wo_bytes_ops(M, K, N, width, itemsize=2):
+    """x read and y written once, the codes and the per-channel scale
+    read once; the product 2 M K N."""
+    codes = K * N if width == "int8" else -(-K // 2) * N
+    return M * K * itemsize + codes + 4 * N + M * N * itemsize, 2 * M * K * N
+
+
+def phase_quant_linear(results, dev="cuda"):
+    """Kernels 4 and 5 against their plain versions at the main path's
+    shapes and on the small cases; per-layer times (the seven matmuls of
+    one llama_7b layer, 202 MB of int8 codes: more than the L2, so each
+    weight is read from device memory, as in a rollout)."""
+    import torch
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.quant_linear import unpack_int4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    err, ratios = {}, {}
+
+    def check(label, width, x, codes, scale, gs, key):
+        fn, ref = wo_fns(width)
+        got = fn(x, codes, scale, group_size=gs)
+        torch.cuda.synchronize()
+        plain = ref(x, codes, scale, group_size=gs)
+        name = f"wo {width} {label}"
+        if x.dtype == torch.float32:
+            e = check_close(name, got, plain, TOL["float32"])
+            info(f"{name}: max |kernel - plain| {e:.2e}")
+        else:
+            truth = ref(x.float(), codes, scale, group_size=gs)
+            e = check_layer_out(name, got, plain, truth, TOL["bfloat16"],
+                                ratios.setdefault(key, []))
+        err[key] = max(err.get(key, 0.0), e)
+
+    for width in ("int8", "int4"):
+        for K, N in WO_SHAPES:
+            w = 0.02 * torch.randn(K, N, device=dev, generator=gen)
+            codes, scale = weight_quantize(w, f"weight_only_{width}")
+            for regime, M in WO_ROWS.items():
+                x32 = torch.randn(M, K, device=dev, generator=gen)
+                check(f"M {M} [{K}, {N}] bf16", width, x32.to(torch.bfloat16),
+                      codes, scale, -1, f"wo_{width}_{regime}")
+                check(f"M {M} [{K}, {N}] fp32", width, x32, codes, scale, -1,
+                      "wo_f32")
+        for _, M, K, N, gs in (c for c in WO_SMALL if c[0] == width):
+            w = 0.02 * torch.randn(K, N, device=dev, generator=gen)
+            codes, scale = weight_quantize(w, f"weight_only_{width}",
+                                           group_size=gs)
+            x32 = torch.randn(M, K, device=dev, generator=gen)
+            regime = "small_m" if M <= 16 else "tiled"
+            check(f"M {M} [{K}, {N}] group {gs} bf16", width,
+                  x32.to(torch.bfloat16), codes, scale, gs,
+                  f"wo_{width}_{regime}")
+            check(f"M {M} [{K}, {N}] group {gs} fp32", width, x32, codes,
+                  scale, gs, "wo_f32")
+        torch.cuda.empty_cache()
+
+    # ---- per-layer times: seven distinct weights, one call each
+    timed = {}
+    for width in ("int8", "int4"):
+        fn, ref = wo_fns(width)
+        layer_w = []
+        for _, K, N in LAYER_MATMULS:
+            codes, scale = weight_quantize(
+                0.02 * torch.randn(K, N, device=dev, generator=gen),
+                f"weight_only_{width}")
+            wdq = (codes if width == "int8" else unpack_int4(codes, K)).to(
+                torch.bfloat16)
+            layer_w.append((K, N, codes, scale, wdq))
+        for regime, M in WO_ROWS.items():
+            xs = {K: torch.randn(M, K, device=dev, generator=gen)
+                  for K in sorted({K for _, K, _ in LAYER_MATMULS})}
+            for xdt in (torch.bfloat16, torch.float32):
+                # wo_f32 is timed once: int8 codes, decode rows
+                if xdt == torch.float32 and (regime, width) != ("small_m",
+                                                                "int8"):
+                    continue
+                xd = {K: x.to(xdt) for K, x in xs.items()}
+                name = "wo_f32" if xdt == torch.float32 else \
+                    f"wo_{width}_{regime}"
+
+                def kernels():
+                    for K, N, codes, scale, _ in layer_w:
+                        fn(xd[K], codes, scale)
+
+                def plains():
+                    for K, N, codes, scale, _ in layer_w:
+                        ref(xd[K], codes, scale)
+
+                def library():
+                    for K, N, codes, scale, wdq in layer_w:
+                        torch.matmul(xd[K], wdq.to(xdt)) * scale
+                by = {}
+                _, call = time_ms(kernels, 10, by)
+                hit = [(mean, n) for k, (mean, n) in by.items()
+                       if "wo_" in k]
+                ms = sum(mean * n for mean, n in hit) if hit else None
+                plain, plain_call = time_ms(plains, 3)
+                lib = time_ms(library, 10)[0]
+                nbytes = ops = 0
+                for K, N, *_ in layer_w:
+                    b, o = wo_bytes_ops(M, K, N, width, xdt.itemsize)
+                    nbytes, ops = nbytes + b, ops + o
+                bms, bby = bound_ms(nbytes, ops, "bfloat16"
+                                    if xdt == torch.bfloat16 else "float32")
+                timed[name] = dict(ms=ms, call_ms=call, plain_ms=plain,
+                                   plain_call_ms=plain_call, library_ms=lib,
+                                   bound_ms=bms, bound_by=bby,
+                                   launches_per_call=sum(n for _, n in hit),
+                                   shape=f"one llama_7b layer's 7 matmuls "
+                                         f"({width} codes, per channel), x "
+                                         f"[{M}, K] {str(xdt)[6:]}")
+                info(f"{name} {timed[name]['shape']}: device {ms} ms per "
+                     f"layer (per call {call:.4f}), bound {bms:.4f} ms "
+                     f"({bby}), plain {plain} ms, cuBLAS on the dequantized "
+                     f"bf16 weight x scale {lib} ms")
+        del layer_w
+        torch.cuda.empty_cache()
+    for name in ("wo_int8_small_m", "wo_int8_tiled", "wo_int4_small_m",
+                 "wo_int4_tiled", "wo_f32"):
+        width = "int4" if "int4" in name else "int8"
+        t = timed[name]
+        results.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/quant_linear.cu",
+            replaces=WO_REPLACES[width] if name != "wo_f32" else
+            f"{WO_REPLACES['int8']} and :264 (fp32 x)",
+            max_abs_err=err[name], **t,
+            library_what="torch.matmul on the codes dequantized to bf16 "
+                         "beforehand (2x the int8 / 4x the int4 weight "
+                         "bytes), times the scale",
+            bf16_vs_fp32_ratio=max(ratios.get(name, []), default=None)))
+
+
+# ----------------------------------------------------------- generation
+# the JAX bench's decode row (bench.py:1428-1463): llama_7b width, bf16,
+# batch 8, prompt 128 (numpy seed 0), 128 new tokens, greedy; here at full
+# depth, also in int8 and int4 weight-only, and GPT-125M (V 32768)
+GEN_B, GEN_PROMPT, GEN_NEW, GEN_TIMED = 8, 128, 128, 3
+GEN_LAYERS, GEN_GPT_LAYERS = 32, 12
+# launches per rollout, predicted before the run: decode_attention once per
+# layer per decode step; every block matmul of a quantized model (7 a
+# layer) through the weight-only kernels in the prefill (M = 8 x 128: the
+# tiled kernel) and in each of the 127 decode steps (M = 8: small-M)
+GEN_PER_ROLLOUT = {
+    "bf16": {"decode_attention": GEN_LAYERS * (GEN_NEW - 1)},
+    "int8": {"decode_attention": GEN_LAYERS * (GEN_NEW - 1),
+             "wo_int8_tiled": 7 * GEN_LAYERS,
+             "wo_int8_small_m": 7 * GEN_LAYERS * (GEN_NEW - 1)},
+    "int4": {"decode_attention": GEN_LAYERS * (GEN_NEW - 1),
+             "wo_int4_tiled": 7 * GEN_LAYERS,
+             "wo_int4_small_m": 7 * GEN_LAYERS * (GEN_NEW - 1)},
+    "gpt bf16": {"decode_attention": GEN_GPT_LAYERS * (GEN_NEW - 1)},
+}
+GEN_KERNELS = ("decode_attention", "wo_int8_small_m", "wo_int8_tiled",
+               "wo_int4_small_m", "wo_int4_tiled", "wo_f32")
+GEN_CHECK_LAYERS, GEN_CHECK_NEW = 2, 32
+QUANT = {"bf16": None, "int8": "weight_only_int8",
+         "int4": "weight_only_int4"}
+
+
+def gen_step_bound_ms(cfg, quant, itemsize=2):
+    """Least time of one decode step at GEN_B: every block weight once
+    (codes and per-channel scales when quantized), the fp32 head once, the
+    cache rows of the last step (GEN_PROMPT + GEN_NEW) once."""
+    from paddle_tpu_torch.models.llama import block_shapes
+    shapes = block_shapes(cfg)
+    L, h, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    nbytes = 0
+    for name, s in shapes.items():
+        n = math.prod(s)
+        if name.startswith("ln") or quant is None:
+            nbytes += n * itemsize
+        else:
+            nbytes += (n if quant == "weight_only_int8" else n // 2) \
+                + 4 * s[-1]
+    kv = 2 * GEN_B * (GEN_PROMPT + GEN_NEW) * cfg.kv_heads * cfg.head_dim \
+        * itemsize
+    return 1e3 * (L * (nbytes + kv) + h * V * 4) / HBM_BYTES_PER_S
+
+
+def profile_step(step, params, cache, tok, pos):
+    """One decode step under the profiler: ``(wall ms, device busy ms,
+    top kernels)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - ts)
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by[ev.key.split("(")[0][:50]] = (us / 1e3, ev.count)
+    return wall, sum(ms for ms, _ in by.values()), sorted(
+        by.items(), key=lambda kv: -kv[1][0])[:6]
+
+
+def run_rollouts(tag, generate, params, cfg, ids_t, per_rollout, decoder):
+    """One warm and GEN_TIMED timed rollouts through ``generate``, the
+    launch counts zeroed before and read after (``per_rollout`` each, every
+    other kernel 0); then the prefill alone and one profiled decode step.
+    Returns ``(counts, summary, ids)``."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    layer.reset_counts()
+    times = []
+    for i in range(1 + GEN_TIMED):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = generate(params, cfg, ids_t, GEN_NEW)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - ts)
+    counts = layer.launch_counts()
+    want = {k: n * (1 + GEN_TIMED) for k, n in per_rollout.items()}
+    got = {k: n for k, n in counts.items() if n}
+    if got != want:
+        raise SmokeFailure(f"{tag}: launch counts {got}, predicted {want} "
+                           f"(every other kernel 0)")
+    if tuple(out.shape) != (GEN_B, GEN_PROMPT + GEN_NEW) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()) or not torch.equal(
+            out[:, :GEN_PROMPT], ids_t):
+        raise SmokeFailure(f"{tag}: rollout ids malformed, shape "
+                           f"{tuple(out.shape)}")
+    prefill, step = decoder
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        cache, logits = prefill(params, ids_t)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - ts)
+        tok = logits.argmax(-1)
+        step(params, cache, tok, GEN_PROMPT)               # warm
+        wall, busy, top = profile_step(step, params, cache, tok,
+                                       GEN_PROMPT + 1)
+    roll_ms = 1e3 * sum(times) / len(times)
+    step_ms = (roll_ms - prefill_ms) / (GEN_NEW - 1)
+    s = dict(rollout_ms=roll_ms, rollout_ms_all=[1e3 * t for t in times],
+             prefill_ms=prefill_ms, decode_step_ms=step_ms,
+             tokens_per_s=GEN_B * GEN_NEW / (roll_ms / 1e3),
+             decode_tokens_per_s=GEN_B / (step_ms / 1e3),
+             profiled_step_wall_ms=wall, profiled_step_busy_ms=busy,
+             busy_share_of_profiled=busy / wall,
+             busy_share_of_step=busy / step_ms, launches=got)
+    info(f"generate {tag}: rollout {roll_ms:.1f} ms (runs "
+         f"{[round(x, 1) for x in s['rollout_ms_all']]}), prefill "
+         f"{prefill_ms:.1f} ms, decode step {step_ms:.2f} ms, "
+         f"{s['tokens_per_s']:.1f} tokens/s ({s['decode_tokens_per_s']:.1f} "
+         f"in the decode steps); profiled step {wall:.2f} ms wall, device "
+         f"busy {busy:.2f} ms ({100 * busy / wall:.1f}% of it, "
+         f"{100 * busy / step_ms:.1f}% of the unprofiled step); top "
+         + "; ".join(f"{k} {ms:.3f} x{c}" for k, (ms, c) in top))
+    return counts, s, out
+
+
+def phase_generate(dev="cuda"):
+    """llama_7b at full width and depth through llama_generate in bf16,
+    int8 and int4 weight-only, and GPT-125M through gpt_generate; then the
+    2-layer logits checks."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.models import generation as tgen
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.models import llama as tllama
+    rng = np.random.default_rng(SEED)
+    cfg = tllama.llama_7b(num_layers=GEN_LAYERS, dtype="bfloat16")
+    ids_t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        GEN_B, GEN_PROMPT))).to(dev)
+    t0 = time.perf_counter()
+    params = tllama.init_params(cfg, make_generator(SEED, dev), device=dev)
+    torch.cuda.synchronize()
+    info(f"generate: llama_7b x {GEN_LAYERS} layers bf16 built in "
+         f"{time.perf_counter() - t0:.1f} s; B {GEN_B}, prompt {GEN_PROMPT}, "
+         f"{GEN_NEW} new tokens, greedy")
+    counts, summary, outs = {}, {}, {}
+    for tag, quant in QUANT.items():
+        p = params if quant is None else tgen.quantize_llama_params(params,
+                                                                   quant)
+        torch.cuda.synchronize()
+
+        def generate(pp, c, ids, n, quant=quant):
+            return tgen.llama_generate(pp, c, ids, n, quant=quant)
+        dec = tgen.build_llama_decoder(cfg, GEN_PROMPT + GEN_NEW, quant=quant)
+        c, s, out = run_rollouts(f"llama_7b {tag}", generate, p, cfg, ids_t,
+                                 GEN_PER_ROLLOUT[tag], dec)
+        bound = gen_step_bound_ms(cfg, quant)
+        s.update(step_bound_ms=bound, tokens_per_s_ceiling=GEN_B / (
+            bound / 1e3))
+        info(f"generate llama_7b {tag}: decode-step bound {bound:.3f} ms, "
+             f"ceiling {s['tokens_per_s_ceiling']:.0f} tokens/s")
+        counts[tag], summary[tag], outs[tag] = c, s, out
+        del p, dec
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    gcfg = tgpt.GPTConfig(vocab_size=32768, hidden_size=768,
+                          num_layers=GEN_GPT_LAYERS, num_heads=12,
+                          dtype="bfloat16")
+    gparams = tgpt.init_params(gcfg, make_generator(SEED, dev), device=dev)
+    gids = torch.from_numpy(rng.integers(0, gcfg.vocab_size, (
+        GEN_B, GEN_PROMPT))).to(dev)
+    c, s, _ = run_rollouts("gpt_125m bf16", tgen.gpt_generate, gparams, gcfg,
+                           gids, GEN_PER_ROLLOUT["gpt bf16"],
+                           tgen.build_gpt_decoder(gcfg, GEN_PROMPT + GEN_NEW))
+    counts["gpt bf16"], summary["gpt bf16"] = c, s
+    del gparams
+    torch.cuda.empty_cache()
+    check_generation(dev)
+    return counts, summary
+
+
+class plain_path:
+    """Within the block the generation path runs the plain versions of
+    kernels 3-5 on CUDA tensors (the port never does: its ops launch the
+    kernels for CUDA tensors)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.models import generation as tgen
+        from paddle_tpu_torch.ops import decode_attention as tda
+        from paddle_tpu_torch.ops import quant_linear as tql
+        self.saved = [(tgen, "decode_attention", tgen.decode_attention),
+                      (tql, "weight_only_matmul", tql.weight_only_matmul),
+                      (tql, "weight_only_matmul_int4",
+                       tql.weight_only_matmul_int4)]
+        tgen.decode_attention = tda.decode_attention_ref
+        tql.weight_only_matmul = tql.weight_only_matmul_ref
+        tql.weight_only_matmul_int4 = tql.weight_only_matmul_int4_ref
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def check_generation(dev="cuda"):
+    """llama_7b at 2 layers: the prefill and first decode step logits of
+    the kernel path against the plain path on the card, both held to an
+    fp32 plain run (check_layer_out's rule); the int8 / int4 logits'
+    distance from bf16 and the first greedy divergence reported."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.models import generation as tgen
+    from paddle_tpu_torch.models import llama as tllama
+    cfg = tllama.llama_7b(num_layers=GEN_CHECK_LAYERS, dtype="bfloat16")
+    cfg32 = tllama.llama_7b(num_layers=GEN_CHECK_LAYERS)
+    params = tllama.init_params(cfg, make_generator(SEED, dev), device=dev)
+    p32 = {k: (v.float() if not isinstance(v, dict) else
+               {n: w.float() for n, w in v.items()})
+           for k, v in params.items()}
+    ids = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (GEN_B, GEN_PROMPT))).to(dev)
+    max_len = GEN_PROMPT + GEN_NEW
+    logits = {}
+    with torch.inference_mode():
+        for tag, quant in QUANT.items():
+            pq = params if quant is None else tgen.quantize_llama_params(
+                params, quant)
+            pq32 = p32 if quant is None else tgen.quantize_llama_params(
+                p32, quant)
+
+            tok = []                     # the kernel path's first token
+
+            def two(c, p):
+                pre, step = tgen.build_llama_decoder(c, max_len, quant=quant)
+                cache, lg0 = pre(p, ids)
+                if not tok:
+                    tok.append(lg0.argmax(-1))
+                return lg0, step(p, cache, tok[0], GEN_PROMPT)[1]
+            kern = two(cfg, pq)
+            with plain_path():
+                plain = two(cfg, pq)
+                truth = two(cfg32, pq32)
+            for i, what in enumerate(("prefill", "first decode step")):
+                check_layer_out(f"generate check llama_7b x 2 {tag} {what} "
+                                f"logits", kern[i], plain[i], truth[i],
+                                TOL["bfloat16"])
+            logits[tag] = kern[0]
+            # the first position where greedy kernel and plain rollouts part
+            a = tgen.llama_generate(pq, cfg, ids, GEN_CHECK_NEW, quant=quant)
+            with plain_path():
+                b = tgen.llama_generate(pq, cfg, ids, GEN_CHECK_NEW,
+                                        quant=quant)
+            diff = (a != b)[:, GEN_PROMPT:].any(0).nonzero()
+            info(f"generate check {tag}: greedy kernel vs plain rollouts "
+                 f"({GEN_CHECK_NEW} new tokens) first differ at new token "
+                 f"{int(diff[0]) if len(diff) else 'none'}")
+            del pq, pq32
+    for tag in ("int8", "int4"):
+        info(f"generate check: {tag} prefill logits rel L2 from bf16 "
+             f"{rel_l2(logits[tag], logits['bf16']):.4f} (JAX test bound for "
+             f"int8: 0.1)")
+
+
 def main():
     try:
         import torch
@@ -1403,6 +1937,12 @@ def main():
         torch.cuda.empty_cache()
         train_counts, train = phase_train()
         gpt_counts, gpt = phase_gpt_train()
+        torch.cuda.empty_cache()
+        phase_decode_attn(kernels)
+        torch.cuda.empty_cache()
+        phase_quant_linear(kernels)
+        torch.cuda.empty_cache()
+        gen_counts, gen = phase_generate()
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         info(f"FAILED: {type(e).__name__}: {e}")
         return 1
@@ -1410,6 +1950,10 @@ def main():
         if k["name"] in GPT_PER_STEP:      # the training kernels
             by = {"train": train_counts[k["name"]],
                   "gpt": gpt_counts[k["name"]]}
+            k["launches"], k["launches_by_phase"] = sum(by.values()), by
+        elif k["name"] in GEN_KERNELS:     # the generation kernels
+            by = {f"generate {tag}": c[k["name"]]
+                  for tag, c in gen_counts.items()}
             k["launches"], k["launches_by_phase"] = sum(by.values()), by
         else:
             k["launches"] = counts.get(k["name"], 0)
@@ -1419,6 +1963,7 @@ def main():
                 k["timing"] = "cuda events"
     info(f"train summary {json.dumps(train)}")
     info(f"gpt summary {json.dumps(gpt)}")
+    info(f"generate summary {json.dumps(gen)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,16 +37,29 @@ def _to_torch(a, dtype: Optional[torch.dtype],
     return t.to(device=device, dtype=dtype)
 
 
+def _leaf_dtype(name: str, a, dt: Optional[torch.dtype]):
+    """``dt`` for a float weight; None (keep) for integer leaves (the
+    ``__q`` codes of a quantized tree) and the fp32 ``__s`` scales."""
+    if dt is None or name.endswith("__s") or \
+            np.issubdtype(np.asarray(a).dtype, np.integer):
+        return None
+    return dt
+
+
 def params_from_numpy(tree: Dict[str, object], dtype=None,
                       device=None) -> Dict[str, object]:
     """``{top-level leaves..., "blocks": {name: [S, per, ...]}}`` -> the
-    port's tree with blocks ``[L, ...]`` on ``device``.  Every leaf is cast
-    to ``dtype`` when one is given, else keeps its own dtype (GPT's fp32
-    ``lnf_w`` / ``lnf_b`` beside bf16 weights)."""
+    port's tree with blocks ``[L, ...]`` on ``device``.  Every float leaf
+    is cast to ``dtype`` when one is given, else keeps its own dtype (GPT's
+    fp32 ``lnf_w`` / ``lnf_b`` beside bf16 weights); the integer codes
+    (``<name>__q``) and fp32 scales (``<name>__s``) of a weight-only
+    quantized tree always keep theirs."""
     dev = resolve_device(device)
     dt = None if dtype is None else torch_dtype(dtype)
-    out = {k: _to_torch(v, dt, dev) for k, v in tree.items() if k != "blocks"}
-    blocks = {k: _to_torch(v, dt, dev) for k, v in tree["blocks"].items()}
+    out = {k: _to_torch(v, _leaf_dtype(k, v, dt), dev)
+           for k, v in tree.items() if k != "blocks"}
+    blocks = {k: _to_torch(v, _leaf_dtype(k, v, dt), dev)
+              for k, v in tree["blocks"].items()}
     out["blocks"] = {k: v.contiguous()
                      for k, v in _collapse_blocks(blocks).items()}
     return out

@@ -27,7 +27,8 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "LayerArgs",
-           "FlashArgs", "LceArgs", "library", "check", "NVCC_FLAGS"]
+           "FlashArgs", "LceArgs", "WoArgs", "library", "check",
+           "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -79,6 +80,14 @@ class LceArgs(ctypes.Structure):
                 + [(n, ctypes.c_void_p) for n in
                    ("x", "w", "labels", "g", "nll", "lse", "dz_w", "dz_x",
                     "dx_acc", "dx", "dw")])
+
+
+class WoArgs(ctypes.Structure):
+    """Mirror of ``struct WoArgs`` in ``csrc/common.cuh``."""
+    _fields_ = ([(n, ctypes.c_int) for n in
+                 ("int4", "x_dtype", "M", "K", "N", "half", "ldx", "xhi",
+                  "gs", "G", "tile_dq")]
+                + [(n, ctypes.c_void_p) for n in ("x", "w", "scale", "y")])
 
 
 _lock = threading.Lock()
@@ -145,6 +154,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     ptr = ctypes.POINTER(LayerArgs)
     fptr = ctypes.POINTER(FlashArgs)
     lptr = ctypes.POINTER(LceArgs)
+    LL = ctypes.c_longlong
     sigs = {"pt_decode_block": [ptr, P], "pt_prefill_block": [ptr, P],
             "pt_flash_fwd": [fptr, P], "pt_flash_bwd_dq": [fptr, P],
             "pt_flash_bwd_dkv": [fptr, P],
@@ -153,6 +163,9 @@ def _bind(lib: ctypes.CDLL) -> None:
             "pt_rope_kv_write": [ptr, P], "pt_paged_attention": [ptr, P],
             "pt_rms_norm_rows": [I, I, I, P, P, P, Fl, P],
             "pt_gemm_xw": [I, I, I, I, I, P, P, P, P, P, P],
+            "pt_decode_attention": [I, I, I, I, I, I, LL, LL, Fl, P, P, P,
+                                    P, P, P],
+            "pt_weight_only_matmul": [ctypes.POINTER(WoArgs), P],
             "pt_launch_counts": [ctypes.POINTER(ctypes.c_longlong), I]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -75,6 +75,29 @@ struct LceArgs {
   void *dw;                   // [V, H] w's dtype
 };
 
+// One weight-only matmul launch (quant_linear.cu): y [M, N] = x [M, K] @
+// dequant(w, scale), y in x's dtype.  w int8 [K, N], or int4 halves-packed
+// into int8 [half, N] (half = ceil(K/2): the low nibble holds row p, the
+// high nibble row half + p).  x rows have stride ldx (a multiple of 8);
+// for int4 the x columns of rows [half, K) start at column xhi (a
+// multiple of 8), those of rows [0, half) at 0.  scale fp32 [G, N], one
+// row per gs rows of w (G 1 and gs 1 << 30 per output channel).
+// tile_dq 1: the weight is dequantized in x's dtype (scale rounded to it)
+// before the product; 0: each group's fp32 partial product is multiplied
+// by its fp32 scale.  Mirrored field for field by the ctypes Structure in
+// paddle_tpu_torch/kernels/build.py.
+struct WoArgs {
+  int int4;                   // 0: int8 codes [K, N]; 1: packed int4
+  int x_dtype;                // PT_F32 | PT_BF16
+  int M, K, N, half;
+  int ldx, xhi;
+  int gs, G, tile_dq;
+  const void *x;
+  const signed char *w;
+  const float *scale;
+  void *y;
+};
+
 namespace pt {
 
 typedef __nv_bfloat16 bf16;
@@ -128,6 +151,12 @@ enum {
   CNT_LINEAR_CE_DZ,
   CNT_LINEAR_CE_DX,
   CNT_LINEAR_CE_DW,
+  CNT_DECODE_ATTENTION,
+  CNT_WO_INT8_SMALL_M,
+  CNT_WO_INT8_TILED,
+  CNT_WO_INT4_SMALL_M,
+  CNT_WO_INT4_TILED,
+  CNT_WO_F32,
   CNT_NUM
 };
 
@@ -150,3 +179,10 @@ cudaError_t launch_linear_ce_fwd(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_linear_ce_dz(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_linear_ce_dx(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_linear_ce_dw(const LceArgs *a, cudaStream_t s);
+cudaError_t launch_decode_attention(int dtype, int B, int Hq, int Hkv, int D,
+                                    int T, long long sb, long long st,
+                                    float scale, const void *q,
+                                    const void *k, const void *v,
+                                    const int *lengths, void *out,
+                                    cudaStream_t s);
+cudaError_t launch_weight_only_matmul(const WoArgs *a, cudaStream_t s);

@@ -128,7 +128,9 @@ def test_layer_counts_follow_the_chain():
     names = [n.strip()[4:].lower() for n in enum.split(",") if n.strip()]
     assert tuple(names) == layer.KERNELS
     assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "linear_ce_fwd",
-            "linear_ce_dz", "linear_ce_dx", "linear_ce_dw"} <= set(names)
+            "linear_ce_dz", "linear_ce_dx", "linear_ce_dw",
+            "decode_attention", "wo_int8_small_m", "wo_int8_tiled",
+            "wo_int4_small_m", "wo_int4_tiled", "wo_f32"} <= set(names)
     src = "".join(f.read_text() for f in sorted(csrc.glob("*.cu")))
     for name in names:
         assert src.count(f"count_launch(CNT_{name.upper()},") == 1, name
@@ -434,3 +436,95 @@ def test_linear_cross_entropy_op_launches_kernels_and_refuses_widths():
         linear_cross_entropy(torch.randn(4, 12, device="cuda"),
                              torch.randn(10, 12, device="cuda"),
                              torch.zeros(4, dtype=torch.long, device="cuda"))
+
+
+# ------------------------------------------------------ generation kernels
+# (label, B, Hq, Hkv, D, T, lengths, layer slice of an [L, B, T, H, D] cache)
+DATTN_CASES = [
+    ("gqa D64 T600 ragged", 3, 8, 2, 64, 600, (1, 600, 37), False),
+    ("mha D128 length 1", 2, 4, 4, 128, 40, (40, 1), False),
+    ("cache[l] slice", 2, 8, 4, 128, 300, (300, 129), True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("case", DATTN_CASES, ids=[c[0] for c in
+                                                   DATTN_CASES])
+def test_decode_attention_kernel_matches_plain(dt, case):
+    """One launch per call, against the plain version (which rounds p to
+    the cache's dtype as the kernel does); the cache read in place."""
+    _need_card()
+    from paddle_tpu_torch.ops import decode_attention as tda
+    _, B, Hq, Hkv, D, T, lengths, sliced = case
+    rng = np.random.default_rng(21)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt)
+    q = t(B, Hq, D)
+    if sliced:
+        kc, vc = t(3, B, T, Hkv, D)[1], t(3, B, T, Hkv, D)[2]
+    else:
+        kc, vc = t(B, T, Hkv, D), t(B, T, Hkv, D)
+    lt = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    layer.reset_counts()
+    got = tda.decode_attention(q, kc, vc, lt)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {
+        "decode_attention": 1}
+    torch.testing.assert_close(got.float(), tda.decode_attention_ref(
+        q, kc, vc, lt).float(), **TOL[dt])
+
+
+# (width, M, K, N, group_size): decode and prefill row counts, per
+# channel, groups of 64 (dequantized tile) and 128, K off the 8-column
+# loads (x copied to the padded layout), odd K for int4, and int4 groups
+# not aligned to the nibble planes (half 151: the tile rule)
+WO_CASES = [("int8", 8, 256, 64, -1), ("int8", 40, 300, 48, 128),
+            ("int8", 1, 256, 32, 64), ("int4", 8, 512, 64, -1),
+            ("int4", 100, 512, 144, 128), ("int4", 3, 255, 32, 64),
+            ("int4", 40, 301, 32, 128)]
+WO_IDS = [f"{w}-M{m}-K{k}-N{n}-g{g}" for w, m, k, n, g in WO_CASES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("case", WO_CASES, ids=WO_IDS)
+def test_weight_only_kernels_match_plain(dt, case):
+    """The regime's kernel launches once and matches the plain version."""
+    _need_card()
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops import quant_linear as tql
+    width, M, K, N, gs = case
+    rng = np.random.default_rng(22)
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.05).astype(
+        np.float32))
+    codes, scale = weight_quantize(w, f"weight_only_{width}", group_size=gs)
+    codes, scale = codes.cuda(), scale.cuda()
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)) \
+        .to("cuda", dt)
+    fn, ref = ((tql.weight_only_matmul_int4, tql.weight_only_matmul_int4_ref)
+               if width == "int4" else
+               (tql.weight_only_matmul, tql.weight_only_matmul_ref))
+    layer.reset_counts()
+    got = fn(x, codes, scale, group_size=gs)
+    torch.cuda.synchronize()
+    name = ("wo_f32" if dt == torch.float32 else
+            f"wo_{width}_{'small_m' if M <= 16 else 'tiled'}")
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {name: 1}
+    assert got.dtype == dt and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), ref(x, codes, scale,
+                                                group_size=gs).float(),
+                               **TOL[dt])
+
+
+@pytest.mark.gpu
+def test_weight_only_kernels_refuse_widths():
+    _need_card()
+    from paddle_tpu_torch.ops import quant_linear as tql
+    x = torch.zeros(4, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tql.weight_only_matmul(x, torch.zeros(64, 24, dtype=torch.int8,
+                                              device="cuda"),
+                               torch.ones(24, device="cuda"))

@@ -60,10 +60,16 @@ from paddle_tpu_torch.device import make_generator
 cfg = llama_tiny()
 params = init_params(cfg, make_generator(0, "cpu"), device="cpu")
 from paddle_tpu_torch.parallel import build_llama_train_step
+from paddle_tpu_torch.models.generation import gpt_generate, llama_generate
+from paddle_tpu_torch.models.gpt import gpt_tiny, init_params as gpt_init
+ids = [[1, 2, 3]]
+gparams = gpt_init(gpt_tiny(), make_generator(0, "cpu"), device="cpu")
 for call in (lambda: ContinuousBatchingEngine(cfg, params),
              lambda: init_params(cfg, make_generator(0, "cpu")),
              lambda: make_generator(0),
-             lambda: build_llama_train_step(llama_tiny(fused_head=False))):
+             lambda: build_llama_train_step(llama_tiny(fused_head=False)),
+             lambda: llama_generate(params, cfg, ids, 2),
+             lambda: gpt_generate(gparams, gpt_tiny(), ids, 2)):
     try:
         call()
     except RuntimeError as e:
@@ -72,6 +78,12 @@ for call in (lambda: ContinuousBatchingEngine(cfg, params),
         raise SystemExit("an entry point ran without CUDA and without "
                          "device='cpu'")
 ContinuousBatchingEngine(cfg, params, device="cpu")
+assert llama_generate(params, cfg, ids, 2, device="cpu").shape == (1, 5)
+for mod in ("paddle_tpu_torch.ops.decode_attention",
+            "paddle_tpu_torch.ops.quant_linear", "paddle_tpu_torch.nn.quant",
+            "paddle_tpu_torch.ops.cuda.decode_attention",
+            "paddle_tpu_torch.ops.cuda.quant_linear"):
+    assert mod in names, mod
 print("OK", len(names))
 """
 
@@ -82,4 +94,4 @@ def test_port_imports_and_defaults_to_cuda_without_jax():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("OK")
-    assert int(r.stdout.split()[1]) >= 15
+    assert int(r.stdout.split()[1]) >= 21
