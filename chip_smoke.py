@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving, training and generation paths
-on one CUDA card and check them.
+"""Drive the PyTorch/H100 port's serving, training, generation and eager
+training paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -72,7 +72,26 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             profiled step's device-busy share, launch counts as predicted;
             then at 2 layers the prefill and first decode step logits of
             the kernel path against the plain path on the card, both held
-            to an fp32 plain run.
+            to an fp32 plain run;
+12. norms   the eager path's kernels ``rms_norm_fwd``, ``layer_norm_fwd``,
+            ``bias_residual_ln_fwd`` and ``swiglu_fwd`` against their
+            plain versions in fp32 (1e-4) and bf16 (2e-2 or the ratio
+            rule) at the eager steps' shapes (RMSNorm [8192, 4096],
+            LayerNorms [8192, 768], SwiGLU [8192, 11008]) and on 3 rows,
+            H 1000 and H 1001, one launch per call, outputs and fp32 row
+            statistics; kernel, plain, bound and library (``F.rms_norm``,
+            ``F.layer_norm``, ``x + bias + residual`` then
+            ``F.layer_norm``, ``F.silu(x) * y``) times in bf16;
+13. eager   the eager ``GPTForCausalLM`` (the gpt phase's model: V 32768,
+            12 layers, bf16, dropout 0, batch 8 x 1024) and
+            ``LlamaForCausalLM`` (llama_7b x 4 layers, bf16, batch
+            4 x 2048) through the dygraph loop ``loss = net(ids, labels);
+            loss.backward(); opt.step(); opt.clear_grad()`` with
+            ``AdamW(lr 1e-4)``: one warm and 5 timed steps, finite falling
+            losses, step ms, tokens/s, peak memory and launch counts
+            exactly as ``EAGER_*_PER_STEP`` predicts; then at 2 layers
+            one step's loss and every gradient through the kernels against
+            the same model's plain path, held to an fp32 run.
 
 Prints one JSON line of per-kernel numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -576,6 +595,30 @@ def phase_kernels(cfg, results, dev="cuda"):
                     max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
                     plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
                     library_ms=lib))
+
+    # the fp32 GEMM (gemm_xw_f32: the fp32 checks of the chain; no bf16
+    # main path launches it) at the decode shape of the down projection
+    w32 = lp["down_w"].float()
+    Kd, N = w32.shape
+    a32 = torch.randn(4, Kd, device=dev, generator=gen)
+    err = check_close("gemm_xw fp32 M=4 down_w", K.gemm_xw_cuda(a32, w32),
+                      K.gemm_xw_ref(a32, w32), TOL["float32"])
+    ms, call = time_ms(lambda: K.gemm_xw_cuda(a32, w32), 20, per_launch=True)
+    plain, plain_call = time_ms(lambda: K.gemm_xw_ref(a32, w32), 20)
+    lib = time_ms(lambda: torch.matmul(a32, w32), 20, per_launch=True)[0]
+    bms, bby = bound_ms((4 * Kd + Kd * N + 4 * N) * 4, 2 * 4 * Kd * N,
+                        dtype="float32")
+    results.append(dict(
+        name="gemm_xw_f32", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/gemm.cu",
+        replaces="paddle_tpu/ops/pallas/decode_block.py:535",
+        shape="[4, 11008] @ [11008, 4096] fp32 (down proj, no epilogue)",
+        max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
+        plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
+        library_ms=lib))
+    info(f"gemm_xw fp32 M=4 [{Kd}x{N}]: device {ms} ms (per call "
+         f"{call:.4f}), plain {plain} ms, torch.matmul {lib} ms, bound "
+         f"{bms:.4f} ms ({bby}), max |err| {err:.2e}")
 
     q = torch.randn(4, Hq * D, device=dev, generator=gen).to(dt)
     k = torch.randn(4, Hkv * D, device=dev, generator=gen).to(dt)
@@ -1171,8 +1214,10 @@ def phase_linear_ce(results, dev="cuda"):
 
 
 def tree_leaves(tree):
+    """A train state's leaves, or an eager model's ``{name: grad}``."""
     return [(k, v) for k, v in tree.items() if k != "blocks"] + [
-        (f"blocks.{k}", v) for k, v in sorted(tree["blocks"].items())]
+        (f"blocks.{k}", v) for k, v in sorted(tree.get("blocks",
+                                                       {}).items())]
 
 
 def run_steps(tag, step, state, ids_t, labels_t, per_step):
@@ -1909,6 +1954,324 @@ def check_generation(dev="cuda"):
              f"int8: 0.1)")
 
 
+# ------------------------------------------------------ eager-path kernels
+# (label, rows, H): the eager steps' shapes first (Llama's RMSNorm rows,
+# GPT's LayerNorm rows, Llama's SwiGLU [8192, 11008]), then the odd cases:
+# 3 rows, H 1000 (a ragged last warp), H 1001 (not a multiple of the
+# 16-byte chunk: the scalar path)
+NORM_CASES = {
+    "rms_norm_fwd": [("llama [8192, 4096]", 8192, 4096), ("3 rows", 3, 4096),
+                     ("H 1000", 64, 1000), ("H 1001", 64, 1001)],
+    "layer_norm_fwd": [("gpt [8192, 768]", 8192, 768), ("3 rows", 3, 768),
+                       ("H 1000", 64, 1000), ("H 1001", 64, 1001)],
+    "bias_residual_ln_fwd": [("gpt [8192, 768]", 8192, 768),
+                             ("3 rows", 3, 768), ("H 1000", 64, 1000),
+                             ("H 1001", 64, 1001)],
+    "swiglu_fwd": [("llama [8192, 11008]", 8192, 11008), ("3 rows", 3, 11008),
+                   ("H 1001", 64, 1001)],
+}
+NORM_SOURCES = {"rms_norm_fwd": "norms.cu", "layer_norm_fwd": "norms.cu",
+                "bias_residual_ln_fwd": "norms.cu", "swiglu_fwd": "swiglu.cu"}
+NORM_REPLACES = {
+    "rms_norm_fwd": "paddle_tpu/ops/pallas/norms.py:52",
+    "layer_norm_fwd": "paddle_tpu/ops/pallas/norms.py:121",
+    "bias_residual_ln_fwd": "paddle_tpu/ops/pallas/norms.py:274",
+    "swiglu_fwd": "paddle_tpu/ops/pallas/fused.py:47"}
+NORM_EPS = 1e-5
+
+
+def norm_inputs(name, R, H, dt, gen, dev):
+    """Seeded inputs of one case: rows ``x`` (and ``y``: the residual, or
+    SwiGLU's second operand) ``[R, H]`` and ``[H]`` vectors in ``dt``; the
+    bias-residual LayerNorm's gains and bias fp32 (the incubate op's
+    defaults are fp32)."""
+    import torch
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale
+                + shift).to(dt)
+    inp = dict(x=t(R, H, shift=0.3), y=t(R, H), w=t(H, scale=0.1, shift=1.0),
+               b=t(H, scale=0.1), bias=t(H, scale=0.1))
+    # the library's LayerNorm takes gains in x's dtype
+    inp["w_lib"], inp["b_lib"] = inp["w"], inp["b"]
+    if name == "bias_residual_ln_fwd":
+        inp["w"], inp["b"] = inp["w"].float(), inp["b"].float()
+    return inp
+
+
+def norm_call(name, which, inp):
+    """One call of kernel ``name``'s wrapper (``"kernel"``), its plain
+    version (``"plain"``) or the PyTorch library call that computes the
+    same function (``"library"``); a tuple of outputs."""
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.ops import fused as tfu
+    from paddle_tpu_torch.ops import norms as tno
+    from paddle_tpu_torch.ops.cuda import fused as cfu
+    from paddle_tpu_torch.ops.cuda import norms as cno
+    x, y, w, b, bias = (inp[k] for k in ("x", "y", "w", "b", "bias"))
+    H, eps = x.shape[-1], NORM_EPS
+    fns = {
+        "rms_norm_fwd": (lambda: cno.rms_norm_fwd_cuda(x, w, eps),
+                         lambda: tno.rms_norm_ref(x, w, eps),
+                         lambda: tF.rms_norm(x, (H,), w, eps)),
+        "layer_norm_fwd": (lambda: cno.layer_norm_fwd_cuda(x, w, b, eps),
+                           lambda: tno.layer_norm_ref(x, w, b, eps),
+                           lambda: tF.layer_norm(x, (H,), w, b, eps)),
+        "bias_residual_ln_fwd": (
+            lambda: cno.bias_residual_ln_fwd_cuda(x, y, bias, w, b, eps),
+            lambda: tno.bias_residual_ln_ref(x, y, bias, w, b, eps),
+            lambda: tF.layer_norm(x + bias + y, (H,), inp["w_lib"],
+                                  inp["b_lib"], eps)),
+        "swiglu_fwd": (lambda: cfu.swiglu_fwd_cuda(x, y),
+                       lambda: tfu.swiglu_ref(x, y),
+                       lambda: tF.silu(x) * y)}
+    out = fns[name][("kernel", "plain", "library").index(which)]()
+    return out if isinstance(out, tuple) else (out,)
+
+
+# the library call each kernel is timed against
+NORM_LIBRARY = {"rms_norm_fwd": "F.rms_norm", "layer_norm_fwd": "F.layer_norm",
+                "bias_residual_ln_fwd": "x + bias + residual, then "
+                                        "F.layer_norm",
+                "swiglu_fwd": "F.silu(x) * y"}
+
+
+def norm_bytes_ops(name, R, H, itemsize):
+    """Each input read once and each output written once (the fp32 row
+    statistics included); fp32 operations per element: square-sum and
+    scale (4), centred sums and affine (7), plus bias and residual (9),
+    sigmoid, two products (5)."""
+    n = R * H
+    return {"rms_norm_fwd": (2 * n * itemsize + H * itemsize + 4 * R, 4 * n),
+            "layer_norm_fwd": (2 * n * itemsize + 2 * H * itemsize + 8 * R,
+                               7 * n),
+            "bias_residual_ln_fwd": (4 * n * itemsize + H * (itemsize + 8)
+                                     + 8 * R, 9 * n),
+            "swiglu_fwd": (3 * n * itemsize, 5 * n)}[name]
+
+
+def phase_norms(results, dev="cuda"):
+    """Kernels 12, 13, 14 and 16 against their plain versions in fp32
+    (TOL) and bf16 (TOL, or the ratio rule against the plain version on
+    the inputs upcast to fp32) at the eager steps' shapes and the odd
+    cases, one launch per call; bf16 kernel, plain and library times at
+    the eager steps' shapes."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    gen = torch.Generator(device=dev)
+    for name, cases in NORM_CASES.items():
+        err, ratios = {}, []
+        for label, R, H in cases:
+            for dtn, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+                gen.manual_seed(SEED)
+                inp = norm_inputs(name, R, H, dt, gen, dev)
+                layer.reset_counts()
+                got = norm_call(name, "kernel", inp)
+                torch.cuda.synchronize()
+                n = {k: c for k, c in layer.launch_counts().items() if c}
+                if n != {name: 1}:
+                    raise SmokeFailure(f"{name} {label}: launched {n}")
+                ref = norm_call(name, "plain", inp)
+                truth = norm_call(name, "plain",
+                                  {k: v.float() for k, v in inp.items()})
+                for i, (g, r, tr) in enumerate(zip(got, ref, truth)):
+                    what = f"{name} {label} {dtn} output {i}"
+                    if g.dtype != r.dtype or g.shape != r.shape:
+                        raise SmokeFailure(
+                            f"{what}: {g.dtype} {tuple(g.shape)}, plain "
+                            f"{r.dtype} {tuple(r.shape)}")
+                    # fp32 outputs and the fp32 row statistics: fp32 sums
+                    # of the same values on both sides
+                    e = check_close(what, g, r, TOL["float32"]) \
+                        if r.dtype == torch.float32 else \
+                        check_layer_out(what, g, r, tr, TOL[dtn], ratios)
+                    err[dtn] = max(err.get(dtn, 0.0), e)
+            info(f"{name} {label}: max |kernel - plain| fp32 "
+                 f"{err['float32']:.2e}, bf16 {err['bfloat16']:.2e}")
+        label, R, H = cases[0]
+        gen.manual_seed(SEED)
+        inp = norm_inputs(name, R, H, torch.bfloat16, gen, dev)
+        ms, call = time_ms(lambda: norm_call(name, "kernel", inp), 50,
+                           per_launch=True)
+        plain_ms, plain_call = time_ms(lambda: norm_call(name, "plain", inp),
+                                       10)
+        lib_ms = time_ms(lambda: norm_call(name, "library", inp), 50)[0]
+        bms, bby = bound_ms(*norm_bytes_ops(name, R, H, 2), dtype="float32")
+        results.append(dict(
+            name=name, route="cuda",
+            source=f"paddle_tpu_torch/kernels/csrc/{NORM_SOURCES[name]}",
+            replaces=NORM_REPLACES[name], shape=f"{label} bf16",
+            max_abs_err=err["bfloat16"], max_abs_err_fp32=err["float32"],
+            ms=ms, call_ms=call, plain_ms=plain_ms,
+            plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
+            library_ms=lib_ms, library_what=NORM_LIBRARY[name],
+            bf16_vs_fp32_ratio=max(ratios, default=None)))
+        info(f"{name} bf16 {label}: device {ms} ms (per call {call:.4f}), "
+             f"bound {bms:.4f} ms ({bby}), plain {plain_ms} ms, library "
+             f"({NORM_LIBRARY[name]}) {lib_ms} ms")
+
+
+# -------------------------------------------------------------- eager
+# the eager models' dygraph loop (loss = net(ids, labels); loss.backward();
+# opt.step(); opt.clear_grad()) at the gpt and train phases' models and
+# batches: GPT-125M (V 32768, 12 layers, bf16, dropout 0) at 8 x 1024 and
+# llama_7b x 4 layers bf16 at 4 x 2048, AdamW(lr 1e-4)
+EAGER_GPT_LAYERS, EAGER_GPT_B, EAGER_GPT_S = 12, 8, 1024
+EAGER_LLAMA_LAYERS, EAGER_LLAMA_B, EAGER_LLAMA_S = 4, 4, 2048
+EAGER_CHECK_LAYERS, EAGER_LR, EAGER_LOSS_TOL = 2, 1e-4, 1e-4
+# launches per eager step, predicted before the first run: GPT's ln1 is the
+# fused LayerNorm (ln_f is the plain chain) and its attention epilogue the
+# fused bias-residual LayerNorm, one each a block; flash forward and
+# backward once a block (no remat); Llama's two RMSNorms a block and the
+# final one, SwiGLU once a block, dense attention (no flash); the fused
+# head on both
+EAGER_GPT_PER_STEP = {"layer_norm_fwd": EAGER_GPT_LAYERS,
+                      "bias_residual_ln_fwd": EAGER_GPT_LAYERS,
+                      "flash_fwd": EAGER_GPT_LAYERS,
+                      "flash_bwd_dq": EAGER_GPT_LAYERS,
+                      "flash_bwd_dkv": EAGER_GPT_LAYERS, **LCE_PER_STEP}
+EAGER_LLAMA_PER_STEP = {"rms_norm_fwd": 2 * EAGER_LLAMA_LAYERS + 1,
+                        "swiglu_fwd": EAGER_LLAMA_LAYERS, **LCE_PER_STEP}
+
+
+def eager_model(kind, layers, dev, dtype):
+    """A seeded eager model (``make_generator(SEED)``) cast to ``dtype``."""
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.models import llama as tllama
+    gen = make_generator(SEED, dev)
+    if kind == "gpt":
+        cfg = tgpt.GPTConfig(vocab_size=32768, hidden_size=768,
+                             num_layers=layers, num_heads=12)
+        net = tgpt.GPTForCausalLM(cfg, generator=gen, device=dev)
+    else:
+        name = "bfloat16" if dtype is not None else "float32"
+        cfg = tllama.llama_7b(num_layers=layers, dtype=name)
+        net = tllama.LlamaForCausalLM(cfg, generator=gen, device=dev)
+    return (net if dtype is None else net.to(dtype)), cfg
+
+
+def eager_batch(vocab, B, S, dev):
+    import numpy as np
+    import torch
+    ids = np.random.default_rng(SEED).integers(0, vocab, (B, S))
+    return (torch.from_numpy(ids).to(dev),
+            torch.from_numpy(np.roll(ids, -1, axis=1)).to(dev))
+
+
+def eager_loss_and_grads(net, ids, labels):
+    """One step's loss and every parameter's gradient, ``(loss, {name:
+    grad})`` (the tree ``check_steps`` reads)."""
+    loss = net(ids, labels)
+    loss.backward()
+    grads = {k: p.grad for k, p in net.named_parameters()}
+    for p in net.parameters():
+        p.grad = None
+    return loss.detach(), grads
+
+
+class eager_plain_path:
+    """Within the block the eager ops run the plain versions of kernels
+    6-14 and 16 on CUDA tensors (the port never does: its ops launch the
+    kernels for CUDA tensors)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import flash_attention as tfa
+        from paddle_tpu_torch.ops import fused as tfu
+        from paddle_tpu_torch.ops import fused_cross_entropy as tce
+        from paddle_tpu_torch.ops import norms as tno
+        from paddle_tpu_torch.ops.cuda import flash_attention as cfa
+        from paddle_tpu_torch.ops.cuda import fused as cfu
+        from paddle_tpu_torch.ops.cuda import linear_ce as cce
+        from paddle_tpu_torch.ops.cuda import norms as cno
+
+        def lce_fwd(x2, w, labels, **kw):
+            return tce.lce_fwd_ref(x2, w, labels,
+                                   chunk=tce.default_chunk(w.shape[0]), **kw)
+        swaps = [(cno, "rms_norm_fwd_cuda", tno.rms_norm_ref),
+                 (cno, "layer_norm_fwd_cuda", tno.layer_norm_ref),
+                 (cno, "bias_residual_ln_fwd_cuda", tno.bias_residual_ln_ref),
+                 (cfu, "swiglu_fwd_cuda", tfu.swiglu_ref),
+                 (cfa, "flash_fwd_cuda", tfa.flash_fwd_ref),
+                 (cfa, "flash_bwd_cuda", tfa.flash_bwd_ref),
+                 (cce, "linear_ce_fwd_cuda", lce_fwd),
+                 (cce, "linear_ce_bwd_cuda", tce.lce_bwd_ref)]
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        for m, n, fn in swaps:
+            setattr(m, n, fn)
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def check_eager(kind, B, S, dev="cuda"):
+    """A 2-layer bf16 model's loss and gradients through the kernels
+    against the same model's plain path (loss within EAGER_LOSS_TOL
+    relative; each gradient within STEP_REL_L2 or no further from an fp32
+    run of the plain path than BF16_SLACK x the plain bf16 path), with no
+    launch on the plain path."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    net, cfg = eager_model(kind, EAGER_CHECK_LAYERS, dev, torch.bfloat16)
+    ids, labels = eager_batch(cfg.vocab_size, B, S, dev)
+    runs = {"kernels": eager_loss_and_grads(net, ids, labels)}
+    layer.reset_counts()
+    with eager_plain_path():
+        runs["plain"] = eager_loss_and_grads(net, ids, labels)
+        del net
+        net32, _ = eager_model(kind, EAGER_CHECK_LAYERS, dev, None)
+        truth = eager_loss_and_grads(net32, ids, labels)
+        del net32
+    torch.cuda.synchronize()
+    n = {k: c for k, c in layer.launch_counts().items() if c}
+    if n:
+        raise SmokeFailure(f"eager {kind} plain path launched {n}")
+    check_steps(f"eager {kind} ({EAGER_CHECK_LAYERS} layers, bf16, {B} x "
+                f"{S})", runs, truth,
+                (("kernels vs plain path", "kernels", "plain",
+                  EAGER_LOSS_TOL),))
+    del runs, truth
+    torch.cuda.empty_cache()
+
+
+def phase_eager(dev="cuda"):
+    """The eager GPT-125M and llama_7b x 4 models through their dygraph
+    loop (1 warm and TRAIN_STEPS timed steps, launch counts as predicted),
+    then the 2-layer checks."""
+    import torch
+    from paddle_tpu_torch.optimizer import AdamW
+    counts, summary = {}, {}
+    for kind, layers, B, S, per_step in (
+            ("gpt", EAGER_GPT_LAYERS, EAGER_GPT_B, EAGER_GPT_S,
+             EAGER_GPT_PER_STEP),
+            ("llama", EAGER_LLAMA_LAYERS, EAGER_LLAMA_B, EAGER_LLAMA_S,
+             EAGER_LLAMA_PER_STEP)):
+        t0 = time.perf_counter()
+        net, cfg = eager_model(kind, layers, dev, torch.bfloat16)
+        opt = AdamW(learning_rate=EAGER_LR,
+                    parameters=net.named_parameters())
+        torch.cuda.synchronize()
+        info(f"eager {kind}: {layers} layers, bf16, "
+             f"{sum(p.numel() for p in net.parameters())} params, built in "
+             f"{time.perf_counter() - t0:.1f} s; batch {B} x {S}")
+        ids, labels = eager_batch(cfg.vocab_size, B, S, dev)
+
+        def step(state, ids_t, labels_t, net=net, opt=opt):
+            loss = net(ids_t, labels_t)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return state, loss.detach()
+        c, s = run_steps(f"eager {kind}", step, None, ids, labels, per_step)
+        counts[f"eager {kind}"], summary[kind] = c, s
+        del net, opt
+        torch.cuda.empty_cache()
+        check_eager(kind, B, S, dev)
+    return counts, summary
+
+
 def main():
     try:
         import torch
@@ -1943,20 +2306,28 @@ def main():
         phase_quant_linear(kernels)
         torch.cuda.empty_cache()
         gen_counts, gen = phase_generate()
+        torch.cuda.empty_cache()
+        phase_norms(kernels)
+        torch.cuda.empty_cache()
+        eager_counts, eager = phase_eager()
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         info(f"FAILED: {type(e).__name__}: {e}")
         return 1
+    # each kernel's launches over the main-path runs of the phases that
+    # drive it (the engine, the train steps, the rollouts, the eager steps)
+    by_phase = {"engine": counts, "train": train_counts, "gpt": gpt_counts,
+                **{f"generate {tag}": c for tag, c in gen_counts.items()},
+                **eager_counts}
+    # and the per-step launches each step phase was checked against
+    per_step = {"train": {**FLASH_PER_STEP, **LCE_PER_STEP},
+                "gpt": GPT_PER_STEP, "eager gpt": EAGER_GPT_PER_STEP,
+                "eager llama": EAGER_LLAMA_PER_STEP}
     for k in kernels:
-        if k["name"] in GPT_PER_STEP:      # the training kernels
-            by = {"train": train_counts[k["name"]],
-                  "gpt": gpt_counts[k["name"]]}
-            k["launches"], k["launches_by_phase"] = sum(by.values()), by
-        elif k["name"] in GEN_KERNELS:     # the generation kernels
-            by = {f"generate {tag}": c[k["name"]]
-                  for tag, c in gen_counts.items()}
-            k["launches"], k["launches_by_phase"] = sum(by.values()), by
-        else:
-            k["launches"] = counts.get(k["name"], 0)
+        by = {ph: c[k["name"]] for ph, c in by_phase.items()
+              if c.get(k["name"])}
+        k["launches"], k["launches_by_phase"] = sum(by.values()), by
+        k["launches_per_step_by_phase"] = {
+            ph: t[k["name"]] for ph, t in per_step.items() if k["name"] in t}
         for key, fallback in (("ms", "call_ms"), ("plain_ms", "plain_call_ms")):
             if k[key] is None:           # the profiler recorded no kernels
                 k[key] = k[fallback]
@@ -1964,6 +2335,7 @@ def main():
     info(f"train summary {json.dumps(train)}")
     info(f"gpt summary {json.dumps(gpt)}")
     info(f"generate summary {json.dumps(gen)}")
+    info(f"eager summary {json.dumps(eager)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

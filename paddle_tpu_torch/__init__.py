@@ -8,7 +8,11 @@ paged-KV decode step through the ``decode_block`` op) and the one-device
 Llama and GPT train steps (:func:`parallel.build_llama_train_step`,
 :func:`parallel.build_gpt_train_step`: attention through the
 ``flash_attention`` op, the head through the logits-free
-``linear_cross_entropy`` op).  On a CUDA tensor the ops launch
+``linear_cross_entropy`` op), KV-cache generation
+(:mod:`models.generation`) and eager training of
+:class:`models.llama.LlamaForCausalLM` / :class:`models.gpt.GPTForCausalLM`
+with :class:`optimizer.AdamW` (the fused norm and SwiGLU ops of
+:mod:`ops.norms` / :mod:`ops.fused`).  On a CUDA tensor the ops launch
 hand-written kernels (``kernels/csrc``); on a CPU tensor they run their
 plain PyTorch versions, which the tests hold against the JAX package.
 

@@ -7,7 +7,9 @@ numpy arrays (or anything ``numpy.asarray`` accepts), collapses the blocks
 to ``[L, ...]`` as the JAX engine's ``_collapse_blocks`` does, and returns
 torch tensors, so both packages compute with the same numbers.
 :func:`state_from_numpy` does the same for a whole one-device train state,
-Adam moments included.
+Adam moments included.  :func:`state_dict_from_numpy` takes an eager JAX
+model's ``state_dict()`` (name -> array) for ``module.load_state_dict``
+of the port's eager model of the same config.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from .device import resolve_device
 from .models.generation import _collapse_blocks
 from .models.llama import torch_dtype
 
-__all__ = ["params_from_numpy", "state_from_numpy"]
+__all__ = ["params_from_numpy", "state_from_numpy", "state_dict_from_numpy"]
 
 
 def _to_torch(a, dtype: Optional[torch.dtype],
@@ -84,3 +86,15 @@ def state_from_numpy(state: Dict[str, object], dtype=None,
     return {"params": params, "opt": {"m": moments(opt["m"]),
                                       "v": moments(opt["v"]),
                                       "t": int(np.asarray(opt["t"]))}}
+
+
+def state_dict_from_numpy(sd: Dict[str, object], dtype=None,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """An eager JAX ``state_dict()`` (name -> array, or anything
+    ``numpy.asarray`` accepts, such as the JAX package's ``Parameter``) ->
+    name -> torch tensor on ``device``, each in ``dtype`` when one is given,
+    else in its own dtype; the names are kept (the port's eager models
+    use the JAX attribute names)."""
+    dev = resolve_device(device)
+    dt = None if dtype is None else torch_dtype(dtype)
+    return {k: _to_torch(v, dt, dev) for k, v in sd.items()}

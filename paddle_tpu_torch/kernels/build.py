@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "LayerArgs",
-           "FlashArgs", "LceArgs", "WoArgs", "library", "check",
+           "FlashArgs", "LceArgs", "WoArgs", "NormArgs", "library", "check",
            "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -88,6 +88,15 @@ class WoArgs(ctypes.Structure):
                  ("int4", "x_dtype", "M", "K", "N", "half", "ldx", "xhi",
                   "gs", "G", "tile_dq")]
                 + [(n, ctypes.c_void_p) for n in ("x", "w", "scale", "y")])
+
+
+class NormArgs(ctypes.Structure):
+    """Mirror of ``struct NormArgs`` in ``csrc/common.cuh``."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("dtype", "R", "H")]
+                + [("eps", ctypes.c_float)]
+                + [(n, ctypes.c_void_p) for n in
+                   ("x", "res", "bias", "w", "b", "out", "add", "mean",
+                    "inv")])
 
 
 _lock = threading.Lock()
@@ -155,6 +164,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fptr = ctypes.POINTER(FlashArgs)
     lptr = ctypes.POINTER(LceArgs)
     LL = ctypes.c_longlong
+    nptr = ctypes.POINTER(NormArgs)
     sigs = {"pt_decode_block": [ptr, P], "pt_prefill_block": [ptr, P],
             "pt_flash_fwd": [fptr, P], "pt_flash_bwd_dq": [fptr, P],
             "pt_flash_bwd_dkv": [fptr, P],
@@ -166,6 +176,9 @@ def _bind(lib: ctypes.CDLL) -> None:
             "pt_decode_attention": [I, I, I, I, I, I, LL, LL, Fl, P, P, P,
                                     P, P, P],
             "pt_weight_only_matmul": [ctypes.POINTER(WoArgs), P],
+            "pt_rms_norm_fwd": [nptr, P], "pt_layer_norm_fwd": [nptr, P],
+            "pt_bias_residual_ln_fwd": [nptr, P],
+            "pt_swiglu_fwd": [I, LL, P, P, P, P],
             "pt_launch_counts": [ctypes.POINTER(ctypes.c_longlong), I]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

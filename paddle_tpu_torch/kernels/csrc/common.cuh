@@ -98,6 +98,23 @@ struct WoArgs {
   void *y;
 };
 
+// One row-normalisation launch (norms.cu): x, res, out, add [R, H]
+// contiguous in `dtype`; bias (added to x before the residual), w and b
+// fp32 [H]; mean and inv fp32 [R].  rms_norm_fwd reads x, w and writes
+// out, inv; layer_norm_fwd also reads b and writes mean;
+// bias_residual_ln_fwd also reads res, bias and writes add.  Mirrored
+// field for field by the ctypes Structure in
+// paddle_tpu_torch/kernels/build.py.
+struct NormArgs {
+  int dtype;                  // PT_F32 | PT_BF16
+  int R, H;
+  float eps;
+  const void *x, *res;
+  const float *bias, *w, *b;
+  void *out, *add;
+  float *mean, *inv;
+};
+
 namespace pt {
 
 typedef __nv_bfloat16 bf16;
@@ -131,7 +148,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }  // namespace pt
 
 // Launch counters: one per __global__ kernel (its fp32/bf16 and epilogue
-// template instances count together) and one per layer entry point.
+// template instances count together; the three modes of norms.cu's kernel
+// apart) and one per layer entry point.
 // Kept in layer.cu, read and reset through pt_launch_counts /
 // pt_reset_launch_counts; the names in paddle_tpu_torch/ops/cuda/layer.py
 // (KERNELS) follow this order.
@@ -157,6 +175,10 @@ enum {
   CNT_WO_INT4_SMALL_M,
   CNT_WO_INT4_TILED,
   CNT_WO_F32,
+  CNT_RMS_NORM_FWD,
+  CNT_LAYER_NORM_FWD,
+  CNT_BIAS_RESIDUAL_LN_FWD,
+  CNT_SWIGLU_FWD,
   CNT_NUM
 };
 

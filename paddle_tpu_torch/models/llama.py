@@ -1,14 +1,16 @@
-"""Llama configuration, RoPE tables, seeded parameters and the functional
-block of the train step.
+"""Llama configuration, RoPE tables, seeded parameters, the functional
+block of the train step and the eager model.
 
 Counterpart of ``paddle_tpu/models/llama.py`` restricted to what the
-serving engine and the one-device train step read: the config fields,
-``llama_tiny`` / ``llama_7b``, the RoPE tables (``_rope_cos_sin``), a
-parameter tree in the train-step layout (``wte [V, H]``, ``head [H, V]``,
-``lnf_w [H]``, ``blocks`` stacked ``[L, ...]``) drawn from a
-``torch.Generator``, and the pure block of the train step
+serving engine, the one-device train step and eager training read: the
+config fields, ``llama_tiny`` / ``llama_7b``, the RoPE tables
+(``_rope_cos_sin``), a parameter tree in the train-step layout (``wte [V,
+H]``, ``head [H, V]``, ``lnf_w [H]``, ``blocks`` stacked ``[L, ...]``)
+drawn from a ``torch.Generator``, the pure block of the train step
 (:func:`apply_rope`, :func:`_gqa_attention`, :func:`block_apply`) for
-dense layers without tensor parallelism.
+dense layers without tensor parallelism, and the eager ``nn.Module``
+graph :class:`LlamaForCausalLM` (``llama.py:248-430``) with the JAX
+attribute names, so ``state_dict()`` keys are the JAX ones.
 """
 
 from __future__ import annotations
@@ -19,11 +21,17 @@ from typing import Dict, Optional
 
 import torch
 
+from ..device import make_generator, resolve_device
+from ..incubate.nn.functional import swiglu
+from ..nn import functional as F
+from ..nn.layer import Embedding, Linear, RMSNorm
 from ..ops.decode_block import rotate_half
 from .generation import _dense_masked_attention
 
 __all__ = ["LlamaConfig", "llama_tiny", "llama_7b", "init_params",
-           "torch_dtype", "apply_rope", "rms_norm", "block_apply"]
+           "torch_dtype", "apply_rope", "rms_norm", "block_apply",
+           "LlamaAttention", "LlamaMLP", "LlamaBlock", "LlamaModel",
+           "LlamaForCausalLM"]
 
 
 @dataclasses.dataclass
@@ -43,9 +51,13 @@ class LlamaConfig:
     # mixture-of-experts FFNs are outside this port's slices; the field is
     # kept so the engine and the train step can refuse such configs by name
     moe_num_experts: int = 0
-    # the JAX train step keeps an untied head whatever this says; kept for
-    # config parity
+    # the eager LlamaForCausalLM reads it (a tied head reuses
+    # embed_tokens); the JAX train step keeps an untied head whatever it
+    # says
     tie_word_embeddings: bool = False
+    # tensor-parallel eager layers are outside this port's slices; the
+    # eager model refuses the field by name
+    use_mp: bool = False
     # logits-free fused linear-CE head (ops/fused_cross_entropy.py), the
     # JAX default; False takes the dense fp32-logits head
     fused_head: bool = True
@@ -162,7 +174,6 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     matrix, ones for the norm gains, in ``cfg.dtype``.  The numbers differ
     from the JAX package's (another generator); tests that compare the two
     packages build one tree with numpy and hand it to both."""
-    from ..device import resolve_device
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     std = cfg.initializer_range
@@ -200,8 +211,7 @@ def _gqa_attention(q, k, v, causal: bool = True):
 def rms_norm(x, w, eps: float):
     """The train step's RMSNorm: scale computed in fp32, the normalised
     value rounded to x's dtype, then times the gain."""
-    ms = x.float().square().mean(-1, keepdim=True)
-    return (x * torch.rsqrt(ms + eps)).to(x.dtype) * w
+    return F.rms_norm(x, w, None, eps)
 
 
 def block_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -224,3 +234,151 @@ def block_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     y = rms_norm(x, params["ln2_w"], eps)
     h = torch.nn.functional.silu(y @ params["gate_w"]) * (y @ params["up_w"])
     return x + h @ params["down_w"]
+
+
+# ------------------------------------------------------------ eager model
+def _refuse(what: str, item: int, name: str):
+    raise NotImplementedError(
+        f"{what} is not ported to paddle_tpu_torch yet (ROADMAP queue 1 "
+        f"item {item}: {name})")
+
+
+def _refuse_unported(cfg) -> None:
+    """Refuse by name what the eager Llama does not port."""
+    if cfg.use_mp:
+        _refuse("use_mp (tensor-parallel eager layers)", 17,
+                "training runtime and distributed parallelism")
+    if cfg.moe_num_experts:
+        _refuse("mixture-of-experts FFNs", 15, "MoE")
+
+
+class LlamaAttention(torch.nn.Module):
+    """q/k/v/o projections without bias; RoPE and the dense grouped-query
+    causal attention of the JAX eager op ``_rope_gqa_attention`` (plain
+    torch ops: the JAX package runs no kernel there either)."""
+
+    def __init__(self, cfg: LlamaConfig, *, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h, d = cfg.hidden_size, cfg.head_dim
+        kw = dict(bias_attr=False, generator=generator, device=device)
+        self.q_proj = Linear(h, cfg.num_heads * d, **kw)
+        self.k_proj = Linear(h, cfg.kv_heads * d, **kw)
+        self.v_proj = Linear(h, cfg.kv_heads * d, **kw)
+        self.o_proj = Linear(cfg.num_heads * d, h, **kw)
+
+    def forward(self, x, cos, sin):
+        cfg = self.cfg
+        b, s = x.shape[0], x.shape[1]
+        q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = self.k_proj(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        v = self.v_proj(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        q, k = apply_rope(q, k, cos, sin)
+        out = _gqa_attention(q, k, v, causal=True)
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+
+
+class LlamaMLP(torch.nn.Module):
+    """``down(swiglu(gate(x), up(x)))``: the ``swiglu_fwd`` kernel on
+    CUDA."""
+
+    def __init__(self, cfg: LlamaConfig, *, generator=None, device=None):
+        super().__init__()
+        h, f = cfg.hidden_size, cfg.intermediate_size
+        kw = dict(bias_attr=False, generator=generator, device=device)
+        self.gate_proj = Linear(h, f, **kw)
+        self.up_proj = Linear(h, f, **kw)
+        self.down_proj = Linear(f, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaBlock(torch.nn.Module):
+    """Pre-norm block; both RMSNorms take the ``rms_norm_fwd`` kernel on
+    CUDA."""
+
+    def __init__(self, cfg: LlamaConfig, *, generator=None, device=None):
+        super().__init__()
+        _refuse_unported(cfg)
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
+                                       device=device)
+        self.post_attention_layernorm = RMSNorm(
+            cfg.hidden_size, cfg.rms_norm_eps, device=device)
+        self.self_attn = LlamaAttention(cfg, generator=generator,
+                                        device=device)
+        self.mlp = LlamaMLP(cfg, generator=generator, device=device)
+
+    def forward(self, x, cos, sin):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(torch.nn.Module):
+    def __init__(self, cfg: LlamaConfig, *, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                      std=cfg.initializer_range,
+                                      generator=generator, device=device)
+        self.layers = torch.nn.ModuleList(
+            [LlamaBlock(cfg, generator=generator, device=device)
+             for _ in range(cfg.num_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, device=device)
+
+    def forward(self, input_ids):
+        cfg = self.cfg
+        dt = self.embed_tokens.weight.dtype
+        if dt.is_floating_point and dt.itemsize < torch_dtype(
+                cfg.dtype).itemsize:
+            # the JAX package would run RoPE and attention in the wider
+            # dtype and mix dtypes in the products, which torch refuses
+            raise ValueError(f"the parameters are {dt} but cfg.dtype is "
+                             f"{cfg.dtype!r}: build the config with "
+                             f"dtype={str(dt).split('.')[-1]!r}")
+        cos, sin = _rope_cos_sin(input_ids.shape[1], cfg.head_dim,
+                                 cfg.rope_theta, torch_dtype(cfg.dtype),
+                                 cfg.rope_scaling, device=input_ids.device,
+                                 dynamic=True)
+        x = self.embed_tokens(input_ids)
+        for blk in self.layers:
+            x = blk(x, cos, sin)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(torch.nn.Module):
+    """The eager Llama: ``net(ids)`` gives logits ``[b, s, V]``,
+    ``net(ids, labels)`` the mean cross-entropy over labels other than
+    -100, through the fused linear-CE head when ``cfg.fused_head`` (the
+    linear-CE kernels on CUDA), else the dense head.
+
+    Parameters are fp32, drawn from ``generator`` (seed 0 on ``device``
+    when None); ``device=None`` means CUDA.  Cast with
+    ``.to(torch.bfloat16)``.  ``use_mp`` and ``moe_num_experts`` raise
+    ``NotImplementedError`` naming their ROADMAP items."""
+
+    def __init__(self, cfg: LlamaConfig, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        _refuse_unported(cfg)
+        dev = resolve_device(device)
+        gen = generator if generator is not None else make_generator(0, dev)
+        self.cfg = cfg
+        self.llama = LlamaModel(cfg, generator=gen, device=dev)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                                  bias_attr=False, generator=gen, device=dev)
+
+    def forward(self, input_ids, labels=None):
+        cfg = self.cfg
+        h = self.llama(input_ids)
+        tied = cfg.tie_word_embeddings
+        w = self.llama.embed_tokens.weight if tied else self.lm_head.weight
+        if labels is not None and cfg.fused_head:
+            return F.fused_linear_cross_entropy(
+                h, w, labels, w_layout="vh" if tied else "hv")
+        logits = h @ w.t() if tied else self.lm_head(h)
+        if labels is not None:
+            return F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                                   labels.reshape(-1))
+        return logits

@@ -1,3 +1,3 @@
-from . import quant
+from . import functional, layer, quant
 
-__all__ = ["quant"]
+__all__ = ["functional", "layer", "quant"]

@@ -27,13 +27,16 @@ __all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
 #: flash-attention kernels and the four linear-CE head kernels of the
 #: training path, then the generation path's decode attention and its
 #: weight-only matmuls (int8 and int4 apart, each in its decode and its
-#: prefill regime, and the fp32 lane's kernel for both widths)
+#: prefill regime, and the fp32 lane's kernel for both widths), then the
+#: eager path's three row normalisations and SwiGLU
 KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "gemm_xw_small_m", "gemm_xw_tiled", "gemm_xw_f32",
            "rope_kv_write", "paged_attention", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "linear_ce_fwd", "linear_ce_dz", "linear_ce_dx",
            "linear_ce_dw", "decode_attention", "wo_int8_small_m",
-           "wo_int8_tiled", "wo_int4_small_m", "wo_int4_tiled", "wo_f32")
+           "wo_int8_tiled", "wo_int4_small_m", "wo_int4_tiled", "wo_f32",
+           "rms_norm_fwd", "layer_norm_fwd", "bias_residual_ln_fwd",
+           "swiglu_fwd")
 
 WEIGHTS = ("ln1_w", "q_w", "k_w", "v_w", "o_w", "ln2_w", "gate_w", "up_w",
            "down_w")

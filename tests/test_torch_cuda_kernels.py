@@ -130,7 +130,9 @@ def test_layer_counts_follow_the_chain():
     assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "linear_ce_fwd",
             "linear_ce_dz", "linear_ce_dx", "linear_ce_dw",
             "decode_attention", "wo_int8_small_m", "wo_int8_tiled",
-            "wo_int4_small_m", "wo_int4_tiled", "wo_f32"} <= set(names)
+            "wo_int4_small_m", "wo_int4_tiled", "wo_f32", "rms_norm_fwd",
+            "layer_norm_fwd", "bias_residual_ln_fwd",
+            "swiglu_fwd"} <= set(names)
     src = "".join(f.read_text() for f in sorted(csrc.glob("*.cu")))
     for name in names:
         assert src.count(f"count_launch(CNT_{name.upper()},") == 1, name
@@ -528,3 +530,106 @@ def test_weight_only_kernels_refuse_widths():
         tql.weight_only_matmul(x, torch.zeros(64, 24, dtype=torch.int8,
                                               device="cuda"),
                                torch.ones(24, device="cuda"))
+
+
+# ------------------------------------------------------- eager-path kernels
+# (rows, H): 3 rows, H 1000 (16-byte chunks, a ragged last warp), H 1001
+# and 77 (not a multiple of the 16-byte chunk: the scalar path), the GPT
+# width and a long row (8 chunks a thread)
+NORM_CASES = [(3, 1000), (5, 1001), (16, 77), (64, 768), (4, 11008)]
+NORM_IDS = [f"R{r}-H{h}" for r, h in NORM_CASES]
+
+
+def _norm_inputs(R, H, dt, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                                .astype(np.float32)).to("cuda", dt)
+    return (t(R, H, shift=0.3), t(R, H), t(H, scale=0.1),
+            t(H, scale=0.1, shift=1.0), t(H, scale=0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("case", NORM_CASES, ids=NORM_IDS)
+def test_norm_kernels_match_plain(dt, case):
+    """Each op launches its kernel once; outputs and fp32 statistics match
+    the plain versions; bf16 gains go in as fp32 and fp32 ones too."""
+    _need_card()
+    from paddle_tpu_torch.ops import norms as tn
+    from paddle_tpu_torch.ops.cuda import norms as cn
+    R, H = case
+    x, res, bias, w, b = _norm_inputs(R, H, dt, 23)
+    for fn, ref, args, name in (
+            (cn.rms_norm_fwd_cuda, tn.rms_norm_ref, (x, w), "rms_norm_fwd"),
+            (cn.layer_norm_fwd_cuda, tn.layer_norm_ref, (x, w, b),
+             "layer_norm_fwd"),
+            (cn.bias_residual_ln_fwd_cuda, tn.bias_residual_ln_ref,
+             (x, res, bias, w.float(), b.float()), "bias_residual_ln_fwd")):
+        layer.reset_counts()
+        got = fn(*args, 1e-5)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in layer.launch_counts().items() if n} == {
+            name: 1}
+        for g_, r_ in zip(got, ref(*args, 1e-5)):
+            assert g_.dtype == r_.dtype and g_.shape == r_.shape
+            tol = TOL[torch.float32 if r_.dtype == torch.float32 else dt]
+            torch.testing.assert_close(g_.float(), r_.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("n", [1, 7, 4096, 8 * 11008 + 3])
+def test_swiglu_kernel_matches_plain(dt, n):
+    _need_card()
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    rng = np.random.default_rng(24)
+    x, y = (torch.from_numpy(rng.standard_normal(n).astype(np.float32) * 3)
+            .to("cuda", dt) for _ in range(2))
+    layer.reset_counts()
+    got = cf.swiglu_fwd_cuda(x, y)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in layer.launch_counts().items() if c} == {
+        "swiglu_fwd": 1}
+    torch.testing.assert_close(got.float(), tf.swiglu_ref(x, y).float(),
+                               **TOL[dt])
+    # an unaligned view takes the scalar path
+    got = cf.swiglu_fwd_cuda(x[1:], y[1:]) if n > 1 else got
+    torch.testing.assert_close(got.float(), tf.swiglu_ref(
+        x[1:] if n > 1 else x, y[1:] if n > 1 else y).float(), **TOL[dt])
+
+
+@pytest.mark.gpu
+def test_eager_ops_launch_kernels_and_differentiate():
+    """The ops' autograd Functions run the kernels forward on CUDA and the
+    JAX VJPs backward; the grads match the plain path's on the CPU."""
+    _need_card()
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops import norms as tn
+    x, res, bias, w, b = _norm_inputs(6, 96, torch.float32, 25)
+    calls = {
+        "rms_norm_fwd": lambda a: tn.rms_norm(a[0], a[3], 1e-5),
+        "layer_norm_fwd": lambda a: tn.layer_norm(a[0], a[3], a[4], 1e-5),
+        "bias_residual_ln_fwd": lambda a: sum(
+            tn.fused_bias_dropout_residual_layer_norm(
+                a[0], a[1], a[2], a[3], a[4], 0.0, 1e-5, False)),
+        "swiglu_fwd": lambda a: tf.swiglu(a[0], a[1])}
+    for name, fn in calls.items():
+        grads = []
+        for dev in ("cuda", "cpu"):
+            args = [t.detach().to(dev).requires_grad_()
+                    for t in (x, res, bias, w, b)]
+            layer.reset_counts()
+            (fn(args) * torch.linspace(-1, 1, 96, device=dev)).sum() \
+                .backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert {k: c for k, c in layer.launch_counts().items()
+                        if c} == {name: 1}
+            grads.append([a.grad for a in args])
+        for g_cuda, g_cpu in zip(*grads):
+            if g_cpu is not None:
+                torch.testing.assert_close(g_cuda.cpu(), g_cpu,
+                                           **TOL[torch.float32])

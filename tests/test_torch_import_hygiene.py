@@ -62,6 +62,9 @@ params = init_params(cfg, make_generator(0, "cpu"), device="cpu")
 from paddle_tpu_torch.parallel import build_llama_train_step
 from paddle_tpu_torch.models.generation import gpt_generate, llama_generate
 from paddle_tpu_torch.models.gpt import gpt_tiny, init_params as gpt_init
+from paddle_tpu_torch.models.llama import LlamaForCausalLM
+from paddle_tpu_torch.models.gpt import GPTForCausalLM
+from paddle_tpu_torch.nn.layer import Embedding, LayerNorm, Linear, RMSNorm
 ids = [[1, 2, 3]]
 gparams = gpt_init(gpt_tiny(), make_generator(0, "cpu"), device="cpu")
 for call in (lambda: ContinuousBatchingEngine(cfg, params),
@@ -69,7 +72,10 @@ for call in (lambda: ContinuousBatchingEngine(cfg, params),
              lambda: make_generator(0),
              lambda: build_llama_train_step(llama_tiny(fused_head=False)),
              lambda: llama_generate(params, cfg, ids, 2),
-             lambda: gpt_generate(gparams, gpt_tiny(), ids, 2)):
+             lambda: gpt_generate(gparams, gpt_tiny(), ids, 2),
+             lambda: LlamaForCausalLM(cfg), lambda: GPTForCausalLM(gpt_tiny()),
+             lambda: Linear(2, 3), lambda: Embedding(4, 2),
+             lambda: LayerNorm(2), lambda: RMSNorm(2)):
     try:
         call()
     except RuntimeError as e:
@@ -79,10 +85,19 @@ for call in (lambda: ContinuousBatchingEngine(cfg, params),
                          "device='cpu'")
 ContinuousBatchingEngine(cfg, params, device="cpu")
 assert llama_generate(params, cfg, ids, 2, device="cpu").shape == (1, 5)
+import torch
+assert LlamaForCausalLM(cfg, device="cpu")(torch.tensor(ids)).shape == (
+    1, 3, cfg.vocab_size)
 for mod in ("paddle_tpu_torch.ops.decode_attention",
             "paddle_tpu_torch.ops.quant_linear", "paddle_tpu_torch.nn.quant",
             "paddle_tpu_torch.ops.cuda.decode_attention",
-            "paddle_tpu_torch.ops.cuda.quant_linear"):
+            "paddle_tpu_torch.ops.cuda.quant_linear",
+            "paddle_tpu_torch.ops.norms", "paddle_tpu_torch.ops.fused",
+            "paddle_tpu_torch.ops.cuda.norms",
+            "paddle_tpu_torch.ops.cuda.fused",
+            "paddle_tpu_torch.nn.functional", "paddle_tpu_torch.nn.layer",
+            "paddle_tpu_torch.incubate.nn.functional",
+            "paddle_tpu_torch.optimizer.optimizers"):
     assert mod in names, mod
 print("OK", len(names))
 """
@@ -94,4 +109,4 @@ def test_port_imports_and_defaults_to_cuda_without_jax():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("OK")
-    assert int(r.stdout.split()[1]) >= 21
+    assert int(r.stdout.split()[1]) >= 29
