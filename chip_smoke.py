@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving, training, generation and eager
-training paths on one CUDA card and check them.
+"""Drive the PyTorch/H100 port's serving, training, generation, eager
+training and incubate fused-API paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -91,7 +91,28 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             losses, step ms, tokens/s, peak memory and launch counts
             exactly as ``EAGER_*_PER_STEP`` predicts; then at 2 layers
             one step's loss and every gradient through the kernels against
-            the same model's plain path, held to an fp32 run.
+            the same model's plain path, held to an fp32 run;
+14. fused   the incubate fused API's kernels ``rope_fwd`` (forward and its
+            sign -1 VJP), ``softmax_mask_fwd``, ``bias_act_fwd`` (every
+            act) and ``dropout_add_fwd`` against their plain versions in
+            fp32 (1e-4) and bf16 (2e-2 or the ratio rule) at the shapes of
+            their callers (RoPE on llama_7b's q [4, 2048, 32, 128]; BERT-
+            base's logits [32, 12, 128, 128] with a [32, 1, 128, 128]
+            mask; the encoder's FFN [4096, 3072] and residual [4096, 768])
+            and on small cases (D 6 and 2, S 1 / 7 / 300 / 1000 / 5000,
+            H 1001); dropout-add in training at p 0.1 bit-equal to its
+            plain version, its keep rate within 5 sigma of 1 - p and a new
+            seed a new mask; kernel, plain, bound and library times in
+            bf16; then each public call once with its launches counted;
+15. encoder a BERT-base encoder built from 12
+            ``FusedTransformerEncoderLayer(768, 12, 3072, gelu)`` in an
+            ``nn.ModuleList``, bf16, on b 32 x s 128: post-LN eval (the
+            timed main path), pre-LN eval and pre-LN train (dropout 0.1),
+            2 warm and 10 timed forwards each with the launches exactly as
+            ``ENC_MODES`` predicts, forward ms, tokens/s, peak memory and a
+            profiled forward's device-busy share; then a 2-layer forward
+            of each mode through the kernels against its plain path, held
+            to an fp32 run.
 
 Prints one JSON line of per-kernel numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -1220,13 +1241,33 @@ def tree_leaves(tree):
                                                        {}).items())]
 
 
+def profile_once(fn):
+    """One profiled call of ``fn``: ``(wall ms, device-busy ms, {kernel:
+    (ms, launches)})``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - ts) * 1e3
+    by = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by[ev.key] = (us / 1e3, ev.count)
+    return wall, sum(ms for ms, _ in by.values()), by
+
+
 def run_steps(tag, step, state, ids_t, labels_t, per_step):
     """One warm and TRAIN_STEPS timed steps on one batch, the launch
     counts zeroed before and read after (they must be ``per_step`` per
     step, every other kernel 0), finite falling losses; then one profiled
     step.  Returns ``(counts, summary)``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops.cuda import layer
     torch.cuda.reset_peak_memory_stats()
     layer.reset_counts()
@@ -1252,20 +1293,7 @@ def run_steps(tag, step, state, ids_t, labels_t, per_step):
     step_ms = 1e3 * sum(times) / len(times)
     tok_s = ids_t.numel() / (step_ms / 1e3)
 
-    torch.cuda.synchronize()
-    ts = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        state, loss = step(state, ids_t, labels_t)
-        torch.cuda.synchronize()
-    prof_ms = (time.perf_counter() - ts) * 1e3
-    by = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            by[ev.key] = (us / 1e3, ev.count)
-    busy = sum(ms for ms, _ in by.values())
+    prof_ms, busy, by = profile_once(lambda: step(state, ids_t, labels_t))
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
     groups = {}
     for k, (ms, _) in by.items():
@@ -2171,20 +2199,22 @@ def eager_loss_and_grads(net, ids, labels):
     return loss.detach(), grads
 
 
-class eager_plain_path:
-    """Within the block the eager ops run the plain versions of kernels
-    6-14 and 16 on CUDA tensors (the port never does: its ops launch the
-    kernels for CUDA tensors)."""
+class plain_path:
+    """Within the block the ops run the plain versions of kernels 6-19 but
+    the serving ones on CUDA tensors (the port never does: its ops launch
+    the kernels for CUDA tensors)."""
 
     def __enter__(self):
         from paddle_tpu_torch.ops import flash_attention as tfa
         from paddle_tpu_torch.ops import fused as tfu
         from paddle_tpu_torch.ops import fused_cross_entropy as tce
         from paddle_tpu_torch.ops import norms as tno
+        from paddle_tpu_torch.ops import rope as tro
         from paddle_tpu_torch.ops.cuda import flash_attention as cfa
         from paddle_tpu_torch.ops.cuda import fused as cfu
         from paddle_tpu_torch.ops.cuda import linear_ce as cce
         from paddle_tpu_torch.ops.cuda import norms as cno
+        from paddle_tpu_torch.ops.cuda import rope as cro
 
         def lce_fwd(x2, w, labels, **kw):
             return tce.lce_fwd_ref(x2, w, labels,
@@ -2196,7 +2226,11 @@ class eager_plain_path:
                  (cfa, "flash_fwd_cuda", tfa.flash_fwd_ref),
                  (cfa, "flash_bwd_cuda", tfa.flash_bwd_ref),
                  (cce, "linear_ce_fwd_cuda", lce_fwd),
-                 (cce, "linear_ce_bwd_cuda", tce.lce_bwd_ref)]
+                 (cce, "linear_ce_bwd_cuda", tce.lce_bwd_ref),
+                 (cro, "rope_fwd_cuda", tro.rope_ref),
+                 (cfu, "softmax_mask_fwd_cuda", tfu.softmax_mask_ref),
+                 (cfu, "bias_act_fwd_cuda", tfu.bias_act_ref),
+                 (cfu, "dropout_add_fwd_cuda", tfu.dropout_add_ref)]
         self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
         for m, n, fn in swaps:
             setattr(m, n, fn)
@@ -2218,7 +2252,7 @@ def check_eager(kind, B, S, dev="cuda"):
     ids, labels = eager_batch(cfg.vocab_size, B, S, dev)
     runs = {"kernels": eager_loss_and_grads(net, ids, labels)}
     layer.reset_counts()
-    with eager_plain_path():
+    with plain_path():
         runs["plain"] = eager_loss_and_grads(net, ids, labels)
         del net
         net32, _ = eager_model(kind, EAGER_CHECK_LAYERS, dev, None)
@@ -2272,6 +2306,498 @@ def phase_eager(dev="cuda"):
     return counts, summary
 
 
+# ------------------------------------------------------- incubate fused
+# kernels 15, 17, 18 and 19 (fused_ops.cu) at the shapes of the models
+# that call them: RoPE on q (and k) of the llama_7b train batch
+# [4, 2048, 32, 128]; softmax(x + mask) on the BERT-base attention logits
+# of BASELINE config 3's batch (b 32 x s 128, 12 heads) with a [32, 1,
+# 128, 128] fp32 padding mask; act(x + bias) on the encoder's FFN
+# [4096, 3072]; dropout(x) + y on its residual stream [4096, 768]
+FUSED_SOURCE = "paddle_tpu_torch/kernels/csrc/fused_ops.cu"
+FUSED_REPLACES = {"rope_fwd": "paddle_tpu/ops/pallas/rope.py:52",
+                  "softmax_mask_fwd": "paddle_tpu/ops/pallas/fused.py:101",
+                  "bias_act_fwd": "paddle_tpu/ops/pallas/fused.py:141",
+                  "dropout_add_fwd": "paddle_tpu/ops/pallas/fused.py:179"}
+ROPE_MAIN, ROPE_SMALL = (4, 2048, 32, 128), [(2, 8, 3, 16), (1, 5, 2, 6),
+                                              (1, 3, 1, 2), (2, 64, 5, 96)]
+SOFTMAX_MAIN = ((32, 12, 128, 128), (32, 1, 128, 128))
+SOFTMAX_SMALL = [("S 1", (4, 3, 1), (1,)), ("S 7", (2, 3, 5, 7), (2, 1, 5, 7)),
+                 ("S 300", (2, 3, 300), (300,)),
+                 ("S 1000", (2, 3, 7, 1000), (2, 1, 1, 1000)),
+                 ("S 5000", (3, 2, 5000), (3, 1, 5000)),
+                 ("row-broadcast mask", (2, 4, 128), (2, 4, 1))]
+BIAS_ACT_MAIN, BIAS_ACT_SMALL = (4096, 3072), [(3, 3072), (64, 1001)]
+ACTS = ("gelu", "relu", "silu", "tanh", "sigmoid")
+DROPOUT_MAIN, DROPOUT_SMALL, DROPOUT_P = (4096, 768), [(1,), (7,),
+                                                        (64, 1001)], 0.1
+# the public calls' launches, predicted before the first run: RoPE on q
+# and k forward and backward (one launch per tensor, the VJP the same
+# kernel with sign -1), one softmax, one activation, one dropout-add at
+# p 0 and one at p 0.1
+FUSED_CALLS = {"rope_fwd": 4, "softmax_mask_fwd": 1, "bias_act_fwd": 1,
+               "dropout_add_fwd": 2}
+
+
+def one_launch(name, fn):
+    """``fn()`` with the counts zeroed first; fails unless kernel ``name``
+    alone was launched, once."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    layer.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    n = {k: c for k, c in layer.launch_counts().items() if c}
+    if n != {name: 1}:
+        raise SmokeFailure(f"{name}: one call launched {n}")
+    return out
+
+
+def check_pair(label, dtn, got, plain, truth, err, ratios):
+    """fp32: TOL; bf16: TOL or the ratio rule against ``truth``."""
+    if got.dtype != plain.dtype or got.shape != plain.shape:
+        raise SmokeFailure(f"{label}: {got.dtype} {tuple(got.shape)}, plain "
+                           f"{plain.dtype} {tuple(plain.shape)}")
+    e = check_close(label, got, plain, TOL["float32"]) \
+        if dtn == "float32" else \
+        check_layer_out(label, got, plain, truth, TOL[dtn], ratios)
+    err[dtn] = max(err.get(dtn, 0.0), e)
+
+
+def fused_entry(name, shape, err, ratios, timed, plain_fn, lib_fn, lib_what,
+                nbytes, ops, results, extra=None):
+    """Time kernel ``name`` (bf16, per launch), its plain version and the
+    library call; append its ``kernels`` entry."""
+    ms, call = time_ms(timed, 50, per_launch=True)
+    plain_ms, plain_call = time_ms(plain_fn, 5)
+    lib_ms = time_ms(lib_fn, 50)[0] if lib_fn is not None else None
+    bms, bby = bound_ms(nbytes, ops, dtype="float32")
+    results.append(dict(
+        name=name, route="cuda", source=FUSED_SOURCE,
+        replaces=FUSED_REPLACES[name], shape=shape,
+        max_abs_err=err["bfloat16"], max_abs_err_fp32=err["float32"],
+        ms=ms, call_ms=call, plain_ms=plain_ms, plain_call_ms=plain_call,
+        bound_ms=bms, bound_by=bby, library_ms=lib_ms,
+        library_what=lib_what, bf16_vs_fp32_ratio=max(ratios, default=None),
+        **(extra or {})))
+    info(f"{name} bf16 {shape}: device {ms} ms (per call {call:.4f}), "
+         f"bound {bms:.4f} ms ({bby}), plain {plain_ms} ms, library "
+         f"({lib_what}) {lib_ms} ms; max |err| bf16 {err['bfloat16']:.2e} "
+         f"fp32 {err['float32']:.2e}")
+
+
+def fused_rope_checks(gen, dev, results):
+    import torch
+    from paddle_tpu_torch.ops import rope as tr
+    from paddle_tpu_torch.ops.cuda import rope as cr
+    err, ratios = {}, []
+    for shape in ROPE_SMALL + [ROPE_MAIN]:
+        x32 = torch.randn(shape, device=dev, generator=gen)
+        g32 = torch.randn(shape, device=dev, generator=gen)
+        for tdt in (torch.float32, torch.bfloat16):
+            cos, sin = tr.rope_cos_sin(shape[1], shape[-1], dtype=tdt,
+                                       device=dev)
+            for dtn, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+                x, g = x32.to(dt), g32.to(dt)
+                for sign in (1.0, -1.0):
+                    got = one_launch("rope_fwd", lambda: cr.rope_fwd_cuda(
+                        x, cos, sin, sign))
+                    check_pair(f"rope_fwd {shape} tables {tdt} {dtn} sign "
+                               f"{sign:+.0f}", dtn, got,
+                               tr.rope_ref(x, cos, sin, sign),
+                               tr.rope_ref(x.float(), cos, sin, sign), err,
+                               ratios)
+                # the op's VJP launches the kernel with sign -1 on g
+                xr = x.detach().requires_grad_()
+                out = tr.fused_rope(xr, sin=sin, cos=cos)[0]
+                grad = one_launch("rope_fwd", lambda: torch.autograd.grad(
+                    out, xr, g)[0])
+                check_pair(f"rope_fwd VJP {shape} {dtn}", dtn, grad,
+                           tr.rope_ref(g, cos, sin, -1.0),
+                           tr.rope_ref(g.float(), cos, sin, -1.0), err,
+                           ratios)
+        info(f"rope_fwd {shape}: max |kernel - plain| fp32 "
+             f"{err['float32']:.2e}, bf16 {err['bfloat16']:.2e}")
+    q = torch.randn(ROPE_MAIN, device=dev, generator=gen).to(torch.bfloat16)
+    cos, sin = tr.rope_cos_sin(ROPE_MAIN[1], ROPE_MAIN[-1], device=dev)
+    n, tables = q.numel(), 2 * ROPE_MAIN[1] * ROPE_MAIN[-1] * 4
+    # x * cos + rot * (sin * sign): 4 fp32 operations an element
+    fused_entry("rope_fwd", f"q {list(ROPE_MAIN)} bf16, fp32 tables", err,
+                ratios, lambda: cr.rope_fwd_cuda(q, cos, sin),
+                lambda: tr.rope_ref(q, cos, sin), None,
+                "none: no single torch call computes rotate-half RoPE",
+                2 * n * 2 + tables, 4 * n, results)
+
+
+def fused_softmax_checks(gen, dev, results):
+    import torch
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    err, ratios = {}, []
+    cases = SOFTMAX_SMALL + [("main", *SOFTMAX_MAIN)]
+    for label, xs, ms_ in cases:
+        x32 = torch.randn(xs, device=dev, generator=gen) * 3
+        keep = torch.rand(ms_, device=dev, generator=gen) > 0.2
+        for mdt in (torch.float32, torch.bfloat16):
+            mask = torch.where(keep, 0.0, -1e4).to(mdt)
+            for dtn, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+                x = x32.to(dt)
+                got = one_launch("softmax_mask_fwd",
+                                 lambda: cf.softmax_mask_fwd_cuda(x, mask))
+                check_pair(f"softmax_mask_fwd {label} mask {mdt} {dtn}", dtn,
+                           got, tf.softmax_mask_ref(x, mask),
+                           tf.softmax_mask_ref(x.float(), mask), err, ratios)
+        info(f"softmax_mask_fwd {label}: max |kernel - plain| fp32 "
+             f"{err['float32']:.2e}, bf16 {err['bfloat16']:.2e}")
+    # a row whose mask is all -inf gives NaN, as in the JAX kernel
+    x = torch.ones(2, 3, device=dev)
+    mask = torch.tensor([[-float("inf")] * 3, [0.0] * 3], device=dev)
+    got = one_launch("softmax_mask_fwd",
+                     lambda: cf.softmax_mask_fwd_cuda(x, mask))
+    if not (torch.isnan(got[0]).all() and not torch.isnan(got[1]).any()):
+        raise SmokeFailure(f"softmax_mask_fwd all-masked row: {got}")
+    xs, ms_ = SOFTMAX_MAIN
+    x = (torch.randn(xs, device=dev, generator=gen) * 3).to(torch.bfloat16)
+    lengths = torch.randint(1, xs[-1] + 1, (xs[0],), device=dev,
+                            generator=gen)
+    pad = torch.arange(xs[-1], device=dev)[None, :] >= lengths[:, None]
+    mask = torch.where(pad, -1e4, 0.0)[:, None, None, :].expand(ms_) \
+        .contiguous()
+    n = x.numel()
+    # add, max, subtract, exp, sum, divide: 6 fp32 operations an element
+    fused_entry("softmax_mask_fwd",
+                f"x {list(xs)} bf16, mask {list(ms_)} fp32 (padding)", err,
+                ratios, lambda: cf.softmax_mask_fwd_cuda(x, mask),
+                lambda: tf.softmax_mask_ref(x, mask),
+                lambda: torch.softmax(x + mask, -1),
+                "torch.softmax(x + mask, -1): 2 calls",
+                2 * n * 2 + mask.numel() * 4, 6 * n, results)
+
+
+def fused_bias_act_checks(gen, dev, results):
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    err, ratios = {}, []
+    for shape in BIAS_ACT_SMALL + [BIAS_ACT_MAIN]:
+        x32 = torch.randn(shape, device=dev, generator=gen) * 3
+        b32 = torch.randn(shape[-1], device=dev, generator=gen)
+        for act in ACTS:
+            for dtn, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+                x, b = x32.to(dt), b32.to(dt)
+                got = one_launch("bias_act_fwd",
+                                 lambda: cf.bias_act_fwd_cuda(x, b, act))
+                check_pair(f"bias_act_fwd {shape} {act} {dtn}", dtn, got,
+                           tf.bias_act_ref(x, b, act),
+                           tf.bias_act_ref(x.float(), b, act), err, ratios)
+        info(f"bias_act_fwd {shape}: max |kernel - plain| fp32 "
+             f"{err['float32']:.2e}, bf16 {err['bfloat16']:.2e}")
+    x = torch.randn(BIAS_ACT_MAIN, device=dev, generator=gen).to(
+        torch.bfloat16)
+    b = torch.randn(BIAS_ACT_MAIN[-1], device=dev, generator=gen).to(
+        torch.bfloat16)
+    n = x.numel()
+    # add, cube, 2 multiply-adds, tanh (~4), the outer products: ~12
+    fused_entry("bias_act_fwd", f"x {list(BIAS_ACT_MAIN)} bf16, gelu", err,
+                ratios, lambda: cf.bias_act_fwd_cuda(x, b, "gelu"),
+                lambda: tf.bias_act_ref(x, b, "gelu"),
+                lambda: tF.gelu(x + b, approximate="tanh"),
+                "F.gelu(x + b, approximate='tanh'): 2 calls",
+                2 * n * 2 + BIAS_ACT_MAIN[-1] * 4, 12 * n, results)
+
+
+def fused_dropout_checks(gen, dev, results):
+    """The plain add, and training at p 0.1: kernel equal to the plain
+    version bit for bit, the keep rate within 5 sigma of 1 - p, kept
+    values x * scale, a new seed a new mask."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    err, ratios = {}, []
+    p = DROPOUT_P
+    for shape in DROPOUT_SMALL + [DROPOUT_MAIN]:
+        x32 = torch.randn(shape, device=dev, generator=gen)
+        y32 = torch.randn(shape, device=dev, generator=gen)
+        seed = torch.randint(0, 2 ** 31 - 1, (1,), device=dev,
+                             generator=gen)
+        for dtn, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+            x, y = x32.to(dt), y32.to(dt)
+            got = one_launch("dropout_add_fwd",
+                             lambda: cf.dropout_add_fwd_cuda(x, y, p, False))
+            check_pair(f"dropout_add_fwd {shape} p 0 {dtn}", dtn, got,
+                       tf.dropout_add_ref(x, y, p, False),
+                       tf.dropout_add_ref(x.float(), y.float(), p, False),
+                       err, ratios)
+            got = one_launch("dropout_add_fwd", lambda: cf.dropout_add_fwd_cuda(
+                x, y, p, True, seed))
+            plain = tf.dropout_add_ref(x, y, p, True, seed)
+            if not torch.equal(got, plain):
+                raise SmokeFailure(
+                    f"dropout_add_fwd {shape} p {p} {dtn}: kernel differs "
+                    f"from its plain version in {int((got != plain).sum())} "
+                    f"values (must be bit-equal)")
+            if dtn == "float32" and x.numel() > 1000:
+                scale = cf.dropout_scale(p)
+                kept = got != y
+                if not torch.equal(got[kept], x[kept] * scale + y[kept]):
+                    raise SmokeFailure(f"dropout_add_fwd {shape}: kept "
+                                       f"values are not x * scale + y")
+                n = x.numel()
+                rate, sd = float(kept.float().mean()), math.sqrt(
+                    p * (1 - p) / n)
+                if abs(rate - (1 - p)) > 5 * sd:
+                    raise SmokeFailure(f"dropout_add_fwd {shape}: keep "
+                                       f"rate {rate} vs {1 - p} +- 5 x {sd}")
+                other = cf.dropout_add_fwd_cuda(x, y, p, True, seed + 1)
+                if torch.equal(other, got):
+                    raise SmokeFailure("dropout_add_fwd: a new seed gave "
+                                       "the same mask")
+                info(f"dropout_add_fwd {shape} p {p}: bit-equal to plain, "
+                     f"keep rate {rate:.5f} (1 - p = {1 - p}, sigma "
+                     f"{sd:.1e}), a new seed a new mask")
+        info(f"dropout_add_fwd {shape}: max |kernel - plain| fp32 "
+             f"{err['float32']:.2e}, bf16 {err['bfloat16']:.2e}")
+    x = torch.randn(DROPOUT_MAIN, device=dev, generator=gen).to(
+        torch.bfloat16)
+    y = torch.randn(DROPOUT_MAIN, device=dev, generator=gen).to(
+        torch.bfloat16)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), device=dev, generator=gen)
+    n = x.numel()
+    ms0 = time_ms(lambda: cf.dropout_add_fwd_cuda(x, y, 0.0, False), 50,
+                  per_launch=True)[0]
+    # scale, select, add: 3 fp32 operations an element (the 24-bit draw
+    # and its Threefry rounds are integer work the bound leaves out)
+    fused_entry("dropout_add_fwd", f"x, y {list(DROPOUT_MAIN)} bf16, "
+                f"training p {p}", err, ratios,
+                lambda: cf.dropout_add_fwd_cuda(x, y, p, True, seed),
+                lambda: tf.dropout_add_ref(x, y, p, True, seed),
+                lambda: tF.dropout(x, p) + y,
+                f"F.dropout(x, {p}) + y: 2 calls", 3 * n * 2, 3 * n,
+                results, extra={"ms_p0": ms0})
+
+
+def fused_calls(gen, dev):
+    """The public calls of the incubate API once at the main shapes, the
+    counts zeroed before and read after: they must be FUSED_CALLS."""
+    import torch
+    from paddle_tpu_torch import incubate
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops.cuda import layer
+    q, k = (torch.randn(ROPE_MAIN, device=dev, generator=gen).to(
+        torch.bfloat16).requires_grad_() for _ in range(2))
+    xs, ms_ = SOFTMAX_MAIN
+    logits = torch.randn(xs, device=dev, generator=gen).to(torch.bfloat16)
+    mask = torch.zeros(ms_, device=dev)
+    h = torch.randn(BIAS_ACT_MAIN, device=dev, generator=gen).to(
+        torch.bfloat16)
+    b = torch.zeros(BIAS_ACT_MAIN[-1], device=dev, dtype=torch.bfloat16)
+    x, y = (torch.randn(DROPOUT_MAIN, device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    torch.cuda.synchronize()
+    layer.reset_counts()
+    oq, ok, _ = IF.fused_rotary_position_embedding(q, k)
+    torch.autograd.backward((oq, ok), (torch.ones_like(oq),
+                                       torch.ones_like(ok)))
+    probs = incubate.softmax_mask_fuse(logits, mask)
+    act = IF.fused_bias_act(h, b, "gelu")
+    outs = [IF.fused_dropout_add(x, y, p, training=True, generator=gen)
+            for p in (0.0, DROPOUT_P)]
+    torch.cuda.synchronize()
+    counts = layer.launch_counts()
+    got = {n: c for n, c in counts.items() if c}
+    if got != FUSED_CALLS:
+        raise SmokeFailure(f"fused calls: launches {got}, predicted "
+                           f"{FUSED_CALLS} (every other kernel 0)")
+    for name, t in (("rope q", oq), ("rope dq", q.grad), ("softmax", probs),
+                    ("bias_act", act), *[(f"dropout_add {i}", o)
+                                         for i, o in enumerate(outs)]):
+        if not torch.isfinite(t).all():
+            raise SmokeFailure(f"fused calls: {name} is not finite")
+    rows = probs.float().sum(-1)
+    if not torch.allclose(rows, torch.ones_like(rows), atol=2e-2):
+        raise SmokeFailure("fused calls: softmax rows do not sum to 1")
+    info(f"fused calls: launches {got} as predicted")
+    return counts
+
+
+def phase_fused(results, dev="cuda"):
+    """Kernels 15, 17, 18 and 19 against their plain versions and timed;
+    then the public calls once with their launch counts."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for checks in (fused_rope_checks, fused_softmax_checks,
+                   fused_bias_act_checks, fused_dropout_checks):
+        checks(gen, dev, results)
+        torch.cuda.empty_cache()
+    return fused_calls(gen, dev)
+
+
+# -------------------------------------------------------------- encoder
+# a BERT-base encoder built from the incubate layers as a user would: 12
+# FusedTransformerEncoderLayer(768, 12, 3072, gelu) in an nn.ModuleList,
+# bf16, on BASELINE config 3's batch (b 32 x s 128), in three modes
+ENC_LAYERS, ENC_D, ENC_HEADS, ENC_FFN, ENC_B, ENC_S = 12, 768, 12, 3072, \
+    32, 128
+ENC_WARM, ENC_TIMED, ENC_CHECK_LAYERS, ENC_DROPOUT = 2, 10, 2, 0.1
+# launches per forward, predicted before the first run: flash once a
+# layer without mask and dropout (eval), the FFN's activation once a layer;
+# post-LN epilogues through the bias-residual LayerNorm (attention and
+# FFN), pre-LN ones through dropout-add; pre-LN's LayerNorms are the jnp
+# chain (no layer_norm_fwd); in training the attention takes the dense
+# chain (no flash)
+ENC_MODES = {
+    "post-LN eval": (False, False, {"flash_fwd": ENC_LAYERS,
+                                    "bias_act_fwd": ENC_LAYERS,
+                                    "bias_residual_ln_fwd": 2 * ENC_LAYERS}),
+    "pre-LN eval": (True, False, {"flash_fwd": ENC_LAYERS,
+                                  "bias_act_fwd": ENC_LAYERS,
+                                  "dropout_add_fwd": 2 * ENC_LAYERS}),
+    "pre-LN train": (True, True, {"bias_act_fwd": ENC_LAYERS,
+                                  "dropout_add_fwd": 2 * ENC_LAYERS}),
+}
+
+
+def encoder_stack(pre, layers, dev, dtype, seed=SEED):
+    """The stack from a CUDA generator seeded ``seed`` (weights, then its
+    dropout masks)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    stack = torch.nn.ModuleList(
+        FusedTransformerEncoderLayer(
+            ENC_D, ENC_HEADS, ENC_FFN, dropout_rate=ENC_DROPOUT,
+            activation="gelu", normalize_before=pre, generator=gen,
+            device=dev) for _ in range(layers))
+    return stack.to(dtype), gen
+
+
+def encoder_forward(stack, x):
+    for layer in stack:
+        x = layer(x)
+    return x
+
+
+def check_encoder(mode, x, dev="cuda"):
+    """A 2-layer stack's output through the kernels against the same
+    stack's plain path (rel L2 within STEP_REL_L2, or no further from an
+    fp32 plain run on the same bf16 weights than BF16_SLACK x the plain
+    bf16 path), the dropout masks drawn alike from one seed."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    pre, train, _ = ENC_MODES[mode]
+    stack, gen = encoder_stack(pre, ENC_CHECK_LAYERS, dev, torch.bfloat16)
+    stack32, gen32 = encoder_stack(pre, ENC_CHECK_LAYERS, dev,
+                                   torch.float32)
+    stack32.load_state_dict({k: v.float()
+                             for k, v in stack.state_dict().items()})
+    stack.train(train)
+    stack32.train(train)
+    outs = {}
+    with torch.no_grad():
+        gen.manual_seed(SEED + 1)
+        outs["kernels"] = encoder_forward(stack, x)
+        layer.reset_counts()
+        with plain_path():
+            gen.manual_seed(SEED + 1)
+            outs["plain"] = encoder_forward(stack, x)
+            gen32.manual_seed(SEED + 1)
+            outs["fp32"] = encoder_forward(stack32, x.float())
+        torch.cuda.synchronize()
+    n = {k: c for k, c in layer.launch_counts().items() if c}
+    if n:
+        raise SmokeFailure(f"encoder {mode}: plain path launched {n}")
+    if not torch.isfinite(outs["kernels"]).all():
+        raise SmokeFailure(f"encoder {mode}: non-finite output")
+    r = rel_l2(outs["kernels"], outs["plain"])
+    rk, rp = rel_l2(outs["kernels"], outs["fp32"]), rel_l2(outs["plain"],
+                                                           outs["fp32"])
+    info(f"encoder {mode} ({ENC_CHECK_LAYERS} layers, bf16): kernels vs "
+         f"plain rel L2 {r:.3e} (bound {STEP_REL_L2}); vs fp32 {rk:.3e} "
+         f"(kernels) / {rp:.3e} (plain)")
+    if r > STEP_REL_L2 and rk > BF16_SLACK * rp:
+        raise SmokeFailure(f"encoder {mode}: kernels vs plain rel L2 {r:.3e}"
+                           f" > {STEP_REL_L2} and {rk:.3e} > {BF16_SLACK} x "
+                           f"{rp:.3e} from fp32")
+    return r
+
+
+def phase_encoder(dev="cuda"):
+    """The 12-layer bf16 stack in each mode: ENC_WARM + ENC_TIMED forwards
+    under no_grad with the launches exactly as ENC_MODES predicts, finite
+    outputs, forward ms, tokens/s, peak memory and a profiled forward's
+    device-busy share; then the 2-layer checks."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x = torch.randn(ENC_B, ENC_S, ENC_D, device=dev, generator=gen).to(
+        torch.bfloat16)
+    counts, summary = {}, {}
+    stacks = {}
+    for mode, (pre, train, per_fwd) in ENC_MODES.items():
+        if pre not in stacks:
+            stacks[pre] = encoder_stack(pre, ENC_LAYERS, dev,
+                                        torch.bfloat16)[0]
+        stack = stacks[pre].train(train)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        layer.reset_counts()
+        times = []
+        with torch.no_grad():
+            for i in range(ENC_WARM + ENC_TIMED):
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                out = encoder_forward(stack, x)
+                torch.cuda.synchronize()
+                if i >= ENC_WARM:
+                    times.append(time.perf_counter() - ts)
+        c = layer.launch_counts()
+        n = ENC_WARM + ENC_TIMED
+        got = {k: v for k, v in c.items() if v}
+        want = {k: v * n for k, v in per_fwd.items()}
+        if got != want:
+            raise SmokeFailure(f"encoder {mode}: launch counts {got}, "
+                               f"predicted {want} (every other kernel 0)")
+        if out.shape != x.shape or out.dtype != torch.bfloat16 or \
+                not torch.isfinite(out).all():
+            raise SmokeFailure(f"encoder {mode}: output {out.dtype} "
+                               f"{tuple(out.shape)} not finite bf16 "
+                               f"{tuple(x.shape)}")
+        mem = torch.cuda.max_memory_allocated()
+        fwd_ms = 1e3 * sum(times) / len(times)
+        with torch.no_grad():
+            wall, busy, by = profile_once(lambda: encoder_forward(stack, x))
+        top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+        info(f"encoder {mode}: {ENC_LAYERS} layers bf16, {ENC_B} x {ENC_S}: "
+             f"forward {fwd_ms:.3f} ms (times "
+             f"{[round(1e3 * t, 3) for t in times]}), "
+             f"{ENC_B * ENC_S / (fwd_ms / 1e3):.0f} tokens/s, peak "
+             f"{mem / 2**30:.3f} GiB; launches over {n} forwards {got}")
+        info(f"encoder {mode}: profiled forward {wall:.2f} ms wall, device "
+             f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%); by kernel "
+             f"(ms, launches): " + "; ".join(
+                 f"{k.split('(')[0][:50]} {ms:.3f} x{c}"
+                 for k, (ms, c) in top))
+        counts[f"encoder {mode}"] = c
+        summary[mode] = dict(forward_ms=fwd_ms,
+                             tokens_per_s=ENC_B * ENC_S / (fwd_ms / 1e3),
+                             max_memory_bytes=mem, busy_share=busy / wall,
+                             device_busy_ms=busy, profiled_wall_ms=wall,
+                             launches_per_forward=per_fwd)
+    del stacks
+    torch.cuda.empty_cache()
+    for mode in ENC_MODES:
+        summary[mode]["check_rel_l2"] = check_encoder(mode, x, dev)
+    return counts, summary
+
+
 def main():
     try:
         import torch
@@ -2310,6 +2836,10 @@ def main():
         phase_norms(kernels)
         torch.cuda.empty_cache()
         eager_counts, eager = phase_eager()
+        torch.cuda.empty_cache()
+        fused_counts = phase_fused(kernels)
+        torch.cuda.empty_cache()
+        enc_counts, enc = phase_encoder()
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         info(f"FAILED: {type(e).__name__}: {e}")
         return 1
@@ -2317,11 +2847,13 @@ def main():
     # drive it (the engine, the train steps, the rollouts, the eager steps)
     by_phase = {"engine": counts, "train": train_counts, "gpt": gpt_counts,
                 **{f"generate {tag}": c for tag, c in gen_counts.items()},
-                **eager_counts}
+                **eager_counts, "fused calls": fused_counts, **enc_counts}
     # and the per-step launches each step phase was checked against
     per_step = {"train": {**FLASH_PER_STEP, **LCE_PER_STEP},
                 "gpt": GPT_PER_STEP, "eager gpt": EAGER_GPT_PER_STEP,
-                "eager llama": EAGER_LLAMA_PER_STEP}
+                "eager llama": EAGER_LLAMA_PER_STEP,
+                "fused calls": FUSED_CALLS,
+                **{f"encoder {m}": v[2] for m, v in ENC_MODES.items()}}
     for k in kernels:
         by = {ph: c[k["name"]] for ph, c in by_phase.items()
               if c.get(k["name"])}
@@ -2336,6 +2868,7 @@ def main():
     info(f"gpt summary {json.dumps(gpt)}")
     info(f"generate summary {json.dumps(gen)}")
     info(f"eager summary {json.dumps(eager)}")
+    info(f"encoder summary {json.dumps(enc)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

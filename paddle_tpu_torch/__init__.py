@@ -12,7 +12,10 @@ Llama and GPT train steps (:func:`parallel.build_llama_train_step`,
 (:mod:`models.generation`) and eager training of
 :class:`models.llama.LlamaForCausalLM` / :class:`models.gpt.GPTForCausalLM`
 with :class:`optimizer.AdamW` (the fused norm and SwiGLU ops of
-:mod:`ops.norms` / :mod:`ops.fused`).  On a CUDA tensor the ops launch
+:mod:`ops.norms` / :mod:`ops.fused`), and the incubate fused API
+(:mod:`incubate`: the ``Fused*`` layers and fused calls over the RoPE,
+softmax-mask, bias-activation and dropout-add ops of :mod:`ops.rope` /
+:mod:`ops.fused`).  On a CUDA tensor the ops launch
 hand-written kernels (``kernels/csrc``); on a CPU tensor they run their
 plain PyTorch versions, which the tests hold against the JAX package.
 

@@ -1,3 +1,8 @@
 from . import functional
+from .layer import (FusedBiasDropoutResidualLayerNorm, FusedDropout,
+                    FusedDropoutAdd, FusedFeedForward, FusedLinear,
+                    FusedMultiHeadAttention, FusedTransformerEncoderLayer)
 
-__all__ = ["functional"]
+__all__ = ["functional", "FusedMultiHeadAttention", "FusedFeedForward",
+           "FusedTransformerEncoderLayer", "FusedLinear", "FusedDropout",
+           "FusedDropoutAdd", "FusedBiasDropoutResidualLayerNorm"]

@@ -27,8 +27,8 @@ from pathlib import Path
 from typing import Optional
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "LayerArgs",
-           "FlashArgs", "LceArgs", "WoArgs", "NormArgs", "library", "check",
-           "NVCC_FLAGS"]
+           "FlashArgs", "LceArgs", "WoArgs", "NormArgs", "SoftmaxArgs",
+           "library", "check", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -97,6 +97,17 @@ class NormArgs(ctypes.Structure):
                 + [(n, ctypes.c_void_p) for n in
                    ("x", "res", "bias", "w", "b", "out", "add", "mean",
                     "inv")])
+
+
+class SoftmaxArgs(ctypes.Structure):
+    """Mirror of ``struct SoftmaxArgs`` in ``csrc/common.cuh``."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("dtype", "mask_dtype", "S",
+                                              "nd")]
+                + [("R", ctypes.c_longlong),
+                   ("size", ctypes.c_longlong * 4),
+                   ("mstride", ctypes.c_longlong * 4),
+                   ("mcol", ctypes.c_longlong)]
+                + [(n, ctypes.c_void_p) for n in ("x", "mask", "out")])
 
 
 _lock = threading.Lock()
@@ -179,6 +190,10 @@ def _bind(lib: ctypes.CDLL) -> None:
             "pt_rms_norm_fwd": [nptr, P], "pt_layer_norm_fwd": [nptr, P],
             "pt_bias_residual_ln_fwd": [nptr, P],
             "pt_swiglu_fwd": [I, LL, P, P, P, P],
+            "pt_rope_fwd": [I, LL, I, I, I, Fl, P, P, P, P, P],
+            "pt_softmax_mask_fwd": [ctypes.POINTER(SoftmaxArgs), P],
+            "pt_bias_act_fwd": [I, I, LL, I, P, P, P, P],
+            "pt_dropout_add_fwd": [I, LL, I, Fl, Fl, P, P, P, P, P],
             "pt_launch_counts": [ctypes.POINTER(ctypes.c_longlong), I]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

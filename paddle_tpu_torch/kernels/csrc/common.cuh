@@ -115,6 +115,24 @@ struct NormArgs {
   float *mean, *inv;
 };
 
+// One softmax(x + mask) launch (fused_ops.cu): x, out [R, S] contiguous
+// in `dtype`; the mask in `mask_dtype`, row r's values at mask +
+// sum_i idx_i * mstride[i] + j * mcol (j < S), where idx_0 .. idx_{nd-1}
+// are r's indices over the leading sizes size[0 .. nd-1] (row-major, their
+// product R): a mask broadcast to x is read in place, with stride 0 on its
+// broadcast dims and mcol 0 when it is broadcast along the row.  Mirrored
+// field for field by the ctypes Structure in
+// paddle_tpu_torch/kernels/build.py.
+struct SoftmaxArgs {
+  int dtype, mask_dtype;      // PT_F32 | PT_BF16 each
+  int S, nd;                  // row length; leading dims (0..4)
+  long long R;                // rows
+  long long size[4], mstride[4];
+  long long mcol;             // 1, or 0 (one mask value per row)
+  const void *x, *mask;
+  void *out;
+};
+
 namespace pt {
 
 typedef __nv_bfloat16 bf16;
@@ -179,6 +197,10 @@ enum {
   CNT_LAYER_NORM_FWD,
   CNT_BIAS_RESIDUAL_LN_FWD,
   CNT_SWIGLU_FWD,
+  CNT_ROPE_FWD,
+  CNT_SOFTMAX_MASK_FWD,
+  CNT_BIAS_ACT_FWD,
+  CNT_DROPOUT_ADD_FWD,
   CNT_NUM
 };
 

@@ -63,18 +63,24 @@ def rms_norm(x, weight=None, bias=None, epsilon: float = 1e-6,
     return out if bias is None else out + bias
 
 
+def rsqrt_rounded(v):
+    """``rsqrt(v)`` in fp32, rounded once to v's dtype."""
+    return torch.rsqrt(v.float()).to(v.dtype)
+
+
 def layer_norm(x, normalized_shape, weight=None, bias=None,
                epsilon: float = 1e-5):
     """The jnp reference: mean and variance over the trailing
     ``normalized_shape`` axes taken in fp32 and rounded to x's dtype, then
     ``(x - mean) * rsqrt(var + eps) * weight + bias`` with dtype
-    promotion."""
+    promotion.  The rsqrt is taken in fp32 and rounded once, as XLA does
+    (torch's bf16 rsqrt rounds the square root first)."""
     n = 1 if isinstance(normalized_shape, int) else len(normalized_shape)
     axes = tuple(range(x.ndim - n, x.ndim))
     xf = x.float()
     mean = xf.mean(axes, keepdim=True).to(x.dtype)
     var = xf.var(axes, unbiased=False, keepdim=True).to(x.dtype)
-    out = (x - mean) * torch.rsqrt(var + epsilon)
+    out = (x - mean) * rsqrt_rounded(var + epsilon)
     if weight is not None:
         out = out * weight
     return out if bias is None else out + bias

@@ -28,7 +28,8 @@ __all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
 #: training path, then the generation path's decode attention and its
 #: weight-only matmuls (int8 and int4 apart, each in its decode and its
 #: prefill regime, and the fp32 lane's kernel for both widths), then the
-#: eager path's three row normalisations and SwiGLU
+#: eager path's three row normalisations and SwiGLU, then the incubate
+#: fused API's RoPE, softmax-mask, bias-activation and dropout-add
 KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "gemm_xw_small_m", "gemm_xw_tiled", "gemm_xw_f32",
            "rope_kv_write", "paged_attention", "flash_fwd", "flash_bwd_dq",
@@ -36,7 +37,8 @@ KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "linear_ce_dw", "decode_attention", "wo_int8_small_m",
            "wo_int8_tiled", "wo_int4_small_m", "wo_int4_tiled", "wo_f32",
            "rms_norm_fwd", "layer_norm_fwd", "bias_residual_ln_fwd",
-           "swiglu_fwd")
+           "swiglu_fwd", "rope_fwd", "softmax_mask_fwd", "bias_act_fwd",
+           "dropout_add_fwd")
 
 WEIGHTS = ("ln1_w", "q_w", "k_w", "v_w", "o_w", "ln2_w", "gate_w", "up_w",
            "down_w")

@@ -633,3 +633,207 @@ def test_eager_ops_launch_kernels_and_differentiate():
             if g_cpu is not None:
                 torch.testing.assert_close(g_cuda.cpu(), g_cpu,
                                            **TOL[torch.float32])
+
+
+# ------------------------------------------------- the incubate fused API
+def _cpu_args():
+    x = torch.zeros(2, 4, 2, 8)
+    return {
+        "rope_fwd_cuda": ("rope", lambda m: m.rope_fwd_cuda(
+            x, torch.zeros(4, 8), torch.zeros(4, 8))),
+        "softmax_mask_fwd_cuda": ("fused", lambda m: m.softmax_mask_fwd_cuda(
+            x, torch.zeros(8))),
+        "bias_act_fwd_cuda": ("fused", lambda m: m.bias_act_fwd_cuda(
+            x, torch.zeros(8), "gelu")),
+        "dropout_add_fwd_cuda": ("fused", lambda m: m.dropout_add_fwd_cuda(
+            x, x, 0.1, True, torch.zeros(1, dtype=torch.int64))),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_cpu_args()))
+def test_fused_wrappers_refuse_cpu_tensors(name):
+    """The kernels' wrappers take CUDA tensors only: a CPU tensor raises
+    before anything is built (no fallback to the plain version)."""
+    import importlib
+    mod, call = _cpu_args()[name]
+    m = importlib.import_module(f"paddle_tpu_torch.ops.cuda.{mod}")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        call(m)
+
+
+ROPE_CASES = [(2, 8, 3, 16), (1, 5, 2, 6), (2, 64, 4, 128), (1, 3, 1, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("shape", ROPE_CASES,
+                         ids=[f"D{s[-1]}-H{s[2]}" for s in ROPE_CASES])
+def test_rope_kernel_matches_plain(dt, shape):
+    """Forward (sign 1) and the VJP's inverse rotation (sign -1), bf16
+    tables upcast; any even D (6 and 2: the scalar path)."""
+    _need_card()
+    from paddle_tpu_torch.ops import rope as tr
+    from paddle_tpu_torch.ops.cuda import rope as cr
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        "cuda", dt)
+    cos, sin = tr.rope_cos_sin(shape[1], shape[-1], device="cuda",
+                               dtype=dt)
+    for sign in (1.0, -1.0):
+        layer.reset_counts()
+        got = cr.rope_fwd_cuda(x, cos, sin, sign)
+        torch.cuda.synchronize()
+        assert {k: c for k, c in layer.launch_counts().items() if c} == {
+            "rope_fwd": 1}
+        torch.testing.assert_close(got.float(),
+                                   tr.rope_ref(x, cos, sin, sign).float(),
+                                   **TOL[dt])
+
+
+SOFTMAX_CASES = [("S7", (2, 3, 5, 7), (2, 1, 5, 7)),
+                 ("S1", (4, 3, 1), (1,)),
+                 ("S300", (2, 3, 300), (300,)),
+                 ("S1000", (2, 3, 7, 1000), (2, 1, 1, 1000)),
+                 ("S5000-row-mask", (3, 2, 5000), (3, 1, 5000)),
+                 ("S128-col-broadcast", (2, 4, 128), (2, 4, 1))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("mdt", DTYPES, ids=["mask-fp32", "mask-bf16"])
+@pytest.mark.parametrize("case", SOFTMAX_CASES,
+                         ids=[c[0] for c in SOFTMAX_CASES])
+def test_softmax_mask_kernel_matches_plain(dt, mdt, case):
+    """The mask read in place through broadcast strides (stride 0 on its
+    broadcast dims, or along the row); an all -inf row gives NaN."""
+    _need_card()
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    _, xs, ms = case
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.standard_normal(xs).astype(np.float32) * 3).to(
+        "cuda", dt)
+    m = torch.from_numpy(np.where(rng.random(ms) < 0.2, -np.inf, 0.0)
+                         .astype(np.float32)).to("cuda", mdt)
+    m.view(-1)[0] = 0.0
+    layer.reset_counts()
+    got = cf.softmax_mask_fwd_cuda(x, m)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in layer.launch_counts().items() if c} == {
+        "softmax_mask_fwd": 1}
+    ref = tf.softmax_mask_ref(x, m)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    ok = ~torch.isnan(ref)
+    torch.testing.assert_close(got[ok].float(), ref[ok].float(), **TOL[dt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("act", ["gelu", "relu", "silu", "tanh", "sigmoid"])
+@pytest.mark.parametrize("H", [3072, 1001])
+def test_bias_act_kernel_matches_plain(dt, act, H):
+    _need_card()
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.standard_normal((7, H)).astype(np.float32) * 3
+                         ).to("cuda", dt)
+    bias = torch.from_numpy(rng.standard_normal(H).astype(np.float32)).to(
+        "cuda", dt)
+    layer.reset_counts()
+    got = cf.bias_act_fwd_cuda(x, bias, act)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in layer.launch_counts().items() if c} == {
+        "bias_act_fwd": 1}
+    torch.testing.assert_close(got.float(),
+                               tf.bias_act_ref(x, bias, act).float(),
+                               **TOL[dt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("n", [1, 7, 4096 * 768, 4096 * 768 + 5])
+def test_dropout_add_kernel_equals_plain_bit_for_bit(dt, n):
+    """Training at p 0.1 under one seed, and the plain add: the kernel's
+    output equals its plain version's exactly; an unaligned view takes
+    the scalar path."""
+    _need_card()
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    rng = np.random.default_rng(34)
+    x, y = (torch.from_numpy(rng.standard_normal(n + 1).astype(np.float32))
+            .to("cuda", dt) for _ in range(2))
+    seed = torch.tensor([987654321], dtype=torch.int64, device="cuda")
+    for xs, ys in ((x[:n], y[:n]), (x[1:], y[1:])):
+        for drop in (True, False):
+            layer.reset_counts()
+            got = cf.dropout_add_fwd_cuda(xs, ys, 0.1, drop, seed)
+            torch.cuda.synchronize()
+            assert {k: c for k, c in layer.launch_counts().items() if c} == {
+                "dropout_add_fwd": 1}
+            assert torch.equal(got, tf.dropout_add_ref(xs, ys, 0.1, drop,
+                                                       seed))
+
+
+@pytest.mark.gpu
+def test_fused_wrappers_refuse_bad_arguments():
+    _need_card()
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    from paddle_tpu_torch.ops.cuda import rope as cr
+    x = torch.zeros(2, 4, 2, 8, device="cuda")
+    seed = torch.zeros(1, dtype=torch.int64, device="cuda")
+    for call, match in (
+            (lambda: cr.rope_fwd_cuda(torch.zeros(2, 4, 2, 7, device="cuda"),
+                                      torch.zeros(4, 7, device="cuda"),
+                                      torch.zeros(4, 7, device="cuda")),
+             "even"),
+            (lambda: cr.rope_fwd_cuda(x, torch.zeros(5, 8, device="cuda"),
+                                      torch.zeros(5, 8, device="cuda")),
+             r"\[4, 8\]"),
+            (lambda: cr.rope_fwd_cuda(x.half(), torch.zeros(4, 8).cuda(),
+                                      torch.zeros(4, 8).cuda()), "bfloat16"),
+            (lambda: cf.softmax_mask_fwd_cuda(x, torch.zeros(3, device="cuda")
+                                              ), "broadcast"),
+            (lambda: cf.bias_act_fwd_cuda(x, torch.zeros(8, device="cuda"),
+                                          "elu"), "unknown activation"),
+            (lambda: cf.bias_act_fwd_cuda(x, torch.zeros(4, device="cuda")),
+             r"\[8\]"),
+            (lambda: cf.dropout_add_fwd_cuda(x, x[:1], 0.1, True, seed),
+             "must match"),
+            (lambda: cf.dropout_add_fwd_cuda(x, x, 0.1, True, 5),
+             "seed")):
+        with pytest.raises((ValueError, TypeError), match=match):
+            call()
+
+
+@pytest.mark.gpu
+def test_incubate_ops_launch_kernels_and_rope_differentiates():
+    """The ops run the kernels on CUDA: RoPE forward and backward (sign
+    -1) launch rope_fwd twice each for q and k and match the CPU path's
+    grads; the three forward-only ops raise in backward."""
+    _need_card()
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops import rope as tr
+    rng = np.random.default_rng(35)
+    q, k = (torch.from_numpy(rng.standard_normal((2, 8, 3, 16)).astype(
+        np.float32)) for _ in range(2))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        qd, kd = (t.to(dev).requires_grad_() for t in (q, k))
+        layer.reset_counts()
+        oq, ok, _ = tr.fused_rope(qd, kd)
+        (oq * 2 + ok).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert {n: c for n, c in layer.launch_counts().items() if c} == {
+                "rope_fwd": 4}
+        grads.append((qd.grad.cpu(), kd.grad.cpu()))
+    for g_cuda, g_cpu in zip(*grads):
+        torch.testing.assert_close(g_cuda, g_cpu, **TOL[torch.float32])
+    t = torch.ones(4, 8, device="cuda", requires_grad=True)
+    for out in (tf.fused_softmax_mask(t, torch.zeros(8, device="cuda")),
+                tf.fused_bias_act(t, torch.zeros(8, device="cuda"), "relu"),
+                tf.fused_dropout_add(t, t.detach(), 0.0, False)):
+        with pytest.raises(NotImplementedError, match="item 19b"):
+            out.sum().backward()

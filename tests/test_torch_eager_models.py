@@ -252,6 +252,55 @@ def test_adam_l2_decay_and_amsgrad_run():
     assert a.grad is None and b.grad is None
 
 
+def test_adamw_decay_filter_sees_other_names_than_jax():
+    """A documented divergence (ROADMAP queue 3): Paddle's usual filter
+    ``lambda n: "norm" not in n and "bias" not in n`` sees the JAX eager
+    step's ``p.name``, a ``tensor_<n>`` counter, and so decays every
+    parameter there; the port passes the ``named_parameters()`` paths and
+    skips the norm and the biases.  Zero gradients: only the decay
+    ``p *= 1 - lr * coeff`` moves a parameter."""
+    from paddle_tpu_torch.nn.layer import LayerNorm, Linear
+
+    def keep(n):
+        return "norm" not in n and "bias" not in n
+
+    class JNet(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.linear, self.norm = pt.nn.Linear(4, 4), pt.nn.LayerNorm(4)
+
+    class TNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.linear = Linear(4, 4, device="cpu")
+            self.norm = LayerNorm(4, device="cpu")
+
+    jnet, tnet = JNet(), TNet()
+    for p in jnet.parameters():
+        p.set_value(np.ones(p.shape, np.float32))
+        p.grad = pt.to_tensor(np.zeros(p.shape, np.float32))
+    with torch.no_grad():
+        for p in tnet.parameters():
+            p.fill_(1.0)
+            p.grad = torch.zeros_like(p)
+    assert all(n.startswith("tensor_") for n in
+               (p.name for p in jnet.parameters()))
+    pt.optimizer.AdamW(learning_rate=0.1, weight_decay=0.5,
+                       parameters=jnet.parameters(),
+                       apply_decay_param_fun=keep).step()
+    AdamW(learning_rate=0.1, weight_decay=0.5,
+          parameters=tnet.named_parameters(),
+          apply_decay_param_fun=keep).step()
+    jax_after = {k: float(np.asarray(v).reshape(-1)[0])
+                 for k, v in jnet.state_dict().items()}
+    port_after = {k: float(v.reshape(-1)[0])
+                  for k, v in tnet.state_dict().items()}
+    assert set(jax_after) == set(port_after)
+    assert jax_after == pytest.approx({k: 0.95 for k in jax_after})
+    assert port_after == pytest.approx({k: 0.95 if k == "linear.weight"
+                                        else 1.0 for k in port_after})
+
+
 @pytest.mark.parametrize("name", sorted(MODELS))
 @pytest.mark.parametrize("field,item", [("use_mp", "item 17"),
                                         ("moe_num_experts", "item 15")])

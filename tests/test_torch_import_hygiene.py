@@ -65,6 +65,9 @@ from paddle_tpu_torch.models.gpt import gpt_tiny, init_params as gpt_init
 from paddle_tpu_torch.models.llama import LlamaForCausalLM
 from paddle_tpu_torch.models.gpt import GPTForCausalLM
 from paddle_tpu_torch.nn.layer import Embedding, LayerNorm, Linear, RMSNorm
+from paddle_tpu_torch.incubate.nn import (FusedFeedForward,
+                                          FusedMultiHeadAttention,
+                                          FusedTransformerEncoderLayer)
 ids = [[1, 2, 3]]
 gparams = gpt_init(gpt_tiny(), make_generator(0, "cpu"), device="cpu")
 for call in (lambda: ContinuousBatchingEngine(cfg, params),
@@ -75,7 +78,10 @@ for call in (lambda: ContinuousBatchingEngine(cfg, params),
              lambda: gpt_generate(gparams, gpt_tiny(), ids, 2),
              lambda: LlamaForCausalLM(cfg), lambda: GPTForCausalLM(gpt_tiny()),
              lambda: Linear(2, 3), lambda: Embedding(4, 2),
-             lambda: LayerNorm(2), lambda: RMSNorm(2)):
+             lambda: LayerNorm(2), lambda: RMSNorm(2),
+             lambda: FusedMultiHeadAttention(4, 2),
+             lambda: FusedFeedForward(4, 8),
+             lambda: FusedTransformerEncoderLayer(4, 2, 8)):
     try:
         call()
     except RuntimeError as e:
@@ -84,6 +90,8 @@ for call in (lambda: ContinuousBatchingEngine(cfg, params),
         raise SystemExit("an entry point ran without CUDA and without "
                          "device='cpu'")
 ContinuousBatchingEngine(cfg, params, device="cpu")
+enc = FusedTransformerEncoderLayer(4, 2, 8, device="cpu").eval()
+assert enc(torch.zeros(1, 3, 4)).shape == (1, 3, 4)
 assert llama_generate(params, cfg, ids, 2, device="cpu").shape == (1, 5)
 import torch
 assert LlamaForCausalLM(cfg, device="cpu")(torch.tensor(ids)).shape == (
@@ -97,7 +105,11 @@ for mod in ("paddle_tpu_torch.ops.decode_attention",
             "paddle_tpu_torch.ops.cuda.fused",
             "paddle_tpu_torch.nn.functional", "paddle_tpu_torch.nn.layer",
             "paddle_tpu_torch.incubate.nn.functional",
-            "paddle_tpu_torch.optimizer.optimizers"):
+            "paddle_tpu_torch.optimizer.optimizers",
+            "paddle_tpu_torch.ops.rope", "paddle_tpu_torch.ops.threefry",
+            "paddle_tpu_torch.ops.cuda.rope",
+            "paddle_tpu_torch.incubate.nn.layer",
+            "paddle_tpu_torch.incubate.extras"):
     assert mod in names, mod
 print("OK", len(names))
 """
@@ -109,4 +121,4 @@ def test_port_imports_and_defaults_to_cuda_without_jax():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("OK")
-    assert int(r.stdout.split()[1]) >= 29
+    assert int(r.stdout.split()[1]) >= 34
