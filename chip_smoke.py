@@ -26,8 +26,13 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             D 128, causal) in fp32 (tolerance 1e-4) and bf16 (2e-2, or the
             fp32-distance ratio rule below), and on small cases: GQA 32/8
             at D 64, non-causal, ragged S 1000, Sq != Sk (full and
-            causal), segment ids and the two bias layouts; kernel, plain, bound and
-            ``scaled_dot_product_attention`` times in bf16;
+            causal), segment ids, the two bias layouts, S 200 at D 64
+            and 128 (off the 64-row tiles) and causal GQA 32/4 (G 8);
+            kernel, plain, bound and ``scaled_dot_product_attention``
+            times in bf16 (the backward kernels against SDPA's backward
+            alone, and the whole ``flash_bwd_cuda`` call with its
+            ``flash_delta`` share), and the backward's again at the gpt
+            phase's shape (B 8, S 1024, 12 heads, D 64, causal);
 6. linear_ce the four linear-CE head kernels (``linear_ce_fwd``;
             ``linear_ce_dz``, ``linear_ce_dx``, ``linear_ce_dw`` per vocab
             slab of the backward) against their plain versions at the
@@ -864,7 +869,13 @@ FLASH_CASES = [
     ("segment ids", 2, 1024, 1024, 8, 8, 128, True, True, None),
     ("bias [1,Hq,S,S]", 2, 512, 512, 8, 8, 128, False, False, (1, 8)),
     ("bias [B,1,S,S]", 2, 512, 512, 8, 8, 128, True, False, (2, 1)),
+    ("S 200 D64", 2, 200, 200, 8, 8, 64, True, False, None),
+    ("S 200 D128", 2, 200, 200, 8, 8, 128, True, False, None),
+    ("gqa 32/4 causal", 2, 512, 512, 32, 4, 128, True, False, None),
 ]
+# the gpt phase's attention (12 heads of 64, causal), timed beside the
+# slice's shape
+FLASH_GPT = ("gpt", GPT_B, GPT_S, GPT_S, 12, 12, 64, True, False, None)
 
 
 def flash_inputs(case, gen, dev):
@@ -933,13 +944,73 @@ def phase_flash(results, dev="cuda"):
             del plain, got
             torch.cuda.empty_cache()
 
-    # ---- bf16 timings at the slice's shape
-    t32, kw, extra = flash_inputs(FLASH_CASES[0], gen, dev)
+    # ---- bf16 timings at the slice's shape, and the backward at the gpt
+    # phase's
+    timed = {case[0]: flash_bwd_times(case, gen, dev)
+             for case in (FLASH_CASES[0], FLASH_GPT)}
+    main, gpt = timed[FLASH_CASES[0][0]], timed["gpt"]
+    for name in names:
+        t = main[name]
+        fwd = name == "flash_fwd"
+        results.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:"
+            + {"flash_fwd": "269", "flash_bwd_dq": "540",
+               "flash_bwd_dkv": "588"}[name],
+            shape=f"B {TRAIN_B}, S {TRAIN_S}, 32 q / 32 kv heads, D 128, "
+                  "causal",
+            max_abs_err=err[name, "bfloat16"],
+            max_abs_err_fp32=err[name, "float32"], **t,
+            plain_what="flash_fwd_ref" if fwd else
+            "flash_bwd_ref (dq, dk and dv together)",
+            library_what="scaled_dot_product_attention forward" if fwd else
+            "scaled_dot_product_attention backward alone (autograd.grad "
+            "after one forward; dq, dk and dv together)",
+            bf16_vs_fp32_ratio=max(ratios[name], default=None)))
+        if not fwd:
+            results[-1]["gpt"] = dict(
+                shape=f"B {GPT_B}, S {GPT_S}, 12 heads, D 64, causal",
+                **gpt[name])
+        r = results[-1]
+        info(f"{name} bf16 {r['shape']}: device {r['ms']} ms (per call "
+             f"{r['call_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
+             f"({r['bound_by']}), plain {r['plain_ms']} ms, library "
+             f"{r['library_ms']} ms ({r['library_what']}); max |err| bf16 "
+             f"{r['max_abs_err']:.2e} fp32 {r['max_abs_err_fp32']:.2e}")
+    for label, t in timed.items():
+        dq, dkv = t["flash_bwd_dq"], t["flash_bwd_dkv"]
+        pair = (dq["ms"] or dq["call_ms"]) + (dkv["ms"] or dkv["call_ms"])
+        lib = dq["library_ms"] or dq["library_call_ms"]
+        info(f"flash backward bf16 at {label}: dq {dq['ms']} + dkv "
+             f"{dkv['ms']} = {pair:.4f} ms (bounds {dq['bound_ms']:.4f} + "
+             f"{dkv['bound_ms']:.4f}), {pair / lib:.2f} x SDPA's backward "
+             f"alone ({lib:.4f} ms; fwd + bwd "
+             f"{dq['library_fwd_bwd_ms']} ms); the whole flash_bwd_cuda "
+             f"call {dq['bwd_ms']} ms device ({dq['bwd_call_ms']:.4f} per "
+             f"call), of it flash_delta {dq['delta_ms']} ms")
+
+
+def flash_bwd_times(case, gen, dev):
+    """bf16 times of the flash kernels on ``case``'s inputs: per kernel
+    ``ms`` / ``call_ms`` (profiler / CUDA events), ``bound_ms``,
+    ``bound_by``, ``plain_ms`` / ``plain_call_ms`` and ``library_ms``; the
+    backward kernels also carry SDPA's forward + backward
+    (``library_fwd_bwd_ms``), the whole ``flash_bwd_cuda`` call (delta,
+    dq, dk/dv: ``bwd_ms``, ``bwd_call_ms``) and its ``flash_delta``
+    reduction (``delta_ms``).  The library yardsticks: SDPA on [B, H, S, D]
+    views, the backward alone as ``torch.autograd.grad`` after one
+    forward."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_attention as fc
+    t32, kw, extra = flash_inputs(case, gen, dev)
     q, k, v, do = (t32[n].to(torch.bfloat16) for n in ("q", "k", "v", "do"))
+    del t32
     args = (kw["scale"], kw["causal"], *extra)
     out, lse = fc.flash_fwd_cuda(q, k, v, *args)
     delta = fa.flash_delta(out, do)
-    bo = flash_bytes_ops(*FLASH_CASES[0][1:8], 2)
+    bo = flash_bytes_ops(*case[1:8], 2)
     calls = {"flash_fwd": lambda: fc.flash_fwd_cuda(q, k, v, *args),
              "flash_bwd_dq": lambda: fc.flash_bwd_dq_cuda(
                  q, k, v, do, lse, delta, *args),
@@ -953,38 +1024,30 @@ def phase_flash(results, dev="cuda"):
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
-    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 20)[0]
+    lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=kw["causal"]), 20)[0]
     lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
-        sdpa(qt, kt, vt, is_causal=True), (qt, kt, vt), dot), 10)[0]
-    for name in names:
+        sdpa(qt, kt, vt, is_causal=kw["causal"]), (qt, kt, vt), dot), 10)[0]
+    o = sdpa(qt, kt, vt, is_causal=kw["causal"])
+    lib_bwd, lib_bwd_call = time_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True), 10)
+    bwd, bwd_call = time_ms(lambda: fc.flash_bwd_cuda(
+        q, k, v, out, lse, do, *args), 10)
+    delta_ms = time_ms(lambda: fa.flash_delta(out, do), 20)[0]
+    times = {}
+    for name in calls:
         ms, call = time_ms(calls[name], 20, per_launch=True)
         bms, bby = bound_ms(*bo[name])
         fwd = name == "flash_fwd"
-        results.append(dict(
-            name=name, route="cuda",
-            source="paddle_tpu_torch/kernels/csrc/flash_attention.cu",
-            replaces="paddle_tpu/ops/pallas/flash_attention.py:"
-            + {"flash_fwd": "269", "flash_bwd_dq": "540",
-               "flash_bwd_dkv": "588"}[name],
-            shape=f"B {TRAIN_B}, S {TRAIN_S}, 32 q / 32 kv heads, D 128, "
-                  "causal",
-            max_abs_err=err[name, "bfloat16"],
-            max_abs_err_fp32=err[name, "float32"], ms=ms, call_ms=call,
+        times[name] = dict(
+            ms=ms, call_ms=call, bound_ms=bms, bound_by=bby,
             plain_ms=plain_fwd if fwd else plain_bwd,
             plain_call_ms=plain_fwd_call if fwd else plain_bwd_call,
-            plain_what="flash_fwd_ref" if fwd else
-            "flash_bwd_ref (dq, dk and dv together)",
-            bound_ms=bms, bound_by=bby,
-            library_ms=lib_fwd if fwd else lib_fwd_bwd,
-            library_what="scaled_dot_product_attention forward" if fwd else
-            "scaled_dot_product_attention forward + backward (autograd)",
-            bf16_vs_fp32_ratio=max(ratios[name], default=None)))
-        r = results[-1]
-        info(f"{name} bf16 {r['shape']}: device {ms} ms (per call "
-             f"{call:.4f}), bound {bms:.4f} ms ({bby}), plain {r['plain_ms']}"
-             f" ms, library {r['library_ms']} ms ({r['library_what']}); "
-             f"max |err| bf16 {r['max_abs_err']:.2e} fp32 "
-             f"{r['max_abs_err_fp32']:.2e}")
+            library_ms=lib_fwd if fwd else lib_bwd)
+        if not fwd:
+            times[name].update(library_call_ms=lib_bwd_call,
+                               library_fwd_bwd_ms=lib_fwd_bwd, bwd_ms=bwd,
+                               bwd_call_ms=bwd_call, delta_ms=delta_ms)
+    return times
 
 
 # ------------------------------------------------------------ linear-CE

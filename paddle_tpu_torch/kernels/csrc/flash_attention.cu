@@ -20,30 +20,63 @@
 // q/k/v/o take 0.080 ms at 3.35 TB/s); dq: 3 products, 0.208 ms; dk/dv:
 // 4 products, 0.278 ms.
 //
-// Design, in this first version (wgmma and TMA are later work):
-//   * A TPU grid runs its innermost dimension in order and carries the
-//     softmax state in VMEM scratch from one step to the next; here one
-//     block of 4 warps owns a row tile and loops over the column tiles
-//     itself.  flash_fwd and flash_bwd_dq: one block per (64-row q tile,
-//     hq, b), looping over k tiles, and stopping at the diagonal under
-//     causal.  flash_bwd_dkv: one block per (64-row k tile, hkv, b),
-//     looping over the G q heads of the group and the q tiles from the
-//     diagonal on, so dk/dv sum inside the block: no atomics, and the
-//     result is deterministic (the TPU's folded nq * G axis).
-//   * Each warp owns 16 rows of the block's tile.  bf16 products run on
-//     tensor cores (nvcuda::wmma 16x16x16, fp32 accumulate); the fp32
-//     lane (the correctness lane) runs plain FMA.  Scores and the fp32
-//     accumulators live in shared memory, so the online-softmax rescale is
-//     a per-row pass over the warp's own rows.
-//   * GQA reads kv head hq / G; the kernels mask k_pos >= Sk and q_pos >=
-//     Sq themselves and read [B, S, H, D] rows in place (row stride H * D),
-//     so the host makes no padded or transposed copies.
-//   * Shared memory: up to ~200 KB a block (fp32, D 128), set with
-//     cudaFuncSetAttribute(MaxDynamicSharedMemorySize).  head_dim 64 and
-//     128 are template instances; the wrapper refuses any other.
+// Design.  A TPU grid runs its innermost dimension in order and carries
+// its state in VMEM scratch from one step to the next; here one block owns
+// a row tile and loops over the other sequence itself.  flash_fwd and
+// flash_bwd_dq: one block per (64-row q tile, hq, b), looping over k tiles
+// and stopping at the diagonal under causal.  flash_bwd_dkv: one block per
+// (64-row k tile, hkv, b), looping over the G q heads of the group and the
+// q tiles from the diagonal on, so dk/dv sum inside the block: no atomics,
+// and the result is deterministic (the TPU's folded nq * G axis).  GQA
+// reads kv head hq / G; the kernels mask k_pos >= Sk and q_pos >= Sq
+// themselves and read [B, S, H, D] rows in place (row stride H * D), so
+// the host makes no padded or transposed copies.  head_dim 64 and 128 are
+// template instances; the wrapper refuses any other.  Each launcher takes
+// its grid, block size and shared-memory bytes from the instance it picks.
+//
+//   * bf16 backward (flash_bwd_dq_mma, flash_bwd_dkv_mma): 4 warps, 16 of
+//     the block's 64 rows each, stepping over the other sequence in tiles
+//     of 64 rows, each taken in two passes of 32.  Products are mma.sync
+//     m16n8k16 (fp32 accumulate) with operands from ldmatrix (.trans where
+//     the shared tile is [k][n]).  The accumulators live in registers for
+//     the whole loop: dQ, 16 x D fp32 a warp (64 registers a thread at D
+//     128); dK and dV (128).  Scores never touch shared memory: dq computes
+//     S = Q K^T and dP = dO V^T into C fragments, p = exp(s - lse) and ds =
+//     p (dp - delta) scale on the fragment elements in place (each thread
+//     knows its row and column from the m16n8 layout), and packs two
+//     neighbouring n8 C tiles of ds, as bf16, into one A fragment of dQ +=
+//     dS K.  dkv computes the transposes S^T = K Q^T and dP^T = V dO^T (k
+//     rows as M), so P^T and dS^T are the A fragments of dV += P^T dO and
+//     dK += dS^T Q as they stand; lse and delta are per column there and
+//     are staged with the segment ids beside each Q / dO tile.  The
+//     streamed tiles (K, V in dq; Q, dO, lse, delta and segment ids in dkv)
+//     arrive by cp.async (16 bytes, 4 for the fp32 / int32 rows, zero-
+//     filled past Sq / Sk) into a ring of 2 stages; the next tile's copies
+//     are issued, after one barrier, before the current tile's products.
+//     Q, dO (dq) and K, V (dkv) are loaded once.  A warp takes a tile's
+//     per-element masks only where the tile crosses the causal diagonal of
+//     its rows or the Sk (dq) / Sq (dkv) edge, or meets a bias or segment
+//     ids, and then skips the passes that add nothing; elsewhere p =
+//     exp2(raw * scale log2e - lse log2e) with no compares (MUFU.EX2,
+//     denormals flushed).  The two cases are one basic block each, so the
+//     scheduler interleaves one pass's score math with the other's
+//     products.  Shared memory a block (rows padded by 16 bytes, so the 8
+//     row addresses of an ldmatrix fall in distinct banks): dq 104,448 B at
+//     D 128 and 55,296 B at D 64; dkv 105,984 B and 56,832 B.
+//     __launch_bounds__ asks for 2 blocks (8 warps) an SM at D 128 and 3
+//     (12 warps, 168 registers) at D 64.  dq walks its q tiles from the
+//     last, so under causal the longest rows start first.
+//   * fp32 (the correctness lane; never timed) and the forward: the first
+//     version's design.  bf16 forward products run on nvcuda::wmma 16x16x16;
+//     the fp32 backward runs plain FMA.  Scores and the fp32 accumulators
+//     live in shared memory (wmma fragments have no known layout), loaded
+//     through registers; up to ~200 KB a block (fp32, D 128), set with
+//     cudaFuncSetAttribute(MaxDynamicSharedMemorySize).  The forward's
+//     redesign on the bf16 backward's helpers (mma.cuh) is later work, as
+//     are wgmma and TMA for both.
 #include <mma.h>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 using namespace nvcuda;
 
@@ -71,6 +104,7 @@ struct Layout {
 template <typename T, int D>
 struct FwdSmem {
   static constexpr int BQ = 64, BK = 64, SZ = (int)sizeof(T);
+  static constexpr int ROWS = BQ, THREADS = flash::THREADS;
   using L = Layout<T, D, BQ, BK>;
   static constexpr int Q = 0;
   static constexpr int K = Q + a128(BQ * L::LDT * SZ);
@@ -85,6 +119,7 @@ struct FwdSmem {
 template <typename T, int D>
 struct DqSmem {
   static constexpr int BQ = 64, BK = 32, SZ = (int)sizeof(T);
+  static constexpr int ROWS = BQ, THREADS = flash::THREADS;
   using L = Layout<T, D, BQ, BK>;
   static constexpr int Q = 0;
   static constexpr int DO = Q + a128(BQ * L::LDT * SZ);
@@ -101,6 +136,7 @@ struct DqSmem {
 template <typename T, int D>
 struct DkvSmem {
   static constexpr int BK = 64, BQ = 32, SZ = (int)sizeof(T);
+  static constexpr int ROWS = BK, THREADS = flash::THREADS;
   using L = Layout<T, D, BK, BQ>;
   static constexpr int K = 0;
   static constexpr int V = K + a128(BK * L::LDT * SZ);
@@ -472,76 +508,480 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv(FlashArgs a) {
   store_rows<T, D, BK>((T *)a.dv + koff, ks, k0, a.Sk, DVs);
 }
 
+// ================================================ bf16 backward (mma.sync)
+// 4 warps own 16 rows each of a block's 64 and step over the other
+// sequence in 64-row tiles, streamed through two cp.async stages in shared
+// memory and taken in two passes of 32.  Every product is mma.sync
+// m16n8k16 with operands from ldmatrix; the fp32 accumulators (dQ; dK and
+// dV) stay in registers for the whole loop and are rounded to bf16 once,
+// at the store; the score tiles (S, dP and their transposes) live in C
+// fragments and become the A fragments of the next product by packing,
+// never touching shared memory.
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+template <int D>
+struct BwdMma {
+  static constexpr int BR = 64;               // the block's own rows
+  static constexpr int BC = 64, PW = 32;      // a streamed tile, a pass
+  static constexpr int THREADS = 128, ROWS = BR;
+  // blocks an SM: 2 at D 128 (shared memory and 255 registers a thread);
+  // 3 at D 64 (168 registers)
+  static constexpr int MINB = D == 64 ? 3 : 2;
+  static constexpr int LD = D + 8;            // bf16 a shared row (16 B pad)
+  static constexpr int TILE = 64 * LD * 2;    // bytes of one 64-row tile
+  static constexpr int STAGES = 2;
+};
+
+// dq: Q, dO of the block; stage s: K, then V
+template <int D>
+struct DqMma : BwdMma<D> {
+  using B = BwdMma<D>;
+  static constexpr int Q = 0, DO = B::TILE, KV = 2 * B::TILE;
+  static constexpr int BYTES = KV + B::STAGES * 2 * B::TILE;
+};
+
+// dk/dv: K, V of the block; stage s: Q, dO, then lse, delta, segment ids
+template <int D>
+struct DkvMma : BwdMma<D> {
+  using B = BwdMma<D>;
+  static constexpr int ROWB = 3 * B::BC * 4;
+  static constexpr int STAGE = 2 * B::TILE + ROWB;
+  static constexpr int K = 0, V = B::TILE, ST = 2 * B::TILE;
+  static constexpr int BYTES = ST + B::STAGES * STAGE;
+};
+
+// rows [row0, row0 + 64) of one head of a [B, S, H, D] bf16 tensor (row r
+// at src + r * rstride) into a shared tile of leading dimension D + 8,
+// asynchronously, by a block of 128 threads; rows at or past nrows are
+// zero-filled
+template <int D>
+__device__ __forceinline__ void cp_rows(bf16 *dst, const bf16 *src,
+                                        size_t rstride, int row0,
+                                        int nrows) {
+  constexpr int CPR = D / 8, LD = D + 8;
+#pragma unroll
+  for (int c = threadIdx.x; c < 64 * CPR; c += 128) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool ok = row0 + r < nrows;
+    cp16(dst + r * LD + col, ok ? src + (size_t)(row0 + r) * rstride + col
+                                : src, ok);
+  }
+}
+
+// c[16 x 8 NT] = A . Bt^T: A the warp's 16 rows of a shared tile, Bt 8 NT
+// rows of another, both [row][k] over 16 KS values of k, leading dim LD
+template <int NT, int KS, int LD>
+__device__ __forceinline__ void mma_abt(float (*c)[4], const bf16 *A,
+                                        const bf16 *Bt, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+  const bf16 *pa = A + ldsm_a(lane, LD), *pb = Bt + ldsm_bt(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    unsigned af[4];
+    ldsm_x4(af, pa + kk * 16);
+#pragma unroll
+    for (int n2 = 0; n2 < NT / 2; ++n2) {
+      unsigned bf[4];
+      ldsm_x4(bf, pb + n2 * 16 * LD + kk * 16);
+      mma_bf16(c[2 * n2], af, bf[0], bf[1]);
+      mma_bf16(c[2 * n2 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// c[16 x 8 NT] += A . B: A in registers (KS A fragments), B 16 KS rows of
+// a shared tile [k][n], leading dim LD
+template <int NT, int KS, int LD>
+__device__ __forceinline__ void mma_ab(float (*c)[4], const unsigned (*a)[4],
+                                       const bf16 *B, int lane) {
+  const bf16 *pb = B + ldsm_b(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int n2 = 0; n2 < NT / 2; ++n2) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, pb + kk * 16 * LD + n2 * 16);
+      mma_bf16(c[2 * n2], a[kk], bf[0], bf[1]);
+      mma_bf16(c[2 * n2 + 1], a[kk], bf[2], bf[3]);
+    }
+}
+
+// 2 KS neighbouring C tiles, rounded to bf16, as KS A fragments
+template <int KS>
+__device__ __forceinline__ void c_to_a(unsigned (*a)[4], const float (*c)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// 2^x in one MUFU.EX2 (denormal results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ds = p (dp - delta) scale in place of dp, with p = exp(s - lse) from the
+// raw products in s (C fragments: rows g, g + 8 and columns 2t, 2t + 1 of
+// each n8 tile); s receives p.  pos(j, e, ...) gives element e of tile j's
+// q and k positions, its lse and delta, and whether its segments match.
+// MASK applies logit()'s bias and masks (and p = 0 past Sq); without it
+// the logit is raw * scale, with log2(e) folded into scale and lse.
+template <bool MASK, int NT, class Pos>
+__device__ __forceinline__ void softmax_grad(const FlashArgs &a,
+                                             const float *bias, float (*s)[4],
+                                             float (*dp)[4], Pos pos) {
+  const float sl2 = a.scale * LOG2E;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int qpos, kpos;
+      float lse, delta;
+      bool same;
+      pos(j, e, qpos, kpos, lse, delta, same);
+      float p;
+      if (MASK) {
+        const float v = logit(a, bias, s[j][e], qpos, kpos, same);
+        p = qpos < a.Sq ? ex2((v - lse) * LOG2E) : 0.f;
+      } else {
+        p = ex2(fmaf(s[j][e], sl2, -lse * LOG2E));
+      }
+      s[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - delta) * a.scale;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, DqMma<D>::MINB)
+    flash_bwd_dq_mma(FlashArgs a) {
+  using C = DqMma<D>;
+  constexpr int BQ = C::BR, BK = C::BC, PW = C::PW, LD = C::LD;
+  constexpr int KS = D / 16, NS = PW / 8, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16 *Qs = (bf16 *)(smem + C::Q), *DOs = (bf16 *)(smem + C::DO);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * BQ;   // longest rows first
+  const int wq0 = q0 + warp * 16;                   // the warp's first row
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (a.Hq / a.Hkv);
+  const size_t qs = (size_t)a.Hq * D, ks = (size_t)a.Hkv * D;
+  const size_t qoff = (size_t)b * a.Sq * qs + (size_t)h * D;
+  const bf16 *kp = (const bf16 *)a.k + (size_t)b * a.Sk * ks + (size_t)hk * D;
+  const bf16 *vp = (const bf16 *)a.v + (size_t)b * a.Sk * ks + (size_t)hk * D;
+  const float *bias = a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh
+                             : nullptr;
+  const int nk = (a.Sk + BK - 1) / BK;
+  const int nkt = a.causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+
+  auto stage = [&](int kt) {                  // K, V tile kt: one group
+    bf16 *Ks = (bf16 *)(smem + C::KV + (kt & 1) * 2 * C::TILE);
+    cp_rows<D>(Ks, kp, ks, kt * BK, a.Sk);
+    cp_rows<D>(Ks + 64 * LD, vp, ks, kt * BK, a.Sk);
+    cp_commit();
+  };
+  cp_rows<D>(Qs, (const bf16 *)a.q + qoff, qs, q0, a.Sq);
+  cp_rows<D>(DOs, (const bf16 *)a.dout + qoff, qs, q0, a.Sq);
+  if (nkt > 0) stage(0);
+  cp_commit();
+
+  // this thread's two rows (g, g + 8 of the warp's 16)
+  int qpos[2], sq[2];
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qpos[i] = wq0 + g + 8 * i;
+    const bool in = qpos[i] < a.Sq;
+    const size_t row = ((size_t)b * a.Hq + h) * a.Sq + qpos[i];
+    lse[i] = in ? a.lse[row] : 0.f;
+    delta[i] = in ? a.delta[row] : 0.f;
+    sq[i] = (a.seg_q && in) ? a.seg_q[(size_t)b * a.Sq + qpos[i]] : 0;
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_wait<0>();
+    __syncthreads();               // tile kt landed; tile kt - 1 is done
+    if (kt + 1 < nkt) stage(kt + 1);
+    const bf16 *Ks = (const bf16 *)(smem + C::KV + (kt & 1) * 2 * C::TILE);
+    const bf16 *Vs = Ks + 64 * LD;
+    const int k0 = kt * BK;
+    // the tile's two passes, with or without the per-element masks: one
+    // basic block each, so one pass's products and score math interleave
+    // with the other's
+    auto body = [&](auto flag) {
+      constexpr bool MASK = decltype(flag)::value;
+#pragma unroll
+      for (int c0 = 0; c0 < BK; c0 += PW) {
+        const int kp0 = k0 + c0;               // the pass's first key
+        // nothing to add: every key after every row, or past Sk, or the
+        // warp's rows past Sq (an unmasked tile has none of these)
+        if (MASK && ((a.causal && kp0 > wq0 + 15) || kp0 >= a.Sk ||
+                     wq0 >= a.Sq))
+          continue;
+        float s[NS][4], dp[NS][4];
+        mma_abt<NS, KS, LD>(s, Qs + warp * 16 * LD, Ks + c0 * LD, lane);
+        mma_abt<NS, KS, LD>(dp, DOs + warp * 16 * LD, Vs + c0 * LD, lane);
+        auto pos = [&](int j, int e, int &qp, int &kpos, float &l, float &dl,
+                       bool &same) {
+          qp = qpos[e >> 1];
+          kpos = kp0 + j * 8 + 2 * t + (e & 1);
+          l = lse[e >> 1];
+          dl = delta[e >> 1];
+          same = !a.seg_q ||
+                 (kpos < a.Sk &&
+                  sq[e >> 1] == a.seg_k[(size_t)b * a.Sk + kpos]);
+        };
+        softmax_grad<MASK, NS>(a, bias, s, dp, pos);
+        unsigned da[PW / 16][4];
+        c_to_a<PW / 16>(da, dp);
+        mma_ab<ND, PW / 16, LD>(acc, da, Ks + c0 * LD, lane);   // dQ += dS K
+      }
+    };
+    if (bias || a.seg_q || k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > wq0))
+      body(Flag<true>());
+    else
+      body(Flag<false>());
+  }
+  cp_wait<0>();
+
+  bf16 *dq = (bf16 *)a.dq + qoff;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qpos[i] >= a.Sq) continue;
+    bf16 *row = dq + (size_t)qpos[i] * qs + 2 * t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<unsigned *>(row + j * 8) =
+          pack_bf16(acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, DkvMma<D>::MINB)
+    flash_bwd_dkv_mma(FlashArgs a) {
+  using C = DkvMma<D>;
+  constexpr int BK = C::BR, BQ = C::BC, PW = C::PW, LD = C::LD;
+  constexpr int KS = D / 16, NQ = PW / 8, ND = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16 *Ks = (bf16 *)(smem + C::K), *Vs = (bf16 *)(smem + C::V);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  const int wk0 = k0 + warp * 16;                   // the warp's first row
+  const int G = a.Hq / a.Hkv;
+  const size_t qs = (size_t)a.Hq * D, ks = (size_t)a.Hkv * D;
+  const size_t koff = (size_t)b * a.Sk * ks + (size_t)hk * D;
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  const int qt0 = a.causal ? k0 / BQ : 0;
+  const int per = max(nq - qt0, 0), total = G * per;   // (q head, q tile)
+
+  auto stage = [&](int it) {     // Q, dO, lse, delta, seg of step it
+    const int h = hk * G + it / per, q0 = (qt0 + it % per) * BQ;
+    unsigned char *st = smem + C::ST + (it & 1) * C::STAGE;
+    const size_t qoff = (size_t)b * a.Sq * qs + (size_t)h * D;
+    const size_t roff = ((size_t)b * a.Hq + h) * a.Sq;
+    cp_rows<D>((bf16 *)st, (const bf16 *)a.q + qoff, qs, q0, a.Sq);
+    cp_rows<D>((bf16 *)(st + C::TILE), (const bf16 *)a.dout + qoff, qs, q0,
+               a.Sq);
+    float *rows = (float *)(st + 2 * C::TILE);
+    const int nr = a.seg_q ? 3 * BQ : 2 * BQ;
+    for (int i = threadIdx.x; i < nr; i += 128) {
+      const int w = i / BQ, r = i % BQ;
+      const bool in = q0 + r < a.Sq;
+      const void *src = w == 0 ? (const void *)(a.lse + roff + q0 + r)
+                      : w == 1 ? (const void *)(a.delta + roff + q0 + r)
+                               : (const void *)(a.seg_q + (size_t)b * a.Sq +
+                                                q0 + r);
+      cp4(rows + i, in ? src : (const void *)a.lse, in);
+    }
+    cp_commit();
+  };
+  cp_rows<D>(Ks, (const bf16 *)a.k + koff, ks, k0, a.Sk);
+  cp_rows<D>(Vs, (const bf16 *)a.v + koff, ks, k0, a.Sk);
+  if (total > 0) stage(0);
+  cp_commit();
+
+  int kpos[2], sk[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = wk0 + g + 8 * i;
+    sk[i] = (a.seg_k && kpos[i] < a.Sk)
+                ? a.seg_k[(size_t)b * a.Sk + kpos[i]] : 0;
+  }
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    cp_wait<0>();
+    __syncthreads();               // step it landed; step it - 1 is done
+    if (it + 1 < total) stage(it + 1);
+    const int h = hk * G + it / per, q0 = (qt0 + it % per) * BQ;
+    const unsigned char *st = smem + C::ST + (it & 1) * C::STAGE;
+    const bf16 *Qs = (const bf16 *)st, *DOs = (const bf16 *)(st + C::TILE);
+    const float *lse_s = (const float *)(st + 2 * C::TILE);
+    const float *delta_s = lse_s + BQ;
+    const int *segq = (const int *)(delta_s + BQ);
+    const float *bias = a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh
+                               : nullptr;
+    auto body = [&](auto flag) {
+      constexpr bool MASK = decltype(flag)::value;
+#pragma unroll
+      for (int c0 = 0; c0 < BQ; c0 += PW) {
+        const int qp0 = q0 + c0;               // the pass's first q row
+        // nothing to add: every q row before every key, or the warp's rows
+        // past Sk (an unmasked tile has none of these)
+        if (MASK && ((a.causal && qp0 + PW - 1 < wk0) || wk0 >= a.Sk))
+          continue;
+        // S^T = K Q^T and dP^T = V dO^T: rows k, columns q
+        float s[NQ][4], dp[NQ][4];
+        mma_abt<NQ, KS, LD>(s, Ks + warp * 16 * LD, Qs + c0 * LD, lane);
+        mma_abt<NQ, KS, LD>(dp, Vs + warp * 16 * LD, DOs + c0 * LD, lane);
+        auto pos = [&](int j, int e, int &qpos, int &kp, float &l, float &dl,
+                       bool &same) {
+          const int c = c0 + j * 8 + 2 * t + (e & 1);
+          qpos = q0 + c;
+          kp = kpos[e >> 1];
+          l = lse_s[c];
+          dl = delta_s[c];
+          same = !a.seg_q || segq[c] == sk[e >> 1];
+        };
+        softmax_grad<MASK, NQ>(a, bias, s, dp, pos);
+        unsigned pa[PW / 16][4], da[PW / 16][4];
+        c_to_a<PW / 16>(pa, s);                         // P^T, bf16
+        c_to_a<PW / 16>(da, dp);                        // dS^T, bf16
+        mma_ab<ND, PW / 16, LD>(dv, pa, DOs + c0 * LD, lane);  // += P^T dO
+        mma_ab<ND, PW / 16, LD>(dk, da, Qs + c0 * LD, lane);   // += dS^T Q
+      }
+    };
+    if (bias || a.seg_q || q0 + BQ > a.Sq || (a.causal && q0 < wk0 + 15))
+      body(Flag<true>());
+    else
+      body(Flag<false>());
+  }
+  cp_wait<0>();
+
+  bf16 *dkp = (bf16 *)a.dk + koff, *dvp = (bf16 *)a.dv + koff;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kpos[i] >= a.Sk) continue;
+    const size_t r = (size_t)kpos[i] * ks + 2 * t;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<unsigned *>(dkp + r + j * 8) =
+          pack_bf16(dk[j][2 * i], dk[j][2 * i + 1]);
+      *reinterpret_cast<unsigned *>(dvp + r + j * 8) =
+          pack_bf16(dv[j][2 * i], dv[j][2 * i + 1]);
+    }
+  }
+}
+
 }  // namespace flash
 }  // namespace pt
 
-// The kernel instance for (dtype, D) and its shared-memory bytes; any other
-// pair returns cudaErrorInvalidValue from the launcher.
-#define PT_FLASH_PICK(KERNEL, SMEM, a, fn, bytes)                   \
-  do {                                                              \
-    using namespace pt::flash;                                      \
-    if ((a)->Hkv <= 0 || (a)->Hq % (a)->Hkv) return cudaErrorInvalidValue; \
-    if ((a)->dtype == PT_BF16 && (a)->D == 64) {                    \
-      fn = KERNEL<pt::bf16, 64>; bytes = SMEM<pt::bf16, 64>::BYTES; \
-    } else if ((a)->dtype == PT_BF16 && (a)->D == 128) {            \
-      fn = KERNEL<pt::bf16, 128>; bytes = SMEM<pt::bf16, 128>::BYTES; \
-    } else if ((a)->dtype == PT_F32 && (a)->D == 64) {              \
-      fn = KERNEL<float, 64>; bytes = SMEM<float, 64>::BYTES;       \
-    } else if ((a)->dtype == PT_F32 && (a)->D == 128) {             \
-      fn = KERNEL<float, 128>; bytes = SMEM<float, 128>::BYTES;     \
-    } else {                                                        \
-      return cudaErrorInvalidValue;                                 \
-    }                                                               \
-  } while (0)
+namespace {
 
 typedef void (*FlashKernel)(FlashArgs);
 
-static cudaError_t set_smem(FlashKernel fn, int bytes) {
-  return cudaFuncSetAttribute((const void *)fn,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+// A kernel instance with its block size, the rows of its own sequence that
+// one block owns (the grid's x is ceil(S / rows)) and its shared-memory
+// bytes, all taken from the layout of the instance picked
+struct FlashPick {
+  FlashKernel fn;
+  int threads, rows, bytes;
+};
+
+template <class C>
+FlashPick pick_of(FlashKernel fn) {
+  return FlashPick{fn, C::THREADS, C::ROWS, C::BYTES};
 }
 
-cudaError_t launch_flash_fwd(const FlashArgs *a, cudaStream_t s) {
-  FlashKernel fn;
-  int bytes;
-  PT_FLASH_PICK(flash_fwd, FwdSmem, a, fn, bytes);
-  if (a->B == 0 || a->Sq == 0 || a->Hq == 0) return cudaSuccess;
-  cudaError_t e = set_smem(fn, bytes);
+using pt::bf16;
+using namespace pt::flash;
+
+template <int D>
+FlashPick pick_fwd(int dtype) {
+  return dtype == PT_BF16 ? pick_of<FwdSmem<bf16, D>>(flash_fwd<bf16, D>)
+                          : pick_of<FwdSmem<float, D>>(flash_fwd<float, D>);
+}
+// bf16: the mma.sync kernels; fp32 (the correctness lane): the FMA ones
+template <int D>
+FlashPick pick_dq(int dtype) {
+  return dtype == PT_BF16
+             ? pick_of<DqMma<D>>(flash_bwd_dq_mma<D>)
+             : pick_of<DqSmem<float, D>>(flash_bwd_dq<float, D>);
+}
+template <int D>
+FlashPick pick_dkv(int dtype) {
+  return dtype == PT_BF16
+             ? pick_of<DkvMma<D>>(flash_bwd_dkv_mma<D>)
+             : pick_of<DkvSmem<float, D>>(flash_bwd_dkv<float, D>);
+}
+
+// cudaErrorInvalidValue unless (dtype, D) has an instance and Hq is a
+// multiple of Hkv
+cudaError_t check(const FlashArgs *a) {
+  if (a->Hkv <= 0 || a->Hq % a->Hkv) return cudaErrorInvalidValue;
+  if (a->dtype != PT_BF16 && a->dtype != PT_F32) return cudaErrorInvalidValue;
+  if (a->D != 64 && a->D != 128) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// one launch of p over ceil(S / rows) x H x B blocks; S and H are the
+// sequence and the heads the grid walks (q for the forward and dq, kv for
+// dk/dv)
+cudaError_t run(const FlashPick &p, const FlashArgs *a, int S, int H,
+                cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void *)p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      p.bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid((a->Sq + pt::flash::FwdSmem<float, 64>::BQ - 1) /
-                pt::flash::FwdSmem<float, 64>::BQ,
-            a->Hq, a->B);
-  fn<<<grid, pt::flash::THREADS, bytes, s>>>(*a);
-  return count_launch(CNT_FLASH_FWD, cudaGetLastError());
+  const dim3 grid((S + p.rows - 1) / p.rows, H, a->B);
+  p.fn<<<grid, p.threads, p.bytes, s>>>(*a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+cudaError_t launch_flash_fwd(const FlashArgs *a, cudaStream_t s) {
+  cudaError_t e = check(a);
+  if (e != cudaSuccess || a->B == 0 || a->Sq == 0 || a->Hq == 0) return e;
+  const FlashPick p = a->D == 64 ? pick_fwd<64>(a->dtype)
+                                 : pick_fwd<128>(a->dtype);
+  return count_launch(CNT_FLASH_FWD, run(p, a, a->Sq, a->Hq, s));
 }
 
 cudaError_t launch_flash_bwd_dq(const FlashArgs *a, cudaStream_t s) {
-  FlashKernel fn;
-  int bytes;
-  PT_FLASH_PICK(flash_bwd_dq, DqSmem, a, fn, bytes);
-  if (a->B == 0 || a->Sq == 0 || a->Hq == 0) return cudaSuccess;
-  cudaError_t e = set_smem(fn, bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a->Sq + pt::flash::DqSmem<float, 64>::BQ - 1) /
-                pt::flash::DqSmem<float, 64>::BQ,
-            a->Hq, a->B);
-  fn<<<grid, pt::flash::THREADS, bytes, s>>>(*a);
-  return count_launch(CNT_FLASH_BWD_DQ, cudaGetLastError());
+  cudaError_t e = check(a);
+  if (e != cudaSuccess || a->B == 0 || a->Sq == 0 || a->Hq == 0) return e;
+  const FlashPick p = a->D == 64 ? pick_dq<64>(a->dtype)
+                                 : pick_dq<128>(a->dtype);
+  return count_launch(CNT_FLASH_BWD_DQ, run(p, a, a->Sq, a->Hq, s));
 }
 
 cudaError_t launch_flash_bwd_dkv(const FlashArgs *a, cudaStream_t s) {
-  FlashKernel fn;
-  int bytes;
-  PT_FLASH_PICK(flash_bwd_dkv, DkvSmem, a, fn, bytes);
-  if (a->B == 0 || a->Sk == 0 || a->Hkv == 0) return cudaSuccess;
-  cudaError_t e = set_smem(fn, bytes);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a->Sk + pt::flash::DkvSmem<float, 64>::BK - 1) /
-                pt::flash::DkvSmem<float, 64>::BK,
-            a->Hkv, a->B);
-  fn<<<grid, pt::flash::THREADS, bytes, s>>>(*a);
-  return count_launch(CNT_FLASH_BWD_DKV, cudaGetLastError());
+  cudaError_t e = check(a);
+  if (e != cudaSuccess || a->B == 0 || a->Sk == 0 || a->Hkv == 0) return e;
+  const FlashPick p = a->D == 64 ? pick_dkv<64>(a->dtype)
+                                 : pick_dkv<128>(a->dtype);
+  return count_launch(CNT_FLASH_BWD_DKV, run(p, a, a->Sk, a->Hkv, s));
 }
 
 extern "C" {

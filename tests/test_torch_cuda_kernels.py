@@ -259,9 +259,19 @@ FLASH_CASES = [(2, 128, 128, 4, 4, 128, True, False, None),
                (2, 130, 70, 2, 1, 64, True, False, None),
                (2, 96, 96, 2, 2, 64, True, True, None),
                (2, 64, 64, 4, 2, 64, False, False, (1, 4)),
-               (2, 80, 80, 4, 2, 128, True, False, (2, 1))]
+               (2, 80, 80, 4, 2, 128, True, False, (2, 1)),
+               # less than one tile; off the 64- and 128-row tiles; GQA
+               # G 8; causal Sq > Sk across tiles at D 128
+               (2, 1, 1, 2, 1, 64, True, False, None),
+               (2, 17, 17, 4, 2, 128, False, False, None),
+               (1, 200, 200, 4, 4, 64, True, False, None),
+               (1, 200, 200, 4, 2, 128, True, False, None),
+               (1, 256, 256, 8, 1, 64, True, False, None),
+               (1, 200, 130, 4, 2, 128, True, False, None)]
 FLASH_IDS = ["mha-causal-d128", "gqa-ragged-d64", "sq-ne-sk-full",
-             "sq-gt-sk-causal", "segments", "bias-1hq", "bias-b1-d128"]
+             "sq-gt-sk-causal", "segments", "bias-1hq", "bias-b1-d128",
+             "s1-causal", "s17-full-d128", "s200-d64", "s200-d128",
+             "gqa-g8-causal", "sq-gt-sk-causal-d128"]
 
 
 def _flash_case(case, dt, seed=7):
