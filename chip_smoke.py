@@ -27,12 +27,14 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             fp32-distance ratio rule below), and on small cases: GQA 32/8
             at D 64, non-causal, ragged S 1000, Sq != Sk (full and
             causal), segment ids, the two bias layouts, S 200 at D 64
-            and 128 (off the 64-row tiles) and causal GQA 32/4 (G 8);
+            and 128 (off the 64-row tiles), causal GQA 32/4 (G 8) and the
+            encoder phase's shape (B 32, S 128, 12 heads, D 64, full);
             kernel, plain, bound and ``scaled_dot_product_attention``
             times in bf16 (the backward kernels against SDPA's backward
             alone, and the whole ``flash_bwd_cuda`` call with its
-            ``flash_delta`` share), and the backward's again at the gpt
-            phase's shape (B 8, S 1024, 12 heads, D 64, causal);
+            ``flash_delta`` share), again at the gpt phase's shape (B 8,
+            S 1024, 12 heads, D 64, causal), and the forward's at the
+            encoder's, each forward beside SDPA's forward;
 6. linear_ce the four linear-CE head kernels (``linear_ce_fwd``;
             ``linear_ce_dz``, ``linear_ce_dx``, ``linear_ce_dw`` per vocab
             slab of the backward) against their plain versions at the
@@ -857,6 +859,11 @@ def flash_bytes_ops(B, Sq, Sk, Hq, Hkv, D, causal, itemsize):
             "flash_bwd_dkv": (2 * qb + 4 * kb + 2 * rows, 4 * prod)}
 
 
+# the gpt phase's attention (12 heads of 64, causal) and the encoder
+# phase's (BERT-base: b 32 x s 128, 12 heads of 64, full), timed beside the
+# slice's shape (the encoder's forward only: it runs no backward)
+FLASH_GPT = ("gpt", GPT_B, GPT_S, GPT_S, 12, 12, 64, True, False, None)
+FLASH_ENC = ("encoder", 32, 128, 128, 12, 12, 64, False, False, None)
 # (label, B, Sq, Sk, Hq, Hkv, D, causal, segment ids, bias batch/head dims)
 FLASH_CASES = [
     ("slice", TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 128, True, False, None),
@@ -872,10 +879,8 @@ FLASH_CASES = [
     ("S 200 D64", 2, 200, 200, 8, 8, 64, True, False, None),
     ("S 200 D128", 2, 200, 200, 8, 8, 128, True, False, None),
     ("gqa 32/4 causal", 2, 512, 512, 32, 4, 128, True, False, None),
+    FLASH_ENC,
 ]
-# the gpt phase's attention (12 heads of 64, causal), timed beside the
-# slice's shape
-FLASH_GPT = ("gpt", GPT_B, GPT_S, GPT_S, 12, 12, 64, True, False, None)
 
 
 def flash_inputs(case, gen, dev):
@@ -895,7 +900,8 @@ def flash_inputs(case, gen, dev):
 
 def phase_flash(results, dev="cuda"):
     """The three flash kernels against their plain versions; bf16 times at
-    the training slice's shape."""
+    the training slice's and the gpt phase's shapes, and the forward's at
+    the encoder's."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_attention as fc
@@ -944,11 +950,14 @@ def phase_flash(results, dev="cuda"):
             del plain, got
             torch.cuda.empty_cache()
 
-    # ---- bf16 timings at the slice's shape, and the backward at the gpt
-    # phase's
-    timed = {case[0]: flash_bwd_times(case, gen, dev)
+    # ---- bf16 timings at the slice's shape and the gpt phase's, and the
+    # forward's at the encoder's
+    timed = {case[0]: flash_times(case, gen, dev)
              for case in (FLASH_CASES[0], FLASH_GPT)}
-    main, gpt = timed[FLASH_CASES[0][0]], timed["gpt"]
+    timed["encoder"] = flash_times(FLASH_ENC, gen, dev, backward=False)
+    main = timed[FLASH_CASES[0][0]]
+    other = {"gpt": f"B {GPT_B}, S {GPT_S}, 12 heads, D 64, causal",
+             "encoder": "B 32, S 128, 12 heads, D 64, full"}
     for name in names:
         t = main[name]
         fwd = name == "flash_fwd"
@@ -968,10 +977,9 @@ def phase_flash(results, dev="cuda"):
             "scaled_dot_product_attention backward alone (autograd.grad "
             "after one forward; dq, dk and dv together)",
             bf16_vs_fp32_ratio=max(ratios[name], default=None)))
-        if not fwd:
-            results[-1]["gpt"] = dict(
-                shape=f"B {GPT_B}, S {GPT_S}, 12 heads, D 64, causal",
-                **gpt[name])
+        for label, shape in other.items():
+            if name in timed[label]:
+                results[-1][label] = dict(shape=shape, **timed[label][name])
         r = results[-1]
         info(f"{name} bf16 {r['shape']}: device {r['ms']} ms (per call "
              f"{r['call_ms']:.4f}), bound {r['bound_ms']:.4f} ms "
@@ -979,6 +987,14 @@ def phase_flash(results, dev="cuda"):
              f"{r['library_ms']} ms ({r['library_what']}); max |err| bf16 "
              f"{r['max_abs_err']:.2e} fp32 {r['max_abs_err_fp32']:.2e}")
     for label, t in timed.items():
+        f = t["flash_fwd"]
+        ms = f["ms"] or f["call_ms"]
+        info(f"flash forward bf16 at {label}: {ms:.4f} ms, bound "
+             f"{f['bound_ms']:.4f} ms ({f['bound_by']}, "
+             f"{100 * f['bound_ms'] / ms:.1f} %), {ms / f['library_ms']:.2f} x "
+             f"SDPA's forward ({f['library_ms']:.4f} ms)")
+        if "flash_bwd_dq" not in t:
+            continue
         dq, dkv = t["flash_bwd_dq"], t["flash_bwd_dkv"]
         pair = (dq["ms"] or dq["call_ms"]) + (dkv["ms"] or dkv["call_ms"])
         lib = dq["library_ms"] or dq["library_call_ms"]
@@ -991,7 +1007,7 @@ def phase_flash(results, dev="cuda"):
              f"call), of it flash_delta {dq['delta_ms']} ms")
 
 
-def flash_bwd_times(case, gen, dev):
+def flash_times(case, gen, dev, backward=True):
     """bf16 times of the flash kernels on ``case``'s inputs: per kernel
     ``ms`` / ``call_ms`` (profiler / CUDA events), ``bound_ms``,
     ``bound_by``, ``plain_ms`` / ``plain_call_ms`` and ``library_ms``; the
@@ -1000,7 +1016,7 @@ def flash_bwd_times(case, gen, dev):
     dq, dk/dv: ``bwd_ms``, ``bwd_call_ms``) and its ``flash_delta``
     reduction (``delta_ms``).  The library yardsticks: SDPA on [B, H, S, D]
     views, the backward alone as ``torch.autograd.grad`` after one
-    forward."""
+    forward.  ``backward`` False: the forward alone."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_attention as fc
@@ -1008,23 +1024,25 @@ def flash_bwd_times(case, gen, dev):
     q, k, v, do = (t32[n].to(torch.bfloat16) for n in ("q", "k", "v", "do"))
     del t32
     args = (kw["scale"], kw["causal"], *extra)
-    out, lse = fc.flash_fwd_cuda(q, k, v, *args)
-    delta = fa.flash_delta(out, do)
     bo = flash_bytes_ops(*case[1:8], 2)
-    calls = {"flash_fwd": lambda: fc.flash_fwd_cuda(q, k, v, *args),
-             "flash_bwd_dq": lambda: fc.flash_bwd_dq_cuda(
-                 q, k, v, do, lse, delta, *args),
-             "flash_bwd_dkv": lambda: fc.flash_bwd_dkv_cuda(
-                 q, k, v, do, lse, delta, *args)}
-    plain_fwd, plain_fwd_call = time_ms(
-        lambda: fa.flash_fwd_ref(q, k, v, *args), 3)
-    plain_bwd, plain_bwd_call = time_ms(
-        lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, *args), 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
-    dot = do.transpose(1, 2)
     lib_fwd = time_ms(lambda: sdpa(qt, kt, vt, is_causal=kw["causal"]), 20)[0]
+    plain, plain_call = time_ms(lambda: fa.flash_fwd_ref(q, k, v, *args), 3)
+    ms, call = time_ms(lambda: fc.flash_fwd_cuda(q, k, v, *args), 20,
+                       per_launch=True)
+    bms, bby = bound_ms(*bo["flash_fwd"])
+    times = {"flash_fwd": dict(ms=ms, call_ms=call, bound_ms=bms, bound_by=bby,
+                               plain_ms=plain, plain_call_ms=plain_call,
+                               library_ms=lib_fwd)}
+    if not backward:
+        return times
+    out, lse = fc.flash_fwd_cuda(q, k, v, *args)
+    delta = fa.flash_delta(out, do)
+    plain, plain_call = time_ms(
+        lambda: fa.flash_bwd_ref(q, k, v, out, lse, do, *args), 2)
+    dot = do.transpose(1, 2)
     lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(
         sdpa(qt, kt, vt, is_causal=kw["causal"]), (qt, kt, vt), dot), 10)[0]
     o = sdpa(qt, kt, vt, is_causal=kw["causal"])
@@ -1033,20 +1051,18 @@ def flash_bwd_times(case, gen, dev):
     bwd, bwd_call = time_ms(lambda: fc.flash_bwd_cuda(
         q, k, v, out, lse, do, *args), 10)
     delta_ms = time_ms(lambda: fa.flash_delta(out, do), 20)[0]
-    times = {}
-    for name in calls:
-        ms, call = time_ms(calls[name], 20, per_launch=True)
+    calls = {"flash_bwd_dq": lambda: fc.flash_bwd_dq_cuda(
+                 q, k, v, do, lse, delta, *args),
+             "flash_bwd_dkv": lambda: fc.flash_bwd_dkv_cuda(
+                 q, k, v, do, lse, delta, *args)}
+    for name, fn in calls.items():
+        ms, call = time_ms(fn, 20, per_launch=True)
         bms, bby = bound_ms(*bo[name])
-        fwd = name == "flash_fwd"
         times[name] = dict(
-            ms=ms, call_ms=call, bound_ms=bms, bound_by=bby,
-            plain_ms=plain_fwd if fwd else plain_bwd,
-            plain_call_ms=plain_fwd_call if fwd else plain_bwd_call,
-            library_ms=lib_fwd if fwd else lib_bwd)
-        if not fwd:
-            times[name].update(library_call_ms=lib_bwd_call,
-                               library_fwd_bwd_ms=lib_fwd_bwd, bwd_ms=bwd,
-                               bwd_call_ms=bwd_call, delta_ms=delta_ms)
+            ms=ms, call_ms=call, bound_ms=bms, bound_by=bby, plain_ms=plain,
+            plain_call_ms=plain_call, library_ms=lib_bwd,
+            library_call_ms=lib_bwd_call, library_fwd_bwd_ms=lib_fwd_bwd,
+            bwd_ms=bwd, bwd_call_ms=bwd_call, delta_ms=delta_ms)
     return times
 
 

@@ -23,8 +23,8 @@
 // Design.  A TPU grid runs its innermost dimension in order and carries
 // its state in VMEM scratch from one step to the next; here one block owns
 // a row tile and loops over the other sequence itself.  flash_fwd and
-// flash_bwd_dq: one block per (64-row q tile, hq, b), looping over k tiles
-// and stopping at the diagonal under causal.  flash_bwd_dkv: one block per
+// flash_bwd_dq: one block per (q tile, hq, b), looping over k tiles and
+// stopping at the diagonal under causal.  flash_bwd_dkv: one block per
 // (64-row k tile, hkv, b), looping over the G q heads of the group and the
 // q tiles from the diagonal on, so dk/dv sum inside the block: no atomics,
 // and the result is deterministic (the TPU's folded nq * G axis).  GQA
@@ -66,19 +66,24 @@
 //     __launch_bounds__ asks for 2 blocks (8 warps) an SM at D 128 and 3
 //     (12 warps, 168 registers) at D 64.  dq walks its q tiles from the
 //     last, so under causal the longest rows start first.
-//   * fp32 (the correctness lane; never timed) and the forward: the first
-//     version's design.  bf16 forward products run on nvcuda::wmma 16x16x16;
-//     the fp32 backward runs plain FMA.  Scores and the fp32 accumulators
-//     live in shared memory (wmma fragments have no known layout), loaded
-//     through registers; up to ~200 KB a block (fp32, D 128), set with
-//     cudaFuncSetAttribute(MaxDynamicSharedMemorySize).  The forward's
-//     redesign on the bf16 backward's helpers (mma.cuh) is later work, as
-//     are wgmma and TMA for both.
-#include <mma.h>
-
+//   * bf16 forward (flash_fwd_mma; the note above it has the details): 4
+//     warps own 128 q rows at D 128 (32 a warp, two m16 tiles) and 64 at D
+//     64 (16 a warp), with K and V streamed in 32- / 64-row tiles through 2
+//     cp.async stages.  mma.sync m16n8k16 with ldmatrix operands; O (fp32:
+//     128 / 32 registers a thread), S / P, m and l stay in registers, P
+//     goes from S's C fragments straight into the A fragments of O += P V,
+//     p = exp2 with the scale folded into one FFMA, and the masks run only
+//     on the tiles that need them.  At the slice's shape it takes 0.51 ms
+//     on an H100 80GB HBM3 at 700 W, 27 % of its 0.139 ms bound and about
+//     2x SDPA's forward (PERF.md, PR 8): latency-bound at 2 blocks (8
+//     warps) an SM, which its 255 registers allow, with the softmax, the
+//     P V product and the K / V streaming each costing 11-17 % of it.
+//   * fp32 (the correctness lane of all three; never timed): the first
+//     version's design, plain FMA products with the scores and the fp32
+//     accumulators in shared memory; up to ~200 KB a block (D 128), set
+//     with cudaFuncSetAttribute(MaxDynamicSharedMemorySize).  wgmma and TMA
+//     for the bf16 kernels are later work.
 #include "mma.cuh"
-
-using namespace nvcuda;
 
 namespace pt {
 namespace flash {
@@ -185,55 +190,8 @@ __device__ __forceinline__ void store_rows(T *dst, size_t rstride, int row0,
   }
 }
 
-// ---- one warp's products on 16 rows ------------------------------------
+// ---- one warp's products on 16 rows (the fp32 lane: plain FMA)
 // C[16 x N] = A[16 x K] . B[N x K]^T, C fp32 in shared memory
-template <int N, int K>
-__device__ __forceinline__ void warp_abt(float *C, int ldc, const bf16 *A,
-                                         int lda, const bf16 *B, int ldb) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
-#pragma unroll
-  for (int n = 0; n < N / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, A + k, lda);
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, B + n * 16 * ldb + k, ldb);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < N / 16; ++n)
-    wmma::store_matrix_sync(C + n * 16, acc[n], ldc, wmma::mem_row_major);
-}
-
-// C[16 x N] += A[16 x K] . B[K x N], C fp32 in shared memory
-template <int N, int K>
-__device__ __forceinline__ void warp_ab_acc(float *C, int ldc, const bf16 *A,
-                                            int lda, const bf16 *B, int ldb) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[N / 16];
-#pragma unroll
-  for (int n = 0; n < N / 16; ++n)
-    wmma::load_matrix_sync(acc[n], C + n * 16, ldc, wmma::mem_row_major);
-#pragma unroll
-  for (int k = 0; k < K; k += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, A + k, lda);
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, B + k * ldb + n * 16, ldb);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < N / 16; ++n)
-    wmma::store_matrix_sync(C + n * 16, acc[n], ldc, wmma::mem_row_major);
-}
-
-// the fp32 lane: the same two products with FMA
 template <int N, int K>
 __device__ __forceinline__ void warp_abt(float *C, int ldc, const float *A,
                                          int lda, const float *B, int ldb) {
@@ -247,6 +205,7 @@ __device__ __forceinline__ void warp_abt(float *C, int ldc, const float *A,
   }
 }
 
+// C[16 x N] += A[16 x K] . B[K x N], C fp32 in shared memory
 template <int N, int K>
 __device__ __forceinline__ void warp_ab_acc(float *C, int ldc, const float *A,
                                             int lda, const float *B, int ldb) {
@@ -274,7 +233,7 @@ __device__ __forceinline__ float logit(const FlashArgs &a, const float *bias,
   return v;
 }
 
-// ------------------------------------------------------------- forward
+// ------------------------------------------------ forward (fp32 lane)
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd(FlashArgs a) {
   using SM = FwdSmem<T, D>;
@@ -508,7 +467,335 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv(FlashArgs a) {
   store_rows<T, D, BK>((T *)a.dv + koff, ks, k0, a.Sk, DVs);
 }
 
-// ================================================ bf16 backward (mma.sync)
+// ============================================ bf16 kernels (mma.sync)
+// Pieces the forward and the backward share: cp.async row copies, the two
+// products on ldmatrix operands, C-to-A fragment packing and exp2.
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// rows [row0, row0 + ROWS) of one head of a [B, S, H, D] bf16 tensor (row
+// r at src + r * rstride) into a shared tile of leading dimension D + 8,
+// asynchronously, by a block of NTH threads; rows at or past nrows are
+// zero-filled.  Thread x copies 16 bytes at column 8 (x % (D / 8)) of rows
+// x / (D / 8) + i NTH / (D / 8): a fixed count, one pointer stepped by a
+// fixed stride.
+template <int D, int ROWS = 64, int NTH = 128>
+__device__ __forceinline__ void cp_rows(bf16 *dst, const bf16 *src,
+                                        size_t rstride, int row0,
+                                        int nrows) {
+  constexpr int CPR = D / 8, LD = D + 8, RS = NTH / CPR;
+  static_assert(NTH % CPR == 0 && ROWS % RS == 0, "uneven row copy");
+  const int r = row0 + threadIdx.x / CPR, col = threadIdx.x % CPR * 8;
+  const bf16 *s = src + (size_t)r * rstride + col;
+  const size_t step = RS * rstride;
+  bf16 *d = dst + (r - row0) * LD + col;
+#pragma unroll
+  for (int i = 0; i < ROWS / RS; ++i, s += step) {
+    const bool ok = r + i * RS < nrows;
+    cp16(d + i * RS * LD, ok ? s : src, ok);
+  }
+}
+
+// c[MT][NT] = A . Bt^T on MT m16 tiles: A 16 MT rows of a shared tile, Bt
+// 8 NT rows of another, both [row][k] over 16 KS values of k, leading dim
+// LD; each B fragment feeds all MT tiles
+template <int MT, int NT, int KS, int LD>
+__device__ __forceinline__ void mma_abt(float (*c)[NT][4], const bf16 *A,
+                                        const bf16 *Bt, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      c[mt][j][0] = c[mt][j][1] = c[mt][j][2] = c[mt][j][3] = 0.f;
+  const bf16 *pa = A + ldsm_a(lane, LD), *pb = Bt + ldsm_bt(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    unsigned af[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(af[mt], pa + mt * 16 * LD + kk * 16);
+#pragma unroll
+    for (int n2 = 0; n2 < NT / 2; ++n2) {
+      unsigned bf[4];
+      ldsm_x4(bf, pb + n2 * 16 * LD + kk * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(c[mt][2 * n2], af[mt], bf[0], bf[1]);
+        mma_bf16(c[mt][2 * n2 + 1], af[mt], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// c[MT][NT] += A . B: A in registers (MT x KS A fragments), B 16 KS rows of
+// a shared tile [k][n], leading dim LD
+template <int MT, int NT, int KS, int LD>
+__device__ __forceinline__ void mma_ab(float (*c)[NT][4],
+                                       unsigned (*a)[KS][4], const bf16 *B,
+                                       int lane) {
+  const bf16 *pb = B + ldsm_b(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int n2 = 0; n2 < NT / 2; ++n2) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, pb + kk * 16 * LD + n2 * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(c[mt][2 * n2], a[mt][kk], bf[0], bf[1]);
+        mma_bf16(c[mt][2 * n2 + 1], a[mt][kk], bf[2], bf[3]);
+      }
+    }
+}
+
+// 2 KS neighbouring C tiles, rounded to bf16, as KS A fragments
+template <int KS>
+__device__ __forceinline__ void c_to_a(unsigned (*a)[4], const float (*c)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// 2^x in one MUFU.EX2 (denormal results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ============================================== bf16 forward (mma.sync)
+// A block owns BR = 16 MT WARPS q rows: each warp 16 MT of them, as MT
+// m16 tiles.  K and V stream in BC-row tiles through a ring of 2 cp.async
+// stages; the next tile's copies are issued, after the one barrier of a
+// tile, before the current tile's products.  Q is loaded once.  For each
+// tile a warp computes S = Q K^T into C fragments (BC / 8 n8 tiles of 4
+// fp32 a thread per m16 tile: rows g and g + 8, columns 2t, 2t + 1), takes the
+// row max over the quad of lanes that share its rows, rescales its running
+// state by alpha, packs p, rounded to bf16, into the A fragments of O +=
+// P V (V read [k][n] through ldmatrix .trans) and sums the fp32 p into its
+// part of l; m, l and O stay in registers for the whole loop.  The logits
+// stay in the natural domain (m, and so lse = m + log l, keep the TPU
+// kernel's meaning); p = 2^(s log2e - m log2e), one FFMA and one MUFU.EX2
+// an element.  A warp takes the per-element masks of logit() only on a
+// tile that crosses the causal diagonal of its rows or the Sk edge, or
+// meets a bias or segment ids (and skips a tile wholly above its
+// diagonal); elsewhere it takes max(raw) * scale as the row max, so no
+// compare touches an element.  The two cases are one basic block each.
+// At the end l is summed over the quad, out = O / max(l, 1e-30) is
+// rounded to bf16 into the warp's own Q rows in shared memory (no other
+// warp reads them) and stored in 16-byte row chunks; lse from one lane of
+// each quad.  Blocks take their (q tile, head) in launch order, groups of
+// GH (batch, head) pairs at a time, longest q tiles first within a group:
+// the grid's tail stays short under causal and the K / V of about two
+// groups is live in L2 at once.
+//
+// The shape per head_dim: MT m16 tiles a warp, WARPS warps a block, MINB
+// blocks an SM for __launch_bounds__ and BC rows a K / V tile, each the
+// fastest measured (PERF.md, PR 8); tools/flash_fwd_ab.py times others
+// by rewriting the two FwdShapeOf lines.
+template <int MT_, int WARPS_, int MINB_, int BC_>
+struct FwdShape {
+  static constexpr int MT = MT_, WARPS = WARPS_, MINB = MINB_, BC = BC_;
+};
+template <int D> struct FwdShapeOf { using T = FwdShape<2, 4, 2, 32>; };
+template <> struct FwdShapeOf<64> { using T = FwdShape<1, 4, 4, 64>; };
+
+template <int D>
+struct FwdMma : FwdShapeOf<D>::T {
+  using S = typename FwdShapeOf<D>::T;
+  static constexpr int BC = S::BC;            // a streamed K / V tile
+  static constexpr int WR = 16 * S::MT;       // a warp's q rows
+  static constexpr int BR = WR * S::WARPS;    // the block's q rows
+  static constexpr int THREADS = 32 * S::WARPS, ROWS = BR;
+  static constexpr int GH = 16;               // (batch, head) pairs a group
+  static constexpr int LD = D + 8;            // bf16 a shared row (16 B pad)
+  static constexpr int KV = BR * LD * 2;      // Q, then the stages
+  static constexpr int STAGE = 2 * BC * LD * 2;   // K, then V
+  static constexpr int BYTES = KV + 2 * STAGE;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdMma<D>::THREADS, FwdMma<D>::MINB)
+    flash_fwd_mma(FlashArgs a) {
+  using C = FwdMma<D>;
+  constexpr int BQ = C::BR, BK = C::BC, LD = C::LD, NTH = C::THREADS;
+  constexpr int MT = C::MT, WR = C::WR;
+  constexpr int KS = D / 16, NS = BK / 8, ND = D / 8, KP = BK / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16 *Qs = (bf16 *)smem;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this block's (q tile, batch * Hq + head) from its place in launch order
+  const int nq = gridDim.x, pairs = gridDim.y * gridDim.z;
+  const int id = blockIdx.x + nq * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int g0 = id / (C::GH * nq) * C::GH, gn = min(C::GH, pairs - g0);
+  const int pair = g0 + (id - g0 * nq) % gn;
+  const int q0 = (nq - 1 - (id - g0 * nq) / gn) * BQ;  // longest rows first
+  const int wq0 = q0 + warp * WR;                   // the warp's first row
+  const int h = pair % a.Hq, b = pair / a.Hq, hk = h / (a.Hq / a.Hkv);
+  const size_t qs = (size_t)a.Hq * D, ks = (size_t)a.Hkv * D;
+  const size_t qoff = (size_t)b * a.Sq * qs + (size_t)h * D;
+  const bf16 *kp = (const bf16 *)a.k + (size_t)b * a.Sk * ks + (size_t)hk * D;
+  const bf16 *vp = (const bf16 *)a.v + (size_t)b * a.Sk * ks + (size_t)hk * D;
+  const float *bias = a.bias ? a.bias + b * a.bias_sb + h * a.bias_sh
+                             : nullptr;
+  const int nk = (a.Sk + BK - 1) / BK;
+  const int nkt = a.causal ? min(nk, (q0 + BQ - 1) / BK + 1) : nk;
+
+  auto stage = [&](int kt) {                  // K, V tile kt: one group
+    bf16 *Ks = (bf16 *)(smem + C::KV + (kt & 1) * C::STAGE);
+    cp_rows<D, BK, NTH>(Ks, kp, ks, kt * BK, a.Sk);
+    cp_rows<D, BK, NTH>(Ks + BK * LD, vp, ks, kt * BK, a.Sk);
+    cp_commit();
+  };
+  cp_rows<D, BQ, NTH>(Qs, (const bf16 *)a.q + qoff, qs, q0, a.Sq);
+  if (nkt > 0)
+    stage(0);
+  else
+    cp_commit();
+
+  // this thread's rows: g and g + 8 of each of the warp's m16 tiles
+  int sq[MT][2];
+  float m[MT][2], l[MT][2], acc[MT][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qpos = wq0 + 16 * mt + g + 8 * i;
+      sq[mt][i] = (a.seg_q && qpos < a.Sq)
+                      ? a.seg_q[(size_t)b * a.Sq + qpos] : 0;
+      m[mt][i] = NEG_INF;
+      l[mt][i] = 0.f;                         // this thread's columns only
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+  }
+  const float sl2 = a.scale * LOG2E;
+  // the plain body takes max(raw) * scale as the row max: a positive scale
+  const bool always = bias || a.seg_q || !(a.scale > 0.f);
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_wait<0>();
+    __syncthreads();               // tile kt landed; tile kt - 1 is done
+    if (kt + 1 < nkt) stage(kt + 1);
+    const bf16 *Ks = (const bf16 *)(smem + C::KV + (kt & 1) * C::STAGE);
+    const bf16 *Vs = Ks + BK * LD;
+    const int k0 = kt * BK;
+    // nothing to add: the warp's rows past Sq, or every key after them
+    if (wq0 >= a.Sq || (a.causal && k0 > wq0 + WR - 1)) continue;
+    auto body = [&](auto flag) {
+      constexpr bool MASK = decltype(flag)::value;
+      float s[MT][NS][4];
+      mma_abt<MT, NS, KS, LD>(s, Qs + warp * WR * LD, Ks, lane);
+      float mx[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (MASK) {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1, qpos = wq0 + 16 * mt + g + 8 * i;
+              const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+              const bool same =
+                  !a.seg_q || (kpos < a.Sk &&
+                               sq[mt][i] == a.seg_k[(size_t)b * a.Sk + kpos]);
+              s[mt][j][e] = logit(a, bias, s[mt][j][e], qpos, kpos, same);
+            }
+        }
+        mx[mt][0] = s[mt][0][0];
+        mx[mt][1] = s[mt][0][2];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[mt][e >> 1] = fmaxf(mx[mt][e >> 1], s[mt][j][e]);
+      }
+      float mc[MT][2];                        // the new m, times log2(e)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float x = mx[mt][i];
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+          const float mnew = fmaxf(m[mt][i], MASK ? x : x * a.scale);
+          const float alpha = ex2((m[mt][i] - mnew) * LOG2E);
+          m[mt][i] = mnew;
+          mc[mt][i] = mnew * LOG2E;
+          l[mt][i] *= alpha;
+#pragma unroll
+          for (int j = 0; j < ND; ++j) {
+            acc[mt][j][2 * i] *= alpha;
+            acc[mt][j][2 * i + 1] *= alpha;
+          }
+        }
+      unsigned pa[MT][KP][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            // masked: (s - m) first, so a row whose every logit so far is
+            // NEG_INF gets exp(0) = 1, as in the TPU kernel
+            const float p = MASK ? ex2((s[mt][j][e] - m[mt][i]) * LOG2E)
+                                 : ex2(fmaf(s[mt][j][e], sl2, -mc[mt][i]));
+            s[mt][j][e] = p;
+            l[mt][i] += p;
+          }
+        c_to_a<KP>(pa[mt], s[mt]);
+      }
+      mma_ab<MT, ND, KP, LD>(acc, pa, Vs, lane);   // O += P V
+    };
+    if (always || k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > wq0))
+      body(Flag<true>());
+    else
+      body(Flag<false>());
+  }
+  cp_wait<0>();
+  if (nkt == 0) __syncthreads();   // Q landed before the warps reuse it
+
+  bf16 *Ow = Qs + warp * WR * LD;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float lt = l[mt][i];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float lc = fmaxf(lt, 1e-30f), inv = 1.f / lc;
+      const int r = 16 * mt + g + 8 * i, qpos = wq0 + r;
+      if (t == 0 && qpos < a.Sq)
+        a.lse[((size_t)b * a.Hq + h) * a.Sq + qpos] = m[mt][i] + logf(lc);
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<unsigned *>(Ow + r * LD + 8 * j + 2 * t) =
+            pack_bf16(acc[mt][j][2 * i] * inv, acc[mt][j][2 * i + 1] * inv);
+    }
+  __syncwarp();
+  bf16 *out = (bf16 *)a.out + qoff;
+  constexpr int CPR = D / 8;
+#pragma unroll
+  for (int c = lane; c < WR * CPR; c += 32) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    if (wq0 + r < a.Sq)
+      *reinterpret_cast<uint4 *>(out + (size_t)(wq0 + r) * qs + col) =
+          *reinterpret_cast<const uint4 *>(Ow + r * LD + col);
+  }
+}
+
+// ============================================= bf16 backward (mma.sync)
 // 4 warps own 16 rows each of a block's 64 and step over the other
 // sequence in 64-row tiles, streamed through two cp.async stages in shared
 // memory and taken in two passes of 32.  Every product is mma.sync
@@ -517,13 +804,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv(FlashArgs a) {
 // at the store; the score tiles (S, dP and their transposes) live in C
 // fragments and become the A fragments of the next product by packing,
 // never touching shared memory.
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
-
 template <int D>
 struct BwdMma {
   static constexpr int BR = 64;               // the block's own rows
@@ -554,82 +834,6 @@ struct DkvMma : BwdMma<D> {
   static constexpr int K = 0, V = B::TILE, ST = 2 * B::TILE;
   static constexpr int BYTES = ST + B::STAGES * STAGE;
 };
-
-// rows [row0, row0 + 64) of one head of a [B, S, H, D] bf16 tensor (row r
-// at src + r * rstride) into a shared tile of leading dimension D + 8,
-// asynchronously, by a block of 128 threads; rows at or past nrows are
-// zero-filled
-template <int D>
-__device__ __forceinline__ void cp_rows(bf16 *dst, const bf16 *src,
-                                        size_t rstride, int row0,
-                                        int nrows) {
-  constexpr int CPR = D / 8, LD = D + 8;
-#pragma unroll
-  for (int c = threadIdx.x; c < 64 * CPR; c += 128) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const bool ok = row0 + r < nrows;
-    cp16(dst + r * LD + col, ok ? src + (size_t)(row0 + r) * rstride + col
-                                : src, ok);
-  }
-}
-
-// c[16 x 8 NT] = A . Bt^T: A the warp's 16 rows of a shared tile, Bt 8 NT
-// rows of another, both [row][k] over 16 KS values of k, leading dim LD
-template <int NT, int KS, int LD>
-__device__ __forceinline__ void mma_abt(float (*c)[4], const bf16 *A,
-                                        const bf16 *Bt, int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-  const bf16 *pa = A + ldsm_a(lane, LD), *pb = Bt + ldsm_bt(lane, LD);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    unsigned af[4];
-    ldsm_x4(af, pa + kk * 16);
-#pragma unroll
-    for (int n2 = 0; n2 < NT / 2; ++n2) {
-      unsigned bf[4];
-      ldsm_x4(bf, pb + n2 * 16 * LD + kk * 16);
-      mma_bf16(c[2 * n2], af, bf[0], bf[1]);
-      mma_bf16(c[2 * n2 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// c[16 x 8 NT] += A . B: A in registers (KS A fragments), B 16 KS rows of
-// a shared tile [k][n], leading dim LD
-template <int NT, int KS, int LD>
-__device__ __forceinline__ void mma_ab(float (*c)[4], const unsigned (*a)[4],
-                                       const bf16 *B, int lane) {
-  const bf16 *pb = B + ldsm_b(lane, LD);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int n2 = 0; n2 < NT / 2; ++n2) {
-      unsigned bf[4];
-      ldsm_x4_t(bf, pb + kk * 16 * LD + n2 * 16);
-      mma_bf16(c[2 * n2], a[kk], bf[0], bf[1]);
-      mma_bf16(c[2 * n2 + 1], a[kk], bf[2], bf[3]);
-    }
-}
-
-// 2 KS neighbouring C tiles, rounded to bf16, as KS A fragments
-template <int KS>
-__device__ __forceinline__ void c_to_a(unsigned (*a)[4], const float (*c)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// 2^x in one MUFU.EX2 (denormal results flush to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ds = p (dp - delta) scale in place of dp, with p = exp(s - lse) from the
 // raw products in s (C fragments: rows g, g + 8 and columns 2t, 2t + 1 of
@@ -734,8 +938,9 @@ __global__ void __launch_bounds__(128, DqMma<D>::MINB)
                      wq0 >= a.Sq))
           continue;
         float s[NS][4], dp[NS][4];
-        mma_abt<NS, KS, LD>(s, Qs + warp * 16 * LD, Ks + c0 * LD, lane);
-        mma_abt<NS, KS, LD>(dp, DOs + warp * 16 * LD, Vs + c0 * LD, lane);
+        mma_abt<1, NS, KS, LD>(&s, Qs + warp * 16 * LD, Ks + c0 * LD, lane);
+        mma_abt<1, NS, KS, LD>(&dp, DOs + warp * 16 * LD, Vs + c0 * LD,
+                               lane);
         auto pos = [&](int j, int e, int &qp, int &kpos, float &l, float &dl,
                        bool &same) {
           qp = qpos[e >> 1];
@@ -749,7 +954,7 @@ __global__ void __launch_bounds__(128, DqMma<D>::MINB)
         softmax_grad<MASK, NS>(a, bias, s, dp, pos);
         unsigned da[PW / 16][4];
         c_to_a<PW / 16>(da, dp);
-        mma_ab<ND, PW / 16, LD>(acc, da, Ks + c0 * LD, lane);   // dQ += dS K
+        mma_ab<1, ND, PW / 16, LD>(&acc, &da, Ks + c0 * LD, lane);  // += dS K
       }
     };
     if (bias || a.seg_q || k0 + BK > a.Sk || (a.causal && k0 + BK - 1 > wq0))
@@ -852,8 +1057,9 @@ __global__ void __launch_bounds__(128, DkvMma<D>::MINB)
           continue;
         // S^T = K Q^T and dP^T = V dO^T: rows k, columns q
         float s[NQ][4], dp[NQ][4];
-        mma_abt<NQ, KS, LD>(s, Ks + warp * 16 * LD, Qs + c0 * LD, lane);
-        mma_abt<NQ, KS, LD>(dp, Vs + warp * 16 * LD, DOs + c0 * LD, lane);
+        mma_abt<1, NQ, KS, LD>(&s, Ks + warp * 16 * LD, Qs + c0 * LD, lane);
+        mma_abt<1, NQ, KS, LD>(&dp, Vs + warp * 16 * LD, DOs + c0 * LD,
+                               lane);
         auto pos = [&](int j, int e, int &qpos, int &kp, float &l, float &dl,
                        bool &same) {
           const int c = c0 + j * 8 + 2 * t + (e & 1);
@@ -867,8 +1073,8 @@ __global__ void __launch_bounds__(128, DkvMma<D>::MINB)
         unsigned pa[PW / 16][4], da[PW / 16][4];
         c_to_a<PW / 16>(pa, s);                         // P^T, bf16
         c_to_a<PW / 16>(da, dp);                        // dS^T, bf16
-        mma_ab<ND, PW / 16, LD>(dv, pa, DOs + c0 * LD, lane);  // += P^T dO
-        mma_ab<ND, PW / 16, LD>(dk, da, Qs + c0 * LD, lane);   // += dS^T Q
+        mma_ab<1, ND, PW / 16, LD>(&dv, &pa, DOs + c0 * LD, lane);  // += P^T dO
+        mma_ab<1, ND, PW / 16, LD>(&dk, &da, Qs + c0 * LD, lane);   // += dS^T Q
       }
     };
     if (bias || a.seg_q || q0 + BQ > a.Sq || (a.causal && q0 < wk0 + 15))
@@ -916,12 +1122,12 @@ FlashPick pick_of(FlashKernel fn) {
 using pt::bf16;
 using namespace pt::flash;
 
+// bf16: the mma.sync kernels; fp32 (the correctness lane): the FMA ones
 template <int D>
 FlashPick pick_fwd(int dtype) {
-  return dtype == PT_BF16 ? pick_of<FwdSmem<bf16, D>>(flash_fwd<bf16, D>)
+  return dtype == PT_BF16 ? pick_of<FwdMma<D>>(flash_fwd_mma<D>)
                           : pick_of<FwdSmem<float, D>>(flash_fwd<float, D>);
 }
-// bf16: the mma.sync kernels; fp32 (the correctness lane): the FMA ones
 template <int D>
 FlashPick pick_dq(int dtype) {
   return dtype == PT_BF16

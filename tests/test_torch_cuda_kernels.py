@@ -267,11 +267,19 @@ FLASH_CASES = [(2, 128, 128, 4, 4, 128, True, False, None),
                (1, 200, 200, 4, 4, 64, True, False, None),
                (1, 200, 200, 4, 2, 128, True, False, None),
                (1, 256, 256, 8, 1, 64, True, False, None),
-               (1, 200, 130, 4, 2, 128, True, False, None)]
+               (1, 200, 130, 4, 2, 128, True, False, None),
+               # the forward's two bodies: causal S 2048 (masked diagonal
+               # tiles beside plain ones in a block); segment ids off the
+               # diagonal with Sk off the 64-row tiles; causal Sq > Sk
+               # with a bias
+               (1, 2048, 2048, 2, 2, 64, True, False, None),
+               (2, 200, 200, 4, 2, 128, False, True, None),
+               (2, 200, 130, 4, 2, 64, True, False, (2, 1))]
 FLASH_IDS = ["mha-causal-d128", "gqa-ragged-d64", "sq-ne-sk-full",
              "sq-gt-sk-causal", "segments", "bias-1hq", "bias-b1-d128",
              "s1-causal", "s17-full-d128", "s200-d64", "s200-d128",
-             "gqa-g8-causal", "sq-gt-sk-causal-d128"]
+             "gqa-g8-causal", "sq-gt-sk-causal-d128", "s2048-causal-d64",
+             "segments-full-sk200-d128", "sq-gt-sk-causal-bias-d64"]
 
 
 def _flash_case(case, dt, seed=7):
