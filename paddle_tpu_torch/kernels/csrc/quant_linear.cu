@@ -5,55 +5,78 @@
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/quant_linear.py:
 //   int8  _wo_kernel   (pallas_call at :150)
 //   int4  _wo4_kernel  (pallas_call at :264)
-// with their arithmetic: codes widened to x's dtype, fp32 accumulation,
-// and the scale either multiplied in fp32 into each group's partial
-// product (per-channel and groups of 128: the Pallas kernel's `post`) or
-// folded into the weight in x's dtype before the product, the scale
-// rounded to that dtype (groups of 64, where the Pallas kernel's 128-row
-// block spans two groups: its `tile`; also the int4 groups the Pallas
-// kernel refuses).  The output is written in x's dtype.
+// with their arithmetic: codes widened exactly to x's dtype, fp32
+// accumulation, and the scale either multiplied in fp32 into each group's
+// partial product (per channel and groups of 128: the Pallas kernel's
+// `post`) or folded into the weight in x's dtype before the product, the
+// scale rounded to that dtype (groups of 64, where the Pallas kernel's
+// 128-row block spans two groups: its `tile`; also the int4 groups the
+// Pallas kernel refuses).  The output is written in x's dtype.
 //
 // What bounds it on an H100: at decode (M = batch 8) the code bytes —
 // llama_7b's 202 M block weights a layer are 202 MB in int8 and 101 MB in
 // int4, 60 / 30 us at 3.35 TB/s, against 4 flops per weight; at prefill
-// (M = 1024) the tensor-core operations (2 M K N at 989 TFLOP/s bf16).
-// Design, in this first version (wgmma and TMA are later work):
-//   * bf16 x runs on tensor cores through mma.sync m16n8k16 (fp32
-//     accumulators in registers).  The codes and x stream through a ring
-//     of shared-memory stages filled with cp.async (16-byte copies, rows
-//     past K / N and columns past the valid x zero-filled).  The B
-//     fragments are built in registers straight from the code bytes in
-//     shared memory — no dequantized tile is stored — with the
-//     exponent-bias trick (byte ^ 0x80 spliced under 2^23 by one PRMT, one
-//     FADD) in place of integer-to-float conversions.  The columns of each
-//     n8 fragment are permuted (fragment column c of tile j is physical
-//     column NT * c + j), so one 4- or 8-byte shared load gives a thread
-//     its codes for all NT tiles and the epilogue stores 2 NT contiguous
-//     columns per thread.
-//   * int4 keeps the Pallas layout: a tile of packed rows [p0, p0 + BKR)
-//     is two virtual k blocks, the low nibbles against x columns
-//     [p0, p0 + BKR) and the high nibbles against x columns
-//     [xhi + p0, ...), so each packed byte is read from memory once.
-//   * The per-group fp32 scale ("post") keeps a second accumulator: when a
-//     k16 step enters a new group the partial sums are scaled into the
-//     total (per-channel: once, at the end).
-//   * Two regimes, each its own kernel instance.  M <= 16 (decode) takes
-//     16 x 128 output tiles, so each code row a block reads is one
-//     128-byte line, 4 warps of 16 x 32, 4 stages of 64 code rows; K is
-//     split over a thread block cluster of 8 (N = 4096: 32 column tiles
-//     x 8 = 256 blocks).  The 8 blocks sum their fp32 partial tiles
+// (M = 1024) the tensor-core operations (2 M K N at 989 TFLOP/s bf16:
+// 2048 operations a code byte, far above the card's ~295 a byte); with
+// 128-channel tiles x is read from L2 again for every tile, so the
+// copies into shared memory (~4 GB a llama_7b layer) come next.
+// Three kernels, one per regime:
+//   * bf16 x, M > 16 (prefill): wo_wgmma, on wgmma.  The operands are
+//     swapped, y^T [N, M] = (W s)^T [N, K] . x^T [K, M], so the
+//     dequantized weight is wgmma's A operand, taken from registers, and x
+//     is B, read by wgmma from shared memory: x [M, K] row-major is
+//     exactly a K-major B tile.  A block is 2 consumer warpgroups of 64
+//     output channels each (128 channels, one 128-byte code row) by BM x
+//     rows (wgmma m64nBMk16), plus a producer warpgroup that gives its
+//     registers to the consumers (setmaxnreg 40 / 232).  One producer
+//     thread streams x (64-column boxes; int4: one box from each nibble
+//     plane's columns) and the codes (64 rows of 128 bytes) by TMA,
+//     128-byte swizzled, into a ring of 3-4 stages completed on
+//     mbarriers.  Each consumer thread reads its codes with ldmatrix.trans
+//     (one x4 gives a thread the k pairs (2t, 2t+1) and (2t+8, 2t+9) of 2
+//     channels for two k16 steps) and widens them in registers (int8: the
+//     exponent-bias trick, byte ^ 0x80 spliced under 2^23 by one PRMT and
+//     one FADD, then the exact top halves packed; int4: a nibble pair
+//     masked under bf16 128 by one LOP3 and one bf16x2 FMA), so each code
+//     is widened once a block, by one thread, for BM x rows.  A rows are
+//     the channels in the order the bytes lie in a 16-byte chunk: row g
+//     of a warp is byte 2g, row g + 8 byte 2g + 1, so a thread's two D
+//     rows are two neighbouring channels and the epilogue stores bf16
+//     pairs straight from the accumulators (32 contiguous bytes a row and
+//     warp).  The wgmma of step s runs while the codes of step s + 1 are
+//     widened; a stage goes back to the producer once the wgmma that read
+//     its x tile has retired.  BM is 256 (half the widening a code of
+//     128) unless 128-row tiles fill the SMs in clearly fewer waves (small
+//     M).  Per channel the fp32 scale multiplies in the epilogue; grouped
+//     `post` scales (BM 128: a second accumulator) start a partial sum
+//     (scale-d 0) at each 64-row plane step and add it, times the group's
+//     scale, into the total at its end; the `tile` rule multiplies the
+//     widened codes by the bf16 scale before the product.
+//   * bf16 x, M <= 16 (decode): wo_mma<SmallM>, mma.sync m16n8k16 over
+//     16 x 128 output tiles (a code row's 128 bytes are one cache line),
+//     4 warps of 16 x 32, 4 cp.async stages of 64 code rows, K split over
+//     a thread block cluster of 8 (N = 4096: 32 column tiles x 8 = 256
+//     blocks).  The B fragments are built in registers from the code bytes
+//     in shared memory with the same exponent-bias trick; the columns of
+//     each n8 fragment are permuted (fragment column c of tile j is
+//     physical column NT * c + j), so one 4-byte shared load gives a
+//     thread its codes for all NT tiles.  int4 reads each packed byte once
+//     for both nibble planes.  The 8 blocks sum their fp32 partial tiles
 //     through distributed shared memory, in split order, and write the
-//     bf16 output: one launch, no workspace, deterministic.  M > 16 (prefill)
-//     takes 64 x 128 tiles, 4 warps of 32 x 64, 3 stages of 64 virtual k
-//     rows.
-//   * fp32 x (the correctness lane) runs plain FMA over 64 x 64 tiles,
-//     dequantizing each weight element in fp32 on its way into shared
-//     memory (fp32 rounding either way).
-// Requirements checked by the wrapper: N % 16 == 0, ldx and xhi multiples
-// of 8, 16-byte aligned pointers.
+//     bf16 output: one launch, no workspace, deterministic.
+//   * fp32 x (the correctness lane): wo_f32, plain FMA over 64 x 64
+//     tiles, dequantizing each weight element in fp32 on its way into
+//     shared memory (fp32 rounding either way).
+// Requirements checked here and by the wrapper: N % 16 == 0, ldx and xhi
+// multiples of 8, 16-byte aligned x and codes; the prefill kernel also
+// takes only group sizes that are powers of two (64, 128, or 1 << 30 per
+// channel), and grouped `post` scales only where every group starts on a
+// 64-row boundary of its nibble plane (the wrapper's scale_mode gives
+// nothing else).
 #include <cooperative_groups.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -96,18 +119,15 @@ struct Cfg {
   static constexpr int SMEM =
       STAGES * STAGE > BM * BN * 4 ? STAGES * STAGE : BM * BN * 4;
   static_assert(NT == 4 || NT == 8, "4 or 8 n8 tiles a warp");
-  static_assert(SPLITS == 1 || (BM * BN) % (SPLITS * THREADS) == 0,
+  static_assert(SPLITS > 1 && (BM * BN) % (SPLITS * THREADS) == 0,
                 "the cluster's blocks share the tile's sum evenly");
 };
 
 // decode (M <= 16): 16 x 128 output tiles (a code row's 128 bytes are one
 // cache line) over 64 code rows a stage, K split over a cluster of 8
-// blocks; prefill (M > 16): 64 x 128 tiles, 4 warps of 32 x 64, 64
-// virtual k rows a stage
+// blocks
 template <bool INT4>
 using SmallM = Cfg<1, 4, 1, 4, INT4 ? 8 : 4, 4, 8, INT4>;
-template <bool INT4>
-using Tiled = Cfg<2, 2, 2, 8, 4, 3, 1, INT4>;
 
 template <class C>
 __global__ void __launch_bounds__(C::THREADS) wo_mma(const WoArgs a) {
@@ -268,57 +288,35 @@ __global__ void __launch_bounds__(C::THREADS) wo_mma(const WoArgs a) {
   // m16 tile: column nb + o holds n8 tile o % NT, fragment column
   // 2t + o / NT
   const int nb = ncol0 + 2 * NT * t;
-  if constexpr (C::SPLITS > 1) {
-    // the cluster's blocks hold one column tile's K splits: each puts its
-    // fp32 partial tile in its shared memory; then each sums 1/SPLITS of
-    // the tile over all of them, in split order, and writes it
-    cp_wait<0>();
-    __syncthreads();
-    float *red = reinterpret_cast<float *>(smem);      // [BM][BN]
+  // the cluster's blocks hold one column tile's K splits: each puts its
+  // fp32 partial tile in its shared memory; then each sums 1/SPLITS of
+  // the tile over all of them, in split order, and writes it
+  cp_wait<0>();
+  __syncthreads();
+  float *red = reinterpret_cast<float *>(smem);      // [BM][BN]
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int o = 0; o < 2 * NT; ++o) {
-        const int row = wm * MT * 16 + i * 16 + g, col = nb - n0 + o;
-        red[row * C::BN + col] = tot[i][o % NT][o / NT];
-        red[(row + 8) * C::BN + col] = tot[i][o % NT][2 + o / NT];
-      }
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    constexpr int PER = C::BM * C::BN / C::SPLITS;
-    const int rank = (int)cluster.block_rank();
-    bf16 *Y = (bf16 *)a.y;
-    for (int idx = rank * PER + tid; idx < (rank + 1) * PER;
-         idx += C::THREADS) {
-      float acc = 0.f;
-#pragma unroll
-      for (int z = 0; z < C::SPLITS; ++z)
-        acc += cluster.map_shared_rank(red, z)[idx];
-      const int m = m0 + idx / C::BN, n = n0 + idx % C::BN;
-      if (m < a.M && n < a.N) Y[(size_t)m * a.N + n] = __float2bfloat16(acc);
+    for (int o = 0; o < 2 * NT; ++o) {
+      const int row = wm * MT * 16 + i * 16 + g, col = nb - n0 + o;
+      red[row * C::BN + col] = tot[i][o % NT][o / NT];
+      red[(row + 8) * C::BN + col] = tot[i][o % NT][2 + o / NT];
     }
-    cluster.sync();           // the peers' shared memory stays until read
-  } else {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  constexpr int PER = C::BM * C::BN / C::SPLITS;
+  const int rank = (int)cluster.block_rank();
+  bf16 *Y = (bf16 *)a.y;
+  for (int idx = rank * PER + tid; idx < (rank + 1) * PER;
+       idx += C::THREADS) {
+    float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int m = m0 + wm * MT * 16 + i * 16 + g + 8 * h2;
-        if (m >= a.M || nb >= a.N) continue;
-        float v[2 * NT];
-#pragma unroll
-        for (int o = 0; o < 2 * NT; ++o)
-          v[o] = tot[i][o % NT][2 * h2 + o / NT];
-        uint4 *dst = reinterpret_cast<uint4 *>((bf16 *)a.y +
-                                               (size_t)m * a.N + nb);
-#pragma unroll
-        for (int q = 0; q < NT / 4; ++q)
-          dst[q] = make_uint4(pack_bf16(v[8 * q], v[8 * q + 1]),
-                              pack_bf16(v[8 * q + 2], v[8 * q + 3]),
-                              pack_bf16(v[8 * q + 4], v[8 * q + 5]),
-                              pack_bf16(v[8 * q + 6], v[8 * q + 7]));
-      }
+    for (int z = 0; z < C::SPLITS; ++z)
+      acc += cluster.map_shared_rank(red, z)[idx];
+    const int m = m0 + idx / C::BN, n = n0 + idx % C::BN;
+    if (m < a.M && n < a.N) Y[(size_t)m * a.N + n] = __float2bfloat16(acc);
   }
+  cluster.sync();           // the peers' shared memory stays until read
 }
 
 // ------------------------------------------------------------------ fp32
@@ -391,20 +389,15 @@ __global__ void __launch_bounds__(256) wo_f32(const WoArgs a) {
     }
 }
 
+// the K splits of a column tile run as one cluster
 template <class C>
 cudaError_t launch_mma(const WoArgs *a, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
       wo_mma<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid((a->N + C::BN - 1) / C::BN, (a->M + C::BM - 1) / C::BM,
-                  C::SPLITS);
-  if (C::SPLITS == 1) {
-    wo_mma<C><<<grid, C::THREADS, C::SMEM, s>>>(*a);
-    return cudaGetLastError();
-  }
-  // the K splits of a column tile run as one cluster
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
+  cfg.gridDim = dim3((a->N + C::BN - 1) / C::BN, (a->M + C::BM - 1) / C::BM,
+                     C::SPLITS);
   cfg.blockDim = dim3(C::THREADS);
   cfg.dynamicSmemBytes = C::SMEM;
   cfg.stream = s;
@@ -417,6 +410,281 @@ cudaError_t launch_mma(const WoArgs *a, cudaStream_t s) {
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, wo_mma<C>, *a);
   return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// ------------------------------------------------------- prefill: wgmma
+enum { WO_CHANNEL = 0, WO_GROUPED = 1, WO_TILE = 2 };
+
+template <bool INT4_, int MODE_, int BM_> struct Wg {
+  static constexpr bool INT4 = INT4_;
+  static constexpr int MODE = MODE_;
+  static constexpr int BN = 128;               // channels: 2 warpgroups x 64
+  static constexpr int BM = BM_;               // x rows: wgmma's N
+  static constexpr int BK = 64;                // code rows a stage
+  static constexpr int PLANES = INT4 ? 2 : 1;  // x boxes a stage
+  static constexpr int XT = BM * 128;          // x box: BM rows x 64 bf16
+  static constexpr int CT = BK * BN;           // code box: 64 rows x 128 B
+  static constexpr int STAGE = PLANES * XT + CT;
+  static constexpr int STAGES = 4 * STAGE <= 200 * 1024 ? 4 : 3;
+  static constexpr int THREADS = 384;          // + a producer warpgroup
+  static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
+  static constexpr int NACC = BM / 2;          // fp32 accumulators a thread
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  static_assert(SMEM <= 232448, "one block an SM");
+  static_assert(BM == 128 || (BM == 256 && MODE != WO_GROUPED),
+                "grouped scales keep two accumulators: 128 rows");
+};
+
+// the ldmatrix.trans word r of a thread holds the codes (k, A) (k, B)
+// (k + 1, A) (k + 1, B) in its bytes, A and B the thread's two channels;
+// -> the bf16 pairs (k, k + 1) of channel A (pa) and of channel B (pb)
+__device__ __forceinline__ void widen_i8(unsigned r, unsigned &pa,
+                                         unsigned &pb) {
+  const unsigned u = r ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)),
+              f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)),
+              f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)),
+              f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443));
+  // 2^23 + 128 + code - (2^23 + 128): the exact code, whose fp32 bits
+  // below the top 16 are zero, so the top halves are its bf16
+  pa = __byte_perm(__float_as_uint(f0 - 8388736.f),
+                   __float_as_uint(f2 - 8388736.f), 0x7632);
+  pb = __byte_perm(__float_as_uint(f1 - 8388736.f),
+                   __float_as_uint(f3 - 8388736.f), 0x7632);
+}
+__device__ __forceinline__ unsigned bf2_fma(unsigned a, unsigned b,
+                                            unsigned c) {
+  unsigned d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+// the nibbles at bits 0..3 and 16..19 of v as a bf16 pair of signed codes:
+// 0x4300 | (n ^ 8) is 128 + (n ^ 8), minus 136 is (n ^ 8) - 8
+__device__ __forceinline__ unsigned nib_pair(unsigned v) {
+  return bf2_fma((v & 0x000F000Fu) ^ 0x43084308u, 0x3F803F80u, 0xC308C308u);
+}
+// as widen_i8 for int4 bytes: the low nibbles (plane 0) or the high ones
+__device__ __forceinline__ void widen_i4(unsigned r, int plane, unsigned &pa,
+                                         unsigned &pb) {
+  const unsigned v = plane ? r >> 4 : r;
+  pa = nib_pair(v);
+  pb = nib_pair(v >> 8);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+    wo_wgmma(const WoArgs a, const __grid_constant__ CUtensorMap tw,
+             const __grid_constant__ CUtensorMap txlo,
+             const __grid_constant__ CUtensorMap txhi) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char *smem = reinterpret_cast<unsigned char *>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + C::STAGES * C::STAGE);
+  uint64_t *empty = full + C::STAGES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::BM;
+  const int nt = ((C::INT4 ? a.half : a.K) + C::BK - 1) / C::BK;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);                 // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                             // producer warpgroup
+    regs_dec<C::REGS_PRODUCER>();
+    if (warp == 8 && lane == 0) {
+      for (int kb = 0; kb < nt; ++kb) {
+        const int s = kb % C::STAGES, round = kb / C::STAGES;
+        if (round) mbar_wait(&empty[s], (round - 1) & 1);
+        unsigned char *st = smem + s * C::STAGE;
+        mbar_expect_tx(&full[s], C::STAGE);
+        tma_load_2d(st, &txlo, kb * C::BK, m0, &full[s]);
+        if (C::INT4) tma_load_2d(st + C::XT, &txhi, kb * C::BK, m0, &full[s]);
+        tma_load_2d(st + C::PLANES * C::XT, &tw, n0, kb * C::BK, &full[s]);
+      }
+    }
+    return;
+  }
+  regs_inc<C::REGS_CONSUMER>();
+
+  // consumer warp `warp` owns the 16 channels of byte chunk `warp` of the
+  // code rows: A / D row g of its slice is byte 2g, row g + 8 byte 2g + 1
+  const int g = lane >> 2, t = lane & 3;
+  const int chA = n0 + 16 * warp + 2 * g;      // D rows g, g + 8: chA, chA + 1
+  // ldmatrix row addresses: lane l gives k row l of a 32-row half of the
+  // code tile, its chunk swizzled as TMA wrote it
+  const unsigned lane_off = lane * 128 + (((warp ^ lane) & 7) << 4);
+  const int lg = 31 - __clz(a.gs);             // gs is a power of two
+  float acc[C::NACC], tot[C::NACC];            // tot: grouped `post` only
+#pragma unroll
+  for (int i = 0; i < C::NACC; ++i) acc[i] = tot[i] = 0.f;
+
+  // grouped `post`: tot += acc x the group's fp32 scale, once the wgmmas
+  // writing acc have retired; at the end of every 64-row plane step (a
+  // group's rows are one or two of them), so that no other instruction
+  // writes acc while a wgmma is in flight
+  auto flush = [&](int grp) {
+    wg_wait<0>();
+    fence_regs(acc);
+    const float *S = a.scale + (size_t)grp * a.N;
+    const float sA = chA < a.N ? __ldg(S + chA) : 0.f;
+    const float sB = chA < a.N ? __ldg(S + chA + 1) : 0.f;
+#pragma unroll
+    for (int j = 0; j < C::NACC; j += 4) {
+      tot[j] = fmaf(acc[j], sA, tot[j]);
+      tot[j + 1] = fmaf(acc[j + 1], sA, tot[j + 1]);
+      tot[j + 2] = fmaf(acc[j + 2], sB, tot[j + 2]);
+      tot[j + 3] = fmaf(acc[j + 3], sB, tot[j + 3]);
+    }
+    fence_regs(tot);                           // read acc before it is reused
+  };
+  // `tile`: the bf16 scale of (row, channel), as a factor of the codes
+  auto tscale = [&](int row, int ch) {
+    const int grp = min(row >> lg, a.G - 1);
+    return ch < a.N ? __ldg(a.scale + (size_t)grp * a.N + ch) : 0.f;
+  };
+
+  for (int kb = 0; kb < nt; ++kb) {
+    const int s = kb % C::STAGES;
+    mbar_wait(&full[s], (kb / C::STAGES) & 1);
+    const unsigned char *st = smem + s * C::STAGE;
+    const unsigned char *ct = st + C::PLANES * C::XT;
+    unsigned cr[8];                            // k16 steps 0-1, then 2-3
+    ldsm_x4_t(cr, ct + lane_off);
+    ldsm_x4_t(cr + 4, ct + lane_off + 32 * 128);
+    const uint64_t dlo = desc_sw128(st);
+    const uint64_t dhi = C::INT4 ? desc_sw128(st + C::XT) : dlo;
+#pragma unroll
+    for (int v = 0; v < 4 * C::PLANES; ++v) {
+      const int step = v & 3, plane = v >> 2;
+      unsigned A[4];
+      if (C::INT4) {
+        widen_i4(cr[2 * step], plane, A[0], A[1]);
+        widen_i4(cr[2 * step + 1], plane, A[2], A[3]);
+      } else {
+        widen_i8(cr[2 * step], A[0], A[1]);
+        widen_i8(cr[2 * step + 1], A[2], A[3]);
+      }
+      const int vr = (plane ? a.half : 0) + kb * C::BK + 16 * step;
+      if constexpr (C::MODE == WO_TILE) {
+        unsigned sp[4];
+        if ((vr >> lg) == ((vr + 15) >> lg)) {   // one group for the step
+          const float sA = tscale(vr, chA), sB = tscale(vr, chA + 1);
+          sp[0] = sp[2] = pack_bf16(sA, sA);
+          sp[1] = sp[3] = pack_bf16(sB, sB);
+        } else {
+          const int r = vr + 2 * t;            // A rows: r, r + 1, r + 8, r + 9
+          sp[0] = pack_bf16(tscale(r, chA), tscale(r + 1, chA));
+          sp[1] = pack_bf16(tscale(r, chA + 1), tscale(r + 1, chA + 1));
+          sp[2] = pack_bf16(tscale(r + 8, chA), tscale(r + 9, chA));
+          sp[3] = pack_bf16(tscale(r + 8, chA + 1), tscale(r + 9, chA + 1));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) A[i] = bf2_fma(A[i], sp[i], 0x80008000u);
+      }
+      // grouped: each plane step starts a fresh partial sum (scale-d 0)
+      const bool fresh = C::MODE == WO_GROUPED && step == 0;
+      fence_regs(A);
+      wg_fence();
+      WgmmaRS<C::BM>::mma(acc, A, (plane ? dhi : dlo) + 2 * step, !fresh);
+      wg_commit();
+      wg_wait<1>();
+      // the wgmmas of stage kb - 1 have retired: hand its slot back
+      if (v == 0 && kb > 0 && lane == 0)
+        mbar_arrive(&empty[(kb - 1) % C::STAGES]);
+      if constexpr (C::MODE == WO_GROUPED)
+        if (step == 3) flush(min(vr >> lg, a.G - 1));
+    }
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  if (chA >= a.N) return;
+  // registers 4j' + e: D column 8j' + 2t + (e & 1), i.e. x row
+  // m0 + 8j' + 2t (+1), of channel chA (e < 2) or chA + 1
+  bf16 *Y = (bf16 *)a.y;
+  auto store = [&](const float(&v)[C::NACC], float sA, float sB) {
+#pragma unroll
+    for (int j = 0; j < C::NACC; j += 4) {
+      const int m = m0 + 2 * j + 2 * t;
+      if (m < a.M)
+        *reinterpret_cast<unsigned *>(Y + (size_t)m * a.N + chA) =
+            pack_bf16(v[j] * sA, v[j + 2] * sB);
+      if (m + 1 < a.M)
+        *reinterpret_cast<unsigned *>(Y + (size_t)(m + 1) * a.N + chA) =
+            pack_bf16(v[j + 1] * sA, v[j + 3] * sB);
+    }
+  };
+  if constexpr (C::MODE == WO_CHANNEL) {
+    store(acc, __ldg(a.scale + chA), __ldg(a.scale + chA + 1));
+  } else if constexpr (C::MODE == WO_GROUPED) {
+    store(tot, 1.f, 1.f);
+  } else {
+    store(acc, 1.f, 1.f);
+  }
+}
+
+template <class C>
+cudaError_t launch_wgmma(const WoArgs *a, cudaStream_t s) {
+  const bf16 *x = (const bf16 *)a->x;
+  CUtensorMap tw, txlo, txhi;
+  // codes [R, N] in boxes of 64 rows x 128 bytes; x [M, cols] in boxes of
+  // BM rows x 64 columns, int4's high plane from column xhi
+  cudaError_t e = encode_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a->w,
+                                a->N, C::INT4 ? a->half : a->K, a->N, C::BN,
+                                C::BK);
+  if (e == cudaSuccess)
+    e = encode_map_2d(&txlo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x,
+                      C::INT4 ? a->half : a->K, a->M, 2 * (uint64_t)a->ldx,
+                      64, C::BM);
+  if (e == cudaSuccess && C::INT4)
+    e = encode_map_2d(&txhi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x + a->xhi,
+                      a->K > a->half ? a->K - a->half : 1, a->M,
+                      2 * (uint64_t)a->ldx,
+                      64, C::BM);
+  if (e != cudaSuccess) return e;
+  if (!C::INT4) txhi = txlo;
+  e = cudaFuncSetAttribute(
+      wo_wgmma<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a->N + C::BN - 1) / C::BN, (a->M + C::BM - 1) / C::BM);
+  wo_wgmma<C><<<grid, C::THREADS, C::SMEM, s>>>(*a, tw, txlo, txhi);
+  return cudaGetLastError();
+}
+
+template <bool INT4, int MODE>
+cudaError_t launch_rows(bool narrow, const WoArgs *a, cudaStream_t s) {
+  return narrow ? launch_wgmma<Wg<INT4, MODE, 128>>(a, s)
+                : launch_wgmma<Wg<INT4, MODE, 256>>(a, s);
+}
+
+template <bool INT4>
+cudaError_t launch_prefill(const WoArgs *a, cudaStream_t s) {
+  if (a->gs & (a->gs - 1)) return cudaErrorInvalidValue;
+  if (!a->tile_dq && a->G > 1) {
+    // grouped `post`: a group covers whole 64-row plane steps
+    if (a->gs < 64 || (INT4 && a->half % a->gs)) return cudaErrorInvalidValue;
+    return launch_wgmma<Wg<INT4, WO_GROUPED, 128>>(a, s);
+  }
+  // 256 x rows a block widen each code half as often as 128, but a small
+  // grid leaves SMs idle: take 128 rows where they need fewer than 5/3 the
+  // waves of 256 (a 128-row tile takes ~0.55-0.65 the time of a 256-row
+  // one, measured at llama_7b widths)
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long cols = (a->N + 127) / 128;
+  auto waves = [&](int bm) {
+    return ((a->M + bm - 1) / bm * cols + sms - 1) / sms;
+  };
+  const bool narrow = 3 * waves(128) < 5 * waves(256);
+  if (a->tile_dq) return launch_rows<INT4, WO_TILE>(narrow, a, s);
+  return launch_rows<INT4, WO_CHANNEL>(narrow, a, s);
 }
 
 }  // namespace wo
@@ -440,8 +708,8 @@ cudaError_t launch_weight_only_matmul(const WoArgs *a, cudaStream_t s) {
     return count_launch(CNT_WO_INT8_SMALL_M, launch_mma<SmallM<false>>(a, s));
   }
   if (a->int4)
-    return count_launch(CNT_WO_INT4_TILED, launch_mma<Tiled<true>>(a, s));
-  return count_launch(CNT_WO_INT8_TILED, launch_mma<Tiled<false>>(a, s));
+    return count_launch(CNT_WO_INT4_TILED, launch_prefill<true>(a, s));
+  return count_launch(CNT_WO_INT8_TILED, launch_prefill<false>(a, s));
 }
 
 extern "C" int pt_weight_only_matmul(const WoArgs *a, void *stream) {

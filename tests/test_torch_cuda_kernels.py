@@ -504,7 +504,13 @@ def test_decode_attention_kernel_matches_plain(dt, case):
 WO_CASES = [("int8", 8, 256, 64, -1), ("int8", 40, 300, 48, 128),
             ("int8", 1, 256, 32, 64), ("int4", 8, 512, 64, -1),
             ("int4", 100, 512, 144, 128), ("int4", 3, 255, 32, 64),
-            ("int4", 40, 301, 32, 128)]
+            ("int4", 40, 301, 32, 128),
+            # the prefill kernel's edges: its smallest M; M and N off the
+            # 256-row and 128-channel tiles; a llama down projection in int4
+            # with groups of 128 inside each nibble plane (half 5504, the
+            # post rule); int8 groups of 64 (the tile rule)
+            ("int8", 17, 256, 64, -1), ("int8", 257, 300, 400, -1),
+            ("int4", 129, 11008, 4096, 128), ("int8", 200, 512, 144, 64)]
 WO_IDS = [f"{w}-M{m}-K{k}-N{n}-g{g}" for w, m, k, n, g in WO_CASES]
 
 

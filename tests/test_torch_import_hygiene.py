@@ -1,7 +1,8 @@
-"""The PyTorch port imports no JAX: no module of ``paddle_tpu_torch`` and
-not ``chip_smoke.py`` may import ``jax``, ``jaxlib`` or the JAX package
-``paddle_tpu`` — checked on the source (every import statement) and by
-importing the whole port in a process where ``jax`` cannot load.  The
+"""The PyTorch port imports no JAX: no module of ``paddle_tpu_torch``, not
+``chip_smoke.py`` and not the port's A/B tools (``PORT_TOOLS``) may import
+``jax``, ``jaxlib`` or the JAX package ``paddle_tpu`` — checked on the
+source (every import statement) and by importing the whole port in a
+process where ``jax`` cannot load.  The
 port's entry points default to CUDA and refuse to run without it unless
 the caller asks for the CPU."""
 
@@ -16,10 +17,12 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+PORT_TOOLS = ("flash_fwd_ab.py", "paired_steps.py", "wo_ab.py")
 
 
 def _sources():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + [ROOT / "tools" / n for n in PORT_TOOLS])
     assert len(files) > 10
     return files
 
