@@ -41,9 +41,12 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             Llama head's shape (T 8192, H 4096, V 32000) in bf16 and fp32,
             at the GPT head's (T 8192, H 768, V 32768, fp32 x with a bf16
             head), and on small cases: ignore_index with T off the row
-            tiles, label smoothing with an uneven last slab, the [H, V]
-            layout through the op; kernel, plain, bound and dense-chain
-            (``x @ w.T`` then ``F.cross_entropy``) times;
+            tiles, label smoothing with an uneven last slab, bf16 at odd T
+            1001, V 4097 and H 520 (off every edge of the bf16 kernels'
+            tiles), the [H, V] layout through the op; a second forward and
+            dz call bit-identical to the first; kernel, plain, bound and
+            dense-chain (``x @ w.T`` then ``F.cross_entropy``: forward,
+            backward alone, forward + backward) times;
 7. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
             train step (remat, the fused linear-CE head of the config
             default): one warm step and 5 timed steps on one seeded batch
@@ -1082,6 +1085,8 @@ LCE_CASES = [
      -100, 0.0),
     ("smoothing 0.1 last slab 903", 515, 768, 4999, 1024, "float32",
      "bfloat16", None, 0.1),
+    ("bf16 odd T 1001 V 4097 H 520", 1001, 520, 4097, 1024, "bfloat16",
+     "bfloat16", -100, 0.1),
 ]
 LCE_TIMED = {"llama head bf16": "main", "gpt head fp32 x bf16 w": "gpt"}
 LCE_NAMES = ("linear_ce_fwd", "linear_ce_dz", "linear_ce_dx",
@@ -1156,7 +1161,9 @@ def check_lce(name, got, plain, truth, bf16, ratios):
 def lce_times(case, x, w, lab, lse, g):
     """Device ms per call of each kernel (its launches over one forward or
     backward call), the plain versions' and the dense chain's, and the
-    bounds."""
+    bounds.  The dense chain's yardstick for the backward kernels is its
+    backward alone (``torch.autograd.grad`` of one saved forward); its
+    forward + backward rides along as ``library_fwd_bwd_ms``."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
@@ -1171,7 +1178,9 @@ def lce_times(case, x, w, lab, lse, g):
     _, call = time_ms(lambda: lc.linear_ce_bwd_cuda(
         x, w, lab, lse, g, chunk=chunk, **kw), 3, by)
     for name in LCE_NAMES[1:]:
-        hit = [(mean, n) for k, (mean, n) in by.items() if name + "<" in k]
+        # bf16 x and w: linear_ce_dz_wg(...); an fp32 operand: name<...>
+        hit = [(mean, n) for k, (mean, n) in by.items()
+               if name + "<" in k or name + "_wg(" in k]
         out[name] = dict(ms=sum(mean * n for mean, n in hit) if hit else None,
                          launches_per_call=sum(n for _, n in hit),
                          call_ms=call)
@@ -1187,6 +1196,10 @@ def lce_times(case, x, w, lab, lse, g):
     xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
     lib_fb = time_ms(lambda: torch.autograd.grad(
         (dense(xr, wr) * g).sum(), (xr, wr)), 3)[0]
+    saved = (dense(xr, wr) * g).sum()
+    lib_b = time_ms(lambda: torch.autograd.grad(saved, (xr, wr),
+                                                retain_graph=True), 3)[0]
+    del saved
     bo = lce_bytes_ops(T, H, V, x.element_size(), w.element_size())
     for name in LCE_NAMES:
         fwd = name == "linear_ce_fwd"
@@ -1196,7 +1209,8 @@ def lce_times(case, x, w, lab, lse, g):
             plain_ms=(plain_fwd if fwd else plain_bwd)[0],
             plain_call_ms=(plain_fwd if fwd else plain_bwd)[1],
             bound_ms=bms, bound_by=bby,
-            library_ms=lib_fwd if fwd else lib_fb)
+            library_ms=lib_fwd if fwd else lib_b,
+            library_fwd_bwd_ms=None if fwd else lib_fb)
     return out
 
 
@@ -1219,6 +1233,13 @@ def phase_linear_ce(results, dev="cuda"):
         c0 = (V - 1) // chunk * chunk          # the last, narrowest slab
         dz_w, dz_x = lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, V - c0,
                                           **kw)
+        again = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw) \
+            + lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, V - c0, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (nll, lse, dz_w, dz_x), again)):
+            raise SmokeFailure(f"lce {label}: a second forward or dz call "
+                               f"differs from the first")
+        del again
         dx, dw = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
         torch.cuda.synchronize()
         nll_p, lse_p = fce.lce_fwd_ref(x, w, lab, chunk=chunk,
@@ -1300,18 +1321,21 @@ def phase_linear_ce(results, dev="cuda"):
             "lce_bwd_ref (dz, dx and dw together)",
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
+            library_fwd_bwd_ms=r["library_fwd_bwd_ms"],
             library_what="x @ w.T then F.cross_entropy, forward (two calls)"
-            if fwd else "x @ w.T then F.cross_entropy, forward + backward "
-            "(two calls and their autograd)",
+            if fwd else "the backward alone of x @ w.T then "
+            "F.cross_entropy (torch.autograd.grad of one saved forward; "
+            "library_fwd_bwd_ms: forward + backward)",
             bf16_vs_fp32_ratio=max(ratios[name], default=None),
             gpt={k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}))
+                                   "library_ms", "library_fwd_bwd_ms")}))
         info(f"{name} {label}: device {r['ms']} ms per call, bound "
              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-             f"{r['plain_ms']} ms, dense chain {r['library_ms']} ms; "
-             f"{gpt_label}: device {q['ms']} ms, bound {q['bound_ms']:.4f} "
-             f"ms ({q['bound_by']}), plain {q['plain_ms']} ms, dense chain "
-             f"{q['library_ms']} ms")
+             f"{r['plain_ms']} ms, dense chain {r['library_ms']} ms "
+             f"(fwd + bwd {r['library_fwd_bwd_ms']}); {gpt_label}: device "
+             f"{q['ms']} ms, bound {q['bound_ms']:.4f} ms ({q['bound_by']}), "
+             f"plain {q['plain_ms']} ms, dense chain {q['library_ms']} ms "
+             f"(fwd + bwd {q['library_fwd_bwd_ms']})")
 
 
 def tree_leaves(tree):

@@ -55,8 +55,9 @@ struct FlashArgs {
 
 // One launch of the linear-CE head (linear_ce.cu).  x [T, H] in x_dtype,
 // w [V, H] in w_dtype, both contiguous; labels int32 [T]; nll, lse, g fp32
-// [T].  The backward kernels work on the vocab slab [c0, c0 + width) with
-// dz scratch [T, ldz] (ldz = width rounded up to 8).  Mirrored field for
+// [T]; part and tickets as pt_linear_ce_fwd_scratch sizes them.  The
+// backward kernels work on the vocab slab [c0, c0 + width) with dz
+// scratch [T, ldz] (ldz = width rounded up to 8).  Mirrored field for
 // field by the ctypes Structure in paddle_tpu_torch/kernels/build.py.
 struct LceArgs {
   int x_dtype, w_dtype;       // PT_F32 | PT_BF16
@@ -73,6 +74,10 @@ struct LceArgs {
   float *dx_acc;              // [T, H] fp32 accumulator over the slabs
   void *dx;                   // [T, H] x's dtype (dx_acc itself for fp32 x)
   void *dw;                   // [V, H] w's dtype
+  // bf16 linear_ce_fwd: the row partials (m, s, zl, sz) of each vocab
+  // tile and one ticket a row block, zero between calls
+  float *part;
+  int *tickets;
 };
 
 // One weight-only matmul launch (quant_linear.cu): y [M, N] = x [M, K] @

@@ -20,7 +20,36 @@
 // bytes.  With fp32 x (the GPT step: its final LayerNorm has fp32 gains)
 // z and dw run on fp32 operands at 67 TFLOP/s.
 //
-// Design, in this first version (wgmma and TMA are later work):
+// bf16 x and w, linear_ce_fwd and linear_ce_dz (linear_ce_fwd_wg /
+// linear_ce_dz_wg): one persistent warp-specialized GEMM for sm_90a, two
+// epilogues.  z = x w^T has both operands K-major, the layout TMA and
+// wgmma take with no transpose.
+//   * Tiles of 128 x rows by 256 w rows, K in 64-column (128-byte) steps;
+//     a producer warpgroup keeps a 4-stage ring of TMA boxes (16 KB of x,
+//     32 KB of w, 128-byte swizzle) in flight on mbarriers; two consumer
+//     warpgroups each run wgmma m64n256k16 with both operands from shared
+//     memory into a 64 x 256 fp32 accumulator (128 registers a thread;
+//     setmaxnreg moves registers from the producer to them).  Rows past T,
+//     w rows past V (or the slab) and columns past H are TMA's zero fill,
+//     so every H % 8 == 0 runs here.
+//   * Persistent: one block an SM walks the tiles, 32 row blocks at a
+//     time across the vocab, so the blocks in flight share their x and w
+//     tiles in L2 (w streams from HBM once a group).  The L2 stream, 3 MB
+//     a tile against 268 MFLOP, is about the L2's rate at 989 TFLOP/s: the
+//     copies alone take about the forward's time (tools/lce_ab.py, which
+//     also times a 2-block cluster multicasting each w box, 2 MB a tile:
+//     slower on the H100).
+//   * linear_ce_fwd's epilogue works on the accumulator in registers: per
+//     row of the tile its max (a quad shuffle over the 4 threads of a
+//     row), sum of exp(z - max), label logit and (smoothing) sum of z,
+//     written as one fp32 partial a row and vocab tile.  The block that
+//     takes a row block's last ticket (__threadfence, atomicAdd; it resets
+//     the ticket) folds that row block's partials in vocab-tile order, so
+//     nll and lse do not depend on the schedule; one launch a call.
+//   * linear_ce_dz's epilogue forms dz = g (exp(z - lse) - y) in registers
+//     and stores bf16 pairs straight from the accumulator layout.
+// Every instance with an fp32 operand (the GPT head's fp32 x), and
+// linear_ce_dx / linear_ce_dw, keep the first version's design:
 //   * The TPU forward walks the vocab chunks of a row block in grid order
 //     and carries the row statistics in VMEM scratch.  Here one block of
 //     8 warps owns 64 rows and walks the vocab in 128-column tiles itself;
@@ -36,7 +65,7 @@
 //     writes dx); linear_ce_dw writes dw_slab = dz^T @ x.  z is recomputed
 //     once per backward, not once for dx and once for dw.  Rows past T and
 //     vocab rows past V load as zero, so they add exact zeros.
-//   * One tiled product (Mma below) serves all four: 8 warps, 32-deep K
+//   * One tiled product (Mma below) serves them: 8 warps, 32-deep K
 //     slabs staged in shared memory, the next slab prefetched into
 //     registers; bf16 x bf16 on tensor cores (nvcuda::wmma 16x16x16, fp32
 //     accumulate), any fp32 operand on FMA with bf16 operands converted to
@@ -50,6 +79,8 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -61,6 +92,8 @@ constexpr int THREADS = 256;               // 8 warps
 constexpr int BK = 32;                     // K slab
 constexpr int FWD_BM = 64, FWD_BN = 128;   // forward: rows, vocab tile
 constexpr int BW_BM = 128, BW_BN = 128;    // backward product tiles
+
+__host__ __device__ inline int cdiv(int n, int d) { return (n + d - 1) / d; }
 
 template <typename T>
 constexpr bool is_bf16() {
@@ -393,6 +426,333 @@ __global__ void __launch_bounds__(THREADS) linear_ce_dw(LceArgs a) {
   }
 }
 
+// ============================================== bf16 x bf16: wgmma + TMA
+// linear_ce_fwd and linear_ce_dz on bf16 x and w: one persistent
+// warp-specialized GEMM z = x w^T (both operands K-major, as TMA and wgmma
+// take them), with the row statistics or dz in the epilogue.
+enum { EPI_FWD = 0, EPI_DZ = 1 };
+
+struct Wg {
+  static constexpr int BM = 128, BN = 256, BK = 64;  // x rows, w rows, K
+  static constexpr int XT = BM * BK * 2;     // x box: 16 KB
+  static constexpr int WT = BN * BK * 2;     // w box: 32 KB
+  static constexpr int STAGE = XT + WT;
+  static constexpr int STAGES = 4;
+  static constexpr int THREADS = 384;        // 2 consumer warpgroups + producer
+  static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
+  static constexpr int GROUP = 32;           // row blocks a group of the order
+  static constexpr int SMEM =
+      1024 + STAGES * STAGE + 2 * STAGES * 8 + BM * 16 + 16;
+  static_assert(SMEM <= 232448, "one block an SM");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// the 256 consumer threads (named barrier 1; the producer never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// tile u of the walk -> its row block mb and vocab tile nb: groups of G
+// row blocks sweep the vocab together, so the blocks in flight share
+// their x and w tiles in L2
+__device__ __forceinline__ void tile_of(int u, int MB, int NB, int G, int &mb,
+                                        int &nb) {
+  const int per = G * NB, grp = u / per, r = u - grp * per;
+  const int first = grp * G, gs = min(MB - first, G);
+  mb = first + r % gs;
+  nb = r / gs;
+}
+
+// The last block to finish row block m0's vocab tiles folds their
+// partials (m, s, zl, sz) in vocab-tile order: thread h * 128 + r folds
+// half h of row r's tiles, half 1 hands its fold to half 0 through `comb`
+__device__ __forceinline__ void fold(float4 &acc, float4 p) {
+  const float m = fmaxf(acc.x, p.x);
+  acc.y = acc.y * expf(acc.x - m) + p.y * expf(p.x - m);
+  acc.x = m;
+  acc.z += p.z;
+  acc.w += p.w;
+}
+__device__ void merge_rows(const LceArgs &a, const float4 *part, float4 *comb,
+                           int m0, int NB, int ctid) {
+  const int r = ctid & 127, h = ctid >> 7, t = m0 + r;
+  const int half = (NB + 1) / 2, b0 = h * half, b1 = min(NB, b0 + half);
+  float4 f = make_float4(NEG_INF, 0.f, 0.f, 0.f);
+  if (t < a.T) {
+#pragma unroll 4
+    for (int b = b0; b < b1; ++b) fold(f, __ldcg(part + (size_t)b * a.T + t));
+  }
+  if (h) comb[r] = f;
+  consumer_sync();
+  if (h || t >= a.T) return;
+  fold(f, comb[r]);
+  const float lse = f.x + logf(f.y);
+  const int lab = a.labels[t];
+  float nll = a.eps > 0.f
+                  ? lse - (1.f - a.eps) * f.z - (a.eps / a.V) * f.w
+                  : lse - f.z;
+  if (a.has_ignore && lab == a.ignore_index) nll = 0.f;
+  a.nll[t] = nll;
+  a.lse[t] = lse;
+}
+
+constexpr float L2E = 1.4426950408889634f;
+
+// Consumer thread ctid (warp w of 8, lane 4g + tq; warpgroup w >> 2 owns
+// rows 64 (w >> 2) of the block's 128) holds D rows r0 = m0 + 16 w + g
+// and r0 + 8 (h = 0, 1), acc[4j + 2h + e] at tile column 8j + 2tq + e
+// (wgmma.cuh's D layout).
+__device__ __forceinline__ void epi_fwd(const LceArgs &a, float (&acc)[128],
+                                        int m0, int n0, int nb, int NB, int mb,
+                                        int ctid, float4 *comb, int *flag) {
+  const int lane = ctid & 31, warp = ctid >> 5, tq = lane & 3;
+  const int r0 = m0 + 16 * warp + (lane >> 2);
+  const bool edge = n0 + Wg::BN > a.V;
+  const int nv = a.V - n0 - 2 * tq;          // column 8j + e in V iff < nv
+  float4 *part = reinterpret_cast<float4 *>(a.part);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = r0 + 8 * h;
+    const int c = (t < a.T ? a.labels[t] : -1) - n0;  // the label's column
+    float zl = 0.f, sz = 0.f;
+    if (c >= 0 && c < Wg::BN && c < a.V - n0 && ((c >> 1) & 3) == tq) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if ((c >> 3) == j) zl = (c & 1) ? acc[4 * j + 2 * h + 1] : acc[4 * j + 2 * h];
+    }
+    if (a.eps > 0.f) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (!edge || 8 * j + e < nv) sz += acc[4 * j + 2 * h + e];
+    }
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e >= nv) acc[4 * j + 2 * h + e] = NEG_INF;
+    }
+    float m = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      m = fmaxf(m, fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float mo = -m * L2E;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      s += ex2(fmaf(acc[4 * j + 2 * h], L2E, mo)) +
+           ex2(fmaf(acc[4 * j + 2 * h + 1], L2E, mo));
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      zl += __shfl_xor_sync(0xffffffffu, zl, o);
+      sz += __shfl_xor_sync(0xffffffffu, sz, o);
+    }
+    if (tq == 0 && t < a.T)
+      part[(size_t)nb * a.T + t] = make_float4(m, s, zl, sz);
+  }
+  // the ticket: the block that takes the row block's last one folds it.
+  // The barrier orders every thread's partials before thread 0's fence
+  // and ticket (release); thread 0's fence after the last ticket orders
+  // the other blocks' partials before the barrier and the folds (acquire)
+  consumer_sync();
+  if (ctid == 0) {
+    __threadfence();
+    const int last = atomicAdd(a.tickets + mb, 1) == NB - 1;
+    if (last) {
+      a.tickets[mb] = 0;                     // ready for the next call
+      __threadfence();
+    }
+    *flag = last;
+  }
+  consumer_sync();
+  if (*flag) merge_rows(a, part, comb, m0, NB, ctid);
+}
+
+// v[k] of quad lane q becomes lane k's v[q] (a 4 x 4 transpose over the
+// lanes tq of a quad): two butterflies, each swapping the words whose
+// index bit differs from the lane's
+__device__ __forceinline__ void quad_transpose(unsigned (&v)[4], int tq) {
+#pragma unroll
+  for (int b = 1; b <= 2; b <<= 1) {
+    const bool hi = tq & b;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      // the slot of pair m whose bit b is not the lane's
+      const int k0 = b == 1 ? 2 * m : m, k1 = k0 + b;
+      const unsigned send = hi ? v[k0] : v[k1];
+      const unsigned got = __shfl_xor_sync(0xffffffffu, send, b);
+      if (hi)
+        v[k0] = got;
+      else
+        v[k1] = got;
+    }
+  }
+}
+
+__device__ __forceinline__ void epi_dz(const LceArgs &a, float (&acc)[128],
+                                       int m0, int n0, int ctid) {
+  const int lane = ctid & 31, warp = ctid >> 5, tq = lane & 3;
+  const int r0 = m0 + 16 * warp + (lane >> 2);
+  const bool edge = n0 + Wg::BN > a.width;
+  const int nw = a.width - n0 - 2 * tq;      // column 8j + e in the slab iff < nw
+  const float u = a.eps / a.V;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = r0 + 8 * h;
+    const bool ok = t < a.T;
+    const float lz = ok ? a.lse[t] * L2E : 0.f, gg = ok ? a.g[t] : 0.f;
+    const int c = (ok ? a.labels[t] : -1) - a.c0 - n0;
+    const float gu = gg * u;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float &z = acc[4 * j + 2 * h + e];
+        z = fmaf(gg, ex2(fmaf(z, L2E, -lz)), -gu);   // g (p - eps / V)
+      }
+    if (c >= 0 && c < Wg::BN && c < a.width - n0 && ((c >> 1) & 3) == tq) {
+      const float gy = gg * (1.f - a.eps);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if ((c >> 3) == j) {
+          if (c & 1)
+            acc[4 * j + 2 * h + 1] -= gy;
+          else
+            acc[4 * j + 2 * h] -= gy;
+        }
+    }
+    if (edge) {                              // padding columns stay zero
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e >= nw) acc[4 * j + 2 * h + e] = 0.f;
+    }
+    // the quad's 4 threads hold columns 8j .. 8j + 7 of the row as one
+    // bf16 pair each: transpose each group of 4 j among them, so thread tq
+    // stores the 16 bytes of j = 4i + tq (a warp: 8 rows x 64 bytes)
+    uint4 *pw = reinterpret_cast<uint4 *>((bf16 *)a.dz_w + (size_t)t * a.ldz + n0);
+    uint4 *px = reinterpret_cast<uint4 *>((bf16 *)a.dz_x + (size_t)t * a.ldz + n0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      unsigned v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        v[k] = pack_bf16(acc[4 * (4 * i + k) + 2 * h],
+                         acc[4 * (4 * i + k) + 2 * h + 1]);
+      quad_transpose(v, tq);
+      if (ok && (!edge || 8 * (4 * i + tq) < a.ldz - n0)) {
+        const uint4 q = make_uint4(v[0], v[1], v[2], v[3]);
+        pw[4 * i + tq] = q;
+        if (a.dz_x != a.dz_w) px[4 * i + tq] = q;
+      }
+    }
+  }
+}
+
+template <int EPI>
+__device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *tx,
+                                        const CUtensorMap *tw) {
+  using C = Wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char *smem = reinterpret_cast<unsigned char *>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + C::STAGES * C::STAGE);
+  uint64_t *empty = full + C::STAGES;
+  float4 *comb = reinterpret_cast<float4 *>(empty + C::STAGES);
+  int *flag = reinterpret_cast<int *>(comb + C::BM);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cols = EPI == EPI_FWD ? a.V : a.ldz;
+  const int MB = cdiv(a.T, C::BM), NB = cdiv(cols, C::BN);
+  const int tiles = MB * NB, nk = cdiv(a.H, C::BK);
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);               // each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                           // producer warpgroup
+    regs_dec<C::REGS_PRODUCER>();
+    if (warp == 8 && lane == 0) {
+      int it = 0;
+      for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+        int mb, nb;
+        tile_of(u, MB, NB, C::GROUP, mb, nb);
+        const int m0 = mb * C::BM, n0 = nb * C::BN;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % C::STAGES, round = it / C::STAGES;
+          if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
+          unsigned char *st = smem + s * C::STAGE;
+          mbar_expect_tx(&full[s], C::STAGE);
+          tma_load_2d(st, tx, kb * C::BK, m0, &full[s]);
+          tma_load_2d(st + C::XT, tw, kb * C::BK, n0, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<C::REGS_CONSUMER>();
+
+  const int wg = warp >> 2;
+  float acc[128];
+  auto release = [&](int s) {
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  int it = 0;
+  for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+    int mb, nb;
+    tile_of(u, MB, NB, C::GROUP, mb, nb);
+    const int m0 = mb * C::BM, n0 = nb * C::BN;
+    for (int kb = 0; kb < nk; ++kb, ++it) {
+      const int s = it % C::STAGES;
+      mbar_wait_or_trap(&full[s], (it / C::STAGES) & 1);
+      const unsigned char *st = smem + s * C::STAGE;
+      const uint64_t da = desc_sw128(st + wg * (C::XT / 2));
+      const uint64_t db = desc_sw128(st + C::XT);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaSS256::mma(acc, da + 2 * kk, db + 2 * kk, kb > 0 || kk > 0);
+      wg_commit();
+      wg_wait<1>();
+      // the wgmmas of the previous stage have retired: hand its slot back
+      if (kb > 0) release((it - 1) % C::STAGES);
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    release((it - 1) % C::STAGES);
+    if constexpr (EPI == EPI_FWD)
+      epi_fwd(a, acc, m0, n0, nb, NB, mb, tid, comb, flag);
+    else
+      epi_dz(a, acc, m0, n0, tid);
+  }
+}
+
+__global__ void __launch_bounds__(Wg::THREADS, 1)
+    linear_ce_fwd_wg(const LceArgs a, const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw) {
+  wg_body<EPI_FWD>(a, &tx, &tw);
+}
+
+__global__ void __launch_bounds__(Wg::THREADS, 1)
+    linear_ce_dz_wg(const LceArgs a, const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw) {
+  wg_body<EPI_DZ>(a, &tx, &tw);
+}
+
 // -------------------------------------------------------------- launchers
 typedef void (*LceKernel)(LceArgs);
 
@@ -404,8 +764,6 @@ static cudaError_t start(LceKernel fn, dim3 grid, int bytes, const LceArgs *a,
   fn<<<grid, THREADS, bytes, s>>>(*a);
   return cudaGetLastError();
 }
-
-static int cdiv(int n, int d) { return (n + d - 1) / d; }
 
 template <typename TX, typename TW>
 cudaError_t fwd(const LceArgs *a, cudaStream_t s) {
@@ -434,6 +792,55 @@ cudaError_t dw(const LceArgs *a, cudaStream_t s) {
                Mma<TX, TX, false, true, BW_BM, BW_BN>::SMEM_BYTES, a, s);
 }
 
+// grid, block and shared memory from the instance: one block an SM,
+// walking the tiles; the tensor maps per call
+template <int EPI>
+cudaError_t launch_wg(const LceArgs *a, cudaStream_t s) {
+  using C = Wg;
+  const bool is_fwd = EPI == EPI_FWD;
+  const bf16 *w = (const bf16 *)a->w + (is_fwd ? 0 : (size_t)a->c0 * a->H);
+  CUtensorMap tx, tw;
+  // x [T, H] in boxes of 128 rows x 64 columns, w [V or width, H] in boxes
+  // of 256 rows; past the tensor the boxes fill zeros
+  cudaError_t e = encode_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a->x,
+                                a->H, a->T, 2 * (uint64_t)a->H, C::BK, C::BM);
+  if (e == cudaSuccess)
+    e = encode_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, a->H,
+                      is_fwd ? a->V : a->width, 2 * (uint64_t)a->H, C::BK,
+                      C::BN);
+  if (e != cudaSuccess) return e;
+  void (*kern)(const LceArgs, const CUtensorMap, const CUtensorMap) =
+      is_fwd ? linear_ce_fwd_wg : linear_ce_dz_wg;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::SMEM);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)cdiv(a->T, C::BM) *
+                          cdiv(is_fwd ? a->V : a->ldz, C::BN);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  if constexpr (EPI == EPI_FWD)
+    linear_ce_fwd_wg<<<grid, C::THREADS, C::SMEM, s>>>(*a, tx, tw);
+  else
+    linear_ce_dz_wg<<<grid, C::THREADS, C::SMEM, s>>>(*a, tx, tw);
+  return cudaGetLastError();
+}
+
+static bool both_bf16(const LceArgs *a) {
+  return a->x_dtype == PT_BF16 && a->w_dtype == PT_BF16;
+}
+
+// the scratch linear_ce_fwd needs: fp32 words of `part` (4 a row and vocab
+// tile) and int32 tickets (one a row block), both 0 where the instance
+// takes none
+static void fwd_scratch(const LceArgs *a, long long *part, long long *tickets) {
+  const bool wg = both_bf16(a) && a->T > 0 && a->V > 0;
+  *part = wg ? 4LL * cdiv(a->V, Wg::BN) * a->T : 0;
+  *tickets = wg ? cdiv(a->T, Wg::BM) : 0;
+}
+
 // shapes every kernel needs; a backward slab also needs 0 < width,
 // c0 + width <= V and width <= ldz with ldz % 8 == 0
 static bool bad_shape(const LceArgs *a, bool slab) {
@@ -455,17 +862,28 @@ static bool bad_shape(const LceArgs *a, bool slab) {
                                   : FN<pt::bf16, float>(a, s))        \
        : ((a)->w_dtype == PT_BF16 ? FN<float, pt::bf16>(a, s)         \
                                   : FN<float, float>(a, s)))
+// the instance of FN with an fp32 operand (bf16 x bf16 takes launch_wg)
+#define PT_LCE_PICK_F32(FN, a, s)                                     \
+  ((a)->x_dtype == PT_BF16                                            \
+       ? FN<pt::bf16, float>(a, s)                                    \
+       : ((a)->w_dtype == PT_BF16 ? FN<float, pt::bf16>(a, s)         \
+                                  : FN<float, float>(a, s)))
 
 cudaError_t launch_linear_ce_fwd(const LceArgs *a, cudaStream_t s) {
   using namespace pt::lce;
   if (bad_shape(a, false)) return cudaErrorInvalidValue;
-  return count_launch(CNT_LINEAR_CE_FWD, PT_LCE_PICK(fwd, a, s));
+  if (both_bf16(a) && (!a->part || !a->tickets)) return cudaErrorInvalidValue;
+  return count_launch(CNT_LINEAR_CE_FWD,
+                      both_bf16(a) ? launch_wg<EPI_FWD>(a, s)
+                                   : PT_LCE_PICK_F32(fwd, a, s));
 }
 
 cudaError_t launch_linear_ce_dz(const LceArgs *a, cudaStream_t s) {
   using namespace pt::lce;
   if (bad_shape(a, true)) return cudaErrorInvalidValue;
-  return count_launch(CNT_LINEAR_CE_DZ, PT_LCE_PICK(dz, a, s));
+  return count_launch(CNT_LINEAR_CE_DZ,
+                      both_bf16(a) ? launch_wg<EPI_DZ>(a, s)
+                                   : PT_LCE_PICK_F32(dz, a, s));
 }
 
 cudaError_t launch_linear_ce_dx(const LceArgs *a, cudaStream_t s) {
@@ -484,6 +902,11 @@ extern "C" {
 
 int pt_linear_ce_fwd(const LceArgs *a, void *stream) {
   return launch_linear_ce_fwd(a, (cudaStream_t)stream);
+}
+
+int pt_linear_ce_fwd_scratch(const LceArgs *a, long long *sizes) {
+  pt::lce::fwd_scratch(a, sizes, sizes + 1);
+  return 0;
 }
 
 int pt_linear_ce_dz(const LceArgs *a, void *stream) {

@@ -9,7 +9,11 @@ anything the kernels do not take (a hidden size that is not a multiple of
 made contiguous (a no-op except for the transposed ``[H, V]`` Llama head)
 and labels int32.  :func:`linear_ce_bwd_cuda` sweeps the vocab in slabs of
 ``chunk`` rows of ``w``, launching ``linear_ce_dz``, ``linear_ce_dx`` and
-``linear_ce_dw`` once per slab.
+``linear_ce_dw`` once per slab.  With bf16 ``x`` and ``w`` the forward
+writes per-tile row partials to a scratch it is given and folds them in a
+fixed order, so two calls on the same inputs agree bit for bit; the kernel
+library says how much scratch a call needs (``pt_linear_ce_fwd_scratch``,
+from the kernel's own tile shape and routing).
 """
 
 from __future__ import annotations
@@ -24,8 +28,22 @@ from . import layer
 __all__ = ["linear_ce_fwd_cuda", "linear_ce_dz_cuda", "linear_ce_bwd_cuda"]
 
 
+_tickets = {}
+
+
 def _round8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def _row_tickets(dev, n):
+    """int32 zeros ``[>= n]`` on ``dev`` for the current stream: the bf16
+    forward's per-row-block tickets, which the kernel sets back to zero, so
+    calls on one stream share them."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[key] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return buf
 
 
 def _args(x2, w, labels, label_smoothing=0.0, ignore_index=None):
@@ -69,9 +87,19 @@ def linear_ce_fwd_cuda(x2, w, labels, *, ignore_index=None,
     """``(nll [T], lse [T])`` fp32 from ``linear_ce_fwd``; x ``[T, H]``,
     w ``[V, H]``."""
     a, keep = _args(x2, w, labels, label_smoothing, ignore_index)
-    nll = torch.empty(a.T, dtype=torch.float32, device=x2.device)
-    lse = torch.empty(a.T, dtype=torch.float32, device=x2.device)
+    dev = x2.device
+    nll = torch.empty(a.T, dtype=torch.float32, device=dev)
+    lse = torch.empty(a.T, dtype=torch.float32, device=dev)
     a.nll, a.lse = nll.data_ptr(), lse.data_ptr()
+    sizes = (ctypes.c_longlong * 2)()
+    build.check(build.library().pt_linear_ce_fwd_scratch(ctypes.byref(a),
+                                                         sizes),
+                "pt_linear_ce_fwd_scratch")
+    if sizes[0]:
+        part = torch.empty(sizes[0], dtype=torch.float32, device=dev)
+        tickets = _row_tickets(dev, sizes[1])
+        a.part, a.tickets = part.data_ptr(), tickets.data_ptr()
+        keep += [part, tickets]
     _launch("pt_linear_ce_fwd", a)
     del keep
     return nll, lse

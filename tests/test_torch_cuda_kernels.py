@@ -370,9 +370,15 @@ def test_flash_attention_op_launches_kernels_and_refuses_head_dim():
 # ---------------------------------------------------------- linear-CE head
 # (T, H, V, chunk, ignore_index, label_smoothing): T off the 64 / 128 row
 # tiles, V off the 128-column tiles, an uneven last slab (300 = 2 x 128 +
-# 44, its dz scratch padded to 48 columns)
-LCE_CASES = [(100, 64, 300, 128, -100, 0.0), (64, 32, 97, 40, None, 0.1)]
-LCE_IDS = ["ignore-index", "smoothing"]
+# 44, its dz scratch padded to 48 columns); then the edges of the bf16
+# kernels' 128 x 256 tiles and 64-column K steps: T 300, V 513 (a last
+# vocab tile and slab one column wide), H 72 (a second, partial K step);
+# V 100 < 256 with H 8 (one K step, mostly zero fill).  Row 1's label is
+# V - 1, in the last, partial vocab tile.
+LCE_CASES = [(100, 64, 300, 128, -100, 0.0), (64, 32, 97, 40, None, 0.1),
+             (300, 72, 513, 256, -100, 0.0), (200, 8, 100, 64, None, 0.1)]
+LCE_IDS = ["ignore-index", "smoothing", "tile-edges-ignore-index",
+           "v-below-tile-h8-smoothing"]
 LCE_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
               (torch.float32, torch.bfloat16)]
 LCE_DTYPE_IDS = ["fp32", "bf16", "fp32x-bf16w"]
@@ -385,7 +391,8 @@ def test_linear_ce_kernels_match_plain(dts, case):
     """nll / lse (fp32 outputs: 1e-4 whatever the inputs' dtype, the
     products differ only in summation order), the last slab's dz, and
     dx / dw (1e-4 in fp32, 2e-2 with a bf16 operand) against the plain
-    versions; one fwd launch and one dz, dx and dw launch per slab."""
+    versions; one fwd launch and one dz, dx and dw launch per slab; a
+    second forward and dz call bit-identical to the first."""
     _need_card()
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
     from paddle_tpu_torch.ops.cuda import linear_ce as lc
@@ -398,6 +405,7 @@ def test_linear_ce_kernels_match_plain(dts, case):
             np.float32)).to("cuda", dt)
     x, w, g = t(T, Hd, dt=xdt), t(V, Hd, scale=0.3, dt=wdt), t(T)
     lab = torch.from_numpy(rng.integers(0, V, T)).cuda()
+    lab[1] = V - 1
     if ignore is not None:
         lab[::7] = ignore
         g = torch.where(lab != ignore, g, 0.0)
@@ -410,6 +418,10 @@ def test_linear_ce_kernels_match_plain(dts, case):
     assert {k: n for k, n in layer.launch_counts().items() if n} == {
         "linear_ce_fwd": 1, "linear_ce_dz": slabs, "linear_ce_dx": slabs,
         "linear_ce_dw": slabs}
+    # a second call on the same inputs: the same bits (the forward folds
+    # its vocab tiles' partials in a fixed order)
+    nll2, lse2 = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw)
+    assert torch.equal(nll, nll2) and torch.equal(lse, lse2)
     nll_p, lse_p = fce.lce_fwd_ref(x, w, lab, chunk=chunk,
                                    ignore_index=ignore, **kw)
     torch.testing.assert_close(nll, nll_p, rtol=1e-4, atol=1e-4)
@@ -418,6 +430,9 @@ def test_linear_ce_kernels_match_plain(dts, case):
               else torch.bfloat16]
     c0 = (slabs - 1) * chunk                # the uneven last slab
     dz_w, dz_x = lc.linear_ce_dz_cuda(x, w, lab, lse_p, g, c0, V - c0, **kw)
+    dz_w2, dz_x2 = lc.linear_ce_dz_cuda(x, w, lab, lse_p, g, c0, V - c0,
+                                        **kw)
+    assert torch.equal(dz_w, dz_w2) and torch.equal(dz_x, dz_x2)
     dz_p = fce.lce_dz_ref(x, w[c0:], lab, lse_p, g, c0, V, eps)
     assert dz_w.dtype == wdt and dz_x.dtype == xdt
     torch.testing.assert_close(dz_w.float(), dz_p.to(wdt).float(), **tol)

@@ -1,0 +1,587 @@
+#!/usr/bin/env python3
+"""Time builds of the port's linear-CE head kernels against each other on
+one CUDA card.
+
+    python3 tools/lce_ab.py [--tree NAME=DIR ...] [--ablate] [--sass]
+                            [--only NAME,...] [--no-time] [--turns N]
+
+from the repository root, on a machine with one CUDA card and ``nvcc``.
+Each variant is a ``linear_ce.cu`` linked with this tree's other sources'
+objects into its own library under ``paddle_tpu_torch/kernels/_build/ab/``:
+``change`` is this tree's ``paddle_tpu_torch/kernels/csrc/linear_ce.cu``;
+``--tree NAME=DIR`` adds DIR's (another checkout's, e.g. the parent commit
+unpacked by ``git archive`` into the git-ignored ``archive_check/``).
+``--ablate`` adds this tree's file with the choices of ``TUNINGS``
+(groups of 16 or 48 row blocks; each stage handed back as soon as its
+wgmmas retire; w prefetched into L2 8 K steps ahead; dz stored
+evict-first; row blocks paired in 2-block clusters, each loading half of
+their shared w box and multicasting it to both), which are checked and
+timed like a tree, and
+with one part of the bf16 kernels cut out (``ABLATIONS``: the epilogues;
+the exponentials; the forward's fold; all but the copies; dz's stores),
+which compute something else and are timed unchecked.  ``--only`` keeps
+the named variants.  All ``nvcc`` processes start together.
+
+The script prints ptxas' registers, stack frame and spills of each
+variant's ``linear_ce`` kernels and any note of serialized wgmmas or
+ignored ``setmaxnreg`` (``--sass``: also the SASS opcode counts of each
+kernel, the SASS itself written to ``chiprun_out/lce_sass_<variant>.txt``),
+checks each checked variant on ``CASES`` (bf16: nll and lse within 1e-4
+of ``lce_fwd_ref``, the first and last slab's dz by ``chip_smoke.py``'s
+bf16 rule against ``lce_dz_ref``, and a second call of each bit-identical
+to the first), then, unless ``--no-time``, times at the Llama head (T 8192,
+H 4096, V 32000, bf16; ``chip_smoke.py``'s ``LCE_CASES[0]``), the variants
+in turns (a, b, ..., b, a): ``linear_ce_fwd`` (one call), ``linear_ce_dz``
+over the 16 slabs of 2048 (the backward's dz launches), and the whole
+backward call (dz, dx, dw), each beside its bound, and the forward beside
+the dense chain (``x @ w.T`` then ``F.cross_entropy``); ``--turns N``
+runs that order N times.  It also prints the bytes the bf16 kernels' TMA
+copies from L2 into shared memory a call (one block, and 2-block clusters
+with the w multicast), and each kernel's grid.  A tree whose library does
+not size the forward's scratch (``pt_linear_ce_fwd_scratch``, before the
+bf16 kernels) is given none.
+
+Writes ``chiprun_out/lce_ab.json``.  Imports nothing of the JAX package.
+"""
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+ITERS = 5                        # timed calls a variant and turn
+# (T, H, V, chunk, ignore_index, label_smoothing), bf16: the GPU lane's
+# tile edges, chip_smoke's small cases and the Llama head
+CASES = [(300, 72, 513, 256, -100, 0.0), (200, 8, 100, 64, None, 0.1),
+         (1000, 1024, 5000, 2048, -100, 0.0),
+         (515, 768, 4999, 1024, None, 0.1),
+         (8192, 4096, 32000, 2048, None, 0.0)]
+LLAMA = cs.LCE_CASES[0]
+_EPI = """    if constexpr (EPI == EPI_FWD)
+      epi_fwd(a, acc, m0, n0, nb, NB, mb, tid, comb, flag);
+    else
+      epi_dz(a, acc, m0, n0, tid);"""
+_NO_EPI = "    (void)nb; (void)flag; (void)comb;"
+# in place of the epilogue: a sum of every accumulator and a store that
+# never happens, so ptxas keeps the real wgmmas (with acc dead it swaps
+# each for a dummy m64n8 one)
+_SUM_ACC = """    {
+      float z[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 128; ++i) z[i & 3] += acc[i];
+      if (z[0] + z[1] + z[2] + z[3] == 1.2345e-30f) a.nll[0] = z[0];
+    }
+""" + _NO_EPI
+_MMA = """        WgmmaSS256::mma(acc, da + 2 * kk, db + 2 * kk, kb > 0 || kk > 0);"""
+_EX2 = """  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));"""
+_TICKET = "  if (*flag) merge_rows(a, part, comb, m0, NB, ctid);"
+_GROUP = ("  static constexpr int GROUP = 32;           // row blocks a group "
+          "of the order")
+_HANDBACK = """      wg_wait<1>();
+      // the wgmmas of the previous stage have retired: hand its slot back
+      if (kb > 0) release((it - 1) % C::STAGES);
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    release((it - 1) % C::STAGES);"""
+_FILL = """          unsigned char *st = smem + s * C::STAGE;
+          mbar_expect_tx(&full[s], C::STAGE);"""
+_DZ_STORE = "        pw[4 * i + tq] = q;"
+# row blocks paired in 2-block clusters (CL): each block loads half of the
+# pair's w box and multicasts it to both, so a tile reads 2 MB from L2,
+# not 3; each block's stage is free once both blocks' consumers release it
+_MULTICAST = [
+    ("enum { EPI_FWD = 0, EPI_DZ = 1 };", """enum { EPI_FWD = 0, EPI_DZ = 1 };
+constexpr int CL = 2;                      // blocks a cluster along the rows
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\\n"
+               "barrier.cluster.wait.aligned;\\n" ::: "memory");
+}
+// one arrival on the barrier at `bar`'s offset in cluster block `cta`
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t *bar, unsigned cta) {
+  asm volatile(
+      "{\\n.reg .b32 ra;\\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\\n}\\n" ::
+          "r"(smem_u32(bar)), "r"(cta)
+      : "memory");
+}
+// tma_load_2d into `dst`'s offset of every cluster block of `mask`
+__device__ __forceinline__ void tma_load_2d_mc(void *dst, const CUtensorMap *map,
+                                               int c0, int c1, uint64_t *bar,
+                                               unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\\n" ::"r"(
+          smem_u32(dst)),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}"""),
+    ("""  const int MB = cdiv(a.T, C::BM), NB = cdiv(cols, C::BN);
+  const int tiles = MB * NB, nk = cdiv(a.H, C::BK);""",
+     """  const unsigned rank = cluster_rank();
+  const int MB = cdiv(a.T, C::BM), NB = cdiv(cols, C::BN);
+  const int MU = cdiv(MB, CL), tiles = MU * NB, nk = cdiv(a.H, C::BK);"""),
+    ("for (int u = blockIdx.x; u < tiles; u += gridDim.x) {",
+     "for (int u = blockIdx.x / CL; u < tiles; u += gridDim.x / CL) {", 2),
+    ("tile_of(u, MB, NB, C::GROUP, mb, nb);",
+     "tile_of(u, MU, NB, C::GROUP / CL, mb, nb); mb = mb * CL + rank;", 2),
+    ("mbar_init(&empty[s], 8);", "mbar_init(&empty[s], 8 * CL);"),
+    ("""    mbar_init_fence();
+  }
+  __syncthreads();""", """    mbar_init_fence();
+  }
+  cluster_sync();"""),
+    ("""          tma_load_2d(st + C::XT, tw, kb * C::BK, n0, &full[s]);
+        }
+      }
+    }
+    return;""", """          tma_load_2d_mc(st + C::XT + rank * (C::WT / 2), tw, kb * C::BK,
+                         n0 + rank * (C::BN / 2), &full[s], 3);
+        }
+      }
+      // the peer arrives on this block's barriers: leave only once both
+      // blocks have released every stage's last fill
+      for (int i = 0; i < C::STAGES; ++i, ++it) {
+        const int s = it % C::STAGES, round = it / C::STAGES;
+        if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
+      }
+    }
+    return;"""),
+    ("    if (lane == 0) mbar_arrive(&empty[s]);", """    if (lane == 0) {
+      mbar_arrive(&empty[s]);
+      mbar_arrive_cluster(&empty[s], rank ^ 1);
+    }"""),
+    ("""    release((it - 1) % C::STAGES);
+    if constexpr""", """    release((it - 1) % C::STAGES);
+    if (mb >= MB) continue;                  // the pair's row block past T
+    if constexpr"""),
+    ("""is_fwd ? a->V : a->width, 2 * (uint64_t)a->H, C::BK,
+                      C::BN);""", """is_fwd ? a->V : a->width, 2 * (uint64_t)a->H, C::BK,
+                      C::BN / CL);"""),
+    ("""  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)cdiv(a->T, C::BM) *
+                          cdiv(is_fwd ? a->V : a->ldz, C::BN);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  if constexpr (EPI == EPI_FWD)
+    linear_ce_fwd_wg<<<grid, C::THREADS, C::SMEM, s>>>(*a, tx, tw);
+  else
+    linear_ce_dz_wg<<<grid, C::THREADS, C::SMEM, s>>>(*a, tx, tw);""",
+     """  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int slots = 0;
+  e = cudaOccupancyMaxActiveClusters(&slots, kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (slots <= 0) return cudaErrorInvalidConfiguration;
+  const long long units = (long long)cdiv(cdiv(a->T, C::BM), CL) *
+                          cdiv(is_fwd ? a->V : a->ldz, C::BN);
+  cfg.gridDim = dim3((unsigned)(units < slots ? units : slots) * CL);
+  e = cudaLaunchKernelEx(&cfg, kern, *a, tx, tw);
+  if (e != cudaSuccess) return e;"""),
+]
+# linear_ce.cu with one choice of the bf16 kernels changed: (old, new)
+# text pairs; checked and timed like a tree
+TUNINGS = {f"group_{g}": [(_GROUP, _GROUP.replace("32", str(g)))]
+           for g in (16, 48)}
+TUNINGS.update({
+    # each stage handed back as soon as its own wgmmas retire
+    "handback_early": [(_HANDBACK, """      wg_wait<0>();
+      release(s);
+    }
+    fence_regs(acc);""")],
+    # the producer also prefetches w's box 8 K steps ahead into L2
+    "w_l2_prefetch_8": [(_FILL, """          if (kb + 8 < nk)
+            asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global.tile"
+                         " [%0, {%1, %2}];" ::"l"((uint64_t)tw),
+                         "r"((kb + 8) * C::BK), "r"(n0)
+                         : "memory");
+""" + _FILL)],
+    # dz stored with the evict-first hint (st.global.cs)
+    "dz_evict_first": [(_DZ_STORE, "        __stcs(pw + 4 * i + tq, q);")],
+    "w_multicast_2": _MULTICAST,
+})
+# linear_ce.cu with one part of the bf16 kernels cut: (old, new) text
+# pairs; timed unchecked
+ABLATIONS = {
+    # the mainloop and its TMA stream; no statistics, no dz, no stores
+    "no_epilogue": [(_EPI, _SUM_ACC)],
+    # the epilogues with exp(v) = v (the multi-function unit's share)
+    "no_exp": [(_EX2, "  y = x;")],
+    # the forward without the fold of the row blocks' partials
+    "no_fold": [(_TICKET, "")],
+    # the TMA stream and barriers alone: no wgmma, no epilogue
+    "copies_only": [(_MMA, ""), (_EPI, _NO_EPI)],
+    # dz's arithmetic and transposes, but stores only of a NaN pattern dz
+    # never holds (so the arithmetic stays)
+    "dz_no_store": [(_DZ_STORE, "        if (q.x == 0x7fc00001u && "
+                                "q.y == q.x) pw[4 * i + tq] = q;")],
+}
+SASS_OPS = ("HGMMA", "MUFU", "FFMA", "FMNMX", "FADD", "SHFL", "STG", "LDG",
+            "SYNCS", "UTMALDG", "BAR")
+
+
+def _ptxas(text):
+    """{kernel: {regs, stack, spill_st, spill_ld}} from ptxas -v output
+    for the linear_ce kernels, and ptxas' notes of lost performance."""
+    rows, name, notes = {}, None, []
+    for line in text.splitlines():
+        if "Performance Loss" in line or "setmaxnreg" in line:
+            notes.append(line.strip())
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or "linear_ce" not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rows.setdefault(name, {}).update(
+                stack=int(m.group(1)), spill_st=int(m.group(2)),
+                spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.setdefault(name, {})["regs"] = int(m.group(1))
+    try:
+        dem = subprocess.run(["cu++filt"], input="\n".join(rows),
+                             capture_output=True, text=True, check=True)
+        names = dem.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = list(rows)
+    return dict(zip(names, rows.values())), notes
+
+
+def _sass(obj, name):
+    """Opcode counts of each linear_ce kernel in ``obj``; the SASS goes to
+    chiprun_out/lce_sass_<name>.txt."""
+    from paddle_tpu_torch.kernels import build
+    dump = Path(build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(dump), "-sass", str(obj)], check=True,
+                          capture_output=True, text=True).stdout
+    out = ROOT / "chiprun_out" / f"lce_sass_{name}.txt"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(text)
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "linear_ce" in m.group(1) else None
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if fn and m:
+            c = counts.setdefault(fn, {})
+            op = m.group(2).split(".")[0]
+            c[op] = c.get(op, 0) + 1
+    return {k: {op: v.get(op, 0) for op in SASS_OPS} | {"total": sum(
+        v.values())} for k, v in counts.items()}
+
+
+def _edited(text, cuts):
+    """linear_ce.cu's text with ``cuts`` applied: ``(old, new)`` where old
+    occurs once, or ``(old, new, n)`` where it occurs n times."""
+    for old, new, *n in cuts:
+        if text.count(old) != (n[0] if n else 1):
+            raise ValueError(f"variant text not found {n or [1]} times: "
+                             f"{old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def _no_scratch(args, sizes):
+    """``pt_linear_ce_fwd_scratch`` of a library from before the bf16
+    kernels: no scratch."""
+    sizes[0] = sizes[1] = 0
+    return 0
+
+
+def build_variants(srcs):
+    """{name: (ctypes library, ptxas table, ptxas notes, object path)}
+    for ``srcs`` {name: linear_ce.cu path}."""
+    from paddle_tpu_torch.kernels import build
+    nvcc = build._nvcc()
+    out_dir = build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu, _ = build._sources()
+    lce = build.CSRC / "linear_ce.cu"
+    others = [f for f in cu if f != lce]
+    cmds = [[nvcc, *build.NVCC_FLAGS, "-c", str(f), "-o",
+             str(out_dir / (f.stem + ".o"))] for f in others]
+    cmds += [[nvcc, *build.NVCC_FLAGS, "-I", str(build.CSRC), "-Xptxas",
+              "-v", "-c", str(src), "-o", str(out_dir / f"lce_{name}.o")]
+             for name, src in srcs.items()]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode:
+            raise build.KernelBuildError(f"$ {' '.join(c)}\n{log}")
+    libs = {}
+    for i, name in enumerate(srcs):
+        so = out_dir / f"lib_lce_{name}.so"
+        subprocess.run([nvcc, *build.NVCC_FLAGS, "-shared",
+                        *(str(out_dir / (f.stem + ".o")) for f in others),
+                        str(out_dir / f"lce_{name}.o"), "-o", str(so)],
+                       check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(str(so))
+        if not hasattr(lib, "pt_linear_ce_fwd_scratch"):
+            lib.pt_linear_ce_fwd_scratch = _no_scratch
+        build._bind(lib)
+        table, notes = _ptxas(logs[len(others) + i])
+        libs[name] = (lib, table, notes, out_dir / f"lce_{name}.o")
+    return libs
+
+
+def inputs(case, gen):
+    """bf16 x ~ N(0, 1), w ~ N(0, 0.02), random labels with row 1's at
+    V - 1 (every 7th ignored where the case has ignore_index), and an
+    N(0, 1) nll cotangent, zero at ignored labels."""
+    import torch
+    T, H, V, _, ignore, _ = case
+    x = torch.randn(T, H, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (0.02 * torch.randn(V, H, device="cuda", generator=gen)).to(
+        torch.bfloat16)
+    lab = torch.randint(0, V, (T,), device="cuda", generator=gen)
+    lab[1] = V - 1
+    g = torch.randn(T, device="cuda", generator=gen)
+    if ignore is not None:
+        lab[::7] = ignore
+        g = torch.where(lab != ignore, g, 0.0)
+    return x, w, lab, g
+
+
+def check_variant(name, gen):
+    """Every case of CASES against the plain versions, and each call
+    twice; raises on the first miss.  Returns the worst bf16 ratio of dz's
+    distance from fp32 to the plain version's."""
+    import torch
+    from paddle_tpu_torch.ops import fused_cross_entropy as fce
+    from paddle_tpu_torch.ops.cuda import linear_ce as lc
+    worst = 0.0
+    for case in CASES:
+        T, H, V, chunk, ignore, eps = case
+        x, w, lab, g = inputs(case, gen)
+        kw = dict(label_smoothing=eps)
+        label = f"{name} T {T} H {H} V {V} chunk {chunk}"
+        nll, lse = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw)
+        nll2, lse2 = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore,
+                                           **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(nll, nll2) and torch.equal(lse, lse2)):
+            raise cs.SmokeFailure(f"{label}: two forward calls differ")
+        nll_p, lse_p = fce.lce_fwd_ref(x, w, lab, chunk=chunk,
+                                       ignore_index=ignore, **kw)
+        e = max(cs.check_close(f"{label} nll", nll, nll_p, cs.TOL["float32"]),
+                cs.check_close(f"{label} lse", lse, lse_p, cs.TOL["float32"]))
+        for c0 in sorted({0, (V - 1) // chunk * chunk}):
+            width = min(chunk, V - c0)
+            dz, _ = lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width, **kw)
+            dz2, _ = lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(dz, dz2):
+                raise cs.SmokeFailure(f"{label}: two dz calls differ")
+            truth = fce.lce_dz_ref(x, w[c0:c0 + width], lab, lse, g, c0, V,
+                                   eps)
+            ratios = []
+            e = max(e, cs.check_lce(f"{label} dz slab {c0}:{c0 + width}", dz,
+                                    truth.to(dz.dtype), truth, True, ratios))
+            worst = max(worst, ratios[0])
+            del dz, dz2, truth
+        cs.info(f"{label}: max |kernel - plain| {e:.3e}")
+        del x, w, lab, g, nll, lse, nll2, lse2, nll_p, lse_p
+        torch.cuda.empty_cache()
+    return worst
+
+
+def tma_bytes(T, H, V, chunk, cluster):
+    """Bytes the bf16 kernels' TMA reads from L2 a call: forward and the
+    backward's dz over its slabs (each block reads its 128-row x box and
+    its share of the 256-row w tile every 64-column K step)."""
+    def one(rows):
+        units = -(-(-(-T // 128)) // cluster) * -(-rows // 256)
+        return units * -(-H // 64) * (cluster * 128 * 128 + 256 * 128)
+    return {"fwd": one(V), "dz": sum(one(min(chunk, V - c0))
+                                     for c0 in range(0, V, chunk))}
+
+
+def kernel_grids(fn, name):
+    """{kernel name: grid} of the kernels one call of ``fn`` launches, from
+    the profiler's trace (written to chiprun_out/lce_trace_<name>.json)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = ROOT / "chiprun_out" / f"lce_trace_{name}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return {e["name"].split("(")[0]: e.get("args", {}).get("grid")
+            for e in events if e.get("cat") == "kernel"}
+
+
+def kernel_ms(breakdown, name):
+    hit = [(mean, n) for k, (mean, n) in breakdown.items()
+           if name + "<" in k or name + "_wg(" in k]
+    return sum(mean * n for mean, n in hit) if hit else None
+
+
+def time_llama(libs, order, gen, report):
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.ops.cuda import linear_ce as lc
+    _, T, H, V, chunk, *_ = LLAMA
+    x, w, lab, g = inputs((T, H, V, chunk, None, 0.0), gen)
+    _, lse = lc.linear_ce_fwd_cuda(x, w, lab)
+    slabs = [(c0, min(chunk, V - c0)) for c0 in range(0, V, chunk)]
+
+    def dz_all():
+        for c0, width in slabs:
+            lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width)
+    times = {name: {"fwd": [], "dz": [], "bwd": []} for name in libs}
+    for name in libs:
+        build._lib = libs[name][0]
+        grids = kernel_grids(lambda: (lc.linear_ce_fwd_cuda(x, w, lab),
+                                      lc.linear_ce_dz_cuda(x, w, lab, lse, g,
+                                                           0, chunk)), name)
+        report["variants"][name]["grids"] = grids
+        cs.info(f"grids {name}: {grids}")
+    for name in order:
+        build._lib = libs[name][0]
+        by = {}
+        _, call = cs.time_ms(lambda: lc.linear_ce_fwd_cuda(x, w, lab),
+                             ITERS, by)
+        times[name]["fwd"].append(kernel_ms(by, "linear_ce_fwd") or call)
+        by = {}
+        _, call = cs.time_ms(dz_all, 2, by)
+        times[name]["dz"].append(kernel_ms(by, "linear_ce_dz") or call)
+        by = {}
+        dev, call = cs.time_ms(lambda: lc.linear_ce_bwd_cuda(
+            x, w, lab, lse, g, chunk=chunk), 2, by)
+        times[name]["bwd"].append(dict(
+            device_ms=dev, call_ms=call,
+            **{k: kernel_ms(by, k) for k in cs.LCE_NAMES[1:]}))
+        cs.info(f"llama head {name}: fwd {times[name]['fwd'][-1]:.4f} ms, "
+                f"dz x {len(slabs)} {times[name]['dz'][-1]:.4f} ms, bwd "
+                f"{times[name]['bwd'][-1]}")
+    lib_fwd = cs.time_ms(lambda: F.cross_entropy(
+        (x @ w.t()).float(), lab, reduction="none"), ITERS)[0]
+    bo = cs.lce_bytes_ops(T, H, V, 2, 2)
+    bound = {k: cs.bound_ms(*bo[f"linear_ce_{k}"][:2]) for k in ("fwd", "dz")}
+    report["llama_head"] = dict(bound_ms=bound, library_fwd_ms=lib_fwd)
+    cs.info(f"llama head: bound fwd {bound['fwd']}, dz {bound['dz']}; dense "
+            f"chain forward {lib_fwd:.4f} ms")
+    for name, ts in times.items():
+        row = report["variants"][name]["llama_head"] = dict(ts)
+        for k in ("fwd", "dz"):
+            mean = sum(ts[k]) / len(ts[k])
+            row[f"{k}_mean_ms"] = mean
+            row[f"{k}_of_bound"] = bound[k][0] / mean
+        cs.info(f"llama head {name}: fwd {ts['fwd']} ms (mean "
+                f"{row['fwd_mean_ms']:.4f}, {100 * row['fwd_of_bound']:.1f} % "
+                f"of bound, {row['fwd_mean_ms'] / lib_fwd:.2f}x the dense "
+                f"chain), dz {ts['dz']} ms (mean {row['dz_mean_ms']:.4f}, "
+                f"{100 * row['dz_of_bound']:.1f} % of bound)")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", default=[])
+    ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--only", default="")
+    ap.add_argument("--no-time", action="store_true")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="times the order a, b, ..., b, a is run")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.kernels import build
+    card = cs.phase_device()
+    srcs, unchecked = {}, set()
+    for item in args.tree:
+        name, _, tree = item.partition("=")
+        srcs[name] = (Path(tree).resolve()
+                      / "paddle_tpu_torch/kernels/csrc/linear_ce.cu")
+    srcs["change"] = build.CSRC / "linear_ce.cu"
+    text = srcs["change"].read_text()
+    edits = {}
+    if args.ablate:
+        edits.update(TUNINGS)
+        edits.update(ABLATIONS)
+        unchecked = set(ABLATIONS)
+    for name, cuts in edits.items():
+        srcs[name] = build.BUILD_DIR / "ab" / f"lce_{name}.cu"
+        srcs[name].parent.mkdir(parents=True, exist_ok=True)
+        srcs[name].write_text(_edited(text, cuts))
+    if args.only:
+        keep = args.only.split(",")
+        srcs = {k: v for k, v in srcs.items() if k in keep}
+    libs = build_variants(srcs)
+    report = {"card": card, "variants": {}, "tma_bytes": {
+        f"cluster {c}": tma_bytes(*[LLAMA[i] for i in (1, 2, 3, 4)], c)
+        for c in (1, 2)}}
+    cs.info(f"TMA bytes from L2 a call at the Llama head: "
+            f"{report['tma_bytes']}")
+    for name, (_, table, notes, obj) in libs.items():
+        report["variants"][name] = {"ptxas": table, "wgmma_notes": notes}
+        for k, v in table.items():
+            cs.info(f"ptxas {name}: {k}: {v}")
+        for line in notes:
+            cs.info(f"ptxas {name}: {line}")
+        if args.sass:
+            report["variants"][name]["sass"] = ops = _sass(obj, name)
+            for k, v in ops.items():
+                cs.info(f"sass {name}: {k}: {v}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    for name, (lib, *_) in libs.items():
+        if name in unchecked:
+            continue
+        build._lib = lib
+        report["variants"][name]["bf16_vs_fp32_ratio"] = check_variant(
+            name, gen)
+    if not args.no_time:
+        order = (list(libs) + list(reversed(libs))) * args.turns
+        time_llama(libs, order, gen, report)
+    out = ROOT / "chiprun_out" / "lce_ab.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
