@@ -43,10 +43,14 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             head), and on small cases: ignore_index with T off the row
             tiles, label smoothing with an uneven last slab, bf16 at odd T
             1001, V 4097 and H 520 (off every edge of the bf16 kernels'
-            tiles), the [H, V] layout through the op; a second forward and
-            dz call bit-identical to the first; kernel, plain, bound and
-            dense-chain (``x @ w.T`` then ``F.cross_entropy``: forward,
-            backward alone, forward + backward) times;
+            tiles), bf16 at T 1000, slabs of 200 and H 200 (off the
+            backward products' tiles), the [H, V] layout through the op; a
+            second forward, dz and backward call bit-identical to the
+            first; the bf16 backward products on their wgmma kernels in
+            the profile (both at the Llama head, dx at the GPT head);
+            kernel, plain, bound and dense-chain (``x @ w.T`` then
+            ``F.cross_entropy``: forward, backward alone, forward +
+            backward) times;
 7. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
             train step (remat, the fused linear-CE head of the config
             default): one warm step and 5 timed steps on one seeded batch
@@ -1087,6 +1091,10 @@ LCE_CASES = [
      "bfloat16", None, 0.1),
     ("bf16 odd T 1001 V 4097 H 520", 1001, 520, 4097, 1024, "bfloat16",
      "bfloat16", -100, 0.1),
+    # T, the slab width and H all off the wgmma tiles (128 x 256, K 64):
+    # slabs of 200 (the last 100 wide), H 200
+    ("bf16 off tiles T 1000 chunk 200 H 200", 1000, 200, 1100, 200,
+     "bfloat16", "bfloat16", None, 0.0),
 ]
 LCE_TIMED = {"llama head bf16": "main", "gpt head fp32 x bf16 w": "gpt"}
 LCE_NAMES = ("linear_ce_fwd", "linear_ce_dz", "linear_ce_dx",
@@ -1102,19 +1110,24 @@ def rel_l2(a, b):
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def lce_bytes_ops(T, H, V, xs, ws):
+def lce_bytes_ops(T, H, V, chunk, xs, ws):
     """(bytes, operations, peak-rate dtype) of each linear-CE kernel over
-    one call (all its slabs): each input read once, each output written
-    once, the product 2 T H V; a product with an fp32 operand runs at the
-    fp32 rate."""
+    one call (all its slabs of ``chunk``): each input read once, each
+    output written once, the product 2 T H V; a product with an fp32
+    operand runs at the fp32 rate.  dx also moves its fp32 [T, H]
+    accumulator between the slabs: the first writes it, each later one
+    reads it and each but the last writes it back (2 x slabs - 2 passes
+    over T x H fp32 in all), and the last writes dx in x's dtype."""
     ops = 2 * T * H * V
     dt = {2: "bfloat16", 4: "float32"}
     both = "bfloat16" if xs == ws == 2 else "float32"
     dz_out = T * V * ws + (T * V * xs if xs != ws else 0)
+    slabs = -(-V // chunk)
+    acc = T * H * 4 * (2 * slabs - 2)
     return {"linear_ce_fwd": (T * H * xs + V * H * ws + 3 * T * 4, ops, both),
             "linear_ce_dz": (T * H * xs + V * H * ws + 3 * T * 4 + dz_out,
                              ops, both),
-            "linear_ce_dx": (T * V * ws + V * H * ws + T * H * xs, ops,
+            "linear_ce_dx": (T * V * ws + V * H * ws + acc + T * H * xs, ops,
                              dt[ws]),
             "linear_ce_dw": (T * V * xs + T * H * xs + V * H * ws, ops,
                              dt[xs])}
@@ -1178,12 +1191,13 @@ def lce_times(case, x, w, lab, lse, g):
     _, call = time_ms(lambda: lc.linear_ce_bwd_cuda(
         x, w, lab, lse, g, chunk=chunk, **kw), 3, by)
     for name in LCE_NAMES[1:]:
-        # bf16 x and w: linear_ce_dz_wg(...); an fp32 operand: name<...>
-        hit = [(mean, n) for k, (mean, n) in by.items()
-               if name + "<" in k or name + "_wg(" in k]
-        out[name] = dict(ms=sum(mean * n for mean, n in hit) if hit else None,
-                         launches_per_call=sum(n for _, n in hit),
-                         call_ms=call)
+        # bf16 operands: linear_ce_dz_wg(...); an fp32 operand: name<...>
+        hit = {k: (mean, n) for k, (mean, n) in by.items()
+               if name + "<" in k or name + "_wg(" in k}
+        out[name] = dict(ms=sum(mean * n for mean, n in hit.values())
+                         if hit else None,
+                         launches_per_call=sum(n for _, n in hit.values()),
+                         call_ms=call, wg=any("_wg(" in k for k in hit))
     plain_fwd = time_ms(lambda: fce.lce_fwd_ref(
         x, w, lab, chunk=chunk, ignore_index=ignore, **kw), 2)
     plain_bwd = time_ms(lambda: fce.lce_bwd_ref(
@@ -1200,7 +1214,7 @@ def lce_times(case, x, w, lab, lse, g):
     lib_b = time_ms(lambda: torch.autograd.grad(saved, (xr, wr),
                                                 retain_graph=True), 3)[0]
     del saved
-    bo = lce_bytes_ops(T, H, V, x.element_size(), w.element_size())
+    bo = lce_bytes_ops(T, H, V, chunk, x.element_size(), w.element_size())
     for name in LCE_NAMES:
         fwd = name == "linear_ce_fwd"
         nbytes, ops, dtn = bo[name]
@@ -1241,7 +1255,12 @@ def phase_linear_ce(results, dev="cuda"):
                                f"differs from the first")
         del again
         dx, dw = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
+        again = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
         torch.cuda.synchronize()
+        if not (torch.equal(dx, again[0]) and torch.equal(dw, again[1])):
+            raise SmokeFailure(f"lce {label}: a second backward call differs "
+                               f"from the first")
+        del again
         nll_p, lse_p = fce.lce_fwd_ref(x, w, lab, chunk=chunk,
                                        ignore_index=ignore, **kw)
         # nll and lse are fp32 sums of products of the same operands on both
@@ -1303,6 +1322,17 @@ def phase_linear_ce(results, dev="cuda"):
 
     label, main = timed["main"]
     gpt_label, gpt = timed["gpt"]
+    # the backward's profiled kernels: the wgmma instances wherever their
+    # operands are bf16 (both at the Llama head; dx only at the GPT head,
+    # whose fp32 x keeps dw on FMA)
+    want = {"main": {"linear_ce_dx": True, "linear_ce_dw": True},
+            "gpt": {"linear_ce_dx": True, "linear_ce_dw": False}}
+    for key, names in want.items():
+        for name, wg in names.items():
+            if timed[key][1][name]["wg"] != wg:
+                raise SmokeFailure(
+                    f"lce {timed[key][0]}: {name}'s profiled kernels "
+                    f"{'lack' if wg else 'include'} {name}_wg")
     for name in LCE_NAMES:
         r, q = main[name], gpt[name]
         fwd = name == "linear_ce_fwd"

@@ -20,24 +20,27 @@
 // bytes.  With fp32 x (the GPT step: its final LayerNorm has fp32 gains)
 // z and dw run on fp32 operands at 67 TFLOP/s.
 //
-// bf16 x and w, linear_ce_fwd and linear_ce_dz (linear_ce_fwd_wg /
-// linear_ce_dz_wg): one persistent warp-specialized GEMM for sm_90a, two
-// epilogues.  z = x w^T has both operands K-major, the layout TMA and
-// wgmma take with no transpose.
-//   * Tiles of 128 x rows by 256 w rows, K in 64-column (128-byte) steps;
-//     a producer warpgroup keeps a 4-stage ring of TMA boxes (16 KB of x,
-//     32 KB of w, 128-byte swizzle) in flight on mbarriers; two consumer
-//     warpgroups each run wgmma m64n256k16 with both operands from shared
-//     memory into a 64 x 256 fp32 accumulator (128 registers a thread;
-//     setmaxnreg moves registers from the producer to them).  Rows past T,
-//     w rows past V (or the slab) and columns past H are TMA's zero fill,
-//     so every H % 8 == 0 runs here.
+// The bf16 products (linear_ce_fwd_wg, linear_ce_dz_wg, linear_ce_dx_wg,
+// linear_ce_dw_wg): one persistent warp-specialized GEMM for sm_90a, four
+// epilogues.  z = x w^T (fwd, dz) has both operands K-major, the layout
+// TMA and wgmma take with no transpose; dx = dz w_slab has B = w_slab
+// [C, H] MN-major (H contiguous), dw = dz^T x both operands MN-major
+// (dz [T, C] read as A(c, t), x [T, H]): wgmma's transpose bits, each
+// MN-major operand loaded as boxes of 64 MN columns x 64 K rows.
+//   * Tiles of 128 x 256 outputs (x or dz rows by w rows, x or dz rows by
+//     H, slab rows by H), K in 64-deep steps; a producer warpgroup keeps a
+//     4-stage ring of TMA boxes (16 KB of A, 32 KB of B, 128-byte swizzle)
+//     in flight on mbarriers; two consumer warpgroups each run wgmma
+//     m64n256k16 with both operands from shared memory into a 64 x 256
+//     fp32 accumulator (128 registers a thread; setmaxnreg moves registers
+//     from the producer to them).  Rows, columns and K past the tensors
+//     are TMA's zero fill, so every H % 8 == 0, T and slab width runs here.
 //   * Persistent: one block an SM walks the tiles, 32 row blocks at a
 //     time across the vocab, so the blocks in flight share their x and w
 //     tiles in L2 (w streams from HBM once a group).  The L2 stream, 3 MB
 //     a tile against 268 MFLOP, is about the L2's rate at 989 TFLOP/s: the
-//     copies alone take about the forward's time (tools/lce_ab.py, which
-//     also times a 2-block cluster multicasting each w box, 2 MB a tile:
+//     copies alone take about the forward's time (tools/lce_ab.py; a
+//     2-block cluster multicasting each w box, 2 MB a tile, measured
 //     slower on the H100).
 //   * linear_ce_fwd's epilogue works on the accumulator in registers: per
 //     row of the tile its max (a quad shuffle over the 4 threads of a
@@ -48,8 +51,22 @@
 //     nll and lse do not depend on the schedule; one launch a call.
 //   * linear_ce_dz's epilogue forms dz = g (exp(z - lse) - y) in registers
 //     and stores bf16 pairs straight from the accumulator layout.
-// Every instance with an fp32 operand (the GPT head's fp32 x), and
-// linear_ce_dx / linear_ce_dw, keep the first version's design:
+//   * linear_ce_dx's epilogue adds the tile into the fp32 [T, H] dx_acc
+//     (reads it unless the slab is the first; the last slab writes dx in
+//     x's dtype instead), 32 bytes of a row a thread after a quad
+//     transpose; the producer meanwhile loads the next tile's first K
+//     steps.  dx_acc moves 268 MB a slab at the Llama head, and the SMs
+//     reach their epilogues together, so the epilogue runs at HBM's rate
+//     (about a quarter of dx's time); staging the tile in shared memory
+//     for TMA's reduce-add in L2 measured only 5 % faster (PERF.md).
+//     linear_ce_dw's epilogue stores the tile (slab rows by H) in w's
+//     dtype.
+//     Routing: linear_ce_dx runs here whenever w is bf16 (so dz_w is: the
+//     Llama head and the GPT head's fp32-x dx), linear_ce_dw whenever x is
+//     bf16 (dz_x and x are); dw is written in w's dtype either way.
+// Every other instance (fwd and dz with an fp32 operand, as the GPT
+// head's fp32 x; dx with fp32 w; dw with fp32 x) keeps the first
+// version's design:
 //   * The TPU forward walks the vocab chunks of a row block in grid order
 //     and carries the row statistics in VMEM scratch.  Here one block of
 //     8 warps owns 64 rows and walks the vocab in 128-column tiles itself;
@@ -67,22 +84,19 @@
 //     vocab rows past V load as zero, so they add exact zeros.
 //   * One tiled product (Mma below) serves them: 8 warps, 32-deep K
 //     slabs staged in shared memory, the next slab prefetched into
-//     registers; bf16 x bf16 on tensor cores (nvcuda::wmma 16x16x16, fp32
-//     accumulate), any fp32 operand on FMA with bf16 operands converted to
-//     fp32 on their way into shared memory.
+//     registers, FMA in fp32 with bf16 operands converted to fp32 on their
+//     way into shared memory.
 // The wrapper checks H % 8 == 0 and 16-byte aligned, contiguous operands;
 // the dz scratch has a leading dimension ldz rounded up to 8 with zeros in
 // its padding columns, so every 16-byte load is either wholly in bounds or
 // wholly out.
-#include <mma.h>
-
+#include <atomic>
+#include <mutex>
 #include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
 #include "wgmma.cuh"
-
-using namespace nvcuda;
 
 namespace pt {
 namespace lce {
@@ -94,11 +108,6 @@ constexpr int FWD_BM = 64, FWD_BN = 128;   // forward: rows, vocab tile
 constexpr int BW_BM = 128, BW_BN = 128;    // backward product tiles
 
 __host__ __device__ inline int cdiv(int n, int d) { return (n + d - 1) / d; }
-
-template <typename T>
-constexpr bool is_bf16() {
-  return std::is_same<T, bf16>::value;
-}
 
 __device__ __forceinline__ uint4 load16(const void *src, bool ok) {
   return ok ? *reinterpret_cast<const uint4 *>(src) : make_uint4(0, 0, 0, 0);
@@ -120,16 +129,20 @@ __device__ __forceinline__ void store16(S *dst, uint4 v) {
   }
 }
 
-// One block's output tile C[BM x BN] = sum_k A(m, k) B(k, n), written fp32
-// to shared memory Cs (leading dimension LDC).  A(m, k) is A[m * lda + k]
-// (A_ROW) or A[k * lda + m]; B(k, n) is B[k * ldb + n] (B_ROW) or
-// B[n * ldb + k].  Elements with m >= Mv or k >= Ka (A), k >= Kb or n >= Nv
-// (B) read as zero; the bound along each operand's contiguous dimension
-// must be a multiple of its 16-byte vector.
+// One block's output tile C[BM x BN] = sum_k A(m, k) B(k, n) on FMA,
+// written fp32 to shared memory Cs (leading dimension LDC).  A(m, k) is
+// A[m * lda + k] (A_ROW) or A[k * lda + m]; B(k, n) is B[k * ldb + n]
+// (B_ROW) or B[n * ldb + k].  Elements with m >= Mv or k >= Ka (A),
+// k >= Kb or n >= Nv (B) read as zero; the bound along each operand's
+// contiguous dimension must be a multiple of its 16-byte vector.  The
+// bf16 x bf16 products run on wgmma (Wg below), so at least one operand
+// is fp32 here.
 template <typename TA, typename TB, bool A_ROW, bool B_ROW, int BM, int BN>
 struct Mma {
-  static constexpr bool TC = is_bf16<TA>() && is_bf16<TB>();
-  using S = typename std::conditional<TC, bf16, float>::type;
+  static_assert(std::is_same<TA, float>::value ||
+                    std::is_same<TB, float>::value,
+                "bf16 x bf16 runs on wgmma");
+  using S = float;
   static constexpr int VA = 16 / (int)sizeof(TA), VB = 16 / (int)sizeof(TB);
   static constexpr int PAD = 16 / (int)sizeof(S);
   static constexpr int LDA = A_ROW ? BK + PAD : BM + PAD;
@@ -143,10 +156,7 @@ struct Mma {
   static constexpr int NB = BN * BK / VB / THREADS;
   static_assert(NA * VA * THREADS == BM * BK, "A tile vs threads");
   static_assert(NB * VB * THREADS == BN * BK, "B tile vs threads");
-  // tensor cores: 2 x 4 warps, each WTM x WTN of 16 x 16 fragments
-  static constexpr int WTM = BM / 2, WTN = BN / 4;
-  static constexpr int FM = WTM / 16, FN = WTN / 16;
-  // FMA: 16 x 16 threads, each TM x TN outputs strided by 16
+  // 16 x 16 threads, each TM x TN outputs strided by 16
   static constexpr int TM = BM / 16, TN = BN / 16;
 
   // position (row, k) in the tile of A's vector q; likewise (n, k) for B
@@ -210,90 +220,43 @@ struct Mma {
       }
     };
 
-    if constexpr (TC) {
-      using LA = typename std::conditional<A_ROW, wmma::row_major,
-                                           wmma::col_major>::type;
-      using LB = typename std::conditional<B_ROW, wmma::row_major,
-                                           wmma::col_major>::type;
-      const int warp = tid >> 5, wm = warp >> 2, wn = warp & 3;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+    const int tx = tid & 15, ty = tid >> 4;
+    float acc[TM][TN];
 #pragma unroll
-      for (int i = 0; i < FM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      load(0);
-      for (int k0 = 0; k0 < K; k0 += BK) {
-        store();
-        __syncthreads();
-        if (k0 + BK < K) load(k0 + BK);
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> fa[FM];
-#pragma unroll
-          for (int i = 0; i < FM; ++i) {
-            const int mm = wm * WTM + i * 16;
-            wmma::load_matrix_sync(
-                fa[i], A_ROW ? As + mm * LDA + kk : As + kk * LDA + mm, LDA);
-          }
-#pragma unroll
-          for (int j = 0; j < FN; ++j) {
-            const int nn = wn * WTN + j * 16;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> fb;
-            wmma::load_matrix_sync(
-                fb, B_ROW ? Bs + kk * LDB + nn : Bs + nn * LDB + kk, LDB);
-#pragma unroll
-            for (int i = 0; i < FM; ++i)
-              wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::store_matrix_sync(
-              Cs + (wm * WTM + i * 16) * LDC + wn * WTN + j * 16, acc[i][j],
-              LDC, wmma::mem_row_major);
-    } else {
-      const int tx = tid & 15, ty = tid >> 4;
-      float acc[TM][TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-      load(0);
-      for (int k0 = 0; k0 < K; k0 += BK) {
-        store();
-        __syncthreads();
-        if (k0 + BK < K) load(k0 + BK);
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    load(0);
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      store();
+      __syncthreads();
+      if (k0 + BK < K) load(k0 + BK);
 #pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-          float av[TM], bv[TN];
+      for (int kk = 0; kk < BK; ++kk) {
+        float av[TM], bv[TN];
 #pragma unroll
-          for (int i = 0; i < TM; ++i) {
-            const int m = ty + 16 * i;
-            av[i] = A_ROW ? As[m * LDA + kk] : As[kk * LDA + m];
-          }
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int n = tx + 16 * j;
-            bv[j] = B_ROW ? Bs[kk * LDB + n] : Bs[n * LDB + kk];
-          }
-#pragma unroll
-          for (int i = 0; i < TM; ++i)
-#pragma unroll
-            for (int j = 0; j < TN; ++j)
-              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int i = 0; i < TM; ++i) {
+          const int m = ty + 16 * i;
+          av[i] = A_ROW ? As[m * LDA + kk] : As[kk * LDA + m];
         }
-        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int n = tx + 16 * j;
+          bv[j] = B_ROW ? Bs[kk * LDB + n] : Bs[n * LDB + kk];
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
+      __syncthreads();
     }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        Cs[(ty + 16 * i) * LDC + tx + 16 * j] = acc[i][j];
   }
 };
 
@@ -426,16 +389,30 @@ __global__ void __launch_bounds__(THREADS) linear_ce_dw(LceArgs a) {
   }
 }
 
-// ============================================== bf16 x bf16: wgmma + TMA
-// linear_ce_fwd and linear_ce_dz on bf16 x and w: one persistent
-// warp-specialized GEMM z = x w^T (both operands K-major, as TMA and wgmma
-// take them), with the row statistics or dz in the epilogue.
-enum { EPI_FWD = 0, EPI_DZ = 1 };
+// ======================================================== wgmma + TMA
+// The bf16 products on one persistent warp-specialized GEMM, one
+// epilogue each: z = x w^T with the row statistics (linear_ce_fwd) or dz
+// (linear_ce_dz), dx += dz w_slab (linear_ce_dx), dw_slab = dz^T x
+// (linear_ce_dw).
+enum { EPI_FWD = 0, EPI_DZ = 1, EPI_DX = 2, EPI_DW = 3 };
+
+// the product's output rows (M), columns (N) and depth (K)
+struct Gemm {
+  int rows, cols, depth;
+};
+template <int EPI>
+__host__ __device__ __forceinline__ Gemm gemm_of(const LceArgs &a) {
+  if (EPI == EPI_FWD) return {a.T, a.V, a.H};
+  if (EPI == EPI_DZ) return {a.T, a.ldz, a.H};
+  if (EPI == EPI_DX) return {a.T, a.H, a.width};
+  return {a.width, a.H, a.T};
+}
 
 struct Wg {
-  static constexpr int BM = 128, BN = 256, BK = 64;  // x rows, w rows, K
-  static constexpr int XT = BM * BK * 2;     // x box: 16 KB
-  static constexpr int WT = BN * BK * 2;     // w box: 32 KB
+  static constexpr int BM = 128, BN = 256, BK = 64;  // tile rows, columns, K
+  static constexpr int XT = BM * BK * 2;     // A tile: 16 KB
+  static constexpr int WT = BN * BK * 2;     // B tile: 32 KB
+  static constexpr int MNB = 64 * BK * 2;    // an MN-major box: 8 KB
   static constexpr int STAGE = XT + WT;
   static constexpr int STAGES = 4;
   static constexpr int THREADS = 384;        // 2 consumer warpgroups + producer
@@ -659,10 +636,124 @@ __device__ __forceinline__ void epi_dz(const LceArgs &a, float (&acc)[128],
   }
 }
 
+// the 8 values of D row 8h + g at tile columns 8j .. 8j + 7, j = 4i + tq:
+// the quad holds them as pairs, and two quad transposes (even and odd
+// columns) hand thread tq all 8
+__device__ __forceinline__ void row8(const float (&acc)[128], int h, int i,
+                                     int tq, float (&v)[8]) {
+  unsigned lo[4], hi[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    lo[k] = __float_as_uint(acc[4 * (4 * i + k) + 2 * h]);
+    hi[k] = __float_as_uint(acc[4 * (4 * i + k) + 2 * h + 1]);
+  }
+  quad_transpose(lo, tq);
+  quad_transpose(hi, tq);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[2 * q] = __uint_as_float(lo[q]);
+    v[2 * q + 1] = __uint_as_float(hi[q]);
+  }
+}
+
+__device__ __forceinline__ void store8(float *dst, const float (&v)[8]) {
+  float4 *d = reinterpret_cast<float4 *>(dst);
+  d[0] = make_float4(v[0], v[1], v[2], v[3]);
+  d[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(bf16 *dst, const float (&v)[8]) {
+  *reinterpret_cast<uint4 *>(dst) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+// dx: v = the tile (+ dx_acc, unless the slab is the first); the last
+// slab writes v to dx in x's dtype, the others to dx_acc.  Thread tq moves
+// 8 columns of a row (32 bytes of dx_acc) at a time; each row half's
+// dx_acc loads are all issued before the first store
+__device__ __forceinline__ void epi_dx(const LceArgs &a, float (&acc)[128],
+                                       int m0, int n0, int ctid) {
+  const int lane = ctid & 31, warp = ctid >> 5, tq = lane & 3;
+  const int r0 = m0 + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = r0 + 8 * h;
+    float *row = a.dx_acc + (size_t)t * a.H + n0;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 old[16];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {            // H % 8: 8 columns in or out
+      const bool ok = t < a.T && n0 + 8 * (4 * i + tq) < a.H;
+      const float4 *src =
+          reinterpret_cast<const float4 *>(row + 8 * (4 * i + tq));
+      old[2 * i] = ok && !a.first ? src[0] : zero;
+      old[2 * i + 1] = ok && !a.first ? src[1] : zero;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v[8];
+      row8(acc, h, i, tq, v);
+      const int c = 8 * (4 * i + tq);
+      if (t >= a.T || n0 + c >= a.H) continue;
+      if (!a.first) {
+        v[0] += old[2 * i].x, v[1] += old[2 * i].y;
+        v[2] += old[2 * i].z, v[3] += old[2 * i].w;
+        v[4] += old[2 * i + 1].x, v[5] += old[2 * i + 1].y;
+        v[6] += old[2 * i + 1].z, v[7] += old[2 * i + 1].w;
+      }
+      const size_t o = (size_t)t * a.H + n0 + c;
+      if (!a.last)
+        store8(row + c, v);
+      else if (a.x_dtype == PT_BF16)
+        store8((bf16 *)a.dx + o, v);
+      else
+        store8((float *)a.dx + o, v);          // dx is dx_acc for fp32 x
+    }
+  }
+}
+
+// dw: slab rows c0 + v < c0 + width, columns h < H, in w's dtype; a
+// thread stores 8 columns of a row at a time after the quad transpose
+__device__ __forceinline__ void epi_dw(const LceArgs &a, float (&acc)[128],
+                                       int m0, int n0, int ctid) {
+  const int lane = ctid & 31, warp = ctid >> 5, tq = lane & 3;
+  const int r0 = m0 + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int v = r0 + 8 * h;
+    const size_t row = (size_t)(a.c0 + v) * a.H + n0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = 8 * (4 * i + tq);
+      const bool ok = v < a.width && n0 + c < a.H;
+      if (a.w_dtype == PT_BF16) {
+        unsigned p[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          p[k] = pack_bf16(acc[4 * (4 * i + k) + 2 * h],
+                           acc[4 * (4 * i + k) + 2 * h + 1]);
+        quad_transpose(p, tq);
+        if (ok)
+          *reinterpret_cast<uint4 *>((bf16 *)a.dw + row + c) =
+              make_uint4(p[0], p[1], p[2], p[3]);
+      } else {
+        float f[8];
+        row8(acc, h, i, tq, f);
+        if (ok) store8((float *)a.dw + row + c, f);
+      }
+    }
+  }
+}
+
+// A [M, K] and B [K, N] through the tensor maps ta / tb: K-major (z = x
+// w^T: boxes of 64 K columns by 128 / 256 rows) or MN-major (B of dx, A
+// and B of dw: boxes of 64 MN columns by 64 K rows, two a stage of A,
+// four of B)
 template <int EPI>
-__device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *tx,
-                                        const CUtensorMap *tw) {
+__device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *ta,
+                                        const CUtensorMap *tb) {
   using C = Wg;
+  constexpr bool MN_A = EPI == EPI_DW, MN_B = EPI == EPI_DX || EPI == EPI_DW;
   extern __shared__ unsigned char smem_raw[];
   unsigned char *smem = reinterpret_cast<unsigned char *>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -671,9 +762,9 @@ __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *tx,
   float4 *comb = reinterpret_cast<float4 *>(empty + C::STAGES);
   int *flag = reinterpret_cast<int *>(comb + C::BM);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cols = EPI == EPI_FWD ? a.V : a.ldz;
-  const int MB = cdiv(a.T, C::BM), NB = cdiv(cols, C::BN);
-  const int tiles = MB * NB, nk = cdiv(a.H, C::BK);
+  const Gemm g = gemm_of<EPI>(a);
+  const int MB = cdiv(g.rows, C::BM), NB = cdiv(g.cols, C::BN);
+  const int tiles = MB * NB, nk = cdiv(g.depth, C::BK);
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < C::STAGES; ++s) {
@@ -697,8 +788,20 @@ __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *tx,
           if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
           unsigned char *st = smem + s * C::STAGE;
           mbar_expect_tx(&full[s], C::STAGE);
-          tma_load_2d(st, tx, kb * C::BK, m0, &full[s]);
-          tma_load_2d(st + C::XT, tw, kb * C::BK, n0, &full[s]);
+          if constexpr (MN_A) {
+            tma_load_2d(st, ta, m0, kb * C::BK, &full[s]);
+            tma_load_2d(st + C::MNB, ta, m0 + 64, kb * C::BK, &full[s]);
+          } else {
+            tma_load_2d(st, ta, kb * C::BK, m0, &full[s]);
+          }
+          if constexpr (MN_B) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              tma_load_2d(st + C::XT + j * C::MNB, tb, n0 + 64 * j, kb * C::BK,
+                          &full[s]);
+          } else {
+            tma_load_2d(st + C::XT, tb, kb * C::BK, n0, &full[s]);
+          }
         }
       }
     }
@@ -720,12 +823,18 @@ __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *tx,
       const int s = it % C::STAGES;
       mbar_wait_or_trap(&full[s], (it / C::STAGES) & 1);
       const unsigned char *st = smem + s * C::STAGE;
-      const uint64_t da = desc_sw128(st + wg * (C::XT / 2));
-      const uint64_t db = desc_sw128(st + C::XT);
+      // a k16 slice is 32 bytes along a K-major row, 16 rows (2048 bytes)
+      // of an MN-major box: 2 or 128 in the descriptor's 16-byte units
+      const uint64_t da = MN_A ? desc_sw128_mn(st + wg * C::MNB, C::MNB)
+                               : desc_sw128(st + wg * (C::XT / 2));
+      const uint64_t db = MN_B ? desc_sw128_mn(st + C::XT, C::MNB)
+                               : desc_sw128(st + C::XT);
+      constexpr int SA = MN_A ? 128 : 2, SB = MN_B ? 128 : 2;
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        WgmmaSS256::mma(acc, da + 2 * kk, db + 2 * kk, kb > 0 || kk > 0);
+        WgmmaSS256<MN_A, MN_B>::mma(acc, da + SA * kk, db + SB * kk,
+                                    kb > 0 || kk > 0);
       wg_commit();
       wg_wait<1>();
       // the wgmmas of the previous stage have retired: hand its slot back
@@ -736,21 +845,37 @@ __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *tx,
     release((it - 1) % C::STAGES);
     if constexpr (EPI == EPI_FWD)
       epi_fwd(a, acc, m0, n0, nb, NB, mb, tid, comb, flag);
-    else
+    else if constexpr (EPI == EPI_DZ)
       epi_dz(a, acc, m0, n0, tid);
+    else if constexpr (EPI == EPI_DX)
+      epi_dx(a, acc, m0, n0, tid);
+    else
+      epi_dw(a, acc, m0, n0, tid);
   }
 }
 
 __global__ void __launch_bounds__(Wg::THREADS, 1)
-    linear_ce_fwd_wg(const LceArgs a, const __grid_constant__ CUtensorMap tx,
-                     const __grid_constant__ CUtensorMap tw) {
-  wg_body<EPI_FWD>(a, &tx, &tw);
+    linear_ce_fwd_wg(const LceArgs a, const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb) {
+  wg_body<EPI_FWD>(a, &ta, &tb);
 }
 
 __global__ void __launch_bounds__(Wg::THREADS, 1)
-    linear_ce_dz_wg(const LceArgs a, const __grid_constant__ CUtensorMap tx,
-                    const __grid_constant__ CUtensorMap tw) {
-  wg_body<EPI_DZ>(a, &tx, &tw);
+    linear_ce_dz_wg(const LceArgs a, const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb) {
+  wg_body<EPI_DZ>(a, &ta, &tb);
+}
+
+__global__ void __launch_bounds__(Wg::THREADS, 1)
+    linear_ce_dx_wg(const LceArgs a, const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb) {
+  wg_body<EPI_DX>(a, &ta, &tb);
+}
+
+__global__ void __launch_bounds__(Wg::THREADS, 1)
+    linear_ce_dw_wg(const LceArgs a, const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb) {
+  wg_body<EPI_DW>(a, &ta, &tb);
 }
 
 // -------------------------------------------------------------- launchers
@@ -792,44 +917,89 @@ cudaError_t dw(const LceArgs *a, cudaStream_t s) {
                Mma<TX, TX, false, true, BW_BM, BW_BN>::SMEM_BYTES, a, s);
 }
 
+typedef void (*WgKernel)(const LceArgs, const CUtensorMap, const CUtensorMap);
+static const WgKernel WG_KERNELS[4] = {linear_ce_fwd_wg, linear_ce_dz_wg,
+                                       linear_ce_dx_wg, linear_ce_dw_wg};
+
+// the current device's SM count; on the device's first call also the
+// shared memory of every wgmma kernel here (once a device and process,
+// not a launch)
+static cudaError_t wg_setup(int *sms) {
+  constexpr int DEVICES = 64;
+  static std::atomic<int> sm_count[DEVICES];    // zero: static storage
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= DEVICES) return cudaErrorInvalidDevice;
+  if ((*sms = sm_count[dev].load(std::memory_order_acquire))) return e;
+  std::lock_guard<std::mutex> hold(mu);
+  if ((*sms = sm_count[dev].load(std::memory_order_acquire))) return e;
+  for (WgKernel k : WG_KERNELS) {
+    e = cudaFuncSetAttribute((const void *)k,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Wg::SMEM);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) sm_count[dev].store(*sms, std::memory_order_release);
+  return e;
+}
+
 // grid, block and shared memory from the instance: one block an SM,
-// walking the tiles; the tensor maps per call
+// walking the tiles; the tensor maps per call.  Past a tensor the boxes
+// fill zeros.
 template <int EPI>
 cudaError_t launch_wg(const LceArgs *a, cudaStream_t s) {
   using C = Wg;
-  const bool is_fwd = EPI == EPI_FWD;
-  const bf16 *w = (const bf16 *)a->w + (is_fwd ? 0 : (size_t)a->c0 * a->H);
-  CUtensorMap tx, tw;
-  // x [T, H] in boxes of 128 rows x 64 columns, w [V or width, H] in boxes
-  // of 256 rows; past the tensor the boxes fill zeros
-  cudaError_t e = encode_map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a->x,
-                                a->H, a->T, 2 * (uint64_t)a->H, C::BK, C::BM);
-  if (e == cudaSuccess)
-    e = encode_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, a->H,
-                      is_fwd ? a->V : a->width, 2 * (uint64_t)a->H, C::BK,
-                      C::BN);
+  int sms = 0;
+  cudaError_t e = wg_setup(&sms);
   if (e != cudaSuccess) return e;
-  void (*kern)(const LceArgs, const CUtensorMap, const CUtensorMap) =
-      is_fwd ? linear_ce_fwd_wg : linear_ce_dz_wg;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           C::SMEM);
-  int dev = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const CUtensorMapDataType BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const uint64_t ldh = 2 * (uint64_t)a->H, ldz = 2 * (uint64_t)a->ldz;
+  const bf16 *w = (const bf16 *)a->w + (size_t)a->c0 * a->H;   // the slab
+  CUtensorMap ta, tb;
+  if (EPI == EPI_FWD || EPI == EPI_DZ) {
+    // x [T, H] in boxes of 128 rows x 64 columns, w [V] or its slab
+    // [width, H] in boxes of 256 rows
+    e = encode_map_2d(&ta, BF, a->x, a->H, a->T, ldh, C::BK, C::BM);
+    if (e == cudaSuccess)
+      e = EPI == EPI_FWD
+              ? encode_map_2d(&tb, BF, a->w, a->H, a->V, ldh, C::BK, C::BN)
+              : encode_map_2d(&tb, BF, w, a->H, a->width, ldh, C::BK, C::BN);
+  } else if (EPI == EPI_DX) {
+    // dz_w [T, width] (leading dim ldz) in boxes of 128 rows x 64 columns
+    // of K; w's slab [width, H] in boxes of 64 K rows x 64 columns of H
+    e = encode_map_2d(&ta, BF, a->dz_w, a->width, a->T, ldz, C::BK, C::BM);
+    if (e == cudaSuccess)
+      e = encode_map_2d(&tb, BF, w, a->H, a->width, ldh, 64, C::BK);
+  } else {
+    // dz_x [T, width] and x [T, H] in boxes of 64 K rows x 64 columns
+    e = encode_map_2d(&ta, BF, a->dz_x, a->width, a->T, ldz, 64, C::BK);
+    if (e == cudaSuccess)
+      e = encode_map_2d(&tb, BF, a->x, a->H, a->T, ldh, 64, C::BK);
+  }
   if (e != cudaSuccess) return e;
-  const long long tiles = (long long)cdiv(a->T, C::BM) *
-                          cdiv(is_fwd ? a->V : a->ldz, C::BN);
+  const Gemm g = gemm_of<EPI>(*a);
+  const long long tiles = (long long)cdiv(g.rows, C::BM) * cdiv(g.cols, C::BN);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  if constexpr (EPI == EPI_FWD)
-    linear_ce_fwd_wg<<<grid, C::THREADS, C::SMEM, s>>>(*a, tx, tw);
-  else
-    linear_ce_dz_wg<<<grid, C::THREADS, C::SMEM, s>>>(*a, tx, tw);
+  WG_KERNELS[EPI]<<<grid, C::THREADS, C::SMEM, s>>>(*a, ta, tb);
   return cudaGetLastError();
 }
 
 static bool both_bf16(const LceArgs *a) {
   return a->x_dtype == PT_BF16 && a->w_dtype == PT_BF16;
+}
+// linear_ce_dx's operands are dz_w and w, linear_ce_dw's dz_x and x: each
+// runs on wgmma when its operands are bf16
+static bool dx_on_wg(const LceArgs *a) { return a->w_dtype == PT_BF16; }
+static bool dw_on_wg(const LceArgs *a) { return a->x_dtype == PT_BF16; }
+// the Mma instances of linear_ce_dx with fp32 w, linear_ce_dw with fp32 x
+static cudaError_t dx_f32(const LceArgs *a, cudaStream_t s) {
+  return a->x_dtype == PT_BF16 ? dx<bf16, float>(a, s) : dx<float, float>(a, s);
+}
+static cudaError_t dw_f32(const LceArgs *a, cudaStream_t s) {
+  return a->w_dtype == PT_BF16 ? dw<float, bf16>(a, s) : dw<float, float>(a, s);
 }
 
 // the scratch linear_ce_fwd needs: fp32 words of `part` (4 a row and vocab
@@ -855,13 +1025,6 @@ static bool bad_shape(const LceArgs *a, bool slab) {
 }  // namespace lce
 }  // namespace pt
 
-// the (x dtype, w dtype) instance of FN
-#define PT_LCE_PICK(FN, a, s)                                         \
-  ((a)->x_dtype == PT_BF16                                            \
-       ? ((a)->w_dtype == PT_BF16 ? FN<pt::bf16, pt::bf16>(a, s)      \
-                                  : FN<pt::bf16, float>(a, s))        \
-       : ((a)->w_dtype == PT_BF16 ? FN<float, pt::bf16>(a, s)         \
-                                  : FN<float, float>(a, s)))
 // the instance of FN with an fp32 operand (bf16 x bf16 takes launch_wg)
 #define PT_LCE_PICK_F32(FN, a, s)                                     \
   ((a)->x_dtype == PT_BF16                                            \
@@ -889,13 +1052,15 @@ cudaError_t launch_linear_ce_dz(const LceArgs *a, cudaStream_t s) {
 cudaError_t launch_linear_ce_dx(const LceArgs *a, cudaStream_t s) {
   using namespace pt::lce;
   if (bad_shape(a, true)) return cudaErrorInvalidValue;
-  return count_launch(CNT_LINEAR_CE_DX, PT_LCE_PICK(dx, a, s));
+  return count_launch(CNT_LINEAR_CE_DX,
+                      dx_on_wg(a) ? launch_wg<EPI_DX>(a, s) : dx_f32(a, s));
 }
 
 cudaError_t launch_linear_ce_dw(const LceArgs *a, cudaStream_t s) {
   using namespace pt::lce;
   if (bad_shape(a, true)) return cudaErrorInvalidValue;
-  return count_launch(CNT_LINEAR_CE_DW, PT_LCE_PICK(dw, a, s));
+  return count_launch(CNT_LINEAR_CE_DW,
+                      dw_on_wg(a) ? launch_wg<EPI_DW>(a, s) : dw_f32(a, s));
 }
 
 extern "C" {

@@ -1,10 +1,11 @@
 // Hopper building blocks for the wgmma kernels (quant_linear.cu's
 // prefill GEMM, linear_ce.cu's logits GEMM): TMA tensor maps and 2-D tile
 // loads completing on an mbarrier, the mbarrier operations of a producer /
-// consumer ring, the wgmma shared-memory descriptor of a K-major
-// 128-byte-swizzled tile, the wgmma fence / commit / wait, setmaxnreg,
-// and wgmma.mma_async m64nNk16 bf16 with fp32 accumulators: A from
-// registers (N 128 and 256) or from shared memory (N 256).
+// consumer ring, the wgmma shared-memory descriptors of K-major and
+// MN-major 128-byte-swizzled tiles, the wgmma fence / commit / wait,
+// setmaxnreg, and wgmma.mma_async m64nNk16 bf16 with fp32 accumulators:
+// A from registers (N 128 and 256) or from shared memory (N 256, each
+// operand K-major or MN-major).
 //
 // Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix" section):
 //   * A from registers: warp w of the warpgroup holds rows 16w .. 16w+15;
@@ -18,6 +19,12 @@
 //     16-byte chunk c of row r sits at chunk c ^ (r & 7); 8-row groups are
 //     1024 bytes apart (the descriptor's stride byte offset).  The k16
 //     slice s of a 64-wide tile starts 32 s bytes in.
+//   * MN-major (m or n contiguous, as a row-major [K, MN] tensor gives
+//     them) as TMA writes boxes of 64 MN columns (128 bytes) x K rows with
+//     CU_TENSOR_MAP_SWIZZLE_128B: the same swizzle on rows of K; 8-row
+//     groups of K 1024 bytes apart (stride byte offset), 64-column boxes
+//     `box_bytes` apart along MN (leading byte offset).  The k16 slice s
+//     starts 16 s rows, 2048 s bytes, in.
 #pragma once
 
 #include <cuda.h>
@@ -101,6 +108,14 @@ __device__ __forceinline__ void tma_load_2d(void *dst, const CUtensorMap *map,
 __device__ __forceinline__ uint64_t desc_sw128(const void *tile) {
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// descriptor of an MN-major tile written by TMA with 128-byte swizzle as
+// boxes of 64 MN columns, `box_bytes` apart (1024-byte aligned)
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void *tile,
+                                                  int box_bytes) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) |
+         ((uint64_t)(box_bytes >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
 }
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -196,9 +211,12 @@ template <> struct WgmmaRS<128> {
 };
 
 // d (+)= A . B on m64n256k16, bf16 operands, fp32 accumulators; A and B
-// K-major tiles in shared memory through `da` / `db`; scale_d 0
+// tiles in shared memory through `da` / `db`, each K-major (0) or
+// MN-major (1: the instruction's transpose immediate); scale_d 0
 // overwrites d
+template <int MN_A = 0, int MN_B = 0>
 struct WgmmaSS256 {
+  static_assert((MN_A | MN_B) >> 1 == 0, "transpose immediates are 0 or 1");
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
                                              uint64_t db, int scale_d) {
     asm volatile(
@@ -212,7 +230,7 @@ struct WgmmaSS256 {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -229,7 +247,7 @@ struct WgmmaSS256 {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(MN_A), "n"(MN_B));
   }
 };
 

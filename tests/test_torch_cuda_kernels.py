@@ -373,15 +373,22 @@ def test_flash_attention_op_launches_kernels_and_refuses_head_dim():
 # 44, its dz scratch padded to 48 columns); then the edges of the bf16
 # kernels' 128 x 256 tiles and 64-column K steps: T 300, V 513 (a last
 # vocab tile and slab one column wide), H 72 (a second, partial K step);
-# V 100 < 256 with H 8 (one K step, mostly zero fill).  Row 1's label is
-# V - 1, in the last, partial vocab tile.
+# V 100 < 256 with H 8 (one K step, mostly zero fill); then the backward
+# products' tiles (128 x 256 outputs, K 64): slabs of 200 (dx's K ends
+# mid-step; the last slab 100 rows, under dw's 128, its dz scratch with
+# leading dimension 104), T 1000 (dw's K ends mid-step), H 200 (under 256,
+# off 64).  Row 1's label is V - 1, in the last, partial vocab tile.
 LCE_CASES = [(100, 64, 300, 128, -100, 0.0), (64, 32, 97, 40, None, 0.1),
-             (300, 72, 513, 256, -100, 0.0), (200, 8, 100, 64, None, 0.1)]
+             (300, 72, 513, 256, -100, 0.0), (200, 8, 100, 64, None, 0.1),
+             (1000, 200, 1100, 200, -100, 0.1)]
 LCE_IDS = ["ignore-index", "smoothing", "tile-edges-ignore-index",
-           "v-below-tile-h8-smoothing"]
+           "v-below-tile-h8-smoothing", "bwd-tile-edges-chunk200-h200"]
+# bf16 operands take the wgmma kernels: all four with bf16 x and w; dx
+# alone with fp32 x (dz_w and w bf16); dw alone with fp32 w (dz_x and x
+# bf16, dw written fp32)
 LCE_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-              (torch.float32, torch.bfloat16)]
-LCE_DTYPE_IDS = ["fp32", "bf16", "fp32x-bf16w"]
+              (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+LCE_DTYPE_IDS = ["fp32", "bf16", "fp32x-bf16w", "bf16x-fp32w"]
 
 
 @pytest.mark.gpu
@@ -392,7 +399,7 @@ def test_linear_ce_kernels_match_plain(dts, case):
     products differ only in summation order), the last slab's dz, and
     dx / dw (1e-4 in fp32, 2e-2 with a bf16 operand) against the plain
     versions; one fwd launch and one dz, dx and dw launch per slab; a
-    second forward and dz call bit-identical to the first."""
+    second forward, dz and backward call bit-identical to the first."""
     _need_card()
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
     from paddle_tpu_torch.ops.cuda import linear_ce as lc
@@ -422,6 +429,8 @@ def test_linear_ce_kernels_match_plain(dts, case):
     # its vocab tiles' partials in a fixed order)
     nll2, lse2 = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw)
     assert torch.equal(nll, nll2) and torch.equal(lse, lse2)
+    dx2, dw2 = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
     nll_p, lse_p = fce.lce_fwd_ref(x, w, lab, chunk=chunk,
                                    ignore_index=ignore, **kw)
     torch.testing.assert_close(nll, nll_p, rtol=1e-4, atol=1e-4)

@@ -13,32 +13,32 @@ objects into its own library under ``paddle_tpu_torch/kernels/_build/ab/``:
 unpacked by ``git archive`` into the git-ignored ``archive_check/``).
 ``--ablate`` adds this tree's file with the choices of ``TUNINGS``
 (groups of 16 or 48 row blocks; each stage handed back as soon as its
-wgmmas retire; w prefetched into L2 8 K steps ahead; dz stored
-evict-first; row blocks paired in 2-block clusters, each loading half of
-their shared w box and multicasting it to both), which are checked and
-timed like a tree, and
-with one part of the bf16 kernels cut out (``ABLATIONS``: the epilogues;
-the exponentials; the forward's fold; all but the copies; dz's stores),
-which compute something else and are timed unchecked.  ``--only`` keeps
-the named variants.  All ``nvcc`` processes start together.
+wgmmas retire; dz stored evict-first), which are checked and timed like
+a tree, and with one part of the bf16 kernels cut out (``ABLATIONS``:
+the epilogues; the exponentials; the forward's fold; all but the copies;
+dz's stores; dx's reads and writes of its fp32 accumulator), which
+compute something else and are timed unchecked.  ``--only`` keeps the
+named variants.  All ``nvcc`` processes start together.
 
 The script prints ptxas' registers, stack frame and spills of each
 variant's ``linear_ce`` kernels and any note of serialized wgmmas or
 ignored ``setmaxnreg`` (``--sass``: also the SASS opcode counts of each
 kernel, the SASS itself written to ``chiprun_out/lce_sass_<variant>.txt``),
 checks each checked variant on ``CASES`` (bf16: nll and lse within 1e-4
-of ``lce_fwd_ref``, the first and last slab's dz by ``chip_smoke.py``'s
-bf16 rule against ``lce_dz_ref``, and a second call of each bit-identical
-to the first), then, unless ``--no-time``, times at the Llama head (T 8192,
-H 4096, V 32000, bf16; ``chip_smoke.py``'s ``LCE_CASES[0]``), the variants
-in turns (a, b, ..., b, a): ``linear_ce_fwd`` (one call), ``linear_ce_dz``
-over the 16 slabs of 2048 (the backward's dz launches), and the whole
-backward call (dz, dx, dw), each beside its bound, and the forward beside
-the dense chain (``x @ w.T`` then ``F.cross_entropy``); ``--turns N``
-runs that order N times.  It also prints the bytes the bf16 kernels' TMA
-copies from L2 into shared memory a call (one block, and 2-block clusters
-with the w multicast), and each kernel's grid.  A tree whose library does
-not size the forward's scratch (``pt_linear_ce_fwd_scratch``, before the
+of ``lce_fwd_ref``, the first and last slab's dz, and dx and dw of the
+whole backward, by ``chip_smoke.py``'s bf16 rule against ``lce_dz_ref`` /
+``lce_bwd_ref``, and a second call of each bit-identical to the first),
+then, unless ``--no-time``, times at the Llama head (T 8192, H 4096, V
+32000, bf16; ``chip_smoke.py``'s ``LCE_CASES[0]``), the variants in turns
+(a, b, ..., b, a): ``linear_ce_fwd`` (one call), ``linear_ce_dz`` over
+the 16 slabs of 2048 (the backward's dz launches), and the whole
+backward call (dz, dx, dw) with each kernel's device time over its 16
+launches, each beside its bound, the forward beside the dense chain
+(``x @ w.T`` then ``F.cross_entropy``) and dz + dx + dw beside the dense
+chain's backward alone; ``--turns N`` runs that order N times.  It also
+prints the bytes the bf16 kernels' TMA copies from L2 into shared
+memory a call, and each kernel's grid.  A tree whose library does not
+size the forward's scratch (``pt_linear_ce_fwd_scratch``, before the
 bf16 kernels) is given none.
 
 Writes ``chiprun_out/lce_ab.json``.  Imports nothing of the JAX package.
@@ -67,8 +67,12 @@ CASES = [(300, 72, 513, 256, -100, 0.0), (200, 8, 100, 64, None, 0.1),
 LLAMA = cs.LCE_CASES[0]
 _EPI = """    if constexpr (EPI == EPI_FWD)
       epi_fwd(a, acc, m0, n0, nb, NB, mb, tid, comb, flag);
+    else if constexpr (EPI == EPI_DZ)
+      epi_dz(a, acc, m0, n0, tid);
+    else if constexpr (EPI == EPI_DX)
+      epi_dx(a, acc, m0, n0, tid);
     else
-      epi_dz(a, acc, m0, n0, tid);"""
+      epi_dw(a, acc, m0, n0, tid);"""
 _NO_EPI = "    (void)nb; (void)flag; (void)comb;"
 # in place of the epilogue: a sum of every accumulator and a store that
 # never happens, so ptxas keeps the real wgmmas (with acc dead it swaps
@@ -80,7 +84,8 @@ _SUM_ACC = """    {
       if (z[0] + z[1] + z[2] + z[3] == 1.2345e-30f) a.nll[0] = z[0];
     }
 """ + _NO_EPI
-_MMA = """        WgmmaSS256::mma(acc, da + 2 * kk, db + 2 * kk, kb > 0 || kk > 0);"""
+_MMA = """        WgmmaSS256<MN_A, MN_B>::mma(acc, da + SA * kk, db + SB * kk,
+                                    kb > 0 || kk > 0);"""
 _EX2 = """  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));"""
 _TICKET = "  if (*flag) merge_rows(a, part, comb, m0, NB, ctid);"
 _GROUP = ("  static constexpr int GROUP = 32;           // row blocks a group "
@@ -92,121 +97,10 @@ _HANDBACK = """      wg_wait<1>();
     wg_wait<0>();
     fence_regs(acc);
     release((it - 1) % C::STAGES);"""
-_FILL = """          unsigned char *st = smem + s * C::STAGE;
-          mbar_expect_tx(&full[s], C::STAGE);"""
 _DZ_STORE = "        pw[4 * i + tq] = q;"
-# row blocks paired in 2-block clusters (CL): each block loads half of the
-# pair's w box and multicasts it to both, so a tile reads 2 MB from L2,
-# not 3; each block's stage is free once both blocks' consumers release it
-_MULTICAST = [
-    ("enum { EPI_FWD = 0, EPI_DZ = 1 };", """enum { EPI_FWD = 0, EPI_DZ = 1 };
-constexpr int CL = 2;                      // blocks a cluster along the rows
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.aligned;\\n"
-               "barrier.cluster.wait.aligned;\\n" ::: "memory");
-}
-// one arrival on the barrier at `bar`'s offset in cluster block `cta`
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t *bar, unsigned cta) {
-  asm volatile(
-      "{\\n.reg .b32 ra;\\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\\n}\\n" ::
-          "r"(smem_u32(bar)), "r"(cta)
-      : "memory");
-}
-// tma_load_2d into `dst`'s offset of every cluster block of `mask`
-__device__ __forceinline__ void tma_load_2d_mc(void *dst, const CUtensorMap *map,
-                                               int c0, int c1, uint64_t *bar,
-                                               unsigned short mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\\n" ::"r"(
-          smem_u32(dst)),
-      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
-      : "memory");
-}"""),
-    ("""  const int MB = cdiv(a.T, C::BM), NB = cdiv(cols, C::BN);
-  const int tiles = MB * NB, nk = cdiv(a.H, C::BK);""",
-     """  const unsigned rank = cluster_rank();
-  const int MB = cdiv(a.T, C::BM), NB = cdiv(cols, C::BN);
-  const int MU = cdiv(MB, CL), tiles = MU * NB, nk = cdiv(a.H, C::BK);"""),
-    ("for (int u = blockIdx.x; u < tiles; u += gridDim.x) {",
-     "for (int u = blockIdx.x / CL; u < tiles; u += gridDim.x / CL) {", 2),
-    ("tile_of(u, MB, NB, C::GROUP, mb, nb);",
-     "tile_of(u, MU, NB, C::GROUP / CL, mb, nb); mb = mb * CL + rank;", 2),
-    ("mbar_init(&empty[s], 8);", "mbar_init(&empty[s], 8 * CL);"),
-    ("""    mbar_init_fence();
-  }
-  __syncthreads();""", """    mbar_init_fence();
-  }
-  cluster_sync();"""),
-    ("""          tma_load_2d(st + C::XT, tw, kb * C::BK, n0, &full[s]);
-        }
-      }
-    }
-    return;""", """          tma_load_2d_mc(st + C::XT + rank * (C::WT / 2), tw, kb * C::BK,
-                         n0 + rank * (C::BN / 2), &full[s], 3);
-        }
-      }
-      // the peer arrives on this block's barriers: leave only once both
-      // blocks have released every stage's last fill
-      for (int i = 0; i < C::STAGES; ++i, ++it) {
-        const int s = it % C::STAGES, round = it / C::STAGES;
-        if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
-      }
-    }
-    return;"""),
-    ("    if (lane == 0) mbar_arrive(&empty[s]);", """    if (lane == 0) {
-      mbar_arrive(&empty[s]);
-      mbar_arrive_cluster(&empty[s], rank ^ 1);
-    }"""),
-    ("""    release((it - 1) % C::STAGES);
-    if constexpr""", """    release((it - 1) % C::STAGES);
-    if (mb >= MB) continue;                  // the pair's row block past T
-    if constexpr"""),
-    ("""is_fwd ? a->V : a->width, 2 * (uint64_t)a->H, C::BK,
-                      C::BN);""", """is_fwd ? a->V : a->width, 2 * (uint64_t)a->H, C::BK,
-                      C::BN / CL);"""),
-    ("""  int dev = 0, sms = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const long long tiles = (long long)cdiv(a->T, C::BM) *
-                          cdiv(is_fwd ? a->V : a->ldz, C::BN);
-  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  if constexpr (EPI == EPI_FWD)
-    linear_ce_fwd_wg<<<grid, C::THREADS, C::SMEM, s>>>(*a, tx, tw);
-  else
-    linear_ce_dz_wg<<<grid, C::THREADS, C::SMEM, s>>>(*a, tx, tw);""",
-     """  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL);
-  cfg.blockDim = dim3(C::THREADS);
-  cfg.dynamicSmemBytes = C::SMEM;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int slots = 0;
-  e = cudaOccupancyMaxActiveClusters(&slots, kern, &cfg);
-  if (e != cudaSuccess) return e;
-  if (slots <= 0) return cudaErrorInvalidConfiguration;
-  const long long units = (long long)cdiv(cdiv(a->T, C::BM), CL) *
-                          cdiv(is_fwd ? a->V : a->ldz, C::BN);
-  cfg.gridDim = dim3((unsigned)(units < slots ? units : slots) * CL);
-  e = cudaLaunchKernelEx(&cfg, kern, *a, tx, tw);
-  if (e != cudaSuccess) return e;"""),
-]
+_DX_LOAD = "ok && !a.first ?"
+_DX_STORE = """      if (!a.last)
+        store8(row + c, v);"""
 # linear_ce.cu with one choice of the bf16 kernels changed: (old, new)
 # text pairs; checked and timed like a tree
 TUNINGS = {f"group_{g}": [(_GROUP, _GROUP.replace("32", str(g)))]
@@ -217,16 +111,8 @@ TUNINGS.update({
       release(s);
     }
     fence_regs(acc);""")],
-    # the producer also prefetches w's box 8 K steps ahead into L2
-    "w_l2_prefetch_8": [(_FILL, """          if (kb + 8 < nk)
-            asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global.tile"
-                         " [%0, {%1, %2}];" ::"l"((uint64_t)tw),
-                         "r"((kb + 8) * C::BK), "r"(n0)
-                         : "memory");
-""" + _FILL)],
     # dz stored with the evict-first hint (st.global.cs)
     "dz_evict_first": [(_DZ_STORE, "        __stcs(pw + 4 * i + tq, q);")],
-    "w_multicast_2": _MULTICAST,
 })
 # linear_ce.cu with one part of the bf16 kernels cut: (old, new) text
 # pairs; timed unchecked
@@ -243,6 +129,10 @@ ABLATIONS = {
     # never holds (so the arithmetic stays)
     "dz_no_store": [(_DZ_STORE, "        if (q.x == 0x7fc00001u && "
                                 "q.y == q.x) pw[4 * i + tq] = q;")],
+    # dx without its fp32 accumulator: no dx_acc read, no dx_acc write
+    # (only the last slab's store of dx stays, so the wgmmas stay)
+    "dx_no_acc": [(_DX_LOAD, "false ?", 2),
+                  (_DX_STORE, "      if (!a.last)\n        ;")],
 }
 SASS_OPS = ("HGMMA", "MUFU", "FFMA", "FMNMX", "FADD", "SHFL", "STG", "LDG",
             "SYNCS", "UTMALDG", "BAR")
@@ -381,8 +271,8 @@ def inputs(case, gen):
 
 def check_variant(name, gen):
     """Every case of CASES against the plain versions, and each call
-    twice; raises on the first miss.  Returns the worst bf16 ratio of dz's
-    distance from fp32 to the plain version's."""
+    twice; raises on the first miss.  Returns the worst bf16 ratio of dz's,
+    dx's and dw's distance from fp32 to the plain version's."""
     import torch
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
     from paddle_tpu_torch.ops.cuda import linear_ce as lc
@@ -416,21 +306,38 @@ def check_variant(name, gen):
                                     truth.to(dz.dtype), truth, True, ratios))
             worst = max(worst, ratios[0])
             del dz, dz2, truth
+        dx, dw = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
+        dx2, dw2 = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk,
+                                         **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise cs.SmokeFailure(f"{label}: two backward calls differ")
+        del dx2, dw2
+        dx_p, dw_p = fce.lce_bwd_ref(x, w, lab, lse, g, chunk=chunk, **kw)
+        dx_t, dw_t = fce.lce_bwd_ref(x.float(), w.float(), lab, lse, g,
+                                     chunk=chunk, **kw)
+        ratios = []
+        e = max(e, cs.check_lce(f"{label} dx", dx, dx_p, dx_t, True, ratios),
+                cs.check_lce(f"{label} dw", dw, dw_p, dw_t, True, ratios))
+        worst = max(worst, *ratios)
         cs.info(f"{label}: max |kernel - plain| {e:.3e}")
         del x, w, lab, g, nll, lse, nll2, lse2, nll_p, lse_p
+        del dx, dw, dx_p, dw_p, dx_t, dw_t
         torch.cuda.empty_cache()
     return worst
 
 
-def tma_bytes(T, H, V, chunk, cluster):
-    """Bytes the bf16 kernels' TMA reads from L2 a call: forward and the
-    backward's dz over its slabs (each block reads its 128-row x box and
-    its share of the 256-row w tile every 64-column K step)."""
-    def one(rows):
-        units = -(-(-(-T // 128)) // cluster) * -(-rows // 256)
-        return units * -(-H // 64) * (cluster * 128 * 128 + 256 * 128)
-    return {"fwd": one(V), "dz": sum(one(min(chunk, V - c0))
-                                     for c0 in range(0, V, chunk))}
+def tma_bytes(T, H, V, chunk):
+    """Bytes the bf16 kernels' TMA reads from L2 a call: the forward and
+    the backward's dz, dx and dw over its slabs (each 128 x 256 output
+    tile reads a 16 KB A box and a 32 KB B box every 64-deep K step)."""
+    def one(rows, cols, depth):
+        return -(-rows // 128) * -(-cols // 256) * -(-depth // 64) * 49152
+    widths = [min(chunk, V - c0) for c0 in range(0, V, chunk)]
+    return {"fwd": one(T, V, H),
+            "dz": sum(one(T, c, H) for c in widths),
+            "dx": sum(one(T, H, c) for c in widths),
+            "dw": sum(one(c, H, T) for c in widths)}
 
 
 def kernel_grids(fn, name):
@@ -468,7 +375,8 @@ def time_llama(libs, order, gen, report):
     def dz_all():
         for c0, width in slabs:
             lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width)
-    times = {name: {"fwd": [], "dz": [], "bwd": []} for name in libs}
+    times = {name: {"fwd": [], "dz": [], "dx": [], "dw": [], "bwd": []}
+             for name in libs}
     for name in libs:
         build._lib = libs[name][0]
         grids = kernel_grids(lambda: (lc.linear_ce_fwd_cuda(x, w, lab),
@@ -488,30 +396,44 @@ def time_llama(libs, order, gen, report):
         by = {}
         dev, call = cs.time_ms(lambda: lc.linear_ce_bwd_cuda(
             x, w, lab, lse, g, chunk=chunk), 2, by)
-        times[name]["bwd"].append(dict(
-            device_ms=dev, call_ms=call,
-            **{k: kernel_ms(by, k) for k in cs.LCE_NAMES[1:]}))
+        per = {k: kernel_ms(by, k) for k in cs.LCE_NAMES[1:]}
+        times[name]["bwd"].append(dict(device_ms=dev, call_ms=call, **per))
+        for k in ("dx", "dw"):
+            times[name][k].append(per[f"linear_ce_{k}"])
         cs.info(f"llama head {name}: fwd {times[name]['fwd'][-1]:.4f} ms, "
                 f"dz x {len(slabs)} {times[name]['dz'][-1]:.4f} ms, bwd "
                 f"{times[name]['bwd'][-1]}")
     lib_fwd = cs.time_ms(lambda: F.cross_entropy(
         (x @ w.t()).float(), lab, reduction="none"), ITERS)[0]
-    bo = cs.lce_bytes_ops(T, H, V, 2, 2)
-    bound = {k: cs.bound_ms(*bo[f"linear_ce_{k}"][:2]) for k in ("fwd", "dz")}
-    report["llama_head"] = dict(bound_ms=bound, library_fwd_ms=lib_fwd)
-    cs.info(f"llama head: bound fwd {bound['fwd']}, dz {bound['dz']}; dense "
-            f"chain forward {lib_fwd:.4f} ms")
+    xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
+    saved = (F.cross_entropy((xr @ wr.t()).float(), lab, reduction="none")
+             * g).sum()
+    lib_bwd = cs.time_ms(lambda: torch.autograd.grad(
+        saved, (xr, wr), retain_graph=True), 3)[0]
+    del saved, xr, wr
+    bo = cs.lce_bytes_ops(T, H, V, chunk, 2, 2)
+    bound = {k: cs.bound_ms(*bo[f"linear_ce_{k}"][:2])
+             for k in ("fwd", "dz", "dx", "dw")}
+    report["llama_head"] = dict(bound_ms=bound, library_fwd_ms=lib_fwd,
+                                library_bwd_ms=lib_bwd)
+    cs.info(f"llama head: bound {bound}; dense chain forward {lib_fwd:.4f} "
+            f"ms, backward alone {lib_bwd:.4f} ms")
     for name, ts in times.items():
         row = report["variants"][name]["llama_head"] = dict(ts)
-        for k in ("fwd", "dz"):
-            mean = sum(ts[k]) / len(ts[k])
+        for k in ("fwd", "dz", "dx", "dw"):
+            got = [v for v in ts[k] if v is not None]
+            if not got:
+                continue
+            mean = sum(got) / len(got)
             row[f"{k}_mean_ms"] = mean
             row[f"{k}_of_bound"] = bound[k][0] / mean
-        cs.info(f"llama head {name}: fwd {ts['fwd']} ms (mean "
-                f"{row['fwd_mean_ms']:.4f}, {100 * row['fwd_of_bound']:.1f} % "
-                f"of bound, {row['fwd_mean_ms'] / lib_fwd:.2f}x the dense "
-                f"chain), dz {ts['dz']} ms (mean {row['dz_mean_ms']:.4f}, "
-                f"{100 * row['dz_of_bound']:.1f} % of bound)")
+            cs.info(f"llama head {name}: {k} {ts[k]} ms (mean {mean:.4f}, "
+                    f"{100 * row[f'{k}_of_bound']:.1f} % of bound)")
+        if all(f"{k}_mean_ms" in row for k in ("dz", "dx", "dw")):
+            bwd = sum(row[f"{k}_mean_ms"] for k in ("dz", "dx", "dw"))
+            cs.info(f"llama head {name}: fwd {row['fwd_mean_ms'] / lib_fwd:.2f}"
+                    f"x the dense chain's forward; dz + dx + dw {bwd:.4f} ms, "
+                    f"{bwd / lib_bwd:.2f}x its backward alone")
 
 
 def main():
@@ -550,9 +472,8 @@ def main():
         keep = args.only.split(",")
         srcs = {k: v for k, v in srcs.items() if k in keep}
     libs = build_variants(srcs)
-    report = {"card": card, "variants": {}, "tma_bytes": {
-        f"cluster {c}": tma_bytes(*[LLAMA[i] for i in (1, 2, 3, 4)], c)
-        for c in (1, 2)}}
+    report = {"card": card, "variants": {},
+              "tma_bytes": tma_bytes(*[LLAMA[i] for i in (1, 2, 3, 4)])}
     cs.info(f"TMA bytes from L2 a call at the Llama head: "
             f"{report['tma_bytes']}")
     for name, (_, table, notes, obj) in libs.items():
