@@ -13,7 +13,10 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             shapes, each held against its plain PyTorch version in fp32
             (tolerance 1e-4) and bf16 (2e-2), layer output and pool pages,
             with the untouched pages checked unchanged; then each kernel of
-            the chain on its own; kernel, plain and library times in bf16;
+            the chain on its own (the GEMMs at M 4, 16, 64 and 256); kernel,
+            plain and library times in bf16, each layer call's device time
+            from its chain's kernels (``chain_ms``, which fails when one is
+            missing) and the host time of one ``decode_block`` call;
 4. engine   ``llama_7b`` in bf16 with seeded random weights served by the
             continuous-batching engine (bucketed prefill, paged decode):
             the prefill logits of one request against the plain chain on
@@ -281,22 +284,46 @@ def time_ms(fn, iters, breakdown=None, per_launch=False):
     return (device if best else None), call_ms
 
 
-def chain_ms(breakdown):
+def chain_ms(breakdown, gemm):
     """Device ms of one layer call from the per-kernel mean launch times
-    and the chain's launch counts (2 norms, 5 plain GEMMs, 1 SwiGLU GEMM,
-    1 RoPE/KV write, 1 attention; :func:`layer_launches` checks them
-    against the library's counters), robust to missing profiler
-    records."""
-    per = {"rms_norm_rows": 2, "<true>": 1, "<false>": 5,
-           "rope_kv_write": 1, "paged_attention": 1}
+    and the chain's launch counts (2 norms, 6 GEMMs of the regime's
+    kernel ``gemm``: ``gemm_xw_small_m_tma`` at M <= 16, else
+    ``gemm_xw_tiled_wg``; 1 RoPE/KV write, 1 attention;
+    :func:`layer_launches` checks them against the library's counters),
+    robust to missing profiler records.  Raises when a kernel of the chain
+    has no record or another GEMM kernel has one."""
+    per = {"rms_norm_rows": 2, gemm: 6, "rope_kv_write": 1,
+           "paged_attention": 1}
     total, seen = 0.0, set()
     for name, (mean, _) in breakdown.items():
+        if "gemm" in name and gemm not in name:
+            raise SmokeFailure(f"layer call ran GEMM kernel {name}, "
+                               f"expected {gemm}")
         for key, n in per.items():
             if key in name:
                 total += mean * n
                 seen.add(key)
                 break
-    return total if seen == set(per) else None
+    if seen != set(per):
+        raise SmokeFailure(f"layer call: no profiler record of "
+                           f"{sorted(set(per) - seen)} in {sorted(breakdown)}")
+    return total
+
+
+def host_ms(fn, calls=30):
+    """Median host time of one call of ``fn`` (enqueue only), the card
+    idle before each."""
+    import statistics
+    import torch
+    fn()
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(out)
 
 
 def layer_launches(name, fn):
@@ -510,7 +537,9 @@ def phase_kernels(cfg, results, dev="cuda"):
         x, lp, pk, pv, bt, lengths, cos, sin, spec=spec))
     _, call = time_ms(lambda: db.decode_block(
         x, lp, pk, pv, bt, lengths, cos, sin, spec=spec), 20, dec_by)
-    ms = chain_ms(dec_by)
+    ms = chain_ms(dec_by, "gemm_xw_small_m_tma")
+    host = host_ms(lambda: db.decode_block(
+        x, lp, pk, pv, bt, lengths, cos, sin, spec=spec))
     plain, plain_call = time_ms(lambda: db.decode_block_ref(
         x, lp, pk, pv, bt, lengths, cos, sin, spec=spec), 5)
     bms, bby = bound_ms(dec_bytes, dec_ops)
@@ -520,12 +549,15 @@ def phase_kernels(cfg, results, dev="cuda"):
         replaces="paddle_tpu/ops/pallas/decode_block.py:535",
         shape="llama_7b layer, B=4, lengths 1000/37/0(inactive)/517",
         max_abs_err=kernel_err[("decode_block", "bfloat16")], ms=ms,
-        call_ms=call, plain_ms=plain, plain_call_ms=plain_call,
-        bound_ms=bms, bound_by=bby, library_ms=None,
+        call_ms=call, host_ms=host, plain_ms=plain,
+        plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
+        library_ms=None,
         bf16_vs_fp32_ratio=max(ratios[("decode_block", "bfloat16")])))
-    info(f"decode_block bf16: device {ms} ms (per call {call:.4f} ms), "
-         f"plain device {plain} ms (per call {plain_call:.4f} ms), bound "
-         f"{bms:.4f} ms ({bby}); kernels {short(dec_by)}")
+    info(f"decode_block bf16: device {ms:.4f} ms (per call {call:.4f} ms, "
+         f"call - device {call - ms:.4f} ms; host enqueue of one call, "
+         f"median of 30: {host:.4f} ms), plain device {plain} ms (per call "
+         f"{plain_call:.4f} ms), bound {bms:.4f} ms ({bby}); kernels "
+         f"{short(dec_by)}")
     for Ts, start, valid in pre_cases:
         xp = xs[Ts].to(dt)
         pos = start + torch.arange(Ts, device=dev)
@@ -544,15 +576,16 @@ def phase_kernels(cfg, results, dev="cuda"):
         _, call = time_ms(lambda: db.prefill_block(
             xp, lp, pk, pv, blk, off, bt_row, c, s, spec=spec,
             start=start), 10, pre_by)
-        ms = chain_ms(pre_by)
+        ms = chain_ms(pre_by, "gemm_xw_small_m_tma" if Ts <= 16
+                      else "gemm_xw_tiled_wg")
         plain, plain_call = time_ms(lambda: db.prefill_block_ref(
             xp, lp, pk, pv, blk, off, bt_row, c, s, spec=spec,
             start=start), 3)
         bms, bby = bound_ms(pre_bytes, pre_ops)
         info(f"prefill_block bf16 Ts={Ts} start={start} valid={valid}: "
-             f"device {ms} ms (per call {call:.4f} ms), plain device {plain} "
-             f"ms (per call {plain_call:.4f} ms), bound {bms:.4f} ms ({bby}); "
-             f"kernels {short(pre_by)}")
+             f"device {ms:.4f} ms (per call {call:.4f} ms), plain device "
+             f"{plain} ms (per call {plain_call:.4f} ms), bound {bms:.4f} ms "
+             f"({bby}); kernels {short(pre_by)}")
         if Ts == 256:
             results.append(dict(
                 name="prefill_block", route="cuda",
@@ -588,7 +621,7 @@ def phase_kernels(cfg, results, dev="cuda"):
         plain_ms=plain, plain_call_ms=plain_call, bound_ms=bms,
         bound_by=bby, library_ms=lib))
 
-    for M in (4, 256):
+    for M in (4, 16, 64, 256):
         xm = torch.randn(M, H, device=dev, generator=gen).to(dt)
         for wname, epi in (("q_w", "none"), ("down_w", "none"),
                            ("gate_w", "swiglu"), ("down_w", "resid")):
@@ -616,7 +649,7 @@ def phase_kernels(cfg, results, dev="cuda"):
             info(f"gemm_xw M={M} [{Kd}x{N}] {epi}: device {ms} ms (per call "
                  f"{call:.4f}), plain {plain} ms, torch.matmul {lib} ms, "
                  f"bound {bms:.4f} ms ({bby}), max |err| {err:.2e}")
-            if epi == "none" and wname == "down_w":
+            if epi == "none" and wname == "down_w" and M in (4, 256):
                 # 90 MB of weights: more than the 50 MB L2, so repeated
                 # calls read them from device memory as the engine does
                 results.append(dict(
@@ -713,7 +746,10 @@ def phase_kernels(cfg, results, dev="cuda"):
 
 
 def phase_engine(cfg, dev="cuda"):
-    """Serve llama_7b (bf16, seeded random weights) through the engine."""
+    """Serve llama_7b (bf16, seeded random weights) through the engine;
+    returns the main path's launch counts and its summary (decode step
+    wall and device-busy ms of 8 profiled steps at B 4, decode tokens/s,
+    bucketed prefill seconds, time to first token)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.device import make_generator
@@ -850,7 +886,11 @@ def phase_engine(cfg, dev="cuda"):
          f"{dec_tok} tokens in {dec_s:.2f} s = {dec_tok / dec_s:.1f} tok/s; "
          f"time to first token min {ttfts[0]:.2f} s max {ttfts[-1]:.2f} s; "
          f"buckets {eng.bucket_stats()}; leak {leak}; launches {counts}")
-    return counts
+    return counts, dict(
+        decode_step_ms=step_ms, decode_busy_ms=busy,
+        decode_tokens_per_s=dec_tok / dec_s, prefill_s=pre_s, wall_s=wall,
+        ttft_min_s=ttfts[0], ttft_max_s=ttfts[-1],
+        ttft_mean_s=sum(ttfts) / len(ttfts))
 
 
 def flash_bytes_ops(B, Sq, Sk, Hq, Hkv, D, causal, itemsize):
@@ -2957,7 +2997,7 @@ def main():
         kernels = []
         phase_kernels(cfg, kernels)
         torch.cuda.empty_cache()
-        counts = phase_engine(cfg)
+        counts, engine = phase_engine(cfg)
         del cfg
         torch.cuda.empty_cache()
         phase_flash(kernels)
@@ -3004,6 +3044,7 @@ def main():
             if k[key] is None:           # the profiler recorded no kernels
                 k[key] = k[fallback]
                 k["timing"] = "cuda events"
+    info(f"engine summary {json.dumps(engine)}")
     info(f"train summary {json.dumps(train)}")
     info(f"gpt summary {json.dumps(gpt)}")
     info(f"generate summary {json.dumps(gen)}")

@@ -6,279 +6,501 @@
 // JAX layout [in, out], row-major.  Epilogues:
 //   EPI_NONE    Y = X @ W                               (q, k, v)
 //   EPI_RESID   Y = R + X @ W                           (o-proj, down-proj)
-//   EPI_SWIGLU  Y = silu(X @ W) * (X @ W2), two accumulators in one block
+//   EPI_SWIGLU  Y = silu(X @ W) * (X @ W2), two products in one launch
 //               (gate/up)
 // with the reference's rounding: each product rounded to the storage type
 // before the residual add or the activation.
 //
-// What bounds it on an H100: at decode (M = batch <= 8) the weight bytes
-// (a 7B layer streams ~400 MB in bf16), so the time is memory time; at
-// prefill (M = 16..256) the tensor-core operations take over for M >~ 64.
-// What the design does about it, in this first version:
-//   * bf16 runs on tensor cores (nvcuda::wmma 16x16x16, fp32 accumulate)
-//     over shared-memory tiles loaded with 16-byte vector loads; the next
-//     K tile is fetched into registers while the current one multiplies.
-//   * M <= 16 takes a 16 x 32 output tile with BK = 128 and the four
-//     warps splitting K (reduced through shared memory at the end), so a
-//     4096-wide output runs 128 blocks and each block keeps 8 KB of
-//     weights in flight.  The tile wastes the rows past M — compute is
-//     not the limit there.  A later PR reshapes decode as a split-K GEMV
-//     with deeper (cp.async / TMA) pipelines.
-//   * M > 16 takes 64 x 64 tiles, 4 warps of 32 x 32.  wgmma and TMA are
-//     later work.
-//   * fp32 (the correctness lane) runs plain FMA over 64 x 64 tiles.
+// What bounds it on an H100: the weight bytes at decode (M = batch <= 16:
+// a 7B layer streams ~400 MB of bf16 weights, 0.121 ms at 3.35 TB/s) and
+// up to M ~ 200; at M 256 the operations come close (the down projection:
+// 29 us of bytes against 23 us of operations) and the L2 stream of x
+// (re-read by every 128-column tile: 180 MB at the down projection) sets
+// the pace.
+//
+// bf16: one warp-specialized wgmma / TMA body for sm_90a (xw_body), two
+// kernel names (gemm_xw_small_m_tma at M <= 16, gemm_xw_tiled_wg above):
+//   * Operands swapped: Y^T [N, M] = W^T [N, K] . X^T [K, M].  W's 128
+//     columns of a block are wgmma's M side, two warpgroups of 64 (SwiGLU:
+//     64 columns of W and the same 64 of W2, so a block's weight bytes are
+//     the same in every epilogue), read straight from W's row-major layout
+//     as an MN-major A operand: TMA boxes of 64 columns x 64 K rows,
+//     128-byte swizzle, so a weight row is read as a 256-byte run.  X
+//     [M, K] row-major is a K-major B tile of NX rows (wgmma's N: 8 or 16
+//     at decode, 32, 64 or 128 above, padded by TMA's zero fill), re-read
+//     from L2 by every column tile; M > 128 runs 128-row tiles side by side
+//     (measured faster than 256-row ones, which spill at 168 registers).
+//   * A producer warp keeps a ring of stages (16 KB of W + NX x 128 bytes
+//     of X; 6 stages at decode, two blocks an SM: ~200 KB of weights in
+//     flight an SM) on mbarriers; the consumer warpgroups run
+//     wgmma m64nNXk16 from shared memory into fp32 registers and hand a
+//     stage back once its wgmmas retire.
+//   * K is split over a thread-block cluster of S blocks (grid x).
+//     plan_of picks S from the clusters of each size the device keeps
+//     resident (cudaOccupancyMaxActiveClusters, once a device): at decode
+//     N 4096 runs 32 column tiles x 7, all resident (x 8 would leave 16
+//     blocks to a second wave), N 11008 SwiGLU 172 tiles unsplit.
+//   * The fold, inside the launch: every block stages its fp32 partial
+//     tile in its own shared memory (the ring, now idle); after a cluster
+//     barrier it bulk-copies (cp.async.bulk shared::cta -> shared::cluster)
+//     each peer's 1/S of the rows into that peer's receive slots, on the
+//     peer's mbarrier; each block then sums its rows over the S slots in
+//     split order, so two calls are bit-identical, and runs the epilogue
+//     once (SwiGLU pairs W's and W2's columns there), storing bf16 pairs
+//     along N.  No workspace, no second kernel.  (Reading the peers'
+//     partials through distributed shared memory instead cost 25-36 us a
+//     launch at M 256, tools/gemm_ab.py.)
+//   * Host: the shared-memory attribute and the occupancy table are set
+//     once a device; the tensor maps are cached by their arguments (a map
+//     is a pure function of base, shape and box), so the layer's steady
+//     weights cost one lookup each.
+// fp32 (the correctness lane) runs plain FMA over 64 x 64 tiles.
 // Requirements checked by the wrapper: K % 8 == 0, N % 8 == 0, 16-byte
 // aligned pointers.
-#include <mma.h>
+#include <atomic>
+#include <mutex>
+#include <unordered_map>
 
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "wgmma.cuh"
 
 namespace pt {
 
 template <typename T>
-__device__ __forceinline__ void epilogue(T *Y, const T *R, int epi, int m,
-                                         int n, int N, float a, float b) {
-  float out;
-  size_t i = (size_t)m * N + n;
+__device__ __forceinline__ float epi_value(int epi, float a, float b,
+                                           float r) {
   if (epi == EPI_SWIGLU) {
     float g = rnd<T>(a), u = rnd<T>(b);
     float s = rnd<T>(g / (1.0f + expf(-g)));
-    out = s * u;
-  } else if (epi == EPI_RESID) {
-    out = to_f<T>(R[i]) + rnd<T>(a);
-  } else {
-    out = a;
+    return s * u;
   }
-  Y[i] = from_f<T>(out);
+  if (epi == EPI_RESID) return r + rnd<T>(a);
+  return a;
 }
 
-// ---------------------------------------------------------------- M <= 16
-constexpr int S_BM = 16, S_BN = 32, S_BK = 128;
+template <typename T>
+__device__ __forceinline__ void epilogue(T *Y, const T *R, int epi, int m,
+                                         int n, int N, float a, float b) {
+  size_t i = (size_t)m * N + n;
+  Y[i] = from_f<T>(epi_value<T>(epi, a, b, epi == EPI_RESID ? to_f<T>(R[i])
+                                                            : 0.f));
+}
 
-template <bool DUAL>
-__global__ void __launch_bounds__(128)
-    gemm_bf16_small_m(const bf16 *__restrict__ X, const bf16 *__restrict__ W,
-                      const bf16 *__restrict__ W2,
-                      const bf16 *__restrict__ R, bf16 *__restrict__ Y,
-                      int M, int K, int N, int epi) {
-  constexpr int NW = DUAL ? 2 : 1;
-  constexpr int LDA = S_BK + 8, LDB = S_BN + 8;
-  constexpr int A_ELEMS = S_BM * LDA, B_ELEMS = S_BK * LDB;
-  constexpr int AB_BYTES = (A_ELEMS + NW * B_ELEMS) * 2;
-  constexpr int C_BYTES = NW * 4 * S_BM * S_BN * 4;
-  constexpr int SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  bf16 *As = (bf16 *)smem;
-  bf16 *Bs = As + A_ELEMS;
+// ------------------------------------------------------------ bf16: wgmma
+namespace xw {
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int n0 = blockIdx.x * S_BN;
-  const bf16 *Ws[2] = {W, W2};
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  uint4 ra[2], rb[NW][4];
+constexpr int MAX_SPLITS = 8;                   // portable cluster size
 
-  auto load = [&](int k0) {
+// NX x rows a tile (wgmma's N), STAGES ring depth, MINB blocks an SM
+template <int NX_, int STAGES_, int MINB_> struct Cfg {
+  static constexpr int NX = NX_, STAGES = STAGES_, MINB = MINB_;
+  static constexpr int BK = 64;                 // K rows a stage
+  static constexpr int WBOX = 64 * BK * 2;      // 64 W columns x 64 K rows
+  static constexpr int WT = 2 * WBOX;           // 128 W columns
+  static constexpr int XT = NX * BK * 2;        // NX x rows x 64 K columns
+  static constexpr int STAGE = WT + XT;
+  static constexpr int LDR = 128 + 4;           // fp32 words a staged row
+  static constexpr int ROWB = LDR * 4;
+  static constexpr int RED = NX * ROWB;         // this block's partial tile
+  static constexpr int RECV = (NX + MAX_SPLITS) * ROWB;  // peers' slices
+  static constexpr int BODY =
+      STAGES * STAGE > RED + RECV ? STAGES * STAGE : RED + RECV;
+  static constexpr int THREADS = 384;           // 2 consumer wgs + producer
+  static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
+  static constexpr int NACC = NX / 2;           // fp32 accumulators a thread
+  static constexpr int SMEM = 1024 + BODY + (2 * STAGES + 1) * 8;
+  static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned");
+  static_assert(MINB * (SMEM + 1024) <= 233472, "MINB blocks an SM");
+};
+
+struct Args {
+  int M, N, epi, nk;                            // nk: 64-row K steps
+  const bf16 *R;
+  bf16 *Y;
+};
+
+// One block: weight column tile blockIdx.z (128 columns of W, or 64 of W
+// and 64 of W2), x rows from blockIdx.y * NX, K split blockIdx.x of
+// gridDim.x (the cluster).  Rows, columns and K past the tensors are
+// TMA's zero fill; stores are masked.
+template <class C>
+__device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
+                                        const CUtensorMap *tw2,
+                                        const CUtensorMap *tx) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char *smem = reinterpret_cast<unsigned char *>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + C::BODY);
+  uint64_t *empty = full + C::STAGES;
+  uint64_t *recv_bar = empty + C::STAGES;
+  float *red = reinterpret_cast<float *>(smem);              // [NX][LDR]
+  float *recv = reinterpret_cast<float *>(smem + C::RED);    // [S][R][LDR]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool dual = a.epi == EPI_SWIGLU;
+  const int S = gridDim.x, rank = blockIdx.x;
+  const int m0 = blockIdx.y * C::NX, tile = blockIdx.z;
+  const int n0 = dual ? tile * 64 : tile * 128;      // first output column
+  const int kb0 = (int)((long long)a.nk * rank / S);
+  const int kb1 = (int)((long long)a.nk * (rank + 1) / S);
+  // the tile rows this block folds: [r0, r0 + nr), R a rank
+  const int R = (C::NX + S - 1) / S, r0 = rank * R;
+  const int nr = max(0, min(C::NX, r0 + R) - r0);
+  if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {          // A: 16 rows x 16 chunks
-      int c = tid + i * 128, r = c >> 4, k = k0 + (c & 15) * 8;
-      ra[i] = (r < M && k < K)
-                  ? *reinterpret_cast<const uint4 *>(X + (size_t)r * K + k)
-                  : zero;
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);                 // each consumer warp
     }
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {        // B: 128 rows x 4 chunks
-        int c = tid + i * 128, k = k0 + (c >> 2), n = n0 + (c & 3) * 8;
-        rb[w][i] = (k < K && n < N)
-                       ? *reinterpret_cast<const uint4 *>(
-                             Ws[w] + (size_t)k * N + n)
-                       : zero;
+    mbar_init(recv_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                             // producer warpgroup
+    if constexpr (C::MINB == 1) regs_dec<C::REGS_PRODUCER>();
+    if (warp == 8 && lane == 0) {
+      const int c1 = dual ? n0 : n0 + 64;
+      const CUtensorMap *t1 = dual ? tw2 : tw;
+      for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+        const int s = it % C::STAGES, round = it / C::STAGES;
+        if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
+        unsigned char *st = smem + s * C::STAGE;
+        mbar_expect_tx(&full[s], C::STAGE);
+        tma_load_2d(st, tw, n0, kb * C::BK, &full[s]);
+        tma_load_2d(st + C::WBOX, t1, c1, kb * C::BK, &full[s]);
+        tma_load_2d(st + C::WT, tx, kb * C::BK, m0, &full[s]);
       }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * 128;
-      *reinterpret_cast<uint4 *>(As + (c >> 4) * LDA + (c & 15) * 8) = ra[i];
     }
+    // the fold's two cluster barriers (below), without its work: code
+    // past a merge would be compiled to the producer's 40 registers
+    cluster_arrive();
+    cluster_wait();
+    cluster_arrive_relaxed();
+    cluster_wait();
+    return;
+  }
+  if constexpr (C::MINB == 1) regs_inc<C::REGS_CONSUMER>();
+  const int wg = warp >> 2;
+  float acc[C::NACC];
+  for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+    const int s = it % C::STAGES;
+    mbar_wait_or_trap(&full[s], (it / C::STAGES) & 1);
+    const unsigned char *st = smem + s * C::STAGE;
+    // A: this warpgroup's 64 W columns, MN-major (a k16 slice is 16 K
+    // rows, 2048 bytes on); B: the x rows, K-major (32 bytes on)
+    const uint64_t da = desc_sw128_mn(st + wg * C::WBOX, C::WBOX);
+    const uint64_t db = desc_sw128(st + C::WT);
+    wg_fence();
 #pragma unroll
-    for (int w = 0; w < NW; ++w)
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaSS<C::NX, 1, 0>::mma(acc, da + 128 * kk, db + 2 * kk,
+                                it > 0 || kk > 0);
+    wg_commit();
+    wg_wait<1>();
+    // the wgmmas of the previous stage have retired: hand its slot back
+    if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % C::STAGES]);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  // both warpgroups are done with the ring: stage the partial tile in
+  // it as red[x row][W column] (column 64 wg + 16 w + g + 8h; register
+  // 4j + 2h + e holds x row 8j + 2tq + e), for the bulk copies to read
+  consumer_sync();
+  const int g = lane >> 2, tq = lane & 3;
+  const int col = 64 * wg + 16 * (warp & 3) + g;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int c = tid + i * 128;
-        *reinterpret_cast<uint4 *>(Bs + w * B_ELEMS + (c >> 2) * LDB +
-                                   (c & 3) * 8) = rb[w][i];
+  for (int j = 0; j < C::NX / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        red[(8 * j + 2 * tq + e) * C::LDR + col + 8 * h] =
+            acc[4 * j + 2 * h + e];
+  fence_proxy_async_smem();
+  // the K splits' fold: block q sends rows [d R, d R + R) of its partial
+  // to block d's recv slot q (one bulk copy a peer, on d's recv_bar);
+  // each block sums its rows over the S slots in split order, so two
+  // calls are bit-identical
+  if (tid == 0 && S > 1 && nr > 0)
+    mbar_expect_tx(recv_bar, (S - 1) * nr * C::ROWB);
+  cluster_arrive();             // every partial staged, every ring idle
+  cluster_wait();
+  if (tid == 0 && S > 1) {
+    for (int d = 0; d < S; ++d) {
+      const int dn = max(0, min(C::NX, d * R + R) - d * R);
+      if (d != rank && dn > 0)
+        bulk_to_peer(peer_u32(recv + rank * R * C::LDR, d),
+                     red + d * R * C::LDR, dn * C::ROWB,
+                     peer_u32(recv_bar, d));
+    }
+  }
+  if (S > 1 && nr > 0) mbar_wait_or_trap(recv_bar, 0);
+  // my slices have landed, so have my peers' reads of my sources: a block
+  // leaves once all have (cluster_wait below); nothing to publish, so
+  // relaxed
+  cluster_arrive_relaxed();
+  {
+    // the epilogue over my rows, pairs of output columns along N, in
+    // rounds of U pairs a thread (the residuals of a round in flight; one
+    // pair at decode, where a thread has at most one)
+    constexpr int U = C::NX <= 16 ? 1 : 4;
+    const int lh = dual ? 5 : 6;               // log2(column pairs a row)
+    const int P = max(0, min(nr, a.M - m0 - r0)) << lh;
+#pragma unroll 1
+    for (int p0 = tid; p0 < P; p0 += 256 * U) {
+      int off[U];                              // r LDR + c, or -1
+      float2 x[U], y[U], res[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = p0 + 256 * u, r = p >> lh;
+        const int c = 2 * (p & ((1 << lh) - 1));
+        const bool ok = p < P && n0 + c < a.N;
+        off[u] = ok ? r * C::LDR + c : -1;
+        x[u] = y[u] = res[u] = make_float2(0.f, 0.f);
+        if (ok && a.epi == EPI_RESID)
+          res[u] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162 *>(
+                  a.R + (size_t)(m0 + r0 + r) * a.N + n0 + c));
       }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NW][2];
+#pragma unroll 1
+      for (int q = 0; q < S; ++q) {
+        const float *src = q == rank ? red + r0 * C::LDR
+                                     : recv + q * R * C::LDR;
 #pragma unroll
-  for (int w = 0; w < NW; ++w)
+        for (int u = 0; u < U; ++u)
+          if (off[u] >= 0) {
+            const float2 v = *reinterpret_cast<const float2 *>(src + off[u]);
+            x[u].x += v.x;
+            x[u].y += v.y;
+            if (dual) {
+              const float2 w =
+                  *reinterpret_cast<const float2 *>(src + off[u] + 64);
+              y[u].x += w.x;
+              y[u].y += w.y;
+            }
+          }
+      }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[w][j], 0.f);
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += S_BK) {
-    store();
-    __syncthreads();
-    if (k0 + S_BK < K) load(k0 + S_BK);
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {          // this warp's 32-wide K slice
-      int kk = warp * 32 + s * 16;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, As + kk, LDA);
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(fb, Bs + w * B_ELEMS + kk * LDB + j * 16,
-                                 LDB);
-          wmma::mma_sync(acc[w][j], fa, fb, acc[w][j]);
+      for (int u = 0; u < U; ++u)
+        if (off[u] >= 0) {
+          const int r = off[u] / C::LDR, c = off[u] - r * C::LDR;
+          *reinterpret_cast<__nv_bfloat162 *>(
+              a.Y + (size_t)(m0 + r0 + r) * a.N + n0 + c) =
+              __floats2bfloat162_rn(
+                  epi_value<bf16>(a.epi, x[u].x, y[u].x, res[u].x),
+                  epi_value<bf16>(a.epi, x[u].y, y[u].y, res[u].y));
         }
     }
-    __syncthreads();
   }
-  float *Cs = (float *)smem;               // [NW][4 warps][16][32] partials
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (w * 4 + warp) * S_BM * S_BN + j * 16,
-                              acc[w][j], S_BN, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < S_BM * S_BN; e += 128) {
-    int m = e / S_BN, n = n0 + e % S_BN;
-    if (m >= M || n >= N) continue;
-    float a = 0.f, b = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) a += Cs[q * S_BM * S_BN + e];
-    if (DUAL)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) b += Cs[(4 + q) * S_BM * S_BN + e];
-    epilogue<bf16>(Y, R, epi, m, n, N, a, b);
-  }
+  cluster_wait();
 }
 
-// ----------------------------------------------------------------- M > 16
-constexpr int L_BM = 64, L_BN = 64, L_BK = 32;
-
-template <bool DUAL>
-__global__ void __launch_bounds__(128)
-    gemm_bf16_tiled(const bf16 *__restrict__ X, const bf16 *__restrict__ W,
-                    const bf16 *__restrict__ W2, const bf16 *__restrict__ R,
-                    bf16 *__restrict__ Y, int M, int K, int N, int epi) {
-  constexpr int NW = DUAL ? 2 : 1;
-  constexpr int LDA = L_BK + 8, LDB = L_BN + 8, LDC = L_BN + 4;
-  constexpr int A_ELEMS = L_BM * LDA, B_ELEMS = L_BK * LDB;
-  constexpr int AB_BYTES = (A_ELEMS + NW * B_ELEMS) * 2;
-  constexpr int C_BYTES = NW * L_BM * LDC * 4;
-  constexpr int SMEM = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  bf16 *As = (bf16 *)smem;
-  bf16 *Bs = As + A_ELEMS;
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * L_BN, m0 = blockIdx.y * L_BM;
-  const bf16 *Ws[2] = {W, W2};
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  uint4 ra[2], rb[NW][2];
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {          // A: 64 rows x 4 chunks
-      int c = tid + i * 128, r = m0 + (c >> 2), k = k0 + (c & 3) * 8;
-      ra[i] = (r < M && k < K)
-                  ? *reinterpret_cast<const uint4 *>(X + (size_t)r * K + k)
-                  : zero;
-    }
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {        // B: 32 rows x 8 chunks
-        int c = tid + i * 128, k = k0 + (c >> 3), n = n0 + (c & 7) * 8;
-        rb[w][i] = (k < K && n < N)
-                       ? *reinterpret_cast<const uint4 *>(
-                             Ws[w] + (size_t)k * N + n)
-                       : zero;
-      }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int c = tid + i * 128;
-      *reinterpret_cast<uint4 *>(As + (c >> 2) * LDA + (c & 3) * 8) = ra[i];
-    }
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        int c = tid + i * 128;
-        *reinterpret_cast<uint4 *>(Bs + w * B_ELEMS + (c >> 3) * LDB +
-                                   (c & 7) * 8) = rb[w][i];
-      }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NW][2][2];
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[w][i][j], 0.f);
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += L_BK) {
-    store();
-    __syncthreads();
-    if (k0 + L_BK < K) load(k0 + L_BK);
-#pragma unroll
-    for (int kk = 0; kk < L_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * LDA + kk,
-                               LDA);
-#pragma unroll
-      for (int w = 0; w < NW; ++w)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb;
-          wmma::load_matrix_sync(
-              fb, Bs + w * B_ELEMS + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::mma_sync(acc[w][i][j], fa[i], fb, acc[w][i][j]);
-        }
-    }
-    __syncthreads();
-  }
-  float *Cs = (float *)smem;               // [NW][64][LDC]
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(
-            Cs + w * L_BM * LDC + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-            acc[w][i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < L_BM * L_BN; e += 128) {
-    int r = e / L_BN, c = e % L_BN, m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float a = Cs[r * LDC + c];
-    float b = DUAL ? Cs[L_BM * LDC + r * LDC + c] : 0.f;
-    epilogue<bf16>(Y, R, epi, m, n, N, a, b);
-  }
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
+    gemm_xw_small_m_tma(const Args a, const __grid_constant__ CUtensorMap tw,
+                        const __grid_constant__ CUtensorMap tw2,
+                        const __grid_constant__ CUtensorMap tx) {
+  xw_body<C>(a, &tw, &tw2, &tx);
 }
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
+    gemm_xw_tiled_wg(const Args a, const __grid_constant__ CUtensorMap tw,
+                     const __grid_constant__ CUtensorMap tw2,
+                     const __grid_constant__ CUtensorMap tx) {
+  xw_body<C>(a, &tw, &tw2, &tx);
+}
+
+// the instances: M <= 8, <= 16 (decode: two blocks an SM, a deep ring),
+// <= 32, <= 64 (two an SM), above (one an SM, 128-row tiles: measured
+// faster than 256-row ones at M 256, tools/gemm_ab.py)
+using S8 = Cfg<8, 6, 2>;
+using S16 = Cfg<16, 6, 2>;
+using T32 = Cfg<32, 5, 2>;
+using T64 = Cfg<64, 4, 2>;
+using T128 = Cfg<128, 6, 1>;
+constexpr int NINST = 5;
+
+typedef void (*Kernel)(const Args, const CUtensorMap, const CUtensorMap,
+                       const CUtensorMap);
+
+struct Inst {
+  Kernel fn;
+  int nx, minb, smem;
+};
+template <class C> Inst small() {
+  return {gemm_xw_small_m_tma<C>, C::NX, C::MINB, C::SMEM};
+}
+template <class C> Inst tiled() {
+  return {gemm_xw_tiled_wg<C>, C::NX, C::MINB, C::SMEM};
+}
+static const Inst INSTS[NINST] = {small<S8>(), small<S16>(), tiled<T32>(),
+                                  tiled<T64>(), tiled<T128>()};
+
+// The clusters of s blocks (s = 1 .. MAX_SPLITS) of each instance that the
+// device keeps resident (cudaOccupancyMaxActiveClusters: a cluster's
+// blocks share one GPC, so this is below SMs x blocks an SM / s).
+struct Occupancy {
+  int clusters[NINST][MAX_SPLITS + 1];
+};
+
+// the current device's occupancy table; on the device's first call also
+// the shared memory of every instance (once a device and process)
+static cudaError_t setup(const Occupancy **occ) {
+  constexpr int DEVICES = 64;
+  static Occupancy table[DEVICES];
+  static std::atomic<bool> ready[DEVICES];      // false: static storage
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= DEVICES) return cudaErrorInvalidDevice;
+  *occ = &table[dev];
+  if (ready[dev].load(std::memory_order_acquire)) return e;
+  std::lock_guard<std::mutex> hold(mu);
+  if (ready[dev].load(std::memory_order_acquire)) return e;
+  for (int i = 0; i < NINST; ++i) {
+    const Inst &k = INSTS[i];
+    e = cudaFuncSetAttribute((const void *)k.fn,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             k.smem);
+    if (e != cudaSuccess) return e;
+    for (int s = 1; s <= MAX_SPLITS; ++s) {
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(s);
+      cfg.blockDim = dim3(384);
+      cfg.dynamicSmemBytes = k.smem;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = s;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      // a shape the device cannot hold counts 0 clusters (never chosen)
+      if (cudaOccupancyMaxActiveClusters(&table[dev].clusters[i][s],
+                                         (const void *)k.fn, &cfg) !=
+          cudaSuccess) {
+        table[dev].clusters[i][s] = 0;
+        cudaGetLastError();
+      }
+    }
+  }
+  ready[dev].store(true, std::memory_order_release);
+  return e;
+}
+
+// A tensor map is a pure function of its arguments, so a cache keyed by
+// all of them is never stale: the layer's weights hit it every call (a
+// model's few hundred maps; emptied past MAX_MAPS, e.g. when scratch
+// pointers keep changing).
+struct MapKey {
+  const void *base;
+  uint64_t cols, rows;
+  uint32_t box_cols, box_rows;
+  bool operator==(const MapKey &o) const {
+    return base == o.base && cols == o.cols && rows == o.rows &&
+           box_cols == o.box_cols && box_rows == o.box_rows;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey &k) const {
+    return std::hash<const void *>()(k.base) ^
+           std::hash<uint64_t>()(k.cols * 0x9E3779B97F4A7C15ull + k.rows) ^
+           (size_t)k.box_rows << 48;
+  }
+};
+static cudaError_t bf16_map(CUtensorMap *map, const void *base,
+                            uint64_t cols, uint64_t rows, uint32_t box_cols,
+                            uint32_t box_rows) {
+  constexpr size_t MAX_MAPS = 4096;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  static std::mutex mu;
+  const MapKey k{base, cols, rows, box_cols, box_rows};
+  std::lock_guard<std::mutex> hold(mu);
+  const auto hit = cache.find(k);
+  if (hit != cache.end()) {
+    *map = hit->second;
+    return cudaSuccess;
+  }
+  const cudaError_t e =
+      encode_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, cols, rows,
+                    2 * cols, box_cols, box_rows);
+  if (e == cudaSuccess) {
+    if (cache.size() >= MAX_MAPS) cache.clear();
+    cache.emplace(k, *map);
+  }
+  return e;
+}
+
+struct Plan {
+  int inst, splits, row_tiles, col_tiles, nk, resident;
+};
+
+// K splits: S (1 .. 8, at most the K steps) at the least cost, where a
+// block's time goes with its K steps (nk / S) plus FOLD_STEPS for the
+// staging and the fold, and the device runs `resident` clusters of S at
+// once: waves x (ceil(nk / S) + FOLD_STEPS); ties go to fewer splits
+constexpr int FOLD_STEPS = 12;
+static Plan plan_of(int M, int K, int N, int epi, const Occupancy &occ) {
+  Plan p;
+  p.inst = M <= 8 ? 0 : M <= 16 ? 1 : M <= 32 ? 2 : M <= 64 ? 3 : 4;
+  const Inst &k = INSTS[p.inst];
+  p.nk = (K + 63) / 64;
+  p.row_tiles = (M + k.nx - 1) / k.nx;
+  p.col_tiles = epi == EPI_SWIGLU ? (N + 63) / 64 : (N + 127) / 128;
+  const long long tiles = (long long)p.row_tiles * p.col_tiles;
+  long long best = -1;
+  p.splits = 1;
+  for (int s = 1; s <= MAX_SPLITS && s <= p.nk; ++s) {
+    const long long res = occ.clusters[p.inst][s];
+    if (res <= 0) continue;
+    const long long cost =
+        (tiles + res - 1) / res * ((p.nk + s - 1) / s + FOLD_STEPS);
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.splits = s;
+    }
+  }
+  p.resident = occ.clusters[p.inst][p.splits];
+  return p;
+}
+
+static cudaError_t launch(int M, int K, int N, int epi, const void *X,
+                          const void *W, const void *W2, const void *R,
+                          void *Y, cudaStream_t s) {
+  const Occupancy *occ = nullptr;
+  cudaError_t e = setup(&occ);
+  if (e != cudaSuccess) return e;
+  const Plan p = plan_of(M, K, N, epi, *occ);
+  const Inst &k = INSTS[p.inst];
+  if (p.row_tiles > 65535 || p.col_tiles > 65535) return cudaErrorInvalidValue;
+  CUtensorMap tw, tw2, tx;
+  e = bf16_map(&tw, W, N, K, 64, 64);
+  if (e == cudaSuccess)
+    e = epi == EPI_SWIGLU ? bf16_map(&tw2, W2, N, K, 64, 64)
+                          : (tw2 = tw, cudaSuccess);
+  if (e == cudaSuccess) e = bf16_map(&tx, X, K, M, 64, k.nx);
+  if (e != cudaSuccess) return e;
+  const Args a{M, N, epi, p.nk, (const bf16 *)R, (bf16 *)Y};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, p.row_tiles, p.col_tiles);
+  cfg.blockDim = dim3(384);
+  cfg.dynamicSmemBytes = k.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  // an unsplit launch is an implicit cluster of one: without the
+  // attribute it measured 3-5 % faster (tools/gemm_ab.py)
+  cfg.numAttrs = p.splits > 1;
+  e = cudaLaunchKernelEx(&cfg, k.fn, a, tw, tw2, tx);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+}  // namespace xw
 
 // ------------------------------------------------------------------ fp32
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16;
@@ -360,18 +582,25 @@ cudaError_t launch_gemm_xw(int dtype, int M, int K, int N, int epi,
                            K, N, epi);
     return count_launch(CNT_GEMM_XW_F32, cudaGetLastError());
   }
-  if (M <= pt::S_BM) {
-    dim3 grid((N + pt::S_BN - 1) / pt::S_BN);
-    auto k = dual ? pt::gemm_bf16_small_m<true> : pt::gemm_bf16_small_m<false>;
-    k<<<grid, 128, 0, s>>>((const pt::bf16 *)X, (const pt::bf16 *)W,
-                           (const pt::bf16 *)W2, (const pt::bf16 *)R,
-                           (pt::bf16 *)Y, M, K, N, epi);
-    return count_launch(CNT_GEMM_XW_SMALL_M, cudaGetLastError());
-  }
-  dim3 grid((N + pt::L_BN - 1) / pt::L_BN, (M + pt::L_BM - 1) / pt::L_BM);
-  auto k = dual ? pt::gemm_bf16_tiled<true> : pt::gemm_bf16_tiled<false>;
-  k<<<grid, 128, 0, s>>>((const pt::bf16 *)X, (const pt::bf16 *)W,
-                         (const pt::bf16 *)W2, (const pt::bf16 *)R,
-                         (pt::bf16 *)Y, M, K, N, epi);
-  return count_launch(CNT_GEMM_XW_TILED, cudaGetLastError());
+  if (dtype != PT_BF16 || K <= 0 || K % 8 || N % 8)
+    return cudaErrorInvalidValue;
+  const cudaError_t e = pt::xw::launch(M, K, N, epi, X, W, W2, R, Y, s);
+  if (M <= 16) return count_launch(CNT_GEMM_XW_SMALL_M, e);
+  return count_launch(CNT_GEMM_XW_TILED, e);
+}
+
+// The bf16 launch plan of one gemm_xw call, for tools: out[0] NX (x rows
+// a tile), [1] blocks an SM, [2] K splits (the cluster), [3] x row tiles,
+// [4] weight column tiles, [5] 64-row K steps, [6] the clusters of this
+// shape the device keeps resident.
+extern "C" int pt_gemm_xw_plan(int M, int K, int N, int epi, int *out) {
+  using namespace pt::xw;
+  const Occupancy *occ = nullptr;
+  const cudaError_t e = setup(&occ);
+  if (e != cudaSuccess) return e;
+  const Plan p = plan_of(M, K, N, epi, *occ);
+  const int v[7] = {INSTS[p.inst].nx, INSTS[p.inst].minb, p.splits,
+                    p.row_tiles, p.col_tiles, p.nk, p.resident};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return cudaSuccess;
 }

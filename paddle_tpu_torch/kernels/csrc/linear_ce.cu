@@ -428,10 +428,6 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-// the 256 consumer threads (named barrier 1; the producer never joins)
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
 
 // tile u of the walk -> its row block mb and vocab tile nb: groups of G
 // row blocks sweep the vocab together, so the blocks in flight share

@@ -1,11 +1,13 @@
 // Hopper building blocks for the wgmma kernels (quant_linear.cu's
-// prefill GEMM, linear_ce.cu's logits GEMM): TMA tensor maps and 2-D tile
-// loads completing on an mbarrier, the mbarrier operations of a producer /
-// consumer ring, the wgmma shared-memory descriptors of K-major and
-// MN-major 128-byte-swizzled tiles, the wgmma fence / commit / wait,
-// setmaxnreg, and wgmma.mma_async m64nNk16 bf16 with fp32 accumulators:
-// A from registers (N 128 and 256) or from shared memory (N 256, each
-// operand K-major or MN-major).
+// prefill GEMM, linear_ce.cu's logits GEMM, gemm.cu's serving GEMMs): TMA
+// tensor maps and 2-D tile loads completing on an mbarrier, the mbarrier
+// operations of a producer / consumer ring, the wgmma shared-memory
+// descriptors of K-major and MN-major 128-byte-swizzled tiles, the wgmma
+// fence / commit / wait, setmaxnreg, and wgmma.mma_async m64nNk16 bf16
+// with fp32 accumulators: A from registers (N 128 and 256) or from shared
+// memory (N 8 .. 256, each operand K-major or MN-major); and the cluster
+// operations of gemm.cu's fold (mapa, shared-to-peer bulk copies, split
+// cluster barriers).
 //
 // Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix" section):
 //   * A from registers: warp w of the warpgroup holds rows 16w .. 16w+15;
@@ -102,6 +104,44 @@ __device__ __forceinline__ void tma_load_2d(void *dst, const CUtensorMap *map,
       "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
+// ------------------------------------------------------------- clusters
+// the shared::cluster address of `p` (this block's shared memory) in the
+// shared memory of cluster block `rank`
+__device__ __forceinline__ unsigned peer_u32(const void *p, int rank) {
+  unsigned d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"(smem_u32(p)), "r"(rank));
+  return d;
+}
+// `bytes` (a multiple of 16) of this block's shared memory at `src` into
+// cluster shared memory at `dst` (peer_u32), completing on the peer's
+// mbarrier `bar` (peer_u32) as transaction bytes
+__device__ __forceinline__ void bulk_to_peer(unsigned dst, const void *src,
+                                             int bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// orders this thread's generic-proxy shared-memory writes before later
+// async-proxy (bulk copy, TMA) reads of them
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the two halves of a cluster barrier (every thread of every block; the
+// relaxed arrive orders no memory)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 // descriptor of a K-major tile written by TMA with 128-byte swizzle
 // (1024-byte aligned; leading byte offset unused; stride 1024 bytes)
@@ -137,6 +177,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(unsigned (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// the 256 threads of two consumer warpgroups (named barrier 1; the
+// producer never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
 // move registers between warpgroups: the producer gives up (dec) what the
@@ -247,6 +293,97 @@ struct WgmmaSS256 {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(MN_A), "n"(MN_B));
+  }
+};
+
+// d (+)= A . B on m64nNk16 (N 8 .. 256), both operands from shared memory
+// as for WgmmaSS256; d holds N / 2 fp32 registers a thread
+template <int N, int MN_A = 0, int MN_B = 0> struct WgmmaSS;
+
+template <int MN_A, int MN_B> struct WgmmaSS<256, MN_A, MN_B> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    WgmmaSS256<MN_A, MN_B>::mma(d, da, db, scale_d);
+  }
+};
+
+template <int MN_A, int MN_B> struct WgmmaSS<8, MN_A, MN_B> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(MN_A), "n"(MN_B));
+  }
+};
+
+template <int MN_A, int MN_B> struct WgmmaSS<16, MN_A, MN_B> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(MN_A), "n"(MN_B));
+  }
+};
+
+template <int MN_A, int MN_B> struct WgmmaSS<32, MN_A, MN_B> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(MN_A), "n"(MN_B));
+  }
+};
+
+template <int MN_A, int MN_B> struct WgmmaSS<64, MN_A, MN_B> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(MN_A), "n"(MN_B));
+  }
+};
+
+template <int MN_A, int MN_B> struct WgmmaSS<128, MN_A, MN_B> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d), "n"(MN_A), "n"(MN_B));
   }
 };

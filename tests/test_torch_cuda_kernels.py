@@ -202,12 +202,18 @@ def test_prefill_block_kernel_matches_plain(dt, Ts, start, valid):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", DTYPES, ids=IDS)
-@pytest.mark.parametrize("M", [1, 4, 16, 17, 100])
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 17, 64, 100, 255, 256, 300])
+@pytest.mark.parametrize("Kd,N", [(520, 264), (72, 136), (1096, 392)],
+                         ids=["K520-N264", "K72-N136", "K1096-N392"])
 @pytest.mark.parametrize("epi", ["none", "resid", "swiglu"])
-def test_gemm_xw_matches_plain(dt, M, epi):
+def test_gemm_xw_matches_plain(dt, M, Kd, N, epi):
+    """Both bf16 regimes at their edges (M 8 / 9 and 16 / 17: the decode
+    kernel's 8- and 16-row tiles; 256 / 300: one 256-row tile and past
+    it), K past a 64-row step and N past a 128-column tile: within
+    tolerance, one launch of the regime's kernel a call, and a second call
+    bit-identical (the K splits fold in a fixed order)."""
     _need_card()
     rng = np.random.default_rng(M)
-    Kd, N = 520, 264               # ragged against every tile shape
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
@@ -215,9 +221,17 @@ def test_gemm_xw_matches_plain(dt, M, epi):
     x, w = t(M, Kd), t(Kd, N)
     kw = {"w2": t(Kd, N)} if epi == "swiglu" else \
         {"residual": t(M, N)} if epi == "resid" else {}
-    got = K.gemm_xw_cuda(x, w, **kw)
-    torch.cuda.synchronize()
-    _close(got, K.gemm_xw_ref(x, w, **kw), dt)
+    kernel = "gemm_xw_f32" if dt == torch.float32 else \
+        "gemm_xw_small_m" if M <= 16 else "gemm_xw_tiled"
+    outs = []
+    for _ in range(2):
+        layer.reset_counts()
+        outs.append(K.gemm_xw_cuda(x, w, **kw))
+        torch.cuda.synchronize()
+        assert {k: n for k, n in layer.launch_counts().items() if n} == {
+            kernel: 1}
+    _close(outs[0], K.gemm_xw_ref(x, w, **kw), dt)
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.gpu

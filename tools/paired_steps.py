@@ -10,13 +10,23 @@ from the repository root.  Runs phases of each checkout's own
 checkout (so it builds and imports that checkout's ``paddle_tpu_torch``),
 in the order parent, change, change, parent (``--turns N``: that order N
 times).  ``--phases`` takes a comma list of ``train``, ``gpt``, ``eager``
-(GPT and Llama), ``encoder`` (the default: those four) and ``head_host``:
+(GPT and Llama), ``encoder`` (the default: those four), ``head_host``:
 the host time of one ``linear_ce_fwd_cuda`` call and of one
 ``linear_ce_bwd_cuda`` call (enqueue only, the card idle before each; the
 median of 30) on eager GPT-125M's bf16 head (T 8192, H 768, V 32768,
-slabs of 2048).  Prints, per phase, each run's step ms (the encoder:
-forward ms; head_host: host ms) and the flash and linear-CE kernels'
-device ms in its profiled step, then the change's mean less the parent's.
+slabs of 2048), ``engine``: the serving engine's main path as this
+tree's ``chip_smoke.py`` engine phase drives it (llama_7b bf16, 8
+requests, then 8 profiled decode steps at B 4), run on each checkout's
+package: decode step wall and device-busy ms, decode tokens/s, bucketed
+prefill seconds and the mean time to first token, and ``layer_host``:
+one bf16 ``decode_block`` call at ``chip_smoke.py``'s kernels-phase
+inputs (llama_7b layer, B 4, lengths 1000/37/0/517): device ms of the
+chain (profiler), ms a call of 20 back to back (CUDA events) and the host
+time of one call (the median of 30, enqueue only).  Prints, per phase,
+each run's step ms (the encoder: forward ms; head_host, layer_host: host
+ms; the engine's other rows their value) and the flash and linear-CE
+kernels' device ms in its profiled step, then the change's mean less the
+parent's.
 CHANGE_DIR defaults to the repository root.  Writes
 ``chiprun_out/paired_steps.json``.  Any failed check in a phase fails the
 run.
@@ -31,12 +41,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CHILD = r"""
+import importlib.util
 import json
 import statistics
 import sys
 import time
 import torch
 import chip_smoke as cs
+# this tree's chip_smoke.py, whose helpers run on the checkout's package
+_spec = importlib.util.spec_from_file_location("smoke_root", sys.argv[2])
+root = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(root)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 phases = sys.argv[1].split(",")
@@ -79,6 +94,56 @@ if "head_host" in phases:
     torch.cuda.synchronize()
     out["head_host fwd"] = {"host_ms": 1e3 * statistics.median(fwd)}
     out["head_host bwd"] = {"host_ms": 1e3 * statistics.median(bwd)}
+if "engine" in phases:
+    torch.cuda.empty_cache()
+    # the profiler's first session in a process sets up its tracing (~1 s
+    # a step of the engine's profiled window): take it here
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    from paddle_tpu_torch.models.llama import llama_7b
+    s = root.phase_engine(llama_7b(dtype="bfloat16"))[1]
+    out["engine decode step wall"] = {"step_ms": s["decode_step_ms"]}
+    out["engine decode step busy"] = {"step_ms": s["decode_busy_ms"]}
+    out["engine decode tok/s"] = {"value": s["decode_tokens_per_s"]}
+    out["engine prefill s"] = {"value": s["prefill_s"]}
+    out["engine ttft mean s"] = {"value": s["ttft_mean_s"]}
+    torch.cuda.empty_cache()
+if "layer_host" in phases:
+    from paddle_tpu_torch.models.llama import _rope_cos_sin, llama_7b
+    from paddle_tpu_torch.ops import decode_block as db
+    cfg = llama_7b(dtype="bfloat16")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    lp = root.make_layer(cfg, gen, torch.bfloat16, "cuda")
+    BS, MB = 16, cfg.max_position_embeddings // 16
+    pk, pv = (torch.randn(256, BS, cfg.kv_heads, cfg.head_dim, device="cuda",
+                          generator=gen).to(torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([1000, 37, 0, 517], dtype=torch.int32,
+                           device="cuda")
+    bt = torch.full((4, MB), -1, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(lengths.tolist()):
+        if b != 2:
+            need = -(-(n + 1) // BS)
+            bt[b, :need] = torch.arange(used, used + need, device="cuda")
+            used += need
+    cos_t, sin_t = _rope_cos_sin(cfg.max_position_embeddings, cfg.head_dim,
+                                 cfg.rope_theta, torch.float32, device="cuda")
+    cos, sin = (t[lengths.long()].to(torch.bfloat16).contiguous()
+                for t in (cos_t, sin_t))
+    x = torch.randn(4, cfg.hidden_size, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    spec = db.decode_block_spec(cfg, BS)
+
+    def one():
+        db.decode_block(x, lp, pk, pv, bt, lengths, cos, sin, spec=spec)
+    by = {}
+    _, call = cs.time_ms(one, 20, by)
+    dev = sum(m * n for m, n in by.values())
+    out["layer_host decode_block"] = {
+        "host_ms": root.host_ms(one), "call_ms": call, "device_ms": dev}
 print("PAIRED " + json.dumps(out, default=float), flush=True)
 """
 
@@ -87,10 +152,12 @@ GROUPS = ("flash kernels", "linear-CE kernels")
 
 
 def run(tree, phases):
-    """{phase: (step, forward or host ms, {group: device ms or None})} of
-    one run, the groups those of ``GROUPS``."""
-    p = subprocess.run([sys.executable, "-c", CHILD, phases], cwd=tree,
-                       text=True, capture_output=True)
+    """{phase: (step, forward or host ms or value, {group: device ms or
+    None}, {the phase's other numbers})} of one run, the groups those of
+    ``GROUPS``."""
+    p = subprocess.run([sys.executable, "-c", CHILD, phases,
+                        str(ROOT / "chip_smoke.py")], cwd=tree, text=True,
+                       capture_output=True)
     sys.stderr.write(p.stderr[-4000:])
     line = [x for x in p.stdout.splitlines() if x.startswith("PAIRED ")]
     if p.returncode or not line:
@@ -98,9 +165,12 @@ def run(tree, phases):
         raise SystemExit(f"{tree}: the phases failed (exit {p.returncode})")
     out = {}
     for phase, s in json.loads(line[0][len("PAIRED "):]).items():
-        ms = s.get("step_ms", s.get("forward_ms", s.get("host_ms")))
+        ms = s.get("step_ms", s.get("forward_ms", s.get("host_ms",
+                                                         s.get("value"))))
         by = s.get("device_ms_by_group", {})
-        out[phase] = (ms, {g: by.get(g) for g in GROUPS})
+        out[phase] = (ms, {g: by.get(g) for g in GROUPS},
+                      {k: v for k, v in s.items()
+                       if isinstance(v, (int, float))})
     return out
 
 
@@ -121,17 +191,18 @@ def main():
     report = {}
     for phase in runs["parent"][0]:
         row = {name: [r[phase] for r in rs] for name, rs in runs.items()}
-        mean = {name: sum(ms for ms, _ in v) / len(v)
+        mean = {name: sum(r[0] for r in v) / len(v)
                 for name, v in row.items()}
         report[phase] = dict(row, change_less_parent_ms=mean["change"]
                              - mean["parent"])
         groups = "; ".join(
             f"{g} ms parent {[v[1][g] for v in row['parent']]}, change "
             f"{[v[1][g] for v in row['change']]}" for g in GROUPS)
-        print(f"{phase}: parent {[v[0] for v in row['parent']]} ms, change "
-              f"{[v[0] for v in row['change']]} ms; {groups}; change - "
-              f"parent {report[phase]['change_less_parent_ms']:+.2f} ms",
-              flush=True)
+        print(f"{phase}: parent {[v[0] for v in row['parent']]}, change "
+              f"{[v[0] for v in row['change']]}; {groups}; change - "
+              f"parent {report[phase]['change_less_parent_ms']:+.4f}; other "
+              f"numbers parent {[v[2] for v in row['parent']]}, change "
+              f"{[v[2] for v in row['change']]}", flush=True)
     out = ROOT / "chiprun_out" / "paired_steps.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
