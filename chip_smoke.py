@@ -13,7 +13,8 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             shapes, each held against its plain PyTorch version in fp32
             (tolerance 1e-4) and bf16 (2e-2), layer output and pool pages,
             with the untouched pages checked unchanged; then each kernel of
-            the chain on its own (the GEMMs at M 4, 16, 64 and 256); kernel,
+            the chain on its own (``rms_norm_rows`` at M 4 and 256 beside
+            ``F.rms_norm``, the GEMMs at M 4, 16, 64 and 256); kernel,
             plain and library times in bf16, each layer call's device time
             from its chain's kernels (``chain_ms``, which fails when one is
             missing) and the host time of one ``decode_block`` call;
@@ -72,8 +73,11 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             the generation step's shape (B 8, a 256-row cache, 32 heads,
             D 128, lengths ragged from 1 to 256) in fp32 (1e-4) and bf16
             (2e-2 or the ratio rule), and at GPT-125M's heads, GQA 32/8 at
-            D 64, T 1000 (two 512-row blocks) and length 1; kernel, plain,
-            bound and ``scaled_dot_product_attention`` times;
+            D 64, T 1000 (two 512-row blocks), length 1, T 2048 (four
+            blocks) with a length-0 row, and G 8 at D 64; each call twice,
+            bit-identical; kernel, plain, bound and
+            ``scaled_dot_product_attention`` times warm (one cache, mostly
+            L2-resident) and cold (``DATTN_COLD`` caches in rotation);
 10. quant_linear the weight-only int8 and int4 kernels against their plain
             versions at M 8 (decode) and M 1024 (prefill) on the three
             llama_7b weight shapes, per channel, bf16 and fp32 x, and on
@@ -600,26 +604,35 @@ def phase_kernels(cfg, results, dev="cuda"):
 
     # ---- the chain's kernels one at a time, bf16, decode shapes (B=4)
     tol = TOL["bfloat16"]
-    y = K.rms_norm_rows_ref(x, lp["ln1_w"], spec.eps)
-    err = check_close("rms_norm_rows", K.rms_norm_rows_cuda(
-        x, lp["ln1_w"], spec.eps), y, tol)
-    ms, call = time_ms(lambda: K.rms_norm_rows_cuda(x, lp["ln1_w"],
-                                                    spec.eps), 50,
-                       per_launch=True)
-    plain, plain_call = time_ms(lambda: K.rms_norm_rows_ref(
-        x, lp["ln1_w"], spec.eps), 20)
-    lib = None
-    if hasattr(torch.nn.functional, "rms_norm"):
-        lib = time_ms(lambda: torch.nn.functional.rms_norm(
-            x, (H,), lp["ln1_w"], spec.eps), 50)[0]
-    bms, bby = bound_ms((2 * 4 * H + H) * 2, 4 * 4 * H)
+    norm = {}
+    for M in (4, 256):                  # decode rows, one prefill chunk
+        xm = x if M == 4 else torch.randn(M, H, device=dev,
+                                          generator=gen).to(dt)
+        y = K.rms_norm_rows_ref(xm, lp["ln1_w"], spec.eps)
+        err = check_close(f"rms_norm_rows M={M}", K.rms_norm_rows_cuda(
+            xm, lp["ln1_w"], spec.eps), y, tol)
+        ms, call = time_ms(lambda: K.rms_norm_rows_cuda(xm, lp["ln1_w"],
+                                                        spec.eps), 50,
+                           per_launch=True)
+        plain, plain_call = time_ms(lambda: K.rms_norm_rows_ref(
+            xm, lp["ln1_w"], spec.eps), 20)
+        lib = None
+        if hasattr(torch.nn.functional, "rms_norm"):
+            lib = time_ms(lambda: torch.nn.functional.rms_norm(
+                xm, (H,), lp["ln1_w"], spec.eps), 50)[0]
+        bms, bby = bound_ms((2 * M * H + H) * 2, 4 * M * H)
+        norm[M] = dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
+                       plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
+                       library_ms=lib)
+        info(f"rms_norm_rows bf16 [{M}, {H}]: device {ms} ms (per call "
+             f"{call:.4f}), F.rms_norm {lib} ms, plain {plain} ms, bound "
+             f"{bms:.5f} ms ({bby}); max |err| {err:.2e}")
     results.append(dict(
         name="rms_norm_rows", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/rms_norm.cu",
         replaces="paddle_tpu/ops/pallas/decode_block.py:535",
-        shape="[4, 4096]", max_abs_err=err, ms=ms, call_ms=call,
-        plain_ms=plain, plain_call_ms=plain_call, bound_ms=bms,
-        bound_by=bby, library_ms=lib))
+        shape="[4, 4096]", **norm[4],
+        m256={"shape": "[256, 4096]", **norm[256]}))
 
     for M in (4, 16, 64, 256):
         xm = torch.randn(M, H, device=dev, generator=gen).to(dt)
@@ -872,10 +885,12 @@ def phase_engine(cfg, dev="cuda"):
         if us > 0:
             by[ev.key] = us / 8 / 1e3
     busy = sum(by.values())
-    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    norm_ms = sum(t for k, t in by.items() if "rms_norm_rows" in k)
     info(f"engine decode step (B=4, profiled, 8 steps): wall {step_ms:.3f} "
          f"ms/step, device busy {busy:.3f} ms/step "
-         f"({100 * busy / step_ms:.1f}%), top kernels {top}")
+         f"({100 * busy / step_ms:.1f}%), rms_norm_rows {norm_ms:.4f} "
+         f"ms/step, top kernels {top}")
     eng.run_to_completion()
     leak = eng.kv_leak_report()
     if leak["leaked"] or leak["unaccounted"]:
@@ -888,6 +903,7 @@ def phase_engine(cfg, dev="cuda"):
          f"buckets {eng.bucket_stats()}; leak {leak}; launches {counts}")
     return counts, dict(
         decode_step_ms=step_ms, decode_busy_ms=busy,
+        decode_rms_norm_rows_ms=norm_ms,
         decode_tokens_per_s=dec_tok / dec_s, prefill_s=pre_s, wall_s=wall,
         ttft_min_s=ttfts[0], ttft_max_s=ttfts[-1],
         ttft_mean_s=sum(ttfts) / len(ttfts))
@@ -1656,7 +1672,12 @@ DATTN_CASES = [
     ("gqa 32/8 D 64", 4, 32, 8, 64, 300, (300, 1, 99, 200)),
     ("T 1000 (two 512-row blocks)", 2, 16, 16, 128, 1000, (1000, 613)),
     ("length 1", 3, 8, 8, 128, 64, (1, 1, 1)),
+    ("T 2048 (four 512-row blocks) and length 0", 2, 8, 8, 128, 2048,
+     (2048, 0)),
+    ("gqa 32/4 (G 8) D 64", 2, 32, 4, 64, 700, (700, 3)),
 ]
+# the cold timing's caches, in rotation: 4 x 33.5 MB, more than the L2
+DATTN_COLD = 4
 
 
 def dattn_bytes_ops(B, Hq, Hkv, D, lengths, itemsize):
@@ -1665,6 +1686,22 @@ def dattn_bytes_ops(B, Hq, Hkv, D, lengths, itemsize):
     rows = sum(lengths)
     return (2 * rows * Hkv * D * itemsize + 2 * B * Hq * D * itemsize
             + 4 * B, 4 * rows * Hq * D)
+
+
+def dattn_plan(B, Hq, Hkv, D, T):
+    """The kernel library's launch plan of one bf16 call
+    (``pt_decode_attention_plan``): cluster size, rows a block, stages,
+    shared memory, blocks an SM, clusters the card keeps resident."""
+    import ctypes
+    from paddle_tpu_torch.kernels import build
+    fn = build.library().pt_decode_attention_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    build.check(fn(build.PT_BF16, B, Hq, Hkv, D, T, out),
+                "pt_decode_attention_plan")
+    return dict(zip(("splits", "rows_a_block", "stages", "smem_bytes",
+                     "blocks_per_sm", "resident_clusters"), out))
 
 
 def phase_decode_attn(results, dev="cuda"):
@@ -1684,9 +1721,12 @@ def phase_decode_attn(results, dev="cuda"):
                         ("bfloat16", torch.bfloat16)):
             q, k, v = (t.to(dt) for t in (q32, k32, v32))
             got = tda.decode_attention(q, k, v, lt)
+            again = tda.decode_attention(q, k, v, lt)
             torch.cuda.synchronize()
             plain = tda.decode_attention_ref(q, k, v, lt)
             name = f"decode_attention {label} {dtn}"
+            if not torch.equal(got, again):
+                raise SmokeFailure(f"{name}: two calls differ")
             if dtn == "float32":
                 e = check_close(name, got, plain, TOL[dtn])
                 info(f"{name}: max |kernel - plain| {e:.2e}")
@@ -1708,9 +1748,27 @@ def phase_decode_attn(results, dev="cuda"):
     qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
     mask = (torch.arange(T, device=dev)[None, :] < lt[:, None])[:, None,
                                                                  None, :]
-    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask), 50)[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask), 50)[0]
     bms, bby = bound_ms(*dattn_bytes_ops(B, Hq, Hkv, D, [T] * B, 2))
+    plan = dattn_plan(B, Hq, Hkv, D, T)
+    # cold: each call on the next of DATTN_COLD caches, so the rows come
+    # from HBM as in a rollout, where each layer reads its own cache
+    kvs = [(k, v)] + [tuple(torch.randn(B, T, Hkv, D, device=dev,
+                                        generator=gen).to(torch.bfloat16)
+                            for _ in range(2))
+                      for _ in range(DATTN_COLD - 1)]
+    turn = [0]
+
+    def cold(fn):
+        i = turn[0] = (turn[0] + 1) % DATTN_COLD
+        return fn(*kvs[i])
+    cold_ms, cold_call = time_ms(lambda: cold(
+        lambda kk, vv: tda.decode_attention(q, kk, vv, lt)), 48,
+        per_launch=True)
+    lib_cold = time_ms(lambda: cold(lambda kk, vv: sdpa(
+        qs, kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask)), 48)[0]
+    del kvs
     results.append(dict(
         name="decode_attention", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/decode_attention.cu",
@@ -1722,12 +1780,22 @@ def phase_decode_attn(results, dev="cuda"):
         bound_by=bby, library_ms=lib,
         library_what="scaled_dot_product_attention, q [B, H, 1, D], "
                      "boolean length mask",
+        cold_ms=cold_ms, cold_call_ms=cold_call, library_cold_ms=lib_cold,
+        plan=plan,
+        cold_what=f"each call on the next of {DATTN_COLD} caches of this "
+                  f"shape ({DATTN_COLD * 2 * k.numel() * 2 / 1e6:.1f} MB)",
         bf16_vs_fp32_ratio=max(ratios, default=None)))
     r = results[-1]
-    info(f"decode_attention bf16 {r['shape']}: device {ms} ms (per call "
-         f"{call:.4f}), bound {bms:.4f} ms ({bby}), plain {plain} ms, SDPA "
-         f"{lib} ms; max |err| bf16 {err['bfloat16']:.2e} fp32 "
-         f"{err['float32']:.2e}")
+
+    def share(t):
+        return f"{100 * bms / t:.1f} % of bound" if t else "not measured"
+    info(f"decode_attention bf16 {r['shape']}: warm (one cache) device {ms} "
+         f"ms ({share(ms)}; per call {call:.4f}), SDPA {lib} ms "
+         f"({share(lib)}); cold ({r['cold_what']}) device {cold_ms} ms "
+         f"({share(cold_ms)}; per call {cold_call:.4f}), SDPA {lib_cold} ms "
+         f"({share(lib_cold)}); bound {bms:.5f} ms ({bby}), plain {plain} "
+         f"ms; max |err| bf16 {err['bfloat16']:.2e} fp32 "
+         f"{err['float32']:.2e}; plan {plan}")
 
 
 # -------------------------------------------------- weight-only matmuls
@@ -1944,7 +2012,7 @@ def gen_step_bound_ms(cfg, quant, itemsize=2):
 
 def profile_step(step, params, cache, tok, pos):
     """One decode step under the profiler: ``(wall ms, device busy ms,
-    top kernels)``."""
+    top kernels, decode_attention ms)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1960,8 +2028,9 @@ def profile_step(step, params, cache, tok, pos):
             us = getattr(ev, "self_cuda_time_total", 0.0)
         if us > 0:
             by[ev.key.split("(")[0][:50]] = (us / 1e3, ev.count)
+    attn = sum(ms for k, (ms, _) in by.items() if "decode_attention" in k)
     return wall, sum(ms for ms, _ in by.values()), sorted(
-        by.items(), key=lambda kv: -kv[1][0])[:6]
+        by.items(), key=lambda kv: -kv[1][0])[:8], attn
 
 
 def run_rollouts(tag, generate, params, cfg, ids_t, per_rollout, decoder):
@@ -2000,8 +2069,8 @@ def run_rollouts(tag, generate, params, cfg, ids_t, per_rollout, decoder):
         prefill_ms = 1e3 * (time.perf_counter() - ts)
         tok = logits.argmax(-1)
         step(params, cache, tok, GEN_PROMPT)               # warm
-        wall, busy, top = profile_step(step, params, cache, tok,
-                                       GEN_PROMPT + 1)
+        wall, busy, top, attn = profile_step(step, params, cache, tok,
+                                             GEN_PROMPT + 1)
     roll_ms = 1e3 * sum(times) / len(times)
     step_ms = (roll_ms - prefill_ms) / (GEN_NEW - 1)
     s = dict(rollout_ms=roll_ms, rollout_ms_all=[1e3 * t for t in times],
@@ -2009,6 +2078,7 @@ def run_rollouts(tag, generate, params, cfg, ids_t, per_rollout, decoder):
              tokens_per_s=GEN_B * GEN_NEW / (roll_ms / 1e3),
              decode_tokens_per_s=GEN_B / (step_ms / 1e3),
              profiled_step_wall_ms=wall, profiled_step_busy_ms=busy,
+             profiled_step_decode_attention_ms=attn,
              busy_share_of_profiled=busy / wall,
              busy_share_of_step=busy / step_ms, launches=got)
     info(f"generate {tag}: rollout {roll_ms:.1f} ms (runs "
@@ -2017,7 +2087,8 @@ def run_rollouts(tag, generate, params, cfg, ids_t, per_rollout, decoder):
          f"{s['tokens_per_s']:.1f} tokens/s ({s['decode_tokens_per_s']:.1f} "
          f"in the decode steps); profiled step {wall:.2f} ms wall, device "
          f"busy {busy:.2f} ms ({100 * busy / wall:.1f}% of it, "
-         f"{100 * busy / step_ms:.1f}% of the unprofiled step); top "
+         f"{100 * busy / step_ms:.1f}% of the unprofiled step), "
+         f"decode_attention {attn:.4f} ms; top "
          + "; ".join(f"{k} {ms:.3f} x{c}" for k, (ms, c) in top))
     return counts, s, out
 

@@ -6,8 +6,9 @@
 // fence / commit / wait, setmaxnreg, and wgmma.mma_async m64nNk16 bf16
 // with fp32 accumulators: A from registers (N 128 and 256) or from shared
 // memory (N 8 .. 256, each operand K-major or MN-major); and the cluster
-// operations of gemm.cu's fold (mapa, shared-to-peer bulk copies, split
-// cluster barriers).
+// operations of gemm.cu's fold and decode_attention.cu's exchange (mapa,
+// loads from and stores to a peer's shared memory, shared-to-peer bulk
+// copies, split cluster barriers).
 //
 // Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix" section):
 //   * A from registers: warp w of the warpgroup holds rows 16w .. 16w+15;
@@ -113,6 +114,20 @@ __device__ __forceinline__ unsigned peer_u32(const void *p, int rank) {
                : "=r"(d)
                : "r"(smem_u32(p)), "r"(rank));
   return d;
+}
+// one float of cluster shared memory at `addr` (peer_u32)
+__device__ __forceinline__ float ld_peer_f32(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// one float into cluster shared memory at `addr` (peer_u32)
+__device__ __forceinline__ void st_peer_f32(unsigned addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
 }
 // `bytes` (a multiple of 16) of this block's shared memory at `src` into
 // cluster shared memory at `dst` (peer_u32), completing on the peer's

@@ -6,9 +6,11 @@ The wrapper checks its tensors and launches one kernel on the current
 stream; it takes CUDA tensors only and raises on what the kernel does not
 take (head_dim other than 64 or 128, more than 8 query heads per kv head,
 a dtype other than float32 / bfloat16, a cache whose last two dims are
-not contiguous).  The cache is read in place through its batch and row
-strides, so a layer's slice ``cache[l]`` of the generation cache is
-passed without a copy.
+not contiguous or whose batch and row strides are not multiples of 16
+bytes).  The cache is read in place through its batch and row strides,
+so a layer's slice ``cache[l]`` of the generation cache is passed
+without a copy.  The kernel splits each (sequence, kv head)'s rows over
+a thread-block cluster; a launch the card refuses raises.
 """
 
 from __future__ import annotations
@@ -46,8 +48,11 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths, scale: float):
         if c.stride(3) != 1 or c.stride(2) != D:
             raise ValueError(f"{name}'s [Hkv, D] dims must be contiguous, "
                              f"strides {c.stride()}")
-        if c.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+        if c.data_ptr() % 16 or any(c.stride(i) * c.element_size() % 16
+                                    for i in (0, 1)):
+            raise ValueError(f"{name} must be 16-byte aligned, with batch "
+                             f"and row strides of a multiple of 16 bytes; "
+                             f"strides {c.stride()}")
     if k_cache.stride() != v_cache.stride():
         raise ValueError(f"k and v caches need one layout, strides "
                          f"{k_cache.stride()} and {v_cache.stride()}")

@@ -502,6 +502,12 @@ DATTN_CASES = [
     ("gqa D64 T600 ragged", 3, 8, 2, 64, 600, (1, 600, 37), False),
     ("mha D128 length 1", 2, 4, 4, 128, 40, (40, 1), False),
     ("cache[l] slice", 2, 8, 4, 128, 300, (300, 129), True),
+    # a length-0 row (every score masked: the mean of v over the T rows,
+    # as in the plain version), four 512-row blocks on a cluster of 8,
+    # and the largest group (G 8) at D 64
+    ("length 0 row", 3, 8, 4, 128, 300, (0, 300, 17), False),
+    ("T 2048 four blocks", 2, 8, 8, 128, 2048, (2048, 1500), False),
+    ("G 8 D64", 2, 16, 2, 64, 700, (700, 3), False),
 ]
 
 
@@ -511,7 +517,8 @@ DATTN_CASES = [
                                                    DATTN_CASES])
 def test_decode_attention_kernel_matches_plain(dt, case):
     """One launch per call, against the plain version (which rounds p to
-    the cache's dtype as the kernel does); the cache read in place."""
+    the cache's dtype as the kernel does); the cache read in place; a
+    second call bit-identical to the first."""
     _need_card()
     from paddle_tpu_torch.ops import decode_attention as tda
     _, B, Hq, Hkv, D, T, lengths, sliced = case
@@ -526,13 +533,40 @@ def test_decode_attention_kernel_matches_plain(dt, case):
     else:
         kc, vc = t(B, T, Hkv, D), t(B, T, Hkv, D)
     lt = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    outs = []
+    for _ in range(2):
+        layer.reset_counts()
+        outs.append(tda.decode_attention(q, kc, vc, lt))
+        torch.cuda.synchronize()
+        assert {k: n for k, n in layer.launch_counts().items() if n} == {
+            "decode_attention": 1}
+    torch.testing.assert_close(outs[0].float(), tda.decode_attention_ref(
+        q, kc, vc, lt).float(), **TOL[dt])
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("M,H", [(1, 4096), (4, 4096), (256, 4096),
+                                 (4, 1001), (4, 4100)],
+                         ids=["M1", "M4", "M256", "H1001", "H4100"])
+def test_rms_norm_rows_kernel_matches_plain(dt, M, H):
+    """The chain's norm alone: the vector path at H 4096 (decode, one
+    prefill chunk); the scalar path at H 1001, off the 16-byte vectors,
+    and at H 4100 in bf16 (fp32 takes 4-element vectors there); one
+    launch a call."""
+    _need_card()
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((M, H)).astype(
+        np.float32)).to("cuda", dt)
+    w = torch.from_numpy((1 + 0.1 * rng.standard_normal(H)).astype(
+        np.float32)).to("cuda", dt)
     layer.reset_counts()
-    got = tda.decode_attention(q, kc, vc, lt)
+    got = K.rms_norm_rows_cuda(x, w, 1e-5)
     torch.cuda.synchronize()
     assert {k: n for k, n in layer.launch_counts().items() if n} == {
-        "decode_attention": 1}
-    torch.testing.assert_close(got.float(), tda.decode_attention_ref(
-        q, kc, vc, lt).float(), **TOL[dt])
+        "rms_norm_rows": 1}
+    _close(got, K.rms_norm_rows_ref(x, w, 1e-5), dt)
 
 
 # (width, M, K, N, group_size): decode and prefill row counts, per

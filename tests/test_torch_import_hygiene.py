@@ -17,7 +17,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
-PORT_TOOLS = ("flash_fwd_ab.py", "gemm_ab.py", "lce_ab.py",
+PORT_TOOLS = ("dattn_ab.py", "flash_fwd_ab.py", "gemm_ab.py", "lce_ab.py",
               "paired_steps.py", "wo_ab.py")
 
 
