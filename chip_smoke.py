@@ -50,11 +50,15 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             tiles), bf16 at T 1000, slabs of 200 and H 200 (off the
             backward products' tiles), the [H, V] layout through the op; a
             second forward, dz and backward call bit-identical to the
-            first; the bf16 backward products on their wgmma kernels in
-            the profile (both at the Llama head, dx at the GPT head);
-            kernel, plain, bound and dense-chain (``x @ w.T`` then
-            ``F.cross_entropy``: forward, backward alone, forward +
-            backward) times;
+            first; at the two fp32-x cases (the split route: x as bf16
+            halves on wgmma) the pre-pass ``linear_ce_split_x`` bit-equal
+            to its plain version, nll and lse within 1e-4 absolute and
+            dz_x within 1e-4 |g| p of the plain fp32 version, and the
+            plain version on bf16-rounded x failing those checks; each
+            kernel's profiled route (wgmma at the Llama head; fwd and dz
+            split, dx wgmma, dw FMA at the GPT head); kernel, plain,
+            bound and dense-chain (``x @ w.T`` then ``F.cross_entropy``:
+            forward, backward alone, forward + backward) times;
 7. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
             train step (remat, the fused linear-CE head of the config
             default): one warm step and 5 timed steps on one seeded batch
@@ -169,10 +173,14 @@ FLASH_PER_STEP = {"flash_fwd": 2 * TRAIN_LAYERS,
 LCE_SLABS = 16
 LCE_PER_STEP = {"linear_ce_fwd": 1, "linear_ce_dz": LCE_SLABS,
                 "linear_ce_dx": LCE_SLABS, "linear_ce_dw": LCE_SLABS}
-# the GPT row of the JAX bench (bench.py --config gpt on an accelerator)
+# the GPT row of the JAX bench (bench.py --config gpt on an accelerator);
+# its head takes fp32 x (the fp32 final LayerNorm) with the bf16 wte, so
+# linear_ce_fwd_cuda and linear_ce_bwd_cuda each split x once
+# (linear_ce_split_x: 2 a step; every bf16-x path launches it 0 times)
 GPT_LAYERS, GPT_B, GPT_S = 12, 8, 1024
 GPT_PER_STEP = {"flash_fwd": GPT_LAYERS, "flash_bwd_dq": GPT_LAYERS,
-                "flash_bwd_dkv": GPT_LAYERS, **LCE_PER_STEP}
+                "flash_bwd_dkv": GPT_LAYERS, **LCE_PER_STEP,
+                "linear_ce_split_x": 2}
 # a whole bf16 step through the flash kernels against the dense attention
 # path: relative L2 distance of the loss and of every gradient leaf
 STEP_REL_L2 = 5e-2
@@ -1158,7 +1166,20 @@ LCE_NAMES = ("linear_ce_fwd", "linear_ce_dz", "linear_ce_dx",
 LCE_REPLACES = {"linear_ce_fwd": "paddle_tpu/ops/pallas/linear_ce.py:152",
                 "linear_ce_dz": "paddle_tpu/ops/pallas/linear_ce.py:253",
                 "linear_ce_dx": "paddle_tpu/ops/pallas/linear_ce.py:253",
-                "linear_ce_dw": "paddle_tpu/ops/pallas/linear_ce.py:270"}
+                "linear_ce_dw": "paddle_tpu/ops/pallas/linear_ce.py:270",
+                # the fp32 x of those kernels' dot with bf16 w
+                "linear_ce_split_x": "paddle_tpu/ops/pallas/linear_ce.py:152"}
+# the split route's checks (fp32 x, bf16 w): nll and lse within LCE_ABS of
+# the plain fp32 version, absolute, and dz_x within DZ_P_REL |g| p of it
+# elementwise, p = exp(z - lse) being the part of dz that an error in z
+# moves, plus DZ_ULPS x 2^-24 |dz| (2^-24 |dz| is half to one fp32 ulp of
+# dz: at the label, dz = g (p - 1) is formed by a few fp32 roundings at
+# |g|, whatever z's error; elsewhere the term is under 1e-6 |g| p).  A
+# relative L2 on dz is dominated by the label entries and cannot tell the
+# split from x rounded to bf16; these checks can: the plain version on
+# bf16-rounded x (what a kernel that dropped x_lo would give) must fail
+# the nll and the dz check.
+LCE_ABS, DZ_P_REL, DZ_ULPS = 1e-4, 1e-4, 8
 
 
 def rel_l2(a, b):
@@ -1170,23 +1191,73 @@ def lce_bytes_ops(T, H, V, chunk, xs, ws):
     """(bytes, operations, peak-rate dtype) of each linear-CE kernel over
     one call (all its slabs of ``chunk``): each input read once, each
     output written once, the product 2 T H V; a product with an fp32
-    operand runs at the fp32 rate.  dx also moves its fp32 [T, H]
-    accumulator between the slabs: the first writes it, each later one
-    reads it and each but the last writes it back (2 x slabs - 2 passes
-    over T x H fp32 in all), and the last writes dx in x's dtype."""
+    operand runs at the fp32 rate, except fwd and dz with fp32 x and bf16
+    w, which do the same work as two bf16 products (the split route:
+    4 T H V at the bf16 rate, x read as its two bf16 halves, 4 bytes an
+    element either way).  dx also moves its fp32 [T, H] accumulator
+    between the slabs: the first writes it, each later one reads it and
+    each but the last writes it back (2 x slabs - 2 passes over T x H fp32
+    in all), and the last writes dx in x's dtype.  The split pre-pass
+    reads x and writes its halves (4 + 4 bytes an element; one subtraction
+    and two conversions an element, fp32)."""
     ops = 2 * T * H * V
     dt = {2: "bfloat16", 4: "float32"}
-    both = "bfloat16" if xs == ws == 2 else "float32"
+    split = xs == 4 and ws == 2
+    both = "bfloat16" if xs == ws == 2 or split else "float32"
+    z_ops = 2 * ops if split else ops
     dz_out = T * V * ws + (T * V * xs if xs != ws else 0)
     slabs = -(-V // chunk)
     acc = T * H * 4 * (2 * slabs - 2)
-    return {"linear_ce_fwd": (T * H * xs + V * H * ws + 3 * T * 4, ops, both),
+    return {"linear_ce_fwd": (T * H * xs + V * H * ws + 3 * T * 4, z_ops,
+                              both),
             "linear_ce_dz": (T * H * xs + V * H * ws + 3 * T * 4 + dz_out,
-                             ops, both),
+                             z_ops, both),
             "linear_ce_dx": (T * V * ws + V * H * ws + acc + T * H * xs, ops,
                              dt[ws]),
             "linear_ce_dw": (T * V * xs + T * H * xs + V * H * ws, ops,
-                             dt[xs])}
+                             dt[xs]),
+            "linear_ce_split_x": (8 * T * H, 3 * T * H, "float32")}
+
+
+def dz_p_excess(dz, dz_p, p, g):
+    """The largest |dz - dz_p| over its bound DZ_P_REL |g| p + DZ_ULPS
+    2^-24 |dz_p|, elementwise: above 1 fails."""
+    lim = (DZ_P_REL * g.abs()[:, None] * p
+           + DZ_ULPS * 2.0 ** -24 * dz_p.abs())
+    return float(((dz.float() - dz_p).abs() / lim.clamp_min(1e-38)).max())
+
+
+def check_split(label, case, x, w, lab, lse, g, c0, got, plain):
+    """The split route's checks (LCE_ABS, DZ_P_REL) on the kernels' ``got
+    = (nll, lse, dz_x)`` against ``plain`` (the plain fp32 version's, on
+    the same lse for dz), then on the plain version run on bf16-rounded x,
+    which must fail them; prints both distances.  Returns the kernels'
+    ``(nll, lse, dz)`` distances."""
+    from paddle_tpu_torch.ops import fused_cross_entropy as fce
+    _, _, _, V, chunk, _, _, ignore, eps = case
+    xb = x.bfloat16().float()
+    proxy = fce.lce_fwd_ref(xb, w, lab, chunk=chunk, ignore_index=ignore,
+                            label_smoothing=eps) + (
+        fce.lce_dz_ref(xb, w[c0:], lab, lse, g, c0, V, eps),)
+    p = (x.float() @ w[c0:].float().t() - lse[:, None]).exp()
+    dist = {}
+    for who, (nll, lse_k, dz) in (("kernels", got), ("bf16-x proxy", proxy)):
+        dist[who] = (max_err(nll, plain[0]), max_err(lse_k, plain[1]),
+                     dz_p_excess(dz, plain[2], p, g))
+        info(f"lce {label} split checks, {who}: max |nll - plain| "
+             f"{dist[who][0]:.3e}, max |lse - plain| {dist[who][1]:.3e} "
+             f"(bound {LCE_ABS}); dz_x at {dist[who][2]:.3e} x its bound "
+             f"{DZ_P_REL} |g| p + {DZ_ULPS} x 2^-24 |dz|")
+    n, l, d = dist["kernels"]
+    if n > LCE_ABS or l > LCE_ABS or d > 1.0:
+        raise SmokeFailure(f"lce {label}: the split route misses its checks "
+                           f"(nll {n:.3e}, lse {l:.3e}, dz {d:.3e} x bound)")
+    n, _, d = dist["bf16-x proxy"]
+    if n <= LCE_ABS or d <= 1.0:
+        raise SmokeFailure(f"lce {label}: the plain version on bf16-rounded "
+                           f"x passes a split check (nll {n:.3e}, dz "
+                           f"{d:.3e} x bound): the checks cannot tell")
+    return dist["kernels"]
 
 
 def lce_inputs(case, gen, dev):
@@ -1227,33 +1298,60 @@ def check_lce(name, got, plain, truth, bf16, ratios):
     return err
 
 
+# a linear-CE kernel's instances by their profiled names: name<...> the
+# first version's FMA kernels, name_wg(...) the bf16 wgmma ones,
+# name_split(...) fwd / dz with fp32 x on wgmma; name(...) a kernel of one
+# instance (linear_ce_split_x)
+LCE_ROUTES = (("<", "mma"), ("_wg(", "wg"), ("_split(", "split"),
+              ("(", "kernel"))
+
+
+def lce_route(key, name):
+    """The route of the profiled kernel ``key`` if it is an instance of
+    ``name``, else None."""
+    import re
+    for tag, route in LCE_ROUTES:
+        if re.search(r"(?:^|[\s:])" + re.escape(name + tag), key):
+            return route
+    return None
+
+
+def lce_kernel(by, name, call_ms):
+    """Device ms a call of kernel ``name`` (its launches in the breakdown
+    ``by`` of one call), its launches a call and its routes."""
+    hit = {k: (mean, n) for k, (mean, n) in by.items()
+           if lce_route(k, name)}
+    return dict(ms=sum(mean * n for mean, n in hit.values()) if hit
+                else None, launches_per_call=sum(n for _, n in hit.values()),
+                call_ms=call_ms,
+                routes=sorted({lce_route(k, name) for k in hit}))
+
+
 def lce_times(case, x, w, lab, lse, g):
     """Device ms per call of each kernel (its launches over one forward or
-    backward call), the plain versions' and the dense chain's, and the
-    bounds.  The dense chain's yardstick for the backward kernels is its
-    backward alone (``torch.autograd.grad`` of one saved forward); its
-    forward + backward rides along as ``library_fwd_bwd_ms``."""
+    backward call; the split pre-pass from the forward call), the plain
+    versions' and the dense chain's, and the bounds.  The dense chain's
+    yardstick for the backward kernels is its backward alone
+    (``torch.autograd.grad`` of one saved forward); its forward + backward
+    rides along as ``library_fwd_bwd_ms``."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
     from paddle_tpu_torch.ops.cuda import linear_ce as lc
     _, T, H, V, chunk, _, _, ignore, eps = case
     kw = dict(label_smoothing=eps)
-    out = {}
-    ms, call = time_ms(lambda: lc.linear_ce_fwd_cuda(
-        x, w, lab, ignore_index=ignore, **kw), 5, per_launch=True)
-    out["linear_ce_fwd"] = dict(ms=ms, call_ms=call)
+    out, by = {}, {}
+    _, call = time_ms(lambda: lc.linear_ce_fwd_cuda(
+        x, w, lab, ignore_index=ignore, **kw), 5, by)
+    out["linear_ce_fwd"] = lce_kernel(by, "linear_ce_fwd", call)
+    out["linear_ce_split_x"] = lce_kernel(by, "linear_ce_split_x", call)
     by = {}
     _, call = time_ms(lambda: lc.linear_ce_bwd_cuda(
         x, w, lab, lse, g, chunk=chunk, **kw), 3, by)
     for name in LCE_NAMES[1:]:
-        # bf16 operands: linear_ce_dz_wg(...); an fp32 operand: name<...>
-        hit = {k: (mean, n) for k, (mean, n) in by.items()
-               if name + "<" in k or name + "_wg(" in k}
-        out[name] = dict(ms=sum(mean * n for mean, n in hit.values())
-                         if hit else None,
-                         launches_per_call=sum(n for _, n in hit.values()),
-                         call_ms=call, wg=any("_wg(" in k for k in hit))
+        out[name] = lce_kernel(by, name, call)
+    out["bwd_split_x_launches"] = lce_kernel(by, "linear_ce_split_x",
+                                             call)["launches_per_call"]
     plain_fwd = time_ms(lambda: fce.lce_fwd_ref(
         x, w, lab, chunk=chunk, ignore_index=ignore, **kw), 2)
     plain_bwd = time_ms(lambda: fce.lce_bwd_ref(
@@ -1271,6 +1369,13 @@ def lce_times(case, x, w, lab, lse, g):
                                                 retain_graph=True), 3)[0]
     del saved
     bo = lce_bytes_ops(T, H, V, chunk, x.element_size(), w.element_size())
+    if out["linear_ce_split_x"]["ms"] is not None:
+        nbytes, ops, dtn = bo["linear_ce_split_x"]
+        bms, bby = bound_ms(nbytes, ops, dtn)
+        plain = time_ms(lambda: fce.lce_split_x_ref(x), 20)
+        out["linear_ce_split_x"].update(
+            plain_ms=plain[0], plain_call_ms=plain[1], bound_ms=bms,
+            bound_by=bby, library_ms=None)
     for name in LCE_NAMES:
         fwd = name == "linear_ce_fwd"
         nbytes, ops, dtn = bo[name]
@@ -1293,6 +1398,7 @@ def phase_linear_ce(results, dev="cuda"):
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     err, ratios, timed = {}, {n: [] for n in LCE_NAMES}, {}
+    split_dist = {}
     for case in LCE_CASES:
         label, T, H, V, chunk, xdn, wdn, ignore, eps = case
         x, w, lab, g = lce_inputs(case, gen, dev)
@@ -1329,6 +1435,19 @@ def phase_linear_ce(results, dev="cuda"):
             f"lce {label} dz ({dz.dtype}, slab {c0}:{V})", dz,
             dz_t.to(dz.dtype), dz_t, dz.dtype == torch.bfloat16,
             ratios["linear_ce_dz"]) for dz in (dz_w, dz_x))
+        if (xdn, wdn) == ("float32", "bfloat16"):     # the split route
+            xs = lc.linear_ce_split_x_cuda(x)
+            xs_p = fce.lce_split_x_ref(x)
+            if not torch.equal(xs, xs_p):
+                raise SmokeFailure(f"lce {label}: linear_ce_split_x differs "
+                                   f"from its plain version")
+            err["linear_ce_split_x", dtn] = max_err(xs, xs_p)
+            info(f"lce {label}: linear_ce_split_x bit-equal to its plain "
+                 f"version on x [{T}, {H}]")
+            del xs, xs_p
+            split_dist[label] = check_split(label, case, x, w, lab, lse, g,
+                                            c0, (nll, lse, dz_x),
+                                            (nll_p, lse_p, dz_t))
         dx_p, dw_p = fce.lce_bwd_ref(x, w, lab, lse, g, chunk=chunk, **kw)
         dx_t = dw_t = None
         if bf16:                  # dz kept in fp32, the grads unrounded
@@ -1378,17 +1497,28 @@ def phase_linear_ce(results, dev="cuda"):
 
     label, main = timed["main"]
     gpt_label, gpt = timed["gpt"]
-    # the backward's profiled kernels: the wgmma instances wherever their
-    # operands are bf16 (both at the Llama head; dx only at the GPT head,
-    # whose fp32 x keeps dw on FMA)
-    want = {"main": {"linear_ce_dx": True, "linear_ce_dw": True},
-            "gpt": {"linear_ce_dx": True, "linear_ce_dw": False}}
+    # each kernel's profiled route: wgmma wherever w (fwd, dz, dx) or x
+    # (dw) is bf16, fwd and dz on x's bf16 halves with fp32 x (the GPT
+    # head), whose dw stays on FMA; the split pre-pass once a forward and
+    # once a backward call there, never with bf16 x
+    want = {"main": {"linear_ce_fwd": "wg", "linear_ce_dz": "wg",
+                     "linear_ce_dx": "wg", "linear_ce_dw": "wg"},
+            "gpt": {"linear_ce_fwd": "split", "linear_ce_dz": "split",
+                    "linear_ce_dx": "wg", "linear_ce_dw": "mma",
+                    "linear_ce_split_x": "kernel"}}
     for key, names in want.items():
-        for name, wg in names.items():
-            if timed[key][1][name]["wg"] != wg:
+        got = timed[key][1]
+        for name, route in names.items():
+            if got[name]["routes"] != [route]:
                 raise SmokeFailure(
-                    f"lce {timed[key][0]}: {name}'s profiled kernels "
-                    f"{'lack' if wg else 'include'} {name}_wg")
+                    f"lce {timed[key][0]}: {name}'s profiled kernels ran "
+                    f"{got[name]['routes']}, expected {route}")
+        n_split = (got["linear_ce_split_x"]["launches_per_call"],
+                   got["bwd_split_x_launches"])
+        if n_split != ((1, 1) if key == "gpt" else (0, 0)):
+            raise SmokeFailure(f"lce {timed[key][0]}: linear_ce_split_x "
+                               f"launched {n_split} times a forward / "
+                               f"backward call")
     for name in LCE_NAMES:
         r, q = main[name], gpt[name]
         fwd = name == "linear_ce_fwd"
@@ -1414,7 +1544,8 @@ def phase_linear_ce(results, dev="cuda"):
             "library_fwd_bwd_ms: forward + backward)",
             bf16_vs_fp32_ratio=max(ratios[name], default=None),
             gpt={k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms", "library_fwd_bwd_ms")}))
+                                   "library_ms", "library_fwd_bwd_ms",
+                                   "routes")}))
         info(f"{name} {label}: device {r['ms']} ms per call, bound "
              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
              f"{r['plain_ms']} ms, dense chain {r['library_ms']} ms "
@@ -1422,6 +1553,24 @@ def phase_linear_ce(results, dev="cuda"):
              f"{q['ms']} ms, bound {q['bound_ms']:.4f} ms ({q['bound_by']}), "
              f"plain {q['plain_ms']} ms, dense chain {q['library_ms']} ms "
              f"(fwd + bwd {q['library_fwd_bwd_ms']})")
+    s = gpt["linear_ce_split_x"]
+    results.append(dict(
+        name="linear_ce_split_x", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/linear_ce.cu",
+        replaces=LCE_REPLACES["linear_ce_split_x"],
+        shape="x [8192, 768] fp32 -> [2, 8192, 768] bf16 (the GPT head)",
+        max_abs_err=err["linear_ce_split_x", "bfloat16"], ms=s["ms"],
+        call_ms=s["call_ms"], launches_per_call=1, plain_ms=s["plain_ms"],
+        plain_call_ms=s["plain_call_ms"], plain_what="lce_split_x_ref",
+        bound_ms=s["bound_ms"],
+        bound_by=s["bound_by"], library_ms=s["library_ms"],
+        split_checks={k: dict(zip(("nll", "lse", "dz_of_bound"), v))
+                      for k, v in split_dist.items()}))
+    info(f"linear_ce_split_x {gpt_label}: device {s['ms']} ms per launch, "
+         f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), plain "
+         f"{s['plain_ms']} ms; fwd + split {gpt['linear_ce_fwd']['ms']} + "
+         f"{s['ms']} ms against the dense chain's forward "
+         f"{gpt['linear_ce_fwd']['library_ms']} ms")
 
 
 def tree_leaves(tree):
@@ -1456,7 +1605,10 @@ def run_steps(tag, step, state, ids_t, labels_t, per_step):
     """One warm and TRAIN_STEPS timed steps on one batch, the launch
     counts zeroed before and read after (they must be ``per_step`` per
     step, every other kernel 0), finite falling losses; then one profiled
-    step.  Returns ``(counts, summary)``."""
+    step.  Returns ``(counts, summary)``; the summary's ``busy_share`` is
+    the profiled step's device time over its own wall time, which the
+    profiler stretches where the host leads, and ``busy_share_of_step``
+    that device time over the unprofiled step's."""
     import torch
     from paddle_tpu_torch.ops.cuda import layer
     torch.cuda.reset_peak_memory_stats()
@@ -1498,14 +1650,17 @@ def run_steps(tag, step, state, ids_t, labels_t, per_step):
          f"{tok_s:.0f} tokens/s, max memory allocated {mem / 2**30:.2f} GiB; "
          f"launches over {n} steps {got}")
     info(f"{tag}: profiled step {prof_ms:.1f} ms wall, device busy "
-         f"{busy:.1f} ms ({100 * busy / prof_ms:.1f}%); by kernel (ms, "
-         f"launches): " + "; ".join(
+         f"{busy:.1f} ms ({100 * busy / prof_ms:.1f}% of it, "
+         f"{100 * busy / step_ms:.1f}% of the unprofiled step); by kernel "
+         f"(ms, launches): " + "; ".join(
              f"{k.split('(')[0][:60]} {ms:.2f} x{c}" for k, (ms, c) in top))
     info(f"{tag}: device time by group (ms, share of busy): " + "; ".join(
         f"{g} {ms:.2f} ({100 * ms / busy:.1f}%)" for g, ms in sorted(
             groups.items(), key=lambda kv: -kv[1])))
     return counts, dict(step_ms=step_ms, tokens_per_s=tok_s,
                         max_memory_bytes=mem, busy_share=busy / prof_ms,
+                        device_busy_ms=busy,
+                        busy_share_of_step=busy / step_ms,
                         device_ms_by_group=groups, losses=losses,
                         launches_per_step=per_step)
 

@@ -79,7 +79,7 @@ class LceArgs(ctypes.Structure):
                 + [("eps", ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in
                    ("x", "w", "labels", "g", "nll", "lse", "dz_w", "dz_x",
-                    "dx_acc", "dx", "dw", "part", "tickets")])
+                    "dx_acc", "dx", "dw", "part", "tickets", "xs")])
 
 
 class WoArgs(ctypes.Structure):
@@ -180,8 +180,9 @@ def _bind(lib: ctypes.CDLL) -> None:
             "pt_flash_fwd": [fptr, P], "pt_flash_bwd_dq": [fptr, P],
             "pt_flash_bwd_dkv": [fptr, P],
             "pt_linear_ce_fwd": [lptr, P], "pt_linear_ce_dz": [lptr, P],
-            "pt_linear_ce_fwd_scratch": [lptr, ctypes.POINTER(LL)],
+            "pt_linear_ce_scratch": [lptr, ctypes.POINTER(LL)],
             "pt_linear_ce_dx": [lptr, P], "pt_linear_ce_dw": [lptr, P],
+            "pt_linear_ce_split_x": [lptr, P],
             "pt_rope_kv_write": [ptr, P], "pt_paged_attention": [ptr, P],
             "pt_rms_norm_rows": [I, I, I, P, P, P, Fl, P],
             "pt_gemm_xw": [I, I, I, I, I, P, P, P, P, P, P],

@@ -55,7 +55,7 @@ struct FlashArgs {
 
 // One launch of the linear-CE head (linear_ce.cu).  x [T, H] in x_dtype,
 // w [V, H] in w_dtype, both contiguous; labels int32 [T]; nll, lse, g fp32
-// [T]; part and tickets as pt_linear_ce_fwd_scratch sizes them.  The
+// [T]; part, tickets and xs as pt_linear_ce_scratch sizes them.  The
 // backward kernels work on the vocab slab [c0, c0 + width) with dz
 // scratch [T, ldz] (ldz = width rounded up to 8).  Mirrored field for
 // field by the ctypes Structure in paddle_tpu_torch/kernels/build.py.
@@ -78,6 +78,10 @@ struct LceArgs {
   // tile and one ticket a row block, zero between calls
   float *part;
   int *tickets;
+  // fp32 x with a bf16 w: x split into bf16 halves [2, T, H], x_hi =
+  // bf16(x) and x_lo = bf16(x - x_hi), written by linear_ce_split_x and
+  // read by linear_ce_fwd and linear_ce_dz
+  void *xs;
 };
 
 // One weight-only matmul launch (quant_linear.cu): y [M, N] = x [M, K] @
@@ -192,6 +196,7 @@ enum {
   CNT_LINEAR_CE_DZ,
   CNT_LINEAR_CE_DX,
   CNT_LINEAR_CE_DW,
+  CNT_LINEAR_CE_SPLIT_X,
   CNT_DECODE_ATTENTION,
   CNT_WO_INT8_SMALL_M,
   CNT_WO_INT8_TILED,
@@ -228,6 +233,7 @@ cudaError_t launch_linear_ce_fwd(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_linear_ce_dz(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_linear_ce_dx(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_linear_ce_dw(const LceArgs *a, cudaStream_t s);
+cudaError_t launch_linear_ce_split_x(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_decode_attention(int dtype, int B, int Hq, int Hkv, int D,
                                     int T, long long sb, long long st,
                                     float scale, const void *q,

@@ -17,8 +17,9 @@
 // What bounds them on an H100: the products.  At the Llama training shape
 // (T 8192 tokens, H 4096, V 32000, bf16) each product 2 T H V is
 // 2.15 TFLOP, 2.17 ms at 989 TFLOP/s, against 0.1-0.3 ms to move the
-// bytes.  With fp32 x (the GPT step: its final LayerNorm has fp32 gains)
-// z and dw run on fp32 operands at 67 TFLOP/s.
+// bytes.  With fp32 x and a bf16 w (the GPT step: its final LayerNorm has
+// fp32 gains, its tied head is bf16) z runs as two bf16 products (the
+// split below) and dw on fp32 operands at 67 TFLOP/s.
 //
 // The bf16 products (linear_ce_fwd_wg, linear_ce_dz_wg, linear_ce_dx_wg,
 // linear_ce_dw_wg): one persistent warp-specialized GEMM for sm_90a, four
@@ -61,12 +62,28 @@
 //     for TMA's reduce-add in L2 measured only 5 % faster (PERF.md).
 //     linear_ce_dw's epilogue stores the tile (slab rows by H) in w's
 //     dtype.
-//     Routing: linear_ce_dx runs here whenever w is bf16 (so dz_w is: the
-//     Llama head and the GPT head's fp32-x dx), linear_ce_dw whenever x is
-//     bf16 (dz_x and x are); dw is written in w's dtype either way.
-// Every other instance (fwd and dz with an fp32 operand, as the GPT
-// head's fp32 x; dx with fp32 w; dw with fp32 x) keeps the first
-// version's design:
+//     Routing: linear_ce_fwd and linear_ce_dz run here whenever w is
+//     bf16 (fp32 x through the split below), linear_ce_dx whenever w is
+//     bf16 (so dz_w is: the Llama head and the GPT head's fp32-x dx),
+//     linear_ce_dw whenever x is bf16 (dz_x and x are); dw is written in
+//     w's dtype either way.
+//   * fp32 x with bf16 w (linear_ce_fwd_split, linear_ce_dz_split): the
+//     TPU kernel's dot of fp32 x with bf16 w is fp32-accurate, so x is not
+//     rounded to bf16.  linear_ce_split_x writes xs [2, T, H] bf16, x_hi =
+//     bf16(x) and x_lo = bf16(x - x_hi) (x - x_hi is exact in fp32, and
+//     the pair holds x to 2^-17 of its value), once a forward and once a
+//     backward call; z = x_hi w^T + x_lo w^T is two bf16 products, each
+//     product exact and the sum in fp32.  The same body reads xs through a
+//     3-D tensor map [2][T][H]: each of 3 stages holds the two halves'
+//     boxes of a K step beside one w box (16 + 16 + 32 KB), and the
+//     consumers multiply the w box by x_hi, then x_lo, for each k16 into
+//     one accumulator, so w streams once for both products: 0.79 MB from
+//     L2 a 101 MFLOP tile at H 768, against 1.18 MB were the lo pass to
+//     reload it (tools/lce_ab.py's reload_w: 3 % of the forward's time).
+//     The epilogues are the bf16 route's, but dz_x, which the fp32-x dw
+//     reads, is stored in fp32.
+// Every other instance (fwd and dz with fp32 w; dx with fp32 w; dw with
+// fp32 x, as the GPT head's) keeps the first version's design:
 //   * The TPU forward walks the vocab chunks of a row block in grid order
 //     and carries the row statistics in VMEM scratch.  Here one block of
 //     8 warps owns 64 rows and walks the vocab in 128-column tiles itself;
@@ -408,13 +425,17 @@ __host__ __device__ __forceinline__ Gemm gemm_of(const LceArgs &a) {
   return {a.width, a.H, a.T};
 }
 
-struct Wg {
+// the tile shape; SPLIT, the fp32-x route: a stage holds the x box of
+// both halves of x (x_hi, x_lo) beside the one w box
+template <bool SPLIT>
+struct WgOf {
   static constexpr int BM = 128, BN = 256, BK = 64;  // tile rows, columns, K
   static constexpr int XT = BM * BK * 2;     // A tile: 16 KB
   static constexpr int WT = BN * BK * 2;     // B tile: 32 KB
   static constexpr int MNB = 64 * BK * 2;    // an MN-major box: 8 KB
-  static constexpr int STAGE = XT + WT;
-  static constexpr int STAGES = 4;
+  static constexpr int XS = SPLIT ? 2 : 1;   // A tiles a stage
+  static constexpr int STAGE = XS * XT + WT;
+  static constexpr int STAGES = SPLIT ? 3 : 4;
   static constexpr int THREADS = 384;        // 2 consumer warpgroups + producer
   static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
   static constexpr int GROUP = 32;           // row blocks a group of the order
@@ -422,6 +443,7 @@ struct Wg {
       1024 + STAGES * STAGE + 2 * STAGES * 8 + BM * 16 + 16;
   static_assert(SMEM <= 232448, "one block an SM");
 };
+using Wg = WgOf<false>;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -571,6 +593,40 @@ __device__ __forceinline__ void quad_transpose(unsigned (&v)[4], int tq) {
   }
 }
 
+// the 8 values of D row 8h + g at tile columns 8j .. 8j + 7, j = 4i + tq:
+// the quad holds them as pairs, and two quad transposes (even and odd
+// columns) hand thread tq all 8
+__device__ __forceinline__ void row8(const float (&acc)[128], int h, int i,
+                                     int tq, float (&v)[8]) {
+  unsigned lo[4], hi[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    lo[k] = __float_as_uint(acc[4 * (4 * i + k) + 2 * h]);
+    hi[k] = __float_as_uint(acc[4 * (4 * i + k) + 2 * h + 1]);
+  }
+  quad_transpose(lo, tq);
+  quad_transpose(hi, tq);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    v[2 * q] = __uint_as_float(lo[q]);
+    v[2 * q + 1] = __uint_as_float(hi[q]);
+  }
+}
+
+__device__ __forceinline__ void store8(float *dst, const float (&v)[8]) {
+  float4 *d = reinterpret_cast<float4 *>(dst);
+  d[0] = make_float4(v[0], v[1], v[2], v[3]);
+  d[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(bf16 *dst, const float (&v)[8]) {
+  *reinterpret_cast<uint4 *>(dst) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+// dz = g (p - y) into dz_w (bf16) and dz_x: one buffer on the bf16 route
+// (x's dtype is w's), fp32 on the split route
+template <bool SPLIT>
 __device__ __forceinline__ void epi_dz(const LceArgs &a, float (&acc)[128],
                                        int m0, int n0, int ctid) {
   const int lane = ctid & 31, warp = ctid >> 5, tq = lane & 3;
@@ -615,6 +671,7 @@ __device__ __forceinline__ void epi_dz(const LceArgs &a, float (&acc)[128],
     // stores the 16 bytes of j = 4i + tq (a warp: 8 rows x 64 bytes)
     uint4 *pw = reinterpret_cast<uint4 *>((bf16 *)a.dz_w + (size_t)t * a.ldz + n0);
     uint4 *px = reinterpret_cast<uint4 *>((bf16 *)a.dz_x + (size_t)t * a.ldz + n0);
+    float *pf = (float *)a.dz_x + (size_t)t * a.ldz + n0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       unsigned v[4];
@@ -623,44 +680,18 @@ __device__ __forceinline__ void epi_dz(const LceArgs &a, float (&acc)[128],
         v[k] = pack_bf16(acc[4 * (4 * i + k) + 2 * h],
                          acc[4 * (4 * i + k) + 2 * h + 1]);
       quad_transpose(v, tq);
+      float f[8];                            // the same 8 columns in fp32
+      if constexpr (SPLIT) row8(acc, h, i, tq, f);
       if (ok && (!edge || 8 * (4 * i + tq) < a.ldz - n0)) {
         const uint4 q = make_uint4(v[0], v[1], v[2], v[3]);
         pw[4 * i + tq] = q;
-        if (a.dz_x != a.dz_w) px[4 * i + tq] = q;
+        if constexpr (SPLIT)
+          store8(pf + 8 * (4 * i + tq), f);
+        else if (a.dz_x != a.dz_w)
+          px[4 * i + tq] = q;
       }
     }
   }
-}
-
-// the 8 values of D row 8h + g at tile columns 8j .. 8j + 7, j = 4i + tq:
-// the quad holds them as pairs, and two quad transposes (even and odd
-// columns) hand thread tq all 8
-__device__ __forceinline__ void row8(const float (&acc)[128], int h, int i,
-                                     int tq, float (&v)[8]) {
-  unsigned lo[4], hi[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    lo[k] = __float_as_uint(acc[4 * (4 * i + k) + 2 * h]);
-    hi[k] = __float_as_uint(acc[4 * (4 * i + k) + 2 * h + 1]);
-  }
-  quad_transpose(lo, tq);
-  quad_transpose(hi, tq);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    v[2 * q] = __uint_as_float(lo[q]);
-    v[2 * q + 1] = __uint_as_float(hi[q]);
-  }
-}
-
-__device__ __forceinline__ void store8(float *dst, const float (&v)[8]) {
-  float4 *d = reinterpret_cast<float4 *>(dst);
-  d[0] = make_float4(v[0], v[1], v[2], v[3]);
-  d[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(bf16 *dst, const float (&v)[8]) {
-  *reinterpret_cast<uint4 *>(dst) =
-      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                 pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
 // dx: v = the tile (+ dx_acc, unless the slab is the first); the last
@@ -744,12 +775,15 @@ __device__ __forceinline__ void epi_dw(const LceArgs &a, float (&acc)[128],
 // A [M, K] and B [K, N] through the tensor maps ta / tb: K-major (z = x
 // w^T: boxes of 64 K columns by 128 / 256 rows) or MN-major (B of dx, A
 // and B of dw: boxes of 64 MN columns by 64 K rows, two a stage of A,
-// four of B)
-template <int EPI>
+// four of B).  SPLIT (z = x w^T with fp32 x): ta is the 3-D map of xs
+// [2][T][H], a stage holds the x_hi and x_lo boxes, then the w box
+template <int EPI, bool SPLIT = false>
 __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *ta,
                                         const CUtensorMap *tb) {
-  using C = Wg;
+  using C = WgOf<SPLIT>;
   constexpr bool MN_A = EPI == EPI_DW, MN_B = EPI == EPI_DX || EPI == EPI_DW;
+  static_assert(!SPLIT || EPI == EPI_FWD || EPI == EPI_DZ, "z = x w^T only");
+  constexpr int BOFF = C::XS * C::XT;        // the B tile in a stage
   extern __shared__ unsigned char smem_raw[];
   unsigned char *smem = reinterpret_cast<unsigned char *>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -784,7 +818,11 @@ __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *ta,
           if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
           unsigned char *st = smem + s * C::STAGE;
           mbar_expect_tx(&full[s], C::STAGE);
-          if constexpr (MN_A) {
+          if constexpr (SPLIT) {
+#pragma unroll
+            for (int h = 0; h < C::XS; ++h)  // x_hi, x_lo: slices of xs
+              tma_load_3d(st + h * C::XT, ta, kb * C::BK, m0, h, &full[s]);
+          } else if constexpr (MN_A) {
             tma_load_2d(st, ta, m0, kb * C::BK, &full[s]);
             tma_load_2d(st + C::MNB, ta, m0 + 64, kb * C::BK, &full[s]);
           } else {
@@ -793,10 +831,10 @@ __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *ta,
           if constexpr (MN_B) {
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              tma_load_2d(st + C::XT + j * C::MNB, tb, n0 + 64 * j, kb * C::BK,
+              tma_load_2d(st + BOFF + j * C::MNB, tb, n0 + 64 * j, kb * C::BK,
                           &full[s]);
           } else {
-            tma_load_2d(st + C::XT, tb, kb * C::BK, n0, &full[s]);
+            tma_load_2d(st + BOFF, tb, kb * C::BK, n0, &full[s]);
           }
         }
       }
@@ -823,14 +861,19 @@ __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *ta,
       // of an MN-major box: 2 or 128 in the descriptor's 16-byte units
       const uint64_t da = MN_A ? desc_sw128_mn(st + wg * C::MNB, C::MNB)
                                : desc_sw128(st + wg * (C::XT / 2));
-      const uint64_t db = MN_B ? desc_sw128_mn(st + C::XT, C::MNB)
-                               : desc_sw128(st + C::XT);
+      const uint64_t db = MN_B ? desc_sw128_mn(st + BOFF, C::MNB)
+                               : desc_sw128(st + BOFF);
+      // the x_lo box's rows of this warpgroup, C::XT bytes past x_hi's
+      const uint64_t dl = SPLIT ? da + (C::XT >> 4) : 0;
       constexpr int SA = MN_A ? 128 : 2, SB = MN_B ? 128 : 2;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk) {
         WgmmaSS256<MN_A, MN_B>::mma(acc, da + SA * kk, db + SB * kk,
                                     kb > 0 || kk > 0);
+        if constexpr (SPLIT)                 // x_lo against the same w box
+          WgmmaSS256<>::mma(acc, dl + 2 * kk, db + 2 * kk, 1);
+      }
       wg_commit();
       wg_wait<1>();
       // the wgmmas of the previous stage have retired: hand its slot back
@@ -842,7 +885,7 @@ __device__ __forceinline__ void wg_body(const LceArgs &a, const CUtensorMap *ta,
     if constexpr (EPI == EPI_FWD)
       epi_fwd(a, acc, m0, n0, nb, NB, mb, tid, comb, flag);
     else if constexpr (EPI == EPI_DZ)
-      epi_dz(a, acc, m0, n0, tid);
+      epi_dz<SPLIT>(a, acc, m0, n0, tid);
     else if constexpr (EPI == EPI_DX)
       epi_dx(a, acc, m0, n0, tid);
     else
@@ -872,6 +915,47 @@ __global__ void __launch_bounds__(Wg::THREADS, 1)
     linear_ce_dw_wg(const LceArgs a, const __grid_constant__ CUtensorMap ta,
                     const __grid_constant__ CUtensorMap tb) {
   wg_body<EPI_DW>(a, &ta, &tb);
+}
+
+// fp32 x with bf16 w: ta is the map of xs [2][T][H]
+__global__ void __launch_bounds__(Wg::THREADS, 1)
+    linear_ce_fwd_split(const LceArgs a, const __grid_constant__ CUtensorMap ta,
+                        const __grid_constant__ CUtensorMap tb) {
+  wg_body<EPI_FWD, true>(a, &ta, &tb);
+}
+
+__global__ void __launch_bounds__(Wg::THREADS, 1)
+    linear_ce_dz_split(const LceArgs a, const __grid_constant__ CUtensorMap ta,
+                       const __grid_constant__ CUtensorMap tb) {
+  wg_body<EPI_DZ, true>(a, &ta, &tb);
+}
+
+// xs[0] = bf16(x) and xs[1] = bf16(x - xs[0]), both rounded to nearest
+// even, as the plain version's two torch conversions: 8 values a thread,
+// 32 bytes of x in, 16 bytes of each half out.  x - xs[0] is exact in
+// fp32.  Bound by bytes: 4 read and 4 written an element.
+constexpr int SPLIT_THREADS = 256;
+__global__ void __launch_bounds__(SPLIT_THREADS)
+    linear_ce_split_x(const float *__restrict__ x, bf16 *__restrict__ xs,
+                      long long n) {
+  const long long i =
+      8 * ((long long)blockIdx.x * SPLIT_THREADS + threadIdx.x);
+  if (i >= n) return;                        // n % 8 == 0 (H % 8 == 0)
+  const float4 *src = reinterpret_cast<const float4 *>(x + i);
+  const float4 p = src[0], q = src[1];
+  const float v[8] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+  unsigned hi[4], lo[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const bf16 h0 = __float2bfloat16_rn(v[2 * k]);
+    const bf16 h1 = __float2bfloat16_rn(v[2 * k + 1]);
+    hi[k] = pack_bf16(v[2 * k], v[2 * k + 1]);
+    lo[k] = pack_bf16(v[2 * k] - __bfloat162float(h0),
+                      v[2 * k + 1] - __bfloat162float(h1));
+  }
+  *reinterpret_cast<uint4 *>(xs + i) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4 *>(xs + n + i) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
 }
 
 // -------------------------------------------------------------- launchers
@@ -916,6 +1000,8 @@ cudaError_t dw(const LceArgs *a, cudaStream_t s) {
 typedef void (*WgKernel)(const LceArgs, const CUtensorMap, const CUtensorMap);
 static const WgKernel WG_KERNELS[4] = {linear_ce_fwd_wg, linear_ce_dz_wg,
                                        linear_ce_dx_wg, linear_ce_dw_wg};
+static const WgKernel SPLIT_KERNELS[2] = {linear_ce_fwd_split,
+                                          linear_ce_dz_split};
 
 // the current device's SM count; on the device's first call also the
 // shared memory of every wgmma kernel here (once a device and process,
@@ -937,6 +1023,12 @@ static cudaError_t wg_setup(int *sms) {
                              Wg::SMEM);
     if (e != cudaSuccess) return e;
   }
+  for (WgKernel k : SPLIT_KERNELS) {
+    e = cudaFuncSetAttribute((const void *)k,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WgOf<true>::SMEM);
+    if (e != cudaSuccess) return e;
+  }
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) sm_count[dev].store(*sms, std::memory_order_release);
   return e;
@@ -944,10 +1036,11 @@ static cudaError_t wg_setup(int *sms) {
 
 // grid, block and shared memory from the instance: one block an SM,
 // walking the tiles; the tensor maps per call.  Past a tensor the boxes
-// fill zeros.
-template <int EPI>
+// fill zeros.  SPLIT: fwd / dz with fp32 x, whose halves xs the wrapper
+// had linear_ce_split_x write
+template <int EPI, bool SPLIT = false>
 cudaError_t launch_wg(const LceArgs *a, cudaStream_t s) {
-  using C = Wg;
+  using C = WgOf<SPLIT>;
   int sms = 0;
   cudaError_t e = wg_setup(&sms);
   if (e != cudaSuccess) return e;
@@ -956,9 +1049,11 @@ cudaError_t launch_wg(const LceArgs *a, cudaStream_t s) {
   const bf16 *w = (const bf16 *)a->w + (size_t)a->c0 * a->H;   // the slab
   CUtensorMap ta, tb;
   if (EPI == EPI_FWD || EPI == EPI_DZ) {
-    // x [T, H] in boxes of 128 rows x 64 columns, w [V] or its slab
-    // [width, H] in boxes of 256 rows
-    e = encode_map_2d(&ta, BF, a->x, a->H, a->T, ldh, C::BK, C::BM);
+    // x [T, H] (SPLIT: xs [2, T, H]) in boxes of 128 rows x 64 columns, w
+    // [V] or its slab [width, H] in boxes of 256 rows
+    e = SPLIT ? encode_map_3d(&ta, BF, a->xs, a->H, a->T, 2, ldh,
+                              ldh * a->T, C::BK, C::BM)
+              : encode_map_2d(&ta, BF, a->x, a->H, a->T, ldh, C::BK, C::BM);
     if (e == cudaSuccess)
       e = EPI == EPI_FWD
               ? encode_map_2d(&tb, BF, a->w, a->H, a->V, ldh, C::BK, C::BN)
@@ -979,12 +1074,25 @@ cudaError_t launch_wg(const LceArgs *a, cudaStream_t s) {
   const Gemm g = gemm_of<EPI>(*a);
   const long long tiles = (long long)cdiv(g.rows, C::BM) * cdiv(g.cols, C::BN);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  WG_KERNELS[EPI]<<<grid, C::THREADS, C::SMEM, s>>>(*a, ta, tb);
+  WgKernel k = WG_KERNELS[EPI];
+  if constexpr (SPLIT) k = SPLIT_KERNELS[EPI];
+  k<<<grid, C::THREADS, C::SMEM, s>>>(*a, ta, tb);
   return cudaGetLastError();
 }
 
 static bool both_bf16(const LceArgs *a) {
   return a->x_dtype == PT_BF16 && a->w_dtype == PT_BF16;
+}
+// fp32 x with bf16 w: fwd and dz on x's bf16 halves (the split route)
+static bool on_split(const LceArgs *a) {
+  return a->x_dtype == PT_F32 && a->w_dtype == PT_BF16;
+}
+// the Mma instances of linear_ce_fwd / linear_ce_dz: fp32 w
+static cudaError_t fwd_f32w(const LceArgs *a, cudaStream_t s) {
+  return a->x_dtype == PT_BF16 ? fwd<bf16, float>(a, s) : fwd<float, float>(a, s);
+}
+static cudaError_t dz_f32w(const LceArgs *a, cudaStream_t s) {
+  return a->x_dtype == PT_BF16 ? dz<bf16, float>(a, s) : dz<float, float>(a, s);
 }
 // linear_ce_dx's operands are dz_w and w, linear_ce_dw's dz_x and x: each
 // runs on wgmma when its operands are bf16
@@ -998,13 +1106,17 @@ static cudaError_t dw_f32(const LceArgs *a, cudaStream_t s) {
   return a->w_dtype == PT_BF16 ? dw<float, bf16>(a, s) : dw<float, float>(a, s);
 }
 
-// the scratch linear_ce_fwd needs: fp32 words of `part` (4 a row and vocab
-// tile) and int32 tickets (one a row block), both 0 where the instance
-// takes none
-static void fwd_scratch(const LceArgs *a, long long *part, long long *tickets) {
-  const bool wg = both_bf16(a) && a->T > 0 && a->V > 0;
+// the scratch a call needs: fp32 words of the forward's `part` (4 a row
+// and vocab tile) and int32 tickets (one a row block), and bf16 elements
+// of xs (2 T H, the split route's x halves, for the forward and for the
+// backward's dz), each 0 where the instance takes none
+static void scratch(const LceArgs *a, long long *part, long long *tickets,
+                    long long *xs) {
+  const bool ok = a->T > 0 && a->V > 0 && a->H > 0;
+  const bool wg = (both_bf16(a) || on_split(a)) && ok;
   *part = wg ? 4LL * cdiv(a->V, Wg::BN) * a->T : 0;
   *tickets = wg ? cdiv(a->T, Wg::BM) : 0;
+  *xs = on_split(a) && ok ? 2LL * a->T * a->H : 0;
 }
 
 // shapes every kernel needs; a backward slab also needs 0 < width,
@@ -1021,28 +1133,41 @@ static bool bad_shape(const LceArgs *a, bool slab) {
 }  // namespace lce
 }  // namespace pt
 
-// the instance of FN with an fp32 operand (bf16 x bf16 takes launch_wg)
-#define PT_LCE_PICK_F32(FN, a, s)                                     \
-  ((a)->x_dtype == PT_BF16                                            \
-       ? FN<pt::bf16, float>(a, s)                                    \
-       : ((a)->w_dtype == PT_BF16 ? FN<float, pt::bf16>(a, s)         \
-                                  : FN<float, float>(a, s)))
-
 cudaError_t launch_linear_ce_fwd(const LceArgs *a, cudaStream_t s) {
   using namespace pt::lce;
   if (bad_shape(a, false)) return cudaErrorInvalidValue;
-  if (both_bf16(a) && (!a->part || !a->tickets)) return cudaErrorInvalidValue;
+  if ((both_bf16(a) || on_split(a)) && (!a->part || !a->tickets))
+    return cudaErrorInvalidValue;
+  if (on_split(a) && !a->xs) return cudaErrorInvalidValue;
   return count_launch(CNT_LINEAR_CE_FWD,
-                      both_bf16(a) ? launch_wg<EPI_FWD>(a, s)
-                                   : PT_LCE_PICK_F32(fwd, a, s));
+                      both_bf16(a)  ? launch_wg<EPI_FWD>(a, s)
+                      : on_split(a) ? launch_wg<EPI_FWD, true>(a, s)
+                                    : fwd_f32w(a, s));
 }
 
 cudaError_t launch_linear_ce_dz(const LceArgs *a, cudaStream_t s) {
   using namespace pt::lce;
   if (bad_shape(a, true)) return cudaErrorInvalidValue;
+  if (on_split(a) && !a->xs) return cudaErrorInvalidValue;
   return count_launch(CNT_LINEAR_CE_DZ,
-                      both_bf16(a) ? launch_wg<EPI_DZ>(a, s)
-                                   : PT_LCE_PICK_F32(dz, a, s));
+                      both_bf16(a)  ? launch_wg<EPI_DZ>(a, s)
+                      : on_split(a) ? launch_wg<EPI_DZ, true>(a, s)
+                                    : dz_f32w(a, s));
+}
+
+// x fp32 [T, H] -> xs bf16 [2, T, H], for the split route only
+cudaError_t launch_linear_ce_split_x(const LceArgs *a, cudaStream_t s) {
+  using namespace pt::lce;
+  if (a->T <= 0 || a->H <= 0 || a->H % 8 || !on_split(a) || !a->x || !a->xs)
+    return cudaErrorInvalidValue;
+  if ((uintptr_t)a->x % 16 || (uintptr_t)a->xs % 16)
+    return cudaErrorMisalignedAddress;
+  const long long n = (long long)a->T * a->H;
+  const long long blocks = (n / 8 + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  linear_ce_split_x<<<(unsigned)blocks, SPLIT_THREADS, 0, s>>>(
+      (const float *)a->x, (pt::bf16 *)a->xs, n);
+  return count_launch(CNT_LINEAR_CE_SPLIT_X, cudaGetLastError());
 }
 
 cudaError_t launch_linear_ce_dx(const LceArgs *a, cudaStream_t s) {
@@ -1065,9 +1190,13 @@ int pt_linear_ce_fwd(const LceArgs *a, void *stream) {
   return launch_linear_ce_fwd(a, (cudaStream_t)stream);
 }
 
-int pt_linear_ce_fwd_scratch(const LceArgs *a, long long *sizes) {
-  pt::lce::fwd_scratch(a, sizes, sizes + 1);
+int pt_linear_ce_scratch(const LceArgs *a, long long *sizes) {
+  pt::lce::scratch(a, sizes, sizes + 1, sizes + 2);
   return 0;
+}
+
+int pt_linear_ce_split_x(const LceArgs *a, void *stream) {
+  return launch_linear_ce_split_x(a, (cudaStream_t)stream);
 }
 
 int pt_linear_ce_dz(const LceArgs *a, void *stream) {

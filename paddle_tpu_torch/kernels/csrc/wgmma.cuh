@@ -1,7 +1,7 @@
 // Hopper building blocks for the wgmma kernels (quant_linear.cu's
 // prefill GEMM, linear_ce.cu's logits GEMM, gemm.cu's serving GEMMs): TMA
-// tensor maps and 2-D tile loads completing on an mbarrier, the mbarrier
-// operations of a producer / consumer ring, the wgmma shared-memory
+// tensor maps and 2-D / 3-D tile loads completing on an mbarrier, the
+// mbarrier operations of a producer / consumer ring, the wgmma shared-memory
 // descriptors of K-major and MN-major 128-byte-swizzled tiles, the wgmma
 // fence / commit / wait, setmaxnreg, and wgmma.mma_async m64nNk16 bf16
 // with fp32 accumulators: A from registers (N 128 and 256) or from shared
@@ -103,6 +103,16 @@ __device__ __forceinline__ void tma_load_2d(void *dst, const CUtensorMap *map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+// the box of a 3-D `map` at element coordinates (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_load_3d(void *dst, const CUtensorMap *map,
+                                            int c0, int c1, int c2,
+                                            uint64_t *bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
 }
 // ------------------------------------------------------------- clusters
@@ -431,27 +441,53 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 2-D row-major tensor [rows, cols] (row stride `ld_bytes`, a multiple
-// of 16; base 16-byte aligned) read in boxes of [box_rows, box_cols]
-// (box_cols x element size <= 128 bytes) into 128-byte-swizzled shared
-// memory; reads past the tensor fill zeros.
-inline cudaError_t encode_map_2d(CUtensorMap *map, CUtensorMapDataType dt,
-                                 const void *base, uint64_t cols,
-                                 uint64_t rows, uint64_t ld_bytes,
-                                 uint32_t box_cols, uint32_t box_rows) {
+// A row-major tensor of `rank` dims (dims[0] innermost; strides[i] the
+// bytes between steps of dim i + 1, multiples of 16; base 16-byte
+// aligned) read in boxes of box[] (box[0] x element size <= 128 bytes)
+// into 128-byte-swizzled shared memory; reads past the tensor fill zeros.
+inline cudaError_t encode_map(CUtensorMap *map, CUtensorMapDataType dt,
+                              const void *base, cuuint32_t rank,
+                              const cuuint64_t *dims,
+                              const cuuint64_t *strides,
+                              const cuuint32_t *box) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (!fn) return cudaErrorNotSupported;
-  if ((uintptr_t)base % 16 || ld_bytes % 16) return cudaErrorMisalignedAddress;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {ld_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = fn(map, dt, 2, const_cast<void *>(base), dims, strides,
-                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  if ((uintptr_t)base % 16) return cudaErrorMisalignedAddress;
+  for (cuuint32_t i = 0; i + 1 < rank; ++i)
+    if (strides[i] % 16) return cudaErrorMisalignedAddress;
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, dt, rank, const_cast<void *>(base), dims,
+                        strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D row-major tensor [rows, cols] (row stride `ld_bytes`) read in
+// boxes of [box_rows, box_cols], as encode_map.
+inline cudaError_t encode_map_2d(CUtensorMap *map, CUtensorMapDataType dt,
+                                 const void *base, uint64_t cols,
+                                 uint64_t rows, uint64_t ld_bytes,
+                                 uint32_t box_cols, uint32_t box_rows) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  return encode_map(map, dt, base, 2, dims, strides, box);
+}
+
+// A 3-D row-major tensor [depth, rows, cols] (row stride `ld_bytes`,
+// slice stride `slice_bytes`) read in boxes of one slice's [box_rows,
+// box_cols], laid out in shared memory as encode_map_2d's boxes.
+inline cudaError_t encode_map_3d(CUtensorMap *map, CUtensorMapDataType dt,
+                                 const void *base, uint64_t cols,
+                                 uint64_t rows, uint64_t depth,
+                                 uint64_t ld_bytes, uint64_t slice_bytes,
+                                 uint32_t box_cols, uint32_t box_rows) {
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {ld_bytes, slice_bytes};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  return encode_map(map, dt, base, 3, dims, strides, box);
 }
 
 }  // namespace pt

@@ -24,18 +24,20 @@ __all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
 #: the library's launch counters, in the order of the ``CNT_*`` enum in
 #: ``kernels/csrc/common.cuh``: the two layer entry points, then one per
 #: ``__global__`` kernel (the GEMM's three kernels apart), then the three
-#: flash-attention kernels and the four linear-CE head kernels of the
-#: training path, then the generation path's decode attention and its
-#: weight-only matmuls (int8 and int4 apart, each in its decode and its
-#: prefill regime, and the fp32 lane's kernel for both widths), then the
-#: eager path's three row normalisations and SwiGLU, then the incubate
-#: fused API's RoPE, softmax-mask, bias-activation and dropout-add
+#: flash-attention kernels and the five linear-CE head kernels of the
+#: training path (the fifth splits fp32 x into bf16 halves), then the
+#: generation path's decode attention and its weight-only matmuls (int8
+#: and int4 apart, each in its decode and its prefill regime, and the fp32
+#: lane's kernel for both widths), then the eager path's three row
+#: normalisations and SwiGLU, then the incubate fused API's RoPE,
+#: softmax-mask, bias-activation and dropout-add
 KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "gemm_xw_small_m", "gemm_xw_tiled", "gemm_xw_f32",
            "rope_kv_write", "paged_attention", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "linear_ce_fwd", "linear_ce_dz", "linear_ce_dx",
-           "linear_ce_dw", "decode_attention", "wo_int8_small_m",
-           "wo_int8_tiled", "wo_int4_small_m", "wo_int4_tiled", "wo_f32",
+           "linear_ce_dw", "linear_ce_split_x", "decode_attention",
+           "wo_int8_small_m", "wo_int8_tiled", "wo_int4_small_m",
+           "wo_int4_tiled", "wo_f32",
            "rms_norm_fwd", "layer_norm_fwd", "bias_residual_ln_fwd",
            "swiglu_fwd", "rope_fwd", "softmax_mask_fwd", "bias_act_fwd",
            "dropout_add_fwd")

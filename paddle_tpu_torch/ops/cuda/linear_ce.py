@@ -1,6 +1,6 @@
 """The linear-CE head's kernels on the card: ``linear_ce_fwd``,
-``linear_ce_dz``, ``linear_ce_dx`` and ``linear_ce_dw``
-(``kernels/csrc/linear_ce.cu``).
+``linear_ce_dz``, ``linear_ce_dx``, ``linear_ce_dw`` and
+``linear_ce_split_x`` (``kernels/csrc/linear_ce.cu``).
 
 Each wrapper checks its tensors, allocates its outputs and scratch and
 launches on the current stream; it takes CUDA tensors only and raises on
@@ -12,8 +12,13 @@ and labels int32.  :func:`linear_ce_bwd_cuda` sweeps the vocab in slabs of
 ``linear_ce_dw`` once per slab.  With bf16 ``x`` and ``w`` the forward
 writes per-tile row partials to a scratch it is given and folds them in a
 fixed order, so two calls on the same inputs agree bit for bit; the kernel
-library says how much scratch a call needs (``pt_linear_ce_fwd_scratch``,
-from the kernel's own tile shape and routing).
+library says how much scratch a call needs (``pt_linear_ce_scratch``,
+from the kernel's own tile shape and routing).  With fp32 ``x`` and a
+bf16 ``w`` (the GPT head) the forward and dz run as two bf16 products on
+x's halves: each forward call and each backward call first launches
+``linear_ce_split_x``, which writes ``xs = [bf16(x), bf16(x - bf16(x))]``
+(:func:`~paddle_tpu_torch.ops.fused_cross_entropy.lce_split_x_ref` is its
+plain version) into a scratch the backward's dz launches share.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 from ...kernels import build
 from . import layer
 
-__all__ = ["linear_ce_fwd_cuda", "linear_ce_dz_cuda", "linear_ce_bwd_cuda"]
+__all__ = ["linear_ce_fwd_cuda", "linear_ce_dz_cuda", "linear_ce_bwd_cuda",
+           "linear_ce_split_x_cuda"]
 
 
 _tickets = {}
@@ -82,6 +88,45 @@ def _launch(fn_name, a):
                 fn_name)
 
 
+def _scratch(a):
+    """The library's scratch sizes for ``a``: fp32 words of the forward's
+    ``part``, its int32 tickets, and bf16 elements of ``xs`` (0 each where
+    the call's route takes none)."""
+    sizes = (ctypes.c_longlong * 3)()
+    build.check(build.library().pt_linear_ce_scratch(ctypes.byref(a), sizes),
+                "pt_linear_ce_scratch")
+    return sizes
+
+
+def _split_x(a, n, dev, keep):
+    """On the split route (``n``, xs's size, > 0): ``linear_ce_split_x``
+    into a new ``xs`` on ``dev``, which ``a`` points at and ``keep``
+    holds."""
+    if n:
+        xs = torch.empty(n, dtype=torch.bfloat16, device=dev)
+        a.xs = xs.data_ptr()
+        keep.append(xs)
+        _launch("pt_linear_ce_split_x", a)
+
+
+def linear_ce_split_x_cuda(x2):
+    """``xs [2, T, H]`` bf16 from ``linear_ce_split_x``: ``xs[0] =
+    bf16(x)``, ``xs[1] = bf16(x - xs[0])``, for fp32 x ``[T, H]``."""
+    if not isinstance(x2, torch.Tensor) or x2.device.type != "cuda":
+        raise ValueError("linear_ce_split_x needs a CUDA tensor")
+    if x2.ndim != 2 or x2.shape[0] == 0 or x2.shape[1] % 8:
+        raise ValueError(f"linear_ce_split_x takes x [T, H] with T > 0 and "
+                         f"H a multiple of 8, got {tuple(x2.shape)}")
+    x2 = x2.contiguous()
+    T, H = x2.shape
+    layer.check_tensor(x2, "x", (T, H), torch.float32, x2.device)
+    a = build.LceArgs(x_dtype=build.PT_F32, w_dtype=build.PT_BF16, T=T, H=H,
+                      x=x2.data_ptr())
+    keep = []
+    _split_x(a, 2 * T * H, x2.device, keep)
+    return keep[0].view(2, T, H)
+
+
 def linear_ce_fwd_cuda(x2, w, labels, *, ignore_index=None,
                        label_smoothing=0.0):
     """``(nll [T], lse [T])`` fp32 from ``linear_ce_fwd``; x ``[T, H]``,
@@ -91,15 +136,13 @@ def linear_ce_fwd_cuda(x2, w, labels, *, ignore_index=None,
     nll = torch.empty(a.T, dtype=torch.float32, device=dev)
     lse = torch.empty(a.T, dtype=torch.float32, device=dev)
     a.nll, a.lse = nll.data_ptr(), lse.data_ptr()
-    sizes = (ctypes.c_longlong * 2)()
-    build.check(build.library().pt_linear_ce_fwd_scratch(ctypes.byref(a),
-                                                         sizes),
-                "pt_linear_ce_fwd_scratch")
+    sizes = _scratch(a)
     if sizes[0]:
         part = torch.empty(sizes[0], dtype=torch.float32, device=dev)
         tickets = _row_tickets(dev, sizes[1])
         a.part, a.tickets = part.data_ptr(), tickets.data_ptr()
         keep += [part, tickets]
+    _split_x(a, sizes[2], dev, keep)
     _launch("pt_linear_ce_fwd", a)
     del keep
     return nll, lse
@@ -108,7 +151,8 @@ def linear_ce_fwd_cuda(x2, w, labels, *, ignore_index=None,
 def _bwd_args(x2, w, labels, lse, g, label_smoothing, width):
     """The backward's ``LceArgs``, its tensors, and dz scratch for slabs up
     to ``width`` rows: ``[T, round8(width)]`` in w's dtype, and in x's where
-    the two differ."""
+    the two differ; on the split route also x's halves (one
+    ``linear_ce_split_x`` launch), which every dz launch of the call reads."""
     a, keep = _args(x2, w, labels, label_smoothing)
     x2, w = keep[0], keep[1]
     lse = lse.to(device=x2.device, dtype=torch.float32).contiguous()
@@ -120,7 +164,9 @@ def _bwd_args(x2, w, labels, lse, g, label_smoothing, width):
         dz_w.shape, dtype=x2.dtype, device=w.device)
     a.lse, a.g = lse.data_ptr(), g.data_ptr()
     a.dz_w, a.dz_x = dz_w.data_ptr(), dz_x.data_ptr()
-    return a, keep + [lse, g, dz_w, dz_x]
+    keep += [lse, g]
+    _split_x(a, _scratch(a)[2], x2.device, keep)
+    return a, keep + [dz_w, dz_x]
 
 
 def _slab(a, c0, width):

@@ -20,7 +20,10 @@ Each pass has two versions and no third:
   runs for tensors on the CPU and sweeps the vocab in ``chunk`` columns.
 * the hand-written CUDA kernels (:mod:`.cuda.linear_ce`) for tensors on a
   CUDA device, whose backward sweeps the vocab in slabs of ``chunk``
-  columns: they launch or raise, with no fallback.
+  columns: they launch or raise, with no fallback.  With fp32 x and a
+  bf16 head they form the logits as two bf16 products on x's halves
+  (:func:`lce_split_x_ref` is the plain version of the split), which
+  keeps the fp32 logits of the TPU kernels' fp32 x bf16 dot.
 
 The JAX package's XLA tier keeps dz in fp32 for both products; where the
 dtypes are bf16 the port rounds dz as the Pallas tier does.
@@ -36,7 +39,7 @@ from .cuda import linear_ce as _cuda
 
 __all__ = ["NEG_INF", "linear_cross_entropy", "default_chunk",
            "naive_peak_bytes", "chunked_peak_bytes", "lce_fwd_ref",
-           "lce_dz_ref", "lce_bwd_ref"]
+           "lce_dz_ref", "lce_bwd_ref", "lce_split_x_ref"]
 
 NEG_INF = -1e30
 
@@ -71,6 +74,15 @@ class _Meta(NamedTuple):
 def _cols(labels, c0, width):
     return labels[:, None] == torch.arange(c0, c0 + width,
                                            device=labels.device)[None, :]
+
+
+def lce_split_x_ref(x2):
+    """fp32 x ``[T, H]`` as two bf16 halves ``[2, T, H]``: ``x_hi =
+    bf16(x)`` and ``x_lo = bf16(x - x_hi)``, both rounded to nearest even
+    (``x - x_hi`` is exact in fp32).  ``x_hi + x_lo`` holds x to 2^-17 of
+    its value, and each product with a bf16 w is exact in fp32."""
+    hi = x2.to(torch.bfloat16)
+    return torch.stack((hi, (x2 - hi.float()).to(torch.bfloat16)))
 
 
 def lce_fwd_ref(x2, w, labels, *, chunk, ignore_index=None,

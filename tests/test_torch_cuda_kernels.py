@@ -397,9 +397,9 @@ LCE_CASES = [(100, 64, 300, 128, -100, 0.0), (64, 32, 97, 40, None, 0.1),
              (1000, 200, 1100, 200, -100, 0.1)]
 LCE_IDS = ["ignore-index", "smoothing", "tile-edges-ignore-index",
            "v-below-tile-h8-smoothing", "bwd-tile-edges-chunk200-h200"]
-# bf16 operands take the wgmma kernels: all four with bf16 x and w; dx
-# alone with fp32 x (dz_w and w bf16); dw alone with fp32 w (dz_x and x
-# bf16, dw written fp32)
+# bf16 operands take the wgmma kernels: all four with bf16 x and w; fwd,
+# dz (on x's bf16 halves, the split route) and dx with fp32 x; dw alone
+# with fp32 w (dz_x and x bf16, dw written fp32)
 LCE_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
               (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
 LCE_DTYPE_IDS = ["fp32", "bf16", "fp32x-bf16w", "bf16x-fp32w"]
@@ -412,8 +412,14 @@ def test_linear_ce_kernels_match_plain(dts, case):
     """nll / lse (fp32 outputs: 1e-4 whatever the inputs' dtype, the
     products differ only in summation order), the last slab's dz, and
     dx / dw (1e-4 in fp32, 2e-2 with a bf16 operand) against the plain
-    versions; one fwd launch and one dz, dx and dw launch per slab; a
-    second forward, dz and backward call bit-identical to the first."""
+    versions; one fwd launch and one dz, dx and dw launch per slab (and
+    with fp32 x and bf16 w one ``linear_ce_split_x`` a forward and a
+    backward call); a second forward, dz and backward call bit-identical
+    to the first.  With fp32 x and bf16 w (the split route) also nll and
+    lse within 1e-4 absolute and dz_x within 1e-4 |g| p + 8 x 2^-24 |dz|
+    elementwise (p = exp(z - lse), the part of dz an error in z moves;
+    the second term the few fp32 roundings of dz = g (p - 1) at the
+    label), which x rounded to bf16 would miss."""
     _need_card()
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
     from paddle_tpu_torch.ops.cuda import linear_ce as lc
@@ -436,9 +442,10 @@ def test_linear_ce_kernels_match_plain(dts, case):
     dx, dw = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
     torch.cuda.synchronize()
     slabs = -(-V // chunk)
+    split = (xdt, wdt) == (torch.float32, torch.bfloat16)
     assert {k: n for k, n in layer.launch_counts().items() if n} == {
         "linear_ce_fwd": 1, "linear_ce_dz": slabs, "linear_ce_dx": slabs,
-        "linear_ce_dw": slabs}
+        "linear_ce_dw": slabs, **({"linear_ce_split_x": 2} if split else {})}
     # a second call on the same inputs: the same bits (the forward folds
     # its vocab tiles' partials in a fixed order)
     nll2, lse2 = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw)
@@ -460,10 +467,34 @@ def test_linear_ce_kernels_match_plain(dts, case):
     assert dz_w.dtype == wdt and dz_x.dtype == xdt
     torch.testing.assert_close(dz_w.float(), dz_p.to(wdt).float(), **tol)
     torch.testing.assert_close(dz_x.float(), dz_p.to(xdt).float(), **tol)
+    if split:
+        assert float((nll - nll_p).abs().max()) <= 1e-4
+        assert float((lse - lse_p).abs().max()) <= 1e-4
+        p = (x @ w[c0:].float().t() - lse_p[:, None]).exp()
+        lim = 1e-4 * g.abs()[:, None] * p + 8 * 2.0 ** -24 * dz_p.abs()
+        assert bool(((dz_x - dz_p).abs() <= lim).all())
     dx_p, dw_p = fce.lce_bwd_ref(x, w, lab, lse_p, g, chunk=chunk, **kw)
     assert dx.dtype == xdt and dw.dtype == wdt
     torch.testing.assert_close(dx.float(), dx_p.float(), **tol)
     torch.testing.assert_close(dw.float(), dw_p.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,H", [(1, 8), (300, 72), (1000, 200)])
+def test_linear_ce_split_x_equals_plain_bit_for_bit(T, H):
+    """The split route's pre-pass: ``[bf16(x), bf16(x - bf16(x))]`` equal
+    to its plain version bit for bit, on values spread over 60 binades."""
+    _need_card()
+    from paddle_tpu_torch.ops import fused_cross_entropy as fce
+    from paddle_tpu_torch.ops.cuda import linear_ce as lc
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal((T, H)) * np.exp2(
+        rng.integers(-30, 30, (T, H)))).astype(np.float32)).cuda()
+    layer.reset_counts()
+    xs = lc.linear_ce_split_x_cuda(x)
+    torch.cuda.synchronize()
+    assert layer.launch_counts()["linear_ce_split_x"] == 1
+    assert torch.equal(xs, fce.lce_split_x_ref(x))
 
 
 @pytest.mark.gpu

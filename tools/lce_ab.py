@@ -14,32 +14,41 @@ unpacked by ``git archive`` into the git-ignored ``archive_check/``).
 ``--ablate`` adds this tree's file with the choices of ``TUNINGS``
 (groups of 16 or 48 row blocks; each stage handed back as soon as its
 wgmmas retire; dz stored evict-first), which are checked and timed like
-a tree, and with one part of the bf16 kernels cut out (``ABLATIONS``:
+a tree, and with one part of the wgmma kernels cut out (``ABLATIONS``:
 the epilogues; the exponentials; the forward's fold; all but the copies;
-dz's stores; dx's reads and writes of its fp32 accumulator), which
-compute something else and are timed unchecked.  ``--only`` keeps the
-named variants.  All ``nvcc`` processes start together.
+dz's stores; dx's reads and writes of its fp32 accumulator; the split
+route's x_lo product, ``one_term``), which compute something else and
+are timed unchecked.  ``--only`` keeps the named variants.  All ``nvcc``
+processes start together.
 
 The script prints ptxas' registers, stack frame and spills of each
 variant's ``linear_ce`` kernels and any note of serialized wgmmas or
 ignored ``setmaxnreg`` (``--sass``: also the SASS opcode counts of each
 kernel, the SASS itself written to ``chiprun_out/lce_sass_<variant>.txt``),
-checks each checked variant on ``CASES`` (bf16: nll and lse within 1e-4
-of ``lce_fwd_ref``, the first and last slab's dz, and dx and dw of the
-whole backward, by ``chip_smoke.py``'s bf16 rule against ``lce_dz_ref`` /
-``lce_bwd_ref``, and a second call of each bit-identical to the first),
-then, unless ``--no-time``, times at the Llama head (T 8192, H 4096, V
-32000, bf16; ``chip_smoke.py``'s ``LCE_CASES[0]``), the variants in turns
-(a, b, ..., b, a): ``linear_ce_fwd`` (one call), ``linear_ce_dz`` over
-the 16 slabs of 2048 (the backward's dz launches), and the whole
-backward call (dz, dx, dw) with each kernel's device time over its 16
-launches, each beside its bound, the forward beside the dense chain
-(``x @ w.T`` then ``F.cross_entropy``) and dz + dx + dw beside the dense
-chain's backward alone; ``--turns N`` runs that order N times.  It also
-prints the bytes the bf16 kernels' TMA copies from L2 into shared
-memory a call, and each kernel's grid.  A tree whose library does not
-size the forward's scratch (``pt_linear_ce_fwd_scratch``, before the
-bf16 kernels) is given none.
+checks each checked variant on ``CASES`` (nll and lse within 1e-4 of
+``lce_fwd_ref``, the first and last slab's dz, and dx and dw of the whole
+backward, by ``chip_smoke.py``'s rules against ``lce_dz_ref`` /
+``lce_bwd_ref``, and a second call of each bit-identical to the first;
+bf16, and fp32 x with bf16 w, where ``chip_smoke.check_split`` also holds
+nll, lse and dz_x to the split route's bounds and the plain version on
+bf16-rounded x must miss them), then, unless ``--no-time``, times at the
+Llama head (T 8192, H 4096, V 32000, bf16; ``chip_smoke.py``'s
+``LCE_CASES[0]``) and at the GPT head (T 8192, H 768, V 32768, fp32 x,
+bf16 w; ``LCE_CASES[2]``), the variants in turns (a, b, ..., b, a):
+``linear_ce_fwd`` (one call; at the GPT head also ``linear_ce_split_x``,
+its pre-pass), ``linear_ce_dz`` over the 16 slabs of 2048 (the
+backward's dz launches), and the whole backward call (dz, dx, dw) with
+each kernel's device time over its 16 launches, each beside its bound,
+the forward beside the dense chain (``x @ w.T`` then ``F.cross_entropy``)
+and dz + dx + dw beside the dense chain's backward alone; ``--turns N``
+runs that order N times.  At the GPT head ``change`` is also timed as
+``reload_w``: the bf16 kernels on ``[x_hi | x_lo]`` and ``[w | w]`` (H
+1536), the same sums with each w box loaded again for the lo product
+(checked: nll within 1e-4 of the plain version).  It also prints the
+bytes the wgmma kernels' TMA copies from L2 into shared memory a call,
+and each kernel's grid.  A tree whose library does not size its scratch
+(``pt_linear_ce_scratch``; its ``pt_linear_ce_fwd_scratch`` before the
+split route, none before the bf16 kernels) is given that, and no split.
 
 Writes ``chiprun_out/lce_ab.json``.  Imports nothing of the JAX package.
 """
@@ -58,17 +67,23 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 ITERS = 5                        # timed calls a variant and turn
-# (T, H, V, chunk, ignore_index, label_smoothing), bf16: the GPU lane's
-# tile edges, chip_smoke's small cases and the Llama head
-CASES = [(300, 72, 513, 256, -100, 0.0), (200, 8, 100, 64, None, 0.1),
-         (1000, 1024, 5000, 2048, -100, 0.0),
-         (515, 768, 4999, 1024, None, 0.1),
-         (8192, 4096, 32000, 2048, None, 0.0)]
-LLAMA = cs.LCE_CASES[0]
+# (T, H, V, chunk, ignore_index, label_smoothing, x dtype), w bf16: the
+# GPU lane's tile edges, chip_smoke's small cases and the Llama head in
+# bf16, then the split route (fp32 x) on tile edges, chip_smoke's
+# smoothing case and the GPT head
+CASES = [(300, 72, 513, 256, -100, 0.0, "bfloat16"),
+         (200, 8, 100, 64, None, 0.1, "bfloat16"),
+         (1000, 1024, 5000, 2048, -100, 0.0, "bfloat16"),
+         (515, 768, 4999, 1024, None, 0.1, "bfloat16"),
+         (8192, 4096, 32000, 2048, None, 0.0, "bfloat16"),
+         (300, 72, 513, 256, -100, 0.0, "float32"),
+         (515, 768, 4999, 1024, None, 0.1, "float32"),
+         (8192, 768, 32768, 2048, None, 0.0, "float32")]
+LLAMA, GPT = cs.LCE_CASES[0], cs.LCE_CASES[2]
 _EPI = """    if constexpr (EPI == EPI_FWD)
       epi_fwd(a, acc, m0, n0, nb, NB, mb, tid, comb, flag);
     else if constexpr (EPI == EPI_DZ)
-      epi_dz(a, acc, m0, n0, tid);
+      epi_dz<SPLIT>(a, acc, m0, n0, tid);
     else if constexpr (EPI == EPI_DX)
       epi_dx(a, acc, m0, n0, tid);
     else
@@ -98,6 +113,10 @@ _HANDBACK = """      wg_wait<1>();
     fence_regs(acc);
     release((it - 1) % C::STAGES);"""
 _DZ_STORE = "        pw[4 * i + tq] = q;"
+_XS = "  static constexpr int XS = SPLIT ? 2 : 1;   // A tiles a stage"
+_LO_MMA = """        if constexpr (SPLIT)                 // x_lo against the same w box
+          WgmmaSS256<>::mma(acc, dl + 2 * kk, db + 2 * kk, 1);
+"""
 _DX_LOAD = "ok && !a.first ?"
 _DX_STORE = """      if (!a.last)
         store8(row + c, v);"""
@@ -133,9 +152,12 @@ ABLATIONS = {
     # (only the last slab's store of dx stays, so the wgmmas stay)
     "dx_no_acc": [(_DX_LOAD, "false ?", 2),
                   (_DX_STORE, "      if (!a.last)\n        ;")],
+    # the split route with x_hi alone: one x box a stage (still 3
+    # stages), no x_lo product; what x_lo costs
+    "one_term": [(_XS, _XS.replace("SPLIT ? 2 : 1", "1")), (_LO_MMA, "")],
 }
 SASS_OPS = ("HGMMA", "MUFU", "FFMA", "FMNMX", "FADD", "SHFL", "STG", "LDG",
-            "SYNCS", "UTMALDG", "BAR")
+            "SYNCS", "UTMALDG", "BAR", "F2FP")
 
 
 def _ptxas(text):
@@ -206,11 +228,24 @@ def _edited(text, cuts):
     return text
 
 
-def _no_scratch(args, sizes):
-    """``pt_linear_ce_fwd_scratch`` of a library from before the bf16
-    kernels: no scratch."""
-    sizes[0] = sizes[1] = 0
-    return 0
+def _compat(lib):
+    """Give a library from before the split route the entry points this
+    tree's wrapper calls: ``pt_linear_ce_scratch`` from its
+    ``pt_linear_ce_fwd_scratch`` (none before the bf16 kernels: no
+    scratch) with no ``xs``, and a ``pt_linear_ce_split_x`` that is then
+    never called."""
+    if hasattr(lib, "pt_linear_ce_scratch"):
+        return
+    fwd = getattr(lib, "pt_linear_ce_fwd_scratch", None)
+
+    def scratch(args, sizes):
+        sizes[0] = sizes[1] = sizes[2] = 0
+        return fwd(args, sizes) if fwd is not None else 0
+
+    def no_split(args, stream):
+        return 1
+    lib.pt_linear_ce_scratch = scratch
+    lib.pt_linear_ce_split_x = no_split
 
 
 def build_variants(srcs):
@@ -243,8 +278,7 @@ def build_variants(srcs):
                         str(out_dir / f"lce_{name}.o"), "-o", str(so)],
                        check=True, capture_output=True, text=True)
         lib = ctypes.CDLL(str(so))
-        if not hasattr(lib, "pt_linear_ce_fwd_scratch"):
-            lib.pt_linear_ce_fwd_scratch = _no_scratch
+        _compat(lib)
         build._bind(lib)
         table, notes = _ptxas(logs[len(others) + i])
         libs[name] = (lib, table, notes, out_dir / f"lce_{name}.o")
@@ -252,12 +286,13 @@ def build_variants(srcs):
 
 
 def inputs(case, gen):
-    """bf16 x ~ N(0, 1), w ~ N(0, 0.02), random labels with row 1's at
-    V - 1 (every 7th ignored where the case has ignore_index), and an
-    N(0, 1) nll cotangent, zero at ignored labels."""
+    """x ~ N(0, 1) in the case's dtype, bf16 w ~ N(0, 0.02), random labels
+    with row 1's at V - 1 (every 7th ignored where the case has
+    ignore_index), and an N(0, 1) nll cotangent, zero at ignored labels."""
     import torch
-    T, H, V, _, ignore, _ = case
-    x = torch.randn(T, H, device="cuda", generator=gen).to(torch.bfloat16)
+    T, H, V, _, ignore, _, xdn = case
+    x = torch.randn(T, H, device="cuda", generator=gen).to(
+        getattr(torch, xdn))
     w = (0.02 * torch.randn(V, H, device="cuda", generator=gen)).to(
         torch.bfloat16)
     lab = torch.randint(0, V, (T,), device="cuda", generator=gen)
@@ -278,10 +313,10 @@ def check_variant(name, gen):
     from paddle_tpu_torch.ops.cuda import linear_ce as lc
     worst = 0.0
     for case in CASES:
-        T, H, V, chunk, ignore, eps = case
+        T, H, V, chunk, ignore, eps, xdn = case
         x, w, lab, g = inputs(case, gen)
         kw = dict(label_smoothing=eps)
-        label = f"{name} T {T} H {H} V {V} chunk {chunk}"
+        label = f"{name} T {T} H {H} V {V} chunk {chunk} x {xdn}"
         nll, lse = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw)
         nll2, lse2 = lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore,
                                            **kw)
@@ -294,10 +329,11 @@ def check_variant(name, gen):
                 cs.check_close(f"{label} lse", lse, lse_p, cs.TOL["float32"]))
         for c0 in sorted({0, (V - 1) // chunk * chunk}):
             width = min(chunk, V - c0)
-            dz, _ = lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width, **kw)
-            dz2, _ = lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width, **kw)
+            dz, dzx = lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width, **kw)
+            dz2, dzx2 = lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width,
+                                             **kw)
             torch.cuda.synchronize()
-            if not torch.equal(dz, dz2):
+            if not (torch.equal(dz, dz2) and torch.equal(dzx, dzx2)):
                 raise cs.SmokeFailure(f"{label}: two dz calls differ")
             truth = fce.lce_dz_ref(x, w[c0:c0 + width], lab, lse, g, c0, V,
                                    eps)
@@ -305,7 +341,15 @@ def check_variant(name, gen):
             e = max(e, cs.check_lce(f"{label} dz slab {c0}:{c0 + width}", dz,
                                     truth.to(dz.dtype), truth, True, ratios))
             worst = max(worst, ratios[0])
-            del dz, dz2, truth
+            if xdn == "float32":
+                e = max(e, cs.check_lce(f"{label} dz_x slab {c0}", dzx,
+                                        truth, None, False, None))
+                if c0 + width == V:          # the smoke's slab: the last
+                    cs.check_split(label, (label, T, H, V, chunk, xdn,
+                                           "bfloat16", ignore, eps),
+                                   x, w, lab, lse, g, c0, (nll, lse, dzx),
+                                   (nll_p, lse_p, truth))
+            del dz, dz2, dzx, dzx2, truth
         dx, dw = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
         dx2, dw2 = lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk,
                                          **kw)
@@ -327,15 +371,19 @@ def check_variant(name, gen):
     return worst
 
 
-def tma_bytes(T, H, V, chunk):
-    """Bytes the bf16 kernels' TMA reads from L2 a call: the forward and
+def tma_bytes(T, H, V, chunk, split=False):
+    """Bytes the wgmma kernels' TMA reads from L2 a call: the forward and
     the backward's dz, dx and dw over its slabs (each 128 x 256 output
-    tile reads a 16 KB A box and a 32 KB B box every 64-deep K step)."""
-    def one(rows, cols, depth):
-        return -(-rows // 128) * -(-cols // 256) * -(-depth // 64) * 49152
+    tile reads a 16 KB A box and a 32 KB B box every 64-deep K step; on
+    the split route, fp32 x with bf16 w, fwd and dz read two A boxes, x_hi
+    and x_lo, beside the one B box)."""
+    def one(rows, cols, depth, a_boxes=1):
+        return (-(-rows // 128) * -(-cols // 256) * -(-depth // 64)
+                * (16384 * a_boxes + 32768))
+    z = 2 if split else 1
     widths = [min(chunk, V - c0) for c0 in range(0, V, chunk)]
-    return {"fwd": one(T, V, H),
-            "dz": sum(one(T, c, H) for c in widths),
+    return {"fwd": one(T, V, H, z),
+            "dz": sum(one(T, c, H, z) for c in widths),
             "dx": sum(one(T, H, c) for c in widths),
             "dw": sum(one(c, H, T) for c in widths)}
 
@@ -357,81 +405,119 @@ def kernel_grids(fn, name):
 
 
 def kernel_ms(breakdown, name):
+    """Device ms a call of kernel ``name``'s instances in a breakdown."""
     hit = [(mean, n) for k, (mean, n) in breakdown.items()
-           if name + "<" in k or name + "_wg(" in k]
+           if cs.lce_route(k, name)]
     return sum(mean * n for mean, n in hit) if hit else None
 
 
-def time_llama(libs, order, gen, report):
+def time_head(libs, order, gen, report, case, key):
+    """Each variant's times at one head (``case``, an entry of
+    ``chip_smoke.LCE_CASES``) in the turns of ``order``, beside the bounds
+    and the dense chain, into ``report``'s ``key`` rows.  With fp32 x the
+    forward's breakdown also gives the split pre-pass, and ``reload_w``
+    (after each ``change``) times this tree's bf16 kernels on ``[x_hi |
+    x_lo]`` and ``[w | w]``."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.ops import fused_cross_entropy as fce
     from paddle_tpu_torch.ops.cuda import linear_ce as lc
-    _, T, H, V, chunk, *_ = LLAMA
-    x, w, lab, g = inputs((T, H, V, chunk, None, 0.0), gen)
+    _, T, H, V, chunk, xdn, *_ = case
+    x, w, lab, g = inputs((T, H, V, chunk, None, 0.0, xdn), gen)
+    operands = {name: (x, w) for name in libs}
+    build._lib = next(iter(libs.values()))[0]
     _, lse = lc.linear_ce_fwd_cuda(x, w, lab)
+    if xdn == "float32" and "change" in libs:
+        xs = fce.lce_split_x_ref(x)
+        operands["reload_w"] = (torch.cat((xs[0], xs[1]), 1),
+                                torch.cat((w, w), 1))
+        del xs
+        nll_r, _ = lc.linear_ce_fwd_cuda(*operands["reload_w"], lab)
+        nll_p, _ = fce.lce_fwd_ref(x, w, lab, chunk=chunk)
+        err = cs.max_err(nll_r, nll_p)
+        if err > cs.LCE_ABS:
+            raise cs.SmokeFailure(f"{key} reload_w: nll {err:.3e} from the "
+                                  f"plain version")
+        cs.info(f"{key} reload_w: max |nll - plain| {err:.3e}")
+        del nll_r, nll_p
+        order = [v for n in order for v in (
+            (n, "reload_w") if n == "change" else (n,))]
     slabs = [(c0, min(chunk, V - c0)) for c0 in range(0, V, chunk)]
-
-    def dz_all():
-        for c0, width in slabs:
-            lc.linear_ce_dz_cuda(x, w, lab, lse, g, c0, width)
-    times = {name: {"fwd": [], "dz": [], "dx": [], "dw": [], "bwd": []}
-             for name in libs}
+    libs = dict(libs, reload_w=libs["change"]) if "reload_w" in \
+        operands else libs
+    times = {name: {"fwd": [], "split_x": [], "dz": [], "dx": [], "dw": [],
+                    "bwd": []} for name in libs}
     for name in libs:
         build._lib = libs[name][0]
-        grids = kernel_grids(lambda: (lc.linear_ce_fwd_cuda(x, w, lab),
-                                      lc.linear_ce_dz_cuda(x, w, lab, lse, g,
-                                                           0, chunk)), name)
-        report["variants"][name]["grids"] = grids
-        cs.info(f"grids {name}: {grids}")
+        xx, ww = operands[name]
+        grids = kernel_grids(lambda: (lc.linear_ce_fwd_cuda(xx, ww, lab),
+                                      lc.linear_ce_dz_cuda(xx, ww, lab, lse,
+                                                           g, 0, chunk)),
+                             f"{key}_{name}")
+        report["variants"].setdefault(name, {})[f"{key}_grids"] = grids
+        cs.info(f"grids {key} {name}: {grids}")
     for name in order:
         build._lib = libs[name][0]
+        xx, ww = operands[name]
+
+        def dz_all():
+            for c0, width in slabs:
+                lc.linear_ce_dz_cuda(xx, ww, lab, lse, g, c0, width)
         by = {}
-        _, call = cs.time_ms(lambda: lc.linear_ce_fwd_cuda(x, w, lab),
+        _, call = cs.time_ms(lambda: lc.linear_ce_fwd_cuda(xx, ww, lab),
                              ITERS, by)
         times[name]["fwd"].append(kernel_ms(by, "linear_ce_fwd") or call)
+        times[name]["split_x"].append(kernel_ms(by, "linear_ce_split_x"))
         by = {}
         _, call = cs.time_ms(dz_all, 2, by)
         times[name]["dz"].append(kernel_ms(by, "linear_ce_dz") or call)
         by = {}
-        dev, call = cs.time_ms(lambda: lc.linear_ce_bwd_cuda(
-            x, w, lab, lse, g, chunk=chunk), 2, by)
+        if name == "reload_w":               # fwd and dz only: another dx, dw
+            dev = call = None
+        else:
+            dev, call = cs.time_ms(lambda: lc.linear_ce_bwd_cuda(
+                xx, ww, lab, lse, g, chunk=chunk), 2, by)
         per = {k: kernel_ms(by, k) for k in cs.LCE_NAMES[1:]}
         times[name]["bwd"].append(dict(device_ms=dev, call_ms=call, **per))
         for k in ("dx", "dw"):
             times[name][k].append(per[f"linear_ce_{k}"])
-        cs.info(f"llama head {name}: fwd {times[name]['fwd'][-1]:.4f} ms, "
-                f"dz x {len(slabs)} {times[name]['dz'][-1]:.4f} ms, bwd "
+        cs.info(f"{key} {name}: fwd {times[name]['fwd'][-1]:.4f} ms (split "
+                f"{times[name]['split_x'][-1]}), dz x {len(slabs)} "
+                f"{times[name]['dz'][-1]:.4f} ms, bwd "
                 f"{times[name]['bwd'][-1]}")
     lib_fwd = cs.time_ms(lambda: F.cross_entropy(
-        (x @ w.t()).float(), lab, reduction="none"), ITERS)[0]
+        (x @ w.to(x.dtype).t()).float(), lab, reduction="none"), ITERS)[0]
     xr, wr = (t.detach().requires_grad_(True) for t in (x, w))
-    saved = (F.cross_entropy((xr @ wr.t()).float(), lab, reduction="none")
-             * g).sum()
+    saved = (F.cross_entropy((xr @ wr.to(x.dtype).t()).float(), lab,
+                             reduction="none") * g).sum()
     lib_bwd = cs.time_ms(lambda: torch.autograd.grad(
         saved, (xr, wr), retain_graph=True), 3)[0]
     del saved, xr, wr
-    bo = cs.lce_bytes_ops(T, H, V, chunk, 2, 2)
-    bound = {k: cs.bound_ms(*bo[f"linear_ce_{k}"][:2])
-             for k in ("fwd", "dz", "dx", "dw")}
-    report["llama_head"] = dict(bound_ms=bound, library_fwd_ms=lib_fwd,
-                                library_bwd_ms=lib_bwd)
-    cs.info(f"llama head: bound {bound}; dense chain forward {lib_fwd:.4f} "
-            f"ms, backward alone {lib_bwd:.4f} ms")
+    bo = cs.lce_bytes_ops(T, H, V, chunk, x.element_size(), 2)
+    bound = {k: cs.bound_ms(*bo[f"linear_ce_{k}"])
+             for k in ("fwd", "dz", "dx", "dw", "split_x")}
+    report[key] = dict(bound_ms=bound, library_fwd_ms=lib_fwd,
+                       library_bwd_ms=lib_bwd,
+                       tma_bytes=tma_bytes(T, H, V, chunk,
+                                           xdn == "float32"))
+    cs.info(f"{key}: bound {bound}; dense chain forward {lib_fwd:.4f} ms, "
+            f"backward alone {lib_bwd:.4f} ms; TMA bytes from L2 a call "
+            f"{report[key]['tma_bytes']}")
     for name, ts in times.items():
-        row = report["variants"][name]["llama_head"] = dict(ts)
-        for k in ("fwd", "dz", "dx", "dw"):
+        row = report["variants"][name][key] = dict(ts)
+        for k in ("fwd", "split_x", "dz", "dx", "dw"):
             got = [v for v in ts[k] if v is not None]
             if not got:
                 continue
             mean = sum(got) / len(got)
             row[f"{k}_mean_ms"] = mean
             row[f"{k}_of_bound"] = bound[k][0] / mean
-            cs.info(f"llama head {name}: {k} {ts[k]} ms (mean {mean:.4f}, "
+            cs.info(f"{key} {name}: {k} {ts[k]} ms (mean {mean:.4f}, "
                     f"{100 * row[f'{k}_of_bound']:.1f} % of bound)")
         if all(f"{k}_mean_ms" in row for k in ("dz", "dx", "dw")):
             bwd = sum(row[f"{k}_mean_ms"] for k in ("dz", "dx", "dw"))
-            cs.info(f"llama head {name}: fwd {row['fwd_mean_ms'] / lib_fwd:.2f}"
+            cs.info(f"{key} {name}: fwd {row['fwd_mean_ms'] / lib_fwd:.2f}"
                     f"x the dense chain's forward; dz + dx + dw {bwd:.4f} ms, "
                     f"{bwd / lib_bwd:.2f}x its backward alone")
 
@@ -472,10 +558,7 @@ def main():
         keep = args.only.split(",")
         srcs = {k: v for k, v in srcs.items() if k in keep}
     libs = build_variants(srcs)
-    report = {"card": card, "variants": {},
-              "tma_bytes": tma_bytes(*[LLAMA[i] for i in (1, 2, 3, 4)])}
-    cs.info(f"TMA bytes from L2 a call at the Llama head: "
-            f"{report['tma_bytes']}")
+    report = {"card": card, "variants": {}}
     for name, (_, table, notes, obj) in libs.items():
         report["variants"][name] = {"ptxas": table, "wgmma_notes": notes}
         for k, v in table.items():
@@ -496,7 +579,9 @@ def main():
             name, gen)
     if not args.no_time:
         order = (list(libs) + list(reversed(libs))) * args.turns
-        time_llama(libs, order, gen, report)
+        time_head(libs, order, gen, report, LLAMA, "llama_head")
+        torch.cuda.empty_cache()
+        time_head(libs, order, gen, report, GPT, "gpt_head")
     out = ROOT / "chiprun_out" / "lce_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

@@ -57,6 +57,12 @@ torch.backends.cudnn.allow_tf32 = False
 phases = sys.argv[1].split(",")
 cs.phase_device()
 cs.phase_build()
+# the profiler's first session in a process sets up its tracing (~1 s a
+# step of a phase's profiled window): take it here, before any phase
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CUDA]):
+    torch.ones(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
 out = {}
 if "train" in phases:
     out["train"] = cs.phase_train()[1]
@@ -96,12 +102,6 @@ if "head_host" in phases:
     out["head_host bwd"] = {"host_ms": 1e3 * statistics.median(bwd)}
 if "engine" in phases:
     torch.cuda.empty_cache()
-    # the profiler's first session in a process sets up its tracing (~1 s
-    # a step of the engine's profiled window): take it here
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]):
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
     from paddle_tpu_torch.models.llama import llama_7b
     s = root.phase_engine(llama_7b(dtype="bfloat16"))[1]
     out["engine decode step wall"] = {"step_ms": s["decode_step_ms"]}
@@ -168,9 +168,14 @@ def run(tree, phases):
         ms = s.get("step_ms", s.get("forward_ms", s.get("host_ms",
                                                          s.get("value"))))
         by = s.get("device_ms_by_group", {})
-        out[phase] = (ms, {g: by.get(g) for g in GROUPS},
-                      {k: v for k, v in s.items()
-                       if isinstance(v, (int, float))})
+        other = {k: v for k, v in s.items() if isinstance(v, (int, float))}
+        if by and "step_ms" in s:
+            # the profiled step's device time over the unprofiled step's
+            # wall time (the profiler slows a host-led step's wall)
+            other["busy_ms"] = sum(by.values())
+            other["busy_share_of_step"] = (other["busy_ms"]
+                                           / s["step_ms"])
+        out[phase] = (ms, {g: by.get(g) for g in GROUPS}, other)
     return out
 
 
