@@ -52,13 +52,18 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             second forward, dz and backward call bit-identical to the
             first; at the two fp32-x cases (the split route: x as bf16
             halves on wgmma) the pre-pass ``linear_ce_split_x`` bit-equal
-            to its plain version, nll and lse within 1e-4 absolute and
-            dz_x within 1e-4 |g| p of the plain fp32 version, and the
-            plain version on bf16-rounded x failing those checks; each
-            kernel's profiled route (wgmma at the Llama head; fwd and dz
-            split, dx wgmma, dw FMA at the GPT head); kernel, plain,
+            to its plain version, nll and lse within 1e-4 absolute, dz
+            (its bf16 halves' sum) within 1e-4 |g| p + 136 x 2^-24 |dz|
+            of the plain fp32 version, and the plain version on
+            bf16-rounded x failing those checks; dw (three bf16 products
+            on the halves of dz and x) within half a bf16 ulp of the
+            plain fp32 dw plus an allowance, which the one-product
+            version and each version without a cross term must fail;
+            each kernel's profiled route (wgmma at the Llama head; fwd,
+            dz and dw split, dx wgmma at the GPT head); kernel, plain,
             bound and dense-chain (``x @ w.T`` then ``F.cross_entropy``:
-            forward, backward alone, forward + backward) times;
+            forward, backward alone, forward + backward) times, and dw's
+            beside one ``torch.matmul(dz.T, x)`` a slab;
 7. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
             train step (remat, the fused linear-CE head of the config
             default): one warm step and 5 timed steps on one seeded batch
@@ -1170,16 +1175,44 @@ LCE_REPLACES = {"linear_ce_fwd": "paddle_tpu/ops/pallas/linear_ce.py:152",
                 # the fp32 x of those kernels' dot with bf16 w
                 "linear_ce_split_x": "paddle_tpu/ops/pallas/linear_ce.py:152"}
 # the split route's checks (fp32 x, bf16 w): nll and lse within LCE_ABS of
-# the plain fp32 version, absolute, and dz_x within DZ_P_REL |g| p of it
-# elementwise, p = exp(z - lse) being the part of dz that an error in z
-# moves, plus DZ_ULPS x 2^-24 |dz| (2^-24 |dz| is half to one fp32 ulp of
-# dz: at the label, dz = g (p - 1) is formed by a few fp32 roundings at
-# |g|, whatever z's error; elsewhere the term is under 1e-6 |g| p).  A
-# relative L2 on dz is dominated by the label entries and cannot tell the
-# split from x rounded to bf16; these checks can: the plain version on
-# bf16-rounded x (what a kernel that dropped x_lo would give) must fail
-# the nll and the dz check.
-LCE_ABS, DZ_P_REL, DZ_ULPS = 1e-4, 1e-4, 8
+# the plain fp32 version, absolute, and dz (its bf16 halves' sum, dz_hi +
+# dz_lo) within DZ_P_REL |g| p of it elementwise, p = exp(z - lse) being
+# the part of dz that an error in z moves, plus DZ_ULPS x 2^-24 |dz|: the
+# pair holds dz to 2^-17 = 128 x 2^-24 of its value, and the fp32 dz it
+# splits to 8 x 2^-24 (half to one fp32 ulp of dz: at the label, dz = g
+# (p - 1) is formed by a few fp32 roundings at |g|, whatever z's error;
+# elsewhere the term is under 1e-6 |g| p).  A relative L2 on dz is
+# dominated by the label entries and cannot tell the split from x rounded
+# to bf16; these checks can: the plain version on bf16-rounded x (what a
+# kernel that dropped x_lo would give) must fail the nll and the dz check.
+LCE_ABS, DZ_P_REL, DZ_ULPS = 1e-4, 1e-4, 128 + 8
+# ... and dw (three bf16 products on the halves of dz and x) within half a
+# bf16 ulp of the plain fp32 dw (dz^T x before its rounding to w's dtype)
+# plus (DZ_P_REL |g| p + dw_rel(T) |dz|)^T |x| elementwise: dz's own error
+# as the dz check allows it (DZ_P_REL |g| p + DZ_ULPS 2^-24 |dz|, which
+# also holds the pair's 2^-17), x's halves (2^-17 |x|), the dropped dz_lo
+# x_lo (up to 2^-16 |dz x|), and the fp32 sums of the 3 T products on the
+# card and of the T on the plain side, DW_ACC sqrt(3 T) 2^-24 |dz x|: a
+# random walk's size (the worst case, 3 T 2^-24, is 1.5e-3 at T 8192 and
+# would hide a dropped term).  At a label's column one product dominates
+# dw, so dropping a cross term (an error up to 2^-8 of it) moves the bf16
+# rounding of many elements by more than the allowance: the one-product
+# version and each version without one cross term must fail.
+DW_ACC = 8
+
+
+def dw_rel(T):
+    """The split dw check's allowance per unit of |dz|^T |x|."""
+    return (DZ_ULPS * 2.0 ** -24 + 2.0 ** -17 + 2.0 ** -16
+            + DW_ACC * (3 * T) ** 0.5 * 2.0 ** -24)
+
+
+def half_ulp_bf16(v):
+    """Half a bf16 ulp of each element of fp32 ``v`` (|v| in [2^(e-1),
+    2^e): 2^(e-9))."""
+    import torch
+    _, e = torch.frexp(v)
+    return torch.ldexp(torch.ones_like(v), e - 9)
 
 
 def rel_l2(a, b):
@@ -1191,21 +1224,24 @@ def lce_bytes_ops(T, H, V, chunk, xs, ws):
     """(bytes, operations, peak-rate dtype) of each linear-CE kernel over
     one call (all its slabs of ``chunk``): each input read once, each
     output written once, the product 2 T H V; a product with an fp32
-    operand runs at the fp32 rate, except fwd and dz with fp32 x and bf16
-    w, which do the same work as two bf16 products (the split route:
-    4 T H V at the bf16 rate, x read as its two bf16 halves, 4 bytes an
-    element either way).  dx also moves its fp32 [T, H] accumulator
-    between the slabs: the first writes it, each later one reads it and
-    each but the last writes it back (2 x slabs - 2 passes over T x H fp32
-    in all), and the last writes dx in x's dtype.  The split pre-pass
-    reads x and writes its halves (4 + 4 bytes an element; one subtraction
-    and two conversions an element, fp32)."""
+    operand runs at the fp32 rate, except with fp32 x and bf16 w (the
+    split route), where fwd and dz do the same work as two bf16 products
+    (4 T H V at the bf16 rate, x read as its two bf16 halves, 4 bytes an
+    element either way), dz is written as its two bf16 halves (T V (2 +
+    2) bytes), and dw as three (6 T H V at the bf16 rate, dz and x read as
+    their halves).  dx also moves its fp32 [T, H] accumulator between the
+    slabs: the first writes it, each later one reads it and each but the
+    last writes it back (2 x slabs - 2 passes over T x H fp32 in all), and
+    the last writes dx in x's dtype.  The split pre-pass reads x and
+    writes its halves (4 + 4 bytes an element; one subtraction and two
+    conversions an element, fp32)."""
     ops = 2 * T * H * V
     dt = {2: "bfloat16", 4: "float32"}
     split = xs == 4 and ws == 2
     both = "bfloat16" if xs == ws == 2 or split else "float32"
     z_ops = 2 * ops if split else ops
-    dz_out = T * V * ws + (T * V * xs if xs != ws else 0)
+    dz_out = T * V * (2 + 2) if split else T * V * ws + (
+        T * V * xs if xs != ws else 0)
     slabs = -(-V // chunk)
     acc = T * H * 4 * (2 * slabs - 2)
     return {"linear_ce_fwd": (T * H * xs + V * H * ws + 3 * T * 4, z_ops,
@@ -1214,8 +1250,9 @@ def lce_bytes_ops(T, H, V, chunk, xs, ws):
                              z_ops, both),
             "linear_ce_dx": (T * V * ws + V * H * ws + acc + T * H * xs, ops,
                              dt[ws]),
-            "linear_ce_dw": (T * V * xs + T * H * xs + V * H * ws, ops,
-                             dt[xs]),
+            "linear_ce_dw": (T * V * xs + T * H * xs + V * H * ws,
+                             3 * ops if split else ops,
+                             "bfloat16" if split else dt[xs]),
             "linear_ce_split_x": (8 * T * H, 3 * T * H, "float32")}
 
 
@@ -1228,9 +1265,10 @@ def dz_p_excess(dz, dz_p, p, g):
 
 
 def check_split(label, case, x, w, lab, lse, g, c0, got, plain):
-    """The split route's checks (LCE_ABS, DZ_P_REL) on the kernels' ``got
-    = (nll, lse, dz_x)`` against ``plain`` (the plain fp32 version's, on
-    the same lse for dz), then on the plain version run on bf16-rounded x,
+    """The split route's checks (LCE_ABS, DZ_P_REL, DZ_ULPS) on the
+    kernels' ``got = (nll, lse, dz)`` (dz: the sum of the kernel's bf16
+    halves, in fp32) against ``plain`` (the plain fp32 version's, on the
+    same lse for dz), then on the plain version run on bf16-rounded x,
     which must fail them; prints both distances.  Returns the kernels'
     ``(nll, lse, dz)`` distances."""
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
@@ -1246,7 +1284,7 @@ def check_split(label, case, x, w, lab, lse, g, c0, got, plain):
                      dz_p_excess(dz, plain[2], p, g))
         info(f"lce {label} split checks, {who}: max |nll - plain| "
              f"{dist[who][0]:.3e}, max |lse - plain| {dist[who][1]:.3e} "
-             f"(bound {LCE_ABS}); dz_x at {dist[who][2]:.3e} x its bound "
+             f"(bound {LCE_ABS}); dz at {dist[who][2]:.3e} x its bound "
              f"{DZ_P_REL} |g| p + {DZ_ULPS} x 2^-24 |dz|")
     n, l, d = dist["kernels"]
     if n > LCE_ABS or l > LCE_ABS or d > 1.0:
@@ -1258,6 +1296,76 @@ def check_split(label, case, x, w, lab, lse, g, c0, got, plain):
                            f"x passes a split check (nll {n:.3e}, dz "
                            f"{d:.3e} x bound): the checks cannot tell")
     return dist["kernels"]
+
+
+def split_dw_allowance(xf, ws, lse, g, dz):
+    """(DZ_P_REL |g| p + dw_rel(T) |dz|)^T |x| for the slab ``ws = w[c0:c0
+    + width]`` (fp32) and its plain dz, x fp32 ``[T, H]``: ``[width, H]``."""
+    p = (xf @ ws.t() - lse[:, None]).exp()
+    u = DZ_P_REL * g.abs()[:, None] * p + dw_rel(xf.shape[0]) * dz.abs()
+    return u.t() @ xf.abs()
+
+
+def split_dw_excess(case, x, w, lab, lse, g, dw, dw_t):
+    """The split route's dw check on the kernels' ``dw`` against ``dw_t``,
+    the plain fp32 dw before its rounding, slab by slab, and on the plain
+    three products (``lce_dw_split_ref`` on the plain dz's and x's
+    halves), the one-product version (dz_hi^T x_hi) and each version
+    without one cross term: ``{who: largest distance past half an ulp
+    over the allowance}`` (above 1 fails; 0 or below: within the
+    rounding)."""
+    import torch
+    from paddle_tpu_torch.ops import fused_cross_entropy as fce
+    _, T, _, V, chunk, _, _, _, eps = case
+    xf = x.float()
+    xs = fce.lce_split_x_ref(xf)
+    hi, lo = xs[0].float(), xs[1].float()
+    worst = dict.fromkeys(("kernels", "three products", "dz_hi x_hi",
+                           "without dz_lo x_hi", "without dz_hi x_lo"),
+                          -float("inf"))
+    for c0 in range(0, V, chunk):
+        ws = w[c0:c0 + chunk].float()
+        dz = fce.lce_dz_ref(xf, ws, lab, lse, g, c0, V, eps)
+        t = dw_t[c0:c0 + chunk]
+        lim = split_dw_allowance(xf, ws, lse, g, dz)
+        dzs = fce.lce_split_dz_ref(dz)
+        d_hi, d_lo = dzs[0].float().t(), dzs[1].float().t()
+        t1, t2, t3 = d_hi @ hi, d_hi @ lo, d_lo @ hi
+        for who, v in (("kernels", dw[c0:c0 + chunk]),
+                       ("three products", fce.lce_dw_split_ref(dzs, xs)),
+                       ("dz_hi x_hi", t1), ("without dz_lo x_hi", t1 + t2),
+                       ("without dz_hi x_lo", t1 + t3)):
+            v = v.to(dw.dtype).float()
+            # past the rounding: half an ulp of the larger of the two (a
+            # value rounded up across a power of two has the larger ulp)
+            out = (v - t).abs() - half_ulp_bf16(torch.maximum(v.abs(),
+                                                              t.abs()))
+            worst[who] = max(worst[who], float((out / lim).max()))
+        del dz, dzs, d_hi, d_lo, t1, t2, t3, lim
+    return worst
+
+
+def check_split_dw(label, case, x, w, lab, lse, g, dw, dw_t):
+    """:func:`split_dw_excess`, printed: the kernels and the plain three
+    products must pass, the versions with fewer products fail.  Returns
+    the kernels' distance."""
+    T = case[1]
+    worst = split_dw_excess(case, x, w, lab, lse, g, dw, dw_t)
+    info(f"lce {label} split dw check (half a bf16 ulp + ({DZ_P_REL} |g| p "
+         f"+ {dw_rel(T):.3e} |dz|)^T |x|): " + ", ".join(
+             f"{k} {v:.3e} x the allowance past half an ulp"
+             for k, v in worst.items()))
+    for who in ("kernels", "three products"):
+        if worst[who] > 1.0:
+            raise SmokeFailure(f"lce {label}: the split route's dw ({who}) "
+                               f"misses its bound ({worst[who]:.3e} x the "
+                               f"allowance past half an ulp)")
+    for who, v in worst.items():
+        if who not in ("kernels", "three products") and v <= 1.0:
+            raise SmokeFailure(f"lce {label}: {who} passes the split dw "
+                               f"check ({v:.3e} x the allowance past half "
+                               f"an ulp): it cannot tell")
+    return worst["kernels"]
 
 
 def lce_inputs(case, gen, dev):
@@ -1300,8 +1408,8 @@ def check_lce(name, got, plain, truth, bf16, ratios):
 
 # a linear-CE kernel's instances by their profiled names: name<...> the
 # first version's FMA kernels, name_wg(...) the bf16 wgmma ones,
-# name_split(...) fwd / dz with fp32 x on wgmma; name(...) a kernel of one
-# instance (linear_ce_split_x)
+# name_split(...) fwd / dz / dw with fp32 x and bf16 w on wgmma; name(...)
+# a kernel of one instance (linear_ce_split_x)
 LCE_ROUTES = (("<", "mma"), ("_wg(", "wg"), ("_split(", "split"),
               ("(", "kernel"))
 
@@ -1333,7 +1441,10 @@ def lce_times(case, x, w, lab, lse, g):
     versions' and the dense chain's, and the bounds.  The dense chain's
     yardstick for the backward kernels is its backward alone
     (``torch.autograd.grad`` of one saved forward); its forward + backward
-    rides along as ``library_fwd_bwd_ms``."""
+    rides along as ``library_fwd_bwd_ms``.  dw's own yardstick
+    (``library_ms``; the backward alone as ``library_bwd_ms``) is one
+    ``torch.matmul(dz.T, x)`` a slab in x's dtype, summed over the slabs
+    (fp32 with TF32 off at the GPT head, bf16 at the Llama head)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
@@ -1368,6 +1479,17 @@ def lce_times(case, x, w, lab, lse, g):
     lib_b = time_ms(lambda: torch.autograd.grad(saved, (xr, wr),
                                                 retain_graph=True), 3)[0]
     del saved
+    dz = torch.randn(T, chunk, device=x.device).to(x.dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        widths = [min(chunk, V - c0) for c0 in range(0, V, chunk)]
+        per = {c: time_ms(lambda: torch.matmul(dz[:, :c].t(), x), 5)[0]
+               for c in set(widths)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    lib_dw = sum(per[c] for c in widths)
+    del dz
     bo = lce_bytes_ops(T, H, V, chunk, x.element_size(), w.element_size())
     if out["linear_ce_split_x"]["ms"] is not None:
         nbytes, ops, dtn = bo["linear_ce_split_x"]
@@ -1386,6 +1508,7 @@ def lce_times(case, x, w, lab, lse, g):
             bound_ms=bms, bound_by=bby,
             library_ms=lib_fwd if fwd else lib_b,
             library_fwd_bwd_ms=None if fwd else lib_fb)
+    out["linear_ce_dw"].update(library_ms=lib_dw, library_bwd_ms=lib_b)
     return out
 
 
@@ -1431,11 +1554,14 @@ def phase_linear_ce(results, dev="cuda"):
             check_close(f"lce {label} nll", nll, nll_p, TOL["float32"]),
             check_close(f"lce {label} lse", lse, lse_p, TOL["float32"]))}
         dz_t = fce.lce_dz_ref(x, w[c0:], lab, lse, g, c0, V, eps)
+        split = (xdn, wdn) == ("float32", "bfloat16")
+        if split:                     # dz_x: the halves, held by their sum
+            dz_x = dz_x[0].float() + dz_x[1].float()
         e["linear_ce_dz"] = max(check_lce(
             f"lce {label} dz ({dz.dtype}, slab {c0}:{V})", dz,
             dz_t.to(dz.dtype), dz_t, dz.dtype == torch.bfloat16,
             ratios["linear_ce_dz"]) for dz in (dz_w, dz_x))
-        if (xdn, wdn) == ("float32", "bfloat16"):     # the split route
+        if split:
             xs = lc.linear_ce_split_x_cuda(x)
             xs_p = fce.lce_split_x_ref(x)
             if not torch.equal(xs, xs_p):
@@ -1457,6 +1583,21 @@ def phase_linear_ce(results, dev="cuda"):
                                       bf16, ratios["linear_ce_dx"])
         e["linear_ce_dw"] = check_lce(f"lce {label} dw", dw, dw_p, dw_t,
                                       bf16, ratios["linear_ce_dw"])
+        if split:
+            split_dist[label] += (check_split_dw(label, case, x, w, lab, lse,
+                                                 g, dw, dw_t),)
+            if label not in LCE_TIMED:        # the timed cases' come below
+                by = {}
+                time_ms(lambda: lc.linear_ce_bwd_cuda(
+                    x, w, lab, lse, g, chunk=chunk, **kw), 1, by)
+                routes = {n: lce_kernel(by, n, None)["routes"]
+                          for n in LCE_NAMES[1:]}
+                if routes != {"linear_ce_dz": ["split"],
+                              "linear_ce_dx": ["wg"],
+                              "linear_ce_dw": ["split"]}:
+                    raise SmokeFailure(f"lce {label}: the backward's "
+                                       f"profiled routes {routes}")
+                info(f"lce {label}: backward routes {routes}")
         for name, v in e.items():
             err[name, dtn] = max(err.get((name, dtn), 0.0), v)
         info(f"lce {label} (T {T}, H {H}, V {V}, chunk {chunk}, x {xdn}, "
@@ -1498,13 +1639,13 @@ def phase_linear_ce(results, dev="cuda"):
     label, main = timed["main"]
     gpt_label, gpt = timed["gpt"]
     # each kernel's profiled route: wgmma wherever w (fwd, dz, dx) or x
-    # (dw) is bf16, fwd and dz on x's bf16 halves with fp32 x (the GPT
-    # head), whose dw stays on FMA; the split pre-pass once a forward and
-    # once a backward call there, never with bf16 x
+    # (dw) is bf16, fwd, dz and dw on the bf16 halves of x (and dz) with
+    # fp32 x (the GPT head); the split pre-pass once a forward and once a
+    # backward call there, never with bf16 x
     want = {"main": {"linear_ce_fwd": "wg", "linear_ce_dz": "wg",
                      "linear_ce_dx": "wg", "linear_ce_dw": "wg"},
             "gpt": {"linear_ce_fwd": "split", "linear_ce_dz": "split",
-                    "linear_ce_dx": "wg", "linear_ce_dw": "mma",
+                    "linear_ce_dx": "wg", "linear_ce_dw": "split",
                     "linear_ce_split_x": "kernel"}}
     for key, names in want.items():
         got = timed[key][1]
@@ -1539,20 +1680,26 @@ def phase_linear_ce(results, dev="cuda"):
             library_ms=r["library_ms"],
             library_fwd_bwd_ms=r["library_fwd_bwd_ms"],
             library_what="x @ w.T then F.cross_entropy, forward (two calls)"
-            if fwd else "the backward alone of x @ w.T then "
-            "F.cross_entropy (torch.autograd.grad of one saved forward; "
-            "library_fwd_bwd_ms: forward + backward)",
+            if fwd else "torch.matmul(dz.T, x) a slab, summed over the "
+            "slabs (library_bwd_ms: the backward alone of x @ w.T then "
+            "F.cross_entropy)" if name == "linear_ce_dw" else "the backward "
+            "alone of x @ w.T then F.cross_entropy (torch.autograd.grad of "
+            "one saved forward; library_fwd_bwd_ms: forward + backward)",
             bf16_vs_fp32_ratio=max(ratios[name], default=None),
             gpt={k: q[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "library_fwd_bwd_ms",
-                                   "routes")}))
+                                   "library_bwd_ms", "routes") if k in q},
+            **({"library_bwd_ms": r["library_bwd_ms"]}
+               if "library_bwd_ms" in r else {})))
+        lib = "fp32 library dz^T x a slab" if name == "linear_ce_dw" \
+            else "dense chain"
         info(f"{name} {label}: device {r['ms']} ms per call, bound "
              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
-             f"{r['plain_ms']} ms, dense chain {r['library_ms']} ms "
-             f"(fwd + bwd {r['library_fwd_bwd_ms']}); {gpt_label}: device "
-             f"{q['ms']} ms, bound {q['bound_ms']:.4f} ms ({q['bound_by']}), "
-             f"plain {q['plain_ms']} ms, dense chain {q['library_ms']} ms "
-             f"(fwd + bwd {q['library_fwd_bwd_ms']})")
+             f"{r['plain_ms']} ms, {lib.replace('fp32', 'bf16')} "
+             f"{r['library_ms']} ms (fwd + bwd {r['library_fwd_bwd_ms']}); "
+             f"{gpt_label}: device {q['ms']} ms, bound {q['bound_ms']:.4f} "
+             f"ms ({q['bound_by']}), plain {q['plain_ms']} ms, {lib} "
+             f"{q['library_ms']} ms (fwd + bwd {q['library_fwd_bwd_ms']})")
     s = gpt["linear_ce_split_x"]
     results.append(dict(
         name="linear_ce_split_x", route="cuda",
@@ -1564,7 +1711,8 @@ def phase_linear_ce(results, dev="cuda"):
         plain_call_ms=s["plain_call_ms"], plain_what="lce_split_x_ref",
         bound_ms=s["bound_ms"],
         bound_by=s["bound_by"], library_ms=s["library_ms"],
-        split_checks={k: dict(zip(("nll", "lse", "dz_of_bound"), v))
+        split_checks={k: dict(zip(("nll", "lse", "dz_of_bound",
+                                   "dw_of_bound"), v))
                       for k, v in split_dist.items()}))
     info(f"linear_ce_split_x {gpt_label}: device {s['ms']} ms per launch, "
          f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}), plain "

@@ -70,7 +70,10 @@ struct LceArgs {
   const int *labels;
   const float *g;             // cotangent of nll, 0 at ignore_index
   float *nll, *lse;           // written by linear_ce_fwd; lse read back
-  void *dz_w, *dz_x;          // dz in w's / x's dtype (one buffer if equal)
+  // dz in w's / x's dtype (one buffer if equal); fp32 x with a bf16 w:
+  // dz_w = bf16(dz) and dz_x = bf16(dz - dz_w), the halves of one bf16
+  // buffer, dz_x at least T ldz elements past dz_w
+  void *dz_w, *dz_x;
   float *dx_acc;              // [T, H] fp32 accumulator over the slabs
   void *dx;                   // [T, H] x's dtype (dx_acc itself for fp32 x)
   void *dw;                   // [V, H] w's dtype
@@ -80,7 +83,7 @@ struct LceArgs {
   int *tickets;
   // fp32 x with a bf16 w: x split into bf16 halves [2, T, H], x_hi =
   // bf16(x) and x_lo = bf16(x - x_hi), written by linear_ce_split_x and
-  // read by linear_ce_fwd and linear_ce_dz
+  // read by linear_ce_fwd, linear_ce_dz and linear_ce_dw
   void *xs;
 };
 

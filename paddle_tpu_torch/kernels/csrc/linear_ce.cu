@@ -18,8 +18,8 @@
 // (T 8192 tokens, H 4096, V 32000, bf16) each product 2 T H V is
 // 2.15 TFLOP, 2.17 ms at 989 TFLOP/s, against 0.1-0.3 ms to move the
 // bytes.  With fp32 x and a bf16 w (the GPT step: its final LayerNorm has
-// fp32 gains, its tied head is bf16) z runs as two bf16 products (the
-// split below) and dw on fp32 operands at 67 TFLOP/s.
+// fp32 gains, its tied head is bf16) z runs as two bf16 products and dw
+// as three (the split below).
 //
 // The bf16 products (linear_ce_fwd_wg, linear_ce_dz_wg, linear_ce_dx_wg,
 // linear_ce_dw_wg): one persistent warp-specialized GEMM for sm_90a, four
@@ -65,25 +65,29 @@
 //     Routing: linear_ce_fwd and linear_ce_dz run here whenever w is
 //     bf16 (fp32 x through the split below), linear_ce_dx whenever w is
 //     bf16 (so dz_w is: the Llama head and the GPT head's fp32-x dx),
-//     linear_ce_dw whenever x is bf16 (dz_x and x are); dw is written in
-//     w's dtype either way.
-//   * fp32 x with bf16 w (linear_ce_fwd_split, linear_ce_dz_split): the
-//     TPU kernel's dot of fp32 x with bf16 w is fp32-accurate, so x is not
-//     rounded to bf16.  linear_ce_split_x writes xs [2, T, H] bf16, x_hi =
-//     bf16(x) and x_lo = bf16(x - x_hi) (x - x_hi is exact in fp32, and
-//     the pair holds x to 2^-17 of its value), once a forward and once a
-//     backward call; z = x_hi w^T + x_lo w^T is two bf16 products, each
-//     product exact and the sum in fp32.  The same body reads xs through a
-//     3-D tensor map [2][T][H]: each of 3 stages holds the two halves'
-//     boxes of a K step beside one w box (16 + 16 + 32 KB), and the
-//     consumers multiply the w box by x_hi, then x_lo, for each k16 into
-//     one accumulator, so w streams once for both products: 0.79 MB from
-//     L2 a 101 MFLOP tile at H 768, against 1.18 MB were the lo pass to
-//     reload it (tools/lce_ab.py's reload_w: 3 % of the forward's time).
-//     The epilogues are the bf16 route's, but dz_x, which the fp32-x dw
-//     reads, is stored in fp32.
+//     linear_ce_dw whenever x is bf16 (dz_x and x are; fp32 x with bf16 w
+//     through the split below); dw is written in w's dtype either way.
+//   * fp32 x with bf16 w (linear_ce_fwd_split, linear_ce_dz_split,
+//     linear_ce_dw_split): the TPU kernels' dots of fp32 x and of fp32 dz
+//     with bf16 w are fp32-accurate, so neither is rounded to bf16.
+//     linear_ce_split_x writes xs [2, T, H] bf16, x_hi = bf16(x) and x_lo =
+//     bf16(x - x_hi) (x - x_hi is exact in fp32, and the pair holds x to
+//     2^-17 of its value), once a forward and once a backward call; z =
+//     x_hi w^T + x_lo w^T is two bf16 products, each product exact and the
+//     sum in fp32.  The same body reads xs through a 3-D tensor map
+//     [2][T][H]: each of 3 stages holds the two halves' boxes of a K step
+//     beside one w box (16 + 16 + 32 KB), and the consumers multiply the w
+//     box by x_hi, then x_lo, for each k16 into one accumulator, so w
+//     streams once for both products: 0.79 MB from L2 a 101 MFLOP tile at
+//     H 768, against 1.18 MB were the lo pass to reload it
+//     (tools/lce_ab.py's reload_w: 3 % of the forward's time).  dz's
+//     epilogue stores dz in halves too: dz_w = bf16(dz) (dx's operand) and
+//     beside it dz_lo = bf16(dz - dz_w), one [2, T, ldz] buffer, and
+//     linear_ce_dw_split (below) forms dz^T x as dz_hi^T x_hi + dz_hi^T x_lo
+//     + dz_lo^T x_hi, three bf16 products with T split over a cluster of
+//     blocks (2 at the GPT head).
 // Every other instance (fwd and dz with fp32 w; dx with fp32 w; dw with
-// fp32 x, as the GPT head's) keeps the first version's design:
+// fp32 x and w) keeps the first version's design:
 //   * The TPU forward walks the vocab chunks of a row block in grid order
 //     and carries the row statistics in VMEM scratch.  Here one block of
 //     8 warps owns 64 rows and walks the vocab in 128-column tiles itself;
@@ -625,7 +629,10 @@ __device__ __forceinline__ void store8(bf16 *dst, const float (&v)[8]) {
 }
 
 // dz = g (p - y) into dz_w (bf16) and dz_x: one buffer on the bf16 route
-// (x's dtype is w's), fp32 on the split route
+// (x's dtype is w's); on the split route dz_w is dz's high half bf16(dz)
+// and dz_x its low half bf16(dz - dz_hi) (the difference is exact in
+// fp32; the pair holds dz to 2^-17 of its value), which linear_ce_dw_split
+// multiplies by x's halves
 template <bool SPLIT>
 __device__ __forceinline__ void epi_dz(const LceArgs &a, float (&acc)[128],
                                        int m0, int n0, int ctid) {
@@ -671,22 +678,25 @@ __device__ __forceinline__ void epi_dz(const LceArgs &a, float (&acc)[128],
     // stores the 16 bytes of j = 4i + tq (a warp: 8 rows x 64 bytes)
     uint4 *pw = reinterpret_cast<uint4 *>((bf16 *)a.dz_w + (size_t)t * a.ldz + n0);
     uint4 *px = reinterpret_cast<uint4 *>((bf16 *)a.dz_x + (size_t)t * a.ldz + n0);
-    float *pf = (float *)a.dz_x + (size_t)t * a.ldz + n0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      unsigned v[4];
+      unsigned v[4], l[4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        v[k] = pack_bf16(acc[4 * (4 * i + k) + 2 * h],
-                         acc[4 * (4 * i + k) + 2 * h + 1]);
+      for (int k = 0; k < 4; ++k) {
+        const float d0 = acc[4 * (4 * i + k) + 2 * h];
+        const float d1 = acc[4 * (4 * i + k) + 2 * h + 1];
+        v[k] = pack_bf16(d0, d1);
+        if constexpr (SPLIT)                 // dz - dz_hi, exact in fp32
+          l[k] = pack_bf16(d0 - __uint_as_float(v[k] << 16),
+                           d1 - __uint_as_float(v[k] & 0xffff0000u));
+      }
       quad_transpose(v, tq);
-      float f[8];                            // the same 8 columns in fp32
-      if constexpr (SPLIT) row8(acc, h, i, tq, f);
+      if constexpr (SPLIT) quad_transpose(l, tq);
       if (ok && (!edge || 8 * (4 * i + tq) < a.ldz - n0)) {
         const uint4 q = make_uint4(v[0], v[1], v[2], v[3]);
         pw[4 * i + tq] = q;
         if constexpr (SPLIT)
-          store8(pf + 8 * (4 * i + tq), f);
+          px[4 * i + tq] = make_uint4(l[0], l[1], l[2], l[3]);
         else if (a.dz_x != a.dz_w)
           px[4 * i + tq] = q;
       }
@@ -930,6 +940,216 @@ __global__ void __launch_bounds__(Wg::THREADS, 1)
   wg_body<EPI_DZ, true>(a, &ta, &tb);
 }
 
+// ------------------------------- the split route's dw: three bf16 products
+// dw_slab [C, H] = dz^T x with fp32 x and bf16 w, as dz_hi^T x_hi +
+// dz_hi^T x_lo + dz_lo^T x_hi in one fp32 accumulator (each product exact
+// in fp32; the dropped dz_lo^T x_lo is at most 2^-16 of |dz x|).  Both
+// operands are MN-major: A(c, t) from the dz halves [2][T][ldz], B(t, h)
+// from xs [2][T][H], each read through a 3-D tensor map in boxes of 64 MN
+// columns x BK rows of T.  A tile is 128 slab rows x 192 columns of H
+// (two consumer warpgroups on wgmma m64n192k16, 96 fp32 accumulators a
+// thread): at the GPT head (slabs of 2048, H 768) 64 tiles a slab, too
+// few and too deep (K = T = 8192) for 132 SMs, so T is split over a
+// thread-block cluster of S blocks (grid x; dw_plan picks S from the
+// clusters the device keeps resident: S 2, 128 blocks, at the GPT head).
+// One tile a cluster, so the ring is idle after the mainloop: each block
+// stages its fp32 partial tile there, bulk-copies each peer's 1/S of the
+// rows into that peer's receive slots (gemm.cu's fold), and sums its own
+// rows over the S partials in split order, so two calls are bit-identical;
+// it stores them as bf16 rows of dw.  A stage holds dz_hi, dz_lo (8 KB
+// each at BK 32), x_hi and x_lo (12 KB each): per k16 each warpgroup
+// issues the three wgmmas on them.  The TMA stream, 10.7 GB from L2 a
+// call at the GPT head, takes nearly as long as the products: with dz_hi
+// x_hi alone (the loads kept) the kernel keeps most of its time
+// (tools/lce_ab.py's dw_one_term, PERF.md section 6).
+template <int BK_, int STAGES_>
+struct DwSplitOf {
+  static constexpr int BM = 128, BN = 192, BK = BK_, STAGES = STAGES_;
+  static constexpr int MAX_SPLITS = 4;       // cluster size, K splits
+  static constexpr int BOX = 64 * BK * 2;    // 64 MN columns x BK rows
+  static constexpr int AT = 2 * BOX;         // one half's A tile (128 rows)
+  static constexpr int BT = 3 * BOX;         // one half's B tile (192 columns)
+  static constexpr int STAGE = 2 * AT + 2 * BT;
+  static constexpr int LDR = BN + 8;         // fp32 words a staged row
+  static constexpr int ROWB = LDR * 4;
+  static constexpr int RED = BM * ROWB;      // this block's partial tile
+  // the peers' row slices, S - 1 slots of ceil(BM / S) rows (<= 96 rows)
+  static constexpr int RECV = 96 * ROWB;
+  static constexpr int BODY =
+      STAGES * STAGE > RED + RECV ? STAGES * STAGE : RED + RECV;
+  static constexpr int THREADS = 384;        // 2 consumer warpgroups + producer
+  static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
+  static constexpr int SMEM = 1024 + BODY + (2 * STAGES + 1) * 8;
+  static_assert(STAGE % 1024 == 0 && BOX % 1024 == 0, "1024-byte aligned");
+  static_assert(BK % 16 == 0 && ROWB % 16 == 0, "k16 steps, 16-byte rows");
+  static_assert(SMEM <= 232448, "one block an SM");
+};
+using DwSplit = DwSplitOf<32, 4>;          // 4 stages of 40 KB: measured fastest
+
+// One tile: slab rows m0 = blockIdx.y * BM, H columns n0 = blockIdx.z * BN,
+// T split blockIdx.x of gridDim.x (the cluster).  tz maps the dz halves
+// [2][T][width] (row stride ldz, the halves dz_x - dz_w bytes apart), tx
+// maps xs [2][T][H]; rows of T, slab rows and columns past the tensors
+// are TMA's zero fill, stores masked.
+template <class C>
+__device__ __forceinline__ void dw_split_body(const LceArgs &a,
+                                              const CUtensorMap *tz,
+                                              const CUtensorMap *tx) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char *smem = reinterpret_cast<unsigned char *>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + C::BODY);
+  uint64_t *empty = full + C::STAGES;
+  uint64_t *recv_bar = empty + C::STAGES;
+  float *red = reinterpret_cast<float *>(smem);             // [BM][LDR]
+  float *recv = reinterpret_cast<float *>(smem + C::RED);   // [S - 1][R][LDR]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = gridDim.x, rank = blockIdx.x;
+  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.z * C::BN;
+  const int nk = cdiv(a.T, C::BK);
+  const int kb0 = (int)((long long)nk * rank / S);
+  const int kb1 = (int)((long long)nk * (rank + 1) / S);
+  // the tile rows this block folds: [r0, r0 + nr), R a rank; peer q's
+  // slice of them lands in slot q (q < rank) or q - 1
+  const int R = cdiv(C::BM, S), r0 = rank * R;
+  const int nr = max(0, min(C::BM, r0 + R) - r0);
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);               // each consumer warp
+    }
+    mbar_init(recv_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {                           // producer warpgroup
+    regs_dec<C::REGS_PRODUCER>();
+    if (warp == 8 && lane == 0) {
+      for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+        const int s = it % C::STAGES, round = it / C::STAGES;
+        if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
+        unsigned char *st = smem + s * C::STAGE;
+        mbar_expect_tx(&full[s], C::STAGE);
+        const int k = kb * C::BK;
+#pragma unroll
+        for (int hl = 0; hl < 2; ++hl) {     // the high half, then the low
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            tma_load_3d(st + hl * C::AT + j * C::BOX, tz, m0 + 64 * j, k, hl,
+                        &full[s]);
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            tma_load_3d(st + 2 * C::AT + hl * C::BT + j * C::BOX, tx,
+                        n0 + 64 * j, k, hl, &full[s]);
+        }
+      }
+    }
+    // the fold's two cluster barriers (below), without its work: code
+    // past a merge would be compiled to the producer's 40 registers
+    cluster_arrive();
+    cluster_wait();
+    cluster_arrive_relaxed();
+    cluster_wait();
+    return;
+  }
+  regs_inc<C::REGS_CONSUMER>();
+  const int wg = warp >> 2;
+  float acc[96];
+  for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+    const int s = it % C::STAGES;
+    mbar_wait_or_trap(&full[s], (it / C::STAGES) & 1);
+    const unsigned char *st = smem + s * C::STAGE;
+    // this warpgroup's 64 slab rows of dz_hi (dz_lo AT bytes on), the 192
+    // columns of x_hi (x_lo BT bytes on), 3 boxes BOX bytes apart; a k16
+    // slice is 16 rows of T, 2048 bytes, 128 descriptor units
+    const uint64_t ah = desc_sw128_mn(st + wg * C::BOX, C::BOX);
+    const uint64_t al = ah + (C::AT >> 4);
+    const uint64_t bh = desc_sw128_mn(st + 2 * C::AT, C::BOX);
+    const uint64_t bl = bh + (C::BT >> 4);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk) {
+      WgmmaSS<192, 1, 1>::mma(acc, ah + 128 * kk, bh + 128 * kk,
+                              it > 0 || kk > 0);
+      WgmmaSS<192, 1, 1>::mma(acc, ah + 128 * kk, bl + 128 * kk, 1);
+      WgmmaSS<192, 1, 1>::mma(acc, al + 128 * kk, bh + 128 * kk, 1);
+    }
+    wg_commit();
+    wg_wait<1>();
+    // the wgmmas of the previous stage have retired: hand its slot back
+    if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % C::STAGES]);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  // both warpgroups are done with the ring: stage the partial tile in it
+  // as red[slab row][column] (row 16 warp + g + 8h, register 4j + 2h + e
+  // at column 8j + 2tq + e), a float2 a store, for the bulk copies
+  consumer_sync();
+  {
+    const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float *row = red + (16 * warp + g + 8 * h) * C::LDR + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < C::BN / 8; ++j)
+        *reinterpret_cast<float2 *>(row + 8 * j) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+  fence_proxy_async_smem();
+  if (tid == 0 && S > 1 && nr > 0)
+    mbar_expect_tx(recv_bar, (S - 1) * nr * C::ROWB);
+  cluster_arrive();             // every partial staged, every ring idle
+  cluster_wait();
+  if (tid == 0 && S > 1) {
+    for (int d = 0; d < S; ++d) {
+      const int dn = max(0, min(C::BM, d * R + R) - d * R);
+      const int slot = rank < d ? rank : rank - 1;
+      if (d != rank && dn > 0)
+        bulk_to_peer(peer_u32(recv + slot * R * C::LDR, d),
+                     red + d * R * C::LDR, dn * C::ROWB,
+                     peer_u32(recv_bar, d));
+    }
+  }
+  if (S > 1 && nr > 0) mbar_wait_or_trap(recv_bar, 0);
+  // my slices have landed, so have my peers' reads of my sources: a block
+  // leaves once all have (cluster_wait below); nothing to publish, so
+  // relaxed
+  cluster_arrive_relaxed();
+  {
+    // my rows, 8 columns (16 bytes of dw) a thread at a time, summed over
+    // the S partials in split order
+    constexpr int G = C::BN / 8;             // 8-column groups a row
+    const int rows = max(0, min(nr, a.width - m0 - r0));
+#pragma unroll 1
+    for (int p = tid; p < rows * G; p += 256) {
+      const int r = p / G, c = 8 * (p - r * G);
+      if (n0 + c >= a.H) continue;           // H % 8: 8 columns in or out
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+      for (int q = 0; q < S; ++q) {
+        const float *src =
+            q == rank ? red + (r0 + r) * C::LDR + c
+                      : recv + ((q < rank ? q : q - 1) * R + r) * C::LDR + c;
+        const float4 x0 = *reinterpret_cast<const float4 *>(src);
+        const float4 x1 = *reinterpret_cast<const float4 *>(src + 4);
+        v[0] += x0.x, v[1] += x0.y, v[2] += x0.z, v[3] += x0.w;
+        v[4] += x1.x, v[5] += x1.y, v[6] += x1.z, v[7] += x1.w;
+      }
+      store8((bf16 *)a.dw + (size_t)(a.c0 + m0 + r0 + r) * a.H + n0 + c, v);
+    }
+  }
+  cluster_wait();
+}
+
+__global__ void __launch_bounds__(DwSplit::THREADS, 1)
+    linear_ce_dw_split(const LceArgs a, const __grid_constant__ CUtensorMap tz,
+                       const __grid_constant__ CUtensorMap tx) {
+  dw_split_body<DwSplit>(a, &tz, &tx);
+}
+
 // xs[0] = bf16(x) and xs[1] = bf16(x - xs[0]), both rounded to nearest
 // even, as the plain version's two torch conversions: 8 values a thread,
 // 32 bytes of x in, 16 bytes of each half out.  x - xs[0] is exact in
@@ -1003,20 +1223,30 @@ static const WgKernel WG_KERNELS[4] = {linear_ce_fwd_wg, linear_ce_dz_wg,
 static const WgKernel SPLIT_KERNELS[2] = {linear_ce_fwd_split,
                                           linear_ce_dz_split};
 
-// the current device's SM count; on the device's first call also the
-// shared memory of every wgmma kernel here (once a device and process,
-// not a launch)
-static cudaError_t wg_setup(int *sms) {
+// per device: the SM count and the clusters of s blocks (s = 1 ..
+// MAX_SPLITS) of linear_ce_dw_split it keeps resident
+// (cudaOccupancyMaxActiveClusters: a cluster's blocks share one GPC)
+struct Device {
+  int sms;
+  int dw_clusters[DwSplit::MAX_SPLITS + 1];
+};
+
+// the current device's table; on the device's first call also the shared
+// memory of every wgmma kernel here (once a device and process, not a
+// launch)
+static cudaError_t wg_setup(const Device **out) {
   constexpr int DEVICES = 64;
-  static std::atomic<int> sm_count[DEVICES];    // zero: static storage
+  static Device table[DEVICES];
+  static std::atomic<bool> ready[DEVICES];      // false: static storage
   static std::mutex mu;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= DEVICES) return cudaErrorInvalidDevice;
-  if ((*sms = sm_count[dev].load(std::memory_order_acquire))) return e;
+  *out = &table[dev];
+  if (ready[dev].load(std::memory_order_acquire)) return e;
   std::lock_guard<std::mutex> hold(mu);
-  if ((*sms = sm_count[dev].load(std::memory_order_acquire))) return e;
+  if (ready[dev].load(std::memory_order_acquire)) return e;
   for (WgKernel k : WG_KERNELS) {
     e = cudaFuncSetAttribute((const void *)k,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1029,8 +1259,33 @@ static cudaError_t wg_setup(int *sms) {
                              WgOf<true>::SMEM);
     if (e != cudaSuccess) return e;
   }
-  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) sm_count[dev].store(*sms, std::memory_order_release);
+  e = cudaFuncSetAttribute((const void *)linear_ce_dw_split,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DwSplit::SMEM);
+  if (e != cudaSuccess) return e;
+  for (int s = 1; s <= DwSplit::MAX_SPLITS; ++s) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(s);
+    cfg.blockDim = dim3(DwSplit::THREADS);
+    cfg.dynamicSmemBytes = DwSplit::SMEM;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = s;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // a shape the device cannot hold counts 0 clusters (never chosen)
+    if (cudaOccupancyMaxActiveClusters(&table[dev].dw_clusters[s],
+                                       (const void *)linear_ce_dw_split,
+                                       &cfg) != cudaSuccess) {
+      table[dev].dw_clusters[s] = 0;
+      cudaGetLastError();
+    }
+  }
+  e = cudaDeviceGetAttribute(&table[dev].sms, cudaDevAttrMultiProcessorCount,
+                             dev);
+  if (e == cudaSuccess) ready[dev].store(true, std::memory_order_release);
   return e;
 }
 
@@ -1041,9 +1296,10 @@ static cudaError_t wg_setup(int *sms) {
 template <int EPI, bool SPLIT = false>
 cudaError_t launch_wg(const LceArgs *a, cudaStream_t s) {
   using C = WgOf<SPLIT>;
-  int sms = 0;
-  cudaError_t e = wg_setup(&sms);
+  const Device *dev = nullptr;
+  cudaError_t e = wg_setup(&dev);
   if (e != cudaSuccess) return e;
+  const int sms = dev->sms;
   const CUtensorMapDataType BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const uint64_t ldh = 2 * (uint64_t)a->H, ldz = 2 * (uint64_t)a->ldz;
   const bf16 *w = (const bf16 *)a->w + (size_t)a->c0 * a->H;   // the slab
@@ -1080,6 +1336,79 @@ cudaError_t launch_wg(const LceArgs *a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// linear_ce_dw_split's launch: K splits S (the cluster), slab row tiles
+// and H column tiles, 32-row K steps, and the resident clusters of S
+struct DwPlan {
+  int splits, row_tiles, col_tiles, nk, resident;
+};
+
+// S (1 .. MAX_SPLITS, at most the K steps) at the least cost, where a
+// block's time goes with its K steps (nk / S) plus FOLD_STEPS for the
+// staging and the fold, and the device runs `resident` clusters of S at
+// once: waves x (ceil(nk / S) + FOLD_STEPS); ties go to fewer splits
+constexpr int FOLD_STEPS = 8;
+static DwPlan dw_plan(const LceArgs *a, const Device &dev) {
+  using C = DwSplit;
+  DwPlan p;
+  p.nk = cdiv(a->T, C::BK);
+  p.row_tiles = cdiv(a->width, C::BM);
+  p.col_tiles = cdiv(a->H, C::BN);
+  const long long tiles = (long long)p.row_tiles * p.col_tiles;
+  long long best = -1;
+  p.splits = 1;
+  for (int s = 1; s <= C::MAX_SPLITS && s <= p.nk; ++s) {
+    const long long res = dev.dw_clusters[s];
+    if (res <= 0) continue;
+    const long long cost =
+        (tiles + res - 1) / res * ((p.nk + s - 1) / s + FOLD_STEPS);
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.splits = s;
+    }
+  }
+  p.resident = dev.dw_clusters[p.splits];
+  return p;
+}
+
+// dw with fp32 x and bf16 w: the dz halves are one buffer, the low half
+// dz_x a whole [T, ldz] slab or more past dz_w (the wrapper's [2, T,
+// round8(chunk)] serves every slab), and xs holds x's halves
+static cudaError_t launch_dw_split(const LceArgs *a, cudaStream_t s) {
+  using C = DwSplit;
+  const Device *dev = nullptr;
+  cudaError_t e = wg_setup(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t ldh = 2 * (uint64_t)a->H, ldz = 2 * (uint64_t)a->ldz;
+  const uint64_t half = (uintptr_t)a->dz_x - (uintptr_t)a->dz_w;  // bytes
+  if (!a->xs || (uintptr_t)a->dz_x < (uintptr_t)a->dz_w ||
+      half < ldz * a->T || half % 16)
+    return cudaErrorInvalidValue;
+  const DwPlan p = dw_plan(a, *dev);
+  if (p.row_tiles > 65535 || p.col_tiles > 65535) return cudaErrorInvalidValue;
+  const CUtensorMapDataType BF = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tz, tx;
+  e = encode_map_3d(&tz, BF, a->dz_w, a->width, a->T, 2, ldz, half, 64,
+                    C::BK);
+  if (e == cudaSuccess)
+    e = encode_map_3d(&tx, BF, a->xs, a->H, a->T, 2, ldh, ldh * a->T, 64,
+                      C::BK);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, p.row_tiles, p.col_tiles);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.splits > 1;              // unsplit: an implicit cluster
+  e = cudaLaunchKernelEx(&cfg, linear_ce_dw_split, *a, tz, tx);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 static bool both_bf16(const LceArgs *a) {
   return a->x_dtype == PT_BF16 && a->w_dtype == PT_BF16;
 }
@@ -1095,15 +1424,14 @@ static cudaError_t dz_f32w(const LceArgs *a, cudaStream_t s) {
   return a->x_dtype == PT_BF16 ? dz<bf16, float>(a, s) : dz<float, float>(a, s);
 }
 // linear_ce_dx's operands are dz_w and w, linear_ce_dw's dz_x and x: each
-// runs on wgmma when its operands are bf16
+// runs on wgmma when its operands are bf16 (dw on the split route: the
+// halves of dz and x)
 static bool dx_on_wg(const LceArgs *a) { return a->w_dtype == PT_BF16; }
 static bool dw_on_wg(const LceArgs *a) { return a->x_dtype == PT_BF16; }
 // the Mma instances of linear_ce_dx with fp32 w, linear_ce_dw with fp32 x
+// and w
 static cudaError_t dx_f32(const LceArgs *a, cudaStream_t s) {
   return a->x_dtype == PT_BF16 ? dx<bf16, float>(a, s) : dx<float, float>(a, s);
-}
-static cudaError_t dw_f32(const LceArgs *a, cudaStream_t s) {
-  return a->w_dtype == PT_BF16 ? dw<float, bf16>(a, s) : dw<float, float>(a, s);
 }
 
 // the scratch a call needs: fp32 words of the forward's `part` (4 a row
@@ -1181,7 +1509,9 @@ cudaError_t launch_linear_ce_dw(const LceArgs *a, cudaStream_t s) {
   using namespace pt::lce;
   if (bad_shape(a, true)) return cudaErrorInvalidValue;
   return count_launch(CNT_LINEAR_CE_DW,
-                      dw_on_wg(a) ? launch_wg<EPI_DW>(a, s) : dw_f32(a, s));
+                      dw_on_wg(a)   ? launch_wg<EPI_DW>(a, s)
+                      : on_split(a) ? launch_dw_split(a, s)
+                                    : dw<float, float>(a, s));
 }
 
 extern "C" {

@@ -18,7 +18,11 @@ bf16 ``w`` (the GPT head) the forward and dz run as two bf16 products on
 x's halves: each forward call and each backward call first launches
 ``linear_ce_split_x``, which writes ``xs = [bf16(x), bf16(x - bf16(x))]``
 (:func:`~paddle_tpu_torch.ops.fused_cross_entropy.lce_split_x_ref` is its
-plain version) into a scratch the backward's dz launches share.
+plain version) into a scratch the backward's dz and dw launches share;
+dz is stored as its own bf16 halves (``[2, T, ldz]``: ``bf16(dz)``, dx's
+operand, and ``bf16(dz - bf16(dz))``), and dw is three bf16 products on
+the halves of dz and x
+(:func:`~paddle_tpu_torch.ops.fused_cross_entropy.lce_dw_split_ref`).
 """
 
 from __future__ import annotations
@@ -151,21 +155,30 @@ def linear_ce_fwd_cuda(x2, w, labels, *, ignore_index=None,
 def _bwd_args(x2, w, labels, lse, g, label_smoothing, width):
     """The backward's ``LceArgs``, its tensors, and dz scratch for slabs up
     to ``width`` rows: ``[T, round8(width)]`` in w's dtype, and in x's where
-    the two differ; on the split route also x's halves (one
-    ``linear_ce_split_x`` launch), which every dz launch of the call reads."""
+    the two differ; on the split route (the library's ``xs`` size > 0)
+    instead one bf16 ``[2, T, round8(width)]``, dz's high half (dz in w's
+    dtype) and its low half, and x's halves (one ``linear_ce_split_x``
+    launch), which every dz and dw launch of the call reads."""
     a, keep = _args(x2, w, labels, label_smoothing)
     x2, w = keep[0], keep[1]
     lse = lse.to(device=x2.device, dtype=torch.float32).contiguous()
     g = g.to(device=x2.device, dtype=torch.float32).contiguous()
     layer.check_tensor(lse, "lse", (a.T,), torch.float32, x2.device)
     layer.check_tensor(g, "g", (a.T,), torch.float32, x2.device)
-    dz_w = torch.empty((a.T, _round8(width)), dtype=w.dtype, device=w.device)
-    dz_x = dz_w if x2.dtype == w.dtype else torch.empty(
-        dz_w.shape, dtype=x2.dtype, device=w.device)
+    n_xs = _scratch(a)[2]
+    shape = (a.T, _round8(width))
+    if n_xs:
+        dz_x = torch.empty((2, *shape), dtype=torch.bfloat16, device=w.device)
+        dz_w = dz_x[0]
+        a.dz_w, a.dz_x = dz_w.data_ptr(), dz_x[1].data_ptr()
+    else:
+        dz_w = torch.empty(shape, dtype=w.dtype, device=w.device)
+        dz_x = dz_w if x2.dtype == w.dtype else torch.empty(
+            shape, dtype=x2.dtype, device=w.device)
+        a.dz_w, a.dz_x = dz_w.data_ptr(), dz_x.data_ptr()
     a.lse, a.g = lse.data_ptr(), g.data_ptr()
-    a.dz_w, a.dz_x = dz_w.data_ptr(), dz_x.data_ptr()
     keep += [lse, g]
-    _split_x(a, _scratch(a)[2], x2.device, keep)
+    _split_x(a, n_xs, x2.device, keep)
     return a, keep + [dz_w, dz_x]
 
 
@@ -177,12 +190,14 @@ def linear_ce_dz_cuda(x2, w, labels, lse, g, c0, width, *,
                       label_smoothing=0.0):
     """dz of the vocab slab ``[c0, c0 + width)`` from ``linear_ce_dz``:
     ``(dz in w's dtype, dz in x's dtype)``, each ``[T, width]`` (one tensor
-    twice when the dtypes agree)."""
+    twice when the dtypes agree); with fp32 x and bf16 w ``(dz_hi, dzs)``,
+    ``dzs [2, T, width]`` bf16 the halves ``(dz_hi, dz_lo)`` whose sum holds
+    dz (``dzs[0]`` is ``dz_hi``)."""
     a, keep = _bwd_args(x2, w, labels, lse, g, label_smoothing, width)
     _slab(a, int(c0), int(width))
     _launch("pt_linear_ce_dz", a)
-    dz_w, dz_x = keep[-2], keep[-1]           # [T, ldz], ldz = round8(width)
-    return dz_w[:, :width], dz_x[:, :width]
+    dz_w, dz_x = keep[-2], keep[-1]           # [.., T, ldz], ldz = round8(width)
+    return dz_w[:, :width], dz_x[..., :width]
 
 
 def linear_ce_bwd_cuda(x2, w, labels, lse, g, *, chunk, label_smoothing=0.0):

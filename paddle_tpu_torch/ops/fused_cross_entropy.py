@@ -23,7 +23,10 @@ Each pass has two versions and no third:
   columns: they launch or raise, with no fallback.  With fp32 x and a
   bf16 head they form the logits as two bf16 products on x's halves
   (:func:`lce_split_x_ref` is the plain version of the split), which
-  keeps the fp32 logits of the TPU kernels' fp32 x bf16 dot.
+  keeps the fp32 logits of the TPU kernels' fp32 x bf16 dot, store dz as
+  its own bf16 halves (:func:`lce_split_dz_ref`) and form dw as three
+  bf16 products on the halves of dz and x (:func:`lce_dw_split_ref`),
+  which keeps the TPU kernel's fp32 ``dz^T x``.
 
 The JAX package's XLA tier keeps dz in fp32 for both products; where the
 dtypes are bf16 the port rounds dz as the Pallas tier does.
@@ -39,7 +42,8 @@ from .cuda import linear_ce as _cuda
 
 __all__ = ["NEG_INF", "linear_cross_entropy", "default_chunk",
            "naive_peak_bytes", "chunked_peak_bytes", "lce_fwd_ref",
-           "lce_dz_ref", "lce_bwd_ref", "lce_split_x_ref"]
+           "lce_dz_ref", "lce_bwd_ref", "lce_split_x_ref",
+           "lce_split_dz_ref", "lce_dw_split_ref"]
 
 NEG_INF = -1e30
 
@@ -76,13 +80,36 @@ def _cols(labels, c0, width):
                                            device=labels.device)[None, :]
 
 
+def _halves(t):
+    hi = t.to(torch.bfloat16)
+    return torch.stack((hi, (t - hi.float()).to(torch.bfloat16)))
+
+
 def lce_split_x_ref(x2):
     """fp32 x ``[T, H]`` as two bf16 halves ``[2, T, H]``: ``x_hi =
     bf16(x)`` and ``x_lo = bf16(x - x_hi)``, both rounded to nearest even
     (``x - x_hi`` is exact in fp32).  ``x_hi + x_lo`` holds x to 2^-17 of
     its value, and each product with a bf16 w is exact in fp32."""
-    hi = x2.to(torch.bfloat16)
-    return torch.stack((hi, (x2 - hi.float()).to(torch.bfloat16)))
+    return _halves(x2)
+
+
+def lce_split_dz_ref(dz):
+    """fp32 dz ``[T, width]`` (:func:`lce_dz_ref`) as the split route
+    stores it, two bf16 halves ``[2, T, width]``: ``dz_hi = bf16(dz)``
+    (dz in w's dtype, dx's operand) and ``dz_lo = bf16(dz - dz_hi)``; the
+    pair holds dz to 2^-17 of its value."""
+    return _halves(dz)
+
+
+def lce_dw_split_ref(dzs, xs):
+    """The split route's ``dw_slab [width, H]`` bf16 (w's dtype there) from
+    the halves ``dzs [2, T, width]`` (:func:`lce_split_dz_ref`) and ``xs
+    [2, T, H]`` (:func:`lce_split_x_ref`): ``dz_hi^T x_hi + dz_hi^T x_lo +
+    dz_lo^T x_hi`` as one fp32 product over bf16-valued operands (each
+    term exact in fp32, the sum in fp32), rounded to bf16."""
+    a = torch.cat((dzs[0], dzs[0], dzs[1])).float()       # [3T, width]
+    b = torch.cat((xs[0], xs[1], xs[0])).float()          # [3T, H]
+    return (a.t() @ b).bfloat16()
 
 
 def lce_fwd_ref(x2, w, labels, *, chunk, ignore_index=None,

@@ -17,8 +17,17 @@ Those kernels run only there; here:
   to bf16 gives) not;
 * ``chip_smoke.py``'s split checks on those emulations: nll, lse and dz
   of the two products pass, those of ``x_hi`` alone fail; and the smoke
-  counts the split as two bf16 products and two pre-pass launches a GPT
-  step.
+  counts the split as two bf16 products (three for dw) and two pre-pass
+  launches a GPT step;
+* dw (``linear_ce_dw_split``: ``dz_hi^T x_hi + dz_hi^T x_lo + dz_lo^T
+  x_hi`` on the halves of dz and x): dz's plain halves
+  (``lce_split_dz_ref``) hold dz to ``2^-17``; the three products'
+  plain version (``lce_dw_split_ref``) equals the JAX Pallas dw
+  (``pallas_call`` at ``paddle_tpu/ops/pallas/linear_ce.py:270``,
+  interpret mode) except where the fp32 dw lies within the smoke's
+  allowance of a bf16 rounding midpoint, and the one-product and
+  two-product versions do not; the smoke's dw check passes the three
+  products and raises on the others.
 """
 
 import sys
@@ -139,7 +148,10 @@ def test_smoke_counts_the_split_as_two_bf16_products():
     split = cs.lce_bytes_ops(Tg, Hg, Vg, C, 4, 2)
     for name in ("linear_ce_fwd", "linear_ce_dz"):
         assert split[name][1:] == (4 * Tg * Hg * Vg, "bfloat16")
-    assert split["linear_ce_dw"][1:] == (2 * Tg * Hg * Vg, "float32")
+    assert split["linear_ce_dw"][1:] == (6 * Tg * Hg * Vg, "bfloat16")
+    # dz written as two bf16 halves beside the fwd's reads
+    assert split["linear_ce_dz"][0] - split["linear_ce_fwd"][0] == \
+        Tg * Vg * (2 + 2)
     assert split["linear_ce_split_x"][0] == 8 * Tg * Hg
     f32 = cs.lce_bytes_ops(Tg, Hg, Vg, C, 4, 4)
     assert f32["linear_ce_fwd"][1:] == (2 * Tg * Hg * Vg, "float32")
@@ -150,3 +162,100 @@ def test_smoke_counts_the_split_as_two_bf16_products():
     for bf16_x in (cs.LCE_PER_STEP, cs.EAGER_GPT_PER_STEP,
                    cs.EAGER_LLAMA_PER_STEP):
         assert "linear_ce_split_x" not in bf16_x
+
+
+@pytest.mark.parametrize("spread", [0, 40])
+def test_split_dz_plain_version_holds_dz_to_2_pow_minus_17(spread):
+    dz = _x((512, 2048), 4, spread) * 1e-3
+    dzs = tfce.lce_split_dz_ref(dz)
+    assert dzs.dtype == torch.bfloat16 and dzs.shape == (2, 512, 2048)
+    assert torch.equal(dzs[0], dz.bfloat16())
+    assert torch.equal(dzs[1], (dz - dzs[0].float()).bfloat16())
+    err = (dz.double() - dzs[0].double() - dzs[1].double()).abs()
+    assert float((err / dz.double().abs()).max()) <= 2.0 ** -17
+
+
+def _dw_terms(dz, xt):
+    """The split dw's three bf16 products on the halves of dz and x, each
+    fp32 ``[width, H]``: (dz_hi x_hi, dz_hi x_lo, dz_lo x_hi)."""
+    dzs, xs = tfce.lce_split_dz_ref(dz), tfce.lce_split_x_ref(xt)
+    hi, lo = dzs[0].float().t(), dzs[1].float().t()
+    return hi @ xs[0].float(), hi @ xs[1].float(), lo @ xs[0].float()
+
+
+def _dw_case(seed):
+    """The GPT head's statistics (``_case``) with the torch plain
+    version's lse, fp32 dz of each slab and fp32 dw before its rounding."""
+    x, w, lab, g = _case(seed)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w).bfloat16()
+    labt, gt = torch.from_numpy(lab).long(), torch.from_numpy(g)
+    _, lse = tfce.lce_fwd_ref(xt, wt, labt, chunk=CHUNK)
+    _, dw_t = tfce.lce_bwd_ref(xt, wt.float(), labt, lse, gt, chunk=CHUNK)
+    dzs = [tfce.lce_dz_ref(xt, wt[c0:c0 + CHUNK], labt, lse, gt, c0, V)
+           for c0 in range(0, V, CHUNK)]
+    return xt, wt, labt, gt, lse, dzs, dw_t
+
+
+def _versions(xt, dzs):
+    """dw (bf16) of the three products and of fewer: ``{name: [V, H]}``."""
+    out = {}
+    for dz in dzs:
+        t1, t2, t3 = _dw_terms(dz, xt)
+        for name, v in (("three", t1 + t2 + t3), ("one", t1),
+                        ("without lo x_hi", t1 + t2),
+                        ("without hi x_lo", t1 + t3)):
+            out.setdefault(name, []).append(v.bfloat16())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def test_three_products_match_the_pallas_dw_fewer_do_not(pallas_interpret):
+    import jax
+
+    x, w, lab, g = _case(2)
+    xj, wj, labj = (jnp.asarray(x), jnp.asarray(w, jnp.bfloat16),
+                    jnp.asarray(lab))
+    gj = jnp.asarray(g)
+    dw_j = jax.grad(lambda ww: (j_lce(xj, ww, labj, backend="pallas",
+                                      chunk=CHUNK) * gj).sum())(wj)
+    dw_j = torch.from_numpy(np.asarray(dw_j.astype(jnp.float32)))
+    xt, wt, labt, gt, lse, dzs, dw_t = _dw_case(2)
+    # the three products as the kernel forms them, and lce_dw_split_ref
+    vers = _versions(xt, dzs)
+    ref = torch.cat([tfce.lce_dw_split_ref(tfce.lce_split_dz_ref(dz),
+                                           tfce.lce_split_x_ref(xt))
+                     for dz in dzs])
+    assert ref.dtype == torch.bfloat16 and ref.shape == (V, H)
+    # near a tie: the fp32 dw within the smoke's allowance of a bf16
+    # rounding midpoint, where a rounding may go either way
+    allow = torch.cat([cs.split_dw_allowance(
+        xt, wt[c0:c0 + CHUNK].float(), lse, gt, dz)
+        for c0, dz in zip(range(0, V, CHUNK), dzs)])
+    to_mid = cs.half_ulp_bf16(dw_t) - (dw_t - dw_t.bfloat16().float()).abs()
+    near = to_mid <= allow
+    # the allowance is wide where dw is a sum of many small terms (no
+    # label in the column); a label's column is dominated by one product
+    label_cols = torch.zeros(V, dtype=torch.bool)
+    label_cols[labt] = True
+    assert float(near[label_cols].float().mean()) < 0.2
+    assert int((~near).sum()) > 0.3 * near.numel()
+    for name, v in (("three", vers["three"]), ("lce_dw_split_ref", ref)):
+        off = (v.float() != dw_j) & ~near
+        assert not bool(off.any()), (name, int(off.sum()))
+    for name in ("one", "without lo x_hi", "without hi x_lo"):
+        off = (vers[name].float() != dw_j) & ~near
+        assert int(off.sum()) > 0, name
+
+
+def test_smoke_dw_check_passes_three_products_raises_on_fewer():
+    """``chip_smoke.check_split_dw`` with each emulation as the kernels'
+    dw: the three products pass, the one product and each pair raise."""
+    xt, wt, labt, gt, lse, dzs, dw_t = _dw_case(3)
+    vers = _versions(xt, dzs)
+    case = ("split", T, H, V, CHUNK, "float32", "bfloat16", None, 0.0)
+    d = cs.check_split_dw("three products", case, xt, wt, labt, lse, gt,
+                          vers["three"], dw_t)
+    assert d <= 1.0
+    for name in ("one", "without lo x_hi", "without hi x_lo"):
+        with pytest.raises(cs.SmokeFailure, match="misses its bound"):
+            cs.check_split_dw(name, case, xt, wt, labt, lse, gt, vers[name],
+                              dw_t)

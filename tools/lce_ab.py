@@ -13,13 +13,21 @@ objects into its own library under ``paddle_tpu_torch/kernels/_build/ab/``:
 unpacked by ``git archive`` into the git-ignored ``archive_check/``).
 ``--ablate`` adds this tree's file with the choices of ``TUNINGS``
 (groups of 16 or 48 row blocks; each stage handed back as soon as its
-wgmmas retire; dz stored evict-first), which are checked and timed like
-a tree, and with one part of the wgmma kernels cut out (``ABLATIONS``:
-the epilogues; the exponentials; the forward's fold; all but the copies;
+wgmmas retire; dz stored evict-first; the split dw's ring as 2 stages of
+64 rows of T, or 3 or 5 of 32), which are checked and timed like a tree,
+and
+with one part of the wgmma kernels cut out (``ABLATIONS``: the
+epilogues; the exponentials; the forward's fold; all but the copies;
 dz's stores; dx's reads and writes of its fp32 accumulator; the split
-route's x_lo product, ``one_term``), which compute something else and
-are timed unchecked.  ``--only`` keeps the named variants.  All ``nvcc``
-processes start together.
+route's x_lo product, ``one_term``; the split dw without its K split,
+``dw_no_split``, and with dz_hi x_hi alone, ``dw_one_term``; the split
+dz storing fp32 dz in place of its low half, ``dz_store_f32``, the
+parent's store volume), which compute something else and are timed
+unchecked.  ``--only`` keeps the named variants.  All ``nvcc`` processes
+start together.  Each ``--tree`` runs with its own tree's wrapper
+(``paddle_tpu_torch/ops/cuda/linear_ce.py``, loaded beside this one's),
+so a library gets the scratch layout it was written for (before the
+split dw: dz_x fp32).
 
 The script prints ptxas' registers, stack frame and spills of each
 variant's ``linear_ce`` kernels and any note of serialized wgmmas or
@@ -30,8 +38,10 @@ checks each checked variant on ``CASES`` (nll and lse within 1e-4 of
 backward, by ``chip_smoke.py``'s rules against ``lce_dz_ref`` /
 ``lce_bwd_ref``, and a second call of each bit-identical to the first;
 bf16, and fp32 x with bf16 w, where ``chip_smoke.check_split`` also holds
-nll, lse and dz_x to the split route's bounds and the plain version on
-bf16-rounded x must miss them), then, unless ``--no-time``, times at the
+nll, lse and dz (the halves' sum) to the split route's bounds and the
+plain version on bf16-rounded x must miss them, and
+``chip_smoke.split_dw_excess`` holds dw), then, unless ``--no-time``,
+times at the
 Llama head (T 8192, H 4096, V 32000, bf16; ``chip_smoke.py``'s
 ``LCE_CASES[0]``) and at the GPT head (T 8192, H 768, V 32768, fp32 x,
 bf16 w; ``LCE_CASES[2]``), the variants in turns (a, b, ..., b, a):
@@ -40,8 +50,9 @@ its pre-pass), ``linear_ce_dz`` over the 16 slabs of 2048 (the
 backward's dz launches), and the whole backward call (dz, dx, dw) with
 each kernel's device time over its 16 launches, each beside its bound,
 the forward beside the dense chain (``x @ w.T`` then ``F.cross_entropy``)
-and dz + dx + dw beside the dense chain's backward alone; ``--turns N``
-runs that order N times.  At the GPT head ``change`` is also timed as
+and dz + dx + dw beside the dense chain's backward alone, dw beside one
+``torch.matmul(dz.T, x)`` a slab (fp32 with TF32 off at the GPT head);
+``--turns N`` runs that order N times.  At the GPT head ``change`` is also timed as
 ``reload_w``: the bf16 kernels on ``[x_hi | x_lo]`` and ``[w | w]`` (H
 1536), the same sums with each w box loaded again for the lo product
 (checked: nll within 1e-4 of the plain version).  It also prints the
@@ -117,6 +128,13 @@ _XS = "  static constexpr int XS = SPLIT ? 2 : 1;   // A tiles a stage"
 _LO_MMA = """        if constexpr (SPLIT)                 // x_lo against the same w box
           WgmmaSS256<>::mma(acc, dl + 2 * kk, db + 2 * kk, 1);
 """
+_DW_SHAPE = "using DwSplit = DwSplitOf<32, 4>;"
+_DW_SPLITS = "  for (int s = 1; s <= C::MAX_SPLITS && s <= p.nk; ++s) {"
+_DW_CROSS = """      WgmmaSS<192, 1, 1>::mma(acc, ah + 128 * kk, bl + 128 * kk, 1);
+      WgmmaSS<192, 1, 1>::mma(acc, al + 128 * kk, bh + 128 * kk, 1);
+"""
+_DZ_LO_T = "      if constexpr (SPLIT) quad_transpose(l, tq);"
+_DZ_LO_STORE = "          px[4 * i + tq] = make_uint4(l[0], l[1], l[2], l[3]);"
 _DX_LOAD = "ok && !a.first ?"
 _DX_STORE = """      if (!a.last)
         store8(row + c, v);"""
@@ -132,6 +150,11 @@ TUNINGS.update({
     fence_regs(acc);""")],
     # dz stored with the evict-first hint (st.global.cs)
     "dz_evict_first": [(_DZ_STORE, "        __stcs(pw + 4 * i + tq, q);")],
+    # the split dw's ring: 2 stages of 64 rows of T (80 KB each), or 3 or
+    # 5 of 32 (40 KB; the change has 4)
+    "dw_bk64": [(_DW_SHAPE, _DW_SHAPE.replace("<32, 4>", "<64, 2>"))],
+    "dw_stages_3": [(_DW_SHAPE, _DW_SHAPE.replace("<32, 4>", "<32, 3>"))],
+    "dw_stages_5": [(_DW_SHAPE, _DW_SHAPE.replace("<32, 4>", "<32, 5>"))],
 })
 # linear_ce.cu with one part of the bf16 kernels cut: (old, new) text
 # pairs; timed unchecked
@@ -155,6 +178,18 @@ ABLATIONS = {
     # the split route with x_hi alone: one x box a stage (still 3
     # stages), no x_lo product; what x_lo costs
     "one_term": [(_XS, _XS.replace("SPLIT ? 2 : 1", "1")), (_LO_MMA, "")],
+    # the split dw on one block a tile: no K split, no fold's partners
+    "dw_no_split": [(_DW_SPLITS, _DW_SPLITS.replace("C::MAX_SPLITS", "1"))],
+    # the split dw with dz_hi x_hi alone (its loads stay): what the two
+    # cross products cost
+    "dw_one_term": [(_DW_CROSS, "")],
+    # the split dz storing fp32 dz (4 bytes an element, into the halves'
+    # buffer) in place of its low half: the parent's 6 bytes an element
+    "dz_store_f32": [
+        (_DZ_LO_T, _DZ_LO_T + "\n      float f[8];\n"
+                   "      if constexpr (SPLIT) row8(acc, h, i, tq, f);"),
+        (_DZ_LO_STORE, "          store8((float *)a.dz_w + (size_t)t * "
+                       "a.ldz + n0 + 8 * (4 * i + tq), f);")],
 }
 SASS_OPS = ("HGMMA", "MUFU", "FFMA", "FMNMX", "FADD", "SHFL", "STG", "LDG",
             "SYNCS", "UTMALDG", "BAR", "F2FP")
@@ -285,6 +320,26 @@ def build_variants(srcs):
     return libs
 
 
+def tree_wrapper(name, tree):
+    """``tree``'s linear-CE wrapper module, loaded beside this tree's as
+    ``paddle_tpu_torch.ops.cuda._lce_<name>`` (its relative imports are
+    this tree's ``build`` and ``layer``, so it launches whichever library
+    ``build._lib`` holds)."""
+    import importlib.util
+    path = Path(tree).resolve() / "paddle_tpu_torch/ops/cuda/linear_ce.py"
+    spec = importlib.util.spec_from_file_location(
+        f"paddle_tpu_torch.ops.cuda._lce_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def dz_of(dzx):
+    """dz in x's dtype from ``linear_ce_dz_cuda``'s second output: fp32 as
+    it is, the split route's bf16 halves ``[2, T, width]`` by their sum."""
+    return dzx if dzx.ndim == 2 else dzx[0].float() + dzx[1].float()
+
+
 def inputs(case, gen):
     """x ~ N(0, 1) in the case's dtype, bf16 w ~ N(0, 0.02), random labels
     with row 1's at V - 1 (every 7th ignored where the case has
@@ -304,13 +359,13 @@ def inputs(case, gen):
     return x, w, lab, g
 
 
-def check_variant(name, gen):
+def check_variant(name, gen, lc):
     """Every case of CASES against the plain versions, and each call
-    twice; raises on the first miss.  Returns the worst bf16 ratio of dz's,
-    dx's and dw's distance from fp32 to the plain version's."""
+    twice, through the wrapper ``lc``; raises on the first miss.  Returns
+    the worst bf16 ratio of dz's, dx's and dw's distance from fp32 to the
+    plain version's."""
     import torch
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
-    from paddle_tpu_torch.ops.cuda import linear_ce as lc
     worst = 0.0
     for case in CASES:
         T, H, V, chunk, ignore, eps, xdn = case
@@ -342,6 +397,7 @@ def check_variant(name, gen):
                                     truth.to(dz.dtype), truth, True, ratios))
             worst = max(worst, ratios[0])
             if xdn == "float32":
+                dzx = dz_of(dzx)
                 e = max(e, cs.check_lce(f"{label} dz_x slab {c0}", dzx,
                                         truth, None, False, None))
                 if c0 + width == V:          # the smoke's slab: the last
@@ -364,6 +420,15 @@ def check_variant(name, gen):
         e = max(e, cs.check_lce(f"{label} dx", dx, dx_p, dx_t, True, ratios),
                 cs.check_lce(f"{label} dw", dw, dw_p, dw_t, True, ratios))
         worst = max(worst, *ratios)
+        if xdn == "float32":
+            d = cs.split_dw_excess((label, T, H, V, chunk, xdn, "bfloat16",
+                                    ignore, eps), x, w, lab, lse, g, dw,
+                                   dw_t)
+            cs.info(f"{label}: split dw check, x the allowance past half "
+                    f"an ulp: {d}")
+            if d["kernels"] > 1.0:
+                raise cs.SmokeFailure(f"{label}: dw misses the split dw "
+                                      f"check ({d['kernels']:.3e})")
         cs.info(f"{label}: max |kernel - plain| {e:.3e}")
         del x, w, lab, g, nll, lse, nll2, lse2, nll_p, lse_p
         del dx, dw, dx_p, dw_p, dx_t, dw_t
@@ -376,16 +441,21 @@ def tma_bytes(T, H, V, chunk, split=False):
     the backward's dz, dx and dw over its slabs (each 128 x 256 output
     tile reads a 16 KB A box and a 32 KB B box every 64-deep K step; on
     the split route, fp32 x with bf16 w, fwd and dz read two A boxes, x_hi
-    and x_lo, beside the one B box)."""
+    and x_lo, beside the one B box, and dw's 128 x 192 tiles read both
+    halves of dz (8 KB each) and of x (12 KB each) every 32 rows of T,
+    whatever the K split)."""
     def one(rows, cols, depth, a_boxes=1):
         return (-(-rows // 128) * -(-cols // 256) * -(-depth // 64)
                 * (16384 * a_boxes + 32768))
     z = 2 if split else 1
     widths = [min(chunk, V - c0) for c0 in range(0, V, chunk)]
+    dw = (sum(-(-c // 128) * -(-H // 192) * -(-T // 32) * 40960
+              for c in widths) if split
+          else sum(one(c, H, T) for c in widths))
     return {"fwd": one(T, V, H, z),
             "dz": sum(one(T, c, H, z) for c in widths),
             "dx": sum(one(T, H, c) for c in widths),
-            "dw": sum(one(c, H, T) for c in widths)}
+            "dw": dw}
 
 
 def kernel_grids(fn, name):
@@ -411,10 +481,11 @@ def kernel_ms(breakdown, name):
     return sum(mean * n for mean, n in hit) if hit else None
 
 
-def time_head(libs, order, gen, report, case, key):
+def time_head(libs, wrappers, order, gen, report, case, key):
     """Each variant's times at one head (``case``, an entry of
-    ``chip_smoke.LCE_CASES``) in the turns of ``order``, beside the bounds
-    and the dense chain, into ``report``'s ``key`` rows.  With fp32 x the
+    ``chip_smoke.LCE_CASES``) in the turns of ``order``, each through its
+    wrapper (``wrappers``, else this tree's), beside the bounds and the
+    dense chain, into ``report``'s ``key`` rows.  With fp32 x the
     forward's breakdown also gives the split pre-pass, and ``reload_w``
     (after each ``change``) times this tree's bf16 kernels on ``[x_hi |
     x_lo]`` and ``[w | w]``."""
@@ -426,8 +497,9 @@ def time_head(libs, order, gen, report, case, key):
     _, T, H, V, chunk, xdn, *_ = case
     x, w, lab, g = inputs((T, H, V, chunk, None, 0.0, xdn), gen)
     operands = {name: (x, w) for name in libs}
-    build._lib = next(iter(libs.values()))[0]
-    _, lse = lc.linear_ce_fwd_cuda(x, w, lab)
+    first = next(iter(libs))
+    build._lib = libs[first][0]
+    _, lse = wrappers.get(first, lc).linear_ce_fwd_cuda(x, w, lab)
     if xdn == "float32" and "change" in libs:
         xs = fce.lce_split_x_ref(x)
         operands["reload_w"] = (torch.cat((xs[0], xs[1]), 1),
@@ -451,21 +523,23 @@ def time_head(libs, order, gen, report, case, key):
     for name in libs:
         build._lib = libs[name][0]
         xx, ww = operands[name]
-        grids = kernel_grids(lambda: (lc.linear_ce_fwd_cuda(xx, ww, lab),
-                                      lc.linear_ce_dz_cuda(xx, ww, lab, lse,
-                                                           g, 0, chunk)),
+        m = wrappers.get(name, lc)
+        grids = kernel_grids(lambda: (m.linear_ce_fwd_cuda(xx, ww, lab),
+                                      m.linear_ce_dz_cuda(xx, ww, lab, lse,
+                                                          g, 0, chunk)),
                              f"{key}_{name}")
         report["variants"].setdefault(name, {})[f"{key}_grids"] = grids
         cs.info(f"grids {key} {name}: {grids}")
     for name in order:
         build._lib = libs[name][0]
         xx, ww = operands[name]
+        m = wrappers.get(name, lc)
 
         def dz_all():
             for c0, width in slabs:
-                lc.linear_ce_dz_cuda(xx, ww, lab, lse, g, c0, width)
+                m.linear_ce_dz_cuda(xx, ww, lab, lse, g, c0, width)
         by = {}
-        _, call = cs.time_ms(lambda: lc.linear_ce_fwd_cuda(xx, ww, lab),
+        _, call = cs.time_ms(lambda: m.linear_ce_fwd_cuda(xx, ww, lab),
                              ITERS, by)
         times[name]["fwd"].append(kernel_ms(by, "linear_ce_fwd") or call)
         times[name]["split_x"].append(kernel_ms(by, "linear_ce_split_x"))
@@ -476,7 +550,7 @@ def time_head(libs, order, gen, report, case, key):
         if name == "reload_w":               # fwd and dz only: another dx, dw
             dev = call = None
         else:
-            dev, call = cs.time_ms(lambda: lc.linear_ce_bwd_cuda(
+            dev, call = cs.time_ms(lambda: m.linear_ce_bwd_cuda(
                 xx, ww, lab, lse, g, chunk=chunk), 2, by)
         per = {k: kernel_ms(by, k) for k in cs.LCE_NAMES[1:]}
         times[name]["bwd"].append(dict(device_ms=dev, call_ms=call, **per))
@@ -494,15 +568,28 @@ def time_head(libs, order, gen, report, case, key):
     lib_bwd = cs.time_ms(lambda: torch.autograd.grad(
         saved, (xr, wr), retain_graph=True), 3)[0]
     del saved, xr, wr
+    # dw's yardstick: one torch.matmul(dz.T, x) a slab in x's dtype (TF32
+    # off), summed over the slabs
+    dzl = torch.randn(T, chunk, device="cuda", generator=gen).to(x.dtype)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        per = {c: cs.time_ms(lambda: torch.matmul(dzl[:, :c].t(), x),
+                             ITERS)[0] for c in {c for _, c in slabs}}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    lib_dw = sum(per[c] for _, c in slabs)
+    del dzl
     bo = cs.lce_bytes_ops(T, H, V, chunk, x.element_size(), 2)
     bound = {k: cs.bound_ms(*bo[f"linear_ce_{k}"])
              for k in ("fwd", "dz", "dx", "dw", "split_x")}
     report[key] = dict(bound_ms=bound, library_fwd_ms=lib_fwd,
-                       library_bwd_ms=lib_bwd,
+                       library_bwd_ms=lib_bwd, library_dw_ms=lib_dw,
                        tma_bytes=tma_bytes(T, H, V, chunk,
                                            xdn == "float32"))
     cs.info(f"{key}: bound {bound}; dense chain forward {lib_fwd:.4f} ms, "
-            f"backward alone {lib_bwd:.4f} ms; TMA bytes from L2 a call "
+            f"backward alone {lib_bwd:.4f} ms; torch.matmul(dz.T, x) over "
+            f"the slabs {lib_dw:.4f} ms; TMA bytes from L2 a call "
             f"{report[key]['tma_bytes']}")
     for name, ts in times.items():
         row = report["variants"][name][key] = dict(ts)
@@ -519,7 +606,8 @@ def time_head(libs, order, gen, report, case, key):
             bwd = sum(row[f"{k}_mean_ms"] for k in ("dz", "dx", "dw"))
             cs.info(f"{key} {name}: fwd {row['fwd_mean_ms'] / lib_fwd:.2f}"
                     f"x the dense chain's forward; dz + dx + dw {bwd:.4f} ms, "
-                    f"{bwd / lib_bwd:.2f}x its backward alone")
+                    f"{bwd / lib_bwd:.2f}x its backward alone; dw "
+                    f"{row['dw_mean_ms'] / lib_dw:.2f}x torch.matmul's")
 
 
 def main():
@@ -538,11 +626,12 @@ def main():
         return 1
     from paddle_tpu_torch.kernels import build
     card = cs.phase_device()
-    srcs, unchecked = {}, set()
+    srcs, unchecked, wrappers = {}, set(), {}
     for item in args.tree:
         name, _, tree = item.partition("=")
         srcs[name] = (Path(tree).resolve()
                       / "paddle_tpu_torch/kernels/csrc/linear_ce.cu")
+        wrappers[name] = tree_wrapper(name, tree)
     srcs["change"] = build.CSRC / "linear_ce.cu"
     text = srcs["change"].read_text()
     edits = {}
@@ -571,17 +660,18 @@ def main():
                 cs.info(f"sass {name}: {k}: {v}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
+    from paddle_tpu_torch.ops.cuda import linear_ce as lc
     for name, (lib, *_) in libs.items():
         if name in unchecked:
             continue
         build._lib = lib
         report["variants"][name]["bf16_vs_fp32_ratio"] = check_variant(
-            name, gen)
+            name, gen, wrappers.get(name, lc))
     if not args.no_time:
         order = (list(libs) + list(reversed(libs))) * args.turns
-        time_head(libs, order, gen, report, LLAMA, "llama_head")
+        time_head(libs, wrappers, order, gen, report, LLAMA, "llama_head")
         torch.cuda.empty_cache()
-        time_head(libs, order, gen, report, GPT, "gpt_head")
+        time_head(libs, wrappers, order, gen, report, GPT, "gpt_head")
     out = ROOT / "chiprun_out" / "lce_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
