@@ -90,10 +90,11 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
 10. quant_linear the weight-only int8 and int4 kernels against their plain
             versions at M 8 (decode) and M 1024 (prefill) on the three
             llama_7b weight shapes, per channel, bf16 and fp32 x, and on
-            groups of 64 and 128, an odd K, M 17 and M 1000; times per
-            llama_7b layer (its seven matmuls), plain, bound and cuBLAS on
-            the dequantized bf16 weight, the prefill rows' ratio to cuBLAS
-            and share of the bound;
+            groups of 64 and 128, an odd K, M 1, 16, 17 and 1000, each
+            decode call twice and bit-identical; times per llama_7b layer
+            (its seven matmuls), plain, bound and cuBLAS on the
+            dequantized bf16 weight, the bf16 rows' ratio to cuBLAS and
+            share of the bound;
 11. generate ``llama_7b`` at full width and depth (32 layers, seeded
             ``init_params``) through ``llama_generate`` at the JAX bench's
             decode row (B 8, prompt 128 from numpy seed 0, 128 new tokens,
@@ -2109,14 +2110,16 @@ LAYER_MATMULS = (("q_w", 4096, 4096), ("k_w", 4096, 4096),
                  ("down_w", 11008, 4096))
 WO_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 WO_ROWS = {"small_m": 8, "tiled": 1024}          # decode B 8, prefill 8 x 128
-# (width, M, K, N, group_size): grouped scales, an odd K, and the prefill
-# kernel's smallest M and an M off its 256-row tiles, per channel
+# (width, M, K, N, group_size): grouped scales, an odd K, the prefill
+# kernel's smallest M and an M off its 256-row tiles, and the decode
+# kernel's 16- and 1-row calls, per channel
 WO_SMALL = [("int8", 8, 4096, 4096, 64), ("int8", 8, 4096, 4096, 128),
             ("int8", 300, 4096, 1024, 64), ("int8", 300, 4096, 1024, 128),
             ("int4", 8, 4096, 4096, 64), ("int4", 8, 11008, 4096, 128),
             ("int4", 300, 4096, 1024, 64), ("int4", 300, 4096, 1024, 128),
             ("int4", 8, 4095, 1024, -1), ("int4", 300, 4095, 1024, 64),
-            ("int8", 17, 4096, 1024, -1), ("int4", 1000, 4096, 1024, -1)]
+            ("int8", 17, 4096, 1024, -1), ("int4", 1000, 4096, 1024, -1),
+            ("int8", 16, 4096, 11008, -1), ("int4", 1, 11008, 4096, -1)]
 WO_REPLACES = {"int8": "paddle_tpu/ops/pallas/quant_linear.py:150",
                "int4": "paddle_tpu/ops/pallas/quant_linear.py:264"}
 
@@ -2153,6 +2156,10 @@ def phase_quant_linear(results, dev="cuda"):
         torch.cuda.synchronize()
         plain = ref(x, codes, scale, group_size=gs)
         name = f"wo {width} {label}"
+        if key.endswith("small_m"):
+            # the K splits fold in a fixed order: a second call, same bits
+            if not torch.equal(got, fn(x, codes, scale, group_size=gs)):
+                raise SmokeFailure(f"{name}: two decode calls differ")
         if x.dtype == torch.float32:
             e = check_close(name, got, plain, TOL["float32"])
             info(f"{name}: max |kernel - plain| {e:.2e}")
@@ -2244,7 +2251,7 @@ def phase_quant_linear(results, dev="cuda"):
                      f"layer (per call {call:.4f}), bound {bms:.4f} ms "
                      f"({bby}), plain {plain} ms, cuBLAS on the dequantized "
                      f"bf16 weight x scale {lib} ms")
-                if ms and lib and regime == "tiled":
+                if ms and lib and xdt == torch.bfloat16:
                     timed[name].update(x_library=ms / lib, of_bound=bms / ms)
                     info(f"{name}: {ms / lib:.2f}x cuBLAS on the dequantized "
                          f"weight, {100 * bms / ms:.1f} % of its bound")

@@ -40,28 +40,20 @@
 //     resident (cudaOccupancyMaxActiveClusters, once a device): at decode
 //     N 4096 runs 32 column tiles x 7, all resident (x 8 would leave 16
 //     blocks to a second wave), N 11008 SwiGLU 172 tiles unsplit.
-//   * The fold, inside the launch: every block stages its fp32 partial
-//     tile in its own shared memory (the ring, now idle); after a cluster
-//     barrier it bulk-copies (cp.async.bulk shared::cta -> shared::cluster)
-//     each peer's 1/S of the rows into that peer's receive slots, on the
-//     peer's mbarrier; each block then sums its rows over the S slots in
-//     split order, so two calls are bit-identical, and runs the epilogue
-//     once (SwiGLU pairs W's and W2's columns there), storing bf16 pairs
-//     along N.  No workspace, no second kernel.  (Reading the peers'
-//     partials through distributed shared memory instead cost 25-36 us a
-//     launch at M 256, tools/gemm_ab.py.)
-//   * Host: the shared-memory attribute and the occupancy table are set
-//     once a device; the tensor maps are cached by their arguments (a map
-//     is a pure function of base, shape and box), so the layer's steady
-//     weights cost one lookup each.
+//   * The fold, inside the launch (split_k.cuh, shared with the
+//     weight-only decode body): every block stages its fp32 partial tile
+//     in its own shared memory and pushes each peer's rows into that
+//     peer's receive slots by bulk copies; each block then sums its rows
+//     over the S slots in split order, so two calls are bit-identical, and
+//     runs the epilogue once (SwiGLU pairs W's and W2's columns there),
+//     storing bf16 pairs along N.  No workspace, no second kernel.
+//   * Host (split_k.cuh): the shared-memory attribute and the occupancy
+//     table are set once a device; the tensor maps are cached by their
+//     arguments, so the layer's steady weights cost one lookup each.
 // fp32 (the correctness lane) runs plain FMA over 64 x 64 tiles.
 // Requirements checked by the wrapper: K % 8 == 0, N % 8 == 0, 16-byte
 // aligned pointers.
-#include <atomic>
-#include <mutex>
-#include <unordered_map>
-
-#include "wgmma.cuh"
+#include "split_k.cuh"
 
 namespace pt {
 
@@ -88,8 +80,6 @@ __device__ __forceinline__ void epilogue(T *Y, const T *R, int epi, int m,
 // ------------------------------------------------------------ bf16: wgmma
 namespace xw {
 
-constexpr int MAX_SPLITS = 8;                   // portable cluster size
-
 // NX x rows a tile (wgmma's N), STAGES ring depth, MINB blocks an SM
 template <int NX_, int STAGES_, int MINB_> struct Cfg {
   static constexpr int NX = NX_, STAGES = STAGES_, MINB = MINB_;
@@ -98,12 +88,11 @@ template <int NX_, int STAGES_, int MINB_> struct Cfg {
   static constexpr int WT = 2 * WBOX;           // 128 W columns
   static constexpr int XT = NX * BK * 2;        // NX x rows x 64 K columns
   static constexpr int STAGE = WT + XT;
-  static constexpr int LDR = 128 + 4;           // fp32 words a staged row
-  static constexpr int ROWB = LDR * 4;
-  static constexpr int RED = NX * ROWB;         // this block's partial tile
-  static constexpr int RECV = (NX + MAX_SPLITS) * ROWB;  // peers' slices
+  using Fold = splitk::Tile<NX>;                // the staged partial tile
+  static constexpr int LDR = Fold::LDR;
+  static constexpr int RED = Fold::RED;
   static constexpr int BODY =
-      STAGES * STAGE > RED + RECV ? STAGES * STAGE : RED + RECV;
+      STAGES * STAGE > Fold::BYTES ? STAGES * STAGE : Fold::BYTES;
   static constexpr int THREADS = 384;           // 2 consumer wgs + producer
   static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
   static constexpr int NACC = NX / 2;           // fp32 accumulators a thread
@@ -142,8 +131,8 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
   const int kb0 = (int)((long long)a.nk * rank / S);
   const int kb1 = (int)((long long)a.nk * (rank + 1) / S);
   // the tile rows this block folds: [r0, r0 + nr), R a rank
-  const int R = (C::NX + S - 1) / S, r0 = rank * R;
-  const int nr = max(0, min(C::NX, r0 + R) - r0);
+  const splitk::Share sh = splitk::share_of<C::NX>(S, rank);
+  const int R = sh.R, r0 = sh.r0, nr = sh.nr;
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < C::STAGES; ++s) {
@@ -170,12 +159,10 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
         tma_load_2d(st + C::WT, tx, kb * C::BK, m0, &full[s]);
       }
     }
-    // the fold's two cluster barriers (below), without its work: code
-    // past a merge would be compiled to the producer's 40 registers
-    cluster_arrive();
-    cluster_wait();
-    cluster_arrive_relaxed();
-    cluster_wait();
+    // the fold's cluster barriers (below), without its work: code past a
+    // merge would be compiled to the producer's 40 registers
+    splitk::idle();
+    splitk::done();
     return;
   }
   if constexpr (C::MINB == 1) regs_inc<C::REGS_CONSUMER>();
@@ -216,28 +203,8 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
         red[(8 * j + 2 * tq + e) * C::LDR + col + 8 * h] =
             acc[4 * j + 2 * h + e];
   fence_proxy_async_smem();
-  // the K splits' fold: block q sends rows [d R, d R + R) of its partial
-  // to block d's recv slot q (one bulk copy a peer, on d's recv_bar);
-  // each block sums its rows over the S slots in split order, so two
-  // calls are bit-identical
-  if (tid == 0 && S > 1 && nr > 0)
-    mbar_expect_tx(recv_bar, (S - 1) * nr * C::ROWB);
-  cluster_arrive();             // every partial staged, every ring idle
-  cluster_wait();
-  if (tid == 0 && S > 1) {
-    for (int d = 0; d < S; ++d) {
-      const int dn = max(0, min(C::NX, d * R + R) - d * R);
-      if (d != rank && dn > 0)
-        bulk_to_peer(peer_u32(recv + rank * R * C::LDR, d),
-                     red + d * R * C::LDR, dn * C::ROWB,
-                     peer_u32(recv_bar, d));
-    }
-  }
-  if (S > 1 && nr > 0) mbar_wait_or_trap(recv_bar, 0);
-  // my slices have landed, so have my peers' reads of my sources: a block
-  // leaves once all have (cluster_wait below); nothing to publish, so
-  // relaxed
-  cluster_arrive_relaxed();
+  // the K splits' fold: my rows of every peer's partial into my recv slots
+  splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);
   {
     // the epilogue over my rows, pairs of output columns along N, in
     // rounds of U pairs a thread (the residuals of a round in flight; one
@@ -291,7 +258,7 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
         }
     }
   }
-  cluster_wait();
+  splitk::done();
 }
 
 template <class C>
@@ -336,131 +303,40 @@ template <class C> Inst tiled() {
 static const Inst INSTS[NINST] = {small<S8>(), small<S16>(), tiled<T32>(),
                                   tiled<T64>(), tiled<T128>()};
 
-// The clusters of s blocks (s = 1 .. MAX_SPLITS) of each instance that the
-// device keeps resident (cudaOccupancyMaxActiveClusters: a cluster's
-// blocks share one GPC, so this is below SMs x blocks an SM / s).
-struct Occupancy {
-  int clusters[NINST][MAX_SPLITS + 1];
-};
-
-// the current device's occupancy table; on the device's first call also
-// the shared memory of every instance (once a device and process)
-static cudaError_t setup(const Occupancy **occ) {
-  constexpr int DEVICES = 64;
-  static Occupancy table[DEVICES];
-  static std::atomic<bool> ready[DEVICES];      // false: static storage
-  static std::mutex mu;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= DEVICES) return cudaErrorInvalidDevice;
-  *occ = &table[dev];
-  if (ready[dev].load(std::memory_order_acquire)) return e;
-  std::lock_guard<std::mutex> hold(mu);
-  if (ready[dev].load(std::memory_order_acquire)) return e;
-  for (int i = 0; i < NINST; ++i) {
-    const Inst &k = INSTS[i];
-    e = cudaFuncSetAttribute((const void *)k.fn,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             k.smem);
-    if (e != cudaSuccess) return e;
-    for (int s = 1; s <= MAX_SPLITS; ++s) {
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3(s);
-      cfg.blockDim = dim3(384);
-      cfg.dynamicSmemBytes = k.smem;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = s;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      // a shape the device cannot hold counts 0 clusters (never chosen)
-      if (cudaOccupancyMaxActiveClusters(&table[dev].clusters[i][s],
-                                         (const void *)k.fn, &cfg) !=
-          cudaSuccess) {
-        table[dev].clusters[i][s] = 0;
-        cudaGetLastError();
-      }
-    }
-  }
-  ready[dev].store(true, std::memory_order_release);
-  return e;
+// the current device's clusters of each size of every instance (once a
+// device: split_k.cuh)
+static splitk::ResidencyTable<NINST> residency;
+static cudaError_t setup(const splitk::Residency<NINST> **occ) {
+  splitk::KernelShape ks[NINST];
+  for (int i = 0; i < NINST; ++i)
+    ks[i] = {(const void *)INSTS[i].fn, 384, INSTS[i].smem};
+  return residency.get(ks, occ);
 }
 
-// A tensor map is a pure function of its arguments, so a cache keyed by
-// all of them is never stale: the layer's weights hit it every call (a
-// model's few hundred maps; emptied past MAX_MAPS, e.g. when scratch
-// pointers keep changing).
-struct MapKey {
-  const void *base;
-  uint64_t cols, rows;
-  uint32_t box_cols, box_rows;
-  bool operator==(const MapKey &o) const {
-    return base == o.base && cols == o.cols && rows == o.rows &&
-           box_cols == o.box_cols && box_rows == o.box_rows;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey &k) const {
-    return std::hash<const void *>()(k.base) ^
-           std::hash<uint64_t>()(k.cols * 0x9E3779B97F4A7C15ull + k.rows) ^
-           (size_t)k.box_rows << 48;
-  }
-};
 static cudaError_t bf16_map(CUtensorMap *map, const void *base,
                             uint64_t cols, uint64_t rows, uint32_t box_cols,
                             uint32_t box_rows) {
-  constexpr size_t MAX_MAPS = 4096;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  static std::mutex mu;
-  const MapKey k{base, cols, rows, box_cols, box_rows};
-  std::lock_guard<std::mutex> hold(mu);
-  const auto hit = cache.find(k);
-  if (hit != cache.end()) {
-    *map = hit->second;
-    return cudaSuccess;
-  }
-  const cudaError_t e =
-      encode_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, cols, rows,
-                    2 * cols, box_cols, box_rows);
-  if (e == cudaSuccess) {
-    if (cache.size() >= MAX_MAPS) cache.clear();
-    cache.emplace(k, *map);
-  }
-  return e;
+  return splitk::cached_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base,
+                               cols, rows, 2 * cols, box_cols, box_rows);
 }
 
 struct Plan {
   int inst, splits, row_tiles, col_tiles, nk, resident;
 };
 
-// K splits: S (1 .. 8, at most the K steps) at the least cost, where a
-// block's time goes with its K steps (nk / S) plus FOLD_STEPS for the
-// staging and the fold, and the device runs `resident` clusters of S at
-// once: waves x (ceil(nk / S) + FOLD_STEPS); ties go to fewer splits
+// K splits at the least modelled cost (splitk::best_split), a K step
+// weighed against FOLD_STEPS for the staging and the fold
 constexpr int FOLD_STEPS = 12;
-static Plan plan_of(int M, int K, int N, int epi, const Occupancy &occ) {
+static Plan plan_of(int M, int K, int N, int epi,
+                    const splitk::Residency<NINST> &occ) {
   Plan p;
   p.inst = M <= 8 ? 0 : M <= 16 ? 1 : M <= 32 ? 2 : M <= 64 ? 3 : 4;
   const Inst &k = INSTS[p.inst];
   p.nk = (K + 63) / 64;
   p.row_tiles = (M + k.nx - 1) / k.nx;
   p.col_tiles = epi == EPI_SWIGLU ? (N + 63) / 64 : (N + 127) / 128;
-  const long long tiles = (long long)p.row_tiles * p.col_tiles;
-  long long best = -1;
-  p.splits = 1;
-  for (int s = 1; s <= MAX_SPLITS && s <= p.nk; ++s) {
-    const long long res = occ.clusters[p.inst][s];
-    if (res <= 0) continue;
-    const long long cost =
-        (tiles + res - 1) / res * ((p.nk + s - 1) / s + FOLD_STEPS);
-    if (best < 0 || cost < best) {
-      best = cost;
-      p.splits = s;
-    }
-  }
+  p.splits = splitk::best_split((long long)p.row_tiles * p.col_tiles, p.nk,
+                                 occ.clusters[p.inst], FOLD_STEPS);
   p.resident = occ.clusters[p.inst][p.splits];
   return p;
 }
@@ -468,7 +344,7 @@ static Plan plan_of(int M, int K, int N, int epi, const Occupancy &occ) {
 static cudaError_t launch(int M, int K, int N, int epi, const void *X,
                           const void *W, const void *W2, const void *R,
                           void *Y, cudaStream_t s) {
-  const Occupancy *occ = nullptr;
+  const splitk::Residency<NINST> *occ = nullptr;
   cudaError_t e = setup(&occ);
   if (e != cudaSuccess) return e;
   const Plan p = plan_of(M, K, N, epi, *occ);
@@ -595,7 +471,7 @@ cudaError_t launch_gemm_xw(int dtype, int M, int K, int N, int epi,
 // shape the device keeps resident.
 extern "C" int pt_gemm_xw_plan(int M, int K, int N, int epi, int *out) {
   using namespace pt::xw;
-  const Occupancy *occ = nullptr;
+  const pt::splitk::Residency<NINST> *occ = nullptr;
   const cudaError_t e = setup(&occ);
   if (e != cudaSuccess) return e;
   const Plan p = plan_of(M, K, N, epi, *occ);

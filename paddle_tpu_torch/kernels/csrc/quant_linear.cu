@@ -52,272 +52,41 @@
 //     (scale-d 0) at each 64-row plane step and add it, times the group's
 //     scale, into the total at its end; the `tile` rule multiplies the
 //     widened codes by the bf16 scale before the product.
-//   * bf16 x, M <= 16 (decode): wo_mma<SmallM>, mma.sync m16n8k16 over
-//     16 x 128 output tiles (a code row's 128 bytes are one cache line),
-//     4 warps of 16 x 32, 4 cp.async stages of 64 code rows, K split over
-//     a thread block cluster of 8 (N = 4096: 32 column tiles x 8 = 256
-//     blocks).  The B fragments are built in registers from the code bytes
-//     in shared memory with the same exponent-bias trick; the columns of
-//     each n8 fragment are permuted (fragment column c of tile j is
-//     physical column NT * c + j), so one 4-byte shared load gives a
-//     thread its codes for all NT tiles.  int4 reads each packed byte once
-//     for both nibble planes.  The 8 blocks sum their fp32 partial tiles
-//     through distributed shared memory, in split order, and write the
-//     bf16 output: one launch, no workspace, deterministic.
+//   * bf16 x, M <= 16 (decode): wo_dec, the same swapped wgmma with the
+//     same widening, shaped for 8 or 16 x rows (wgmma m64n8k16 /
+//     m64n16k16, x zero-filled by TMA past M).  A block is 2 consumer
+//     warpgroups of 64 channels (128 channels, one 128-byte code row) and
+//     one producer warp that keeps a ring of ~100 KB full (stages of 64
+//     code rows, 8 KB, and one NX-row x box a nibble plane; two blocks an
+//     SM, ~200 KB of codes in flight an SM) over the block's whole K
+//     range.  int4 reads each packed byte once: one ldmatrix.trans feeds
+//     both planes, the low nibbles against x's low-plane box, then the
+//     high ones against the high-plane box.  K is split over a thread-block
+//     cluster whose size comes from the clusters the card keeps resident
+//     (split_k.cuh: asked once a device, the split at the least modelled
+//     cost; N 4096 is only 32 column tiles), and the splits' fp32 partials
+//     are folded inside the launch by bulk-copy pushes to the owner of
+//     each x row, summed in split order (bit-identical calls), scaled per
+//     channel and stored as bf16 pairs.  Scales as in wo_wgmma: grouped
+//     `post` scales start a fresh partial at each 64-row plane step and add
+//     it, times the group's scale, into a running total; `tile` folds the
+//     bf16 scale into the widened codes.  The host sets the shared-memory
+//     attribute and asks the residency once a device, and caches the
+//     tensor maps by their arguments.
 //   * fp32 x (the correctness lane): wo_f32, plain FMA over 64 x 64
 //     tiles, dequantizing each weight element in fp32 on its way into
 //     shared memory (fp32 rounding either way).
 // Requirements checked here and by the wrapper: N % 16 == 0, ldx and xhi
-// multiples of 8, 16-byte aligned x and codes; the prefill kernel also
-// takes only group sizes that are powers of two (64, 128, or 1 << 30 per
+// multiples of 8, 16-byte aligned x and codes; the wgmma kernels also
+// take only group sizes that are powers of two (64, 128, or 1 << 30 per
 // channel), and grouped `post` scales only where every group starts on a
 // 64-row boundary of its nibble plane (the wrapper's scale_mode gives
 // nothing else).
-#include <cooperative_groups.h>
-
 #include "mma.cuh"
-#include "wgmma.cuh"
-
-namespace cg = cooperative_groups;
+#include "split_k.cuh"
 
 namespace pt {
 namespace wo {
-
-// code j (0..3) of the 4-byte word w as an exact float: int8 codes, or the
-// low / high int4 nibbles; 0x4B000000 | u is 2^23 + u
-template <bool INT4>
-__device__ __forceinline__ float code_f(unsigned w, int j, bool hi) {
-  if (INT4) {
-    const unsigned nib = (hi ? w >> 4 : w) & 0x0F0F0F0Fu;
-    return __int_as_float(
-               __byte_perm(nib ^ 0x08080808u, 0x4B000000u, 0x7440 | j)) -
-           8388616.f;                                   // 2^23 + 8
-  }
-  return __int_as_float(
-             __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440 | j)) -
-         8388736.f;                                     // 2^23 + 128
-}
-
-// the k rows 2t + {0, 1, 8, 9} of a B fragment: r = 0..3
-__device__ __forceinline__ int roff(int r) { return (r & 1) + 8 * (r >> 1); }
-
-template <int WM_, int WN_, int MT_, int NT_, int STEPS_, int STAGES_,
-          int SPLITS_, bool INT4_>
-struct Cfg {
-  static constexpr int WM = WM_, WN = WN_, MT = MT_, NT = NT_,
-                       STEPS = STEPS_, STAGES = STAGES_, SPLITS = SPLITS_;
-  static constexpr bool INT4 = INT4_;
-  static constexpr int THREADS = WM * WN * 32;
-  static constexpr int BM = WM * MT * 16, BN = WN * NT * 8;
-  static constexpr int BKV = STEPS * 16;               // virtual k rows
-  static constexpr int BKR = INT4 ? BKV / 2 : BKV;     // code rows
-  static constexpr int LDX = BKV + 8;                  // bf16 per x row
-  static constexpr int LDC = BN + 16;                  // bytes per code row
-  static constexpr int XB = (BM * LDX * 2 + 127) / 128 * 128;
-  static constexpr int CB = (BKR * LDC + 127) / 128 * 128;
-  static constexpr int STAGE = XB + CB;
-  static constexpr int SMEM =
-      STAGES * STAGE > BM * BN * 4 ? STAGES * STAGE : BM * BN * 4;
-  static_assert(NT == 4 || NT == 8, "4 or 8 n8 tiles a warp");
-  static_assert(SPLITS > 1 && (BM * BN) % (SPLITS * THREADS) == 0,
-                "the cluster's blocks share the tile's sum evenly");
-};
-
-// decode (M <= 16): 16 x 128 output tiles (a code row's 128 bytes are one
-// cache line) over 64 code rows a stage, K split over a cluster of 8
-// blocks
-template <bool INT4>
-using SmallM = Cfg<1, 4, 1, 4, INT4 ? 8 : 4, 4, 8, INT4>;
-
-template <class C>
-__global__ void __launch_bounds__(C::THREADS) wo_mma(const WoArgs a) {
-  constexpr int WN = C::WN, MT = C::MT, NT = C::NT;
-  constexpr bool INT4 = C::INT4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wn = warp % WN, wm = warp / WN;
-  const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::BM;
-  const bf16 *X = (const bf16 *)a.x;
-  const signed char *W = a.w;
-  const int R = INT4 ? a.half : a.K;                   // code rows
-  const int ntiles = (R + C::BKR - 1) / C::BKR;
-  // this block's code tiles: split blockIdx.z of C::SPLITS over K
-  const int per = (ntiles + C::SPLITS - 1) / C::SPLITS;
-  const int kt0 = blockIdx.z * per;
-  const int nt = max(min(ntiles, kt0 + per) - kt0, 0);
-  const int ncol0 = n0 + wn * NT * 8;                  // the warp's columns
-
-  auto load_tile = [&](int tile, int stage) {
-    unsigned char *base = smem + stage * C::STAGE;
-    bf16 *xs = (bf16 *)base;
-    unsigned char *cs = base + C::XB;
-    const int r0 = tile * C::BKR;
-    constexpr int CPR = C::BN / 16;                    // 16-byte chunks/row
-    for (int c = tid; c < C::BKR * CPR; c += C::THREADS) {
-      const int r = c / CPR, col = n0 + (c % CPR) * 16;
-      const bool ok = r0 + r < R && col < a.N;
-      cp16(cs + r * C::LDC + (c % CPR) * 16,
-           ok ? W + (size_t)(r0 + r) * a.N + col : W, ok);
-    }
-    constexpr int XPR = C::BKV / 8;
-    for (int c = tid; c < C::BM * XPR; c += C::THREADS) {
-      const int m = c / XPR, vc = (c % XPR) * 8;
-      int rel, col, lim;
-      if (!INT4 || vc < C::BKR) {
-        rel = r0 + vc;
-        col = rel;
-        lim = INT4 ? a.half : a.K;
-      } else {
-        rel = r0 + vc - C::BKR;
-        col = a.xhi + rel;
-        lim = a.K - a.half;
-      }
-      const bool ok = m0 + m < a.M && rel < lim;
-      cp16(xs + m * C::LDX + vc, ok ? X + (size_t)(m0 + m) * a.ldx + col : X,
-           ok);
-    }
-  };
-
-  float part[MT][NT][4], tot[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[i][j][e] = tot[i][j][e] = 0.f;
-
-  // tot += part * scale[grp] (1 when the scale is folded into the tile)
-  auto flush = [&](int grp) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = ncol0 + NT * (2 * t + h) + j;
-        const float s =
-            a.tile_dq ? 1.f
-                      : (n < a.N ? __ldg(a.scale + (size_t)grp * a.N + n)
-                                 : 0.f);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          tot[i][j][h] = fmaf(part[i][j][h], s, tot[i][j][h]);
-          tot[i][j][h + 2] = fmaf(part[i][j][h + 2], s, tot[i][j][h + 2]);
-          part[i][j][h] = part[i][j][h + 2] = 0.f;
-        }
-      }
-  };
-
-  int cur = 0;                                         // current scale group
-#pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < nt) load_tile(kt0 + s, s);
-    cp_commit();
-  }
-  for (int lt = 0; lt < nt; ++lt) {
-    const int it = kt0 + lt;
-    cp_wait<C::STAGES - 2>();
-    __syncthreads();
-    {
-      const int nx = lt + C::STAGES - 1;
-      if (nx < nt) load_tile(kt0 + nx, nx % C::STAGES);
-      cp_commit();
-    }
-    const unsigned char *base = smem + (lt % C::STAGES) * C::STAGE;
-    const bf16 *xs = (const bf16 *)base;
-    const unsigned char *cs = base + C::XB;
-#pragma unroll
-    for (int s = 0; s < C::STEPS; ++s) {
-      const int vk = s * 16;                           // virtual row in tile
-      const bool hi = INT4 && vk >= C::BKR;
-      const int crow = hi ? vk - C::BKR : vk;          // code row in tile
-      const int orow = (hi ? a.half : 0) + it * C::BKR + crow;
-      if (!a.tile_dq) {
-        const int grp = min(orow / a.gs, a.G - 1);
-        if (grp != cur) {
-          flush(cur);
-          cur = grp;
-        }
-      }
-      unsigned af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const bf16 *p = xs + (wm * MT * 16 + i * 16 + g) * C::LDX + vk + 2 * t;
-        af[i][0] = *reinterpret_cast<const unsigned *>(p);
-        af[i][1] = *reinterpret_cast<const unsigned *>(p + 8 * C::LDX);
-        af[i][2] = *reinterpret_cast<const unsigned *>(p + 8);
-        af[i][3] = *reinterpret_cast<const unsigned *>(p + 8 * C::LDX + 8);
-      }
-      unsigned wd[4][NT / 4];
-      const unsigned char *cp =
-          cs + (crow + 2 * t) * C::LDC + wn * NT * 8 + NT * g;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if constexpr (NT == 8) {
-          const uint2 u =
-              *reinterpret_cast<const uint2 *>(cp + roff(r) * C::LDC);
-          wd[r][0] = u.x;
-          wd[r][NT / 4 - 1] = u.y;
-        } else {
-          wd[r][0] = *reinterpret_cast<const unsigned *>(cp + roff(r) * C::LDC);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float f[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) f[r] = code_f<INT4>(wd[r][j / 4], j % 4, hi);
-        if (a.tile_dq) {
-          const int n = ncol0 + NT * g + j;
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int grp = min((orow + 2 * t + roff(r)) / a.gs, a.G - 1);
-            const float sv =
-                n < a.N ? __ldg(a.scale + (size_t)grp * a.N + n) : 0.f;
-            f[r] *= rnd<bf16>(sv);
-          }
-        }
-        const unsigned b0 = pack_bf16(f[0], f[1]), b1 = pack_bf16(f[2], f[3]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma_bf16(part[i][j], af[i], b0, b1);
-      }
-    }
-  }
-  flush(cur);
-
-  // each thread owns 2 NT contiguous columns of rows g and g + 8 of each
-  // m16 tile: column nb + o holds n8 tile o % NT, fragment column
-  // 2t + o / NT
-  const int nb = ncol0 + 2 * NT * t;
-  // the cluster's blocks hold one column tile's K splits: each puts its
-  // fp32 partial tile in its shared memory; then each sums 1/SPLITS of
-  // the tile over all of them, in split order, and writes it
-  cp_wait<0>();
-  __syncthreads();
-  float *red = reinterpret_cast<float *>(smem);      // [BM][BN]
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int o = 0; o < 2 * NT; ++o) {
-      const int row = wm * MT * 16 + i * 16 + g, col = nb - n0 + o;
-      red[row * C::BN + col] = tot[i][o % NT][o / NT];
-      red[(row + 8) * C::BN + col] = tot[i][o % NT][2 + o / NT];
-    }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  constexpr int PER = C::BM * C::BN / C::SPLITS;
-  const int rank = (int)cluster.block_rank();
-  bf16 *Y = (bf16 *)a.y;
-  for (int idx = rank * PER + tid; idx < (rank + 1) * PER;
-       idx += C::THREADS) {
-    float acc = 0.f;
-#pragma unroll
-    for (int z = 0; z < C::SPLITS; ++z)
-      acc += cluster.map_shared_rank(red, z)[idx];
-    const int m = m0 + idx / C::BN, n = n0 + idx % C::BN;
-    if (m < a.M && n < a.N) Y[(size_t)m * a.N + n] = __float2bfloat16(acc);
-  }
-  cluster.sync();           // the peers' shared memory stays until read
-}
 
 // ------------------------------------------------------------------ fp32
 template <bool INT4>
@@ -387,29 +156,6 @@ __global__ void __launch_bounds__(256) wo_f32(const WoArgs a) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
       if (m < a.M && n < a.N) Y[(size_t)m * a.N + n] = acc[i][j];
     }
-}
-
-// the K splits of a column tile run as one cluster
-template <class C>
-cudaError_t launch_mma(const WoArgs *a, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(
-      wo_mma<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a->N + C::BN - 1) / C::BN, (a->M + C::BM - 1) / C::BM,
-                     C::SPLITS);
-  cfg.blockDim = dim3(C::THREADS);
-  cfg.dynamicSmemBytes = C::SMEM;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = C::SPLITS;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, wo_mma<C>, *a);
-  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // ------------------------------------------------------- prefill: wgmma
@@ -661,14 +407,20 @@ cudaError_t launch_rows(bool narrow, const WoArgs *a, cudaStream_t s) {
                 : launch_wgmma<Wg<INT4, MODE, 256>>(a, s);
 }
 
+// the scale rule of a call (WO_*), or -1 where the wgmma kernels refuse it
+int mode_of(const WoArgs *a) {
+  if (a->gs & (a->gs - 1)) return -1;
+  if (a->tile_dq || a->G == 1) return a->tile_dq ? WO_TILE : WO_CHANNEL;
+  // grouped `post`: a group covers whole 64-row plane steps
+  if (a->gs < 64 || (a->int4 && a->half % a->gs)) return -1;
+  return WO_GROUPED;
+}
+
 template <bool INT4>
 cudaError_t launch_prefill(const WoArgs *a, cudaStream_t s) {
-  if (a->gs & (a->gs - 1)) return cudaErrorInvalidValue;
-  if (!a->tile_dq && a->G > 1) {
-    // grouped `post`: a group covers whole 64-row plane steps
-    if (a->gs < 64 || (INT4 && a->half % a->gs)) return cudaErrorInvalidValue;
-    return launch_wgmma<Wg<INT4, WO_GROUPED, 128>>(a, s);
-  }
+  const int mode = mode_of(a);
+  if (mode < 0) return cudaErrorInvalidValue;
+  if (mode == WO_GROUPED) return launch_wgmma<Wg<INT4, WO_GROUPED, 128>>(a, s);
   // 256 x rows a block widen each code half as often as 128, but a small
   // grid leaves SMs idle: take 128 rows where they need fewer than 5/3 the
   // waves of 256 (a 128-row tile takes ~0.55-0.65 the time of a 256-row
@@ -683,8 +435,299 @@ cudaError_t launch_prefill(const WoArgs *a, cudaStream_t s) {
     return ((a->M + bm - 1) / bm * cols + sms - 1) / sms;
   };
   const bool narrow = 3 * waves(128) < 5 * waves(256);
-  if (a->tile_dq) return launch_rows<INT4, WO_TILE>(narrow, a, s);
+  if (mode == WO_TILE) return launch_rows<INT4, WO_TILE>(narrow, a, s);
   return launch_rows<INT4, WO_CHANNEL>(narrow, a, s);
+}
+
+
+// -------------------------------------------------------- decode: wgmma
+// x rows NX (wgmma's N: 8 or 16); a ring of ~100 KB, two blocks an SM
+constexpr int DEC_THREADS = 288;               // 8 consumer warps + producer
+template <bool INT4_, int MODE_, int NX_> struct Dec {
+  static constexpr bool INT4 = INT4_;
+  static constexpr int MODE = MODE_, NX = NX_;
+  static constexpr int BN = 128;               // channels: 2 warpgroups x 64
+  static constexpr int BK = 64;                // code rows a stage
+  static constexpr int PLANES = INT4 ? 2 : 1;  // x boxes a stage
+  static constexpr int CT = BK * BN;           // code box: 64 rows x 128 B
+  static constexpr int XT = NX * 128;          // x box: NX rows x 64 bf16
+  static constexpr int STAGE = CT + PLANES * XT;
+  static constexpr int MINB = 2;               // blocks an SM
+  static constexpr int RING = 100 * 1024;      // stage bytes a block
+  static constexpr int STAGES = RING / STAGE;
+  static constexpr int THREADS = DEC_THREADS;
+  static constexpr int NACC = NX / 2;          // fp32 accumulators a thread
+  using Fold = splitk::Tile<NX>;               // the staged partial tile
+  static constexpr int BODY =
+      STAGES * STAGE > Fold::BYTES ? STAGES * STAGE : Fold::BYTES;
+  static constexpr int SMEM = 1024 + BODY + (2 * STAGES + 1) * 8;
+  static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned");
+  static_assert(MINB * (SMEM + 1024) <= 233472, "MINB blocks an SM");
+};
+
+// wgmma's A fragment for k16 step `step` of a code tile from its
+// ldmatrix.trans words (two a step): the int8 codes, or one int4 plane
+template <bool INT4>
+__device__ __forceinline__ void widen_step(const unsigned (&cr)[8], int step,
+                                           int plane, unsigned (&A)[4]) {
+  if (INT4) {
+    widen_i4(cr[2 * step], plane, A[0], A[1]);
+    widen_i4(cr[2 * step + 1], plane, A[2], A[3]);
+  } else {
+    widen_i8(cr[2 * step], A[0], A[1]);
+    widen_i8(cr[2 * step + 1], A[2], A[3]);
+  }
+}
+
+// `tile`: A times the bf16 scales of its codes, rows vr + (2t, 2t + 1,
+// 2t + 8, 2t + 9) of channels ch (A[0], A[2]) and ch + 1 (A[1], A[3]) (as
+// wo_wgmma's inline code, left as it is so its SASS stays byte-identical)
+__device__ __forceinline__ void tile_scale(const WoArgs &a, int lg, int vr,
+                                           int ch, int t, unsigned (&A)[4]) {
+  auto sc = [&](int row, int c) {
+    const int grp = min(row >> lg, a.G - 1);
+    return c < a.N ? __ldg(a.scale + (size_t)grp * a.N + c) : 0.f;
+  };
+  unsigned sp[4];
+  if ((vr >> lg) == ((vr + 15) >> lg)) {       // one group for the step
+    const float sA = sc(vr, ch), sB = sc(vr, ch + 1);
+    sp[0] = sp[2] = pack_bf16(sA, sA);
+    sp[1] = sp[3] = pack_bf16(sB, sB);
+  } else {
+    const int r = vr + 2 * t;
+    sp[0] = pack_bf16(sc(r, ch), sc(r + 1, ch));
+    sp[1] = pack_bf16(sc(r, ch + 1), sc(r + 1, ch + 1));
+    sp[2] = pack_bf16(sc(r + 8, ch), sc(r + 9, ch));
+    sp[3] = pack_bf16(sc(r + 8, ch + 1), sc(r + 9, ch + 1));
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) A[i] = bf2_fma(A[i], sp[i], 0x80008000u);
+}
+
+// One block: channels [128 blockIdx.y, + 128), all M <= NX rows of x, K
+// split blockIdx.x of gridDim.x (the cluster).  Codes past N or K and x
+// rows past M are TMA's zero fill; stores are masked.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
+    wo_dec(const WoArgs a, const __grid_constant__ CUtensorMap tw,
+           const __grid_constant__ CUtensorMap txlo,
+           const __grid_constant__ CUtensorMap txhi) {
+  using F = typename C::Fold;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char *smem = reinterpret_cast<unsigned char *>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + C::BODY);
+  uint64_t *empty = full + C::STAGES;
+  uint64_t *recv_bar = empty + C::STAGES;
+  float *red = reinterpret_cast<float *>(smem);              // [NX][LDR]
+  float *recv = reinterpret_cast<float *>(smem + F::RED);    // [S][R][LDR]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = gridDim.x, rank = blockIdx.x, n0 = blockIdx.y * C::BN;
+  const int nk = ((C::INT4 ? a.half : a.K) + C::BK - 1) / C::BK;
+  const int kb0 = nk * rank / S, kb1 = nk * (rank + 1) / S;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);                 // one arrival a consumer warp
+    }
+    mbar_init(recv_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 8) {                             // producer warp
+    if (lane == 0) {
+      for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+        const int s = it % C::STAGES, round = it / C::STAGES;
+        if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
+        unsigned char *st = smem + s * C::STAGE;
+        mbar_expect_tx(&full[s], C::STAGE);
+        tma_load_2d(st, &tw, n0, kb * C::BK, &full[s]);
+        tma_load_2d(st + C::CT, &txlo, kb * C::BK, 0, &full[s]);
+        if (C::INT4)
+          tma_load_2d(st + C::CT + C::XT, &txhi, kb * C::BK, 0, &full[s]);
+      }
+    }
+    __syncwarp();
+    splitk::idle();
+    splitk::done();
+    return;
+  }
+
+  // consumer warp `warp` owns the 16 channels of byte chunk `warp` of the
+  // code rows: A / D row g of its slice is byte 2g, row g + 8 byte 2g + 1
+  const int g = lane >> 2, t = lane & 3;
+  const int chA = n0 + 16 * warp + 2 * g;      // D rows g, g + 8: chA, chA + 1
+  // ldmatrix row addresses: lane l gives k row l of a 32-row half of the
+  // code tile, its chunk swizzled as TMA wrote it
+  const unsigned lane_off = lane * 128 + (((warp ^ lane) & 7) << 4);
+  const int lg = 31 - __clz(a.gs);             // gs is a power of two
+  // acc: written first by a wgmma with scale-d 0 (best_split gives every
+  // block a K step); tot: grouped `post` only
+  float acc[C::NACC], tot[C::NACC];
+#pragma unroll
+  for (int i = 0; i < C::NACC; ++i) tot[i] = 0.f;
+
+  for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+    const int s = it % C::STAGES;
+    mbar_wait_or_trap(&full[s], (it / C::STAGES) & 1);
+    const unsigned char *st = smem + s * C::STAGE;
+    unsigned cr[8];                            // k16 steps 0-1, then 2-3
+    ldsm_x4_t(cr, st + lane_off);
+    ldsm_x4_t(cr + 4, st + lane_off + 32 * 128);
+    const uint64_t dlo = desc_sw128(st + C::CT);
+    const uint64_t dhi = C::INT4 ? desc_sw128(st + C::CT + C::XT) : dlo;
+#pragma unroll
+    for (int v = 0; v < 4 * C::PLANES; ++v) {
+      const int step = v & 3, plane = v >> 2;
+      const int vr = (plane ? a.half : 0) + kb * C::BK + 16 * step;
+      unsigned A[4];
+      widen_step<C::INT4>(cr, step, plane, A);
+      if constexpr (C::MODE == WO_TILE) tile_scale(a, lg, vr, chA, t, A);
+      // the block's first wgmma, and grouped each plane step's, starts a
+      // fresh partial sum (scale-d 0)
+      const int keep = C::MODE == WO_GROUPED ? step != 0 : it > 0 || v > 0;
+      fence_regs(A);
+      wg_fence();
+      WgmmaRS<C::NX>::mma(acc, A, (plane ? dhi : dlo) + 2 * step, keep);
+      wg_commit();
+      wg_wait<1>();
+      // the wgmmas of the block's previous stage have retired: hand its
+      // slot back
+      if (v == 0 && it > 0 && lane == 0)
+        mbar_arrive(&empty[(it - 1) % C::STAGES]);
+      if constexpr (C::MODE == WO_GROUPED)
+        if (step == 3) {                       // tot += acc x group scale
+          wg_wait<0>();
+          fence_regs(acc);
+          const float *sg = a.scale + (size_t)min(vr >> lg, a.G - 1) * a.N;
+          const float sA = chA < a.N ? __ldg(sg + chA) : 0.f;
+          const float sB = chA < a.N ? __ldg(sg + chA + 1) : 0.f;
+#pragma unroll
+          for (int j = 0; j < C::NACC; j += 4) {
+            tot[j] = fmaf(acc[j], sA, tot[j]);
+            tot[j + 1] = fmaf(acc[j + 1], sA, tot[j + 1]);
+            tot[j + 2] = fmaf(acc[j + 2], sB, tot[j + 2]);
+            tot[j + 3] = fmaf(acc[j + 3], sB, tot[j + 3]);
+          }
+          fence_regs(tot);                     // read acc before its reuse
+        }
+    }
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+  // both warpgroups are done with the ring: stage the partial tile in it
+  // as red[x row][channel - n0] (register 4j + e: x row 8j + 2t + e of
+  // channel chA; 4j + e + 2: of chA + 1), for the bulk copies to read
+  consumer_sync();
+  const float(&part)[C::NACC] = C::MODE == WO_GROUPED ? tot : acc;
+#pragma unroll
+  for (int j = 0; j < C::NX / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      *reinterpret_cast<float2 *>(red + (8 * j + 2 * t + e) * F::LDR + chA -
+                                  n0) =
+          make_float2(part[4 * j + e], part[4 * j + e + 2]);
+  fence_proxy_async_smem();
+  splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);
+  // my x rows over the splits, in split order; per channel the fp32 scale
+  // multiplies the sum; bf16 pairs along N
+  const splitk::Share sh = splitk::share_of<C::NX>(S, rank);
+  const int P = max(0, min(sh.nr, a.M - sh.r0)) * (C::BN / 2);
+  bf16 *Y = (bf16 *)a.y;
+  for (int p = tid; p < P; p += 256) {
+    const int r = p / (C::BN / 2), c = 2 * (p % (C::BN / 2)), n = n0 + c;
+    if (n >= a.N) continue;
+    float2 y = make_float2(0.f, 0.f);
+    for (int q = 0; q < S; ++q) {
+      const float *src =
+          q == rank ? red + sh.r0 * F::LDR : recv + q * sh.R * F::LDR;
+      const float2 u = *reinterpret_cast<const float2 *>(src + r * F::LDR + c);
+      y.x += u.x;
+      y.y += u.y;
+    }
+    if constexpr (C::MODE == WO_CHANNEL) {
+      y.x *= __ldg(a.scale + n);
+      y.y *= __ldg(a.scale + n + 1);
+    }
+    *reinterpret_cast<__nv_bfloat162 *>(Y + (size_t)(sh.r0 + r) * a.N + n) =
+        __floats2bfloat162_rn(y.x, y.y);
+  }
+  splitk::done();
+}
+
+typedef void (*DecKernel)(const WoArgs, const CUtensorMap, const CUtensorMap,
+                          const CUtensorMap);
+struct DecInst {
+  DecKernel fn;
+  int smem;
+};
+template <bool INT4, int MODE, int NX> DecInst dec() {
+  return {wo_dec<Dec<INT4, MODE, NX>>, Dec<INT4, MODE, NX>::SMEM};
+}
+// instance ((3 int4 + mode) x 2 + (M > 8))
+constexpr int DEC_INSTS = 12;
+static const DecInst DEC[DEC_INSTS] = {
+    dec<false, WO_CHANNEL, 8>(), dec<false, WO_CHANNEL, 16>(),
+    dec<false, WO_GROUPED, 8>(), dec<false, WO_GROUPED, 16>(),
+    dec<false, WO_TILE, 8>(),    dec<false, WO_TILE, 16>(),
+    dec<true, WO_CHANNEL, 8>(),  dec<true, WO_CHANNEL, 16>(),
+    dec<true, WO_GROUPED, 8>(),  dec<true, WO_GROUPED, 16>(),
+    dec<true, WO_TILE, 8>(),     dec<true, WO_TILE, 16>()};
+
+// the current device's clusters of each size of every instance (once a
+// device: split_k.cuh)
+static splitk::ResidencyTable<DEC_INSTS> dec_residency;
+
+// K splits at the least modelled cost (splitk::best_split), a 64-row step
+// of codes weighed against FOLD_STEPS for the staging and the fold
+constexpr int FOLD_STEPS = 12;
+
+cudaError_t launch_decode(const WoArgs *a, cudaStream_t s) {
+  const int mode = mode_of(a);
+  if (mode < 0) return cudaErrorInvalidValue;
+  splitk::KernelShape ks[DEC_INSTS];
+  for (int i = 0; i < DEC_INSTS; ++i)
+    ks[i] = {(const void *)DEC[i].fn, DEC_THREADS, DEC[i].smem};
+  const splitk::Residency<DEC_INSTS> *occ = nullptr;
+  cudaError_t e = dec_residency.get(ks, &occ);
+  if (e != cudaSuccess) return e;
+  const int inst = ((a->int4 ? 3 : 0) + mode) * 2 + (a->M > 8);
+  const int nx = a->M > 8 ? 16 : 8;
+  const int rows = a->int4 ? a->half : a->K;         // code rows
+  const int nk = (rows + 63) / 64, tiles = (a->N + 127) / 128;
+  const int splits =
+      splitk::best_split(tiles, nk, occ->clusters[inst], FOLD_STEPS);
+  // codes [rows, N] in boxes of 64 rows x 128 bytes; x [M, cols] in boxes
+  // of nx rows x 64 columns, int4's high plane from column xhi
+  const bf16 *x = (const bf16 *)a->x;
+  CUtensorMap tw, txlo, txhi;
+  e = splitk::cached_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a->w, a->N,
+                            rows, a->N, 128, 64);
+  if (e == cudaSuccess)
+    e = splitk::cached_map_2d(&txlo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x,
+                              rows, a->M, 2 * (uint64_t)a->ldx, 64, nx);
+  if (e == cudaSuccess && a->int4)
+    e = splitk::cached_map_2d(&txhi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              x + a->xhi, a->K > a->half ? a->K - a->half : 1,
+                              a->M, 2 * (uint64_t)a->ldx, 64, nx);
+  if (e != cudaSuccess) return e;
+  if (!a->int4) txhi = txlo;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, tiles);
+  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.dynamicSmemBytes = DEC[inst].smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1;                   // else a cluster of one
+  e = cudaLaunchKernelEx(&cfg, DEC[inst].fn, *a, tw, txlo, txhi);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace wo
@@ -704,8 +747,8 @@ cudaError_t launch_weight_only_matmul(const WoArgs *a, cudaStream_t s) {
   if (a->x_dtype != PT_BF16) return cudaErrorInvalidValue;
   if (a->M <= 16) {
     if (a->int4)
-      return count_launch(CNT_WO_INT4_SMALL_M, launch_mma<SmallM<true>>(a, s));
-    return count_launch(CNT_WO_INT8_SMALL_M, launch_mma<SmallM<false>>(a, s));
+      return count_launch(CNT_WO_INT4_SMALL_M, launch_decode(a, s));
+    return count_launch(CNT_WO_INT8_SMALL_M, launch_decode(a, s));
   }
   if (a->int4)
     return count_launch(CNT_WO_INT4_TILED, launch_prefill<true>(a, s));

@@ -4,11 +4,11 @@
 // mbarrier operations of a producer / consumer ring, the wgmma shared-memory
 // descriptors of K-major and MN-major 128-byte-swizzled tiles, the wgmma
 // fence / commit / wait, setmaxnreg, and wgmma.mma_async m64nNk16 bf16
-// with fp32 accumulators: A from registers (N 128 and 256) or from shared
-// memory (N 8 .. 256, each operand K-major or MN-major); and the cluster
-// operations of gemm.cu's fold and decode_attention.cu's exchange (mapa,
-// loads from and stores to a peer's shared memory, shared-to-peer bulk
-// copies, split cluster barriers).
+// with fp32 accumulators: A from registers (N 8, 16, 128 and 256) or from
+// shared memory (N 8 .. 256, each operand K-major or MN-major); and the
+// cluster operations of split_k.cuh's fold and decode_attention.cu's
+// exchange (mapa, loads from and stores to a peer's shared memory,
+// shared-to-peer bulk copies, split cluster barriers).
 //
 // Layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix" section):
 //   * A from registers: warp w of the warpgroup holds rows 16w .. 16w+15;
@@ -222,6 +222,32 @@ template <int R> __device__ __forceinline__ void regs_inc() {
 // d (+)= A . B on m64nNk16, bf16 operands, fp32 accumulators; A from
 // registers, B through `desc`; scale_d 0 overwrites d
 template <int N> struct WgmmaRS;
+
+template <> struct WgmmaRS<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <> struct WgmmaRS<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const unsigned (&a)[4],
+                                             uint64_t desc, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  }
+};
 
 template <> struct WgmmaRS<256> {
   static __device__ __forceinline__ void mma(float (&d)[128], const unsigned (&a)[4],

@@ -4,10 +4,14 @@ codes, per-channel or grouped fp32 scales.
 
 One wrapper launches one kernel on the current stream; the library picks
 it from x's dtype and rows: bf16 x with M <= 16 rows takes the decode
-kernel (``wo_int8_small_m`` / ``wo_int4_small_m``: mma.sync, K split over
-a cluster), more rows the prefill kernel (``wo_int8_tiled`` /
-``wo_int4_tiled``: wgmma with the widened codes as its register operand,
-x and the codes by TMA), fp32 x the FMA kernel ``wo_f32``.  It takes CUDA tensors only and raises on what the
+kernel (``wo_int8_small_m`` / ``wo_int4_small_m``: ``wo_dec``, 8 or 16 x
+rows, K split over a cluster sized from the card's residency), more rows
+the prefill kernel (``wo_int8_tiled`` / ``wo_int4_tiled``: ``wo_wgmma``);
+both run wgmma with the widened codes as its register operand, x and the
+codes by TMA.  fp32 x takes the FMA kernel ``wo_f32``.  The library sets
+its kernels' shared memory and reads the card's residency once a device
+and caches the tensor maps, so a call's host work is this wrapper's
+checks and one launch.  It takes CUDA tensors only and raises on what the
 kernels do not take (N not a multiple of 16).  Where x's rows are not
 16-byte aligned for the kernel's loads (K not a multiple of 8, or for
 int4 ``ceil(K/2)`` not one), x is copied into a zero-padded layout first;

@@ -631,7 +631,17 @@ WO_CASES = [("int8", 8, 256, 64, -1), ("int8", 40, 300, 48, 128),
             # with groups of 128 inside each nibble plane (half 5504, the
             # post rule); int8 groups of 64 (the tile rule)
             ("int8", 17, 256, 64, -1), ("int8", 257, 300, 400, -1),
-            ("int4", 129, 11008, 4096, 128), ("int8", 200, 512, 144, 64)]
+            ("int4", 129, 11008, 4096, 128), ("int8", 200, 512, 144, 64),
+            # the decode kernel's edges: M 1, 8, 9 and 16 (its 8- and 16-row
+            # x tiles), N under one 128-channel tile (48) and off it
+            # (11008), an odd int4 K, groups of 64 (tile) and 128 (post) at
+            # M 8, and K long enough to split over a cluster
+            ("int8", 1, 520, 48, -1), ("int8", 9, 4096, 48, -1),
+            ("int8", 16, 2048, 11008, -1), ("int4", 8, 2048, 11008, -1),
+            ("int4", 1, 4095, 48, -1), ("int4", 16, 4095, 144, 64),
+            ("int8", 8, 1024, 144, 64), ("int8", 8, 1024, 144, 128),
+            ("int4", 8, 1024, 144, 64), ("int4", 8, 1024, 144, 128),
+            ("int4", 9, 11008, 4096, 128)]
 WO_IDS = [f"{w}-M{m}-K{k}-N{n}-g{g}" for w, m, k, n, g in WO_CASES]
 
 
@@ -664,6 +674,33 @@ def test_weight_only_kernels_match_plain(dt, case):
     torch.testing.assert_close(got.float(), ref(x, codes, scale,
                                                 group_size=gs).float(),
                                **TOL[dt])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [("int8", 8, 4096, 4096, -1),
+                                  ("int4", 16, 11008, 4096, 128),
+                                  ("int4", 3, 4096, 11008, 64)],
+                         ids=["int8-M8", "int4-M16-g128", "int4-M3-g64"])
+def test_weight_only_decode_calls_are_bit_identical(case):
+    """The decode kernel's K splits fold in a fixed order: two calls on the
+    same inputs give the same bits."""
+    _need_card()
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops import quant_linear as tql
+    width, M, K, N, gs = case
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    w = 0.02 * torch.randn(K, N, device="cuda", generator=gen)
+    codes, scale = weight_quantize(w, f"weight_only_{width}", group_size=gs)
+    x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+    fn = (tql.weight_only_matmul_int4 if width == "int4" else
+          tql.weight_only_matmul)
+    layer.reset_counts()
+    first = fn(x, codes, scale, group_size=gs)
+    second = fn(x, codes, scale, group_size=gs)
+    torch.cuda.synchronize()
+    assert layer.launch_counts()[f"wo_{width}_small_m"] == 2
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu

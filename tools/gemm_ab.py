@@ -73,9 +73,7 @@ ROWS = (4, 16, 64, 256)
 COLD_BYTES = 120e6               # weight copies rotate past the 50 MB L2
 _MMA = """      WgmmaSS<C::NX, 1, 0>::mma(acc, da + 128 * kk, db + 2 * kk,
                                 it > 0 || kk > 0);"""
-_SEND = """  if (tid == 0 && S > 1) {
-    for (int d = 0; d < S; ++d) {"""
-_WAIT = "  if (S > 1 && nr > 0) mbar_wait_or_trap(recv_bar, 0);"
+_PUSH = "  splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);"
 _EPI = "    for (int p0 = tid; p0 < P; p0 += 256 * U) {"
 _U = "    constexpr int U = C::NX <= 16 ? 1 : 4;"
 _STORE = """          *reinterpret_cast<__nv_bfloat162 *>(
@@ -106,8 +104,9 @@ TUNINGS = {
     "epi_u8": [(_U, "    constexpr int U = 8;")],
 }
 _NO_EPI = (_EPI, _EPI.replace("p0 = tid;", "p0 = P;"))
-_NO_FOLD = [(_SEND, _SEND.replace("tid == 0 && S > 1", "false")),
-            (_WAIT, ""), _NO_EPI]
+# the fold's exchange as a split of one (its barriers kept, no copies, no
+# wait)
+_NO_FOLD = [(_PUSH, _PUSH.replace("S, rank", "1, 0")), _NO_EPI]
 # gemm.cu with one part of the bf16 body cut: (old, new) text pairs;
 # timed unchecked
 ABLATIONS = {

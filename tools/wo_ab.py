@@ -2,8 +2,8 @@
 """Time builds of the port's weight-only matmul kernels against each other
 on one CUDA card.
 
-    python3 tools/wo_ab.py [--tree NAME=DIR ...] [--ablate] [--no-prefill]
-                           [--sass]
+    python3 tools/wo_ab.py [--tree NAME=DIR ...] [--ablate] [--only NAME ...]
+                           [--no-model] [--turns N] [--sass]
 
 from the repository root, on a machine with one CUDA card and ``nvcc``.
 Each variant is a ``quant_linear.cu`` linked with this tree's other
@@ -12,16 +12,23 @@ sources' objects into its own library under
 ``paddle_tpu_torch/kernels/csrc/quant_linear.cu``; ``--tree NAME=DIR``
 adds DIR's (another checkout's, e.g. the parent commit unpacked by
 ``git archive`` into the git-ignored ``archive_check/``).  ``--ablate``
-adds this tree's file with one part of ``wo_wgmma``'s main loop cut out
-(``ABLATIONS``: the widening of the codes; the wgmma; all but the
-copies), which compute something else, and with the launcher's x-row
-tile fixed at 128 or 256; these are timed unchecked and show what each
-part or choice costs.  All ``nvcc`` processes start together.
+adds this tree's file with one part cut out (``ABLATIONS``, of the
+prefill body ``wo_wgmma`` and, ``dec_*``, of the decode body ``wo_dec``:
+the widening of the codes; the wgmma; all but the copies; for the decode
+also every K step, leaving the launch, fold and stores, and the fold's
+exchange), which compute something else, and with one choice changed
+(``TUNINGS`` and the prefill's x-row tile at 128 or 256; the decode's K
+split fixed at 2, 4 or 8 blocks, its fold weighed at 4 or 24 K steps,
+its ring's bytes, its blocks an SM, a prefetch of its tensor maps); the cut ones are timed unchecked and
+show what each part or choice costs.  ``--only`` keeps the named
+variants.  All ``nvcc`` processes start together.
 
 The script prints ptxas' registers, stack frame and spills of each
 variant's ``wo_`` kernels and any note of serialized wgmmas or ignored
 ``setmaxnreg`` (``--sass``: also the SASS opcode counts of each ``wo_``
-kernel, the SASS itself written to ``chiprun_out/wo_sass_<variant>.txt``),
+kernel, the SASS itself written to ``wo_sass_<variant>.txt`` in the
+output directory, and with ``--tree`` whether each kernel's SASS is byte
+for byte the first tree's),
 checks each variant against ``weight_only_matmul[_int4]_ref`` on
 ``CASES`` (bf16 x: within
 2e-2 of the plain version, or no further from the fp32 result than 1.5 x
@@ -29,18 +36,26 @@ the plain bf16 version, as ``chip_smoke.py`` holds it), then times, the
 variants in turns (a, b, ..., b, a):
 
 * the seven block matmuls of one llama_7b layer (``chip_smoke.py``'s
-  ``LAYER_MATMULS``, per channel) at M 1024 and M 300, int8 and int4,
-  beside the bound, cuBLAS on the codes dequantized to bf16 beforehand,
-  times the scale, and the bytes the kernel's TMA copies (``tma_bytes``);
-* unless ``--no-prefill``, the prefill of llama_7b at 32 layers, B 8 x
-  prompt 128, int8 and int4 (``build_llama_decoder(..., quant=...)``'s
-  ``prefill``): wall ms (CUDA events) and the ``wo_`` kernels' device ms.
+  ``LAYER_MATMULS``, per channel) at the decode rows M 8, 1 and 16 and the
+  prefill rows M 1024 and 300, int8 and int4, beside the bound, cuBLAS on
+  the codes dequantized to bf16 beforehand, times the scale, the bytes the
+  prefill kernel's TMA copies (``tma_bytes``), and the wrapper's host
+  cost a call: the CUDA-event time of the layer's calls minus their
+  device time, over 7, and at the decode rows the host time of one call
+  with the card idle (``chip_smoke.host_ms``);
+* unless ``--no-model``, llama_7b at 32 layers, B 8, int8 and int4
+  (``build_llama_decoder(..., quant=...)``): the prefill of a 128-token
+  prompt and one decode step at position 128: wall ms (CUDA events) and
+  the ``wo_`` kernels' device ms.
+
+``--turns N`` repeats the order N times.
 
 Writes ``chiprun_out/wo_ab.json``.  Imports nothing of the JAX package.
 """
 
 import argparse
 import ctypes
+import hashlib
 import json
 import re
 import subprocess
@@ -55,15 +70,17 @@ import chip_smoke as cs  # noqa: E402
 ITERS = 10                       # timed calls a variant and turn
 # (width, M, K, N, group_size): chip_smoke's small cases, the tiled
 # kernel's edges, and the layer's shapes at prefill rows
-CASES = ([c for c in cs.WO_SMALL if c[1] > 16]
+CASES = (cs.WO_SMALL
          + [("int8", 17, 4096, 4096, -1), ("int8", 257, 4096, 400, -1),
             ("int4", 257, 301, 400, -1), ("int4", 129, 11008, 4096, 128),
-            ("int8", 200, 4096, 1024, 64)]
-         + [(w, 1024, K, N, -1) for w in ("int8", "int4")
+            ("int8", 200, 4096, 1024, 64), ("int8", 1, 520, 48, -1),
+            ("int8", 9, 4096, 11008, -1), ("int4", 16, 4095, 144, 64),
+            ("int4", 3, 11008, 4096, 128)]
+         + [(w, M, K, N, -1) for w in ("int8", "int4") for M in (8, 1024)
             for K, N in cs.WO_SHAPES])
 REPEATS = 3                      # calls a case: a missing fence shows rarely
-ROWS = (1024, 300)
-PREFILL_LAYERS, PREFILL_B, PREFILL_S = 32, 8, 128
+ROWS = (8, 1, 16, 1024, 300)     # decode, then prefill rows
+MODEL_LAYERS, MODEL_B, MODEL_S = 32, 8, 128
 # quant_linear.cu with one part of wo_wgmma's loop or launcher changed:
 # (old, new) text pairs
 _WIDEN = """      if (C::INT4) {
@@ -76,6 +93,26 @@ _WIDEN = """      if (C::INT4) {
 _NARROW = "  const bool narrow = 3 * waves(128) < 5 * waves(256);"
 _MMA = ("      WgmmaRS<C::BM>::mma(acc, A, (plane ? dhi : dlo) + 2 * step, "
         "!fresh);")
+_DEC_WIDEN = "      widen_step<C::INT4>(cr, step, plane, A);"
+_DEC_MMA = ("      WgmmaRS<C::NX>::mma(acc, A, (plane ? dhi : dlo) + 2 * step, "
+            "keep);")
+_DEC_RANGE = "  const int kb0 = nk * rank / S, kb1 = nk * (rank + 1) / S;"
+_DEC_PUSH = "  splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);"
+_DEC_SPLIT = """  const int splits =
+      splitk::best_split(tiles, nk, occ->clusters[inst], FOLD_STEPS);"""
+_DEC_FOLD = "constexpr int FOLD_STEPS = 12;"
+_DEC_MINB = "  static constexpr int MINB = 2;               // blocks an SM"
+_DEC_RING = ("  static constexpr int RING = 100 * 1024;      // stage bytes a "
+             "block")
+_DEC_SYNC = """    mbar_init(recv_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+"""
+
+
+def _ring(kb):
+    return (_DEC_RING, _DEC_RING.replace("100 *", f"{kb} *"))
 ABLATIONS = {
     # the codes' bits go to wgmma as they are
     "no_widen": [(_WIDEN, "      A[0] = A[1] = cr[2 * step];\n"
@@ -89,6 +126,40 @@ ABLATIONS = {
     # the launcher's choice of x rows a block, fixed
     "rows_128": [(_NARROW, "  const bool narrow = true;")],
     "rows_256": [(_NARROW, "  const bool narrow = false;")],
+    # the decode body: the codes' bits to wgmma as they are; no wgmma
+    "dec_no_widen": [(_DEC_WIDEN, "      A[0] = A[1] = cr[2 * step];\n"
+                                  "      A[2] = A[3] = cr[2 * step + 1];")],
+    "dec_no_wgmma": [(_DEC_MMA, "      acc[0] += __uint_as_float(A[0] ^ A[1] "
+                                "^ A[2] ^ A[3]);")],
+    # the ring, the ldmatrix reads (asm volatile), the fold and the
+    # stores: no widening, no wgmma
+    "dec_copies_only": [(_DEC_MMA, ""), (_DEC_WIDEN, "")],
+    # no K steps: the launch, the barriers' set-up, the fold and the stores
+    "dec_empty": [(_DEC_RANGE, _DEC_RANGE.replace("nk * (rank + 1) / S",
+                                                  "kb0"))],
+    # the fold's exchange as a split of one (its barriers kept)
+    "dec_no_fold": [(_DEC_PUSH, _DEC_PUSH.replace("S, rank", "1, 0"))],
+}
+# quant_linear.cu with one choice of the decode launch changed; checked and
+# timed like a tree
+TUNINGS = {
+    **{f"dec_split_{n}": [(_DEC_SPLIT, f"  const int splits = nk < {n} ? nk "
+                                       f": {n};")] for n in (2, 4, 8)},
+    **{f"dec_fold_{n}": [(_DEC_FOLD, _DEC_FOLD.replace("12", str(n)))]
+       for n in (4, 24)},
+    # the ring's bytes a block; three or four blocks an SM on smaller rings
+    "dec_ring_32": [_ring(32)],
+    "dec_ring_48": [_ring(48)],
+    "dec_ring_64": [_ring(64)],
+    "dec_minb_3": [(_DEC_MINB, _DEC_MINB.replace("2;", "3;")), _ring(64)],
+    "dec_minb_4": [(_DEC_MINB, _DEC_MINB.replace("2;", "4;")), _ring(44)],
+    # the producer prefetches the three tensor maps during the barriers'
+    # set-up
+    "dec_tmap_prefetch": [(_DEC_SYNC, _DEC_SYNC.replace(
+        "  __syncthreads();\n", "".join(
+            f'  if (tid == 256) asm volatile("prefetch.tensormap [%0];" :: '
+            f'"l"((uint64_t)&{m}) : "memory");\n' for m in
+            ("tw", "txlo", "txhi")) + "  __syncthreads();\n"))],
 }
 SASS_OPS = ("HGMMA", "HMMA", "PRMT", "FADD", "LOP3", "HFMA2", "LDSM", "LDS",
             "STG", "SYNCS", "UTMALDG")
@@ -126,8 +197,9 @@ def _ptxas(text):
 
 
 def _sass(obj, name):
-    """Opcode counts of each wo_ kernel in ``obj``; the SASS goes to
-    chiprun_out/wo_sass_<name>.txt."""
+    """Opcode counts and a digest of the SASS of each wo_ kernel in
+    ``obj``; the SASS goes to wo_sass_<name>.txt in the output
+    directory."""
     from paddle_tpu_torch.kernels import build
     dump = Path(build._nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(dump), "-sass", str(obj)], check=True,
@@ -135,20 +207,24 @@ def _sass(obj, name):
     out = ROOT / "chiprun_out" / f"wo_sass_{name}.txt"
     out.parent.mkdir(exist_ok=True)
     out.write_text(text)
-    counts, fn = {}, None
+    counts, bodies, fn = {}, {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1) if "wo_" in m.group(1) else None
             continue
+        if fn:
+            bodies.setdefault(fn, []).append(line)
         m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)",
                      line)
         if fn and m:
             c = counts.setdefault(fn, {})
             op = m.group(2).split(".")[0]
             c[op] = c.get(op, 0) + 1
-    return {k: {op: v.get(op, 0) for op in SASS_OPS} | {"total": sum(
-        v.values())} for k, v in counts.items()}
+    return {k: {op: v.get(op, 0) for op in SASS_OPS} | {
+        "total": sum(v.values()), "digest": hashlib.sha256(
+            "\n".join(bodies[k]).encode()).hexdigest()[:16]}
+            for k, v in counts.items()}
 
 
 def _ablated(text, cuts):
@@ -199,7 +275,8 @@ def build_variants(srcs):
 
 def check_variant(name, gen):
     """Every case of CASES, REPEATS calls each, against the plain
-    version; raises on the first miss."""
+    version, the decode rows' calls also bit-identical to the first;
+    raises on the first miss."""
     import torch
     from paddle_tpu_torch.nn.quant import weight_quantize
     worst = 0.0
@@ -211,9 +288,15 @@ def check_variant(name, gen):
         x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
         plain = ref(x, codes, scale, group_size=gs)
         truth = ref(x.float(), codes, scale, group_size=gs)
+        first = None
         for i in range(REPEATS):
             got = fn(x, codes, scale, group_size=gs)
             torch.cuda.synchronize()
+            if M <= 16 and first is not None and not torch.equal(got, first):
+                raise cs.SmokeFailure(f"{name} {width} M {M} [{K}, {N}] "
+                                      f"group {gs}: call {i} differs from "
+                                      f"call 0")
+            first = got if first is None else first
             ratios = []
             cs.check_layer_out(f"{name} {width} M {M} [{K}, {N}] group {gs} "
                                f"call {i}", got, plain, truth,
@@ -271,74 +354,107 @@ def time_layers(libs, order, gen, report):
                 for K, N, codes, scale, wdq in lw:
                     torch.matmul(xs[K], wdq) * scale
             times = {name: [] for name in libs}
+            calls = {name: [] for name in libs}
             for name in order:
                 build._lib = libs[name][0]
                 by = {}
                 _, call = cs.time_ms(kernels, ITERS, by)
                 dev = wo_device_ms(by)
                 times[name].append(call if dev is None else dev)
+                calls[name].append(call)
             lib_ms = cs.time_ms(library, ITERS)[0]
+            # decode rows: the host time of one call (enqueue only, the
+            # card idle before it; the median of 30), the q projection's
+            hosts = {}
+            if M <= 16:
+                K, N, codes, scale, _ = lw[0]
+                for name in order:
+                    build._lib = libs[name][0]
+                    hosts.setdefault(name, []).append(cs.host_ms(
+                        lambda: fn(xs[K], codes, scale)))
             nbytes = ops = 0
             for K, N, *_ in lw:
                 b, o = cs.wo_bytes_ops(M, K, N, width)
                 nbytes, ops = nbytes + b, ops + o
             bms, bby = cs.bound_ms(nbytes, ops)
             label = f"layer {width} M {M}"
-            tb = {bm: sum(tma_bytes(M, K, N, width, bm) for _, K, N in
-                          cs.LAYER_MATMULS) for bm in (128, 256)}
-            report.setdefault("tma_bytes", {})[label] = tb
-            cs.info(f"{label}: TMA copies {tb[128] / 1e9:.3f} / "
-                    f"{tb[256] / 1e9:.3f} GB at 128 / 256 x rows a block")
+            if M > 16:
+                tb = {bm: sum(tma_bytes(M, K, N, width, bm) for _, K, N in
+                              cs.LAYER_MATMULS) for bm in (128, 256)}
+                report.setdefault("tma_bytes", {})[label] = tb
+                cs.info(f"{label}: TMA copies {tb[128] / 1e9:.3f} / "
+                        f"{tb[256] / 1e9:.3f} GB at 128 / 256 x rows a "
+                        f"block")
             for name, ts in times.items():
                 mean = sum(ts) / len(ts)
+                # the wrapper's host time a call beyond its kernel's:
+                # back-to-back calls, so a host-bound call shows here
+                host = [(c - d) / len(lw) for c, d in zip(calls[name], ts)]
                 report["variants"][name][label] = dict(
                     ms=ts, mean_ms=mean, bound_ms=bms, bound_by=bby,
                     cublas_ms=lib_ms, of_bound=bms / mean,
-                    x_cublas=mean / lib_ms)
+                    x_cublas=mean / lib_ms, call_ms=calls[name],
+                    call_minus_device_ms_per_call=host,
+                    host_ms_one_call=hosts.get(name))
                 cs.info(f"{label} {name}: {ts} ms (mean {mean:.4f}), bound "
                         f"{bms:.4f} ({bby}, {100 * bms / mean:.1f} %), "
                         f"cuBLAS on the dequantized weight {lib_ms:.4f} "
-                        f"({mean / lib_ms:.2f}x)")
+                        f"({mean / lib_ms:.2f}x); call - device a call "
+                        f"{[round(h, 4) for h in host]} ms; host time of "
+                        f"one call {[round(h, 4) for h in hosts.get(name, [])]}"
+                        f" ms")
             del xs
         del lw
         torch.cuda.empty_cache()
 
 
-def time_prefill(libs, order, report):
+def time_model(libs, order, report):
+    """llama_7b x MODEL_LAYERS, B MODEL_B, int8 and int4: the prefill of a
+    MODEL_S-token prompt and one decode step after it, each variant in
+    ``order``: wall ms (CUDA events) and the ``wo_`` kernels' device ms."""
     import numpy as np
     import torch
     from paddle_tpu_torch.device import make_generator
     from paddle_tpu_torch.kernels import build
     from paddle_tpu_torch.models import generation as tgen
     from paddle_tpu_torch.models import llama as tllama
-    cfg = tllama.llama_7b(num_layers=PREFILL_LAYERS, dtype="bfloat16")
+    cfg = tllama.llama_7b(num_layers=MODEL_LAYERS, dtype="bfloat16")
     params = tllama.init_params(cfg, make_generator(cs.SEED, "cuda"),
                                 device="cuda")
     ids = torch.from_numpy(np.random.default_rng(cs.SEED).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to("cuda")
+        0, cfg.vocab_size, (MODEL_B, MODEL_S))).to("cuda")
     for width in ("int8", "int4"):
         quant = f"weight_only_{width}"
         p = tgen.quantize_llama_params(params, quant)
-        prefill, _ = tgen.build_llama_decoder(cfg, 2 * PREFILL_S, quant=quant)
-        times = {name: [] for name in libs}
+        prefill, step = tgen.build_llama_decoder(cfg, 2 * MODEL_S,
+                                                 quant=quant)
         with torch.inference_mode():
-            for name in order:
-                build._lib = libs[name][0]
-                by = {}
-                _, call = cs.time_ms(lambda: prefill(p, ids), 3, by)
-                times[name].append((call, wo_device_ms(by)))
-        label = f"prefill llama_7b x {PREFILL_LAYERS} {width}"
-        for name, ts in times.items():
-            wall = sum(c for c, _ in ts) / len(ts)
-            wo = [d for _, d in ts if d is not None]
-            report["variants"][name][label] = dict(
-                wall_ms=[c for c, _ in ts], mean_wall_ms=wall,
-                wo_device_ms=[d for _, d in ts],
-                mean_wo_device_ms=sum(wo) / len(wo) if wo else None)
-            cs.info(f"{label} {name}: wall {[round(c, 2) for c, _ in ts]} ms "
-                    f"(mean {wall:.2f}); wo_ kernels "
-                    f"{[d and round(d, 2) for _, d in ts]} ms")
-        del p, prefill
+            cache, logits = prefill(p, ids)
+            token = logits.argmax(-1)
+            runs = {"prefill": (lambda: prefill(p, ids), 3),
+                    "decode step": (lambda: step(p, cache, token, MODEL_S),
+                                    10)}
+            for what, (fn, iters) in runs.items():
+                times = {name: [] for name in libs}
+                for name in order:
+                    build._lib = libs[name][0]
+                    by = {}
+                    _, call = cs.time_ms(fn, iters, by)
+                    times[name].append((call, wo_device_ms(by)))
+                label = f"{what} llama_7b x {MODEL_LAYERS} {width}"
+                for name, ts in times.items():
+                    wall = sum(c for c, _ in ts) / len(ts)
+                    wo = [d for _, d in ts if d is not None]
+                    report["variants"][name][label] = dict(
+                        wall_ms=[c for c, _ in ts], mean_wall_ms=wall,
+                        wo_device_ms=[d for _, d in ts],
+                        mean_wo_device_ms=sum(wo) / len(wo) if wo else None)
+                    cs.info(f"{label} {name}: wall "
+                            f"{[round(c, 3) for c, _ in ts]} ms (mean "
+                            f"{wall:.3f}); wo_ kernels "
+                            f"{[d and round(d, 4) for _, d in ts]} ms")
+            del cache, logits
+        del p, prefill, step
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -348,7 +464,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--ablate", action="store_true")
-    ap.add_argument("--no-prefill", action="store_true")
+    ap.add_argument("--only", nargs="+", default=None)
+    ap.add_argument("--no-model", action="store_true")
+    ap.add_argument("--turns", type=int, default=1)
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
     import torch
@@ -363,10 +481,13 @@ def main():
         srcs[name] = (Path(tree).resolve()
                       / "paddle_tpu_torch/kernels/csrc/quant_linear.cu")
     srcs["change"] = build.CSRC / "quant_linear.cu"
-    for name, cuts in (ABLATIONS.items() if args.ablate else ()):
+    for name, cuts in ({**TUNINGS, **ABLATIONS}.items() if args.ablate
+                       else ()):
         srcs[name] = build.BUILD_DIR / "ab" / f"ql_{name}.cu"
         srcs[name].parent.mkdir(parents=True, exist_ok=True)
         srcs[name].write_text(_ablated(srcs["change"].read_text(), cuts))
+    if args.only:
+        srcs = {k: v for k, v in srcs.items() if k in args.only}
     libs = build_variants(srcs)
     report = {"card": card, "variants": {}}
     for name, (_, table, notes, obj) in libs.items():
@@ -379,6 +500,14 @@ def main():
             report["variants"][name]["sass"] = ops = _sass(obj, name)
             for k, v in ops.items():
                 cs.info(f"sass {name}: {k}: {v}")
+    if args.sass and args.tree:
+        # each kernel both builds have, SASS byte for byte
+        base = args.tree[0].partition("=")[0]
+        a, b = (report["variants"][n]["sass"] for n in (base, "change"))
+        for k in sorted(set(a) & set(b)):
+            same = a[k]["digest"] == b[k]["digest"]
+            cs.info(f"sass change vs {base}: {k}: "
+                    f"{'identical' if same else 'differs'}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
     for name, (lib, *_) in libs.items():
@@ -387,11 +516,11 @@ def main():
         build._lib = lib
         report["variants"][name]["bf16_vs_fp32_ratio"] = check_variant(
             name, gen)
-    order = list(libs) + list(reversed(libs))
+    order = (list(libs) + list(reversed(libs))) * args.turns
     time_layers(libs, order, gen, report)
-    if not args.no_prefill:
+    if not args.no_model:
         whole = [n for n in order if n not in ABLATIONS]
-        time_prefill({n: libs[n] for n in whole}, whole, report)
+        time_model({n: libs[n] for n in whole}, whole, report)
     out = ROOT / "chiprun_out" / "wo_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
