@@ -14,8 +14,13 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             (tolerance 1e-4) and bf16 (2e-2), layer output and pool pages,
             with the untouched pages checked unchanged; then each kernel of
             the chain on its own (``rms_norm_rows`` at M 4 and 256 beside
-            ``F.rms_norm``, the GEMMs at M 4, 16, 64 and 256); kernel,
-            plain and library times in bf16, each layer call's device time
+            ``F.rms_norm``, the GEMMs at M 4, 16, 64 and 256,
+            ``paged_attention`` at the decode case and at a prefill chunk of
+            Ts 256 after 300 positions, each of its calls twice,
+            bit-identical, one launch each, beside one
+            ``scaled_dot_product_attention`` call on the same K / V gathered
+            beforehand); kernel, plain and library times in bf16, each layer
+            call's device time
             from its chain's kernels (``chain_ms``, which fails when one is
             missing) and the host time of one ``decode_block`` call;
 4. engine   ``llama_7b`` in bf16 with seeded random weights served by the
@@ -110,8 +115,8 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             plain versions in fp32 (1e-4) and bf16 (2e-2 or the ratio
             rule) at the eager steps' shapes (RMSNorm [8192, 4096],
             LayerNorms [8192, 768], SwiGLU [8192, 11008]) and on 3 rows,
-            H 1000 and H 1001, one launch per call, outputs and fp32 row
-            statistics; kernel, plain, bound and library (``F.rms_norm``,
+            H 1000 and H 1001, one launch per call and a second call
+            bit-identical, outputs and fp32 row statistics; kernel, plain, bound and library (``F.rms_norm``,
             ``F.layer_norm``, ``x + bias + residual`` then
             ``F.layer_norm``, ``F.silu(x) * y``) times in bf16;
 13. eager   the eager ``GPTForCausalLM`` (the gpt phase's model: V 32768,
@@ -360,6 +365,26 @@ def layer_launches(name, fn):
             "paged_attention": 1}:
         raise SmokeFailure(f"{name}: one call launched {got}")
     return got
+
+
+def one_launch_bitwise(name, fn):
+    """``fn()`` twice: exactly one launch of kernel ``name`` each (the
+    library's counters), the two results bit-identical; returns the
+    first."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    outs = []
+    for _ in range(2):
+        layer.reset_counts()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        got = {k: n for k, n in layer.launch_counts().items() if n}
+        if got != {name: 1}:
+            raise SmokeFailure(f"{name}: one call launched {got}")
+    if not all(torch.equal(a, b) for a, b in zip(
+            *(o if isinstance(o, tuple) else (o,) for o in outs))):
+        raise SmokeFailure(f"{name}: a second call differs from the first")
+    return outs[0]
 
 
 def short(breakdown):
@@ -747,16 +772,65 @@ def phase_kernels(cfg, results, dev="cuda"):
         call_ms=call, plain_ms=plain, plain_call_ms=plain_call,
         bound_ms=bms, bound_by=bby, library_ms=None))
 
+    # paged attention alone: the decode case, then one prefill chunk (Ts
+    # 256 after 300 positions) over bt_row; each call once more,
+    # bit-identical, one launch each; the library yardstick is one SDPA
+    # call on the same K / V gathered beforehand into contiguous tensors
+    # (the gather not timed), with a boolean mask of the live positions
+    def attn(**kw):
+        return one_launch_bitwise("paged_attention", lambda:
+                                  K.paged_attention_cuda(rq, rk, rv, **kw))
+
+    def gathered(table, n):
+        """K / V of `table`'s first n positions, [rows, Hkv, n, D]."""
+        idx = table.long().clamp(min=0)[:, :-(-n // BS)]
+        return [pool[idx].flatten(1, 2)[:, :n].transpose(1, 2).contiguous()
+                for pool in (rk, rv)]
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     att_ref = K.paged_attention_ref(rq, rk, rv, block_table=bt,
                                     lengths=lengths)
-    err = check_close("paged_attention", K.paged_attention_cuda(
-        rq, rk, rv, block_table=bt, lengths=lengths), att_ref, tol)
+    err = check_close("paged_attention", attn(block_table=bt,
+                                              lengths=lengths), att_ref, tol)
     ms, call = time_ms(lambda: K.paged_attention_cuda(
         rq, rk, rv, block_table=bt, lengths=lengths), 50, per_launch=True)
     plain, plain_call = time_ms(lambda: K.paged_attention_ref(
         rq, rk, rv, block_table=bt, lengths=lengths), 10)
+    kd, vd = gathered(bt, max(live))
+    dmask = (torch.arange(max(live), device=dev)[None]
+             <= lengths.long()[:, None])[:, None, None]
+    qd = rq.reshape(4, Hq, 1, D)
+    lib = time_ms(lambda: sdpa(qd, kd, vd, attn_mask=dmask), 50)[0]
     bms, bby = bound_ms(sum(live) * kv_row + 2 * 4 * Hq * D * 2,
                         4 * Hq * D * sum(live))
+    # prefill: every row of the chunk is computed (valid only bounds the
+    # rows the engine keeps), positions start + r over one table row
+    Ts, start = 256, 300
+    qp = torch.randn(Ts, Hq * D, device=dev, generator=gen).to(dt)
+    pre_kw = dict(block_table=bt_row, start=start)
+    pre_plain = K.paged_attention_ref(qp, rk, rv, **pre_kw)
+    pre_got = one_launch_bitwise("paged_attention", lambda:
+                                 K.paged_attention_cuda(qp, rk, rv,
+                                                        **pre_kw))
+    pre_err = check_layer_out(
+        "paged_attention prefill", pre_got, pre_plain,
+        K.paged_attention_ref(qp.float(), rk.float(), rv.float(), **pre_kw),
+        tol)
+    pre_ms, pre_call = time_ms(lambda: K.paged_attention_cuda(
+        qp, rk, rv, **pre_kw), 50, per_launch=True)
+    pre_plain_ms, pre_plain_call = time_ms(lambda: K.paged_attention_ref(
+        qp, rk, rv, **pre_kw), 10)
+    kp, vp = gathered(bt_row[None], start + Ts)
+    pmask = (torch.arange(start + Ts, device=dev)[None]
+             <= start + torch.arange(Ts, device=dev)[:, None])
+    qpp = qp.reshape(1, Ts, Hq, D).transpose(1, 2)
+    pre_lib = time_ms(lambda: sdpa(qpp, kp, vp, attn_mask=pmask), 50)[0]
+    pre_bms, pre_bby = bound_ms(
+        (start + Ts) * kv_row + 2 * Ts * Hq * D * 2,
+        4 * Hq * D * sum(start + r + 1 for r in range(Ts)))
+    library_what = ("scaled_dot_product_attention on K / V gathered "
+                    "beforehand into contiguous [rows, Hkv, T, D] (gather "
+                    "not timed), boolean mask of the live positions")
     results.append(dict(
         name="paged_attention", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
@@ -764,7 +838,18 @@ def phase_kernels(cfg, results, dev="cuda"):
         shape="B=4, lengths 1000/37/0/517 (+1 appended), 32 heads, D=128",
         max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
         plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
-        library_ms=None))
+        library_ms=lib, library_what=library_what,
+        prefill=dict(
+            shape=f"Ts={Ts}, start={start}, 32 heads, D=128 (one table "
+                  "row)", replaces="paddle_tpu/ops/pallas/"
+                                   "prefill_block.py:435",
+            max_abs_err=pre_err, ms=pre_ms, call_ms=pre_call,
+            plain_ms=pre_plain_ms, plain_call_ms=pre_plain_call,
+            bound_ms=pre_bms, bound_by=pre_bby, library_ms=pre_lib)))
+    info(f"paged_attention prefill Ts={Ts} start={start}: device {pre_ms} "
+         f"ms (per call {pre_call:.4f}), plain {pre_plain_ms} ms, library "
+         f"{pre_lib} ms, bound {pre_bms:.4f} ms ({pre_bby}), max |err| "
+         f"{pre_err:.2e}")
     for r in results[2:]:
         info(f"{r['name']} {r['shape']}: device {r['ms']} ms (per call "
              f"{r['call_ms']:.4f}), plain {r['plain_ms']} ms, library "
@@ -2643,10 +2728,9 @@ def phase_norms(results, dev="cuda"):
     """Kernels 12, 13, 14 and 16 against their plain versions in fp32
     (TOL) and bf16 (TOL, or the ratio rule against the plain version on
     the inputs upcast to fp32) at the eager steps' shapes and the odd
-    cases, one launch per call; bf16 kernel, plain and library times at
-    the eager steps' shapes."""
+    cases, one launch per call and a second call bit-identical; bf16
+    kernel, plain and library times at the eager steps' shapes."""
     import torch
-    from paddle_tpu_torch.ops.cuda import layer
     gen = torch.Generator(device=dev)
     for name, cases in NORM_CASES.items():
         err, ratios = {}, []
@@ -2655,12 +2739,8 @@ def phase_norms(results, dev="cuda"):
                             ("bfloat16", torch.bfloat16)):
                 gen.manual_seed(SEED)
                 inp = norm_inputs(name, R, H, dt, gen, dev)
-                layer.reset_counts()
-                got = norm_call(name, "kernel", inp)
-                torch.cuda.synchronize()
-                n = {k: c for k, c in layer.launch_counts().items() if c}
-                if n != {name: 1}:
-                    raise SmokeFailure(f"{name} {label}: launched {n}")
+                got = one_launch_bitwise(
+                    name, lambda: norm_call(name, "kernel", inp))
                 ref = norm_call(name, "plain", inp)
                 truth = norm_call(name, "plain",
                                   {k: v.float() for k, v in inp.items()})

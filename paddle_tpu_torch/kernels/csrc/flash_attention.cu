@@ -468,108 +468,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv(FlashArgs a) {
 }
 
 // ============================================ bf16 kernels (mma.sync)
-// Pieces the forward and the backward share: cp.async row copies, the two
-// products on ldmatrix operands, C-to-A fragment packing and exp2.
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
-};
-
-// rows [row0, row0 + ROWS) of one head of a [B, S, H, D] bf16 tensor (row
-// r at src + r * rstride) into a shared tile of leading dimension D + 8,
-// asynchronously, by a block of NTH threads; rows at or past nrows are
-// zero-filled.  Thread x copies 16 bytes at column 8 (x % (D / 8)) of rows
-// x / (D / 8) + i NTH / (D / 8): a fixed count, one pointer stepped by a
-// fixed stride.
-template <int D, int ROWS = 64, int NTH = 128>
-__device__ __forceinline__ void cp_rows(bf16 *dst, const bf16 *src,
-                                        size_t rstride, int row0,
-                                        int nrows) {
-  constexpr int CPR = D / 8, LD = D + 8, RS = NTH / CPR;
-  static_assert(NTH % CPR == 0 && ROWS % RS == 0, "uneven row copy");
-  const int r = row0 + threadIdx.x / CPR, col = threadIdx.x % CPR * 8;
-  const bf16 *s = src + (size_t)r * rstride + col;
-  const size_t step = RS * rstride;
-  bf16 *d = dst + (r - row0) * LD + col;
-#pragma unroll
-  for (int i = 0; i < ROWS / RS; ++i, s += step) {
-    const bool ok = r + i * RS < nrows;
-    cp16(d + i * RS * LD, ok ? s : src, ok);
-  }
-}
-
-// c[MT][NT] = A . Bt^T on MT m16 tiles: A 16 MT rows of a shared tile, Bt
-// 8 NT rows of another, both [row][k] over 16 KS values of k, leading dim
-// LD; each B fragment feeds all MT tiles
-template <int MT, int NT, int KS, int LD>
-__device__ __forceinline__ void mma_abt(float (*c)[NT][4], const bf16 *A,
-                                        const bf16 *Bt, int lane) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      c[mt][j][0] = c[mt][j][1] = c[mt][j][2] = c[mt][j][3] = 0.f;
-  const bf16 *pa = A + ldsm_a(lane, LD), *pb = Bt + ldsm_bt(lane, LD);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    unsigned af[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      ldsm_x4(af[mt], pa + mt * 16 * LD + kk * 16);
-#pragma unroll
-    for (int n2 = 0; n2 < NT / 2; ++n2) {
-      unsigned bf[4];
-      ldsm_x4(bf, pb + n2 * 16 * LD + kk * 16);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(c[mt][2 * n2], af[mt], bf[0], bf[1]);
-        mma_bf16(c[mt][2 * n2 + 1], af[mt], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
-// c[MT][NT] += A . B: A in registers (MT x KS A fragments), B 16 KS rows of
-// a shared tile [k][n], leading dim LD
-template <int MT, int NT, int KS, int LD>
-__device__ __forceinline__ void mma_ab(float (*c)[NT][4],
-                                       unsigned (*a)[KS][4], const bf16 *B,
-                                       int lane) {
-  const bf16 *pb = B + ldsm_b(lane, LD);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int n2 = 0; n2 < NT / 2; ++n2) {
-      unsigned bf[4];
-      ldsm_x4_t(bf, pb + kk * 16 * LD + n2 * 16);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(c[mt][2 * n2], a[mt][kk], bf[0], bf[1]);
-        mma_bf16(c[mt][2 * n2 + 1], a[mt][kk], bf[2], bf[3]);
-      }
-    }
-}
-
-// 2 KS neighbouring C tiles, rounded to bf16, as KS A fragments
-template <int KS>
-__device__ __forceinline__ void c_to_a(unsigned (*a)[4], const float (*c)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// 2^x in one MUFU.EX2 (denormal results flush to zero)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+// (cp_rows, mma_abt, mma_ab, c_to_a and ex2: mma.cuh)
 
 // ============================================== bf16 forward (mma.sync)
 // A block owns BR = 16 MT WARPS q rows: each warp 16 MT of them, as MT

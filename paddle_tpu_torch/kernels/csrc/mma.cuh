@@ -1,7 +1,10 @@
 // Tensor-core and async-copy building blocks shared by the bf16 kernels
-// (quant_linear.cu, flash_attention.cu): 16- and 4-byte cp.async copies
-// with zero fill, their commit / wait, mma.sync m16n8k16 bf16 with fp32
-// accumulators, ldmatrix x4 (plain and transposed) and bf16 packing.
+// (quant_linear.cu, flash_attention.cu, decode_attention.cu,
+// paged_attention.cu): 16- and 4-byte cp.async copies with zero fill,
+// their commit / wait, mma.sync m16n8k16 bf16 with fp32 accumulators,
+// ldmatrix x4 (plain and transposed) and bf16 packing; and the attention
+// kernels' row copies into padded tiles, the two products on ldmatrix
+// operands (S = Q K^T, O += P V), C-to-A fragment packing and exp2.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane >> 2, t = lane & 3):
 //   A 16 x 16 row-major, 4 regs of 2 bf16: a0 (row g, cols 2t, 2t+1),
@@ -90,6 +93,109 @@ __device__ __forceinline__ int ldsm_bt(int lane, int ld) {
 //   the same from rows = k, cols = n (B stored row-major; use ldsm_x4_t)
 __device__ __forceinline__ int ldsm_b(int lane, int ld) {
   return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+}
+
+// Pieces the forward and the backward share: cp.async row copies, the two
+// products on ldmatrix operands, C-to-A fragment packing and exp2.
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// rows [row0, row0 + ROWS) of one head of a [B, S, H, D] bf16 tensor (row
+// r at src + r * rstride) into a shared tile of leading dimension D + 8,
+// asynchronously, by a block of NTH threads; rows at or past nrows are
+// zero-filled.  Thread x copies 16 bytes at column 8 (x % (D / 8)) of rows
+// x / (D / 8) + i NTH / (D / 8): a fixed count, one pointer stepped by a
+// fixed stride.
+template <int D, int ROWS = 64, int NTH = 128>
+__device__ __forceinline__ void cp_rows(bf16 *dst, const bf16 *src,
+                                        size_t rstride, int row0,
+                                        int nrows) {
+  constexpr int CPR = D / 8, LD = D + 8, RS = NTH / CPR;
+  static_assert(NTH % CPR == 0 && ROWS % RS == 0, "uneven row copy");
+  const int r = row0 + threadIdx.x / CPR, col = threadIdx.x % CPR * 8;
+  const bf16 *s = src + (size_t)r * rstride + col;
+  const size_t step = RS * rstride;
+  bf16 *d = dst + (r - row0) * LD + col;
+#pragma unroll
+  for (int i = 0; i < ROWS / RS; ++i, s += step) {
+    const bool ok = r + i * RS < nrows;
+    cp16(d + i * RS * LD, ok ? s : src, ok);
+  }
+}
+
+// c[MT][NT] = A . Bt^T on MT m16 tiles: A 16 MT rows of a shared tile, Bt
+// 8 NT rows of another, both [row][k] over 16 KS values of k, leading dim
+// LD; each B fragment feeds all MT tiles
+template <int MT, int NT, int KS, int LD>
+__device__ __forceinline__ void mma_abt(float (*c)[NT][4], const bf16 *A,
+                                        const bf16 *Bt, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      c[mt][j][0] = c[mt][j][1] = c[mt][j][2] = c[mt][j][3] = 0.f;
+  const bf16 *pa = A + ldsm_a(lane, LD), *pb = Bt + ldsm_bt(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    unsigned af[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(af[mt], pa + mt * 16 * LD + kk * 16);
+#pragma unroll
+    for (int n2 = 0; n2 < NT / 2; ++n2) {
+      unsigned bf[4];
+      ldsm_x4(bf, pb + n2 * 16 * LD + kk * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(c[mt][2 * n2], af[mt], bf[0], bf[1]);
+        mma_bf16(c[mt][2 * n2 + 1], af[mt], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// c[MT][NT] += A . B: A in registers (MT x KS A fragments), B 16 KS rows of
+// a shared tile [k][n], leading dim LD
+template <int MT, int NT, int KS, int LD>
+__device__ __forceinline__ void mma_ab(float (*c)[NT][4],
+                                       unsigned (*a)[KS][4], const bf16 *B,
+                                       int lane) {
+  const bf16 *pb = B + ldsm_b(lane, LD);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int n2 = 0; n2 < NT / 2; ++n2) {
+      unsigned bf[4];
+      ldsm_x4_t(bf, pb + kk * 16 * LD + n2 * 16);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(c[mt][2 * n2], a[mt][kk], bf[0], bf[1]);
+        mma_bf16(c[mt][2 * n2 + 1], a[mt][kk], bf[2], bf[3]);
+      }
+    }
+}
+
+// 2 KS neighbouring C tiles, rounded to bf16, as KS A fragments
+template <int KS>
+__device__ __forceinline__ void c_to_a(unsigned (*a)[4], const float (*c)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// 2^x in one MUFU.EX2 (denormal results flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace pt

@@ -3,112 +3,607 @@
 //
 // Part of the decode_block / prefill_block chain (replaces the
 // online-softmax page walk of paddle_tpu/ops/pallas/decode_block.py::
-// _kernel and prefill_block.py::_kernel).  Row r at absolute position p_r
-// attends pool positions 0..p_r of its sequence:
+// _kernel (:229, pallas_call at :535) and prefill_block.py::_kernel (:131,
+// pallas_call at :435)).  Row r at absolute position p_r attends pool
+// positions 0..p_r of its sequence:
 //   decode  (lengths != 0): p_r = lengths[r] (the token just appended),
 //                           table row bt[r]
 //   prefill:                p_r = start + r, table row bt
 // Unmapped table entries (-1) read page 0, as the reference does (the
 // positions behind them are never live for a row the engine reads); the
-// walk stops at the row's own position, never at the table width, and
-// never past it.  Logits, the online softmax and the weighted sum run in
-// fp32 with scale 1/sqrt(D); q head h reads kv head h / (Hq / Hkv).
+// walk stops at the row's own position and at the table's end, never past
+// them.  q head h reads kv head h / G (G = Hq / Hkv <= 8); head_dim 32, 64
+// or 128 (the wrapper refuses others).
 //
-// What bounds it: the KV bytes read (each K and V row of the live
-// positions once per q head here — GQA groups re-read through L2).  One
-// block per (row, q head); its four warps take every fourth position and
-// merge their softmax states through shared memory; each lane holds D/32
-// elements of q and of the accumulator.  Split-KV across blocks and
-// tensor-core QK for long prefill rows are later work.
-#include "common.cuh"
+// What bounds it on an H100: bytes.  A decode call reads each live K and V
+// row once per kv head (llama_7b, B 4, lengths 1000/37/0/517: 25.5 MB,
+// 7.6 us at 3.35 TB/s) and does 4 G flops an element of it; a prefill chunk
+// reads its sequence's K and V once per kv head (plus L2 re-reads by the
+// other row tiles and q heads) and its 4 Ts (start + Ts / 2) D flops a head
+// run on the tensor cores.  Two bodies, one launch a call:
+//
+//   * paged_attention_rows<T, D, GM>: decode in both dtypes, fp32 prefill
+//     and bf16 chunks of <= 16 rows whose walk ends past MMA16_MAX
+//     positions.  Grid (S, Hkv, rows); the S blocks of a (kv head, row)
+//     are one thread-block cluster.  Block s
+//     takes the s-th of S contiguous ranges of whole pages of its row's
+//     live pages (ceil(pages / S) pages each; a range past the row's length
+//     is empty) for all G q heads of its kv head, so a K / V row is read
+//     once per kv head, as the TPU kernel reads it.  S = min(8, ceil(pages
+//     / 2)), pages the most a row of the call can hold (the table's width at
+//     decode, start + Ts at prefill: the lengths stay on the card; 8 splits
+//     beat 4 at the engine's decode, tools/pattn_ab.py).  The block reads its page indices from
+//     the table once into shared memory, then gathers its positions' K and
+//     V rows with 16-byte cp.async into a ring of NSTG chunks of CHP
+//     positions (8 KB each, three in flight while one is used).  A lane
+//     owns one 16-byte chunk of a row (q's chunk of each head in fp32
+//     registers); a warp scores STEPS x RPW rows of a chunk (FMAs, a
+//     shuffle sum over the row's lanes), takes one max a chunk per head,
+//     rescales, and adds p v into its fp32 accumulators: logits, softmax
+//     and p v in fp32, as the plain version.  At the end the warps' states
+//     fold in shared memory, each block stores its (acc[G][D], m[G], l[G])
+//     into rank 0's slot s (st.shared::cluster; a cluster barrier split
+//     across the walk makes sure every block has started first), and after
+//     a second cluster barrier rank 0 folds the slots in rank order and
+//     writes out: calls are bit-identical.
+//   * paged_attention_prefill<D, WARPS>: bf16 prefill, flash_fwd_mma's
+//     structure (flash_attention.cu) over the page table.  Grid (ceil(Ts /
+//     BQ), Hq): a block owns BQ = 16 WARPS query rows of one q head, a warp
+//     16 of them (WARPS 4; one warp for a chunk of <= 16 rows whose walk
+//     ends within MMA16_MAX positions: past that the rows body, split
+//     over a cluster, is faster); K and V stream in BK-row tiles (4
+//     pages at BS 16) gathered through the block's page indices (read once
+//     into shared memory) by 16-byte cp.async into a ring of NSTG padded
+//     tiles.  S = Q K^T and O += P V run on mma.sync m16n8k16 with fp32
+//     accumulators, the online softmax in registers; P is rounded to bf16
+//     for P V (as the JAX prefill reference rounds the probabilities), l
+//     sums the fp32 p.  Causal at the bottom-right offset: row r sees
+//     positions <= start + r; a block's walk ends at start plus its last
+//     row, a warp skips the tiles wholly past its rows and masks only those
+//     that cross its diagonal or the walk's end.
+#include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace pt {
+namespace pattn {
 
-constexpr int ATT_WARPS = 4;
-constexpr int MAX_EPL = 8;                 // D <= 256
+constexpr int NT = 128, NW = NT / 32;   // rows body: 4 warps
+constexpr int MAXS = 8, MINP = 2;       // splits at most; pages a split aims at
+constexpr int MAXG = 8;                 // q heads a kv head
+constexpr int NSTG = 4, STEPS = 2;      // ring chunks; warp steps a chunk
+// bf16 chunks of <= 16 rows take the one-warp tensor-core body while their
+// walk ends within this many positions (tools/pattn_ab.py on an NVIDIA H100
+// 80GB HBM3 at 700 W, Ts 16 after 37, 300 and 1000 positions: 7.2 / 30.4 /
+// 94.4 us there, 9.3 / 37.4 / 75.5 us on the rows body)
+constexpr int MMA16_MAX = 512;
+constexpr float NEG_INF = -1e30f;
 
-template <typename T>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-    paged_attention_kernel(LayerArgs a) {
-  __shared__ float sm_m[ATT_WARPS], sm_l[ATT_WARPS];
-  __shared__ float sm_acc[ATT_WARPS][MAX_EPL * 32];
-  const int r = blockIdx.x, h = blockIdx.y;
-  const int D = a.D, epl = D / 32, hk = h / (a.Hq / a.Hkv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// rows body: a lane owns EPC elements (16 bytes) of a row, CPR lanes a
+// row, a warp step RPW rows, a chunk CHP positions of K then V (8 KB)
+template <typename T, int D> struct Rows {
+  static constexpr int EPC = 16 / (int)sizeof(T);
+  static constexpr int CPR = D / EPC;
+  static constexpr int RPW = 32 / CPR;
+  static constexpr int CHP = STEPS * NW * RPW;
+  static constexpr int STAGE = 2 * CHP * D;           // elements
+  static constexpr size_t RING = (size_t)NSTG * STAGE * sizeof(T);
+};
+
+// a row's table row and its live positions [0, n)
+struct RowOf {
   const int *bt;
-  int pos;
-  if (a.lengths) {
-    bt = a.block_table + (size_t)r * a.MB;
-    pos = a.lengths[r];
-  } else {
-    bt = a.block_table;
-    pos = a.start + r;
-  }
-  const int n = min(pos + 1, a.MB * a.BS);
+  int n;
+};
+__device__ __forceinline__ RowOf row_of(const LayerArgs &a, int r) {
+  const int pos = a.lengths ? a.lengths[r] : a.start + r;
+  return {a.lengths ? a.block_table + (size_t)r * a.MB : a.block_table,
+          min(max(pos, 0) + 1, a.MB * a.BS)};
+}
 
-  const T *qrow = (const T *)a.q + ((size_t)r * a.Hq + h) * D + lane * epl;
-  float qv[MAX_EPL], acc[MAX_EPL];
+// one 16-byte chunk of shared memory as floats
+template <typename T, int EPC>
+__device__ __forceinline__ void chunk_f(const T *p, float *f) {
+  const uint4 u = *reinterpret_cast<const uint4 *>(p);
+  const T *e = reinterpret_cast<const T *>(&u);
 #pragma unroll
-  for (int i = 0; i < MAX_EPL; ++i) {
-    qv[i] = i < epl ? to_f<T>(qrow[i]) : 0.f;
-    acc[i] = 0.f;
+  for (int i = 0; i < EPC; ++i) f[i] = to_f<T>(e[i]);
+}
+
+template <typename T, int D, int GM>
+__global__ void __launch_bounds__(NT)
+    paged_attention_rows(LayerArgs a, int pmax) {
+  using R = Rows<T, D>;
+  constexpr int EPC = R::EPC, CPR = R::CPR, RPW = R::RPW, CHP = R::CHP;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T *ring = reinterpret_cast<T *>(smem);
+  int *pidx = reinterpret_cast<int *>(smem + R::RING);
+  float *recv = reinterpret_cast<float *>(pidx + ((pmax + 3) & ~3));
+  const int S = gridDim.x, s = blockIdx.x, hk = blockIdx.y, r = blockIdx.z;
+  const int G = a.Hq / a.Hkv, BS = a.BS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ch = lane % CPR, ro = lane / CPR;
+  // every block of the cluster has started before any stores into rank
+  // 0's shared memory (this arrival's wait comes before the fold)
+  cluster_arrive_relaxed();
+
+  // this block's pages [pg0, pg0 + npg) and positions [p0, p0 + cnt)
+  const RowOf row = row_of(a, r);
+  const int np = (row.n + BS - 1) / BS, pps = (np + S - 1) / S;
+  const int pg0 = min(s * pps, np), npg = min(pps, np - pg0);
+  const int p0 = pg0 * BS, cnt = max(min(npg * BS, row.n - p0), 0);
+  for (int i = tid; i < npg; i += NT) pidx[i] = max(row.bt[pg0 + i], 0);
+
+  float qf[GM][EPC], acc[GM][EPC], m[GM], l[GM];
+  const T *qb =
+      (const T *)a.q + ((size_t)r * a.Hq + (size_t)hk * G) * D + ch * EPC;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+    if (g < G) {
+      const uint4 u = *reinterpret_cast<const uint4 *>(qb + g * D);
+      const T *e = reinterpret_cast<const T *>(&u);
+#pragma unroll
+      for (int i = 0; i < EPC; ++i) qf[g][i] = to_f<T>(e[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < EPC; ++i) qf[g][i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < EPC; ++i) acc[g][i] = 0.f;
   }
-  float m = -INFINITY, l = 0.f;
+  __syncthreads();                                   // pidx
+
   const T *pk = (const T *)a.pool_k, *pv = (const T *)a.pool_v;
-  for (int t = warp; t < n; t += ATT_WARPS) {
-    int page = bt[t / a.BS];
-    if (page < 0) page = 0;
-    size_t base =
-        (((size_t)page * a.BS + t % a.BS) * a.Hkv + hk) * D + lane * epl;
-    float dot = 0.f;
+  const size_t rs = (size_t)a.Hkv * D;               // a pool position
+  // chunk c's K rows, then its V rows, into ring stage c % NSTG; rows past
+  // cnt are zero-filled
+  auto issue = [&](int c) {
+    T *dst = ring + (c % NSTG) * R::STAGE;
+    for (int i = tid; i < CHP * CPR; i += NT) {
+      const int ri = i / CPR, cc = i % CPR, p = c * CHP + ri;
+      const bool ok = p < cnt;
+      const size_t off =
+          ok ? ((size_t)pidx[p / BS] * BS + p % BS) * rs + (size_t)hk * D +
+                   cc * EPC
+             : 0;
+      cp16(dst + ri * D + cc * EPC, pk + off, ok);
+      cp16(dst + (CHP + ri) * D + cc * EPC, pv + off, ok);
+    }
+  };
+  const int nch = (cnt + CHP - 1) / CHP;
 #pragma unroll
-    for (int i = 0; i < MAX_EPL; ++i)
-      if (i < epl) dot += qv[i] * to_f<T>(pk[base + i]);
-    dot = warp_sum(dot) * a.scale;
-    float mn = fmaxf(m, dot);
-    float corr = expf(m - mn), p = expf(dot - mn);
-    l = l * corr + p;
-#pragma unroll
-    for (int i = 0; i < MAX_EPL; ++i)
-      if (i < epl) acc[i] = acc[i] * corr + p * to_f<T>(pv[base + i]);
-    m = mn;
+  for (int c = 0; c < NSTG - 1; ++c) {
+    if (c < nch) issue(c);
+    cp_commit();
   }
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
-  }
+  for (int c = 0; c < nch; ++c) {
+    cp_wait<NSTG - 2>();
+    __syncthreads();            // chunk c landed; chunk c - 1 is done
+    if (c + NSTG - 1 < nch) issue(c + NSTG - 1);
+    cp_commit();
+    const T *kt = ring + (c % NSTG) * R::STAGE, *vt = kt + CHP * D;
+    // this warp's rows (st NW + warp) RPW + ro of the chunk: scores
+    float sc[STEPS][GM];
 #pragma unroll
-  for (int i = 0; i < MAX_EPL; ++i)
-    if (i < epl) sm_acc[warp][lane * epl + i] = acc[i];
+    for (int st = 0; st < STEPS; ++st) {
+      const int i = (st * NW + warp) * RPW + ro;
+      const bool live = c * CHP + i < cnt;
+      float kf[EPC];
+      chunk_f<T, EPC>(kt + i * D + ch * EPC, kf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) d = fmaf(qf[g][e], kf[e], d);
+#pragma unroll
+        for (int o = CPR / 2; o > 0; o >>= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        sc[st][g] = live ? d * a.scale : -INFINITY;
+      }
+    }
+    // one max a chunk per head (over the warp's rows), then p and p v
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      float mx = sc[0][g];
+#pragma unroll
+      for (int st = 1; st < STEPS; ++st) mx = fmaxf(mx, sc[st][g]);
+#pragma unroll
+      for (int o = CPR; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float mn = fmaxf(m[g], mx), al = expf(m[g] - mn);
+      m[g] = mn;
+      l[g] *= al;
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) acc[g][e] *= al;
+    }
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      const int i = (st * NW + warp) * RPW + ro;
+      float vf[EPC];
+      chunk_f<T, EPC>(vt + i * D + ch * EPC, vf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float p = expf(sc[st][g] - m[g]);
+        l[g] += p;
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // the warp's state: l and acc summed over its row lanes (m is the same in
+  // every lane); then the warps' states fold through shared memory (the
+  // ring, done with), and the block's goes into rank 0's slot s
+#pragma unroll
+  for (int o = CPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+      for (int e = 0; e < EPC; ++e)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+    }
+  __syncthreads();                                   // the ring is free
+  float *part = reinterpret_cast<float *>(smem);     // [NW][GM][D]
+  float *pm = part + NW * GM * D, *pl = pm + NW * GM;
+  if (ro == 0)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int e = 0; e < EPC; ++e)
+        part[(warp * GM + g) * D + ch * EPC + e] = acc[g][e];
+  if (lane == 0)
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      pm[warp * GM + g] = m[g];
+      pl[warp * GM + g] = l[g];
+    }
   __syncthreads();
-  float mx = sm_m[0];
+  const int RS = G * D + 2 * G;                      // a slot: acc, m, l
+  cluster_wait();
+  for (int i = tid; i < G * D; i += NT) {
+    const int g = i / D;
+    float mx = pm[g];
 #pragma unroll
-  for (int w = 1; w < ATT_WARPS; ++w) mx = fmaxf(mx, sm_m[w]);
-  float den = 0.f, wt[ATT_WARPS];
+    for (int w = 1; w < NW; ++w) mx = fmaxf(mx, pm[w * GM + g]);
+    float v = 0.f;
 #pragma unroll
-  for (int w = 0; w < ATT_WARPS; ++w) {
-    wt[w] = sm_l[w] > 0.f ? expf(sm_m[w] - mx) : 0.f;
-    den += sm_l[w] * wt[w];
+    for (int w = 0; w < NW; ++w)
+      v += part[(w * GM + g) * D + i % D] * expf(pm[w * GM + g] - mx);
+    st_peer_f32(peer_u32(recv + s * RS + i, 0), v);
   }
-  T *out = (T *)a.attn + ((size_t)r * a.Hq + h) * D;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float num = 0.f;
+  if (tid < G) {
+    float mx = pm[tid], v = 0.f;
 #pragma unroll
-    for (int w = 0; w < ATT_WARPS; ++w) num += sm_acc[w][d] * wt[w];
-    out[d] = from_f<T>(num / den);
+    for (int w = 1; w < NW; ++w) mx = fmaxf(mx, pm[w * GM + tid]);
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+      v += pl[w * GM + tid] * expf(pm[w * GM + tid] - mx);
+    st_peer_f32(peer_u32(recv + s * RS + G * D + tid, 0), mx);
+    st_peer_f32(peer_u32(recv + s * RS + G * D + G + tid, 0), v);
+  }
+  cluster_arrive();
+  cluster_wait();
+  if (s != 0) return;
+  T *out = (T *)a.attn + ((size_t)r * a.Hq + (size_t)hk * G) * D;
+  for (int i = tid; i < G * D; i += NT) {
+    const int g = i / D;
+    float mx = recv[G * D + g];
+    for (int k = 1; k < S; ++k) mx = fmaxf(mx, recv[k * RS + G * D + g]);
+    float num = 0.f, den = 0.f;
+    for (int k = 0; k < S; ++k) {
+      const float w = expf(recv[k * RS + G * D + g] - mx);
+      num += recv[k * RS + i] * w;
+      den += recv[k * RS + G * D + G + g] * w;
+    }
+    out[i] = from_f<T>(num / den);
   }
 }
 
+// prefill body: BQ query rows a block (16 a warp), BK-row K / V tiles in a
+// ring of NSTG, rows padded to LD (16 bytes past D: conflict-free ldmatrix)
+template <int D, int WARPS> struct Pre {
+  static constexpr int BQ = 16 * WARPS, NTH = 32 * WARPS;
+  static constexpr int BK = 64, NSTG = 2, LD = D + 8;
+  static constexpr int QB = BQ * LD * 2;                  // Q tile bytes
+  static constexpr int STAGE = 2 * BK * LD * 2;           // K, then V
+  static constexpr int RING = QB + NSTG * STAGE;
+};
+
+template <int D, int WARPS>
+__global__ void __launch_bounds__(Pre<D, WARPS>::NTH)
+    paged_attention_prefill(LayerArgs a) {
+  using C = Pre<D, WARPS>;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NTH = C::NTH;
+  constexpr int KS = D / 16, NS = BK / 8, ND = D / 8, KP = BK / 16;
+  constexpr int CPR = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16 *Qs = reinterpret_cast<bf16 *>(smem);
+  int *pidx = reinterpret_cast<int *>(smem + C::RING);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, hk = h / (a.Hq / a.Hkv);
+  const int wq0 = q0 + warp * 16;                    // the warp's first row
+  const int BS = a.BS;
+  // positions this block reads: [0, kend), the last row's and the table's
+  const int kend = min(a.start + min(q0 + BQ, a.M), a.MB * BS);
+  const int nkt = (kend + BK - 1) / BK, np = (kend + BS - 1) / BS;
+  for (int i = threadIdx.x; i < np; i += NTH)
+    pidx[i] = max(a.block_table[i], 0);
+  const size_t qs = (size_t)a.Hq * D, rs = (size_t)a.Hkv * D;
+  cp_rows<D, BQ, NTH>(Qs, (const bf16 *)a.q + (size_t)h * D, qs, q0, a.M);
+  __syncthreads();                                   // pidx
+  const bf16 *pk = (const bf16 *)a.pool_k, *pv = (const bf16 *)a.pool_v;
+  auto stage = [&](int kt) {                         // K, V tile kt
+    bf16 *Ks = reinterpret_cast<bf16 *>(smem + C::QB +
+                                        (kt % C::NSTG) * C::STAGE);
+    for (int i = threadIdx.x; i < BK * CPR; i += NTH) {
+      const int ri = i / CPR, col = i % CPR * 8, p = kt * BK + ri;
+      const bool ok = p < kend;
+      const size_t off =
+          ok ? ((size_t)pidx[p / BS] * BS + p % BS) * rs + (size_t)hk * D + col
+             : 0;
+      cp16(Ks + ri * LD + col, pk + off, ok);
+      cp16(Ks + (BK + ri) * LD + col, pv + off, ok);
+    }
+  };
+#pragma unroll
+  for (int kt = 0; kt < C::NSTG - 1; ++kt) {         // Q rides in group 0
+    if (kt < nkt) stage(kt);
+    cp_commit();
+  }
+
+  float m[2], l[2], acc[1][ND][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;                                       // this thread's columns
+  }
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+    acc[0][j][0] = acc[0][j][1] = acc[0][j][2] = acc[0][j][3] = 0.f;
+  const float sl2 = a.scale * LOG2E;
+  // the plain body takes max(raw) * scale as the row max: a positive scale
+  const bool always = !(a.scale > 0.f);
+  const int qp0 = a.start + wq0;                     // the warp's first pos
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_wait<C::NSTG - 2>();
+    __syncthreads();               // tile kt landed; tile kt - 1 is done
+    if (kt + C::NSTG - 1 < nkt) stage(kt + C::NSTG - 1);
+    cp_commit();
+    const bf16 *Ks = reinterpret_cast<const bf16 *>(
+        smem + C::QB + (kt % C::NSTG) * C::STAGE);
+    const bf16 *Vs = Ks + BK * LD;
+    const int k0 = kt * BK;
+    // nothing to add: the warp's rows past Ts, or every key after them
+    if (wq0 >= a.M || k0 > qp0 + 15) continue;
+    auto body = [&](auto flag) {
+      constexpr bool MASK = decltype(flag)::value;
+      float s[1][NS][4];
+      mma_abt<1, NS, KS, LD>(s, Qs + warp * 16 * LD, Ks, lane);
+      if (MASK)
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qpos = qp0 + g + 8 * (e >> 1);
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            s[0][j][e] = kpos <= qpos && kpos < kend ? s[0][j][e] * a.scale
+                                                     : NEG_INF;
+          }
+      float mx[2] = {s[0][0][0], s[0][0][2]};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[0][j][e]);
+      float mc[2];                           // the new m, times log2(e)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x = mx[i];
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float mnew = fmaxf(m[i], MASK ? x : x * a.scale);
+        const float alpha = ex2((m[i] - mnew) * LOG2E);
+        m[i] = mnew;
+        mc[i] = mnew * LOG2E;
+        l[i] *= alpha;
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          acc[0][j][2 * i] *= alpha;
+          acc[0][j][2 * i + 1] *= alpha;
+        }
+      }
+      unsigned pa[1][KP][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float p = MASK ? ex2((s[0][j][e] - m[i]) * LOG2E)
+                               : ex2(fmaf(s[0][j][e], sl2, -mc[i]));
+          s[0][j][e] = p;
+          l[i] += p;
+        }
+      c_to_a<KP>(pa[0], s[0]);
+      mma_ab<1, ND, KP, LD>(acc, pa, Vs, lane);      // O += P V
+    };
+    if (always || k0 + BK > kend || k0 + BK - 1 > qp0)
+      body(Flag<true>());
+    else
+      body(Flag<false>());
+  }
+  cp_wait<0>();
+
+  // out = O / l, rounded to bf16 into the warp's own Q rows (no other warp
+  // reads them), then stored in 16-byte row chunks
+  bf16 *Ow = Qs + warp * 16 * LD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float lt = l[i];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    const int rr = g + 8 * i;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<unsigned *>(Ow + rr * LD + 8 * j + 2 * t) =
+          pack_bf16(acc[0][j][2 * i] * inv, acc[0][j][2 * i + 1] * inv);
+  }
+  __syncwarp();
+  bf16 *out = (bf16 *)a.attn + (size_t)h * D;
+#pragma unroll
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int rr = c / CPR, col = c % CPR * 8;
+    if (wq0 + rr < a.M)
+      *reinterpret_cast<uint4 *>(out + (size_t)(wq0 + rr) * qs + col) =
+          *reinterpret_cast<const uint4 *>(Ow + rr * LD + col);
+  }
+}
+
+// the largest dynamic shared memory each instance may take, per device (a
+// table of this file's own: a function-local static of a template would be
+// one object across every loaded copy of the library)
+constexpr int MAX_DEVICES = 64, INSTANCES = 32;
+static int g_smem[INSTANCES][MAX_DEVICES];
+
+template <class K>
+cudaError_t allow_smem(K kern, int inst, size_t bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && g_smem[inst][dev] >= (int)bytes) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess && dev < MAX_DEVICES) g_smem[inst][dev] = (int)bytes;
+  return e;
+}
+
+// PLAN_N values of a call's plan (pt_paged_attention_plan): body (0 rows,
+// 1 prefill), splits S, grid x, y, z, threads, dynamic shared memory
+constexpr int PLAN_N = 7;
+
+// pages the longest row of the call may hold
+inline int pages_of(const LayerArgs *a) {
+  const int n = a->lengths ? a->MB * a->BS
+                           : (a->start + a->M < a->MB * a->BS
+                                  ? a->start + a->M
+                                  : a->MB * a->BS);
+  return (n + a->BS - 1) / a->BS;
+}
+
+template <typename T, int D, int GM>
+cudaError_t launch_rows(const LayerArgs *a, int inst, cudaStream_t st,
+                        int *plan) {
+  using R = Rows<T, D>;
+  const int pages = pages_of(a);
+  int S = (pages + MINP - 1) / MINP;
+  S = S < 1 ? 1 : S > MAXS ? MAXS : S;
+  const int pmax = (pages + S - 1) / S, G = a->Hq / a->Hkv;
+  const size_t part = sizeof(float) * NW * GM * (D + 2);
+  const size_t smem = (R::RING > part ? R::RING : part) +
+                      sizeof(int) * ((pmax + 3) & ~3) +
+                      sizeof(float) * S * (G * D + 2 * G);
+  auto kern = paged_attention_rows<T, D, GM>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, a->Hkv, a->M);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (plan) {
+    const int p[PLAN_N] = {0, S, S, a->Hkv, a->M, NT, (int)smem};
+    for (int i = 0; i < PLAN_N; ++i) plan[i] = p[i];
+    return cudaSuccess;
+  }
+  cudaError_t e = allow_smem(kern, inst, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaLaunchKernelEx(&cfg, kern, *a, pmax);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int D, int WARPS>
+cudaError_t launch_prefill(const LayerArgs *a, int inst, cudaStream_t st,
+                           int *plan) {
+  using C = Pre<D, WARPS>;
+  const size_t smem = C::RING + sizeof(int) * ((pages_of(a) + 3) & ~3);
+  const dim3 grid((a->M + C::BQ - 1) / C::BQ, a->Hq);
+  if (plan) {
+    const int p[PLAN_N] = {1, 1, (int)grid.x, (int)grid.y, 1, C::NTH,
+                           (int)smem};
+    for (int i = 0; i < PLAN_N; ++i) plan[i] = p[i];
+    return cudaSuccess;
+  }
+  auto kern = paged_attention_prefill<D, WARPS>;
+  cudaError_t e = allow_smem(kern, inst, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, C::NTH, smem, st>>>(*a);
+  return cudaGetLastError();
+}
+
+// rows body of group size GM; instance index 4 x (dtype, D) + group
+template <typename T, int D>
+cudaError_t launch_rows_g(const LayerArgs *a, int inst, cudaStream_t st,
+                          int *plan) {
+  const int G = a->Hq / a->Hkv;
+  return G <= 1   ? launch_rows<T, D, 1>(a, 4 * inst, st, plan)
+         : G <= 2 ? launch_rows<T, D, 2>(a, 4 * inst + 1, st, plan)
+         : G <= 4 ? launch_rows<T, D, 4>(a, 4 * inst + 2, st, plan)
+                  : launch_rows<T, D, 8>(a, 4 * inst + 3, st, plan);
+}
+
+// one call, or its plan (`plan` non-null: nothing launched)
+cudaError_t paged_attention(const LayerArgs *a, cudaStream_t st, int *plan) {
+  if (a->Hkv <= 0 || a->Hq % a->Hkv || a->Hq / a->Hkv > MAXG || a->BS <= 0)
+    return cudaErrorInvalidValue;
+  const int D = a->D;
+  if (a->dtype == PT_BF16 && !a->lengths && a->M > 16) {
+    // instances 24-29: the prefill body, 64 rows a block, or one warp of
+    // 16 for a chunk of <= 16 rows
+    return D == 32    ? launch_prefill<32, 4>(a, 24, st, plan)
+           : D == 64  ? launch_prefill<64, 4>(a, 25, st, plan)
+           : D == 128 ? launch_prefill<128, 4>(a, 26, st, plan)
+                      : cudaErrorInvalidValue;
+  }
+  if (a->dtype == PT_BF16 && !a->lengths && a->start + a->M <= MMA16_MAX)
+    return D == 32    ? launch_prefill<32, 1>(a, 27, st, plan)
+           : D == 64  ? launch_prefill<64, 1>(a, 28, st, plan)
+           : D == 128 ? launch_prefill<128, 1>(a, 29, st, plan)
+                      : cudaErrorInvalidValue;
+  if (a->dtype == PT_BF16)
+    return D == 32    ? launch_rows_g<bf16, 32>(a, 0, st, plan)
+           : D == 64  ? launch_rows_g<bf16, 64>(a, 1, st, plan)
+           : D == 128 ? launch_rows_g<bf16, 128>(a, 2, st, plan)
+                      : cudaErrorInvalidValue;
+  if (a->dtype == PT_F32)
+    return D == 32    ? launch_rows_g<float, 32>(a, 3, st, plan)
+           : D == 64  ? launch_rows_g<float, 64>(a, 4, st, plan)
+           : D == 128 ? launch_rows_g<float, 128>(a, 5, st, plan)
+                      : cudaErrorInvalidValue;
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace pattn
 }  // namespace pt
 
 cudaError_t launch_paged_attention(const LayerArgs *a, cudaStream_t s) {
   if (a->M <= 0) return cudaSuccess;
-  if (a->D % 32 != 0 || a->D > 32 * pt::MAX_EPL) return cudaErrorInvalidValue;
-  dim3 grid(a->M, a->Hq);
-  if (a->dtype == PT_BF16)
-    pt::paged_attention_kernel<pt::bf16>
-        <<<grid, pt::ATT_WARPS * 32, 0, s>>>(*a);
-  else
-    pt::paged_attention_kernel<float><<<grid, pt::ATT_WARPS * 32, 0, s>>>(*a);
-  return count_launch(CNT_PAGED_ATTENTION, cudaGetLastError());
+  return count_launch(CNT_PAGED_ATTENTION,
+                      pt::pattn::paged_attention(a, s, nullptr));
+}
+
+// the plan of a call into out[PLAN_N] (body, splits, grid x / y / z,
+// threads, dynamic shared memory); nothing launched or counted.  Not bound
+// by build.py; tools/pattn_ab.py reads it.
+extern "C" int pt_paged_attention_plan(const LayerArgs *a, int *out) {
+  return pt::pattn::paged_attention(a, nullptr, out);
 }

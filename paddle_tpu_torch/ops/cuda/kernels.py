@@ -21,7 +21,8 @@ from . import layer
 
 __all__ = ["rms_norm_rows_cuda", "rms_norm_rows_ref", "gemm_xw_cuda",
            "gemm_xw_ref", "rope_kv_write_cuda", "rope_kv_write_ref",
-           "paged_attention_cuda", "paged_attention_ref"]
+           "paged_attention_cuda", "paged_attention_ref",
+           "paged_attention_split_ref"]
 
 
 def _cuda(t, name):
@@ -169,6 +170,55 @@ def paged_attention_ref(q, pool_k, pool_v, *, block_table, lengths=None,
     logits = logits.masked_fill(~live[:, None, None, :], -1e30)
     out = torch.einsum("mkgt,mtkd->mkgd", torch.softmax(logits, -1), vv)
     return out.reshape(M, Hq * D).to(q.dtype)
+
+
+def paged_attention_split_ref(q, pool_k, pool_v, *, block_table,
+                              lengths=None, start: int = 0,
+                              scale: Optional[float] = None, splits: int = 8):
+    """Plain version of the card kernel's split and fold, in fp32: row r's
+    live pages (positions ``0..p_r`` as :func:`paged_attention_ref`) cut
+    into ``splits`` contiguous ranges of ``ceil(pages / splits)`` whole
+    pages (a range past the row's end is empty), each range's softmax state
+    ``(m, l, acc)`` taken alone, then the ranges folded in rank order,
+    each rescaled to the largest ``m``.  Equal to
+    :func:`paged_attention_ref` up to the order of fp32 sums."""
+    M = q.shape[0]
+    NB, BS, Hkv, D = pool_k.shape
+    Hq = q.shape[1] // D
+    s = scale if scale is not None else 1.0 / math.sqrt(D)
+    bt = block_table.long().clamp(min=0)
+    if lengths is None:
+        bt = bt[None].expand(M, -1)
+        pos = start + torch.arange(M, device=q.device)
+    else:
+        pos = lengths.long()
+    MB = bt.shape[1]
+    n = (pos.clamp(min=0) + 1).clamp(max=MB * BS).tolist()
+    out = []
+    for r in range(M):
+        kk = pool_k[bt[r]].reshape(MB * BS, Hkv, D).float()
+        vv = pool_v[bt[r]].reshape(MB * BS, Hkv, D).float()
+        qg = q[r].reshape(Hkv, Hq // Hkv, D).float()
+        pages = -(-n[r] // BS)
+        per = -(-pages // splits)
+        parts = []
+        for k in range(splits):
+            lo = min(k * per, pages) * BS
+            hi = min(lo + per * BS, n[r])
+            if hi <= lo:
+                continue
+            logits = torch.einsum("kgd,tkd->kgt", qg, kk[lo:hi]) * s
+            m = logits.amax(-1, keepdim=True)
+            p = torch.exp(logits - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("kgt,tkd->kgd", p, vv[lo:hi])))
+        mx = parts[0][0]
+        for m, _, _ in parts[1:]:
+            mx = torch.maximum(mx, m)
+        num = sum(acc * torch.exp(m - mx) for m, _, acc in parts)
+        den = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+        out.append((num / den).reshape(Hq * D))
+    return torch.stack(out).to(q.dtype)
 
 
 def paged_attention_cuda(q, pool_k, pool_v, *, block_table, lengths=None,

@@ -114,8 +114,8 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
         raise ValueError(f"CUDA kernels need CUDA tensors, pool is on {dev}")
     code = dtype_code(dt)
     NB, BS, Hkv, D = pool_k.shape
-    if D % 32 or D > 256:
-        raise ValueError(f"head_dim {D} unsupported (multiple of 32, <= 256)")
+    if D not in (32, 64, 128):
+        raise ValueError(f"head_dim {D} unsupported (32, 64 or 128)")
     MB = block_table.shape[-1]
     H = F = 0
     t = {"pool_k": pool_k, "pool_v": pool_v, "block_table": block_table,
@@ -139,8 +139,9 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
                  x_mid=empty(M, H), hbuf=empty(M, F), out=empty(M, H))
     else:
         Hq = q.shape[-1] // D
-    if Hq % Hkv:
-        raise ValueError(f"{Hq} q heads are not a multiple of {Hkv} kv heads")
+    if Hq % Hkv or Hq > 8 * Hkv:
+        raise ValueError(f"{Hq} q heads are not a multiple of {Hkv} kv heads "
+                         "up to 8 q heads a kv head")
     shapes = {"pool_k": (NB, BS, Hkv, D), "pool_v": (NB, BS, Hkv, D),
               "block_table": (M, MB) if lengths is not None else (MB,),
               "lengths": (M,), "blk": (M,), "off": (M,), "cos": (M, D),

@@ -268,6 +268,91 @@ def test_rms_norm_rope_attention_kernels_match_plain(dt):
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------- paged attention
+# (G, head_dim): the group sizes 1, 2, 4, 8 at head_dim 128 and 64, and 32
+PATTN_GD = [(1, 128), (2, 64), (4, 128), (8, 64), (8, 128), (1, 32)]
+# prefill (Ts, start, G, head_dim): Ts 16 (one 16-row tile; after 600
+# positions the rows body), 17 (one mostly empty 64-row tile), 64, 100
+# (off the tiles) and 256 after 0, 5 and 300 positions
+PATTN_PRE = [(16, 0, 1, 128), (16, 300, 4, 64), (16, 600, 1, 128),
+             (17, 300, 1, 128),
+             (64, 5, 1, 128), (100, 5, 4, 128), (256, 0, 1, 64),
+             (256, 300, 1, 128), (256, 300, 8, 64)]
+
+
+def _pattn_inputs(dt, G, Dh, seed, rows, Hkv=2, BS=16, NB=400):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt)
+    return (t(rows, Hkv * G * Dh), t(NB, BS, Hkv, Dh), t(NB, BS, Hkv, Dh),
+            rng.permutation(NB))
+
+
+def _once_bitwise(fn, name):
+    """``fn()`` twice: one launch of ``name`` each, bit-identical."""
+    outs = []
+    for _ in range(2):
+        layer.reset_counts()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        assert {k: n for k, n in layer.launch_counts().items() if n} == {
+            name: 1}
+    assert torch.equal(outs[0], outs[1])
+    return outs[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("G,Dh", PATTN_GD,
+                         ids=[f"G{g}-D{d}" for g, d in PATTN_GD])
+def test_paged_attention_decode_matches_plain(dt, G, Dh):
+    """Rows at lengths 0, 15, 16, 17 (around one 16-row page), 2047 (the
+    table's 128 pages, over every one of the 8 splits) and 700 with an
+    unmapped (-1) entry inside its live pages; one launch, a second call
+    bit-identical."""
+    _need_card()
+    lengths = [0, 15, 16, 17, 2047, 700]
+    q, pk, pv, perm = _pattn_inputs(dt, G, Dh, 31, len(lengths))
+    bt = torch.full((len(lengths), 128), -1, dtype=torch.int32)
+    used = 0
+    for b, n in enumerate(lengths):
+        need = -(-(n + 1) // 16)
+        bt[b, :need] = torch.from_numpy(perm[used:used + need].astype(
+            np.int32))
+        used += need
+    bt[5, 10] = -1
+    kw = dict(block_table=bt.cuda(),
+              lengths=torch.tensor(lengths, dtype=torch.int32,
+                                   device="cuda"))
+    got = _once_bitwise(lambda: K.paged_attention_cuda(q, pk, pv, **kw),
+                        "paged_attention")
+    _close(got, K.paged_attention_ref(q, pk, pv, **kw), dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("Ts,start,G,Dh", PATTN_PRE,
+                         ids=[f"Ts{a}-s{b}-G{c}-D{d}"
+                              for a, b, c, d in PATTN_PRE])
+def test_paged_attention_prefill_matches_plain(dt, Ts, start, G, Dh):
+    """One sequence's chunk at positions start + r over a 64-page table
+    row with unmapped (-1) entries past its pages; bf16 chunks of more
+    than 16 rows take the tensor-core body (P rounded to bf16: within the
+    bf16 tolerance of the fp32 plain version); one launch, a second call
+    bit-identical."""
+    _need_card()
+    q, pk, pv, perm = _pattn_inputs(dt, G, Dh, 32, Ts)
+    bt = torch.full((64,), -1, dtype=torch.int32)
+    need = -(-(start + Ts) // 16)
+    bt[:need] = torch.from_numpy(perm[:need].astype(np.int32))
+    kw = dict(block_table=bt.cuda(), start=start)
+    got = _once_bitwise(lambda: K.paged_attention_cuda(q, pk, pv, **kw),
+                        "paged_attention")
+    _close(got, K.paged_attention_ref(q, pk, pv, **kw), dt)
+
+
 # ---------------------------------------------------------- flash attention
 # (B, Sq, Sk, Hq, Hkv, D, causal, segments, bias shape or None)
 FLASH_CASES = [(2, 128, 128, 4, 4, 128, True, False, None),
@@ -758,6 +843,27 @@ def test_norm_kernels_match_plain(dt, case):
             assert g_.dtype == r_.dtype and g_.shape == r_.shape
             tol = TOL[torch.float32 if r_.dtype == torch.float32 else dt]
             torch.testing.assert_close(g_.float(), r_.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("R,H", [(8192, 4096), (300, 4097), (3, 4096)],
+                         ids=["llama", "odd-H", "3-rows"])
+def test_rms_norm_fwd_row_loop_matches_plain(dt, R, H):
+    """The persistent row loop at the eager Llama step's rows, at an odd H
+    (the scalar loads) and with fewer rows than the grid keeps resident:
+    out and the fp32 inv against the plain version, one launch, a second
+    call bit-identical."""
+    _need_card()
+    from paddle_tpu_torch.ops import norms as tn
+    from paddle_tpu_torch.ops.cuda import norms as cn
+    x, _, _, w, _ = _norm_inputs(R, H, dt, 24)
+    got = _once_bitwise(lambda: torch.cat([o.float().reshape(-1) for o in
+                                           cn.rms_norm_fwd_cuda(x, w, 1e-5)]),
+                        "rms_norm_fwd")
+    out, inv = tn.rms_norm_ref(x, w, 1e-5)
+    _close(got[:R * H].reshape(R, H), out, dt)
+    torch.testing.assert_close(got[R * H:], inv, **TOL[torch.float32])
 
 
 @pytest.mark.gpu
