@@ -15,6 +15,9 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             with the untouched pages checked unchanged; then each kernel of
             the chain on its own (``rms_norm_rows`` at M 4 and 256 beside
             ``F.rms_norm``, the GEMMs at M 4, 16, 64 and 256,
+            ``rope_kv_write`` bit-equal to its plain version in fp32 and
+            bf16 at the decode case and at a prefill chunk of Ts 256
+            through blk / off, timed at both,
             ``paged_attention`` at the decode case and at a prefill chunk of
             Ts 256 after 300 positions, each of its calls twice,
             bit-identical, one launch each, beside one
@@ -446,6 +449,74 @@ def layer_bytes_ops(cfg, itemsize):
     return n_w * itemsize, n_mm
 
 
+def rope_kv_cases(lengths, bt, bt_row, cos_t, sin_t, BS, chunks=(256,)):
+    """{label: (rows, write-target keywords, cos rows, sin rows)} of
+    rope_kv_write: the decode case (its lengths and table) and prefill
+    chunks of ``chunks`` rows after 300 positions over ``bt_row``'s pages,
+    every row writing (through blk / off)."""
+    import torch
+    dec = lengths.long()
+    out = {"decode": (len(lengths), dict(block_table=bt, lengths=lengths),
+                      cos_t[dec], sin_t[dec])}
+    for Ts in chunks:
+        pos = 300 + torch.arange(Ts, device=bt_row.device)
+        out[f"prefill Ts {Ts}"] = (
+            Ts, dict(block_table=bt_row, blk=bt_row[pos // BS].contiguous(),
+                     off=(pos % BS).to(torch.int32)), cos_t[pos], sin_t[pos])
+    return out
+
+
+def rope_kv_inputs(M, Hq, Hkv, D, dt, gen, dev):
+    """[q, k, v] rows of one rope_kv_write call."""
+    import torch
+    return [torch.randn(M, n * D, device=dev, generator=gen).to(dt)
+            for n in (Hq, Hkv, Hkv)]
+
+
+def rope_kv_writes(tgt, pool):
+    """Rows of one call whose pool write is kept."""
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    NB, BS = pool.shape[:2]
+    return int(K._targets(tgt["block_table"], tgt.get("lengths"),
+                          tgt.get("blk"), tgt.get("off"), BS, NB)[2].sum())
+
+
+def rope_kv_bytes_ops(M, Hq, Hkv, D, writes, itemsize=2):
+    """Bytes and operations of one rope_kv_write call: q, k, v and the
+    cos / sin rows read once, q and k written back, the k and v rows of the
+    ``writes`` rows that keep their write stored into the pools; 3
+    operations (two products, a sum) for each of the 2 outputs a pair."""
+    return ((M * (Hq + 2 * Hkv) * D + 2 * M * D + M * (Hq + Hkv) * D
+             + 2 * writes * Hkv * D) * itemsize, 6 * M * (Hq + Hkv) * D)
+
+
+def check_rope_kv_bitwise(label, args, tgt):
+    """rope_kv_write on copies of ``args`` ([q, k, v, cos, sin, pool_k,
+    pool_v]) twice, one launch each, bit-identical, and bit-equal to
+    ``rope_kv_write_ref`` (q and k roped, both pools)."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    q, k, v, c, s, pk, pv = args
+    D = pk.shape[-1]
+
+    def flat(ts):
+        return torch.cat([t.flatten() for t in ts]).view(
+            torch.int16 if q.dtype == torch.bfloat16 else torch.int32)
+
+    def run():
+        qq, kk, gk, gv = q.clone(), k.clone(), pk.clone(), pv.clone()
+        K.rope_kv_write_cuda(qq, kk, v, c, s, gk, gv, **tgt)
+        return flat((qq, kk, gk, gv))
+    got = one_launch_bitwise("rope_kv_write", run)
+    rk, rv = pk.clone(), pv.clone()
+    rq, rkk = K.rope_kv_write_ref(q, k, v, c, s, rk, rv, head_dim=D, **tgt)
+    ref = flat((rq, rkk, rk, rv))
+    if not torch.equal(got, ref):
+        n = int((got != ref).sum())
+        raise SmokeFailure(f"{label}: {n} values differ from the plain "
+                           "version (bit-equal required)")
+
+
 def phase_kernels(cfg, results, dev="cuda"):
     """decode_block / prefill_block and their chain's kernels at 7B layer
     shapes against their plain versions; bf16 timings."""
@@ -745,32 +816,50 @@ def phase_kernels(cfg, results, dev="cuda"):
     k = torch.randn(4, Hkv * D, device=dev, generator=gen).to(dt)
     v = torch.randn(4, Hkv * D, device=dev, generator=gen).to(dt)
     rk, rv = pk.clone(), pv.clone()
-    rq, rkk = K.rope_kv_write_ref(q, k, v, cos, sin, rk, rv, head_dim=D,
-                                  block_table=bt, lengths=lengths)
-    gk, gv = pk.clone(), pv.clone()
-    gq, gkk = K.rope_kv_write_cuda(q.clone(), k.clone(), v, cos, sin, gk,
-                                   gv, block_table=bt, lengths=lengths)
-    err = max(check_close("rope_kv_write q", gq, rq, tol),
-              check_close("rope_kv_write k", gkk, rkk, tol),
-              check_close("rope_kv_write pool_k", gk, rk, tol),
-              check_close("rope_kv_write pool_v", gv, rv, tol))
-    qs, ks = q.clone(), k.clone()
-    ms, call = time_ms(lambda: K.rope_kv_write_cuda(
-        qs, ks, v, cos, sin, gk, gv, block_table=bt, lengths=lengths), 50,
-        per_launch=True)
-    plain, plain_call = time_ms(lambda: K.rope_kv_write_ref(
-        q, k, v, cos, sin, rk, rv, head_dim=D, block_table=bt,
-        lengths=lengths), 20)
-    bms, bby = bound_ms((4 * (Hq + 2 * Hkv) * D + 2 * 4 * D
-                         + 4 * (Hq + Hkv) * D + 3 * 2 * Hkv * D) * 2,
-                        6 * 4 * (Hq + Hkv) * D)
+    rq, _ = K.rope_kv_write_ref(q, k, v, cos, sin, rk, rv, head_dim=D,
+                                block_table=bt, lengths=lengths)
+    # rope_kv_write equals its plain version bit for bit (the fp32 kernel
+    # never contracts a product into an FMA): the decode case and a
+    # prefill chunk (Ts 256 after 300 positions, every row writing through
+    # blk / off), in fp32 and bf16; inputs from a generator of their own
+    rope_cases = rope_kv_cases(lengths, bt, bt_row, cos_t, sin_t, BS)
+    rgen = torch.Generator(device=dev)
+    rgen.manual_seed(SEED + 1)
+    rope_in = {}
+    for dtn in ("float32", "bfloat16"):
+        rdt = getattr(torch, dtn)
+        for label, (M, tgt, c, s) in rope_cases.items():
+            args = rope_kv_inputs(M, Hq, Hkv, D, rdt, rgen, dev) + [
+                c.to(rdt), s.to(rdt)] + [pool.to(rdt) for pool in pool32]
+            check_rope_kv_bitwise(f"rope_kv_write {label} {dtn}", args, tgt)
+            rope_in[(label, dtn)] = args
+    info(f"rope_kv_write: {', '.join(rope_cases)} in fp32 and bf16 "
+         "bit-equal to the plain version, one launch a call, calls "
+         "bit-identical")
+    rope = {}
+    for label, (M, tgt, _, _) in rope_cases.items():
+        q_, k_, v_, c_, s_, gk, gv = rope_in[(label, "bfloat16")]
+        ms, call = time_ms(lambda: K.rope_kv_write_cuda(
+            q_, k_, v_, c_, s_, gk, gv, **tgt), 50, per_launch=True)
+        plain, plain_call = time_ms(lambda: K.rope_kv_write_ref(
+            q_, k_, v_, c_, s_, gk, gv, head_dim=D, **tgt), 20)
+        bms, bby = bound_ms(*rope_kv_bytes_ops(M, Hq, Hkv, D,
+                                                rope_kv_writes(tgt, gk)))
+        rope[label] = dict(max_abs_err=0.0, ms=ms, call_ms=call,
+                           plain_ms=plain, plain_call_ms=plain_call,
+                           bound_ms=bms, bound_by=bby, library_ms=None)
     results.append(dict(
         name="rope_kv_write", route="cuda",
         source="paddle_tpu_torch/kernels/csrc/rope_kv.cu",
         replaces="paddle_tpu/ops/pallas/decode_block.py:535",
-        shape="B=4, 32 q + 32 kv heads, D=128", max_abs_err=err, ms=ms,
-        call_ms=call, plain_ms=plain, plain_call_ms=plain_call,
-        bound_ms=bms, bound_by=bby, library_ms=None))
+        shape="B=4, 32 q + 32 kv heads, D=128", **rope["decode"],
+        prefill=dict(shape="Ts=256 after 300 positions, every row writing",
+                     replaces="paddle_tpu/ops/pallas/prefill_block.py:435",
+                     **rope["prefill Ts 256"])))
+    rp = rope["prefill Ts 256"]
+    info(f"rope_kv_write prefill Ts=256: device {rp['ms']} ms (per call "
+         f"{rp['call_ms']:.4f}), plain {rp['plain_ms']} ms, bound "
+         f"{rp['bound_ms']:.5f} ms ({rp['bound_by']})")
 
     # paged attention alone: the decode case, then one prefill chunk (Ts
     # 256 after 300 positions) over bt_row; each call once more,
@@ -3070,6 +3159,18 @@ def fused_rope_checks(gen, dev, results):
                 2 * n * 2 + tables, 4 * n, results)
 
 
+def padding_mask(xs, ms, gen, dev):
+    """A fp32 padding mask of shape ``ms`` ([B, 1, S, S]) for logits ``xs``
+    [B, H, S, S]: each batch row keeps a random length of its S keys, -1e4
+    past it."""
+    import torch
+    lengths = torch.randint(1, xs[-1] + 1, (xs[0],), device=dev,
+                            generator=gen)
+    pad = torch.arange(xs[-1], device=dev)[None, :] >= lengths[:, None]
+    return torch.where(pad, -1e4, 0.0)[:, None, None, :].expand(ms) \
+        .contiguous()
+
+
 def fused_softmax_checks(gen, dev, results):
     import torch
     from paddle_tpu_torch.ops import fused as tf
@@ -3100,11 +3201,7 @@ def fused_softmax_checks(gen, dev, results):
         raise SmokeFailure(f"softmax_mask_fwd all-masked row: {got}")
     xs, ms_ = SOFTMAX_MAIN
     x = (torch.randn(xs, device=dev, generator=gen) * 3).to(torch.bfloat16)
-    lengths = torch.randint(1, xs[-1] + 1, (xs[0],), device=dev,
-                            generator=gen)
-    pad = torch.arange(xs[-1], device=dev)[None, :] >= lengths[:, None]
-    mask = torch.where(pad, -1e4, 0.0)[:, None, None, :].expand(ms_) \
-        .contiguous()
+    mask = padding_mask(xs, ms_, gen, dev)
     n = x.numel()
     # add, max, subtract, exp, sum, divide: 6 fp32 operations an element
     fused_entry("softmax_mask_fwd",

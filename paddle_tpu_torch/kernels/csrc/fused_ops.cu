@@ -50,16 +50,27 @@
 //     same arithmetic; the grid is capped at 16 blocks of 256 threads an
 //     SM.  rope's chunk is VEC pairs (d, d + D/2), so both halves of a
 //     row are vector loads.
-//   * softmax_mask: one warp per row, 8 rows a block, 4 values a lane per
-//     step (8 / 16-byte loads and stores where aligned).  On the TPU a
-//     VMEM block holds whole rows.  Here a row of up to 1024 values stays
-//     in the warp's registers (NV chunks a lane, a template: read once,
-//     max and sum of exp by shuffles, written once); a longer row, which
-//     would outgrow them, takes three passes over device memory (max, sum
-//     of exp, write), so any S >= 1 works.  The mask's leading-dim walk
-//     is unrolled, so its strides stay in the parameter bank (a dynamic
-//     index spilled the struct to local memory: 0.0746 ms at the main
-//     shape).  A row whose mask is all -inf gives NaN, as in JAX.
+//   * softmax_mask: on the TPU a VMEM block holds whole rows.  Here a row
+//     of up to 1024 values stays in registers (softmax_mask_fwd_rows:
+//     read once, max and sum of exp by shuffles, written once): LPR lanes
+//     a row with NC 16-byte chunks each (8 lanes of 1 or 2 chunks, then
+//     32 lanes of 1 to 8), so a warp takes 32 / LPR rows side by side,
+//     and each lane group loads the raw chunks of up to 8 rows before the
+//     first reduction.  The grid is the card's resident blocks (occupancy
+//     API, once per device and instance), each warp walking work items.
+//     Where the mask has a leading dim of stride 0 (the padding mask
+//     broadcast over the heads), the rows that share a mask row are one
+//     warp's item (or an even part of them, when they outnumber a pass):
+//     its mask row is loaded once into registers.  Other masks (full,
+//     strided, one value a row) load their own row beside x.  The
+//     division is v * RN(1 / sum) with one correction, which gives the
+//     IEEE quotient; masked values (exp 0) skip it.  A longer row, which
+//     would outgrow the registers, takes softmax_mask_fwd_long: one warp
+//     a row, three passes over device memory (max, sum of exp, write), so
+//     any S >= 1 works.  The mask's leading-dim walk is unrolled, so its
+//     strides stay in the parameter bank (a dynamic index spilled the
+//     struct to local memory: 0.0746 ms at the main shape).  A row whose
+//     mask is all -inf gives NaN, as in JAX.
 #include <math.h>
 #include <stdint.h>
 
@@ -190,10 +201,19 @@ static cudaError_t rope_launch(long long rows, int S, int H, int D,
 }
 
 // ------------------------------------------------------------ softmax
-__device__ __forceinline__ float warp_max(float v) {
+template <int LANES>
+__device__ __forceinline__ float group_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = LANES / 2; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -235,22 +255,6 @@ __device__ __forceinline__ void load_row4(const T *__restrict__ xr,
   for (int j = 0; j < 4; ++j) v[j] = xv[j] + mv[j];
 }
 
-template <typename T>
-__device__ __forceinline__ void store_row4(T *__restrict__ orow, int e0,
-                                           int S, int xvec, const float *v,
-                                           float sum) {
-  if (xvec && e0 + 4 <= S) {
-    typename Four<T>::type u;
-    T *t = reinterpret_cast<T *>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) t[j] = from_f<T>(v[j] / sum);
-    *reinterpret_cast<typename Four<T>::type *>(orow + e0) = u;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (e0 + j < S) orow[e0 + j] = from_f<T>(v[j] / sum);
-  }
-}
 
 // the mask offset of row r: the loop is unrolled so that the argument
 // struct's arrays are read with constant indices (a dynamic index would
@@ -270,13 +274,212 @@ __device__ __forceinline__ long long mask_offset(const SoftmaxArgs &a,
   return off;
 }
 
-// One warp a row.  NV > 0: a lane holds NV chunks of 4 values (rows up to
-// 128 * NV), so the row is read once, reduced in registers and written
-// once.  NV == 0: any longer row, in three passes over device memory (max,
-// sum of exp, write), each a loop over the row.
-template <typename T, typename M, int NV>
+// N values of T as one load / store (16-byte loads at most)
+template <typename T, int N>
+struct alignas(N * sizeof(T) < 16 ? N * sizeof(T) : 16) Vec {
+  T v[N];
+};
+
+// How the rows are dealt out.  share > 1: the rows ((g / inner) share +
+// h) inner + g % inner, h < share, of group g read one mask row (a leading
+// dim of the mask with stride 0 and size share, inner rows apart); item i
+// is rows [k per, (k + 1) per) of group i / parts, k = i % parts, one
+// warp's.  share 1: item i is the BATCH rows from i BATCH.
+struct SoftmaxPlan {
+  unsigned items, inner;
+  int share, parts, per, xvec, mvec;
+};
+
+// v / sum rounded to nearest, as the IEEE division gives it, with y =
+// RN(1 / sum) taken once a row.  For 2^-90 <= v <= 1 <= sum, q = RN(v y) is
+// within an ulp of v / sum and the residual v - sum q is exact in an FMA,
+// so RN(q + (v - sum q) y) is the rounded quotient (Markstein's theorem).
+// Smaller v take the division itself, except an exp that underflowed to 0
+// (a masked value), which stays 0: the division's range check sends a
+// zero dividend down its slow path, and a padding mask zeroes half a row.
+// tools/rope_softmax_ab.py holds the kernel bit for bit against a build
+// that divides every value, which takes 24.5 us at the BERT logits where
+// this one takes 12.8 (NVIDIA H100 80GB HBM3, 700 W).
+__device__ __forceinline__ float quot(float v, float sum, float y) {
+  if (v >= 0x1p-90f) {
+    const float q = __fmul_rn(v, y);
+    return __fmaf_rn(__fmaf_rn(-sum, q, v), y, q);
+  }
+  return v == 0.f ? 0.f : v / sum;
+}
+
+// the 4 values e0 .. e0 + 3 of a row divided by its sum (y = RN(1 / sum))
+template <typename T>
+__device__ __forceinline__ void store_row4(T *__restrict__ orow, int e0,
+                                           int S, int xvec, const float *v,
+                                           float sum, float y) {
+  if (xvec && e0 + 4 <= S) {
+    typename Four<T>::type u;
+    T *t = reinterpret_cast<T *>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t[j] = from_f<T>(quot(v[j], sum, y));
+    *reinterpret_cast<typename Four<T>::type *>(orow + e0) = u;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (e0 + j < S) orow[e0 + j] = from_f<T>(quot(v[j], sum, y));
+  }
+}
+
+// Rows a lane group holds at once, as raw 16-byte chunks: at most 32
+// registers of x and, where each row reads its own mask row, its mask
+// chunks; 8 rows at most.
+template <typename T, typename M, int NC, bool SHARED>
+__host__ __device__ constexpr int softmax_rows_u() {
+  constexpr int regs =
+      NC * (4 + (SHARED ? 0 : 16 / (int)sizeof(T) * (int)sizeof(M) / 4));
+  return 32 / regs > 8 ? 8 : (32 / regs < 1 ? 1 : 32 / regs);
+}
+
+// the V values of x at e0 of row xr (-inf past S or in a dead row)
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_x(const T *__restrict__ xr, int e0,
+                                            int S, int xvec, bool live) {
+  Vec<T, V> u;
+  if (xvec && live && e0 < S) return *reinterpret_cast<const Vec<T, V> *>(
+      xr + e0);
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    u.v[j] = !xvec && live && e0 + j < S ? xr[e0 + j] : from_f<T>(-INFINITY);
+  return u;
+}
+
+// the V mask values at e0 of mask row mr (0 past S or in a dead row)
+template <typename M, int V>
+__device__ __forceinline__ Vec<M, V> load_m(const M *__restrict__ mr,
+                                            long long mcol, int e0, int S,
+                                            int mvec, bool live) {
+  Vec<M, V> u;
+  if (mvec && live && e0 < S) return *reinterpret_cast<const Vec<M, V> *>(
+      mr + e0);
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    u.v[j] = !mvec && live && e0 + j < S ? mr[(e0 + j) * mcol]
+                                         : from_f<M>(0.f);
+  return u;
+}
+
+// Rows of up to LPR * NC * V values (V = 16 / sizeof(T)), LPR lanes a row,
+// 32 / LPR rows a warp side by side, each lane NC chunks of V values of a
+// row (one 16-byte x load a chunk).  A persistent grid: each warp walks
+// items.  SHARED (the mask has a broadcast leading dim): an item is the
+// rows that read one mask row, or an even part of them, and the mask row
+// is loaded once into registers; else an item is BATCH rows, each with its
+// own mask row.  A pass loads the raw x (and own mask) chunks of U rows a
+// lane group, all before any reduction, then reduces row by row.
+// Out-of-row values read as x -inf, mask 0: they leave the max alone and
+// add exp(-inf) = 0 to the sum (an all -inf row is NaN either way).
+template <typename T, typename M, int LPR, int NC, bool SHARED>
 __global__ void __launch_bounds__(THREADS)
-    softmax_mask_fwd_kernel(SoftmaxArgs a, int xvec, int mvec) {
+    softmax_mask_fwd_rows(SoftmaxArgs a, SoftmaxPlan p) {
+  constexpr int V = 16 / sizeof(T), RPW = 32 / LPR;
+  constexpr int U = softmax_rows_u<T, M, NC, SHARED>(), BATCH = RPW * U;
+  typedef Vec<T, V> XV;
+  typedef Vec<M, V> MV;
+  const int lane = threadIdx.x & 31, grp = lane / LPR, t = lane % LPR;
+  const int S = a.S;
+  const T *__restrict__ X = static_cast<const T *>(a.x);
+  const M *__restrict__ MK = static_cast<const M *>(a.mask);
+  T *__restrict__ O = static_cast<T *>(a.out);
+  const unsigned nw = gridDim.x * (THREADS / 32);
+  for (unsigned it = blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+       it < p.items; it += nw) {
+    const unsigned g = it / p.parts;
+    const long long base =
+        SHARED ? (long long)(g / p.inner) * p.share * p.inner + g % p.inner
+               : (long long)it * BATCH;
+    const long long step = SHARED ? p.inner : 1;
+    const int first = SHARED ? (int)(it % p.parts) * p.per : 0;
+    const int end = SHARED ? min(p.share, first + p.per) : BATCH;
+    MV mk[NC];
+    if (SHARED) {
+      const M *mr = MK + mask_offset(a, (unsigned)base);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        mk[c] = load_m<M, V>(mr, a.mcol, (t + LPR * c) * V, S, p.mvec, true);
+    }
+    for (int h0 = first; h0 < end; h0 += BATCH) {
+      XV xr[U][NC];
+      MV mo[SHARED ? 1 : U][NC];
+      bool live[U];
+      long long row[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int h = h0 + u * RPW + grp;
+        row[u] = base + h * step;
+        live[u] = h < end && row[u] < a.R;
+        const T *xrow = X + row[u] * S;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          xr[u][c] = load_x<T, V>(xrow, (t + LPR * c) * V, S, p.xvec,
+                                  live[u]);
+        if (!SHARED) {
+          const M *mr = MK + mask_offset(a, (unsigned)row[u]);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            mo[SHARED ? 0 : u][c] = load_m<M, V>(mr, a.mcol,
+                                                 (t + LPR * c) * V, S,
+                                                 p.mvec, live[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        // rows all past the item (warp-uniform) compute nothing
+        if (h0 + u * RPW >= end) continue;
+        float v[NC][V], mx = -INFINITY, sum = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            v[c][j] = to_f<T>(xr[u][c].v[j]) +
+                      to_f<M>((SHARED ? mk[c] : mo[SHARED ? 0 : u][c]).v[j]);
+            mx = fmaxf(mx, v[c][j]);
+          }
+        mx = group_max<LPR>(mx);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            v[c][j] = expf(v[c][j] - mx);
+            sum += v[c][j];
+          }
+        sum = group_sum<LPR>(sum);
+        if (!live[u]) continue;
+        const float y = __frcp_rn(sum);
+        T *orow = O + row[u] * S;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int e0 = (t + LPR * c) * V;
+          if (p.xvec) {
+            if (e0 < S) {
+              XV o;
+#pragma unroll
+              for (int j = 0; j < V; ++j)
+                o.v[j] = from_f<T>(quot(v[c][j], sum, y));
+              *reinterpret_cast<XV *>(orow + e0) = o;
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < V; ++j)
+              if (e0 + j < S)
+                orow[e0 + j] = from_f<T>(quot(v[c][j], sum, y));
+          }
+        }
+      }
+    }
+  }
+}
+
+// Rows longer than 1024 values: one warp a row, in three passes over
+// device memory (max, sum of exp, write), each a loop over the row.
+template <typename T, typename M>
+__global__ void __launch_bounds__(THREADS)
+    softmax_mask_fwd_long(SoftmaxArgs a, int xvec, int mvec) {
   constexpr int ROWS = THREADS / 32;
   const long long row = (long long)blockIdx.x * ROWS + (threadIdx.x >> 5);
   if (row >= a.R) return;
@@ -285,32 +488,6 @@ __global__ void __launch_bounds__(THREADS)
   const M *mr = static_cast<const M *>(a.mask) + mask_offset(a, (unsigned)row);
   T *orow = static_cast<T *>(a.out) + row * S;
   float mx = -INFINITY, sum = 0.f;
-  if (NV > 0) {
-    float v[NV > 0 ? NV : 1][4];
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      const int e0 = (lane + 32 * c) * 4;
-      load_row4<T, M>(xr, mr, a.mcol, e0, S, xvec, mvec, v[c]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (e0 + j < S) mx = fmaxf(mx, v[c][j]);
-    }
-    mx = warp_max(mx);
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      const int e0 = (lane + 32 * c) * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[c][j] = expf(v[c][j] - mx);
-        if (e0 + j < S) sum += v[c][j];
-      }
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int c = 0; c < NV; ++c)
-      store_row4<T>(orow, (lane + 32 * c) * 4, S, xvec, v[c], sum);
-    return;
-  }
   float v[4];
   for (int e0 = lane * 4; e0 < S; e0 += 128) {
     load_row4<T, M>(xr, mr, a.mcol, e0, S, xvec, mvec, v);
@@ -318,7 +495,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < 4; ++j)
       if (e0 + j < S) mx = fmaxf(mx, v[j]);
   }
-  mx = warp_max(mx);
+  mx = group_max<32>(mx);
   for (int e0 = lane * 4; e0 < S; e0 += 128) {
     load_row4<T, M>(xr, mr, a.mcol, e0, S, xvec, mvec, v);
 #pragma unroll
@@ -326,34 +503,118 @@ __global__ void __launch_bounds__(THREADS)
       if (e0 + j < S) sum += expf(v[j] - mx);
   }
   sum = warp_sum(sum);
+  const float y = __frcp_rn(sum);
   for (int e0 = lane * 4; e0 < S; e0 += 128) {
     load_row4<T, M>(xr, mr, a.mcol, e0, S, xvec, mvec, v);
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[j] = expf(v[j] - mx);
-    store_row4<T>(orow, e0, S, xvec, v, sum);
+    store_row4<T>(orow, e0, S, xvec, v, sum, y);
   }
 }
 
-template <typename T, typename M, int NV>
-static cudaError_t softmax_launch_nv(const SoftmaxArgs *a, int xvec,
-                                     int mvec, cudaStream_t st) {
-  constexpr int ROWS = THREADS / 32;
-  softmax_mask_fwd_kernel<T, M, NV>
-      <<<(unsigned)((a->R + ROWS - 1) / ROWS), THREADS, 0, st>>>(*a, xvec,
-                                                                mvec);
+// blocks of a softmax_mask_fwd_rows instance the card keeps resident, per
+// (x, mask dtypes, row shape, device) (a table of this file's own: a
+// function-local static of a template would be one object across every
+// loaded copy of the library)
+constexpr int SM_SHAPES = 6, MAX_DEVICES = 64;
+static int g_softmax_resident[4][SM_SHAPES][2][MAX_DEVICES];
+
+template <typename T, typename M, int LPR, int NC, bool SHARED>
+static cudaError_t softmax_rows_launch(const SoftmaxArgs *a, SoftmaxPlan p,
+                                       int *resident, cudaStream_t st) {
+  constexpr int WPB = THREADS / 32;
+  constexpr int BATCH = 32 / LPR * softmax_rows_u<T, M, NC, SHARED>();
+  void (*kern)(SoftmaxArgs, SoftmaxPlan) =
+      softmax_mask_fwd_rows<T, M, LPR, NC, SHARED>;
+  int cap = resident ? *resident : 0;
+  if (cap == 0) {
+    int dev = 0, per = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kern, THREADS,
+                                                        0);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cap = (per > 0 ? per : 1) * sms;
+    if (resident) *resident = cap;
+  }
+  if (SHARED) {
+    // the fewest items of one pass: a group's rows over parts warps
+    p.parts = (p.share + BATCH - 1) / BATCH;
+    p.per = (p.share + p.parts - 1) / p.parts;
+    p.parts = (p.share + p.per - 1) / p.per;
+    p.items = (unsigned)(a->R / p.share) * p.parts;
+  } else {
+    p.items = (unsigned)((a->R + BATCH - 1) / BATCH);
+  }
+  const unsigned want = (p.items + WPB - 1) / WPB;
+  kern<<<want < (unsigned)cap ? want : (unsigned)cap, THREADS, 0, st>>>(*a,
+                                                                        p);
   return cudaGetLastError();
 }
 
+// the instance for row shape k: 1..8 chunks a row on 8 lanes of one chunk,
+// 9..16 on 8 lanes of two, then 32 lanes of 1, 2, 4, 8 chunks each (at 16
+// chunks, the BERT logits' rows, 8 lanes of two took 12.8-13.0 us, 16
+// lanes of one 13.7 at best, 4 lanes of four 21.4: tools/rope_softmax_ab.py
+// on an NVIDIA H100 80GB HBM3 at 700 W)
+template <typename T, typename M, bool SHARED>
+static cudaError_t softmax_rows_shape(const SoftmaxArgs *a, SoftmaxPlan p,
+                                      int k, int *res, cudaStream_t st) {
+  switch (k) {
+    case 0: return softmax_rows_launch<T, M, 8, 1, SHARED>(a, p, res, st);
+    case 1: return softmax_rows_launch<T, M, 8, 2, SHARED>(a, p, res, st);
+    case 2: return softmax_rows_launch<T, M, 32, 1, SHARED>(a, p, res, st);
+    case 3: return softmax_rows_launch<T, M, 32, 2, SHARED>(a, p, res, st);
+    case 4: return softmax_rows_launch<T, M, 32, 4, SHARED>(a, p, res, st);
+  }
+  if constexpr (sizeof(T) == 4)                  // fp32 rows of 513..1024
+    return softmax_rows_launch<T, M, 32, 8, SHARED>(a, p, res, st);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, typename M>
-static cudaError_t softmax_launch(const SoftmaxArgs *a, cudaStream_t st) {
-  const int xvec = a->S % 4 == 0 && ((uintptr_t)a->x % (4 * sizeof(T))) == 0;
-  int mvec = a->mcol == 1 && ((uintptr_t)a->mask % (4 * sizeof(M))) == 0;
-  for (int i = 0; i < a->nd; ++i) mvec = mvec && a->mstride[i] % 4 == 0;
-  if (a->S <= 128) return softmax_launch_nv<T, M, 1>(a, xvec, mvec, st);
-  if (a->S <= 256) return softmax_launch_nv<T, M, 2>(a, xvec, mvec, st);
-  if (a->S <= 512) return softmax_launch_nv<T, M, 4>(a, xvec, mvec, st);
-  if (a->S <= 1024) return softmax_launch_nv<T, M, 8>(a, xvec, mvec, st);
-  return softmax_launch_nv<T, M, 0>(a, xvec, mvec, st);
+static cudaError_t softmax_launch(const SoftmaxArgs *a, int which,
+                                  cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const int S = a->S;
+  SoftmaxPlan p{0, 1, 1, 1, 1, 0, 0};
+  if (S > 1024) {
+    const int xvec =
+        S % 4 == 0 && ((uintptr_t)a->x % (4 * sizeof(T))) == 0;
+    int mvec = a->mcol == 1 && ((uintptr_t)a->mask % (4 * sizeof(M))) == 0;
+    for (int i = 0; i < a->nd; ++i) mvec = mvec && a->mstride[i] % 4 == 0;
+    constexpr int ROWS = THREADS / 32;
+    softmax_mask_fwd_long<T, M>
+        <<<(unsigned)((a->R + ROWS - 1) / ROWS), THREADS, 0, st>>>(*a, xvec,
+                                                                  mvec);
+    return cudaGetLastError();
+  }
+  // the rows that share a mask row: the broadcast (stride-0) leading dim
+  // with the most rows
+  for (int i = 0; i < a->nd; ++i)
+    if (a->mstride[i] == 0 && a->size[i] > p.share) {
+      p.share = (int)a->size[i];
+      p.inner = 1;
+      for (int j = i + 1; j < a->nd; ++j) p.inner *= (unsigned)a->size[j];
+    }
+  p.xvec = S % V == 0 && ((uintptr_t)a->x & 15) == 0 &&
+           ((uintptr_t)a->out & 15) == 0;
+  const unsigned malign = V * sizeof(M) < 16 ? V * sizeof(M) : 16;
+  p.mvec = S % V == 0 && a->mcol == 1 && (uintptr_t)a->mask % malign == 0;
+  for (int i = 0; i < a->nd; ++i) p.mvec = p.mvec && a->mstride[i] % V == 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int n = (S + V - 1) / V;                 // chunks of V values a row
+  const int k = n <= 8 ? 0 : n <= 16 ? 1 : n <= 32 ? 2 : n <= 64 ? 3
+              : n <= 128 ? 4 : 5;
+  const bool shared = p.share > 1;
+  int *res = dev < MAX_DEVICES ? &g_softmax_resident[which][k][shared][dev]
+                               : nullptr;
+  if (shared) return softmax_rows_shape<T, M, true>(a, p, k, res, st);
+  return softmax_rows_shape<T, M, false>(a, p, k, res, st);
 }
 
 static cudaError_t softmax_mask(const SoftmaxArgs *a, cudaStream_t st) {
@@ -365,10 +626,10 @@ static cudaError_t softmax_mask(const SoftmaxArgs *a, cudaStream_t st) {
     if (a->size[i] <= 0 || a->size[i] >= (1LL << 31))
       return cudaErrorInvalidValue;
   const int d = a->dtype, m = a->mask_dtype;
-  if (d == PT_BF16 && m == PT_F32) return softmax_launch<bf16, float>(a, st);
-  if (d == PT_BF16 && m == PT_BF16) return softmax_launch<bf16, bf16>(a, st);
-  if (d == PT_F32 && m == PT_F32) return softmax_launch<float, float>(a, st);
-  if (d == PT_F32 && m == PT_BF16) return softmax_launch<float, bf16>(a, st);
+  if (d == PT_BF16 && m == PT_F32) return softmax_launch<bf16, float>(a, 0, st);
+  if (d == PT_BF16 && m == PT_BF16) return softmax_launch<bf16, bf16>(a, 1, st);
+  if (d == PT_F32 && m == PT_F32) return softmax_launch<float, float>(a, 2, st);
+  if (d == PT_F32 && m == PT_BF16) return softmax_launch<float, bf16>(a, 3, st);
   return cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,7 @@
 //
 // Part of the decode_block / prefill_block chain (replaces the RoPE and
 // paged-append stages of paddle_tpu/ops/pallas/decode_block.py::_kernel
-// and the pool scatter after prefill_block.py::_kernel).  Bound by bytes
-// (a few KB per row); one block per row.
+// and the pool scatter after prefill_block.py::_kernel).
 //
 // The write target of row r:
 //   decode  (lengths != 0): pool[bt[r, lengths[r] / BS], lengths[r] % BS]
@@ -13,62 +12,151 @@
 // page is unmapped (-1: an inactive decode slot), lies past the table, or
 // is out of the pool (the engine routes a bucket's padded tail to page
 // NB, as the JAX engine does).
+//
+// Arithmetic: x*cos + rotate_half(x)*sin with each product and the sum
+// rounded to T, as the plain version's separate torch ops round them
+// (ops/cuda/kernels.py rope_kv_write_ref); __fmul_rn / __fadd_rn keep the
+// fp32 instance from contracting them into an FMA, so the kernel equals
+// the plain version bit for bit in both dtypes.
+//
+// What bounds it on an H100: at decode (B 4, llama_7b: 230 KB) one launch
+// and one dependent round trip to memory, far above the 0.06 us byte
+// bound; at prefill (Ts 256: 14.8 MB) bytes.  Design:
+//   * One thread a 16-byte chunk of one head of one row: 16 / sizeof(T)
+//     consecutive values of the head's first half and the matching ones of
+//     its second half (with the same slices of cos and sin), so a head of
+//     D 128 takes 8 lanes in bf16 (16 in fp32), several heads a warp, and
+//     the rows' (Hq + Hkv) heads spread over the card in blocks of 64
+//     threads (256 head-rows at decode B 4, 16 384 at a Ts 256 prefill
+//     chunk; 64 threads a block took 1.98 us at decode where 128 took 2.02
+//     and 256 2.41, tools/rope_softmax_ab.py on an NVIDIA H100 80GB HBM3
+//     at 700 W).  A kv head's threads also carry its v row.  D off the
+//     chunks or an unaligned pointer takes the same kernel one pair a
+//     thread.
+//   * No loop: each thread issues all of its loads (q / k halves, cos,
+//     sin, v, and the pool target: the row's length and then its page, or
+//     its blk / off; the lanes of a row read one address) before its
+//     first store, and every pointer is __restrict__, so nothing waits on
+//     a store.  The target gates only the pool stores.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace pt {
 
+constexpr int ROPE_THREADS = 64;
+
+// C values of T as one load / store (16 bytes when C = 16 / sizeof(T))
+template <typename T, int C>
+struct alignas(C * sizeof(T)) Pack {
+  T v[C];
+};
+
+struct RopeGeo {
+  int M, Hq, Hkv, D, BS, NB, MB;
+};
+
+// a*b rounded to T, plus c*d rounded to T, the sum rounded to T
 template <typename T>
-__global__ void rope_kv_write_kernel(LayerArgs a) {
-  const int r = blockIdx.x, D = a.D, D2 = a.D / 2;
-  const T *cs = (const T *)a.cos + (size_t)r * D;
-  const T *sn = (const T *)a.sin + (size_t)r * D;
-  T *q = (T *)a.q + (size_t)r * a.Hq * D;
-  T *k = (T *)a.k + (size_t)r * a.Hkv * D;
-  const T *v = (const T *)a.v + (size_t)r * a.Hkv * D;
+__device__ __forceinline__ T rope_sum(float a, float b, float c, float d) {
+  return from_f<T>(__fadd_rn(rnd<T>(__fmul_rn(a, b)), rnd<T>(__fmul_rn(c, d))));
+}
 
-  int phys, o;
-  if (a.lengths) {
-    int pos = a.lengths[r], pi = pos / a.BS;
-    phys = (pos >= 0 && pi < a.MB) ? a.block_table[(size_t)r * a.MB + pi] : -1;
-    o = pos % a.BS;
-  } else {
-    phys = a.blk[r];
-    o = a.off[r];
-  }
-  const bool write = phys >= 0 && phys < a.NB && o >= 0 && o < a.BS;
-  const size_t base = ((size_t)phys * a.BS + o) * a.Hkv * D;
-  T *pk = (T *)a.pool_k + base;
-  T *pv = (T *)a.pool_v + base;
+template <typename T, int C>
+__global__ void __launch_bounds__(ROPE_THREADS)
+    rope_kv_write_kernel(T *__restrict__ q, T *__restrict__ k,
+                         const T *__restrict__ v, const T *__restrict__ cs,
+                         const T *__restrict__ sn,
+                         const int *__restrict__ bt,
+                         const int *__restrict__ lengths,
+                         const int *__restrict__ blk,
+                         const int *__restrict__ off, T *__restrict__ pool_k,
+                         T *__restrict__ pool_v, RopeGeo g) {
+  typedef Pack<T, C> P;
+  const int D2 = g.D / 2, CH = D2 / C, heads = g.Hq + g.Hkv;
+  const long long slot = (long long)blockIdx.x * ROPE_THREADS + threadIdx.x;
+  if (slot >= (long long)g.M * heads * CH) return;
+  const long long rh = slot / CH;
+  const int d = (int)(slot - rh * CH) * C;
+  const int r = (int)(rh / heads), h = (int)(rh - (long long)r * heads);
+  const bool isk = h >= g.Hq;
+  const int hk = h - g.Hq;
 
-  // x*cos + rotate_half(x)*sin, each product and the sum rounded to T
-  for (int i = threadIdx.x; i < (a.Hq + a.Hkv) * D2; i += blockDim.x) {
-    bool isq = i < a.Hq * D2;
-    int j = isq ? i : i - a.Hq * D2;
-    int h = j / D2, d = j % D2;
-    T *row = (isq ? q : k) + h * D;
-    float x1 = to_f<T>(row[d]), x2 = to_f<T>(row[d + D2]);
-    float n1 = rnd<T>(x1 * to_f<T>(cs[d])) + rnd<T>(-x2 * to_f<T>(sn[d]));
-    float n2 = rnd<T>(x2 * to_f<T>(cs[d + D2])) +
-               rnd<T>(x1 * to_f<T>(sn[d + D2]));
-    T t1 = from_f<T>(n1), t2 = from_f<T>(n2);
-    row[d] = t1;
-    row[d + D2] = t2;
-    if (!isq && write) {
-      pk[h * D + d] = t1;
-      pk[h * D + d + D2] = t2;
+  int pos = -1, phys = -1, o = 0;
+  if (isk) {
+    if (lengths) {
+      pos = lengths[r];
+    } else {
+      phys = blk[r];
+      o = off[r];
     }
   }
-  if (write)
-    for (int i = threadIdx.x; i < a.Hkv * D; i += blockDim.x) pv[i] = v[i];
+  T *x = isk ? k + ((size_t)r * g.Hkv + hk) * g.D
+             : q + ((size_t)r * g.Hq + h) * g.D;
+  const T *cr = cs + (size_t)r * g.D, *sr = sn + (size_t)r * g.D;
+  const P x1 = *reinterpret_cast<const P *>(x + d);
+  const P x2 = *reinterpret_cast<const P *>(x + D2 + d);
+  const P c1 = *reinterpret_cast<const P *>(cr + d);
+  const P c2 = *reinterpret_cast<const P *>(cr + D2 + d);
+  const P s1 = *reinterpret_cast<const P *>(sr + d);
+  const P s2 = *reinterpret_cast<const P *>(sr + D2 + d);
+  P v1, v2;
+  if (isk) {
+    const T *vr = v + ((size_t)r * g.Hkv + hk) * g.D;
+    v1 = *reinterpret_cast<const P *>(vr + d);
+    v2 = *reinterpret_cast<const P *>(vr + D2 + d);
+    if (lengths && pos >= 0) {
+      const int pi = pos / g.BS;
+      if (pi < g.MB) phys = bt[(size_t)r * g.MB + pi];
+      o = pos % g.BS;
+    }
+  }
+
+  P y1, y2;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const float a1 = to_f<T>(x1.v[j]), a2 = to_f<T>(x2.v[j]);
+    y1.v[j] = rope_sum<T>(a1, to_f<T>(c1.v[j]), -a2, to_f<T>(s1.v[j]));
+    y2.v[j] = rope_sum<T>(a2, to_f<T>(c2.v[j]), a1, to_f<T>(s2.v[j]));
+  }
+  *reinterpret_cast<P *>(x + d) = y1;
+  *reinterpret_cast<P *>(x + D2 + d) = y2;
+  if (isk && phys >= 0 && phys < g.NB && o >= 0 && o < g.BS) {
+    const size_t base = (((size_t)phys * g.BS + o) * g.Hkv + hk) * g.D;
+    *reinterpret_cast<P *>(pool_k + base + d) = y1;
+    *reinterpret_cast<P *>(pool_k + base + D2 + d) = y2;
+    *reinterpret_cast<P *>(pool_v + base + d) = v1;
+    *reinterpret_cast<P *>(pool_v + base + D2 + d) = v2;
+  }
+}
+
+static bool aligned16(const void *p) { return ((uintptr_t)p & 15) == 0; }
+
+template <typename T>
+static cudaError_t rope_kv_launch(const LayerArgs *a, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = (a->D / 2) % VEC == 0 && aligned16(a->q) &&
+                   aligned16(a->k) && aligned16(a->v) && aligned16(a->cos) &&
+                   aligned16(a->sin) && aligned16(a->pool_k) &&
+                   aligned16(a->pool_v);
+  const RopeGeo g{a->M, a->Hq, a->Hkv, a->D, a->BS, a->NB, a->MB};
+  const long long n =
+      (long long)a->M * (a->Hq + a->Hkv) * (a->D / 2 / (vec ? VEC : 1));
+  const unsigned grid = (unsigned)((n + ROPE_THREADS - 1) / ROPE_THREADS);
+  auto kern = vec ? rope_kv_write_kernel<T, VEC> : rope_kv_write_kernel<T, 1>;
+  kern<<<grid, ROPE_THREADS, 0, s>>>(
+      (T *)a->q, (T *)a->k, (const T *)a->v, (const T *)a->cos,
+      (const T *)a->sin, a->block_table, a->lengths, a->blk, a->off,
+      (T *)a->pool_k, (T *)a->pool_v, g);
+  return cudaGetLastError();
 }
 
 }  // namespace pt
 
 cudaError_t launch_rope_kv_write(const LayerArgs *a, cudaStream_t s) {
   if (a->M <= 0) return cudaSuccess;
-  if (a->dtype == PT_BF16)
-    pt::rope_kv_write_kernel<pt::bf16><<<a->M, 128, 0, s>>>(*a);
-  else
-    pt::rope_kv_write_kernel<float><<<a->M, 128, 0, s>>>(*a);
-  return count_launch(CNT_ROPE_KV_WRITE, cudaGetLastError());
+  if (a->D <= 0 || a->D % 2) return cudaErrorInvalidValue;
+  return count_launch(CNT_ROPE_KV_WRITE,
+                      a->dtype == PT_BF16 ? pt::rope_kv_launch<pt::bf16>(a, s)
+                                          : pt::rope_kv_launch<float>(a, s));
 }

@@ -268,6 +268,103 @@ def test_rms_norm_rope_attention_kernels_match_plain(dt):
     torch.cuda.synchronize()
 
 
+# rope_kv_write at each head_dim the layer takes, with 1, 2, 4 and 8 q
+# heads a kv head
+ROPE_KV_GD = [(D_, G) for D_ in (32, 64, 128) for G in (1, 2, 4, 8)]
+
+
+def _rope_kv_inputs(dt, Dh, G, mode, seed=11, Hkv=2, BS=4, NB=24, MB=3):
+    """q, k, v, cos, sin, pools and the write targets' keywords.  Decode:
+    rows that write (length 5 and 0), an inactive slot (table all -1), a
+    length past the table and a page >= NB, all three dropped.  Prefill:
+    7 rows through blk / off, the last 2 a padded tail routed to page NB."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dt)
+    rows = 5 if mode == "decode" else 7
+    if mode == "decode":
+        bt = torch.full((rows, MB), -1, dtype=torch.int32)
+        bt[0, :2] = torch.tensor([3, 7])
+        bt[1, 0] = 9
+        bt[3] = torch.tensor([1, 2, 4])
+        bt[4, 0] = NB + 3
+        kw = dict(block_table=bt.cuda(), lengths=torch.tensor(
+            [5, 0, 0, MB * BS, 2], dtype=torch.int32, device="cuda"))
+    else:
+        pos = 6 + torch.arange(rows)
+        bt = torch.tensor([11, 5, 8, 2], dtype=torch.int32)
+        blk = bt[pos // BS]
+        blk[5:] = NB
+        kw = dict(block_table=bt.cuda(), blk=blk.cuda(),
+                  off=(pos % BS).to(torch.int32).cuda())
+    return (t(rows, Hkv * G * Dh), t(rows, Hkv * Dh), t(rows, Hkv * Dh),
+            t(rows, Dh), t(rows, Dh), t(NB, BS, Hkv, Dh), t(NB, BS, Hkv, Dh),
+            kw)
+
+
+def _rope_kv_ref(q, k, v, cos, sin, pk, pv, kw):
+    pk, pv = pk.clone(), pv.clone()
+    rq, rk = K.rope_kv_write_ref(q, k, v, cos, sin, pk, pv,
+                                 head_dim=pk.shape[-1], **kw)
+    return torch.cat([t.flatten() for t in (rq, rk, pk, pv)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("Dh,G", ROPE_KV_GD,
+                         ids=[f"D{d}-G{g}" for d, g in ROPE_KV_GD])
+def test_rope_kv_write_equals_plain_bit_for_bit(dt, mode, Dh, G):
+    """q and k roped in place and the pool rows written equal the plain
+    version bit for bit, dropped writes leave the pool alone; each call
+    one launch, a second call bit-identical."""
+    _need_card()
+    q, k, v, cos, sin, pk, pv, kw = _rope_kv_inputs(dt, Dh, G, mode)
+
+    def run():
+        qq, kk, gk, gv = q.clone(), k.clone(), pk.clone(), pv.clone()
+        K.rope_kv_write_cuda(qq, kk, v, cos, sin, gk, gv, **kw)
+        return torch.cat([t.flatten() for t in (qq, kk, gk, gv)])
+    got = _once_bitwise(run, "rope_kv_write")
+    assert torch.equal(_bits(got),
+                       _bits(_rope_kv_ref(q, k, v, cos, sin, pk, pv, kw)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+def test_rope_kv_write_scalar_path_equals_plain(dt):
+    """Pointers off 16 bytes (the C entry point takes them; the wrapper
+    refuses them) run one pair a thread, bit-equal all the same."""
+    _need_card()
+    import ctypes
+    from paddle_tpu_torch.kernels import build
+    q, k, v, cos, sin, pk, pv, kw = _rope_kv_inputs(dt, 64, 4, "decode")
+    ref = _rope_kv_ref(q, k, v, cos, sin, pk, pv, kw)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        buf[1:] = t.flatten()
+        return buf[1:].view(t.shape)
+    qq, kk, vv, cc, ss, gk, gv = map(shifted, (q, k, v, cos, sin, pk, pv))
+    a, _ = layer.layer_args(pk, pv, kw["block_table"], M=q.shape[0],
+                            lengths=kw["lengths"], cos=cos, sin=sin, q=q,
+                            k=k, v=v)
+    for name, t in (("q", qq), ("k", kk), ("v", vv), ("cos", cc),
+                    ("sin", ss), ("pool_k", gk), ("pool_v", gv)):
+        setattr(a, name, t.data_ptr())
+    layer.reset_counts()
+    build.check(build.library().pt_rope_kv_write(ctypes.byref(a),
+                                                  layer.stream_handle()),
+                "pt_rope_kv_write")
+    torch.cuda.synchronize()
+    assert layer.launch_counts()["rope_kv_write"] == 1
+    assert torch.equal(_bits(torch.cat([t.flatten() for t in (qq, kk, gk,
+                                                              gv)])),
+                       _bits(ref))
+
+
 # ---------------------------------------------------------- paged attention
 # (G, head_dim): the group sizes 1, 2, 4, 8 at head_dim 128 and 64, and 32
 PATTN_GD = [(1, 128), (2, 64), (4, 128), (8, 64), (8, 128), (1, 32)]
@@ -1010,6 +1107,68 @@ def test_softmax_mask_kernel_matches_plain(dt, mdt, case):
     assert {k: c for k, c in layer.launch_counts().items() if c} == {
         "softmax_mask_fwd": 1}
     ref = tf.softmax_mask_ref(x, m)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    ok = ~torch.isnan(ref)
+    torch.testing.assert_close(got[ok].float(), ref[ok].float(), **TOL[dt])
+
+
+# the register path's row widths (S 1..1000: 8 or 32 lanes a row, one to
+# eight chunks a lane) and the long rows (S 5000); R off the rows a warp
+# takes; masks broadcast over heads, over query rows, over both, along the
+# row (one value a row), full, and strided (a slice of a wider mask: its
+# row stride off the 16-byte chunks); (label, x shape, mask shape, extra
+# mask columns sliced off)
+SOFTMAX_WARP_CASES = [
+    ("S1-heads", (4, 3, 1), (4, 1, 1), 0),
+    ("S7-heads", (2, 3, 5, 7), (2, 1, 5, 7), 0),
+    ("S127-heads", (3, 5, 9, 127), (3, 1, 9, 127), 0),
+    ("S128-heads", (2, 12, 17, 128), (2, 1, 17, 128), 0),
+    ("S129-rows", (2, 3, 7, 129), (2, 3, 1, 129), 0),
+    ("S1000-heads-rows", (2, 3, 7, 1000), (2, 1, 1, 1000), 0),
+    ("S5000-heads", (3, 2, 5000), (3, 1, 5000), 0),
+    ("S128-columns", (2, 4, 5, 128), (2, 4, 5, 1), 0),
+    ("S128-full", (3, 5, 128), (3, 5, 128), 0),
+    ("S127-full", (2, 3, 7, 127), (2, 3, 7, 127), 0),
+    ("S128-heads-strided", (2, 3, 6, 128), (2, 1, 6, 128), 3),
+    ("S64-full-strided", (4, 6, 64), (4, 6, 64), 6)]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("mdt", DTYPES, ids=["mask-fp32", "mask-bf16"])
+@pytest.mark.parametrize("case", SOFTMAX_WARP_CASES,
+                         ids=[c[0] for c in SOFTMAX_WARP_CASES])
+def test_softmax_mask_rows_match_plain_and_repeat(dt, mdt, case):
+    """Every row width and mask layout within tolerance of the plain
+    version (all -inf rows NaN in both); each call one launch, a second
+    call bit-identical."""
+    _need_card()
+    from paddle_tpu_torch.ops import fused as tf
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    _, xs, ms, extra = case
+    rng = np.random.default_rng(33)
+    x = torch.from_numpy(rng.standard_normal(xs).astype(np.float32) * 3).to(
+        "cuda", dt)
+    wide = ms[:-1] + (ms[-1] + extra,)
+    m = torch.from_numpy(np.where(rng.random(wide) < 0.2, -np.inf, 0.0)
+                         .astype(np.float32)).to("cuda", mdt)
+    m.view(-1)[0] = 0.0
+    m = m[..., :ms[-1]]
+    assert m.is_contiguous() == (extra == 0)
+    outs = []
+    for _ in range(2):
+        layer.reset_counts()
+        outs.append(cf.softmax_mask_fwd_cuda(x, m))
+        torch.cuda.synchronize()
+        assert {k: c for k, c in layer.launch_counts().items() if c} == {
+            "softmax_mask_fwd": 1}
+    assert torch.equal(_bits(outs[0]), _bits(outs[1]))
+    got, ref = outs[0], tf.softmax_mask_ref(x, m)
     assert got.dtype == x.dtype and got.shape == x.shape
     assert torch.equal(torch.isnan(got), torch.isnan(ref))
     ok = ~torch.isnan(ref)

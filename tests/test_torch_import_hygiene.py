@@ -18,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "paddle_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 PORT_TOOLS = ("dattn_ab.py", "flash_fwd_ab.py", "gemm_ab.py", "lce_ab.py",
-              "paired_steps.py", "pattn_ab.py", "wo_ab.py")
+              "paired_steps.py", "pattn_ab.py", "rope_softmax_ab.py",
+              "wo_ab.py")
 
 
 def _sources():
