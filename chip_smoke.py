@@ -25,13 +25,36 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             beforehand); kernel, plain and library times in bf16, each layer
             call's device time
             from its chain's kernels (``chain_ms``, which fails when one is
-            missing) and the host time of one ``decode_block`` call;
+            missing) and the host time of one ``decode_block`` call; then
+            the quantized chain (``quant_chain``): the weight-only layer
+            GEMMs ``wo_layer_*`` in int8 and int4, per channel and groups
+            of 64 / 128, each epilogue (none, residual, SwiGLU on the gate),
+            M 4 / 16 / 256 in bf16 and fp32 x, and one case whose fp32
+            scales bf16 rounding moves (the kernel nearer the fp32-scale
+            plain version); ``rope_kv_write_q8`` bit-equal to its plain
+            version (fp32 and bf16, decode and Ts 256); ``paged_attention_q8``
+            at decode and prefill (bf16 rule, fp32 1e-4, GQA 32/4 and 32/16);
+            whole int8 / int4 layers over int8 pools (and int8 g128 and an
+            fp32 layer over full-width pools) against their plain versions
+            with their exact launches; times per llama_7b layer's seven
+            GEMMs beside the bound and ``torch.matmul`` on the weights
+            dequantized to bf16, the SwiGLU routes (gate then up with the
+            SwiGLU in its epilogue, or gate, up and ``swiglu_fwd``), the
+            int8 kernels beside their bounds and SDPA on dequantized K / V,
+            and the quantized ``decode_block`` / ``prefill_block`` chains;
 4. engine   ``llama_7b`` in bf16 with seeded random weights served by the
             continuous-batching engine (bucketed prefill, paged decode):
             the prefill logits of one request against the plain chain on
             the card, then 8 requests of 20-600 prompt tokens and 32 new
             tokens each, with every request finished, no KV block leaked and
-            every kernel of the path launched;
+            every kernel of the path launched; then (``phase_engine_quant``)
+            the same model PTQ-exported at construction with
+            ``ServeQuantConfig(weight_dtype="int8", kv_dtype="int8")`` (the
+            JAX bench's ``int8_weights_int8_kv`` row), the same checks and
+            traffic with the launch counts exactly as predicted from the
+            decode steps and chunk fills and the plain ops refused, its
+            decode step's wall and busy ms, tokens/s and TTFT beside the
+            bf16 engine's;
 5. flash    the three flash-attention kernels (``flash_fwd``,
             ``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain
             versions at the training slice's shape (B 4, S 2048, 32 heads,
@@ -939,11 +962,892 @@ def phase_kernels(cfg, results, dev="cuda"):
          f"ms (per call {pre_call:.4f}), plain {pre_plain_ms} ms, library "
          f"{pre_lib} ms, bound {pre_bms:.4f} ms ({pre_bby}), max |err| "
          f"{pre_err:.2e}")
+    quant_chain(cfg, results, lp32, pool32, bt, lengths, bt_row, cos_t, sin_t,
+                dev)
     for r in results[2:]:
         info(f"{r['name']} {r['shape']}: device {r['ms']} ms (per call "
              f"{r['call_ms']:.4f}), plain {r['plain_ms']} ms, library "
              f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms "
              f"({r['bound_by']}), max |err| {r['max_abs_err']:.2e}")
+
+
+# ------------------------------------------------ quantized serving chain
+# the JAX bench's int8_weights_int8_kv serve_quant row (bench.py:731-776)
+ENGINE_QUANT = dict(weight_dtype="int8", kv_dtype="int8")
+# a quantized layer's seven GEMMs and their epilogues: q / k / v none, o and
+# down the residual, gate none, up silu(gate) x up
+QUANT_MATMULS = (("q_w", "none"), ("k_w", "none"), ("v_w", "none"),
+                 ("o_w", "resid"), ("gate_w", "none"), ("up_w", "swiglu"),
+                 ("down_w", "resid"))
+WO_LAYER = ("wo_layer_int8_small_m", "wo_layer_int8_tiled",
+            "wo_layer_int4_small_m", "wo_layer_int4_tiled", "wo_layer_f32")
+QUANT_REPLACES = "paddle_tpu/ops/pallas/decode_block.py:535"
+QUANT_PRE_REPLACES = "paddle_tpu/ops/pallas/prefill_block.py:435"
+
+
+def export_layer(lp, width, gs):
+    """One layer's weights through the engine's PTQ export (codes and fp32
+    scales for the seven matmuls; the norm gains as they are)."""
+    from paddle_tpu_torch.quantization import (ServeQuantConfig,
+                                               quantize_params_for_serving)
+    if width is None:
+        return dict(lp)
+    out = quantize_params_for_serving(
+        {"blocks": {k: v[None] for k, v in lp.items()}},
+        ServeQuantConfig(width, gs))["blocks"]
+    return {k: v[0] for k, v in out.items()}
+
+
+def wo_name(width, M, dt):
+    import torch
+    if dt == torch.float32:
+        return "wo_layer_f32"
+    return f"wo_layer_{width}_{'small_m' if M <= 16 else 'tiled'}"
+
+
+def wo_epi_kw(epi, M, N, gen, dev, dt):
+    import torch
+    if epi == "none":
+        return {}
+    t = torch.randn(M, N, device=dev, generator=gen).to(dt)
+    return {"residual": t} if epi == "resid" else {"gate": t}
+
+
+def wo_layer_bytes_ops(M, shapes, width, gs, itemsize=2):
+    """One quantized layer's seven GEMMs: x read once a GEMM, y written
+    once, the codes and fp32 scales read once, the residual (o, down) and
+    the gate (up) read once; 2 M K N operations each."""
+    nbytes = ops = 0
+    for (K, N), epi in shapes:
+        codes = K * N if width == "int8" else K // 2 * N
+        scales = 4 * N * (1 if gs == -1 else -(-K // gs))
+        extra = M * N * itemsize if epi != "none" else 0
+        nbytes += M * K * itemsize + codes + scales + M * N * itemsize + extra
+        ops += 2 * M * K * N
+    return nbytes, ops
+
+
+def q8_pool(pool, dt):
+    """A full-width pool's int8 export: quantize_kv of its rows in dt."""
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    return tkv.QuantizedKVPool(*tkv.quantize_kv(pool.to(dt)))
+
+
+def q8_clone(p):
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    return tkv.QuantizedKVPool(p.data.clone(), p.scale.clone())
+
+
+def pool_clone(p):
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    return q8_clone(p) if tkv.is_quantized_pool(p) else p.clone()
+
+
+def truth_pool(p):
+    """The pool of an fp32 reference run: int8 pools as they are, others
+    in fp32."""
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    return q8_clone(p) if tkv.is_quantized_pool(p) else p.float().clone()
+
+
+def bits(t):
+    import torch
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                   torch.int8: torch.int8}[t.dtype])
+
+
+def check_pool(name, got, ref, orig, touched, tol):
+    """A pool written by a layer's kernels against the plain version's:
+    :func:`check_q8_pool` for int8 pools, else within ``tol`` and unchanged
+    outside ``touched``."""
+    import torch
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    if tkv.is_quantized_pool(got):
+        return check_q8_pool(name, got, ref, orig, touched)
+    e = check_close(name, got, ref, tol)
+    rows = set(map(tuple, (got != orig).flatten(2).any(-1).nonzero()
+                   .tolist()))
+    if not rows <= touched:
+        raise SmokeFailure(f"{name}: rows changed outside the written ones: "
+                           f"{sorted(rows - touched)[:5]}")
+    return e
+
+
+def check_q8_pool(name, got, ref, orig, touched):
+    """An int8 pool written by the kernels against the plain version's:
+    codes at most one step apart (a k one ulp apart may round to the next
+    code), scales within 2e-2, every (page, offset) outside ``touched``
+    bit-equal to before, every touched one changed or equal to the plain."""
+    import torch
+    dc = (got.data.int() - ref.data.int()).abs().max().item()
+    if dc > 1:
+        raise SmokeFailure(f"{name}: codes {dc} steps from the plain version")
+    check_close(f"{name} scales", got.scale, ref.scale, 2e-2)
+    moved = (got.data != orig.data).flatten(2).any(-1) | (
+        got.scale != orig.scale).any(-1)
+    rows = set(map(tuple, moved.nonzero().tolist()))
+    if not rows <= touched:
+        raise SmokeFailure(f"{name}: rows changed outside the written ones: "
+                           f"{sorted(rows - touched)[:5]}")
+    return dc
+
+
+def quant_layer_launches(name, fn, wo, kvq=True):
+    """One quantized layer call: the launches exactly as the chain has
+    them (2 norms, 7 GEMMs of ``wo``, the RoPE / KV write and the
+    attention, their int8 variants over ``kvq`` pools)."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    layer.reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    got = {k: n for k, n in layer.launch_counts().items() if n}
+    q8 = "_q8" if kvq else ""
+    want = {name: 1, "rms_norm_rows": 2, wo: 7, "rope_kv_write" + q8: 1,
+            "paged_attention" + q8: 1}
+    if got != want:
+        raise SmokeFailure(f"{name} quantized: one call launched {got}, "
+                           f"expected {want}")
+
+
+def quant_chain_ms(breakdown, gemm):
+    """Device ms of one quantized layer call from its kernels' mean launch
+    times and the chain's counts (2 norms, 7 weight-only GEMMs of the
+    regime's body ``gemm``, the RoPE / KV write, the attention).  A body
+    with several instances in the call (the prefill GEMM's 128- and
+    256-row tiles) weighs each by its share of the recorded launches."""
+    per = {"rms_norm_rows": 2, gemm: 7, "rope_kv_write": 1,
+           "paged_attention": 1}
+    hits = {key: [] for key in per}
+    for name, (mean, n) in breakdown.items():
+        for key in per:
+            if key in name:
+                hits[key].append((mean, n))
+                break
+    missing = sorted(k for k, v in hits.items() if not v)
+    if missing:
+        raise SmokeFailure(f"quantized layer: no profiler record of "
+                           f"{missing} in {sorted(breakdown)}")
+    return sum(per[k] * sum(m * n for m, n in v) / sum(n for _, n in v)
+               for k, v in hits.items())
+
+
+def quant_chain(cfg, results, lp32, pool32, bt, lengths, bt_row, cos_t,
+                sin_t, dev="cuda"):
+    """The quantized serving chain (kernels 1-2's weight-only and int8-KV
+    branches): the weight-only layer GEMMs (K1) in int8 and int4, per
+    channel and groups of 64 / 128, each epilogue, M 4 / 16 / 256, bf16,
+    and an fp32 layer; one case whose fp32 scales bf16 rounding moves;
+    ``rope_kv_write`` into an int8 pool (K2) bit-equal to its plain
+    version; ``paged_attention`` over int8 pools (K3), decode and prefill,
+    and a GQA case; whole quantized layers against their plain versions;
+    times against bounds and library calls."""
+    import torch
+    from paddle_tpu_torch.ops import decode_block as db
+    from paddle_tpu_torch.ops.cuda import fused as cf
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    from paddle_tpu_torch.ops.quant_linear import unpack_int4
+    from paddle_tpu_torch.nn.quant import pack_int4
+
+    BS, NB = 16, pool32[0].shape[0]
+    Hkv, D, Hq, H = cfg.kv_heads, cfg.head_dim, cfg.num_heads, cfg.hidden_size
+    dt, tol = torch.bfloat16, TOL["bfloat16"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    err, ratios = {}, {}
+
+    # ---- K1: each width, scale layout, epilogue and regime, bf16
+    for width in ("int8", "int4"):
+        for gs in (-1, 64, 128):
+            for wname, epi in (("gate_w", "none"), ("down_w", "resid"),
+                               ("up_w", "swiglu")):
+                Kd, N = lp32[wname].shape
+                ql = export_layer({wname: lp32[wname]}, width, gs)
+                codes, scale = ql[wname + "__q"], ql[wname + "__s"]
+                for M in (4, 16, 256):
+                    x = torch.randn(M, Kd, device=dev, generator=gen).to(dt)
+                    kw = wo_epi_kw(epi, M, N, gen, dev, dt)
+                    name = wo_name(width, M, dt)
+                    got = one_launch_bitwise(name, lambda: K.wo_layer_cuda(
+                        x, codes, scale, width=width, group_size=gs, **kw))
+                    plain = K.wo_layer_ref(x, codes, scale, width=width,
+                                           group_size=gs, **kw)
+                    truth = K.wo_layer_ref(
+                        x.float(), codes, scale, width=width, group_size=gs,
+                        **{k: v.float() for k, v in kw.items()})
+                    e = check_layer_out(
+                        f"{name} g{gs} [{M}, {Kd}] @ [{Kd}, {N}] {epi}", got,
+                        plain, truth, tol, ratios.setdefault(name, []))
+                    err[name] = max(err.get(name, 0.0), e)
+    # fp32 x: wo_f32's arithmetic under the same epilogues
+    for width, gs in (("int8", -1), ("int4", 64)):
+        for wname, epi in (("q_w", "none"), ("down_w", "resid"),
+                           ("up_w", "swiglu")):
+            Kd, N = lp32[wname].shape
+            ql = export_layer({wname: lp32[wname]}, width, gs)
+            codes, scale = ql[wname + "__q"], ql[wname + "__s"]
+            x = torch.randn(4, Kd, device=dev, generator=gen)
+            kw = wo_epi_kw(epi, 4, N, gen, dev, torch.float32)
+            got = one_launch_bitwise("wo_layer_f32", lambda: K.wo_layer_cuda(
+                x, codes, scale, width=width, group_size=gs, **kw))
+            e = check_close(f"wo_layer_f32 {width} g{gs} {epi}", got,
+                            K.wo_layer_ref(x, codes, scale, width=width,
+                                           group_size=gs, **kw),
+                            TOL["float32"])
+            err["wo_layer_f32"] = max(err.get("wo_layer_f32", 0.0), e)
+    info(f"wo_layer: int8 / int4 x per channel / g64 / g128 x none / resid "
+         f"/ swiglu x M 4, 16, 256 in bf16 and fp32 x within tolerance; "
+         f"max |err| {err}")
+
+    # fp32 scales that bf16 rounding moves by ~0.3 % (mantissas 0.4 of a
+    # bf16 step off the grid): the kernel must stay with the fp32 scales
+    for width, gs, M in (("int8", -1, 4), ("int4", 64, 256),
+                         ("int8", 128, 16)):
+        Kd, N = 4096, 4096
+        lo, hi = (-127, 128) if width == "int8" else (-8, 8)
+        q = torch.randint(lo, hi, (Kd, N), device=dev, generator=gen,
+                          dtype=torch.int32).to(torch.int8)
+        codes = pack_int4(q) if width == "int4" else q
+        G = 1 if gs == -1 else Kd // gs
+        mant = 1.0 + (torch.randint(0, 128, (G, N), device=dev,
+                                    generator=gen).float() + 0.4) / 128
+        scale = (mant * 2.0 ** -9).float()
+        scale = scale[0] if gs == -1 else scale
+        x = torch.randn(M, Kd, device=dev, generator=gen).to(dt)
+        got = K.wo_layer_cuda(x, codes, scale, width=width, group_size=gs)
+        t32 = K.wo_layer_ref(x.float(), codes, scale, width=width,
+                             group_size=gs)
+        tb = K.wo_layer_ref(x.float(), codes, scale.to(dt).float(),
+                            width=width, group_size=gs)
+        da = float((got.float() - t32).abs().mean())
+        db_ = float((got.float() - tb).abs().mean())
+        info(f"wo_layer {width} g{gs} M {M}, scales 0.4 bf16 steps off the "
+             f"grid: mean |kernel - fp32-scale plain| {da:.3e}, mean "
+             f"|kernel - bf16-scale plain| {db_:.3e}")
+        if not da < db_:
+            raise SmokeFailure(f"wo_layer {width} g{gs}: the kernel is not "
+                               "nearer the fp32-scale plain version than the "
+                               "bf16-scale one")
+        del q, codes
+
+    # ---- per-layer times: a llama_7b layer's seven GEMMs, int8 and int4
+    # per channel, decode M 4 and prefill M 256; library: torch.matmul on
+    # the weights dequantized to bf16 beforehand, epilogues left out
+    timed = {}
+    for width in ("int8", "int4"):
+        ql = export_layer({k: v for k, v in lp32.items()
+                           if not k.startswith("ln")}, width, -1)
+        mats = []
+        for wname, epi in QUANT_MATMULS:
+            Kd, N = lp32[wname].shape
+            codes, scale = ql[wname + "__q"], ql[wname + "__s"]
+            wdq = ((codes if width == "int8" else unpack_int4(codes, Kd))
+                   .float() * scale).to(dt)
+            mats.append((wname, epi, Kd, N, codes, scale, wdq))
+        for M in (4, 256):
+            xs = {Kd: torch.randn(M, Kd, device=dev, generator=gen).to(dt)
+                  for Kd in {m[2] for m in mats}}
+            ex = {(wname, epi): wo_epi_kw(epi, M, N, gen, dev, dt)
+                  for wname, epi, _, N, *_ in mats}
+
+            def kernels():
+                for wname, epi, Kd, N, codes, scale, _ in mats:
+                    K.wo_layer_cuda(xs[Kd], codes, scale, width=width,
+                                    **ex[(wname, epi)])
+
+            def plains():
+                for wname, epi, Kd, N, codes, scale, _ in mats:
+                    K.wo_layer_ref(xs[Kd], codes, scale, width=width,
+                                   **ex[(wname, epi)])
+
+            def library():
+                for wname, epi, Kd, N, codes, scale, wdq in mats:
+                    torch.matmul(xs[Kd], wdq)
+            name = wo_name(width, M, dt)
+            by = {}
+            _, call = time_ms(kernels, 10, by)
+            hit = [(mean, n) for k, (mean, n) in by.items() if "wo_" in k]
+            ms = sum(mean * n for mean, n in hit) if hit else None
+            plain, plain_call = time_ms(plains, 3)
+            lib = time_ms(library, 10)[0]
+            bms, bby = bound_ms(*wo_layer_bytes_ops(
+                M, [((Kd, N), epi) for _, epi, Kd, N, *_ in mats], width, -1))
+            timed[name] = dict(
+                ms=ms, call_ms=call, plain_ms=plain, plain_call_ms=plain_call,
+                library_ms=lib, bound_ms=bms, bound_by=bby,
+                launches_per_call=sum(n for _, n in hit),
+                shape=f"one llama_7b layer's 7 GEMMs ({width} codes, per "
+                      f"channel, their epilogues), x [{M}, K] bf16")
+            info(f"{name} {timed[name]['shape']}: device {ms} ms per layer "
+                 f"(per call {call:.4f}), bound {bms:.4f} ms ({bby}), plain "
+                 f"{plain} ms, torch.matmul on the dequantized bf16 weights "
+                 f"{lib} ms")
+        if width == "int8":
+            # SwiGLU as gate, then up with silu(gate) x up in its epilogue
+            # (kept) against gate, up, then kernel 16 (swiglu_fwd)
+            _, _, Kd, N, gc, gsc, _ = mats[4]
+            _, _, _, _, uc, usc, _ = mats[5]
+            for M in (4, 256):
+                y = torch.randn(M, Kd, device=dev, generator=gen).to(dt)
+
+                def fused_epi():
+                    g = K.wo_layer_cuda(y, gc, gsc, width=width)
+                    return K.wo_layer_cuda(y, uc, usc, width=width, gate=g)
+
+                def three():
+                    g = K.wo_layer_cuda(y, gc, gsc, width=width)
+                    u = K.wo_layer_cuda(y, uc, usc, width=width)
+                    return cf.swiglu_fwd_cuda(g, u)
+                a_ms = time_ms(fused_epi, 20)[0]
+                b_ms = time_ms(three, 20)[0]
+                info(f"SwiGLU at M {M} int8: gate + up with the SwiGLU "
+                     f"epilogue {a_ms} ms, gate + up + swiglu_fwd {b_ms} ms")
+                timed.setdefault("swiglu_choice", {})[M] = dict(
+                    epilogue_ms=a_ms, three_launches_ms=b_ms)
+        del mats, ql
+        torch.cuda.empty_cache()
+    # fp32 x, int8 per channel, M 4: the layer's seven GEMMs on wo_f32
+    ql = export_layer({k: v for k, v in lp32.items()
+                       if not k.startswith("ln")}, "int8", -1)
+    x32s = {Kd: torch.randn(4, Kd, device=dev, generator=gen)
+            for Kd in (H, lp32["down_w"].shape[0])}
+    ex32 = {(w, e): wo_epi_kw(e, 4, lp32[w].shape[1], gen, dev,
+                              torch.float32) for w, e in QUANT_MATMULS}
+
+    def f32_kernels():
+        for wname, epi in QUANT_MATMULS:
+            K.wo_layer_cuda(x32s[lp32[wname].shape[0]], ql[wname + "__q"],
+                            ql[wname + "__s"], width="int8",
+                            **ex32[(wname, epi)])
+
+    def f32_plains():
+        for wname, epi in QUANT_MATMULS:
+            K.wo_layer_ref(x32s[lp32[wname].shape[0]], ql[wname + "__q"],
+                           ql[wname + "__s"], width="int8",
+                           **ex32[(wname, epi)])
+    w32 = {w: (ql[w + "__q"].float() * ql[w + "__s"]) for w, _ in
+           QUANT_MATMULS}
+
+    def f32_library():
+        for wname, _ in QUANT_MATMULS:
+            torch.matmul(x32s[lp32[wname].shape[0]], w32[wname])
+    by = {}
+    _, call = time_ms(f32_kernels, 5, by)
+    hit = [(mean, n) for k, (mean, n) in by.items() if "wo_" in k]
+    plain, plain_call = time_ms(f32_plains, 3)
+    lib32 = time_ms(f32_library, 5)[0]
+    bms, bby = bound_ms(*wo_layer_bytes_ops(
+        4, [(tuple(lp32[w].shape), e) for w, e in QUANT_MATMULS], "int8", -1,
+        4), dtype="float32")
+    timed["wo_layer_f32"] = dict(
+        ms=sum(m * n for m, n in hit) if hit else None, call_ms=call,
+        plain_ms=plain, plain_call_ms=plain_call, library_ms=lib32,
+        bound_ms=bms, bound_by=bby, shape="one llama_7b layer's 7 GEMMs "
+        "(int8 codes, per channel), x [4, K] fp32 (the fp32 checks only)")
+    del ql, x32s, ex32, w32
+    for name in WO_LAYER:
+        results.append(dict(
+            name=name, route="cuda",
+            source="paddle_tpu_torch/kernels/csrc/quant_linear.cu",
+            replaces=QUANT_REPLACES if "tiled" not in name
+            else QUANT_PRE_REPLACES, max_abs_err=err[name], **timed[name],
+            library_what="torch.matmul on the weights dequantized "
+                         "beforehand (bf16; fp32 for wo_layer_f32), 7 calls, "
+                         "no epilogue",
+            bf16_vs_fp32_ratio=max(ratios.get(name, []), default=None),
+            **({"swiglu_choice": timed["swiglu_choice"]}
+               if name == "wo_layer_int8_small_m" else {})))
+
+    # ---- K2: rope_kv_write into int8 pools, bit-equal to the plain version
+    rgen = torch.Generator(device=dev)
+    rgen.manual_seed(SEED + 3)
+    rope_cases = rope_kv_cases(lengths, bt, bt_row, cos_t, sin_t, BS)
+    rope_in = {}
+    for dtn in ("float32", "bfloat16"):
+        rdt = getattr(torch, dtn)
+        for label, (M, tgt, c, s) in rope_cases.items():
+            q, k, v = rope_kv_inputs(M, Hq, Hkv, D, rdt, rgen, dev)
+            c, s = c.to(rdt), s.to(rdt)
+            pk, pv = (q8_pool(p, rdt) for p in pool32)
+
+            def run():
+                qq, kk, gk, gv = q.clone(), k.clone(), q8_clone(pk), \
+                    q8_clone(pv)
+                K.rope_kv_write_cuda(qq, kk, v, c, s, gk, gv, **tgt)
+                return tuple(bits(t) for t in (qq, kk, gk.data, gk.scale,
+                                               gv.data, gv.scale))
+            got = one_launch_bitwise("rope_kv_write_q8", run)
+            rk, rv = q8_clone(pk), q8_clone(pv)
+            rq, rkk = K.rope_kv_write_ref(q, k, v, c, s, rk, rv, head_dim=D,
+                                          **tgt)
+            ref = tuple(bits(t) for t in (rq, rkk, rk.data, rk.scale,
+                                          rv.data, rv.scale))
+            for part, g_, r_ in zip(("q", "k", "k codes", "k scales",
+                                     "v codes", "v scales"), got, ref):
+                if not torch.equal(g_, r_):
+                    raise SmokeFailure(
+                        f"rope_kv_write_q8 {label} {dtn}: {part} differs from "
+                        f"the plain version in {int((g_ != r_).sum())} values "
+                        "(bit-equal required)")
+            rope_in[(label, dtn)] = (q, k, v, c, s, pk, pv)
+    info(f"rope_kv_write_q8: {', '.join(rope_cases)} in fp32 and bf16 "
+         "bit-equal to the plain version (q, k, codes and scales), one "
+         "launch a call, calls bit-identical")
+    rope = {}
+    for label, (M, tgt, _, _) in rope_cases.items():
+        q, k, v, c, s, pk, pv = rope_in[(label, "bfloat16")]
+        ms, call = time_ms(lambda: K.rope_kv_write_cuda(
+            q, k, v, c, s, pk, pv, **tgt), 50, per_launch=True)
+        plain, plain_call = time_ms(lambda: K.rope_kv_write_ref(
+            q, k, v, c, s, pk, pv, head_dim=D, **tgt), 20)
+        writes = rope_kv_writes(tgt, pk.data)
+        nb, ops = rope_kv_bytes_ops(M, Hq, Hkv, D, 0)
+        # the pool stores: a byte a code and 4 bytes a scale, k and v
+        nb += writes * 2 * Hkv * (D + 4)
+        ops += writes * 2 * Hkv * 3 * D          # absmax, divide, round
+        bms, bby = bound_ms(nb, ops)
+        rope[label] = dict(max_abs_err=0.0, ms=ms, call_ms=call,
+                           plain_ms=plain, plain_call_ms=plain_call,
+                           bound_ms=bms, bound_by=bby, library_ms=None)
+        info(f"rope_kv_write_q8 {label}: device {ms} ms (per call "
+             f"{call:.4f}), plain {plain} ms, bound {bms:.5f} ms ({bby})")
+    results.append(dict(
+        name="rope_kv_write_q8", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/rope_kv.cu",
+        replaces=QUANT_REPLACES,
+        shape="B=4, 32 q + 32 kv heads, D=128, int8 pool", **rope["decode"],
+        prefill=dict(shape="Ts=256 after 300 positions, every row writing",
+                     replaces=QUANT_PRE_REPLACES,
+                     **rope["prefill Ts 256"])))
+
+    # ---- K3: paged attention over int8 pools, decode and prefill
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pk8, pv8 = (q8_pool(p, dt) for p in pool32)
+    live = [int(n) + 1 for n in lengths.tolist()]
+    q = torch.randn(4, Hq * D, device=dev, generator=gen).to(dt)
+    plain = K.paged_attention_ref(q, pk8, pv8, block_table=bt,
+                                  lengths=lengths)
+    truth = K.paged_attention_ref(q.float(), pk8, pv8, block_table=bt,
+                                  lengths=lengths)
+    got = one_launch_bitwise("paged_attention_q8", lambda:
+                             K.paged_attention_cuda(q, pk8, pv8,
+                                                    block_table=bt,
+                                                    lengths=lengths))
+    dec_err = check_layer_out("paged_attention_q8 decode", got, plain, truth,
+                              tol)
+    Ts, start = 256, 300
+    qp = torch.randn(Ts, Hq * D, device=dev, generator=gen).to(dt)
+    pre_kw = dict(block_table=bt_row, start=start)
+    got = one_launch_bitwise("paged_attention_q8", lambda:
+                             K.paged_attention_cuda(qp, pk8, pv8, **pre_kw))
+    pre_err = check_layer_out(
+        "paged_attention_q8 prefill", got,
+        K.paged_attention_ref(qp, pk8, pv8, **pre_kw),
+        K.paged_attention_ref(qp.float(), pk8, pv8, **pre_kw), tol)
+    # fp32 q over the same codes: the rows body's fp32 instances
+    for label, qq, kw in (("decode", q, dict(block_table=bt,
+                                              lengths=lengths)),
+                          ("prefill", qp, pre_kw)):
+        q32 = qq.float()
+        got = one_launch_bitwise("paged_attention_q8", lambda:
+                                 K.paged_attention_cuda(q32, pk8, pv8, **kw))
+        check_close(f"paged_attention_q8 fp32 {label}", got,
+                    K.paged_attention_ref(q32, pk8, pv8, **kw),
+                    TOL["float32"])
+    # GQA 32 / 4 (G 8: the rows body's 8-code chunks) and 32 / 16, decode
+    # and prefill chunks of 16 (after 37 and after 600) and 64 rows
+    for hkv in (4, 16):
+        gp = [torch.randn(NB, BS, hkv, D, device=dev, generator=gen)
+              for _ in range(2)]
+        gk, gv = (q8_pool(p, dt) for p in gp)
+        for label, M, kw in (("decode", 4, dict(block_table=bt,
+                                                lengths=lengths)),
+                             ("prefill Ts 16 after 37", 16,
+                              dict(block_table=bt_row, start=37)),
+                             ("prefill Ts 16 after 580", 16,
+                              dict(block_table=bt_row, start=580)),
+                             ("prefill Ts 64 after 21", 64,
+                              dict(block_table=bt_row, start=21))):
+            qq = torch.randn(M, Hq * D, device=dev, generator=gen).to(dt)
+            got = one_launch_bitwise("paged_attention_q8", lambda:
+                                     K.paged_attention_cuda(qq, gk, gv, **kw))
+            check_layer_out(f"paged_attention_q8 GQA {Hq}/{hkv} {label}",
+                            got, K.paged_attention_ref(qq, gk, gv, **kw),
+                            K.paged_attention_ref(qq.float(), gk, gv, **kw),
+                            tol)
+        del gp, gk, gv
+    ms, call = time_ms(lambda: K.paged_attention_cuda(
+        q, pk8, pv8, block_table=bt, lengths=lengths), 50, per_launch=True)
+    plain_ms, plain_call = time_ms(lambda: K.paged_attention_ref(
+        q, pk8, pv8, block_table=bt, lengths=lengths), 10)
+    kv_row8 = Hkv * (D + 4) * 2                     # k and v codes + scales
+    bms, bby = bound_ms(sum(live) * kv_row8 + 2 * 4 * Hq * D * 2,
+                        4 * Hq * D * sum(live) + 2 * Hkv * D * sum(live))
+
+    def gathered(table, n):
+        """The pools' first n positions of `table` dequantized to bf16,
+        [rows, Hkv, n, D]."""
+        idx = table.long().clamp(min=0)[:, :-(-n // BS)]
+        return [K._kv_rows(p, idx, dt).to(dt).flatten(1, 2)[:, :n]
+                .transpose(1, 2).contiguous() for p in (pk8, pv8)]
+    kd, vd = gathered(bt, max(live))
+    dmask = (torch.arange(max(live), device=dev)[None]
+             <= lengths.long()[:, None])[:, None, None]
+    lib = time_ms(lambda: sdpa(q.reshape(4, Hq, 1, D), kd, vd,
+                               attn_mask=dmask), 50)[0]
+    pre_ms, pre_call = time_ms(lambda: K.paged_attention_cuda(
+        qp, pk8, pv8, **pre_kw), 50, per_launch=True)
+    pre_plain, pre_plain_call = time_ms(lambda: K.paged_attention_ref(
+        qp, pk8, pv8, **pre_kw), 10)
+    kp, vp = gathered(bt_row[None], start + Ts)
+    pmask = (torch.arange(start + Ts, device=dev)[None]
+             <= start + torch.arange(Ts, device=dev)[:, None])
+    pre_lib = time_ms(lambda: sdpa(qp.reshape(1, Ts, Hq, D).transpose(1, 2),
+                                   kp, vp, attn_mask=pmask), 50)[0]
+    pre_bms, pre_bby = bound_ms(
+        (start + Ts) * kv_row8 + 2 * Ts * Hq * D * 2,
+        4 * Hq * D * sum(start + r + 1 for r in range(Ts)))
+    results.append(dict(
+        name="paged_attention_q8", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+        replaces=QUANT_REPLACES,
+        shape="B=4, lengths 1000/37/0/517 (+1 appended), 32 heads, D=128, "
+              "int8 pools", max_abs_err=dec_err, ms=ms, call_ms=call,
+        plain_ms=plain_ms, plain_call_ms=plain_call, bound_ms=bms,
+        bound_by=bby, library_ms=lib,
+        library_what="scaled_dot_product_attention on K / V dequantized to "
+                     "bf16 and gathered beforehand (not timed), boolean mask",
+        prefill=dict(shape=f"Ts={Ts}, start={start}, one table row",
+                     replaces=QUANT_PRE_REPLACES, max_abs_err=pre_err,
+                     ms=pre_ms, call_ms=pre_call, plain_ms=pre_plain,
+                     plain_call_ms=pre_plain_call, bound_ms=pre_bms,
+                     bound_by=pre_bby, library_ms=pre_lib)))
+    info(f"paged_attention_q8 decode: device {ms} ms (per call {call:.4f}), "
+         f"plain {plain_ms} ms, SDPA {lib} ms, bound {bms:.4f} ms ({bby}); "
+         f"prefill Ts {Ts} after {start}: device {pre_ms} ms, plain "
+         f"{pre_plain} ms, SDPA {pre_lib} ms, bound {pre_bms:.4f} ms")
+    del kd, vd, kp, vp
+
+    # ---- whole quantized layers against their plain versions
+    # bf16 over int8 pools; fp32 (wo_layer_f32's layer) over fp32 pools,
+    # since an fp32 k a rounding apart may take the next int8 code where
+    # it lies on a half step (the int8 kernels' fp32 instances are held
+    # above on given pools)
+    layer_ms = {}
+    for dtn, width, gs, kvq in (("bfloat16", "int8", -1, True),
+                                ("bfloat16", "int4", 64, True),
+                                ("bfloat16", "int8", 128, False),
+                                ("float32", "int8", -1, False)):
+        ldt = getattr(torch, dtn)
+        ltol = TOL[dtn]
+        kvn = "int8 KV" if kvq else f"{dtn} KV"
+        spec = db.decode_block_spec(cfg, BS, width, gs)
+        ql = export_layer({k: v.to(ldt) for k, v in lp32.items()}, width, gs)
+        qf = {k: (v if "__" in k else v.float()) for k, v in ql.items()}
+        pk0, pv0 = ((q8_pool(p, ldt) if kvq else p.to(ldt)) for p in pool32)
+        x = torch.randn(4, H, device=dev, generator=gen).to(ldt)
+        cos = cos_t[lengths.long()].to(ldt).contiguous()
+        sin = sin_t[lengths.long()].to(ldt).contiguous()
+        rk, rv = pool_clone(pk0), pool_clone(pv0)
+        ref = db.decode_block_ref(x, ql, rk, rv, bt, lengths, cos, sin,
+                                  spec=spec)
+        gk, gv = pool_clone(pk0), pool_clone(pv0)
+        wo = wo_name(width, 4, ldt)
+        quant_layer_launches("decode_block", lambda: db.decode_block(
+            x, ql, pool_clone(pk0), pool_clone(pv0), bt, lengths, cos, sin,
+            spec=spec), wo, kvq)
+        got = db.decode_block(x, ql, gk, gv, bt, lengths, cos, sin, spec=spec)
+        torch.cuda.synchronize()
+        truth = db.decode_block_ref(x.float(), qf, truth_pool(pk0),
+                                    truth_pool(pv0), bt, lengths, cos.float(),
+                                    sin.float(), spec=spec)[0]
+        touched = {(int(bt[b, int(n) // BS]), int(n) % BS)
+                   for b, n in enumerate(lengths.tolist()) if b != 2}
+        e = check_layer_out(f"decode_block {dtn} {width} g{gs} {kvn}",
+                            got[0], ref[0], truth, ltol)
+        for nm, g_, r_, o_ in (("k", gk, rk, pk0), ("v", gv, rv, pv0)):
+            check_pool(f"decode_block {dtn} {width} g{gs} pool_{nm}", g_, r_,
+                       o_, touched, ltol)
+        info(f"decode_block {dtn} {width} g{gs} + {kvn}: max |err| x "
+             f"{e:.2e} (tol {ltol}); pools checked")
+        for Ts, start, valid in ((16, 37, 16), (64, 21, 40), (256, 300, 200)):
+            if dtn == "float32" and Ts != 64:
+                continue
+            xp = torch.randn(1, Ts, H, device=dev, generator=gen).to(ldt)
+            pos = start + torch.arange(Ts, device=dev)
+            c, s = (t[pos].to(ldt).contiguous() for t in (cos_t, sin_t))
+            blk = bt_row.clamp(min=0)[pos // BS]
+            blk[valid:] = NB
+            blk, off = blk.to(torch.int32), (pos % BS).to(torch.int32)
+            rk, rv = pool_clone(pk0), pool_clone(pv0)
+            ref = db.prefill_block_ref(xp, ql, rk, rv, blk, off, bt_row, c, s,
+                                       spec=spec, start=start)
+            gk, gv = pool_clone(pk0), pool_clone(pv0)
+            quant_layer_launches("prefill_block", lambda: db.prefill_block(
+                xp, ql, pool_clone(pk0), pool_clone(pv0), blk, off, bt_row,
+                c, s, spec=spec, start=start), wo_name(width, Ts, ldt), kvq)
+            got = db.prefill_block(xp, ql, gk, gv, blk, off, bt_row, c, s,
+                                   spec=spec, start=start)
+            torch.cuda.synchronize()
+            truth = db.prefill_block_ref(
+                xp.float(), qf, truth_pool(pk0), truth_pool(pv0), blk, off,
+                bt_row, c.float(), s.float(), spec=spec, start=start)[0]
+            e = check_layer_out(
+                f"prefill_block {dtn} {width} g{gs} {kvn} Ts={Ts}",
+                got[0][:, :valid], ref[0][:, :valid], truth[:, :valid], ltol)
+            touched = {(int(blk[i]), int(off[i])) for i in range(valid)}
+            for nm, g_, r_, o_ in (("k", gk, rk, pk0), ("v", gv, rv, pv0)):
+                check_pool(f"prefill_block {dtn} Ts={Ts} pool_{nm}", g_, r_,
+                           o_, touched, ltol)
+            info(f"prefill_block {dtn} {width} g{gs} + {kvn} Ts={Ts}: max "
+                 f"|err| x {e:.2e} (tol {ltol})")
+        if kvq:
+            pk, pv = pool_clone(pk0), pool_clone(pv0)
+            by = {}
+            _, call = time_ms(lambda: db.decode_block(
+                x, ql, pk, pv, bt, lengths, cos, sin, spec=spec), 20, by)
+            dms = quant_chain_ms(by, "wo_dec")
+            host = host_ms(lambda: db.decode_block(
+                x, ql, pk, pv, bt, lengths, cos, sin, spec=spec))
+            xp = torch.randn(1, 256, H, device=dev, generator=gen).to(ldt)
+            pos = 300 + torch.arange(256, device=dev)
+            c, s = (t[pos].to(ldt).contiguous() for t in (cos_t, sin_t))
+            blk = bt_row.clamp(min=0)[pos // BS]
+            blk[200:] = NB
+            blk, off = blk.to(torch.int32), (pos % BS).to(torch.int32)
+            pby = {}
+            _, pcall = time_ms(lambda: db.prefill_block(
+                xp, ql, pk, pv, blk, off, bt_row, c, s, spec=spec,
+                start=300), 10, pby)
+            pms = quant_chain_ms(pby, "wo_wgmma")
+            layer_ms[f"{width} g{gs} + int8 KV"] = dict(
+                decode_ms=dms, decode_call_ms=call, decode_host_ms=host,
+                prefill_ts256_ms=pms, prefill_call_ms=pcall,
+                decode_kernels=short(by))
+            info(f"decode_block bf16 {width} g{gs} + int8 KV: device {dms:.4f}"
+                 f" ms (per call {call:.4f}; host enqueue, median of 30: "
+                 f"{host:.4f} ms); prefill_block Ts 256: device {pms:.4f} ms "
+                 f"(per call {pcall:.4f}); kernels {short(by)}")
+        del ql, qf, pk0, pv0
+        torch.cuda.empty_cache()
+    for r in results:
+        if r["name"] == "decode_block":
+            r["quantized_layers"] = layer_ms
+
+
+class NoPlainPath:
+    """While active, the plain versions of the serving ops raise: a run
+    inside shows that no op of the main path fell back to them."""
+    NAMES = (("paddle_tpu_torch.ops.decode_block", "decode_block_ref"),
+             ("paddle_tpu_torch.ops.decode_block", "prefill_block_ref"),
+             ("paddle_tpu_torch.ops.decode_block", "paged_append"),
+             ("paddle_tpu_torch.ops.decode_block", "paged_decode_attention"),
+             ("paddle_tpu_torch.ops.decode_block", "quantize_kv"),
+             ("paddle_tpu_torch.ops.decode_block", "dequantize_kv"))
+
+    def __enter__(self):
+        import importlib
+        self.saved = []
+        for mod, name in self.NAMES:
+            m = importlib.import_module(mod)
+            self.saved.append((m, name, getattr(m, name)))
+
+            def refuse(*a, _n=name, **k):
+                raise SmokeFailure(f"the main path called the plain {_n}")
+            setattr(m, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def phase_engine_quant(cfg, bf16, dev="cuda"):
+    """Serve llama_7b (bf16 weights from the same seed as phase_engine)
+    through the engine with ``ServeQuantConfig(weight_dtype="int8",
+    kv_dtype="int8")``: the PTQ export at construction, one 300-token
+    prompt's prefill logits against the plain chain on the card, then
+    phase_engine's traffic with the launch counts exactly as predicted and
+    the plain versions refused; the decode step's wall and busy ms,
+    tokens/s and TTFT beside the bf16 engine's (``bf16``)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.ops import decode_block as db
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    from paddle_tpu_torch.ops.cuda import layer
+    from paddle_tpu_torch.quantization import ServeQuantConfig
+
+    qc = ServeQuantConfig(**ENGINE_QUANT)
+    params = init_params(cfg, make_generator(SEED, dev), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ContinuousBatchingEngine(cfg, params, max_batch=4, block_size=16,
+                                   num_blocks=256,
+                                   prefill_buckets=(16, 64, 256),
+                                   quant_config=qc, device=dev)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    del params                    # the engine keeps the exported blocks
+    torch.cuda.empty_cache()
+    info(f"engine quant: llama_7b bf16 PTQ-exported to {qc.describe()} and "
+         f"the int8 pools built in {export_s:.2f} s; device memory "
+         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    rng = np.random.default_rng(SEED)
+
+    # one request's prefill logits against the plain chain run as ONE
+    # chunk on the card (and that chain in fp32 on the same codes)
+    prompt = rng.integers(0, cfg.vocab_size, 300).astype(np.int32)
+    eng.add_request(prompt, 1)
+    eng.run_to_completion()
+    got = torch.from_numpy(eng.last_prefill_logits)
+    T = len(prompt)
+    npg = -(-T // 16)
+    shape = (npg, 16, cfg.kv_heads, cfg.head_dim)
+    pk, pv = (tkv.zeros_kv_pool(shape, eng.dtype, dev, kv_quant=True)
+              for _ in range(2))
+    pk32, pv32 = (tkv.zeros_kv_pool(shape, torch.float32, dev, kv_quant=True)
+                  for _ in range(2))
+    bt_row = torch.arange(npg, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, device=dev)
+    blk, off = (pos // 16).to(torch.int32), (pos % 16).to(torch.int32)
+    x = eng.params["wte"][torch.from_numpy(prompt).to(dev).long()][None]
+    cos, sin = eng._cos[pos].contiguous(), eng._sin[pos].contiguous()
+    x32 = x.float()
+    with torch.no_grad():
+        for lp in eng._layers:
+            x, _, _ = db.prefill_block_ref(x, lp, pk, pv, blk, off, bt_row,
+                                           cos, sin, spec=eng.spec, start=0)
+            x32, _, _ = db.prefill_block_ref(
+                x32, {k: (v if "__" in k else v.float())
+                      for k, v in lp.items()}, pk32, pv32, blk, off, bt_row,
+                cos.float(), sin.float(), spec=eng.spec, start=0)
+        ref = eng._logits(x[:, -1])[0].cpu()
+        truth = eng._logits(x32[:, -1])[0].cpu()
+    err = check_layer_out("engine quant prefill logits", got, ref, truth,
+                          TOL["bfloat16"])
+    info(f"engine quant prefill logits vs plain chain (300 tokens; engine "
+         f"chunks 256+16+16+16 with 4 padded, plain one chunk): max |err| "
+         f"{err:.3e}, vs fp32 chain {max_err(got, truth):.3e} (plain bf16 vs "
+         f"fp32 {max_err(ref, truth):.3e}), max |logit| "
+         f"{float(truth.abs().max()):.3f}, argmax {int(got.argmax())} / "
+         f"{int(ref.argmax())} / {int(truth.argmax())}")
+    del pk, pv, pk32, pv32, x, x32
+
+    # the main path: phase_engine's traffic, counts from zero, every chunk
+    # fill and decode step recorded to predict the launches
+    chunks, steps = [], [0]
+    fill, decode = eng._chunk_fill, eng._decode_step
+
+    def counted_fill(bt_row, start, toks, valid):
+        chunks.append(len(toks))
+        return fill(bt_row, start, toks, valid)
+
+    def counted_decode():
+        steps[0] += 1
+        return decode()
+    eng._chunk_fill, eng._decode_step = counted_fill, counted_decode
+    lens = [20, 600, 137, 64, 300, 45, 512, 256]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    layer.reset_counts()
+    ids = [eng.add_request(p, 32) for p in prompts]
+    results, ttft = {}, {}
+    dec_s, dec_tok, pre_s = 0.0, 0, 0.0
+    with NoPlainPath():
+        t0 = time.perf_counter()
+        while eng.queue or any(s is not None for s in eng.slots):
+            q0, tok0 = eng.queue_depth, eng.decode_tokens
+            ts = time.perf_counter()
+            results.update(eng.step())
+            te = time.perf_counter()
+            if eng.last_logits is not None:
+                live = [s for s in range(eng.B) if eng.slots[s] is not None]
+                if not np.isfinite(eng.last_logits[live]).all():
+                    raise SmokeFailure("engine quant: non-finite logits")
+            if eng.queue_depth < q0:
+                pre_s += te - ts
+                for s in eng.slots:
+                    if s is not None and s.req_id not in ttft:
+                        ttft[s.req_id] = te - t0
+            else:
+                dec_s += te - ts
+                dec_tok += eng.decode_tokens - tok0
+        wall = time.perf_counter() - t0
+    counts = layer.launch_counts()
+    L = cfg.num_layers
+    want = {"decode_block": L * steps[0], "prefill_block": L * len(chunks),
+            "rms_norm_rows": 2 * L * (steps[0] + len(chunks)),
+            "rope_kv_write_q8": L * (steps[0] + len(chunks)),
+            "paged_attention_q8": L * (steps[0] + len(chunks)),
+            "wo_layer_int8_small_m": 7 * L * (steps[0] + sum(
+                1 for n in chunks if n <= 16)),
+            "wo_layer_int8_tiled": 7 * L * sum(1 for n in chunks if n > 16)}
+    got_counts = {k: n for k, n in counts.items() if n}
+    if got_counts != {k: n for k, n in want.items() if n}:
+        raise SmokeFailure(f"engine quant: launches {got_counts}, predicted "
+                           f"{want} ({steps[0]} decode steps, chunks "
+                           f"{chunks})")
+    if sorted(results) != sorted(ids):
+        raise SmokeFailure(f"engine quant: finished {sorted(results)}, "
+                           f"expected {sorted(ids)}")
+    for rid, p in zip(ids, prompts):
+        out = results[rid]
+        if len(out) != len(p) + 32 or not np.array_equal(out[:len(p)], p) \
+                or out.min() < 0 or out.max() >= cfg.vocab_size:
+            raise SmokeFailure(f"engine quant: request {rid} returned a bad "
+                               f"sequence of length {len(out)}")
+    leak = eng.kv_leak_report()
+    if leak["leaked"] or leak["unaccounted"] or \
+            leak["free_blocks"] != eng.alloc.num_blocks:
+        raise SmokeFailure(f"engine quant: KV accounting not clean: {leak}")
+    info(f"engine quant: launches exactly as predicted ({steps[0]} decode "
+         f"steps, {len(chunks)} chunks {sorted(set(chunks))}): {got_counts}")
+    # decode steady state: device busy share of 8 steps at B=4
+    eng._chunk_fill, eng._decode_step = fill, decode
+    for p in prompts[:4]:
+        eng.add_request(p[:64], 12)
+    eng.step()
+    by = {}
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            eng.step()
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - ts) * 1e3 / 8
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by[ev.key] = us / 8 / 1e3
+    busy = sum(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:8]
+    eng.run_to_completion()
+    ttfts = sorted(ttft.values())
+    summary = dict(
+        quant=qc.describe(), export_s=export_s, decode_step_ms=step_ms,
+        decode_busy_ms=busy, decode_tokens_per_s=dec_tok / dec_s,
+        prefill_s=pre_s, wall_s=wall, ttft_min_s=ttfts[0],
+        ttft_max_s=ttfts[-1], ttft_mean_s=sum(ttfts) / len(ttfts),
+        prefill_logits_max_err=err,
+        bf16=dict((k, bf16[k]) for k in (
+            "decode_step_ms", "decode_busy_ms", "decode_tokens_per_s",
+            "ttft_mean_s", "ttft_max_s")))
+    info(f"engine quant decode step (B=4, profiled, 8 steps): wall "
+         f"{step_ms:.3f} ms/step (bf16 {bf16['decode_step_ms']:.3f}), device "
+         f"busy {busy:.3f} ms/step (bf16 {bf16['decode_busy_ms']:.3f}); "
+         f"top kernels {top}")
+    info(f"engine quant: 8 requests ({sum(lens)} prompt tokens, 256 new) in "
+         f"{wall:.2f} s; decode {dec_tok} tokens in {dec_s:.2f} s = "
+         f"{dec_tok / dec_s:.1f} tok/s (bf16 "
+         f"{bf16['decode_tokens_per_s']:.1f}); TTFT mean "
+         f"{summary['ttft_mean_s']:.3f} s (bf16 {bf16['ttft_mean_s']:.3f})")
+    return counts, summary
 
 
 def phase_engine(cfg, dev="cuda"):
@@ -3556,6 +4460,8 @@ def main():
         phase_kernels(cfg, kernels)
         torch.cuda.empty_cache()
         counts, engine = phase_engine(cfg)
+        torch.cuda.empty_cache()
+        qcounts, engine_q = phase_engine_quant(cfg, engine)
         del cfg
         torch.cuda.empty_cache()
         phase_flash(kernels)
@@ -3583,7 +4489,8 @@ def main():
         return 1
     # each kernel's launches over the main-path runs of the phases that
     # drive it (the engine, the train steps, the rollouts, the eager steps)
-    by_phase = {"engine": counts, "train": train_counts, "gpt": gpt_counts,
+    by_phase = {"engine": counts, "engine quant": qcounts,
+                "train": train_counts, "gpt": gpt_counts,
                 **{f"generate {tag}": c for tag, c in gen_counts.items()},
                 **eager_counts, "fused calls": fused_counts, **enc_counts}
     # and the per-step launches each step phase was checked against
@@ -3603,6 +4510,7 @@ def main():
                 k[key] = k[fallback]
                 k["timing"] = "cuda events"
     info(f"engine summary {json.dumps(engine)}")
+    info(f"engine quant summary {json.dumps(engine_q)}")
     info(f"train summary {json.dumps(train)}")
     info(f"gpt summary {json.dumps(gpt)}")
     info(f"generate summary {json.dumps(gen)}")

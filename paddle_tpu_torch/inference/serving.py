@@ -15,10 +15,13 @@ Differences from the JAX engine, by design:
 * ``jax.lax.scan`` over layers is a Python loop;
 * the pools are one ``[L, NB, BS, Hkv, D]`` tensor per K and V, updated
   IN PLACE layer by layer (the JAX engine donates and replaces them);
+* quantized serving (``quant_config=ServeQuantConfig(...)``): int8 / int4
+  weight-only layer matmuls and / or an int8 paged-KV pool; a full-width
+  tree is PTQ-exported at construction, on the parameters' device;
 * features outside this slice raise ``NotImplementedError`` naming the
   ROADMAP item: sampling, dense (unbucketed) prefill, prefix caching,
-  preemption and spill, speculative decoding, quantized serving, AOT
-  artifacts, MoE and GPT-family configs.
+  preemption and spill, speculative decoding, AOT artifacts, MoE and
+  GPT-family configs — quantized or not.
 """
 
 from __future__ import annotations
@@ -35,7 +38,10 @@ from ..device import resolve_device
 from ..models.llama import _rope_cos_sin, block_shapes, torch_dtype
 from ..ops.decode_block import (decode_block, decode_block_spec, make_norm,
                                 prefill_block)
-from ..ops.paged_kv import zeros_kv_pool
+from ..ops.paged_kv import layer_pool, zeros_kv_pool
+from ..quantization.serve import (ServeQuantConfig,
+                                  quantize_params_for_serving,
+                                  quantized_leaf_names)
 
 __all__ = ["ContinuousBatchingEngine", "GenRequest"]
 
@@ -101,6 +107,12 @@ class ContinuousBatchingEngine:
         ``ceil(max_position_embeddings / block_size)``).
       prefill_buckets: declared prefill chunk lengths; every prompt is
         decomposed into these fixed-size chunk fills (last chunk padded).
+      quant_config: a :class:`~paddle_tpu_torch.quantization.
+        ServeQuantConfig`, or None.  Weight quantization takes an exported
+        tree (``<name>__q`` / ``<name>__s`` leaves, from
+        ``quantize_params_for_serving``) as it is, and PTQ-exports a
+        full-width one here; ``kv_dtype="int8"`` builds int8 pools with
+        per-(token, head) fp32 scales.
       device: ``None`` = CUDA (raises without it); ``"cpu"`` runs the
         plain PyTorch versions of the ops.
     """
@@ -114,18 +126,26 @@ class ContinuousBatchingEngine:
                  prefix_cache_config=None, spec_config=None,
                  quant_config=None, aot_dir: Optional[str] = None,
                  device=None):
+        if quant_config is not None and \
+                not isinstance(quant_config, ServeQuantConfig):
+            raise TypeError(f"quant_config must be a ServeQuantConfig or "
+                            f"None, got {type(quant_config).__name__}")
         refused = {"enable_prefix_caching": enable_prefix_caching,
                    "enable_preemption": enable_preemption,
                    "spill_tier": spill_tier,
                    "prefix_cache_config": prefix_cache_config,
-                   "spec_config": spec_config, "quant_config": quant_config,
-                   "aot_dir": aot_dir}
+                   "spec_config": spec_config, "aot_dir": aot_dir}
         for name, val in refused.items():
             if val not in (None, False):
                 raise NotImplementedError(f"{name}: {_LATER}")
         if prefill_buckets is None:
             raise NotImplementedError(
                 f"prefill_buckets=None (dense cold prefill): {_LATER}")
+        qw = quant_config is not None and quant_config.quantized_weights
+        if qw and getattr(cfg, "moe_num_experts", 0):
+            raise NotImplementedError(
+                "weight-quantized serving covers dense FFNs only — the "
+                "MoE expert matmuls keep full-width weights (ROADMAP)")
         if getattr(cfg, "moe_num_experts", 0):
             raise NotImplementedError(f"MoE configs: {_LATER}")
         if not hasattr(cfg, "rms_norm_eps"):
@@ -133,6 +153,14 @@ class ContinuousBatchingEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
+        self.quant_config = quant_config
+        self._wq = quant_config.weight_dtype if qw else None
+        self._gs = quant_config.group_size if qw else -1
+        kv_quant = quant_config is not None and quant_config.quantized_kv
+        if qw and not any(k.endswith("__q") for k in params["blocks"]):
+            # a full-width tree handed to a weight-quantized engine: the
+            # PTQ export (absmax scales) on the parameters' device
+            params = quantize_params_for_serving(params, quant_config)
         self.params = self._check_params(params)
         self.B = max_batch
         self.BS = block_size
@@ -141,9 +169,11 @@ class ContinuousBatchingEngine:
         self.NB = num_blocks
         L, kvh, hd = cfg.num_layers, cfg.kv_heads, cfg.head_dim
         self.pool_k = zeros_kv_pool((L, num_blocks, block_size, kvh, hd),
-                                    self.dtype, self.device)
+                                    self.dtype, self.device,
+                                    kv_quant=kv_quant)
         self.pool_v = zeros_kv_pool((L, num_blocks, block_size, kvh, hd),
-                                    self.dtype, self.device)
+                                    self.dtype, self.device,
+                                    kv_quant=kv_quant)
         self.block_table = np.full((max_batch, self.MB), -1, np.int32)
         self.lengths = np.zeros((max_batch,), np.int32)
         self.tokens = np.zeros((max_batch,), np.int32)
@@ -155,7 +185,7 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         self._buckets = ShapeBucketRegistry(prefill_buckets,
                                             max_batch=max_batch)
-        self.spec = decode_block_spec(cfg, block_size)
+        self.spec = decode_block_spec(cfg, block_size, self._wq, self._gs)
         self._norm = make_norm(self.spec)
         self._cos, self._sin = _rope_cos_sin(
             cfg.max_position_embeddings, hd, cfg.rope_theta, self.dtype,
@@ -164,30 +194,54 @@ class ContinuousBatchingEngine:
         # engine's preferred_element_type=float32 einsum gives them
         self._head32 = self.params["head"].float()
         self._layers = [{k: self.params["blocks"][k][i]
-                         for k in block_shapes(cfg)} for i in range(L)]
+                         for k in self._leaf_shapes()} for i in range(L)]
         self.decode_tokens = 0
         self.last_logits: Optional[np.ndarray] = None        # [B, V]
         self.last_prefill_logits: Optional[np.ndarray] = None   # [V]
 
+    def _leaf_shapes(self):
+        """{block leaf: (per-layer shape, dtype)}: the block weights, or
+        under weight quantization each matmul's codes and scales."""
+        out = {}
+        for k, shape in block_shapes(self.cfg).items():
+            if self._wq is None or k.startswith("ln"):
+                out[k] = (shape, self.dtype)
+                continue
+            K, N = shape
+            qn, sn = quantized_leaf_names(k)
+            out[qn] = ((-(-K // 2) if self._wq == "int4" else K, N),
+                       torch.int8)
+            out[sn] = (((N,) if self._gs == -1 else (-(-K // self._gs), N)),
+                       torch.float32)
+        return out
+
     def _check_params(self, params):
         cfg = self.cfg
-        want = {"wte": (cfg.vocab_size, cfg.hidden_size),
-                "head": (cfg.hidden_size, cfg.vocab_size),
-                "lnf_w": (cfg.hidden_size,)}
-        want.update({f"blocks.{k}": (cfg.num_layers,) + s
-                     for k, s in block_shapes(cfg).items()})
-        for key, shape in want.items():
-            t = params["blocks"][key[7:]] if key.startswith("blocks.") \
-                else params[key]
+        want = {"wte": ((cfg.vocab_size, cfg.hidden_size), self.dtype),
+                "head": ((cfg.hidden_size, cfg.vocab_size), self.dtype),
+                "lnf_w": ((cfg.hidden_size,), self.dtype)}
+        want.update({f"blocks.{k}": ((cfg.num_layers,) + s, dt)
+                     for k, (s, dt) in self._leaf_shapes().items()})
+        for key, (shape, dt) in want.items():
+            if key.startswith("blocks."):
+                if key[7:] not in params["blocks"]:
+                    raise ValueError(
+                        f"params[{key}] is missing (a weight-quantized "
+                        "engine takes a full-width tree or the export of "
+                        "quantize_params_for_serving under the same "
+                        "config)")
+                t = params["blocks"][key[7:]]
+            else:
+                t = params[key]
             if tuple(t.shape) != shape:
                 raise ValueError(
                     f"params[{key}] has shape {tuple(t.shape)}, expected "
                     f"{shape} (a JAX tree with [S, per, ...] blocks goes "
                     "through bridge.params_from_numpy)")
-            if t.dtype != self.dtype or t.device != self.device:
+            if t.dtype != dt or t.device != self.device:
                 raise ValueError(
                     f"params[{key}] is {t.dtype} on {t.device}, the engine "
-                    f"serves {self.dtype} on {self.device}")
+                    f"serves {dt} on {self.device}")
         return params
 
     # ------------------------------------------------------------------
@@ -206,8 +260,9 @@ class ContinuousBatchingEngine:
         pos = lengths.long()
         cos, sin = self._cos[pos].contiguous(), self._sin[pos].contiguous()
         for i, lp in enumerate(self._layers):
-            x, _, _ = decode_block(x, lp, self.pool_k[i], self.pool_v[i],
-                                   bt, lengths, cos, sin, spec=self.spec)
+            x, _, _ = decode_block(x, lp, layer_pool(self.pool_k, i),
+                                   layer_pool(self.pool_v, i), bt, lengths,
+                                   cos, sin, spec=self.spec)
         return self._logits(x)
 
     def _chunk_fill(self, bt_row: torch.Tensor, start: int,
@@ -229,9 +284,10 @@ class ContinuousBatchingEngine:
                           torch.full_like(blk, self.NB)).to(torch.int32)
         off = (pos % self.BS).to(torch.int32)
         for i, lp in enumerate(self._layers):
-            x, _, _ = prefill_block(x, lp, self.pool_k[i], self.pool_v[i],
-                                    blk, off, bt_row, cos, sin,
-                                    spec=self.spec, start=start)
+            x, _, _ = prefill_block(x, lp, layer_pool(self.pool_k, i),
+                                    layer_pool(self.pool_v, i), blk, off,
+                                    bt_row, cos, sin, spec=self.spec,
+                                    start=start)
         return self._logits(x[:, valid - 1])
 
     def _fill_prompt_bucketed(self, slot: int, req: GenRequest,

@@ -36,7 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 PT_F32, PT_BF16 = 0, 1
-EPI_NONE, EPI_RESID, EPI_SWIGLU = 0, 1, 2
+EPI_NONE, EPI_RESID, EPI_SWIGLU, EPI_SWIGLU_R = 0, 1, 2, 3
+#: LayerArgs.wq: the layer's matmul weights in the model dtype, int8 codes,
+#: or int4 codes halves-packed
+WQ_NONE, WQ_INT8, WQ_INT4 = 0, 1, 2
 
 
 class KernelBuildError(RuntimeError):
@@ -51,13 +54,15 @@ class LayerArgs(ctypes.Structure):
     """Mirror of ``struct LayerArgs`` in ``csrc/common.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in
                  ("dtype", "M", "H", "Hq", "Hkv", "D", "F", "BS", "NB", "MB",
-                  "start")]
+                  "start", "wq", "gs", "kv_quant")]
                 + [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in
                    ("x", "ln1_w", "q_w", "k_w", "v_w", "o_w", "ln2_w",
-                    "gate_w", "up_w", "down_w", "cos", "sin", "block_table",
-                    "lengths", "blk", "off", "pool_k", "pool_v", "y", "q",
-                    "k", "v", "attn", "x_mid", "hbuf", "out")])
+                    "gate_w", "up_w", "down_w", "q_s", "k_s", "v_s", "o_s",
+                    "gate_s", "up_s", "down_s", "cos", "sin", "block_table",
+                    "lengths", "blk", "off", "pool_k", "pool_v", "pool_ks",
+                    "pool_vs", "y", "q", "k", "v", "attn", "x_mid", "hbuf",
+                    "out")])
 
 
 class FlashArgs(ctypes.Structure):
@@ -86,8 +91,9 @@ class WoArgs(ctypes.Structure):
     """Mirror of ``struct WoArgs`` in ``csrc/common.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in
                  ("int4", "x_dtype", "M", "K", "N", "half", "ldx", "xhi",
-                  "gs", "G", "tile_dq")]
-                + [(n, ctypes.c_void_p) for n in ("x", "w", "scale", "y")])
+                  "gs", "G", "tile_dq", "epi")]
+                + [(n, ctypes.c_void_p) for n in ("x", "w", "scale", "y",
+                                                  "R")])
 
 
 class NormArgs(ctypes.Structure):
@@ -189,6 +195,7 @@ def _bind(lib: ctypes.CDLL) -> None:
             "pt_decode_attention": [I, I, I, I, I, I, LL, LL, Fl, P, P, P,
                                     P, P, P],
             "pt_weight_only_matmul": [ctypes.POINTER(WoArgs), P],
+            "pt_wo_layer": [ctypes.POINTER(WoArgs), P],
             "pt_rms_norm_fwd": [nptr, P], "pt_layer_norm_fwd": [nptr, P],
             "pt_bias_residual_ln_fwd": [nptr, P],
             "pt_swiglu_fwd": [I, LL, P, P, P, P],

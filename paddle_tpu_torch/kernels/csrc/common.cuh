@@ -11,7 +11,10 @@
 #include <stdint.h>
 
 enum { PT_F32 = 0, PT_BF16 = 1 };
-enum { EPI_NONE = 0, EPI_RESID = 1, EPI_SWIGLU = 2 };
+// EPI_SWIGLU: Y = silu(X @ W) * (X @ W2), one launch (gemm_xw);
+// EPI_SWIGLU_R: Y = silu(R) * (X @ W), R the gate product already stored in
+// the model dtype (the weight-only chain's up projection, after its gate)
+enum { EPI_NONE = 0, EPI_RESID = 1, EPI_SWIGLU = 2, EPI_SWIGLU_R = 3 };
 
 // One Llama layer's launch description, shared by the decode and the
 // prefill entry points.  Mirrored field for field by the ctypes
@@ -22,14 +25,22 @@ struct LayerArgs {
   int H, Hq, Hkv, D, F;       // hidden, q heads, kv heads, head dim, ffn
   int BS, NB, MB;             // page size, pool pages, table width
   int start;                  // prefill: position of row 0
+  int wq;                     // matmul weights: 0 in `dtype`; 1 int8 codes
+                              // [K, N]; 2 int4 codes halves-packed [K/2, N]
+  int gs;                     // wq: rows a scale group (1 << 30: per channel)
+  int kv_quant;               // 1: int8 pools with fp32 scale pools
   float eps, scale;
   const void *x, *ln1_w, *q_w, *k_w, *v_w, *o_w, *ln2_w, *gate_w, *up_w,
-      *down_w;
+      *down_w;                // norm gains in `dtype`; matmuls [in, out]
+  const float *q_s, *k_s, *v_s, *o_s, *gate_s, *up_s,
+      *down_s;                // wq: the matmuls' scales [ceil(K / gs), N]
   const void *cos, *sin;      // [M, D]
   const int *block_table;     // decode [M, MB]; prefill [MB]
   const int *lengths;         // decode [M] tokens already stored; prefill 0
   const int *blk, *off;       // prefill [M] write targets; decode 0
-  void *pool_k, *pool_v;      // [NB, BS, Hkv, D], written in place
+  void *pool_k, *pool_v;      // [NB, BS, Hkv, D] (kv_quant: int8 codes),
+                              // written in place
+  float *pool_ks, *pool_vs;   // kv_quant: [NB, BS, Hkv] scales, in place
   void *y, *q, *k, *v, *attn, *x_mid, *hbuf;   // scratch
   void *out;                  // [M, H]
 };
@@ -96,18 +107,23 @@ struct LceArgs {
 // row per gs rows of w (G 1 and gs 1 << 30 per output channel).
 // tile_dq 1: the weight is dequantized in x's dtype (scale rounded to it)
 // before the product; 0: each group's fp32 partial product is multiplied
-// by its fp32 scale.  Mirrored field for field by the ctypes Structure in
-// paddle_tpu_torch/kernels/build.py.
+// by its fp32 scale.  epi (EPI_NONE, EPI_RESID, EPI_SWIGLU_R) applies the
+// serving chain's epilogue to the product rounded to x's dtype, with R
+// [M, N] in x's dtype (R may be y itself: each element is read before it
+// is written, by the same thread).  Mirrored field for field by the ctypes
+// Structure in paddle_tpu_torch/kernels/build.py.
 struct WoArgs {
   int int4;                   // 0: int8 codes [K, N]; 1: packed int4
   int x_dtype;                // PT_F32 | PT_BF16
   int M, K, N, half;
   int ldx, xhi;
   int gs, G, tile_dq;
+  int epi;
   const void *x;
   const signed char *w;
   const float *scale;
   void *y;
+  const void *R;
 };
 
 // One row-normalisation launch (norms.cu): x, res, out, add [R, H]
@@ -169,6 +185,22 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
+// the serving chain's epilogues on a product `a` (and `b`, SwiGLU's second)
+// with the reference's rounding: each product rounded to T before the
+// residual add or the activation
+template <typename T>
+__device__ __forceinline__ float epi_value(int epi, float a, float b,
+                                           float r) {
+  if (epi == EPI_SWIGLU || epi == EPI_SWIGLU_R) {
+    const bool two = epi == EPI_SWIGLU;
+    float g = rnd<T>(two ? a : r), u = rnd<T>(two ? b : a);
+    float s = rnd<T>(g / (1.0f + expf(-g)));
+    return s * u;
+  }
+  if (epi == EPI_RESID) return r + rnd<T>(a);
+  return a;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -179,7 +211,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // Launch counters: one per __global__ kernel (its fp32/bf16 and epilogue
 // template instances count together; the three modes of norms.cu's kernel
-// apart) and one per layer entry point.
+// apart) and one per layer entry point.  The quantized serving chain's
+// variants count apart (the last seven): the weight-only GEMMs with the
+// chain's epilogues (quant_linear.cu launch_wo_layer), the RoPE / KV write
+// into an int8 pool and the attention over one.
 // Kept in layer.cu, read and reset through pt_launch_counts /
 // pt_reset_launch_counts; the names in paddle_tpu_torch/ops/cuda/layer.py
 // (KERNELS) follow this order.
@@ -214,6 +249,13 @@ enum {
   CNT_SOFTMAX_MASK_FWD,
   CNT_BIAS_ACT_FWD,
   CNT_DROPOUT_ADD_FWD,
+  CNT_WO_LAYER_INT8_SMALL_M,
+  CNT_WO_LAYER_INT8_TILED,
+  CNT_WO_LAYER_INT4_SMALL_M,
+  CNT_WO_LAYER_INT4_TILED,
+  CNT_WO_LAYER_F32,
+  CNT_ROPE_KV_WRITE_Q8,
+  CNT_PAGED_ATTENTION_Q8,
   CNT_NUM
 };
 
@@ -244,3 +286,4 @@ cudaError_t launch_decode_attention(int dtype, int B, int Hq, int Hkv, int D,
                                     const int *lengths, void *out,
                                     cudaStream_t s);
 cudaError_t launch_weight_only_matmul(const WoArgs *a, cudaStream_t s);
+cudaError_t launch_wo_layer(const WoArgs *a, cudaStream_t s);

@@ -58,18 +58,6 @@
 namespace pt {
 
 template <typename T>
-__device__ __forceinline__ float epi_value(int epi, float a, float b,
-                                           float r) {
-  if (epi == EPI_SWIGLU) {
-    float g = rnd<T>(a), u = rnd<T>(b);
-    float s = rnd<T>(g / (1.0f + expf(-g)));
-    return s * u;
-  }
-  if (epi == EPI_RESID) return r + rnd<T>(a);
-  return a;
-}
-
-template <typename T>
 __device__ __forceinline__ void epilogue(T *Y, const T *R, int epi, int m,
                                          int n, int N, float a, float b) {
   size_t i = (size_t)m * N + n;

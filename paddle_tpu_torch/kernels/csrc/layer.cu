@@ -6,6 +6,11 @@
 //   rms_norm_rows -> gemm_xw q, k, v -> rope_kv_write -> paged_attention
 //   -> gemm_xw o (+ residual) -> rms_norm_rows -> gemm_xw gate/up (SwiGLU)
 //   -> gemm_xw down (+ residual)
+// A weight-only quantized layer (LayerArgs::wq) takes the weight-only
+// kernels for its seven matmuls (quant_linear.cu launch_wo_layer, the same
+// epilogues; SwiGLU as gate, then up with silu(gate) * up in its epilogue);
+// an int8 KV pool (kv_quant) takes rope_kv_write's and paged_attention's
+// int8 variants.
 // They replace the TPU megakernels paddle_tpu/ops/pallas/decode_block.py
 // (_kernel, pallas_call at :535) and prefill_block.py (_kernel,
 // pallas_call at :435), which keep a whole layer's weights in VMEM.  A 7B
@@ -37,7 +42,59 @@ cudaError_t count_launch(int c, cudaError_t e) {
   return e;
 }
 
+// one weight-only layer GEMM: Y [M, N] = epi(X [M, K] @ dequant(W, S), R)
+static cudaError_t wo_mm(const LayerArgs *a, int K, int N, int epi,
+                         const void *X, const void *W, const float *S,
+                         const void *R, void *Y, cudaStream_t s) {
+  WoArgs w = {};
+  w.int4 = a->wq == 2;
+  w.x_dtype = a->dtype;
+  w.M = a->M;
+  w.K = K;
+  w.N = N;
+  w.half = w.int4 ? (K + 1) / 2 : 0;
+  w.ldx = K;
+  w.xhi = w.half;
+  w.gs = a->gs;
+  w.G = (K + a->gs - 1) / a->gs;
+  w.epi = epi;
+  w.x = X;
+  w.w = (const signed char *)W;
+  w.scale = S;
+  w.y = Y;
+  w.R = R;
+  return launch_wo_layer(&w, s);
+}
+
+static cudaError_t layer_forward_wo(const LayerArgs *a, cudaStream_t s) {
+  const int dt = a->dtype, M = a->M, H = a->H, F = a->F;
+  const int QD = a->Hq * a->D, KD = a->Hkv * a->D;
+  PT_TRY(launch_rms_norm_rows(dt, M, H, a->x, a->ln1_w, a->y, a->eps, s));
+  PT_TRY(wo_mm(a, H, QD, EPI_NONE, a->y, a->q_w, a->q_s, 0, a->q, s));
+  PT_TRY(wo_mm(a, H, KD, EPI_NONE, a->y, a->k_w, a->k_s, 0, a->k, s));
+  PT_TRY(wo_mm(a, H, KD, EPI_NONE, a->y, a->v_w, a->v_s, 0, a->v, s));
+  PT_TRY(launch_rope_kv_write(a, s));
+  PT_TRY(launch_paged_attention(a, s));
+  PT_TRY(wo_mm(a, QD, H, EPI_RESID, a->attn, a->o_w, a->o_s, a->x, a->x_mid,
+               s));
+  PT_TRY(launch_rms_norm_rows(dt, M, H, a->x_mid, a->ln2_w, a->y, a->eps, s));
+  PT_TRY(wo_mm(a, H, F, EPI_NONE, a->y, a->gate_w, a->gate_s, 0, a->hbuf, s));
+  PT_TRY(wo_mm(a, H, F, EPI_SWIGLU_R, a->y, a->up_w, a->up_s, a->hbuf,
+               a->hbuf, s));
+  PT_TRY(wo_mm(a, F, H, EPI_RESID, a->hbuf, a->down_w, a->down_s, a->x_mid,
+               a->out, s));
+  return cudaSuccess;
+}
+
 static cudaError_t layer_forward(const LayerArgs *a, cudaStream_t s) {
+  if (a->kv_quant && (!a->pool_ks || !a->pool_vs))
+    return cudaErrorInvalidValue;
+  if (a->wq) {
+    if (a->wq > 2 || a->gs <= 0 || !a->q_s || !a->k_s || !a->v_s ||
+        !a->o_s || !a->gate_s || !a->up_s || !a->down_s)
+      return cudaErrorInvalidValue;
+    return layer_forward_wo(a, s);
+  }
   const int dt = a->dtype, M = a->M, H = a->H, F = a->F;
   const int QD = a->Hq * a->D, KD = a->Hkv * a->D;
   PT_TRY(launch_rms_norm_rows(dt, M, H, a->x, a->ln1_w, a->y, a->eps, s));

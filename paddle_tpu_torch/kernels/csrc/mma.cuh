@@ -1,6 +1,6 @@
 // Tensor-core and async-copy building blocks shared by the bf16 kernels
 // (quant_linear.cu, flash_attention.cu, decode_attention.cu,
-// paged_attention.cu): 16- and 4-byte cp.async copies with zero fill,
+// paged_attention.cu): 16-, 8- and 4-byte cp.async copies with zero fill,
 // their commit / wait, mma.sync m16n8k16 bf16 with fp32 accumulators,
 // ldmatrix x4 (plain and transposed) and bf16 packing; and the attention
 // kernels' row copies into padded tiles, the two products on ldmatrix
@@ -28,6 +28,12 @@ __device__ __forceinline__ void cp16(void *dst, const void *src, bool ok) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(ok ? 16 : 0));
+}
+// 8 bytes, as cp16
+__device__ __forceinline__ void cp8(void *dst, const void *src, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 8 : 0));
 }
 // 4 bytes, as cp16 (for fp32 / int32 rows without 16-byte alignment)
 __device__ __forceinline__ void cp4(void *dst, const void *src, bool ok) {

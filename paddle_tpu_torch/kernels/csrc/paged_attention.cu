@@ -61,6 +61,24 @@
 //     positions <= start + r; a block's walk ends at start plus its last
 //     row, a warp skips the tiles wholly past its rows and masks only those
 //     that cross its diagonal or the walk's end.
+//
+// An int8 pool (LayerArgs::kv_quant: codes [NB, BS, Hkv, D] and fp32 scales
+// [NB, BS, Hkv] a pool; the kv_quant branches of the TPU kernels,
+// decode_block.py:310 / :335 and prefill_block.py:213 / :237) takes the
+// same two bodies with Q8 set, counted apart (paged_attention_q8):
+//   * rows: a lane's chunk is 16 codes (8 where GM 8 would spill its q and
+//     acc registers), so a 16-byte copy brings twice the positions of a
+//     bf16 one and a stage holds CHP positions' codes plus their K and V
+//     scales (one 4-byte copy each); a code is dequantized to fp32 as code
+//     x scale (decode: the reference dequantizes to fp32), rounded to T
+//     when the body serves a prefill chunk (the reference dequantizes the
+//     gathered pages to the model dtype there);
+//   * prefill: the raw codes and scales of a tile land in a ring of their
+//     own; once landed, the block rounds code x scale to bf16 into the one
+//     padded K / V tile the mma.sync products read.
+// Logits, softmax and P V are the full-width bodies'.
+#include <type_traits>
+
 #include "mma.cuh"
 #include "wgmma.cuh"
 
@@ -70,6 +88,7 @@ namespace pattn {
 constexpr int NT = 128, NW = NT / 32;   // rows body: 4 warps
 constexpr int MAXS = 8, MINP = 2;       // splits at most; pages a split aims at
 constexpr int MAXG = 8;                 // q heads a kv head
+constexpr int Q8_BASE = 32;             // allow_smem instances of the Q8 bodies
 constexpr int NSTG = 4, STEPS = 2;      // ring chunks; warp steps a chunk
 // bf16 chunks of <= 16 rows take the one-warp tensor-core body while their
 // walk ends within this many positions (tools/pattn_ab.py on an NVIDIA H100
@@ -78,16 +97,59 @@ constexpr int NSTG = 4, STEPS = 2;      // ring chunks; warp steps a chunk
 constexpr int MMA16_MAX = 512;
 constexpr float NEG_INF = -1e30f;
 
-// rows body: a lane owns EPC elements (16 bytes) of a row, CPR lanes a
-// row, a warp step RPW rows, a chunk CHP positions of K then V (8 KB)
-template <typename T, int D> struct Rows {
-  static constexpr int EPC = 16 / (int)sizeof(T);
+// rows body: a lane owns EPC elements of a row (16 bytes of T; of int8
+// codes 16, or 8 at GM 8), CPR lanes a row, a warp step RPW rows, a chunk
+// CHP positions of K then V (8 KB), then with Q8 their K and V scales
+template <typename T, int D, int GM, bool Q8> struct Rows {
+  using P = typename std::conditional<Q8, signed char, T>::type;
+  static constexpr int EPC = Q8 ? (GM <= 4 ? 16 : 8) : 16 / (int)sizeof(T);
+  static constexpr int CB = EPC * (int)sizeof(P);     // bytes a lane's chunk
   static constexpr int CPR = D / EPC;
   static constexpr int RPW = 32 / CPR;
   static constexpr int CHP = STEPS * NW * RPW;
-  static constexpr int STAGE = 2 * CHP * D;           // elements
-  static constexpr size_t RING = (size_t)NSTG * STAGE * sizeof(T);
+  static constexpr int CODES = 2 * CHP * D * (int)sizeof(P);
+  static constexpr int STAGE = CODES + (Q8 ? 2 * CHP * 4 : 0);   // bytes
+  static constexpr size_t RING = (size_t)NSTG * STAGE;
 };
+
+// a lane's chunk global -> shared: 16 or 8 bytes
+template <int CB>
+__device__ __forceinline__ void cp_chunk(void *dst, const void *src,
+                                         bool ok) {
+  if constexpr (CB == 16)
+    cp16(dst, src, ok);
+  else
+    cp8(dst, src, ok);
+}
+
+// N values of T (N sizeof(T) a multiple of 16 bytes) as floats
+template <typename T, int N>
+__device__ __forceinline__ void load_f(const T *p, float *f) {
+  constexpr int PER = 16 / (int)sizeof(T);
+#pragma unroll
+  for (int c = 0; c < N / PER; ++c) {
+    const uint4 u = reinterpret_cast<const uint4 *>(p)[c];
+    const T *e = reinterpret_cast<const T *>(&u);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) f[c * PER + i] = to_f<T>(e[i]);
+  }
+}
+
+// EPC int8 codes of shared memory as code x s, rounded to T when `rt`
+template <typename T, int EPC>
+__device__ __forceinline__ void codes_f(const signed char *p, float s,
+                                        bool rt, float *f) {
+  alignas(16) signed char e[EPC];
+  if constexpr (EPC == 16)
+    *reinterpret_cast<uint4 *>(e) = *reinterpret_cast<const uint4 *>(p);
+  else
+    *reinterpret_cast<uint2 *>(e) = *reinterpret_cast<const uint2 *>(p);
+#pragma unroll
+  for (int i = 0; i < EPC; ++i) {
+    const float v = (float)e[i] * s;
+    f[i] = rt ? rnd<T>(v) : v;
+  }
+}
 
 // a row's table row and its live positions [0, n)
 struct RowOf {
@@ -109,13 +171,16 @@ __device__ __forceinline__ void chunk_f(const T *p, float *f) {
   for (int i = 0; i < EPC; ++i) f[i] = to_f<T>(e[i]);
 }
 
-template <typename T, int D, int GM>
+template <typename T, int D, int GM, bool Q8>
 __global__ void __launch_bounds__(NT)
     paged_attention_rows(LayerArgs a, int pmax) {
-  using R = Rows<T, D>;
+  using R = Rows<T, D, GM, Q8>;
+  using P = typename R::P;
   constexpr int EPC = R::EPC, CPR = R::CPR, RPW = R::RPW, CHP = R::CHP;
+  static_assert(R::RING >= sizeof(float) * NW * GM * (D + 2),
+                "the warps' fold overlays the ring");
   extern __shared__ __align__(128) unsigned char smem[];
-  T *ring = reinterpret_cast<T *>(smem);
+  unsigned char *ring = smem;
   int *pidx = reinterpret_cast<int *>(smem + R::RING);
   float *recv = reinterpret_cast<float *>(pidx + ((pmax + 3) & ~3));
   const int S = gridDim.x, s = blockIdx.x, hk = blockIdx.y, r = blockIdx.z;
@@ -141,10 +206,7 @@ __global__ void __launch_bounds__(NT)
     m[g] = NEG_INF;
     l[g] = 0.f;
     if (g < G) {
-      const uint4 u = *reinterpret_cast<const uint4 *>(qb + g * D);
-      const T *e = reinterpret_cast<const T *>(&u);
-#pragma unroll
-      for (int i = 0; i < EPC; ++i) qf[g][i] = to_f<T>(e[i]);
+      load_f<T, EPC>(qb + g * D, qf[g]);
     } else {
 #pragma unroll
       for (int i = 0; i < EPC; ++i) qf[g][i] = 0.f;
@@ -154,12 +216,15 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();                                   // pidx
 
-  const T *pk = (const T *)a.pool_k, *pv = (const T *)a.pool_v;
+  const P *pk = (const P *)a.pool_k, *pv = (const P *)a.pool_v;
   const size_t rs = (size_t)a.Hkv * D;               // a pool position
-  // chunk c's K rows, then its V rows, into ring stage c % NSTG; rows past
-  // cnt are zero-filled
+  // dequantized codes rounded to T: the rows body serving a prefill chunk
+  const bool rt = !a.lengths;
+  // chunk c's K rows, then its V rows (then, Q8, their K and V scales),
+  // into ring stage c % NSTG; rows past cnt are zero-filled
   auto issue = [&](int c) {
-    T *dst = ring + (c % NSTG) * R::STAGE;
+    unsigned char *st = ring + (c % NSTG) * R::STAGE;
+    P *dst = reinterpret_cast<P *>(st);
     for (int i = tid; i < CHP * CPR; i += NT) {
       const int ri = i / CPR, cc = i % CPR, p = c * CHP + ri;
       const bool ok = p < cnt;
@@ -167,8 +232,19 @@ __global__ void __launch_bounds__(NT)
           ok ? ((size_t)pidx[p / BS] * BS + p % BS) * rs + (size_t)hk * D +
                    cc * EPC
              : 0;
-      cp16(dst + ri * D + cc * EPC, pk + off, ok);
-      cp16(dst + (CHP + ri) * D + cc * EPC, pv + off, ok);
+      cp_chunk<R::CB>(dst + ri * D + cc * EPC, pk + off, ok);
+      cp_chunk<R::CB>(dst + (CHP + ri) * D + cc * EPC, pv + off, ok);
+    }
+    if constexpr (Q8) {
+      float *sc = reinterpret_cast<float *>(st + R::CODES);
+      for (int i = tid; i < CHP; i += NT) {
+        const int p = c * CHP + i;
+        const bool ok = p < cnt;
+        const size_t so =
+            ok ? ((size_t)pidx[p / BS] * BS + p % BS) * a.Hkv + hk : 0;
+        cp4(sc + i, a.pool_ks + so, ok);
+        cp4(sc + CHP + i, a.pool_vs + so, ok);
+      }
     }
   };
   const int nch = (cnt + CHP - 1) / CHP;
@@ -182,7 +258,9 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();            // chunk c landed; chunk c - 1 is done
     if (c + NSTG - 1 < nch) issue(c + NSTG - 1);
     cp_commit();
-    const T *kt = ring + (c % NSTG) * R::STAGE, *vt = kt + CHP * D;
+    const unsigned char *st = ring + (c % NSTG) * R::STAGE;
+    const P *kt = reinterpret_cast<const P *>(st), *vt = kt + CHP * D;
+    const float *ksc = reinterpret_cast<const float *>(st + R::CODES);
     // this warp's rows (st NW + warp) RPW + ro of the chunk: scores
     float sc[STEPS][GM];
 #pragma unroll
@@ -190,7 +268,10 @@ __global__ void __launch_bounds__(NT)
       const int i = (st * NW + warp) * RPW + ro;
       const bool live = c * CHP + i < cnt;
       float kf[EPC];
-      chunk_f<T, EPC>(kt + i * D + ch * EPC, kf);
+      if constexpr (Q8)
+        codes_f<T, EPC>(kt + i * D + ch * EPC, ksc[i], rt, kf);
+      else
+        chunk_f<T, EPC>(kt + i * D + ch * EPC, kf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float d = 0.f;
@@ -221,7 +302,10 @@ __global__ void __launch_bounds__(NT)
     for (int st = 0; st < STEPS; ++st) {
       const int i = (st * NW + warp) * RPW + ro;
       float vf[EPC];
-      chunk_f<T, EPC>(vt + i * D + ch * EPC, vf);
+      if constexpr (Q8)
+        codes_f<T, EPC>(vt + i * D + ch * EPC, ksc[CHP + i], rt, vf);
+      else
+        chunk_f<T, EPC>(vt + i * D + ch * EPC, vf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         const float p = expf(sc[st][g] - m[g]);
@@ -303,19 +387,22 @@ __global__ void __launch_bounds__(NT)
 }
 
 // prefill body: BQ query rows a block (16 a warp), BK-row K / V tiles in a
-// ring of NSTG, rows padded to LD (16 bytes past D: conflict-free ldmatrix)
-template <int D, int WARPS> struct Pre {
+// ring of NSTG, rows padded to LD (16 bytes past D: conflict-free ldmatrix);
+// Q8: one such bf16 tile, and the ring holds the raw codes (K, V) and
+// scales (K, V) of NSTG tiles
+template <int D, int WARPS, bool Q8> struct Pre {
   static constexpr int BQ = 16 * WARPS, NTH = 32 * WARPS;
   static constexpr int BK = 64, NSTG = 2, LD = D + 8;
   static constexpr int QB = BQ * LD * 2;                  // Q tile bytes
   static constexpr int STAGE = 2 * BK * LD * 2;           // K, then V
-  static constexpr int RING = QB + NSTG * STAGE;
+  static constexpr int RAW = 2 * BK * D + 2 * BK * 4;     // Q8: codes, scales
+  static constexpr int RING = QB + (Q8 ? STAGE + NSTG * RAW : NSTG * STAGE);
 };
 
-template <int D, int WARPS>
-__global__ void __launch_bounds__(Pre<D, WARPS>::NTH)
+template <int D, int WARPS, bool Q8>
+__global__ void __launch_bounds__(Pre<D, WARPS, Q8>::NTH)
     paged_attention_prefill(LayerArgs a) {
-  using C = Pre<D, WARPS>;
+  using C = Pre<D, WARPS, Q8>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NTH = C::NTH;
   constexpr int KS = D / 16, NS = BK / 8, ND = D / 8, KP = BK / 16;
   constexpr int CPR = D / 8;
@@ -336,7 +423,36 @@ __global__ void __launch_bounds__(Pre<D, WARPS>::NTH)
   cp_rows<D, BQ, NTH>(Qs, (const bf16 *)a.q + (size_t)h * D, qs, q0, a.M);
   __syncthreads();                                   // pidx
   const bf16 *pk = (const bf16 *)a.pool_k, *pv = (const bf16 *)a.pool_v;
+  const signed char *qk = (const signed char *)a.pool_k,
+                    *qv = (const signed char *)a.pool_v;
+  constexpr int CPR8 = D / 16;                       // Q8: 16 codes a copy
+  auto raw_of = [&](int kt) {
+    return smem + C::QB + C::STAGE + (kt % C::NSTG) * C::RAW;
+  };
   auto stage = [&](int kt) {                         // K, V tile kt
+    if constexpr (Q8) {
+      unsigned char *raw = raw_of(kt);
+      float *sc = reinterpret_cast<float *>(raw + 2 * BK * D);
+      for (int i = threadIdx.x; i < BK * CPR8; i += NTH) {
+        const int ri = i / CPR8, col = i % CPR8 * 16, p = kt * BK + ri;
+        const bool ok = p < kend;
+        const size_t off =
+            ok ? ((size_t)pidx[p / BS] * BS + p % BS) * rs +
+                     (size_t)hk * D + col
+               : 0;
+        cp16(raw + ri * D + col, qk + off, ok);
+        cp16(raw + (BK + ri) * D + col, qv + off, ok);
+      }
+      for (int i = threadIdx.x; i < BK; i += NTH) {
+        const int p = kt * BK + i;
+        const bool ok = p < kend;
+        const size_t so =
+            ok ? ((size_t)pidx[p / BS] * BS + p % BS) * a.Hkv + hk : 0;
+        cp4(sc + i, a.pool_ks + so, ok);
+        cp4(sc + BK + i, a.pool_vs + so, ok);
+      }
+      return;
+    }
     bf16 *Ks = reinterpret_cast<bf16 *>(smem + C::QB +
                                         (kt % C::NSTG) * C::STAGE);
     for (int i = threadIdx.x; i < BK * CPR; i += NTH) {
@@ -374,8 +490,30 @@ __global__ void __launch_bounds__(Pre<D, WARPS>::NTH)
     __syncthreads();               // tile kt landed; tile kt - 1 is done
     if (kt + C::NSTG - 1 < nkt) stage(kt + C::NSTG - 1);
     cp_commit();
+    if constexpr (Q8) {
+      // tile kt's codes x scales, rounded to bf16, into the one K / V tile
+      // (the previous tile's products are done: the barrier above)
+      const unsigned char *raw = raw_of(kt);
+      const float *sc = reinterpret_cast<const float *>(raw + 2 * BK * D);
+      bf16 *T8 = reinterpret_cast<bf16 *>(smem + C::QB);
+      for (int i = threadIdx.x; i < 2 * BK * CPR8; i += NTH) {
+        const int ri = i / CPR8, col = i % CPR8 * 16;
+        const float sr = sc[ri];                     // K rows, then V rows
+        alignas(16) signed char e[16];
+        *reinterpret_cast<uint4 *>(e) =
+            *reinterpret_cast<const uint4 *>(raw + ri * D + col);
+        unsigned w[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          w[j] = pack_bf16((float)e[2 * j] * sr, (float)e[2 * j + 1] * sr);
+        uint4 *dst = reinterpret_cast<uint4 *>(T8 + ri * LD + col);
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      __syncthreads();
+    }
     const bf16 *Ks = reinterpret_cast<const bf16 *>(
-        smem + C::QB + (kt % C::NSTG) * C::STAGE);
+        smem + C::QB + (Q8 ? 0 : (kt % C::NSTG) * C::STAGE));
     const bf16 *Vs = Ks + BK * LD;
     const int k0 = kt * BK;
     // nothing to add: the warp's rows past Ts, or every key after them
@@ -467,7 +605,7 @@ __global__ void __launch_bounds__(Pre<D, WARPS>::NTH)
 // the largest dynamic shared memory each instance may take, per device (a
 // table of this file's own: a function-local static of a template would be
 // one object across every loaded copy of the library)
-constexpr int MAX_DEVICES = 64, INSTANCES = 32;
+constexpr int MAX_DEVICES = 64, INSTANCES = 2 * Q8_BASE;
 static int g_smem[INSTANCES][MAX_DEVICES];
 
 template <class K>
@@ -495,10 +633,10 @@ inline int pages_of(const LayerArgs *a) {
   return (n + a->BS - 1) / a->BS;
 }
 
-template <typename T, int D, int GM>
+template <typename T, int D, int GM, bool Q8>
 cudaError_t launch_rows(const LayerArgs *a, int inst, cudaStream_t st,
                         int *plan) {
-  using R = Rows<T, D>;
+  using R = Rows<T, D, GM, Q8>;
   const int pages = pages_of(a);
   int S = (pages + MINP - 1) / MINP;
   S = S < 1 ? 1 : S > MAXS ? MAXS : S;
@@ -507,7 +645,7 @@ cudaError_t launch_rows(const LayerArgs *a, int inst, cudaStream_t st,
   const size_t smem = (R::RING > part ? R::RING : part) +
                       sizeof(int) * ((pmax + 3) & ~3) +
                       sizeof(float) * S * (G * D + 2 * G);
-  auto kern = paged_attention_rows<T, D, GM>;
+  auto kern = paged_attention_rows<T, D, GM, Q8>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S, a->Hkv, a->M);
   cfg.blockDim = dim3(NT);
@@ -531,10 +669,10 @@ cudaError_t launch_rows(const LayerArgs *a, int inst, cudaStream_t st,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <int D, int WARPS>
+template <int D, int WARPS, bool Q8>
 cudaError_t launch_prefill(const LayerArgs *a, int inst, cudaStream_t st,
                            int *plan) {
-  using C = Pre<D, WARPS>;
+  using C = Pre<D, WARPS, Q8>;
   const size_t smem = C::RING + sizeof(int) * ((pages_of(a) + 3) & ~3);
   const dim3 grid((a->M + C::BQ - 1) / C::BQ, a->Hq);
   if (plan) {
@@ -543,7 +681,7 @@ cudaError_t launch_prefill(const LayerArgs *a, int inst, cudaStream_t st,
     for (int i = 0; i < PLAN_N; ++i) plan[i] = p[i];
     return cudaSuccess;
   }
-  auto kern = paged_attention_prefill<D, WARPS>;
+  auto kern = paged_attention_prefill<D, WARPS, Q8>;
   cudaError_t e = allow_smem(kern, inst, smem);
   if (e != cudaSuccess) return e;
   kern<<<grid, C::NTH, smem, st>>>(*a);
@@ -551,45 +689,54 @@ cudaError_t launch_prefill(const LayerArgs *a, int inst, cudaStream_t st,
 }
 
 // rows body of group size GM; instance index 4 x (dtype, D) + group
-template <typename T, int D>
+template <typename T, int D, bool Q8>
 cudaError_t launch_rows_g(const LayerArgs *a, int inst, cudaStream_t st,
                           int *plan) {
   const int G = a->Hq / a->Hkv;
-  return G <= 1   ? launch_rows<T, D, 1>(a, 4 * inst, st, plan)
-         : G <= 2 ? launch_rows<T, D, 2>(a, 4 * inst + 1, st, plan)
-         : G <= 4 ? launch_rows<T, D, 4>(a, 4 * inst + 2, st, plan)
-                  : launch_rows<T, D, 8>(a, 4 * inst + 3, st, plan);
+  return G <= 1   ? launch_rows<T, D, 1, Q8>(a, 4 * inst, st, plan)
+         : G <= 2 ? launch_rows<T, D, 2, Q8>(a, 4 * inst + 1, st, plan)
+         : G <= 4 ? launch_rows<T, D, 4, Q8>(a, 4 * inst + 2, st, plan)
+                  : launch_rows<T, D, 8, Q8>(a, 4 * inst + 3, st, plan);
 }
 
-// one call, or its plan (`plan` non-null: nothing launched)
-cudaError_t paged_attention(const LayerArgs *a, cudaStream_t st, int *plan) {
-  if (a->Hkv <= 0 || a->Hq % a->Hkv || a->Hq / a->Hkv > MAXG || a->BS <= 0)
-    return cudaErrorInvalidValue;
-  const int D = a->D;
+// one call, or its plan (`plan` non-null: nothing launched); instances
+// 0-29 over full-width pools, Q8_BASE + the same over int8 pools
+template <bool Q8>
+cudaError_t paged_attention_pool(const LayerArgs *a, cudaStream_t st,
+                                 int *plan) {
+  const int D = a->D, q = Q8 ? Q8_BASE : 0;
   if (a->dtype == PT_BF16 && !a->lengths && a->M > 16) {
     // instances 24-29: the prefill body, 64 rows a block, or one warp of
     // 16 for a chunk of <= 16 rows
-    return D == 32    ? launch_prefill<32, 4>(a, 24, st, plan)
-           : D == 64  ? launch_prefill<64, 4>(a, 25, st, plan)
-           : D == 128 ? launch_prefill<128, 4>(a, 26, st, plan)
+    return D == 32    ? launch_prefill<32, 4, Q8>(a, q + 24, st, plan)
+           : D == 64  ? launch_prefill<64, 4, Q8>(a, q + 25, st, plan)
+           : D == 128 ? launch_prefill<128, 4, Q8>(a, q + 26, st, plan)
                       : cudaErrorInvalidValue;
   }
   if (a->dtype == PT_BF16 && !a->lengths && a->start + a->M <= MMA16_MAX)
-    return D == 32    ? launch_prefill<32, 1>(a, 27, st, plan)
-           : D == 64  ? launch_prefill<64, 1>(a, 28, st, plan)
-           : D == 128 ? launch_prefill<128, 1>(a, 29, st, plan)
+    return D == 32    ? launch_prefill<32, 1, Q8>(a, q + 27, st, plan)
+           : D == 64  ? launch_prefill<64, 1, Q8>(a, q + 28, st, plan)
+           : D == 128 ? launch_prefill<128, 1, Q8>(a, q + 29, st, plan)
                       : cudaErrorInvalidValue;
   if (a->dtype == PT_BF16)
-    return D == 32    ? launch_rows_g<bf16, 32>(a, 0, st, plan)
-           : D == 64  ? launch_rows_g<bf16, 64>(a, 1, st, plan)
-           : D == 128 ? launch_rows_g<bf16, 128>(a, 2, st, plan)
+    return D == 32    ? launch_rows_g<bf16, 32, Q8>(a, q / 4 + 0, st, plan)
+           : D == 64  ? launch_rows_g<bf16, 64, Q8>(a, q / 4 + 1, st, plan)
+           : D == 128 ? launch_rows_g<bf16, 128, Q8>(a, q / 4 + 2, st, plan)
                       : cudaErrorInvalidValue;
   if (a->dtype == PT_F32)
-    return D == 32    ? launch_rows_g<float, 32>(a, 3, st, plan)
-           : D == 64  ? launch_rows_g<float, 64>(a, 4, st, plan)
-           : D == 128 ? launch_rows_g<float, 128>(a, 5, st, plan)
+    return D == 32    ? launch_rows_g<float, 32, Q8>(a, q / 4 + 3, st, plan)
+           : D == 64  ? launch_rows_g<float, 64, Q8>(a, q / 4 + 4, st, plan)
+           : D == 128 ? launch_rows_g<float, 128, Q8>(a, q / 4 + 5, st, plan)
                       : cudaErrorInvalidValue;
   return cudaErrorInvalidValue;
+}
+
+cudaError_t paged_attention(const LayerArgs *a, cudaStream_t st, int *plan) {
+  if (a->Hkv <= 0 || a->Hq % a->Hkv || a->Hq / a->Hkv > MAXG || a->BS <= 0)
+    return cudaErrorInvalidValue;
+  if (!a->kv_quant) return paged_attention_pool<false>(a, st, plan);
+  if (!a->pool_ks || !a->pool_vs) return cudaErrorInvalidValue;
+  return paged_attention_pool<true>(a, st, plan);
 }
 
 }  // namespace pattn
@@ -597,8 +744,9 @@ cudaError_t paged_attention(const LayerArgs *a, cudaStream_t st, int *plan) {
 
 cudaError_t launch_paged_attention(const LayerArgs *a, cudaStream_t s) {
   if (a->M <= 0) return cudaSuccess;
-  return count_launch(CNT_PAGED_ATTENTION,
-                      pt::pattn::paged_attention(a, s, nullptr));
+  const cudaError_t e = pt::pattn::paged_attention(a, s, nullptr);
+  if (a->kv_quant) return count_launch(CNT_PAGED_ATTENTION_Q8, e);
+  return count_launch(CNT_PAGED_ATTENTION, e);
 }
 
 // the plan of a call into out[PLAN_N] (body, splits, grid x / y / z,

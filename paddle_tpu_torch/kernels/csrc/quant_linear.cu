@@ -76,6 +76,16 @@
 //   * fp32 x (the correctness lane): wo_f32, plain FMA over 64 x 64
 //     tiles, dequantizing each weight element in fp32 on its way into
 //     shared memory (fp32 rounding either way).
+// The serving chain's weight-only layer GEMMs (launch_wo_layer, called by
+// layer.cu for a quantized Llama layer: TPU kernels 1-2's weight-only
+// branch, paddle_tpu/ops/pallas/decode_block.py:195-221 _mm_quant / _mmw)
+// are these same kernels with an epilogue on the product rounded to x's
+// dtype (WoArgs::epi, a runtime argument read once a stored pair after the
+// main loop): EPI_RESID adds the residual R (o and down projections),
+// EPI_SWIGLU_R takes R as the gate product of the launch before and stores
+// silu(R) * product (the up projection), each value rounded as the
+// reference rounds it; they always take the `post` scale rule, and count
+// apart (CNT_WO_LAYER_*).
 // Requirements checked here and by the wrapper: N % 16 == 0, ldx and xhi
 // multiples of 8, 16-byte aligned x and codes; the wgmma kernels also
 // take only group sizes that are powers of two (64, 128, or 1 << 30 per
@@ -149,12 +159,16 @@ __global__ void __launch_bounds__(256) wo_f32(const WoArgs a) {
     __syncthreads();
   }
   float *Y = (float *)a.y;
+  const float *R = (const float *)a.R;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < a.M && n < a.N) Y[(size_t)m * a.N + n] = acc[i][j];
+      const size_t o = (size_t)m * a.N + n;
+      if (m < a.M && n < a.N)
+        Y[o] = epi_value<float>(a.epi, acc[i][j], 0.f,
+                                a.epi != EPI_NONE ? R[o] : 0.f);
     }
 }
 
@@ -352,16 +366,35 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   // registers 4j' + e: D column 8j' + 2t + (e & 1), i.e. x row
   // m0 + 8j' + 2t (+1), of channel chA (e < 2) or chA + 1
   bf16 *Y = (bf16 *)a.y;
+  // the pairs (row m; channels chA, chA + 1) in rounds of 2 UJ: the round's
+  // residual / gate pairs loaded first, then its stores (R may be Y
+  // itself: a thread reads only the pairs it writes)
+  constexpr int UJ = 4;
   auto store = [&](const float(&v)[C::NACC], float sA, float sB) {
 #pragma unroll
-    for (int j = 0; j < C::NACC; j += 4) {
-      const int m = m0 + 2 * j + 2 * t;
-      if (m < a.M)
+    for (int j0 = 0; j0 < C::NACC; j0 += 4 * UJ) {
+      float2 r[2 * UJ];
+#pragma unroll
+      for (int u = 0; u < 2 * UJ; ++u) {
+        const int m = m0 + 2 * (j0 + 4 * (u >> 1)) + 2 * t + (u & 1);
+        r[u] = make_float2(0.f, 0.f);
+        if (a.epi != EPI_NONE && m < a.M)
+          r[u] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
+              (const bf16 *)a.R + (size_t)m * a.N + chA));
+      }
+#pragma unroll
+      for (int u = 0; u < 2 * UJ; ++u) {
+        const int j = j0 + 4 * (u >> 1), e = u & 1;
+        const int m = m0 + 2 * j + 2 * t + e;
+        if (m >= a.M) continue;
+        float v0 = v[j + e] * sA, v1 = v[j + e + 2] * sB;
+        if (a.epi != EPI_NONE) {
+          v0 = epi_value<bf16>(a.epi, v0, 0.f, r[u].x);
+          v1 = epi_value<bf16>(a.epi, v1, 0.f, r[u].y);
+        }
         *reinterpret_cast<unsigned *>(Y + (size_t)m * a.N + chA) =
-            pack_bf16(v[j] * sA, v[j + 2] * sB);
-      if (m + 1 < a.M)
-        *reinterpret_cast<unsigned *>(Y + (size_t)(m + 1) * a.N + chA) =
-            pack_bf16(v[j + 1] * sA, v[j + 3] * sB);
+            pack_bf16(v0, v1);
+      }
     }
   };
   if constexpr (C::MODE == WO_CHANNEL) {
@@ -651,8 +684,14 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
       y.x *= __ldg(a.scale + n);
       y.y *= __ldg(a.scale + n + 1);
     }
-    *reinterpret_cast<__nv_bfloat162 *>(Y + (size_t)(sh.r0 + r) * a.N + n) =
-        __floats2bfloat162_rn(y.x, y.y);
+    const size_t o = (size_t)(sh.r0 + r) * a.N + n;
+    if (a.epi != EPI_NONE) {
+      const float2 rv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162 *>((const bf16 *)a.R + o));
+      y.x = epi_value<bf16>(a.epi, y.x, 0.f, rv.x);
+      y.y = epi_value<bf16>(a.epi, y.y, 0.f, rv.y);
+    }
+    *reinterpret_cast<__nv_bfloat162 *>(Y + o) = __floats2bfloat162_rn(y.x, y.y);
   }
   splitk::done();
 }
@@ -733,18 +772,30 @@ cudaError_t launch_decode(const WoArgs *a, cudaStream_t s) {
 }  // namespace wo
 }  // namespace pt
 
+// the arguments every regime takes (0), or cudaErrorInvalidValue
+static cudaError_t check_wo(const WoArgs *a) {
+  if (a->N % 16 || a->ldx % 8 || a->xhi % 8 || a->gs <= 0 || a->G <= 0 ||
+      (a->x_dtype != PT_F32 && a->x_dtype != PT_BF16) ||
+      (a->epi != EPI_NONE && a->epi != EPI_RESID && a->epi != EPI_SWIGLU_R) ||
+      (a->epi != EPI_NONE && !a->R))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+static cudaError_t launch_f32(const WoArgs *a, cudaStream_t s) {
+  using namespace pt::wo;
+  const dim3 grid((a->N + 63) / 64, (a->M + 63) / 64);
+  auto k = a->int4 ? wo_f32<true> : wo_f32<false>;
+  k<<<grid, 256, 0, s>>>(*a);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_weight_only_matmul(const WoArgs *a, cudaStream_t s) {
   using namespace pt::wo;
   if (a->M <= 0 || a->N <= 0) return cudaSuccess;
-  if (a->N % 16 || a->ldx % 8 || a->xhi % 8 || a->gs <= 0 || a->G <= 0)
-    return cudaErrorInvalidValue;
-  if (a->x_dtype == PT_F32) {
-    const dim3 grid((a->N + 63) / 64, (a->M + 63) / 64);
-    auto k = a->int4 ? wo_f32<true> : wo_f32<false>;
-    k<<<grid, 256, 0, s>>>(*a);
-    return count_launch(CNT_WO_F32, cudaGetLastError());
-  }
-  if (a->x_dtype != PT_BF16) return cudaErrorInvalidValue;
+  const cudaError_t e = check_wo(a);
+  if (e != cudaSuccess) return e;
+  if (a->x_dtype == PT_F32) return count_launch(CNT_WO_F32, launch_f32(a, s));
   if (a->M <= 16) {
     if (a->int4)
       return count_launch(CNT_WO_INT4_SMALL_M, launch_decode(a, s));
@@ -755,6 +806,31 @@ cudaError_t launch_weight_only_matmul(const WoArgs *a, cudaStream_t s) {
   return count_launch(CNT_WO_INT8_TILED, launch_prefill<false>(a, s));
 }
 
+// the serving chain's layer GEMMs: the same kernels, the `post` scale rule
+// only, an epilogue, counted apart
+cudaError_t launch_wo_layer(const WoArgs *a, cudaStream_t s) {
+  using namespace pt::wo;
+  if (a->M <= 0 || a->N <= 0) return cudaSuccess;
+  const cudaError_t e = a->tile_dq ? cudaErrorInvalidValue : check_wo(a);
+  if (e != cudaSuccess) return e;
+  if (a->x_dtype == PT_F32)
+    return count_launch(CNT_WO_LAYER_F32, launch_f32(a, s));
+  if (a->M <= 16) {
+    if (a->int4)
+      return count_launch(CNT_WO_LAYER_INT4_SMALL_M, launch_decode(a, s));
+    return count_launch(CNT_WO_LAYER_INT8_SMALL_M, launch_decode(a, s));
+  }
+  if (a->int4)
+    return count_launch(CNT_WO_LAYER_INT4_TILED, launch_prefill<true>(a, s));
+  return count_launch(CNT_WO_LAYER_INT8_TILED, launch_prefill<false>(a, s));
+}
+
 extern "C" int pt_weight_only_matmul(const WoArgs *a, void *stream) {
   return launch_weight_only_matmul(a, (cudaStream_t)stream);
+}
+
+// one layer GEMM of the quantized chain alone (timed and checked by
+// chip_smoke.py)
+extern "C" int pt_wo_layer(const WoArgs *a, void *stream) {
+  return launch_wo_layer(a, (cudaStream_t)stream);
 }

@@ -38,6 +38,18 @@
 //     its blk / off; the lanes of a row read one address) before its
 //     first store, and every pointer is __restrict__, so nothing waits on
 //     a store.  The target gates only the pool stores.
+//   * An int8 pool (rope_kv_write_q8, counted apart; the kv_quant branches
+//     of the TPU kernels, decode_block.py:272 and the prefill scatter):
+//     after the RoPE, rounded to T as above, the lanes of a kv head take
+//     the absmax of its k row and of its v row over D by a shuffle (the
+//     head's D2 / C lanes are neighbours, aligned in the warp), scale =
+//     max(absmax, 1e-8) / 127 and codes clip(rint(x / scale), -127, 127),
+//     both IEEE divisions (__fdiv_rn), as ops.paged_kv.quantize_kv: equal
+//     to it bit for bit.  A lane stores its 2 C codes (C bytes a half) and
+//     the head's first lane the two fp32 scales, at the same (page,
+//     offset) and under the same dropped-write rule.  No lane returns
+//     before the shuffle; lanes past the rows load the last slot and store
+//     nothing.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -62,7 +74,35 @@ __device__ __forceinline__ T rope_sum(float a, float b, float c, float d) {
   return from_f<T>(__fadd_rn(rnd<T>(__fmul_rn(a, b)), rnd<T>(__fmul_rn(c, d))));
 }
 
+// the int8 pool's scales (rope_kv_write_q8)
+struct KvScales {
+  float *k, *v;                               // [NB, BS, Hkv]
+};
+
+// |x| over the C values of two packs
 template <typename T, int C>
+__device__ __forceinline__ float absmax2(const Pack<T, C> &a,
+                                         const Pack<T, C> &b) {
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    m = fmaxf(m, fmaxf(fabsf(to_f<T>(a.v[j])), fabsf(to_f<T>(b.v[j]))));
+  return m;
+}
+
+// C codes clip(rint(x / s), -127, 127) as C bytes
+template <typename T, int C>
+__device__ __forceinline__ Pack<signed char, C> codes(const Pack<T, C> &x,
+                                                      float s) {
+  Pack<signed char, C> out;
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    out.v[j] = (signed char)fminf(
+        fmaxf(rintf(__fdiv_rn(to_f<T>(x.v[j]), s)), -127.f), 127.f);
+  return out;
+}
+
+template <typename T, int C, bool Q8>
 __global__ void __launch_bounds__(ROPE_THREADS)
     rope_kv_write_kernel(T *__restrict__ q, T *__restrict__ k,
                          const T *__restrict__ v, const T *__restrict__ cs,
@@ -70,12 +110,15 @@ __global__ void __launch_bounds__(ROPE_THREADS)
                          const int *__restrict__ bt,
                          const int *__restrict__ lengths,
                          const int *__restrict__ blk,
-                         const int *__restrict__ off, T *__restrict__ pool_k,
-                         T *__restrict__ pool_v, RopeGeo g) {
+                         const int *__restrict__ off, void *__restrict__ pk,
+                         void *__restrict__ pv, KvScales ks, RopeGeo g) {
   typedef Pack<T, C> P;
   const int D2 = g.D / 2, CH = D2 / C, heads = g.Hq + g.Hkv;
-  const long long slot = (long long)blockIdx.x * ROPE_THREADS + threadIdx.x;
-  if (slot >= (long long)g.M * heads * CH) return;
+  const long long total = (long long)g.M * heads * CH;
+  long long slot = (long long)blockIdx.x * ROPE_THREADS + threadIdx.x;
+  const bool in = slot < total;
+  if (!Q8 && !in) return;
+  if (!in) slot = total - 1;                   // Q8: loads only
   const long long rh = slot / CH;
   const int d = (int)(slot - rh * CH) * C;
   const int r = (int)(rh / heads), h = (int)(rh - (long long)r * heads);
@@ -100,7 +143,7 @@ __global__ void __launch_bounds__(ROPE_THREADS)
   const P c2 = *reinterpret_cast<const P *>(cr + D2 + d);
   const P s1 = *reinterpret_cast<const P *>(sr + d);
   const P s2 = *reinterpret_cast<const P *>(sr + D2 + d);
-  P v1, v2;
+  P v1 = {}, v2 = {};
   if (isk) {
     const T *vr = v + ((size_t)r * g.Hkv + hk) * g.D;
     v1 = *reinterpret_cast<const P *>(vr + d);
@@ -119,14 +162,42 @@ __global__ void __launch_bounds__(ROPE_THREADS)
     y1.v[j] = rope_sum<T>(a1, to_f<T>(c1.v[j]), -a2, to_f<T>(s1.v[j]));
     y2.v[j] = rope_sum<T>(a2, to_f<T>(c2.v[j]), a1, to_f<T>(s2.v[j]));
   }
+  float sk = 0.f, sv = 0.f;
+  if constexpr (Q8) {
+    // the head's absmax over its CH neighbouring lanes (q heads' lanes
+    // shuffle among themselves and store no codes)
+    float mk = absmax2(y1, y2), mv = absmax2(v1, v2);
+    for (int w = CH / 2; w > 0; w >>= 1) {
+      mk = fmaxf(mk, __shfl_xor_sync(0xffffffffu, mk, w));
+      mv = fmaxf(mv, __shfl_xor_sync(0xffffffffu, mv, w));
+    }
+    sk = __fdiv_rn(fmaxf(mk, 1e-8f), 127.f);
+    sv = __fdiv_rn(fmaxf(mv, 1e-8f), 127.f);
+  }
+  if (!in) return;
   *reinterpret_cast<P *>(x + d) = y1;
   *reinterpret_cast<P *>(x + D2 + d) = y2;
   if (isk && phys >= 0 && phys < g.NB && o >= 0 && o < g.BS) {
-    const size_t base = (((size_t)phys * g.BS + o) * g.Hkv + hk) * g.D;
-    *reinterpret_cast<P *>(pool_k + base + d) = y1;
-    *reinterpret_cast<P *>(pool_k + base + D2 + d) = y2;
-    *reinterpret_cast<P *>(pool_v + base + d) = v1;
-    *reinterpret_cast<P *>(pool_v + base + D2 + d) = v2;
+    const size_t row = ((size_t)phys * g.BS + o) * g.Hkv + hk;
+    const size_t base = row * g.D;
+    if constexpr (Q8) {
+      typedef Pack<signed char, C> Q;
+      signed char *qk = (signed char *)pk, *qv = (signed char *)pv;
+      *reinterpret_cast<Q *>(qk + base + d) = codes(y1, sk);
+      *reinterpret_cast<Q *>(qk + base + D2 + d) = codes(y2, sk);
+      *reinterpret_cast<Q *>(qv + base + d) = codes(v1, sv);
+      *reinterpret_cast<Q *>(qv + base + D2 + d) = codes(v2, sv);
+      if (d == 0) {
+        ks.k[row] = sk;
+        ks.v[row] = sv;
+      }
+    } else {
+      T *tk = (T *)pk, *tv = (T *)pv;
+      *reinterpret_cast<P *>(tk + base + d) = y1;
+      *reinterpret_cast<P *>(tk + base + D2 + d) = y2;
+      *reinterpret_cast<P *>(tv + base + d) = v1;
+      *reinterpret_cast<P *>(tv + base + D2 + d) = v2;
+    }
   }
 }
 
@@ -139,15 +210,22 @@ static cudaError_t rope_kv_launch(const LayerArgs *a, cudaStream_t s) {
                    aligned16(a->k) && aligned16(a->v) && aligned16(a->cos) &&
                    aligned16(a->sin) && aligned16(a->pool_k) &&
                    aligned16(a->pool_v);
+  // the int8 pool's shuffle needs a head's lanes inside one warp: whole
+  // 16-byte chunks, D / 2 / VEC lanes a head
+  if (a->kv_quant && (!vec || (a->D / 2) / VEC > 32 || !a->pool_ks ||
+                      !a->pool_vs))
+    return cudaErrorInvalidValue;
   const RopeGeo g{a->M, a->Hq, a->Hkv, a->D, a->BS, a->NB, a->MB};
   const long long n =
       (long long)a->M * (a->Hq + a->Hkv) * (a->D / 2 / (vec ? VEC : 1));
   const unsigned grid = (unsigned)((n + ROPE_THREADS - 1) / ROPE_THREADS);
-  auto kern = vec ? rope_kv_write_kernel<T, VEC> : rope_kv_write_kernel<T, 1>;
+  auto kern = a->kv_quant ? rope_kv_write_kernel<T, VEC, true>
+              : vec       ? rope_kv_write_kernel<T, VEC, false>
+                          : rope_kv_write_kernel<T, 1, false>;
   kern<<<grid, ROPE_THREADS, 0, s>>>(
       (T *)a->q, (T *)a->k, (const T *)a->v, (const T *)a->cos,
       (const T *)a->sin, a->block_table, a->lengths, a->blk, a->off,
-      (T *)a->pool_k, (T *)a->pool_v, g);
+      a->pool_k, a->pool_v, KvScales{a->pool_ks, a->pool_vs}, g);
   return cudaGetLastError();
 }
 
@@ -156,7 +234,9 @@ static cudaError_t rope_kv_launch(const LayerArgs *a, cudaStream_t s) {
 cudaError_t launch_rope_kv_write(const LayerArgs *a, cudaStream_t s) {
   if (a->M <= 0) return cudaSuccess;
   if (a->D <= 0 || a->D % 2) return cudaErrorInvalidValue;
-  return count_launch(CNT_ROPE_KV_WRITE,
-                      a->dtype == PT_BF16 ? pt::rope_kv_launch<pt::bf16>(a, s)
-                                          : pt::rope_kv_launch<float>(a, s));
+  const cudaError_t e = a->dtype == PT_BF16
+                            ? pt::rope_kv_launch<pt::bf16>(a, s)
+                            : pt::rope_kv_launch<float>(a, s);
+  if (a->kv_quant) return count_launch(CNT_ROPE_KV_WRITE_Q8, e);
+  return count_launch(CNT_ROPE_KV_WRITE, e);
 }

@@ -25,7 +25,8 @@ import torch
 
 from ..ops import quant_linear as _ql
 
-__all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear"]
+__all__ = ["weight_quantize", "weight_dequantize", "weight_only_linear",
+           "absmax_of", "codes_of", "pack_int4"]
 
 ALGOS = ("weight_only_int8", "weight_only_int4", "llm.int8")
 
@@ -42,6 +43,42 @@ def _check_group(group_size) -> bool:
     return group_size in (64, 128)
 
 
+def absmax_of(wf: torch.Tensor, group_size: int = -1) -> torch.Tensor:
+    """fp32 absmax of a ``[K, N]`` weight: ``[N]`` per output channel, or
+    ``[ceil(K / gs), N]`` per group of ``group_size`` rows (64 / 128)."""
+    if not _check_group(group_size):
+        return wf.abs().amax(dim=0)
+    K = wf.shape[0]
+    G = -(-K // group_size)
+    wp = torch.nn.functional.pad(wf, (0, 0, 0, G * group_size - K))
+    return wp.reshape(G, group_size, -1).abs().amax(dim=1)
+
+
+def codes_of(wf: torch.Tensor, scale: torch.Tensor, group_size: int = -1,
+             int4: bool = False) -> torch.Tensor:
+    """``clip(round(wf / scale), -qmax - 1, qmax)`` as int8 (round half to
+    even, an IEEE division), int4 halves-packed into ``[ceil(K/2), N]``."""
+    K = wf.shape[0]
+    qmax = 7.0 if int4 else 127.0
+    srow = _group_expand(scale, K, group_size) if _check_group(group_size) \
+        else scale
+    q = torch.clamp(torch.round(wf / srow), -qmax - 1, qmax).to(torch.int8)
+    return pack_int4(q) if int4 else q
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 codes in [-8, 7] ``[K, N]`` -> halves-packed ``[ceil(K/2), N]``
+    (an odd K padded with a zero row)."""
+    if q.shape[0] % 2:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 1))
+    half = q.shape[0] // 2
+    lo = q[:half].to(torch.int32) & 0x0F
+    hi = (q[half:].to(torch.int32) & 0x0F) << 4
+    packed = lo | hi                                  # 0..255
+    packed = torch.where(packed >= 128, packed - 256, packed)
+    return packed.to(torch.int8)
+
+
 def weight_quantize(x: torch.Tensor, algo: str = "weight_only_int8",
                     arch=None, group_size: int = -1):
     """Absmax quantization of a ``[K, N]`` weight: ``(codes, scale)``.
@@ -56,30 +93,14 @@ def weight_quantize(x: torch.Tensor, algo: str = "weight_only_int8",
         raise ValueError("group_size is only supported for "
                          "weight_only_int8/int4, not llm.int8")
     wf = x.float()
-    K = wf.shape[0]
-    if grouped:
-        G = -(-K // group_size)
-        wp = torch.nn.functional.pad(wf, (0, 0, 0, G * group_size - K))
-        absmax = wp.reshape(G, group_size, -1).abs().amax(dim=1)
-    else:
-        absmax = wf.abs().amax(dim=0)
-    qmax = 7.0 if algo == "weight_only_int4" else 127.0
+    absmax = absmax_of(wf, group_size)
+    int4 = algo == "weight_only_int4"
+    qmax = 7.0 if int4 else 127.0
     # XLA turns the JAX package's division by the constant qmax into a
     # product with its fp32 reciprocal; the same product gives its scales
     scale = absmax.clamp_min(1e-8) * torch.tensor(1.0 / qmax,
                                                   dtype=torch.float32)
-    srow = _group_expand(scale, K, group_size) if grouped else scale
-    q = torch.clamp(torch.round(wf / srow), -qmax - 1, qmax).to(torch.int8)
-    if algo != "weight_only_int4":
-        return q, scale
-    if K % 2:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 1))
-    half = q.shape[0] // 2
-    lo = q[:half].to(torch.int32) & 0x0F
-    hi = (q[half:].to(torch.int32) & 0x0F) << 4
-    packed = lo | hi                                  # 0..255
-    packed = torch.where(packed >= 128, packed - 256, packed)
-    return packed.to(torch.int8), scale
+    return codes_of(wf, scale, group_size, int4), scale
 
 
 _unpack_int4 = _ql.unpack_int4

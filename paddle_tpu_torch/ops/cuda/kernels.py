@@ -16,13 +16,14 @@ import torch
 import torch.nn.functional as F
 
 from ...kernels import build
-from ..decode_block import rotate_half
+from ..decode_block import DecodeBlockSpec, make_mm, rotate_half
+from ..paged_kv import dequantize_kv, is_quantized_pool, quantize_kv
 from . import layer
 
 __all__ = ["rms_norm_rows_cuda", "rms_norm_rows_ref", "gemm_xw_cuda",
-           "gemm_xw_ref", "rope_kv_write_cuda", "rope_kv_write_ref",
-           "paged_attention_cuda", "paged_attention_ref",
-           "paged_attention_split_ref"]
+           "gemm_xw_ref", "wo_layer_cuda", "wo_layer_ref",
+           "rope_kv_write_cuda", "rope_kv_write_ref", "paged_attention_cuda",
+           "paged_attention_ref", "paged_attention_split_ref"]
 
 
 def _cuda(t, name):
@@ -94,6 +95,67 @@ def gemm_xw_cuda(x, w, w2=None, residual=None):
     return out
 
 
+# ------------------------------------------------- weight-only layer GEMM
+def _epi(residual, gate):
+    """``(EPI_*, its [M, N] operand)`` of one layer GEMM's epilogue."""
+    if residual is not None and gate is not None:
+        raise ValueError("wo_layer: residual and gate epilogues exclude "
+                         "each other")
+    if residual is not None:
+        return build.EPI_RESID, residual
+    if gate is not None:
+        return build.EPI_SWIGLU_R, gate
+    return build.EPI_NONE, None
+
+
+def wo_layer_ref(x, codes, scale, *, width: str, group_size: int = -1,
+                 residual=None, gate=None):
+    """Plain version of one weight-only layer GEMM: ``make_mm``'s
+    arithmetic (y in fp32 times the fp32 codes, then the per-channel scale;
+    grouped scales dequantize the fp32 weight first; rounded to x's dtype),
+    then ``residual + y`` or ``silu(gate) * y`` in x's dtype."""
+    K = x.shape[-1]
+    spec = DecodeBlockSpec(hidden=K, num_heads=1, kv_heads=1, head_dim=K,
+                           block_size=1, weight_dtype=width,
+                           group_size=group_size)
+    epi, r = _epi(residual, gate)
+    y = make_mm(spec)({"w__q": codes, "w__s": scale}, "w", x)
+    if epi == build.EPI_RESID:
+        return r + y
+    return F.silu(r) * y if epi == build.EPI_SWIGLU_R else y
+
+
+def wo_layer_cuda(x, codes, scale, *, width: str, group_size: int = -1,
+                  residual=None, gate=None):
+    """``x`` [M, K] CUDA tensor, ``codes`` int8 [K, N] (int4: [K/2, N]),
+    ``scale`` fp32 [N] or [ceil(K / group_size), N]; ``residual`` or
+    ``gate`` [M, N] in x's dtype -> [M, N]: one ``wo_layer_*`` launch."""
+    _cuda(x, "wo_layer")
+    M, K = x.shape
+    N = codes.shape[1]
+    dt, dev = x.dtype, x.device
+    cshape, sshape, gs = layer.wo_layout(K, N, width, group_size)
+    layer.check_tensor(x, "x", (M, K), dt, dev)
+    layer.check_tensor(codes, "codes", cshape, torch.int8, dev)
+    layer.check_tensor(scale, "scale", sshape, torch.float32, dev)
+    epi, R = _epi(residual, gate)
+    if R is not None:
+        layer.check_tensor(R, "residual" if gate is None else "gate",
+                           (M, N), dt, dev)
+    y = torch.empty((M, N), dtype=dt, device=dev)
+    half = K // 2 if width == "int4" else 0
+    a = build.WoArgs(int4=int(width == "int4"), x_dtype=layer.dtype_code(dt),
+                     M=M, K=K, N=N, half=half, ldx=K, xhi=half, gs=gs,
+                     G=sshape[0] if len(sshape) == 2 else 1, tile_dq=0,
+                     epi=epi, x=x.data_ptr(), w=codes.data_ptr(),
+                     scale=scale.data_ptr(), y=y.data_ptr(),
+                     R=None if R is None else R.data_ptr())
+    build.check(build.library().pt_wo_layer(ctypes.byref(a),
+                                            layer.stream_handle()),
+                "pt_wo_layer")
+    return y
+
+
 # --------------------------------------------------------- rope + kv write
 def _targets(block_table, lengths, blk, off, BS, NB):
     """Per-row (page, offset) write targets and whether each row writes."""
@@ -114,17 +176,26 @@ def rope_kv_write_ref(q, k, v, cos, sin, pool_k, pool_v, *, head_dim,
                       block_table, lengths=None, blk=None, off=None):
     """Plain version: returns roped ``(q, k)`` and writes roped k and v
     into the pools in place (dropped where the page is unmapped or out of
-    the pool)."""
+    the pool); an int8 ``QuantizedKVPool`` takes the rows' ``quantize_kv``
+    codes and scales."""
     M, D = q.shape[0], head_dim
 
     def rope(t):
         t = t.reshape(M, -1, D)
         return (t * cos[:, None] + rotate_half(t) * sin[:, None]).reshape(M, -1)
     q, k = rope(q), rope(k)
-    NB, BS = pool_k.shape[:2]
+    quant = is_quantized_pool(pool_k)
+    NB, BS = (pool_k.data if quant else pool_k).shape[:2]
     page, o, keep = _targets(block_table, lengths, blk, off, BS, NB)
-    pool_k[page[keep], o[keep]] = k[keep].reshape(int(keep.sum()), -1, D)
-    pool_v[page[keep], o[keep]] = v[keep].reshape(int(keep.sum()), -1, D)
+    n = int(keep.sum())
+    for pool, rows in ((pool_k, k), (pool_v, v)):
+        rows = rows[keep].reshape(n, -1, D)
+        if quant:
+            codes, scale = quantize_kv(rows)
+            pool.data[page[keep], o[keep]] = codes
+            pool.scale[page[keep], o[keep]] = scale
+        else:
+            pool[page[keep], o[keep]] = rows
     return q, k
 
 
@@ -146,13 +217,26 @@ def rope_kv_write_cuda(q, k, v, cos, sin, pool_k, pool_v, *, block_table,
 
 
 # --------------------------------------------------------- paged attention
+def _kv_rows(pool, idx, prefill_dtype):
+    """``pool[idx]`` in fp32: an int8 pool's codes x scales in fp32, rounded
+    to ``prefill_dtype`` first when one is given (a prefill chunk: the
+    reference dequantizes the gathered pages to the model dtype)."""
+    if not is_quantized_pool(pool):
+        return pool[idx].float()
+    return dequantize_kv(pool.data[idx], pool.scale[idx],
+                         prefill_dtype or torch.float32).float()
+
+
 def paged_attention_ref(q, pool_k, pool_v, *, block_table, lengths=None,
                         start: int = 0, scale: Optional[float] = None):
     """Plain version in fp32: row r attends positions 0..p_r of its
     sequence (``p_r = lengths[r]`` with a [M, MB] table, else
-    ``start + r`` over one table row); ``-1`` entries read page 0."""
+    ``start + r`` over one table row); ``-1`` entries read page 0.  An
+    int8 pool is dequantized to fp32 at decode and to q's dtype at
+    prefill, as the layer's plain versions do."""
     M = q.shape[0]
-    NB, BS, Hkv, D = pool_k.shape
+    NB, BS, Hkv, D = (pool_k.data if is_quantized_pool(pool_k)
+                      else pool_k).shape
     Hq = q.shape[1] // D
     s = scale if scale is not None else 1.0 / math.sqrt(D)
     bt = block_table.long().clamp(min=0)
@@ -162,8 +246,9 @@ def paged_attention_ref(q, pool_k, pool_v, *, block_table, lengths=None,
     else:
         pos = lengths.long()
     MB = bt.shape[1]
-    kk = pool_k[bt].reshape(M, MB * BS, Hkv, D).float()
-    vv = pool_v[bt].reshape(M, MB * BS, Hkv, D).float()
+    pre = q.dtype if lengths is None else None
+    kk = _kv_rows(pool_k, bt, pre).reshape(M, MB * BS, Hkv, D)
+    vv = _kv_rows(pool_v, bt, pre).reshape(M, MB * BS, Hkv, D)
     qg = q.reshape(M, Hkv, Hq // Hkv, D).float()
     logits = torch.einsum("mkgd,mtkd->mkgt", qg, kk) * s
     live = torch.arange(MB * BS, device=q.device)[None] <= pos[:, None]
@@ -223,9 +308,10 @@ def paged_attention_split_ref(q, pool_k, pool_v, *, block_table,
 
 def paged_attention_cuda(q, pool_k, pool_v, *, block_table, lengths=None,
                          start: int = 0, scale: Optional[float] = None):
-    """``q`` [M, Hq*D] (already roped) -> attention output [M, Hq*D]."""
+    """``q`` [M, Hq*D] (already roped) -> attention output [M, Hq*D]; the
+    pools full-width or int8 ``QuantizedKVPool``s."""
     _cuda(q, "paged_attention")
-    D = pool_k.shape[3]
+    D = (pool_k.data if is_quantized_pool(pool_k) else pool_k).shape[3]
     attn = torch.empty_like(q)
     s = scale if scale is not None else 1.0 / math.sqrt(D)
     a, _ = layer.layer_args(pool_k, pool_v, block_table, M=q.shape[0],

@@ -4,7 +4,10 @@ the ``LayerArgs`` they fill.
 One layer launches the chain ``rms_norm_rows``, ``gemm_xw`` (q, k, v),
 ``rope_kv_write``, ``paged_attention``, ``gemm_xw`` (o + residual),
 ``rms_norm_rows``, ``gemm_xw`` (gate/up SwiGLU), ``gemm_xw`` (down +
-residual) from one C entry point.  The launches are counted in the
+residual) from one C entry point.  A weight-only quantized layer runs its
+seven matmuls on ``wo_layer_*`` (gate, then up with the SwiGLU in its
+epilogue), and an int8 KV pool takes ``rope_kv_write_q8`` and
+``paged_attention_q8``.  The launches are counted in the
 kernel library itself, where each kernel is launched: :func:`launch_counts`
 reads those counters and :func:`reset_counts` sets them to zero.
 """
@@ -19,7 +22,7 @@ import torch
 from ...kernels import build
 
 __all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
-           "check_tensor", "layer_args", "stream_handle"]
+           "check_tensor", "layer_args", "stream_handle", "wo_layout"]
 
 #: the library's launch counters, in the order of the ``CNT_*`` enum in
 #: ``kernels/csrc/common.cuh``: the two layer entry points, then one per
@@ -30,7 +33,10 @@ __all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
 #: and int4 apart, each in its decode and its prefill regime, and the fp32
 #: lane's kernel for both widths), then the eager path's three row
 #: normalisations and SwiGLU, then the incubate fused API's RoPE,
-#: softmax-mask, bias-activation and dropout-add
+#: softmax-mask, bias-activation and dropout-add, then the quantized serving
+#: chain's variants: the weight-only layer GEMMs (int8 / int4, decode and
+#: prefill regimes, fp32), the RoPE / KV write into an int8 pool and the
+#: attention over one
 KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "gemm_xw_small_m", "gemm_xw_tiled", "gemm_xw_f32",
            "rope_kv_write", "paged_attention", "flash_fwd", "flash_bwd_dq",
@@ -40,11 +46,16 @@ KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "wo_int4_tiled", "wo_f32",
            "rms_norm_fwd", "layer_norm_fwd", "bias_residual_ln_fwd",
            "swiglu_fwd", "rope_fwd", "softmax_mask_fwd", "bias_act_fwd",
-           "dropout_add_fwd")
+           "dropout_add_fwd", "wo_layer_int8_small_m", "wo_layer_int8_tiled",
+           "wo_layer_int4_small_m", "wo_layer_int4_tiled", "wo_layer_f32",
+           "rope_kv_write_q8", "paged_attention_q8")
 
 WEIGHTS = ("ln1_w", "q_w", "k_w", "v_w", "o_w", "ln2_w", "gate_w", "up_w",
            "down_w")
+MATMULS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
 _INDEX = ("block_table", "lengths", "blk", "off")
+#: LayerArgs.gs of per-channel scales
+PER_CHANNEL_GS = 1 << 30
 
 
 def launch_counts() -> Dict[str, int]:
@@ -92,6 +103,39 @@ def stream_handle() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _pool_parts(pool_k, pool_v):
+    """``(codes or values k, v, scales k, v)`` of the pools: the scales
+    None for full-width pools.  Raises unless both are of one kind."""
+    from ..paged_kv import is_quantized_pool
+    if is_quantized_pool(pool_k) != is_quantized_pool(pool_v):
+        raise ValueError("pool_k and pool_v must both be int8 "
+                         "QuantizedKVPools or both full-width tensors")
+    if is_quantized_pool(pool_k):
+        return pool_k.data, pool_v.data, pool_k.scale, pool_v.scale
+    return pool_k, pool_v, None, None
+
+
+def wo_layout(K: int, N: int, width: str, group_size: int):
+    """``(codes shape, scale shape, gs)`` of one weight-only layer GEMM
+    the kernels take (``gs`` as LayerArgs / WoArgs carry it).  Raises on
+    what the chain's kernels refuse: N off 16, x rows off 16 bytes, and
+    grouped scales whose groups do not cover whole 64-row steps of the
+    codes (the `post` rule's condition, ``quant_linear.cu`` ``mode_of``)."""
+    rows = K // 2 if width == "int4" else K
+    if N % 16 or K % 8 or (width == "int4" and (K % 2 or rows % 8)):
+        raise ValueError(
+            f"weight-only layer GEMM [{K}, {N}] {width}: the kernels take N "
+            "a multiple of 16 and K a multiple of 8 (int4: K / 2 too)")
+    if group_size == -1:
+        return (rows, N), (N,), PER_CHANNEL_GS
+    if width == "int4" and rows % group_size:
+        raise ValueError(
+            f"weight-only layer GEMM [{K}, {N}] int4: groups of "
+            f"{group_size} rows must cover whole 64-row steps of each "
+            f"nibble plane ({rows} rows)")
+    return (rows, N), (-(-K // group_size), N), group_size
+
+
 def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
                blk=None, off=None, start: int = 0, scale: float = 0.0,
                spec=None, x=None, lp=None, cos=None, sin=None, q=None,
@@ -102,27 +146,40 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
     queued).
 
     A whole layer (``decode_block`` / ``prefill_block``) passes ``spec``,
-    the ``[M, H]`` residual stream ``x`` and the layer's weights ``lp``;
-    its scratch and its output (``tensors["out"]``) are allocated here.
-    A single kernel passes its own ``q``/``k``/``v``/``attn`` instead.
-    Rows are decode slots when ``lengths`` is given (``block_table``
-    [M, MB]), else one prefill chunk (``block_table`` [MB])."""
-    if not isinstance(pool_k, torch.Tensor) or pool_k.ndim != 4:
+    the ``[M, H]`` residual stream ``x`` and the layer's weights ``lp``
+    (with ``spec.weight_dtype``: each matmul's ``<name>__q`` int8 codes,
+    ``[K, N]`` or int4 ``[K/2, N]``, and ``<name>__s`` fp32 scales, ``[N]``
+    or ``[G, N]``); its scratch and its output (``tensors["out"]``) are
+    allocated here.  A single kernel passes its own ``q``/``k``/``v``/
+    ``attn`` instead.  The pools are ``[NB, BS, Hkv, D]`` tensors in the
+    model dtype or int8 ``QuantizedKVPool``s (codes and ``[NB, BS, Hkv]``
+    fp32 scales).  Rows are decode slots when ``lengths`` is given
+    (``block_table`` [M, MB]), else one prefill chunk (``block_table``
+    [MB])."""
+    pk, pv, pks, pvs = _pool_parts(pool_k, pool_v)
+    if not isinstance(pk, torch.Tensor) or pk.ndim != 4:
         raise ValueError("pool_k must be a [NB, BS, Hkv, D] tensor")
-    dev, dt = pool_k.device, pool_k.dtype
+    dev = pk.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernels need CUDA tensors, pool is on {dev}")
+    kv_quant = pks is not None
+    lead = x if x is not None else q
+    dt = lead.dtype if kv_quant else pk.dtype
     code = dtype_code(dt)
-    NB, BS, Hkv, D = pool_k.shape
+    NB, BS, Hkv, D = pk.shape
     if D not in (32, 64, 128):
         raise ValueError(f"head_dim {D} unsupported (32, 64 or 128)")
     MB = block_table.shape[-1]
     H = F = 0
-    t = {"pool_k": pool_k, "pool_v": pool_v, "block_table": block_table,
-         "lengths": lengths, "blk": blk, "off": off, "cos": cos, "sin": sin,
-         "q": q, "k": k, "v": v, "attn": attn}
+    wq, gs = build.WQ_NONE, 0
+    t = {"pool_k": pk, "pool_v": pv, "pool_ks": pks, "pool_vs": pvs,
+         "block_table": block_table, "lengths": lengths, "blk": blk,
+         "off": off, "cos": cos, "sin": sin, "q": q, "k": k, "v": v,
+         "attn": attn}
+    shapes = {}
     if lp is not None:
-        H, F, Hq = x.shape[-1], lp["gate_w"].shape[1], spec.num_heads
+        H, Hq = x.shape[-1], spec.num_heads
+        F = _ffn_width(lp)
         if (H, Hkv, D) != (spec.hidden, spec.kv_heads, spec.head_dim):
             raise ValueError(f"x hidden {H} and pool heads {Hkv} x {D} do "
                              f"not match the spec {spec}")
@@ -130,11 +187,25 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
             if n % 8:
                 raise ValueError(f"GEMM widths must be multiples of 8, "
                                  f"got {n}")
+        dims = {"q_w": (H, Hq * D), "k_w": (H, Hkv * D),
+                "v_w": (H, Hkv * D), "o_w": (Hq * D, H), "gate_w": (H, F),
+                "up_w": (H, F), "down_w": (F, H)}
+        t.update(ln1_w=lp["ln1_w"], ln2_w=lp["ln2_w"])
+        if spec.weight_dtype is None:
+            t.update({n: lp[n] for n in MATMULS})
+            shapes.update(dims)
+        else:
+            wq = build.WQ_INT4 if spec.weight_dtype == "int4" \
+                else build.WQ_INT8
+            for n in MATMULS:
+                cshape, sshape, gs = wo_layout(*dims[n], spec.weight_dtype,
+                                               spec.group_size)
+                t[n], t[n[:-1] + "s"] = lp[n + "__q"], lp[n + "__s"]
+                shapes[n], shapes[n[:-1] + "s"] = cshape, sshape
 
         def empty(*shape):
             return torch.empty(shape, dtype=dt, device=dev)
-        t.update({n: lp[n] for n in WEIGHTS}, x=x, y=empty(M, H),
-                 q=empty(M, Hq * D), k=empty(M, Hkv * D),
+        t.update(x=x, y=empty(M, H), q=empty(M, Hq * D), k=empty(M, Hkv * D),
                  v=empty(M, Hkv * D), attn=empty(M, Hq * D),
                  x_mid=empty(M, H), hbuf=empty(M, F), out=empty(M, H))
     else:
@@ -142,23 +213,39 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
     if Hq % Hkv or Hq > 8 * Hkv:
         raise ValueError(f"{Hq} q heads are not a multiple of {Hkv} kv heads "
                          "up to 8 q heads a kv head")
-    shapes = {"pool_k": (NB, BS, Hkv, D), "pool_v": (NB, BS, Hkv, D),
-              "block_table": (M, MB) if lengths is not None else (MB,),
-              "lengths": (M,), "blk": (M,), "off": (M,), "cos": (M, D),
-              "sin": (M, D), "q": (M, Hq * D), "k": (M, Hkv * D),
-              "v": (M, Hkv * D), "attn": (M, Hq * D), "x": (M, H),
-              "y": (M, H), "x_mid": (M, H), "hbuf": (M, F), "out": (M, H),
-              "ln1_w": (H,), "q_w": (H, Hq * D), "k_w": (H, Hkv * D),
-              "v_w": (H, Hkv * D), "o_w": (Hq * D, H), "ln2_w": (H,),
-              "gate_w": (H, F), "up_w": (H, F), "down_w": (F, H)}
+    shapes.update({
+        "pool_k": (NB, BS, Hkv, D), "pool_v": (NB, BS, Hkv, D),
+        "pool_ks": (NB, BS, Hkv), "pool_vs": (NB, BS, Hkv),
+        "block_table": (M, MB) if lengths is not None else (MB,),
+        "lengths": (M,), "blk": (M,), "off": (M,), "cos": (M, D),
+        "sin": (M, D), "q": (M, Hq * D), "k": (M, Hkv * D),
+        "v": (M, Hkv * D), "attn": (M, Hq * D), "x": (M, H), "y": (M, H),
+        "x_mid": (M, H), "hbuf": (M, F), "out": (M, H), "ln1_w": (H,),
+        "ln2_w": (H,)})
     for n, tensor in t.items():
-        if tensor is not None:
-            check_tensor(tensor, n, shapes[n],
-                         torch.int32 if n in _INDEX else dt, dev)
+        if tensor is None:
+            continue
+        if n in _INDEX:
+            want = torch.int32
+        elif n in ("pool_ks", "pool_vs") or n.endswith("_s"):
+            want = torch.float32
+        elif (n in MATMULS and wq) or (n in ("pool_k", "pool_v")
+                                         and kv_quant):
+            want = torch.int8
+        else:
+            want = dt
+        check_tensor(tensor, n, shapes[n], want, dev)
     a = build.LayerArgs(
         dtype=code, M=M, H=H, Hq=Hq, Hkv=Hkv, D=D, F=F, BS=BS, NB=NB, MB=MB,
-        start=int(start), eps=float(spec.eps) if spec is not None else 0.0,
+        start=int(start), wq=wq, gs=gs, kv_quant=int(kv_quant),
+        eps=float(spec.eps) if spec is not None else 0.0,
         scale=float(scale),
         **{n: None if tensor is None else tensor.data_ptr()
            for n, tensor in t.items()})
     return a, t
+
+
+def _ffn_width(lp) -> int:
+    """The FFN width of a layer's weights, full-width or exported."""
+    up = lp["up_w"] if "up_w" in lp else lp["up_w__q"]
+    return up.shape[1]

@@ -1,6 +1,7 @@
 """One Llama layer for the serving engine: the ``decode_block`` and
 ``prefill_block`` ops (counterpart of ``paddle_tpu/ops/decode_block.py``,
-dense full-width Llama layers only).
+dense Llama layers: full-width or weight-only int8 / int4 matmuls, over a
+full-width or an int8 paged-KV pool).
 
 Each op has two versions and no third:
 
@@ -16,7 +17,10 @@ Each op has two versions and no third:
 
 Unlike the JAX package, the pools are updated IN PLACE: the new tokens'
 K/V rows are written into ``pool_k`` / ``pool_v`` and the same tensors
-are returned.
+are returned.  A quantized pool (``paged_kv.QuantizedKVPool``) takes each
+new row's int8 codes and fp32 scale; decode reads its pages dequantized to
+fp32, prefill dequantized to the model dtype, as the JAX reference tier
+does.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from .paged_kv import (paged_append, paged_decode_attention, pool_geometry,
+from .paged_kv import (dequantize_kv, is_quantized_pool, paged_append,
+                       paged_decode_attention, pool_geometry, quantize_kv,
                        validate_paged_decode_geometry)
 
 __all__ = ["DecodeBlockSpec", "decode_block_spec", "rotate_half",
@@ -39,24 +44,43 @@ __all__ = ["DecodeBlockSpec", "decode_block_spec", "rotate_half",
 @dataclasses.dataclass(frozen=True)
 class DecodeBlockSpec:
     """Static shape of one dense Llama layer's step (RMSNorm, split
-    q/k/v, rotate-half RoPE, SwiGLU)."""
+    q/k/v, rotate-half RoPE, SwiGLU).  ``weight_dtype`` "int8" / "int4":
+    the matmul weights live in the layer's dict as ``<name>__q`` codes
+    (int4 halves-packed) and ``<name>__s`` fp32 scales (the
+    ``quantization.serve`` export layout), one a channel or, with
+    ``group_size`` 64 / 128, one a (row group, channel)."""
     hidden: int
     num_heads: int
     kv_heads: int
     head_dim: int
     block_size: int                   # KV page size (pool geometry)
     eps: float = 1e-5
+    weight_dtype: Optional[str] = None   # None | "int8" | "int4"
+    group_size: int = -1                 # -1 | 64 | 128
 
     def __post_init__(self):
         if self.kv_heads < 1 or self.num_heads % self.kv_heads:
             raise ValueError(
                 f"num_heads ({self.num_heads}) must be a multiple of "
                 f"kv_heads ({self.kv_heads})")
+        if self.weight_dtype not in (None, "int8", "int4"):
+            raise ValueError("weight_dtype must be None, 'int8' or "
+                             f"'int4', got {self.weight_dtype!r}")
+        if self.group_size not in (-1, 64, 128):
+            raise ValueError(f"group_size must be -1/64/128, got "
+                             f"{self.group_size}")
+        if self.weight_dtype is None and self.group_size != -1:
+            raise ValueError("group_size requires weight_dtype")
 
 
-def decode_block_spec(cfg, block_size: int) -> DecodeBlockSpec:
-    """Spec for a Llama config.  GPT-family and MoE configs are outside
-    this port's slice (ROADMAP queue 1)."""
+def decode_block_spec(cfg, block_size: int,
+                      weight_dtype: Optional[str] = None,
+                      group_size: int = -1) -> DecodeBlockSpec:
+    """Spec for a Llama config; ``weight_dtype`` / ``group_size`` select
+    the weight-only quantized layer (the parameters carry ``__q`` /
+    ``__s`` leaves from ``quantization.quantize_params_for_serving``).
+    GPT-family and MoE configs are outside this port's slice (ROADMAP
+    queue 1)."""
     if not hasattr(cfg, "rms_norm_eps"):
         raise NotImplementedError(
             "GPT-family layers (LayerNorm, fused qkv, GELU) are not ported "
@@ -66,7 +90,8 @@ def decode_block_spec(cfg, block_size: int) -> DecodeBlockSpec:
             "MoE FFNs are not ported yet — ROADMAP queue 1")
     return DecodeBlockSpec(hidden=cfg.hidden_size, num_heads=cfg.num_heads,
                            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
-                           block_size=block_size, eps=cfg.rms_norm_eps)
+                           block_size=block_size, eps=cfg.rms_norm_eps,
+                           weight_dtype=weight_dtype, group_size=group_size)
 
 
 def rotate_half(x):
@@ -86,17 +111,38 @@ def make_norm(spec: DecodeBlockSpec) -> Callable:
     return norm
 
 
-def make_mm() -> Callable:
-    """``mm(lp, name, y)`` = ``y @ lp[name]`` (weights ``[in, out]``; full
-    width only, so the JAX closure's quantization spec has no part)."""
+def make_mm(spec: DecodeBlockSpec) -> Callable:
+    """``mm(lp, name, y)``, the one matmul of every plain layer.  Full
+    width: ``y @ lp[name]`` (weights ``[in, out]``).  Weight-only: y in
+    fp32 times the fp32 codes, then times the per-channel scale; grouped
+    scales dequantize the fp32 weight first (a per-channel product cannot
+    hold per-group scales); the result rounded to y's dtype — the JAX
+    reference tier's split."""
+    if spec.weight_dtype is None:
+        def mm(lp, name, y):
+            return y @ lp[name]
+        return mm
+    from ..nn.quant import _group_expand
+    from .quant_linear import unpack_int4
+    wdt, gs = spec.weight_dtype, spec.group_size
+
     def mm(lp, name, y):
-        return y @ lp[name]
+        wq, s = lp[name + "__q"], lp[name + "__s"]
+        K = y.shape[-1]
+        if wdt == "int4":
+            wq = unpack_int4(wq, K)
+        y32, s32 = y.float(), s.float()
+        if gs == -1:
+            out = (y32 @ wq.float()) * s32
+        else:
+            out = y32 @ (wq.float() * _group_expand(s32, K, gs))
+        return out.to(y.dtype)
     return mm
 
 
-def make_ffn() -> Callable:
+def make_ffn(spec: DecodeBlockSpec) -> Callable:
     """``ffn(lp, y)`` = ``down(silu(gate(y)) * up(y))``."""
-    mm = make_mm()
+    mm = make_mm(spec)
 
     def ffn(lp, y):
         return mm(lp, "down_w", F.silu(mm(lp, "gate_w", y))
@@ -104,15 +150,20 @@ def make_ffn() -> Callable:
     return ffn
 
 
-def make_norm_ffn(cfg):
+def make_norm_ffn(cfg, weight_dtype: Optional[str] = None,
+                  group_size: int = -1):
     """The engine's (norm, ffn) closure pair for a dense Llama config."""
-    spec = decode_block_spec(cfg, 1)
-    return make_norm(spec), make_ffn()
+    if getattr(cfg, "moe_num_experts", 0) and weight_dtype is not None:
+        raise NotImplementedError(
+            "weight-only quantization is not supported with MoE FFNs "
+            "(expert banks are not wired into the PTQ export)")
+    spec = decode_block_spec(cfg, 1, weight_dtype, group_size)
+    return make_norm(spec), make_ffn(spec)
 
 
 def _qkv(y, lp, spec: DecodeBlockSpec, leading):
     H, Hkv, D = spec.num_heads, spec.kv_heads, spec.head_dim
-    mm = make_mm()
+    mm = make_mm(spec)
     q = mm(lp, "q_w", y).reshape(*leading, H, D)
     k = mm(lp, "k_w", y).reshape(*leading, Hkv, D)
     v = mm(lp, "v_w", y).reshape(*leading, Hkv, D)
@@ -127,7 +178,8 @@ def decode_block_ref(x, lp, pool_k, pool_v, block_table, lengths, cos, sin,
     returns ``(x_out, pool_k, pool_v)``."""
     B = x.shape[0]
     norm = make_norm(spec)
-    ffn = make_ffn()
+    mm = make_mm(spec)
+    ffn = make_ffn(spec)
     y = norm(x, lp["ln1_w"])
     q, k, v = _qkv(y, lp, spec, (B,))
 
@@ -138,7 +190,7 @@ def decode_block_ref(x, lp, pool_k, pool_v, block_table, lengths, cos, sin,
                  spec.block_size)
     attn = paged_decode_attention(q, pool_k, pool_v, block_table,
                                   lengths + 1)
-    x = x + attn.reshape(B, -1) @ lp["o_w"]
+    x = x + mm(lp, "o_w", attn.reshape(B, -1))
     x = x + ffn(lp, norm(x, lp["ln2_w"]))
     return x, pool_k, pool_v
 
@@ -159,14 +211,17 @@ def prefill_block_ref(x, lp, pool_k, pool_v, blk, off, bt_row, cos, sin, *,
     ``[0, NB)`` writes nothing — the padded tail of a bucket); ``bt_row``
     [MB]; ``cos``/``sin`` [Ts, D].  Writes the tile's K/V in place,
     attends over the sequence's gathered pages under the causal mask of
-    :func:`causal_mask`, returns ``(x_out, pool_k, pool_v)``."""
+    :func:`causal_mask`, returns ``(x_out, pool_k, pool_v)``.  A
+    quantized pool takes the tile's codes and scales, and its gathered
+    pages are dequantized to the model dtype."""
     from ..models.generation import _dense_masked_attention
     Ts = x.shape[1]
     Hkv, D = spec.kv_heads, spec.head_dim
     mask = causal_mask(start, Ts, bt_row.shape[0] * spec.block_size,
                        x.device)
     norm = make_norm(spec)
-    ffn = make_ffn()
+    mm = make_mm(spec)
+    ffn = make_ffn(spec)
     s = scale if scale is not None else 1.0 / (D ** 0.5)
     y = norm(x, lp["ln1_w"])
     q, k, v = _qkv(y, lp, spec, (1, Ts))
@@ -177,13 +232,23 @@ def prefill_block_ref(x, lp, pool_k, pool_v, blk, off, bt_row, cos, sin, *,
     NB = pool_geometry(pool_k)[0]
     blk = blk.long()
     keep = (blk >= 0) & (blk < NB)
-    pool_k[blk[keep], off.long()[keep]] = k[0][keep]
-    pool_v[blk[keep], off.long()[keep]] = v[0][keep]
+    bk, ok = blk[keep], off.long()[keep]
     bt0 = bt_row.long().clamp(min=0)
-    k_all = pool_k[bt0].reshape(1, -1, Hkv, D)
-    v_all = pool_v[bt0].reshape(1, -1, Hkv, D)
+    if is_quantized_pool(pool_k):
+        for pool, new in ((pool_k, k), (pool_v, v)):
+            codes, sc = quantize_kv(new[0][keep])
+            pool.data[bk, ok] = codes
+            pool.scale[bk, ok] = sc
+        k_all = dequantize_kv(pool_k.data[bt0], pool_k.scale[bt0], k.dtype)
+        v_all = dequantize_kv(pool_v.data[bt0], pool_v.scale[bt0], v.dtype)
+    else:
+        pool_k[bk, ok] = k[0][keep]
+        pool_v[bk, ok] = v[0][keep]
+        k_all, v_all = pool_k[bt0], pool_v[bt0]
+    k_all = k_all.reshape(1, -1, Hkv, D)
+    v_all = v_all.reshape(1, -1, Hkv, D)
     attn = _dense_masked_attention(q, k_all, v_all, mask, s).reshape(1, Ts, -1)
-    x = x + attn @ lp["o_w"]
+    x = x + mm(lp, "o_w", attn)
     x = x + ffn(lp, norm(x, lp["ln2_w"]))
     return x, pool_k, pool_v
 
@@ -198,7 +263,9 @@ def decode_block(x, lp, pool_k, pool_v, block_table, lengths, cos, sin, *,
     """One Llama layer for one decode token per sequence.
 
     ``x``: [B, H] residual stream; ``lp``: the layer's weights
-    (``models.llama.block_shapes`` keys, ``[in, out]``); ``pool_k/v``: [NB, BS, Hkv, D];
+    (``models.llama.block_shapes`` keys, ``[in, out]``; a quantized spec's
+    ``<name>__q`` / ``<name>__s`` for the seven matmuls); ``pool_k/v``:
+    [NB, BS, Hkv, D] tensors or ``QuantizedKVPool`` s;
     ``block_table``: [B, MB] int32; ``lengths``: [B] tokens already
     stored; ``cos``/``sin``: [B, D].  Returns ``(x_out, pool_k, pool_v)``
     with the new token's KV written in place.  CUDA tensors launch the

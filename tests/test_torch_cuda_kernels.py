@@ -141,6 +141,117 @@ def test_layer_counts_follow_the_chain():
         assert src.count(f"count_launch(CNT_{name.upper()},") == 1, name
 
 
+# the quantized chain: (weight width, group size, int8 KV pool)
+QUANT = [("int8", -1, True), ("int4", -1, True), ("int8", 64, False)]
+QIDS = ["int8-kv8", "int4-kv8", "int8g64"]
+
+
+def _quantized(c, width, gs, kvq):
+    """``c`` with its layer PTQ-exported and (kvq) its pools int8."""
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    from paddle_tpu_torch.quantization import (ServeQuantConfig,
+                                               quantize_params_for_serving)
+    blocks = quantize_params_for_serving(
+        {"blocks": {k: v[None] for k, v in c["lp"].items()}},
+        ServeQuantConfig(width, gs))["blocks"]
+    out = dict(c, lp={k: v[0] for k, v in blocks.items()})
+    if kvq:
+        for n in ("pool_k", "pool_v"):
+            out[n] = tkv.QuantizedKVPool(*tkv.quantize_kv(c[n]))
+    spec = tdb.DecodeBlockSpec(hidden=H, num_heads=HQ, kv_heads=HKV,
+                               head_dim=D, block_size=BS, weight_dtype=width,
+                               group_size=gs)
+    return out, spec
+
+
+def _pool_copy(p):
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    if tkv.is_quantized_pool(p):
+        return tkv.QuantizedKVPool(p.data.clone(), p.scale.clone())
+    return p.clone()
+
+
+@pytest.mark.parametrize("width,gs,kvq", QUANT, ids=QIDS)
+def test_quantized_plain_versions_compose_to_the_op(width, gs, kvq):
+    """CPU: the quantized chain of per-kernel plain versions (the
+    weight-only GEMMs with their epilogues, the RoPE / KV write and the
+    attention over int8 pools) is the op's plain version."""
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    c, spec = _quantized(_decode_case(torch.float32, "cpu"), width, gs, kvq)
+    lp = c["lp"]
+
+    def mm(name, y, **kw):
+        return K.wo_layer_ref(y, lp[name + "__q"], lp[name + "__s"],
+                              width=width, group_size=gs, **kw)
+    pk, pv = _pool_copy(c["pool_k"]), _pool_copy(c["pool_v"])
+    y = K.rms_norm_rows_ref(c["x"], lp["ln1_w"], spec.eps)
+    q, k = K.rope_kv_write_ref(mm("q_w", y), mm("k_w", y), mm("v_w", y),
+                               c["cos"], c["sin"], pk, pv, head_dim=D,
+                               block_table=c["bt"], lengths=c["lengths"])
+    attn = K.paged_attention_ref(q, pk, pv, block_table=c["bt"],
+                                 lengths=c["lengths"])
+    xm = mm("o_w", attn, residual=c["x"])
+    y2 = K.rms_norm_rows_ref(xm, lp["ln2_w"], spec.eps)
+    h = mm("up_w", y2, gate=mm("gate_w", y2))
+    got = mm("down_w", h, residual=xm)
+    rk, rv = _pool_copy(c["pool_k"]), _pool_copy(c["pool_v"])
+    ref = tdb.decode_block_ref(c["x"], lp, rk, rv, c["bt"], c["lengths"],
+                               c["cos"], c["sin"], spec=spec)
+    torch.testing.assert_close(got, ref[0], rtol=1e-5, atol=1e-5)
+    for g, r in ((pk, rk), (pv, rv)):
+        if kvq:
+            assert torch.equal(g.data, r.data)
+            assert torch.equal(g.scale, r.scale)
+            assert tkv.is_quantized_pool(r)
+        else:
+            assert torch.equal(g, r)
+
+
+def test_wo_layout_refuses_what_the_kernels_refuse():
+    """CPU: the chain's weight-only GEMM shapes (``layer.wo_layout``)."""
+    assert layer.wo_layout(4096, 11008, "int4", 64) == (
+        (2048, 11008), (64, 11008), 64)
+    assert layer.wo_layout(11008, 4096, "int8", -1) == (
+        (11008, 4096), (4096,), layer.PER_CHANNEL_GS)
+    assert layer.wo_layout(96, 64, "int8", 64)[1] == (2, 64)
+    for args in ((64, 40, "int8", -1), (60, 64, "int8", -1),
+                 (64, 64, "int4", 64), (4096, 4104, "int4", 128)):
+        with pytest.raises(ValueError):
+            layer.wo_layout(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("width,gs,kvq", QUANT, ids=QIDS)
+def test_quantized_decode_block_kernel_matches_plain(dt, width, gs, kvq):
+    """The quantized chain on the card against its plain version: x at the
+    tolerance, an int8 pool's codes at most one step apart (a k a rounding
+    apart may take the next code), its scales to 2e-2; the launches are
+    the chain's."""
+    _need_card()
+    c, spec = _quantized(_decode_case(dt, "cuda"), width, gs, kvq)
+    rk, rv = _pool_copy(c["pool_k"]), _pool_copy(c["pool_v"])
+    ref = tdb.decode_block_ref(c["x"], c["lp"], rk, rv, c["bt"],
+                               c["lengths"], c["cos"], c["sin"], spec=spec)
+    gk, gv = _pool_copy(c["pool_k"]), _pool_copy(c["pool_v"])
+    layer.reset_counts()
+    got = tdb.decode_block(c["x"], c["lp"], gk, gv, c["bt"], c["lengths"],
+                           c["cos"], c["sin"], spec=spec)
+    torch.cuda.synchronize()
+    wo = "wo_layer_f32" if dt == torch.float32 else f"wo_layer_{width}_small_m"
+    q8 = "_q8" if kvq else ""
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {
+        "decode_block": 1, "rms_norm_rows": 2, wo: 7,
+        "rope_kv_write" + q8: 1, "paged_attention" + q8: 1}
+    _close(got[0][:3], ref[0][:3], dt)           # row 3: inactive slot
+    for g, r in ((gk, rk), (gv, rv)):
+        if kvq:
+            assert (g.data.int() - r.data.int()).abs().max() <= 1
+            _close(g.scale, r.scale, torch.bfloat16)
+        else:
+            _close(g, r, dt)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", DTYPES, ids=IDS)
 def test_decode_block_kernel_matches_plain(dt):
@@ -330,6 +441,37 @@ def test_rope_kv_write_equals_plain_bit_for_bit(dt, mode, Dh, G):
     got = _once_bitwise(run, "rope_kv_write")
     assert torch.equal(_bits(got),
                        _bits(_rope_kv_ref(q, k, v, cos, sin, pk, pv, kw)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("Dh,G", ROPE_KV_GD,
+                         ids=[f"D{d}-G{g}" for d, g in ROPE_KV_GD])
+def test_rope_kv_write_q8_equals_plain_bit_for_bit(dt, mode, Dh, G):
+    """Into int8 pools: q and k roped in place, the written rows' codes and
+    scales equal ``quantize_kv`` of the plain version's rows bit for bit,
+    dropped writes leave codes and scales alone; one launch of
+    ``rope_kv_write_q8`` a call, a second call bit-identical."""
+    _need_card()
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    q, k, v, cos, sin, pk, pv, kw = _rope_kv_inputs(dt, Dh, G, mode)
+    pk, pv = (tkv.QuantizedKVPool(*tkv.quantize_kv(p)) for p in (pk, pv))
+
+    def flat(qq, kk, gk, gv):
+        return torch.cat([t.flatten().int() for t in (
+            _bits(qq), _bits(kk), gk.data, _bits(gk.scale), gv.data,
+            _bits(gv.scale))])
+
+    def run():
+        qq, kk, gk, gv = q.clone(), k.clone(), _pool_copy(pk), _pool_copy(pv)
+        K.rope_kv_write_cuda(qq, kk, v, cos, sin, gk, gv, **kw)
+        return flat(qq, kk, gk, gv)
+    got = _once_bitwise(run, "rope_kv_write_q8")
+    rk, rv = _pool_copy(pk), _pool_copy(pv)
+    rq, rkk = K.rope_kv_write_ref(q, k, v, cos, sin, rk, rv, head_dim=Dh,
+                                  **kw)
+    assert torch.equal(got, flat(rq, rkk, rk, rv))
 
 
 @pytest.mark.gpu

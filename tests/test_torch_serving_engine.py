@@ -23,6 +23,7 @@ from paddle_tpu_torch.bridge import params_from_numpy
 from paddle_tpu_torch.device import make_generator
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.quantization import ServeQuantConfig
 
 PROMPT_LENS = (5, 20, 37, 9, 16)
 BUDGETS = (6, 4, 8, 5, 3)
@@ -113,7 +114,11 @@ def test_kv_leak_report_clean_after_drain_with_eos(model):
 @pytest.mark.parametrize("kw", [
     {"enable_prefix_caching": True}, {"enable_preemption": True},
     {"prefill_buckets": None}, {"spec_config": object()},
-    {"quant_config": object()}, {"aot_dir": "/nonexistent"},
+    # quantized serving is ported: a quantized engine still refuses
+    # prefix caching (a non-ServeQuantConfig raises TypeError:
+    # tests/test_torch_quant_serving.py)
+    {"quant_config": ServeQuantConfig(weight_dtype="int8"),
+     "enable_prefix_caching": True}, {"aot_dir": "/nonexistent"},
     {"spill_tier": object()}, {"prefix_cache_config": object()}],
     ids=lambda kw: next(iter(kw)))
 def test_features_outside_the_slice_are_refused(model, kw):
