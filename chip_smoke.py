@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving, training, generation, eager
-training and incubate fused-API paths on one CUDA card and check them.
+"""Drive the PyTorch/H100 port's serving (Llama through the engine, GPT
+through the ops), training, generation, eager training and incubate
+fused-API paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -55,7 +56,24 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             decode steps and chunk fills and the plain ops refused, its
             decode step's wall and busy ms, tokens/s and TTFT beside the
             bf16 engine's;
-5. flash    the three flash-attention kernels (``flash_fwd``,
+5. gpt serve  GPT-125M (``gpt_125m``, bf16, 12 layers, V 50304) served
+            through ``decode_block`` / ``prefill_block`` (the GPT layer:
+            LayerNorm with bias, fused qkv stored split per head, bias and
+            GELU epilogues, no RoPE) by ``gpt_paged_rollout``: first its
+            kernel modes alone at GPT-125M shapes against their plain
+            versions (``layer_norm_rows`` at [4, 768] and [256, 768],
+            ``gemm_xw`` with each bias epilogue at M 4 and 256, the qkv
+            split, the unrotated ``rope_kv_write`` bit-equal, one GPT
+            ``decode_block`` and ``prefill_block``, fp32 1e-4 and bf16 2e-2
+            or the ratio rule) with bf16 times beside bounds, plain versions
+            and library calls; then four prompts of 600 / 37 / 300 / 517
+            tokens chunk-filled over buckets (16, 64, 256) in 16-token pages
+            and 32 greedy new tokens each, launch counts exactly as
+            predicted with the plain ops refused; the decode step's wall and
+            busy ms, tokens/s and prefill ms per prompt; then at 2 layers the
+            prefill and first decode step logits of the kernel path against
+            the plain path on the card, held to an fp32 plain run;
+6. flash    the three flash-attention kernels (``flash_fwd``,
             ``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain
             versions at the training slice's shape (B 4, S 2048, 32 heads,
             D 128, causal) in fp32 (tolerance 1e-4) and bf16 (2e-2, or the
@@ -70,7 +88,7 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             ``flash_delta`` share), again at the gpt phase's shape (B 8,
             S 1024, 12 heads, D 64, causal), and the forward's at the
             encoder's, each forward beside SDPA's forward;
-6. linear_ce the four linear-CE head kernels (``linear_ce_fwd``;
+7. linear_ce the four linear-CE head kernels (``linear_ce_fwd``;
             ``linear_ce_dz``, ``linear_ce_dx``, ``linear_ce_dw`` per vocab
             slab of the backward) against their plain versions at the
             Llama head's shape (T 8192, H 4096, V 32000) in bf16 and fp32,
@@ -95,7 +113,7 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             bound and dense-chain (``x @ w.T`` then ``F.cross_entropy``:
             forward, backward alone, forward + backward) times, and dw's
             beside one ``torch.matmul(dz.T, x)`` a slab;
-7. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
+8. train    ``llama_7b(num_layers=4)`` in bf16 trained by the one-device
             train step (remat, the fused linear-CE head of the config
             default): one warm step and 5 timed steps on one seeded batch
             of 4 x 2048 tokens, with finite and falling losses and the
@@ -103,13 +121,13 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             one step's loss and every gradient at 2 layers through the
             flash kernels against the dense attention path, and through
             the fused head against the dense head;
-8. gpt      the JAX bench's GPT row (V 32768, H 768, 12 layers, 12 heads,
+9. gpt      the JAX bench's GPT row (V 32768, H 768, 12 layers, 12 heads,
             bf16, no remat) trained by the one-device GPT step at batch
             8 x 1024: flash attention at head_dim 64 and the fused head
             (fp32 x from the fp32 final LayerNorm, bf16 tied wte), one
             warm and 5 timed steps, finite falling losses and launch
             counts as predicted;
-9. decode_attn  the decode-attention kernel against its plain version at
+10. decode_attn  the decode-attention kernel against its plain version at
             the generation step's shape (B 8, a 256-row cache, 32 heads,
             D 128, lengths ragged from 1 to 256) in fp32 (1e-4) and bf16
             (2e-2 or the ratio rule), and at GPT-125M's heads, GQA 32/8 at
@@ -118,7 +136,7 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             bit-identical; kernel, plain, bound and
             ``scaled_dot_product_attention`` times warm (one cache, mostly
             L2-resident) and cold (``DATTN_COLD`` caches in rotation);
-10. quant_linear the weight-only int8 and int4 kernels against their plain
+11. quant_linear the weight-only int8 and int4 kernels against their plain
             versions at M 8 (decode) and M 1024 (prefill) on the three
             llama_7b weight shapes, per channel, bf16 and fp32 x, and on
             groups of 64 and 128, an odd K, M 1, 16, 17 and 1000, each
@@ -126,7 +144,7 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             (its seven matmuls), plain, bound and cuBLAS on the
             dequantized bf16 weight, the bf16 rows' ratio to cuBLAS and
             share of the bound;
-11. generate ``llama_7b`` at full width and depth (32 layers, seeded
+12. generate ``llama_7b`` at full width and depth (32 layers, seeded
             ``init_params``) through ``llama_generate`` at the JAX bench's
             decode row (B 8, prompt 128 from numpy seed 0, 128 new tokens,
             greedy) in bf16 and through ``quantize_llama_params`` in int8
@@ -136,7 +154,7 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             then at 2 layers the prefill and first decode step logits of
             the kernel path against the plain path on the card, both held
             to an fp32 plain run;
-12. norms   the eager path's kernels ``rms_norm_fwd``, ``layer_norm_fwd``,
+13. norms   the eager path's kernels ``rms_norm_fwd``, ``layer_norm_fwd``,
             ``bias_residual_ln_fwd`` and ``swiglu_fwd`` against their
             plain versions in fp32 (1e-4) and bf16 (2e-2 or the ratio
             rule) at the eager steps' shapes (RMSNorm [8192, 4096],
@@ -145,7 +163,7 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             bit-identical, outputs and fp32 row statistics; kernel, plain, bound and library (``F.rms_norm``,
             ``F.layer_norm``, ``x + bias + residual`` then
             ``F.layer_norm``, ``F.silu(x) * y``) times in bf16;
-13. eager   the eager ``GPTForCausalLM`` (the gpt phase's model: V 32768,
+14. eager   the eager ``GPTForCausalLM`` (the gpt phase's model: V 32768,
             12 layers, bf16, dropout 0, batch 8 x 1024) and
             ``LlamaForCausalLM`` (llama_7b x 4 layers, bf16, batch
             4 x 2048) through the dygraph loop ``loss = net(ids, labels);
@@ -155,7 +173,7 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             exactly as ``EAGER_*_PER_STEP`` predicts; then at 2 layers
             one step's loss and every gradient through the kernels against
             the same model's plain path, held to an fp32 run;
-14. fused   the incubate fused API's kernels ``rope_fwd`` (forward and its
+15. fused   the incubate fused API's kernels ``rope_fwd`` (forward and its
             sign -1 VJP), ``softmax_mask_fwd``, ``bias_act_fwd`` (every
             act) and ``dropout_add_fwd`` against their plain versions in
             fp32 (1e-4) and bf16 (2e-2 or the ratio rule) at the shapes of
@@ -167,7 +185,7 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             plain version, its keep rate within 5 sigma of 1 - p and a new
             seed a new mask; kernel, plain, bound and library times in
             bf16; then each public call once with its launches counted;
-15. encoder a BERT-base encoder built from 12
+16. encoder a BERT-base encoder built from 12
             ``FusedTransformerEncoderLayer(768, 12, 3072, gelu)`` in an
             ``nn.ModuleList``, bf16, on b 32 x s 128: post-LN eval (the
             timed main path), pre-LN eval and pre-LN train (dropout 0.1),
@@ -333,16 +351,17 @@ def time_ms(fn, iters, breakdown=None, per_launch=False):
     return (device if best else None), call_ms
 
 
-def chain_ms(breakdown, gemm):
+def chain_ms(breakdown, gemm, per=None):
     """Device ms of one layer call from the per-kernel mean launch times
-    and the chain's launch counts (2 norms, 6 GEMMs of the regime's
-    kernel ``gemm``: ``gemm_xw_small_m_tma`` at M <= 16, else
-    ``gemm_xw_tiled_wg``; 1 RoPE/KV write, 1 attention;
-    :func:`layer_launches` checks them against the library's counters),
-    robust to missing profiler records.  Raises when a kernel of the chain
-    has no record or another GEMM kernel has one."""
-    per = {"rms_norm_rows": 2, gemm: 6, "rope_kv_write": 1,
-           "paged_attention": 1}
+    and the chain's launch counts (a Llama layer: 2 norms, 6 GEMMs of the
+    regime's kernel ``gemm``: ``gemm_xw_small_m_tma`` at M <= 16, else
+    ``gemm_xw_tiled_wg``; 1 RoPE/KV write, 1 attention; ``per`` another
+    chain's {kernel name part: launches}; :func:`layer_launches` checks
+    them against the library's counters), robust to missing profiler
+    records.  Raises when a kernel of the chain has no record or another
+    GEMM kernel has one."""
+    per = per or {"rms_norm_rows": 2, gemm: 6, "rope_kv_write": 1,
+                  "paged_attention": 1}
     total, seen = 0.0, set()
     for name, (mean, _) in breakdown.items():
         if "gemm" in name and gemm not in name:
@@ -375,9 +394,10 @@ def host_ms(fn, calls=30):
     return 1e3 * statistics.median(out)
 
 
-def layer_launches(name, fn):
+def layer_launches(name, fn, norm="rms_norm_rows", gemms=6):
     """Run one layer call and check the library's launch counters for it
-    against the chain :func:`chain_ms` assumes."""
+    against the chain :func:`chain_ms` assumes (a GPT layer:
+    ``layer_norm_rows`` and 4 GEMMs)."""
     import torch
     from paddle_tpu_torch.ops.cuda import layer
     layer.reset_counts()
@@ -385,10 +405,9 @@ def layer_launches(name, fn):
     torch.cuda.synchronize()
     got = {k: n for k, n in layer.launch_counts().items() if n}
     gemm = sum(n for k, n in got.items() if k.startswith("gemm_xw"))
-    if gemm != 6 or {k: n for k, n in got.items()
-                     if not k.startswith("gemm_xw")} != {
-            name: 1, "rms_norm_rows": 2, "rope_kv_write": 1,
-            "paged_attention": 1}:
+    if gemm != gemms or {k: n for k, n in got.items()
+                         if not k.startswith("gemm_xw")} != {
+            name: 1, norm: 2, "rope_kv_write": 1, "paged_attention": 1}:
         raise SmokeFailure(f"{name}: one call launched {got}")
     return got
 
@@ -450,25 +469,27 @@ def phase_build():
     return secs
 
 
-def make_layer(cfg, gen, dtype, dev):
-    """One 7B-shaped layer: std-0.02 normals, norm gains near 1."""
+def make_layer(cfg, gen, dtype, dev, shapes=None):
+    """One layer of ``shapes`` (default a Llama layer of ``cfg``): std-0.02
+    normals for the matrices and biases, norm gains near 1."""
     import torch
     from paddle_tpu_torch.models.llama import block_shapes
     lp = {}
-    for name, shape in block_shapes(cfg).items():
+    for name, shape in (shapes or block_shapes(cfg)).items():
         t = torch.empty(shape, device=dev).normal_(0.0, 0.02,
                                                       generator=gen)
-        if name.startswith("ln"):
+        if name.startswith("ln") and name.endswith("_w"):
             t = 1.0 + 5.0 * t
         lp[name] = t
     return {k: v.to(dtype).contiguous() for k, v in lp.items()}
 
 
-def layer_bytes_ops(cfg, itemsize):
+def layer_bytes_ops(cfg, itemsize, shapes=None):
+    """(bytes of a layer's parameters, its matmul weights' count)."""
     from paddle_tpu_torch.models.llama import block_shapes
-    n_w = sum(math.prod(s) for s in block_shapes(cfg).values())
-    n_mm = sum(math.prod(s) for k, s in block_shapes(cfg).items()
-               if not k.startswith("ln"))
+    shapes = shapes or block_shapes(cfg)
+    n_w = sum(math.prod(s) for s in shapes.values())
+    n_mm = sum(math.prod(s) for s in shapes.values() if len(s) == 2)
     return n_w * itemsize, n_mm
 
 
@@ -476,16 +497,21 @@ def rope_kv_cases(lengths, bt, bt_row, cos_t, sin_t, BS, chunks=(256,)):
     """{label: (rows, write-target keywords, cos rows, sin rows)} of
     rope_kv_write: the decode case (its lengths and table) and prefill
     chunks of ``chunks`` rows after 300 positions over ``bt_row``'s pages,
-    every row writing (through blk / off)."""
+    every row writing (through blk / off).  ``cos_t`` / ``sin_t`` None (no
+    RoPE): the rows are None."""
     import torch
+
+    def rows(t, idx):
+        return None if t is None else t[idx]
     dec = lengths.long()
     out = {"decode": (len(lengths), dict(block_table=bt, lengths=lengths),
-                      cos_t[dec], sin_t[dec])}
+                      rows(cos_t, dec), rows(sin_t, dec))}
     for Ts in chunks:
         pos = 300 + torch.arange(Ts, device=bt_row.device)
         out[f"prefill Ts {Ts}"] = (
             Ts, dict(block_table=bt_row, blk=bt_row[pos // BS].contiguous(),
-                     off=(pos % BS).to(torch.int32)), cos_t[pos], sin_t[pos])
+                     off=(pos % BS).to(torch.int32)), rows(cos_t, pos),
+            rows(sin_t, pos))
     return out
 
 
@@ -540,6 +566,113 @@ def check_rope_kv_bitwise(label, args, tgt):
                            "version (bit-equal required)")
 
 
+def serving_tables(perm, BS, MB):
+    """The kernels phase's page tables from a page permutation: 4 decode
+    slots of lengths 1000 / 37 / 0 (inactive: table all -1) / 517 with
+    pages for one more token, and one prefill table row with pages for
+    600 tokens.  Returns ``(lengths, bt, bt_row)``."""
+    import torch
+    dev = perm.device
+    lengths = torch.tensor([1000, 37, 0, 517], dtype=torch.int32,
+                           device=dev)
+    bt = torch.full((4, MB), -1, dtype=torch.int32, device=dev)
+    used = 0
+    for b, n in enumerate(lengths.tolist()):
+        if b == 2:
+            continue
+        need = -(-(n + 1) // BS)
+        bt[b, :need] = perm[used:used + need]
+        used += need
+    bt_row = torch.full((MB,), -1, dtype=torch.int32, device=dev)
+    bt_row[:38] = perm[used:used + 38]
+    return lengths, bt, bt_row
+
+
+def _f32(t):
+    return None if t is None else t.float()
+
+
+def check_decode_layer(tag, spec, lp, pk0, pv0, x, bt, lengths, cos, sin,
+                       tol, ratios):
+    """One ``decode_block`` call on copies of the pools against
+    ``decode_block_ref`` in x's dtype, held to the plain version in fp32
+    (:func:`check_layer_out` for x, ``tol`` for the pools); no pool row but
+    the appended tokens' may change (a slot whose current page is unmapped
+    writes nothing).  Returns the largest error."""
+    import torch
+    from paddle_tpu_torch.ops import decode_block as db
+    BS = spec.block_size
+    rk, rv = pk0.clone(), pv0.clone()
+    ref = db.decode_block_ref(x, lp, rk, rv, bt, lengths, cos, sin,
+                              spec=spec)
+    gk, gv = pk0.clone(), pv0.clone()
+    got = db.decode_block(x, lp, gk, gv, bt, lengths, cos, sin, spec=spec)
+    torch.cuda.synchronize()
+    truth = db.decode_block_ref(
+        x.float(), {k: v.float() for k, v in lp.items()},
+        pk0.float().clone(), pv0.float().clone(), bt, lengths, _f32(cos),
+        _f32(sin), spec=spec)[0]
+    e = [check_layer_out(f"{tag} x_out", got[0], ref[0], truth, tol,
+                         ratios),
+         check_close(f"{tag} pool_k", gk, rk, tol),
+         check_close(f"{tag} pool_v", gv, rv, tol)]
+    touched = {(int(bt[b, int(n) // BS]), int(n) % BS)
+               for b, n in enumerate(lengths.tolist())
+               if int(bt[b, int(n) // BS]) >= 0}
+    for name, g, o in (("pool_k", gk, pk0), ("pool_v", gv, pv0)):
+        moved = (g != o).flatten(2).any(-1).nonzero().tolist()
+        if not set(map(tuple, moved)) <= touched or not moved:
+            raise SmokeFailure(f"{tag}: {name} rows changed outside the "
+                               f"appended tokens: {moved}")
+    info(f"{tag} B={len(lengths)} lengths={lengths.tolist()}: max |err| x "
+         f"{e[0]:.2e} pool_k {e[1]:.2e} pool_v {e[2]:.2e} (tol {tol})")
+    return max(e)
+
+
+def check_prefill_layer(tag, spec, lp, pk0, pv0, xp, start, valid, bt_row,
+                        NB, cos_t, sin_t, tol, ratios):
+    """One ``prefill_block`` chunk of ``xp``'s rows at ``start`` over
+    ``bt_row``'s pages, the rows past ``valid`` a padded tail (page NB,
+    dropped), as :func:`check_decode_layer` checks a decode call; the pool
+    rows changed must be exactly the valid rows' (``cos_t`` / ``sin_t``
+    tables, or None without RoPE).  Returns the largest error."""
+    import torch
+    from paddle_tpu_torch.ops import decode_block as db
+    BS, Ts = spec.block_size, xp.shape[1]
+    pos = start + torch.arange(Ts, device=xp.device)
+    c, s = ((None, None) if cos_t is None else
+            (t[pos].to(xp.dtype).contiguous() for t in (cos_t, sin_t)))
+    blk = bt_row.clamp(min=0)[pos // BS]
+    blk[valid:] = NB
+    blk, off = blk.to(torch.int32), (pos % BS).to(torch.int32)
+    rk, rv = pk0.clone(), pv0.clone()
+    ref = db.prefill_block_ref(xp, lp, rk, rv, blk, off, bt_row, c, s,
+                               spec=spec, start=start)
+    gk, gv = pk0.clone(), pv0.clone()
+    got = db.prefill_block(xp, lp, gk, gv, blk, off, bt_row, c, s,
+                           spec=spec, start=start)
+    torch.cuda.synchronize()
+    truth = db.prefill_block_ref(
+        xp.float(), {k: v.float() for k, v in lp.items()},
+        pk0.float().clone(), pv0.float().clone(), blk, off, bt_row, _f32(c),
+        _f32(s), spec=spec, start=start)[0]
+    e = [check_layer_out(f"{tag} x_out", got[0][:, :valid],
+                         ref[0][:, :valid], truth[:, :valid], tol, ratios),
+         check_close(f"{tag} pool_k", gk, rk, tol),
+         check_close(f"{tag} pool_v", gv, rv, tol)]
+    touched = {(int(blk[i]), int(off[i])) for i in range(valid)}
+    for name, g, o in (("pool_k", gk, pk0), ("pool_v", gv, pv0)):
+        moved = set(map(tuple, (g != o).flatten(2).any(-1)
+                        .nonzero().tolist()))
+        if moved != touched:
+            raise SmokeFailure(
+                f"{tag}: {name} rows changed {sorted(moved - touched)[:5]} "
+                f"/ missing {sorted(touched - moved)[:5]}")
+    info(f"{tag} start={start} valid={valid}: max |err| x {e[0]:.2e} pool_k "
+         f"{e[1]:.2e} pool_v {e[2]:.2e} (tol {tol})")
+    return max(e)
+
+
 def phase_kernels(cfg, results, dev="cuda"):
     """decode_block / prefill_block and their chain's kernels at 7B layer
     shapes against their plain versions; bf16 timings."""
@@ -561,100 +694,29 @@ def phase_kernels(cfg, results, dev="cuda"):
                                  cfg.rope_theta, torch.float32,
                                  device=dev)
 
-    # decode: 4 slots, mixed lengths, slot 2 inactive (table all -1)
-    lengths = torch.tensor([1000, 37, 0, 517], dtype=torch.int32,
-                           device=dev)
-    bt = torch.full((4, MB), -1, dtype=torch.int32, device=dev)
-    used = 0
-    for b, n in enumerate(lengths.tolist()):
-        if b == 2:
-            continue
-        need = -(-(n + 1) // BS)
-        bt[b, :need] = perm[used:used + need]
-        used += need
+    lengths, bt, bt_row = serving_tables(perm, BS, MB)
     x32 = torch.randn(4, H, device=dev, generator=gen)
-    # prefill: one sequence with pages for 600 tokens
-    bt_row = torch.full((MB,), -1, dtype=torch.int32, device=dev)
-    bt_row[:38] = perm[used:used + 38]
     pre_cases = [(16, 37, 16), (16, 5, 11), (64, 21, 40), (256, 300, 200)]
     xs = {Ts: torch.randn(1, Ts, H, device=dev, generator=gen)
           for Ts, _, _ in pre_cases}
 
     kernel_err, ratios = {}, {}
     for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        tol = TOL[dtn]
         lp = {k: v.to(dt) for k, v in lp32.items()}
         pk0, pv0 = (p.to(dt) for p in pool32)
-        x = x32.to(dt)
         cos = cos_t[lengths.long()].to(dt).contiguous()
         sin = sin_t[lengths.long()].to(dt).contiguous()
-        rk, rv = pk0.clone(), pv0.clone()
-        ref = db.decode_block_ref(x, lp, rk, rv, bt, lengths, cos, sin,
-                                  spec=spec)
-        gk, gv = pk0.clone(), pv0.clone()
-        got = db.decode_block(x, lp, gk, gv, bt, lengths, cos, sin,
-                              spec=spec)
-        torch.cuda.synchronize()
-        truth = db.decode_block_ref(
-            x.float(), {k: v.float() for k, v in lp.items()},
-            pk0.float().clone(), pv0.float().clone(), bt, lengths, cos.float(), sin.float(),
-            spec=spec)[0]
-        e = [check_layer_out(f"decode_block {dtn} x_out", got[0], ref[0],
-                             truth, tol, ratios.setdefault(
-                                 ("decode_block", dtn), [])),
-             check_close(f"decode_block {dtn} pool_k", gk, rk, tol),
-             check_close(f"decode_block {dtn} pool_v", gv, rv, tol)]
-        touched = {(int(bt[b, int(n) // BS]), int(n) % BS)
-                   for b, n in enumerate(lengths.tolist()) if b != 2}
-        for name, g, o in (("pool_k", gk, pk0), ("pool_v", gv, pv0)):
-            moved = (g != o).flatten(2).any(-1).nonzero().tolist()
-            if not set(map(tuple, moved)) <= touched or not moved:
-                raise SmokeFailure(f"decode_block {dtn}: {name} rows changed "
-                                   f"outside the appended tokens: {moved}")
-        info(f"decode_block {dtn} B=4 lengths={lengths.tolist()}: max |err| "
-             f"x {e[0]:.2e} pool_k {e[1]:.2e} pool_v {e[2]:.2e} (tol {tol})")
-        kernel_err[("decode_block", dtn)] = max(e)
-
+        kernel_err[("decode_block", dtn)] = check_decode_layer(
+            f"decode_block {dtn}", spec, lp, pk0, pv0, x32.to(dt), bt,
+            lengths, cos, sin, TOL[dtn],
+            ratios.setdefault(("decode_block", dtn), []))
         for Ts, start, valid in pre_cases:
-            xp = xs[Ts].to(dt)
-            pos = start + torch.arange(Ts, device=dev)
-            c, s = (t[pos].to(dt).contiguous() for t in (cos_t, sin_t))
-            blk = bt_row.clamp(min=0)[pos // BS]
-            blk[valid:] = NB
-            blk, off = blk.to(torch.int32), (pos % BS).to(torch.int32)
-            rk, rv = pk0.clone(), pv0.clone()
-            ref = db.prefill_block_ref(xp, lp, rk, rv, blk, off, bt_row, c,
-                                       s, spec=spec, start=start)
-            gk, gv = pk0.clone(), pv0.clone()
-            got = db.prefill_block(xp, lp, gk, gv, blk, off, bt_row, c, s,
-                                   spec=spec, start=start)
-            torch.cuda.synchronize()
-            truth = db.prefill_block_ref(
-                xp.float(), {k: v.float() for k, v in lp.items()},
-                pk0.float().clone(), pv0.float().clone(), blk, off, bt_row,
-                c.float(), s.float(), spec=spec, start=start)[0]
-            e = [check_layer_out(f"prefill_block {dtn} Ts={Ts} x_out",
-                                 got[0][:, :valid], ref[0][:, :valid],
-                                 truth[:, :valid], tol, ratios.setdefault(
-                                     ("prefill_block", dtn), [])),
-                 check_close(f"prefill_block {dtn} Ts={Ts} pool_k", gk, rk,
-                             tol),
-                 check_close(f"prefill_block {dtn} Ts={Ts} pool_v", gv, rv,
-                             tol)]
-            touched = {(int(blk[i]), int(off[i])) for i in range(valid)}
-            for name, g, o in (("pool_k", gk, pk0), ("pool_v", gv, pv0)):
-                moved = set(map(tuple, (g != o).flatten(2).any(-1)
-                                .nonzero().tolist()))
-                if moved != touched:
-                    raise SmokeFailure(
-                        f"prefill_block {dtn} Ts={Ts}: {name} rows changed "
-                        f"{sorted(moved - touched)[:5]} / missing "
-                        f"{sorted(touched - moved)[:5]}")
-            info(f"prefill_block {dtn} Ts={Ts} start={start} valid={valid}: "
-                 f"max |err| x {e[0]:.2e} pool_k {e[1]:.2e} pool_v "
-                 f"{e[2]:.2e} (tol {tol})")
             key = ("prefill_block", dtn)
-            kernel_err[key] = max(kernel_err.get(key, 0.0), *e)
+            e = check_prefill_layer(
+                f"prefill_block {dtn} Ts={Ts}", spec, lp, pk0, pv0,
+                xs[Ts].to(dt), start, valid, bt_row, NB, cos_t, sin_t,
+                TOL[dtn], ratios.setdefault(key, []))
+            kernel_err[key] = max(kernel_err.get(key, 0.0), e)
 
     # ---- bf16 timings of the two ops at the main path's shapes
     dt = torch.bfloat16
@@ -1999,6 +2061,547 @@ def phase_engine(cfg, dev="cuda"):
         decode_tokens_per_s=dec_tok / dec_s, prefill_s=pre_s, wall_s=wall,
         ttft_min_s=ttfts[0], ttft_max_s=ttfts[-1],
         ttft_mean_s=sum(ttfts) / len(ttfts))
+
+
+# ------------------------------------------- GPT layer of kernels 1-2
+# GPT-125M served through the ops: the JAX package's engine serves Llama
+# configs only (it reads cfg.kv_heads, cfg.rope_theta and params["head"]),
+# and GPT reaches the serving megakernels through decode_block /
+# prefill_block with decode_block_spec(gpt_cfg, block_size).  16-token
+# pages, buckets (16, 64, 256), four prompts of these lengths from numpy
+# seed 0, 32 greedy new tokens each.
+GPT_SERVE_BS, GPT_SERVE_BUCKETS = 16, (16, 64, 256)
+GPT_SERVE_LENS, GPT_SERVE_NEW = (600, 37, 300, 517), 32
+GPT_SERVE_CHECK_LAYERS = 2
+# one GPT layer call's launches besides its entry point: two LayerNorms, 4
+# GEMMs (qkv, proj, fc1, fc2) of the regime's kernel, the unrotated K / V
+# write and the attention
+GPT_CHAIN = {"layer_norm_rows": 2, "rope_kv_write": 1, "paged_attention": 1}
+GPT_GEMMS = 4
+# the GPT layer's GEMMs at GPT-125M: (label, K, N, epilogue)
+GPT_MATMULS = (("qkv", 768, 2304, "bias"), ("proj", 768, 768, "bias_resid"),
+               ("fc1", 768, 3072, "bias_gelu"),
+               ("fc2", 3072, 768, "bias_resid"))
+
+
+def gpt_paged_rollout(params, cfg, prompts, new_tokens, *, buckets,
+                      block_size, device, plain=False, feed=None,
+                      profile=False):
+    """Serve a GPT model through the ops alone: the embedding ``wte[tok] +
+    wpe[pos]``; each prompt chunk-filled through ``prefill_block`` over the
+    declared ``buckets`` (``aot.buckets`` plans the chunks; a chunk after
+    the first starts at ``start > 0``, and a bucket's padded tail writes
+    nothing: its rows' pages are set past the pool); then greedy decode
+    steps of all sequences together through ``decode_block``; the head as
+    the port's GPT decoder computes it (``models/generation.py``
+    ``final_logits``: LayerNorm on the fp32 final gains, the tied ``wte``
+    in fp32, fp32 logits).  Each prompt gets pages for its tokens and its
+    new ones; the tables are ``max_position_embeddings / block_size``
+    wide.
+
+    ``plain``: the plain versions (``decode_block_ref`` /
+    ``prefill_block_ref``) on the same tensors.  ``feed`` [B, new_tokens]:
+    the new tokens to feed in place of the greedy ones.  ``profile``: one
+    more decode step after the timed ones, under the profiler (CUDA).
+    Returns a dict: ``ids`` (per prompt the prompt and its new tokens,
+    numpy), ``new`` [B, new_tokens], ``prefill_logits`` [B, V] (each
+    prompt's last position), ``step_logits`` (one [B, V] a decode step),
+    ``chunks`` (the chunk lengths in order), ``steps`` (decode steps, the
+    profiled one included), ``prefill_s`` (per prompt) and ``decode_s``
+    (the timed steps; host clock, synchronised on CUDA) and, with
+    ``profile``, ``profiled`` = (wall ms, device-busy ms, {kernel: ms})."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.aot.buckets import ShapeBucketRegistry
+    from paddle_tpu_torch.models.gpt import layer_norm
+    from paddle_tpu_torch.ops import decode_block as db
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    spec = db.decode_block_spec(cfg, block_size)
+    dec = db.decode_block_ref if plain else db.decode_block
+    pre = db.prefill_block_ref if plain else db.prefill_block
+    blocks = params["blocks"]
+    L = next(iter(blocks.values())).shape[0]
+    layers = [{k: v[i] for k, v in blocks.items()} for i in range(L)]
+    wte, wpe = params["wte"], params["wpe"]
+    head = wte.float().t()
+    P, BS = cfg.max_position_embeddings, block_size
+    MB = -(-P // BS)
+    B = len(prompts)
+    need = [-(-(len(p) + new_tokens) // BS) for p in prompts]
+    NB = sum(need)
+    bt = torch.full((B, MB), -1, dtype=torch.int32)
+    for b, n in enumerate(need):
+        bt[b, :n] = torch.arange(sum(need[:b]), sum(need[:b]) + n)
+    shape = (NB, BS, cfg.num_heads, cfg.head_dim)
+    pools = [tuple(torch.zeros(shape, dtype=wte.dtype, device=dev)
+                   for _ in range(2)) for _ in range(L)]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def logits(x):
+        return layer_norm(x, params["lnf_w"], params["lnf_b"],
+                          cfg.layer_norm_eps).float() @ head
+
+    out = dict(chunks=[], prefill_s=[], step_logits=[])
+    registry = ShapeBucketRegistry(buckets)
+    pre_logits = []
+    with torch.no_grad():
+        for b, prompt in enumerate(prompts):
+            sync()
+            t0 = time.perf_counter()
+            bt_row, start = bt[b].to(dev), 0
+            for size, valid in registry.plan_chunks(len(prompt)):
+                toks = torch.zeros(size, dtype=torch.long)
+                toks[:valid] = torch.as_tensor(
+                    np.asarray(prompt[start:start + valid]), dtype=torch.long)
+                pos = start + torch.arange(size)
+                page = bt[b].long().clamp(min=0)[(pos // BS).clamp(max=MB - 1)]
+                blk = torch.where(torch.arange(size) < valid, page,
+                                  torch.full_like(page, NB))
+                blk = blk.to(dev, torch.int32)
+                off = (pos % BS).to(dev, torch.int32)
+                x = (wte[toks.to(dev)]
+                     + wpe[pos.clamp(max=P - 1).to(dev)])[None]
+                for lp, (pk, pv) in zip(layers, pools):
+                    x, _, _ = pre(x, lp, pk, pv, blk, off, bt_row, None,
+                                  None, spec=spec, start=start)
+                out["chunks"].append(size)
+                last = x[0, valid - 1]
+                start += valid
+            pre_logits.append(logits(last[None])[0])
+            sync()
+            out["prefill_s"].append(time.perf_counter() - t0)
+        out["prefill_logits"] = torch.stack(pre_logits)
+        btd = bt.to(dev)
+        lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                               device=dev)
+        if feed is not None:
+            feed = torch.as_tensor(feed).to(dev)
+        tok = out["prefill_logits"].argmax(-1) if feed is None else feed[:, 0]
+        new = [tok]
+
+        def step(tok, lengths):
+            x = wte[tok] + wpe[lengths.long()]
+            for lp, (pk, pv) in zip(layers, pools):
+                x, _, _ = dec(x, lp, pk, pv, btd, lengths, None, None,
+                              spec=spec)
+            return logits(x)
+        sync()
+        t0 = time.perf_counter()
+        for i in range(new_tokens - 1):
+            lg = step(tok, lengths)
+            out["step_logits"].append(lg)
+            tok = lg.argmax(-1) if feed is None else feed[:, i + 1]
+            new.append(tok)
+            lengths = lengths + 1
+        sync()
+        out["decode_s"] = time.perf_counter() - t0
+        out["steps"] = new_tokens - 1
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+            sync()
+            ts = time.perf_counter()
+            with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+                step(tok, lengths)
+                sync()
+            wall = 1e3 * (time.perf_counter() - ts)
+            by = {}
+            for ev in prof.key_averages():
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(ev, "self_cuda_time_total", 0.0)
+                if us > 0:
+                    by[ev.key.split("(")[0][:60]] = us / 1e3
+            out["profiled"] = (wall, sum(by.values()), by)
+            out["steps"] += 1
+    out["new"] = torch.stack(new, 1).cpu().numpy()
+    out["ids"] = [np.concatenate([np.asarray(p, np.int64), n])
+                  for p, n in zip(prompts, out["new"])]
+    return out
+
+
+def gpt_serve_launches(chunks, steps, L):
+    """The launches of a rollout of ``chunks`` chunk fills and ``steps``
+    decode steps through ``L`` GPT layers (every other kernel 0)."""
+    small = steps + sum(1 for n in chunks if n <= 16)
+    want = {"decode_block": L * steps, "prefill_block": L * len(chunks),
+            "gemm_xw_small_m": GPT_GEMMS * L * small,
+            "gemm_xw_tiled": GPT_GEMMS * L * (len(chunks) + steps - small)}
+    for k, n in GPT_CHAIN.items():
+        want[k] = n * L * (len(chunks) + steps)
+    return {k: n for k, n in want.items() if n}
+
+
+def gpt_layer_checks(cfg, results, dev="cuda"):
+    """The GPT layer's new kernel modes alone at GPT-125M shapes against
+    their plain versions on the card (``layer_norm_rows`` at [4, 768] and
+    [256, 768]; ``gemm_xw`` with each bias epilogue at M 4 and 256, the
+    qkv product stored split; the unrotated ``rope_kv_write`` bit-equal),
+    then one GPT ``decode_block`` (B 4, lengths 1000 / 37 / 0 inactive /
+    517) and ``prefill_block`` (Ts 16 after 5, Ts 256 after 300) in fp32
+    (1e-4) and bf16 (2e-2 or the ratio rule), with bf16 timings; the rows
+    go into ``results`` (new entry ``layer_norm_rows``; ``gpt`` parts of the
+    GEMM, RoPE / KV write and layer entries).  Returns the GPT decode
+    layer's (ms, bound ms)."""
+    import torch
+    from paddle_tpu_torch.models.gpt import block_shapes
+    from paddle_tpu_torch.ops import decode_block as db
+    from paddle_tpu_torch.ops.cuda import kernels as K
+
+    by_name = {r["name"]: r for r in results}
+    spec = db.decode_block_spec(cfg, GPT_SERVE_BS)
+    H, Hq, D, F = cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.ffn_size
+    BS, NB, MB = GPT_SERVE_BS, 256, cfg.max_position_embeddings // 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    shapes = block_shapes(cfg)
+    lp32 = make_layer(cfg, gen, torch.float32, dev, shapes)
+    pool32 = [torch.randn(NB, BS, Hq, D, device=dev, generator=gen)
+              for _ in range(2)]
+    dt, tol = torch.bfloat16, TOL["bfloat16"]
+    lp = {k: v.to(dt) for k, v in lp32.items()}
+
+    # ---- layer_norm_rows
+    ln = {}
+    for M in (4, 256):
+        x32 = torch.randn(M, H, device=dev, generator=gen)
+        for dtn, ldt in (("float32", torch.float32), ("bfloat16", dt)):
+            xm, w, b = (t.to(ldt) for t in (x32, lp32["ln1_w"],
+                                            lp32["ln1_b"]))
+            err = check_close(f"layer_norm_rows {dtn} [{M}, {H}]",
+                              one_launch_bitwise("layer_norm_rows", lambda:
+                                                 K.layer_norm_rows_cuda(
+                                                     xm, w, b, spec.eps)),
+                              K.layer_norm_rows_ref(xm, w, b, spec.eps),
+                              TOL[dtn])
+        ms, call = time_ms(lambda: K.layer_norm_rows_cuda(xm, w, b, spec.eps),
+                           50, per_launch=True)
+        plain, plain_call = time_ms(lambda: K.layer_norm_rows_ref(
+            xm, w, b, spec.eps), 20)
+        lib = time_ms(lambda: torch.nn.functional.layer_norm(
+            xm, (H,), w, b, spec.eps), 50)[0]
+        bms, bby = bound_ms((2 * M * H + 2 * H) * 2, 8 * M * H)
+        ln[M] = dict(max_abs_err=err, ms=ms, call_ms=call, plain_ms=plain,
+                     plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
+                     library_ms=lib)
+        info(f"layer_norm_rows bf16 [{M}, {H}]: device {ms} ms (per call "
+             f"{call:.4f}), F.layer_norm {lib} ms, plain {plain} ms, bound "
+             f"{bms:.5f} ms ({bby}); max |err| {err:.2e}")
+    results.append(dict(
+        name="layer_norm_rows", route="cuda",
+        source="paddle_tpu_torch/kernels/csrc/rms_norm.cu",
+        replaces="paddle_tpu/ops/pallas/decode_block.py:535",
+        shape=f"[4, {H}] (GPT-125M LayerNorm, bias)", library_what=
+        "torch.nn.functional.layer_norm", **ln[4],
+        m256={"shape": f"[256, {H}]", **ln[256]}))
+
+    # ---- gemm_xw's bias epilogues (the qkv product stored split)
+    ep = {4: {}, 256: {}}
+    for M in (4, 256):
+        for label, Kd, N, epi in GPT_MATMULS:
+            w32 = lp32[f"{label}_w"]
+            b32 = lp32[f"{label}_b"]
+            x32 = torch.randn(M, Kd, device=dev, generator=gen)
+            r32 = torch.randn(M, N, device=dev, generator=gen)
+            for dtn, gdt in (("float32", torch.float32), ("bfloat16", dt)):
+                if gdt == torch.float32 and M != 4:
+                    continue
+                a, w, b, r = (t.to(gdt) for t in (x32, w32, b32, r32))
+                kw = dict(bias=b, gelu=epi == "bias_gelu",
+                          residual=r if epi == "bias_resid" else None)
+                ref = K.gemm_xw_ref(a, w, **kw)
+                if label == "qkv":
+                    got = one_launch_bitwise(
+                        "gemm_xw_f32" if gdt == torch.float32 else
+                        "gemm_xw_small_m" if M <= 16 else "gemm_xw_tiled",
+                        lambda: K.gemm_xw_cuda(a, w, qkv_head_dim=D, **kw))
+                    err = max(check_close(f"gemm_xw qkv split {part} {dtn} "
+                                          f"M={M}", g, rr, TOL[dtn])
+                              for part, g, rr in zip(
+                                  "qkv", got, K.qkv_split_ref(ref, D)))
+                else:
+                    err = check_close(f"gemm_xw {label} {epi} {dtn} M={M}",
+                                      K.gemm_xw_cuda(a, w, **kw), ref,
+                                      TOL[dtn])
+            split = {"qkv_head_dim": D} if label == "qkv" else {}
+            ms, call = time_ms(lambda: K.gemm_xw_cuda(a, w, **split, **kw),
+                               50, per_launch=True)
+            plain, plain_call = time_ms(lambda: K.gemm_xw_ref(a, w, **kw), 20)
+
+            def library():
+                y = torch.matmul(a, w) + b
+                if kw["gelu"]:
+                    y = torch.nn.functional.gelu(y, approximate="tanh")
+                return y if kw["residual"] is None else kw["residual"] + y
+            lib = time_ms(library, 50)[0]
+            bms, bby = bound_ms((M * Kd + Kd * N + N + M * N + (
+                M * N if epi == "bias_resid" else 0)) * 2, 2 * M * Kd * N)
+            ep[M][label] = dict(
+                epilogue=epi + (" + qkv split" if split else ""),
+                shape=f"[{M}, {Kd}] @ [{Kd}, {N}]", max_abs_err=err, ms=ms,
+                call_ms=call, plain_ms=plain, plain_call_ms=plain_call,
+                bound_ms=bms, bound_by=bby, library_ms=lib)
+            if split:                   # the same product stored row-major
+                ep[M][label]["unsplit_ms"] = time_ms(
+                    lambda: K.gemm_xw_cuda(a, w, **kw), 50,
+                    per_launch=True)[0]
+            info(f"gemm_xw GPT {label} {ep[M][label]['epilogue']} M={M} "
+                 f"[{Kd}x{N}]: device {ms} ms (per call {call:.4f}; stored "
+                 f"unsplit {ep[M][label].get('unsplit_ms', '-')} ms), plain "
+                 f"{plain} ms, torch.matmul + epilogue ops {lib} ms, bound "
+                 f"{bms:.5f} ms ({bby}), max |err| {err:.2e}")
+    lib_what = ("torch.matmul, then the bias, GELU and residual as torch "
+                "ops, timed together")
+    by_name["gemm_xw_small_m"]["gpt"] = dict(library_what=lib_what, **ep[4])
+    by_name["gemm_xw_tiled"]["gpt"] = dict(library_what=lib_what, **ep[256])
+
+    # ---- the decode and prefill cases' tables (as phase_kernels')
+    perm = torch.randperm(NB, device=dev, generator=gen).to(torch.int32)
+    lengths, bt, bt_row = serving_tables(perm, BS, MB)
+
+    # ---- the unrotated rope_kv_write, bit-equal, timed
+    rope = {}
+    for label, (M, tgt, _, _) in rope_kv_cases(lengths, bt, bt_row, None,
+                                               None, BS).items():
+        for dtn in ("float32", "bfloat16"):
+            rdt = getattr(torch, dtn)
+            args = rope_kv_inputs(M, Hq, Hq, D, rdt, gen, dev) + [
+                None, None] + [pool.to(rdt) for pool in pool32]
+            check_rope_kv_bitwise(f"rope_kv_write unrotated {label} {dtn}",
+                                  args, tgt)
+        q_, k_, v_, _, _, gk, gv = args
+        ms, call = time_ms(lambda: K.rope_kv_write_cuda(
+            q_, k_, v_, None, None, gk, gv, **tgt), 50, per_launch=True)
+        plain, plain_call = time_ms(lambda: K.rope_kv_write_ref(
+            q_, k_, v_, None, None, gk, gv, head_dim=D, **tgt), 20)
+        writes = rope_kv_writes(tgt, gk)
+        bms, bby = bound_ms((2 * M + 2 * writes) * Hq * D * 2, 0)
+        rope[label] = dict(max_abs_err=0.0, ms=ms, call_ms=call,
+                           plain_ms=plain, plain_call_ms=plain_call,
+                           bound_ms=bms, bound_by=bby, library_ms=None)
+        info(f"rope_kv_write unrotated {label} (GPT-125M, 12 kv heads, D "
+             f"64): device {ms} ms (per call {call:.4f}), plain {plain} ms, "
+             f"bound {bms:.5f} ms ({bby}); bit-equal to the plain version")
+    by_name["rope_kv_write"]["gpt"] = dict(
+        shape="unrotated (no RoPE): B=4, 12 kv heads, D=64",
+        **rope["decode"], prefill=dict(shape="Ts=256 after 300 positions",
+                                       **rope["prefill Ts 256"]))
+
+    # ---- one GPT decode_block and prefill_block
+    kernel_err, ratios = {}, {}
+    pre_cases = [(16, 5, 11), (256, 300, 200)]
+    x32 = torch.randn(4, H, device=dev, generator=gen)
+    xs = {Ts: torch.randn(1, Ts, H, device=dev, generator=gen)
+          for Ts, _, _ in pre_cases}
+    for dtn, ldt in (("float32", torch.float32), ("bfloat16", dt)):
+        lpd = {k: v.to(ldt) for k, v in lp32.items()}
+        pk0, pv0 = (p.to(ldt) for p in pool32)
+        kernel_err[("decode_block", dtn)] = check_decode_layer(
+            f"GPT decode_block {dtn}", spec, lpd, pk0, pv0, x32.to(ldt), bt,
+            lengths, None, None, TOL[dtn],
+            ratios.setdefault(("decode_block", dtn), []))
+        for Ts, start, valid in pre_cases:
+            key = ("prefill_block", dtn)
+            e = check_prefill_layer(
+                f"GPT prefill_block {dtn} Ts={Ts}", spec, lpd, pk0, pv0,
+                xs[Ts].to(ldt), start, valid, bt_row, NB, None, None,
+                TOL[dtn], ratios.setdefault(key, []))
+            kernel_err[key] = max(kernel_err.get(key, 0.0), e)
+
+    # ---- bf16 timings of the two GPT layers against their bounds
+    pk, pv = (p.to(dt) for p in pool32)
+    x = x32.to(dt)
+    wbytes, n_mm = layer_bytes_ops(cfg, 2, shapes)
+    kv_row = Hq * D * 2 * 2                       # k and v, bf16
+    live = [int(n) + 1 for n in lengths.tolist()]
+    dec_bytes = wbytes + sum(live) * kv_row + 3 * kv_row + 2 * 4 * H * 2
+    dec_ops = 2 * 4 * n_mm + 4 * Hq * D * sum(live)
+    per = dict(GPT_CHAIN)
+    dec_by = {}
+
+    def dec_call():
+        return db.decode_block(x, lp, pk, pv, bt, lengths, None, None,
+                               spec=spec)
+    layer_launches("decode_block", dec_call, "layer_norm_rows", GPT_GEMMS)
+    _, call = time_ms(dec_call, 50, dec_by)
+    ms = chain_ms(dec_by, "gemm_xw_small_m_tma",
+                  {**per, "gemm_xw_small_m_tma": GPT_GEMMS})
+    host = host_ms(dec_call)
+    plain, plain_call = time_ms(lambda: db.decode_block_ref(
+        x, lp, pk, pv, bt, lengths, None, None, spec=spec), 5)
+    dms, dby = bound_ms(dec_bytes, dec_ops)
+    by_name["decode_block"]["gpt"] = dict(
+        shape="GPT-125M layer, B=4, lengths 1000/37/0(inactive)/517",
+        max_abs_err=kernel_err[("decode_block", "bfloat16")], ms=ms,
+        call_ms=call, host_ms=host, plain_ms=plain, plain_call_ms=plain_call,
+        bound_ms=dms, bound_by=dby, library_ms=None,
+        bf16_vs_fp32_ratio=max(ratios[("decode_block", "bfloat16")]))
+    info(f"GPT decode_block bf16 (GPT-125M layer, B=4): device {ms:.5f} ms "
+         f"(per call {call:.4f} ms; host enqueue {host:.4f} ms), plain "
+         f"device {plain} ms, bound {dms:.5f} ms ({dby}), device / bound "
+         f"{ms / dms:.1f}; kernels {short(dec_by)}")
+    layer_ms = (ms, dms)
+    for Ts, start, valid in pre_cases:
+        xp = xs[Ts].to(dt)
+        pos = start + torch.arange(Ts, device=dev)
+        blk = bt_row.clamp(min=0)[pos // BS]
+        blk[valid:] = NB
+        blk, off = blk.to(torch.int32), (pos % BS).to(torch.int32)
+        pre_bytes = (wbytes + (start + Ts) * kv_row + valid * kv_row
+                     + 2 * Ts * H * 2)
+        pre_ops = 2 * Ts * n_mm + 4 * Hq * D * sum(
+            start + i + 1 for i in range(Ts))
+        pre_by = {}
+
+        def pre_call():
+            return db.prefill_block(xp, lp, pk, pv, blk, off, bt_row, None,
+                                    None, spec=spec, start=start)
+        layer_launches("prefill_block", pre_call, "layer_norm_rows",
+                       GPT_GEMMS)
+        _, call = time_ms(pre_call, 20, pre_by)
+        gemm = "gemm_xw_small_m_tma" if Ts <= 16 else "gemm_xw_tiled_wg"
+        ms = chain_ms(pre_by, gemm, {**per, gemm: GPT_GEMMS})
+        plain, plain_call = time_ms(lambda: db.prefill_block_ref(
+            xp, lp, pk, pv, blk, off, bt_row, None, None, spec=spec,
+            start=start), 3)
+        pms, pby = bound_ms(pre_bytes, pre_ops)
+        info(f"GPT prefill_block bf16 Ts={Ts} start={start} valid={valid}: "
+             f"device {ms:.5f} ms (per call {call:.4f} ms), plain device "
+             f"{plain} ms, bound {pms:.5f} ms ({pby}); kernels "
+             f"{short(pre_by)}")
+        if Ts == 256:
+            by_name["prefill_block"]["gpt"] = dict(
+                shape="GPT-125M layer, Ts=256, start=300, valid=200",
+                max_abs_err=kernel_err[("prefill_block", "bfloat16")],
+                ms=ms, call_ms=call, plain_ms=plain,
+                plain_call_ms=plain_call, bound_ms=pms, bound_by=pby,
+                library_ms=None, bf16_vs_fp32_ratio=max(
+                    ratios[("prefill_block", "bfloat16")]))
+    return layer_ms
+
+
+def gpt_step_bound_ms(cfg, cached, itemsize=2):
+    """Least time of one GPT decode step: every layer's parameters once, the
+    tied head once in bf16, the ``cached`` K / V rows once."""
+    from paddle_tpu_torch.models.gpt import block_shapes
+    wbytes, _ = layer_bytes_ops(cfg, itemsize, block_shapes(cfg))
+    kv = 2 * cached * cfg.hidden_size * itemsize
+    return 1e3 * (cfg.num_layers * (wbytes + kv)
+                  + cfg.vocab_size * cfg.hidden_size * itemsize) \
+        / HBM_BYTES_PER_S
+
+
+def phase_gpt_serve(results, dev="cuda"):
+    """GPT-125M (``gpt_125m(dtype="bfloat16")``: 12 layers, H 768, 12 heads,
+    D 64, F 3072, V 50304, 1024 positions; ``init_params`` seed 0) served
+    through ``decode_block`` / ``prefill_block`` by
+    :func:`gpt_paged_rollout`: the GPT layer's kernel modes alone first
+    (:func:`gpt_layer_checks`), then four prompts of 600 / 37 / 300 / 517
+    tokens (numpy seed 0) and 32 greedy new tokens each, launch counts
+    exactly as predicted with the plain ops refused, finite logits, ids in
+    the vocabulary; then at 2 layers (the biases and gains drawn at
+    random) the prefill and first decode step logits of the kernel path
+    against the plain path on the card, both held to an fp32 plain run.
+    Returns the rollout's launch counts and a summary."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.ops.cuda import layer
+
+    cfg = tgpt.gpt_125m(dtype="bfloat16")
+    layer_ms, layer_bound = gpt_layer_checks(cfg, results, dev)
+    torch.cuda.empty_cache()
+    params = tgpt.init_params(cfg, make_generator(SEED, dev), device=dev)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in GPT_SERVE_LENS]
+    kw = dict(buckets=GPT_SERVE_BUCKETS, block_size=GPT_SERVE_BS,
+              device=dev)
+    gpt_paged_rollout(params, cfg, prompts, 4, **kw)          # warm
+    layer.reset_counts()
+    with NoPlainPath():
+        out = gpt_paged_rollout(params, cfg, prompts, GPT_SERVE_NEW,
+                                profile=True, **kw)
+    counts = layer.launch_counts()
+    got = {k: n for k, n in counts.items() if n}
+    want = gpt_serve_launches(out["chunks"], out["steps"], cfg.num_layers)
+    if got != want:
+        raise SmokeFailure(f"gpt serve: launches {got}, predicted {want} "
+                           f"({out['steps']} decode steps, chunks "
+                           f"{out['chunks']})")
+    V = cfg.vocab_size
+    finite = bool(torch.isfinite(out["prefill_logits"]).all()) and all(
+        bool(torch.isfinite(lg).all()) for lg in out["step_logits"])
+    shapes_ok = tuple(out["prefill_logits"].shape) == (len(prompts), V) \
+        and all(tuple(lg.shape) == (len(prompts), V)
+                for lg in out["step_logits"])
+    ids_ok = all(len(i) == len(p) + GPT_SERVE_NEW and np.array_equal(
+        i[:len(p)], p) and 0 <= i.min() and i.max() < V
+        for i, p in zip(out["ids"], prompts))
+    if not (finite and shapes_ok and ids_ok):
+        raise SmokeFailure(f"gpt serve: finite {finite}, logits shapes "
+                           f"{shapes_ok}, ids {ids_ok}")
+    wall, busy, by = out["profiled"]
+    steps = GPT_SERVE_NEW - 1
+    step_ms = 1e3 * out["decode_s"] / steps
+    cached = sum(GPT_SERVE_LENS) + len(prompts) * GPT_SERVE_NEW
+    bound = gpt_step_bound_ms(cfg, cached)
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    summary = dict(
+        decode_step_ms=step_ms, decode_tokens_per_s=len(prompts) * steps
+        / out["decode_s"], profiled_step_wall_ms=wall,
+        profiled_step_busy_ms=busy, step_bound_ms=bound,
+        prefill_ms=[1e3 * t for t in out["prefill_s"]],
+        chunks=out["chunks"], layer_ms=layer_ms, layer_bound_ms=layer_bound,
+        launches=got)
+    info(f"gpt serve: GPT-125M bf16 x {cfg.num_layers} layers, prompts "
+         f"{list(GPT_SERVE_LENS)}, {GPT_SERVE_NEW} new tokens each; launches "
+         f"exactly as predicted ({out['steps']} decode steps, chunks "
+         f"{out['chunks']}): {got}")
+    info(f"gpt serve: decode step {step_ms:.3f} ms ({steps} steps at B "
+         f"{len(prompts)}), {summary['decode_tokens_per_s']:.1f} decode "
+         f"tokens/s; step bound {bound:.4f} ms (weights, tied head, cached "
+         f"K / V); profiled step wall {wall:.3f} ms, device busy "
+         f"{busy:.3f} ms; top {[(k, round(v, 4)) for k, v in top]}")
+    info(f"gpt serve: prefill ms per prompt "
+         f"{[round(t, 3) for t in summary['prefill_ms']]}; GPT layer "
+         f"(decode, B 4) {layer_ms:.5f} ms against its bound "
+         f"{layer_bound:.5f} ms")
+    del params
+    torch.cuda.empty_cache()
+
+    # 2 layers: the kernel path against the plain path on the card
+    cfg2 = dataclasses.replace(cfg, num_layers=GPT_SERVE_CHECK_LAYERS)
+    cfg32 = dataclasses.replace(cfg2, dtype="float32")
+    gen = make_generator(SEED, dev)
+    p2 = tgpt.init_params(cfg2, gen, device=dev)
+    for name, t in p2["blocks"].items():
+        if name.endswith("_b") or name.startswith("ln"):
+            t.normal_(0.0, 0.02, generator=gen)
+            if name.startswith("ln") and name.endswith("_w"):
+                t.mul_(5.0).add_(1.0)
+    p32 = {k: (v.float() if not isinstance(v, dict) else
+               {n: w.float() for n, w in v.items()}) for k, v in p2.items()}
+    kern = gpt_paged_rollout(p2, cfg2, prompts, 2, **kw)
+    plain = gpt_paged_rollout(p2, cfg2, prompts, 2, plain=True,
+                              feed=kern["new"], **kw)
+    truth = gpt_paged_rollout(p32, cfg32, prompts, 2, plain=True,
+                              feed=kern["new"], **kw)
+    for what, key in (("prefill", "prefill_logits"),
+                      ("first decode step", "step_logits")):
+        g, p, t = (r[key] if key == "prefill_logits" else r[key][0]
+                   for r in (kern, plain, truth))
+        check_layer_out(f"gpt serve x 2 layers {what} logits", g, p, t,
+                        TOL["bfloat16"])
+    summary["check_argmax_equal"] = bool(torch.equal(
+        kern["prefill_logits"].argmax(-1), plain["prefill_logits"].argmax(-1)))
+    return counts, summary
 
 
 def flash_bytes_ops(B, Sq, Sk, Hq, Hkv, D, causal, itemsize):
@@ -4464,6 +5067,8 @@ def main():
         qcounts, engine_q = phase_engine_quant(cfg, engine)
         del cfg
         torch.cuda.empty_cache()
+        gpt_serve_counts, gpt_serve = phase_gpt_serve(kernels)
+        torch.cuda.empty_cache()
         phase_flash(kernels)
         torch.cuda.empty_cache()
         phase_linear_ce(kernels)
@@ -4490,6 +5095,7 @@ def main():
     # each kernel's launches over the main-path runs of the phases that
     # drive it (the engine, the train steps, the rollouts, the eager steps)
     by_phase = {"engine": counts, "engine quant": qcounts,
+                "gpt serve": gpt_serve_counts,
                 "train": train_counts, "gpt": gpt_counts,
                 **{f"generate {tag}": c for tag, c in gen_counts.items()},
                 **eager_counts, "fused calls": fused_counts, **enc_counts}
@@ -4511,6 +5117,7 @@ def main():
                 k["timing"] = "cuda events"
     info(f"engine summary {json.dumps(engine)}")
     info(f"engine quant summary {json.dumps(engine_q)}")
+    info(f"gpt serve summary {json.dumps(gpt_serve)}")
     info(f"train summary {json.dumps(train)}")
     info(f"gpt summary {json.dumps(gpt)}")
     info(f"generate summary {json.dumps(gen)}")

@@ -20,8 +20,11 @@ Differences from the JAX engine, by design:
   tree is PTQ-exported at construction, on the parameters' device;
 * features outside this slice raise ``NotImplementedError`` naming the
   ROADMAP item: sampling, dense (unbucketed) prefill, prefix caching,
-  preemption and spill, speculative decoding, AOT artifacts, MoE and
-  GPT-family configs — quantized or not.
+  preemption and spill, speculative decoding, AOT artifacts and MoE —
+  quantized or not;
+* GPT-family configs raise as well: the JAX engine serves Llama configs
+  only, and a GPT layer reaches the serving kernels through the ops
+  (``ops.decode_block``).
 """
 
 from __future__ import annotations
@@ -149,7 +152,12 @@ class ContinuousBatchingEngine:
         if getattr(cfg, "moe_num_experts", 0):
             raise NotImplementedError(f"MoE configs: {_LATER}")
         if not hasattr(cfg, "rms_norm_eps"):
-            raise NotImplementedError(f"GPT-family configs: {_LATER}")
+            raise NotImplementedError(
+                "GPT-family configs: the JAX engine serves Llama configs only "
+                "(it reads cfg.kv_heads, cfg.rope_theta and params['head']); "
+                "a GPT layer reaches the serving kernels through the ops, "
+                "ops.decode_block.decode_block / prefill_block with "
+                "decode_block_spec(gpt_cfg, block_size)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 PT_F32, PT_BF16 = 0, 1
 EPI_NONE, EPI_RESID, EPI_SWIGLU, EPI_SWIGLU_R = 0, 1, 2, 3
+EPI_BIAS, EPI_BIAS_RESID, EPI_BIAS_GELU = 4, 5, 6
 #: LayerArgs.wq: the layer's matmul weights in the model dtype, int8 codes,
 #: or int4 codes halves-packed
 WQ_NONE, WQ_INT8, WQ_INT4 = 0, 1, 2
@@ -54,12 +55,15 @@ class LayerArgs(ctypes.Structure):
     """Mirror of ``struct LayerArgs`` in ``csrc/common.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in
                  ("dtype", "M", "H", "Hq", "Hkv", "D", "F", "BS", "NB", "MB",
-                  "start", "wq", "gs", "kv_quant")]
+                  "start", "wq", "gs", "kv_quant", "norm", "ffn", "rope",
+                  "fused_qkv", "bias")]
                 + [("eps", ctypes.c_float), ("scale", ctypes.c_float)]
                 + [(n, ctypes.c_void_p) for n in
                    ("x", "ln1_w", "q_w", "k_w", "v_w", "o_w", "ln2_w",
                     "gate_w", "up_w", "down_w", "q_s", "k_s", "v_s", "o_s",
-                    "gate_s", "up_s", "down_s", "cos", "sin", "block_table",
+                    "gate_s", "up_s", "down_s", "ln1_b", "ln2_b", "qkv_w",
+                    "qkv_b", "proj_w", "proj_b", "fc1_w", "fc1_b", "fc2_w",
+                    "fc2_b", "cos", "sin", "block_table",
                     "lengths", "blk", "off", "pool_k", "pool_v", "pool_ks",
                     "pool_vs", "y", "q", "k", "v", "attn", "x_mid", "hbuf",
                     "out")])
@@ -191,7 +195,8 @@ def _bind(lib: ctypes.CDLL) -> None:
             "pt_linear_ce_split_x": [lptr, P],
             "pt_rope_kv_write": [ptr, P], "pt_paged_attention": [ptr, P],
             "pt_rms_norm_rows": [I, I, I, P, P, P, Fl, P],
-            "pt_gemm_xw": [I, I, I, I, I, P, P, P, P, P, P],
+            "pt_layer_norm_rows": [I, I, I, P, P, P, P, Fl, P],
+            "pt_gemm_xw": [I, I, I, I, I, P, P, P, P, P, P, I, P],
             "pt_decode_attention": [I, I, I, I, I, I, LL, LL, Fl, P, P, P,
                                     P, P, P],
             "pt_weight_only_matmul": [ctypes.POINTER(WoArgs), P],

@@ -13,12 +13,31 @@
 enum { PT_F32 = 0, PT_BF16 = 1 };
 // EPI_SWIGLU: Y = silu(X @ W) * (X @ W2), one launch (gemm_xw);
 // EPI_SWIGLU_R: Y = silu(R) * (X @ W), R the gate product already stored in
-// the model dtype (the weight-only chain's up projection, after its gate)
-enum { EPI_NONE = 0, EPI_RESID = 1, EPI_SWIGLU = 2, EPI_SWIGLU_R = 3 };
+// the model dtype (the weight-only chain's up projection, after its gate);
+// the GPT layer's (gemm_xw, B the bias [N] in the model dtype):
+// EPI_BIAS: Y = X @ W + B (qkv); EPI_BIAS_RESID: Y = R + (X @ W + B) (proj,
+// fc2); EPI_BIAS_GELU: Y = gelu_tanh(X @ W + B) (fc1)
+enum {
+  EPI_NONE = 0,
+  EPI_RESID = 1,
+  EPI_SWIGLU = 2,
+  EPI_SWIGLU_R = 3,
+  EPI_BIAS = 4,
+  EPI_BIAS_RESID = 5,
+  EPI_BIAS_GELU = 6
+};
+// LayerArgs::norm and ::ffn
+enum { NORM_RMS = 0, NORM_LN = 1 };
+enum { FFN_SWIGLU = 0, FFN_GELU = 1 };
 
-// One Llama layer's launch description, shared by the decode and the
-// prefill entry points.  Mirrored field for field by the ctypes
-// Structure in paddle_tpu_torch/kernels/build.py.
+// One layer's launch description, shared by the decode and the prefill
+// entry points: a Llama layer (norm NORM_RMS, ffn FFN_SWIGLU, rope 1,
+// fused_qkv 0, bias 0; weights ln1_w .. down_w) or a GPT layer (NORM_LN,
+// FFN_GELU, rope 0, fused_qkv 1, bias 1; weights ln1_w, ln1_b, qkv_w,
+// qkv_b, proj_w, proj_b, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b).  Each
+// flag selects its stage on its own; the wrapper passes one of the two
+// layouts.  Mirrored field for field by the ctypes Structure in
+// paddle_tpu_torch/kernels/build.py.
 struct LayerArgs {
   int dtype;                  // PT_F32 | PT_BF16
   int M;                      // rows: decode batch B, or prefill chunk Ts
@@ -29,12 +48,24 @@ struct LayerArgs {
                               // [K, N]; 2 int4 codes halves-packed [K/2, N]
   int gs;                     // wq: rows a scale group (1 << 30: per channel)
   int kv_quant;               // 1: int8 pools with fp32 scale pools
+  int norm;                   // NORM_RMS | NORM_LN (with ln1_b, ln2_b)
+  int ffn;                    // FFN_SWIGLU | FFN_GELU (fc1 / fc2 + biases)
+  int rope;                   // 1: rotate q and k by cos / sin; 0: no RoPE
+  int fused_qkv;              // 1: one qkv product (qkv_w, qkv_b) stored
+                              // into q, k, v = three consecutive [M, Hq D]
+                              // slabs of one buffer; proj_w for o
+  int bias;                   // 1: proj_b on the out-projection
   float eps, scale;
   const void *x, *ln1_w, *q_w, *k_w, *v_w, *o_w, *ln2_w, *gate_w, *up_w,
       *down_w;                // norm gains in `dtype`; matmuls [in, out]
   const float *q_s, *k_s, *v_s, *o_s, *gate_s, *up_s,
       *down_s;                // wq: the matmuls' scales [ceil(K / gs), N]
-  const void *cos, *sin;      // [M, D]
+  const void *ln1_b, *ln2_b;  // NORM_LN biases [H]
+  const void *qkv_w, *qkv_b;  // fused_qkv: [H, 3 Hq D], [3 Hq D]
+  const void *proj_w, *proj_b;   // fused_qkv: [Hq D, H]; bias: [H]
+  const void *fc1_w, *fc1_b, *fc2_w,
+      *fc2_b;                 // FFN_GELU: [H, F], [F], [F, H], [H]
+  const void *cos, *sin;      // rope: [M, D]
   const int *block_table;     // decode [M, MB]; prefill [MB]
   const int *lengths;         // decode [M] tokens already stored; prefill 0
   const int *blk, *off;       // prefill [M] write targets; decode 0
@@ -185,9 +216,17 @@ template <typename T> __device__ __forceinline__ float rnd(float v) {
   return to_f<T>(from_f<T>(v));
 }
 
-// the serving chain's epilogues on a product `a` (and `b`, SwiGLU's second)
-// with the reference's rounding: each product rounded to T before the
-// residual add or the activation
+// jax.nn.gelu(approximate=True) in fp32 (fused_ops.cu bias_act_fwd's)
+__device__ __forceinline__ float gelu_tanh(float v) {
+  const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+  return v * (0.5f * (1.0f + tanhf(k * (v + 0.044715f * (v * v * v)))));
+}
+
+// the serving chain's epilogues on a product `a` with the reference's
+// rounding: each product rounded to T before the bias, the residual add or
+// the activation, and a bias sum rounded to T before the residual add or
+// the activation.  `b`: SwiGLU's second product, or the bias of the bias
+// epilogues (a value of T); `r`: the residual, or EPI_SWIGLU_R's gate.
 template <typename T>
 __device__ __forceinline__ float epi_value(int epi, float a, float b,
                                            float r) {
@@ -198,6 +237,11 @@ __device__ __forceinline__ float epi_value(int epi, float a, float b,
     return s * u;
   }
   if (epi == EPI_RESID) return r + rnd<T>(a);
+  if (epi >= EPI_BIAS) {
+    const float z = rnd<T>(__fadd_rn(rnd<T>(a), b));
+    if (epi == EPI_BIAS_RESID) return __fadd_rn(r, z);
+    return epi == EPI_BIAS_GELU ? gelu_tanh(z) : z;
+  }
   return a;
 }
 
@@ -212,9 +256,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Launch counters: one per __global__ kernel (its fp32/bf16 and epilogue
 // template instances count together; the three modes of norms.cu's kernel
 // apart) and one per layer entry point.  The quantized serving chain's
-// variants count apart (the last seven): the weight-only GEMMs with the
-// chain's epilogues (quant_linear.cu launch_wo_layer), the RoPE / KV write
-// into an int8 pool and the attention over one.
+// variants count apart (seven): the weight-only GEMMs with the chain's
+// epilogues (quant_linear.cu launch_wo_layer), the RoPE / KV write into an
+// int8 pool and the attention over one; then the GPT chain's LayerNorm
+// (rms_norm.cu layer_norm_rows).
 // Kept in layer.cu, read and reset through pt_launch_counts /
 // pt_reset_launch_counts; the names in paddle_tpu_torch/ops/cuda/layer.py
 // (KERNELS) follow this order.
@@ -256,6 +301,7 @@ enum {
   CNT_WO_LAYER_F32,
   CNT_ROPE_KV_WRITE_Q8,
   CNT_PAGED_ATTENTION_Q8,
+  CNT_LAYER_NORM_ROWS,
   CNT_NUM
 };
 
@@ -266,9 +312,17 @@ cudaError_t count_launch(int c, cudaError_t e);
 cudaError_t launch_rms_norm_rows(int dtype, int M, int H, const void *x,
                                  const void *w, void *out, float eps,
                                  cudaStream_t s);
+cudaError_t launch_layer_norm_rows(int dtype, int M, int H, const void *x,
+                                   const void *w, const void *b, void *out,
+                                   float eps, cudaStream_t s);
+// qkv_d > 0: Y holds three [M, N / 3] slabs, and column c of the product
+// (head c / (3 qkv_d), part (c % (3 qkv_d)) / qkv_d, offset c % qkv_d) is
+// stored into slab `part` at column head * qkv_d + offset (the GPT layer's
+// fused qkv split per head as [q | k | v]); 0: Y is [M, N]
 cudaError_t launch_gemm_xw(int dtype, int M, int K, int N, int epi,
                            const void *X, const void *W, const void *W2,
-                           const void *R, void *Y, cudaStream_t s);
+                           const void *R, const void *B, void *Y, int qkv_d,
+                           cudaStream_t s);
 cudaError_t launch_rope_kv_write(const LayerArgs *a, cudaStream_t s);
 cudaError_t launch_paged_attention(const LayerArgs *a, cudaStream_t s);
 cudaError_t launch_flash_fwd(const FlashArgs *a, cudaStream_t s);

@@ -4,12 +4,22 @@
 // FFN products that paddle_tpu/ops/pallas/decode_block.py::_kernel and
 // prefill_block.py::_kernel run on VMEM-resident weights.  W keeps the
 // JAX layout [in, out], row-major.  Epilogues:
-//   EPI_NONE    Y = X @ W                               (q, k, v)
-//   EPI_RESID   Y = R + X @ W                           (o-proj, down-proj)
-//   EPI_SWIGLU  Y = silu(X @ W) * (X @ W2), two products in one launch
-//               (gate/up)
+//   EPI_NONE       Y = X @ W                            (q, k, v)
+//   EPI_RESID      Y = R + X @ W                        (o-proj, down-proj)
+//   EPI_SWIGLU     Y = silu(X @ W) * (X @ W2), two products in one launch
+//                  (gate/up)
+//   EPI_BIAS       Y = X @ W + B                        (GPT qkv)
+//   EPI_BIAS_RESID Y = R + (X @ W + B)                  (GPT proj, fc2)
+//   EPI_BIAS_GELU  Y = gelu_tanh(X @ W + B)             (GPT fc1)
 // with the reference's rounding: each product rounded to the storage type
-// before the residual add or the activation.
+// before the bias, the residual add or the activation, a bias sum rounded
+// before the residual add or the activation (common.cuh epi_value).  The
+// GPT qkv product is stored split (qkv_d > 0): column c of the [M, 3 Hq D]
+// product is head c / 3D, part (c % 3D) / D of [q | k | v], stored into
+// that part's [M, Hq D] slab at column head D + c % D, so rope_kv_write and
+// paged_attention read the rows they read for a Llama layer.  The index is
+// taken per stored pair of columns (a 128-column tile spans heads: 3D is
+// 192 at D 64); D is even, so a pair never straddles a part.
 //
 // What bounds it on an H100: the weight bytes at decode (M = batch <= 16:
 // a 7B layer streams ~400 MB of bf16 weights, 0.121 ms at 3.35 TB/s) and
@@ -57,12 +67,28 @@
 
 namespace pt {
 
+// where element (m, n) of the [M, N] product is stored: row-major, or
+// with qkv_d > 0 the qkv split (one [M, N / 3] slab a part)
+__device__ __forceinline__ size_t out_index(int m, int n, int M, int N,
+                                            int qkv_d) {
+  if (qkv_d <= 0) return (size_t)m * N + n;
+  const int d3 = 3 * qkv_d, head = n / d3, c = n - head * d3;
+  const int part = c / qkv_d;
+  return (size_t)part * M * (N / 3) + (size_t)m * (N / 3) + head * qkv_d +
+         (c - part * qkv_d);
+}
+
+// b: SwiGLU's second product (read by the caller), or for the bias
+// epilogues unused: the bias is read here
 template <typename T>
-__device__ __forceinline__ void epilogue(T *Y, const T *R, int epi, int m,
+__device__ __forceinline__ void epilogue(T *Y, const T *R, const T *B,
+                                         int epi, int qkv_d, int M, int m,
                                          int n, int N, float a, float b) {
-  size_t i = (size_t)m * N + n;
-  Y[i] = from_f<T>(epi_value<T>(epi, a, b, epi == EPI_RESID ? to_f<T>(R[i])
-                                                            : 0.f));
+  const size_t i = (size_t)m * N + n;
+  const bool resid = epi == EPI_RESID || epi == EPI_BIAS_RESID;
+  if (epi >= EPI_BIAS) b = to_f<T>(B[n]);
+  Y[out_index(m, n, M, N, qkv_d)] =
+      from_f<T>(epi_value<T>(epi, a, b, resid ? to_f<T>(R[i]) : 0.f));
 }
 
 // ------------------------------------------------------------ bf16: wgmma
@@ -91,7 +117,8 @@ template <int NX_, int STAGES_, int MINB_> struct Cfg {
 
 struct Args {
   int M, N, epi, nk;                            // nk: 64-row K steps
-  const bf16 *R;
+  int qkv_d;                                    // > 0: the qkv split
+  const bf16 *R, *B;
   bf16 *Y;
 };
 
@@ -198,6 +225,8 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
     // rounds of U pairs a thread (the residuals of a round in flight; one
     // pair at decode, where a thread has at most one)
     constexpr int U = C::NX <= 16 ? 1 : 4;
+    const bool resid = a.epi == EPI_RESID || a.epi == EPI_BIAS_RESID;
+    const bool biased = a.epi >= EPI_BIAS;
     const int lh = dual ? 5 : 6;               // log2(column pairs a row)
     const int P = max(0, min(nr, a.M - m0 - r0)) << lh;
 #pragma unroll 1
@@ -211,10 +240,14 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
         const bool ok = p < P && n0 + c < a.N;
         off[u] = ok ? r * C::LDR + c : -1;
         x[u] = y[u] = res[u] = make_float2(0.f, 0.f);
-        if (ok && a.epi == EPI_RESID)
+        if (ok && resid)
           res[u] = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162 *>(
                   a.R + (size_t)(m0 + r0 + r) * a.N + n0 + c));
+        // the bias epilogues take the bias as epi_value's second operand
+        if (ok && biased)
+          y[u] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162 *>(a.B + n0 + c));
       }
 #pragma unroll 1
       for (int q = 0; q < S; ++q) {
@@ -239,7 +272,7 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
         if (off[u] >= 0) {
           const int r = off[u] / C::LDR, c = off[u] - r * C::LDR;
           *reinterpret_cast<__nv_bfloat162 *>(
-              a.Y + (size_t)(m0 + r0 + r) * a.N + n0 + c) =
+              a.Y + out_index(m0 + r0 + r, n0 + c, a.M, a.N, a.qkv_d)) =
               __floats2bfloat162_rn(
                   epi_value<bf16>(a.epi, x[u].x, y[u].x, res[u].x),
                   epi_value<bf16>(a.epi, x[u].y, y[u].y, res[u].y));
@@ -331,7 +364,8 @@ static Plan plan_of(int M, int K, int N, int epi,
 
 static cudaError_t launch(int M, int K, int N, int epi, const void *X,
                           const void *W, const void *W2, const void *R,
-                          void *Y, cudaStream_t s) {
+                          const void *B, void *Y, int qkv_d,
+                          cudaStream_t s) {
   const splitk::Residency<NINST> *occ = nullptr;
   cudaError_t e = setup(&occ);
   if (e != cudaSuccess) return e;
@@ -345,7 +379,8 @@ static cudaError_t launch(int M, int K, int N, int epi, const void *X,
                           : (tw2 = tw, cudaSuccess);
   if (e == cudaSuccess) e = bf16_map(&tx, X, K, M, 64, k.nx);
   if (e != cudaSuccess) return e;
-  const Args a{M, N, epi, p.nk, (const bf16 *)R, (bf16 *)Y};
+  const Args a{M, N, epi, p.nk, qkv_d, (const bf16 *)R, (const bf16 *)B,
+               (bf16 *)Y};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.splits, p.row_tiles, p.col_tiles);
   cfg.blockDim = dim3(384);
@@ -373,7 +408,8 @@ template <bool DUAL>
 __global__ void __launch_bounds__(256)
     gemm_f32(const float *__restrict__ X, const float *__restrict__ W,
              const float *__restrict__ W2, const float *__restrict__ R,
-             float *__restrict__ Y, int M, int K, int N, int epi) {
+             const float *__restrict__ B, float *__restrict__ Y, int M,
+             int K, int N, int epi, int qkv_d) {
   constexpr int NW = DUAL ? 2 : 1;
   __shared__ float As[F_BK][F_BM + 4];
   __shared__ float Bs[NW][F_BK][F_BN];
@@ -426,7 +462,7 @@ __global__ void __launch_bounds__(256)
     for (int j = 0; j < 4; ++j) {
       int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
       if (m < M && n < N)
-        epilogue<float>(Y, R, epi, m, n, N, acc[0][i][j],
+        epilogue<float>(Y, R, B, epi, qkv_d, M, m, n, N, acc[0][i][j],
                         DUAL ? acc[NW - 1][i][j] : 0.f);
     }
 }
@@ -435,20 +471,28 @@ __global__ void __launch_bounds__(256)
 
 cudaError_t launch_gemm_xw(int dtype, int M, int K, int N, int epi,
                            const void *X, const void *W, const void *W2,
-                           const void *R, void *Y, cudaStream_t s) {
+                           const void *R, const void *B, void *Y, int qkv_d,
+                           cudaStream_t s) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const bool dual = epi == EPI_SWIGLU;
+  if (epi < EPI_NONE || epi > EPI_BIAS_GELU || epi == EPI_SWIGLU_R ||
+      (dual && !W2) ||
+      ((epi == EPI_RESID || epi == EPI_BIAS_RESID) && !R) ||
+      (epi >= EPI_BIAS && !B) ||
+      (qkv_d && (qkv_d < 0 || qkv_d % 2 || N % (3 * qkv_d) || dual)))
+    return cudaErrorInvalidValue;
   if (dtype == PT_F32) {
     dim3 grid((N + pt::F_BN - 1) / pt::F_BN, (M + pt::F_BM - 1) / pt::F_BM);
     auto k = dual ? pt::gemm_f32<true> : pt::gemm_f32<false>;
     k<<<grid, 256, 0, s>>>((const float *)X, (const float *)W,
-                           (const float *)W2, (const float *)R, (float *)Y, M,
-                           K, N, epi);
+                           (const float *)W2, (const float *)R,
+                           (const float *)B, (float *)Y, M, K, N, epi, qkv_d);
     return count_launch(CNT_GEMM_XW_F32, cudaGetLastError());
   }
   if (dtype != PT_BF16 || K <= 0 || K % 8 || N % 8)
     return cudaErrorInvalidValue;
-  const cudaError_t e = pt::xw::launch(M, K, N, epi, X, W, W2, R, Y, s);
+  const cudaError_t e =
+      pt::xw::launch(M, K, N, epi, X, W, W2, R, B, Y, qkv_d, s);
   if (M <= 16) return count_launch(CNT_GEMM_XW_SMALL_M, e);
   return count_launch(CNT_GEMM_XW_TILED, e);
 }

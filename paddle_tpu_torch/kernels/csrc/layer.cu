@@ -1,23 +1,31 @@
 // The C entry points of the port's kernels (plain C ABI, loaded with
 // ctypes by paddle_tpu_torch/kernels/build.py).
 //
-// pt_decode_block / pt_prefill_block run ONE Llama layer as a chain of
-// hand-written kernels on the caller's stream:
+// pt_decode_block / pt_prefill_block run ONE layer as a chain of
+// hand-written kernels on the caller's stream.  A Llama layer:
 //   rms_norm_rows -> gemm_xw q, k, v -> rope_kv_write -> paged_attention
 //   -> gemm_xw o (+ residual) -> rms_norm_rows -> gemm_xw gate/up (SwiGLU)
 //   -> gemm_xw down (+ residual)
-// A weight-only quantized layer (LayerArgs::wq) takes the weight-only
-// kernels for its seven matmuls (quant_linear.cu launch_wo_layer, the same
-// epilogues; SwiGLU as gate, then up with silu(gate) * up in its epilogue);
-// an int8 KV pool (kv_quant) takes rope_kv_write's and paged_attention's
-// int8 variants.
+// A weight-only quantized Llama layer (LayerArgs::wq) takes the
+// weight-only kernels for its seven matmuls (quant_linear.cu
+// launch_wo_layer, the same epilogues; SwiGLU as gate, then up with
+// silu(gate) * up in its epilogue); an int8 KV pool (kv_quant) takes
+// rope_kv_write's and paged_attention's int8 variants.  A GPT layer
+// (LayerNorm with bias, fused qkv, biases, GELU, no RoPE):
+//   layer_norm_rows -> gemm_xw qkv (+ bias, stored split into q, k, v) ->
+//   rope_kv_write (no rotation: k, v into the pool) -> paged_attention ->
+//   gemm_xw proj (+ bias + residual) -> layer_norm_rows -> gemm_xw fc1
+//   (+ bias, GELU) -> gemm_xw fc2 (+ bias + residual)
+// Each of LayerArgs' norm, ffn, rope, fused_qkv and bias flags picks its
+// stage; the quantized kernels take the Llama layer only.
 // They replace the TPU megakernels paddle_tpu/ops/pallas/decode_block.py
 // (_kernel, pallas_call at :535) and prefill_block.py (_kernel,
 // pallas_call at :435), which keep a whole layer's weights in VMEM.  A 7B
-// layer's ~400 MB of bf16 weights cannot stay in 227 KB of shared memory,
-// so on Hopper the weights stream through the SMs once per GEMM and the
-// residual stream makes a few round trips through device memory between
-// the kernels (small next to the weights at decode).
+// layer's ~400 MB of bf16 weights (GPT-125M's ~14 MB) cannot stay in
+// 227 KB of shared memory, so on Hopper the weights stream through the SMs
+// once per GEMM and the residual stream makes a few round trips through
+// device memory between the kernels (small next to the weights at
+// decode).
 //
 // Every function returns a cudaError_t (0 = success); the wrapper raises
 // on anything else.  Nothing here synchronises or allocates.
@@ -86,30 +94,63 @@ static cudaError_t layer_forward_wo(const LayerArgs *a, cudaStream_t s) {
   return cudaSuccess;
 }
 
+// the layer's row norm of x into y: RMS, or LayerNorm with bias b
+static cudaError_t row_norm(const LayerArgs *a, const void *x, const void *w,
+                            const void *b, cudaStream_t s) {
+  if (a->norm == NORM_LN)
+    return launch_layer_norm_rows(a->dtype, a->M, a->H, x, w, b, a->y,
+                                  a->eps, s);
+  return launch_rms_norm_rows(a->dtype, a->M, a->H, x, w, a->y, a->eps, s);
+}
+
 static cudaError_t layer_forward(const LayerArgs *a, cudaStream_t s) {
+  const bool gpt_stage = a->norm != NORM_RMS || a->ffn != FFN_SWIGLU ||
+                         !a->rope || a->fused_qkv || a->bias;
   if (a->kv_quant && (!a->pool_ks || !a->pool_vs))
     return cudaErrorInvalidValue;
   if (a->wq) {
     if (a->wq > 2 || a->gs <= 0 || !a->q_s || !a->k_s || !a->v_s ||
-        !a->o_s || !a->gate_s || !a->up_s || !a->down_s)
+        !a->o_s || !a->gate_s || !a->up_s || !a->down_s || gpt_stage)
       return cudaErrorInvalidValue;
     return layer_forward_wo(a, s);
   }
   const int dt = a->dtype, M = a->M, H = a->H, F = a->F;
   const int QD = a->Hq * a->D, KD = a->Hkv * a->D;
-  PT_TRY(launch_rms_norm_rows(dt, M, H, a->x, a->ln1_w, a->y, a->eps, s));
-  PT_TRY(launch_gemm_xw(dt, M, H, QD, EPI_NONE, a->y, a->q_w, 0, 0, a->q, s));
-  PT_TRY(launch_gemm_xw(dt, M, H, KD, EPI_NONE, a->y, a->k_w, 0, 0, a->k, s));
-  PT_TRY(launch_gemm_xw(dt, M, H, KD, EPI_NONE, a->y, a->v_w, 0, 0, a->v, s));
+  const size_t slab = (size_t)M * QD * (dt == PT_BF16 ? 2 : 4);
+  // the fused qkv product stores q, k, v as consecutive slabs of one buffer
+  if (a->fused_qkv &&
+      (a->Hq != a->Hkv || (const char *)a->k != (const char *)a->q + slab ||
+       (const char *)a->v != (const char *)a->k + slab))
+    return cudaErrorInvalidValue;
+  PT_TRY(row_norm(a, a->x, a->ln1_w, a->ln1_b, s));
+  if (a->fused_qkv) {
+    PT_TRY(launch_gemm_xw(dt, M, H, 3 * QD, EPI_BIAS, a->y, a->qkv_w, 0, 0,
+                          a->qkv_b, a->q, a->D, s));
+  } else {
+    PT_TRY(launch_gemm_xw(dt, M, H, QD, EPI_NONE, a->y, a->q_w, 0, 0, 0,
+                          a->q, 0, s));
+    PT_TRY(launch_gemm_xw(dt, M, H, KD, EPI_NONE, a->y, a->k_w, 0, 0, 0,
+                          a->k, 0, s));
+    PT_TRY(launch_gemm_xw(dt, M, H, KD, EPI_NONE, a->y, a->v_w, 0, 0, 0,
+                          a->v, 0, s));
+  }
   PT_TRY(launch_rope_kv_write(a, s));
   PT_TRY(launch_paged_attention(a, s));
-  PT_TRY(launch_gemm_xw(dt, M, QD, H, EPI_RESID, a->attn, a->o_w, 0, a->x,
-                        a->x_mid, s));
-  PT_TRY(launch_rms_norm_rows(dt, M, H, a->x_mid, a->ln2_w, a->y, a->eps, s));
-  PT_TRY(launch_gemm_xw(dt, M, H, F, EPI_SWIGLU, a->y, a->gate_w, a->up_w, 0,
-                        a->hbuf, s));
-  PT_TRY(launch_gemm_xw(dt, M, F, H, EPI_RESID, a->hbuf, a->down_w, 0,
-                        a->x_mid, a->out, s));
+  PT_TRY(launch_gemm_xw(dt, M, QD, H, a->bias ? EPI_BIAS_RESID : EPI_RESID,
+                        a->attn, a->fused_qkv ? a->proj_w : a->o_w, 0, a->x,
+                        a->bias ? a->proj_b : 0, a->x_mid, 0, s));
+  PT_TRY(row_norm(a, a->x_mid, a->ln2_w, a->ln2_b, s));
+  if (a->ffn == FFN_GELU) {
+    PT_TRY(launch_gemm_xw(dt, M, H, F, EPI_BIAS_GELU, a->y, a->fc1_w, 0, 0,
+                          a->fc1_b, a->hbuf, 0, s));
+    PT_TRY(launch_gemm_xw(dt, M, F, H, EPI_BIAS_RESID, a->hbuf, a->fc2_w, 0,
+                          a->x_mid, a->fc2_b, a->out, 0, s));
+  } else {
+    PT_TRY(launch_gemm_xw(dt, M, H, F, EPI_SWIGLU, a->y, a->gate_w, a->up_w,
+                          0, 0, a->hbuf, 0, s));
+    PT_TRY(launch_gemm_xw(dt, M, F, H, EPI_RESID, a->hbuf, a->down_w, 0,
+                          a->x_mid, 0, a->out, 0, s));
+  }
   return cudaSuccess;
 }
 
@@ -149,10 +190,16 @@ int pt_rms_norm_rows(int dtype, int M, int H, const void *x, const void *w,
                               (cudaStream_t)stream);
 }
 
+int pt_layer_norm_rows(int dtype, int M, int H, const void *x, const void *w,
+                       const void *b, void *out, float eps, void *stream) {
+  return launch_layer_norm_rows(dtype, M, H, x, w, b, out, eps,
+                                (cudaStream_t)stream);
+}
+
 int pt_gemm_xw(int dtype, int M, int K, int N, int epi, const void *X,
-               const void *W, const void *W2, const void *R, void *Y,
-               void *stream) {
-  return launch_gemm_xw(dtype, M, K, N, epi, X, W, W2, R, Y,
+               const void *W, const void *W2, const void *R, const void *B,
+               void *Y, int qkv_d, void *stream) {
+  return launch_gemm_xw(dtype, M, K, N, epi, X, W, W2, R, B, Y, qkv_d,
                         (cudaStream_t)stream);
 }
 

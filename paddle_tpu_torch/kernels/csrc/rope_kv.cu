@@ -1,9 +1,12 @@
 // rope_kv_write: rotate-half RoPE on q and k rows (in place, in the
-// scratch buffers) and the k/v rows written into the paged pool.
+// scratch buffers) and the k/v rows written into the paged pool; without
+// RoPE (the GPT layer: LayerArgs::rope 0, learned positions) only the
+// k / v rows written into the pool, q and k left as they are.
 //
 // Part of the decode_block / prefill_block chain (replaces the RoPE and
 // paged-append stages of paddle_tpu/ops/pallas/decode_block.py::_kernel
-// and the pool scatter after prefill_block.py::_kernel).
+// and the pool scatter after prefill_block.py::_kernel; `meta.rope` off at
+// decode_block.py:266 skips the rotation).
 //
 // The write target of row r:
 //   decode  (lengths != 0): pool[bt[r, lengths[r] / BS], lengths[r] % BS]
@@ -38,6 +41,10 @@
 //     its blk / off; the lanes of a row read one address) before its
 //     first store, and every pointer is __restrict__, so nothing waits on
 //     a store.  The target gates only the pool stores.
+//   * Without RoPE (the ROPE template flag off, counted as rope_kv_write):
+//     the threads cover the kv heads only, load no cos / sin, store no q or
+//     k rows back, and copy k and v into the pool bit for bit.  Not with an
+//     int8 pool (the GPT layer quantized waits for a later slice).
 //   * An int8 pool (rope_kv_write_q8, counted apart; the kv_quant branches
 //     of the TPU kernels, decode_block.py:272 and the prefill scatter):
 //     after the RoPE, rounded to T as above, the lanes of a kv head take
@@ -102,7 +109,7 @@ __device__ __forceinline__ Pack<signed char, C> codes(const Pack<T, C> &x,
   return out;
 }
 
-template <typename T, int C, bool Q8>
+template <typename T, int C, bool Q8, bool ROPE>
 __global__ void __launch_bounds__(ROPE_THREADS)
     rope_kv_write_kernel(T *__restrict__ q, T *__restrict__ k,
                          const T *__restrict__ v, const T *__restrict__ cs,
@@ -113,7 +120,9 @@ __global__ void __launch_bounds__(ROPE_THREADS)
                          const int *__restrict__ off, void *__restrict__ pk,
                          void *__restrict__ pv, KvScales ks, RopeGeo g) {
   typedef Pack<T, C> P;
-  const int D2 = g.D / 2, CH = D2 / C, heads = g.Hq + g.Hkv;
+  static_assert(ROPE || !Q8, "the unrotated write takes full-width pools");
+  // without RoPE the threads cover the kv heads only
+  const int D2 = g.D / 2, CH = D2 / C, heads = ROPE ? g.Hq + g.Hkv : g.Hkv;
   const long long total = (long long)g.M * heads * CH;
   long long slot = (long long)blockIdx.x * ROPE_THREADS + threadIdx.x;
   const bool in = slot < total;
@@ -122,8 +131,8 @@ __global__ void __launch_bounds__(ROPE_THREADS)
   const long long rh = slot / CH;
   const int d = (int)(slot - rh * CH) * C;
   const int r = (int)(rh / heads), h = (int)(rh - (long long)r * heads);
-  const bool isk = h >= g.Hq;
-  const int hk = h - g.Hq;
+  const bool isk = !ROPE || h >= g.Hq;
+  const int hk = ROPE ? h - g.Hq : h;
 
   int pos = -1, phys = -1, o = 0;
   if (isk) {
@@ -136,13 +145,16 @@ __global__ void __launch_bounds__(ROPE_THREADS)
   }
   T *x = isk ? k + ((size_t)r * g.Hkv + hk) * g.D
              : q + ((size_t)r * g.Hq + h) * g.D;
-  const T *cr = cs + (size_t)r * g.D, *sr = sn + (size_t)r * g.D;
   const P x1 = *reinterpret_cast<const P *>(x + d);
   const P x2 = *reinterpret_cast<const P *>(x + D2 + d);
-  const P c1 = *reinterpret_cast<const P *>(cr + d);
-  const P c2 = *reinterpret_cast<const P *>(cr + D2 + d);
-  const P s1 = *reinterpret_cast<const P *>(sr + d);
-  const P s2 = *reinterpret_cast<const P *>(sr + D2 + d);
+  P c1 = {}, c2 = {}, s1 = {}, s2 = {};
+  if constexpr (ROPE) {
+    const T *cr = cs + (size_t)r * g.D, *sr = sn + (size_t)r * g.D;
+    c1 = *reinterpret_cast<const P *>(cr + d);
+    c2 = *reinterpret_cast<const P *>(cr + D2 + d);
+    s1 = *reinterpret_cast<const P *>(sr + d);
+    s2 = *reinterpret_cast<const P *>(sr + D2 + d);
+  }
   P v1 = {}, v2 = {};
   if (isk) {
     const T *vr = v + ((size_t)r * g.Hkv + hk) * g.D;
@@ -155,12 +167,14 @@ __global__ void __launch_bounds__(ROPE_THREADS)
     }
   }
 
-  P y1, y2;
+  P y1 = x1, y2 = x2;
+  if constexpr (ROPE) {
 #pragma unroll
-  for (int j = 0; j < C; ++j) {
-    const float a1 = to_f<T>(x1.v[j]), a2 = to_f<T>(x2.v[j]);
-    y1.v[j] = rope_sum<T>(a1, to_f<T>(c1.v[j]), -a2, to_f<T>(s1.v[j]));
-    y2.v[j] = rope_sum<T>(a2, to_f<T>(c2.v[j]), a1, to_f<T>(s2.v[j]));
+    for (int j = 0; j < C; ++j) {
+      const float a1 = to_f<T>(x1.v[j]), a2 = to_f<T>(x2.v[j]);
+      y1.v[j] = rope_sum<T>(a1, to_f<T>(c1.v[j]), -a2, to_f<T>(s1.v[j]));
+      y2.v[j] = rope_sum<T>(a2, to_f<T>(c2.v[j]), a1, to_f<T>(s2.v[j]));
+    }
   }
   float sk = 0.f, sv = 0.f;
   if constexpr (Q8) {
@@ -175,8 +189,10 @@ __global__ void __launch_bounds__(ROPE_THREADS)
     sv = __fdiv_rn(fmaxf(mv, 1e-8f), 127.f);
   }
   if (!in) return;
-  *reinterpret_cast<P *>(x + d) = y1;
-  *reinterpret_cast<P *>(x + D2 + d) = y2;
+  if constexpr (ROPE) {
+    *reinterpret_cast<P *>(x + d) = y1;
+    *reinterpret_cast<P *>(x + D2 + d) = y2;
+  }
   if (isk && phys >= 0 && phys < g.NB && o >= 0 && o < g.BS) {
     const size_t row = ((size_t)phys * g.BS + o) * g.Hkv + hk;
     const size_t base = row * g.D;
@@ -206,22 +222,26 @@ static bool aligned16(const void *p) { return ((uintptr_t)p & 15) == 0; }
 template <typename T>
 static cudaError_t rope_kv_launch(const LayerArgs *a, cudaStream_t s) {
   constexpr int VEC = 16 / sizeof(T);
+  const bool rope = a->rope != 0;
+  if (rope ? !a->cos || !a->sin : a->kv_quant) return cudaErrorInvalidValue;
   const bool vec = (a->D / 2) % VEC == 0 && aligned16(a->q) &&
-                   aligned16(a->k) && aligned16(a->v) && aligned16(a->cos) &&
-                   aligned16(a->sin) && aligned16(a->pool_k) &&
-                   aligned16(a->pool_v);
+                   aligned16(a->k) && aligned16(a->v) &&
+                   (!rope || (aligned16(a->cos) && aligned16(a->sin))) &&
+                   aligned16(a->pool_k) && aligned16(a->pool_v);
   // the int8 pool's shuffle needs a head's lanes inside one warp: whole
   // 16-byte chunks, D / 2 / VEC lanes a head
   if (a->kv_quant && (!vec || (a->D / 2) / VEC > 32 || !a->pool_ks ||
                       !a->pool_vs))
     return cudaErrorInvalidValue;
   const RopeGeo g{a->M, a->Hq, a->Hkv, a->D, a->BS, a->NB, a->MB};
-  const long long n =
-      (long long)a->M * (a->Hq + a->Hkv) * (a->D / 2 / (vec ? VEC : 1));
+  const long long n = (long long)a->M * (rope ? a->Hq + a->Hkv : a->Hkv) *
+                      (a->D / 2 / (vec ? VEC : 1));
   const unsigned grid = (unsigned)((n + ROPE_THREADS - 1) / ROPE_THREADS);
-  auto kern = a->kv_quant ? rope_kv_write_kernel<T, VEC, true>
-              : vec       ? rope_kv_write_kernel<T, VEC, false>
-                          : rope_kv_write_kernel<T, 1, false>;
+  auto kern = a->kv_quant ? rope_kv_write_kernel<T, VEC, true, true>
+              : rope      ? (vec ? rope_kv_write_kernel<T, VEC, false, true>
+                                 : rope_kv_write_kernel<T, 1, false, true>)
+              : vec       ? rope_kv_write_kernel<T, VEC, false, false>
+                          : rope_kv_write_kernel<T, 1, false, false>;
   kern<<<grid, ROPE_THREADS, 0, s>>>(
       (T *)a->q, (T *)a->k, (const T *)a->v, (const T *)a->cos,
       (const T *)a->sin, a->block_table, a->lengths, a->blk, a->off,

@@ -16,12 +16,13 @@ import torch
 import torch.nn.functional as F
 
 from ...kernels import build
-from ..decode_block import DecodeBlockSpec, make_mm, rotate_half
+from ..decode_block import DecodeBlockSpec, make_mm, make_norm, rotate_half
 from ..paged_kv import dequantize_kv, is_quantized_pool, quantize_kv
 from . import layer
 
-__all__ = ["rms_norm_rows_cuda", "rms_norm_rows_ref", "gemm_xw_cuda",
-           "gemm_xw_ref", "wo_layer_cuda", "wo_layer_ref",
+__all__ = ["rms_norm_rows_cuda", "rms_norm_rows_ref", "layer_norm_rows_cuda",
+           "layer_norm_rows_ref", "gemm_xw_cuda", "gemm_xw_ref",
+           "qkv_split_ref", "wo_layer_cuda", "wo_layer_ref",
            "rope_kv_write_cuda", "rope_kv_write_ref", "paged_attention_cuda",
            "paged_attention_ref", "paged_attention_split_ref"]
 
@@ -52,47 +53,108 @@ def rms_norm_rows_cuda(x, w, eps: float):
     return out
 
 
+# ---------------------------------------------------------- layer norm
+def layer_norm_rows_ref(x, w, b, eps: float):
+    """The GPT layer's LayerNorm (``make_norm`` "ln"): mean and variance in
+    fp32, ``(x - mean) * rsqrt(var + eps)`` rounded to x's dtype, then
+    ``* w + b`` in x's dtype."""
+    spec = DecodeBlockSpec(hidden=x.shape[-1], num_heads=1, kv_heads=1,
+                           head_dim=x.shape[-1], block_size=1, norm="ln",
+                           eps=eps)
+    return make_norm(spec)(x, w, b)
+
+
+def layer_norm_rows_cuda(x, w, b, eps: float):
+    """``x`` [M, H], ``w``/``b`` [H] -> [M, H]: one ``layer_norm_rows``
+    launch."""
+    _cuda(x, "layer_norm_rows")
+    M, H = x.shape
+    layer.check_tensor(x, "x", (M, H), x.dtype, x.device)
+    layer.check_tensor(w, "w", (H,), x.dtype, x.device)
+    layer.check_tensor(b, "b", (H,), x.dtype, x.device)
+    out = torch.empty_like(x)
+    build.check(build.library().pt_layer_norm_rows(
+        layer.dtype_code(x.dtype), M, H, x.data_ptr(), w.data_ptr(),
+        b.data_ptr(), out.data_ptr(), float(eps), layer.stream_handle()),
+        "pt_layer_norm_rows")
+    return out
+
+
 # -------------------------------------------------------------------- gemm
-def gemm_xw_ref(x, w, w2=None, residual=None):
+def gemm_xw_ref(x, w, w2=None, residual=None, bias=None, gelu=False):
     """``x @ w`` with the chain's epilogues: ``silu(x @ w) * (x @ w2)``
-    when ``w2`` is given, ``residual + x @ w`` when ``residual`` is."""
+    when ``w2`` is given; else ``+ bias`` when ``bias`` is given, then
+    ``gelu(., tanh)`` when ``gelu``, then ``residual + .`` when
+    ``residual`` is; each op rounded to x's dtype."""
     if w2 is not None:
         return F.silu(x @ w) * (x @ w2)
     y = x @ w
+    if bias is not None:
+        y = y + bias
+    if gelu:
+        y = F.gelu(y, approximate="tanh")
     return y if residual is None else residual + y
 
 
-def gemm_xw_cuda(x, w, w2=None, residual=None):
-    """``x`` [M, K], ``w``/``w2`` [K, N], ``residual`` [M, N] -> [M, N]."""
+def qkv_split_ref(qkv, head_dim: int):
+    """The fused qkv product ``[M, 3 H D]`` split per head as ``[q | k |
+    v]`` (``ops.decode_block._qkv``): ``(q, k, v)``, each ``[M, H D]``."""
+    M = qkv.shape[0]
+    parts = qkv.reshape(M, -1, 3 * head_dim).split(head_dim, dim=-1)
+    return tuple(p.reshape(M, -1).contiguous() for p in parts)
+
+
+def _gemm_epi(w2, residual, bias, gelu) -> int:
+    """The ``EPI_*`` of one gemm_xw call's arguments."""
+    if w2 is not None:
+        if residual is not None or bias is not None or gelu:
+            raise ValueError("gemm_xw: the SwiGLU epilogue takes no "
+                             "residual, bias or GELU")
+        return build.EPI_SWIGLU
+    if gelu and (bias is None or residual is not None):
+        raise ValueError("gemm_xw: GELU comes with a bias and no residual")
+    if bias is None:
+        return build.EPI_NONE if residual is None else build.EPI_RESID
+    if gelu:
+        return build.EPI_BIAS_GELU
+    return build.EPI_BIAS if residual is None else build.EPI_BIAS_RESID
+
+
+def gemm_xw_cuda(x, w, w2=None, residual=None, bias=None, gelu=False,
+                 qkv_head_dim: Optional[int] = None):
+    """``x`` [M, K], ``w``/``w2`` [K, N], ``residual`` [M, N], ``bias`` [N]
+    -> [M, N], the epilogues of :func:`gemm_xw_ref`.  ``qkv_head_dim`` D:
+    the product is a fused qkv and comes back split as
+    :func:`qkv_split_ref` splits it, ``(q, k, v)`` each [M, N / 3] (three
+    slabs of one buffer, stored by the kernel's epilogue)."""
     _cuda(x, "gemm_xw")
-    if w2 is not None and residual is not None:
-        raise ValueError("gemm_xw: SwiGLU and residual epilogues exclude "
-                         "each other")
+    epi = _gemm_epi(w2, residual, bias, gelu)
     M, K = x.shape
     N = w.shape[1]
     if K % 8 or N % 8:
         raise ValueError(f"gemm_xw: K ({K}) and N ({N}) must be multiples "
                          "of 8")
+    D = qkv_head_dim or 0
+    if D and (D % 2 or N % (3 * D) or epi == build.EPI_SWIGLU):
+        raise ValueError(f"gemm_xw: the qkv split takes an even head_dim "
+                         f"dividing N / 3 ({N} / 3, head_dim {D})")
     dt, dev = x.dtype, x.device
     layer.check_tensor(x, "x", (M, K), dt, dev)
     layer.check_tensor(w, "w", (K, N), dt, dev)
-    epi = build.EPI_NONE
-    if w2 is not None:
-        layer.check_tensor(w2, "w2", (K, N), dt, dev)
-        epi = build.EPI_SWIGLU
-    if residual is not None:
-        layer.check_tensor(residual, "residual", (M, N), dt, dev)
-        epi = build.EPI_RESID
-    out = torch.empty((M, N), dtype=dt, device=dev)
+    for name, t, shape in (("w2", w2, (K, N)), ("residual", residual, (M, N)),
+                           ("bias", bias, (N,))):
+        if t is not None:
+            layer.check_tensor(t, name, shape, dt, dev)
+    out = torch.empty((3, M, N // 3) if D else (M, N), dtype=dt, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     build.check(build.library().pt_gemm_xw(
         layer.dtype_code(dt), M, K, N, epi, x.data_ptr(), w.data_ptr(),
-        ptr(w2), ptr(residual), out.data_ptr(), layer.stream_handle()),
-        "pt_gemm_xw")
-    return out
+        ptr(w2), ptr(residual), ptr(bias), out.data_ptr(), D,
+        layer.stream_handle()), "pt_gemm_xw")
+    return tuple(out) if D else out
 
 
 # ------------------------------------------------- weight-only layer GEMM
@@ -177,13 +239,15 @@ def rope_kv_write_ref(q, k, v, cos, sin, pool_k, pool_v, *, head_dim,
     """Plain version: returns roped ``(q, k)`` and writes roped k and v
     into the pools in place (dropped where the page is unmapped or out of
     the pool); an int8 ``QuantizedKVPool`` takes the rows' ``quantize_kv``
-    codes and scales."""
+    codes and scales.  ``cos`` / ``sin`` None (a layer without RoPE): q
+    and k as they are, k and v written unrotated."""
     M, D = q.shape[0], head_dim
 
     def rope(t):
         t = t.reshape(M, -1, D)
         return (t * cos[:, None] + rotate_half(t) * sin[:, None]).reshape(M, -1)
-    q, k = rope(q), rope(k)
+    if cos is not None:
+        q, k = rope(q), rope(k)
     quant = is_quantized_pool(pool_k)
     NB, BS = (pool_k.data if quant else pool_k).shape[:2]
     page, o, keep = _targets(block_table, lengths, blk, off, BS, NB)
@@ -202,7 +266,8 @@ def rope_kv_write_ref(q, k, v, cos, sin, pool_k, pool_v, *, head_dim,
 def rope_kv_write_cuda(q, k, v, cos, sin, pool_k, pool_v, *, block_table,
                        lengths=None, blk=None, off=None):
     """``q`` [M, Hq*D], ``k``/``v`` [M, Hkv*D]: ropes q and k IN PLACE and
-    writes k/v rows into the pools; returns ``(q, k)``."""
+    writes k/v rows into the pools; returns ``(q, k)``.  ``cos`` / ``sin``
+    None: no rotation (q and k untouched), k and v written as they are."""
     _cuda(q, "rope_kv_write")
     if (lengths is None) == (blk is None):
         raise ValueError("rope_kv_write: pass lengths (decode) or blk/off "

@@ -1,15 +1,20 @@
 """What the CUDA wrappers share: the launch counts, the argument checks and
 the ``LayerArgs`` they fill.
 
-One layer launches the chain ``rms_norm_rows``, ``gemm_xw`` (q, k, v),
-``rope_kv_write``, ``paged_attention``, ``gemm_xw`` (o + residual),
-``rms_norm_rows``, ``gemm_xw`` (gate/up SwiGLU), ``gemm_xw`` (down +
-residual) from one C entry point.  A weight-only quantized layer runs its
-seven matmuls on ``wo_layer_*`` (gate, then up with the SwiGLU in its
-epilogue), and an int8 KV pool takes ``rope_kv_write_q8`` and
-``paged_attention_q8``.  The launches are counted in the
-kernel library itself, where each kernel is launched: :func:`launch_counts`
-reads those counters and :func:`reset_counts` sets them to zero.
+One layer launches its chain from one C entry point.  A Llama layer:
+``rms_norm_rows``, ``gemm_xw`` (q, k, v), ``rope_kv_write``,
+``paged_attention``, ``gemm_xw`` (o + residual), ``rms_norm_rows``,
+``gemm_xw`` (gate/up SwiGLU), ``gemm_xw`` (down + residual).  A weight-only
+quantized Llama layer runs its seven matmuls on ``wo_layer_*`` (gate, then
+up with the SwiGLU in its epilogue), and an int8 KV pool takes
+``rope_kv_write_q8`` and ``paged_attention_q8``.  A GPT layer:
+``layer_norm_rows``, ``gemm_xw`` (qkv + bias, stored split into q / k / v),
+``rope_kv_write`` (no rotation: k / v into the pool), ``paged_attention``,
+``gemm_xw`` (proj + bias + residual), ``layer_norm_rows``, ``gemm_xw``
+(fc1 + bias, GELU), ``gemm_xw`` (fc2 + bias + residual).  The launches
+are counted in the kernel library itself, where each kernel is launched:
+:func:`launch_counts` reads those counters and :func:`reset_counts` sets
+them to zero.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 from ...kernels import build
 
 __all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
-           "check_tensor", "layer_args", "stream_handle", "wo_layout"]
+           "check_tensor", "layer_args", "layout", "stream_handle",
+           "wo_layout", "WEIGHTS", "MATMULS"]
 
 #: the library's launch counters, in the order of the ``CNT_*`` enum in
 #: ``kernels/csrc/common.cuh``: the two layer entry points, then one per
@@ -36,7 +42,7 @@ __all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
 #: softmax-mask, bias-activation and dropout-add, then the quantized serving
 #: chain's variants: the weight-only layer GEMMs (int8 / int4, decode and
 #: prefill regimes, fp32), the RoPE / KV write into an int8 pool and the
-#: attention over one
+#: attention over one, then the GPT layer's LayerNorm
 KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "gemm_xw_small_m", "gemm_xw_tiled", "gemm_xw_f32",
            "rope_kv_write", "paged_attention", "flash_fwd", "flash_bwd_dq",
@@ -48,11 +54,17 @@ KERNELS = ("decode_block", "prefill_block", "rms_norm_rows",
            "swiglu_fwd", "rope_fwd", "softmax_mask_fwd", "bias_act_fwd",
            "dropout_add_fwd", "wo_layer_int8_small_m", "wo_layer_int8_tiled",
            "wo_layer_int4_small_m", "wo_layer_int4_tiled", "wo_layer_f32",
-           "rope_kv_write_q8", "paged_attention_q8")
+           "rope_kv_write_q8", "paged_attention_q8", "layer_norm_rows")
 
-WEIGHTS = ("ln1_w", "q_w", "k_w", "v_w", "o_w", "ln2_w", "gate_w", "up_w",
-           "down_w")
-MATMULS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+#: a layer's weights by layout: norm gains (and LayerNorm biases), the
+#: matmul weights ``[in, out]`` and their biases
+WEIGHTS = {"llama": ("ln1_w", "q_w", "k_w", "v_w", "o_w", "ln2_w", "gate_w",
+                     "up_w", "down_w"),
+           "gpt": ("ln1_w", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
+                   "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")}
+MATMULS = {"llama": ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w",
+                     "down_w"),
+           "gpt": ("qkv_w", "proj_w", "fc1_w", "fc2_w")}
 _INDEX = ("block_table", "lengths", "blk", "off")
 #: LayerArgs.gs of per-channel scales
 PER_CHANNEL_GS = 1 << 30
@@ -136,6 +148,17 @@ def wo_layout(K: int, N: int, width: str, group_size: int):
     return (rows, N), (-(-K // group_size), N), group_size
 
 
+def layout(spec) -> str:
+    """"llama" or "gpt": the layer the chain runs for ``spec``."""
+    if spec.llama_layout:
+        return "llama"
+    if (spec.norm, spec.activation, spec.rope, spec.fused_qkv,
+            spec.bias) == ("ln", "gelu", False, True, True):
+        return "gpt"
+    raise ValueError(f"the kernel chain runs the Llama or the GPT layer, "
+                     f"not a mix of their variants: {spec}")
+
+
 def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
                blk=None, off=None, start: int = 0, scale: float = 0.0,
                spec=None, x=None, lp=None, cos=None, sin=None, q=None,
@@ -147,22 +170,36 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
 
     A whole layer (``decode_block`` / ``prefill_block``) passes ``spec``,
     the ``[M, H]`` residual stream ``x`` and the layer's weights ``lp``
-    (with ``spec.weight_dtype``: each matmul's ``<name>__q`` int8 codes,
-    ``[K, N]`` or int4 ``[K/2, N]``, and ``<name>__s`` fp32 scales, ``[N]``
-    or ``[G, N]``); its scratch and its output (``tensors["out"]``) are
-    allocated here.  A single kernel passes its own ``q``/``k``/``v``/
-    ``attn`` instead.  The pools are ``[NB, BS, Hkv, D]`` tensors in the
-    model dtype or int8 ``QuantizedKVPool``s (codes and ``[NB, BS, Hkv]``
-    fp32 scales).  Rows are decode slots when ``lengths`` is given
-    (``block_table`` [M, MB]), else one prefill chunk (``block_table``
-    [MB])."""
+    (:data:`WEIGHTS` of its layout; with ``spec.weight_dtype``, a Llama
+    layer's matmuls as ``<name>__q`` int8 codes, ``[K, N]`` or int4
+    ``[K/2, N]``, and ``<name>__s`` fp32 scales, ``[N]`` or ``[G, N]``);
+    its scratch and its output (``tensors["out"]``) are allocated here (a
+    GPT layer's q / k / v scratch as the three slabs of one ``[3, M, H]``
+    buffer, which its qkv product's epilogue fills).  A single kernel
+    passes its own ``q``/``k``/``v``/``attn`` instead.  ``cos`` / ``sin``
+    ``[M, D]`` rotate q and k; without them (a layer without RoPE) the
+    RoPE / KV write only stores k and v.  The pools are ``[NB, BS, Hkv,
+    D]`` tensors in the model dtype or int8 ``QuantizedKVPool``s (codes
+    and ``[NB, BS, Hkv]`` fp32 scales).  Rows are decode slots when
+    ``lengths`` is given (``block_table`` [M, MB]), else one prefill chunk
+    (``block_table`` [MB])."""
+    from ..decode_block import GPT_QUANT_ITEM
     pk, pv, pks, pvs = _pool_parts(pool_k, pool_v)
     if not isinstance(pk, torch.Tensor) or pk.ndim != 4:
         raise ValueError("pool_k must be a [NB, BS, Hkv, D] tensor")
+    kv_quant = pks is not None
+    kind = layout(spec) if spec is not None else None
+    rope = spec.rope if spec is not None else cos is not None
+    # a layer or a RoPE / KV write (k given) into an int8 pool must rotate
+    if kv_quant and not rope and (spec is not None or k is not None):
+        raise NotImplementedError(
+            "the unrotated K / V write into an int8 pool (a GPT-family "
+            "layer) is not ported yet — " + GPT_QUANT_ITEM)
+    if rope and (cos is None or sin is None):
+        raise ValueError("a layer with RoPE needs its cos / sin rows")
     dev = pk.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernels need CUDA tensors, pool is on {dev}")
-    kv_quant = pks is not None
     lead = x if x is not None else q
     dt = lead.dtype if kv_quant else pk.dtype
     code = dtype_code(dt)
@@ -174,12 +211,13 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
     wq, gs = build.WQ_NONE, 0
     t = {"pool_k": pk, "pool_v": pv, "pool_ks": pks, "pool_vs": pvs,
          "block_table": block_table, "lengths": lengths, "blk": blk,
-         "off": off, "cos": cos, "sin": sin, "q": q, "k": k, "v": v,
-         "attn": attn}
+         "off": off, "cos": cos if rope else None,
+         "sin": sin if rope else None, "q": q, "k": k, "v": v, "attn": attn}
+    matmuls = ()
     shapes = {}
     if lp is not None:
         H, Hq = x.shape[-1], spec.num_heads
-        F = _ffn_width(lp)
+        F = _ffn_width(lp, kind)
         if (H, Hkv, D) != (spec.hidden, spec.kv_heads, spec.head_dim):
             raise ValueError(f"x hidden {H} and pool heads {Hkv} x {D} do "
                              f"not match the spec {spec}")
@@ -187,17 +225,22 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
             if n % 8:
                 raise ValueError(f"GEMM widths must be multiples of 8, "
                                  f"got {n}")
-        dims = {"q_w": (H, Hq * D), "k_w": (H, Hkv * D),
-                "v_w": (H, Hkv * D), "o_w": (Hq * D, H), "gate_w": (H, F),
-                "up_w": (H, F), "down_w": (F, H)}
-        t.update(ln1_w=lp["ln1_w"], ln2_w=lp["ln2_w"])
+        QD, KD = Hq * D, Hkv * D
+        dims = {"q_w": (H, QD), "k_w": (H, KD), "v_w": (H, KD),
+                "o_w": (QD, H), "gate_w": (H, F), "up_w": (H, F),
+                "down_w": (F, H), "qkv_w": (H, 3 * QD), "proj_w": (QD, H),
+                "fc1_w": (H, F), "fc2_w": (F, H)}
+        matmuls = MATMULS[kind]
+        t.update({n: lp[n] for n in WEIGHTS[kind] if n not in matmuls})
+        shapes.update(ln1_b=(H,), ln2_b=(H,), qkv_b=(3 * QD,), proj_b=(H,),
+                      fc1_b=(F,), fc2_b=(H,))
         if spec.weight_dtype is None:
-            t.update({n: lp[n] for n in MATMULS})
+            t.update({n: lp[n] for n in matmuls})
             shapes.update(dims)
         else:
             wq = build.WQ_INT4 if spec.weight_dtype == "int4" \
                 else build.WQ_INT8
-            for n in MATMULS:
+            for n in matmuls:
                 cshape, sshape, gs = wo_layout(*dims[n], spec.weight_dtype,
                                                spec.group_size)
                 t[n], t[n[:-1] + "s"] = lp[n + "__q"], lp[n + "__s"]
@@ -205,8 +248,11 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
 
         def empty(*shape):
             return torch.empty(shape, dtype=dt, device=dev)
-        t.update(x=x, y=empty(M, H), q=empty(M, Hq * D), k=empty(M, Hkv * D),
-                 v=empty(M, Hkv * D), attn=empty(M, Hq * D),
+        if spec.fused_qkv:
+            qs, ks, vs = empty(3, M, QD)
+        else:
+            qs, ks, vs = empty(M, QD), empty(M, KD), empty(M, KD)
+        t.update(x=x, y=empty(M, H), q=qs, k=ks, v=vs, attn=empty(M, QD),
                  x_mid=empty(M, H), hbuf=empty(M, F), out=empty(M, H))
     else:
         Hq = q.shape[-1] // D
@@ -229,8 +275,8 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
             want = torch.int32
         elif n in ("pool_ks", "pool_vs") or n.endswith("_s"):
             want = torch.float32
-        elif (n in MATMULS and wq) or (n in ("pool_k", "pool_v")
-                                         and kv_quant):
+        elif (n in matmuls and wq) or (n in ("pool_k", "pool_v")
+                                        and kv_quant):
             want = torch.int8
         else:
             want = dt
@@ -238,6 +284,10 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
     a = build.LayerArgs(
         dtype=code, M=M, H=H, Hq=Hq, Hkv=Hkv, D=D, F=F, BS=BS, NB=NB, MB=MB,
         start=int(start), wq=wq, gs=gs, kv_quant=int(kv_quant),
+        norm=int(spec is not None and spec.norm == "ln"),
+        ffn=int(spec is not None and spec.activation == "gelu"),
+        rope=int(rope), fused_qkv=int(spec is not None and spec.fused_qkv),
+        bias=int(spec is not None and spec.bias),
         eps=float(spec.eps) if spec is not None else 0.0,
         scale=float(scale),
         **{n: None if tensor is None else tensor.data_ptr()
@@ -245,7 +295,8 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
     return a, t
 
 
-def _ffn_width(lp) -> int:
+def _ffn_width(lp, kind: str) -> int:
     """The FFN width of a layer's weights, full-width or exported."""
-    up = lp["up_w"] if "up_w" in lp else lp["up_w__q"]
-    return up.shape[1]
+    name = "up_w" if kind == "llama" else "fc1_w"
+    w = lp[name] if name in lp else lp[name + "__q"]
+    return w.shape[1]

@@ -2,7 +2,7 @@
 
 Replaces the TPU megakernel ``paddle_tpu/ops/pallas/prefill_block.py``
 (``prefill_block_pallas``, ``pallas_call`` at :435, body ``_kernel``):
-one Llama layer for a ``[Ts, H]`` prompt chunk of one sequence starting
+one Llama or GPT layer for a ``[Ts, H]`` prompt chunk of one sequence starting
 at position ``start``, causal over the committed pages plus the chunk.
 
 What bounds it on an H100: at Ts = 16 the weight bytes (as decode); at
@@ -36,8 +36,8 @@ def prefill_block_cuda(x, lp, pool_k, pool_v, blk, off, bt_row, cos, sin, *,
     s = scale if scale is not None else 1.0 / (spec.head_dim ** 0.5)
     a, t = layer.layer_args(
         pool_k, pool_v, bt_row, M=x.shape[1], blk=blk, off=off,
-        start=int(start), scale=s, spec=spec, x=x[0], lp=lp, cos=cos,
-        sin=sin)
+        start=int(start), scale=s, spec=spec, x=x[0], lp=lp,
+        cos=cos if spec.rope else None, sin=sin if spec.rope else None)
     lib = build.library()
     build.check(lib.pt_prefill_block(ctypes.byref(a), layer.stream_handle()),
                 "pt_prefill_block")

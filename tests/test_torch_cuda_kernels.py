@@ -1426,3 +1426,232 @@ def test_incubate_ops_launch_kernels_and_rope_differentiates():
                 tf.fused_dropout_add(t, t.detach(), 0.0, False)):
         with pytest.raises(NotImplementedError, match="item 19b"):
             out.sum().backward()
+
+
+# ------------------------------------------------------------- GPT layer
+# a GPT layer at the file's widths: H 64, 2 heads of D 32 (fused qkv: one
+# q head a kv head), F 96
+GPT_HEADS = H // D
+
+
+def _gpt_spec():
+    return tdb.DecodeBlockSpec(hidden=H, num_heads=GPT_HEADS,
+                               kv_heads=GPT_HEADS, head_dim=D, block_size=BS,
+                               norm="ln", activation="gelu", rope=False,
+                               fused_qkv=True, bias=True)
+
+
+def _gpt_case(dt, dev, seed=31):
+    """``_decode_case``'s tables and rows with a GPT layer and its pools."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, block_shapes
+    c = _decode_case(dt, dev, seed)
+    rng = np.random.default_rng(seed + 1)
+    shapes = block_shapes(GPTConfig(hidden_size=H, num_heads=GPT_HEADS,
+                                    intermediate_size=F))
+
+    def t(*shape, scale=0.1):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev, dt)
+    lp = {n: t(*s) + (1 if n.startswith("ln") and n.endswith("_w") else 0)
+          for n, s in shapes.items()}
+    pools = {n: t(NB, BS, GPT_HEADS, D, scale=1.0)
+             for n in ("pool_k", "pool_v")}
+    return dict(c, lp=lp, cos=None, sin=None, **pools)
+
+
+def test_gpt_plain_versions_compose_to_the_op():
+    """CPU: the GPT chain of per-kernel plain versions (the LayerNorm rows,
+    the qkv product with its bias split per head, the unrotated K / V
+    write, the attention, the bias, GELU and residual epilogues) is the
+    op's plain version."""
+    c, spec = _gpt_case(torch.float32, "cpu"), _gpt_spec()
+    lp, eps = c["lp"], spec.eps
+    pk, pv = c["pool_k"].clone(), c["pool_v"].clone()
+    y = K.layer_norm_rows_ref(c["x"], lp["ln1_w"], lp["ln1_b"], eps)
+    q, k, v = K.qkv_split_ref(K.gemm_xw_ref(y, lp["qkv_w"],
+                                            bias=lp["qkv_b"]), D)
+    q, k = K.rope_kv_write_ref(q, k, v, None, None, pk, pv, head_dim=D,
+                               block_table=c["bt"], lengths=c["lengths"])
+    attn = K.paged_attention_ref(q, pk, pv, block_table=c["bt"],
+                                 lengths=c["lengths"])
+    xm = K.gemm_xw_ref(attn, lp["proj_w"], bias=lp["proj_b"],
+                       residual=c["x"])
+    y2 = K.layer_norm_rows_ref(xm, lp["ln2_w"], lp["ln2_b"], eps)
+    h = K.gemm_xw_ref(y2, lp["fc1_w"], bias=lp["fc1_b"], gelu=True)
+    got = K.gemm_xw_ref(h, lp["fc2_w"], bias=lp["fc2_b"], residual=xm)
+    ref = tdb.decode_block_ref(c["x"], lp, c["pool_k"].clone(),
+                               c["pool_v"].clone(), c["bt"], c["lengths"],
+                               None, None, spec=spec)
+    for g, r in zip((got, pk, pv), ref):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+
+
+def test_gpt_layer_args_checks_its_layout():
+    """CPU: the GPT layer's weights are checked by their layout's names and
+    shapes, a mix of the two layers' variants is refused, and so is the
+    unrotated write into an int8 pool."""
+    from paddle_tpu_torch.models import gpt, llama
+    assert set(layer.WEIGHTS["gpt"]) == set(gpt.block_shapes(
+        gpt.GPTConfig()))
+    assert set(layer.WEIGHTS["llama"]) == set(llama.block_shapes(
+        llama.llama_tiny()))
+    assert layer.layout(_gpt_spec()) == "gpt"
+    assert layer.layout(_spec()) == "llama"
+    mixed = tdb.DecodeBlockSpec(hidden=H, num_heads=HQ, kv_heads=HKV,
+                                head_dim=D, block_size=BS, norm="ln")
+    with pytest.raises(ValueError, match="mix"):
+        layer.layout(mixed)
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    c = _gpt_case(torch.float32, "cpu")
+    pk, pv = (tkv.QuantizedKVPool(*tkv.quantize_kv(c[n]))
+              for n in ("pool_k", "pool_v"))
+    with pytest.raises(NotImplementedError, match="GPT layer quantized"):
+        layer.layer_args(pk, pv, c["bt"], M=4, lengths=c["lengths"],
+                         spec=_gpt_spec(), x=c["x"], lp=c["lp"])
+    with pytest.raises(NotImplementedError, match="GPT layer quantized"):
+        layer.layer_args(pk, pv, c["bt"], M=4, lengths=c["lengths"],
+                         q=c["x"], k=c["x"], v=c["x"])
+    # the attention alone over an int8 pool takes no cos / sin: it goes on
+    # to the device check
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        layer.layer_args(pk, pv, c["bt"], M=4, lengths=c["lengths"],
+                         q=c["x"], attn=c["x"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("M,Hn", [(1, 768), (4, 768), (256, 768), (4, 1001),
+                                  (3, 64)],
+                         ids=["M1", "M4", "M256", "H1001", "H64"])
+def test_layer_norm_rows_kernel_matches_plain(dt, M, Hn):
+    """The GPT chain's LayerNorm alone: the vector path at GPT-125M's H 768
+    (decode, one prefill chunk) and H 64; the scalar path at H 1001; one
+    launch a call, a second call bit-identical."""
+    _need_card()
+    rng = np.random.default_rng(23)
+
+    def t(*shape, loc=0.0, scale=1.0):
+        return torch.from_numpy((loc + scale * rng.standard_normal(shape))
+                                .astype(np.float32)).to("cuda", dt)
+    x, w, b = t(M, Hn, loc=0.3, scale=2.0), t(Hn, loc=1.0, scale=0.1), \
+        t(Hn, scale=0.1)
+    got = _once_bitwise(lambda: K.layer_norm_rows_cuda(x, w, b, 1e-5),
+                        "layer_norm_rows")
+    _close(got, K.layer_norm_rows_ref(x, w, b, 1e-5), dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 256, 300])
+@pytest.mark.parametrize("epi", ["bias_qkv", "bias_resid", "bias_gelu"])
+def test_gemm_xw_bias_epilogues_match_plain(dt, M, epi):
+    """The GPT layer's epilogues at both bf16 regimes' edges, K past a
+    64-row step: the bias (the qkv product stored split per head, N 576 =
+    3 heads of 3 x 64, so 128-column tiles straddle heads and parts), the
+    bias and residual, the bias and GELU; one launch a call, a second call
+    bit-identical."""
+    _need_card()
+    rng = np.random.default_rng(M + 7)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * 0.1).to("cuda", dt)
+    Kd, N = 520, 576 if epi == "bias_qkv" else 264
+    x, w, b, r = t(M, Kd), t(Kd, N), t(N), t(M, N)
+    kw = dict(bias=b, gelu=epi == "bias_gelu",
+              residual=r if epi == "bias_resid" else None)
+    split = {"qkv_head_dim": 64} if epi == "bias_qkv" else {}
+    kernel = "gemm_xw_f32" if dt == torch.float32 else \
+        "gemm_xw_small_m" if M <= 16 else "gemm_xw_tiled"
+
+    def run():
+        out = K.gemm_xw_cuda(x, w, **split, **kw)
+        return torch.stack(out) if split else out
+    got = _once_bitwise(run, kernel)
+    ref = K.gemm_xw_ref(x, w, **kw)
+    if split:
+        ref = torch.stack(K.qkv_split_ref(ref, 64))
+    _close(got, ref, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_rope_kv_write_unrotated_equals_plain_bit_for_bit(dt, mode, Dh):
+    """Without cos / sin: q and k untouched, the k / v rows written into
+    the pools bit for bit as the plain version writes them (dropped writes
+    leave the pool alone); one rope_kv_write launch a call."""
+    _need_card()
+    q, k, v, _, _, pk, pv, kw = _rope_kv_inputs(dt, Dh, 1, mode)
+
+    def run():
+        qq, kk, gk, gv = q.clone(), k.clone(), pk.clone(), pv.clone()
+        K.rope_kv_write_cuda(qq, kk, v, None, None, gk, gv, **kw)
+        assert torch.equal(qq, q) and torch.equal(kk, k)
+        return torch.cat([t.flatten() for t in (gk, gv)])
+    got = _once_bitwise(run, "rope_kv_write")
+    ref = _rope_kv_ref(q, k, v, None, None, pk, pv, kw)
+    n = q.numel() + k.numel()
+    assert torch.equal(_bits(got), _bits(ref[n:]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+def test_gpt_decode_block_kernel_matches_plain(dt):
+    _need_card()
+    c, spec = _gpt_case(dt, "cuda"), _gpt_spec()
+    ref = tdb.decode_block_ref(c["x"], c["lp"], c["pool_k"].clone(),
+                               c["pool_v"].clone(), c["bt"], c["lengths"],
+                               None, None, spec=spec)
+    pk, pv = c["pool_k"].clone(), c["pool_v"].clone()
+    layer.reset_counts()
+    got = tdb.decode_block(c["x"], c["lp"], pk, pv, c["bt"], c["lengths"],
+                           None, None, spec=spec)
+    torch.cuda.synchronize()
+    gemm = "gemm_xw_f32" if dt == torch.float32 else "gemm_xw_small_m"
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {
+        "decode_block": 1, "layer_norm_rows": 2, gemm: 4,
+        "rope_kv_write": 1, "paged_attention": 1}
+    _close(got[0][:3], ref[0][:3], dt)           # row 3: inactive slot
+    _close(got[1], ref[1], dt)
+    _close(got[2], ref[2], dt)
+    changed = (pk != c["pool_k"]).flatten(2).any(-1).nonzero().tolist()
+    assert sorted(map(tuple, changed)) == [(4, 1), (5, 1), (9, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("Ts,start,valid", [(16, 0, 16), (24, 5, 20),
+                                            (64, 3, 64)])
+def test_gpt_prefill_block_kernel_matches_plain(dt, Ts, start, valid):
+    _need_card()
+    c, spec = _gpt_case(dt, "cuda", seed=32), _gpt_spec()
+    rng = np.random.default_rng(3)
+    mb = 24
+    bt_row = torch.arange(mb, dtype=torch.int32, device="cuda")
+    pools = [torch.from_numpy(rng.standard_normal(
+        (mb, BS, GPT_HEADS, D)).astype(np.float32)).to("cuda", dt)
+        for _ in range(2)]
+    pos = start + torch.arange(Ts, device="cuda")
+    blk = bt_row[pos // BS]
+    blk[valid:] = mb
+    blk, off = blk.to(torch.int32), (pos % BS).to(torch.int32)
+    x = torch.from_numpy(rng.standard_normal((1, Ts, H)).astype(
+        np.float32)).to("cuda", dt)
+    ref = tdb.prefill_block_ref(x, c["lp"], pools[0].clone(),
+                                pools[1].clone(), blk, off, bt_row, None,
+                                None, spec=spec, start=start)
+    pk = pools[0].clone()
+    layer.reset_counts()
+    got = tdb.prefill_block(x, c["lp"], pk, pools[1].clone(), blk, off,
+                            bt_row, None, None, spec=spec, start=start)
+    torch.cuda.synchronize()
+    gemm = "gemm_xw_f32" if dt == torch.float32 else \
+        "gemm_xw_small_m" if Ts <= 16 else "gemm_xw_tiled"
+    assert {k: n for k, n in layer.launch_counts().items() if n} == {
+        "prefill_block": 1, "layer_norm_rows": 2, gemm: 4,
+        "rope_kv_write": 1, "paged_attention": 1}
+    _close(got[0][:, :valid], ref[0][:, :valid], dt)
+    _close(got[1], ref[1], dt)
+    _close(got[2], ref[2], dt)

@@ -77,7 +77,7 @@ _PUSH = "  splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);"
 _EPI = "    for (int p0 = tid; p0 < P; p0 += 256 * U) {"
 _U = "    constexpr int U = C::NX <= 16 ? 1 : 4;"
 _STORE = """          *reinterpret_cast<__nv_bfloat162 *>(
-              a.Y + (size_t)(m0 + r0 + r) * a.N + n0 + c) ="""
+              a.Y + out_index(m0 + r0 + r, n0 + c, a.M, a.N, a.qkv_d)) ="""
 _PRODUCER = "    if (warp == 8 && lane == 0) {\n"
 _SMALL = "using S8 = Cfg<8, 6, 2>;\nusing S16 = Cfg<16, 6, 2>;"
 _LAUNCH = "  cfg.numAttrs = p.splits > 1;"
