@@ -63,7 +63,8 @@ class LayerArgs(ctypes.Structure):
                     "gate_w", "up_w", "down_w", "q_s", "k_s", "v_s", "o_s",
                     "gate_s", "up_s", "down_s", "ln1_b", "ln2_b", "qkv_w",
                     "qkv_b", "proj_w", "proj_b", "fc1_w", "fc1_b", "fc2_w",
-                    "fc2_b", "cos", "sin", "block_table",
+                    "fc2_b", "qkv_s", "proj_s", "fc1_s", "fc2_s", "cos",
+                    "sin", "block_table",
                     "lengths", "blk", "off", "pool_k", "pool_v", "pool_ks",
                     "pool_vs", "y", "q", "k", "v", "attn", "x_mid", "hbuf",
                     "out")])
@@ -95,9 +96,9 @@ class WoArgs(ctypes.Structure):
     """Mirror of ``struct WoArgs`` in ``csrc/common.cuh``."""
     _fields_ = ([(n, ctypes.c_int) for n in
                  ("int4", "x_dtype", "M", "K", "N", "half", "ldx", "xhi",
-                  "gs", "G", "tile_dq", "epi")]
+                  "gs", "G", "tile_dq", "epi", "qkv_d")]
                 + [(n, ctypes.c_void_p) for n in ("x", "w", "scale", "y",
-                                                  "R")])
+                                                  "R", "B")])
 
 
 class NormArgs(ctypes.Structure):

@@ -14,7 +14,8 @@ enum { PT_F32 = 0, PT_BF16 = 1 };
 // EPI_SWIGLU: Y = silu(X @ W) * (X @ W2), one launch (gemm_xw);
 // EPI_SWIGLU_R: Y = silu(R) * (X @ W), R the gate product already stored in
 // the model dtype (the weight-only chain's up projection, after its gate);
-// the GPT layer's (gemm_xw, B the bias [N] in the model dtype):
+// the GPT layer's (gemm_xw and the weight-only launch_wo_layer, B the bias
+// [N] in the model dtype):
 // EPI_BIAS: Y = X @ W + B (qkv); EPI_BIAS_RESID: Y = R + (X @ W + B) (proj,
 // fc2); EPI_BIAS_GELU: Y = gelu_tanh(X @ W + B) (fc1)
 enum {
@@ -36,8 +37,10 @@ enum { FFN_SWIGLU = 0, FFN_GELU = 1 };
 // FFN_GELU, rope 0, fused_qkv 1, bias 1; weights ln1_w, ln1_b, qkv_w,
 // qkv_b, proj_w, proj_b, ln2_w, ln2_b, fc1_w, fc1_b, fc2_w, fc2_b).  Each
 // flag selects its stage on its own; the wrapper passes one of the two
-// layouts.  Mirrored field for field by the ctypes Structure in
-// paddle_tpu_torch/kernels/build.py.
+// layouts.  Weight-only quantized (wq), either layout's matmul weights are
+// codes and each has its fp32 scales (q_s .. down_s, or qkv_s .. fc2_s);
+// the norm gains and the biases stay in `dtype`.  Mirrored field for field
+// by the ctypes Structure in paddle_tpu_torch/kernels/build.py.
 struct LayerArgs {
   int dtype;                  // PT_F32 | PT_BF16
   int M;                      // rows: decode batch B, or prefill chunk Ts
@@ -65,6 +68,8 @@ struct LayerArgs {
   const void *proj_w, *proj_b;   // fused_qkv: [Hq D, H]; bias: [H]
   const void *fc1_w, *fc1_b, *fc2_w,
       *fc2_b;                 // FFN_GELU: [H, F], [F], [F, H], [H]
+  const float *qkv_s, *proj_s, *fc1_s,
+      *fc2_s;                 // wq: the GPT matmuls' scales [ceil(K / gs), N]
   const void *cos, *sin;      // rope: [M, D]
   const int *block_table;     // decode [M, MB]; prefill [MB]
   const int *lengths;         // decode [M] tokens already stored; prefill 0
@@ -138,10 +143,14 @@ struct LceArgs {
 // row per gs rows of w (G 1 and gs 1 << 30 per output channel).
 // tile_dq 1: the weight is dequantized in x's dtype (scale rounded to it)
 // before the product; 0: each group's fp32 partial product is multiplied
-// by its fp32 scale.  epi (EPI_NONE, EPI_RESID, EPI_SWIGLU_R) applies the
-// serving chain's epilogue to the product rounded to x's dtype, with R
-// [M, N] in x's dtype (R may be y itself: each element is read before it
-// is written, by the same thread).  Mirrored field for field by the ctypes
+// by its fp32 scale.  epi applies the serving chain's epilogue to the
+// product rounded to x's dtype: EPI_RESID, EPI_SWIGLU_R (the Llama layer)
+// with R [M, N] in x's dtype (R may be y itself: each element is read
+// before it is written, by the same thread); EPI_BIAS, EPI_BIAS_RESID,
+// EPI_BIAS_GELU (the GPT layer) with the bias B [N] in x's dtype (and R
+// for EPI_BIAS_RESID).  qkv_d > 0 (EPI_NONE / EPI_BIAS only): y holds three
+// [M, N / 3] slabs, stored as launch_gemm_xw's qkv split stores them (the
+// GPT layer's fused qkv).  Mirrored field for field by the ctypes
 // Structure in paddle_tpu_torch/kernels/build.py.
 struct WoArgs {
   int int4;                   // 0: int8 codes [K, N]; 1: packed int4
@@ -150,11 +159,13 @@ struct WoArgs {
   int ldx, xhi;
   int gs, G, tile_dq;
   int epi;
+  int qkv_d;                  // > 0: the qkv split's head dim
   const void *x;
   const signed char *w;
   const float *scale;
   void *y;
   const void *R;
+  const void *B;
 };
 
 // One row-normalisation launch (norms.cu): x, res, out, add [R, H]
@@ -245,6 +256,24 @@ __device__ __forceinline__ float epi_value(int epi, float a, float b,
   return a;
 }
 
+// where element (m, n) of an [M, N] product is stored: row-major, or with
+// qkv_d > 0 the qkv split (one [M, N / 3] slab a part: column n is part
+// (n % 3 qkv_d) / qkv_d of head n / (3 qkv_d)); an even qkv_d keeps a
+// pair (n, n + 1) at even n in one part of one head
+__device__ __forceinline__ size_t out_index(int m, int n, int M, int N,
+                                            int qkv_d) {
+  if (qkv_d <= 0) return (size_t)m * N + n;
+  const int d3 = 3 * qkv_d, head = n / d3, c = n - head * d3;
+  const int part = c / qkv_d;
+  return (size_t)part * M * (N / 3) + (size_t)m * (N / 3) + head * qkv_d +
+         (c - part * qkv_d);
+}
+
+// whether epilogue `epi` reads R (the residual, or EPI_SWIGLU_R's gate)
+__host__ __device__ __forceinline__ bool epi_reads_r(int epi) {
+  return epi == EPI_RESID || epi == EPI_SWIGLU_R || epi == EPI_BIAS_RESID;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -257,9 +286,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 // template instances count together; the three modes of norms.cu's kernel
 // apart) and one per layer entry point.  The quantized serving chain's
 // variants count apart (seven): the weight-only GEMMs with the chain's
-// epilogues (quant_linear.cu launch_wo_layer), the RoPE / KV write into an
-// int8 pool and the attention over one; then the GPT chain's LayerNorm
-// (rms_norm.cu layer_norm_rows).
+// epilogues (quant_linear.cu launch_wo_layer; both layers' epilogues), the
+// RoPE / KV write into an int8 pool (rotated or not) and the attention over
+// one; then the GPT chain's LayerNorm (rms_norm.cu layer_norm_rows).
 // Kept in layer.cu, read and reset through pt_launch_counts /
 // pt_reset_launch_counts; the names in paddle_tpu_torch/ops/cuda/layer.py
 // (KERNELS) follow this order.

@@ -67,17 +67,6 @@
 
 namespace pt {
 
-// where element (m, n) of the [M, N] product is stored: row-major, or
-// with qkv_d > 0 the qkv split (one [M, N / 3] slab a part)
-__device__ __forceinline__ size_t out_index(int m, int n, int M, int N,
-                                            int qkv_d) {
-  if (qkv_d <= 0) return (size_t)m * N + n;
-  const int d3 = 3 * qkv_d, head = n / d3, c = n - head * d3;
-  const int part = c / qkv_d;
-  return (size_t)part * M * (N / 3) + (size_t)m * (N / 3) + head * qkv_d +
-         (c - part * qkv_d);
-}
-
 // b: SwiGLU's second product (read by the caller), or for the bias
 // epilogues unused: the bias is read here
 template <typename T>

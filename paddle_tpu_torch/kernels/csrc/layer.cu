@@ -6,18 +6,18 @@
 //   rms_norm_rows -> gemm_xw q, k, v -> rope_kv_write -> paged_attention
 //   -> gemm_xw o (+ residual) -> rms_norm_rows -> gemm_xw gate/up (SwiGLU)
 //   -> gemm_xw down (+ residual)
-// A weight-only quantized Llama layer (LayerArgs::wq) takes the
-// weight-only kernels for its seven matmuls (quant_linear.cu
-// launch_wo_layer, the same epilogues; SwiGLU as gate, then up with
-// silu(gate) * up in its epilogue); an int8 KV pool (kv_quant) takes
-// rope_kv_write's and paged_attention's int8 variants.  A GPT layer
-// (LayerNorm with bias, fused qkv, biases, GELU, no RoPE):
+// A GPT layer (LayerNorm with bias, fused qkv, biases, GELU, no RoPE):
 //   layer_norm_rows -> gemm_xw qkv (+ bias, stored split into q, k, v) ->
 //   rope_kv_write (no rotation: k, v into the pool) -> paged_attention ->
 //   gemm_xw proj (+ bias + residual) -> layer_norm_rows -> gemm_xw fc1
 //   (+ bias, GELU) -> gemm_xw fc2 (+ bias + residual)
 // Each of LayerArgs' norm, ffn, rope, fused_qkv and bias flags picks its
-// stage; the quantized kernels take the Llama layer only.
+// stage.  Weight-only quantized (LayerArgs::wq), either layer takes the
+// weight-only kernels for its matmuls (quant_linear.cu launch_wo_layer,
+// the same epilogues and the same qkv split; a Llama layer's SwiGLU as
+// gate, then up with silu(gate) * up in its epilogue); an int8 KV pool
+// (kv_quant) takes rope_kv_write's and paged_attention's int8 variants,
+// rotated or not.
 // They replace the TPU megakernels paddle_tpu/ops/pallas/decode_block.py
 // (_kernel, pallas_call at :535) and prefill_block.py (_kernel,
 // pallas_call at :435), which keep a whole layer's weights in VMEM.  A 7B
@@ -50,10 +50,12 @@ cudaError_t count_launch(int c, cudaError_t e) {
   return e;
 }
 
-// one weight-only layer GEMM: Y [M, N] = epi(X [M, K] @ dequant(W, S), R)
+// one weight-only layer GEMM: Y [M, N] = epi(X [M, K] @ dequant(W, S), R,
+// B), stored split with qkv_d > 0
 static cudaError_t wo_mm(const LayerArgs *a, int K, int N, int epi,
                          const void *X, const void *W, const float *S,
-                         const void *R, void *Y, cudaStream_t s) {
+                         const void *R, const void *B, void *Y, int qkv_d,
+                         cudaStream_t s) {
   WoArgs w = {};
   w.int4 = a->wq == 2;
   w.x_dtype = a->dtype;
@@ -66,32 +68,14 @@ static cudaError_t wo_mm(const LayerArgs *a, int K, int N, int epi,
   w.gs = a->gs;
   w.G = (K + a->gs - 1) / a->gs;
   w.epi = epi;
+  w.qkv_d = qkv_d;
   w.x = X;
   w.w = (const signed char *)W;
   w.scale = S;
   w.y = Y;
   w.R = R;
+  w.B = B;
   return launch_wo_layer(&w, s);
-}
-
-static cudaError_t layer_forward_wo(const LayerArgs *a, cudaStream_t s) {
-  const int dt = a->dtype, M = a->M, H = a->H, F = a->F;
-  const int QD = a->Hq * a->D, KD = a->Hkv * a->D;
-  PT_TRY(launch_rms_norm_rows(dt, M, H, a->x, a->ln1_w, a->y, a->eps, s));
-  PT_TRY(wo_mm(a, H, QD, EPI_NONE, a->y, a->q_w, a->q_s, 0, a->q, s));
-  PT_TRY(wo_mm(a, H, KD, EPI_NONE, a->y, a->k_w, a->k_s, 0, a->k, s));
-  PT_TRY(wo_mm(a, H, KD, EPI_NONE, a->y, a->v_w, a->v_s, 0, a->v, s));
-  PT_TRY(launch_rope_kv_write(a, s));
-  PT_TRY(launch_paged_attention(a, s));
-  PT_TRY(wo_mm(a, QD, H, EPI_RESID, a->attn, a->o_w, a->o_s, a->x, a->x_mid,
-               s));
-  PT_TRY(launch_rms_norm_rows(dt, M, H, a->x_mid, a->ln2_w, a->y, a->eps, s));
-  PT_TRY(wo_mm(a, H, F, EPI_NONE, a->y, a->gate_w, a->gate_s, 0, a->hbuf, s));
-  PT_TRY(wo_mm(a, H, F, EPI_SWIGLU_R, a->y, a->up_w, a->up_s, a->hbuf,
-               a->hbuf, s));
-  PT_TRY(wo_mm(a, F, H, EPI_RESID, a->hbuf, a->down_w, a->down_s, a->x_mid,
-               a->out, s));
-  return cudaSuccess;
 }
 
 // the layer's row norm of x into y: RMS, or LayerNorm with bias b
@@ -103,17 +87,20 @@ static cudaError_t row_norm(const LayerArgs *a, const void *x, const void *w,
   return launch_rms_norm_rows(a->dtype, a->M, a->H, x, w, a->y, a->eps, s);
 }
 
+// whether every matmul of the layer's stages has its scales (wq)
+static bool has_scales(const LayerArgs *a) {
+  const bool qkv = a->fused_qkv ? a->qkv_s && a->proj_s
+                                : a->q_s && a->k_s && a->v_s && a->o_s;
+  const bool ffn = a->ffn == FFN_GELU ? a->fc1_s && a->fc2_s
+                                      : a->gate_s && a->up_s && a->down_s;
+  return qkv && ffn;
+}
+
 static cudaError_t layer_forward(const LayerArgs *a, cudaStream_t s) {
-  const bool gpt_stage = a->norm != NORM_RMS || a->ffn != FFN_SWIGLU ||
-                         !a->rope || a->fused_qkv || a->bias;
   if (a->kv_quant && (!a->pool_ks || !a->pool_vs))
     return cudaErrorInvalidValue;
-  if (a->wq) {
-    if (a->wq > 2 || a->gs <= 0 || !a->q_s || !a->k_s || !a->v_s ||
-        !a->o_s || !a->gate_s || !a->up_s || !a->down_s || gpt_stage)
-      return cudaErrorInvalidValue;
-    return layer_forward_wo(a, s);
-  }
+  if (a->wq && (a->wq > 2 || a->gs <= 0 || !has_scales(a)))
+    return cudaErrorInvalidValue;
   const int dt = a->dtype, M = a->M, H = a->H, F = a->F;
   const int QD = a->Hq * a->D, KD = a->Hkv * a->D;
   const size_t slab = (size_t)M * QD * (dt == PT_BF16 ? 2 : 4);
@@ -122,34 +109,49 @@ static cudaError_t layer_forward(const LayerArgs *a, cudaStream_t s) {
       (a->Hq != a->Hkv || (const char *)a->k != (const char *)a->q + slab ||
        (const char *)a->v != (const char *)a->k + slab))
     return cudaErrorInvalidValue;
+  // one matmul of the layer, W [K, N] with its scales S (wq) or in `dtype`
+  auto mm = [&](int K, int N, int epi, const void *X, const void *W,
+                const float *S, const void *R, const void *B, void *Y,
+                int qkv_d) {
+    return a->wq ? wo_mm(a, K, N, epi, X, W, S, R, B, Y, qkv_d, s)
+                 : launch_gemm_xw(dt, M, K, N, epi, X, W, 0, R, B, Y, qkv_d,
+                                  s);
+  };
   PT_TRY(row_norm(a, a->x, a->ln1_w, a->ln1_b, s));
   if (a->fused_qkv) {
-    PT_TRY(launch_gemm_xw(dt, M, H, 3 * QD, EPI_BIAS, a->y, a->qkv_w, 0, 0,
-                          a->qkv_b, a->q, a->D, s));
+    PT_TRY(mm(H, 3 * QD, EPI_BIAS, a->y, a->qkv_w, a->qkv_s, 0, a->qkv_b,
+              a->q, a->D));
   } else {
-    PT_TRY(launch_gemm_xw(dt, M, H, QD, EPI_NONE, a->y, a->q_w, 0, 0, 0,
-                          a->q, 0, s));
-    PT_TRY(launch_gemm_xw(dt, M, H, KD, EPI_NONE, a->y, a->k_w, 0, 0, 0,
-                          a->k, 0, s));
-    PT_TRY(launch_gemm_xw(dt, M, H, KD, EPI_NONE, a->y, a->v_w, 0, 0, 0,
-                          a->v, 0, s));
+    PT_TRY(mm(H, QD, EPI_NONE, a->y, a->q_w, a->q_s, 0, 0, a->q, 0));
+    PT_TRY(mm(H, KD, EPI_NONE, a->y, a->k_w, a->k_s, 0, 0, a->k, 0));
+    PT_TRY(mm(H, KD, EPI_NONE, a->y, a->v_w, a->v_s, 0, 0, a->v, 0));
   }
   PT_TRY(launch_rope_kv_write(a, s));
   PT_TRY(launch_paged_attention(a, s));
-  PT_TRY(launch_gemm_xw(dt, M, QD, H, a->bias ? EPI_BIAS_RESID : EPI_RESID,
-                        a->attn, a->fused_qkv ? a->proj_w : a->o_w, 0, a->x,
-                        a->bias ? a->proj_b : 0, a->x_mid, 0, s));
+  PT_TRY(mm(QD, H, a->bias ? EPI_BIAS_RESID : EPI_RESID, a->attn,
+            a->fused_qkv ? a->proj_w : a->o_w,
+            a->fused_qkv ? a->proj_s : a->o_s, a->x,
+            a->bias ? a->proj_b : 0, a->x_mid, 0));
   PT_TRY(row_norm(a, a->x_mid, a->ln2_w, a->ln2_b, s));
   if (a->ffn == FFN_GELU) {
-    PT_TRY(launch_gemm_xw(dt, M, H, F, EPI_BIAS_GELU, a->y, a->fc1_w, 0, 0,
-                          a->fc1_b, a->hbuf, 0, s));
-    PT_TRY(launch_gemm_xw(dt, M, F, H, EPI_BIAS_RESID, a->hbuf, a->fc2_w, 0,
-                          a->x_mid, a->fc2_b, a->out, 0, s));
+    PT_TRY(mm(H, F, EPI_BIAS_GELU, a->y, a->fc1_w, a->fc1_s, 0, a->fc1_b,
+              a->hbuf, 0));
+    PT_TRY(mm(F, H, EPI_BIAS_RESID, a->hbuf, a->fc2_w, a->fc2_s, a->x_mid,
+              a->fc2_b, a->out, 0));
   } else {
-    PT_TRY(launch_gemm_xw(dt, M, H, F, EPI_SWIGLU, a->y, a->gate_w, a->up_w,
-                          0, 0, a->hbuf, 0, s));
-    PT_TRY(launch_gemm_xw(dt, M, F, H, EPI_RESID, a->hbuf, a->down_w, 0,
-                          a->x_mid, 0, a->out, 0, s));
+    if (a->wq) {
+      // the gate, then the up projection with silu(gate) * up in its
+      // epilogue (the weight-only kernels take one product a launch)
+      PT_TRY(mm(H, F, EPI_NONE, a->y, a->gate_w, a->gate_s, 0, 0, a->hbuf,
+                0));
+      PT_TRY(mm(H, F, EPI_SWIGLU_R, a->y, a->up_w, a->up_s, a->hbuf, 0,
+                a->hbuf, 0));
+    } else {
+      PT_TRY(launch_gemm_xw(dt, M, H, F, EPI_SWIGLU, a->y, a->gate_w,
+                            a->up_w, 0, 0, a->hbuf, 0, s));
+    }
+    PT_TRY(mm(F, H, EPI_RESID, a->hbuf, a->down_w, a->down_s, a->x_mid, 0,
+              a->out, 0));
   }
   return cudaSuccess;
 }

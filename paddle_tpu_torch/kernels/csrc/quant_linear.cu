@@ -77,15 +77,20 @@
 //     tiles, dequantizing each weight element in fp32 on its way into
 //     shared memory (fp32 rounding either way).
 // The serving chain's weight-only layer GEMMs (launch_wo_layer, called by
-// layer.cu for a quantized Llama layer: TPU kernels 1-2's weight-only
-// branch, paddle_tpu/ops/pallas/decode_block.py:195-221 _mm_quant / _mmw)
-// are these same kernels with an epilogue on the product rounded to x's
-// dtype (WoArgs::epi, a runtime argument read once a stored pair after the
-// main loop): EPI_RESID adds the residual R (o and down projections),
-// EPI_SWIGLU_R takes R as the gate product of the launch before and stores
-// silu(R) * product (the up projection), each value rounded as the
-// reference rounds it; they always take the `post` scale rule, and count
-// apart (CNT_WO_LAYER_*).
+// layer.cu for a quantized Llama or GPT layer: TPU kernels 1-2's
+// weight-only branch, paddle_tpu/ops/pallas/decode_block.py:195-221
+// _mm_quant / _mmw) are these same kernels with an epilogue on the product
+// rounded to x's dtype (WoArgs::epi, a runtime argument read once a stored
+// pair after the main loop), each value rounded as the reference rounds it
+// (common.cuh epi_value).  The Llama layer's: EPI_RESID adds the residual
+// R (o and down projections), EPI_SWIGLU_R takes R as the gate product of
+// the launch before and stores silu(R) * product (the up projection).  The
+// GPT layer's add the bias B: EPI_BIAS (qkv, with WoArgs::qkv_d the pair
+// stored into its head's q, k or v slab, gemm.cu's split), EPI_BIAS_RESID
+// (proj, fc2), EPI_BIAS_GELU (fc1, tanh GELU); a thread's pairs share
+// their channels' bias pair (wo_wgmma: loaded once; wo_dec: with each
+// pair).  They always take the `post` scale rule, and count apart
+// (CNT_WO_LAYER_*).
 // Requirements checked here and by the wrapper: N % 16 == 0, ldx and xhi
 // multiples of 8, 16-byte aligned x and codes; the wgmma kernels also
 // take only group sizes that are powers of two (64, 128, or 1 << 30 per
@@ -159,16 +164,17 @@ __global__ void __launch_bounds__(256) wo_f32(const WoArgs a) {
     __syncthreads();
   }
   float *Y = (float *)a.y;
-  const float *R = (const float *)a.R;
+  const float *R = (const float *)a.R, *B = (const float *)a.B;
+  const bool rd = epi_reads_r(a.epi), biased = a.epi >= EPI_BIAS;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      const size_t o = (size_t)m * a.N + n;
       if (m < a.M && n < a.N)
-        Y[o] = epi_value<float>(a.epi, acc[i][j], 0.f,
-                                a.epi != EPI_NONE ? R[o] : 0.f);
+        Y[out_index(m, n, a.M, a.N, a.qkv_d)] = epi_value<float>(
+            a.epi, acc[i][j], biased ? B[n] : 0.f,
+            rd ? R[(size_t)m * a.N + n] : 0.f);
     }
 }
 
@@ -368,8 +374,20 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   bf16 *Y = (bf16 *)a.y;
   // the pairs (row m; channels chA, chA + 1) in rounds of 2 UJ: the round's
   // residual / gate pairs loaded first, then its stores (R may be Y
-  // itself: a thread reads only the pairs it writes)
+  // itself: a thread reads only the pairs it writes); the bias pair of the
+  // thread's two channels, and where its pairs go (column `col` of rows
+  // `ld` apart: the qkv split puts them in their head's q, k or v slab),
+  // once: an index worked out per store slowed llama_7b's M-256 layer
+  // GEMMs by ~18 % on an H100
   constexpr int UJ = 4;
+  const bool rd = epi_reads_r(a.epi);
+  const float2 bias =
+      a.epi >= EPI_BIAS
+          ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
+                (const bf16 *)a.B + chA))
+          : make_float2(0.f, 0.f);
+  const size_t col = out_index(0, chA, a.M, a.N, a.qkv_d);
+  const size_t ld = a.qkv_d > 0 ? a.N / 3 : a.N;
   auto store = [&](const float(&v)[C::NACC], float sA, float sB) {
 #pragma unroll
     for (int j0 = 0; j0 < C::NACC; j0 += 4 * UJ) {
@@ -378,7 +396,7 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       for (int u = 0; u < 2 * UJ; ++u) {
         const int m = m0 + 2 * (j0 + 4 * (u >> 1)) + 2 * t + (u & 1);
         r[u] = make_float2(0.f, 0.f);
-        if (a.epi != EPI_NONE && m < a.M)
+        if (rd && m < a.M)
           r[u] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
               (const bf16 *)a.R + (size_t)m * a.N + chA));
       }
@@ -389,11 +407,10 @@ __global__ void __launch_bounds__(C::THREADS, 1)
         if (m >= a.M) continue;
         float v0 = v[j + e] * sA, v1 = v[j + e + 2] * sB;
         if (a.epi != EPI_NONE) {
-          v0 = epi_value<bf16>(a.epi, v0, 0.f, r[u].x);
-          v1 = epi_value<bf16>(a.epi, v1, 0.f, r[u].y);
+          v0 = epi_value<bf16>(a.epi, v0, bias.x, r[u].x);
+          v1 = epi_value<bf16>(a.epi, v1, bias.y, r[u].y);
         }
-        *reinterpret_cast<unsigned *>(Y + (size_t)m * a.N + chA) =
-            pack_bf16(v0, v1);
+        *reinterpret_cast<unsigned *>(Y + col + m * ld) = pack_bf16(v0, v1);
       }
     }
   };
@@ -684,14 +701,21 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
       y.x *= __ldg(a.scale + n);
       y.y *= __ldg(a.scale + n + 1);
     }
-    const size_t o = (size_t)(sh.r0 + r) * a.N + n;
+    const int m = sh.r0 + r;
     if (a.epi != EPI_NONE) {
-      const float2 rv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162 *>((const bf16 *)a.R + o));
-      y.x = epi_value<bf16>(a.epi, y.x, 0.f, rv.x);
-      y.y = epi_value<bf16>(a.epi, y.y, 0.f, rv.y);
+      float2 rv = make_float2(0.f, 0.f), bv = rv;
+      if (epi_reads_r(a.epi))
+        rv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
+            (const bf16 *)a.R + (size_t)m * a.N + n));
+      if (a.epi >= EPI_BIAS)
+        bv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162 *>((const bf16 *)a.B + n));
+      y.x = epi_value<bf16>(a.epi, y.x, bv.x, rv.x);
+      y.y = epi_value<bf16>(a.epi, y.y, bv.y, rv.y);
     }
-    *reinterpret_cast<__nv_bfloat162 *>(Y + o) = __floats2bfloat162_rn(y.x, y.y);
+    *reinterpret_cast<__nv_bfloat162 *>(
+        Y + out_index(m, n, a.M, a.N, a.qkv_d)) =
+        __floats2bfloat162_rn(y.x, y.y);
   }
   splitk::done();
 }
@@ -772,12 +796,18 @@ cudaError_t launch_decode(const WoArgs *a, cudaStream_t s) {
 }  // namespace wo
 }  // namespace pt
 
-// the arguments every regime takes (0), or cudaErrorInvalidValue
+// the arguments every regime takes (0), or cudaErrorInvalidValue: any
+// epilogue but EPI_SWIGLU (two products), R where it reads R, B with the
+// bias epilogues; the qkv split with EPI_NONE / EPI_BIAS, an even head dim
+// dividing N / 3
 static cudaError_t check_wo(const WoArgs *a) {
   if (a->N % 16 || a->ldx % 8 || a->xhi % 8 || a->gs <= 0 || a->G <= 0 ||
       (a->x_dtype != PT_F32 && a->x_dtype != PT_BF16) ||
-      (a->epi != EPI_NONE && a->epi != EPI_RESID && a->epi != EPI_SWIGLU_R) ||
-      (a->epi != EPI_NONE && !a->R))
+      a->epi < EPI_NONE || a->epi > EPI_BIAS_GELU || a->epi == EPI_SWIGLU ||
+      (pt::epi_reads_r(a->epi) && !a->R) ||
+      (a->epi >= EPI_BIAS && !a->B) ||
+      (a->qkv_d && (a->qkv_d < 0 || a->qkv_d % 2 || a->N % (3 * a->qkv_d) ||
+                    (a->epi != EPI_NONE && a->epi != EPI_BIAS))))
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }

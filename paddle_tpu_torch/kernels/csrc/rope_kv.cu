@@ -41,22 +41,25 @@
 //     its blk / off; the lanes of a row read one address) before its
 //     first store, and every pointer is __restrict__, so nothing waits on
 //     a store.  The target gates only the pool stores.
-//   * Without RoPE (the ROPE template flag off, counted as rope_kv_write):
-//     the threads cover the kv heads only, load no cos / sin, store no q or
-//     k rows back, and copy k and v into the pool bit for bit.  Not with an
-//     int8 pool (the GPT layer quantized waits for a later slice).
+//   * Without RoPE (the ROPE template flag off; the GPT layer): the
+//     threads cover the kv heads only, load no cos / sin, store no q or k
+//     rows back, and write k and v into the pool as they are: bit for bit
+//     into a full-width pool (counted as rope_kv_write), or as int8 codes
+//     and scales as below (counted as rope_kv_write_q8; the head's D2 / C
+//     lanes, 4 at D 64 bf16, are still neighbours aligned in the warp: the
+//     slots of a row's head are consecutive and D2 / C is a power of two).
 //   * An int8 pool (rope_kv_write_q8, counted apart; the kv_quant branches
 //     of the TPU kernels, decode_block.py:272 and the prefill scatter):
-//     after the RoPE, rounded to T as above, the lanes of a kv head take
-//     the absmax of its k row and of its v row over D by a shuffle (the
-//     head's D2 / C lanes are neighbours, aligned in the warp), scale =
-//     max(absmax, 1e-8) / 127 and codes clip(rint(x / scale), -127, 127),
-//     both IEEE divisions (__fdiv_rn), as ops.paged_kv.quantize_kv: equal
-//     to it bit for bit.  A lane stores its 2 C codes (C bytes a half) and
-//     the head's first lane the two fp32 scales, at the same (page,
-//     offset) and under the same dropped-write rule.  No lane returns
-//     before the shuffle; lanes past the rows load the last slot and store
-//     nothing.
+//     after the RoPE (if any), rounded to T as above, the lanes of a kv
+//     head take the absmax of its k row and of its v row over D by a
+//     shuffle (the head's D2 / C lanes are neighbours, aligned in the
+//     warp), scale = max(absmax, 1e-8) / 127 and codes clip(rint(x /
+//     scale), -127, 127), both IEEE divisions (__fdiv_rn), as
+//     ops.paged_kv.quantize_kv: equal to it bit for bit.  A lane stores
+//     its 2 C codes (C bytes a half) and the head's first lane the two
+//     fp32 scales, at the same (page, offset) and under the same
+//     dropped-write rule.  No lane returns before the shuffle; lanes past
+//     the rows load the last slot and store nothing.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -120,7 +123,6 @@ __global__ void __launch_bounds__(ROPE_THREADS)
                          const int *__restrict__ off, void *__restrict__ pk,
                          void *__restrict__ pv, KvScales ks, RopeGeo g) {
   typedef Pack<T, C> P;
-  static_assert(ROPE || !Q8, "the unrotated write takes full-width pools");
   // without RoPE the threads cover the kv heads only
   const int D2 = g.D / 2, CH = D2 / C, heads = ROPE ? g.Hq + g.Hkv : g.Hkv;
   const long long total = (long long)g.M * heads * CH;
@@ -223,7 +225,7 @@ template <typename T>
 static cudaError_t rope_kv_launch(const LayerArgs *a, cudaStream_t s) {
   constexpr int VEC = 16 / sizeof(T);
   const bool rope = a->rope != 0;
-  if (rope ? !a->cos || !a->sin : a->kv_quant) return cudaErrorInvalidValue;
+  if (rope && (!a->cos || !a->sin)) return cudaErrorInvalidValue;
   const bool vec = (a->D / 2) % VEC == 0 && aligned16(a->q) &&
                    aligned16(a->k) && aligned16(a->v) &&
                    (!rope || (aligned16(a->cos) && aligned16(a->sin))) &&
@@ -237,7 +239,8 @@ static cudaError_t rope_kv_launch(const LayerArgs *a, cudaStream_t s) {
   const long long n = (long long)a->M * (rope ? a->Hq + a->Hkv : a->Hkv) *
                       (a->D / 2 / (vec ? VEC : 1));
   const unsigned grid = (unsigned)((n + ROPE_THREADS - 1) / ROPE_THREADS);
-  auto kern = a->kv_quant ? rope_kv_write_kernel<T, VEC, true, true>
+  auto kern = a->kv_quant ? (rope ? rope_kv_write_kernel<T, VEC, true, true>
+                                  : rope_kv_write_kernel<T, VEC, true, false>)
               : rope      ? (vec ? rope_kv_write_kernel<T, VEC, false, true>
                                  : rope_kv_write_kernel<T, 1, false, true>)
               : vec       ? rope_kv_write_kernel<T, VEC, false, false>

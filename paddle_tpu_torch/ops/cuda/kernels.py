@@ -81,6 +81,17 @@ def layer_norm_rows_cuda(x, w, b, eps: float):
 
 
 # -------------------------------------------------------------------- gemm
+def _epilogue_ref(y, residual, bias, gelu):
+    """``y + bias`` when ``bias`` is given, then ``gelu(., tanh)`` when
+    ``gelu``, then ``residual + .`` when ``residual`` is; each op rounded
+    to y's dtype."""
+    if bias is not None:
+        y = y + bias
+    if gelu:
+        y = F.gelu(y, approximate="tanh")
+    return y if residual is None else residual + y
+
+
 def gemm_xw_ref(x, w, w2=None, residual=None, bias=None, gelu=False):
     """``x @ w`` with the chain's epilogues: ``silu(x @ w) * (x @ w2)``
     when ``w2`` is given; else ``+ bias`` when ``bias`` is given, then
@@ -88,12 +99,7 @@ def gemm_xw_ref(x, w, w2=None, residual=None, bias=None, gelu=False):
     ``residual`` is; each op rounded to x's dtype."""
     if w2 is not None:
         return F.silu(x @ w) * (x @ w2)
-    y = x @ w
-    if bias is not None:
-        y = y + bias
-    if gelu:
-        y = F.gelu(y, approximate="tanh")
-    return y if residual is None else residual + y
+    return _epilogue_ref(x @ w, residual, bias, gelu)
 
 
 def qkv_split_ref(qkv, head_dim: int):
@@ -104,15 +110,15 @@ def qkv_split_ref(qkv, head_dim: int):
     return tuple(p.reshape(M, -1).contiguous() for p in parts)
 
 
-def _gemm_epi(w2, residual, bias, gelu) -> int:
-    """The ``EPI_*`` of one gemm_xw call's arguments."""
+def _gemm_epi(w2, residual, bias, gelu, op="gemm_xw") -> int:
+    """The ``EPI_*`` of one ``op`` call's arguments."""
     if w2 is not None:
         if residual is not None or bias is not None or gelu:
-            raise ValueError("gemm_xw: the SwiGLU epilogue takes no "
+            raise ValueError(f"{op}: the SwiGLU epilogue takes no "
                              "residual, bias or GELU")
         return build.EPI_SWIGLU
     if gelu and (bias is None or residual is not None):
-        raise ValueError("gemm_xw: GELU comes with a bias and no residual")
+        raise ValueError(f"{op}: GELU comes with a bias and no residual")
     if bias is None:
         return build.EPI_NONE if residual is None else build.EPI_RESID
     if gelu:
@@ -158,40 +164,49 @@ def gemm_xw_cuda(x, w, w2=None, residual=None, bias=None, gelu=False,
 
 
 # ------------------------------------------------- weight-only layer GEMM
-def _epi(residual, gate):
-    """``(EPI_*, its [M, N] operand)`` of one layer GEMM's epilogue."""
-    if residual is not None and gate is not None:
-        raise ValueError("wo_layer: residual and gate epilogues exclude "
-                         "each other")
-    if residual is not None:
-        return build.EPI_RESID, residual
-    if gate is not None:
-        return build.EPI_SWIGLU_R, gate
-    return build.EPI_NONE, None
+def _wo_epi(residual, gate, bias, gelu):
+    """``(EPI_*, its [M, N] operand)`` of one layer GEMM's epilogue: the
+    Llama layer's (residual, or SwiGLU on the gate) or the GPT layer's
+    (bias, with a residual or GELU), as :func:`_gemm_epi` picks them."""
+    if gate is None:
+        return _gemm_epi(None, residual, bias, gelu, "wo_layer"), residual
+    if residual is not None or bias is not None or gelu:
+        raise ValueError("wo_layer: the gate epilogue takes no residual, "
+                         "bias or GELU")
+    return build.EPI_SWIGLU_R, gate
 
 
 def wo_layer_ref(x, codes, scale, *, width: str, group_size: int = -1,
-                 residual=None, gate=None):
+                 residual=None, gate=None, bias=None, gelu=False):
     """Plain version of one weight-only layer GEMM: ``make_mm``'s
     arithmetic (y in fp32 times the fp32 codes, then the per-channel scale;
     grouped scales dequantize the fp32 weight first; rounded to x's dtype),
-    then ``residual + y`` or ``silu(gate) * y`` in x's dtype."""
+    then in x's dtype ``silu(gate) * y``, or ``y + bias``, then
+    ``gelu(., tanh)`` when ``gelu``, then ``residual + .`` (the epilogues
+    of :func:`gemm_xw_ref`).  The qkv product comes back unsplit:
+    :func:`qkv_split_ref` splits it."""
     K = x.shape[-1]
     spec = DecodeBlockSpec(hidden=K, num_heads=1, kv_heads=1, head_dim=K,
                            block_size=1, weight_dtype=width,
                            group_size=group_size)
-    epi, r = _epi(residual, gate)
+    epi, r = _wo_epi(residual, gate, bias, gelu)
     y = make_mm(spec)({"w__q": codes, "w__s": scale}, "w", x)
-    if epi == build.EPI_RESID:
-        return r + y
-    return F.silu(r) * y if epi == build.EPI_SWIGLU_R else y
+    if epi == build.EPI_SWIGLU_R:
+        return F.silu(r) * y
+    return _epilogue_ref(y, residual, bias, gelu)
 
 
 def wo_layer_cuda(x, codes, scale, *, width: str, group_size: int = -1,
-                  residual=None, gate=None):
+                  residual=None, gate=None, bias=None, gelu=False,
+                  qkv_head_dim: Optional[int] = None):
     """``x`` [M, K] CUDA tensor, ``codes`` int8 [K, N] (int4: [K/2, N]),
     ``scale`` fp32 [N] or [ceil(K / group_size), N]; ``residual`` or
-    ``gate`` [M, N] in x's dtype -> [M, N]: one ``wo_layer_*`` launch."""
+    ``gate`` [M, N] and ``bias`` [N] in x's dtype -> [M, N]: one
+    ``wo_layer_*`` launch with the epilogue of :func:`wo_layer_ref`.
+    ``qkv_head_dim`` D (no residual, gate or GELU): the product is a fused
+    qkv and comes back split as :func:`qkv_split_ref` splits it, ``(q, k,
+    v)`` each [M, N / 3] (three slabs of one buffer, stored by the
+    kernel's epilogue)."""
     _cuda(x, "wo_layer")
     M, K = x.shape
     N = codes.shape[1]
@@ -200,22 +215,31 @@ def wo_layer_cuda(x, codes, scale, *, width: str, group_size: int = -1,
     layer.check_tensor(x, "x", (M, K), dt, dev)
     layer.check_tensor(codes, "codes", cshape, torch.int8, dev)
     layer.check_tensor(scale, "scale", sshape, torch.float32, dev)
-    epi, R = _epi(residual, gate)
+    epi, R = _wo_epi(residual, gate, bias, gelu)
     if R is not None:
         layer.check_tensor(R, "residual" if gate is None else "gate",
                            (M, N), dt, dev)
-    y = torch.empty((M, N), dtype=dt, device=dev)
+    if bias is not None:
+        layer.check_tensor(bias, "bias", (N,), dt, dev)
+    D = qkv_head_dim or 0
+    if D and (D % 2 or N % (3 * D) or epi not in (build.EPI_NONE,
+                                                   build.EPI_BIAS)):
+        raise ValueError(f"wo_layer: the qkv split takes an even head_dim "
+                         f"dividing N / 3 ({N} / 3, head_dim {D}) and no "
+                         "residual, gate or GELU")
+    y = torch.empty((3, M, N // 3) if D else (M, N), dtype=dt, device=dev)
     half = K // 2 if width == "int4" else 0
     a = build.WoArgs(int4=int(width == "int4"), x_dtype=layer.dtype_code(dt),
                      M=M, K=K, N=N, half=half, ldx=K, xhi=half, gs=gs,
                      G=sshape[0] if len(sshape) == 2 else 1, tile_dq=0,
-                     epi=epi, x=x.data_ptr(), w=codes.data_ptr(),
+                     epi=epi, qkv_d=D, x=x.data_ptr(), w=codes.data_ptr(),
                      scale=scale.data_ptr(), y=y.data_ptr(),
-                     R=None if R is None else R.data_ptr())
+                     R=None if R is None else R.data_ptr(),
+                     B=None if bias is None else bias.data_ptr())
     build.check(build.library().pt_wo_layer(ctypes.byref(a),
                                             layer.stream_handle()),
                 "pt_wo_layer")
-    return y
+    return tuple(y) if D else y
 
 
 # --------------------------------------------------------- rope + kv write

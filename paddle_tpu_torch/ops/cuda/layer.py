@@ -4,15 +4,17 @@ the ``LayerArgs`` they fill.
 One layer launches its chain from one C entry point.  A Llama layer:
 ``rms_norm_rows``, ``gemm_xw`` (q, k, v), ``rope_kv_write``,
 ``paged_attention``, ``gemm_xw`` (o + residual), ``rms_norm_rows``,
-``gemm_xw`` (gate/up SwiGLU), ``gemm_xw`` (down + residual).  A weight-only
-quantized Llama layer runs its seven matmuls on ``wo_layer_*`` (gate, then
-up with the SwiGLU in its epilogue), and an int8 KV pool takes
-``rope_kv_write_q8`` and ``paged_attention_q8``.  A GPT layer:
+``gemm_xw`` (gate/up SwiGLU), ``gemm_xw`` (down + residual).  A GPT layer:
 ``layer_norm_rows``, ``gemm_xw`` (qkv + bias, stored split into q / k / v),
 ``rope_kv_write`` (no rotation: k / v into the pool), ``paged_attention``,
 ``gemm_xw`` (proj + bias + residual), ``layer_norm_rows``, ``gemm_xw``
-(fc1 + bias, GELU), ``gemm_xw`` (fc2 + bias + residual).  The launches
-are counted in the kernel library itself, where each kernel is launched:
+(fc1 + bias, GELU), ``gemm_xw`` (fc2 + bias + residual).  A weight-only
+quantized layer of either kind runs its matmuls on ``wo_layer_*`` with the
+same epilogues (a Llama layer's seven: gate, then up with the SwiGLU in
+its epilogue; a GPT layer's four), and an int8 KV pool takes
+``rope_kv_write_q8`` (rotated or not) and ``paged_attention_q8``.  The
+launches are counted in the kernel library itself, where each kernel is
+launched:
 :func:`launch_counts` reads those counters and :func:`reset_counts` sets
 them to zero.
 """
@@ -170,31 +172,26 @@ def layer_args(pool_k, pool_v, block_table, *, M: int, lengths=None,
 
     A whole layer (``decode_block`` / ``prefill_block``) passes ``spec``,
     the ``[M, H]`` residual stream ``x`` and the layer's weights ``lp``
-    (:data:`WEIGHTS` of its layout; with ``spec.weight_dtype``, a Llama
-    layer's matmuls as ``<name>__q`` int8 codes, ``[K, N]`` or int4
-    ``[K/2, N]``, and ``<name>__s`` fp32 scales, ``[N]`` or ``[G, N]``);
+    (:data:`WEIGHTS` of its layout; with ``spec.weight_dtype``, the
+    layout's :data:`MATMULS` as ``<name>__q`` int8 codes, ``[K, N]`` or
+    int4 ``[K/2, N]``, and ``<name>__s`` fp32 scales, ``[N]`` or ``[G,
+    N]``, the norm gains and biases in the model dtype);
     its scratch and its output (``tensors["out"]``) are allocated here (a
     GPT layer's q / k / v scratch as the three slabs of one ``[3, M, H]``
     buffer, which its qkv product's epilogue fills).  A single kernel
     passes its own ``q``/``k``/``v``/``attn`` instead.  ``cos`` / ``sin``
     ``[M, D]`` rotate q and k; without them (a layer without RoPE) the
-    RoPE / KV write only stores k and v.  The pools are ``[NB, BS, Hkv,
-    D]`` tensors in the model dtype or int8 ``QuantizedKVPool``s (codes
-    and ``[NB, BS, Hkv]`` fp32 scales).  Rows are decode slots when
+    RoPE / KV write only stores k and v, as they are or as int8 codes.
+    The pools are ``[NB, BS, Hkv, D]`` tensors in the model dtype or int8
+    ``QuantizedKVPool``s (codes and ``[NB, BS, Hkv]`` fp32 scales).  Rows are decode slots when
     ``lengths`` is given (``block_table`` [M, MB]), else one prefill chunk
     (``block_table`` [MB])."""
-    from ..decode_block import GPT_QUANT_ITEM
     pk, pv, pks, pvs = _pool_parts(pool_k, pool_v)
     if not isinstance(pk, torch.Tensor) or pk.ndim != 4:
         raise ValueError("pool_k must be a [NB, BS, Hkv, D] tensor")
     kv_quant = pks is not None
     kind = layout(spec) if spec is not None else None
     rope = spec.rope if spec is not None else cos is not None
-    # a layer or a RoPE / KV write (k given) into an int8 pool must rotate
-    if kv_quant and not rope and (spec is not None or k is not None):
-        raise NotImplementedError(
-            "the unrotated K / V write into an int8 pool (a GPT-family "
-            "layer) is not ported yet — " + GPT_QUANT_ITEM)
     if rope and (cos is None or sin is None):
         raise ValueError("a layer with RoPE needs its cos / sin rows")
     dev = pk.device

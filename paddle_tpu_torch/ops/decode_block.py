@@ -3,13 +3,14 @@
 Two layer kinds:
 
 * a Llama layer: RMSNorm, split q / k / v, rotate-half RoPE, SwiGLU, no
-  biases; its matmuls full-width or weight-only int8 / int4, over a
-  full-width or an int8 paged-KV pool;
+  biases;
 * a GPT layer: LayerNorm with bias, one fused qkv product with its bias
   (split per head as ``[q | k | v]``), learned positions (no rotation),
-  biased out-projection and a ``fc1 + b -> gelu(tanh) -> fc2 + b`` FFN;
-  full-width matmuls over a full-width pool (the quantized GPT layer is
-  ROADMAP queue 2 A's "the GPT layer quantized").
+  biased out-projection and a ``fc1 + b -> gelu(tanh) -> fc2 + b`` FFN.
+
+Either kind takes its matmuls full-width or weight-only int8 / int4 (per
+channel or groups of 64 / 128), over a full-width or an int8 paged-KV
+pool.
 
 Each op has two versions and no third:
 
@@ -46,11 +47,7 @@ from .paged_kv import (dequantize_kv, is_quantized_pool, paged_append,
 __all__ = ["DecodeBlockSpec", "decode_block_spec", "rotate_half",
            "make_norm", "make_mm", "make_ffn", "make_norm_ffn",
            "causal_mask", "decode_block_ref", "prefill_block_ref",
-           "decode_block", "prefill_block", "GPT_QUANT_ITEM"]
-
-
-#: the ROADMAP item that the quantized GPT layer waits for
-GPT_QUANT_ITEM = "ROADMAP queue 2 A, item 1: the GPT layer quantized"
+           "decode_block", "prefill_block"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +60,8 @@ class DecodeBlockSpec:
     weights live in the layer's dict as ``<name>__q`` codes (int4
     halves-packed) and ``<name>__s`` fp32 scales (the
     ``quantization.serve`` export layout), one a channel or, with
-    ``group_size`` 64 / 128, one a (row group, channel); the Llama layer
-    only (:data:`GPT_QUANT_ITEM`)."""
+    ``group_size`` 64 / 128, one a (row group, channel); the norm gains and
+    the biases stay full-width."""
     hidden: int
     num_heads: int
     kv_heads: int
@@ -101,11 +98,6 @@ class DecodeBlockSpec:
                              f"{self.group_size}")
         if self.weight_dtype is None and self.group_size != -1:
             raise ValueError("group_size requires weight_dtype")
-        if self.weight_dtype is not None and not self.llama_layout:
-            raise NotImplementedError(
-                "weight-only quantized GPT-family layers (LayerNorm, fused "
-                "qkv, biases, GELU, no RoPE) are not ported yet — "
-                + GPT_QUANT_ITEM)
 
     @property
     def llama_layout(self) -> bool:
@@ -121,8 +113,8 @@ def decode_block_spec(cfg, block_size: int,
     ``rms_norm_eps`` (Llama family) to rms / SwiGLU / RoPE, one with
     ``layer_norm_eps`` (GPT family) to ln / GELU / no RoPE / fused qkv /
     biases.  ``weight_dtype`` / ``group_size`` select the weight-only
-    quantized Llama layer (the parameters carry ``__q`` / ``__s`` leaves
-    from ``quantization.quantize_params_for_serving``).  MoE configs are
+    quantized layer of either family (the parameters carry ``__q`` /
+    ``__s`` leaves from ``quantization.quantize_params_for_serving``).  MoE configs are
     outside this port's slices (ROADMAP queue 1)."""
     if getattr(cfg, "moe_num_experts", 0):
         raise NotImplementedError(
@@ -253,13 +245,6 @@ def _proj(attn, lp, spec: DecodeBlockSpec, mm):
     return proj + lp["proj_b"] if spec.bias else proj
 
 
-def _refuse_unported(spec: DecodeBlockSpec, pool_k, op: str):
-    if is_quantized_pool(pool_k) and not spec.llama_layout:
-        raise NotImplementedError(
-            f"{op}: a GPT-family layer over an int8 KV pool is not ported "
-            "yet — " + GPT_QUANT_ITEM)
-
-
 def decode_block_ref(x, lp, pool_k, pool_v, block_table, lengths, cos, sin,
                      *, spec: DecodeBlockSpec):
     """Plain version: one decode token per sequence through the layer's
@@ -358,7 +343,7 @@ def decode_block(x, lp, pool_k, pool_v, block_table, lengths, cos, sin, *,
     ``x``: [B, H] residual stream; ``lp``: the layer's weights
     (``models.llama.block_shapes`` or ``models.gpt.block_shapes`` keys,
     ``[in, out]``; a quantized spec's ``<name>__q`` / ``<name>__s`` for
-    the seven matmuls); ``pool_k/v``: [NB, BS, Hkv, D] tensors or (Llama)
+    the matmuls); ``pool_k/v``: [NB, BS, Hkv, D] tensors or
     ``QuantizedKVPool`` s; ``block_table``: [B, MB] int32; ``lengths``:
     [B] tokens already stored; ``cos``/``sin``: [B, D], None for a layer
     without RoPE.  Returns ``(x_out, pool_k, pool_v)``
@@ -372,7 +357,6 @@ def decode_block(x, lp, pool_k, pool_v, block_table, lengths, cos, sin, *,
         (x.shape[0], spec.num_heads, spec.head_dim), pool_k, pool_v,
         block_table, lengths, op="decode_block")
     _check_device(x, "decode_block")
-    _refuse_unported(spec, pool_k, "decode_block")
     if x.is_cuda:
         from .cuda.decode_block import decode_block_cuda
         return decode_block_cuda(x, lp, pool_k, pool_v, block_table,
@@ -391,7 +375,6 @@ def prefill_block(x, lp, pool_k, pool_v, blk, off, bt_row, cos, sin, *,
     argument is always that mask in the engine, so both versions build
     it from ``start``)."""
     _check_device(x, "prefill_block")
-    _refuse_unported(spec, pool_k, "prefill_block")
     if x.is_cuda:
         from .cuda.prefill_block import prefill_block_cuda
         return prefill_block_cuda(x, lp, pool_k, pool_v, blk, off, bt_row,

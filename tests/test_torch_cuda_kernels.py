@@ -11,6 +11,7 @@ it runs on the card's machine:
 Tolerances: fp32 1e-4 (sums in another order over K up to 11008),
 bf16 2e-2 relative and absolute (one bf16 rounding of each stage)."""
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -146,8 +147,10 @@ QUANT = [("int8", -1, True), ("int4", -1, True), ("int8", 64, False)]
 QIDS = ["int8-kv8", "int4-kv8", "int8g64"]
 
 
-def _quantized(c, width, gs, kvq):
-    """``c`` with its layer PTQ-exported and (kvq) its pools int8."""
+def _quantized(c, width, gs, kvq, spec=None):
+    """``c`` with its layer PTQ-exported (``width`` None: full width) and
+    (kvq) its pools int8, and the quantized spec of ``spec`` (default the
+    file's Llama layer)."""
     from paddle_tpu_torch.ops import paged_kv as tkv
     from paddle_tpu_torch.quantization import (ServeQuantConfig,
                                                quantize_params_for_serving)
@@ -158,10 +161,8 @@ def _quantized(c, width, gs, kvq):
     if kvq:
         for n in ("pool_k", "pool_v"):
             out[n] = tkv.QuantizedKVPool(*tkv.quantize_kv(c[n]))
-    spec = tdb.DecodeBlockSpec(hidden=H, num_heads=HQ, kv_heads=HKV,
-                               head_dim=D, block_size=BS, weight_dtype=width,
-                               group_size=gs)
-    return out, spec
+    return out, dataclasses.replace(spec or _spec(), weight_dtype=width,
+                                    group_size=gs)
 
 
 def _pool_copy(p):
@@ -1486,10 +1487,68 @@ def test_gpt_plain_versions_compose_to_the_op():
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
 
 
+# the quantized GPT layer: (weight width or None, group size, int8 pools)
+GPT_QUANT = [("int8", -1, True), ("int4", -1, False), ("int8", 64, True),
+             (None, -1, True)]
+GPT_QIDS = ["int8-kv8", "int4", "int8g64-kv8", "bf16w-kv8"]
+
+
+@pytest.mark.parametrize("width,gs,kvq", GPT_QUANT, ids=GPT_QIDS)
+def test_gpt_quantized_plain_versions_compose_to_the_op(width, gs, kvq):
+    """CPU: the quantized GPT chain of per-kernel plain versions (the
+    weight-only GEMMs with the bias, GELU and residual epilogues, the qkv
+    product split per head, the unrotated write into int8 pools, the
+    attention over them) is the op's plain version."""
+    c, spec = _quantized(_gpt_case(torch.float32, "cpu"), width, gs, kvq,
+                         _gpt_spec())
+    lp, eps = c["lp"], spec.eps
+
+    def mm(name, y, **kw):
+        if width is None:
+            return K.gemm_xw_ref(y, lp[name], **kw)
+        return K.wo_layer_ref(y, lp[name + "__q"], lp[name + "__s"],
+                              width=width, group_size=gs, **kw)
+    pk, pv = _pool_copy(c["pool_k"]), _pool_copy(c["pool_v"])
+    y = K.layer_norm_rows_ref(c["x"], lp["ln1_w"], lp["ln1_b"], eps)
+    q, k, v = K.qkv_split_ref(mm("qkv_w", y, bias=lp["qkv_b"]), D)
+    q, k = K.rope_kv_write_ref(q, k, v, None, None, pk, pv, head_dim=D,
+                               block_table=c["bt"], lengths=c["lengths"])
+    attn = K.paged_attention_ref(q, pk, pv, block_table=c["bt"],
+                                 lengths=c["lengths"])
+    xm = mm("proj_w", attn, bias=lp["proj_b"], residual=c["x"])
+    y2 = K.layer_norm_rows_ref(xm, lp["ln2_w"], lp["ln2_b"], eps)
+    h = mm("fc1_w", y2, bias=lp["fc1_b"], gelu=True)
+    got = mm("fc2_w", h, bias=lp["fc2_b"], residual=xm)
+    rk, rv = _pool_copy(c["pool_k"]), _pool_copy(c["pool_v"])
+    ref = tdb.decode_block_ref(c["x"], lp, rk, rv, c["bt"], c["lengths"],
+                               None, None, spec=spec)
+    torch.testing.assert_close(got, ref[0], rtol=1e-5, atol=1e-5)
+    for g, r in ((pk, rk), (pv, rv)):
+        for a, b in zip(*(p if kvq else (p,) for p in (g, r))):
+            assert torch.equal(a, b)
+
+
+def test_ctypes_structs_mirror_common_cuh():
+    """CPU: each ctypes Structure of ``kernels/build.py`` names the fields
+    of its ``struct`` in ``csrc/common.cuh`` in their order."""
+    import re
+    from paddle_tpu_torch.kernels import build
+    src = (Path(build.__file__).resolve().parent / "csrc" /
+           "common.cuh").read_text()
+    for name in ("LayerArgs", "WoArgs", "FlashArgs", "LceArgs", "NormArgs",
+                 "SoftmaxArgs"):
+        body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+        body = re.sub(r"//[^\n]*", "", body)
+        fields = [f for decl in body.split(";") for f in re.findall(
+            r"(\w+)\s*(?:\[\d+\])?\s*(?:,|$)", decl.strip())]
+        assert fields == [f for f, _ in getattr(build, name)._fields_], name
+
+
 def test_gpt_layer_args_checks_its_layout():
     """CPU: the GPT layer's weights are checked by their layout's names and
-    shapes, a mix of the two layers' variants is refused, and so is the
-    unrotated write into an int8 pool."""
+    shapes, and a mix of the two layers' variants is refused; a quantized
+    GPT layer over int8 pools and the unrotated write into them pass the
+    layout checks and go on to the device check."""
     from paddle_tpu_torch.models import gpt, llama
     assert set(layer.WEIGHTS["gpt"]) == set(gpt.block_shapes(
         gpt.GPTConfig()))
@@ -1502,13 +1561,13 @@ def test_gpt_layer_args_checks_its_layout():
     with pytest.raises(ValueError, match="mix"):
         layer.layout(mixed)
     from paddle_tpu_torch.ops import paged_kv as tkv
-    c = _gpt_case(torch.float32, "cpu")
-    pk, pv = (tkv.QuantizedKVPool(*tkv.quantize_kv(c[n]))
-              for n in ("pool_k", "pool_v"))
-    with pytest.raises(NotImplementedError, match="GPT layer quantized"):
+    c, spec = _quantized(_gpt_case(torch.float32, "cpu"), "int8", -1, True,
+                         _gpt_spec())
+    pk, pv = c["pool_k"], c["pool_v"]
+    with pytest.raises(ValueError, match="CUDA tensors"):
         layer.layer_args(pk, pv, c["bt"], M=4, lengths=c["lengths"],
-                         spec=_gpt_spec(), x=c["x"], lp=c["lp"])
-    with pytest.raises(NotImplementedError, match="GPT layer quantized"):
+                         spec=spec, x=c["x"], lp=c["lp"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
         layer.layer_args(pk, pv, c["bt"], M=4, lengths=c["lengths"],
                          q=c["x"], k=c["x"], v=c["x"])
     # the attention alone over an int8 pool takes no cos / sin: it goes on
@@ -1655,3 +1714,202 @@ def test_gpt_prefill_block_kernel_matches_plain(dt, Ts, start, valid):
     _close(got[0][:, :valid], ref[0][:, :valid], dt)
     _close(got[1], ref[1], dt)
     _close(got[2], ref[2], dt)
+
+
+WO_BIAS_W = [("int8", -1), ("int4", -1), ("int4", 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 256, 300])
+@pytest.mark.parametrize("epi", ["bias_qkv", "bias_resid", "bias_gelu"])
+@pytest.mark.parametrize("width,gs", WO_BIAS_W,
+                         ids=["int8", "int4", "int4g64"])
+def test_wo_layer_bias_epilogues_match_plain(dt, M, epi, width, gs):
+    """The quantized GPT layer's epilogues on the weight-only kernels at
+    both bf16 regimes' edges and on the fp32 lane, K 640 (ten 64-row
+    steps, five a nibble plane): the bias (the qkv product stored split
+    per head, N 576 = 3 heads of 3 x 64, so 128-channel tiles straddle
+    heads and parts), the bias and residual, the bias and GELU; one launch
+    a call, a second call bit-identical."""
+    _need_card()
+    from paddle_tpu_torch.quantization import ServeQuantConfig
+    from paddle_tpu_torch.quantization.serve import _quantize_matrix
+    rng = np.random.default_rng(M + 11)
+
+    def t(*shape, scale=0.1):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * scale).to("cuda")
+    Kd, N = 640, 576 if epi == "bias_qkv" else 272
+    codes, scale = _quantize_matrix(t(Kd, N), ServeQuantConfig(width, gs))
+    x, b, r = t(M, Kd, scale=1.0).to(dt), t(N).to(dt), t(M, N).to(dt)
+    kw = dict(width=width, group_size=gs, bias=b, gelu=epi == "bias_gelu",
+              residual=r if epi == "bias_resid" else None)
+    split = {"qkv_head_dim": 64} if epi == "bias_qkv" else {}
+    kernel = "wo_layer_f32" if dt == torch.float32 else \
+        f"wo_layer_{width}_{'small_m' if M <= 16 else 'tiled'}"
+
+    def run():
+        out = K.wo_layer_cuda(x, codes, scale, **split, **kw)
+        return torch.stack(out) if split else out
+    got = _once_bitwise(run, kernel)
+    ref = K.wo_layer_ref(x, codes, scale, **kw)
+    if split:
+        ref = torch.stack(K.qkv_split_ref(ref, 64))
+    _close(got, ref, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_rope_kv_write_q8_unrotated_equals_plain_bit_for_bit(dt, mode, Dh):
+    """Without cos / sin into int8 pools (the quantized GPT layer): q and
+    k untouched, the written rows' codes and scales equal ``quantize_kv``
+    of the unrotated rows bit for bit, dropped writes leave the pools
+    alone; one ``rope_kv_write_q8`` launch a call, a second call
+    bit-identical."""
+    _need_card()
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    q, k, v, _, _, pk, pv, kw = _rope_kv_inputs(dt, Dh, 1, mode)
+    pk, pv = (tkv.QuantizedKVPool(*tkv.quantize_kv(p)) for p in (pk, pv))
+
+    def flat(gk, gv):
+        return torch.cat([t.flatten().int() for t in (
+            gk.data, _bits(gk.scale), gv.data, _bits(gv.scale))])
+
+    def run():
+        qq, kk, gk, gv = q.clone(), k.clone(), _pool_copy(pk), _pool_copy(pv)
+        K.rope_kv_write_cuda(qq, kk, v, None, None, gk, gv, **kw)
+        assert torch.equal(qq, q) and torch.equal(kk, k)
+        return flat(gk, gv)
+    got = _once_bitwise(run, "rope_kv_write_q8")
+    rk, rv = _pool_copy(pk), _pool_copy(pv)
+    K.rope_kv_write_ref(q, k, v, None, None, rk, rv, head_dim=Dh, **kw)
+    assert torch.equal(got, flat(rk, rv))
+
+
+# int8-pool attention: (G, head_dim), GPT-125M's one q head a kv head at
+# D 64 first
+PATTN_Q8_GD = [(1, 64), (1, 32), (1, 128), (4, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("mode", ["decode", "prefill16", "prefill256"])
+@pytest.mark.parametrize("G,Dh", PATTN_Q8_GD,
+                         ids=[f"G{g}-D{d}" for g, d in PATTN_Q8_GD])
+def test_paged_attention_q8_matches_plain(dt, mode, G, Dh):
+    """Over int8 pools: decode rows at lengths 1000 / 37 / 0 / 517 (the
+    smoke's), a prefill chunk of 16 rows after 5 positions (the one-warp
+    tensor-core body) and one of 256 after 300; one launch of
+    ``paged_attention_q8``, a second call bit-identical."""
+    _need_card()
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    lengths = [1000, 37, 0, 517]
+    rows = {"decode": 4, "prefill16": 16, "prefill256": 256}[mode]
+    q, pk, pv, perm = _pattn_inputs(dt, G, Dh, 33, rows)
+    pk, pv = (tkv.QuantizedKVPool(*tkv.quantize_kv(p)) for p in (pk, pv))
+    if mode == "decode":
+        bt = torch.full((4, 128), -1, dtype=torch.int32)
+        used = 0
+        for b, n in enumerate(lengths):
+            need = -(-(n + 1) // 16)
+            bt[b, :need] = torch.from_numpy(perm[used:used + need].astype(
+                np.int32))
+            used += need
+        kw = dict(block_table=bt.cuda(), lengths=torch.tensor(
+            lengths, dtype=torch.int32, device="cuda"))
+    else:
+        start = 5 if mode == "prefill16" else 300
+        bt = torch.full((64,), -1, dtype=torch.int32)
+        need = -(-(start + rows) // 16)
+        bt[:need] = torch.from_numpy(perm[:need].astype(np.int32))
+        kw = dict(block_table=bt.cuda(), start=start)
+    got = _once_bitwise(lambda: K.paged_attention_cuda(q, pk, pv, **kw),
+                        "paged_attention_q8")
+    _close(got, K.paged_attention_ref(q, pk, pv, **kw), dt)
+
+
+def _gpt_launches(entry, dt, width, kvq, rows):
+    """One quantized GPT layer call's launches."""
+    if width is None:
+        gemm = "gemm_xw_f32" if dt == torch.float32 else \
+            "gemm_xw_small_m" if rows <= 16 else "gemm_xw_tiled"
+    else:
+        gemm = "wo_layer_f32" if dt == torch.float32 else \
+            f"wo_layer_{width}_{'small_m' if rows <= 16 else 'tiled'}"
+    q8 = "_q8" if kvq else ""
+    return {entry: 1, "layer_norm_rows": 2, gemm: 4,
+            "rope_kv_write" + q8: 1, "paged_attention" + q8: 1}
+
+
+def _close_pools(got, ref, dt, kvq):
+    """Pools of a kernel call against the plain version's: int8 codes at
+    most one step apart (a k a rounding apart may take the next code),
+    scales to 2e-2; full-width pools at the tolerance."""
+    for g, r in zip(got, ref):
+        if kvq:
+            assert (g.data.int() - r.data.int()).abs().max() <= 1
+            _close(g.scale, r.scale, torch.bfloat16)
+        else:
+            _close(g, r, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("width,gs,kvq", GPT_QUANT, ids=GPT_QIDS)
+def test_gpt_quantized_decode_block_kernel_matches_plain(dt, width, gs, kvq):
+    _need_card()
+    c, spec = _quantized(_gpt_case(dt, "cuda"), width, gs, kvq, _gpt_spec())
+    rk, rv = _pool_copy(c["pool_k"]), _pool_copy(c["pool_v"])
+    ref = tdb.decode_block_ref(c["x"], c["lp"], rk, rv, c["bt"],
+                               c["lengths"], None, None, spec=spec)
+    gk, gv = _pool_copy(c["pool_k"]), _pool_copy(c["pool_v"])
+    layer.reset_counts()
+    got = tdb.decode_block(c["x"], c["lp"], gk, gv, c["bt"], c["lengths"],
+                           None, None, spec=spec)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in layer.launch_counts().items() if n} == \
+        _gpt_launches("decode_block", dt, width, kvq, 4)
+    _close(got[0][:3], ref[0][:3], dt)           # row 3: inactive slot
+    _close_pools((gk, gv), (rk, rv), dt, kvq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", DTYPES, ids=IDS)
+@pytest.mark.parametrize("width,gs,kvq", GPT_QUANT, ids=GPT_QIDS)
+@pytest.mark.parametrize("Ts,start,valid", [(16, 0, 16), (24, 5, 20),
+                                            (64, 3, 64)])
+def test_gpt_quantized_prefill_block_kernel_matches_plain(dt, width, gs, kvq,
+                                                          Ts, start, valid):
+    _need_card()
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    c, spec = _quantized(_gpt_case(dt, "cuda", seed=32), width, gs, kvq,
+                         _gpt_spec())
+    rng = np.random.default_rng(4)
+    mb = 24
+    bt_row = torch.arange(mb, dtype=torch.int32, device="cuda")
+    pools = [torch.from_numpy(rng.standard_normal(
+        (mb, BS, GPT_HEADS, D)).astype(np.float32)).to("cuda", dt)
+        for _ in range(2)]
+    if kvq:
+        pools = [tkv.QuantizedKVPool(*tkv.quantize_kv(p)) for p in pools]
+    pos = start + torch.arange(Ts, device="cuda")
+    blk = bt_row[pos // BS]
+    blk[valid:] = mb
+    blk, off = blk.to(torch.int32), (pos % BS).to(torch.int32)
+    x = torch.from_numpy(rng.standard_normal((1, Ts, H)).astype(
+        np.float32)).to("cuda", dt)
+    ref = tdb.prefill_block_ref(x, c["lp"], *map(_pool_copy, pools), blk,
+                                off, bt_row, None, None, spec=spec,
+                                start=start)
+    gk, gv = map(_pool_copy, pools)
+    layer.reset_counts()
+    got = tdb.prefill_block(x, c["lp"], gk, gv, blk, off, bt_row, None,
+                            None, spec=spec, start=start)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in layer.launch_counts().items() if n} == \
+        _gpt_launches("prefill_block", dt, width, kvq, Ts)
+    _close(got[0][:, :valid], ref[0][:, :valid], dt)
+    _close_pools((gk, gv), ref[1:], dt, kvq)

@@ -18,8 +18,8 @@ CPU the port runs its plain versions:
 * the plain versions of the new kernel modes (the LayerNorm rows, the
   bias / GELU epilogues, the qkv split, the unrotated K / V write) against
   their JAX counterparts;
-* the refusals: a quantized GPT layer, a GPT layer over an int8 pool, and
-  the engine's GPT config.
+* the engine's refusal of a GPT config (the quantized GPT layer:
+  ``tests/test_torch_gpt_quant_serving.py``).
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_gpt_serving.py
 """
@@ -45,7 +45,6 @@ from paddle_tpu_torch.bridge import params_from_numpy
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops import decode_block as tdb
-from paddle_tpu_torch.ops import paged_kv as tkv
 from paddle_tpu_torch.ops.cuda import kernels as K
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -312,35 +311,6 @@ def test_unrotated_kv_write_plain_matches_jax_paged_append(dt):
                                   np.asarray(jk, np.float32))
     np.testing.assert_array_equal(pv.float().numpy(),
                                   np.asarray(jv, np.float32))
-
-
-def test_quantized_gpt_layer_refused_naming_the_item():
-    with pytest.raises(NotImplementedError, match="GPT layer quantized"):
-        tdb.decode_block_spec(tgpt.gpt_125m(), 16, weight_dtype="int8")
-    with pytest.raises(NotImplementedError, match="GPT layer quantized"):
-        tdb.DecodeBlockSpec(hidden=H, num_heads=HQ, kv_heads=HQ, head_dim=D,
-                            block_size=BS, weight_dtype="int4", **VARIANT)
-
-
-@pytest.mark.parametrize("op", ["decode_block", "prefill_block"])
-def test_gpt_layer_over_int8_pool_refused_naming_the_item(op):
-    _, tspec = _specs()
-    c = _decode_case() if op == "decode_block" else _prefill_case()
-    lp = {k: torch.from_numpy(v) for k, v in c["lp"].items()}
-    pk, pv = (tkv.QuantizedKVPool(*tkv.quantize_kv(torch.from_numpy(
-        c[n]))) for n in ("pool_k", "pool_v"))
-    with pytest.raises(NotImplementedError, match="GPT layer quantized"):
-        if op == "decode_block":
-            tdb.decode_block(torch.from_numpy(c["x"]), lp, pk, pv,
-                             torch.from_numpy(c["bt"]),
-                             torch.from_numpy(c["lengths"]), None, None,
-                             spec=tspec)
-        else:
-            tdb.prefill_block(torch.from_numpy(c["x"]), lp, pk, pv,
-                              torch.from_numpy(c["blk"]),
-                              torch.from_numpy(c["off"]),
-                              torch.from_numpy(c["bt_row"]), None, None,
-                              spec=tspec, start=c["start"])
 
 
 def test_engine_refuses_gpt_configs_naming_the_ops():

@@ -22,7 +22,10 @@ prefill seconds and the mean time to first token, and ``layer_host``:
 one bf16 ``decode_block`` call at ``chip_smoke.py``'s kernels-phase
 inputs (llama_7b layer, B 4, lengths 1000/37/0/517): device ms of the
 chain (profiler), ms a call of 20 back to back (CUDA events) and the host
-time of one call (the median of 30, enqueue only).  Prints, per phase,
+time of one call (the median of 30, enqueue only), and ``wo_layer``: the
+seven weight-only layer GEMMs of one llama_7b layer with their epilogues
+(``chip_smoke.py``'s ``QUANT_MATMULS``, int8 and int4 per channel) at x
+rows M 4 and 256: their device ms (profiler).  Prints, per phase,
 each run's step ms (the encoder: forward ms; head_host, layer_host: host
 ms; the engine's other rows their value) and the flash and linear-CE
 kernels' device ms in its profiled step, then the change's mean less the
@@ -144,6 +147,33 @@ if "layer_host" in phases:
     dev = sum(m * n for m, n in by.values())
     out["layer_host decode_block"] = {
         "host_ms": root.host_ms(one), "call_ms": call, "device_ms": dev}
+if "wo_layer" in phases:
+    from paddle_tpu_torch.models.llama import llama_7b
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    lp = root.make_layer(llama_7b(dtype="bfloat16"), gen, torch.float32,
+                         "cuda")
+    for width in ("int8", "int4"):
+        ql = root.export_layer({k: v for k, v in lp.items()
+                                if not k.startswith("ln")}, width, -1)
+        for M in (4, 256):
+            xs = {Kd: torch.randn(M, Kd, device="cuda", generator=gen).to(
+                torch.bfloat16) for Kd in {lp[w].shape[0]
+                                           for w, _ in root.QUANT_MATMULS}}
+            ex = {(w, e): root.wo_epi_kw(e, M, lp[w].shape[1], gen, "cuda",
+                                         torch.bfloat16)
+                  for w, e in root.QUANT_MATMULS}
+
+            def gemms():
+                for w, e in root.QUANT_MATMULS:
+                    K.wo_layer_cuda(xs[lp[w].shape[0]], ql[w + "__q"],
+                                    ql[w + "__s"], width=width,
+                                    **ex[(w, e)])
+            by = {}
+            cs.time_ms(gemms, 20, by)
+            out[f"wo_layer {width} M {M}"] = {"value": sum(
+                m * n for k, (m, n) in by.items() if "wo_" in k)}
 print("PAIRED " + json.dumps(out, default=float), flush=True)
 """
 
