@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's serving (Llama through the engine, GPT
-through the ops), training, generation, eager training and incubate
-fused-API paths on one CUDA card and check them.
+through the ops), training, generation, eager training, incubate
+fused-API and incubate serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -98,14 +98,17 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             fp32-distance ratio rule below), and on small cases: GQA 32/8
             at D 64, non-causal, ragged S 1000, Sq != Sk (full and
             causal), segment ids, the two bias layouts, S 200 at D 64
-            and 128 (off the 64-row tiles), causal GQA 32/4 (G 8) and the
-            encoder phase's shape (B 32, S 128, 12 heads, D 64, full);
+            and 128 (off the 64-row tiles), causal GQA 32/4 (G 8), the
+            encoder phase's shape (B 32, S 128, 12 heads, D 64, full) and
+            the fused multi transformer's context (B 4, S 512, 16 heads,
+            D 128, causal);
             kernel, plain, bound and ``scaled_dot_product_attention``
             times in bf16 (the backward kernels against SDPA's backward
             alone, and the whole ``flash_bwd_cuda`` call with its
             ``flash_delta`` share), again at the gpt phase's shape (B 8,
             S 1024, 12 heads, D 64, causal), and the forward's at the
-            encoder's, each forward beside SDPA's forward;
+            encoder's and the fused multi transformer context's, each
+            forward beside SDPA's forward;
 8. linear_ce the four linear-CE head kernels (``linear_ce_fwd``;
             ``linear_ce_dz``, ``linear_ce_dx``, ``linear_ce_dw`` per vocab
             slab of the backward) against their plain versions at the
@@ -153,7 +156,14 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             blocks) with a length-0 row, and G 8 at D 64; each call twice,
             bit-identical; kernel, plain, bound and
             ``scaled_dot_product_attention`` times warm (one cache, mostly
-            L2-resident) and cold (``DATTN_COLD`` caches in rotation);
+            L2-resident) and cold (``DATTN_COLD`` caches in rotation); then
+            on the head-major view ``cache[0].transpose(1, 2)`` of an MMHA
+            cache ``[2, 4, 16, 1024, 128]`` (lengths 1000 / 37 / 0 / 517)
+            in fp32 and bf16, one launch a call, and at the fused multi
+            transformer phase's decode shape (every length 576) the
+            head-major and ``[B, T, H, D]`` layouts timed in turns, warm
+            and cold, their outputs bit-equal, beside SDPA on the
+            head-major cache;
 12. quant_linear the weight-only int8 and int4 kernels against their plain
             versions at M 8 (decode) and M 1024 (prefill) on the three
             llama_7b weight shapes, per channel, bf16 and fp32 x, and on
@@ -211,7 +221,29 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             ``ENC_MODES`` predicts, forward ms, tokens/s, peak memory and a
             profiled forward's device-busy share; then a 2-layer forward
             of each mode through the kernels against its plain path, held
-            to an fp32 run.
+            to an fp32 run;
+18. fused multi transformer  ``FusedMultiTransformer(2048, 16, 8192,
+            num_layers=24, activation="gelu", normalize_before=True)``
+            (``gpt_1p3b``'s width and depth, D 128) in bf16 with seeded
+            random weights (2.42 GB) through ``fused_multi_transformer``:
+            one context call at B 4 x 512 tokens fills the head-major
+            caches ``[2, 4, 16, 1024, 128]`` per layer (24 ``flash_fwd``
+            launches), then 64 decode steps at time_step 512..575 (24
+            ``decode_attention`` launches a step on the caches' head-major
+            views), the launch counts exactly so and the plain attention
+            versions refused, the returned caches the caller's tensors;
+            context ms, decode step ms (wall) and tokens/s beside the
+            step's bound, one profiled step's wall and busy ms and kernel
+            3's ms a call against its bound; then at 2 layers and the
+            main path's shapes (B 4 x 512 into 1024-row caches) the context
+            output and 4 decode steps through the kernels against the
+            plain path (bf16 2e-2 or the ratio rule to an fp32 plain run)
+            and, in fp32 through the kernels, each decode step against the
+            context forward over the same tokens (1e-4); one
+            ``masked_multihead_attention`` call on a bf16 [2, 4, 16, 1024,
+            128] cache (lengths 1000/37/0/517): one ``decode_attention``
+            launch, the caller's cache returned, output and cache against
+            the same call on the CPU (2e-2).
 
 Prints one JSON line of per-kernel numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -3182,6 +3214,9 @@ def flash_bytes_ops(B, Sq, Sk, Hq, Hkv, D, causal, itemsize):
 # slice's shape (the encoder's forward only: it runs no backward)
 FLASH_GPT = ("gpt", GPT_B, GPT_S, GPT_S, 12, 12, 64, True, False, None)
 FLASH_ENC = ("encoder", 32, 128, 128, 12, 12, 64, False, False, None)
+# the fused multi transformer phase's context call (gpt_1p3b: B 4 x 512
+# tokens, 16 heads of 128, causal), checked and its forward timed
+FLASH_FMT = ("fmt context", 4, 512, 512, 16, 16, 128, True, False, None)
 # (label, B, Sq, Sk, Hq, Hkv, D, causal, segment ids, bias batch/head dims)
 FLASH_CASES = [
     ("slice", TRAIN_B, TRAIN_S, TRAIN_S, 32, 32, 128, True, False, None),
@@ -3198,6 +3233,7 @@ FLASH_CASES = [
     ("S 200 D128", 2, 200, 200, 8, 8, 128, True, False, None),
     ("gqa 32/4 causal", 2, 512, 512, 32, 4, 128, True, False, None),
     FLASH_ENC,
+    FLASH_FMT,
 ]
 
 
@@ -3219,7 +3255,7 @@ def flash_inputs(case, gen, dev):
 def phase_flash(results, dev="cuda"):
     """The three flash kernels against their plain versions; bf16 times at
     the training slice's and the gpt phase's shapes, and the forward's at
-    the encoder's."""
+    the encoder's and the fused multi transformer context's."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_attention as fc
@@ -3269,13 +3305,15 @@ def phase_flash(results, dev="cuda"):
             torch.cuda.empty_cache()
 
     # ---- bf16 timings at the slice's shape and the gpt phase's, and the
-    # forward's at the encoder's
+    # forward's at the encoder's and the fused multi transformer context's
     timed = {case[0]: flash_times(case, gen, dev)
              for case in (FLASH_CASES[0], FLASH_GPT)}
-    timed["encoder"] = flash_times(FLASH_ENC, gen, dev, backward=False)
+    for case in (FLASH_ENC, FLASH_FMT):
+        timed[case[0]] = flash_times(case, gen, dev, backward=False)
     main = timed[FLASH_CASES[0][0]]
     other = {"gpt": f"B {GPT_B}, S {GPT_S}, 12 heads, D 64, causal",
-             "encoder": "B 32, S 128, 12 heads, D 64, full"}
+             "encoder": "B 32, S 128, 12 heads, D 64, full",
+             "fmt context": "B 4, S 512, 16 heads, D 128, causal"}
     for name in names:
         t = main[name]
         fwd = name == "flash_fwd"
@@ -4222,6 +4260,13 @@ DATTN_CASES = [
 ]
 # the cold timing's caches, in rotation: 4 x 33.5 MB, more than the L2
 DATTN_COLD = 4
+# Paddle's MMHA cache [2, B, H, T_max, D] read through the head-major view
+# cache[0].transpose(1, 2) (head stride T D): the check case (lengths
+# with a zero row and rows past one 512-row block), and the layouts'
+# timing shape, the fused multi transformer phase's decode step at its
+# last cached length (FMT_CTX + FMT_STEPS rows)
+DATTN_HEADS_MAJOR = ("mmha B 4 T 1024, 16 heads D 128, head-major", 4, 16,
+                     16, 128, 1024, (1000, 37, 0, 517))
 
 
 def dattn_bytes_ops(B, Hq, Hkv, D, lengths, itemsize):
@@ -4232,20 +4277,110 @@ def dattn_bytes_ops(B, Hq, Hkv, D, lengths, itemsize):
             + 4 * B, 4 * rows * Hq * D)
 
 
-def dattn_plan(B, Hq, Hkv, D, T):
+def dattn_plan(B, Hq, Hkv, D, T, heads_major=False):
     """The kernel library's launch plan of one bf16 call
-    (``pt_decode_attention_plan``): cluster size, rows a block, stages,
-    shared memory, blocks an SM, clusters the card keeps resident."""
+    (``pt_decode_attention_plan``) on a ``[B, T, Hkv, D]`` cache, or with
+    ``heads_major`` a ``[B, Hkv, T, D]`` one: cluster size, rows a block,
+    stages, shared memory, blocks an SM, clusters the card keeps
+    resident."""
     import ctypes
     from paddle_tpu_torch.kernels import build
     fn = build.library().pt_decode_attention_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_longlong,
+                                        ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
-    build.check(fn(build.PT_BF16, B, Hq, Hkv, D, T, out),
+    build.check(fn(build.PT_BF16, B, Hq, Hkv, D, T,
+                   T * D if heads_major else D, out),
                 "pt_decode_attention_plan")
     return dict(zip(("splits", "rows_a_block", "stages", "smem_bytes",
                      "blocks_per_sm", "resident_clusters"), out))
+
+
+def dattn_heads_major(gen, dev, ratios):
+    """Kernel 3 on the head-major view of an MMHA cache: the check case in
+    fp32 and bf16 against the plain version on the same view (one launch,
+    a second call bit-identical); then at the fused multi transformer
+    phase's decode shape the head-major and the ``[B, T, H, D]`` layouts of
+    the same values timed in turns (bth, heads, heads, bth; warm: one
+    cache; cold: ``DATTN_COLD`` caches in rotation), their outputs
+    bit-equal, beside SDPA on the head-major cache and the bound."""
+    import torch
+    from paddle_tpu_torch.ops import decode_attention as tda
+    label, B, Hq, Hkv, D, T, lengths = DATTN_HEADS_MAJOR
+    c32 = torch.randn(2, B, Hkv, T, D, device=dev, generator=gen)
+    q32 = torch.randn(B, Hq, D, device=dev, generator=gen)
+    lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    err = {}
+    for dtn, dt in (("float32", torch.float32),
+                    ("bfloat16", torch.bfloat16)):
+        cache, q = c32.to(dt), q32.to(dt)
+        k, v = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+        name = f"decode_attention {label} {dtn}"
+        got = one_launch_bitwise("decode_attention",
+                                 lambda: tda.decode_attention(q, k, v, lt))
+        plain = tda.decode_attention_ref(q, k, v, lt)
+        if dtn == "float32":
+            err[dtn] = check_close(name, got, plain, TOL[dtn])
+            info(f"{name}: max |kernel - plain| {err[dtn]:.2e}")
+        else:
+            truth = tda.decode_attention_ref(q.float(), k.float(), v.float(),
+                                             lt)
+            err[dtn] = check_layer_out(name, got, plain, truth, TOL[dtn],
+                                       ratios)
+    del c32
+    rows = FMT_CTX + FMT_STEPS
+    bf = torch.bfloat16
+    q = torch.randn(B, Hq, D, device=dev, generator=gen).to(bf)
+    caches = [torch.randn(2, B, Hkv, T, D, device=dev, generator=gen).to(bf)
+              for _ in range(DATTN_COLD)]
+    views = {"heads": [(c[0].transpose(1, 2), c[1].transpose(1, 2))
+                       for c in caches],
+             "bthd": [(c[0].transpose(1, 2).contiguous(),
+                       c[1].transpose(1, 2).contiguous()) for c in caches]}
+    lt = torch.full((B,), rows, dtype=torch.int32, device=dev)
+    a = tda.decode_attention(q, *views["heads"][0], lt)
+    b = tda.decode_attention(q, *views["bthd"][0], lt)
+    if not torch.equal(a, b):
+        raise SmokeFailure("decode_attention: the head-major and [B, T, H, "
+                           "D] layouts of one cache give different bits")
+    turn = [0]
+
+    def cold(kvs):
+        i = turn[0] = (turn[0] + 1) % DATTN_COLD
+        return tda.decode_attention(q, *kvs[i], lt)
+    times = {f"{w} {lay}": [] for w in ("warm", "cold")
+             for lay in ("bthd", "heads")}
+    for lay in ("bthd", "heads", "heads", "bthd"):
+        kvs = views[lay]
+        times[f"warm {lay}"].append(time_ms(
+            lambda: tda.decode_attention(q, *kvs[0], lt), 50,
+            per_launch=True)[0])
+        times[f"cold {lay}"].append(time_ms(lambda: cold(kvs), 48,
+                                            per_launch=True)[0])
+    mask = (torch.arange(T, device=dev)[None, :] < lt[:, None])[:, None,
+                                                                 None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = time_ms(lambda: sdpa(q[:, :, None], caches[0][0], caches[0][1],
+                               attn_mask=mask), 50)[0]
+    bms, bby = bound_ms(*dattn_bytes_ops(B, Hq, Hkv, D, [rows] * B, 2))
+    mean = {k: sum(t) / len(t) for k, t in times.items()}
+    out = dict(
+        shape=f"q [{B}, {Hq}, {D}], cache [2, {B}, {Hkv}, {T}, {D}] bf16 "
+              f"read as cache[0].transpose(1, 2), every length {rows}",
+        check_case=label, max_abs_err=err["bfloat16"],
+        max_abs_err_fp32=err["float32"], times_ms=times, mean_ms=mean,
+        ms=mean["warm heads"], bound_ms=bms, bound_by=bby, library_ms=lib,
+        library_what="scaled_dot_product_attention on the head-major cache, "
+                     "q [B, H, 1, D], boolean length mask",
+        plan=dattn_plan(B, Hq, Hkv, D, T, heads_major=True),
+        plan_bthd=dattn_plan(B, Hq, Hkv, D, T))
+    info(f"decode_attention head-major {out['shape']}: in turns (bthd, "
+         f"heads, heads, bthd) device ms {times}; means {mean}; SDPA {lib} "
+         f"ms; bound {bms:.5f} ms ({bby}); plan {out['plan']} (bthd "
+         f"{out['plan_bthd']}); max |err| bf16 {err['bfloat16']:.2e} fp32 "
+         f"{err['float32']:.2e}")
+    return out
 
 
 def phase_decode_attn(results, dev="cuda"):
@@ -4279,6 +4414,7 @@ def phase_decode_attn(results, dev="cuda"):
                                                  v.float(), lt)
                 e = check_layer_out(name, got, plain, truth, TOL[dtn], ratios)
             err[dtn] = max(err.get(dtn, 0.0), e)
+    heads_major = dattn_heads_major(gen, dev, ratios)
 
     _, B, Hq, Hkv, D, T, _ = DATTN_CASES[0]
     q = torch.randn(B, Hq, D, device=dev, generator=gen).to(torch.bfloat16)
@@ -4328,7 +4464,8 @@ def phase_decode_attn(results, dev="cuda"):
         plan=plan,
         cold_what=f"each call on the next of {DATTN_COLD} caches of this "
                   f"shape ({DATTN_COLD * 2 * k.numel() * 2 / 1e6:.1f} MB)",
-        bf16_vs_fp32_ratio=max(ratios, default=None)))
+        bf16_vs_fp32_ratio=max(ratios, default=None),
+        heads_major=heads_major))
     r = results[-1]
 
     def share(t):
@@ -4701,28 +4838,6 @@ def phase_generate(dev="cuda"):
     return counts, summary
 
 
-class plain_path:
-    """Within the block the generation path runs the plain versions of
-    kernels 3-5 on CUDA tensors (the port never does: its ops launch the
-    kernels for CUDA tensors)."""
-
-    def __enter__(self):
-        from paddle_tpu_torch.models import generation as tgen
-        from paddle_tpu_torch.ops import decode_attention as tda
-        from paddle_tpu_torch.ops import quant_linear as tql
-        self.saved = [(tgen, "decode_attention", tgen.decode_attention),
-                      (tql, "weight_only_matmul", tql.weight_only_matmul),
-                      (tql, "weight_only_matmul_int4",
-                       tql.weight_only_matmul_int4)]
-        tgen.decode_attention = tda.decode_attention_ref
-        tql.weight_only_matmul = tql.weight_only_matmul_ref
-        tql.weight_only_matmul_int4 = tql.weight_only_matmul_int4_ref
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
-
-
 def check_generation(dev="cuda"):
     """llama_7b at 2 layers: the prefill and first decode step logits of
     the kernel path against the plain path on the card, both held to an
@@ -4996,16 +5111,19 @@ def eager_loss_and_grads(net, ids, labels):
 
 
 class plain_path:
-    """Within the block the ops run the plain versions of kernels 6-19 but
+    """Within the block the ops run the plain versions of kernels 3-19 but
     the serving ones on CUDA tensors (the port never does: its ops launch
     the kernels for CUDA tensors)."""
 
     def __enter__(self):
+        from paddle_tpu_torch.ops import decode_attention as tda
         from paddle_tpu_torch.ops import flash_attention as tfa
         from paddle_tpu_torch.ops import fused as tfu
         from paddle_tpu_torch.ops import fused_cross_entropy as tce
         from paddle_tpu_torch.ops import norms as tno
+        from paddle_tpu_torch.ops import quant_linear as tql
         from paddle_tpu_torch.ops import rope as tro
+        from paddle_tpu_torch.ops.cuda import decode_attention as cda
         from paddle_tpu_torch.ops.cuda import flash_attention as cfa
         from paddle_tpu_torch.ops.cuda import fused as cfu
         from paddle_tpu_torch.ops.cuda import linear_ce as cce
@@ -5015,7 +5133,11 @@ class plain_path:
         def lce_fwd(x2, w, labels, **kw):
             return tce.lce_fwd_ref(x2, w, labels,
                                    chunk=tce.default_chunk(w.shape[0]), **kw)
-        swaps = [(cno, "rms_norm_fwd_cuda", tno.rms_norm_ref),
+        swaps = [(cda, "decode_attention_cuda", tda.decode_attention_ref),
+                 (tql, "weight_only_matmul", tql.weight_only_matmul_ref),
+                 (tql, "weight_only_matmul_int4",
+                  tql.weight_only_matmul_int4_ref),
+                 (cno, "rms_norm_fwd_cuda", tno.rms_norm_ref),
                  (cno, "layer_norm_fwd_cuda", tno.layer_norm_ref),
                  (cno, "bias_residual_ln_fwd_cuda", tno.bias_residual_ln_ref),
                  (cfu, "swiglu_fwd_cuda", tfu.swiglu_ref),
@@ -5602,6 +5724,276 @@ def phase_encoder(dev="cuda"):
     return counts, summary
 
 
+# ------------------------------------------------ fused multi transformer
+# the incubate serving stack at gpt_1p3b's width and depth (E 2048, 16
+# heads, D 128, FFN 8192, 24 layers, pre-LN, tanh GELU) in bf16: one
+# context call at B 4 x 512 tokens fills the head-major caches [2, B, 16,
+# 1024, 128] (flash, kernel 6), then FMT_STEPS decode steps (kernel 3 on
+# the caches' head-major views)
+FMT_E, FMT_HEADS, FMT_FF, FMT_LAYERS = 2048, 16, 8192, 24
+FMT_B, FMT_CTX, FMT_TMAX, FMT_STEPS = 4, 512, 1024, 64
+FMT_PER_CALL = {"flash_fwd": FMT_LAYERS, "decode_attention": FMT_LAYERS}
+# the checks run 2 layers at the main path's shapes
+FMT_CHECK_LAYERS, FMT_CHECK_STEPS = 2, 4
+# one MMHA call on a [2, B, 16, 1024, 128] cache, a length-0 row among them
+MMHA_LENS = (1000, 37, 0, 517)
+
+
+class NoPlainAttention(NoPlainPath):
+    """While active, the plain attention versions raise."""
+    NAMES = (("paddle_tpu_torch.ops.decode_attention", "decode_attention_ref"),
+             ("paddle_tpu_torch.ops.flash_attention", "flash_fwd_ref"),
+             ("paddle_tpu_torch.nn.functional", "_sdpa_ref"))
+
+
+def fmt_stack(layers, dev, dtype, seed=SEED):
+    import torch
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return FusedMultiTransformer(
+        FMT_E, FMT_HEADS, FMT_FF, activation="gelu", normalize_before=True,
+        num_layers=layers, generator=gen, device=dev).to(dtype).eval()
+
+
+def fmt_caches(layers, T, dev, dtype):
+    import torch
+    return [torch.zeros(2, FMT_B, FMT_HEADS, T, FMT_E // FMT_HEADS,
+                        device=dev, dtype=dtype) for _ in range(layers)]
+
+
+def fmt_run(model, x, S, T, steps, plain=False):
+    """Context on x[:, :S] into fresh caches, then ``steps`` decode steps
+    on the next tokens: the outputs, context first."""
+    import contextlib
+    caches = fmt_caches(model.num_layers, T, x.device,
+                        next(model.parameters()).dtype)
+    with plain_path() if plain else contextlib.nullcontext():
+        outs = [model(x[:, :S], caches=caches)[0]]
+        for t in range(steps):
+            outs.append(model(x[:, S + t:S + t + 1], caches=caches,
+                              time_step=S + t)[0])
+    return outs
+
+
+def fmt_checks(dev="cuda"):
+    """At 2 layers and the main path's shapes (a B x FMT_CTX context into
+    FMT_TMAX-row caches): the kernel path against the plain path on the
+    card (context output and FMT_CHECK_STEPS decode steps; bf16 within
+    2e-2 or
+    no further from an fp32 plain run than BF16_SLACK x the plain path),
+    and in fp32 through the kernels each decode step against the context
+    forward over the same tokens (1e-4)."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    S, T, n = FMT_CTX, FMT_TMAX, FMT_CHECK_STEPS
+    m = fmt_stack(FMT_CHECK_LAYERS, dev, torch.bfloat16)
+    m32 = fmt_stack(FMT_CHECK_LAYERS, dev, torch.float32)
+    m32.load_state_dict({k: v.float() for k, v in m.state_dict().items()})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    x = torch.randn(FMT_B, S + n, FMT_E, device=dev, generator=gen)
+    xb = x.to(torch.bfloat16)
+    kern = fmt_run(m, xb, S, T, n)
+    layer.reset_counts()
+    plain = fmt_run(m, xb, S, T, n, plain=True)
+    truth = fmt_run(m32, xb.float(), S, T, n, plain=True)
+    torch.cuda.synchronize()
+    got = {k: c for k, c in layer.launch_counts().items() if c}
+    if got:
+        raise SmokeFailure(f"fused multi transformer: plain path launched "
+                           f"{got}")
+    ratios, errs = [], {}
+    for i, (a, b, c) in enumerate(zip(kern, plain, truth)):
+        what = "context" if i == 0 else f"decode step {i}"
+        errs[what] = check_layer_out(
+            f"fused multi transformer x {FMT_CHECK_LAYERS} bf16 {what}", a, b,
+            c, TOL["bfloat16"], ratios)
+    steps = fmt_run(m32, x, S, T, n)
+    full = fmt_run(m32, x, S + n, T, 0)[0]
+    cons = 0.0
+    for t in range(n):
+        cons = max(cons, check_close(
+            f"fused multi transformer x {FMT_CHECK_LAYERS} fp32 decode step "
+            f"{t + 1} vs context", steps[1 + t][:, 0], full[:, S + t],
+            TOL["float32"]))
+    info(f"fused multi transformer checks: bf16 kernels vs plain max |err| "
+         f"{errs}, fp32 ratio max {max(ratios):.3f}; fp32 decode vs context "
+         f"max |err| {cons:.2e}")
+    return dict(max_abs_err=errs, bf16_vs_fp32_ratio=max(ratios),
+                decode_vs_context_fp32=cons)
+
+
+def mmha_check(dev="cuda"):
+    """One ``masked_multihead_attention`` call on a bf16 [2, FMT_B, 16,
+    FMT_TMAX, 128] cache with lengths MMHA_LENS: exactly one
+    decode_attention launch and no other kernel, the caller's cache
+    written in place and returned, output and cache against the same
+    call on the CPU (the plain version) within 2e-2."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import \
+        masked_multihead_attention
+    from paddle_tpu_torch.ops.cuda import layer
+    D = FMT_E // FMT_HEADS
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 3)
+    x, bias = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+               for shape in ((FMT_B, 3 * FMT_E), (3 * FMT_E,)))
+    cache = torch.randn(2, FMT_B, FMT_HEADS, FMT_TMAX, D,
+                        generator=gen).to(torch.bfloat16)
+    lens = torch.tensor(MMHA_LENS, dtype=torch.int32)
+    given = cache.to(dev)
+    want, want_cache = masked_multihead_attention(
+        x, cache, bias=bias, sequence_lengths=lens)
+    layer.reset_counts()
+    out, back = masked_multihead_attention(
+        x.to(dev), given, bias=bias.to(dev), sequence_lengths=lens.to(dev))
+    torch.cuda.synchronize()
+    got = {k: c for k, c in layer.launch_counts().items() if c}
+    if got != {"decode_attention": 1}:
+        raise SmokeFailure(f"masked_multihead_attention: launches {got}, "
+                           f"predicted one decode_attention")
+    if back is not given:
+        raise SmokeFailure("masked_multihead_attention: the returned cache "
+                           "is not the caller's tensor")
+    err = check_close("masked_multihead_attention bf16 out", out.cpu(), want,
+                      TOL["bfloat16"])
+    cerr = check_close("masked_multihead_attention bf16 cache", given.cpu(),
+                       want_cache, TOL["bfloat16"])
+    info(f"masked_multihead_attention B {FMT_B}, {FMT_HEADS} heads, D {D}, "
+         f"T {FMT_TMAX}, lengths {MMHA_LENS}: one decode_attention launch on "
+         f"the caller's cache; max |cuda - cpu| out {err:.2e}, cache "
+         f"{cerr:.2e}")
+    return dict(max_abs_err=err, cache_max_abs_err=cerr)
+
+
+def fmt_step_bound_ms(model, rows):
+    """A decode step's least time: every weight read once and each
+    layer's K / V at ``rows`` rows (bf16), against 2 operations a weight
+    a token."""
+    n = sum(p.numel() for p in model.parameters())
+    wb = 2 * n
+    kv = FMT_LAYERS * 2 * FMT_B * FMT_HEADS * rows * (FMT_E // FMT_HEADS) * 2
+    return bound_ms(wb + kv, 2 * n * FMT_B)[0], wb, kv
+
+
+def phase_fmt(dev="cuda"):
+    """The 24-layer bf16 stack: a warm context call and 2 decode steps,
+    then with the counts zeroed the main path (one context call, FMT_STEPS
+    decode steps) with the plain attention versions refused, the launches
+    exactly FMT_PER_CALL a call, finite outputs; context ms, decode step
+    ms (wall), tokens/s; one profiled step's wall and busy ms and kernel
+    3's per-call ms against its bound; then the 2-layer checks and one
+    MMHA call."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    model = fmt_stack(FMT_LAYERS, dev, torch.bfloat16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    x = torch.randn(FMT_B, FMT_CTX, FMT_E, device=dev, generator=gen).to(
+        torch.bfloat16)
+    xs = torch.randn(FMT_STEPS + 1, FMT_B, 1, FMT_E, device=dev,
+                     generator=gen).to(torch.bfloat16)
+    caches = fmt_caches(FMT_LAYERS, FMT_TMAX, dev, torch.bfloat16)
+    model(x, caches=caches)
+    for t in range(2):
+        model(xs[t], caches=caches, time_step=FMT_CTX + t)
+    torch.cuda.synchronize()
+    caches = fmt_caches(FMT_LAYERS, FMT_TMAX, dev, torch.bfloat16)
+    given = list(caches)
+    steps = []
+    layer.reset_counts()
+    with NoPlainAttention():
+        ts = time.perf_counter()
+        y, back = model(x, caches=caches)
+        torch.cuda.synchronize()
+        ctx_ms = 1e3 * (time.perf_counter() - ts)
+        for t in range(FMT_STEPS):
+            ts = time.perf_counter()
+            out, back = model(xs[t], caches=caches, time_step=FMT_CTX + t)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - ts))
+    counts = layer.launch_counts()
+    got = {k: c for k, c in counts.items() if c}
+    want = {"flash_fwd": FMT_LAYERS,
+            "decode_attention": FMT_LAYERS * FMT_STEPS}
+    if got != want:
+        raise SmokeFailure(f"fused multi transformer: launches {got}, "
+                           f"predicted {want} (every other kernel 0)")
+    if not all(a is b for a, b in zip(back, given)):
+        raise SmokeFailure("fused multi transformer: the returned caches are "
+                           "not the caller's tensors")
+    for name, t, shape in (("context", y, x.shape), ("decode", out,
+                                                     xs[0].shape)):
+        if tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16 or \
+                not torch.isfinite(t).all():
+            raise SmokeFailure(f"fused multi transformer {name}: output "
+                               f"{t.dtype} {tuple(t.shape)} not finite bf16 "
+                               f"{tuple(shape)}")
+    rows = FMT_CTX + FMT_STEPS
+    _, ctx_busy, ctx_by = profile_once(lambda: model(x, caches=caches))
+    fk = [(ms, c) for k, (ms, c) in ctx_by.items() if "flash_fwd" in k]
+    if not fk or sum(c for _, c in fk) != FMT_LAYERS:
+        raise SmokeFailure(f"fused multi transformer: the profiled context "
+                           f"call recorded flash {fk}")
+    flash_ms = sum(ms for ms, _ in fk) / FMT_LAYERS
+    flash_bound = bound_ms(*flash_bytes_ops(
+        FMT_B, FMT_CTX, FMT_CTX, FMT_HEADS, FMT_HEADS, FMT_E // FMT_HEADS,
+        True, 2)["flash_fwd"])
+    wall, busy, by = profile_once(lambda: model(
+        xs[FMT_STEPS], caches=caches, time_step=rows))
+    groups = {}
+    for k, (ms, c) in by.items():
+        g = ("decode_attention" if "decode_attention" in k else
+             "cuBLAS" if "gemm" in k.lower() or "nvjet" in k else
+             "other torch kernels")
+        groups[g] = [a + b for a, b in zip(groups.get(g, [0.0, 0]),
+                                           (ms, c))]
+    dk = [(ms, c) for k, (ms, c) in by.items() if "decode_attention" in k]
+    if not dk or sum(c for _, c in dk) != FMT_LAYERS:
+        raise SmokeFailure(f"fused multi transformer: the profiled step "
+                           f"recorded decode attention {dk}")
+    dattn_ms = sum(ms for ms, _ in dk) / FMT_LAYERS
+    dattn_bound = bound_ms(*dattn_bytes_ops(
+        FMT_B, FMT_HEADS, FMT_HEADS, FMT_E // FMT_HEADS, [rows + 1] * FMT_B,
+        2))[0]
+    step_bound, wb, kvb = fmt_step_bound_ms(model, rows)
+    step_ms = sum(steps) / len(steps)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+    summary = dict(
+        context_ms=ctx_ms, context_tokens_per_s=FMT_B * FMT_CTX / ctx_ms * 1e3,
+        decode_step_ms=step_ms, decode_step_ms_all=steps,
+        tokens_per_s=FMT_B / step_ms * 1e3, step_bound_ms=step_bound,
+        weight_bytes=wb, kv_bytes_at_last_step=kvb,
+        profiled_step_wall_ms=wall, profiled_step_busy_ms=busy,
+        busy_share_of_step=busy / step_ms,
+        device_launches_per_step=sum(c for _, c in by.values()),
+        step_busy_by_group=groups,
+        decode_attention_ms=dattn_ms, decode_attention_bound_ms=dattn_bound,
+        context_busy_ms=ctx_busy, flash_fwd_ms=flash_ms,
+        flash_fwd_bound_ms=flash_bound[0], flash_fwd_bound_by=flash_bound[1],
+        launches=want)
+    info(f"fused multi transformer {FMT_LAYERS} layers E {FMT_E} bf16, B "
+         f"{FMT_B}: context {FMT_CTX} tokens {ctx_ms:.2f} ms; decode step "
+         f"{step_ms:.3f} ms wall (min {min(steps):.3f}, max {max(steps):.3f}),"
+         f" {summary['tokens_per_s']:.0f} tokens/s, bound {step_bound:.4f} "
+         f"ms ({wb / 1e9:.3f} GB weights + {kvb / 1e9:.3f} GB K/V); profiled "
+         f"step {wall:.2f} ms wall, {busy:.3f} ms busy "
+         f"({100 * busy / step_ms:.1f} % of the unprofiled step), "
+         f"{summary['device_launches_per_step']} device launches, by group "
+         f"(ms, launches) {groups}; decode_attention {dattn_ms:.5f} ms a "
+         f"call against {dattn_bound:.5f} bound; context busy "
+         f"{ctx_busy:.3f} ms, flash_fwd {flash_ms:.5f} ms a call against "
+         f"{flash_bound[0]:.5f} bound ({flash_bound[1]}); launches {got}; "
+         f"by kernel (ms, launches): " + "; ".join(
+             f"{k.split('(')[0][:50]} {ms:.3f} x{c}" for k, (ms, c) in top))
+    del model, caches, given, back
+    torch.cuda.empty_cache()
+    summary["checks"] = fmt_checks(dev)
+    summary["mmha_check"] = mmha_check(dev)
+    return counts, summary
+
+
 def main():
     try:
         import torch
@@ -5651,6 +6043,8 @@ def main():
         fused_counts = phase_fused(kernels)
         torch.cuda.empty_cache()
         enc_counts, enc = phase_encoder()
+        torch.cuda.empty_cache()
+        fmt_counts, fmt = phase_fmt()
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         info(f"FAILED: {type(e).__name__}: {e}")
         return 1
@@ -5661,13 +6055,15 @@ def main():
                 "gpt serve quant": gpt_quant_counts,
                 "train": train_counts, "gpt": gpt_counts,
                 **{f"generate {tag}": c for tag, c in gen_counts.items()},
-                **eager_counts, "fused calls": fused_counts, **enc_counts}
+                **eager_counts, "fused calls": fused_counts, **enc_counts,
+                "fused multi transformer": fmt_counts}
     # and the per-step launches each step phase was checked against
     per_step = {"train": {**FLASH_PER_STEP, **LCE_PER_STEP},
                 "gpt": GPT_PER_STEP, "eager gpt": EAGER_GPT_PER_STEP,
                 "eager llama": EAGER_LLAMA_PER_STEP,
                 "fused calls": FUSED_CALLS,
-                **{f"encoder {m}": v[2] for m, v in ENC_MODES.items()}}
+                **{f"encoder {m}": v[2] for m, v in ENC_MODES.items()},
+                "fused multi transformer": FMT_PER_CALL}
     for k in kernels:
         by = {ph: c[k["name"]] for ph, c in by_phase.items()
               if c.get(k["name"])}
@@ -5683,6 +6079,7 @@ def main():
     info(f"generate summary {json.dumps(gen)}")
     info(f"eager summary {json.dumps(eager)}")
     info(f"encoder summary {json.dumps(enc)}")
+    info(f"fused multi transformer summary {json.dumps(fmt)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 from . import functional
 from .layer import (FusedBiasDropoutResidualLayerNorm, FusedDropout,
                     FusedDropoutAdd, FusedFeedForward, FusedLinear,
-                    FusedMultiHeadAttention, FusedTransformerEncoderLayer)
+                    FusedMultiHeadAttention, FusedMultiTransformer,
+                    FusedTransformer, FusedTransformerEncoderLayer)
 
 __all__ = ["functional", "FusedMultiHeadAttention", "FusedFeedForward",
            "FusedTransformerEncoderLayer", "FusedLinear", "FusedDropout",
-           "FusedDropoutAdd", "FusedBiasDropoutResidualLayerNorm"]
+           "FusedDropoutAdd", "FusedBiasDropoutResidualLayerNorm",
+           "FusedMultiTransformer", "FusedTransformer"]

@@ -1,16 +1,19 @@
 """The incubate fused layers as ``torch.nn.Module``s:
 ``FusedMultiHeadAttention``, ``FusedFeedForward``,
 ``FusedTransformerEncoderLayer``, ``FusedLinear``, ``FusedDropout``,
-``FusedDropoutAdd`` and ``FusedBiasDropoutResidualLayerNorm``.
+``FusedDropoutAdd``, ``FusedBiasDropoutResidualLayerNorm``,
+``FusedMultiTransformer`` and ``FusedTransformer``.
 
-Counterparts of ``paddle_tpu/incubate/nn/layer.py:22-249``, with their
-attribute names and shapes, so a JAX ``state_dict()`` loads through
-``bridge.state_dict_from_numpy`` unchanged.  Parameters are fp32 (cast a
-layer with ``.to(torch.bfloat16)``), drawn with the JAX layers'
-distributions from ``generator`` (the default generator of ``device``
-when None): weights Xavier-uniform over their 2-D shape, biases zero,
-LayerNorm gains one.  ``device=None`` means CUDA.  Dropout masks come from
-the same ``generator`` (keep it on the device the layer runs on).
+Counterparts of ``paddle_tpu/incubate/nn/layer.py:22-249`` and
+``:276-406``, with their attribute names and shapes, so a JAX
+``state_dict()`` loads through ``bridge.state_dict_from_numpy``
+unchanged.  Parameters are fp32 (cast a layer with
+``.to(torch.bfloat16)``), drawn with the JAX layers' distributions from
+``generator`` (the default generator of ``device`` when None): weights
+Xavier-uniform (a 4-D weight's fans as JAX's ``initializer._fans`` takes
+them), biases zero, LayerNorm gains one.  ``device=None`` means CUDA.
+Dropout masks come from the same ``generator`` (keep it on the device
+the layer runs on).
 
 What the layers run, as in JAX:
 
@@ -23,13 +26,19 @@ What the layers run, as in JAX:
   post-LN: ``fused_bias_dropout_residual_layer_norm`` (kernel 14 in eval).
 * ``FusedFeedForward``: [pre-LN] -> linear1 -> ``fused_bias_act`` (kernel
   18) -> dropout -> linear2 -> kernel 19 (pre-LN) or kernel 14 (post-LN).
+* ``FusedMultiTransformer``: the whole serving stack through
+  ``fused_multi_transformer`` (flash for the context, kernel 3 for the
+  decode steps), its parameters named as JAX's (``ln_s_<i>``,
+  ``qkvw_<i>``, ..., ``f2b_<i>``).
+* ``FusedTransformer``: a stack of ``FusedTransformerEncoderLayer``
+  (``layers.<i>``) with JAX's defaults (dropout 0.1, GELU).
 
 The JAX layers read neither ``key`` / ``value`` nor ``cache`` (self-
 attention only), nor ``kdim``, ``vdim`` or ``need_weights``; neither do
 these.  A ``ParamAttr`` (``*_attr`` other than None, or ``False`` for a
 bias where JAX allows it) and ``nranks`` / ``ring_id`` other than one
-card raise ``NotImplementedError``.  ``FusedMultiTransformer`` and
-``FusedTransformer`` are ROADMAP queue 1 item 19b, ``FusedEcMoe`` item 15.
+card raise ``NotImplementedError``.  ``FusedEcMoe`` is ROADMAP queue 1
+item 15b.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ from . import functional as IF
 
 __all__ = ["FusedMultiHeadAttention", "FusedFeedForward",
            "FusedTransformerEncoderLayer", "FusedLinear", "FusedDropout",
-           "FusedDropoutAdd", "FusedBiasDropoutResidualLayerNorm"]
+           "FusedDropoutAdd", "FusedBiasDropoutResidualLayerNorm",
+           "FusedMultiTransformer", "FusedTransformer"]
 
 
 def _refuse_attrs(layer: str, nranks: int = 1, ring_id: int = -1, **attrs):
@@ -67,7 +77,11 @@ class _Params:
         self.gen, self.dev = generator, resolve_device(device)
 
     def weight(self, *shape):
-        limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+        # JAX's fans: [in, out], or [out, in, *rest] as a conv kernel's
+        rest = math.prod(shape[2:])
+        fan_in, fan_out = (shape if len(shape) == 2
+                           else (shape[1] * rest, shape[0] * rest))
+        limit = math.sqrt(6.0 / (fan_in + fan_out))
         return torch.nn.Parameter(torch.empty(shape, device=self.dev)
                                   .uniform_(-limit, limit,
                                             generator=self.gen))
@@ -318,3 +332,108 @@ class FusedBiasDropoutResidualLayerNorm(torch.nn.Module):
             x, residual, self.linear_bias, self.ln_scale, self.ln_bias,
             dropout_rate=self.p, ln_epsilon=self.epsilon,
             training=self.training, generator=self.generator)
+
+
+#: FusedMultiTransformer's per-layer parameters: JAX's names, then the
+#: ``fused_multi_transformer`` argument each list goes to
+_FMT_PARAMS = (("ln_s", "ln_scales"), ("ln_b", "ln_biases"),
+               ("qkvw", "qkv_weights"), ("qkvb", "qkv_biases"),
+               ("lw", "linear_weights"), ("lb", "linear_biases"),
+               ("flns", "ffn_ln_scales"), ("flnb", "ffn_ln_biases"),
+               ("f1w", "ffn1_weights"), ("f1b", "ffn1_biases"),
+               ("f2w", "ffn2_weights"), ("f2b", "ffn2_biases"))
+
+
+class FusedMultiTransformer(torch.nn.Module):
+    """The serving stack of ``num_layers`` blocks over
+    ``fused_multi_transformer``: ``forward(x, attn_mask, caches,
+    time_step, rotary_embs)`` runs the context phase (``time_step``
+    None) or one decode step, writing ``caches`` (``[2, B, H, T_max, D]``
+    per layer) in place.  ``qkvw_<i>`` is ``[3, H, D, E]``, or ``[E, 3, H,
+    D]`` when ``trans_qkvw`` is false."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dim_feedforward: int,
+                 dropout_rate: float = 0.0, activation: str = "gelu",
+                 normalize_before: bool = True, ln_scale_attrs=None,
+                 ln_bias_attrs=None, qkv_weight_attrs=None,
+                 qkv_bias_attrs=None, linear_weight_attrs=None,
+                 linear_bias_attrs=None, ffn_ln_scale_attrs=None,
+                 ffn_ln_bias_attrs=None, ffn1_weight_attrs=None,
+                 ffn1_bias_attrs=None, ffn2_weight_attrs=None,
+                 ffn2_bias_attrs=None, epsilon: float = 1e-5,
+                 num_layers: int = -1, nranks: int = 1,
+                 trans_qkvw: bool = True, ring_id: int = -1, name=None, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        _refuse_attrs("FusedMultiTransformer", nranks, ring_id,
+                      ln_scale_attrs=ln_scale_attrs,
+                      ln_bias_attrs=ln_bias_attrs,
+                      qkv_weight_attrs=qkv_weight_attrs,
+                      qkv_bias_attrs=qkv_bias_attrs,
+                      linear_weight_attrs=linear_weight_attrs,
+                      linear_bias_attrs=linear_bias_attrs,
+                      ffn_ln_scale_attrs=ffn_ln_scale_attrs,
+                      ffn_ln_bias_attrs=ffn_ln_bias_attrs,
+                      ffn1_weight_attrs=ffn1_weight_attrs,
+                      ffn1_bias_attrs=ffn1_bias_attrs,
+                      ffn2_weight_attrs=ffn2_weight_attrs,
+                      ffn2_bias_attrs=ffn2_bias_attrs)
+        self.num_layers = num_layers if num_layers >= 0 else 1
+        self.dropout_rate, self.activation = dropout_rate, activation
+        self.normalize_before, self.epsilon = normalize_before, epsilon
+        self.trans_qkvw = trans_qkvw
+        E, F_, H = embed_dim, dim_feedforward, num_heads
+        D = E // H
+        mk = _Params(generator, device)
+        for i in range(self.num_layers):
+            for name_, p in (
+                    ("ln_s", mk.ones(E)), ("ln_b", mk.zeros(E)),
+                    ("qkvw", mk.weight(*((3, H, D, E) if trans_qkvw
+                                         else (E, 3, H, D)))),
+                    ("qkvb", torch.nn.Parameter(torch.zeros(
+                        3, H, D, device=mk.dev))),
+                    ("lw", mk.weight(E, E)), ("lb", mk.zeros(E)),
+                    ("flns", mk.ones(E)), ("flnb", mk.zeros(E)),
+                    ("f1w", mk.weight(E, F_)), ("f1b", mk.zeros(F_)),
+                    ("f2w", mk.weight(F_, E)), ("f2b", mk.zeros(E))):
+                self.register_parameter(f"{name_}_{i}", p)
+
+    def forward(self, x, attn_mask=None, caches=None, time_step=None,
+                rotary_embs=None):
+        lists = {arg: [getattr(self, f"{name_}_{i}")
+                       for i in range(self.num_layers)]
+                 for name_, arg in _FMT_PARAMS}
+        return IF.fused_multi_transformer(
+            x, **lists, pre_layer_norm=self.normalize_before,
+            epsilon=self.epsilon, cache_kvs=caches, time_step=time_step,
+            attn_mask=attn_mask, rotary_embs=rotary_embs,
+            activation=self.activation, dropout_rate=self.dropout_rate,
+            training=self.training, trans_qkvw=self.trans_qkvw)
+
+    def extra_repr(self):
+        return (f"num_layers={self.num_layers}, "
+                f"normalize_before={self.normalize_before}, "
+                f"activation={self.activation}")
+
+
+class FusedTransformer(torch.nn.Module):
+    """An encoder stack of ``num_encoder_layers``
+    ``FusedTransformerEncoderLayer``s, each with ``src_mask``."""
+
+    def __init__(self, d_model: int = 512, nhead: int = 8,
+                 num_encoder_layers: int = 6, dim_feedforward: int = 2048,
+                 dropout: float = 0.1, activation: str = "gelu", name=None,
+                 *, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            FusedTransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout,
+                activation=activation, generator=generator, device=device)
+            for _ in range(num_encoder_layers))
+
+    def forward(self, src, src_mask=None):
+        out = src
+        for layer in self.layers:
+            out = layer(out, src_mask)
+        return out

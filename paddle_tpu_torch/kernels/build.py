@@ -198,8 +198,8 @@ def _bind(lib: ctypes.CDLL) -> None:
             "pt_rms_norm_rows": [I, I, I, P, P, P, Fl, P],
             "pt_layer_norm_rows": [I, I, I, P, P, P, P, Fl, P],
             "pt_gemm_xw": [I, I, I, I, I, P, P, P, P, P, P, I, P],
-            "pt_decode_attention": [I, I, I, I, I, I, LL, LL, Fl, P, P, P,
-                                    P, P, P],
+            "pt_decode_attention": [I, I, I, I, I, I, LL, LL, LL, Fl, P, P,
+                                    P, P, P, P],
             "pt_weight_only_matmul": [ctypes.POINTER(WoArgs), P],
             "pt_wo_layer": [ctypes.POINTER(WoArgs), P],
             "pt_rms_norm_fwd": [nptr, P], "pt_layer_norm_fwd": [nptr, P],

@@ -364,7 +364,7 @@ cudaError_t launch_linear_ce_dw(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_linear_ce_split_x(const LceArgs *a, cudaStream_t s);
 cudaError_t launch_decode_attention(int dtype, int B, int Hq, int Hkv, int D,
                                     int T, long long sb, long long st,
-                                    float scale, const void *q,
+                                    long long sh, float scale, const void *q,
                                     const void *k, const void *v,
                                     const int *lengths, void *out,
                                     cudaStream_t s);

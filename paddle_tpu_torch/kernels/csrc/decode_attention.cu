@@ -14,9 +14,13 @@
 // p = exp(0) = 1: its output is the mean of v over the T rows.
 //
 // Layouts: q [B, Hq, D] contiguous; k, v [B, T, Hkv, D] read in place
-// through a batch stride sb and a row stride st (elements, multiples of
-// 16 bytes; the last two dims contiguous), so a layer's slice of the
-// generation cache needs no copy; lengths int32 [B]; out [B, Hq, D].
+// through a batch stride sb, a row stride st and a head stride sh
+// (elements, multiples of 16 bytes; the last dim contiguous), so a
+// layer's slice of the generation cache (sh = D) and a head-major
+// [B, Hkv, T, D] cache seen as [B, T, Hkv, D] (Paddle's MMHA cache
+// cache_kv[0] of [2, B, H, T_max, D]: sb = H T D, st = D, sh = T D, each
+// (b, h) one contiguous run of rows) need no copy; lengths int32 [B];
+// out [B, Hq, D].
 //
 // What bounds it on an H100: bytes.  It reads each valid K and V row once
 // (generation at llama_7b width, B 8, 256 cached rows: 33.5 MB a layer,
@@ -135,7 +139,8 @@ __global__ void __launch_bounds__(NT)
                             const T *__restrict__ vc,
                             const int *__restrict__ lengths,
                             T *__restrict__ out, int Hq, int Hkv, int T_,
-                            long long sb, long long st, float scale, int c,
+                            long long sb, long long st, long long sh,
+                            float scale, int c,
                             int NS, int tiles_b) {
   using Sh = Shape<T, D>;
   constexpr int EPC = Sh::EPC, CPR = Sh::CPR, RPW = Sh::RPW, RPS = Sh::RPS;
@@ -160,7 +165,7 @@ __global__ void __launch_bounds__(NT)
   const bool none = len == 0;           // every row masked: p = 1 each
   const int rows = none ? T_ : len;
   const int nblk = (rows + BLOCK_T - 1) / BLOCK_T;
-  const size_t base = (size_t)b * sb + (size_t)h * D;
+  const size_t base = (size_t)b * sb + (size_t)h * sh;
   const int kr = rows16(c), vh = VT;
 
   // this block's rows of 512-row block j: [lo, lo + n), n may be <= 0
@@ -499,7 +504,8 @@ constexpr int PLAN_N = 6;
 // launches one call, or with `plan` fills it and launches nothing
 template <typename T, int D, int GM>
 cudaError_t launch(int B, int Hq, int Hkv, int T_, long long sb,
-                   long long st, float scale, const void *q, const void *k,
+                   long long st, long long sh, float scale, const void *q,
+                   const void *k,
                    const void *v, const int *lengths, void *out,
                    cudaStream_t s, int *plan) {
   auto kern = decode_attention_kernel<T, D, GM>;
@@ -546,20 +552,21 @@ cudaError_t launch(int B, int Hq, int Hkv, int T_, long long sb,
   }
   e = cudaLaunchKernelEx(&cfg, kern, (const T *)q, (const T *)k,
                          (const T *)v, lengths, (T *)out, Hq, Hkv, T_, sb, st,
-                         scale, c, NS, tiles_b);
+                         sh, scale, c, NS, tiles_b);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_g(int G, int B, int Hq, int Hkv, int T_, long long sb,
-                     long long st, float scale, const void *q, const void *k,
-                     const void *v, const int *lengths, void *out,
-                     cudaStream_t s, int *plan) {
+                     long long st, long long sh, float scale, const void *q,
+                     const void *k, const void *v, const int *lengths,
+                     void *out, cudaStream_t s, int *plan) {
   auto f = G <= 1 ? launch<T, D, 1>
            : G <= 2 ? launch<T, D, 2>
            : G <= 4 ? launch<T, D, 4>
                     : launch<T, D, 8>;
-  return f(B, Hq, Hkv, T_, sb, st, scale, q, k, v, lengths, out, s, plan);
+  return f(B, Hq, Hkv, T_, sb, st, sh, scale, q, k, v, lengths, out, s,
+           plan);
 }
 
 }  // namespace dattn
@@ -568,7 +575,7 @@ cudaError_t launch_g(int G, int B, int Hq, int Hkv, int T_, long long sb,
 // one call, or its plan (`plan` non-null: nothing launched or counted)
 static cudaError_t decode_attention(int dtype, int B, int Hq, int Hkv, int D,
                                     int T, long long sb, long long st,
-                                    float scale, const void *q,
+                                    long long sh, float scale, const void *q,
                                     const void *k, const void *v,
                                     const int *lengths, void *out,
                                     cudaStream_t s, int *plan) {
@@ -576,7 +583,8 @@ static cudaError_t decode_attention(int dtype, int B, int Hq, int Hkv, int D,
   if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG || T < 0)
     return cudaErrorInvalidValue;
   const int esz = dtype == PT_BF16 ? 2 : 4;
-  if ((sb * esz) % 16 || (st * esz) % 16) return cudaErrorInvalidValue;
+  if ((sb * esz) % 16 || (st * esz) % 16 || (sh * esz) % 16)
+    return cudaErrorInvalidValue;
   const int G = Hq / Hkv;
   auto f = dtype == PT_F32 && D == 64     ? launch_g<float, 64>
            : dtype == PT_F32 && D == 128  ? launch_g<float, 128>
@@ -584,35 +592,42 @@ static cudaError_t decode_attention(int dtype, int B, int Hq, int Hkv, int D,
            : dtype == PT_BF16 && D == 128 ? launch_g<pt::bf16, 128>
                                           : nullptr;
   if (!f) return cudaErrorInvalidValue;
-  return f(G, B, Hq, Hkv, T, sb, st, scale, q, k, v, lengths, out, s, plan);
+  return f(G, B, Hq, Hkv, T, sb, st, sh, scale, q, k, v, lengths, out, s,
+           plan);
 }
 
 cudaError_t launch_decode_attention(int dtype, int B, int Hq, int Hkv, int D,
                                     int T, long long sb, long long st,
-                                    float scale, const void *q,
+                                    long long sh, float scale, const void *q,
                                     const void *k, const void *v,
                                     const int *lengths, void *out,
                                     cudaStream_t s) {
   if (B <= 0 || Hq <= 0) return cudaSuccess;
   return count_launch(CNT_DECODE_ATTENTION,
-                      decode_attention(dtype, B, Hq, Hkv, D, T, sb, st, scale,
-                                       q, k, v, lengths, out, s, nullptr));
+                      decode_attention(dtype, B, Hq, Hkv, D, T, sb, st, sh,
+                                       scale, q, k, v, lengths, out, s,
+                                       nullptr));
 }
 
 extern "C" int pt_decode_attention(int dtype, int B, int Hq, int Hkv, int D,
                                    int T, long long sb, long long st,
-                                   float scale, const void *q, const void *k,
-                                   const void *v, const int *lengths,
-                                   void *out, void *stream) {
-  return launch_decode_attention(dtype, B, Hq, Hkv, D, T, sb, st, scale, q, k,
-                                 v, lengths, out, (cudaStream_t)stream);
+                                   long long sh, float scale, const void *q,
+                                   const void *k, const void *v,
+                                   const int *lengths, void *out,
+                                   void *stream) {
+  return launch_decode_attention(dtype, B, Hq, Hkv, D, T, sb, st, sh, scale,
+                                 q, k, v, lengths, out, (cudaStream_t)stream);
 }
 
-// the plan of a call of this shape (contiguous [B, T, Hkv, D] caches) into
-// out[PLAN_N].  Not bound by build.py; tools/dattn_ab.py reads it.
+// the plan of a call of this shape into out[PLAN_N]: caches [B, T, Hkv, D]
+// with head stride sh (D: contiguous; T D: head-major [B, Hkv, T, D]).
+// Not bound by build.py; tools/dattn_ab.py and chip_smoke.py read it.
 extern "C" int pt_decode_attention_plan(int dtype, int B, int Hq, int Hkv,
-                                        int D, int T, int *out) {
+                                        int D, int T, long long sh,
+                                        int *out) {
+  const bool heads_major = sh != D;
   return decode_attention(dtype, B, Hq, Hkv, D, T, (long long)T * Hkv * D,
-                          (long long)Hkv * D, 1.f, nullptr, nullptr, nullptr,
-                          nullptr, nullptr, nullptr, out);
+                          heads_major ? (long long)D : (long long)Hkv * D, sh,
+                          1.f, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, out);
 }

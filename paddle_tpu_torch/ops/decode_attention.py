@@ -6,7 +6,11 @@ analog the generation loop calls once per layer per decode step).
 Layouts are the JAX package's: q ``[B, Hq, D]``, ``k_cache`` /
 ``v_cache`` ``[B, T, Hkv, D]`` (rows ``>= lengths[b]`` ignored),
 ``lengths`` ``[B]`` int; q head ``h`` reads kv head ``h // G`` with
-``G = Hq / Hkv``.  Returns ``[B, Hq, D]`` in q's dtype.
+``G = Hq / Hkv``.  Returns ``[B, Hq, D]`` in q's dtype.  The caches may
+be any strided view, e.g. the head-major ``cache_kv[0].transpose(1, 2)``
+of Paddle's MMHA cache ``[2, B, H, T_max, D]`` (the layout the Pallas
+kernel itself works in, ``decode_attention.py:101-103``): the kernel
+reads it in place through its head stride.
 
 Two versions and no third:
 
@@ -16,8 +20,12 @@ Two versions and no third:
   ``BLOCK_T`` = 512 cache rows (the Pallas kernel's ``block_t``), ``p``
   rounded to v's dtype before ``p @ v`` (the JAX reference keeps ``p`` in
   fp32), and ``acc / max(l, 1e-30)``.  It runs for tensors on the CPU.
+  Like the Pallas kernel it takes a q whose dtype differs from the
+  cache's (fp32 q over a bf16 cache, as MMHA gives after
+  ``qkv_out_scale``): scores in fp32, ``p`` rounded to v's dtype.
 * the hand-written CUDA kernel (:mod:`.cuda.decode_attention`) for
-  tensors on a CUDA device: it launches or raises.
+  tensors on a CUDA device: it launches or raises (a q and cache of two
+  dtypes, or a float16 cache, raise ``NotImplementedError``).
 """
 
 from __future__ import annotations

@@ -15,8 +15,8 @@ SwiGLU's backward is the JAX ``_swiglu_bwd`` (``fused.py:68-77``) in torch
 ops.  The other three have no backward in the JAX package: their
 ``pallas_call``s carry no custom VJP, and ``jax.grad`` through them fails
 ("Linearization failed").  The port adds no gradient the reference lacks:
-their ``backward`` raises ``NotImplementedError`` (ROADMAP queue 1 item
-19b).
+their ``backward`` raises ``NotImplementedError`` (ROADMAP queue 3,
+"No backward through kernels 17, 18, 19").
 
 Dropout bits come from Threefry-2x32 (:mod:`.threefry`) keyed by a seed
 drawn from the caller's ``torch.Generator``, never from a global RNG; the
@@ -92,7 +92,7 @@ def _no_grad_error(name):
     return NotImplementedError(
         f"{name} has no gradient: the reference has none there either (its "
         f"pallas_call in paddle_tpu/ops/pallas/fused.py carries no custom "
-        f"VJP, so jax.grad through it fails); ROADMAP queue 1 item 19b")
+        f"VJP, so jax.grad through it fails); ROADMAP queue 3")
 
 
 class _ForwardOnly(torch.autograd.Function):

@@ -275,7 +275,8 @@ def test_fused_linear_calls_match_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="item 19b"):
+    with pytest.raises(NotImplementedError,
+                       match="cache_kv goes through masked_multihead"):
         tIF.fused_multi_head_attention(
             torch.zeros(1, 2, 8), torch.zeros(3, 2, 4, 8),
             torch.zeros(8, 8), cache_kv=torch.zeros(1))

@@ -11,7 +11,8 @@ Each variant is the two files of one tree, linked with this tree's other
 sources' objects into its own library under
 ``paddle_tpu_torch/kernels/_build/ab/``: ``change`` is this tree's;
 ``--tree NAME=DIR`` adds DIR's (another checkout's, e.g. the parent commit
-unpacked by ``git archive`` into the git-ignored ``archive_check/``).
+unpacked by ``git archive`` into the git-ignored ``archive_check/``; its
+``decode_attention.cu`` must take the head stride ``sh``).
 ``--ablate`` adds this tree's ``decode_attention.cu`` with the choices of
 ``TUNINGS`` (64 rows a block; a V tile of half the rows; 64 registers),
 checked and timed like a tree, and with parts cut (``ABLATIONS``: the
@@ -195,17 +196,19 @@ PLAN_KEYS = ("splits", "rows_a_block", "stages", "smem_bytes",
 
 
 def plan(lib, B, Hq, Hkv, D, T):
-    """The library's launch plan of one bf16 call, or None where it has no
-    ``pt_decode_attention_plan`` (a tree before it)."""
+    """The library's launch plan of one bf16 call on a ``[B, T, Hkv, D]``
+    cache, or None where it has no ``pt_decode_attention_plan`` (a tree
+    before it)."""
     from paddle_tpu_torch.kernels import build
     try:
         fn = lib.pt_decode_attention_plan
     except AttributeError:
         return None
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_longlong,
+                                        ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(PLAN_KEYS))()
-    build.check(fn(build.PT_BF16, B, Hq, Hkv, D, T, out),
+    build.check(fn(build.PT_BF16, B, Hq, Hkv, D, T, D, out),
                 "pt_decode_attention_plan")
     return dict(zip(PLAN_KEYS, out))
 
