@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's serving (Llama through the engine, GPT
 through the ops), training, generation, eager training, incubate
-fused-API and incubate serving paths on one CUDA card and check them.
+fused-API, incubate serving and BERT fine-tune paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -106,9 +107,10 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             times in bf16 (the backward kernels against SDPA's backward
             alone, and the whole ``flash_bwd_cuda`` call with its
             ``flash_delta`` share), again at the gpt phase's shape (B 8,
-            S 1024, 12 heads, D 64, causal), and the forward's at the
-            encoder's and the fused multi transformer context's, each
-            forward beside SDPA's forward;
+            S 1024, 12 heads, D 64, causal) and the bert phase's (B 32,
+            S 128, 12 heads, D 64, full), and the forward's at the fused
+            multi transformer context's, each forward beside SDPA's
+            forward;
 8. linear_ce the four linear-CE head kernels (``linear_ce_fwd``;
             ``linear_ce_dz``, ``linear_ce_dx``, ``linear_ce_dw`` per vocab
             slab of the backward) against their plain versions at the
@@ -243,7 +245,27 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             ``masked_multihead_attention`` call on a bf16 [2, 4, 16, 1024,
             128] cache (lengths 1000/37/0/517): one ``decode_attention``
             launch, the caller's cache returned, output and cache against
-            the same call on the CPU (2e-2).
+            the same call on the CPU (2e-2);
+19. bert    BASELINE config 3: ``BertForSequenceClassification(
+            bert_base(), 2)`` (hidden 768, 12 layers, 12 heads, FFN 3072,
+            V 30522, seeded random weights) on b 32 x s 128 (ids, token
+            types and labels from numpy seed 0) through the dygraph loop
+            with ``AdamW(1e-3, weight_decay=0)``: the bench's fp32
+            fine-tune with dropout 0.1 and no pad mask, the same in bf16,
+            a bf16 fine-tune with both dropouts 0 (2 warm + 5 steps each),
+            a bf16 eval without and with a pad mask (the last 32 tokens of
+            every other row; 2 warm + 10 forwards each); the launches
+            exactly as ``BERT_MODES`` predicts (flash only without a mask
+            and without dropout, the JAX routing rule); step or forward
+            ms, tokens/s, peak memory, the bound and a profiled call's
+            device-busy share and device time by group; then at 2 layers
+            the no-dropout bf16 step through the flash kernels against the
+            plain path (loss 1e-4, grads rel L2 5e-2 or the ratio rule),
+            the fp32 step with dropout 0 on the card against the CPU,
+            without and with the pad mask (loss and grads within 1e-4),
+            5 fp32 AdamW(2e-5) steps with a falling loss, and the padded bf16
+            eval against the CPU (2e-2 or the ratio rule) with other ids
+            under the pad moving no unpadded output by more than 1e-5.
 
 Prints one JSON line of per-kernel numbers and, last, one JSON line
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -3209,11 +3231,12 @@ def flash_bytes_ops(B, Sq, Sk, Hq, Hkv, D, causal, itemsize):
             "flash_bwd_dkv": (2 * qb + 4 * kb + 2 * rows, 4 * prod)}
 
 
-# the gpt phase's attention (12 heads of 64, causal) and the encoder
-# phase's (BERT-base: b 32 x s 128, 12 heads of 64, full), timed beside the
-# slice's shape (the encoder's forward only: it runs no backward)
+# the gpt phase's attention (12 heads of 64, causal) and the bert and
+# encoder phases' (BERT-base: b 32 x s 128, 12 heads of 64, full; the
+# bert phase's no-dropout fine-tune runs the backward there), timed beside
+# the slice's shape
 FLASH_GPT = ("gpt", GPT_B, GPT_S, GPT_S, 12, 12, 64, True, False, None)
-FLASH_ENC = ("encoder", 32, 128, 128, 12, 12, 64, False, False, None)
+FLASH_ENC = ("bert", 32, 128, 128, 12, 12, 64, False, False, None)
 # the fused multi transformer phase's context call (gpt_1p3b: B 4 x 512
 # tokens, 16 heads of 128, causal), checked and its forward timed
 FLASH_FMT = ("fmt context", 4, 512, 512, 16, 16, 128, True, False, None)
@@ -3254,8 +3277,8 @@ def flash_inputs(case, gen, dev):
 
 def phase_flash(results, dev="cuda"):
     """The three flash kernels against their plain versions; bf16 times at
-    the training slice's and the gpt phase's shapes, and the forward's at
-    the encoder's and the fused multi transformer context's."""
+    the training slice's, the gpt phase's and the bert phase's shapes, and
+    the forward's at the fused multi transformer context's."""
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_attention as fc
@@ -3304,15 +3327,15 @@ def phase_flash(results, dev="cuda"):
             del plain, got
             torch.cuda.empty_cache()
 
-    # ---- bf16 timings at the slice's shape and the gpt phase's, and the
-    # forward's at the encoder's and the fused multi transformer context's
+    # ---- bf16 timings at the slice's shape, the gpt phase's and the bert
+    # phase's, and the forward's at the fused multi transformer context's
     timed = {case[0]: flash_times(case, gen, dev)
-             for case in (FLASH_CASES[0], FLASH_GPT)}
-    for case in (FLASH_ENC, FLASH_FMT):
-        timed[case[0]] = flash_times(case, gen, dev, backward=False)
+             for case in (FLASH_CASES[0], FLASH_GPT, FLASH_ENC)}
+    timed[FLASH_FMT[0]] = flash_times(FLASH_FMT, gen, dev, backward=False)
     main = timed[FLASH_CASES[0][0]]
     other = {"gpt": f"B {GPT_B}, S {GPT_S}, 12 heads, D 64, causal",
-             "encoder": "B 32, S 128, 12 heads, D 64, full",
+             "bert": "B 32, S 128, 12 heads, D 64, full (bert and encoder "
+                     "phases)",
              "fmt context": "B 4, S 512, 16 heads, D 128, causal"}
     for name in names:
         t = main[name]
@@ -4028,6 +4051,20 @@ def profile_once(fn):
     return wall, sum(ms for ms, _ in by.values()), by
 
 
+def device_groups(by):
+    """Device ms by kernel group of a profiled call's ``{kernel: (ms,
+    launches)}``."""
+    groups = {}
+    for k, (ms, _) in by.items():
+        g = ("flash kernels" if "pt::flash" in k else
+             "linear-CE kernels" if "pt::lce" in k else
+             "fp32 GEMMs (cuBLAS)" if "f32f32" in k or "sgemm" in k else
+             "bf16 GEMMs (cuBLAS)" if "gemm" in k or "nvjet" in k else
+             "other torch kernels")
+        groups[g] = groups.get(g, 0.0) + ms
+    return groups
+
+
 def run_steps(tag, step, state, ids_t, labels_t, per_step):
     """One warm and TRAIN_STEPS timed steps on one batch, the launch
     counts zeroed before and read after (they must be ``per_step`` per
@@ -4064,14 +4101,7 @@ def run_steps(tag, step, state, ids_t, labels_t, per_step):
 
     prof_ms, busy, by = profile_once(lambda: step(state, ids_t, labels_t))
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
-    groups = {}
-    for k, (ms, _) in by.items():
-        g = ("flash kernels" if "pt::flash" in k else
-             "linear-CE kernels" if "pt::lce" in k else
-             "fp32 GEMMs (cuBLAS)" if "f32f32" in k or "sgemm" in k else
-             "bf16 GEMMs (cuBLAS)" if "gemm" in k or "nvjet" in k else
-             "other torch kernels")
-        groups[g] = groups.get(g, 0.0) + ms
+    groups = device_groups(by)
     info(f"{tag}: losses {[round(x, 5) for x in losses]}; step "
          f"{step_ms:.1f} ms (times {[round(1e3 * t, 1) for t in times]}), "
          f"{tok_s:.0f} tokens/s, max memory allocated {mem / 2**30:.2f} GiB; "
@@ -5994,6 +6024,338 @@ def phase_fmt(dev="cuda"):
     return counts, summary
 
 
+# ------------------------------------------------------------ BERT fine-tune
+# BASELINE config 3 as the JAX bench runs it (bench.py:1253-1265):
+# BertForSequenceClassification(bert_base(), 2) on b 32 x s 128, fp32,
+# dropout 0.1, no pad mask, AdamW(1e-3, weight_decay=0); then in bf16, and
+# the two paths that reach flash: a fine-tune with both dropouts 0, and an
+# eval forward without a pad mask (a padded eval takes the dense chain).
+# Launches a step / forward, predicted before the first run: attention
+# takes flash only without a mask and without dropout (the JAX routing
+# rule of nn.functional.scaled_dot_product_attention), once a layer each
+# way; the LayerNorms are the jnp chain, the loss the dense cross-entropy
+BERT_B, BERT_S, BERT_LAYERS, BERT_LR = 32, 128, 12, 1e-3
+BERT_WARM, BERT_STEPS, BERT_FORWARDS, BERT_PAD = 2, 5, 10, 32
+BERT_CHECK_LAYERS, BERT_CPU_TOL = 2, 1e-4
+# the falling-loss check's rate: BERT's fine-tuning rate (2e-5, Devlin et
+# al.); at the bench's 1e-3, and at 1e-4, Adam's first step moves each of
+# the weights by about the rate and the loss rises first
+BERT_CHECK_LR = 2e-5
+BERT_FLASH = {"flash_fwd": BERT_LAYERS, "flash_bwd_dq": BERT_LAYERS,
+              "flash_bwd_dkv": BERT_LAYERS}
+# mode: (dtype, dropout, pad mask, training, launches a step / forward)
+BERT_MODES = {
+    "finetune": ("float32", 0.1, False, True, {}),
+    "finetune bf16": ("bfloat16", 0.1, False, True, {}),
+    "finetune no-dropout": ("bfloat16", 0.0, False, True, BERT_FLASH),
+    "eval": ("bfloat16", 0.0, False, False, {"flash_fwd": BERT_LAYERS}),
+    "eval masked": ("bfloat16", 0.0, True, False, {}),
+}
+
+
+def bert_model(layers, dropout, dtype, dev):
+    """A seeded ``BertForSequenceClassification`` at ``bert_base`` width
+    (``layers`` deep, both dropouts ``dropout``) cast to ``dtype`` (fp32
+    when None); on the CPU its generator is a CPU one seeded alike, so
+    load the card model's ``state_dict`` into it."""
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_base(num_layers=layers, hidden_dropout_prob=dropout,
+                         attention_probs_dropout_prob=dropout)
+    net = bert.BertForSequenceClassification(
+        cfg, 2, generator=make_generator(SEED, dev), device=dev)
+    return net if dtype is None else net.to(dtype)
+
+
+def bert_batch(dev):
+    """ids, token types and labels from numpy seed 0, and the pad mask (the
+    last BERT_PAD tokens of every other row padded)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, 30522, (BERT_B, BERT_S))
+    types = rng.integers(0, 2, (BERT_B, BERT_S))
+    labels = rng.integers(0, 2, (BERT_B,))
+    mask = np.ones((BERT_B, BERT_S), np.int64)
+    mask[::2, -BERT_PAD:] = 0
+    return {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("ids", ids), ("types", types), ("labels", labels), ("mask", mask))}
+
+
+def bert_bound_ms(net, dtype, train):
+    """Least time of a step (``train``) or forward: the products (the
+    layers' q / k / v / out and FFN weights over b·s tokens, QKᵀ and PV,
+    pooler and classifier; 2 operations a multiply-add, the backward twice
+    the forward) at the dtype's peak or the weights' bytes at the HBM
+    rate, whichever is longer; a step adds AdamW's traffic (params and
+    grads read, params written in their dtype; fp32 moments read and
+    written) at the HBM rate."""
+    import torch
+    cfg = net.bert.cfg
+    H, F, L, T = (cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+                  BERT_B * BERT_S)
+    fwd = (2 * T * L * (4 * H * H + 2 * H * F)
+           + 4 * L * BERT_B * BERT_S * BERT_S * H
+           + 2 * BERT_B * (H * H + 2 * H))
+    n = sum(p.numel() for p in net.parameters())
+    item = torch.finfo(getattr(torch, dtype)).bits // 8
+    ms, by = bound_ms(n * item, 3 * fwd if train else fwd, dtype)
+    if train:
+        ms += 1e3 * n * (3 * item + 16) / HBM_BYTES_PER_S
+    return ms, by
+
+
+def bert_leaves(grads):
+    """``{name: flat gradient}`` with each key bias folded into its
+    weight's leaf: its gradient is zero but for rounding (softmax ignores a
+    shift shared by all keys), so alone no relative distance holds it."""
+    import torch
+    out = {k: g.reshape(-1) for k, g in grads.items()}
+    for k in [k for k in out if k.endswith("k_proj.bias")]:
+        w = k.replace(".bias", ".weight")
+        out[w] = torch.cat([out[w], out.pop(k)])
+    return out
+
+
+def bert_loss_and_grads(net, b, masked=False):
+    """One step's loss and its gradients (:func:`bert_leaves`), the
+    parameters' grads cleared after."""
+    loss = net(b["ids"], b["types"], b["mask"] if masked else None,
+               labels=b["labels"])
+    loss.backward()
+    grads = bert_leaves({k: p.grad for k, p in net.named_parameters()})
+    net.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def bert_mode(mode, b, dev):
+    """The 12-layer model in ``mode``: BERT_WARM + BERT_STEPS dygraph
+    steps (``loss = net(...); loss.backward(); opt.step();
+    opt.clear_grad()``) or BERT_WARM + BERT_FORWARDS no-grad forwards, the
+    launches exactly as BERT_MODES predicts, finite results; step ms,
+    tokens/s, peak memory, the bound, and one profiled call's device-busy
+    share and device time by group."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    from paddle_tpu_torch.optimizer import AdamW
+    dtn, dropout, masked, train, per = BERT_MODES[mode]
+    t0 = time.perf_counter()
+    net = bert_model(BERT_LAYERS, dropout, getattr(torch, dtn)
+                     if dtn != "float32" else None, dev).train(train)
+    bound, bound_by = bert_bound_ms(net, dtn, train)
+    m = b["mask"] if masked else None
+    if train:
+        opt = AdamW(learning_rate=BERT_LR, weight_decay=0.0,
+                    parameters=net.named_parameters())
+
+        def call():
+            loss = net(b["ids"], b["types"], m, labels=b["labels"])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+    else:
+        def call():
+            with torch.no_grad():
+                return net(b["ids"], b["types"], m)
+    torch.cuda.synchronize()
+    info(f"bert {mode}: bert_base x {BERT_LAYERS} layers, {dtn}, dropout "
+         f"{dropout if train else '-'}, pad mask {masked}, "
+         f"{sum(p.numel() for p in net.parameters())} params, built in "
+         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    layer.reset_counts()
+    n = BERT_WARM + (BERT_STEPS if train else BERT_FORWARDS)
+    times, losses = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        if i >= BERT_WARM:
+            times.append(time.perf_counter() - ts)
+        if train:
+            losses.append(float(out))
+    counts = layer.launch_counts()
+    got = {k: c for k, c in counts.items() if c}
+    want = {k: c * n for k, c in per.items()}
+    if got != want:
+        raise SmokeFailure(f"bert {mode}: launch counts {got}, predicted "
+                           f"{want} (every other kernel 0)")
+    if train and not all(math.isfinite(x) for x in losses):
+        raise SmokeFailure(f"bert {mode}: losses {losses} not finite")
+    if not train and (out.shape != (BERT_B, 2) or out.dtype != net.classifier
+                      .weight.dtype or not torch.isfinite(out).all()):
+        raise SmokeFailure(f"bert {mode}: logits {out.dtype} "
+                           f"{tuple(out.shape)} not finite [{BERT_B}, 2]")
+    mem = torch.cuda.max_memory_allocated()
+    ms = 1e3 * sum(times) / len(times)
+    tok_s = BERT_B * BERT_S / (ms / 1e3)
+    wall, busy, by = profile_once(call)
+    groups = device_groups(by)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:8]
+    what = "step" if train else "forward"
+    info(f"bert {mode}: {what} {ms:.3f} ms (times "
+         f"{[round(1e3 * t, 3) for t in times]}), {tok_s:.0f} tokens/s, "
+         f"bound {bound:.3f} ms ({bound_by}; {100 * bound / ms:.1f} %), peak "
+         f"{mem / 2**30:.3f} GiB; losses {[round(x, 5) for x in losses]}; "
+         f"launches over {n} {what}s {got}")
+    info(f"bert {mode}: profiled {what} {wall:.2f} ms wall, device busy "
+         f"{busy:.3f} ms ({100 * busy / wall:.1f}%, "
+         f"{100 * busy / ms:.1f}% of the unprofiled {what}); by group (ms): "
+         + "; ".join(f"{g} {v:.3f}" for g, v in sorted(
+             groups.items(), key=lambda kv: -kv[1]))
+         + "; top kernels (ms, launches): " + "; ".join(
+             f"{k.split('(')[0][:50]} {v:.3f} x{c}" for k, (v, c) in top))
+    del net, call
+    if train:
+        del opt
+    torch.cuda.empty_cache()
+    return counts, {f"{what}_ms": ms, "tokens_per_s": tok_s,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "max_memory_bytes": mem, "busy_share": busy / wall,
+                    "busy_share_of_step": busy / ms, "device_busy_ms": busy,
+                    "profiled_wall_ms": wall, "device_ms_by_group": groups,
+                    "losses": losses, f"launches_per_{what}": per}
+
+
+def bert_check_flash(b, dev):
+    """The no-dropout fine-tune at 2 layers, bf16: one step through the
+    flash kernels against the plain path (loss within EAGER_LOSS_TOL
+    relative, each gradient within STEP_REL_L2 or no further from an fp32
+    run than BF16_SLACK x the plain path), with no launch on the plain
+    path."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    net = bert_model(BERT_CHECK_LAYERS, 0.0, torch.bfloat16, dev)
+    layer.reset_counts()
+    runs = {"kernels": bert_loss_and_grads(net, b)}
+    torch.cuda.synchronize()
+    n = {k: c for k, c in layer.launch_counts().items() if c}
+    if n != {k: BERT_CHECK_LAYERS for k in BERT_FLASH}:
+        raise SmokeFailure(f"bert check: the kernel step launched {n}")
+    layer.reset_counts()
+    with plain_path():
+        runs["plain"] = bert_loss_and_grads(net, b)
+        truth = bert_loss_and_grads(
+            bert_model(BERT_CHECK_LAYERS, 0.0, None, dev), b)
+    torch.cuda.synchronize()
+    n = {k: c for k, c in layer.launch_counts().items() if c}
+    if n:
+        raise SmokeFailure(f"bert check: the plain path launched {n}")
+    check_steps(f"bert finetune no-dropout ({BERT_CHECK_LAYERS} layers, "
+                f"bf16, {BERT_B} x {BERT_S})", runs, truth,
+                (("kernels vs plain path", "kernels", "plain",
+                  EAGER_LOSS_TOL),))
+    return {"loss_rel": rel_l2(runs["kernels"][0], runs["plain"][0])}
+
+
+def bert_cpu_model(net):
+    """The card model's weights (and dtype) in a CPU model."""
+    import torch
+    cfg = net.bert.cfg
+    cpu = bert_model(cfg.num_layers, cfg.hidden_dropout_prob, None, "cpu")
+    cpu.load_state_dict({k: v.float() for k, v in net.state_dict().items()})
+    dt = net.classifier.weight.dtype
+    return cpu if dt == torch.float32 else cpu.to(dt)
+
+
+def bert_check_cpu(b, dev):
+    """The fp32 fine-tune at 2 layers with dropout 0, on the card against
+    the same step on the CPU (same weights and batch): without the pad
+    mask (the flash kernels on the card) and with it (the dense chain),
+    the loss within BERT_CPU_TOL relative and every gradient within
+    BERT_CPU_TOL relative L2; then 5 AdamW steps on the card at
+    BERT_CHECK_LR, the loss falling."""
+    import torch
+    from paddle_tpu_torch.optimizer import AdamW
+    net = bert_model(BERT_CHECK_LAYERS, 0.0, None, dev)
+    cpu, bc = bert_cpu_model(net), {k: v.cpu() for k, v in b.items()}
+    worst = {}
+    for masked in (False, True):
+        (lc, gc), (lp, gp) = (bert_loss_and_grads(net, b, masked),
+                              bert_loss_and_grads(cpu, bc, masked))
+        rows = [("loss", lc.cpu(), lp)] + [(k, gc[k].cpu(), g)
+                                           for k, g in gp.items()]
+        tag = "pad mask" if masked else "no mask"
+        worst[tag] = max(rel_l2(x, y) for _, x, y in rows)
+        for name, x, y in rows:
+            if not torch.isfinite(x).all() or rel_l2(x, y) > BERT_CPU_TOL:
+                raise SmokeFailure(
+                    f"bert fp32 card vs CPU ({tag}) {name}: rel L2 "
+                    f"{rel_l2(x, y):.3e} > {BERT_CPU_TOL}")
+        info(f"bert fp32 ({BERT_CHECK_LAYERS} layers, dropout 0, {tag}) card "
+             f"vs CPU: loss {float(lc):.6f} / {float(lp):.6f}, worst rel L2 "
+             f"over the loss and {len(gp)} gradient leaves "
+             f"{worst[tag]:.3e} (bound {BERT_CPU_TOL})")
+    opt = AdamW(learning_rate=BERT_CHECK_LR, weight_decay=0.0,
+                parameters=net.named_parameters())
+    losses = []
+    for _ in range(5):
+        loss = net(b["ids"], b["types"], labels=b["labels"])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise SmokeFailure(f"bert fp32 5 steps: losses {losses} not finite "
+                           f"and falling")
+    info(f"bert fp32 ({BERT_CHECK_LAYERS} layers) 5 AdamW({BERT_CHECK_LR}) "
+         f"steps on the card: losses {[round(x, 5) for x in losses]}")
+    return {"worst_rel_l2": worst, "losses": losses}
+
+
+def bert_check_eval_masked(b, dev):
+    """The padded eval at 2 layers, bf16: the card's sequence output and
+    logits against the CPU's (the bf16 rule against an fp32 CPU run on the
+    same weights), and other ids under the pad leave the unpadded
+    positions' outputs within 1e-5 (``tests/test_models.py:94-110``)."""
+    import torch
+    net = bert_model(BERT_CHECK_LAYERS, 0.0, torch.bfloat16, dev).eval()
+    cpu = bert_cpu_model(net).eval()
+    cpu32 = bert_cpu_model(net).float().eval()
+    bc = {k: v.cpu() for k, v in b.items()}
+
+    def seq_logits(m, x):
+        seq, pooled = m.bert(x["ids"], x["types"], x["mask"])
+        return seq, m.classifier(pooled)
+    with torch.no_grad():
+        got, logits = seq_logits(net, b)
+        ref, ref32 = seq_logits(cpu, bc), seq_logits(cpu32, bc)
+        outs = {"seq": (got.cpu(), ref[0], ref32[0]),
+                "logits": (logits.cpu(), ref[1], ref32[1])}
+        ids2 = b["ids"].clone()
+        ids2[::2, -BERT_PAD:] = 1
+        got2 = net.bert(ids2, b["types"], b["mask"])[0]
+    err = {k: check_layer_out(f"bert eval masked ({BERT_CHECK_LAYERS} "
+                              f"layers, bf16) {k}: card vs CPU", *v,
+                              TOL["bfloat16"]) for k, v in outs.items()}
+    keep = b["mask"].bool()
+    pad = float((got - got2)[keep].abs().max())
+    if pad > 1e-5:
+        raise SmokeFailure(f"bert eval masked: other ids under the pad moved "
+                           f"unpadded outputs by {pad:.3e} > 1e-5")
+    info(f"bert eval masked: other ids under the pad move the unpadded "
+         f"outputs by {pad:.3e} (bound 1e-5)")
+    return {"max_abs_err": err, "padding_moves": pad}
+
+
+def phase_bert(dev="cuda"):
+    """BERT-base in each of BERT_MODES, then the 2-layer checks."""
+    import torch
+    b = bert_batch(dev)
+    counts, summary = {}, {}
+    for mode in BERT_MODES:
+        counts[f"bert {mode}"], summary[mode] = bert_mode(mode, b, dev)
+    summary["check_flash"] = bert_check_flash(b, dev)
+    torch.cuda.empty_cache()
+    summary["check_cpu"] = bert_check_cpu(b, dev)
+    summary["check_eval_masked"] = bert_check_eval_masked(b, dev)
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
 def main():
     try:
         import torch
@@ -6045,6 +6407,8 @@ def main():
         enc_counts, enc = phase_encoder()
         torch.cuda.empty_cache()
         fmt_counts, fmt = phase_fmt()
+        torch.cuda.empty_cache()
+        bert_counts, bert = phase_bert()
     except (SmokeFailure, ImportError, RuntimeError, ValueError) as e:
         info(f"FAILED: {type(e).__name__}: {e}")
         return 1
@@ -6056,14 +6420,15 @@ def main():
                 "train": train_counts, "gpt": gpt_counts,
                 **{f"generate {tag}": c for tag, c in gen_counts.items()},
                 **eager_counts, "fused calls": fused_counts, **enc_counts,
-                "fused multi transformer": fmt_counts}
+                "fused multi transformer": fmt_counts, **bert_counts}
     # and the per-step launches each step phase was checked against
     per_step = {"train": {**FLASH_PER_STEP, **LCE_PER_STEP},
                 "gpt": GPT_PER_STEP, "eager gpt": EAGER_GPT_PER_STEP,
                 "eager llama": EAGER_LLAMA_PER_STEP,
                 "fused calls": FUSED_CALLS,
                 **{f"encoder {m}": v[2] for m, v in ENC_MODES.items()},
-                "fused multi transformer": FMT_PER_CALL}
+                "fused multi transformer": FMT_PER_CALL,
+                **{f"bert {m}": v[4] for m, v in BERT_MODES.items()}}
     for k in kernels:
         by = {ph: c[k["name"]] for ph, c in by_phase.items()
               if c.get(k["name"])}
@@ -6080,6 +6445,7 @@ def main():
     info(f"eager summary {json.dumps(eager)}")
     info(f"encoder summary {json.dumps(enc)}")
     info(f"fused multi transformer summary {json.dumps(fmt)}")
+    info(f"bert summary {json.dumps(bert)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

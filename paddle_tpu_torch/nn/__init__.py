@@ -1,3 +1,9 @@
-from . import functional, layer, quant
+from . import functional, layer, quant, transformer
+from .transformer import (MultiHeadAttention, Transformer,
+                          TransformerDecoder, TransformerDecoderLayer,
+                          TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["functional", "layer", "quant"]
+__all__ = ["functional", "layer", "quant", "transformer",
+           "MultiHeadAttention", "TransformerEncoderLayer",
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer"]

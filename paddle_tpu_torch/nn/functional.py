@@ -4,10 +4,14 @@ Counterpart of the parts of ``paddle_tpu/nn/functional`` that the eager
 ``LlamaForCausalLM`` / ``GPTForCausalLM`` reach: ``linear`` (weight
 ``[in, out]``), ``embedding``, the jnp-reference norms ``rms_norm`` and
 ``layer_norm`` (``norm.py:68-104``; the ``LayerNorm`` layer's, so GPT's
-final norm), the fused norms over :mod:`..ops.norms`, ``gelu``,
-``dropout``, ``scaled_dot_product_attention``, ``cross_entropy`` and
-``fused_linear_cross_entropy`` (``loss.py:117-144``) over
-:mod:`..ops.fused_cross_entropy`.
+final norm), the fused norms over :mod:`..ops.norms`, ``relu``,
+``tanh``, ``gelu``, ``dropout``, ``scaled_dot_product_attention``,
+``cross_entropy`` and ``fused_linear_cross_entropy``
+(``loss.py:117-144``) over :mod:`..ops.fused_cross_entropy`.
+
+Operands of two float dtypes are promoted as jnp promotes them (bf16 with
+fp32 gives fp32) where torch would raise: in ``linear`` and in attention,
+as a bf16 ``MultiHeadAttention`` meets the fp32 cache of ``gen_cache``.
 
 Randomness (dropout masks) comes from the ``generator`` argument, a
 ``torch.Generator`` on the tensor's device (its device's default generator
@@ -29,13 +33,21 @@ from ..ops.fused_cross_entropy import linear_cross_entropy
 
 __all__ = ["linear", "embedding", "rms_norm", "layer_norm",
            "fused_layer_norm", "fused_bias_dropout_residual_layer_norm",
-           "gelu", "dropout", "scaled_dot_product_attention",
+           "relu", "tanh", "gelu", "dropout", "scaled_dot_product_attention",
            "cross_entropy", "fused_linear_cross_entropy"]
+
+
+def _promoted(*ts):
+    """``ts`` cast to their common dtype (a no-op when they share one)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
 
 
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with Paddle's ``[in, out]`` weight."""
-    out = x @ weight
+    out = torch.matmul(*_promoted(x, weight))
     return out if bias is None else out + bias
 
 
@@ -105,6 +117,14 @@ def fused_bias_dropout_residual_layer_norm(
     return (out, add) if return_add_out else out
 
 
+def relu(x):
+    return torch.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
 def gelu(x, approximate: bool = False):
     return _F.gelu(x, approximate="tanh" if approximate else "none")
 
@@ -128,10 +148,12 @@ def _sdpa_ref(q, k, v, mask=None, dropout_p: float = 0.0,
     """The JAX ``_sdpa_ref`` chain (``attention.py:22-47``), ``[B, S, H,
     D]``: logits in the input dtype, then fp32 with the causal mask
     (bottom-right aligned) and the boolean or additive mask, softmax in
-    fp32, probabilities cast back (and dropped) before the value
-    product."""
+    fp32, probabilities cast back to q's dtype (and dropped) before the
+    value product; each product in its operands' promoted dtype, as jnp's
+    einsum."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qt, kt = _promoted(qt, kt)
     logits = ((qt @ kt.transpose(-1, -2)) * s).float()
     low = torch.finfo(torch.float32).min
     if causal:
@@ -146,7 +168,7 @@ def _sdpa_ref(q, k, v, mask=None, dropout_p: float = 0.0,
     if dropout_p > 0.0:
         keep = _keep_mask(probs.shape, dropout_p, generator, q.device)
         probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0).to(q.dtype)
-    return (probs @ vt).transpose(1, 2)
+    return torch.matmul(*_promoted(probs, vt)).transpose(1, 2)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -157,10 +179,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Attention in the ``[B, S, H, D]`` layout.  Without a mask and
     without dropout it takes the port's flash attention (the CUDA kernels
     on the card), as the JAX package takes ``tuned_flash`` on the TPU;
-    otherwise the dense :func:`_sdpa_ref` chain."""
+    otherwise the dense :func:`_sdpa_ref` chain (the JAX routing rule,
+    ``attention.py:62-71``).  Flash takes one dtype: q, k and v of two are
+    promoted to their common one first."""
     p = dropout_p if training else 0.0
     if attn_mask is None and p == 0.0:
-        return flash_attention(query, key, value, causal=is_causal)
+        return flash_attention(*_promoted(query, key, value),
+                               causal=is_causal)
     return _sdpa_ref(query, key, value, attn_mask, p, is_causal, generator)
 
 

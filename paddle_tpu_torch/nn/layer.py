@@ -1,8 +1,10 @@
 """The eager layers the models are built from: ``Linear``, ``Embedding``,
-``LayerNorm``, ``RMSNorm`` and ``Dropout`` as ``torch.nn.Module``s.
+``LayerNorm``, ``RMSNorm``, ``Dropout`` and ``Tanh`` as
+``torch.nn.Module``s.
 
-Counterparts of ``paddle_tpu/nn/layer/common.py`` and ``norm.py``, with
-their parameter names and layouts, so a ``state_dict`` maps one to one:
+Counterparts of ``paddle_tpu/nn/layer/common.py``, ``norm.py`` and
+``activation.py``, with their parameter names and layouts, so a
+``state_dict`` maps one to one:
 ``Linear.weight`` is Paddle's ``[in, out]`` (``y = x @ weight + bias``),
 ``Embedding.weight`` ``[num, dim]``, the norms' ``weight`` / ``bias``
 ``[H]``.  Parameters are fp32 (the JAX layers' default dtype; cast a
@@ -11,6 +13,9 @@ distributions from ``generator`` (the default generator of ``device``
 when None): ``Linear`` weights Xavier-uniform over ``(in, out)``, biases
 zero, ``Embedding`` normal with std ``std`` (1 by default), norm gains
 one.  ``device=None`` means CUDA (:func:`..device.resolve_device`).
+``Linear`` takes JAX's positional ``(in_features, out_features,
+weight_attr, bias_attr)``; a ``ParamAttr`` (anything but None or
+``False``) raises ``NotImplementedError``.
 
 ``RMSNorm.forward`` always takes the fused op (the JAX layer's TPU
 branch): the ``rms_norm_fwd`` kernel on CUDA, its plain version on the
@@ -29,14 +34,22 @@ from ..device import resolve_device
 from ..incubate.nn import functional as IF
 from . import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "Dropout"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "Dropout",
+           "Tanh"]
 
 
 class Linear(torch.nn.Module):
     def __init__(self, in_features: int, out_features: int,
-                 bias_attr=None, *,
+                 weight_attr=None, bias_attr=None, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
+        named = [k for k, v in (("weight_attr", weight_attr),
+                                ("bias_attr", bias_attr))
+                 if v is not None and v is not False]
+        if named:
+            raise NotImplementedError(
+                f"Linear: ParamAttr arguments ({', '.join(named)}) are not "
+                f"ported to paddle_tpu_torch yet (ROADMAP queue 1 item 20)")
         dev = resolve_device(device)
         self.in_features, self.out_features = in_features, out_features
         limit = math.sqrt(6.0 / (in_features + out_features))
@@ -126,3 +139,8 @@ class Dropout(torch.nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}"
+
+
+class Tanh(torch.nn.Module):
+    def forward(self, x):
+        return F.tanh(x)

@@ -1991,3 +1991,45 @@ def test_gpt_quantized_prefill_block_kernel_matches_plain(dt, width, gs, kvq,
         _gpt_launches("prefill_block", dt, width, kvq, Ts)
     _close(got[0][:, :valid], ref[0][:, :valid], dt)
     _close_pools((gk, gv), ref[1:], dt, kvq)
+
+
+# ------------------------------------------------------ BERT fine-tune
+@pytest.mark.gpu
+def test_bert_no_dropout_step_launches_the_flash_kernels_once_a_layer():
+    """A 2-layer BERT (H 128, 2 heads of 64) fp32 fine-tune step with both
+    dropouts 0 and no pad mask: attention takes flash, so the step launches
+    ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` exactly once a
+    layer and nothing else of the library; its loss is within 1e-4
+    (relative) and every gradient within relative L2 1e-4 of the same step
+    on the CPU, each key bias held with its weight as one leaf
+    (``chip_smoke.bert_leaves``: its gradient is zero but for rounding)."""
+    _need_card()
+    from paddle_tpu_torch.models import bert
+    cfg = bert.bert_tiny(hidden_size=128, num_heads=2, num_layers=2,
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+    rng = np.random.default_rng(24)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 32)))
+    labels = torch.from_numpy(rng.integers(0, 2, (4,)))
+    net = bert.BertForSequenceClassification(cfg, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        net = net.to(dev)
+        layer.reset_counts()
+        loss = net(ids.to(dev), labels=labels.to(dev))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert {k: n for k, n in layer.launch_counts().items() if n} == {
+                "flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+        runs[dev] = (float(loss), {k: p.grad.detach().cpu().clone()
+                                   for k, p in net.named_parameters()})
+        net.zero_grad(set_to_none=True)
+    (lc, gc), (lp, gp) = runs["cuda"], runs["cpu"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    gc, gp = cs.bert_leaves(gc), cs.bert_leaves(gp)
+    assert len(gp) == len(runs["cpu"][1]) - 2
+    for k, g in gp.items():
+        assert float((gc[k] - g).norm()) <= 1e-4 * float(g.norm()), k
