@@ -44,8 +44,12 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             SwiGLU in its epilogue, or gate, up and ``swiglu_fwd``), the
             int8 kernels beside their bounds and SDPA on dequantized K / V,
             and the quantized ``decode_block`` / ``prefill_block`` chains;
+            and ``prefill_block`` as the engine's unbucketed tier calls it,
+            one chunk of Ts 1, 37 and 300 at start 0 and 512, fp32 and
+            bf16 against its plain version, timed in bf16;
 4. engine   ``llama_7b`` in bf16 with seeded random weights served by the
-            continuous-batching engine (bucketed prefill, paged decode):
+            continuous-batching engine with prefix caching and preemption
+            off (bucketed prefill, paged decode):
             the prefill logits of one request against the plain chain on
             the card, then 8 requests of 20-600 prompt tokens and 32 new
             tokens each, with every request finished, no KV block leaked and
@@ -56,7 +60,28 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             traffic with the launch counts exactly as predicted from the
             decode steps and chunk fills and the plain ops refused, its
             decode step's wall and busy ms, tokens/s and TTFT beside the
-            bf16 engine's;
+            bf16 engine's; then that quantized engine at the JAX defaults:
+            one prefix hit against the prompt served cold, one preempt /
+            restore whose snapshot carries the int8 pages' fp32 scales,
+            restored byte for byte, ids as unpreempted;
+4b. engine features  ``llama_7b`` bf16 at full depth through
+            ``ContinuousBatchingEngine(cfg, params)`` at the JAX engine's
+            defaults (prefix caching, preemption with an unbounded
+            ``SpillTier``, ``prefill_buckets=None``): four requests of a
+            512-token shared prefix and 64-token suffixes in two waves
+            against the cache off (hits, prefill tokens computed, TTFT,
+            ``prefill_block`` only for the suffixes); a full batch at
+            priority 0 and a priority-1 arrival (preempt, spill, restore
+            byte for byte, synchronised seconds and bytes), again with
+            ``SpillTier(capacity_bytes=0)`` (replay from the prefix), both
+            against prefix caching and preemption off; a sampled request
+            (temperature 0.8, top_k 50, top_p 0.9) alone and in a batch,
+            the card's sampler against the CPU's over its logits rows and
+            its time at B 4, V 32000; a 300-token cold prompt through the
+            dense tier (no kernel of the library) against the bucketed
+            fills.  Ids that differ between two runs are held, at their
+            first differing token, to ``check_layer_out`` with the fp32
+            plain chain over the same tokens as the truth;
 5. gpt serve  GPT-125M (``gpt_125m``, bf16, 12 layers, V 50304) served
             through ``decode_block`` / ``prefill_block`` (the GPT layer:
             LayerNorm with bias, fused qkv stored split per head, bias and
@@ -288,6 +313,9 @@ BF16_SLACK = 1.5
 MAIN_PATH = ("decode_block", "prefill_block", "rms_norm_rows",
              "gemm_xw_small_m", "gemm_xw_tiled", "rope_kv_write",
              "paged_attention")
+# (Ts, start) of the unbucketed chunk fills held against the plain version
+# in phase kernels: a prompt of any length cold, or a suffix after 32 pages
+ODD_CHUNKS = [(Ts, start) for start in (0, 512) for Ts in (1, 37, 300)]
 # the training slice: flash launches per step of a 4-layer model under
 # remat (forward, recomputed forward, dq, dk/dv per layer)
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_WARM, TRAIN_STEPS = 4, 4, 2048, 1, 5
@@ -786,6 +814,12 @@ def phase_kernels(cfg, results, dev="cuda"):
     pre_cases = [(16, 37, 16), (16, 5, 11), (64, 21, 40), (256, 300, 200)]
     xs = {Ts: torch.randn(1, Ts, H, device=dev, generator=gen)
           for Ts, _, _ in pre_cases}
+    # the engine's unbucketed fills: one chunk of any length from a page
+    # boundary, over pages of their own (the table's last 52 pages)
+    bt_odd = torch.full((MB,), -1, dtype=torch.int32, device=dev)
+    bt_odd[:52] = perm[-52:]
+    xo = {Ts: torch.randn(1, Ts, H, device=dev, generator=gen)
+          for Ts, _ in ODD_CHUNKS}
 
     kernel_err, ratios = {}, {}
     for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -802,6 +836,13 @@ def phase_kernels(cfg, results, dev="cuda"):
             e = check_prefill_layer(
                 f"prefill_block {dtn} Ts={Ts}", spec, lp, pk0, pv0,
                 xs[Ts].to(dt), start, valid, bt_row, NB, cos_t, sin_t,
+                TOL[dtn], ratios.setdefault(key, []))
+            kernel_err[key] = max(kernel_err.get(key, 0.0), e)
+        for Ts, start in ODD_CHUNKS:
+            key = ("prefill_block", dtn)
+            e = check_prefill_layer(
+                f"prefill_block {dtn} unbucketed Ts={Ts}", spec, lp, pk0,
+                pv0, xo[Ts].to(dt), start, Ts, bt_odd, NB, cos_t, sin_t,
                 TOL[dtn], ratios.setdefault(key, []))
             kernel_err[key] = max(kernel_err.get(key, 0.0), e)
 
@@ -844,11 +885,14 @@ def phase_kernels(cfg, results, dev="cuda"):
          f"median of 30: {host:.4f} ms), plain device {plain} ms (per call "
          f"{plain_call:.4f} ms), bound {bms:.4f} ms ({bby}); kernels "
          f"{short(dec_by)}")
-    for Ts, start, valid in pre_cases:
-        xp = xs[Ts].to(dt)
+    def prefill_times(xp, start, valid, row):
+        """bf16 device / per-call / plain times and the bound of one
+        ``prefill_block`` call of ``xp``'s rows at ``start`` over the
+        table row ``row``, the rows past ``valid`` padded."""
+        Ts = xp.shape[1]
         pos = start + torch.arange(Ts, device=dev)
         c, s = (t[pos].to(dt).contiguous() for t in (cos_t, sin_t))
-        blk = bt_row.clamp(min=0)[pos // BS]
+        blk = row.clamp(min=0)[pos // BS]
         blk[valid:] = NB
         blk, off = blk.to(torch.int32), (pos % BS).to(torch.int32)
         n_read = start + Ts
@@ -858,20 +902,25 @@ def phase_kernels(cfg, results, dev="cuda"):
             start + i + 1 for i in range(Ts))
         pre_by = {}
         layer_launches("prefill_block", lambda: db.prefill_block(
-            xp, lp, pk, pv, blk, off, bt_row, c, s, spec=spec, start=start))
+            xp, lp, pk, pv, blk, off, row, c, s, spec=spec, start=start))
         _, call = time_ms(lambda: db.prefill_block(
-            xp, lp, pk, pv, blk, off, bt_row, c, s, spec=spec,
+            xp, lp, pk, pv, blk, off, row, c, s, spec=spec,
             start=start), 10, pre_by)
         ms = chain_ms(pre_by, "gemm_xw_small_m_tma" if Ts <= 16
                       else "gemm_xw_tiled_wg")
         plain, plain_call = time_ms(lambda: db.prefill_block_ref(
-            xp, lp, pk, pv, blk, off, bt_row, c, s, spec=spec,
+            xp, lp, pk, pv, blk, off, row, c, s, spec=spec,
             start=start), 3)
         bms, bby = bound_ms(pre_bytes, pre_ops)
         info(f"prefill_block bf16 Ts={Ts} start={start} valid={valid}: "
              f"device {ms:.4f} ms (per call {call:.4f} ms), plain device "
              f"{plain} ms (per call {plain_call:.4f} ms), bound {bms:.4f} ms "
              f"({bby}); kernels {short(pre_by)}")
+        return ms, call, plain, plain_call, bms, bby
+
+    for Ts, start, valid in pre_cases:
+        ms, call, plain, plain_call, bms, bby = prefill_times(
+            xs[Ts].to(dt), start, valid, bt_row)
         if Ts == 256:
             results.append(dict(
                 name="prefill_block", route="cuda",
@@ -883,6 +932,14 @@ def phase_kernels(cfg, results, dev="cuda"):
                 plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
                 library_ms=None, bf16_vs_fp32_ratio=max(
                     ratios[("prefill_block", "bfloat16")])))
+    unbucketed = []
+    for Ts, start in ODD_CHUNKS:
+        ms, call, plain, plain_call, bms, bby = prefill_times(
+            xo[Ts].to(dt), start, Ts, bt_odd)
+        unbucketed.append(dict(Ts=Ts, start=start, ms=ms, call_ms=call,
+                               plain_ms=plain, bound_ms=bms, bound_by=bby))
+    next(r for r in results if r["name"] == "prefill_block")[
+        "unbucketed_chunks"] = unbucketed
 
     # ---- the chain's kernels one at a time, bf16, decode shapes (B=4)
     tol = TOL["bfloat16"]
@@ -1848,6 +1905,8 @@ def phase_engine_quant(cfg, bf16, dev="cuda"):
     eng = ContinuousBatchingEngine(cfg, params, max_batch=4, block_size=16,
                                    num_blocks=256,
                                    prefill_buckets=(16, 64, 256),
+                                   enable_prefix_caching=False,
+                                   enable_preemption=False,
                                    quant_config=qc, device=dev)
     torch.cuda.synchronize()
     export_s = time.perf_counter() - t0
@@ -2008,7 +2067,91 @@ def phase_engine_quant(cfg, bf16, dev="cuda"):
          f"{dec_tok / dec_s:.1f} tok/s (bf16 "
          f"{bf16['decode_tokens_per_s']:.1f}); TTFT mean "
          f"{summary['ttft_mean_s']:.3f} s (bf16 {bf16['ttft_mean_s']:.3f})")
-    return counts, summary
+    fcounts, summary["features"] = engine_quant_features(cfg, eng, qc, rng,
+                                                         dev)
+    return counts, summary, fcounts
+
+
+def engine_quant_features(cfg, eng, qc, rng, dev="cuda"):
+    """The quantized engine (``eng``'s exported int8 weights, int8 KV
+    pools) at the JAX defaults: one prefix hit (a 256-token prefix, two
+    48-token suffixes) held to the second prompt served cold, and one
+    explicit preempt / restore whose snapshot must carry the fp32 scales,
+    restored byte for byte and finishing with the unpreempted ids.
+    Returns the launch counts of its engine runs and its summary."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops.cuda import layer
+
+    V, counts = cfg.vocab_size, {}
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(cfg, eng.params, max_batch=4,
+                                        block_size=16, num_blocks=256,
+                                        quant_config=qc, device=dev, **kw)
+
+    def counted(e, arrivals):
+        return counted_drive(e, arrivals, counts)
+
+    (npre, nsuf, nnew), (npr, nprnew) = QFEAT_PREFIX, QFEAT_PREEMPT
+    prefix = rng.integers(0, V, npre).astype(np.int32)
+    pa, pb = (np.concatenate([prefix, rng.integers(0, V, nsuf)
+                              .astype(np.int32)]) for _ in range(2))
+    feat = engine()
+    counted(feat, [(0, pa, nnew, {})])
+    hit = counted(feat, [(0, pb, nnew, {})])
+    ps = feat.prefix_stats()
+    if ps["hits"] != 1 or ps["hit_blocks"] != npre // 16:
+        raise SmokeFailure(f"engine quant features: prefix stats {ps}")
+    off = engine(enable_prefix_caching=False, enable_preemption=False)
+    cold = counted(off, [(0, pb, nnew, {})])
+    check_requests("engine quant features", {"hit": hit, "cold": cold},
+                   [pb], [nnew], V)
+    divs = same_ids("engine quant features prefix hit vs cold", off, hit,
+                    cold, [pb])
+    # one preempt / restore: the snapshot carries the int8 pages' scales
+    pr = rng.integers(0, V, npr).astype(np.int32)
+    want = counted(off, [(0, pr, nprnew, {})])
+    check_restores_exact(feat)
+    layer.reset_counts()
+    with NoPlainPath():
+        rid = feat.add_request(pr, nprnew)
+        for _ in range(5):
+            feat.step()
+        feat.preempt(next(s for s, r in enumerate(feat.slots)
+                          if r is not None and r.req_id == rid))
+        snap = feat._spill[rid]
+        if snap.k_scale is None or snap.k_scale.dtype != torch.float32 or \
+                snap.k_pages.dtype != torch.int8 or \
+                tuple(snap.k_scale.shape) != tuple(snap.k_pages.shape[:-1]):
+            raise SmokeFailure("engine quant features: the snapshot lacks "
+                               "its int8 codes' fp32 scales")
+        nbytes = snap.nbytes
+        got = feat.run_to_completion()[rid]
+    for k, n in layer.launch_counts().items():
+        if n:
+            counts[k] = counts.get(k, 0) + n
+    st = feat.resilience_stats()
+    if st["preemptions"] != 1 or st["restores"] != 1:
+        raise SmokeFailure(f"engine quant features: resilience {st}")
+    if not np.array_equal(got, want["ids"][want["rids"][0]]):
+        raise SmokeFailure("engine quant features: the restored request "
+                           "changed its ids")
+    leak = feat.kv_leak_report()
+    if leak["leaked"] or leak["unaccounted"] or leak["slot_blocks"]:
+        raise SmokeFailure(f"engine quant features: KV accounting {leak}")
+    info(f"engine quant features: prefix hit {ps['hit_blocks']} blocks, "
+         f"prefill tokens computed {ps['prefill_tokens_computed']}; ids vs "
+         f"cold: {len(divs)} divergence(s); one preempt / restore of "
+         f"{nbytes} snapshot bytes (int8 codes + fp32 scales) restored "
+         f"exactly, ids identical to the unpreempted run; launches {counts}")
+    del feat, off
+    torch.cuda.empty_cache()
+    return counts, dict(prefix_hits=ps["hits"],
+                        prefill_tokens_computed=ps["prefill_tokens_computed"],
+                        divergences=divs, snapshot_bytes=nbytes,
+                        resilience={k: v for k, v in st.items()})
 
 
 def phase_engine(cfg, dev="cuda"):
@@ -2026,10 +2169,13 @@ def phase_engine(cfg, dev="cuda"):
 
     t0 = time.perf_counter()
     params = init_params(cfg, make_generator(SEED, dev), device=dev)
+    # prefix caching and preemption off, as this phase ran before the
+    # engine took the JAX defaults (phase engine features drives them)
     eng = ContinuousBatchingEngine(cfg, params, max_batch=4, block_size=16,
                                    num_blocks=256,
                                    prefill_buckets=(16, 64, 256),
-                                   device=dev)
+                                   enable_prefix_caching=False,
+                                   enable_preemption=False, device=dev)
     torch.cuda.synchronize()
     info(f"engine: llama_7b bf16 params + pools built in "
          f"{time.perf_counter() - t0:.1f} s")
@@ -2160,6 +2306,457 @@ def phase_engine(cfg, dev="cuda"):
         decode_tokens_per_s=dec_tok / dec_s, prefill_s=pre_s, wall_s=wall,
         ttft_min_s=ttfts[0], ttft_max_s=ttfts[-1],
         ttft_mean_s=sum(ttfts) / len(ttfts))
+
+
+# ------------------------------------------- the engine at the JAX defaults
+# llama_7b bf16 through ContinuousBatchingEngine(cfg, params) as the JAX
+# engine's users call it: prefix caching on, preemption on with an
+# unbounded SpillTier, prefill_buckets None (cold prompts through the dense
+# decoder's prefill, cache-hit suffixes through one unbucketed chunk fill).
+FEAT_PREFIX, FEAT_SUFFIX, FEAT_NEW = 512, 64, 32
+FEAT_LO, FEAT_HI, FEAT_HI_STEP = (300, 200, 400, 250), 300, 6
+FEAT_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.9)
+FEAT_DENSE = 300
+FEAT_SAMPLED_LENS = (100, 60, 150, 90)       # the sampled prompt, batchmates
+# the quantized engine's prefix (prefix, suffix, new tokens) and preempted
+# request (prompt, new tokens)
+QFEAT_PREFIX, QFEAT_PREEMPT = (256, 48, 16), (200, 24)
+
+
+def fp32_last_logits(eng, tokens):
+    """The plain chain in fp32 over ``tokens`` as one chunk (int8 codes
+    and scales as they are, int8 KV pools with fp32 scales): the logits
+    at the last position, on the host — the reference a bf16 divergence
+    between two engine runs is held to."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops import decode_block as db
+    from paddle_tpu_torch.ops import paged_kv as tkv
+    dev, BS, T = eng.device, eng.BS, len(tokens)
+    npg = -(-T // BS)
+    shape = (npg, BS, eng.cfg.kv_heads, eng.cfg.head_dim)
+    pk, pv = (tkv.zeros_kv_pool(shape, torch.float32, dev,
+                                kv_quant=eng._kv_quant) for _ in range(2))
+    bt_row = torch.arange(npg, dtype=torch.int32, device=dev)
+    pos = torch.arange(T, device=dev)
+    blk, off = (pos // BS).to(torch.int32), (pos % BS).to(torch.int32)
+    ids = torch.from_numpy(np.asarray(tokens, np.int64)).to(dev)
+    x = eng.params["wte"][ids][None].float()
+    cos, sin = eng._cos[pos].float(), eng._sin[pos].float()
+    with torch.no_grad():
+        for lp in eng._layers:
+            x = db.prefill_block_ref(x, _f32_layer(lp), pk, pv, blk, off,
+                                     bt_row, cos, sin, spec=eng.spec,
+                                     start=0)[0]
+        return eng._logits(x[:, -1])[0].cpu()
+
+
+def drive(eng, arrivals):
+    """Serve ``arrivals`` ``[(step, prompt, new_tokens, add_request
+    kwargs)]`` with the plain serving ops refused; returns ``dict(ids={rid:
+    prompt + generated}, ttft={rid: s from its add_request to the end of the
+    step that gave its first token}, rows={rid: {token index: fp32 logits
+    row}}, wall=s, max_spilled=bytes, rids=[...])``."""
+    import numpy as np
+    rows, fill = {}, eng._prefill_into_slot
+
+    def recording(slot, req, L):
+        logits = fill(slot, req, L)
+        # a replay's prefill (same id) gives no token: keep the first
+        rows.setdefault(req.req_id, {}).setdefault(
+            0, logits[0].float().cpu().numpy())
+        return logits
+    eng._prefill_into_slot = recording
+    pending = sorted(arrivals, key=lambda a: a[0])
+    ids, ttft, t_add, rids = {}, {}, {}, []
+    step, spilled = 0, 0
+    t0 = time.perf_counter()
+    try:
+        with NoPlainPath():
+            while pending or eng.queue or \
+                    any(s is not None for s in eng.slots):
+                while pending and pending[0][0] <= step:
+                    _, p, n, kw = pending.pop(0)
+                    rid = eng.add_request(p, n, **kw)
+                    rids.append(rid)
+                    t_add[rid] = time.perf_counter()
+                ids.update(eng.step())
+                te = time.perf_counter()
+                spilled = max(spilled, eng.spilled_bytes)
+                live = [(s, r) for s, r in enumerate(eng.slots)
+                        if r is not None]
+                for s, r in live:
+                    ttft.setdefault(r.req_id, te - t_add[r.req_id])
+                    if eng.last_logits is not None:
+                        if not np.isfinite(eng.last_logits[s]).all():
+                            raise SmokeFailure("engine features: "
+                                               "non-finite decode logits")
+                        rows[r.req_id][len(r.out) - 1] = \
+                            eng.last_logits[s].copy()
+                step += 1
+    finally:
+        eng._prefill_into_slot = fill
+    for rid in ids:
+        ttft.setdefault(rid, time.perf_counter() - t_add[rid])
+    return dict(ids=ids, ttft=ttft, rows=rows, rids=rids,
+                wall=time.perf_counter() - t0, max_spilled=spilled)
+
+
+def counted_drive(eng, arrivals, totals):
+    """:func:`drive` with the library's launch counts set to 0 just before
+    and read just after: the run gets ``counts`` (the nonzero ones), which
+    are added into ``totals``."""
+    from paddle_tpu_torch.ops.cuda import layer
+    layer.reset_counts()
+    run = drive(eng, arrivals)
+    run["counts"] = {k: n for k, n in layer.launch_counts().items() if n}
+    for k, n in run["counts"].items():
+        totals[k] = totals.get(k, 0) + n
+    return run
+
+
+def check_requests(tag, runs, prompts, new_tokens, vocab):
+    """Every request finished with a valid sequence of its prompt and
+    ``new_tokens`` ids, in every run."""
+    import numpy as np
+    for name, run in runs.items():
+        if sorted(run["ids"]) != sorted(run["rids"]):
+            raise SmokeFailure(f"{tag} {name}: finished {sorted(run['ids'])}"
+                               f", expected {sorted(run['rids'])}")
+        for rid, p, n in zip(run["rids"], prompts, new_tokens):
+            out = run["ids"][rid]
+            if len(out) != len(p) + n or not np.array_equal(out[:len(p)], p) \
+                    or out.min() < 0 or out.max() >= vocab:
+                raise SmokeFailure(f"{tag} {name}: request {rid} returned a "
+                                   f"bad sequence of length {len(out)}")
+
+
+def same_ids(tag, eng, run, ref, prompts):
+    """Hold ``run``'s ids to ``ref``'s request by request.  Where they
+    differ, the first differing token's logits (computed from the same
+    tokens in both runs) must agree: ``check_layer_out`` with ``run`` as the
+    kernel side, ``ref`` as the plain side and the fp32 plain chain over
+    those tokens as the truth.  Returns the documented divergences."""
+    import torch
+    divs = []
+    for rid, rrid, p in zip(run["rids"], ref["rids"], prompts):
+        a, b = run["ids"][rid], ref["ids"][rrid]
+        if (a == b).all():
+            continue
+        i = int((a != b).nonzero()[0][0]) - len(p)
+        truth = fp32_last_logits(eng, a[:len(p) + i])
+        err = check_layer_out(
+            f"{tag} request {rid} first differing token {i}",
+            torch.from_numpy(run["rows"][rid][i]),
+            torch.from_numpy(ref["rows"][rrid][i]), truth, TOL["bfloat16"])
+        gap = float(truth.max() - truth[[int(a[len(p) + i]),
+                                         int(b[len(p) + i])]].min())
+        divs.append(dict(request=rid, token=i, ids=[int(a[len(p) + i]),
+                                                    int(b[len(p) + i])],
+                         max_err=err, fp32_gap=gap))
+        info(f"{tag}: request {rid} diverges at generated token {i} "
+             f"({int(a[len(p) + i])} vs {int(b[len(p) + i])}); logits max "
+             f"|err| {err:.3e}; the two ids lie {gap:.3e} below the fp32 "
+             f"maximum")
+    return divs
+
+
+def timed_methods(eng, names):
+    """Wrap the engine methods ``names`` with synchronised host timers;
+    returns ``{name: [seconds of each call]}``."""
+    import torch
+    out = {}
+    for name in names:
+        fn = getattr(eng, name)
+        out[name] = []
+
+        def timed(*a, _fn=fn, _t=out[name], **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = _fn(*a, **k)
+            torch.cuda.synchronize()
+            _t.append(time.perf_counter() - t0)
+            return r
+        setattr(eng, name, timed)
+    return out
+
+
+def check_restores_exact(eng):
+    """Wrap ``_restore_preempted``: after each restore the slot's pages
+    must hold the snapshot's bytes exactly (codes and scales)."""
+    import torch
+    fn = eng._restore_preempted
+
+    def checked(slot, req, idx, snap):
+        ok = fn(slot, req, idx, snap)
+        if ok:
+            used = snap.k_pages.shape[1]
+            pages = eng.slot_pages[slot][:used]
+            pairs = [(eng.pool_k, snap.k_pages, snap.k_scale),
+                     (eng.pool_v, snap.v_pages, snap.v_scale)]
+            for pool, data, scale in pairs:
+                d = pool.data if scale is not None else pool
+                if not torch.equal(d[:, pages].cpu(), data) or (
+                        scale is not None and not torch.equal(
+                            pool.scale[:, pages].cpu(), scale)):
+                    raise SmokeFailure("engine features: a restore did not "
+                                       "write the snapshot's bytes exactly")
+        return ok
+    eng._restore_preempted = checked
+
+
+def phase_engine_features(cfg, dev="cuda"):
+    """llama_7b bf16 (seeded random weights, full depth) through the engine
+    at the JAX engine's defaults: shared-prefix traffic in two waves against
+    the cache off; a full batch at priority 0 preempted by a priority-1
+    arrival, spilled and restored, then the same with a zero-capacity spill
+    tier (replay from the prefix), against both features off; a sampled
+    request alone and in a batch, and the card's sampler against the CPU's
+    over its logits rows; a 300-token cold prompt through the dense tier
+    against the bucketed chunk fills.  Returns the launch counts of every
+    engine run of the phase and its summary."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingEngine, GenRequest, build_sampler)
+    from paddle_tpu_torch.models.llama import init_params
+    from paddle_tpu_torch.serving import SpillTier
+
+    params = init_params(cfg, make_generator(SEED, dev), device=dev)
+    V, L = cfg.vocab_size, cfg.num_layers
+    rng = np.random.default_rng(SEED + 25)
+    phase_counts, summary = {}, {}
+
+    def engine(**kw):
+        return ContinuousBatchingEngine(cfg, params, max_batch=4,
+                                        block_size=16, num_blocks=256,
+                                        device=dev, **kw)
+
+    def counted(eng, arrivals):
+        return counted_drive(eng, arrivals, phase_counts)
+
+    # ---- shared-prefix traffic: two waves of two, against the cache off
+    prefix = rng.integers(0, V, FEAT_PREFIX).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(0, V, FEAT_SUFFIX)
+                               .astype(np.int32)]) for _ in range(4)]
+    # one throwaway pass at the same shapes first: the first dense prefill
+    # and chunk fill of a length pay one-time costs that TTFT must not see
+    warm = engine()
+    for w in (0, 2):
+        drive(warm, [(0, p, 2, {}) for p in prompts[w:w + 2]])
+    del warm
+    runs = {}
+    for name, kw in (("cache on", {}),
+                     ("cache off", {"enable_prefix_caching": False})):
+        eng = engine(**kw)
+        waves = [counted(eng, [(0, p, FEAT_NEW, {}) for p in prompts[w:w + 2]])
+                 for w in (0, 2)]
+        run = {k: {**waves[0][k], **waves[1][k]}
+               for k in ("ids", "ttft", "rows")}
+        run["rids"] = waves[0]["rids"] + waves[1]["rids"]
+        run["counts"] = {k: waves[0]["counts"].get(k, 0)
+                         + waves[1]["counts"].get(k, 0)
+                         for k in set(waves[0]["counts"])
+                         | set(waves[1]["counts"])}
+        run["prefix"] = eng.prefix_stats()
+        leak = eng.kv_leak_report()
+        if leak["leaked"] or leak["unaccounted"] or leak["slot_blocks"]:
+            raise SmokeFailure(f"engine features {name}: KV accounting not "
+                               f"clean: {leak}")
+        runs[name] = run
+        if name == "cache off":
+            ref_eng = eng
+        else:
+            del eng
+    check_requests("engine features prefix", runs, prompts, [FEAT_NEW] * 4,
+                   V)
+    on, off = runs["cache on"], runs["cache off"]
+    hits = on["prefix"]["hits"]
+    if hits < 3 or on["prefix"]["hit_blocks"] != 3 * FEAT_PREFIX // 16:
+        raise SmokeFailure(f"engine features: prefix hits {on['prefix']}, "
+                           "expected 3 of 32 blocks")
+    # the dense tier launches nothing of the library: chunk fills only for
+    # the three suffixes, none with the cache off
+    if on["counts"].get("prefill_block", 0) != 3 * L or \
+            off["counts"].get("prefill_block", 0):
+        raise SmokeFailure(f"engine features: prefill_block launches "
+                           f"{on['counts'].get('prefill_block')} (cache on) "
+                           f"/ {off['counts'].get('prefill_block')} (off), "
+                           f"expected {3 * L} / 0")
+    divs_prefix = same_ids("engine features prefix hit vs cache off",
+                           ref_eng, on, off, prompts)
+    del ref_eng
+    torch.cuda.empty_cache()
+    summary["prefix"] = dict(
+        hits=hits, hit_blocks=on["prefix"]["hit_blocks"],
+        prefill_tokens_computed=on["prefix"]["prefill_tokens_computed"],
+        prefill_tokens_computed_cache_off=off["prefix"][
+            "prefill_tokens_computed"],
+        ttft_s=[on["ttft"][r] for r in on["rids"]],
+        ttft_cache_off_s=[off["ttft"][r] for r in off["rids"]],
+        divergences=divs_prefix, launches=on["counts"])
+    info(f"engine features prefix: {hits} hits ({on['prefix']['hit_blocks']} "
+         f"blocks), prefill tokens computed {on['prefix']['prefill_tokens_computed']}"
+         f" (cache off {off['prefix']['prefill_tokens_computed']}); TTFT s "
+         f"{[round(t, 4) for t in summary['prefix']['ttft_s']]} (cache off "
+         f"{[round(t, 4) for t in summary['prefix']['ttft_cache_off_s']]}); "
+         f"ids: {len(divs_prefix)} of 4 requests diverge; launches "
+         f"{on['counts']}")
+
+    # ---- priority traffic: preempt + spill + restore, then replay
+    lo = [rng.integers(0, V, n).astype(np.int32) for n in FEAT_LO]
+    hi = rng.integers(0, V, FEAT_HI).astype(np.int32)
+    arrivals = [(0, p, FEAT_NEW, {}) for p in lo] + \
+        [(FEAT_HI_STEP, hi, FEAT_NEW, {"priority": 1})]
+    pprompts = lo + [hi]
+    runs, res_stats, timers = {}, {}, {}
+    for name, kw in (("spill", {}),
+                     ("replay", {"spill_tier": SpillTier(capacity_bytes=0)}),
+                     ("features off", {"enable_prefix_caching": False,
+                                       "enable_preemption": False})):
+        eng = engine(**kw)
+        timers[name] = timed_methods(eng, ("preempt", "_restore_preempted",
+                                           "_replay_into_slot"))
+        check_restores_exact(eng)
+        runs[name] = counted(eng, arrivals)
+        res_stats[name] = eng.resilience_stats()
+        leak = eng.kv_leak_report()
+        if leak["leaked"] or leak["unaccounted"] or leak["slot_blocks"]:
+            raise SmokeFailure(f"engine features {name}: KV accounting not "
+                               f"clean: {leak}")
+        if name != "features off":
+            del eng
+    check_requests("engine features priority", runs, pprompts,
+                   [FEAT_NEW] * 5, V)
+    sp, rp = res_stats["spill"], res_stats["replay"]
+    if sp["preemptions"] < 1 or sp["restores"] < 1 or \
+            sp["spilled_requests"]:
+        raise SmokeFailure(f"engine features: spill run {sp}")
+    if rp["preemptions"] < 1 or rp["prefix_replays"] < 1 or \
+            rp["restores"] or rp["spill_evictions"] < 1:
+        raise SmokeFailure(f"engine features: replay run {rp}")
+    divs_spill = same_ids("engine features preempt/restore vs features off",
+                          eng, runs["spill"], runs["features off"], pprompts)
+    divs_replay = same_ids("engine features replay vs features off", eng,
+                           runs["replay"], runs["features off"], pprompts)
+    if divs_spill:
+        raise SmokeFailure("engine features: a spilled and restored request "
+                           "changed its ids (the restore is byte-exact and "
+                           "the decode rows independent)")
+    del eng
+    torch.cuda.empty_cache()
+    summary["priority"] = dict(
+        spill=dict(preemptions=sp["preemptions"], restores=sp["restores"],
+                   spilled_bytes_max=runs["spill"]["max_spilled"],
+                   preempt_s=timers["spill"]["preempt"],
+                   restore_s=timers["spill"]["_restore_preempted"],
+                   engine_spill_save_secs=sp["spill_save_secs"],
+                   engine_spill_restore_secs=sp["spill_restore_secs"],
+                   wall_s=runs["spill"]["wall"]),
+        replay=dict(preemptions=rp["preemptions"],
+                    prefix_replays=rp["prefix_replays"],
+                    spill_evictions=rp["spill_evictions"],
+                    preempt_s=timers["replay"]["preempt"],
+                    replay_s=timers["replay"]["_replay_into_slot"],
+                    wall_s=runs["replay"]["wall"],
+                    divergences=divs_replay),
+        features_off_wall_s=runs["features off"]["wall"],
+        hi_ttft_s={k: r["ttft"][r["rids"][-1]] for k, r in runs.items()})
+    info(f"engine features priority: spill run {sp['preemptions']} "
+         f"preemption(s), {sp['restores']} restore(s), up to "
+         f"{runs['spill']['max_spilled']} bytes spilled; preempt s "
+         f"{timers['spill']['preempt']}, restore s "
+         f"{timers['spill']['_restore_preempted']} (synchronised); replay "
+         f"run {rp['prefix_replays']} replay(s), replay s "
+         f"{timers['replay']['_replay_into_slot']}; ids: restored identical "
+         f"to features off, replay diverges in {len(divs_replay)} request(s);"
+         f" priority-1 TTFT s {summary['priority']['hi_ttft_s']}")
+
+    # ---- sampled: alone and in a batch; the card's sampler vs the CPU's
+    sprompt = rng.integers(0, V, FEAT_SAMPLED_LENS[0]).astype(np.int32)
+    others = [rng.integers(0, V, n).astype(np.int32)
+              for n in FEAT_SAMPLED_LENS[1:]]
+    skw = dict(FEAT_SAMPLED, seed=1234)
+    solo = counted(engine(), [(0, sprompt, FEAT_NEW, skw)])
+    batch = counted(engine(), [(0, sprompt, FEAT_NEW, skw)] +
+                    [(0, o, FEAT_NEW, {}) for o in others])
+    check_requests("engine features sampled", {"solo": solo}, [sprompt],
+                   [FEAT_NEW], V)
+    check_requests("engine features sampled", {"batch": batch},
+                   [sprompt] + others, [FEAT_NEW] * 4, V)
+    eng = engine()
+    divs_sampled = same_ids("engine features sampled batch vs solo", eng,
+                            batch, solo, [sprompt])
+    rid, T0 = batch["rids"][0], len(sprompt)
+    rows = np.stack([batch["rows"][rid][i] for i in range(FEAT_NEW)])
+    pos = [T0 + i for i in range(FEAT_NEW)]
+    args = ([skw["seed"]] * FEAT_NEW, pos, [0.8] * FEAT_NEW,
+            [50] * FEAT_NEW, [0.9] * FEAT_NEW)
+    sampler = build_sampler()
+    card = sampler(torch.from_numpy(rows).to(dev), *args).cpu().numpy()
+    cpu = sampler(torch.from_numpy(rows), *args).numpy()
+    served = batch["ids"][rid][T0:]
+    if not (card == cpu).all() or not (card == served).all():
+        raise SmokeFailure(f"engine features: sampler ids card {card.tolist()}"
+                           f" / CPU {cpu.tolist()} / served {served.tolist()}")
+    reqs = [GenRequest(i, sprompt, 1, seed=i, **FEAT_SAMPLED)
+            for i in range(4)]
+    lg4 = torch.from_numpy(rows[:4]).to(dev)
+    eng._sample_rows(reqs, lg4, pos[:4])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng._sample_rows(reqs, lg4, pos[:4])
+    sample_ms = (time.perf_counter() - t0) * 1e3 / 20
+    summary["sampled"] = dict(divergences=divs_sampled,
+                              sampler_ms_b4_v32000=sample_ms,
+                              ids_card_eq_cpu=True)
+    info(f"engine features sampled: batch vs solo "
+         f"{'identical' if not divs_sampled else divs_sampled}; the card's "
+         f"sampler, the CPU's and the served ids agree on {FEAT_NEW} rows; "
+         f"sampler {sample_ms:.4f} ms a call at B 4, V {V} (keys, filters "
+         f"and draw on the card, ids to the host)")
+
+    # ---- dense cold tier against the bucketed chunk fills
+    p300 = rng.integers(0, V, FEAT_DENSE).astype(np.int32)
+    tiers, secs, engs = {}, {"dense": [], "bucketed": []}, {
+        "dense": engine(enable_prefix_caching=False),
+        "bucketed": engine(prefill_buckets=(16, 64, 256),
+                           enable_prefix_caching=False)}
+    for name in ("dense", "bucketed", "bucketed", "dense", "dense",
+                 "bucketed"):            # in turns; each call cold
+        run = counted(engs[name], [(0, p300, 1, {})])
+        secs[name].append(run["wall"])
+        tiers[name] = (run, torch.from_numpy(engs[name].last_prefill_logits))
+        if name == "dense" and run["counts"]:
+            raise SmokeFailure(f"engine features: the dense tier launched "
+                               f"{run['counts']}")
+    del engs
+    truth = fp32_last_logits(eng, p300)
+    err = check_layer_out("engine features bucketed vs dense tier logits",
+                          tiers["bucketed"][1], tiers["dense"][1], truth,
+                          TOL["bfloat16"])
+    summary["dense_tier"] = dict(prefill_s=secs["dense"],
+                                 bucketed_prefill_s=secs["bucketed"],
+                                 max_err=err,
+                                 launches_dense=tiers["dense"][0]["counts"],
+                                 launches_bucketed=tiers["bucketed"][0][
+                                     "counts"])
+    info(f"engine features dense tier: {FEAT_DENSE}-token cold prompt in "
+         f"{secs['dense']} s (bucketed {secs['bucketed']} s, each the "
+         f"admission step synchronised, in turns D B B D D B); logits max "
+         f"|bucketed - dense| {err:.3e}; launches dense "
+         f"{tiers['dense'][0]['counts']} bucketed "
+         f"{tiers['bucketed'][0]['counts']}")
+    del eng, params
+    torch.cuda.empty_cache()
+    for op in ("decode_block", "prefill_block"):
+        if phase_counts.get(op, 0) <= 0:
+            raise SmokeFailure(f"engine features: {op} never launched "
+                               f"({phase_counts})")
+    summary["launches"] = phase_counts
+    return phase_counts, summary
 
 
 # ------------------------------------------- GPT layer of kernels 1-2
@@ -6377,7 +6974,9 @@ def main():
         torch.cuda.empty_cache()
         counts, engine = phase_engine(cfg)
         torch.cuda.empty_cache()
-        qcounts, engine_q = phase_engine_quant(cfg, engine)
+        qcounts, engine_q, qfcounts = phase_engine_quant(cfg, engine)
+        torch.cuda.empty_cache()
+        fcounts, features = phase_engine_features(cfg)
         del cfg
         torch.cuda.empty_cache()
         gpt_serve_counts, gpt_serve = phase_gpt_serve(kernels)
@@ -6415,6 +7014,8 @@ def main():
     # each kernel's launches over the main-path runs of the phases that
     # drive it (the engine, the train steps, the rollouts, the eager steps)
     by_phase = {"engine": counts, "engine quant": qcounts,
+                "engine quant features": qfcounts,
+                "engine features": fcounts,
                 "gpt serve": gpt_serve_counts,
                 "gpt serve quant": gpt_quant_counts,
                 "train": train_counts, "gpt": gpt_counts,
@@ -6437,6 +7038,7 @@ def main():
             ph: t[k["name"]] for ph, t in per_step.items() if k["name"] in t}
     info(f"engine summary {json.dumps(engine)}")
     info(f"engine quant summary {json.dumps(engine_q)}")
+    info(f"engine features summary {json.dumps(features)}")
     info(f"gpt serve summary {json.dumps(gpt_serve)}")
     info(f"gpt serve quant summary {json.dumps(gpt_quant)}")
     info(f"train summary {json.dumps(train)}")

@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of ``paddle_tpu`` for NVIDIA Hopper.
 
 The JAX package ``paddle_tpu`` stays the reference; this package is its
-counterpart for one H100.  It covers greedy Llama serving through the
-continuous-batching engine (:class:`inference.serving.ContinuousBatchingEngine`:
-bucketed chunk prefill through the ``prefill_block`` op, the batched
-paged-KV decode step through the ``decode_block`` op) and the one-device
+counterpart for one H100.  It covers Llama serving through the
+continuous-batching engine (:class:`inference.serving.ContinuousBatchingEngine`
+at the JAX engine's defaults: greedy and sampled requests, the prefix
+cache and priority preemption of :mod:`serving`; chunk prefill through
+the ``prefill_block`` op, the batched paged-KV decode step through the
+``decode_block`` op) and the one-device
 Llama and GPT train steps (:func:`parallel.build_llama_train_step`,
 :func:`parallel.build_gpt_train_step`: attention through the
 ``flash_attention`` op, the head through the logits-free

@@ -1,58 +1,89 @@
 """Continuous-batching serving engine over the paged KV pool
-(counterpart of ``paddle_tpu/inference/serving.py``, restricted to
-greedy Llama serving with declared-bucket prefill).
+(counterpart of ``paddle_tpu/inference/serving.py``).
 
 Iteration-level scheduling: ONE decode step advances every active
 sequence in a fixed-size batch; between steps the host scheduler admits
-queued requests into free slots, maps pages from the shared pool and
-retires finished sequences.  Prompts run through declared-bucket chunk
-fills (``prefill_block`` per layer), tokens come out of the batched
-paged decode step (``decode_block`` per layer); on the card both ops
-launch the hand-written CUDA kernels.
+queued requests into free slots (highest priority first), maps pages
+from the shared pool and retires finished sequences.  Prompts run
+through chunk fills (``prefill_block`` per layer) or, cold and
+unbucketed, through the dense decoder's prefill; tokens come out of the
+batched paged decode step (``decode_block`` per layer).  On the card
+both ops launch the hand-written CUDA kernels; the dense prefill, the
+sampler and the page copies are plain torch, as their JAX counterparts
+are jnp.
+
+At the JAX engine's defaults: a cross-request prefix cache
+(``serving/prefix_cache.py``) shares committed prompt pages between
+sequences, with an optional host offload tier; priority preemption
+spills a running request's committed pages to a CRC-checked host tier
+(``serving/resilience.py``) and restores them, or replays the request
+from its committed tokens when the bounded tier dropped them; sampled
+requests draw on per-request Threefry streams keyed by (seed, absolute
+position), so a request's tokens do not depend on its batchmates.
 
 Differences from the JAX engine, by design:
 
-* ``jax.lax.scan`` over layers is a Python loop;
+* ``jax.lax.scan`` over layers is a Python loop, and nothing is
+  compiled, so the sampler takes its rows unpadded;
 * the pools are one ``[L, NB, BS, Hkv, D]`` tensor per K and V, updated
   IN PLACE layer by layer (the JAX engine donates and replaces them);
-* quantized serving (``quant_config=ServeQuantConfig(...)``): int8 / int4
-  weight-only layer matmuls and / or an int8 paged-KV pool; a full-width
-  tree is PTQ-exported at construction, on the parameters' device;
-* features outside this slice raise ``NotImplementedError`` naming the
-  ROADMAP item: sampling, dense (unbucketed) prefill, prefix caching,
-  preemption and spill, speculative decoding, AOT artifacts and MoE —
-  quantized or not;
-* GPT-family configs raise as well: the JAX engine serves Llama configs
-  only, and a GPT layer reaches the serving kernels through the ops
-  (``ops.decode_block``).
+  a spill, an offload and a restore move only the pages concerned;
+* the JAX engine's ``REGISTRY`` / ``TRACER`` hooks are not kept (ROADMAP
+  queue 1 item 13): the plain ``stats`` and ``resilience`` dicts carry
+  the same keys and values;
+* speculative decoding (``spec_config``, item 12), AOT artifacts
+  (``aot_dir``, item 16) and MoE configs (item 15b) raise
+  ``NotImplementedError``; GPT-family configs raise as well: the JAX
+  engine serves Llama configs only, and a GPT layer reaches the serving
+  kernels through the ops (``ops.decode_block``).
 """
 
 from __future__ import annotations
 
 import collections
+import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..aot.buckets import DEFAULT_CHUNK_BUCKETS, ShapeBucketRegistry
+from ..aot.buckets import ShapeBucketRegistry
 from ..device import resolve_device
+from ..models.generation import build_llama_decoder
 from ..models.llama import _rope_cos_sin, block_shapes, torch_dtype
 from ..ops.decode_block import (decode_block, decode_block_spec, make_norm,
                                 prefill_block)
 from ..ops.paged_kv import layer_pool, zeros_kv_pool
+from ..ops.threefry import fold_in, gumbel, prng_key, random_bits
 from ..quantization.serve import (ServeQuantConfig,
                                   quantize_params_for_serving,
                                   quantized_leaf_names)
+from ..serving.prefix_cache import PrefixCache
+from ..serving.resilience import (SpillCorruptError, SpillTier, read_pages,
+                                  restore_into_slot, snapshot_slot,
+                                  write_pages)
 
-__all__ = ["ContinuousBatchingEngine", "GenRequest"]
+__all__ = ["ContinuousBatchingEngine", "GenRequest", "build_sampler",
+           "derive_sample_seed"]
 
-_LATER = "not ported yet — ROADMAP.md queue 1"
+
+def derive_sample_seed(seed: int, sample_idx: int) -> int:
+    """Per-sample seed for n > 1 parallel sampling: sample 0 keeps the
+    request's seed, later samples take a CRC32 of ``(seed, sample_idx)``
+    as int64s, masked to 31 bits."""
+    if sample_idx == 0:
+        return int(seed)
+    return int(zlib.crc32(
+        np.asarray([seed, sample_idx], np.int64).tobytes()) & 0x7FFFFFFF)
 
 
 class _RefPool:
-    """Refcounted page pool (free list + per-page reference counts)."""
+    """Refcounted page pool: prefix-cached pages are shared read-only
+    between sequences and the prefix index, freed when the last reference
+    drops."""
 
     def __init__(self, num_blocks: int):
         self.num_blocks = num_blocks
@@ -70,6 +101,14 @@ class _RefPool:
         for p in out:
             self.ref[p] = 1
         return out
+
+    def share(self, phys: List[int]) -> None:
+        for p in phys:
+            if p not in self.ref:
+                raise RuntimeError(
+                    f"KV-pool accounting bug: share() of block {p} that "
+                    "holds no live reference (freed or never acquired)")
+            self.ref[p] += 1
 
     def release(self, phys: List[int]) -> None:
         for p in phys:
@@ -91,13 +130,67 @@ class GenRequest:
     prompt: np.ndarray                 # [T0] int32
     max_new_tokens: int
     eos_token_id: Optional[int] = None
+    temperature: float = 0.0           # <= 0: greedy
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    seed: int = 0
+    # higher admits first; under saturation strictly-lower-priority
+    # running requests are preempted (their KV spilled to host RAM)
+    priority: int = 0
     out: List[int] = field(default_factory=list)
     # index of the first EOS in ``out``
     eos_pos: Optional[int] = None
 
 
+def build_sampler():
+    """The engine's sampler: ``sample(logits [n, V], seeds, positions,
+    temperatures, top_k, top_p) -> ids [n]`` on the logits' device, the
+    per-row lists on the host.  Row ``i`` is keyed by ``fold_in(key(
+    seed_i), position_i)``; its logits are divided by the temperature,
+    values under the k-th largest dropped (ties kept), then values under
+    the top-p cutoff of the top-k-filtered sorted distribution (the first
+    index whose cumulative probability reaches ``top_p``), and the id is
+    ``argmax(x + gumbel)``, as ``jax.random.categorical`` draws it.  An
+    index past the vocabulary (``top_k > V``, or a cumulative sum that
+    never reaches ``top_p``) filters nothing, as ``jnp.take``'s NaN fill
+    does.  Rows are independent."""
+
+    def sample(logits, seeds, positions, temperatures, top_k, top_p):
+        n, V = logits.shape
+        dev = logits.device
+        keys = [fold_in(prng_key(s), p) for s, p in zip(seeds, positions)]
+        k0 = torch.tensor([k[0] for k in keys], dtype=torch.int64,
+                          device=dev)[:, None]
+        k1 = torch.tensor([k[1] for k in keys], dtype=torch.int64,
+                          device=dev)[:, None]
+        noise = gumbel(random_bits(k0, k1, V, dev))
+        temp = torch.tensor(temperatures, dtype=torch.float32, device=dev)
+        kk = torch.tensor(top_k, dtype=torch.int64, device=dev)[:, None]
+        tp = torch.tensor(top_p, dtype=torch.float32, device=dev)[:, None]
+        nan = torch.tensor(float("nan"), device=dev)
+        x = logits.float() / temp[:, None]
+
+        def take(srt, idx):
+            return torch.where(idx < V,
+                               srt.gather(1, idx.clamp(max=V - 1)), nan)
+
+        srt = torch.sort(x, dim=-1, descending=True).values
+        kth = take(srt, kk.clamp(min=1) - 1)
+        x = torch.where((kk > 0) & (x < kth), float("-inf"), x)
+        srt2 = torch.sort(x, dim=-1, descending=True).values
+        e = torch.exp(srt2 - srt2[:, :1])
+        cum = torch.cumsum(e / e.sum(-1, keepdim=True), dim=-1)
+        cutoff = take(srt2, (cum < tp).sum(-1, keepdim=True))
+        x = torch.where((tp > 0) & (x < cutoff), float("-inf"), x)
+        return torch.argmax(x + noise, dim=-1)
+
+    return sample
+
+
 class ContinuousBatchingEngine:
-    """Greedy Llama continuous-batching engine.
+    """Llama continuous-batching engine (greedy by default, per-request
+    sampling through ``temperature`` / ``top_k`` / ``top_p`` on
+    :meth:`add_request`).
 
     Args:
       cfg: ``models.llama.LlamaConfig`` (dense; ``cfg.dtype`` float32 or
@@ -108,8 +201,21 @@ class ContinuousBatchingEngine:
       block_size / num_blocks: shared KV page pool geometry.
       max_blocks_per_seq: page-table width per slot (default
         ``ceil(max_position_embeddings / block_size)``).
-      prefill_buckets: declared prefill chunk lengths; every prompt is
-        decomposed into these fixed-size chunk fills (last chunk padded).
+      enable_prefix_caching: share committed full prompt pages between
+        requests (a radix tree keyed by chained block digests); a hit
+        runs only the prompt's suffix.
+      prefill_buckets: declared chunk lengths; when set, every prompt and
+        suffix is decomposed into these fixed-size chunk fills (last chunk
+        padded).  None: a cache-hit suffix (and any prompt of a quantized
+        engine) runs as one chunk fill of its own length, a cold prompt
+        through the dense decoder's prefill, its KV then written into the
+        slot's pages.
+      enable_preemption: priority classes with preemption; with uniform
+        priorities nothing is ever preempted.
+      spill_tier: the host tier of preempted requests' pages (default an
+        unbounded :class:`~paddle_tpu_torch.serving.SpillTier`).
+      prefix_cache_config: a :class:`~paddle_tpu_torch.serving.
+        PrefixCacheConfig` (the offload tier's budget).
       quant_config: a :class:`~paddle_tpu_torch.quantization.
         ServeQuantConfig`, or None.  Weight quantization takes an exported
         tree (``<name>__q`` / ``<name>__s`` leaves, from
@@ -123,34 +229,32 @@ class ContinuousBatchingEngine:
     def __init__(self, cfg, params, *, max_batch: int = 4,
                  block_size: int = 16, num_blocks: int = 256,
                  max_blocks_per_seq: Optional[int] = None,
-                 prefill_buckets=DEFAULT_CHUNK_BUCKETS,
-                 enable_prefix_caching: bool = False,
-                 enable_preemption: bool = False, spill_tier=None,
-                 prefix_cache_config=None, spec_config=None,
-                 quant_config=None, aot_dir: Optional[str] = None,
-                 device=None):
+                 enable_prefix_caching: bool = True,
+                 prefill_buckets=None, aot_dir: Optional[str] = None,
+                 spec_config=None, enable_preemption: bool = True,
+                 spill_tier=None, prefix_cache_config=None,
+                 quant_config=None, device=None):
         if quant_config is not None and \
                 not isinstance(quant_config, ServeQuantConfig):
             raise TypeError(f"quant_config must be a ServeQuantConfig or "
                             f"None, got {type(quant_config).__name__}")
-        refused = {"enable_prefix_caching": enable_prefix_caching,
-                   "enable_preemption": enable_preemption,
-                   "spill_tier": spill_tier,
-                   "prefix_cache_config": prefix_cache_config,
-                   "spec_config": spec_config, "aot_dir": aot_dir}
-        for name, val in refused.items():
-            if val not in (None, False):
-                raise NotImplementedError(f"{name}: {_LATER}")
-        if prefill_buckets is None:
+        if spec_config is not None:
             raise NotImplementedError(
-                f"prefill_buckets=None (dense cold prefill): {_LATER}")
+                "spec_config: speculative decoding in the engine is not "
+                "ported yet — ROADMAP.md queue 1 item 12")
+        if aot_dir is not None:
+            raise NotImplementedError(
+                "aot_dir: AOT warm starts are not ported yet (their "
+                "counterpart is CUDA graphs) — ROADMAP.md queue 1 item 16")
         qw = quant_config is not None and quant_config.quantized_weights
         if qw and getattr(cfg, "moe_num_experts", 0):
             raise NotImplementedError(
                 "weight-quantized serving covers dense FFNs only — the "
                 "MoE expert matmuls keep full-width weights (ROADMAP)")
         if getattr(cfg, "moe_num_experts", 0):
-            raise NotImplementedError(f"MoE configs: {_LATER}")
+            raise NotImplementedError(
+                "MoE configs are not ported yet — ROADMAP.md queue 1 item "
+                "15b")
         if not hasattr(cfg, "rms_norm_eps"):
             raise NotImplementedError(
                 "GPT-family configs: the JAX engine serves Llama configs only "
@@ -164,7 +268,8 @@ class ContinuousBatchingEngine:
         self.quant_config = quant_config
         self._wq = quant_config.weight_dtype if qw else None
         self._gs = quant_config.group_size if qw else -1
-        kv_quant = quant_config is not None and quant_config.quantized_kv
+        self._kv_quant = quant_config is not None and \
+            quant_config.quantized_kv
         if qw and not any(k.endswith("__q") for k in params["blocks"]):
             # a full-width tree handed to a weight-quantized engine: the
             # PTQ export (absmax scales) on the parameters' device
@@ -178,21 +283,38 @@ class ContinuousBatchingEngine:
         L, kvh, hd = cfg.num_layers, cfg.kv_heads, cfg.head_dim
         self.pool_k = zeros_kv_pool((L, num_blocks, block_size, kvh, hd),
                                     self.dtype, self.device,
-                                    kv_quant=kv_quant)
+                                    kv_quant=self._kv_quant)
         self.pool_v = zeros_kv_pool((L, num_blocks, block_size, kvh, hd),
                                     self.dtype, self.device,
-                                    kv_quant=kv_quant)
+                                    kv_quant=self._kv_quant)
         self.block_table = np.full((max_batch, self.MB), -1, np.int32)
         self.lengths = np.zeros((max_batch,), np.int32)
         self.tokens = np.zeros((max_batch,), np.int32)
         self.alloc = _RefPool(num_blocks)
         self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
+        self.enable_prefix_caching = bool(enable_prefix_caching)
+        self.prefix_cache = PrefixCache(block_size,
+                                        config=prefix_cache_config)
+        self.stats = {"prefix_blocks_reused": 0,
+                      "prefix_blocks_registered": 0,
+                      "pages_allocated": 0,
+                      "prefill_tokens_computed": 0}
         self.slots: List[Optional[GenRequest]] = [None] * max_batch
         self.queue: "collections.deque[GenRequest]" = collections.deque()
         self.finished: Dict[int, np.ndarray] = {}
         self._next_id = 0
-        self._buckets = ShapeBucketRegistry(prefill_buckets,
-                                            max_batch=max_batch)
+        self.enable_preemption = bool(enable_preemption)
+        self._spill = spill_tier if spill_tier is not None else SpillTier()
+        self.resilience = {"preemptions": 0, "restores": 0,
+                           "spill_save_secs": 0.0,
+                           "spill_restore_secs": 0.0,
+                           "spill_evictions": 0, "prefix_replays": 0}
+        self._buckets = None if prefill_buckets is None else \
+            ShapeBucketRegistry(prefill_buckets, max_batch=max_batch)
+        # dense cold prefills, one decoder per prompt length, 16 kept
+        self._dense_prefills: "collections.OrderedDict[int, object]" = \
+            collections.OrderedDict()
+        self._sampler = build_sampler()
         self.spec = decode_block_spec(cfg, block_size, self._wq, self._gs)
         self._norm = make_norm(self.spec)
         self._cos, self._sin = _rope_cos_sin(
@@ -203,6 +325,8 @@ class ContinuousBatchingEngine:
         self._head32 = self.params["head"].float()
         self._layers = [{k: self.params["blocks"][k][i]
                          for k in self._leaf_shapes()} for i in range(L)]
+        self.decode_steps = 0
+        self.decode_slot_steps = 0
         self.decode_tokens = 0
         self.last_logits: Optional[np.ndarray] = None        # [B, V]
         self.last_prefill_logits: Optional[np.ndarray] = None   # [V]
@@ -253,7 +377,7 @@ class ContinuousBatchingEngine:
         return params
 
     # ------------------------------------------------------------------
-    # device programs: one decode step, one bucketed chunk fill
+    # device programs: one decode step, one chunk fill, the dense prefill
     # ------------------------------------------------------------------
     def _logits(self, x):
         xf = self._norm(x, self.params["lnf_w"])
@@ -275,10 +399,10 @@ class ContinuousBatchingEngine:
 
     def _chunk_fill(self, bt_row: torch.Tensor, start: int,
                     toks: np.ndarray, valid: int) -> torch.Tensor:
-        """One declared-bucket chunk: ``len(toks)`` rows at positions
-        ``start + i``, the first ``valid`` real.  Padded rows write their
-        KV to page ``NB`` (dropped), so stale pages stay intact; the
-        logits come from row ``valid - 1``."""
+        """One chunk fill: ``len(toks)`` rows at positions ``start + i``,
+        the first ``valid`` real.  Padded rows write their KV to page
+        ``NB`` (dropped), so stale pages stay intact; the logits come from
+        row ``valid - 1``, as ``[1, V]``."""
         dev, Ts = self.device, len(toks)
         pos = start + torch.arange(Ts, device=dev)
         # padded rows may run past the tables; they are never read
@@ -300,9 +424,9 @@ class ContinuousBatchingEngine:
 
     def _fill_prompt_bucketed(self, slot: int, req: GenRequest,
                               start: int = 0) -> torch.Tensor:
-        """Run the prompt through declared-bucket chunk fills; returns the
-        logits at the prompt's final token (the last chunk's
-        ``valid - 1`` row) as ``[1, V]``."""
+        """Run the prompt from ``start`` (the cached-prefix tokens) through
+        declared-bucket chunk fills; returns the logits at the prompt's
+        final token as ``[1, V]``."""
         suffix = req.prompt[start:]
         bt_row = torch.from_numpy(self.block_table[slot]).to(self.device)
         pos, off = start, 0
@@ -315,20 +439,63 @@ class ContinuousBatchingEngine:
             off += valid
         return logits
 
+    def _dense_prefill(self, slot: int, req: GenRequest) -> torch.Tensor:
+        """A cold prompt through the dense decoder's prefill (torch
+        matmuls and masked attention, no kernel of the library, as the JAX
+        engine's ``use_pallas=False`` prefill), its KV then written into
+        the slot's pages with one page-axis copy per pool (the padded tail
+        of the last page holds zeros, masked by ``lengths``)."""
+        T0 = len(req.prompt)
+        prefill = self._dense_prefills.get(T0)
+        if prefill is None:
+            prefill, _ = build_llama_decoder(self.cfg, T0, device=self.device)
+            self._dense_prefills[T0] = prefill
+            if len(self._dense_prefills) > 16:
+                self._dense_prefills.popitem(last=False)
+        else:
+            self._dense_prefills.move_to_end(T0)
+        ids = torch.from_numpy(req.prompt[None]).to(self.device, torch.long)
+        cache, logits = prefill(self.params, ids)
+        nb = self._blocks_needed(T0)
+        pages = torch.tensor(self.slot_pages[slot][:nb], dtype=torch.long,
+                             device=self.device)
+        for pool, kv in ((self.pool_k, cache["k"]), (self.pool_v,
+                                                     cache["v"])):
+            kv = F.pad(kv[:, 0], (0, 0, 0, 0, 0, nb * self.BS - T0))
+            pool.index_copy_(1, pages, kv.reshape(
+                kv.shape[0], nb, self.BS, *kv.shape[2:]).to(pool.dtype))
+        return logits
+
+    def _prefill_into_slot(self, slot: int, req: GenRequest,
+                           L: int) -> torch.Tensor:
+        """Run the prompt into the slot's (already mapped) pages past its
+        ``L`` cached blocks and return next-token logits ``[1, V]``: the
+        three prefill tiers admission chooses between (one seam for
+        crash-mid-prefill tests)."""
+        T0 = len(req.prompt)
+        # tokens whose KV this admission computes (cache hits and offload
+        # restores shrink it; padding never counts)
+        self.stats["prefill_tokens_computed"] += T0 - L * self.BS
+        if self._buckets is not None:
+            # declared-bucket prefill, cold prompts and cache-hit suffixes
+            return self._fill_prompt_bucketed(slot, req, L * self.BS)
+        if L or self.quant_config is not None:
+            # one chunk fill of the suffix at start = L * BS; quantized
+            # engines take cold prompts here too, so every admission of
+            # one quant config runs one prefill tier
+            suffix = req.prompt[L * self.BS:]
+            bt_row = torch.from_numpy(self.block_table[slot]).to(self.device)
+            return self._chunk_fill(bt_row, L * self.BS, suffix, len(suffix))
+        return self._dense_prefill(slot, req)
+
     # ------------------------------------------------------------------
-    # host-side scheduler
+    # requests and sampling
     # ------------------------------------------------------------------
     def add_request(self, prompt_ids, max_new_tokens: int,
                     eos_token_id: Optional[int] = None, *,
                     temperature: float = 0.0, top_k: Optional[int] = None,
                     top_p: Optional[float] = None, seed: int = 0,
                     priority: int = 0) -> int:
-        if (temperature or 0.0) > 0.0 or top_k or top_p:
-            raise NotImplementedError(
-                "sampled decoding (temperature/top_k/top_p): the JAX "
-                f"sampler is threefry-keyed; {_LATER}")
-        if priority:
-            raise NotImplementedError(f"priority classes: {_LATER}")
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("prompt must contain at least one token")
@@ -346,48 +513,406 @@ class ContinuousBatchingEngine:
         if total > self.cfg.max_position_embeddings:
             raise ValueError("request exceeds max_position_embeddings")
         req = GenRequest(self._next_id, prompt, max_new_tokens,
-                         eos_token_id)
+                         eos_token_id, temperature=temperature,
+                         top_k=top_k, top_p=top_p, seed=seed,
+                         priority=int(priority))
         self._next_id += 1
         self.queue.append(req)
         return req.req_id
 
+    def _pick_token(self, req: GenRequest, logits, position: int) -> int:
+        """Greedy, or sampled on the request's own stream keyed by the
+        absolute ``position``.  ``logits``: ``[V]``, numpy or a tensor."""
+        lg = logits if isinstance(logits, torch.Tensor) else \
+            torch.from_numpy(np.asarray(logits, np.float32))
+        if req.temperature is None or req.temperature <= 0.0:
+            return int(lg.argmax())
+        return int(self._sample_rows([req], lg.reshape(1, -1),
+                                     [position])[0])
+
+    def _sample_rows(self, reqs: List[GenRequest], logits_rows,
+                     positions) -> np.ndarray:
+        """One sampled token per request (rows of ``logits_rows`` aligned
+        with ``reqs``), on the logits' device."""
+        toks = self._sampler(
+            logits_rows, [r.seed for r in reqs], positions,
+            [r.temperature for r in reqs], [r.top_k or 0 for r in reqs],
+            [r.top_p or 0.0 for r in reqs])
+        return toks.cpu().numpy()
+
     def _blocks_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.BS)
 
+    # ------------------------------------------------------------------
+    # prefix cache
+    # ------------------------------------------------------------------
+    @property
+    def prefix_index(self) -> "collections.OrderedDict[bytes, int]":
+        """``{chained block digest: phys page}`` of the resident cache
+        blocks, LRU order (the leak report reads this)."""
+        return collections.OrderedDict(self.prefix_cache.resident_items())
+
+    def _cached_prefix(self, prompt: np.ndarray):
+        """Longest cached block-aligned prefix: ``(resident_blocks,
+        resident_pages, offloaded_nodes)``.  A prompt that is an exact
+        multiple of BS leaves its last block uncached, so the suffix
+        prefill has a token to produce the next-token logits."""
+        if not self.enable_prefix_caching:
+            return 0, [], []
+        full = len(prompt) // self.BS
+        lookup = full - 1 if len(prompt) % self.BS == 0 else full
+        pages, off = self.prefix_cache.walk(
+            self._block_keys(prompt, lookup))
+        return len(pages), pages, off
+
+    def _block_keys(self, prompt: np.ndarray, n: int) -> List[bytes]:
+        return self.prefix_cache.keys_for(prompt, n)
+
+    def prefix_match_blocks(self, keys: List[bytes]) -> int:
+        """Longest cached chain prefix for precomputed keys, without
+        touching recency or refcounts."""
+        if not self.enable_prefix_caching:
+            return 0
+        return self.prefix_cache.match_blocks(keys)
+
+    def _acquire_with_eviction(self, n: int) -> Optional[List[int]]:
+        """Acquire pages, evicting prefix-cache blocks that only the cache
+        holds (LRU, leaf first) under pressure.  Callers take their own
+        reference on reused pages BEFORE acquiring, so an evicted twin of
+        a shared page is never handed back as private."""
+        while True:
+            got = self.alloc.acquire(n)
+            if got is not None:
+                self.stats["pages_allocated"] += n
+                return got
+            node = self.prefix_cache.evictable(
+                lambda p: self.alloc.ref.get(p, 0))
+            if node is None:
+                return None
+            self._evict_prefix_block(node)
+
+    def _evict_prefix_block(self, node) -> None:
+        """Evict one resident cache block, its exact page bytes (and int8
+        scales) parked in the host tier when it has a budget, then release
+        the cache's pool reference."""
+        cache = self.prefix_cache
+        if cache.wants_offload:
+            k, v, ks, vs = read_pages(self, [node.phys])
+            phys = cache.evict(node, k[:, 0], v[:, 0],
+                               None if ks is None else ks[:, 0],
+                               None if vs is None else vs[:, 0])
+        else:
+            phys = cache.evict(node)
+        self.alloc.release([phys])
+
+    def _restore_offloaded(self, off, priv: List[int]) -> int:
+        """Write offloaded prefix blocks' exact bytes into the first
+        ``len(off)`` fresh private pages, promoting each back to the
+        resident tier (the cache takes a reference).  A CRC failure (or
+        a block whose quantization is not the pool's) stops the restore
+        there and the caller recomputes the rest.  Returns the number of
+        blocks restored."""
+        good = []
+        for node in off:
+            try:
+                node.verify()
+                if (node.k_scale is not None) != self._kv_quant:
+                    raise SpillCorruptError(
+                        f"offloaded prefix block {node.key.hex()[:12]} "
+                        "quantization does not match this engine's KV "
+                        "pool — demoting to suffix recompute")
+            except SpillCorruptError:
+                self.prefix_cache.drop_host(node)
+                break
+            good.append(node)
+        if not good:
+            return 0
+        pages = priv[:len(good)]
+
+        def stack(name):
+            parts = [getattr(n, name) for n in good]
+            return None if parts[0] is None else torch.stack(parts, 1)
+
+        write_pages(self, pages, stack("k_bytes"), stack("v_bytes"),
+                    stack("k_scale"), stack("v_scale"))
+        for node, page in zip(good, pages):
+            self.prefix_cache.promote(node, page)
+            self.alloc.share([page])
+        return len(good)
+
+    def _note_prefix_lookup(self, hit_blocks: int) -> None:
+        """Account one admission-time cache consultation; ``hit_blocks``
+        counts resident and restored blocks the prefill skips."""
+        s = self.prefix_cache.stats
+        s["lookups"] += 1
+        if hit_blocks:
+            s["hits"] += 1
+            s["hit_blocks"] += hit_blocks
+            s["hit_tokens"] += hit_blocks * self.BS
+
+    def _register_prefix(self, prompt: np.ndarray,
+                         table: List[int]) -> None:
+        """Insert every full prompt block into the radix tree (decode
+        writes start at ``len(prompt)``, so those pages never change); the
+        cache takes one pool reference per block it takes new custody
+        of."""
+        if not self.enable_prefix_caching:
+            return
+        full = len(prompt) // self.BS
+        took = self.prefix_cache.insert(self._block_keys(prompt, full),
+                                        table[:full])
+        if took:
+            self.alloc.share(took)
+            self.stats["prefix_blocks_registered"] += len(took)
+
+    # ------------------------------------------------------------------
+    # priority preemption
+    # ------------------------------------------------------------------
+    def _best_waiting_index(self) -> Optional[int]:
+        """Queue index of the next request to admit: highest priority,
+        FIFO within a class (a preempted request re-enters at the front)."""
+        best, best_key = None, None
+        for i, r in enumerate(self.queue):
+            key = (-r.priority, i)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
+
+    def _releasable_pages(self, slot: int) -> int:
+        """Pages preempting ``slot`` would free: those only the slot
+        holds."""
+        return sum(1 for p in self.slot_pages[slot]
+                   if self.alloc.ref.get(p) == 1)
+
+    def _preempt_for_priority(self) -> None:
+        """Preempt the lowest-priority running work for a strictly
+        higher-priority waiter when the batch or the pool is saturated,
+        one victim a pass, and only when preemption can make the waiter
+        admissible (a slot opens and the freed pages close the
+        shortfall)."""
+        for _ in range(self.B):
+            idx = self._best_waiting_index()
+            if idx is None:
+                return
+            cand = self.queue[idx]
+            snap = self._spill.get(cand.req_id)
+            if snap is not None:
+                need, shared = snap.num_blocks, ()
+            else:
+                # admission reuses the waiter's cached prefix pages and
+                # acquires only the rest (offloaded blocks still take
+                # fresh pages, so they stay in ``need``)
+                L, shared, _off = self._cached_prefix(cand.prompt)
+                need = self._blocks_needed(
+                    len(cand.prompt) + cand.max_new_tokens) - L
+            shared_set = set(shared)
+            evictable = sum(1 for p in self.prefix_index.values()
+                            if self.alloc.ref.get(p) == 1
+                            and p not in shared_set)
+            have_slot = any(s is None for s in self.slots)
+            if have_slot and self.alloc.free_blocks + evictable >= need:
+                return                 # admissible without preemption
+            victims = [s for s in range(self.B)
+                       if self.slots[s] is not None
+                       and self.slots[s].priority < cand.priority]
+            if not victims:
+                return
+            releasable = sum(self._releasable_pages(s) for s in victims)
+            if (self.alloc.free_blocks + evictable + releasable) < need:
+                return                 # preemption could never admit cand
+            # cheapest spill first: lowest priority, then fewest committed
+            # positions, then slot index
+            victims.sort(key=lambda s: (self.slots[s].priority,
+                                        int(self.lengths[s]), s))
+            self.preempt(victims[0])
+
+    def preempt(self, slot: int) -> int:
+        """Preempt the request running in ``slot``: its committed pages and
+        decode cursor go to the spill tier, its page references are
+        released, and it re-enters the FRONT of the queue.  Returns its
+        id."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} is not running a request")
+        t0 = time.perf_counter()
+        snap = snapshot_slot(self, slot)
+        self._spill_put(req.req_id, snap)
+        self._free_slot(slot)
+        self.queue.appendleft(req)
+        self.resilience["preemptions"] += 1
+        self.resilience["spill_save_secs"] += time.perf_counter() - t0
+        return req.req_id
+
+    def _spill_put(self, req_id: int, snap) -> None:
+        """Insert a snapshot into the spill tier; snapshots evicted for
+        its cap demote their requests to replay from their committed
+        tokens."""
+        self.resilience["spill_evictions"] += len(self._spill.put(req_id,
+                                                                  snap))
+
+    def spill_compatible(self, snap) -> bool:
+        """Whether a snapshot from another engine can restore into this
+        pool: the same page geometry and dtype, a table wide enough, and
+        scales exactly when the pool is int8."""
+        if (getattr(snap, "k_scale", None) is not None) != self._kv_quant:
+            return False
+        ref = self.pool_k.data if self._kv_quant else self.pool_k
+        return (snap.k_pages.shape[0] == ref.shape[0]
+                and snap.k_pages.shape[2:] == ref.shape[2:]
+                and snap.k_pages.dtype == ref.dtype
+                and snap.num_blocks <= self.MB)
+
+    def adopt_preempted(self, req: GenRequest, snap) -> None:
+        """Take in a preempted request (committed tokens and KV snapshot)
+        from another engine of the same geometry: the snapshot enters the
+        spill tier and the request the front of the queue."""
+        if not self.spill_compatible(snap):
+            pshape = (self.pool_k.data if self._kv_quant
+                      else self.pool_k).shape
+            raise ValueError(
+                "KV snapshot geometry does not match this engine's pool "
+                f"(snapshot pages {tuple(snap.k_pages.shape)}, pool "
+                f"{tuple(pshape)})")
+        if req.req_id in self._spill:
+            raise ValueError(f"request {req.req_id} already spilled here")
+        self.queue.appendleft(req)
+        self._spill_put(req.req_id, snap)
+
+    def _restore_preempted(self, slot: int, req: GenRequest, idx: int,
+                           snap) -> bool:
+        """Re-admit a preempted request: fresh pages, the spilled bytes
+        written back, the decode cursor restored.  False when the pool
+        cannot host it yet."""
+        priv = self._acquire_with_eviction(snap.num_blocks)
+        if priv is None:
+            return False
+        del self.queue[idx]
+        self.block_table[slot, :] = -1
+        self.block_table[slot, :snap.num_blocks] = priv
+        self.slot_pages[slot] = priv
+        t0 = time.perf_counter()
+        try:
+            restore_into_slot(self, slot, snap)
+        except BaseException:
+            # exactly-once release; the snapshot is unusable, so the
+            # request is dropped from this engine
+            self.alloc.release(self.slot_pages[slot])
+            self.slot_pages[slot] = []
+            self.block_table[slot, :] = -1
+            del self._spill[req.req_id]
+            raise
+        del self._spill[req.req_id]
+        self.slots[slot] = req
+        self.lengths[slot] = snap.length
+        self.tokens[slot] = snap.next_token
+        self.resilience["restores"] += 1
+        self.resilience["spill_restore_secs"] += time.perf_counter() - t0
+        return True
+
+    def _replay_into_slot(self, slot: int, req: GenRequest,
+                          idx: int) -> bool:
+        """Re-admit a preempted request whose snapshot the bounded tier
+        dropped: prefill its committed tokens ``prompt + out[:-1]`` and
+        resume at the pending token ``out[-1]`` (the final logits are
+        discarded).  False when the pool cannot host it yet."""
+        committed = np.concatenate(
+            [req.prompt, np.asarray(req.out[:-1], np.int32)]) \
+            if len(req.out) > 1 else req.prompt
+        need = self._blocks_needed(len(req.prompt) + req.max_new_tokens)
+        L, shared, off = self._cached_prefix(committed)
+        self.alloc.share(shared)
+        priv = self._acquire_with_eviction(need - L)
+        if priv is None:
+            self.alloc.release(shared)
+            return False
+        restored = self._restore_offloaded(off, priv)
+        self._note_prefix_lookup(L + restored)
+        self.stats["prefix_blocks_reused"] += L + restored
+        del self.queue[idx]
+        table = shared + priv
+        self.block_table[slot, :] = -1
+        self.block_table[slot, :need] = table
+        self.slot_pages[slot] = table
+        shadow = GenRequest(req.req_id, committed, 1, None)
+        try:
+            self._prefill_into_slot(slot, shadow, L + restored)
+            self._register_prefix(req.prompt, table)
+        except BaseException:
+            # exactly-once release, as on the fresh path
+            self.alloc.release(self.slot_pages[slot])
+            self.slot_pages[slot] = []
+            self.block_table[slot, :] = -1
+            self.queue.appendleft(req)
+            raise
+        self.slots[slot] = req
+        self.lengths[slot] = len(committed)
+        self.tokens[slot] = req.out[-1]
+        self.resilience["prefix_replays"] += 1
+        return True
+
+    # ------------------------------------------------------------------
+    # host-side scheduler
+    # ------------------------------------------------------------------
     def _admit(self) -> None:
-        """Admit waiting requests FIFO into free slots while pages allow;
-        each admission prefills its prompt through the bucketed fills."""
+        """Admit waiting requests into free slots while pages allow,
+        highest priority first: preemption first, then for each free slot
+        a restore (spilled request), a replay (spill dropped) or a fresh
+        admission, which shares the cached prefix pages before acquiring
+        (and possibly evicting) the rest."""
+        if self.enable_preemption:
+            self._preempt_for_priority()
         for slot in range(self.B):
             if self.slots[slot] is not None:
                 continue
-            if not self.queue:
+            idx = self._best_waiting_index()
+            if idx is None:
                 break
-            req = self.queue[0]
+            req = self.queue[idx]
+            snap = self._spill.get(req.req_id)
+            if snap is not None:
+                if not self._restore_preempted(slot, req, idx, snap):
+                    break              # head-of-line waits for pages
+                continue
+            if req.out:
+                # preempted, its snapshot dropped by the bounded tier
+                if not self._replay_into_slot(slot, req, idx):
+                    break              # head-of-line waits for pages
+                continue
             T0 = len(req.prompt)
             need = self._blocks_needed(T0 + req.max_new_tokens)
-            table = self.alloc.acquire(need)
-            if table is None:
-                break                      # head-of-line waits for pages
-            self.queue.popleft()
+            L, shared, off = self._cached_prefix(req.prompt)
+            # take the slot's references FIRST: eviction must never free
+            # (and hand out again) a page being reused
+            self.alloc.share(shared)
+            priv = self._acquire_with_eviction(need - L)
+            if priv is None:
+                self.alloc.release(shared)
+                break                  # head-of-line waits for pages
+            restored = self._restore_offloaded(off, priv)
+            self._note_prefix_lookup(L + restored)
+            self.stats["prefix_blocks_reused"] += L + restored
+            del self.queue[idx]
+            table = shared + priv
             self.block_table[slot, :] = -1
             self.block_table[slot, :need] = table
             self.slot_pages[slot] = table
             try:
-                logits = self._fill_prompt_bucketed(slot, req)
-                row = logits[0].cpu().numpy()
+                logits = self._prefill_into_slot(slot, req, L + restored)
+                self._register_prefix(req.prompt, table)
+                first = self._pick_token(req, logits[0], position=T0)
             except BaseException:
                 # the slot never went live: release its pages exactly
                 # once and keep the request waiting
-                self.alloc.release(table)
+                self.alloc.release(self.slot_pages[slot])
                 self.slot_pages[slot] = []
                 self.block_table[slot, :] = -1
                 self.queue.appendleft(req)
                 raise
-            self.last_prefill_logits = row
-            self._append_tok(req, int(row.argmax()))
+            self.last_prefill_logits = logits[0].cpu().numpy()
+            self._append_tok(req, first)
             self.slots[slot] = req
             self.lengths[slot] = T0
-            self.tokens[slot] = req.out[-1]
+            self.tokens[slot] = first
 
     @staticmethod
     def _append_tok(req: GenRequest, tok: int) -> None:
@@ -422,10 +947,14 @@ class ContinuousBatchingEngine:
     def cancel(self, req_id: int) -> bool:
         """Abort a queued or in-flight request; its pages free at once and
         no result is reported.  False when the id is unknown or already
-        finished."""
+        finished.  A waiting request holds no page references (a
+        preempted one's snapshot is dropped); a scheduled one holds one
+        reference per page of its table, shared prefix pages included,
+        and each is released exactly once."""
         for i, req in enumerate(self.queue):
             if req.req_id == req_id:
                 del self.queue[i]
+                self._spill.pop(req_id, None)
                 return True
         for slot in range(self.B):
             req = self.slots[slot]
@@ -435,8 +964,9 @@ class ContinuousBatchingEngine:
         return False
 
     def step(self) -> Dict[int, np.ndarray]:
-        """One scheduler iteration: retire, admit, retire again, decode
-        every active slot greedily.  Returns newly finished
+        """One scheduler iteration: retire, admit, retire again (the
+        prefill's token may already finish a request), decode every
+        active slot, greedy or sampled.  Returns newly finished
         {req_id: prompt + generated ids}."""
         self._retire_done()
         self._admit()
@@ -450,15 +980,32 @@ class ContinuousBatchingEngine:
         self.last_logits = logits.cpu().numpy()
         for s in active:
             self.lengths[s] += 1            # the fed token's KV is stored
-            tok = int(self.last_logits[s].argmax())
-            self._append_tok(self.slots[s], tok)
-            self.tokens[s] = tok
+        sampled = [s for s in active
+                   if (self.slots[s].temperature or 0.0) > 0.0]
+        picks: Dict[int, int] = {}
+        if sampled:
+            # one sampler call for the sampled sub-batch, each row keyed
+            # by the position after its fed token
+            toks = self._sample_rows(
+                [self.slots[s] for s in sampled], logits[sampled],
+                [int(self.lengths[s]) for s in sampled])
+            picks = dict(zip(sampled, toks.tolist()))
+        for s in active:
+            tok = picks.get(s)
+            if tok is None:
+                tok = int(self.last_logits[s].argmax())
+            self._append_tok(self.slots[s], int(tok))
+            self.tokens[s] = int(tok)
+        self.decode_steps += 1
+        self.decode_slot_steps += len(active)
         self.decode_tokens += len(active)
         out, self.finished = self.finished, {}
         return out
 
     def run_to_completion(self) -> Dict[int, np.ndarray]:
-        """Drive steps until queue and batch drain; returns all results."""
+        """Drive steps until queue and batch drain; returns all results.
+        ``finished`` is part of the liveness condition: a step that raised
+        after retiring a request leaves its result there."""
         results: Dict[int, np.ndarray] = {}
         while self.queue or self.finished \
                 or any(s is not None for s in self.slots):
@@ -476,24 +1023,64 @@ class ContinuousBatchingEngine:
     def active_requests(self) -> int:
         return sum(1 for s in self.slots if s is not None)
 
+    def batch_occupancy(self) -> float:
+        """Fraction of decode-batch slots running a request."""
+        return self.active_requests / float(self.B)
+
+    def kv_utilization(self) -> float:
+        """Fraction of pool pages holding live references (slots or the
+        prefix index)."""
+        return 1.0 - self.alloc.free_blocks / float(self.alloc.num_blocks)
+
     def kv_leak_report(self) -> Dict[str, int]:
-        """Cross-check the refcount pool against the slot tables:
-        ``leaked`` and ``unaccounted`` must be zero after any drain."""
+        """Cross-check the refcount pool against the slot tables and the
+        prefix index: ``leaked`` and ``unaccounted`` must be zero after
+        any drain."""
         held: Dict[int, int] = {}
         for pages in self.slot_pages:
             for p in pages:
                 held[p] = held.get(p, 0) + 1
+        index = self.prefix_index
+        for p in index.values():
+            held[p] = held.get(p, 0) + 1
         leaked = sum(1 for p, r in self.alloc.ref.items()
                      if held.get(p, 0) != r)
         leaked += sum(1 for p in held if p not in self.alloc.ref)
         return {
             "free_blocks": self.alloc.free_blocks,
-            "index_blocks": 0,
+            "index_blocks": len(index),
             "slot_blocks": sum(len(p) for p in self.slot_pages),
             "leaked": leaked,
             "unaccounted": (self.alloc.num_blocks - self.alloc.free_blocks
                             - len(self.alloc.ref)),
         }
 
+    @property
+    def spilled_bytes(self) -> int:
+        """Host-RAM bytes held by preempted requests' snapshots."""
+        return sum(s.nbytes for s in self._spill.values())
+
+    def resilience_stats(self) -> Dict[str, object]:
+        """Preemption counters (the JAX engine's keys)."""
+        s: Dict[str, object] = dict(self.resilience)
+        s["spilled_requests"] = len(self._spill)
+        s["spilled_bytes"] = self.spilled_bytes
+        return s
+
+    def prefix_stats(self) -> Dict[str, object]:
+        """Prefix-cache counters and state (the JAX engine's keys)."""
+        s: Dict[str, object] = dict(self.prefix_cache.stats)
+        s["enabled"] = self.enable_prefix_caching
+        s["cached_blocks"] = self.prefix_cache.resident_blocks
+        s["offloaded_blocks"] = self.prefix_cache.offloaded_blocks
+        s["offloaded_bytes"] = self.prefix_cache.host_bytes
+        s["prefill_tokens_computed"] = \
+            self.stats["prefill_tokens_computed"]
+        lk = s["lookups"]
+        s["hit_rate"] = (s["hits"] / lk) if lk else None
+        return s
+
     def bucket_stats(self) -> Dict[str, int]:
-        return self._buckets.stats()
+        """Declared-bucket hits, misses and padded tokens ({} without
+        buckets)."""
+        return {} if self._buckets is None else self._buckets.stats()

@@ -13,13 +13,21 @@ rotates and xors, which are exact in int64 torch ops under
 ``kernels/csrc/fused_ops.cu`` give the same bits, and the kernel's output
 equals its plain version's bit for bit.  (Philox, the usual GPU choice,
 needs a 32x32 -> 64-bit ``mulhi`` that int64 ops cannot repeat exactly.)
+
+The serving sampler draws from the same core the way ``jax.random`` does
+with ``jax_threefry_partitionable`` on (JAX's default): :func:`prng_key`,
+:func:`fold_in`, :func:`random_bits`, :func:`uniform` and :func:`gumbel`
+repeat ``jax.random.key``, ``fold_in``, the raw bits of a 1-D draw,
+``uniform(minval=tiny)`` and the low-range Gumbel noise of
+``jax.random.categorical``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["threefry2x32", "dropout_bits", "keep_mask"]
+__all__ = ["threefry2x32", "dropout_bits", "keep_mask", "prng_key",
+           "fold_in", "random_bits", "uniform", "gumbel"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -29,11 +37,12 @@ def _rotl(v, r):
     return ((v << r) & _M32) | (v >> (32 - r))
 
 
-def threefry2x32(k0: int, k1: int, c0, c1):
+def threefry2x32(k0, k1, c0, c1):
     """The two output words of Threefry-2x32-20 for key ``(k0, k1)`` at the
-    counters ``(c0, c1)`` (int64 tensors of 32-bit values); int64 tensors
-    of 32-bit values."""
-    k0, k1 = int(k0) & _M32, int(k1) & _M32
+    counters ``(c0, c1)``: ints, or int64 tensors of 32-bit values that
+    broadcast together (a key per row, a counter per column)."""
+    if not isinstance(k0, torch.Tensor):
+        k0, k1 = int(k0) & _M32, int(k1) & _M32
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0, x1 = (c0 + ks[0]) & _M32, (c1 + ks[1]) & _M32
     for i in range(5):
@@ -63,3 +72,49 @@ def keep_mask(seed: int, shape, p: float, device=None) -> torch.Tensor:
         n *= int(s)
     u = (dropout_bits(seed, n, device) >> 8).to(torch.float64) * 2.0 ** -24
     return (u >= float(torch.tensor(p, dtype=torch.float32))).reshape(shape)
+
+
+# ------------------------------------------------ jax.random's key chain
+_TINY = 1.1754943508222875e-38          # float32's smallest normal
+
+
+def prng_key(seed: int):
+    """``jax.random.key(seed)``'s two words: ``(seed >> 32, seed mod
+    2^32)``, where a seed that fits int32 (JAX's default 32-bit mode
+    holds seeds as int32, negative ones included) has high word 0."""
+    seed = int(seed)
+    if -2 ** 31 <= seed < 2 ** 31:
+        return 0, seed & _M32
+    return (seed >> 32) & _M32, seed & _M32
+
+
+def fold_in(key, data: int):
+    """``jax.random.fold_in(key, data)``: Threefry of the key over the
+    counter words ``(0, data mod 2^32)``."""
+    return threefry2x32(key[0], key[1], 0, int(data) & _M32)
+
+
+def random_bits(k0, k1, n: int, device=None) -> torch.Tensor:
+    """The 32-bit words of a ``(n,)`` draw under key ``(k0, k1)``
+    (JAX's partitionable layout: element ``i`` is the xor of both
+    Threefry words at counters ``(0, i)``).  ``k0`` / ``k1`` are ints or
+    ``[r, 1]`` int64 tensors (one key a row, bits ``[r, n]``); int64."""
+    c = torch.arange(n, dtype=torch.int64, device=device)
+    w0, w1 = threefry2x32(k0, k1, torch.zeros_like(c), c)
+    return w0 ^ w1
+
+
+def uniform(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(minval=tiny, maxval=1)`` in float32 from its
+    words: the top 23 bits as the mantissa of a float in [1, 2), minus
+    one, plus float32's smallest normal, floored there (``1 - tiny``
+    rounds to 1 in float32, so the scale is exact)."""
+    m = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    f = m.view(torch.float32) - 1.0
+    return torch.clamp_min(f + _TINY, _TINY)
+
+
+def gumbel(bits: torch.Tensor) -> torch.Tensor:
+    """The low-range Gumbel noise of ``jax.random.gumbel`` /
+    ``categorical``: ``-log(-log(u))`` in float32."""
+    return -torch.log(-torch.log(uniform(bits)))

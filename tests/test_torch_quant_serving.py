@@ -448,6 +448,9 @@ def _prompts(vocab):
 def _torch_engine(tree, qc, **kw):
     kw.setdefault("max_batch", 2)
     kw.setdefault("prefill_buckets", (16,))
+    # as the JAX engine these tests compare with is built
+    kw.setdefault("enable_prefix_caching", False)
+    kw.setdefault("enable_preemption", False)
     return ContinuousBatchingEngine(tllama.llama_tiny(), tree, device="cpu",
                                     quant_config=qc, **kw)
 
