@@ -1219,6 +1219,30 @@ def wo_epi_kw(epi, M, N, gen, dev, dt):
     return {"residual": t} if epi == "resid" else {"gate": t}
 
 
+def wo_plan(M, K, N, width, gs, lib=None):
+    """The launch plan of a weight-only prefill call (M > 16) from the
+    library (``pt_wo_plan``; ``lib`` another loaded build): ``{"bm": x rows
+    a tile, "splits": K splits (the cluster), "row_tiles", "col_tiles",
+    "k_steps", "resident": clusters of the shape the card keeps resident,
+    "smem"}``, or None for a build without the entry point."""
+    import ctypes
+    from paddle_tpu_torch.kernels import build
+    fn = getattr(lib or build.library(), "pt_wo_plan", None)
+    if fn is None:
+        return None
+    fn.argtypes = [ctypes.POINTER(build.WoArgs),
+                   ctypes.POINTER(ctypes.c_int)]
+    half = -(-K // 2) if width == "int4" else 0
+    a = build.WoArgs(int4=int(width == "int4"), x_dtype=build.PT_BF16, M=M,
+                     K=K, N=N, half=half, ldx=K, xhi=half,
+                     gs=(1 << 30) if gs == -1 else gs,
+                     G=1 if gs == -1 else -(-K // gs), tile_dq=0)
+    out = (ctypes.c_int * 7)()
+    build.check(fn(ctypes.byref(a), out), "pt_wo_plan")
+    return dict(zip(("bm", "splits", "row_tiles", "col_tiles", "k_steps",
+                     "resident", "smem"), out))
+
+
 def wo_layer_bytes_ops(M, shapes, width, gs, itemsize=2):
     """One quantized layer's seven GEMMs: x read once a GEMM, y written
     once, the codes and fp32 scales read once, the residual (o, down) and
@@ -1413,8 +1437,30 @@ def quant_chain(cfg, results, lp32, pool32, bt, lengths, bt_row, cos_t,
                                            group_size=gs, **kw),
                             TOL["float32"])
             err["wo_layer_f32"] = max(err.get("wo_layer_f32", 0.0), e)
+    # past one 256-row tile: M 300 (a partial second tile) and M 1024 (the
+    # 256-row tiles, unsplit), each with its plan
+    for width, gs, wname, epi, M in (("int8", -1, "down_w", "resid", 300),
+                                     ("int4", 128, "up_w", "swiglu", 1024)):
+        Kd, N = lp32[wname].shape
+        ql = export_layer({wname: lp32[wname]}, width, gs)
+        codes, scale = ql[wname + "__q"], ql[wname + "__s"]
+        x = torch.randn(M, Kd, device=dev, generator=gen).to(dt)
+        kw = wo_epi_kw(epi, M, N, gen, dev, dt)
+        name = wo_name(width, M, dt)
+        got = one_launch_bitwise(name, lambda: K.wo_layer_cuda(
+            x, codes, scale, width=width, group_size=gs, **kw))
+        e = check_layer_out(
+            f"{name} g{gs} [{M}, {Kd}] @ [{Kd}, {N}] {epi} (plan "
+            f"{wo_plan(M, Kd, N, width, gs)})", got,
+            K.wo_layer_ref(x, codes, scale, width=width, group_size=gs, **kw),
+            K.wo_layer_ref(x.float(), codes, scale, width=width,
+                           group_size=gs,
+                           **{k: v.float() for k, v in kw.items()}),
+            tol, ratios.setdefault(name, []))
+        err[name] = max(err.get(name, 0.0), e)
     info(f"wo_layer: int8 / int4 x per channel / g64 / g128 x none / resid "
-         f"/ swiglu x M 4, 16, 256 in bf16 and fp32 x within tolerance; "
+         f"/ swiglu x M 4, 16, 256 in bf16 (two calls bit-identical, one "
+         f"launch each), M 300 and 1024 cases, and fp32 x within tolerance; "
          f"max |err| {err}")
 
     # fp32 scales that bf16 rounding moves by ~0.3 % (mantissas 0.4 of a
@@ -1495,7 +1541,10 @@ def quant_chain(cfg, results, lp32, pool32, bt, lengths, bt_row, cos_t,
                 library_ms=lib, bound_ms=bms, bound_by=bby,
                 launches_per_call=sum(n for _, n in hit),
                 shape=f"one llama_7b layer's 7 GEMMs ({width} codes, per "
-                      f"channel, their epilogues), x [{M}, K] bf16")
+                      f"channel, their epilogues), x [{M}, K] bf16",
+                **({"plans": {wname: wo_plan(M, Kd, N, width, -1) for
+                              wname, _, Kd, N, *_ in mats}} if M > 16
+                   else {}))
             info(f"{name} {timed[name]['shape']}: device {ms} ms per layer "
                  f"(per call {call:.4f}), bound {bms:.4f} ms ({bby}), plain "
                  f"{plain} ms, torch.matmul on the dequantized bf16 weights "
@@ -3457,15 +3506,17 @@ def gpt_quant_checks(cfg, results, dev="cuda"):
                 nb = (M * Kd * 2 + codes.numel() + 4 * scale.numel()
                       + N * 2 + M * N * 2 * (2 if epi == "bias_resid" else 1))
                 bms, bby = bound_ms(nb, 2 * M * Kd * N)
+                plan = wo_plan(M, Kd, N, width, gs) if M > 16 else None
                 timed.setdefault(name, {})[f"{key} g{gs}"] = dict(
                     shape=f"[{M}, {Kd}] @ [{Kd}, {N}] {width} g{gs}",
                     max_abs_err=e, ms=ms, call_ms=call, plain_ms=plain_ms,
                     plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
-                    library_ms=lib)
+                    library_ms=lib, **({"plan": plan} if plan else {}))
                 info(f"{name} GPT {key} g{gs} [{M}x{Kd}x{N}]: device {ms} ms "
                      f"(per call {call:.4f}), plain {plain_ms} ms, torch.matmul"
                      f" on the dequantized bf16 weight + epilogue ops {lib} "
-                     f"ms, bound {bms:.5f} ms ({bby})")
+                     f"ms, bound {bms:.5f} ms ({bby})"
+                     + (f", plan {plan}" if plan else ""))
         del ql
     lib_what = ("torch.matmul on the weight dequantized to bf16 beforehand, "
                 "then the bias, GELU and residual as torch ops")

@@ -222,6 +222,14 @@ class ContinuousBatchingEngine:
         ``quantize_params_for_serving``) as it is, and PTQ-exports a
         full-width one here; ``kv_dtype="int8"`` builds int8 pools with
         per-(token, head) fp32 scales.
+      fused_decode_block / fused_prefill: route every decode layer /
+        chunk-fill layer through the serving kernels (True, the JAX
+        engine's default).  On the CPU both settings run the plain chain,
+        as the JAX reference tier runs the fused op as its per-op chain,
+        so greedy ids are the same either way.  False on CUDA raises: the
+        port has no per-op CUDA chain to route to (its plain versions are
+        a correctness lane, not a fair A/B arm; the bench's serve rows are
+        ROADMAP.md queue 1 item 13).
       device: ``None`` = CUDA (raises without it); ``"cpu"`` runs the
         plain PyTorch versions of the ops.
     """
@@ -231,6 +239,8 @@ class ContinuousBatchingEngine:
                  max_blocks_per_seq: Optional[int] = None,
                  enable_prefix_caching: bool = True,
                  prefill_buckets=None, aot_dir: Optional[str] = None,
+                 fused_decode_block: bool = True,
+                 fused_prefill: bool = True,
                  spec_config=None, enable_preemption: bool = True,
                  spill_tier=None, prefix_cache_config=None,
                  quant_config=None, device=None):
@@ -263,6 +273,15 @@ class ContinuousBatchingEngine:
                 "ops.decode_block.decode_block / prefill_block with "
                 "decode_block_spec(gpt_cfg, block_size)")
         self.device = resolve_device(device)
+        self.fused_decode_block = bool(fused_decode_block)
+        self.fused_prefill = bool(fused_prefill)
+        if self.device.type == "cuda" and not (self.fused_decode_block and
+                                               self.fused_prefill):
+            raise NotImplementedError(
+                "fused_decode_block=False / fused_prefill=False: the port "
+                "has no per-op CUDA chain (its plain versions are a "
+                "correctness lane, not a fair A/B arm); the serve rows of "
+                "the bench are ROADMAP.md queue 1 item 13")
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
         self.quant_config = quant_config

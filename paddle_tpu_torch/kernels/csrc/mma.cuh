@@ -2,7 +2,8 @@
 // (quant_linear.cu, flash_attention.cu, decode_attention.cu,
 // paged_attention.cu): 16-, 8- and 4-byte cp.async copies with zero fill,
 // their commit / wait, mma.sync m16n8k16 bf16 with fp32 accumulators,
-// ldmatrix x4 (plain and transposed) and bf16 packing; and the attention
+// ldmatrix x4 (plain and transposed), bf16 packing and the exact widening
+// of int8 codes; and the attention
 // kernels' row copies into padded tiles, the two products on ldmatrix
 // operands (S = Q K^T, O += P V), C-to-A fragment packing and exp2.
 //
@@ -195,6 +196,28 @@ __device__ __forceinline__ void c_to_a(unsigned (*a)[4], const float (*c)[4]) {
     a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
     a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
   }
+}
+
+// int8 codes widened exactly by the exponent-bias trick: a code byte ^ 0x80
+// (code + 128) spliced under the fp32 exponent of 2^23 by one PRMT is the
+// float 2^23 + 128 + code; one FADD of -(2^23 + 128) leaves the code.
+// widen_f32: the four codes of word r (byte i -> f[i]) as floats;
+// widen_i8: as bf16 pairs, bytes (0, 2) in pa and (1, 3) in pb, lo first
+// (a code's fp32 bits below the top 16 are zero, so the top halves are
+// its bf16)
+__device__ __forceinline__ void widen_f32(unsigned r, float *f) {
+  const unsigned u = r ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+}
+__device__ __forceinline__ void widen_i8(unsigned r, unsigned &pa,
+                                         unsigned &pb) {
+  float f[4];
+  widen_f32(r, f);
+  pa = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[2]), 0x7632);
+  pb = __byte_perm(__float_as_uint(f[1]), __float_as_uint(f[3]), 0x7632);
 }
 
 // 2^x in one MUFU.EX2 (denormal results flush to zero)

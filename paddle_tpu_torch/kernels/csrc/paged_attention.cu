@@ -65,18 +65,54 @@
 // An int8 pool (LayerArgs::kv_quant: codes [NB, BS, Hkv, D] and fp32 scales
 // [NB, BS, Hkv] a pool; the kv_quant branches of the TPU kernels,
 // decode_block.py:310 / :335 and prefill_block.py:213 / :237) takes the
-// same two bodies with Q8 set, counted apart (paged_attention_q8):
+// same two bodies with Q8 set, counted apart (paged_attention_q8).  Its
+// bytes are half of bf16's (a code a value, a 4-byte scale a position and
+// kv head), so the arithmetic that turns codes into values must cost less
+// than the bytes it saves; an int8 -> fp32 conversion instruction runs at
+// an eighth of the FMA rate, so the codes are widened instead by the
+// exponent-bias trick (widen_f32 of mma.cuh: one PRMT and one FADD a code;
+// widen_h2 below, into fp16: one PRMT and one HSUB2 a pair; both exact)
+// and the scales are taken out of the inner sums:
 //   * rows: a lane's chunk is 16 codes (8 where GM 8 would spill its q and
 //     acc registers), so a 16-byte copy brings twice the positions of a
-//     bf16 one and a stage holds CHP positions' codes plus their K and V
-//     scales (one 4-byte copy each); a code is dequantized to fp32 as code
-//     x scale (decode: the reference dequantizes to fp32), rounded to T
-//     when the body serves a prefill chunk (the reference dequantizes the
-//     gathered pages to the model dtype there);
-//   * prefill: the raw codes and scales of a tile land in a ring of their
-//     own; once landed, the block rounds code x scale to bf16 into the one
-//     padded K / V tile the mma.sync products read.
-// Logits, softmax and P V are the full-width bodies'.
+//     bf16 one, and a stage holds CHP positions' codes plus their K and V
+//     scales (one 4-byte cp.async each; copying a page's [BS, Hkv] scale
+//     slab instead would read Hkv times the scale bytes the block needs).
+//     Decode and fp32 chunks: score = s_k (q . c) and acc += (p s_v) c,
+//     one scalar a row for each, with c the exact codes; the reference
+//     dequantizes to fp32 there (code x scale, then the products), so
+//     this reassociates fp32 products and stays within the fp32 1e-4
+//     check.  A bf16 prefill chunk on this body keeps code x scale
+//     rounded to bf16 value by value, as the reference rounds the gathered
+//     pages to the model dtype.
+//   * prefill: the tile's raw codes and scales land in a ring of 3 (rows
+//     padded to D + 16 bytes: conflict-free ldmatrix) and the products
+//     read them there, with no second pass and no extra barrier, on fp16
+//     operands (mma.sync f16: a code widens into fp16 in one PRMT and one
+//     HSUB2 a pair, half of bf16's cost, which matters since each of the
+//     block's 4 warps widens every code of the tile it reads): S = Q K^T
+//     takes K's B fragments from ldmatrix words of codes widened in
+//     registers (a word holds a key's codes k 4t .. 4t + 3, so q's columns
+//     are stored reordered in the Q tile to match, q8_q_tile, and q is
+//     taken to fp16 once), then each key column times its K scale; O += P
+//     V takes V's B fragments from ldmatrix.trans words widened the same
+//     way (two n8 tiles a word), with each key's p times its V scale before
+//     P is rounded to fp16.  So the rounding differs from the reference's
+//     (which rounds code x scale to bf16 for both products and P to bf16):
+//     S keeps the exact codes, q (exact in fp16 inside its range) and the
+//     fp32 scales, and P s_v is rounded once to fp16 (11 bits; values held
+//     to fp16's finite range, and below 2^-14 rounded to its subnormal
+//     step); held by the bf16 rule, 2e-2 or no further from the fp32
+//     result than 1.5 x the plain version.  Measured against the same
+//     products on bf16 operands and against one widening pass a tile into
+//     a shared bf16 tile (tools/pattn_ab.py), fp16 took the least time.
+// Logits, softmax and P V are otherwise the full-width bodies'.  What
+// bounds them at the chain's shapes: at decode (B 4, lengths 1000 / 37 /
+// 0 / 517) the bytes are 4 us at 3.35 TB/s, so the walk's latency (page
+// indices, the ring's first chunks, two cluster barriers, the fold) sets
+// the pace; the Ts 256 prefill chunk is bound by its tensor-core work
+// (2.7 us at 989 TFLOP/s), the blocks' serial walk over 9 K / V tiles and
+// the widening beside the mma.sync.
 #include <type_traits>
 
 #include "mma.cuh"
@@ -89,6 +125,7 @@ constexpr int NT = 128, NW = NT / 32;   // rows body: 4 warps
 constexpr int MAXS = 8, MINP = 2;       // splits at most; pages a split aims at
 constexpr int MAXG = 8;                 // q heads a kv head
 constexpr int Q8_BASE = 32;             // allow_smem instances of the Q8 bodies
+
 constexpr int NSTG = 4, STEPS = 2;      // ring chunks; warp steps a chunk
 // bf16 chunks of <= 16 rows take the one-warp tensor-core body while their
 // walk ends within this many positions (tools/pattn_ab.py on an NVIDIA H100
@@ -135,20 +172,21 @@ __device__ __forceinline__ void load_f(const T *p, float *f) {
   }
 }
 
-// EPC int8 codes of shared memory as code x s, rounded to T when `rt`
-template <typename T, int EPC>
-__device__ __forceinline__ void codes_f(const signed char *p, float s,
-                                        bool rt, float *f) {
-  alignas(16) signed char e[EPC];
-  if constexpr (EPC == 16)
-    *reinterpret_cast<uint4 *>(e) = *reinterpret_cast<const uint4 *>(p);
-  else
-    *reinterpret_cast<uint2 *>(e) = *reinterpret_cast<const uint2 *>(p);
-#pragma unroll
-  for (int i = 0; i < EPC; ++i) {
-    const float v = (float)e[i] * s;
-    f[i] = rt ? rnd<T>(v) : v;
+// EPC int8 codes of shared memory as exact floats (widen_f32: a PRMT and
+// an FADD a code, where a conversion instruction runs at a fraction of the
+// FMA rate)
+template <int EPC>
+__device__ __forceinline__ void codes_w(const signed char *p, float *f) {
+  unsigned w[EPC / 4];
+  if constexpr (EPC == 16) {
+    const uint4 u = *reinterpret_cast<const uint4 *>(p);
+    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2 *>(p);
+    w[0] = u.x, w[1] = u.y;
   }
+#pragma unroll
+  for (int i = 0; i < EPC / 4; ++i) widen_f32(w[i], f + 4 * i);
 }
 
 // a row's table row and its live positions [0, n)
@@ -218,8 +256,11 @@ __global__ void __launch_bounds__(NT)
 
   const P *pk = (const P *)a.pool_k, *pv = (const P *)a.pool_v;
   const size_t rs = (size_t)a.Hkv * D;               // a pool position
-  // dequantized codes rounded to T: the rows body serving a prefill chunk
-  const bool rt = !a.lengths;
+  // Q8: dequantized codes rounded to T (a bf16 prefill chunk: the
+  // reference dequantizes the gathered pages to the model dtype), each
+  // code x scale on its own; else (decode, fp32) the scales come out of
+  // the sums: score = s_k (q . c), acc += (p s_v) c
+  const bool rounded = Q8 && !a.lengths && !std::is_same<T, float>::value;
   // chunk c's K rows, then its V rows (then, Q8, their K and V scales),
   // into ring stage c % NSTG; rows past cnt are zero-filled
   auto issue = [&](int c) {
@@ -267,11 +308,18 @@ __global__ void __launch_bounds__(NT)
     for (int st = 0; st < STEPS; ++st) {
       const int i = (st * NW + warp) * RPW + ro;
       const bool live = c * CHP + i < cnt;
-      float kf[EPC];
-      if constexpr (Q8)
-        codes_f<T, EPC>(kt + i * D + ch * EPC, ksc[i], rt, kf);
-      else
+      float kf[EPC], sk = 1.f;
+      if constexpr (Q8) {
+        codes_w<EPC>(kt + i * D + ch * EPC, kf);
+        if (rounded) {
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) kf[e] = rnd<T>(kf[e] * ksc[i]);
+        } else {
+          sk = ksc[i];
+        }
+      } else {
         chunk_f<T, EPC>(kt + i * D + ch * EPC, kf);
+      }
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float d = 0.f;
@@ -280,6 +328,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
         for (int o = CPR / 2; o > 0; o >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, o);
+        if constexpr (Q8) d *= sk;
         sc[st][g] = live ? d * a.scale : -INFINITY;
       }
     }
@@ -301,17 +350,26 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int st = 0; st < STEPS; ++st) {
       const int i = (st * NW + warp) * RPW + ro;
-      float vf[EPC];
-      if constexpr (Q8)
-        codes_f<T, EPC>(vt + i * D + ch * EPC, ksc[CHP + i], rt, vf);
-      else
+      float vf[EPC], sv = 1.f;
+      if constexpr (Q8) {
+        codes_w<EPC>(vt + i * D + ch * EPC, vf);
+        if (rounded) {
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) vf[e] = rnd<T>(vf[e] * ksc[CHP + i]);
+        } else {
+          sv = ksc[CHP + i];
+        }
+      } else {
         chunk_f<T, EPC>(vt + i * D + ch * EPC, vf);
+      }
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         const float p = expf(sc[st][g] - m[g]);
         l[g] += p;
+        float pv = p;
+        if constexpr (Q8) pv *= sv;            // one scalar a row
 #pragma unroll
-        for (int e = 0; e < EPC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        for (int e = 0; e < EPC; ++e) acc[g][e] = fmaf(pv, vf[e], acc[g][e]);
       }
     }
   }
@@ -388,22 +446,152 @@ __global__ void __launch_bounds__(NT)
 
 // prefill body: BQ query rows a block (16 a warp), BK-row K / V tiles in a
 // ring of NSTG, rows padded to LD (16 bytes past D: conflict-free ldmatrix);
-// Q8: one such bf16 tile, and the ring holds the raw codes (K, V) and
-// scales (K, V) of NSTG tiles
+// Q8: the ring holds the raw codes (K, V; rows padded to LDC, 16 bytes past
+// D) and scales (K, V) of NSTG tiles, read by ldmatrix and widened in
+// registers
 template <int D, int WARPS, bool Q8> struct Pre {
   static constexpr int BQ = 16 * WARPS, NTH = 32 * WARPS;
-  static constexpr int BK = 64, NSTG = 2, LD = D + 8;
+  static constexpr int BK = 64, NSTG = Q8 ? 3 : 2, LD = D + 8, LDC = D + 16;
   static constexpr int QB = BQ * LD * 2;                  // Q tile bytes
   static constexpr int STAGE = 2 * BK * LD * 2;           // K, then V
-  static constexpr int RAW = 2 * BK * D + 2 * BK * 4;     // Q8: codes, scales
-  static constexpr int RING = QB + (Q8 ? STAGE + NSTG * RAW : NSTG * STAGE);
+  static constexpr int RAW = 2 * BK * LDC + 2 * BK * 4;   // Q8: codes, scales
+  static constexpr int RING = QB + NSTG * (Q8 ? RAW : STAGE);
 };
+
+// Q8's products run on fp16 operands: an int8 code widens into fp16 in
+// half the instructions of bf16 (fp16's 10-bit mantissa holds 1024 + 128 +
+// code, bf16's 7 bits do not: widen_i8 goes through fp32), and each warp
+// widens every code of the tile it reads.  widen_h2: fp16 pairs of the
+// codes, bytes (0, 2) in pa and (1, 3) in pb (as widen_i8): code ^ 0x80
+// spliced under the fp16 exponent of 1024 by one PRMT, one HSUB2 of 1152
+// leaves the code
+__device__ __forceinline__ unsigned hsub2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("sub.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ void widen_h2(unsigned r, unsigned &pa,
+                                         unsigned &pb) {
+  const unsigned u = r ^ 0x80808080u;
+  pa = hsub2(__byte_perm(u, 0x64646464u, 0x4240), 0x64806480u);
+  pb = hsub2(__byte_perm(u, 0x64646464u, 0x4341), 0x64806480u);
+}
+// two floats rounded to fp16 in one register, lo in the low half, held to
+// fp16's finite range (a q or p s_v past 65504 stays finite)
+__device__ __forceinline__ unsigned pack_f16(float lo, float hi) {
+  unsigned d;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n"
+      : "=r"(d)
+      : "f"(fminf(fmaxf(hi, -65504.f), 65504.f)),
+        "f"(fminf(fmaxf(lo, -65504.f), 65504.f)));
+  return d;
+}
+// a bf16 pair as an fp16 pair
+__device__ __forceinline__ unsigned bf2_to_h2(unsigned b) {
+  return pack_f16(__uint_as_float(b << 16), __uint_as_float(b & 0xFFFF0000u));
+}
+// c += a . b on one m16n8k16 tile, fp16 operands
+__device__ __forceinline__ void mma_f16(float *c, const unsigned *a,
+                                        unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Q8: the Q rows [q0, q0 + BQ) of head h into the shared tile with each
+// 16-column block's columns reordered, evens then odds (rows past M zero):
+// the A fragment's columns (2t, 2t + 1, 2t + 8, 2t + 9) of a k16 step are
+// then q's (4t, 4t + 2, 4t + 1, 4t + 3), the order in which one ldmatrix
+// word of codes (k 4t .. 4t + 3 of a key) widens into the B fragment
+// (widen_h2: bytes 0, 2 then 1, 3)
+template <int D, int BQ, int LD, int NTH>
+__device__ __forceinline__ void q8_q_tile(bf16 *Qs, const bf16 *q, size_t qs,
+                                          int q0, int M) {
+  for (int i = threadIdx.x; i < BQ * (D / 16); i += NTH) {
+    const int rr = i / (D / 16), blk = i % (D / 16), row = q0 + rr;
+    uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+    if (row < M) {
+      const uint4 *src =
+          reinterpret_cast<const uint4 *>(q + (size_t)row * qs + blk * 16);
+      lo = src[0];
+      hi = src[1];
+    }
+    uint4 *dst = reinterpret_cast<uint4 *>(Qs + rr * LD + blk * 16);
+    dst[0] = make_uint4(__byte_perm(lo.x, lo.y, 0x5410),
+                        __byte_perm(lo.z, lo.w, 0x5410),
+                        __byte_perm(hi.x, hi.y, 0x5410),
+                        __byte_perm(hi.z, hi.w, 0x5410));
+    dst[1] = make_uint4(__byte_perm(lo.x, lo.y, 0x7632),
+                        __byte_perm(lo.z, lo.w, 0x7632),
+                        __byte_perm(hi.x, hi.y, 0x7632),
+                        __byte_perm(hi.z, hi.w, 0x7632));
+  }
+}
+
+// Q8: s[NS] (16 q rows x 8 NS keys) = Q . K^T over KS k16 steps, Q from its
+// fp16 A fragments qa (q8_q_tile's column order), K from int8 code rows LDC
+// bytes apart: one ldmatrix x4 gives a lane row g's codes k 4t .. 4t + 3 of
+// four (n8 tile, k16 step) blocks, widened into B fragments in registers
+template <int NS, int KS, int LDC>
+__device__ __forceinline__ void qk_q8(float (*s)[4], const unsigned (*qa)[4],
+                                      const unsigned char *Kc, int lane) {
+  constexpr int KQ = KS < 4 ? KS : 4, JQ = 4 / KQ;
+  const int mi = lane >> 3;                  // the matrix this lane points
+  const unsigned char *pb =
+      Kc + (8 * (mi / KQ) + (lane & 7)) * LDC + (mi % KQ) * 16;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int j0 = 0; j0 < NS; j0 += JQ)
+#pragma unroll
+    for (int k0 = 0; k0 < KS; k0 += KQ) {
+      unsigned w[4];
+      ldsm_x4(w, pb + 8 * j0 * LDC + k0 * 16);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        unsigned b0, b1;
+        widen_h2(w[m], b0, b1);
+        mma_f16(s[j0 + m / KQ], qa[k0 + m % KQ], b0, b1);
+      }
+    }
+}
+
+// Q8: c[ND] (16 rows x D) += P . V over KP k16 steps of keys, P's fp16 A
+// fragments pa, V from int8
+// code rows LDC bytes apart: one ldmatrix.trans x4 gives a lane keys (2t,
+// 2t + 1) and (2t + 8, 2t + 9) of columns 2g, 2g + 1 of two 16-column
+// blocks, widened into the B fragments of two n8 tiles a block: tile 2b
+// holds columns 16 b + 4t + {0, 2}, tile 2b + 1 columns 16 b + 4t + {1, 3}
+template <int ND, int KP, int LDC>
+__device__ __forceinline__ void pv_q8(float (*c)[4], const unsigned (*pa)[4],
+                                      const unsigned char *Vc, int lane) {
+  const unsigned char *pb =
+      Vc + ((lane & 7) + ((lane >> 3) & 1) * 8) * LDC + (lane >> 4) * 16;
+#pragma unroll
+  for (int kk = 0; kk < KP; ++kk)
+#pragma unroll
+    for (int b2 = 0; b2 < ND / 4; ++b2) {
+      unsigned w[4], e0, o0, e1, o1;
+      ldsm_x4_t(w, pb + kk * 16 * LDC + b2 * 32);
+      widen_h2(w[0], e0, o0);
+      widen_h2(w[1], e1, o1);
+      mma_f16(c[4 * b2], pa[kk], e0, e1);
+      mma_f16(c[4 * b2 + 1], pa[kk], o0, o1);
+      widen_h2(w[2], e0, o0);
+      widen_h2(w[3], e1, o1);
+      mma_f16(c[4 * b2 + 2], pa[kk], e0, e1);
+      mma_f16(c[4 * b2 + 3], pa[kk], o0, o1);
+    }
+}
 
 template <int D, int WARPS, bool Q8>
 __global__ void __launch_bounds__(Pre<D, WARPS, Q8>::NTH)
     paged_attention_prefill(LayerArgs a) {
   using C = Pre<D, WARPS, Q8>;
-  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, NTH = C::NTH;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDC = C::LDC;
+  constexpr int NTH = C::NTH;
   constexpr int KS = D / 16, NS = BK / 8, ND = D / 8, KP = BK / 16;
   constexpr int CPR = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -420,19 +608,21 @@ __global__ void __launch_bounds__(Pre<D, WARPS, Q8>::NTH)
   for (int i = threadIdx.x; i < np; i += NTH)
     pidx[i] = max(a.block_table[i], 0);
   const size_t qs = (size_t)a.Hq * D, rs = (size_t)a.Hkv * D;
-  cp_rows<D, BQ, NTH>(Qs, (const bf16 *)a.q + (size_t)h * D, qs, q0, a.M);
-  __syncthreads();                                   // pidx
+  if constexpr (Q8)
+    q8_q_tile<D, BQ, LD, NTH>(Qs, (const bf16 *)a.q + (size_t)h * D, qs, q0,
+                              a.M);
+  else
+    cp_rows<D, BQ, NTH>(Qs, (const bf16 *)a.q + (size_t)h * D, qs, q0, a.M);
+  __syncthreads();                                   // pidx (Q8: and Q)
   const bf16 *pk = (const bf16 *)a.pool_k, *pv = (const bf16 *)a.pool_v;
   const signed char *qk = (const signed char *)a.pool_k,
                     *qv = (const signed char *)a.pool_v;
   constexpr int CPR8 = D / 16;                       // Q8: 16 codes a copy
-  auto raw_of = [&](int kt) {
-    return smem + C::QB + C::STAGE + (kt % C::NSTG) * C::RAW;
-  };
+  auto raw_of = [&](int kt) { return smem + C::QB + (kt % C::NSTG) * C::RAW; };
   auto stage = [&](int kt) {                         // K, V tile kt
     if constexpr (Q8) {
       unsigned char *raw = raw_of(kt);
-      float *sc = reinterpret_cast<float *>(raw + 2 * BK * D);
+      float *sc = reinterpret_cast<float *>(raw + 2 * BK * LDC);
       for (int i = threadIdx.x; i < BK * CPR8; i += NTH) {
         const int ri = i / CPR8, col = i % CPR8 * 16, p = kt * BK + ri;
         const bool ok = p < kend;
@@ -440,8 +630,8 @@ __global__ void __launch_bounds__(Pre<D, WARPS, Q8>::NTH)
             ok ? ((size_t)pidx[p / BS] * BS + p % BS) * rs +
                      (size_t)hk * D + col
                : 0;
-        cp16(raw + ri * D + col, qk + off, ok);
-        cp16(raw + (BK + ri) * D + col, qv + off, ok);
+        cp16(raw + ri * LDC + col, qk + off, ok);
+        cp16(raw + (BK + ri) * LDC + col, qv + off, ok);
       }
       for (int i = threadIdx.x; i < BK; i += NTH) {
         const int p = kt * BK + i;
@@ -480,6 +670,16 @@ __global__ void __launch_bounds__(Pre<D, WARPS, Q8>::NTH)
 #pragma unroll
   for (int j = 0; j < ND; ++j)
     acc[0][j][0] = acc[0][j][1] = acc[0][j][2] = acc[0][j][3] = 0.f;
+  // Q8: the warp's Q A fragments as fp16 pairs, once (the Q tile stays the
+  // same)
+  unsigned qa[Q8 ? KS : 1][4];
+  if constexpr (Q8)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldsm_x4(qa[kk], Qs + warp * 16 * LD + ldsm_a(lane, LD) + kk * 16);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[kk][i] = bf2_to_h2(qa[kk][i]);
+    }
   const float sl2 = a.scale * LOG2E;
   // the plain body takes max(raw) * scale as the row max: a positive scale
   const bool always = !(a.scale > 0.f);
@@ -490,38 +690,34 @@ __global__ void __launch_bounds__(Pre<D, WARPS, Q8>::NTH)
     __syncthreads();               // tile kt landed; tile kt - 1 is done
     if (kt + C::NSTG - 1 < nkt) stage(kt + C::NSTG - 1);
     cp_commit();
-    if constexpr (Q8) {
-      // tile kt's codes x scales, rounded to bf16, into the one K / V tile
-      // (the previous tile's products are done: the barrier above)
-      const unsigned char *raw = raw_of(kt);
-      const float *sc = reinterpret_cast<const float *>(raw + 2 * BK * D);
-      bf16 *T8 = reinterpret_cast<bf16 *>(smem + C::QB);
-      for (int i = threadIdx.x; i < 2 * BK * CPR8; i += NTH) {
-        const int ri = i / CPR8, col = i % CPR8 * 16;
-        const float sr = sc[ri];                     // K rows, then V rows
-        alignas(16) signed char e[16];
-        *reinterpret_cast<uint4 *>(e) =
-            *reinterpret_cast<const uint4 *>(raw + ri * D + col);
-        unsigned w[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          w[j] = pack_bf16((float)e[2 * j] * sr, (float)e[2 * j + 1] * sr);
-        uint4 *dst = reinterpret_cast<uint4 *>(T8 + ri * LD + col);
-        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
-      }
-      __syncthreads();
-    }
     const bf16 *Ks = reinterpret_cast<const bf16 *>(
         smem + C::QB + (Q8 ? 0 : (kt % C::NSTG) * C::STAGE));
     const bf16 *Vs = Ks + BK * LD;
+    // Q8: tile kt's codes and K / V scales
+    const unsigned char *Kc = raw_of(kt), *Vc = Kc + BK * LDC;
+    const float *ksc = reinterpret_cast<const float *>(Kc + 2 * BK * LDC);
+    const float *vsc = ksc + BK;
     const int k0 = kt * BK;
     // nothing to add: the warp's rows past Ts, or every key after them
     if (wq0 >= a.M || k0 > qp0 + 15) continue;
     auto body = [&](auto flag) {
       constexpr bool MASK = decltype(flag)::value;
       float s[1][NS][4];
-      mma_abt<1, NS, KS, LD>(s, Qs + warp * 16 * LD, Ks, lane);
+      if constexpr (Q8) {
+        // S = s_k (Q . c): each key column times its K scale
+        qk_q8<NS, KS, LDC>(s[0], qa, Kc, lane);
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float2 sk =
+              *reinterpret_cast<const float2 *>(ksc + 8 * j + 2 * t);
+          s[0][j][0] *= sk.x;
+          s[0][j][1] *= sk.y;
+          s[0][j][2] *= sk.x;
+          s[0][j][3] *= sk.y;
+        }
+      } else {
+        mma_abt<1, NS, KS, LD>(s, Qs + warp * 16 * LD, Ks, lane);
+      }
       if (MASK)
 #pragma unroll
         for (int j = 0; j < NS; ++j)
@@ -566,8 +762,30 @@ __global__ void __launch_bounds__(Pre<D, WARPS, Q8>::NTH)
           s[0][j][e] = p;
           l[i] += p;
         }
-      c_to_a<KP>(pa[0], s[0]);
-      mma_ab<1, ND, KP, LD>(acc, pa, Vs, lane);      // O += P V
+      if constexpr (Q8) {
+        // O += (P s_v) c: each key's p times its V scale, then rounded to
+        // fp16
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float2 sv =
+              *reinterpret_cast<const float2 *>(vsc + 8 * j + 2 * t);
+          s[0][j][0] *= sv.x;
+          s[0][j][1] *= sv.y;
+          s[0][j][2] *= sv.x;
+          s[0][j][3] *= sv.y;
+        }
+#pragma unroll
+        for (int kk = 0; kk < KP; ++kk) {       // c_to_a, in fp16
+          pa[0][kk][0] = pack_f16(s[0][2 * kk][0], s[0][2 * kk][1]);
+          pa[0][kk][1] = pack_f16(s[0][2 * kk][2], s[0][2 * kk][3]);
+          pa[0][kk][2] = pack_f16(s[0][2 * kk + 1][0], s[0][2 * kk + 1][1]);
+          pa[0][kk][3] = pack_f16(s[0][2 * kk + 1][2], s[0][2 * kk + 1][3]);
+        }
+        pv_q8<ND, KP, LDC>(acc[0], pa[0], Vc, lane);
+      } else {
+        c_to_a<KP>(pa[0], s[0]);
+        mma_ab<1, ND, KP, LD>(acc, pa, Vs, lane);    // O += P V
+      }
     };
     if (always || k0 + BK > kend || k0 + BK - 1 > qp0)
       body(Flag<true>());
@@ -586,10 +804,21 @@ __global__ void __launch_bounds__(Pre<D, WARPS, Q8>::NTH)
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     const float inv = 1.f / fmaxf(lt, 1e-30f);
     const int rr = g + 8 * i;
+    if constexpr (Q8) {
+      // tiles 2b, 2b + 1: columns 16 b + 4t + {0, 2}, {1, 3} (pv_q8)
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<unsigned *>(Ow + rr * LD + 8 * j + 2 * t) =
-          pack_bf16(acc[0][j][2 * i] * inv, acc[0][j][2 * i + 1] * inv);
+      for (int b = 0; b < ND / 2; ++b)
+        *reinterpret_cast<uint2 *>(Ow + rr * LD + 16 * b + 4 * t) =
+            make_uint2(pack_bf16(acc[0][2 * b][2 * i] * inv,
+                                 acc[0][2 * b + 1][2 * i] * inv),
+                       pack_bf16(acc[0][2 * b][2 * i + 1] * inv,
+                                 acc[0][2 * b + 1][2 * i + 1] * inv));
+    } else {
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<unsigned *>(Ow + rr * LD + 8 * j + 2 * t) =
+            pack_bf16(acc[0][j][2 * i] * inv, acc[0][j][2 * i + 1] * inv);
+    }
   }
   __syncwarp();
   bf16 *out = (bf16 *)a.attn + (size_t)h * D;

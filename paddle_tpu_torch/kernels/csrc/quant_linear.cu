@@ -19,7 +19,14 @@
 // (M = 1024) the tensor-core operations (2 M K N at 989 TFLOP/s bf16:
 // 2048 operations a code byte, far above the card's ~295 a byte); with
 // 128-channel tiles x is read from L2 again for every tile, so the
-// copies into shared memory (~4 GB a llama_7b layer) come next.
+// copies into shared memory (~4 GB a llama_7b layer) come next.  At the
+// serving chain's M 256 the operations still bound it (a llama_7b layer's
+// 7 GEMMs: 0.105 ms at 989 TFLOP/s against 0.061 ms of code bytes), but
+// the grid does not fill the card: (N / 128) x (M / 128) tiles are 64 at
+// N 4096 (under half the 132 SMs) and 12-48 at GPT-125M's widths, each
+// walking all of K; there the K split below sets the pace, and at the
+// GPT widths (2-12 K steps a block) the launch, the ring's first fill and
+// the fold's exchange, a few microseconds a launch, are most of it.
 // Three kernels, one per regime:
 //   * bf16 x, M > 16 (prefill): wo_wgmma, on wgmma.  The operands are
 //     swapped, y^T [N, M] = (W s)^T [N, K] . x^T [K, M], so the
@@ -36,22 +43,41 @@
 //     (one x4 gives a thread the k pairs (2t, 2t+1) and (2t+8, 2t+9) of 2
 //     channels for two k16 steps) and widens them in registers (int8: the
 //     exponent-bias trick, byte ^ 0x80 spliced under 2^23 by one PRMT and
-//     one FADD, then the exact top halves packed; int4: a nibble pair
-//     masked under bf16 128 by one LOP3 and one bf16x2 FMA), so each code
-//     is widened once a block, by one thread, for BM x rows.  A rows are
+//     one FADD, then the exact top halves packed (mma.cuh widen_i8);
+//     int4: a nibble pair masked under bf16 128 by one LOP3 and one
+//     bf16x2 FMA), so each code is widened once a block, by one thread,
+//     for BM x rows.  A rows are
 //     the channels in the order the bytes lie in a 16-byte chunk: row g
 //     of a warp is byte 2g, row g + 8 byte 2g + 1, so a thread's two D
 //     rows are two neighbouring channels and the epilogue stores bf16
 //     pairs straight from the accumulators (32 contiguous bytes a row and
 //     warp).  The wgmma of step s runs while the codes of step s + 1 are
 //     widened; a stage goes back to the producer once the wgmma that read
-//     its x tile has retired.  BM is 256 (half the widening a code of
-//     128) unless 128-row tiles fill the SMs in clearly fewer waves (small
-//     M).  Per channel the fp32 scale multiplies in the epilogue; grouped
-//     `post` scales (BM 128: a second accumulator) start a partial sum
-//     (scale-d 0) at each 64-row plane step and add it, times the group's
-//     scale, into the total at its end; the `tile` rule multiplies the
-//     widened codes by the bf16 scale before the product.
+//     its x tile has retired.  Per channel the fp32 scale multiplies in
+//     the epilogue; grouped `post` scales (BM 128: a second accumulator)
+//     start a partial sum (scale-d 0) at each 64-row plane step and add
+//     it, times the group's scale, into the total at its end; the `tile`
+//     rule multiplies the widened codes by the bf16 scale before the
+//     product.
+//     Where the grid underfills the card, K is split over a thread-block
+//     cluster of S blocks (grid x; 128-row tiles only: the staged fp32
+//     partial of 256 rows would not fit beside the ring).  Block s of a
+//     cluster walks the s-th of S ranges of whole 64-row steps, so a split
+//     boundary falls on a plane step and grouped `post` partials stay
+//     whole; each block stages its partial (`tot` for grouped scales) in
+//     the idle ring and the fold of split_k.cuh pushes each peer's rows to
+//     it by bulk copies; the owner of a row slice sums the S slices in
+//     split order (two calls are bit-identical), multiplies the per-channel
+//     scale and runs the epilogue once, as unsplit.  The launcher plans x
+//     rows a tile (128 or 256) and S (1-8) at the least modelled cost,
+//     waves x (K steps a split x a step's cost + the fold), from the
+//     clusters of each size the card keeps resident (asked once a device,
+//     when the shared-memory attributes are set), and caches the tensor
+//     maps by their arguments: at M 256 a llama_7b layer's GEMMs take S 2,
+//     GPT-125M's 2-8; M 300 and M 1024 keep their unsplit tiles.  An
+//     unsplit plan runs an instance compiled without the fold: with the
+//     fold's code beside it the unsplit path ran up to 35 % slower
+//     (tools/wo_ab.py, the down projection at M 256 on 128-row tiles).
 //   * bf16 x, M <= 16 (decode): wo_dec, the same swapped wgmma with the
 //     same widening, shaped for 8 or 16 x rows (wgmma m64n8k16 /
 //     m64n16k16, x zero-filled by TMA past M).  A block is 2 consumer
@@ -181,7 +207,9 @@ __global__ void __launch_bounds__(256) wo_f32(const WoArgs a) {
 // ------------------------------------------------------- prefill: wgmma
 enum { WO_CHANNEL = 0, WO_GROUPED = 1, WO_TILE = 2 };
 
-template <bool INT4_, int MODE_, int BM_> struct Wg {
+// SPLIT_: the instance folds K splits (128-row tiles only); an unsplit
+// launch takes an instance without the fold's code and staging
+template <bool INT4_, int MODE_, int BM_, bool SPLIT_> struct Wg {
   static constexpr bool INT4 = INT4_;
   static constexpr int MODE = MODE_;
   static constexpr int BN = 128;               // channels: 2 warpgroups x 64
@@ -195,29 +223,25 @@ template <bool INT4_, int MODE_, int BM_> struct Wg {
   static constexpr int THREADS = 384;          // + a producer warpgroup
   static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
   static constexpr int NACC = BM / 2;          // fp32 accumulators a thread
-  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+  // K splits: 128-row tiles only (a staged partial of 256 rows and its
+  // receive slots take 270 KB, past a block's 227 KB)
+  static constexpr bool SPLITS = SPLIT_;
+  static_assert(!SPLITS || BM == 128, "K splits fold 128-row tiles");
+  using Fold = splitk::Tile<SPLITS ? 128 : 8>;  // the staged partial
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int BODY =
+      SPLITS && Fold::BYTES > RING ? Fold::BYTES : RING;
+  static constexpr int SMEM = 1024 + BODY + (2 * STAGES + 1) * 8;
+  static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned");
   static_assert(SMEM <= 232448, "one block an SM");
   static_assert(BM == 128 || (BM == 256 && MODE != WO_GROUPED),
                 "grouped scales keep two accumulators: 128 rows");
 };
 
 // the ldmatrix.trans word r of a thread holds the codes (k, A) (k, B)
-// (k + 1, A) (k + 1, B) in its bytes, A and B the thread's two channels;
-// -> the bf16 pairs (k, k + 1) of channel A (pa) and of channel B (pb)
-__device__ __forceinline__ void widen_i8(unsigned r, unsigned &pa,
-                                         unsigned &pb) {
-  const unsigned u = r ^ 0x80808080u;
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)),
-              f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)),
-              f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)),
-              f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443));
-  // 2^23 + 128 + code - (2^23 + 128): the exact code, whose fp32 bits
-  // below the top 16 are zero, so the top halves are its bf16
-  pa = __byte_perm(__float_as_uint(f0 - 8388736.f),
-                   __float_as_uint(f2 - 8388736.f), 0x7632);
-  pb = __byte_perm(__float_as_uint(f1 - 8388736.f),
-                   __float_as_uint(f3 - 8388736.f), 0x7632);
-}
+// (k + 1, A) (k + 1, B) in its bytes, A and B the thread's two channels:
+// widen_i8 (mma.cuh) gives the bf16 pairs (k, k + 1) of channel A (pa) and
+// of channel B (pb)
 __device__ __forceinline__ unsigned bf2_fma(unsigned a, unsigned b,
                                             unsigned c) {
   unsigned d;
@@ -237,25 +261,35 @@ __device__ __forceinline__ void widen_i4(unsigned r, int plane, unsigned &pa,
   pb = nib_pair(v >> 8);
 }
 
+// One block: channels [128 blockIdx.y, + 128), x rows [BM blockIdx.z, +
+// BM), the K steps of split blockIdx.x of gridDim.x (the cluster).  Codes
+// past N or K and x rows past M are TMA's zero fill; stores are masked.
+// Unsplit, the consumers store straight from their accumulators; split,
+// they stage the partial tile in the idle ring and fold it (split_k.cuh).
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 1)
     wo_wgmma(const WoArgs a, const __grid_constant__ CUtensorMap tw,
              const __grid_constant__ CUtensorMap txlo,
              const __grid_constant__ CUtensorMap txhi) {
+  using F = typename C::Fold;
   extern __shared__ unsigned char smem_raw[];
   unsigned char *smem = reinterpret_cast<unsigned char *>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t *full = reinterpret_cast<uint64_t *>(smem + C::STAGES * C::STAGE);
+  uint64_t *full = reinterpret_cast<uint64_t *>(smem + C::BODY);
   uint64_t *empty = full + C::STAGES;
+  uint64_t *recv_bar = empty + C::STAGES;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::BM;
+  const int S = gridDim.x, rank = blockIdx.x;
+  const int n0 = blockIdx.y * C::BN, m0 = blockIdx.z * C::BM;
   const int nt = ((C::INT4 ? a.half : a.K) + C::BK - 1) / C::BK;
+  const int kb0 = nt * rank / S, kb1 = nt * (rank + 1) / S;
   if (tid == 0) {
 #pragma unroll
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);                 // one arrival a consumer warp
     }
+    mbar_init(recv_bar, 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -263,8 +297,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   if (warp >= 8) {                             // producer warpgroup
     regs_dec<C::REGS_PRODUCER>();
     if (warp == 8 && lane == 0) {
-      for (int kb = 0; kb < nt; ++kb) {
-        const int s = kb % C::STAGES, round = kb / C::STAGES;
+      for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+        const int s = it % C::STAGES, round = it / C::STAGES;
         if (round) mbar_wait(&empty[s], (round - 1) & 1);
         unsigned char *st = smem + s * C::STAGE;
         mbar_expect_tx(&full[s], C::STAGE);
@@ -272,6 +306,13 @@ __global__ void __launch_bounds__(C::THREADS, 1)
         if (C::INT4) tma_load_2d(st + C::XT, &txhi, kb * C::BK, m0, &full[s]);
         tma_load_2d(st + C::PLANES * C::XT, &tw, n0, kb * C::BK, &full[s]);
       }
+    }
+    // split: the fold's cluster barriers, without its work (code past a
+    // merge would be compiled to the producer's 40 registers)
+    if (C::SPLITS && S > 1) {
+      __syncwarp();
+      splitk::idle();
+      splitk::done();
     }
     return;
   }
@@ -296,9 +337,9 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   auto flush = [&](int grp) {
     wg_wait<0>();
     fence_regs(acc);
-    const float *S = a.scale + (size_t)grp * a.N;
-    const float sA = chA < a.N ? __ldg(S + chA) : 0.f;
-    const float sB = chA < a.N ? __ldg(S + chA + 1) : 0.f;
+    const float *sg = a.scale + (size_t)grp * a.N;
+    const float sA = chA < a.N ? __ldg(sg + chA) : 0.f;
+    const float sB = chA < a.N ? __ldg(sg + chA + 1) : 0.f;
 #pragma unroll
     for (int j = 0; j < C::NACC; j += 4) {
       tot[j] = fmaf(acc[j], sA, tot[j]);
@@ -314,9 +355,9 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     return ch < a.N ? __ldg(a.scale + (size_t)grp * a.N + ch) : 0.f;
   };
 
-  for (int kb = 0; kb < nt; ++kb) {
-    const int s = kb % C::STAGES;
-    mbar_wait(&full[s], (kb / C::STAGES) & 1);
+  for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+    const int s = it % C::STAGES;
+    mbar_wait(&full[s], (it / C::STAGES) & 1);
     const unsigned char *st = smem + s * C::STAGE;
     const unsigned char *ct = st + C::PLANES * C::XT;
     unsigned cr[8];                            // k16 steps 0-1, then 2-3
@@ -359,102 +400,243 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       WgmmaRS<C::BM>::mma(acc, A, (plane ? dhi : dlo) + 2 * step, !fresh);
       wg_commit();
       wg_wait<1>();
-      // the wgmmas of stage kb - 1 have retired: hand its slot back
-      if (v == 0 && kb > 0 && lane == 0)
-        mbar_arrive(&empty[(kb - 1) % C::STAGES]);
+      // the wgmmas of the block's previous stage have retired: hand its
+      // slot back
+      if (v == 0 && it > 0 && lane == 0)
+        mbar_arrive(&empty[(it - 1) % C::STAGES]);
       if constexpr (C::MODE == WO_GROUPED)
         if (step == 3) flush(min(vr >> lg, a.G - 1));
     }
   }
   wg_wait<0>();
   fence_regs(acc);
-  if (chA >= a.N) return;
-  // registers 4j' + e: D column 8j' + 2t + (e & 1), i.e. x row
-  // m0 + 8j' + 2t (+1), of channel chA (e < 2) or chA + 1
   bf16 *Y = (bf16 *)a.y;
-  // the pairs (row m; channels chA, chA + 1) in rounds of 2 UJ: the round's
-  // residual / gate pairs loaded first, then its stores (R may be Y
-  // itself: a thread reads only the pairs it writes); the bias pair of the
-  // thread's two channels, and where its pairs go (column `col` of rows
-  // `ld` apart: the qkv split puts them in their head's q, k or v slab),
-  // once: an index worked out per store slowed llama_7b's M-256 layer
-  // GEMMs by ~18 % on an H100
-  constexpr int UJ = 4;
   const bool rd = epi_reads_r(a.epi);
-  const float2 bias =
-      a.epi >= EPI_BIAS
-          ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
-                (const bf16 *)a.B + chA))
-          : make_float2(0.f, 0.f);
-  const size_t col = out_index(0, chA, a.M, a.N, a.qkv_d);
-  const size_t ld = a.qkv_d > 0 ? a.N / 3 : a.N;
-  auto store = [&](const float(&v)[C::NACC], float sA, float sB) {
+  if (!C::SPLITS || S == 1) {
+    if (chA >= a.N) return;
+    // registers 4j' + e: D column 8j' + 2t + (e & 1), i.e. x row
+    // m0 + 8j' + 2t (+1), of channel chA (e < 2) or chA + 1.
+    // The pairs (row m; channels chA, chA + 1) in rounds of 2 UJ: the
+    // round's residual / gate pairs loaded first, then its stores (R may be
+    // Y itself: a thread reads only the pairs it writes); the bias pair of
+    // the thread's two channels, and where its pairs go (column `col` of
+    // rows `ld` apart: the qkv split puts them in their head's q, k or v
+    // slab), once: an index worked out per store slowed llama_7b's M-256
+    // layer GEMMs by ~18 % on an H100
+    constexpr int UJ = 4;
+    const float2 bias =
+        a.epi >= EPI_BIAS
+            ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
+                  (const bf16 *)a.B + chA))
+            : make_float2(0.f, 0.f);
+    const size_t col = out_index(0, chA, a.M, a.N, a.qkv_d);
+    const size_t ld = a.qkv_d > 0 ? a.N / 3 : a.N;
+    auto store = [&](const float(&v)[C::NACC], float sA, float sB) {
 #pragma unroll
-    for (int j0 = 0; j0 < C::NACC; j0 += 4 * UJ) {
-      float2 r[2 * UJ];
+      for (int j0 = 0; j0 < C::NACC; j0 += 4 * UJ) {
+        float2 r[2 * UJ];
 #pragma unroll
-      for (int u = 0; u < 2 * UJ; ++u) {
-        const int m = m0 + 2 * (j0 + 4 * (u >> 1)) + 2 * t + (u & 1);
-        r[u] = make_float2(0.f, 0.f);
-        if (rd && m < a.M)
-          r[u] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
-              (const bf16 *)a.R + (size_t)m * a.N + chA));
-      }
-#pragma unroll
-      for (int u = 0; u < 2 * UJ; ++u) {
-        const int j = j0 + 4 * (u >> 1), e = u & 1;
-        const int m = m0 + 2 * j + 2 * t + e;
-        if (m >= a.M) continue;
-        float v0 = v[j + e] * sA, v1 = v[j + e + 2] * sB;
-        if (a.epi != EPI_NONE) {
-          v0 = epi_value<bf16>(a.epi, v0, bias.x, r[u].x);
-          v1 = epi_value<bf16>(a.epi, v1, bias.y, r[u].y);
+        for (int u = 0; u < 2 * UJ; ++u) {
+          const int m = m0 + 2 * (j0 + 4 * (u >> 1)) + 2 * t + (u & 1);
+          r[u] = make_float2(0.f, 0.f);
+          if (rd && m < a.M)
+            r[u] = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162 *>(
+                    (const bf16 *)a.R + (size_t)m * a.N + chA));
         }
-        *reinterpret_cast<unsigned *>(Y + col + m * ld) = pack_bf16(v0, v1);
+#pragma unroll
+        for (int u = 0; u < 2 * UJ; ++u) {
+          const int j = j0 + 4 * (u >> 1), e = u & 1;
+          const int m = m0 + 2 * j + 2 * t + e;
+          if (m >= a.M) continue;
+          float v0 = v[j + e] * sA, v1 = v[j + e + 2] * sB;
+          if (a.epi != EPI_NONE) {
+            v0 = epi_value<bf16>(a.epi, v0, bias.x, r[u].x);
+            v1 = epi_value<bf16>(a.epi, v1, bias.y, r[u].y);
+          }
+          *reinterpret_cast<unsigned *>(Y + col + m * ld) = pack_bf16(v0, v1);
+        }
+      }
+    };
+    if constexpr (C::MODE == WO_CHANNEL) {
+      store(acc, __ldg(a.scale + chA), __ldg(a.scale + chA + 1));
+    } else if constexpr (C::MODE == WO_GROUPED) {
+      store(tot, 1.f, 1.f);
+    } else {
+      store(acc, 1.f, 1.f);
+    }
+    return;
+  }
+  if constexpr (C::SPLITS) {
+    float *red = reinterpret_cast<float *>(smem);             // [BM][LDR]
+    float *recv = reinterpret_cast<float *>(smem + F::RED);   // [S][R][LDR]
+    // the fold's operands of this thread, loaded before the staging and
+    // the exchange so that their latency hides behind both: its channel
+    // pair (tile column c, the same in every row it folds), that pair's
+    // scale and bias, and the residual / gate pairs of its tile rows r1,
+    // r1 + 4, ... of the block's share (at most BM / 8 rows at S >= 2)
+    constexpr int RMAX = C::BM / 8;
+    const splitk::Share sh = splitk::share_of<C::BM>(S, rank);
+    const int nrow = max(0, min(sh.nr, a.M - m0 - sh.r0));
+    const int c = 2 * (tid & 63), n = n0 + c, r1 = tid >> 6;
+    const bool nok = n < a.N;
+    float2 sc = make_float2(1.f, 1.f), bv = make_float2(0.f, 0.f), rv[RMAX];
+    if (nok && C::MODE == WO_CHANNEL)
+      sc = make_float2(__ldg(a.scale + n), __ldg(a.scale + n + 1));
+    if (nok && a.epi >= EPI_BIAS)
+      bv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162 *>((const bf16 *)a.B + n));
+#pragma unroll
+    for (int i = 0; i < RMAX; ++i) {
+      const int r = r1 + 4 * i;
+      rv[i] = make_float2(0.f, 0.f);
+      if (nok && rd && r < nrow)
+        rv[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
+            (const bf16 *)a.R + (size_t)(m0 + sh.r0 + r) * a.N + n));
+    }
+    // both warpgroups are done with the ring: stage the partial tile in it
+    // as red[x row][channel - n0] (register 4j + e: x row 8j + 2t + e of
+    // channel chA; 4j + e + 2: of chA + 1), for the bulk copies to read
+    consumer_sync();
+    const float(&part)[C::NACC] = C::MODE == WO_GROUPED ? tot : acc;
+#pragma unroll
+    for (int j = 0; j < C::BM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2 *>(red + (8 * j + 2 * t + e) * F::LDR + chA -
+                                    n0) =
+            make_float2(part[4 * j + e], part[4 * j + e + 2]);
+    fence_proxy_async_smem();
+    splitk::push<C::BM>(red, recv, recv_bar, S, rank, tid);
+    // my rows over the splits, in split order; per channel the fp32 scale
+    // multiplies the sum, then the epilogue, as unsplit; bf16 pairs along N
+    float2 x[RMAX];
+#pragma unroll
+    for (int i = 0; i < RMAX; ++i) x[i] = make_float2(0.f, 0.f);
+#pragma unroll 1
+    for (int q = 0; q < S; ++q) {
+      const float *src =
+          (q == rank ? red + sh.r0 * F::LDR : recv + q * sh.R * F::LDR) + c;
+#pragma unroll
+      for (int i = 0; i < RMAX; ++i)
+        if (r1 + 4 * i < nrow) {
+          const float2 v =
+              *reinterpret_cast<const float2 *>(src + (r1 + 4 * i) * F::LDR);
+          x[i].x += v.x;
+          x[i].y += v.y;
+        }
+    }
+    if (nok) {
+      const size_t col = out_index(0, n, a.M, a.N, a.qkv_d);
+      const size_t ld = a.qkv_d > 0 ? a.N / 3 : a.N;
+#pragma unroll
+      for (int i = 0; i < RMAX; ++i) {
+        const int r = r1 + 4 * i;
+        if (r >= nrow) continue;
+        float v0 = x[i].x * sc.x, v1 = x[i].y * sc.y;
+        if (a.epi != EPI_NONE) {
+          v0 = epi_value<bf16>(a.epi, v0, bv.x, rv[i].x);
+          v1 = epi_value<bf16>(a.epi, v1, bv.y, rv[i].y);
+        }
+        *reinterpret_cast<unsigned *>(Y + col + (size_t)(m0 + sh.r0 + r) *
+                                                    ld) = pack_bf16(v0, v1);
       }
     }
-  };
-  if constexpr (C::MODE == WO_CHANNEL) {
-    store(acc, __ldg(a.scale + chA), __ldg(a.scale + chA + 1));
-  } else if constexpr (C::MODE == WO_GROUPED) {
-    store(tot, 1.f, 1.f);
-  } else {
-    store(acc, 1.f, 1.f);
+    splitk::done();
   }
 }
 
-template <class C>
-cudaError_t launch_wgmma(const WoArgs *a, cudaStream_t s) {
-  const bf16 *x = (const bf16 *)a->x;
-  CUtensorMap tw, txlo, txhi;
-  // codes [R, N] in boxes of 64 rows x 128 bytes; x [M, cols] in boxes of
-  // BM rows x 64 columns, int4's high plane from column xhi
-  cudaError_t e = encode_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a->w,
-                                a->N, C::INT4 ? a->half : a->K, a->N, C::BN,
-                                C::BK);
-  if (e == cudaSuccess)
-    e = encode_map_2d(&txlo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x,
-                      C::INT4 ? a->half : a->K, a->M, 2 * (uint64_t)a->ldx,
-                      64, C::BM);
-  if (e == cudaSuccess && C::INT4)
-    e = encode_map_2d(&txhi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x + a->xhi,
-                      a->K > a->half ? a->K - a->half : 1, a->M,
-                      2 * (uint64_t)a->ldx,
-                      64, C::BM);
-  if (e != cudaSuccess) return e;
-  if (!C::INT4) txhi = txlo;
-  e = cudaFuncSetAttribute(
-      wo_wgmma<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((a->N + C::BN - 1) / C::BN, (a->M + C::BM - 1) / C::BM);
-  wo_wgmma<C><<<grid, C::THREADS, C::SMEM, s>>>(*a, tw, txlo, txhi);
-  return cudaGetLastError();
+typedef void (*WoKernel)(const WoArgs, const CUtensorMap, const CUtensorMap,
+                         const CUtensorMap);
+struct WoInst {
+  WoKernel fn;
+  int smem;
+};
+template <bool INT4, int MODE, int BM, bool SPLIT> WoInst wg() {
+  using C = Wg<INT4, MODE, BM, SPLIT>;
+  return {wo_wgmma<C>, C::SMEM};
+}
+// instance 8 int4 + 3 mode + (128 rows unsplit, 128 rows split, 256 rows;
+// grouped scales have no 256-row tiles)
+constexpr int WG_INSTS = 16;
+static const WoInst WG[WG_INSTS] = {
+    wg<false, WO_CHANNEL, 128, false>(), wg<false, WO_CHANNEL, 128, true>(),
+    wg<false, WO_CHANNEL, 256, false>(), wg<false, WO_GROUPED, 128, false>(),
+    wg<false, WO_GROUPED, 128, true>(),  wg<false, WO_TILE, 128, false>(),
+    wg<false, WO_TILE, 128, true>(),     wg<false, WO_TILE, 256, false>(),
+    wg<true, WO_CHANNEL, 128, false>(),  wg<true, WO_CHANNEL, 128, true>(),
+    wg<true, WO_CHANNEL, 256, false>(),  wg<true, WO_GROUPED, 128, false>(),
+    wg<true, WO_GROUPED, 128, true>(),   wg<true, WO_TILE, 128, false>(),
+    wg<true, WO_TILE, 128, true>(),      wg<true, WO_TILE, 256, false>()};
+inline int wg_inst(bool int4, int mode, int bm, bool split) {
+  const int i = mode == WO_CHANNEL ? (bm == 256 ? 2 : split)
+                : mode == WO_GROUPED ? 3 + split
+                                     : (bm == 256 ? 7 : 5 + split);
+  return (int4 ? 8 : 0) + i;
 }
 
-template <bool INT4, int MODE>
-cudaError_t launch_rows(bool narrow, const WoArgs *a, cudaStream_t s) {
-  return narrow ? launch_wgmma<Wg<INT4, MODE, 128>>(a, s)
-                : launch_wgmma<Wg<INT4, MODE, 256>>(a, s);
+// the current device's clusters of each size of every instance (once a
+// device: split_k.cuh, which also sets the shared-memory attribute)
+static splitk::ResidencyTable<WG_INSTS> wg_residency;
+
+// The launch plan: x rows a tile (BM) and K splits (the cluster) at the
+// least modelled cost, waves x (K steps a split x a step's cost + the
+// fold): a 128-row tile's K step costs WG_STEP_128 / WG_STEP_256 of a
+// 256-row one's (~0.6 measured at llama_7b widths), the staging and the
+// fold WG_FOLD; ties go to 256 rows, then to fewer splits.  A split may
+// take at most one wave more than the unsplit 128-row launch: each wave
+// also pays a fixed 5-8 us (launch, ring fill, fold, epilogue) that the
+// cost leaves out, and llama_7b's down projection at M 300 ran slower on
+// 8 splits in 7 waves than unsplit in 1 (tools/wo_ab.py).  WG_FORCE_BM /
+// WG_FORCE_SPLIT (0: planned) pin one choice (the tunings of
+// tools/wo_ab.py).
+constexpr int WG_STEP_128 = 6, WG_STEP_256 = 10, WG_FOLD = 8;
+constexpr int WG_FORCE_BM = 0, WG_FORCE_SPLIT = 0;
+struct WgPlan {
+  int inst, bm, splits, row_tiles, col_tiles, nk, resident;
+};
+static WgPlan wg_plan(const WoArgs *a, int mode,
+                      const splitk::Residency<WG_INSTS> &occ) {
+  WgPlan best = {-1, 0, 0, 0, 0, 0, 0};
+  const int rows = a->int4 ? a->half : a->K;   // code rows
+  const int nk = (rows + 63) / 64, cols = (a->N + 127) / 128;
+  long long best_cost = -1;
+  for (int bm = 256; bm >= 128; bm -= 128) {
+    // a pinned tile height binds where the scale rule allows both
+    if ((bm == 256 && mode == WO_GROUPED) ||
+        (WG_FORCE_BM && bm != WG_FORCE_BM && mode != WO_GROUPED))
+      continue;
+    const int rt = (a->M + bm - 1) / bm;
+    const long long tiles = (long long)rt * cols;
+    long long waves1 = tiles;                  // the unsplit launch's waves
+    const int smax = bm == 128 ? splitk::MAX_SPLITS : 1;
+    for (int s = 1; s <= smax && s <= nk; ++s) {
+      if (WG_FORCE_SPLIT && s != (WG_FORCE_SPLIT < nk ? WG_FORCE_SPLIT : nk))
+        continue;
+      const int inst = wg_inst(a->int4, mode, bm, s > 1);
+      const long long r = occ.clusters[inst][s];
+      if (r <= 0) continue;
+      const long long waves = (tiles + r - 1) / r;
+      if (s == 1) waves1 = waves;
+      else if (waves > waves1 + 1 && !WG_FORCE_SPLIT) continue;
+      const long long cost =
+          waves * ((long long)(nk + s - 1) / s * (bm == 128 ? WG_STEP_128
+                                                            : WG_STEP_256) +
+                   (s > 1 ? WG_FOLD : 0));
+      if (best_cost < 0 || cost < best_cost) {
+        best_cost = cost;
+        best = {inst, bm, s, rt, cols, nk, (int)r};
+      }
+    }
+  }
+  return best;
+}
+
+static cudaError_t wg_setup(const splitk::Residency<WG_INSTS> **occ) {
+  splitk::KernelShape ks[WG_INSTS];
+  for (int i = 0; i < WG_INSTS; ++i)
+    ks[i] = {(const void *)WG[i].fn, 384, WG[i].smem};
+  return wg_residency.get(ks, occ);
 }
 
 // the scale rule of a call (WO_*), or -1 where the wgmma kernels refuse it
@@ -466,27 +648,54 @@ int mode_of(const WoArgs *a) {
   return WO_GROUPED;
 }
 
-template <bool INT4>
-cudaError_t launch_prefill(const WoArgs *a, cudaStream_t s) {
+// the plan of a prefill call (M > 16), or inst -1 where none fits
+static cudaError_t plan_prefill(const WoArgs *a, WgPlan *p) {
   const int mode = mode_of(a);
   if (mode < 0) return cudaErrorInvalidValue;
-  if (mode == WO_GROUPED) return launch_wgmma<Wg<INT4, WO_GROUPED, 128>>(a, s);
-  // 256 x rows a block widen each code half as often as 128, but a small
-  // grid leaves SMs idle: take 128 rows where they need fewer than 5/3 the
-  // waves of 256 (a 128-row tile takes ~0.55-0.65 the time of a 256-row
-  // one, measured at llama_7b widths)
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const splitk::Residency<WG_INSTS> *occ = nullptr;
+  const cudaError_t e = wg_setup(&occ);
   if (e != cudaSuccess) return e;
-  const long long cols = (a->N + 127) / 128;
-  auto waves = [&](int bm) {
-    return ((a->M + bm - 1) / bm * cols + sms - 1) / sms;
-  };
-  const bool narrow = 3 * waves(128) < 5 * waves(256);
-  if (mode == WO_TILE) return launch_rows<INT4, WO_TILE>(narrow, a, s);
-  return launch_rows<INT4, WO_CHANNEL>(narrow, a, s);
+  *p = wg_plan(a, mode, *occ);
+  return p->inst < 0 || p->row_tiles > 65535 || p->col_tiles > 65535
+             ? cudaErrorInvalidValue
+             : cudaSuccess;
+}
+
+cudaError_t launch_prefill(const WoArgs *a, cudaStream_t s) {
+  WgPlan p;
+  cudaError_t e = plan_prefill(a, &p);
+  if (e != cudaSuccess) return e;
+  // codes [rows, N] in boxes of 64 rows x 128 bytes; x [M, cols] in boxes
+  // of BM rows x 64 columns, int4's high plane from column xhi; cached by
+  // their arguments (split_k.cuh)
+  const int rows = a->int4 ? a->half : a->K;
+  const bf16 *x = (const bf16 *)a->x;
+  CUtensorMap tw, txlo, txhi;
+  e = splitk::cached_map_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, a->w, a->N,
+                            rows, a->N, 128, 64);
+  if (e == cudaSuccess)
+    e = splitk::cached_map_2d(&txlo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x,
+                              rows, a->M, 2 * (uint64_t)a->ldx, 64, p.bm);
+  if (e == cudaSuccess && a->int4)
+    e = splitk::cached_map_2d(&txhi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                              x + a->xhi, a->K > a->half ? a->K - a->half : 1,
+                              a->M, 2 * (uint64_t)a->ldx, 64, p.bm);
+  if (e != cudaSuccess) return e;
+  if (!a->int4) txhi = txlo;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.splits, p.col_tiles, p.row_tiles);
+  cfg.blockDim = dim3(384);
+  cfg.dynamicSmemBytes = WG[p.inst].smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.splits > 1;                 // else a cluster of one
+  e = cudaLaunchKernelEx(&cfg, WG[p.inst].fn, *a, tw, txlo, txhi);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 
@@ -832,8 +1041,8 @@ cudaError_t launch_weight_only_matmul(const WoArgs *a, cudaStream_t s) {
     return count_launch(CNT_WO_INT8_SMALL_M, launch_decode(a, s));
   }
   if (a->int4)
-    return count_launch(CNT_WO_INT4_TILED, launch_prefill<true>(a, s));
-  return count_launch(CNT_WO_INT8_TILED, launch_prefill<false>(a, s));
+    return count_launch(CNT_WO_INT4_TILED, launch_prefill(a, s));
+  return count_launch(CNT_WO_INT8_TILED, launch_prefill(a, s));
 }
 
 // the serving chain's layer GEMMs: the same kernels, the `post` scale rule
@@ -851,8 +1060,26 @@ cudaError_t launch_wo_layer(const WoArgs *a, cudaStream_t s) {
     return count_launch(CNT_WO_LAYER_INT8_SMALL_M, launch_decode(a, s));
   }
   if (a->int4)
-    return count_launch(CNT_WO_LAYER_INT4_TILED, launch_prefill<true>(a, s));
-  return count_launch(CNT_WO_LAYER_INT8_TILED, launch_prefill<false>(a, s));
+    return count_launch(CNT_WO_LAYER_INT4_TILED, launch_prefill(a, s));
+  return count_launch(CNT_WO_LAYER_INT8_TILED, launch_prefill(a, s));
+}
+
+// The launch plan of a prefill call (M > 16) into out[7]: x rows a tile,
+// K splits (the cluster), x row tiles, channel tiles, 64-row K steps, the
+// clusters of this shape the device keeps resident, dynamic shared memory;
+// nothing launched.  Not bound by build.py: tools/wo_ab.py and
+// chip_smoke.py read it.
+extern "C" int pt_wo_plan(const WoArgs *a, int *out) {
+  using namespace pt::wo;
+  const cudaError_t e = a->M > 16 ? check_wo(a) : cudaErrorInvalidValue;
+  if (e != cudaSuccess) return e;
+  WgPlan p;
+  const cudaError_t f = plan_prefill(a, &p);
+  if (f != cudaSuccess) return f;
+  const int v[7] = {p.bm, p.splits, p.row_tiles, p.col_tiles, p.nk,
+                    p.resident, WG[p.inst].smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return cudaSuccess;
 }
 
 extern "C" int pt_weight_only_matmul(const WoArgs *a, void *stream) {

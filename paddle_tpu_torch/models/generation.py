@@ -14,9 +14,13 @@ is PyTorch idiom:
 * The KV cache is updated IN PLACE: ``prefill`` allocates it, ``step``
   and ``chunk_step`` write the new rows into the tensors they are given
   and return the same dict (the JAX package rebuilds it functionally).
-* Sampling draws from a caller's :class:`torch.Generator`; the stream of
-  random numbers differs from ``jax.random``'s, so sampled ids differ
-  from the JAX package's while greedy ids agree.
+* Sampling with ``seed=`` (and no ``generator=``) draws the JAX
+  package's bits: ``jax.random.key(seed)`` split into a first key and a
+  loop key, the loop key split again each step, and the Gumbel-max draw
+  of ``jax.random.categorical`` over ``[B, V]`` (``ops/threefry.py``),
+  so over equal logits the sampled ids are the JAX package's.  A
+  caller's :class:`torch.Generator` draws by ``torch.multinomial``
+  instead, a stream of its own.
 * Nothing is compiled: the rollout is a Python loop over steps and
   layers, so ``_RUN_CACHE`` has no counterpart.
 
@@ -36,7 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import make_generator, resolve_device
+from ..device import resolve_device
+from ..ops import threefry
 from ..ops.decode_attention import decode_attention
 from ..ops.decode_block import rotate_half
 
@@ -159,14 +164,21 @@ def filter_logits(logits: torch.Tensor, temperature: float = 1.0,
 def sample_logits(logits: torch.Tensor,
                   generator: Optional[torch.Generator] = None, *,
                   temperature: float = 1.0, top_k: Optional[int] = None,
-                  top_p: Optional[float] = None) -> torch.Tensor:
+                  top_p: Optional[float] = None, key=None) -> torch.Tensor:
     """Token ids ``[B]`` (int64) from ``[B, V]`` logits: argmax when
     ``temperature <= 0``, else one categorical draw per row from
-    :func:`filter_logits`' logits with ``generator``."""
+    :func:`filter_logits`' logits: with ``key`` (a ``threefry`` word
+    pair) ``jax.random.categorical``'s draw, ``argmax(logits +
+    gumbel)`` over the key's ``[B, V]`` bits; else ``torch.multinomial``
+    with ``generator``."""
     if temperature is None or temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    probs = torch.softmax(filter_logits(logits, temperature, top_k, top_p),
-                          dim=-1)
+    x = filter_logits(logits, temperature, top_k, top_p)
+    if key is not None:
+        bits = threefry.random_bits(key[0], key[1], tuple(x.shape),
+                                    x.device)
+        return torch.argmax(x + threefry.gumbel(bits), dim=-1)
+    probs = torch.softmax(x, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
@@ -461,7 +473,8 @@ def _generate(decoder_builder: Callable, cfg, params, input_ids,
               **builder_kw) -> torch.Tensor:
     """Prefill, then ``max_new_tokens - 1`` decode steps; rows that have
     fed ``eos_token_id`` emit it from then on.  Sampling draws from
-    ``generator``, or from a new one seeded ``seed`` on the device."""
+    ``generator``, or, without one, from ``seed``'s key chain as the JAX
+    package does (:func:`sample_logits` with ``key``)."""
     dev = resolve_device(device)
     ids = _as_ids(input_ids, dev)
     B, T0 = ids.shape
@@ -475,20 +488,22 @@ def _generate(decoder_builder: Callable, cfg, params, input_ids,
             f"max_position_embeddings ({max_pos}); later positions would "
             f"silently clamp to the last learned position embedding")
     prefill, step = decoder_builder(cfg, max_len, device=dev, **builder_kw)
-    if generator is None and temperature is not None and temperature > 0:
-        generator = make_generator(seed, dev)
+    # jax.random.key(seed) -> (key0, key_loop); each step splits key_loop
+    key0, key_loop = threefry.split(threefry.prng_key(seed))
 
-    def sample(logits):
+    def sample(logits, key):
         return sample_logits(logits, generator, temperature=temperature,
-                             top_k=top_k, top_p=top_p)
+                             top_k=top_k, top_p=top_p,
+                             key=None if generator is not None else key)
     with torch.inference_mode():
         cache, logits = prefill(params, ids)
-        tok = sample(logits)
+        tok = sample(logits, key0)
         toks = [tok]
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         for i in range(max_new_tokens - 1):
+            key_loop, sub = threefry.split(key_loop)
             cache, logits = step(params, cache, tok, T0 + i)
-            nxt = sample(logits)
+            nxt = sample(logits, sub)
             if eos_token_id is not None:
                 done = done | (tok == eos_token_id)
                 nxt = torch.where(done, eos_token_id, nxt)

@@ -14,11 +14,12 @@ rotates and xors, which are exact in int64 torch ops under
 equals its plain version's bit for bit.  (Philox, the usual GPU choice,
 needs a 32x32 -> 64-bit ``mulhi`` that int64 ops cannot repeat exactly.)
 
-The serving sampler draws from the same core the way ``jax.random`` does
-with ``jax_threefry_partitionable`` on (JAX's default): :func:`prng_key`,
-:func:`fold_in`, :func:`random_bits`, :func:`uniform` and :func:`gumbel`
-repeat ``jax.random.key``, ``fold_in``, the raw bits of a 1-D draw,
-``uniform(minval=tiny)`` and the low-range Gumbel noise of
+The serving sampler and generation draw from the same core the way
+``jax.random`` does with ``jax_threefry_partitionable`` on (JAX's
+default): :func:`prng_key`, :func:`fold_in`, :func:`split`,
+:func:`random_bits`, :func:`uniform` and :func:`gumbel` repeat
+``jax.random.key``, ``fold_in``, ``split``, the raw bits of a draw of any
+shape, ``uniform(minval=tiny)`` and the low-range Gumbel noise of
 ``jax.random.categorical``.
 """
 
@@ -27,7 +28,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["threefry2x32", "dropout_bits", "keep_mask", "prng_key",
-           "fold_in", "random_bits", "uniform", "gumbel"]
+           "fold_in", "split", "random_bits", "uniform", "gumbel"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -79,13 +80,10 @@ _TINY = 1.1754943508222875e-38          # float32's smallest normal
 
 
 def prng_key(seed: int):
-    """``jax.random.key(seed)``'s two words: ``(seed >> 32, seed mod
-    2^32)``, where a seed that fits int32 (JAX's default 32-bit mode
-    holds seeds as int32, negative ones included) has high word 0."""
-    seed = int(seed)
-    if -2 ** 31 <= seed < 2 ** 31:
-        return 0, seed & _M32
-    return (seed >> 32) & _M32, seed & _M32
+    """``jax.random.key(seed)``'s two words in JAX's default 32-bit mode:
+    ``(0, seed mod 2^32)`` (the seed is cut to its low 32 bits, negative
+    ones included, so the high word is 0)."""
+    return 0, int(seed) & _M32
 
 
 def fold_in(key, data: int):
@@ -94,14 +92,29 @@ def fold_in(key, data: int):
     return threefry2x32(key[0], key[1], 0, int(data) & _M32)
 
 
-def random_bits(k0, k1, n: int, device=None) -> torch.Tensor:
-    """The 32-bit words of a ``(n,)`` draw under key ``(k0, k1)``
-    (JAX's partitionable layout: element ``i`` is the xor of both
-    Threefry words at counters ``(0, i)``).  ``k0`` / ``k1`` are ints or
-    ``[r, 1]`` int64 tensors (one key a row, bits ``[r, n]``); int64."""
-    c = torch.arange(n, dtype=torch.int64, device=device)
-    w0, w1 = threefry2x32(k0, k1, torch.zeros_like(c), c)
-    return w0 ^ w1
+def split(key, num: int = 2):
+    """``jax.random.split(key, num)``'s keys as ``num`` word pairs: key
+    ``i`` is both Threefry words of ``key`` at the counters ``(0, i)``
+    (the partitionable layout: the counters are the 64-bit index ``i``'s
+    high and low words)."""
+    return [threefry2x32(key[0], key[1], (i >> 32) & _M32, i & _M32)
+            for i in range(int(num))]
+
+
+def random_bits(k0, k1, n, device=None) -> torch.Tensor:
+    """The 32-bit words of a draw of shape ``n`` (an int or a tuple) under
+    key ``(k0, k1)`` (JAX's partitionable layout: element ``i`` of the
+    row-major order is the xor of both Threefry words at the counters
+    ``(i >> 32, i mod 2^32)``).  ``k0`` / ``k1`` are ints or ``[r, 1]``
+    int64 tensors (one key a row of a 1-D draw, bits ``[r, n]``);
+    int64."""
+    shape = (int(n),) if isinstance(n, int) else tuple(int(d) for d in n)
+    total = 1
+    for d in shape:
+        total *= d
+    c = torch.arange(total, dtype=torch.int64, device=device)
+    w0, w1 = threefry2x32(k0, k1, c >> 32, c & _M32)
+    return (w0 ^ w1).reshape(w0.shape[:-1] + shape)
 
 
 def uniform(bits: torch.Tensor) -> torch.Tensor:

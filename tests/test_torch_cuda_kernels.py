@@ -2033,3 +2033,24 @@ def test_bert_no_dropout_step_launches_the_flash_kernels_once_a_layer():
     assert len(gp) == len(runs["cpu"][1]) - 2
     for k, g in gp.items():
         assert float((gc[k] - g).norm()) <= 1e-4 * float(g.norm()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [{"fused_decode_block": False},
+                                {"fused_prefill": False}],
+                         ids=lambda kw: next(iter(kw)))
+def test_engine_unfused_chain_is_refused_on_cuda(kw):
+    """The port has no per-op CUDA chain: an engine asked for one on the
+    card raises, naming the bench's serve rows (ROADMAP queue 1 item 13);
+    True for both builds."""
+    _need_card()
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import llama
+    cfg = llama.llama_tiny()
+    params = llama.init_params(cfg, make_generator(0, "cuda"), device="cuda")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ContinuousBatchingEngine(cfg, params, **kw)
+    eng = ContinuousBatchingEngine(cfg, params, fused_decode_block=True,
+                                   fused_prefill=True)
+    assert eng.fused_decode_block and eng.fused_prefill

@@ -12,6 +12,9 @@ the CPU (the port's plain versions; the JAX package's reference tier):
 * ``gpt_generate`` greedy ids identical, with and without eos freezing;
 * the filtered logits of top-k / top-p sampling equal to the ones the JAX
   ``sample_logits`` hands to ``jax.random.categorical``;
+* seeded sampling (``seed=``, no ``generator=``) identical to the JAX
+  package's ids, over ``ops/threefry.py``'s ``split`` and shaped bits,
+  which equal ``jax.random.split``'s and ``jax.random.bits``' words;
 * greedy speculative decoding identical (ids and acceptance stats);
 * the entry points default to CUDA and refuse the configurations outside
   this slice by name.
@@ -30,6 +33,7 @@ from paddle_tpu_torch.bridge import params_from_numpy
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.ops import threefry
 
 B, T0, NEW = 2, 6, 5
 
@@ -143,6 +147,39 @@ def test_filtered_logits_match_jax(monkeypatch, top_k, top_p):
     draws = tgen.sample_logits(torch.from_numpy(logits), gen,
                                temperature=0.7, top_k=top_k, top_p=top_p)
     assert np.isfinite(seen["logits"][np.arange(3), draws.numpy()]).all()
+
+
+@pytest.mark.parametrize("seed,num", [(0, 2), (3, 2), (-7, 3),
+                                      (2 ** 40 + 5, 2)])
+def test_split_matches_jax(seed, num):
+    want = np.asarray(jax.random.key_data(
+        jax.random.split(jax.random.key(seed), num)))
+    got = threefry.split(threefry.prng_key(seed), num)
+    assert [tuple(int(w) for w in k) for k in want] == got
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 40), (2, 3, 5)])
+def test_shaped_bits_match_jax(shape):
+    key = jax.random.key(11)
+    want = np.asarray(jax.random.bits(key, shape, jnp.uint32))
+    k0, k1 = threefry.prng_key(11)
+    got = threefry.random_bits(k0, k1, shape)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt"])
+def test_seeded_sampled_ids_match_jax(llama, gpt, family):
+    cfg, jcfg, tree, ids = llama if family == "llama" else gpt
+    jp, tp = _jax_tree(tree), params_from_numpy(tree, device="cpu")
+    kw = dict(temperature=0.8, top_k=50, top_p=0.9, seed=3)
+    jrun = jgen.llama_generate if family == "llama" else jgen.gpt_generate
+    trun = tgen.llama_generate if family == "llama" else tgen.gpt_generate
+    want = np.asarray(jrun(jp, jcfg, ids, NEW, **kw))
+    got = trun(tp, cfg, ids, NEW, device="cpu", **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the draws are not the greedy ones
+    greedy = trun(tp, cfg, ids, NEW, device="cpu")
+    assert not torch.equal(got, greedy)
 
 
 def test_sampled_rollouts_follow_the_generator(llama):

@@ -51,3 +51,40 @@ def test_split_fold_is_shared_not_copied():
         assert '#include "split_k.cuh"' in src, name
         assert "splitk::push<" in src and "splitk::done()" in src, name
         assert "bulk_to_peer" not in src, name
+
+
+def test_prefill_body_splits_k_and_the_old_launcher_is_gone():
+    """wo_wgmma covers the card at small M by a K split over a cluster,
+    folded through split_k.cuh; its launcher plans the tile rows and the
+    split from the card's residency and caches its tensor maps, so the
+    per-call map encoding and shared-memory attribute are gone."""
+    src = QL_CU.read_text()
+    for old in ("launch_wgmma", "const bool narrow", "launch_rows<",
+                "cudaFuncSetAttribute(\n      wo_wgmma"):
+        assert old not in src, old
+    assert "splitk::push<C::BM>(red, recv, recv_bar, S, rank, tid);" in src
+    assert "static splitk::ResidencyTable<WG_INSTS> wg_residency;" in src
+    body = src[src.index("cudaError_t launch_prefill(const WoArgs *a"):]
+    body = body[:body.index("\n}\n")]
+    assert "splitk::cached_map_2d" in body and "encode_map_2d" not in body
+    assert 'extern "C" int pt_wo_plan(const WoArgs *a, int *out)' in src
+    for width in ("INT8", "INT4"):
+        for kind in ("CNT_WO", "CNT_WO_LAYER"):
+            assert (f"count_launch({kind}_{width}_TILED, launch_prefill(a, s))"
+                    in src), (kind, width)
+
+
+def test_chain_cases_are_the_layers_gemms():
+    """The chain's M-256 timings cover a llama_7b layer's seven GEMMs in
+    int8 and int4 and a GPT-125M layer's four, with their epilogues."""
+    fams = {(fam, width, gs): mats for fam, width, gs, mats in wo_ab.CHAIN}
+    for width in ("int8", "int4"):
+        mats = fams[("llama_7b", width, -1)]
+        assert [m[3] for m in mats] == ["none", "none", "none", "resid",
+                                        "none", "swiglu", "resid"]
+        assert [(m[1], m[2]) for m in mats][-1] == (11008, 4096)
+    gpt = [k for k in fams if k[0] == "gpt_125m"]
+    assert len(gpt) == 2
+    assert [m[3] for m in fams[gpt[0]]] == ["bias", "bias_resid",
+                                            "bias_gelu", "bias_resid"]
+    assert wo_ab.CHAIN_M == 256

@@ -14,11 +14,11 @@ sources' objects into its own library under
 ``--tree NAME=DIR`` adds DIR's (another checkout's, e.g. the parent commit
 unpacked by ``git archive`` into the git-ignored ``archive_check/``).
 ``--tune`` adds this tree's ``paged_attention.cu`` with the choices of
-``TUNINGS`` (ring depth and chunk size, splits, the prefill ring, the
-rows body for chunks of <= 16 rows; and ``norms.cu``'s RMSNorm with
-256-thread blocks, plain loads or plain stores), each checked and timed
-like a tree.  ``--only`` keeps the named variants.  All ``nvcc``
-processes start together.
+``TUNINGS`` (ring depth and chunk size, splits, the prefill ring over
+full-width and over int8 pools, the rows body for chunks of <= 16 rows;
+and ``norms.cu``'s RMSNorm with 256-thread blocks, plain loads or plain
+stores), each checked and timed like a tree.  ``--only`` keeps the named
+variants.  All ``nvcc`` processes start together.
 
 The script prints ptxas' registers, stack frame and spills of each
 variant's kernels and this tree's launch plans (``pt_paged_attention_plan``)
@@ -27,14 +27,20 @@ whether each kernel of ``norms.cu`` and ``flash_attention.cu`` has the
 same SASS in that tree as in this one.  It checks each variant on
 ``PATTN_CASES`` (decode and prefill, bf16 and fp32, against
 ``paged_attention_ref`` by ``chip_smoke.py``'s rule: 1e-4 / 2e-2 or the
-bf16 ratio rule) and ``NORM_CASES`` (``rms_norm_fwd``, ``layer_norm_fwd``,
+bf16 ratio rule; over full-width pools and, the ``q8`` cases, over int8
+pools as ``paged_attention_q8``) and ``NORM_CASES`` (``rms_norm_fwd``,
+``layer_norm_fwd``,
 ``bias_residual_ln_fwd`` against their plain versions), each call twice,
 bit-identical, one launch each; then, unless ``--no-time``, times the
 variants in turns (a, b, ..., b, a; ``--turns N`` runs that order N
 times): paged attention alone at ``chip_smoke.py``'s decode case
 (llama_7b, B 4, lengths 1000/37/0/517) and at prefill chunks (Ts 16
 after 37, 300 and 1000, Ts 64 after 21, Ts 256 after 300), each beside its bound and one
-``scaled_dot_product_attention`` call on K / V gathered beforehand; the
+``scaled_dot_product_attention`` call on K / V gathered beforehand;
+``paged_attention_q8`` over int8 pools at the decode case and the Ts 256
+chunk, at llama_7b's D 128 (32 heads) and GPT-125M's D 64 (12 heads), one
+q head a kv head, beside SDPA on K / V dequantized to bf16 and gathered
+beforehand; the
 three norms at the eager steps' shapes beside ``F.rms_norm`` /
 ``F.layer_norm``; and one bf16 ``decode_block`` and ``prefill_block``
 (Ts 256) layer call's device time (the chain's kernels, profiler).
@@ -66,7 +72,16 @@ PATTN_CASES = [("decode G1 D128", 1, 128, (1000, 37, 0, 517), 4, 0),
                ("prefill Ts16", 1, 128, None, 16, 37),
                ("prefill Ts16 start 600", 1, 128, None, 16, 600),
                ("prefill Ts100 G4 D64", 4, 64, None, 100, 5),
-               ("prefill Ts256", 1, 128, None, 256, 300)]
+               ("prefill Ts256", 1, 128, None, 256, 300),
+               ("q8 decode G1 D128", 1, 128, (1000, 37, 0, 517), 4, 0),
+               ("q8 prefill Ts256 G1 D128", 1, 128, None, 256, 300),
+               ("q8 decode G1 D64", 1, 64, (1000, 37, 0, 517), 4, 0),
+               ("q8 prefill Ts256 G1 D64", 1, 64, None, 256, 300),
+               ("q8 decode G8 D128", 8, 128, (300, 1), 2, 0),
+               ("q8 prefill Ts16 start 600", 1, 128, None, 16, 600),
+               ("q8 prefill Ts100 G4 D64", 4, 64, None, 100, 5)]
+# the int8-pool shapes timed: (label, q heads = kv heads, D, decode?)
+Q8_TIMED = (("llama_7b", 32, 128), ("gpt_125m", 12, 64))
 NORM_CASES = [(8192, 4096), (3, 4096), (300, 4097), (64, 768)]
 # paged_attention.cu with one choice changed: (old, new) text pairs
 TUNINGS = {
@@ -77,8 +92,15 @@ TUNINGS = {
                 "constexpr int NSTG = 3, STEPS = 2;")],
     "splits_4": [("constexpr int MAXS = 8, MINP = 2;",
                   "constexpr int MAXS = 4, MINP = 2;")],
-    "pre_ring_3": [("static constexpr int BK = 64, NSTG = 2, LD = D + 8;",
-                    "static constexpr int BK = 64, NSTG = 3, LD = D + 8;")],
+    "pre_ring_3": [("static constexpr int BK = 64, NSTG = Q8 ? 3 : 2, "
+                    "LD = D + 8, LDC = D + 16;",
+                    "static constexpr int BK = 64, NSTG = 3, LD = D + 8, "
+                    "LDC = D + 16;")],
+    # the prefill ring over int8 pools: 2 tiles of codes
+    "q8_pre_ring_2": [("static constexpr int BK = 64, NSTG = Q8 ? 3 : 2, "
+                       "LD = D + 8, LDC = D + 16;",
+                       "static constexpr int BK = 64, NSTG = 2, LD = D + 8, "
+                       "LDC = D + 16;")],
     # chunks of <= 16 rows on the rows body
     "ts16_rows": [("constexpr int MMA16_MAX = 512;",
                    "constexpr int MMA16_MAX = 0;")],
@@ -180,14 +202,18 @@ def plan(lib, a):
     return dict(zip(PLAN_KEYS, out))
 
 
-def pattn_inputs(G, D, lengths, Ts, start, dt, gen, BS=16, NB=400, MB=128):
+def pattn_inputs(G, D, lengths, Ts, start, dt, gen, BS=16, NB=400, MB=128,
+                 q8=False, Hkv=None):
     """(q, pool_k, pool_v, keyword arguments) of one case: pages of a
-    permutation, unmapped (-1) entries past each row's pages."""
+    permutation, unmapped (-1) entries past each row's pages; ``q8``: the
+    pools' int8 export (``chip_smoke.q8_pool``)."""
     import torch
-    Hkv = 32 if G == 1 else 2
+    Hkv = Hkv or (32 if G == 1 else 2)
     perm = torch.randperm(NB, generator=gen, device="cuda").to(torch.int32)
     pk, pv = (torch.randn(NB, BS, Hkv, D, device="cuda", generator=gen)
               .to(dt) for _ in range(2))
+    if q8:
+        pk, pv = cs.q8_pool(pk, dt), cs.q8_pool(pv, dt)
     if lengths is not None:
         bt = torch.full((len(lengths), MB), -1, dtype=torch.int32,
                         device="cuda")
@@ -219,19 +245,22 @@ def check_variant(variant, gen):
     worst = {}
     for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for label, G, D, lengths, Ts, start in PATTN_CASES:
-            q, pk, pv, kw = pattn_inputs(G, D, lengths, Ts, start, dt, gen)
-            got = cs.one_launch_bitwise("paged_attention", lambda:
+            q8 = label.startswith("q8")
+            q, pk, pv, kw = pattn_inputs(G, D, lengths, Ts, start, dt, gen,
+                                         q8=q8)
+            kern = "paged_attention_q8" if q8 else "paged_attention"
+            got = cs.one_launch_bitwise(kern, lambda:
                                         K.paged_attention_cuda(q, pk, pv,
                                                                **kw))
-            what = f"{variant} paged_attention {label} {dtn}"
+            what = f"{variant} {kern} {label} {dtn}"
             plain = K.paged_attention_ref(q, pk, pv, **kw)
             e = (cs.check_close(what, got, plain, cs.TOL[dtn])
                  if dt == torch.float32 else cs.check_layer_out(
                      what, got, plain, K.paged_attention_ref(
-                         q.float(), pk.float(), pv.float(), **kw),
+                         q.float(), pk if q8 else pk.float(),
+                         pv if q8 else pv.float(), **kw),
                      cs.TOL[dtn]))
-            worst[f"paged_attention {dtn}"] = max(
-                worst.get(f"paged_attention {dtn}", 0.0), e)
+            worst[f"{kern} {dtn}"] = max(worst.get(f"{kern} {dtn}", 0.0), e)
         for R, H in NORM_CASES:
             x = torch.randn(R, H, device="cuda", generator=gen).to(dt)
             res = torch.randn(R, H, device="cuda", generator=gen).to(dt)
@@ -300,6 +329,50 @@ def smoke_layer():
                 cos_t=cos_t, sin_t=sin_t, gen=gen, NB=NB, BS=BS)
 
 
+def q8_shapes(fam, Hn, D, gen):
+    """The int8-pool shapes of :func:`shapes_to_time` at ``Hn`` heads (one
+    q head a kv head) of ``D``: the decode case and the Ts 256 chunk after
+    300, SDPA on K / V dequantized to bf16 and gathered beforehand; bytes
+    a code and a 4-byte scale a (position, kv head) of K and of V."""
+    import torch
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    bf, dev, BS = torch.bfloat16, "cuda", 16
+    sdpa = tF.scaled_dot_product_attention
+    out = {}
+    lengths = (1000, 37, 0, 517)
+    for what, (lens, Ts, start) in (("decode", (lengths, 4, 0)),
+                                    ("prefill Ts 256 start 300",
+                                     (None, 256, 300))):
+        q, pk, pv, kw = pattn_inputs(1, D, lens, Ts, start, bf, gen,
+                                     q8=True, Hkv=Hn)
+        if lens is not None:
+            live = [n + 1 for n in lens]
+            table, n = kw["block_table"], max(live)
+            mask = (torch.arange(n, device=dev)[None] <= kw["lengths"].long()[
+                :, None])[:, None, None]
+            qs = q.reshape(len(lens), Hn, 1, D)
+            pairs, rows = sum(live), len(lens)
+        else:
+            live = [start + Ts]
+            table, n = kw["block_table"][None], start + Ts
+            mask = (torch.arange(n, device=dev)[None]
+                    <= start + torch.arange(Ts, device=dev)[:, None])
+            qs = q.reshape(1, Ts, Hn, D).transpose(1, 2)
+            pairs, rows = sum(start + r + 1 for r in range(Ts)), Ts
+        idx = table.long().clamp(min=0)[:, :-(-n // BS)]
+        kd, vd = (K._kv_rows(p, idx, bf).to(bf).flatten(1, 2)[:, :n]
+                  .transpose(1, 2).contiguous() for p in (pk, pv))
+        out[f"paged_attention_q8 {fam} {what}"] = (
+            lambda q=q, pk=pk, pv=pv, kw=kw: K.paged_attention_cuda(
+                q, pk, pv, **kw),
+            lambda qs=qs, kd=kd, vd=vd, mask=mask: sdpa(qs, kd, vd,
+                                                        attn_mask=mask),
+            (sum(live) * 2 * Hn * (D + 4) + 2 * rows * Hn * D * 2,
+             4 * Hn * D * pairs), "bfloat16", "launch")
+    return out
+
+
 def shapes_to_time(L):
     """{label: (kernel fn, library fn or None, (bytes, ops), dtype name,
     'launch' | 'layer')} of every timed shape."""
@@ -347,6 +420,8 @@ def shapes_to_time(L):
             ((start + Ts) * kv_row + 2 * Ts * Hq * D * 2,
              4 * Hq * D * sum(start + r + 1 for r in range(Ts))),
             "bfloat16", "launch")
+    for fam, Hn, Dn in Q8_TIMED:
+        out.update(q8_shapes(fam, Hn, Dn, gen))
     for name, R, Hn in (("rms_norm_fwd", 8192, 4096),
                         ("layer_norm_fwd", 8192, 768),
                         ("bias_residual_ln_fwd", 8192, 768)):

@@ -14,14 +14,17 @@ adds DIR's (another checkout's, e.g. the parent commit unpacked by
 ``git archive`` into the git-ignored ``archive_check/``).  ``--ablate``
 adds this tree's file with one part cut out (``ABLATIONS``, of the
 prefill body ``wo_wgmma`` and, ``dec_*``, of the decode body ``wo_dec``:
-the widening of the codes; the wgmma; all but the copies; for the decode
-also every K step, leaving the launch, fold and stores, and the fold's
-exchange), which compute something else, and with one choice changed
-(``TUNINGS`` and the prefill's x-row tile at 128 or 256; the decode's K
-split fixed at 2, 4 or 8 blocks, its fold weighed at 4 or 24 K steps,
-its ring's bytes, its blocks an SM, a prefetch of its tensor maps); the cut ones are timed unchecked and
-show what each part or choice costs.  ``--only`` keeps the named
-variants.  All ``nvcc`` processes start together.
+the widening of the codes; the wgmma; all but the copies; for both
+every K step, leaving the launch, fold and stores (``empty``,
+``dec_empty``), and the fold's exchange), which compute something else,
+and with one choice changed (``TUNINGS``: the prefill's x-row tile fixed
+at 128 or 256 rows, its K split fixed at 1, 2, 4 or 8 blocks of 128-row
+tiles, its fold weighed at 4 or 16 K steps, its cap of one wave more
+than the unsplit launch lifted; the decode's K split fixed at 2, 4 or 8
+blocks, its fold weighed at 4 or 24 K steps, its ring's bytes, its
+blocks an SM, a prefetch of its tensor maps); the cut ones are timed
+unchecked and show what each part or choice costs.  ``--only`` keeps the
+named variants.  All ``nvcc`` processes start together.
 
 The script prints ptxas' registers, stack frame and spills of each
 variant's ``wo_`` kernels and any note of serialized wgmmas or ignored
@@ -35,6 +38,16 @@ checks each variant against ``weight_only_matmul[_int4]_ref`` on
 the plain bf16 version, as ``chip_smoke.py`` holds it), then times, the
 variants in turns (a, b, ..., b, a):
 
+* the quantized serving chain's layer GEMMs at M 256 through the layer
+  entry (``wo_layer_cuda``, ``pt_wo_layer``) with their epilogues: a
+  llama_7b layer's seven (``chip_smoke.QUANT_MATMULS``: residual on o and
+  down, SwiGLU on up) in int8 and int4 per channel, and a GPT-125M
+  layer's four (``chip_smoke.GPT_MATMULS``: bias, the qkv split, GELU,
+  residual) in int8 per channel and int4 groups of 64; each GEMM's device
+  ms, the sum, the launch plan each took (``pt_wo_plan``: x rows a tile,
+  K splits), the bound and cuBLAS on the weights dequantized to bf16
+  beforehand (no epilogue); each variant's outputs checked first against
+  ``wo_layer_ref``, two calls bit-identical;
 * the seven block matmuls of one llama_7b layer (``chip_smoke.py``'s
   ``LAYER_MATMULS``, per channel) at the decode rows M 8, 1 and 16 and the
   prefill rows M 1024 and 300, int8 and int4, beside the bound, cuBLAS on
@@ -90,7 +103,12 @@ _WIDEN = """      if (C::INT4) {
         widen_i8(cr[2 * step], A[0], A[1]);
         widen_i8(cr[2 * step + 1], A[2], A[3]);
       }"""
-_NARROW = "  const bool narrow = 3 * waves(128) < 5 * waves(256);"
+_FORCE = "constexpr int WG_FORCE_BM = 0, WG_FORCE_SPLIT = 0;"
+_FOLD = "constexpr int WG_STEP_128 = 6, WG_STEP_256 = 10, WG_FOLD = 8;"
+_PUSH = "    splitk::push<C::BM>(red, recv, recv_bar, S, rank, tid);"
+_RANGE = "  const int kb0 = nt * rank / S, kb1 = nt * (rank + 1) / S;"
+_CAP = "      else if (waves > waves1 + 1 && !WG_FORCE_SPLIT) continue;"
+
 _MMA = ("      WgmmaRS<C::BM>::mma(acc, A, (plane ? dhi : dlo) + 2 * step, "
         "!fresh);")
 _DEC_WIDEN = "      widen_step<C::INT4>(cr, step, plane, A);"
@@ -108,7 +126,8 @@ _DEC_SYNC = """    mbar_init(recv_bar, 1);
     mbar_init_fence();
   }
   __syncthreads();
-"""
+
+  if (warp == 8) {"""
 
 
 def _ring(kb):
@@ -123,9 +142,11 @@ ABLATIONS = {
     # nothing reads the stages: the TMA stream, barriers and epilogue
     # (ptxas drops the unused ldmatrix and widening)
     "copies_only": [(_MMA, "")],
-    # the launcher's choice of x rows a block, fixed
-    "rows_128": [(_NARROW, "  const bool narrow = true;")],
-    "rows_256": [(_NARROW, "  const bool narrow = false;")],
+    # the prefill split's exchange as a split of one (its barriers kept;
+    # each block folds its own partial and stale slots)
+    "no_fold": [(_PUSH, _PUSH.replace("S, rank", "1, 0"))],
+    # no K steps: the launch, the barriers' set-up, the fold and the stores
+    "empty": [(_RANGE, _RANGE.replace("nt * (rank + 1) / S", "kb0"))],
     # the decode body: the codes' bits to wgmma as they are; no wgmma
     "dec_no_widen": [(_DEC_WIDEN, "      A[0] = A[1] = cr[2 * step];\n"
                                   "      A[2] = A[3] = cr[2 * step + 1];")],
@@ -143,6 +164,18 @@ ABLATIONS = {
 # quant_linear.cu with one choice of the decode launch changed; checked and
 # timed like a tree
 TUNINGS = {
+    # the prefill launcher's choice of x rows a block, fixed (the split
+    # planned; 256-row tiles run unsplit)
+    "rows_128": [(_FORCE, _FORCE.replace("BM = 0", "BM = 128"))],
+    "rows_256": [(_FORCE, _FORCE.replace("BM = 0", "BM = 256"))],
+    # its K split fixed (128-row tiles; at most the K steps)
+    **{f"split_{n}": [(_FORCE, _FORCE.replace("BM = 0", "BM = 128").replace(
+        "SPLIT = 0", f"SPLIT = {n}"))] for n in (1, 2, 4, 8)},
+    # its fold weighed at n K steps of a 128-row tile
+    **{f"fold_{n}": [(_FOLD, _FOLD.replace("WG_FOLD = 8", f"WG_FOLD = {n}"))]
+       for n in (4, 16)},
+    # the split's cap at one wave more than the unsplit launch, lifted
+    "no_wave_cap": [(_CAP, _CAP.replace("waves > waves1 + 1", "false"))],
     **{f"dec_split_{n}": [(_DEC_SPLIT, f"  const int splits = nk < {n} ? nk "
                                        f": {n};")] for n in (2, 4, 8)},
     **{f"dec_fold_{n}": [(_DEC_FOLD, _DEC_FOLD.replace("12", str(n)))]
@@ -305,6 +338,149 @@ def check_variant(name, gen):
     return worst
 
 
+# the chain's layer GEMMs at M 256: (family, width, group size, [(label, K,
+# N, epilogue)]), epilogues as chip_smoke.py names them
+CHAIN_M = 256
+CHAIN = [("llama_7b", w, -1, [(n, K, N, e) for (n, e), (_, K, N) in zip(
+    cs.QUANT_MATMULS, cs.LAYER_MATMULS)]) for w in ("int8", "int4")] + [
+    ("gpt_125m", w, g, list(cs.GPT_MATMULS)) for w, g in cs.GPT_WO_TIMED]
+
+
+def chain_kw(epi, M, N, gen):
+    """wo_layer_cuda's epilogue arguments for one of the chain's GEMMs."""
+    import torch
+
+    def t(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device="cuda",
+                                    generator=gen)).to(torch.bfloat16)
+    if epi == "resid":
+        return {"residual": t(M, N)}
+    if epi == "swiglu":
+        return {"gate": t(M, N)}
+    if epi == "bias":
+        return {"bias": t(N, scale=0.1), "qkv_head_dim": 64}
+    if epi == "bias_resid":
+        return {"bias": t(N, scale=0.1), "residual": t(M, N)}
+    if epi == "bias_gelu":
+        return {"bias": t(N, scale=0.1), "gelu": True}
+    return {}
+
+
+def chain_weights(gen):
+    """{(family, width, gs): [(label, K, N, epi, codes, scale, bf16 weight
+    dequantized beforehand, epilogue kw)]} at M CHAIN_M."""
+    import torch
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.quant_linear import unpack_int4
+    out = {}
+    for fam, width, gs, mats in CHAIN:
+        rows = []
+        for label, K, N, epi in mats:
+            codes, scale = weight_quantize(
+                0.02 * torch.randn(K, N, device="cuda", generator=gen),
+                f"weight_only_{width}", group_size=gs)
+            w = (codes if width == "int8" else unpack_int4(codes, K)).float()
+            wdq = (w * (scale if gs == -1 else scale.repeat_interleave(
+                gs, 0)[:K])).to(torch.bfloat16)
+            rows.append((label, K, N, epi, codes, scale, wdq,
+                         chain_kw(epi, CHAIN_M, N, gen)))
+        out[(fam, width, gs)] = rows
+    return out
+
+
+def chain_out(got, plain, kw):
+    """The qkv product comes back split: the plain version's split."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    if "qkv_head_dim" not in kw:
+        return got, plain
+    return (torch.cat(list(got), -1),
+            torch.cat(K.qkv_split_ref(plain, kw["qkv_head_dim"]), -1))
+
+
+def check_chain(name, weights, xs):
+    """Each chain GEMM at M CHAIN_M through the layer entry against
+    ``wo_layer_ref`` (the ratio rule), two calls bit-identical; raises on
+    the first miss."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    for (fam, width, gs), rows in weights.items():
+        for label, Kd, N, epi, codes, scale, _, kw in rows:
+            x = xs[Kd]
+            ref_kw = {k: v for k, v in kw.items() if k != "qkv_head_dim"}
+            a, b = (K.wo_layer_cuda(x, codes, scale, width=width,
+                                    group_size=gs, **kw) for _ in range(2))
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(
+                    *(o if isinstance(o, tuple) else (o,) for o in (a, b)))):
+                raise cs.SmokeFailure(f"{name} chain {fam} {width} g{gs} "
+                                      f"{label}: a second call differs")
+            plain = K.wo_layer_ref(x, codes, scale, width=width,
+                                   group_size=gs, **ref_kw)
+            truth = K.wo_layer_ref(x.float(), codes, scale, width=width,
+                                   group_size=gs, **{
+                                       k: v.float() if hasattr(v, "float")
+                                       else v for k, v in ref_kw.items()})
+            got, plain = chain_out(a, plain, kw)
+            _, truth = chain_out(a, truth, kw)
+            cs.check_layer_out(f"{name} chain {fam} {width} g{gs} {label} "
+                               f"M {CHAIN_M}", got, plain, truth,
+                               cs.TOL["bfloat16"])
+
+
+def _bm_splits(plan):
+    """(x rows a tile, K splits) of a ``chip_smoke.wo_plan``, or None."""
+    return plan and (plan["bm"], plan["splits"])
+
+
+def time_chain(libs, order, weights, xs, report):
+    """Each chain GEMM's device ms at M CHAIN_M, every variant in
+    ``order`` (their turns), beside the bound and cuBLAS on the weights
+    dequantized beforehand (no epilogue), with the plan each took."""
+    import torch
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    for (fam, width, gs), rows in weights.items():
+        label = f"chain {fam} {width} g{gs} M {CHAIN_M}"
+        per = {name: {r[0]: [] for r in rows} for name in libs}
+        for name in order:
+            build._lib = libs[name][0]
+            for lab, Kd, N, epi, codes, scale, _, kw in rows:
+                per[name][lab].append(cs.time_ms(
+                    lambda: K.wo_layer_cuda(xs[Kd], codes, scale,
+                                            width=width, group_size=gs,
+                                            **kw), ITERS,
+                    per_launch=True)[0])
+        lib_ms, bounds = {}, {}
+        for lab, Kd, N, epi, codes, scale, wdq, _ in rows:
+            lib_ms[lab] = cs.time_ms(lambda: torch.matmul(xs[Kd], wdq),
+                                     ITERS)[0]
+            bounds[lab] = cs.bound_ms(*cs.wo_layer_bytes_ops(
+                CHAIN_M, [((Kd, N), "none" if epi in ("bias", "bias_gelu",
+                                                      "none") else "resid")],
+                width, gs))[0]
+        for name in libs:
+            gemms = {}
+            for lab, Kd, N, *_ in rows:
+                ts = per[name][lab]
+                gemms[lab] = dict(
+                    ms=ts, mean_ms=sum(ts) / len(ts), bound_ms=bounds[lab],
+                    cublas_ms=lib_ms[lab],
+                    plan=cs.wo_plan(CHAIN_M, Kd, N, width, gs,
+                                    lib=libs[name][0]))
+            total = sum(g["mean_ms"] for g in gemms.values())
+            report["variants"][name][label] = dict(
+                gemms=gemms, total_ms=total,
+                bound_ms=sum(bounds.values()),
+                cublas_ms=sum(lib_ms.values()))
+            cs.info(f"{label} {name}: {total:.5f} ms the layer's GEMMs "
+                    f"(bound {sum(bounds.values()):.5f}, cuBLAS "
+                    f"{sum(lib_ms.values()):.5f}); " + "; ".join(
+                        f"{lab} {g['mean_ms']:.5f} (cuBLAS "
+                        f"{g['cublas_ms']:.5f}, plan {_bm_splits(g['plan'])})"
+                        for lab, g in gemms.items()))
+
+
 def tma_bytes(M, K, N, width, bm):
     """Bytes the prefill kernel's TMA copies into shared memory for one
     matmul at ``bm`` x rows a block: each 128-channel tile loads its x
@@ -390,9 +566,16 @@ def time_layers(libs, order, gen, report):
                 # the wrapper's host time a call beyond its kernel's:
                 # back-to-back calls, so a host-bound call shows here
                 host = [(c - d) / len(lw) for c, d in zip(calls[name], ts)]
+                plans = None
+                if M > 16:
+                    plans = [cs.wo_plan(M, K, N, width, -1,
+                                        lib=libs[name][0])
+                             for K, N, *_ in lw]
+                    cs.info(f"{label} {name}: plans (x rows a tile, K "
+                            f"splits) {[_bm_splits(p) for p in plans]}")
                 report["variants"][name][label] = dict(
-                    ms=ts, mean_ms=mean, bound_ms=bms, bound_by=bby,
-                    cublas_ms=lib_ms, of_bound=bms / mean,
+                    plans=plans, ms=ts, mean_ms=mean, bound_ms=bms,
+                    bound_by=bby, cublas_ms=lib_ms, of_bound=bms / mean,
                     x_cublas=mean / lib_ms, call_ms=calls[name],
                     call_minus_device_ms_per_call=host,
                     host_ms_one_call=hosts.get(name))
@@ -510,13 +693,21 @@ def main():
                     f"{'identical' if same else 'differs'}")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
+    weights = chain_weights(gen)
+    xs = {K: torch.randn(CHAIN_M, K, device="cuda", generator=gen).to(
+        torch.bfloat16) for K in {r[1] for rows in weights.values()
+                                  for r in rows}}
     for name, (lib, *_) in libs.items():
         if name in ABLATIONS:
             continue
         build._lib = lib
         report["variants"][name]["bf16_vs_fp32_ratio"] = check_variant(
             name, gen)
+        check_chain(name, weights, xs)
     order = (list(libs) + list(reversed(libs))) * args.turns
+    time_chain(libs, order, weights, xs, report)
+    del weights, xs
+    torch.cuda.empty_cache()
     time_layers(libs, order, gen, report)
     if not args.no_model:
         whole = [n for n in order if n not in ABLATIONS]
