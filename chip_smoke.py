@@ -471,24 +471,27 @@ def chain_ms(breakdown, gemm, per=None):
     ``gemm_xw_tiled_wg``; 1 RoPE/KV write, 1 attention; ``per`` another
     chain's {kernel name part: launches}; :func:`layer_launches` checks
     them against the library's counters), robust to missing profiler
-    records.  Raises when a kernel of the chain has no record or another
-    GEMM kernel has one."""
+    records.  A kernel with several instances in the call (the GEMMs'
+    tiles, which the launch plan picks per shape) weighs each by its share
+    of the recorded launches.  Raises when a kernel of the chain has no
+    record or another GEMM kernel has one."""
     per = per or {"rms_norm_rows": 2, gemm: 6, "rope_kv_write": 1,
                   "paged_attention": 1}
-    total, seen = 0.0, set()
-    for name, (mean, _) in breakdown.items():
+    hits = {key: [] for key in per}
+    for name, (mean, n) in breakdown.items():
         if "gemm" in name and gemm not in name:
             raise SmokeFailure(f"layer call ran GEMM kernel {name}, "
                                f"expected {gemm}")
-        for key, n in per.items():
+        for key in per:
             if key in name:
-                total += mean * n
-                seen.add(key)
+                hits[key].append((mean, n))
                 break
-    if seen != set(per):
-        raise SmokeFailure(f"layer call: no profiler record of "
-                           f"{sorted(set(per) - seen)} in {sorted(breakdown)}")
-    return total
+    missing = sorted(k for k, v in hits.items() if not v)
+    if missing:
+        raise SmokeFailure(f"layer call: no profiler record of {missing} in "
+                           f"{sorted(breakdown)}")
+    return sum(per[k] * sum(m * n for m, n in v) / sum(n for _, n in v)
+               for k, v in hits.items())
 
 
 def host_ms(fn, calls=30):
@@ -1220,11 +1223,12 @@ def wo_epi_kw(epi, M, N, gen, dev, dt):
 
 
 def wo_plan(M, K, N, width, gs, lib=None):
-    """The launch plan of a weight-only prefill call (M > 16) from the
-    library (``pt_wo_plan``; ``lib`` another loaded build): ``{"bm": x rows
-    a tile, "splits": K splits (the cluster), "row_tiles", "col_tiles",
-    "k_steps", "resident": clusters of the shape the card keeps resident,
-    "smem"}``, or None for a build without the entry point."""
+    """The launch plan of a bf16 weight-only call from the library
+    (``pt_wo_plan``; ``lib`` another loaded build; M <= 16, the decode
+    body's, only from a build that plans it): ``{"bm": x rows a tile,
+    "splits": K splits (the cluster), "row_tiles", "col_tiles", "k_steps",
+    "resident": clusters of the shape the card keeps resident, "smem",
+    "blocks_per_sm"}``, or None for a build without the entry point."""
     import ctypes
     from paddle_tpu_torch.kernels import build
     fn = getattr(lib or build.library(), "pt_wo_plan", None)
@@ -1237,10 +1241,38 @@ def wo_plan(M, K, N, width, gs, lib=None):
                      K=K, N=N, half=half, ldx=K, xhi=half,
                      gs=(1 << 30) if gs == -1 else gs,
                      G=1 if gs == -1 else -(-K // gs), tile_dq=0)
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 8)()
     build.check(fn(ctypes.byref(a), out), "pt_wo_plan")
     return dict(zip(("bm", "splits", "row_tiles", "col_tiles", "k_steps",
-                     "resident", "smem"), out))
+                     "resident", "smem", "blocks_per_sm"), out))
+
+
+def gemm_plan(M, K, N, epi, lib=None):
+    """The launch plan of a bf16 ``gemm_xw`` call from the library
+    (``pt_gemm_xw_plan``; ``lib`` another loaded build; ``epi`` a
+    ``build.EPI_*``): ``{"nx": x rows a tile, "blocks_per_sm", "splits": K
+    splits (the cluster), "row_tiles", "col_tiles", "k_steps", "resident":
+    clusters of the shape the card keeps resident, "w_columns": W columns
+    a tile}``."""
+    import ctypes
+    from paddle_tpu_torch.kernels import build
+    fn = (lib or build.library()).pt_gemm_xw_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    build.check(fn(M, K, N, epi, out), "pt_gemm_xw_plan")
+    return dict(zip(("nx", "blocks_per_sm", "splits", "row_tiles",
+                     "col_tiles", "k_steps", "resident", "w_columns"), out))
+
+
+def plan_text(p):
+    """One launch plan (:func:`gemm_plan` or :func:`wo_plan`) in a line:
+    the tile, blocks an SM, K splits, the grid's tiles."""
+    rows = p.get("nx", p.get("bm"))
+    cols = p.get("w_columns", 128)
+    return (f"{rows} x rows x {cols} columns a tile, {p['blocks_per_sm']} "
+            f"an SM, {p['splits']} K splits, {p['row_tiles']} x "
+            f"{p['col_tiles']} tiles")
 
 
 def wo_layer_bytes_ops(M, shapes, width, gs, itemsize=2):
@@ -3013,6 +3045,7 @@ def gpt_layer_checks(cfg, results, dev="cuda"):
     GEMM, RoPE / KV write and layer entries).  Returns the GPT decode
     layer's (ms, bound ms)."""
     import torch
+    from paddle_tpu_torch.kernels import build
     from paddle_tpu_torch.models.gpt import block_shapes
     from paddle_tpu_torch.ops import decode_block as db
     from paddle_tpu_torch.ops.cuda import kernels as K
@@ -3105,11 +3138,14 @@ def gpt_layer_checks(cfg, results, dev="cuda"):
             lib = time_ms(library, 50)[0]
             bms, bby = bound_ms((M * Kd + Kd * N + N + M * N + (
                 M * N if epi == "bias_resid" else 0)) * 2, 2 * M * Kd * N)
+            plan = gemm_plan(M, Kd, N, {
+                "bias": build.EPI_BIAS, "bias_resid": build.EPI_BIAS_RESID,
+                "bias_gelu": build.EPI_BIAS_GELU}[epi])
             ep[M][label] = dict(
                 epilogue=epi + (" + qkv split" if split else ""),
                 shape=f"[{M}, {Kd}] @ [{Kd}, {N}]", max_abs_err=err, ms=ms,
                 call_ms=call, plain_ms=plain, plain_call_ms=plain_call,
-                bound_ms=bms, bound_by=bby, library_ms=lib)
+                bound_ms=bms, bound_by=bby, library_ms=lib, plan=plan)
             if split:                   # the same product stored row-major
                 ep[M][label]["unsplit_ms"] = time_ms(
                     lambda: K.gemm_xw_cuda(a, w, **kw), 50,
@@ -3118,7 +3154,8 @@ def gpt_layer_checks(cfg, results, dev="cuda"):
                  f"[{Kd}x{N}]: device {ms} ms (per call {call:.4f}; stored "
                  f"unsplit {ep[M][label].get('unsplit_ms', '-')} ms), plain "
                  f"{plain} ms, torch.matmul + epilogue ops {lib} ms, bound "
-                 f"{bms:.5f} ms ({bby}), max |err| {err:.2e}")
+                 f"{bms:.5f} ms ({bby}), max |err| {err:.2e}; plan "
+                 f"{plan_text(plan)}")
     lib_what = ("torch.matmul, then the bias, GELU and residual as torch "
                 "ops, timed together")
     by_name["gemm_xw_small_m"]["gpt"] = dict(library_what=lib_what, **ep[4])
@@ -3490,7 +3527,9 @@ def gpt_quant_checks(cfg, results, dev="cuda"):
                                               e)
                 if (width, gs) not in GPT_WO_TIMED:
                     continue
-                ms, call = time_ms(run, 50, per_launch=True)
+                # the kernel's call alone (run() stacks the split parts)
+                ms, call = time_ms(lambda: K.wo_layer_cuda(
+                    x, codes, scale, **split, **kw), 50, per_launch=True)
                 plain_ms, plain_call = time_ms(
                     lambda: K.wo_layer_ref(x, codes, scale, **kw), 20)
                 wdq = dequantize_block_weight(
@@ -3506,17 +3545,16 @@ def gpt_quant_checks(cfg, results, dev="cuda"):
                 nb = (M * Kd * 2 + codes.numel() + 4 * scale.numel()
                       + N * 2 + M * N * 2 * (2 if epi == "bias_resid" else 1))
                 bms, bby = bound_ms(nb, 2 * M * Kd * N)
-                plan = wo_plan(M, Kd, N, width, gs) if M > 16 else None
+                plan = wo_plan(M, Kd, N, width, gs)
                 timed.setdefault(name, {})[f"{key} g{gs}"] = dict(
                     shape=f"[{M}, {Kd}] @ [{Kd}, {N}] {width} g{gs}",
                     max_abs_err=e, ms=ms, call_ms=call, plain_ms=plain_ms,
                     plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
-                    library_ms=lib, **({"plan": plan} if plan else {}))
+                    library_ms=lib, plan=plan)
                 info(f"{name} GPT {key} g{gs} [{M}x{Kd}x{N}]: device {ms} ms "
                      f"(per call {call:.4f}), plain {plain_ms} ms, torch.matmul"
                      f" on the dequantized bf16 weight + epilogue ops {lib} "
-                     f"ms, bound {bms:.5f} ms ({bby})"
-                     + (f", plan {plan}" if plan else ""))
+                     f"ms, bound {bms:.5f} ms ({bby}); plan {plan_text(plan)}")
         del ql
     lib_what = ("torch.matmul on the weight dequantized to bf16 beforehand, "
                 "then the bias, GELU and residual as torch ops")
@@ -4257,20 +4295,22 @@ def split_dw_allowance(xf, ws, lse, g, dz):
 
 
 def split_dw_excess(case, x, w, lab, lse, g, dw, dw_t):
-    """The split route's dw check on the kernels' ``dw`` against ``dw_t``,
-    the plain fp32 dw before its rounding, slab by slab, and on the plain
-    three products (``lce_dw_split_ref`` on the plain dz's and x's
-    halves), the one-product version (dz_hi^T x_hi) and each version
-    without one cross term: ``{who: largest distance past half an ulp
-    over the allowance}`` (above 1 fails; 0 or below: within the
-    rounding)."""
+    """The split route's dw check on the kernels' ``dw`` (or on each of
+    ``{name: dw}``, under its name) against ``dw_t``, the plain fp32 dw
+    before its rounding, slab by slab, and on the plain three products
+    (``lce_dw_split_ref`` on the plain dz's and x's halves), the
+    one-product version (dz_hi^T x_hi) and each version without one cross
+    term: ``{who: largest distance past half an ulp over the allowance}``
+    (above 1 fails; 0 or below: within the rounding)."""
     import torch
     from paddle_tpu_torch.ops import fused_cross_entropy as fce
     _, T, _, V, chunk, _, _, _, eps = case
+    dws = dw if isinstance(dw, dict) else {"kernels": dw}
+    dt = next(iter(dws.values())).dtype            # the dw's storage type
     xf = x.float()
     xs = fce.lce_split_x_ref(xf)
     hi, lo = xs[0].float(), xs[1].float()
-    worst = dict.fromkeys(("kernels", "three products", "dz_hi x_hi",
+    worst = dict.fromkeys((*dws, "three products", "dz_hi x_hi",
                            "without dz_lo x_hi", "without dz_hi x_lo"),
                           -float("inf"))
     for c0 in range(0, V, chunk):
@@ -4281,11 +4321,11 @@ def split_dw_excess(case, x, w, lab, lse, g, dw, dw_t):
         dzs = fce.lce_split_dz_ref(dz)
         d_hi, d_lo = dzs[0].float().t(), dzs[1].float().t()
         t1, t2, t3 = d_hi @ hi, d_hi @ lo, d_lo @ hi
-        for who, v in (("kernels", dw[c0:c0 + chunk]),
+        for who, v in (*((k, d[c0:c0 + chunk]) for k, d in dws.items()),
                        ("three products", fce.lce_dw_split_ref(dzs, xs)),
                        ("dz_hi x_hi", t1), ("without dz_lo x_hi", t1 + t2),
                        ("without dz_hi x_lo", t1 + t3)):
-            v = v.to(dw.dtype).float()
+            v = v.to(dt).float()
             # past the rounding: half an ulp of the larger of the two (a
             # value rounded up across a power of two has the larger ulp)
             out = (v - t).abs() - half_ulp_bf16(torch.maximum(v.abs(),
@@ -4296,11 +4336,16 @@ def split_dw_excess(case, x, w, lab, lse, g, dw, dw_t):
 
 
 def check_split_dw(label, case, x, w, lab, lse, g, dw, dw_t):
-    """:func:`split_dw_excess`, printed: the kernels and the plain three
-    products must pass, the versions with fewer products fail.  Returns
+    """:func:`split_dw_excess`, judged by :func:`judge_split_dw`.  Returns
     the kernels' distance."""
-    T = case[1]
-    worst = split_dw_excess(case, x, w, lab, lse, g, dw, dw_t)
+    return judge_split_dw(label, case[1],
+                          split_dw_excess(case, x, w, lab, lse, g, dw, dw_t))
+
+
+def judge_split_dw(label, T, worst):
+    """:func:`split_dw_excess`'s distances printed and judged: the kernels
+    and the plain three products must pass, the versions with fewer
+    products fail.  Returns the kernels' distance."""
     info(f"lce {label} split dw check (half a bf16 ulp + ({DZ_P_REL} |g| p "
          f"+ {dw_rel(T):.3e} |dz|)^T |x|): " + ", ".join(
              f"{k} {v:.3e} x the allowance past half an ulp"

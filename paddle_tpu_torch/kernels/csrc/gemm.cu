@@ -17,46 +17,64 @@
 // GPT qkv product is stored split (qkv_d > 0): column c of the [M, 3 Hq D]
 // product is head c / 3D, part (c % 3D) / D of [q | k | v], stored into
 // that part's [M, Hq D] slab at column head D + c % D, so rope_kv_write and
-// paged_attention read the rows they read for a Llama layer.  The index is
-// taken per stored pair of columns (a 128-column tile spans heads: 3D is
-// 192 at D 64); D is even, so a pair never straddles a part.
+// paged_attention read the rows they read for a Llama layer.
 //
 // What bounds it on an H100: the weight bytes at decode (M = batch <= 16:
 // a 7B layer streams ~400 MB of bf16 weights, 0.121 ms at 3.35 TB/s) and
 // up to M ~ 200; at M 256 the operations come close (the down projection:
 // 29 us of bytes against 23 us of operations) and the L2 stream of x
 // (re-read by every 128-column tile: 180 MB at the down projection) sets
-// the pace.
+// the pace.  At GPT-125M's widths (M 256, K 768 / 3072, N 768 - 3072) the
+// work is 0.7 - 2.1 us; there the grid's shape and the fixed cost of a
+// launch (ring fill, fold, epilogue) set the time.
 //
 // bf16: one warp-specialized wgmma / TMA body for sm_90a (xw_body), two
 // kernel names (gemm_xw_small_m_tma at M <= 16, gemm_xw_tiled_wg above):
-//   * Operands swapped: Y^T [N, M] = W^T [N, K] . X^T [K, M].  W's 128
-//     columns of a block are wgmma's M side, two warpgroups of 64 (SwiGLU:
-//     64 columns of W and the same 64 of W2, so a block's weight bytes are
-//     the same in every epilogue), read straight from W's row-major layout
-//     as an MN-major A operand: TMA boxes of 64 columns x 64 K rows,
-//     128-byte swizzle, so a weight row is read as a 256-byte run.  X
-//     [M, K] row-major is a K-major B tile of NX rows (wgmma's N: 8 or 16
-//     at decode, 32, 64 or 128 above, padded by TMA's zero fill), re-read
-//     from L2 by every column tile; M > 128 runs 128-row tiles side by side
-//     (measured faster than 256-row ones, which spill at 168 registers).
-//   * A producer warp keeps a ring of stages (16 KB of W + NX x 128 bytes
-//     of X; 6 stages at decode, two blocks an SM: ~200 KB of weights in
-//     flight an SM) on mbarriers; the consumer warpgroups run
-//     wgmma m64nNXk16 from shared memory into fp32 registers and hand a
+//   * Operands swapped: Y^T [N, M] = W^T [N, K] . X^T [K, M].  A block's
+//     BN W columns (128: two consumer warpgroups of 64; SwiGLU: 64 columns
+//     of W and the same 64 of W2, so a block's weight bytes are the same
+//     in every epilogue; or 64: one consumer warpgroup) are wgmma's M
+//     side, read straight from W's row-major layout as an MN-major A
+//     operand: TMA boxes of 64 columns x 64 K rows, 128-byte swizzle, so a
+//     weight row is read as a 256-byte run.  X [M, K] row-major is a
+//     K-major B tile of NX rows (wgmma's N: 8 or 16 at decode, 32, 64 or
+//     128 above, padded by TMA's zero fill), re-read from L2 by every
+//     column tile; M > 128 runs 128-row tiles side by side (measured
+//     faster than 256-row ones, which spill at 168 registers).
+//   * A producer (a warpgroup beside two consumer warpgroups of W columns,
+//     else a warp) keeps a ring of stages (BN x 128 bytes of W + NX x 128
+//     bytes of X; 6 stages at decode, two blocks an SM: ~200 KB of
+//     weights in flight an SM) on mbarriers; the consumer warpgroups run
+//     wgmma m64nNk16 from shared memory into fp32 registers and hand a
 //     stage back once its wgmmas retire.
-//   * K is split over a thread-block cluster of S blocks (grid x).
-//     plan_of picks S from the clusters of each size the device keeps
-//     resident (cudaOccupancyMaxActiveClusters, once a device): at decode
-//     N 4096 runs 32 column tiles x 7, all resident (x 8 would leave 16
-//     blocks to a second wave), N 11008 SwiGLU 172 tiles unsplit.
+//   * K is split over a thread-block cluster of S blocks (grid x).  At
+//     M <= 64 plan_of picks S from the clusters of each size the device
+//     keeps resident (cudaOccupancyMaxActiveClusters, once a device): at
+//     decode N 4096 runs 32 column tiles x 7, all resident (x 8 would
+//     leave 16 blocks to a second wave), N 11008 SwiGLU 172 tiles
+//     unsplit.  Above M 64 it picks the tile as well (128 W columns x 128
+//     x rows, one block an SM, or 64 x 64 on one consumer warpgroup,
+//     three an SM) and S (1, 2 or 4) at the least modelled time
+//     (plan_of): at M 256 GPT-125M's four products take 64 x 64 tiles,
+//     144 of them for the qkv product (the 128 x 128 grid had 36), split
+//     in 2 (4 for fc2's 48 K steps); llama_7b's keep 128 x 128 tiles
+//     split in 2.
 //   * The fold, inside the launch (split_k.cuh, shared with the
 //     weight-only decode body): every block stages its fp32 partial tile
 //     in its own shared memory and pushes each peer's rows into that
 //     peer's receive slots by bulk copies; each block then sums its rows
-//     over the S slots in split order, so two calls are bit-identical, and
-//     runs the epilogue once (SwiGLU pairs W's and W2's columns there),
-//     storing bf16 pairs along N.  No workspace, no second kernel.
+//     over the S slots in split order, so two calls are bit-identical.
+//     No workspace, no second kernel.
+//   * The epilogue (every plan, unsplit too): the accumulators are staged
+//     in shared memory as [x row][W column], and each consumer thread owns
+//     one 8-column chunk of the tile's rows: its bias chunk, and where the
+//     chunk is stored (row-major, or its qkv part's slab and column), are
+//     worked out once; its residual rows are loaded before the fold's
+//     exchange; each row is summed over the splits, run through epi_value
+//     (SwiGLU pairs W's and W2's columns) and stored as one 16-byte
+//     vector, coalesced along the row.  The qkv split keeps a chunk whole
+//     wherever 8 divides D (a chunk never straddles a part); else its four
+//     pairs are stored apart.
 //   * Host (split_k.cuh): the shared-memory attribute and the occupancy
 //     table are set once a device; the tensor maps are cached by their
 //     arguments, so the layer's steady weights cost one lookup each.
@@ -83,20 +101,31 @@ __device__ __forceinline__ void epilogue(T *Y, const T *R, const T *B,
 // ------------------------------------------------------------ bf16: wgmma
 namespace xw {
 
-// NX x rows a tile (wgmma's N), STAGES ring depth, MINB blocks an SM
-template <int NX_, int STAGES_, int MINB_> struct Cfg {
-  static constexpr int NX = NX_, STAGES = STAGES_, MINB = MINB_;
+// WG consumer warpgroups of 64 W columns each (BN = 64 WG W columns a
+// block), NX x rows a tile (wgmma's N), STAGES ring depth, MINB blocks an
+// SM; the epilogue's chunks of V columns a thread (2 at decode: a tile's
+// few rows spread over every thread)
+template <int WG_, int NX_, int STAGES_, int MINB_> struct Cfg {
+  static constexpr int WG = WG_, NX = NX_, STAGES = STAGES_, MINB = MINB_;
+  static constexpr int V = NX <= 16 ? 2 : 8;
+  static constexpr int BN = 64 * WG;            // W columns a block
   static constexpr int BK = 64;                 // K rows a stage
   static constexpr int WBOX = 64 * BK * 2;      // 64 W columns x 64 K rows
-  static constexpr int WT = 2 * WBOX;           // 128 W columns
+  static constexpr int WT = WG * WBOX;          // BN W columns
   static constexpr int XT = NX * BK * 2;        // NX x rows x 64 K columns
   static constexpr int STAGE = WT + XT;
-  using Fold = splitk::Tile<NX>;                // the staged partial tile
+  using Fold = splitk::Tile<NX, BN>;            // the staged partial tile
   static constexpr int LDR = Fold::LDR;
   static constexpr int RED = Fold::RED;
   static constexpr int BODY =
       STAGES * STAGE > Fold::BYTES ? STAGES * STAGE : Fold::BYTES;
-  static constexpr int THREADS = 384;           // 2 consumer wgs + producer
+  static constexpr int CONSUMERS = 128 * WG;
+  // a producer warpgroup beside two consumer warpgroups, a producer warp
+  // beside one
+  static constexpr int THREADS = CONSUMERS + (WG == 2 ? 128 : 32);
+  // one block an SM with a producer warpgroup: its registers go to the
+  // consumers (setmaxnreg)
+  static constexpr bool REGS = WG == 2 && MINB == 1;
   static constexpr int REGS_PRODUCER = 40, REGS_CONSUMER = 232;
   static constexpr int NACC = NX / 2;           // fp32 accumulators a thread
   static constexpr int SMEM = 1024 + BODY + (2 * STAGES + 1) * 8;
@@ -111,7 +140,13 @@ struct Args {
   bf16 *Y;
 };
 
-// One block: weight column tile blockIdx.z (128 columns of W, or 64 of W
+// the CONSUMERS threads of the consumer warpgroups (named barrier 1; the
+// producer never joins)
+template <class C> __device__ __forceinline__ void consumer_bar() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");
+}
+
+// One block: weight column tile blockIdx.z (BN columns of W, or 64 of W
 // and 64 of W2), x rows from blockIdx.y * NX, K split blockIdx.x of
 // gridDim.x (the cluster).  Rows, columns and K past the tensors are
 // TMA's zero fill; stores are masked.
@@ -131,7 +166,7 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
   const bool dual = a.epi == EPI_SWIGLU;
   const int S = gridDim.x, rank = blockIdx.x;
   const int m0 = blockIdx.y * C::NX, tile = blockIdx.z;
-  const int n0 = dual ? tile * 64 : tile * 128;      // first output column
+  const int n0 = dual ? tile * 64 : tile * C::BN;    // first output column
   const int kb0 = (int)((long long)a.nk * rank / S);
   const int kb1 = (int)((long long)a.nk * (rank + 1) / S);
   // the tile rows this block folds: [r0, r0 + nr), R a rank
@@ -141,16 +176,16 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
 #pragma unroll
     for (int s = 0; s < C::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);                 // each consumer warp
+      mbar_init(&empty[s], 4 * C::WG);         // each consumer warp
     }
     mbar_init(recv_bar, 1);
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp >= 8) {                             // producer warpgroup
-    if constexpr (C::MINB == 1) regs_dec<C::REGS_PRODUCER>();
-    if (warp == 8 && lane == 0) {
+  if (warp >= 4 * C::WG) {                     // producer
+    if constexpr (C::REGS) regs_dec<C::REGS_PRODUCER>();
+    if (warp == 4 * C::WG && lane == 0) {
       const int c1 = dual ? n0 : n0 + 64;
       const CUtensorMap *t1 = dual ? tw2 : tw;
       for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
@@ -159,7 +194,8 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
         unsigned char *st = smem + s * C::STAGE;
         mbar_expect_tx(&full[s], C::STAGE);
         tma_load_2d(st, tw, n0, kb * C::BK, &full[s]);
-        tma_load_2d(st + C::WBOX, t1, c1, kb * C::BK, &full[s]);
+        if constexpr (C::WG == 2)
+          tma_load_2d(st + C::WBOX, t1, c1, kb * C::BK, &full[s]);
         tma_load_2d(st + C::WT, tx, kb * C::BK, m0, &full[s]);
       }
     }
@@ -169,7 +205,7 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
     splitk::done();
     return;
   }
-  if constexpr (C::MINB == 1) regs_inc<C::REGS_CONSUMER>();
+  if constexpr (C::REGS) regs_inc<C::REGS_CONSUMER>();
   const int wg = warp >> 2;
   float acc[C::NACC];
   for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
@@ -192,10 +228,23 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
   }
   wg_wait<0>();
   fence_regs(acc);
-  // both warpgroups are done with the ring: stage the partial tile in
-  // it as red[x row][W column] (column 64 wg + 16 w + g + 8h; register
-  // 4j + 2h + e holds x row 8j + 2tq + e), for the bulk copies to read
-  consumer_sync();
+
+  // The epilogue: this thread owns the V-column chunk c of the output
+  // tile (SwiGLU: of its 64 columns) in rows r = (tid + i CONSUMERS) /
+  // chunks-a-row of my share; its bias chunk is loaded before the fold
+  // and where its chunk goes is worked out once
+  constexpr int V = C::V;
+  const int lg = (dual || C::WG == 1 ? 6 : 7) - (V == 2 ? 1 : 3);
+  const int c = V * (tid & ((1 << lg) - 1)), n = n0 + c;
+  const int rows = n < a.N ? max(0, min(nr, a.M - m0 - r0)) : 0;
+  unsigned braw[V / 2] = {};
+  if (a.epi >= EPI_BIAS && rows > 0) splitk::ldv<V>(braw, a.B + n);
+
+  // the consumer warpgroups are done with the ring: stage the partial
+  // tile in it as red[x row][W column] (column 64 wg + 16 w + g + 8h;
+  // register 4j + 2h + e holds x row 8j + 2tq + e), for the bulk copies
+  // and the epilogue to read
+  consumer_bar<C>();
   const int g = lane >> 2, tq = lane & 3;
   const int col = 64 * wg + 16 * (warp & 3) + g;
 #pragma unroll
@@ -207,66 +256,39 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
         red[(8 * j + 2 * tq + e) * C::LDR + col + 8 * h] =
             acc[4 * j + 2 * h + e];
   fence_proxy_async_smem();
-  // the K splits' fold: my rows of every peer's partial into my recv slots
-  splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);
-  {
-    // the epilogue over my rows, pairs of output columns along N, in
-    // rounds of U pairs a thread (the residuals of a round in flight; one
-    // pair at decode, where a thread has at most one)
-    constexpr int U = C::NX <= 16 ? 1 : 4;
-    const bool resid = a.epi == EPI_RESID || a.epi == EPI_BIAS_RESID;
-    const bool biased = a.epi >= EPI_BIAS;
-    const int lh = dual ? 5 : 6;               // log2(column pairs a row)
-    const int P = max(0, min(nr, a.M - m0 - r0)) << lh;
+  // the K splits' fold: my rows of every peer's partial into my recv
+  // slots (unsplit: the barrier that makes the staged tile whole)
+  splitk::push<C::NX, C::BN>(red, recv, recv_bar, S, rank, tid);
+  const splitk::ChunkDst<V> dst(n, a.M, a.N, a.qkv_d);
+  const bool resid = a.epi == EPI_RESID || a.epi == EPI_BIAS_RESID;
+  float bias[V];
+  splitk::widen<V>(bias, braw);
+  // a row's chunk: its residual chunk loaded first, summed over the splits
+  // in split order, through epi_value, stored
 #pragma unroll 1
-    for (int p0 = tid; p0 < P; p0 += 256 * U) {
-      int off[U];                              // r LDR + c, or -1
-      float2 x[U], y[U], res[U];
+  for (int p = tid; p < rows << lg; p += C::CONSUMERS) {
+    const int r = p >> lg;
+    unsigned rw[V / 2] = {};
+    if (resid) splitk::ldv<V>(rw, a.R + (size_t)(m0 + r0 + r) * a.N + n);
+    float x[V], y[V], rv[V];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int p = p0 + 256 * u, r = p >> lh;
-        const int c = 2 * (p & ((1 << lh) - 1));
-        const bool ok = p < P && n0 + c < a.N;
-        off[u] = ok ? r * C::LDR + c : -1;
-        x[u] = y[u] = res[u] = make_float2(0.f, 0.f);
-        if (ok && resid)
-          res[u] = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162 *>(
-                  a.R + (size_t)(m0 + r0 + r) * a.N + n0 + c));
-        // the bias epilogues take the bias as epi_value's second operand
-        if (ok && biased)
-          y[u] = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162 *>(a.B + n0 + c));
-      }
+    for (int e = 0; e < V; ++e) x[e] = 0.f, y[e] = bias[e];
 #pragma unroll 1
-      for (int q = 0; q < S; ++q) {
-        const float *src = q == rank ? red + r0 * C::LDR
-                                     : recv + q * R * C::LDR;
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          if (off[u] >= 0) {
-            const float2 v = *reinterpret_cast<const float2 *>(src + off[u]);
-            x[u].x += v.x;
-            x[u].y += v.y;
-            if (dual) {
-              const float2 w =
-                  *reinterpret_cast<const float2 *>(src + off[u] + 64);
-              y[u].x += w.x;
-              y[u].y += w.y;
-            }
-          }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (off[u] >= 0) {
-          const int r = off[u] / C::LDR, c = off[u] - r * C::LDR;
-          *reinterpret_cast<__nv_bfloat162 *>(
-              a.Y + out_index(m0 + r0 + r, n0 + c, a.M, a.N, a.qkv_d)) =
-              __floats2bfloat162_rn(
-                  epi_value<bf16>(a.epi, x[u].x, y[u].x, res[u].x),
-                  epi_value<bf16>(a.epi, x[u].y, y[u].y, res[u].y));
-        }
+    for (int q = 0; q < S; ++q) {
+      const float *src =
+          (q == rank ? red + r0 * C::LDR : recv + q * R * C::LDR) +
+          r * C::LDR + c;
+      splitk::addv<V>(x, src);
+      if (dual) splitk::addv<V>(y, src + 64);
     }
+    splitk::widen<V>(rv, rw);
+    unsigned o[V / 2];
+#pragma unroll
+    for (int i = 0; i < V / 2; ++i)
+      o[i] = splitk::bf16x2(
+          epi_value<bf16>(a.epi, x[2 * i], y[2 * i], rv[2 * i]),
+          epi_value<bf16>(a.epi, x[2 * i + 1], y[2 * i + 1], rv[2 * i + 1]));
+    dst.store(a.Y, m0 + r0 + r, o);
   }
   splitk::done();
 }
@@ -288,30 +310,35 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
 }
 
 // the instances: M <= 8, <= 16 (decode: two blocks an SM, a deep ring),
-// <= 32, <= 64 (two an SM), above (one an SM, 128-row tiles: measured
-// faster than 256-row ones at M 256, tools/gemm_ab.py)
-using S8 = Cfg<8, 6, 2>;
-using S16 = Cfg<16, 6, 2>;
-using T32 = Cfg<32, 5, 2>;
-using T64 = Cfg<64, 4, 2>;
-using T128 = Cfg<128, 6, 1>;
-constexpr int NINST = 5;
+// <= 32, <= 64 (two an SM); above, 128 W columns x 128 x rows (one an SM:
+// measured faster than 256-row tiles at M 256, tools/gemm_ab.py), or 64
+// x 64 on one warpgroup (three an SM, a ring for a short K)
+using S8 = Cfg<2, 8, 6, 2>;
+using S16 = Cfg<2, 16, 6, 2>;
+using T32 = Cfg<2, 32, 5, 2>;
+using T64 = Cfg<2, 64, 4, 2>;
+using T128 = Cfg<2, 128, 6, 1>;
+using N64 = Cfg<1, 64, 4, 3>;
+constexpr int NINST = 6;
+constexpr int I_T128 = 4, I_N64 = 5;
 
 typedef void (*Kernel)(const Args, const CUtensorMap, const CUtensorMap,
                        const CUtensorMap);
 
 struct Inst {
   Kernel fn;
-  int nx, minb, smem;
+  int nx, bn, minb, smem, threads;
 };
 template <class C> Inst small() {
-  return {gemm_xw_small_m_tma<C>, C::NX, C::MINB, C::SMEM};
+  return {gemm_xw_small_m_tma<C>, C::NX, C::BN, C::MINB, C::SMEM,
+          C::THREADS};
 }
 template <class C> Inst tiled() {
-  return {gemm_xw_tiled_wg<C>, C::NX, C::MINB, C::SMEM};
+  return {gemm_xw_tiled_wg<C>, C::NX, C::BN, C::MINB, C::SMEM, C::THREADS};
 }
-static const Inst INSTS[NINST] = {small<S8>(), small<S16>(), tiled<T32>(),
-                                  tiled<T64>(), tiled<T128>()};
+static const Inst INSTS[NINST] = {small<S8>(),   small<S16>(),
+                                  tiled<T32>(),  tiled<T64>(),
+                                  tiled<T128>(), tiled<N64>()};
 
 // the current device's clusters of each size of every instance (once a
 // device: split_k.cuh)
@@ -319,7 +346,7 @@ static splitk::ResidencyTable<NINST> residency;
 static cudaError_t setup(const splitk::Residency<NINST> **occ) {
   splitk::KernelShape ks[NINST];
   for (int i = 0; i < NINST; ++i)
-    ks[i] = {(const void *)INSTS[i].fn, 384, INSTS[i].smem};
+    ks[i] = {(const void *)INSTS[i].fn, INSTS[i].threads, INSTS[i].smem};
   return residency.get(ks, occ);
 }
 
@@ -334,19 +361,74 @@ struct Plan {
   int inst, splits, row_tiles, col_tiles, nk, resident;
 };
 
-// K splits at the least modelled cost (splitk::best_split), a K step
-// weighed against FOLD_STEPS for the staging and the fold
+// M <= 64: K splits at the least modelled cost (splitk::best_split), a K
+// step weighed against FOLD_STEPS for the staging and the fold
 constexpr int FOLD_STEPS = 12;
+// M > 64, the tile (T128, or N64 but for SwiGLU) and the split (1, 2 or
+// 4), by a model fitted to the card (tools/gemm_ab.py's forced plans at
+// GPT-125M's four shapes, NVIDIA H100 80GB HBM3, 700.00 W: its picks came
+// within 3 % of the best measured plan of each, among seven tile shapes,
+// and it keeps llama_7b's 128 x 128 tiles split in 2): a wave of resident
+// clusters takes its busiest SM's K steps, each the bytes its stage
+// brings into shared memory (STEP_KB), 3 / 8 more for each block beside
+// it on that SM (they share its bandwidth and hide each other's
+// latency), and FOLD_KB a split past the first for the staging and the
+// exchange; waves x that, the least wins, ties to the earlier instance
+// and fewer splits
+constexpr int XW_FORCE_INST = -1, XW_FORCE_SPLIT = 0;
+constexpr int STEP_KB[NINST] = {0, 0, 0, 0, 32, 16};
+constexpr int FOLD_KB = 16;
+
+// the model's cost, in eighths of a KB; -1 where the device cannot hold
+// a cluster of s
+static long long model(int inst, int s, long long tiles, int nk,
+                       const splitk::Residency<NINST> &occ) {
+  const long long res = occ.clusters[inst][s], slots = occ.clusters[inst][1];
+  if (res <= 0 || slots <= 0) return -1;
+  const long long waves = (tiles + res - 1) / res;
+  const long long wave = tiles < res ? tiles : res;
+  // blocks a wave puts on its busiest SM (slots: SMs x blocks an SM)
+  const long long side = (wave * s * INSTS[inst].minb + slots - 1) / slots;
+  return waves * ((nk + s - 1) / s * STEP_KB[inst] * (5 + 3 * side) +
+                  8 * FOLD_KB * (s - 1));
+}
+
 static Plan plan_of(int M, int K, int N, int epi,
                     const splitk::Residency<NINST> &occ) {
+  const bool dual = epi == EPI_SWIGLU;
   Plan p;
-  p.inst = M <= 8 ? 0 : M <= 16 ? 1 : M <= 32 ? 2 : M <= 64 ? 3 : 4;
-  const Inst &k = INSTS[p.inst];
   p.nk = (K + 63) / 64;
-  p.row_tiles = (M + k.nx - 1) / k.nx;
-  p.col_tiles = epi == EPI_SWIGLU ? (N + 63) / 64 : (N + 127) / 128;
-  p.splits = splitk::best_split((long long)p.row_tiles * p.col_tiles, p.nk,
-                                 occ.clusters[p.inst], FOLD_STEPS);
+  auto tiles_of = [&](int inst) {
+    const Inst &k = INSTS[inst];
+    p.row_tiles = (M + k.nx - 1) / k.nx;
+    p.col_tiles = dual ? (N + 63) / 64 : (N + k.bn - 1) / k.bn;
+    return (long long)p.row_tiles * p.col_tiles;
+  };
+  if (M <= 64) {
+    p.inst = M <= 8 ? 0 : M <= 16 ? 1 : M <= 32 ? 2 : 3;
+    p.splits = splitk::best_split(tiles_of(p.inst), p.nk,
+                                  occ.clusters[p.inst], FOLD_STEPS);
+  } else {
+    long long best = -1;
+    p.inst = I_T128;
+    p.splits = 1;
+    for (int inst = I_T128; inst <= (dual ? I_T128 : I_N64); ++inst) {
+      if (XW_FORCE_INST >= 0 && inst != XW_FORCE_INST && !dual) continue;
+      const long long tiles = tiles_of(inst);
+      for (int s = 1; s <= 4 && s <= p.nk; s *= 2) {
+        if (XW_FORCE_SPLIT > 0)                // a pinned split, once
+          s = XW_FORCE_SPLIT < p.nk ? XW_FORCE_SPLIT : p.nk;
+        const long long cost = model(inst, s, tiles, p.nk, occ);
+        if (cost >= 0 && (best < 0 || cost < best)) {
+          best = cost;
+          p.inst = inst;
+          p.splits = s;
+        }
+        if (XW_FORCE_SPLIT > 0) break;
+      }
+    }
+    tiles_of(p.inst);
+  }
   p.resident = occ.clusters[p.inst][p.splits];
   return p;
 }
@@ -372,7 +454,7 @@ static cudaError_t launch(int M, int K, int N, int epi, const void *X,
                (bf16 *)Y};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.splits, p.row_tiles, p.col_tiles);
-  cfg.blockDim = dim3(384);
+  cfg.blockDim = dim3(k.threads);
   cfg.dynamicSmemBytes = k.smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -489,15 +571,16 @@ cudaError_t launch_gemm_xw(int dtype, int M, int K, int N, int epi,
 // The bf16 launch plan of one gemm_xw call, for tools: out[0] NX (x rows
 // a tile), [1] blocks an SM, [2] K splits (the cluster), [3] x row tiles,
 // [4] weight column tiles, [5] 64-row K steps, [6] the clusters of this
-// shape the device keeps resident.
+// shape the device keeps resident, [7] W columns a tile.
 extern "C" int pt_gemm_xw_plan(int M, int K, int N, int epi, int *out) {
   using namespace pt::xw;
   const pt::splitk::Residency<NINST> *occ = nullptr;
   const cudaError_t e = setup(&occ);
   if (e != cudaSuccess) return e;
   const Plan p = plan_of(M, K, N, epi, *occ);
-  const int v[7] = {INSTS[p.inst].nx, INSTS[p.inst].minb, p.splits,
-                    p.row_tiles, p.col_tiles, p.nk, p.resident};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const Inst &k = INSTS[p.inst];
+  const int v[8] = {k.nx,        k.minb, p.splits,   p.row_tiles,
+                    p.col_tiles, p.nk,   p.resident, k.bn};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return cudaSuccess;
 }

@@ -890,41 +890,46 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
           make_float2(part[4 * j + e], part[4 * j + e + 2]);
   fence_proxy_async_smem();
   splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);
-  // my x rows over the splits, in split order; per channel the fp32 scale
-  // multiplies the sum; bf16 pairs along N
+  // The epilogue: this thread owns the pair of channels c of rows r =
+  // tid / 64 + 4 i of my share, summed over the splits in split order;
+  // its scales (per channel the fp32 scale multiplies the sum), bias and
+  // destination (the qkv split's slab and column) are taken once, not per
+  // stored pair.  The loops stay rolled: unrolled, the int8 8-row
+  // instance took 80 registers against 46 and its llama_7b decode GEMMs
+  // ~3 % longer (tools/wo_ab.py, NVIDIA H100 80GB HBM3 at 700 W)
   const splitk::Share sh = splitk::share_of<C::NX>(S, rank);
-  const int P = max(0, min(sh.nr, a.M - sh.r0)) * (C::BN / 2);
-  bf16 *Y = (bf16 *)a.y;
-  for (int p = tid; p < P; p += 256) {
-    const int r = p / (C::BN / 2), c = 2 * (p % (C::BN / 2)), n = n0 + c;
-    if (n >= a.N) continue;
-    float2 y = make_float2(0.f, 0.f);
-    for (int q = 0; q < S; ++q) {
-      const float *src =
-          q == rank ? red + sh.r0 * F::LDR : recv + q * sh.R * F::LDR;
-      const float2 u = *reinterpret_cast<const float2 *>(src + r * F::LDR + c);
-      y.x += u.x;
-      y.y += u.y;
-    }
-    if constexpr (C::MODE == WO_CHANNEL) {
-      y.x *= __ldg(a.scale + n);
-      y.y *= __ldg(a.scale + n + 1);
-    }
-    const int m = sh.r0 + r;
+  const int c = 2 * (tid & 63), n = n0 + c;
+  const int rows = n < a.N ? max(0, min(sh.nr, a.M - sh.r0)) : 0;
+  float2 sc = make_float2(1.f, 1.f);
+  if (C::MODE == WO_CHANNEL && rows > 0)
+    sc = make_float2(__ldg(a.scale + n), __ldg(a.scale + n + 1));
+  unsigned bw[1] = {0u};
+  if (a.epi >= EPI_BIAS && rows > 0)
+    splitk::ldv<2>(bw, (const bf16 *)a.B + n);
+  float bv[2];
+  splitk::widen<2>(bv, bw);
+  const splitk::ChunkDst<2> dst(n, a.M, a.N, a.qkv_d);
+#pragma unroll 1
+  for (int p = tid; p < rows << 6; p += 256) {
+    const int r = p >> 6, m = sh.r0 + r;
+    float y[2] = {0.f, 0.f}, rv[2];
+#pragma unroll 1
+    for (int q = 0; q < S; ++q)
+      splitk::addv<2>(y, (q == rank ? red + sh.r0 * F::LDR
+                                    : recv + q * sh.R * F::LDR) +
+                             r * F::LDR + c);
+    y[0] *= sc.x;
+    y[1] *= sc.y;
     if (a.epi != EPI_NONE) {
-      float2 rv = make_float2(0.f, 0.f), bv = rv;
+      unsigned rw[1] = {0u};
       if (epi_reads_r(a.epi))
-        rv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162 *>(
-            (const bf16 *)a.R + (size_t)m * a.N + n));
-      if (a.epi >= EPI_BIAS)
-        bv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162 *>((const bf16 *)a.B + n));
-      y.x = epi_value<bf16>(a.epi, y.x, bv.x, rv.x);
-      y.y = epi_value<bf16>(a.epi, y.y, bv.y, rv.y);
+        splitk::ldv<2>(rw, (const bf16 *)a.R + (size_t)m * a.N + n);
+      splitk::widen<2>(rv, rw);
+      y[0] = epi_value<bf16>(a.epi, y[0], bv[0], rv[0]);
+      y[1] = epi_value<bf16>(a.epi, y[1], bv[1], rv[1]);
     }
-    *reinterpret_cast<__nv_bfloat162 *>(
-        Y + out_index(m, n, a.M, a.N, a.qkv_d)) =
-        __floats2bfloat162_rn(y.x, y.y);
+    const unsigned o[1] = {splitk::bf16x2(y[0], y[1])};
+    dst.store((bf16 *)a.y, m, o);
   }
   splitk::done();
 }
@@ -956,21 +961,35 @@ static splitk::ResidencyTable<DEC_INSTS> dec_residency;
 // of codes weighed against FOLD_STEPS for the staging and the fold
 constexpr int FOLD_STEPS = 12;
 
-cudaError_t launch_decode(const WoArgs *a, cudaStream_t s) {
+struct DecPlan {
+  int inst, nx, splits, tiles, nk, resident;
+};
+static cudaError_t plan_decode(const WoArgs *a, DecPlan *p) {
   const int mode = mode_of(a);
   if (mode < 0) return cudaErrorInvalidValue;
   splitk::KernelShape ks[DEC_INSTS];
   for (int i = 0; i < DEC_INSTS; ++i)
     ks[i] = {(const void *)DEC[i].fn, DEC_THREADS, DEC[i].smem};
   const splitk::Residency<DEC_INSTS> *occ = nullptr;
-  cudaError_t e = dec_residency.get(ks, &occ);
+  const cudaError_t e = dec_residency.get(ks, &occ);
   if (e != cudaSuccess) return e;
-  const int inst = ((a->int4 ? 3 : 0) + mode) * 2 + (a->M > 8);
-  const int nx = a->M > 8 ? 16 : 8;
+  p->inst = ((a->int4 ? 3 : 0) + mode) * 2 + (a->M > 8);
+  p->nx = a->M > 8 ? 16 : 8;
   const int rows = a->int4 ? a->half : a->K;         // code rows
-  const int nk = (rows + 63) / 64, tiles = (a->N + 127) / 128;
-  const int splits =
-      splitk::best_split(tiles, nk, occ->clusters[inst], FOLD_STEPS);
+  p->nk = (rows + 63) / 64;
+  p->tiles = (a->N + 127) / 128;
+  const int *res = occ->clusters[p->inst];
+  p->splits = splitk::best_split(p->tiles, p->nk, res, FOLD_STEPS);
+  p->resident = res[p->splits];
+  return cudaSuccess;
+}
+
+cudaError_t launch_decode(const WoArgs *a, cudaStream_t s) {
+  DecPlan p;
+  cudaError_t e = plan_decode(a, &p);
+  if (e != cudaSuccess) return e;
+  const int inst = p.inst, nx = p.nx, splits = p.splits, tiles = p.tiles;
+  const int rows = a->int4 ? a->half : a->K;         // code rows
   // codes [rows, N] in boxes of 64 rows x 128 bytes; x [M, cols] in boxes
   // of nx rows x 64 columns, int4's high plane from column xhi
   const bf16 *x = (const bf16 *)a->x;
@@ -1064,21 +1083,31 @@ cudaError_t launch_wo_layer(const WoArgs *a, cudaStream_t s) {
   return count_launch(CNT_WO_LAYER_INT8_TILED, launch_prefill(a, s));
 }
 
-// The launch plan of a prefill call (M > 16) into out[7]: x rows a tile,
-// K splits (the cluster), x row tiles, channel tiles, 64-row K steps, the
-// clusters of this shape the device keeps resident, dynamic shared memory;
-// nothing launched.  Not bound by build.py: tools/wo_ab.py and
-// chip_smoke.py read it.
+// The launch plan of a bf16 call into out[8]: x rows a tile, K splits
+// (the cluster), x row tiles, channel tiles, 64-row K steps, the clusters
+// of this shape the device keeps resident, dynamic shared memory, blocks
+// an SM (prefill, M > 16: wo_wgmma; decode: wo_dec); nothing launched.
+// Not bound by build.py: tools/wo_ab.py and chip_smoke.py read it.
 extern "C" int pt_wo_plan(const WoArgs *a, int *out) {
   using namespace pt::wo;
-  const cudaError_t e = a->M > 16 ? check_wo(a) : cudaErrorInvalidValue;
+  const cudaError_t e = a->x_dtype == PT_BF16 ? check_wo(a)
+                                              : cudaErrorInvalidValue;
   if (e != cudaSuccess) return e;
+  if (a->M <= 16) {
+    DecPlan p;
+    const cudaError_t f = plan_decode(a, &p);
+    if (f != cudaSuccess) return f;
+    const int v[8] = {p.nx,       p.splits, 1, p.tiles, p.nk, p.resident,
+                      DEC[p.inst].smem, Dec<false, WO_CHANNEL, 8>::MINB};
+    for (int i = 0; i < 8; ++i) out[i] = v[i];
+    return cudaSuccess;
+  }
   WgPlan p;
   const cudaError_t f = plan_prefill(a, &p);
   if (f != cudaSuccess) return f;
-  const int v[7] = {p.bm, p.splits, p.row_tiles, p.col_tiles, p.nk,
-                    p.resident, WG[p.inst].smem};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  const int v[8] = {p.bm,       p.splits,   p.row_tiles,     p.col_tiles,
+                    p.nk,       p.resident, WG[p.inst].smem, 1};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return cudaSuccess;
 }
 

@@ -1,10 +1,11 @@
 // A K split over a thread-block cluster, folded inside the launch by
-// pushes; shared by gemm.cu's serving GEMMs (xw_body) and quant_linear.cu's
-// weight-only decode body (wo_dec).
+// pushes, and the epilogues' chunk stores; shared by gemm.cu's serving
+// GEMMs (xw_body) and quant_linear.cu's weight-only decode body (wo_dec).
 //
 // Device: the S blocks of a cluster hold the K ranges of one output tile of
-// NX rows by 128 columns.  Each stages its fp32 partial tile in its own
-// shared memory as [NX][LDR] (the ring, now idle); after a cluster barrier
+// NX rows by COLS (128, or 64) columns.  Each stages its fp32 partial tile
+// in its own shared memory as [NX][LDR] (the ring, now idle); after a
+// cluster barrier
 // thread 0 bulk-copies (cp.async.bulk shared::cta -> shared::cluster) each
 // peer's 1/S of the rows into that peer's receive slots, on the peer's
 // mbarrier; each block then sums its rows over the S slots in split order,
@@ -30,10 +31,10 @@ namespace splitk {
 
 constexpr int MAX_SPLITS = 8;                   // portable cluster size
 
-// the staged partial tile of NX rows x 128 fp32 columns and the receive
+// the staged partial tile of NX rows x COLS fp32 columns and the receive
 // slots of the peers' slices, overlaid on the idle ring
-template <int NX> struct Tile {
-  static constexpr int LDR = 128 + 4;           // fp32 words a staged row
+template <int NX, int COLS = 128> struct Tile {
+  static constexpr int LDR = COLS + 4;          // fp32 words a staged row
   static constexpr int ROWB = LDR * 4;
   static constexpr int RED = NX * ROWB;         // this block's partial tile
   static constexpr int RECV = (NX + MAX_SPLITS) * ROWB;  // peers' slices
@@ -55,11 +56,11 @@ __device__ __forceinline__ Share share_of(int S, int rank) {
 // q sends rows [d R, d R + R) of its partial to block d's recv slot q (one
 // bulk copy a peer, on d's recv_bar), then waits for its own slots.  The
 // block's other threads call idle() instead; all end with done().
-template <int NX>
+template <int NX, int COLS = 128>
 __device__ __forceinline__ void push(const float *red, float *recv,
                                      uint64_t *recv_bar, int S, int rank,
                                      int tid) {
-  using T = Tile<NX>;
+  using T = Tile<NX, COLS>;
   const Share sh = share_of<NX>(S, rank);
   if (tid == 0 && S > 1 && sh.nr > 0)
     mbar_expect_tx(recv_bar, (S - 1) * sh.nr * T::ROWB);
@@ -88,6 +89,79 @@ __device__ __forceinline__ void idle() {
 }
 // the end of the fold: every block's slices have been read
 __device__ __forceinline__ void done() { cluster_wait(); }
+
+// The epilogues' chunks of V (2 or 8) columns: a thread owns one chunk
+// column of the staged tile's rows.  V staged fp32 summed into s; V bf16
+// loaded as V / 2 packed words, widened; two values rounded and packed
+template <int V>
+__device__ __forceinline__ void addv(float (&s)[V], const float *p) {
+  static_assert(V == 2 || V == 8, "chunks of 2 or 8 columns");
+  if constexpr (V == 2) {
+    const float2 u = *reinterpret_cast<const float2 *>(p);
+    s[0] += u.x, s[1] += u.y;
+  } else {
+    const float4 u = *reinterpret_cast<const float4 *>(p);
+    const float4 v = *reinterpret_cast<const float4 *>(p + 4);
+    s[0] += u.x, s[1] += u.y, s[2] += u.z, s[3] += u.w;
+    s[4] += v.x, s[5] += v.y, s[6] += v.z, s[7] += v.w;
+  }
+}
+template <int V>
+__device__ __forceinline__ void ldv(unsigned (&w)[V / 2], const bf16 *p) {
+  if constexpr (V == 2) {
+    w[0] = *reinterpret_cast<const unsigned *>(p);
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4 *>(p);
+    w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+  }
+}
+template <int V>
+__device__ __forceinline__ void widen(float (&f)[V],
+                                      const unsigned (&w)[V / 2]) {
+#pragma unroll
+  for (int i = 0; i < V / 2; ++i) {
+    const float2 p = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162 *>(&w[i]));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned *>(&h);
+}
+
+// Where the V-column chunk at column n (n % V == 0) of an [M, N] product
+// goes, worked out once a thread: row m's chunk at col + m ld, row-major,
+// or with qkv_d > 0 in its head's q, k or v slab (common.cuh out_index).
+// A pair never straddles a part (qkv_d is even), nor does an 8-column
+// chunk where 8 divides qkv_d: one store; else its four pairs apart.
+template <int V> struct ChunkDst {
+  size_t col[V / 2], ld;
+  bool whole;
+  __device__ __forceinline__ ChunkDst(int n, int M, int N, int qkv_d) {
+    col[0] = out_index(0, n, M, N, qkv_d);
+    ld = qkv_d > 0 ? N / 3 : N;
+    whole = V == 2 || qkv_d <= 0 || qkv_d % 8 == 0;
+#pragma unroll
+    for (int p = 1; p < V / 2; ++p)
+      col[p] = whole ? col[0] + 2 * p : out_index(0, n + 2 * p, M, N, qkv_d);
+  }
+  __device__ __forceinline__ void store(bf16 *Y, int m,
+                                        const unsigned (&o)[V / 2]) const {
+    const size_t row = (size_t)m * ld;
+    if constexpr (V == 2) {
+      *reinterpret_cast<unsigned *>(Y + col[0] + row) = o[0];
+    } else if (whole) {
+      *reinterpret_cast<uint4 *>(Y + col[0] + row) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < V / 2; ++p)
+        *reinterpret_cast<unsigned *>(Y + col[p] + row) = o[p];
+    }
+  }
+};
 
 // ------------------------------------------------------------------ host
 // A kernel whose clusters the device is asked about: its threads and

@@ -1677,27 +1677,40 @@ def test_layer_norm_rows_kernel_matches_plain(dt, M, Hn):
     _close(got, K.layer_norm_rows_ref(x, w, b, 1e-5), dt)
 
 
+# (K, N, epilogue, qkv head dim): K past a 64-row step (N 576 = 3 heads of
+# 3 x 64, so 128-column tiles straddle heads and parts; N 264 past a
+# 128-column tile); GPT-125M's four (qkv, proj, fc1, fc2); its qkv split at
+# D 32 (every 64-column tile straddles parts) and D 128 (tiles inside one)
+BIAS_GEMMS = [(520, 576, "bias_qkv", 64), (520, 264, "bias_resid", 0),
+              (520, 264, "bias_gelu", 0), (768, 2304, "bias_qkv", 64),
+              (768, 768, "bias_resid", 0), (768, 3072, "bias_gelu", 0),
+              (3072, 768, "bias_resid", 0), (768, 2304, "bias_qkv", 32),
+              (768, 2304, "bias_qkv", 128)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", DTYPES, ids=IDS)
-@pytest.mark.parametrize("M", [1, 4, 16, 17, 256, 300])
-@pytest.mark.parametrize("epi", ["bias_qkv", "bias_resid", "bias_gelu"])
-def test_gemm_xw_bias_epilogues_match_plain(dt, M, epi):
-    """The GPT layer's epilogues at both bf16 regimes' edges, K past a
-    64-row step: the bias (the qkv product stored split per head, N 576 =
-    3 heads of 3 x 64, so 128-column tiles straddle heads and parts), the
-    bias and residual, the bias and GELU; one launch a call, a second call
-    bit-identical."""
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64, 255, 256, 257, 300, 512])
+@pytest.mark.parametrize("Kd,N,epi,D", BIAS_GEMMS,
+                         ids=[f"{e}-K{k}-N{n}" + (f"-D{d}" if d else "")
+                              for k, n, e, d in BIAS_GEMMS])
+def test_gemm_xw_bias_epilogues_match_plain(dt, M, Kd, N, epi, D):
+    """The GPT layer's epilogues at both bf16 regimes' edges and at
+    GPT-125M's widths, where the tiled plans take 128- or 64-column tiles
+    and split K or not (M 17 .. 512: one, two and more 128-row tiles, and
+    the edges past them): the bias (the qkv product stored split per
+    head), the bias and residual, the bias and GELU; one launch a call,
+    a second call bit-identical."""
     _need_card()
     rng = np.random.default_rng(M + 7)
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32) * 0.1).to("cuda", dt)
-    Kd, N = 520, 576 if epi == "bias_qkv" else 264
     x, w, b, r = t(M, Kd), t(Kd, N), t(N), t(M, N)
     kw = dict(bias=b, gelu=epi == "bias_gelu",
               residual=r if epi == "bias_resid" else None)
-    split = {"qkv_head_dim": 64} if epi == "bias_qkv" else {}
+    split = {"qkv_head_dim": D} if D else {}
     kernel = "gemm_xw_f32" if dt == torch.float32 else \
         "gemm_xw_small_m" if M <= 16 else "gemm_xw_tiled"
 
@@ -1707,7 +1720,7 @@ def test_gemm_xw_bias_epilogues_match_plain(dt, M, epi):
     got = _once_bitwise(run, kernel)
     ref = K.gemm_xw_ref(x, w, **kw)
     if split:
-        ref = torch.stack(K.qkv_split_ref(ref, 64))
+        ref = torch.stack(K.qkv_split_ref(ref, D))
     _close(got, ref, dt)
 
 
@@ -1835,6 +1848,35 @@ def test_wo_layer_bias_epilogues_match_plain(dt, M, epi, width, gs):
     if split:
         ref = torch.stack(K.qkv_split_ref(ref, 64))
     _close(got, ref, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("width,gs", [("int8", -1), ("int4", 64)],
+                         ids=["int8", "int4g64"])
+def test_wo_dec_qkv_split_matches_plain(M, D, width, gs):
+    """The quantized GPT-125M qkv product (K 768, N 2304, bias) at the
+    decode rows, stored split at D 32 (8-channel chunks inside a part, 64
+    channels straddling them) and D 64: within tolerance of the plain
+    version, one ``wo_dec`` launch a call, a second call bit-identical."""
+    _need_card()
+    from paddle_tpu_torch.quantization import ServeQuantConfig
+    from paddle_tpu_torch.quantization.serve import _quantize_matrix
+    rng = np.random.default_rng(M + 13 * D)
+
+    def t(*shape, scale=0.1):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * scale).to("cuda")
+    Kd, N = 768, 2304
+    codes, scale = _quantize_matrix(t(Kd, N), ServeQuantConfig(width, gs))
+    x, b = t(M, Kd, scale=1.0).to(torch.bfloat16), t(N).to(torch.bfloat16)
+    kw = dict(width=width, group_size=gs, bias=b)
+    got = _once_bitwise(lambda: torch.stack(K.wo_layer_cuda(
+        x, codes, scale, qkv_head_dim=D, **kw)), f"wo_layer_{width}_small_m")
+    ref = torch.stack(K.qkv_split_ref(K.wo_layer_ref(x, codes, scale, **kw),
+                                      D))
+    _close(got, ref, torch.bfloat16)
 
 
 @pytest.mark.gpu

@@ -42,6 +42,22 @@ def test_chain_ms_sums_the_chain_with_the_regimes_gemm(name, gemm):
     assert got == pytest.approx(2 * 0.01 + 6 * 0.05 + 0.02 + 0.1)
 
 
+def test_chain_ms_weighs_the_gemm_instances_by_their_launches():
+    """A layer whose four GEMMs run on three tile instances (two launches
+    of one): each instance's mean weighs by its recorded launches."""
+    by = _breakdown(SMALL)
+    del by[SMALL]
+    inst = [TILED, TILED.replace("(int)256", "(int)64"),
+            TILED.replace("(int)256", "(int)32")]
+    by.update({inst[0]: (0.01, 2.0), inst[1]: (0.006, 1.0),
+               inst[2]: (0.009, 0.95)})
+    got = cs.chain_ms(by, "gemm_xw_tiled_wg",
+                      {"rms_norm_rows": 2, "gemm_xw_tiled_wg": 4,
+                       "rope_kv_write": 1, "paged_attention": 1})
+    gemms = 4 * (0.02 + 0.006 + 0.009 * 0.95) / 3.95
+    assert got == pytest.approx(2 * 0.01 + gemms + 0.02 + 0.1)
+
+
 @pytest.mark.parametrize("missing", range(4))
 def test_chain_ms_fails_without_a_kernel_of_the_chain(missing):
     by = _breakdown(SMALL)
@@ -75,3 +91,34 @@ def test_gemm_ab_edits_apply_to_the_source(variant):
     src = GEMM_CU.read_text()
     edited = gemm_ab._edited(src, cuts)
     assert edited != src
+
+
+def test_gemm_ab_times_the_gpt_layers_gemms_and_checks_every_split():
+    """``--chain gpt`` times GPT-125M's four GEMMs (the qkv product stored
+    split, and row-major beside it) at M 4 and 256; the checked cases
+    hold the bias epilogues at GPT-125M's widths and the qkv split at D
+    32, 64 and 128."""
+    gpt = {label: (K, N, epi) for label, K, N, epi in gemm_ab.CHAINS["gpt"]}
+    assert gpt == {"qkv": (768, 2304, "bias_qkv"),
+                   "proj": (768, 768, "bias_resid"),
+                   "fc1": (768, 3072, "bias_gelu"),
+                   "fc2": (3072, 768, "bias_resid"),
+                   "qkv_rowmajor": (768, 2304, "bias")}
+    assert gemm_ab.GPT_ROWS == (4, 256)
+    epis = {epi for *_, epi in gemm_ab.CASES}
+    assert {"bias_qkv", "bias_qkv32", "bias_qkv128", "bias_resid",
+            "bias_gelu"} <= epis
+    assert {gemm_ab.QKV_D[e] for e in epis if e in gemm_ab.QKV_D} == {
+        32, 64, 128}
+
+
+@pytest.mark.parametrize("epi,nbytes", [
+    ("none", 2 * (4 * 8 + 8 * 16 + 4 * 16)),
+    ("resid", 2 * (4 * 8 + 8 * 16 + 2 * 4 * 16)),
+    ("bias_qkv", 2 * (4 * 8 + 8 * 16 + 4 * 16 + 16)),
+    ("bias_resid", 2 * (4 * 8 + 8 * 16 + 2 * 4 * 16 + 16)),
+    ("swiglu", 2 * (4 * 8 + 2 * 8 * 16 + 4 * 16))])
+def test_gemm_ab_bound_counts_each_operand_once(epi, nbytes):
+    got, ops = gemm_ab.bytes_ops(4, 8, 16, epi)
+    assert got == nbytes
+    assert ops == 2 * 4 * 8 * 16 * (2 if epi == "swiglu" else 1)

@@ -247,15 +247,21 @@ def test_three_products_match_the_pallas_dw_fewer_do_not(pallas_interpret):
 
 
 def test_smoke_dw_check_passes_three_products_raises_on_fewer():
-    """``chip_smoke.check_split_dw`` with each emulation as the kernels'
-    dw: the three products pass, the one product and each pair raise."""
+    """``chip_smoke``'s split dw check with each emulation as the kernels'
+    dw: the three products pass, the one product and each pair raise.
+    The distances of the four come from one ``split_dw_excess`` pass (the
+    plain versions' products are made once), each judged as the kernels'
+    by ``judge_split_dw``, as ``check_split_dw`` judges one."""
     xt, wt, labt, gt, lse, dzs, dw_t = _dw_case(3)
     vers = _versions(xt, dzs)
     case = ("split", T, H, V, CHUNK, "float32", "bfloat16", None, 0.0)
-    d = cs.check_split_dw("three products", case, xt, wt, labt, lse, gt,
-                          vers["three"], dw_t)
+    worst = cs.split_dw_excess(case, xt, wt, labt, lse, gt, vers, dw_t)
+
+    def as_kernels(name):
+        return {"kernels": worst[name], **{k: v for k, v in worst.items()
+                                           if k not in vers}}
+    d = cs.judge_split_dw("three products", T, as_kernels("three"))
     assert d <= 1.0
     for name in ("one", "without lo x_hi", "without hi x_lo"):
         with pytest.raises(cs.SmokeFailure, match="misses its bound"):
-            cs.check_split_dw(name, case, xt, wt, labt, lse, gt, vers[name],
-                              dw_t)
+            cs.judge_split_dw(name, T, as_kernels(name))

@@ -88,3 +88,14 @@ def test_chain_cases_are_the_layers_gemms():
     assert [m[3] for m in fams[gpt[0]]] == ["bias", "bias_resid",
                                             "bias_gelu", "bias_resid"]
     assert wo_ab.CHAIN_M == 256
+
+
+def test_chain_times_the_decode_rows_and_the_row_major_qkv_store():
+    """The chain's GEMMs are timed at the decode rows (``wo_dec``) as well
+    as at M 256, and a qkv product stored split is timed again stored
+    row-major, under ``<label>_rowmajor``."""
+    import inspect
+    assert (wo_ab.CHAIN_M, wo_ab.DEC_M) == (256, 4)
+    src = inspect.getsource(wo_ab.time_chain)
+    assert 'f"{lab}_rowmajor"' in src and '"qkv_head_dim" in kw' in src
+    assert "for M in (CHAIN_M, DEC_M):" in inspect.getsource(wo_ab.main)

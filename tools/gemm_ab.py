@@ -4,6 +4,7 @@ each other on one CUDA card.
 
     python3 tools/gemm_ab.py [--tree NAME=DIR ...] [--ablate] [--sass]
                              [--only NAME,...] [--no-time] [--turns N]
+                             [--chain llama,gpt]
 
 from the repository root, on a machine with one CUDA card and ``nvcc``.
 Each variant is a ``gemm.cu`` linked with this tree's other sources'
@@ -12,32 +13,40 @@ objects into its own library under ``paddle_tpu_torch/kernels/_build/ab/``:
 ``--tree NAME=DIR`` adds DIR's (another checkout's, e.g. the parent commit
 unpacked by ``git archive`` into the git-ignored ``archive_check/``).
 ``--ablate`` adds this tree's file with the choices of ``TUNINGS`` (the
-fold's weight in the choice of K splits; 64-row tiles above M 64; the
-tensor maps prefetched; an unsplit launch with the cluster attribute;
-three decode blocks an SM; the epilogue's pairs a round), which are
-checked and timed like a tree, and
-with one part of the bf16 body cut out (``ABLATIONS``: the wgmmas; the
-epilogue's stores; the epilogue; the exchange of the K splits' partial
-slices and the epilogue; both of those and the wgmmas, leaving the TMA
-ring alone), which compute something else and are timed unchecked.
-``--only`` keeps the named variants.  All ``nvcc`` processes start
-together.
+fold's weight in the choice of K splits at M <= 64 and above; above M 64
+the tile fixed at 128 x 128 or 64 x 64, and the K split fixed; the
+64 x 64 tiles' blocks an SM and ring; the tensor maps prefetched; an
+unsplit launch with the cluster attribute; three decode blocks an SM),
+which are checked and
+timed like a tree, and with one part of the bf16 body cut out
+(``ABLATIONS``: the wgmmas; the epilogue's stores; the epilogue; the
+exchange of the K splits' partial slices and the epilogue; both of those
+and the wgmmas, leaving the TMA ring alone; every K step, leaving the
+launch, the staging, the fold and the stores), which compute something
+else and are timed unchecked.  ``--only`` keeps the named variants.  All
+``nvcc`` processes start together.
 
 The script prints ptxas' registers, stack frame and spills of each
 variant's ``gemm`` kernels and any note of serialized wgmmas or ignored
 ``setmaxnreg`` (``--sass``: also the SASS opcode counts of each kernel,
 the SASS itself written to ``chiprun_out/gemm_sass_<variant>.txt``), the
 launch plan of each timed shape where the library has one
-(``pt_gemm_xw_plan``: x rows a tile, blocks an SM, K splits, tiles, and
-the clusters the card keeps resident), and checks each checked variant on
-``CASES`` (bf16 and fp32 against ``gemm_xw_ref`` by ``chip_smoke.py``'s
-rule, 2e-2 / 1e-4; each case called twice, bit-identical, one launch of
+(``pt_gemm_xw_plan``: x rows a tile, blocks an SM, K splits, tiles, the
+clusters the card keeps resident and W columns a tile), and checks each
+checked variant on ``CASES`` (bf16 and fp32 against ``gemm_xw_ref`` by
+``chip_smoke.py``'s rule, 2e-2 / 1e-4, the qkv product against
+``qkv_split_ref``; each case called twice, bit-identical, one launch of
 the regime's kernel each).  Unless ``--no-time`` it then times, the
 variants in turns (a, b, ..., b, a; ``--turns N`` runs that order N
-times), the chain's four GEMMs of a llama_7b layer (q, o + residual,
-gate/up SwiGLU, down + residual) at M 4, 16, 64 and 256, each call on a
-weight the L2 does not hold (copies in rotation), beside the bound and
-cuBLAS (``torch.matmul``; two calls for SwiGLU), and the host time of one
+times), ``--chain``'s GEMMs: ``llama``, the four of a llama_7b layer (q,
+o + residual, gate/up SwiGLU, down + residual) at M 4, 16, 64 and 256,
+each call on a weight the L2 does not hold (copies in rotation); ``gpt``,
+the four of a GPT-125M layer (``chip_smoke.GPT_MATMULS``: qkv + bias
+stored split at D 64 and, beside it, stored row-major; proj and fc2 +
+bias + residual; fc1 + bias, GELU) at M 4 and 256 on one warm weight, as
+``chip_smoke.py`` times them; each beside the bound and the library
+(``torch.matmul``, two calls for SwiGLU; the GPT rows' bias, GELU and
+residual as torch ops after it), and the host time of one
 ``gemm_xw_cuda`` call (enqueue only, the median of 30).
 
 Writes ``chiprun_out/gemm_ab.json``.  Imports nothing of the JAX package.
@@ -60,36 +69,71 @@ import chip_smoke as cs  # noqa: E402
 ITERS = 20                       # timed calls a variant, shape and turn
 # (M, K, N, epi): both regimes at their edges (M 8 / 9 / 16 / 17, one
 # 256-row tile and past it), K past a 64-row step, N past a 128-column
-# tile, and the chain's shapes
+# tile, the chain's shapes, and GPT-125M's with their epilogues (the qkv
+# split at D 64, and at D 32 and 128 on 576 / 768 columns)
 CASES = ([(M, 520, 264, e) for M in (1, 8, 9, 16, 17, 64, 255, 256, 300)
           for e in ("none", "resid", "swiglu")]
          + [(M, 4096, 4096, "none") for M in (4, 256)]
          + [(M, 11008, 4096, "resid") for M in (4, 64)]
-         + [(M, 4096, 11008, "swiglu") for M in (16, 256)])
-# the chain's GEMMs of one llama_7b layer: (label, K, N, epi)
-CHAIN = (("q", 4096, 4096, "none"), ("o", 4096, 4096, "resid"),
-         ("gate_up", 4096, 11008, "swiglu"), ("down", 11008, 4096, "resid"))
-ROWS = (4, 16, 64, 256)
+         + [(M, 4096, 11008, "swiglu") for M in (16, 256)]
+         + [(M, 768, 2304, "bias_qkv") for M in (4, 17, 256, 300)]
+         + [(M, 768, 768, "bias_resid") for M in (4, 256)]
+         + [(M, 768, 3072, "bias_gelu") for M in (4, 256, 300)]
+         + [(M, 3072, 768, "bias_resid") for M in (4, 256)]
+         + [(M, 520, 576, "bias_qkv32") for M in (9, 256)]
+         + [(M, 520, 768, "bias_qkv128") for M in (9, 256)])
+# the chains' GEMMs: (label, K, N, epi); llama_7b's on cold weights at
+# LLAMA_ROWS, GPT-125M's on a warm one at GPT_ROWS
+CHAINS = {
+    "llama": (("q", 4096, 4096, "none"), ("o", 4096, 4096, "resid"),
+              ("gate_up", 4096, 11008, "swiglu"),
+              ("down", 11008, 4096, "resid")),
+    "gpt": tuple((label, K, N, "bias_qkv" if epi == "bias" else epi)
+                 for label, K, N, epi in cs.GPT_MATMULS)
+    + (("qkv_rowmajor", 768, 2304, "bias"),),
+}
+LLAMA_ROWS = (4, 16, 64, 256)
+GPT_ROWS = (4, 256)
 COLD_BYTES = 120e6               # weight copies rotate past the 50 MB L2
+# the epilogues' qkv head dims (the split store)
+QKV_D = {"bias_qkv": 64, "bias_qkv32": 32, "bias_qkv128": 128}
 _MMA = """      WgmmaSS<C::NX, 1, 0>::mma(acc, da + 128 * kk, db + 2 * kk,
                                 it > 0 || kk > 0);"""
-_PUSH = "  splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);"
-_EPI = "    for (int p0 = tid; p0 < P; p0 += 256 * U) {"
-_U = "    constexpr int U = C::NX <= 16 ? 1 : 4;"
-_STORE = """          *reinterpret_cast<__nv_bfloat162 *>(
-              a.Y + out_index(m0 + r0 + r, n0 + c, a.M, a.N, a.qkv_d)) ="""
-_PRODUCER = "    if (warp == 8 && lane == 0) {\n"
-_SMALL = "using S8 = Cfg<8, 6, 2>;\nusing S16 = Cfg<16, 6, 2>;"
+_PUSH = "  splitk::push<C::NX, C::BN>(red, recv, recv_bar, S, rank, tid);"
+_EPI = "  for (int p = tid; p < rows << lg; p += C::CONSUMERS) {"
+_STORE = "    dst.store(a.Y, m0 + r0 + r, o);"
+_N64 = "using N64 = Cfg<1, 64, 4, 3>;"
+_KB1 = "  const int kb1 = (int)((long long)a.nk * (rank + 1) / S);"
+_PRODUCER = "    if (warp == 4 * C::WG && lane == 0) {\n"
+_SMALL = "using S8 = Cfg<2, 8, 6, 2>;\nusing S16 = Cfg<2, 16, 6, 2>;"
 _LAUNCH = "  cfg.numAttrs = p.splits > 1;"
 _FOLD_STEPS = "constexpr int FOLD_STEPS = 12;"
-_ROWS = "M <= 32 ? 2 : M <= 64 ? 3 : 4;"
+_FORCE = "constexpr int XW_FORCE_INST = -1, XW_FORCE_SPLIT = 0;"
+_FOLD_KB = "constexpr int FOLD_KB = 16;"
+_INSTS = {"t128": 4, "n64": 5}
+
+
+def _force(inst=-1, split=0):
+    return [(_FORCE, _FORCE.replace("= -1", f"= {inst}").replace(
+        "SPLIT = 0", f"SPLIT = {split}"))]
+
+
 # gemm.cu with one choice of the launch plan changed: (old, new) text
 # pairs; checked and timed like a tree
 TUNINGS = {
-    # the fold's weight in the choice of K splits
+    # the fold's weight in the choice of K splits at M <= 64
     "fold_steps_4": [(_FOLD_STEPS, _FOLD_STEPS.replace("12", "4"))],
-    # M > 32 as 64-row tiles, two blocks an SM
-    "rows_64": [(_ROWS, "M <= 32 ? 2 : 3;")],
+    # above M 64: the fold weighed at half and at twice the model's
+    "fold_kb_half": [(_FOLD_KB, _FOLD_KB.replace("16", "8"))],
+    "fold_kb_twice": [(_FOLD_KB, _FOLD_KB.replace("16", "32"))],
+    # above M 64: the tile fixed (128 W columns x 128 x rows, or 64 x 64;
+    # SwiGLU keeps 128 x 128), the split planned; and the split fixed at
+    # 1, 2 or 4 on each tile
+    **{f"inst_{name}": _force(i) for name, i in _INSTS.items()},
+    **{f"{name}_split_{n}": _force(i, n) for name, i in _INSTS.items()
+       for n in (1, 2, 4)},
+    # the 64 x 64 tiles two blocks an SM on a ring of 6 stages
+    "n64_minb2": [(_N64, "using N64 = Cfg<1, 64, 6, 2>;")],
     # the producer prefetches the three tensor maps before its first load
     "tmap_prefetch": [(_PRODUCER, _PRODUCER + "".join(
         f'      asm volatile("prefetch.tensormap [%0];" :: '
@@ -97,13 +141,10 @@ TUNINGS = {
     # an unsplit launch with the cluster attribute (a cluster of one)
     "cluster_1": [(_LAUNCH, "  cfg.numAttrs = 1;")],
     # decode: three blocks an SM, 4 stages each
-    "small_3": [(_SMALL, "using S8 = Cfg<8, 4, 3>;\nusing S16 = Cfg<16, 4, 3>;")],
-    # the epilogue's pairs a thread and round, the same in every instance
-    "epi_u1": [(_U, "    constexpr int U = 1;")],
-    "epi_u4": [(_U, "    constexpr int U = 4;")],
-    "epi_u8": [(_U, "    constexpr int U = 8;")],
+    "small_3": [(_SMALL, "using S8 = Cfg<2, 8, 4, 3>;\n"
+                         "using S16 = Cfg<2, 16, 4, 3>;")],
 }
-_NO_EPI = (_EPI, _EPI.replace("p0 = tid;", "p0 = P;"))
+_NO_EPI = (_EPI, _EPI.replace("p = tid;", "p = rows << lg;"))
 # the fold's exchange as a split of one (its barriers kept, no copies, no
 # wait)
 _NO_FOLD = [(_PUSH, _PUSH.replace("S, rank", "1, 0")), _NO_EPI]
@@ -114,7 +155,7 @@ ABLATIONS = {
     "copies_only": [(_MMA, "      (void)da, (void)db;")],
     # the epilogue's loads and arithmetic, stores only of a value it
     # never holds (so the arithmetic stays)
-    "epi_no_store": [(_STORE, "          if (x[u].x == 1.2345e-30f) "
+    "epi_no_store": [(_STORE, "    if (o[0] == 0x7fc17fc1u) "
                               + _STORE.strip())],
     # the ring, the wgmmas and the exchange of the partial slices; no
     # epilogue, no stores
@@ -124,11 +165,14 @@ ABLATIONS = {
     "no_fold": _NO_FOLD,
     # the TMA ring and its barriers alone
     "ring_only": [(_MMA, "      (void)da, (void)db;")] + _NO_FOLD,
+    # no K step: the launch, the barriers' set-up, the staging, the fold
+    # and the stores
+    "empty": [(_KB1, "  const int kb1 = kb0;")],
 }
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "BAR", "LDS", "STS", "LD", "STG",
             "LDG", "FADD", "MUFU")
 PLAN_KEYS = ("nx", "blocks_per_sm", "splits", "row_tiles", "col_tiles",
-             "k_steps", "resident_clusters")
+             "k_steps", "resident_clusters", "w_columns")
 
 
 def _ptxas(text):
@@ -233,9 +277,21 @@ def build_variants(srcs):
     return libs
 
 
+def epi_code(epi):
+    """The library's EPI_* of one of this script's epilogue names."""
+    from paddle_tpu_torch.kernels import build
+    if epi.startswith("bias_qkv"):
+        return build.EPI_BIAS
+    return {"none": build.EPI_NONE, "resid": build.EPI_RESID,
+            "swiglu": build.EPI_SWIGLU, "bias": build.EPI_BIAS,
+            "bias_resid": build.EPI_BIAS_RESID,
+            "bias_gelu": build.EPI_BIAS_GELU}[epi]
+
+
 def plan(lib, M, K, N, epi):
     """The library's launch plan of one bf16 call, or None where the
-    library has no ``pt_gemm_xw_plan`` (a tree before it)."""
+    library has no ``pt_gemm_xw_plan`` (a tree before it; a tree before
+    the 64-column tiles reports no ``w_columns``: its tiles are 128)."""
     from paddle_tpu_torch.kernels import build
     try:
         fn = lib.pt_gemm_xw_plan
@@ -244,15 +300,18 @@ def plan(lib, M, K, N, epi):
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(PLAN_KEYS))()
-    code = {"none": build.EPI_NONE, "resid": build.EPI_RESID,
-            "swiglu": build.EPI_SWIGLU}[epi]
-    build.check(fn(M, K, N, code, out), "pt_gemm_xw_plan")
-    return dict(zip(PLAN_KEYS, out))
+    build.check(fn(M, K, N, epi_code(epi), out), "pt_gemm_xw_plan")
+    got = dict(zip(PLAN_KEYS, out))
+    got["w_columns"] = got["w_columns"] or 128
+    return got
 
 
 def operands(M, K, N, epi, dt, gen, copies=1):
-    """x [M, K], ``copies`` weights [K, N] (and as many w2 for SwiGLU), the
-    residual for ``resid``; std 0.02 weights as chip_smoke's layer."""
+    """x [M, K], ``copies`` weights [K, N] (and as many w2 for SwiGLU), and
+    the epilogue's keyword arguments of ``gemm_xw_cuda`` / ``gemm_xw_ref``
+    (residual, bias, GELU; the qkv split's head dim comes apart, since
+    the plain version returns the product unsplit); std 0.02 weights as
+    chip_smoke's layer, biases std 0.1."""
     import torch
 
     def t(*shape, scale=1.0):
@@ -261,14 +320,22 @@ def operands(M, K, N, epi, dt, gen, copies=1):
     ws = [t(K, N, scale=0.02) for _ in range(copies)]
     w2s = [t(K, N, scale=0.02) for _ in range(copies)] \
         if epi == "swiglu" else [None] * copies
-    r = t(M, N) if epi == "resid" else None
-    return t(M, K), ws, w2s, r
+    kw = {}
+    if epi in ("resid", "bias_resid"):
+        kw["residual"] = t(M, N)
+    if epi.startswith("bias"):
+        kw["bias"] = t(N, scale=0.1)
+    if epi == "bias_gelu":
+        kw["gelu"] = True
+    return t(M, K), ws, w2s, kw
 
 
-def call(fn, x, w, w2, r):
-    kw = {"w2": w2} if w2 is not None else \
-        {"residual": r} if r is not None else {}
-    return fn(x, w, **kw)
+def call(fn, x, w, w2, kw, qkv_d=0):
+    """One call of ``gemm_xw_cuda`` / ``gemm_xw_ref``; ``qkv_d``: the
+    kernel's split store (the plain version is split by the caller)."""
+    if w2 is not None:
+        return fn(x, w, w2=w2)
+    return fn(x, w, **kw, **({"qkv_head_dim": qkv_d} if qkv_d else {}))
 
 
 def check_variant(name, gen):
@@ -281,16 +348,20 @@ def check_variant(name, gen):
     from paddle_tpu_torch.ops.cuda import layer
     worst = 0.0
     for M, Kd, N, epi in CASES:
+        D = QKV_D.get(epi, 0)
         for dtn, dt in (("bfloat16", torch.bfloat16),
                         ("float32", torch.float32)):
             if dt == torch.float32 and Kd > 1024:
                 continue
-            x, (w,), (w2,), r = operands(M, Kd, N, epi, dt, gen)
-            ref = call(K.gemm_xw_ref, x, w, w2, r)
+            x, (w,), (w2,), kw = operands(M, Kd, N, epi, dt, gen)
+            ref = call(K.gemm_xw_ref, x, w, w2, kw)
+            if D:
+                ref = torch.stack(K.qkv_split_ref(ref, D))
             outs = []
             for _ in range(2):
                 layer.reset_counts()
-                outs.append(call(K.gemm_xw_cuda, x, w, w2, r))
+                out = call(K.gemm_xw_cuda, x, w, w2, kw, D)
+                outs.append(torch.stack(out) if D else out)
                 torch.cuda.synchronize()
                 got = {k: v for k, v in layer.launch_counts().items() if v}
                 want = "gemm_xw_f32" if dt == torch.float32 else \
@@ -310,59 +381,78 @@ def check_variant(name, gen):
 
 
 def bytes_ops(M, K, N, epi):
+    """The bytes one call must move (x, the weights, y, the residual and
+    the bias once each) and its operations."""
     nw = 2 if epi == "swiglu" else 1
-    nbytes = (M * K + nw * K * N + M * N + (M * N if epi == "resid" else 0))
+    nbytes = (M * K + nw * K * N + M * N
+              + (M * N if epi in ("resid", "bias_resid") else 0)
+              + (N if epi.startswith("bias") else 0))
     return 2 * nbytes, 2 * nw * M * K * N
 
 
-def time_chain(libs, order, gen, report):
-    """Device ms a launch of each chain GEMM at each M, the variants in
-    ``order``, each call on the next of the weight copies."""
+def library(x, w, w2, kw):
+    """One torch.matmul (two for SwiGLU), then the GPT epilogue's bias,
+    GELU and residual as torch ops: the yardstick, used nowhere in the
+    port."""
+    import torch
+    y = torch.matmul(x, w)
+    if w2 is not None:
+        torch.matmul(x, w2)
+    if "bias" in kw:
+        y = y + kw["bias"]
+        if kw.get("gelu"):
+            y = torch.nn.functional.gelu(y, approximate="tanh")
+    return y + kw["residual"] if "residual" in kw else y
+
+
+def time_chain(libs, order, gen, report, chain):
+    """Device ms a launch of each of ``chain``'s GEMMs at each M, the
+    variants in ``order``; the llama_7b chain on the next of its cold
+    weight copies each call, the GPT chain on one warm weight."""
     import torch
     from paddle_tpu_torch.kernels import build
     from paddle_tpu_torch.ops.cuda import kernels as K
-    for label, Kd, N, epi in CHAIN:
+    cold = chain == "llama"
+    for label, Kd, N, epi in CHAINS[chain]:
         nw = 2 if epi == "swiglu" else 1
-        copies = max(1, math.ceil(COLD_BYTES / (2 * nw * Kd * N)))
-        for M in ROWS:
-            x, ws, w2s, r = operands(M, Kd, N, epi, torch.bfloat16, gen,
-                                     copies)
+        copies = max(1, math.ceil(COLD_BYTES / (2 * nw * Kd * N))) \
+            if cold else 1
+        D = QKV_D.get(epi, 0)
+        for M in (LLAMA_ROWS if cold else GPT_ROWS):
+            x, ws, w2s, kw = operands(M, Kd, N, epi, torch.bfloat16, gen,
+                                      copies)
             turn = [0]
 
-            def nxt(fn):
+            def nxt():
                 i = turn[0] = (turn[0] + 1) % copies
-                return call(fn, x, ws[i], w2s[i], r)
+                return x, ws[i], w2s[i], kw
 
-            def library():
-                i = turn[0] = (turn[0] + 1) % copies
-                y = torch.matmul(x, ws[i])
-                if w2s[i] is not None:
-                    torch.matmul(x, w2s[i])
-                return y
+            def kernel():
+                return call(K.gemm_xw_cuda, *nxt(), D)
+
             times = {name: [] for name in libs}
             hosts = {name: [] for name in libs}
             for name in order:
                 build._lib = libs[name][0]
-                ms, call_ms = cs.time_ms(lambda: nxt(K.gemm_xw_cuda), ITERS,
-                                         per_launch=True)
+                ms, call_ms = cs.time_ms(kernel, ITERS, per_launch=True)
                 times[name].append(call_ms if ms is None else ms)
-                hosts[name].append(cs.host_ms(lambda: nxt(K.gemm_xw_cuda)))
-            lib_ms = cs.time_ms(library, ITERS)[0]
+                hosts[name].append(cs.host_ms(kernel))
+            lib_ms = cs.time_ms(lambda: library(*nxt()), ITERS)[0]
             bms, bby = cs.bound_ms(*bytes_ops(M, Kd, N, epi))
-            key = f"{label} M {M} [{Kd}x{N}] {epi}"
+            key = f"{chain} {label} M {M} [{Kd}x{N}] {epi}"
             for name, ts in times.items():
                 mean = sum(ts) / len(ts)
-                p = plan(libs[name][0], M, Kd, N, epi)
+                pl = plan(libs[name][0], M, Kd, N, epi)
                 report["variants"][name][key] = dict(
                     ms=ts, mean_ms=mean, bound_ms=bms, bound_by=bby,
-                    cublas_ms=lib_ms, of_bound=bms / mean,
-                    x_cublas=mean / lib_ms, host_ms=hosts[name], plan=p)
+                    library_ms=lib_ms, of_bound=bms / mean,
+                    x_library=mean / lib_ms, host_ms=hosts[name], plan=pl)
                 cs.info(f"{key} {name}: {[round(t, 5) for t in ts]} ms "
                         f"(mean {mean:.5f}), bound {bms:.5f} ({bby}, "
-                        f"{100 * bms / mean:.1f} %), cuBLAS {lib_ms:.5f} "
+                        f"{100 * bms / mean:.1f} %), library {lib_ms:.5f} "
                         f"({mean / lib_ms:.2f}x), host ms a call "
-                        f"{[round(h, 4) for h in hosts[name]]}; plan {p}")
-            del x, ws, w2s, r
+                        f"{[round(h, 4) for h in hosts[name]]}; plan {pl}")
+            del x, ws, w2s, kw
             torch.cuda.empty_cache()
 
 
@@ -374,6 +464,7 @@ def main():
     ap.add_argument("--only", default="")
     ap.add_argument("--no-time", action="store_true")
     ap.add_argument("--turns", type=int, default=1)
+    ap.add_argument("--chain", default="llama,gpt")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -387,13 +478,15 @@ def main():
         srcs[name] = (Path(tree).resolve()
                       / "paddle_tpu_torch/kernels/csrc/gemm.cu")
     srcs["change"] = build.CSRC / "gemm.cu"
+    keep = args.only.split(",") if args.only else None
     for name, cuts in ({**TUNINGS, **ABLATIONS}.items() if args.ablate
                        else ()):
+        if keep and name not in keep:
+            continue
         srcs[name] = build.BUILD_DIR / "ab" / f"gemm_{name}.cu"
         srcs[name].parent.mkdir(parents=True, exist_ok=True)
         srcs[name].write_text(_edited(srcs["change"].read_text(), cuts))
-    if args.only:
-        keep = args.only.split(",")
+    if keep:
         srcs = {k: v for k, v in srcs.items() if k in keep}
     libs = build_variants(srcs)
     report = {"card": card, "variants": {}}
@@ -416,7 +509,8 @@ def main():
         report["variants"][name]["max_abs_err"] = check_variant(name, gen)
     if not args.no_time:
         order = (list(libs) + list(reversed(libs))) * args.turns
-        time_chain(libs, order, gen, report)
+        for chain in args.chain.split(","):
+            time_chain(libs, order, gen, report, chain)
     out = ROOT / "chiprun_out" / "gemm_ab.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(report, indent=1))

@@ -38,16 +38,18 @@ checks each variant against ``weight_only_matmul[_int4]_ref`` on
 the plain bf16 version, as ``chip_smoke.py`` holds it), then times, the
 variants in turns (a, b, ..., b, a):
 
-* the quantized serving chain's layer GEMMs at M 256 through the layer
-  entry (``wo_layer_cuda``, ``pt_wo_layer``) with their epilogues: a
-  llama_7b layer's seven (``chip_smoke.QUANT_MATMULS``: residual on o and
-  down, SwiGLU on up) in int8 and int4 per channel, and a GPT-125M
-  layer's four (``chip_smoke.GPT_MATMULS``: bias, the qkv split, GELU,
-  residual) in int8 per channel and int4 groups of 64; each GEMM's device
-  ms, the sum, the launch plan each took (``pt_wo_plan``: x rows a tile,
-  K splits), the bound and cuBLAS on the weights dequantized to bf16
-  beforehand (no epilogue); each variant's outputs checked first against
-  ``wo_layer_ref``, two calls bit-identical;
+* the quantized serving chain's layer GEMMs at M 256 (``wo_wgmma``) and
+  at the decode rows M 4 (``wo_dec``) through the layer entry
+  (``wo_layer_cuda``, ``pt_wo_layer``) with their epilogues: a llama_7b
+  layer's seven (``chip_smoke.QUANT_MATMULS``: residual on o and down,
+  SwiGLU on up) in int8 and int4 per channel, and a GPT-125M layer's four
+  (``chip_smoke.GPT_MATMULS``: bias, the qkv split, GELU, residual) in
+  int8 per channel and int4 groups of 64, the qkv product also stored
+  row-major (``qkv_rowmajor``: what the split store costs); each GEMM's
+  device ms, the sum, the launch plan each took at M 256 (``pt_wo_plan``:
+  x rows a tile, K splits), the bound and cuBLAS on the weights
+  dequantized to bf16 beforehand (no epilogue); each variant's outputs
+  checked first against ``wo_layer_ref``, two calls bit-identical;
 * the seven block matmuls of one llama_7b layer (``chip_smoke.py``'s
   ``LAYER_MATMULS``, per channel) at the decode rows M 8, 1 and 16 and the
   prefill rows M 1024 and 300, int8 and int4, beside the bound, cuBLAS on
@@ -116,8 +118,7 @@ _DEC_MMA = ("      WgmmaRS<C::NX>::mma(acc, A, (plane ? dhi : dlo) + 2 * step, "
             "keep);")
 _DEC_RANGE = "  const int kb0 = nk * rank / S, kb1 = nk * (rank + 1) / S;"
 _DEC_PUSH = "  splitk::push<C::NX>(red, recv, recv_bar, S, rank, tid);"
-_DEC_SPLIT = """  const int splits =
-      splitk::best_split(tiles, nk, occ->clusters[inst], FOLD_STEPS);"""
+_DEC_SPLIT = "  p->splits = splitk::best_split(p->tiles, p->nk, res, FOLD_STEPS);"
 _DEC_FOLD = "constexpr int FOLD_STEPS = 12;"
 _DEC_MINB = "  static constexpr int MINB = 2;               // blocks an SM"
 _DEC_RING = ("  static constexpr int RING = 100 * 1024;      // stage bytes a "
@@ -176,7 +177,7 @@ TUNINGS = {
        for n in (4, 16)},
     # the split's cap at one wave more than the unsplit launch, lifted
     "no_wave_cap": [(_CAP, _CAP.replace("waves > waves1 + 1", "false"))],
-    **{f"dec_split_{n}": [(_DEC_SPLIT, f"  const int splits = nk < {n} ? nk "
+    **{f"dec_split_{n}": [(_DEC_SPLIT, f"  p->splits = p->nk < {n} ? p->nk "
                                        f": {n};")] for n in (2, 4, 8)},
     **{f"dec_fold_{n}": [(_DEC_FOLD, _DEC_FOLD.replace("12", str(n)))]
        for n in (4, 24)},
@@ -338,9 +339,11 @@ def check_variant(name, gen):
     return worst
 
 
-# the chain's layer GEMMs at M 256: (family, width, group size, [(label, K,
-# N, epilogue)]), epilogues as chip_smoke.py names them
+# the chain's layer GEMMs at M 256 (wo_wgmma) and at the decode rows M 4
+# (wo_dec): (family, width, group size, [(label, K, N, epilogue)]),
+# epilogues as chip_smoke.py names them
 CHAIN_M = 256
+DEC_M = 4
 CHAIN = [("llama_7b", w, -1, [(n, K, N, e) for (n, e), (_, K, N) in zip(
     cs.QUANT_MATMULS, cs.LAYER_MATMULS)]) for w in ("int8", "int4")] + [
     ("gpt_125m", w, g, list(cs.GPT_MATMULS)) for w, g in cs.GPT_WO_TIMED]
@@ -368,7 +371,7 @@ def chain_kw(epi, M, N, gen):
 
 def chain_weights(gen):
     """{(family, width, gs): [(label, K, N, epi, codes, scale, bf16 weight
-    dequantized beforehand, epilogue kw)]} at M CHAIN_M."""
+    dequantized beforehand, {M: epilogue kw} at CHAIN_M and DEC_M)]}."""
     import torch
     from paddle_tpu_torch.nn.quant import weight_quantize
     from paddle_tpu_torch.ops.quant_linear import unpack_int4
@@ -383,7 +386,8 @@ def chain_weights(gen):
             wdq = (w * (scale if gs == -1 else scale.repeat_interleave(
                 gs, 0)[:K])).to(torch.bfloat16)
             rows.append((label, K, N, epi, codes, scale, wdq,
-                         chain_kw(epi, CHAIN_M, N, gen)))
+                         {M: chain_kw(epi, M, N, gen)
+                          for M in (CHAIN_M, DEC_M)}))
         out[(fam, width, gs)] = rows
     return out
 
@@ -399,33 +403,37 @@ def chain_out(got, plain, kw):
 
 
 def check_chain(name, weights, xs):
-    """Each chain GEMM at M CHAIN_M through the layer entry against
-    ``wo_layer_ref`` (the ratio rule), two calls bit-identical; raises on
-    the first miss."""
+    """Each chain GEMM at M CHAIN_M and DEC_M through the layer entry
+    against ``wo_layer_ref`` (the ratio rule), two calls bit-identical;
+    raises on the first miss."""
     import torch
     from paddle_tpu_torch.ops.cuda import kernels as K
     for (fam, width, gs), rows in weights.items():
-        for label, Kd, N, epi, codes, scale, _, kw in rows:
-            x = xs[Kd]
-            ref_kw = {k: v for k, v in kw.items() if k != "qkv_head_dim"}
-            a, b = (K.wo_layer_cuda(x, codes, scale, width=width,
-                                    group_size=gs, **kw) for _ in range(2))
-            torch.cuda.synchronize()
-            if not all(torch.equal(u, v) for u, v in zip(
-                    *(o if isinstance(o, tuple) else (o,) for o in (a, b)))):
-                raise cs.SmokeFailure(f"{name} chain {fam} {width} g{gs} "
-                                      f"{label}: a second call differs")
-            plain = K.wo_layer_ref(x, codes, scale, width=width,
-                                   group_size=gs, **ref_kw)
-            truth = K.wo_layer_ref(x.float(), codes, scale, width=width,
-                                   group_size=gs, **{
-                                       k: v.float() if hasattr(v, "float")
-                                       else v for k, v in ref_kw.items()})
-            got, plain = chain_out(a, plain, kw)
-            _, truth = chain_out(a, truth, kw)
-            cs.check_layer_out(f"{name} chain {fam} {width} g{gs} {label} "
-                               f"M {CHAIN_M}", got, plain, truth,
-                               cs.TOL["bfloat16"])
+        for label, Kd, N, epi, codes, scale, _, kws in rows:
+            for M, kw in kws.items():
+                x = xs[M][Kd]
+                ref_kw = {k: v for k, v in kw.items() if k != "qkv_head_dim"}
+                a, b = (K.wo_layer_cuda(x, codes, scale, width=width,
+                                        group_size=gs, **kw)
+                        for _ in range(2))
+                torch.cuda.synchronize()
+                if not all(torch.equal(u, v) for u, v in zip(
+                        *(o if isinstance(o, tuple) else (o,)
+                          for o in (a, b)))):
+                    raise cs.SmokeFailure(f"{name} chain {fam} {width} g{gs} "
+                                          f"{label} M {M}: a second call "
+                                          f"differs")
+                plain = K.wo_layer_ref(x, codes, scale, width=width,
+                                       group_size=gs, **ref_kw)
+                truth = K.wo_layer_ref(x.float(), codes, scale, width=width,
+                                       group_size=gs, **{
+                                           k: v.float() if hasattr(v, "float")
+                                           else v for k, v in ref_kw.items()})
+                got, plain = chain_out(a, plain, kw)
+                _, truth = chain_out(a, truth, kw)
+                cs.check_layer_out(f"{name} chain {fam} {width} g{gs} {label} "
+                                   f"M {M}", got, plain, truth,
+                                   cs.TOL["bfloat16"])
 
 
 def _bm_splits(plan):
@@ -433,49 +441,61 @@ def _bm_splits(plan):
     return plan and (plan["bm"], plan["splits"])
 
 
-def time_chain(libs, order, weights, xs, report):
-    """Each chain GEMM's device ms at M CHAIN_M, every variant in
-    ``order`` (their turns), beside the bound and cuBLAS on the weights
-    dequantized beforehand (no epilogue), with the plan each took."""
+def time_chain(libs, order, weights, xs, report, M):
+    """Each chain GEMM's device ms at M (CHAIN_M: wo_wgmma; DEC_M:
+    wo_dec), every variant in ``order`` (their turns), beside the bound and
+    cuBLAS on the weights dequantized beforehand (no epilogue), with the
+    plan each took at CHAIN_M; a qkv product stored split is timed again
+    stored row-major (``<label>_rowmajor``: the split store's cost)."""
     import torch
     from paddle_tpu_torch.kernels import build
     from paddle_tpu_torch.ops.cuda import kernels as K
     for (fam, width, gs), rows in weights.items():
-        label = f"chain {fam} {width} g{gs} M {CHAIN_M}"
-        per = {name: {r[0]: [] for r in rows} for name in libs}
+        label = f"chain {fam} {width} g{gs} M {M}"
+        calls = []
+        for lab, Kd, N, epi, codes, scale, wdq, kws in rows:
+            kw = kws[M]
+            calls.append((lab, Kd, N, epi, codes, scale, wdq, kw))
+            if "qkv_head_dim" in kw:
+                calls.append((f"{lab}_rowmajor", Kd, N, epi, codes, scale,
+                              wdq, {k: v for k, v in kw.items()
+                                    if k != "qkv_head_dim"}))
+        per = {name: {c[0]: [] for c in calls} for name in libs}
         for name in order:
             build._lib = libs[name][0]
-            for lab, Kd, N, epi, codes, scale, _, kw in rows:
+            for lab, Kd, N, epi, codes, scale, _, kw in calls:
                 per[name][lab].append(cs.time_ms(
-                    lambda: K.wo_layer_cuda(xs[Kd], codes, scale,
+                    lambda: K.wo_layer_cuda(xs[M][Kd], codes, scale,
                                             width=width, group_size=gs,
                                             **kw), ITERS,
                     per_launch=True)[0])
         lib_ms, bounds = {}, {}
-        for lab, Kd, N, epi, codes, scale, wdq, _ in rows:
-            lib_ms[lab] = cs.time_ms(lambda: torch.matmul(xs[Kd], wdq),
+        for lab, Kd, N, epi, codes, scale, wdq, _ in calls:
+            lib_ms[lab] = cs.time_ms(lambda: torch.matmul(xs[M][Kd], wdq),
                                      ITERS)[0]
             bounds[lab] = cs.bound_ms(*cs.wo_layer_bytes_ops(
-                CHAIN_M, [((Kd, N), "none" if epi in ("bias", "bias_gelu",
-                                                      "none") else "resid")],
+                M, [((Kd, N), "none" if epi in ("bias", "bias_gelu",
+                                                "none") else "resid")],
                 width, gs))[0]
+        layer_labs = [r[0] for r in rows]
         for name in libs:
             gemms = {}
-            for lab, Kd, N, *_ in rows:
+            for lab, Kd, N, *_ in calls:
                 ts = per[name][lab]
                 gemms[lab] = dict(
                     ms=ts, mean_ms=sum(ts) / len(ts), bound_ms=bounds[lab],
                     cublas_ms=lib_ms[lab],
-                    plan=cs.wo_plan(CHAIN_M, Kd, N, width, gs,
-                                    lib=libs[name][0]))
-            total = sum(g["mean_ms"] for g in gemms.values())
+                    plan=cs.wo_plan(M, Kd, N, width, gs, lib=libs[name][0])
+                    if M > 16 else None)
+            total = sum(gemms[lab]["mean_ms"] for lab in layer_labs)
             report["variants"][name][label] = dict(
                 gemms=gemms, total_ms=total,
-                bound_ms=sum(bounds.values()),
-                cublas_ms=sum(lib_ms.values()))
+                bound_ms=sum(bounds[lab] for lab in layer_labs),
+                cublas_ms=sum(lib_ms[lab] for lab in layer_labs))
             cs.info(f"{label} {name}: {total:.5f} ms the layer's GEMMs "
-                    f"(bound {sum(bounds.values()):.5f}, cuBLAS "
-                    f"{sum(lib_ms.values()):.5f}); " + "; ".join(
+                    f"(bound {sum(bounds[lab] for lab in layer_labs):.5f}, "
+                    f"cuBLAS {sum(lib_ms[lab] for lab in layer_labs):.5f}); "
+                    + "; ".join(
                         f"{lab} {g['mean_ms']:.5f} (cuBLAS "
                         f"{g['cublas_ms']:.5f}, plan {_bm_splits(g['plan'])})"
                         for lab, g in gemms.items()))
@@ -694,9 +714,9 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
     weights = chain_weights(gen)
-    xs = {K: torch.randn(CHAIN_M, K, device="cuda", generator=gen).to(
+    xs = {M: {K: torch.randn(M, K, device="cuda", generator=gen).to(
         torch.bfloat16) for K in {r[1] for rows in weights.values()
-                                  for r in rows}}
+                                  for r in rows}} for M in (CHAIN_M, DEC_M)}
     for name, (lib, *_) in libs.items():
         if name in ABLATIONS:
             continue
@@ -705,7 +725,8 @@ def main():
             name, gen)
         check_chain(name, weights, xs)
     order = (list(libs) + list(reversed(libs))) * args.turns
-    time_chain(libs, order, weights, xs, report)
+    for M in (CHAIN_M, DEC_M):
+        time_chain(libs, order, weights, xs, report, M)
     del weights, xs
     torch.cuda.empty_cache()
     time_layers(libs, order, gen, report)
