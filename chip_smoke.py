@@ -27,14 +27,18 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             beforehand); kernel, plain and library times in bf16, each layer
             call's device time
             from its chain's kernels (``chain_ms``, which fails when one is
-            missing) and the host time of one ``decode_block`` call; then
+            missing), device-paced back to back (``paced_ms``: the gaps
+            between kernels counted, the host's enqueue not) and the host
+            time of one ``decode_block`` call; then
             the quantized chain (``quant_chain``): the weight-only layer
             GEMMs ``wo_layer_*`` in int8 and int4, per channel and groups
             of 64 / 128, each epilogue (none, residual, SwiGLU on the gate),
             M 4 / 16 / 256 in bf16 and fp32 x, and one case whose fp32
             scales bf16 rounding moves (the kernel nearer the fp32-scale
             plain version); ``rope_kv_write_q8`` bit-equal to its plain
-            version (fp32 and bf16, decode and Ts 256); ``paged_attention_q8``
+            version (fp32 and bf16, decode and Ts 256, random rows and the
+            hard rows of ``q8_hard_rows``: quotients on half-integers,
+            clipped absmax codes, zero and tiny rows); ``paged_attention_q8``
             at decode and prefill (bf16 rule, fp32 1e-4, GQA 32/4 and 32/16);
             whole int8 / int4 layers over int8 pools (and int8 g128 and an
             fp32 layer over full-width pools) against their plain versions
@@ -92,9 +96,15 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             split, the unrotated ``rope_kv_write`` bit-equal, one GPT
             ``decode_block`` and ``prefill_block``, fp32 1e-4 and bf16 2e-2
             or the ratio rule) with bf16 times beside bounds, plain versions
-            and library calls; then four prompts of 600 / 37 / 300 / 517
-            tokens chunk-filled over buckets (16, 64, 256) in 16-token pages
-            and 32 greedy new tokens each, launch counts exactly as
+            and library calls, the layer calls also device-paced; the
+            chain's race check (its LayerNorms and the products after them
+            run under programmatic dependent launch): 200 layer calls over
+            two inputs in turns, queued back to back, decode and Ts 256,
+            each bit-identical to the first on its input and that one
+            within tolerance of the plain chain; then four prompts of 600
+            / 37 / 300 / 517 tokens chunk-filled over buckets (16, 64, 256)
+            in 16-token pages and 32 greedy new tokens each, launch counts
+            exactly as
             predicted with the plain ops refused; the decode step's wall and
             busy ms, tokens/s and prefill ms per prompt; then at 2 layers the
             prefill and first decode step logits of the kernel path against
@@ -107,9 +117,11 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             epilogue and the qkv split, the bias and residual, the bias and
             GELU, at M 4 and 256 in int8 / int4 per channel and int4 g64,
             bf16 and the fp32 lane; the unrotated ``rope_kv_write_q8``
-            bit-equal; ``paged_attention_q8`` at D 64 with one q head a kv
-            head; quantized GPT ``decode_block`` / ``prefill_block``) with
-            bf16 times beside bounds, plain versions and library calls;
+            bit-equal on random and hard rows; ``paged_attention_q8`` at D
+            64 with one q head a kv head; quantized GPT ``decode_block`` /
+            ``prefill_block``, device-paced too, and the race check of the
+            int8 + int8 KV chain) with bf16 times beside bounds, plain
+            versions and library calls;
             then the rollout with launch counts exactly as predicted and
             the plain ops refused, its decode step's wall and busy ms,
             tokens/s and prefill ms beside the bf16 phase's; then at 2
@@ -528,6 +540,84 @@ def layer_launches(name, fn, norm="rms_norm_rows", gemms=6):
     return got
 
 
+def paced_ms(fn, calls=40, repeats=3):
+    """Device-paced ms a call of ``fn``: ``calls`` calls queued back to back
+    behind a ``torch.cuda._sleep`` long enough for the host to queue them
+    all, timed by CUDA events from the end of the sleep to the end of the
+    last call (the median of ``repeats``): the card's time for the calls,
+    the gaps between their kernels included and the host's enqueue left
+    out, which a kernel launched under a programmatic dependency overlaps
+    with the one ahead (the profiler's per-kernel times count such a
+    kernel's wait as its own).  Raises when the host could not queue the
+    calls inside the sleep."""
+    import statistics
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(10 ** 7)
+    e.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10 ** 7 / s.elapsed_time(e)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(repeats):
+        for _try in range(3):
+            sleep = 2.0 * host + 2.0
+            torch.cuda._sleep(int(sleep * cycles_per_ms))
+            s.record()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            queued = 1e3 * (time.perf_counter() - t0)
+            e.record()
+            busy = not s.query()            # the sleep still running
+            torch.cuda.synchronize()
+            if busy:
+                break
+            host = max(host, queued)
+        else:
+            raise SmokeFailure(f"paced_ms: the host took {queued:.2f} ms to "
+                               f"queue {calls} calls, past the sleep")
+        out.append(s.elapsed_time(e) / calls)
+    return statistics.median(out)
+
+
+# calls of a layer chain in the race check (chain_race_check)
+RACE_CALLS = 200
+
+
+def chain_race_check(tag, run, inputs, refs, tol):
+    """``run(x)`` (one layer call, returning its output) ``RACE_CALLS``
+    times, the ``inputs`` in turns and no synchronisation between calls, so
+    that each call's kernels queue right behind the last one's: every
+    output bit-identical to the first on the same input, and that one held
+    to its ``refs`` entry ``(plain, truth)`` by :func:`check_layer_out`.  A
+    kernel that read an activation (or wrote) before the kernel ahead of it
+    had finished would read the other input's values, left in the reused
+    scratch."""
+    import torch
+    outs = [run(inputs[i % len(inputs)]) for i in range(RACE_CALLS)]
+    torch.cuda.synchronize()
+    for j, (plain, truth) in enumerate(refs):
+        check_layer_out(f"{tag} race check input {j}", outs[j], plain, truth,
+                        tol)
+    bad = [i for i in range(RACE_CALLS)
+           if not torch.equal(outs[i], outs[i % len(inputs)])]
+    if bad:
+        raise SmokeFailure(f"{tag}: calls {bad[:8]} of {RACE_CALLS} differ "
+                           "from the first call on the same input")
+    info(f"{tag}: {RACE_CALLS} calls over {len(inputs)} inputs in turns, "
+         "queued back to back, bit-identical to the first call on each "
+         f"input, within tolerance of the plain chain")
+
+
 def one_launch_bitwise(name, fn):
     """``fn()`` twice: exactly one launch of kernel ``name`` each (the
     library's counters), the two results bit-identical; returns the
@@ -638,6 +728,76 @@ def rope_kv_inputs(M, Hq, Hkv, D, dt, gen, dev):
             for n in (Hq, Hkv, Hkv)]
 
 
+# the int8 pool's hard rows (q8_hard_rows), in turns
+Q8_HARD_KINDS = ("tie", "tie near", "clip", "zero", "tiny", "floor")
+
+
+def q8_hard_rows(rows, D, seed):
+    """``rows`` head rows of ``D`` values (float32 numpy; bf16 values but in
+    the "tie near" rows) that probe ``quantize_kv``'s arithmetic, one kind a row in
+    the turns of ``Q8_HARD_KINDS``: "tie", quotients exactly on a
+    half-integer (the absmax 127 2^e, so the scale is 2^e, and values (k +
+    1/2) 2^e); "tie near", a full-width absmax and values RN((k + 1/2)
+    scale) (exact ties where that product is exact, else a quotient within
+    an ulp of one; in fp32 only, bf16 rounds them off); "clip", the absmax
+    at both signs in several places, its quotient at 127 or just past it;
+    "zero", all zero (the 1e-8 floor); "tiny", values far below the floor
+    (1e-12 .. 1e-9, some 1e-30 and subnormal ones); "floor", an absmax
+    just past 1e-8."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    out = np.zeros((rows, D), f32)
+
+    def bf16(a):                    # round to the nearest bf16 value
+        u = np.asarray(a, f32).view(np.uint32).astype(np.uint64)
+        u = (u + 0x7FFF + ((u >> 16) & 1)) >> 16 << 16
+        return u.astype(np.uint32).view(f32)
+    for r in range(rows):
+        kind = Q8_HARD_KINDS[r % len(Q8_HARD_KINDS)]
+        if kind == "tie":
+            e = int(rng.integers(-20, 8))
+            k = rng.integers(-127, 127, D)
+            row = ((k + 0.5) * 2.0 ** e).astype(f32)
+            row[rng.integers(D)] = (127 if r % 2 else -127) * 2.0 ** e
+        elif kind == "tie near":
+            a = bf16(rng.uniform(1e-3, 30.0))
+            sc = np.float32(a) / np.float32(127)
+            k = rng.integers(-127, 127, D)
+            row = ((k + 0.5).astype(f32) * sc).astype(f32)
+            row[rng.integers(D)] = a
+        elif kind == "clip":
+            a = bf16(rng.uniform(0.5, 8.0))
+            row = bf16(rng.uniform(-1, 1, D).astype(f32) * a)
+            idx = rng.choice(D, 4, replace=False)
+            row[idx[:2]], row[idx[2:]] = a, -a
+        elif kind == "zero":
+            row = np.zeros(D, f32)
+        elif kind == "tiny":
+            row = bf16(rng.standard_normal(D).astype(f32)
+                       * f32(10.0 ** rng.uniform(-12, -9)))
+            row[:4] = bf16(np.array([1e-30, -3e-30, 1e-39, -2e-40], f32))
+        else:
+            row = bf16(rng.uniform(-1, 1, D).astype(f32) * f32(1e-8))
+            row[rng.integers(D)] = bf16(f32(1.02e-8))
+        out[r] = row
+    return out
+
+
+def rope_q8_hard_inputs(M, Hq, Hkv, D, dt, seed, dev):
+    """[q, k, v, cos, sin] of one rope_kv_write call whose k and v head
+    rows are :func:`q8_hard_rows` (k's and v's their own), with cos 1 and
+    sin 0 so that the rotation keeps k as it is; q random."""
+    import torch
+    k, v = (torch.from_numpy(q8_hard_rows(M * Hkv, D, seed + i)).reshape(
+        M, Hkv * D).to(dev).to(dt) for i in range(2))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn(M, Hq * D, device=dev, generator=gen).to(dt)
+    return [q, k, v, torch.ones(M, D, device=dev, dtype=dt),
+            torch.zeros(M, D, device=dev, dtype=dt)]
+
+
 def rope_kv_writes(tgt, pool):
     """Rows of one call whose pool write is kept."""
     from paddle_tpu_torch.ops.cuda import kernels as K
@@ -680,6 +840,35 @@ def check_rope_kv_bitwise(label, args, tgt):
         n = int((got != ref).sum())
         raise SmokeFailure(f"{label}: {n} values differ from the plain "
                            "version (bit-equal required)")
+
+
+def check_rope_q8_bitwise(label, q, k, v, c, s, pk, pv, tgt):
+    """rope_kv_write into the int8 pools ``pk`` / ``pv`` (copies) twice,
+    one ``rope_kv_write_q8`` launch each, bit-identical, and bit-equal to
+    ``rope_kv_write_ref`` (q, k, codes and scales); ``c`` / ``s`` None: no
+    rotation."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import kernels as K
+    D = pk.data.shape[-1]
+
+    def run():
+        qq, kk, gk, gv = q.clone(), k.clone(), q8_clone(pk), q8_clone(pv)
+        K.rope_kv_write_cuda(qq, kk, v, c, s, gk, gv, **tgt)
+        return tuple(bits(t) for t in (qq, kk, gk.data, gk.scale, gv.data,
+                                       gv.scale))
+    got = one_launch_bitwise("rope_kv_write_q8", run)
+    rq, rk = q.clone(), k.clone()
+    rpk, rpv = q8_clone(pk), q8_clone(pv)
+    rq, rk = K.rope_kv_write_ref(rq, rk, v, c, s, rpk, rpv, head_dim=D,
+                                 **tgt)
+    ref = tuple(bits(t) for t in (rq, rk, rpk.data, rpk.scale, rpv.data,
+                                  rpv.scale))
+    for part, g_, r_ in zip(("q", "k", "k codes", "k scales", "v codes",
+                             "v scales"), got, ref):
+        if not torch.equal(g_, r_):
+            raise SmokeFailure(
+                f"{label}: {part} differs from the plain version in "
+                f"{int((g_ != r_).sum())} values (bit-equal required)")
 
 
 def serving_tables(perm, BS, MB):
@@ -868,6 +1057,8 @@ def phase_kernels(cfg, results, dev="cuda"):
     _, call = time_ms(lambda: db.decode_block(
         x, lp, pk, pv, bt, lengths, cos, sin, spec=spec), 20, dec_by)
     ms = chain_ms(dec_by, "gemm_xw_small_m_tma")
+    paced = paced_ms(lambda: db.decode_block(
+        x, lp, pk, pv, bt, lengths, cos, sin, spec=spec))
     host = host_ms(lambda: db.decode_block(
         x, lp, pk, pv, bt, lengths, cos, sin, spec=spec))
     plain, plain_call = time_ms(lambda: db.decode_block_ref(
@@ -879,11 +1070,12 @@ def phase_kernels(cfg, results, dev="cuda"):
         replaces="paddle_tpu/ops/pallas/decode_block.py:535",
         shape="llama_7b layer, B=4, lengths 1000/37/0(inactive)/517",
         max_abs_err=kernel_err[("decode_block", "bfloat16")], ms=ms,
-        call_ms=call, host_ms=host, plain_ms=plain,
+        call_ms=call, paced_ms=paced, host_ms=host, plain_ms=plain,
         plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
         library_ms=None,
         bf16_vs_fp32_ratio=max(ratios[("decode_block", "bfloat16")])))
-    info(f"decode_block bf16: device {ms:.4f} ms (per call {call:.4f} ms, "
+    info(f"decode_block bf16: device {ms:.4f} ms (device-paced {paced:.4f} "
+         f"ms a call back to back; per call {call:.4f} ms, "
          f"call - device {call - ms:.4f} ms; host enqueue of one call, "
          f"median of 30: {host:.4f} ms), plain device {plain} ms (per call "
          f"{plain_call:.4f} ms), bound {bms:.4f} ms ({bby}); kernels "
@@ -911,18 +1103,22 @@ def phase_kernels(cfg, results, dev="cuda"):
             start=start), 10, pre_by)
         ms = chain_ms(pre_by, "gemm_xw_small_m_tma" if Ts <= 16
                       else "gemm_xw_tiled_wg")
+        paced = paced_ms(lambda: db.prefill_block(
+            xp, lp, pk, pv, blk, off, row, c, s, spec=spec, start=start),
+            calls=20) if Ts == 256 else None
         plain, plain_call = time_ms(lambda: db.prefill_block_ref(
             xp, lp, pk, pv, blk, off, row, c, s, spec=spec,
             start=start), 3)
         bms, bby = bound_ms(pre_bytes, pre_ops)
         info(f"prefill_block bf16 Ts={Ts} start={start} valid={valid}: "
-             f"device {ms:.4f} ms (per call {call:.4f} ms), plain device "
+             f"device {ms:.4f} ms (device-paced {paced}; per call "
+             f"{call:.4f} ms), plain device "
              f"{plain} ms (per call {plain_call:.4f} ms), bound {bms:.4f} ms "
              f"({bby}); kernels {short(pre_by)}")
-        return ms, call, plain, plain_call, bms, bby
+        return ms, call, paced, plain, plain_call, bms, bby
 
     for Ts, start, valid in pre_cases:
-        ms, call, plain, plain_call, bms, bby = prefill_times(
+        ms, call, paced, plain, plain_call, bms, bby = prefill_times(
             xs[Ts].to(dt), start, valid, bt_row)
         if Ts == 256:
             results.append(dict(
@@ -931,13 +1127,13 @@ def phase_kernels(cfg, results, dev="cuda"):
                 replaces="paddle_tpu/ops/pallas/prefill_block.py:435",
                 shape="llama_7b layer, Ts=256, start=300, valid=200",
                 max_abs_err=kernel_err[("prefill_block", "bfloat16")],
-                ms=ms, call_ms=call, plain_ms=plain,
+                ms=ms, call_ms=call, paced_ms=paced, plain_ms=plain,
                 plain_call_ms=plain_call, bound_ms=bms, bound_by=bby,
                 library_ms=None, bf16_vs_fp32_ratio=max(
                     ratios[("prefill_block", "bfloat16")])))
     unbucketed = []
     for Ts, start in ODD_CHUNKS:
-        ms, call, plain, plain_call, bms, bby = prefill_times(
+        ms, call, _, plain, plain_call, bms, bby = prefill_times(
             xo[Ts].to(dt), start, Ts, bt_odd)
         unbucketed.append(dict(Ts=Ts, start=start, ms=ms, call_ms=call,
                                plain_ms=plain, bound_ms=bms, bound_by=bby))
@@ -1665,31 +1861,22 @@ def quant_chain(cfg, results, lp32, pool32, bt, lengths, bt_row, cos_t,
     for dtn in ("float32", "bfloat16"):
         rdt = getattr(torch, dtn)
         for label, (M, tgt, c, s) in rope_cases.items():
-            q, k, v = rope_kv_inputs(M, Hq, Hkv, D, rdt, rgen, dev)
-            c, s = c.to(rdt), s.to(rdt)
             pk, pv = (q8_pool(p, rdt) for p in pool32)
-
-            def run():
-                qq, kk, gk, gv = q.clone(), k.clone(), q8_clone(pk), \
-                    q8_clone(pv)
-                K.rope_kv_write_cuda(qq, kk, v, c, s, gk, gv, **tgt)
-                return tuple(bits(t) for t in (qq, kk, gk.data, gk.scale,
-                                               gv.data, gv.scale))
-            got = one_launch_bitwise("rope_kv_write_q8", run)
-            rk, rv = q8_clone(pk), q8_clone(pv)
-            rq, rkk = K.rope_kv_write_ref(q, k, v, c, s, rk, rv, head_dim=D,
-                                          **tgt)
-            ref = tuple(bits(t) for t in (rq, rkk, rk.data, rk.scale,
-                                          rv.data, rv.scale))
-            for part, g_, r_ in zip(("q", "k", "k codes", "k scales",
-                                     "v codes", "v scales"), got, ref):
-                if not torch.equal(g_, r_):
-                    raise SmokeFailure(
-                        f"rope_kv_write_q8 {label} {dtn}: {part} differs from "
-                        f"the plain version in {int((g_ != r_).sum())} values "
-                        "(bit-equal required)")
-            rope_in[(label, dtn)] = (q, k, v, c, s, pk, pv)
-    info(f"rope_kv_write_q8: {', '.join(rope_cases)} in fp32 and bf16 "
+            # random rows, then the hard rows (ties, clips, zero and tiny
+            # rows) through an identity rotation
+            for hard in (False, True):
+                if hard:
+                    q, k, v, c, s = rope_q8_hard_inputs(
+                        M, Hq, Hkv, D, rdt, SEED + 28 + M, dev)
+                else:
+                    q, k, v = rope_kv_inputs(M, Hq, Hkv, D, rdt, rgen, dev)
+                    c, s = c.to(rdt), s.to(rdt)
+                    rope_in[(label, dtn)] = (q, k, v, c, s, pk, pv)
+                check_rope_q8_bitwise(
+                    f"rope_kv_write_q8 {label}{' hard rows' if hard else ''} "
+                    f"{dtn}", q, k, v, c, s, pk, pv, tgt)
+    info(f"rope_kv_write_q8: {', '.join(rope_cases)} in fp32 and bf16, "
+         f"random rows and the hard rows ({', '.join(Q8_HARD_KINDS)}), "
          "bit-equal to the plain version (q, k, codes and scales), one "
          "launch a call, calls bit-identical")
     rope = {}
@@ -1906,6 +2093,8 @@ def quant_chain(cfg, results, lp32, pool32, bt, lengths, bt_row, cos_t,
             _, call = time_ms(lambda: db.decode_block(
                 x, ql, pk, pv, bt, lengths, cos, sin, spec=spec), 20, by)
             dms = quant_chain_ms(by, "wo_dec")
+            paced = paced_ms(lambda: db.decode_block(
+                x, ql, pk, pv, bt, lengths, cos, sin, spec=spec))
             host = host_ms(lambda: db.decode_block(
                 x, ql, pk, pv, bt, lengths, cos, sin, spec=spec))
             xp = torch.randn(1, 256, H, device=dev, generator=gen).to(ldt)
@@ -1919,14 +2108,19 @@ def quant_chain(cfg, results, lp32, pool32, bt, lengths, bt_row, cos_t,
                 xp, ql, pk, pv, blk, off, bt_row, c, s, spec=spec,
                 start=300), 10, pby)
             pms = quant_chain_ms(pby, "wo_wgmma")
+            ppaced = paced_ms(lambda: db.prefill_block(
+                xp, ql, pk, pv, blk, off, bt_row, c, s, spec=spec,
+                start=300), calls=20)
             layer_ms[f"{width} g{gs} + int8 KV"] = dict(
-                decode_ms=dms, decode_call_ms=call, decode_host_ms=host,
-                prefill_ts256_ms=pms, prefill_call_ms=pcall,
+                decode_ms=dms, decode_call_ms=call, decode_paced_ms=paced,
+                decode_host_ms=host, prefill_ts256_ms=pms,
+                prefill_call_ms=pcall, prefill_paced_ms=ppaced,
                 decode_kernels=short(by))
             info(f"decode_block bf16 {width} g{gs} + int8 KV: device {dms:.4f}"
-                 f" ms (per call {call:.4f}; host enqueue, median of 30: "
-                 f"{host:.4f} ms); prefill_block Ts 256: device {pms:.4f} ms "
-                 f"(per call {pcall:.4f}); kernels {short(by)}")
+                 f" ms (device-paced {paced:.4f}; per call {call:.4f}; host "
+                 f"enqueue, median of 30: {host:.4f} ms); prefill_block Ts "
+                 f"256: device {pms:.4f} ms (device-paced {ppaced:.4f}; per "
+                 f"call {pcall:.4f}); kernels {short(by)}")
         del ql, qf, pk0, pv0
         torch.cuda.empty_cache()
     for r in results:
@@ -3228,6 +3422,7 @@ def gpt_layer_checks(cfg, results, dev="cuda"):
     _, call = time_ms(dec_call, 50, dec_by)
     ms = chain_ms(dec_by, "gemm_xw_small_m_tma",
                   {**per, "gemm_xw_small_m_tma": GPT_GEMMS})
+    paced = paced_ms(dec_call)
     host = host_ms(dec_call)
     plain, plain_call = time_ms(lambda: db.decode_block_ref(
         x, lp, pk, pv, bt, lengths, None, None, spec=spec), 5)
@@ -3236,11 +3431,13 @@ def gpt_layer_checks(cfg, results, dev="cuda"):
     by_name["decode_block"]["gpt"] = dict(
         shape="GPT-125M layer, B=4, lengths 1000/37/0(inactive)/517",
         max_abs_err=kernel_err[("decode_block", "bfloat16")], ms=ms,
-        call_ms=call, host_ms=host, plain_ms=plain, plain_call_ms=plain_call,
-        bound_ms=dms, bound_by=dby, library_ms=None,
+        call_ms=call, paced_ms=paced, host_ms=host, plain_ms=plain,
+        plain_call_ms=plain_call, bound_ms=dms, bound_by=dby,
+        library_ms=None,
         bf16_vs_fp32_ratio=max(ratios[("decode_block", "bfloat16")]))
     info(f"GPT decode_block bf16 (GPT-125M layer, B=4): device {ms:.5f} ms "
-         f"(per call {call:.4f} ms; host enqueue {host:.4f} ms), plain "
+         f"(device-paced {paced:.5f} ms a call back to back; per call "
+         f"{call:.4f} ms; host enqueue {host:.4f} ms), plain "
          f"device {plain} ms, bound {dms:.5f} ms ({dby}), device / bound "
          f"{ms / dms:.1f}; kernels {short(dec_by)}")
     layer_ms = (ms, dms)
@@ -3260,6 +3457,7 @@ def gpt_layer_checks(cfg, results, dev="cuda"):
         _, call = time_ms(pre_call, 20, pre_by)
         gemm = "gemm_xw_small_m_tma" if Ts <= 16 else "gemm_xw_tiled_wg"
         ms = chain_ms(pre_by, gemm, {**per, gemm: GPT_GEMMS})
+        paced = paced_ms(pre_call)
         plain, plain_call = time_ms(lambda: db.prefill_block_ref(
             xp, lp, pk, pv, blk, off, bt_row, None, None, spec=spec,
             start=start), 3)
@@ -3267,18 +3465,62 @@ def gpt_layer_checks(cfg, results, dev="cuda"):
             cfg, None, -1, False, Ts, start + Ts, valid,
             sum(start + i + 1 for i in range(Ts))))
         info(f"GPT prefill_block bf16 Ts={Ts} start={start} valid={valid}: "
-             f"device {ms:.5f} ms (per call {call:.4f} ms), plain device "
+             f"device {ms:.5f} ms (device-paced {paced:.5f}; per call "
+             f"{call:.4f} ms), plain device "
              f"{plain} ms, bound {pms:.5f} ms ({pby}); kernels "
              f"{short(pre_by)}")
         if Ts == 256:
             by_name["prefill_block"]["gpt"] = dict(
                 shape="GPT-125M layer, Ts=256, start=300, valid=200",
                 max_abs_err=kernel_err[("prefill_block", "bfloat16")],
-                ms=ms, call_ms=call, plain_ms=plain,
+                ms=ms, call_ms=call, paced_ms=paced, plain_ms=plain,
                 plain_call_ms=plain_call, bound_ms=pms, bound_by=pby,
                 library_ms=None, bf16_vs_fp32_ratio=max(
                     ratios[("prefill_block", "bfloat16")]))
+    gpt_race_checks("GPT bf16", spec, lp, pk, pv, bt, lengths, bt_row, NB,
+                    gen, tol, dev)
     return layer_ms
+
+
+def gpt_race_checks(tag, spec, lp, pk0, pv0, bt, lengths, bt_row, NB, gen,
+                    tol, dev="cuda"):
+    """:func:`chain_race_check` of the GPT layer ``lp`` (its LayerNorms and
+    the products after them under programmatic dependencies) at decode (B
+    4 over ``bt`` / ``lengths``) and at a Ts 256 prefill chunk after 300
+    positions (200 valid rows), two inputs each, over copies of the pools
+    ``pk0`` / ``pv0``."""
+    import torch
+    from paddle_tpu_torch.ops import decode_block as db
+    H, dt = spec.hidden, next(v for k, v in lp.items() if "__" not in k).dtype
+    pos = 300 + torch.arange(256, device=dev)
+    blk = bt_row.clamp(min=0)[pos // spec.block_size]
+    blk[200:] = NB
+    blk = blk.to(torch.int32)
+    off = (pos % spec.block_size).to(torch.int32)
+    cases = {
+        "decode": ((4, H), lambda x, lq, pk, pv, fn=db.decode_block:
+                   fn(x, lq, pk, pv, bt, lengths, None, None, spec=spec)[0],
+                   slice(None)),
+        "prefill Ts 256": ((1, 256, H), lambda x, lq, pk, pv,
+                           fn=db.prefill_block: fn(
+                               x, lq, pk, pv, blk, off, bt_row, None, None,
+                               spec=spec, start=300)[0],
+                           (slice(None), slice(0, 200)))}
+    for label, (shape, call, keep) in cases.items():
+        xs = [torch.randn(*shape, device=dev, generator=gen).to(dt)
+              for _ in range(2)]
+        refs = []
+        for x in xs:
+            plain = call(x, lp, pool_clone(pk0), pool_clone(pv0),
+                         fn=db.decode_block_ref if label == "decode"
+                         else db.prefill_block_ref)
+            truth = call(x.float(), _f32_layer(lp), truth_pool(pk0),
+                         truth_pool(pv0), fn=db.decode_block_ref
+                         if label == "decode" else db.prefill_block_ref)
+            refs.append((plain[keep], truth[keep]))
+        pk, pv = pool_clone(pk0), pool_clone(pv0)
+        chain_race_check(f"{tag} {label}",
+                         lambda x: call(x, lp, pk, pv)[keep], xs, refs, tol)
 
 
 def gpt_layer_bytes_ops(cfg, width, gs, kvq, M, live, writes, pairs=None,
@@ -3578,29 +3820,15 @@ def gpt_quant_checks(cfg, results, dev="cuda"):
                                                None, BS).items():
         for dtn in ("float32", "bfloat16"):
             rdt = getattr(torch, dtn)
-            q, k, v = rope_kv_inputs(M, Hq, Hq, D, rdt, gen, dev)
             pk, pv = (q8_pool(p, rdt) for p in pool32)
-
-            def run():
-                qq, kk, gk, gv = q.clone(), k.clone(), q8_clone(pk), \
-                    q8_clone(pv)
-                K.rope_kv_write_cuda(qq, kk, v, None, None, gk, gv, **tgt)
-                return tuple(bits(t) for t in (qq, kk, gk.data, gk.scale,
-                                               gv.data, gv.scale))
-            got = one_launch_bitwise("rope_kv_write_q8", run)
-            rk, rv = q8_clone(pk), q8_clone(pv)
-            K.rope_kv_write_ref(q, k, v, None, None, rk, rv, head_dim=D,
-                                **tgt)
-            ref = tuple(bits(t) for t in (q, k, rk.data, rk.scale, rv.data,
-                                          rv.scale))
-            for part, g_, r_ in zip(("q", "k", "k codes", "k scales",
-                                     "v codes", "v scales"), got, ref):
-                if not torch.equal(g_, r_):
-                    raise SmokeFailure(
-                        f"rope_kv_write_q8 unrotated {label} {dtn}: {part} "
-                        f"differs from the plain version in "
-                        f"{int((g_ != r_).sum())} values (bit-equal "
-                        "required)")
+            hq, hk, hv, _, _ = rope_q8_hard_inputs(M, Hq, Hq, D, rdt,
+                                                   SEED + 29 + M, dev)
+            check_rope_q8_bitwise(f"rope_kv_write_q8 unrotated {label} hard "
+                                  f"rows {dtn}", hq, hk, hv, None, None, pk,
+                                  pv, tgt)
+            q, k, v = rope_kv_inputs(M, Hq, Hq, D, rdt, gen, dev)
+            check_rope_q8_bitwise(f"rope_kv_write_q8 unrotated {label} {dtn}",
+                                  q, k, v, None, None, pk, pv, tgt)
         ms, call = time_ms(lambda: K.rope_kv_write_cuda(
             q, k, v, None, None, pk, pv, **tgt), 50, per_launch=True)
         plain, plain_call = time_ms(lambda: K.rope_kv_write_ref(
@@ -3616,7 +3844,7 @@ def gpt_quant_checks(cfg, results, dev="cuda"):
         info(f"rope_kv_write_q8 unrotated {label} (GPT-125M, 12 kv heads, D "
              f"64): device {ms} ms (per call {call:.4f}), plain {plain} ms, "
              f"bound {bms:.5f} ms ({bby}); bit-equal to the plain version "
-             "in fp32 and bf16")
+             "in fp32 and bf16, random and hard rows")
     by_name["rope_kv_write_q8"]["gpt"] = dict(
         shape="unrotated (no RoPE): B=4, 12 kv heads, D=64, int8 pool",
         **rope["decode"], prefill=dict(shape="Ts=256 after 300 positions",
@@ -3733,6 +3961,7 @@ def gpt_quant_checks(cfg, results, dev="cuda"):
         by = {}
         _, call = time_ms(lambda: dec(pk, pv), 50, by)
         dms = quant_chain_ms(by, "wo_dec", "layer_norm_rows", GPT_GEMMS)
+        paced = paced_ms(lambda: dec(pk, pv))
         host = host_ms(lambda: dec(pk, pv))
         plain, _ = time_ms(lambda: dec(pk, pv, db.decode_block_ref), 5)
         bms, bby = bound_ms(*gpt_layer_bytes_ops(
@@ -3747,23 +3976,31 @@ def gpt_quant_checks(cfg, results, dev="cuda"):
             xp, ql, pk, pv, blk, off, bt_row, None, None, spec=spec,
             start=300), 20, pby)
         pms = quant_chain_ms(pby, "wo_wgmma", "layer_norm_rows", GPT_GEMMS)
+        ppaced = paced_ms(lambda: db.prefill_block(
+            xp, ql, pk, pv, blk, off, bt_row, None, None, spec=spec,
+            start=300))
         pbms, pbby = bound_ms(*gpt_layer_bytes_ops(
             cfg, width, gs, kvq, 256, 556, 200,
             sum(300 + i + 1 for i in range(256))))
         key = f"{width} g{gs} + {kvn}"
         layer_ms[key] = dict(
-            ms=dms, call_ms=call, host_ms=host, plain_ms=plain,
-            bound_ms=bms, bound_by=bby, library_ms=None,
+            ms=dms, call_ms=call, paced_ms=paced, host_ms=host,
+            plain_ms=plain, bound_ms=bms, bound_by=bby, library_ms=None,
             prefill_ts256_ms=pms, prefill_call_ms=pcall,
+            prefill_paced_ms=ppaced,
             prefill_bound_ms=pbms, prefill_bound_by=pbby,
             max_abs_err=layer_err,
             bf16_vs_fp32_ratio=max(ratios[tag]), decode_kernels=short(by))
         info(f"GPT decode_block bf16 {key} (GPT-125M layer, B 4): device "
-             f"{dms:.5f} ms (per call {call:.4f}; host enqueue {host:.4f} "
-             f"ms), plain {plain} ms, bound {bms:.5f} ms ({bby}), device / "
-             f"bound {dms / bms:.1f}; prefill_block Ts 256 after 300: "
-             f"device {pms:.5f} ms (per call {pcall:.4f}), bound {pbms:.5f} "
-             f"ms ({pbby}); kernels {short(by)}")
+             f"{dms:.5f} ms (device-paced {paced:.5f}; per call {call:.4f}; "
+             f"host enqueue {host:.4f} ms), plain {plain} ms, bound "
+             f"{bms:.5f} ms ({bby}), device / bound {dms / bms:.1f}; "
+             f"prefill_block Ts 256 after 300: device {pms:.5f} ms "
+             f"(device-paced {ppaced:.5f}; per call {pcall:.4f}), bound "
+             f"{pbms:.5f} ms ({pbby}); kernels {short(by)}")
+        if kvq:
+            gpt_race_checks(f"GPT {key}", spec, ql, pk0, pv0, bt, lengths,
+                            bt_row, NB, gen, TOL[dtn], dev)
         del pk, pv
     del pool32
     torch.cuda.empty_cache()

@@ -274,6 +274,29 @@ __host__ __device__ __forceinline__ bool epi_reads_r(int epi) {
   return epi == EPI_RESID || epi == EPI_SWIGLU_R || epi == EPI_BIAS_RESID;
 }
 
+// Programmatic dependent launch (Hopper).  A kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
+// kernel ahead of it in the stream has finished; pdl_wait() returns once
+// that kernel has completed and its memory is visible (at once in a
+// kernel launched without the attribute), so no thread reads an
+// activation or writes global memory before it.  pdl_trigger() lets the
+// kernel behind this one start early where that one carries the
+// attribute (a no-op elsewhere).
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" :::);
+}
+
+// the launch attribute that lets a kernel start under pdl_wait()
+inline cudaLaunchAttribute pdl_attr() {
+  cudaLaunchAttribute a;
+  a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  a.val.programmaticStreamSerializationAllowed = 1;
+  return a;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -337,6 +360,11 @@ enum {
 // Adds one to counter `c` when `e` (the launch's cudaGetLastError) is
 // cudaSuccess; returns `e`.  Called right after each <<<...>>> launch.
 cudaError_t count_launch(int c, cudaError_t e);
+// Whether the launch being made is to carry the programmatic-serialization
+// attribute (pt::pdl_attr): true only while layer.cu queues the GPT
+// layer's LayerNorms and the products right after them (kept in layer.cu,
+// one flag a host thread), so every launcher keeps its signature
+bool launch_pdl();
 
 cudaError_t launch_rms_norm_rows(int dtype, int M, int H, const void *x,
                                  const void *w, void *out, float eps,

@@ -140,6 +140,12 @@ struct Args {
   bf16 *Y;
 };
 
+// stages whose weight boxes the producer issues before pdl_wait: under a
+// programmatic dependency they load while the kernel ahead runs; without
+// one a stage's x box queues behind them, so more than one stage slowed
+// every launch (tools/gemm_ab.py, tools/wo_ab.py)
+constexpr int PDL_W_STAGES = 1;
+
 // the CONSUMERS threads of the consumer warpgroups (named barrier 1; the
 // producer never joins)
 template <class C> __device__ __forceinline__ void consumer_bar() {
@@ -188,7 +194,22 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
     if (warp == 4 * C::WG && lane == 0) {
       const int c1 = dual ? n0 : n0 + 64;
       const CUtensorMap *t1 = dual ? tw2 : tw;
-      for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+      // the weight boxes of the ring's first PDL_W_STAGES stages, then
+      // (once the kernel ahead has finished: common.cuh pdl_wait) their x
+      // boxes, then the ring as before; one expect_tx a stage covers both
+      const int first = min(kb1 - kb0, min(C::STAGES, PDL_W_STAGES));
+      for (int it = 0; it < first; ++it) {
+        unsigned char *st = smem + it * C::STAGE;
+        mbar_expect_tx(&full[it], C::STAGE);
+        tma_load_2d(st, tw, n0, (kb0 + it) * C::BK, &full[it]);
+        if constexpr (C::WG == 2)
+          tma_load_2d(st + C::WBOX, t1, c1, (kb0 + it) * C::BK, &full[it]);
+      }
+      pdl_wait();
+      for (int it = 0; it < first; ++it)
+        tma_load_2d(smem + it * C::STAGE + C::WT, tx, (kb0 + it) * C::BK, m0,
+                    &full[it]);
+      for (int kb = kb0 + first, it = first; kb < kb1; ++kb, ++it) {
         const int s = it % C::STAGES, round = it / C::STAGES;
         if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
         unsigned char *st = smem + s * C::STAGE;
@@ -203,6 +224,7 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
     // merge would be compiled to the producer's 40 registers
     splitk::idle();
     splitk::done();
+    pdl_trigger();
     return;
   }
   if constexpr (C::REGS) regs_inc<C::REGS_CONSUMER>();
@@ -228,6 +250,11 @@ __device__ __forceinline__ void xw_body(const Args &a, const CUtensorMap *tw,
   }
   wg_wait<0>();
   fence_regs(acc);
+  // the last K stage is consumed: the kernel behind may start (a norm
+  // under a programmatic dependency); the residual and the stores wait for
+  // the kernel ahead
+  pdl_trigger();
+  pdl_wait();
 
   // The epilogue: this thread owns the V-column chunk c of the output
   // tile (SwiGLU: of its 64 columns) in rows r = (tid + i CONSUMERS) /
@@ -457,15 +484,17 @@ static cudaError_t launch(int M, int K, int N, int epi, const void *X,
   cfg.blockDim = dim3(k.threads);
   cfg.dynamicSmemBytes = k.smem;
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
   cfg.attrs = attr;
   // an unsplit launch is an implicit cluster of one: without the
   // attribute it measured 3-5 % faster (tools/gemm_ab.py)
-  cfg.numAttrs = p.splits > 1;
+  if (p.splits > 1) {
+    attr[cfg.numAttrs].id = cudaLaunchAttributeClusterDimension;
+    attr[cfg.numAttrs].val.clusterDim.x = p.splits;
+    attr[cfg.numAttrs].val.clusterDim.y = 1;
+    attr[cfg.numAttrs++].val.clusterDim.z = 1;
+  }
+  if (launch_pdl()) attr[cfg.numAttrs++] = pdl_attr();
   e = cudaLaunchKernelEx(&cfg, k.fn, a, tw, tw2, tx);
   return e != cudaSuccess ? e : cudaGetLastError();
 }

@@ -50,6 +50,39 @@ cudaError_t count_launch(int c, cudaError_t e) {
   return e;
 }
 
+// launch_pdl()'s flag (common.cuh), one a host thread
+static thread_local bool g_pdl = false;
+
+bool launch_pdl() { return g_pdl; }
+
+// Programmatic dependent launch at the GPT layer's two norm boundaries.
+// layer_norm_rows and the product right after it (qkv, fc1: gemm_xw or the
+// weight-only kernels) are launched with the programmatic-serialization
+// attribute, so each may start while the kernel ahead of it still runs:
+// the norm loads its gains and biases, the product its first ring round
+// of weights, while the one ahead finishes; the products ahead of the
+// norms (proj, fc2) let them start once their last K stage is consumed.
+// Why this is safe: a kernel so launched reads no activation and writes no
+// global memory before griddepcontrol.wait (common.cuh pdl_wait), which
+// every block runs and which returns only once the kernel ahead has
+// completed and its writes are visible; that kernel, if it was launched so
+// too, waited the same way for its own predecessor.  So when a kernel
+// passes its wait, every kernel queued before it on the stream has
+// completed, as with plain stream order, and a block cannot finish
+// without passing it.  A kernel launched without the attribute passes the
+// wait at once: the Llama chain, rms_norm_rows and every other launch keep
+// plain stream order.  GPT_NORM_PDL false (a tool's switch) launches the
+// GPT chain in plain stream order too.
+constexpr bool GPT_NORM_PDL = true;
+
+// f()'s launches with the attribute where `on` (launch_pdl)
+template <class F> static cudaError_t under_pdl(bool on, F f) {
+  g_pdl = on;
+  const cudaError_t e = f();
+  g_pdl = false;
+  return e;
+}
+
 // one weight-only layer GEMM: Y [M, N] = epi(X [M, K] @ dequant(W, S), R,
 // B), stored split with qkv_d > 0
 static cudaError_t wo_mm(const LayerArgs *a, int K, int N, int epi,
@@ -117,10 +150,17 @@ static cudaError_t layer_forward(const LayerArgs *a, cudaStream_t s) {
                  : launch_gemm_xw(dt, M, K, N, epi, X, W, 0, R, B, Y, qkv_d,
                                   s);
   };
-  PT_TRY(row_norm(a, a->x, a->ln1_w, a->ln1_b, s));
+  // the GPT layer's LayerNorms and the products right after them go under
+  // programmatic dependencies (GPT_NORM_PDL)
+  const bool pdl = GPT_NORM_PDL && a->norm == NORM_LN;
+  PT_TRY(under_pdl(pdl, [&] {
+    return row_norm(a, a->x, a->ln1_w, a->ln1_b, s);
+  }));
   if (a->fused_qkv) {
-    PT_TRY(mm(H, 3 * QD, EPI_BIAS, a->y, a->qkv_w, a->qkv_s, 0, a->qkv_b,
-              a->q, a->D));
+    PT_TRY(under_pdl(pdl, [&] {
+      return mm(H, 3 * QD, EPI_BIAS, a->y, a->qkv_w, a->qkv_s, 0, a->qkv_b,
+                a->q, a->D);
+    }));
   } else {
     PT_TRY(mm(H, QD, EPI_NONE, a->y, a->q_w, a->q_s, 0, 0, a->q, 0));
     PT_TRY(mm(H, KD, EPI_NONE, a->y, a->k_w, a->k_s, 0, 0, a->k, 0));
@@ -132,10 +172,14 @@ static cudaError_t layer_forward(const LayerArgs *a, cudaStream_t s) {
             a->fused_qkv ? a->proj_w : a->o_w,
             a->fused_qkv ? a->proj_s : a->o_s, a->x,
             a->bias ? a->proj_b : 0, a->x_mid, 0));
-  PT_TRY(row_norm(a, a->x_mid, a->ln2_w, a->ln2_b, s));
+  PT_TRY(under_pdl(pdl, [&] {
+    return row_norm(a, a->x_mid, a->ln2_w, a->ln2_b, s);
+  }));
   if (a->ffn == FFN_GELU) {
-    PT_TRY(mm(H, F, EPI_BIAS_GELU, a->y, a->fc1_w, a->fc1_s, 0, a->fc1_b,
-              a->hbuf, 0));
+    PT_TRY(under_pdl(pdl, [&] {
+      return mm(H, F, EPI_BIAS_GELU, a->y, a->fc1_w, a->fc1_s, 0, a->fc1_b,
+                a->hbuf, 0);
+    }));
     PT_TRY(mm(F, H, EPI_BIAS_RESID, a->hbuf, a->fc2_w, a->fc2_s, a->x_mid,
               a->fc2_b, a->out, 0));
   } else {

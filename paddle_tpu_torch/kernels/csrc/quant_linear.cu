@@ -129,6 +129,11 @@
 namespace pt {
 namespace wo {
 
+// stages whose code boxes a producer issues before pdl_wait (gemm.cu's
+// PDL_W_STAGES: more than one queued each stage's x box behind them and
+// slowed every launch)
+constexpr int PDL_W_STAGES = 1;
+
 // ------------------------------------------------------------------ fp32
 template <bool INT4>
 __global__ void __launch_bounds__(256) wo_f32(const WoArgs a) {
@@ -297,7 +302,23 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   if (warp >= 8) {                             // producer warpgroup
     regs_dec<C::REGS_PRODUCER>();
     if (warp == 8 && lane == 0) {
-      for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+      // the code boxes of the ring's first PDL_W_STAGES stages, then (once
+      // the kernel ahead has finished: common.cuh pdl_wait) their x boxes,
+      // then the ring as before; one expect_tx a stage covers both
+      const int first = min(kb1 - kb0, min(C::STAGES, PDL_W_STAGES));
+      for (int it = 0; it < first; ++it) {
+        mbar_expect_tx(&full[it], C::STAGE);
+        tma_load_2d(smem + it * C::STAGE + C::PLANES * C::XT, &tw, n0,
+                    (kb0 + it) * C::BK, &full[it]);
+      }
+      pdl_wait();
+      for (int it = 0; it < first; ++it) {
+        unsigned char *st = smem + it * C::STAGE;
+        tma_load_2d(st, &txlo, (kb0 + it) * C::BK, m0, &full[it]);
+        if (C::INT4)
+          tma_load_2d(st + C::XT, &txhi, (kb0 + it) * C::BK, m0, &full[it]);
+      }
+      for (int kb = kb0 + first, it = first; kb < kb1; ++kb, ++it) {
         const int s = it % C::STAGES, round = it / C::STAGES;
         if (round) mbar_wait(&empty[s], (round - 1) & 1);
         unsigned char *st = smem + s * C::STAGE;
@@ -314,6 +335,7 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       splitk::idle();
       splitk::done();
     }
+    pdl_trigger();
     return;
   }
   regs_inc<C::REGS_CONSUMER>();
@@ -410,6 +432,11 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   }
   wg_wait<0>();
   fence_regs(acc);
+  // the last K stage is consumed: the kernel behind may start (a norm
+  // under a programmatic dependency); the residual and the stores wait for
+  // the kernel ahead
+  pdl_trigger();
+  pdl_wait();
   bf16 *Y = (bf16 *)a.y;
   const bool rd = epi_reads_r(a.epi);
   if (!C::SPLITS || S == 1) {
@@ -687,13 +714,15 @@ cudaError_t launch_prefill(const WoArgs *a, cudaStream_t s) {
   cfg.blockDim = dim3(384);
   cfg.dynamicSmemBytes = WG[p.inst].smem;
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
   cfg.attrs = attr;
-  cfg.numAttrs = p.splits > 1;                 // else a cluster of one
+  if (p.splits > 1) {                          // else a cluster of one
+    attr[cfg.numAttrs].id = cudaLaunchAttributeClusterDimension;
+    attr[cfg.numAttrs].val.clusterDim.x = p.splits;
+    attr[cfg.numAttrs].val.clusterDim.y = 1;
+    attr[cfg.numAttrs++].val.clusterDim.z = 1;
+  }
+  if (launch_pdl()) attr[cfg.numAttrs++] = pdl_attr();
   e = cudaLaunchKernelEx(&cfg, WG[p.inst].fn, *a, tw, txlo, txhi);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
@@ -797,7 +826,24 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
 
   if (warp == 8) {                             // producer warp
     if (lane == 0) {
-      for (int kb = kb0, it = 0; kb < kb1; ++kb, ++it) {
+      // the code boxes of the ring's first PDL_W_STAGES stages, then (once
+      // the kernel ahead has finished: common.cuh pdl_wait) their x boxes,
+      // then the ring as before; one expect_tx a stage covers both
+      const int first = min(kb1 - kb0, min(C::STAGES, PDL_W_STAGES));
+      for (int it = 0; it < first; ++it) {
+        mbar_expect_tx(&full[it], C::STAGE);
+        tma_load_2d(smem + it * C::STAGE, &tw, n0, (kb0 + it) * C::BK,
+                    &full[it]);
+      }
+      pdl_wait();
+      for (int it = 0; it < first; ++it) {
+        unsigned char *st = smem + it * C::STAGE;
+        tma_load_2d(st + C::CT, &txlo, (kb0 + it) * C::BK, 0, &full[it]);
+        if (C::INT4)
+          tma_load_2d(st + C::CT + C::XT, &txhi, (kb0 + it) * C::BK, 0,
+                      &full[it]);
+      }
+      for (int kb = kb0 + first, it = first; kb < kb1; ++kb, ++it) {
         const int s = it % C::STAGES, round = it / C::STAGES;
         if (round) mbar_wait_or_trap(&empty[s], (round - 1) & 1);
         unsigned char *st = smem + s * C::STAGE;
@@ -811,6 +857,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
     __syncwarp();
     splitk::idle();
     splitk::done();
+    pdl_trigger();
     return;
   }
 
@@ -876,6 +923,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
   }
   wg_wait<0>();
   fence_regs(acc);
+  // the last K stage is consumed: the kernel behind may start (a norm
+  // under a programmatic dependency); the residual and the stores wait for
+  // the kernel ahead
+  pdl_trigger();
+  pdl_wait();
   // both warpgroups are done with the ring: stage the partial tile in it
   // as red[x row][channel - n0] (register 4j + e: x row 8j + 2t + e of
   // channel chA; 4j + e + 2: of chA + 1), for the bulk copies to read
@@ -1010,13 +1062,15 @@ cudaError_t launch_decode(const WoArgs *a, cudaStream_t s) {
   cfg.blockDim = dim3(DEC_THREADS);
   cfg.dynamicSmemBytes = DEC[inst].smem;
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
   cfg.attrs = attr;
-  cfg.numAttrs = splits > 1;                   // else a cluster of one
+  if (splits > 1) {                            // else a cluster of one
+    attr[cfg.numAttrs].id = cudaLaunchAttributeClusterDimension;
+    attr[cfg.numAttrs].val.clusterDim.x = splits;
+    attr[cfg.numAttrs].val.clusterDim.y = 1;
+    attr[cfg.numAttrs++].val.clusterDim.z = 1;
+  }
+  if (launch_pdl()) attr[cfg.numAttrs++] = pdl_attr();
   e = cudaLaunchKernelEx(&cfg, DEC[inst].fn, *a, tw, txlo, txhi);
   return e != cudaSuccess ? e : cudaGetLastError();
 }

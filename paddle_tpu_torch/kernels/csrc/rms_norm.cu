@@ -63,16 +63,30 @@ __device__ __forceinline__ void norm_row(const T *__restrict__ x,
   const int nv = H / E;
   uint4 xv[V], wv[V], bv[LN ? V : 1];
   float s1 = 0.f;                  // RMS: sum of squares; LN: sum
+  // LayerNorm (launched under a programmatic dependency in the GPT chain):
+  // the next kernel may start now; the gains and biases are loaded, then x
+  // once the kernel ahead has finished (common.cuh pdl_wait)
+  if constexpr (LN) pdl_trigger();
   if (vec) {
     const uint4 *xr = reinterpret_cast<const uint4 *>(x + row);
     const uint4 *wr = reinterpret_cast<const uint4 *>(w);
+    if constexpr (LN) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int i = tid + v * nt;
+        if (i < nv) {
+          wv[v] = __ldg(wr + i);
+          bv[v] = __ldg(reinterpret_cast<const uint4 *>(b) + i);
+        }
+      }
+      pdl_wait();
+    }
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int i = tid + v * nt;
       if (i < nv) {
         xv[v] = __ldg(xr + i);
-        wv[v] = __ldg(wr + i);
-        if constexpr (LN) bv[v] = __ldg(reinterpret_cast<const uint4 *>(b) + i);
+        if constexpr (!LN) wv[v] = __ldg(wr + i);
       }
     }
 #pragma unroll
@@ -86,6 +100,7 @@ __device__ __forceinline__ void norm_row(const T *__restrict__ x,
         }
       }
   } else {
+    if constexpr (LN) pdl_wait();
     for (int i = tid; i < H; i += nt) {
       const float f = to_f<T>(x[row + i]);
       s1 = LN ? s1 + f : fmaf(f, f, s1);
@@ -165,13 +180,26 @@ __global__ void __launch_bounds__(MAX_THREADS)
   norm_row<T, V, true>(x, w, b, out, H, eps, vec);
 }
 
+// a LayerNorm under launch_pdl() carries the programmatic-serialization
+// attribute, so it may start before the kernel ahead of it ends
 template <typename T, int V>
 static void start(bool ln, int M, int nt, const T *x, const T *w, const T *b,
                   T *out, int H, float eps, bool vec, cudaStream_t s) {
-  if (ln)
+  if (ln && launch_pdl()) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(M);
+    cfg.blockDim = dim3(nt);
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1] = {pdl_attr()};
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaLaunchKernelEx(&cfg, layer_norm_rows_kernel<T, V>, x, w, b, out, H,
+                       eps, vec);
+  } else if (ln) {
     layer_norm_rows_kernel<T, V><<<M, nt, 0, s>>>(x, w, b, out, H, eps, vec);
-  else
+  } else {
     rms_norm_rows_kernel<T, V><<<M, nt, 0, s>>>(x, w, out, H, eps, vec);
+  }
 }
 
 template <typename T>

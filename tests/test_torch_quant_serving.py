@@ -11,6 +11,9 @@ fp32).  Inputs come from numpy with a seed; parameters go through
 ``bridge.params_from_numpy``.  The five configs are the JAX package's
 ``tests/test_quant_serving.py`` ``CONFIGS``."""
 
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +34,9 @@ from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.ops import decode_block as tdb
 from paddle_tpu_torch.ops import paged_kv as tkv
 from paddle_tpu_torch.quantization import serve as tserve
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
 
 TOL = {"fp32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=2e-2, atol=2e-2)}
 JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
@@ -148,12 +154,26 @@ def test_dequantize_block_weight_matches_jax(c):
 
 
 # ------------------------------------------------------------ int8 KV pool
-@pytest.mark.parametrize("dt", ["fp32", "bf16"])
-def test_quantize_dequantize_kv_bit_equal_to_jax(dt):
+# random rows, and one case a kind of chip_smoke.py's hard rows (quotients
+# on half-integers, clipped absmax codes, an all-zero row, tiny values,
+# absmax just past the 1e-8 floor): the rows the card's rope_kv_write_q8
+# is held to the plain version on
+KV_CASES = [pytest.param(dt, None, id=dt) for dt in ("fp32", "bf16")] + [
+    pytest.param(dt, kind, id=f"{dt}-{kind.replace(' ', '_')}")
+    for dt in ("fp32", "bf16") for kind in cs.Q8_HARD_KINDS]
+
+
+@pytest.mark.parametrize("dt, kind", KV_CASES)
+def test_quantize_dequantize_kv_bit_equal_to_jax(dt, kind):
     rng = np.random.default_rng(1)
-    x = (rng.standard_normal((6, 3, 16))
-         * rng.uniform(1e-3, 30.0, (6, 3, 1))).astype(np.float32)
-    x[2, 1] = 0.0                               # a fresh page's zero row
+    if kind is None:
+        x = (rng.standard_normal((6, 3, 16))
+             * rng.uniform(1e-3, 30.0, (6, 3, 1))).astype(np.float32)
+        x[2, 1] = 0.0                           # a fresh page's zero row
+    else:
+        n = len(cs.Q8_HARD_KINDS)
+        x = cs.q8_hard_rows(16 * n, 64, 28)[cs.Q8_HARD_KINDS.index(kind)::n]
+        x = x.reshape(8, 2, 64)
     jc, js = jkv.quantize_kv(jnp.asarray(x, JDT[dt]))
     tc, ts = tkv.quantize_kv(torch.tensor(x).to(TDT[dt]))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))

@@ -128,3 +128,68 @@ def test_tunings_apply_to_the_source(variant):
     src = (CSRC / ab.tuned_file(variant)).read_text()
     edited = ab._edited(src, ab.TUNINGS[variant])
     assert edited != src
+
+
+@pytest.mark.parametrize("variant", sorted(ab.ABLATIONS))
+def test_ablations_apply_to_the_source(variant):
+    """Each cut-down int8-pool kernel edits this tree's rope_kv.cu."""
+    assert ab.tuned_file(variant) == "rope_kv.cu"
+    src = (CSRC / "rope_kv.cu").read_text()
+    assert ab._edited(src, ab.ABLATIONS[variant]) != src
+
+
+def test_q8_variants_edit_the_int8_kernel_file():
+    q8 = [n for n in {**ab.TUNINGS, **ab.ABLATIONS} if n.startswith("q8")]
+    assert {"q8_v16", "q8_kv_together", "q8_kv_apart", "q8_128",
+            "q8_div_ieee", "q8_no_div",
+            "q8_no_shuffle", "q8_no_scale_store", "q8_rcp_only"} == set(q8)
+    assert all(ab.tuned_file(n) == "rope_kv.cu" for n in q8)
+    src = (CSRC / "rope_kv.cu").read_text()
+    assert "count_launch(CNT_ROPE_KV_WRITE_Q8," in src
+    assert src.count(ab.Q8_CODE) == 1 and src.count(ab.Q8_SHUFFLE) == 1
+    assert src.count(ab.Q8_SHUFFLE_PACKED) == 1
+
+
+@pytest.mark.parametrize("rotated, M, writes, want", [
+    (True, 4, 3, 0.00006), (True, 256, 256, 0.00381),
+    (False, 4, 3, 0.000005), (False, 256, 256, 0.00036)])
+def test_q8_bounds_match_chip_smoke(rotated, M, writes, want):
+    """The four timed instances' bounds: a byte a code and 4 bytes a
+    scale stored, k and v (and, rotated, q and cos / sin) read once, as
+    chip_smoke.py counts them: llama_7b rotated (32 + 32 heads, D 128) and
+    GPT-125M unrotated (12 kv heads, D 64), decode (3 rows keep their
+    write) and Ts 256."""
+    if rotated:
+        nbytes, ops = ab.q8_bytes_ops(M, HQ, HKV, D, writes, True)
+        b0, o0 = cs.rope_kv_bytes_ops(M, HQ, HKV, D, 0)
+        assert nbytes == b0 + writes * 2 * HKV * (D + 4)
+        assert ops == o0 + writes * 2 * HKV * 3 * D
+    else:
+        H, Dg = ab.GPT_HEADS, ab.GPT_D
+        nbytes, ops = ab.q8_bytes_ops(M, H, H, Dg, writes, False)
+        assert nbytes == 2 * M * H * Dg * 2 + writes * 2 * H * (Dg + 4)
+        assert ops == writes * 2 * H * 3 * Dg
+    assert cs.bound_ms(nbytes, ops)[0] == pytest.approx(want, rel=0.1)
+
+
+def test_q8_hard_rows_hold_their_kinds():
+    """Ties land on half-integer quotients, clipped rows carry their
+    absmax at both signs, the zero row is zero, tiny rows stay under the
+    1e-8 floor and floor rows just above it."""
+    import numpy as np
+    n = len(cs.Q8_HARD_KINDS)
+    x = cs.q8_hard_rows(8 * n, 64, 5)
+    for i, row in enumerate(x):
+        kind = cs.Q8_HARD_KINDS[i % n]
+        a = np.abs(row).max()
+        q = row / (np.maximum(a, np.float32(1e-8)) / np.float32(127))
+        if kind == "tie":
+            assert (np.abs(q - np.trunc(q)) == 0.5).sum() >= 60
+        elif kind == "clip":
+            assert (row == a).sum() >= 2 and (row == -a).sum() >= 2
+        elif kind == "zero":
+            assert not row.any()
+        elif kind == "tiny":
+            assert 0 < a < 1e-8
+        elif kind == "floor":
+            assert 1e-8 < a < 1.1e-8

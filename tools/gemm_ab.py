@@ -106,7 +106,7 @@ _N64 = "using N64 = Cfg<1, 64, 4, 3>;"
 _KB1 = "  const int kb1 = (int)((long long)a.nk * (rank + 1) / S);"
 _PRODUCER = "    if (warp == 4 * C::WG && lane == 0) {\n"
 _SMALL = "using S8 = Cfg<2, 8, 6, 2>;\nusing S16 = Cfg<2, 16, 6, 2>;"
-_LAUNCH = "  cfg.numAttrs = p.splits > 1;"
+_LAUNCH = "  if (p.splits > 1) {"
 _FOLD_STEPS = "constexpr int FOLD_STEPS = 12;"
 _FORCE = "constexpr int XW_FORCE_INST = -1, XW_FORCE_SPLIT = 0;"
 _FOLD_KB = "constexpr int FOLD_KB = 16;"
@@ -139,7 +139,7 @@ TUNINGS = {
         f'      asm volatile("prefetch.tensormap [%0];" :: '
         f'"l"((uint64_t){m}) : "memory");\n' for m in ("tw", "tw2", "tx")))],
     # an unsplit launch with the cluster attribute (a cluster of one)
-    "cluster_1": [(_LAUNCH, "  cfg.numAttrs = 1;")],
+    "cluster_1": [(_LAUNCH, "  if (true) {")],
     # decode: three blocks an SM, 4 stages each
     "small_3": [(_SMALL, "using S8 = Cfg<2, 8, 4, 3>;\n"
                          "using S16 = Cfg<2, 16, 4, 3>;")],

@@ -4,8 +4,8 @@ API's softmax-mask kernel (``rope_kv.cu``, ``fused_ops.cu``) against each
 other on one CUDA card.
 
     python3 tools/rope_softmax_ab.py [--tree NAME=DIR ...] [--tune]
-                                     [--only NAME,...] [--turns N]
-                                     [--no-time]
+                                     [--ablate] [--only NAME,...]
+                                     [--turns N] [--no-time]
 
 from the repository root, on a machine with one CUDA card and ``nvcc``.
 Each variant is the two files of one tree, linked with this tree's other
@@ -20,8 +20,15 @@ rows of 9..16 chunks on 16 lanes of one chunk or on 4 of four; 4 blocks
 an SM; a grid of one item a warp; the IEEE division of every value,
 zeros too, or of every nonzero value, or (a diagnostic: not the rounded
 quotient) the product with the reciprocal alone; for rope_kv_write, 128
-or 256 threads a block.  ``--only`` keeps the named variants.  All
-``nvcc`` processes start together.
+or 256 threads a block; for its int8-pool kernel (``rope_kv_write_q8``)
+16 values a half a lane, k and v on the same lanes without RoPE or on
+lanes of their own with it, 128 threads a block,
+and the IEEE division of every code (``q8_div_ieee``, compared bit for
+bit).  ``--ablate`` adds cut-down int8-pool kernels, checked but timed
+whatever the checks say (``ABLATIONS``: no division, no shuffle, no scale
+store, and the reciprocal product alone as the quotient, a diagnostic).
+``--only`` keeps the named variants and limits the edits made to them.
+All ``nvcc`` processes start together.
 
 The script prints ptxas' registers, stack frame and spills of each
 variant's kernels, then checks each variant: ``rope_kv_write`` at
@@ -32,7 +39,10 @@ prefill through blk / off with a padded tail routed to page NB) and at
 bit-identical, one launch, and bit-equal to ``rope_kv_write_ref`` (a
 variant that is not, such as a build whose fp32 products contract into
 FMAs, must still meet the 1e-4 / 2e-2 tolerance, and the report says
-which); ``softmax_mask_fwd`` on ``SOFTMAX_CASES`` (every row width of the
+which); the same cases into int8 pools and ``chip_smoke.py``'s hard rows
+(``q8_hard_rows``: ties, clips, zero and tiny rows) rotated and not, and
+the GPT-125M cases (12 kv heads, D 64, unrotated), each bit-equal to the
+plain version or reported not; ``softmax_mask_fwd`` on ``SOFTMAX_CASES`` (every row width of the
 register path and the long rows; masks broadcast over heads, rows, both,
 along the row, full and strided) with fp32 and bf16 x and mask, by
 ``chip_smoke.py``'s rule (1e-4, or 2e-2 / the bf16 ratio rule), each call
@@ -40,7 +50,10 @@ twice, bit-identical, one launch, and an all -inf row NaN.  Then, unless
 ``--no-time``, it times the variants in turns (a, b, ..., b, a;
 ``--turns N`` runs that order N times): ``rope_kv_write`` at llama_7b's
 widths at decode B 4 (lengths 1000/37/0/517) and at prefill chunks of Ts
-16 and 256 after 300 positions; the softmax at BERT-base's logits
+16 and 256 after 300 positions, unrotated at GPT-125M's (decode, Ts 256),
+and ``rope_kv_write_q8``'s four instances (llama_7b rotated and GPT-125M
+unrotated, decode and Ts 256; bound: a byte a code and 4 bytes a scale
+stored); the softmax at BERT-base's logits
 [32, 12, 128, 128] bf16 with a [32, 1, 128, 128] fp32 padding mask and at
 ``chip_smoke.py``'s S 1000 and S 5000 cases, each beside one
 ``torch.softmax(x + mask, -1)`` (the main mask ``chip_smoke.py``'s
@@ -52,7 +65,8 @@ kernels, profiler), each beside its bound.
 Where ``change`` and ``sm_div_all`` are both built, it also counts the
 softmax values whose bits differ between the two on every case, x at
 scales 3 and 30 (the division by a reciprocal taken once a row must give
-the IEEE quotient).
+the IEEE quotient); ``change`` and ``q8_div_ieee`` (the IEEE division of
+every code) are each held bit for bit to the same plain version.
 
 Writes ``chiprun_out/rope_softmax_ab.json``.  Imports nothing of the JAX
 package.
@@ -102,6 +116,17 @@ SOFTMAX_TIMED = [("main", *cs.SOFTMAX_MAIN)] + [
     (label, xs, ms) for label, xs, ms in cs.SOFTMAX_SMALL
     if label in ("S 1000", "S 5000")]
 DTYPES = (("float32", "float32"), ("bfloat16", "bfloat16"))
+# rope_kv.cu's lines the int8-pool variants edit: a code's quotient, the
+# absmax shuffle
+Q8_CODE = ("  return __float_as_uint(__fadd_rn(div_rn(x, s, y), "
+           "0x1.8p23f));")
+Q8_SHUFFLE = ("    for (int w = L / 2; w > 0; w >>= 1)\n#pragma unroll\n"
+              "      for (int t = 0; t < NT; ++t)\n"
+              "        m[t] = fmaxf(m[t], __shfl_xor_sync(live, m[t], w));\n")
+Q8_SHUFFLE_PACKED = ("    for (int w = L / 2; w > 0; w >>= 1)\n"
+                     "      mm = __hmax2(mm, __shfl_xor_sync(live, mm, w));\n")
+# GPT-125M's unrotated instances: kv heads (one q head each) and head_dim
+GPT_HEADS, GPT_D = 12, 64
 # this tree's files with one choice changed: (old, new) text pairs
 TUNINGS = {
     "sm_one_read": [("    p.parts = (p.share + BATCH - 1) / BATCH;",
@@ -133,12 +158,33 @@ TUNINGS = {
     "rope_128": [("constexpr int ROPE_THREADS = 64;",
                   "constexpr int ROPE_THREADS = 128;")],
     "rope_256": [("constexpr int ROPE_THREADS = 64;",
-                  "constexpr int ROPE_THREADS = 256;")]}
+                  "constexpr int ROPE_THREADS = 256;")],
+    # the int8-pool kernel: 16 values a half a lane; k and v on the same
+    # lanes without RoPE, or apart with it; 128 threads a block; the IEEE
+    # division of every code
+    "q8_v16": [("constexpr int Q8_V = 8;", "constexpr int Q8_V = 16;")],
+    "q8_kv_together": [("Q8_KVS_PLAIN = true,", "Q8_KVS_PLAIN = false,")],
+    "q8_kv_apart": [("Q8_KVS_ROPE = false;", "Q8_KVS_ROPE = true;")],
+    "q8_128": [("constexpr int Q8_THREADS = 64;",
+                "constexpr int Q8_THREADS = 128;")],
+    "q8_div_ieee": [(Q8_CODE, Q8_CODE.replace("div_rn(x, s, y)",
+                                              "__fdiv_rn(x, s)"))]}
+# cut-down int8-pool kernels (--ablate), checked but timed whatever the
+# checks say: no division (the value itself rounded), no shuffle (the
+# lane's own absmax), no scale store, and (not the rounded quotient) the
+# product with the reciprocal alone
+ABLATIONS = {
+    "q8_no_div": [(Q8_CODE, Q8_CODE.replace("div_rn(x, s, y)", "x"))],
+    "q8_no_shuffle": [(Q8_SHUFFLE, ""), (Q8_SHUFFLE_PACKED, "")],
+    "q8_no_scale_store": [
+        ("    if (d == 0) (tv ? ks.v : ks.k)[row] = sc;\n", "")],
+    "q8_rcp_only": [(Q8_CODE, Q8_CODE.replace("div_rn(x, s, y)",
+                                              "__fmul_rn(x, y)"))]}
 
 
 def tuned_file(name):
-    """The file a tuning edits."""
-    return FILES[0] if name.startswith("rope") else FILES[1]
+    """The file a tuning or an ablation edits."""
+    return FILES[0] if name.startswith(("rope", "q8")) else FILES[1]
 
 
 def softmax_bytes_ops(xs, ms, itemsize=2, mask_itemsize=4):
@@ -146,6 +192,20 @@ def softmax_bytes_ops(xs, ms, itemsize=2, mask_itemsize=4):
     subtract, exp, sum, divide: 6 fp32 operations an element."""
     n = math.prod(xs)
     return 2 * n * itemsize + math.prod(ms) * mask_itemsize, 6 * n
+
+
+def q8_bytes_ops(M, Hq, Hkv, D, writes, rotated, itemsize=2):
+    """Bytes and operations of one rope_kv_write_q8 call (chip_smoke.py's
+    count): rotated, rope_kv_write's reads and its q and k stores; else k
+    and v read; then a byte a code and 4 bytes a scale of k and v for each
+    of the ``writes`` rows kept; absmax, divide and round a stored value
+    (and the rotation's 3 operations a value of q and k)."""
+    if rotated:
+        nbytes, ops = cs.rope_kv_bytes_ops(M, Hq, Hkv, D, 0, itemsize)
+    else:
+        nbytes, ops = 2 * M * Hkv * D * itemsize, 0
+    return (nbytes + writes * 2 * Hkv * (D + 4),
+            ops + writes * 2 * Hkv * 3 * D)
 
 
 def build_variants(trees):
@@ -257,6 +317,74 @@ def check_rope(variant, gen, L):
     return bit
 
 
+def q8_check_cases(L, dt, gen):
+    """[(label, [q, k, v, cos, sin], int8 pool_k, pool_v, target
+    keywords)] of rope_kv_write into int8 pools in ``dt``: the small cases
+    rotated (and unrotated at one q head a kv head), random and hard rows;
+    the llama_7b cases (rotated) and GPT-125M's (12 kv heads, D 64,
+    unrotated), random and hard rows."""
+    import torch
+    cfg, out, seed = L["cfg"], [], cs.SEED + 28
+    for D, G in ROPE_GD:
+        for mode in ("decode", "prefill"):
+            args, tgt = rope_check_inputs(D, G, mode, dt, gen)
+            q, k, v, c, s, pk, pv = args
+            pk, pv = cs.q8_pool(pk, dt), cs.q8_pool(pv, dt)
+            M, Hkv = q.shape[0], pk.data.shape[2]
+            hard = cs.rope_q8_hard_inputs(M, Hkv * G, Hkv, D, dt, seed, "cuda")
+            label = f"D{D} G{G} {mode}"
+            out += [(label, [q, k, v, c, s], pk, pv, tgt),
+                    (label + " hard", hard, pk, pv, tgt)]
+            if G == 1:
+                out += [(label + " unrotated", [q, k, v, None, None], pk, pv,
+                         tgt),
+                        (label + " unrotated hard", hard[:3] + [None, None],
+                         pk, pv, tgt)]
+    for fam, Hq, Hkv, D, rotated in (
+            ("llama", cfg.num_heads, cfg.kv_heads, cfg.head_dim, True),
+            ("gpt", GPT_HEADS, GPT_HEADS, GPT_D, False)):
+        pools = [cs.q8_pool(torch.randn(L["NB"], L["BS"], Hkv, D,
+                                        device="cuda", generator=gen), dt)
+                 for _ in range(2)]
+        for label, (M, tgt, c, s) in cs.rope_kv_cases(
+                L["lengths"], L["bt"], L["bt_row"], L["cos_t"], L["sin_t"],
+                L["BS"], ROPE_CHUNKS).items():
+            rnd = cs.rope_kv_inputs(M, Hq, Hkv, D, dt, gen, "cuda")
+            hard = cs.rope_q8_hard_inputs(M, Hq, Hkv, D, dt, seed + M, "cuda")
+            if rotated:
+                rnd += [c[:, :D].to(dt), s[:, :D].to(dt)]
+            else:
+                rnd += [None, None]
+                hard = hard[:3] + [None, None]
+            out += [(f"{fam} {label}", rnd, *pools, tgt),
+                    (f"{fam} {label} hard", hard, *pools, tgt)]
+    return out
+
+
+def check_rope_q8(variant, gen, L):
+    """Every int8-pool case in fp32 and bf16; raises on a failed launch.
+    Returns {dtype: bit-equal to the plain version on every case} and the
+    first case that was not."""
+    bit, first = {}, None
+    for dtn, _ in DTYPES:
+        import torch
+        dt = getattr(torch, dtn)
+        ok = True
+        for label, (q, k, v, c, s), pk, pv, tgt in q8_check_cases(L, dt,
+                                                                  gen):
+            try:
+                cs.check_rope_q8_bitwise(f"{variant} rope_kv_write_q8 "
+                                         f"{label} {dtn}", q, k, v, c, s, pk,
+                                         pv, tgt)
+            except cs.SmokeFailure as e:
+                if "bit-equal" not in str(e):
+                    raise
+                ok = False
+                first = first or str(e)
+        bit[dtn] = ok
+    return bit, first
+
+
 def check_softmax(variant, gen):
     """Every softmax case, x and mask in fp32 and bf16; raises on the
     first miss.  Returns the largest |kernel - plain| by x dtype."""
@@ -336,6 +464,35 @@ def timed_shapes(L, gen):
                 q, k, v, c, s, L["pk"], L["pv"], **tgt), None,
             cs.rope_kv_bytes_ops(M, Hq, Hkv, D,
                                  cs.rope_kv_writes(tgt, L["pk"])), "launch")
+    for label, (M, tgt, c, s) in cs.rope_kv_cases(
+            L["lengths"], L["bt"], L["bt_row"], None, None, L["BS"],
+            (256,)).items():
+        gp = [torch.randn(L["NB"], L["BS"], GPT_HEADS, GPT_D, device="cuda",
+                          generator=gen).to(bf) for _ in range(2)]
+        q, k, v = cs.rope_kv_inputs(M, GPT_HEADS, GPT_HEADS, GPT_D, bf, gen,
+                                    "cuda")
+        writes = cs.rope_kv_writes(tgt, gp[0])
+        out[f"rope_kv_write unrotated gpt {label}"] = (
+            lambda q=q, k=k, v=v, tgt=tgt, gp=gp: K.rope_kv_write_cuda(
+                q, k, v, None, None, *gp, **tgt), None,
+            ((2 * M + 2 * writes) * GPT_HEADS * GPT_D * 2, 0), "launch")
+        gq = [cs.q8_pool(t, bf) for t in gp]
+        out[f"rope_kv_write_q8 gpt {label}"] = (
+            lambda q=q, k=k, v=v, tgt=tgt, gq=gq: K.rope_kv_write_cuda(
+                q, k, v, None, None, *gq, **tgt), None,
+            q8_bytes_ops(M, GPT_HEADS, GPT_HEADS, GPT_D, writes, False),
+            "launch")
+    lq = [cs.q8_pool(t, bf) for t in (L["pk"], L["pv"])]
+    for label, (M, tgt, c, s) in cs.rope_kv_cases(
+            L["lengths"], L["bt"], L["bt_row"], L["cos_t"], L["sin_t"],
+            L["BS"], (256,)).items():
+        q, k, v = cs.rope_kv_inputs(M, Hq, Hkv, D, bf, gen, "cuda")
+        c, s = c.to(bf), s.to(bf)
+        out[f"rope_kv_write_q8 llama {label}"] = (
+            lambda q=q, k=k, v=v, c=c, s=s, tgt=tgt: K.rope_kv_write_cuda(
+                q, k, v, c, s, *lq, **tgt), None,
+            q8_bytes_ops(M, Hq, Hkv, D, cs.rope_kv_writes(tgt, L["pk"]),
+                         True), "launch")
     for label, xs, ms in SOFTMAX_TIMED:
         x = (torch.randn(xs, device="cuda", generator=gen) * 3).to(bf)
         keep = torch.rand(ms, device="cuda", generator=gen) > 0.2
@@ -391,6 +548,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--tune", action="store_true")
+    ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--only", default="")
     ap.add_argument("--turns", type=int, default=1)
     ap.add_argument("--no-time", action="store_true")
@@ -406,15 +564,19 @@ def main():
         name, _, tree = item.partition("=")
         trees[name] = Path(tree).resolve() / "paddle_tpu_torch/kernels/csrc"
     trees["change"] = build.CSRC
-    for name, cuts in (TUNINGS.items() if args.tune else ()):
+    keep = args.only.split(",") if args.only else None
+    edits = {**(TUNINGS if args.tune else {}),
+             **(ABLATIONS if args.ablate else {})}
+    for name, cuts in edits.items():
+        if keep and name not in keep:
+            continue
         d = trees[name] = build.BUILD_DIR / "ab" / f"src_{name}"
         d.mkdir(parents=True, exist_ok=True)
         for f in FILES:
             text = (build.CSRC / f).read_text()
             (d / f).write_text(_edited(text, cuts) if tuned_file(name) == f
                                else text)
-    if args.only:
-        keep = args.only.split(",")
+    if keep:
         trees = {k: v for k, v in trees.items() if k in keep}
     report = {"card": card, "variants": {}, "library": {}}
     libs = build_variants(trees)
@@ -428,6 +590,7 @@ def main():
     for name, (lib, _) in list(libs.items()):
         build._lib = lib
         try:
+            q8_bit, q8_first = check_rope_q8(name, gen, L)
             bit = check_rope(name, gen, L)
             err = check_softmax(name, gen)
         except (cs.SmokeFailure, RuntimeError, ValueError) as e:
@@ -436,10 +599,18 @@ def main():
             del libs[name]
             continue
         report["variants"][name].update(rope_bit_equal=bit,
+                                        rope_q8_bit_equal=q8_bit,
+                                        rope_q8_first_miss=q8_first,
                                         softmax_max_abs_err=err)
         cs.info(f"{name}: every case within tolerance, calls bit-identical, "
                 f"one launch each; rope_kv_write bit-equal to its plain "
-                f"version {bit}; softmax max |kernel - plain| {err}")
+                f"version {bit}; rope_kv_write_q8 {q8_bit}"
+                + (f" (first miss: {q8_first})" if q8_first else "")
+                + f"; softmax max |kernel - plain| {err}")
+        if q8_first and name not in ABLATIONS:
+            cs.info(f"{name}: FAILED the int8-pool bitwise checks, not timed")
+            report["variants"][name]["failed"] = q8_first
+            del libs[name]
     if "change" in libs and "sm_div_all" in libs:
         n = softmax_bits_match(libs, "change", "sm_div_all", gen)
         report["softmax_bits_vs_div_all"] = n
