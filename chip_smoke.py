@@ -86,6 +86,28 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             fills.  Ids that differ between two runs are held, at their
             first differing token, to ``check_layer_out`` with the fp32
             plain chain over the same tokens as the truth;
+4c. engine spec  speculative decoding: phase engine's settings and
+            weights (llama_7b bf16, full depth, B 4, buckets (16, 64, 256),
+            prefix caching and preemption off) under
+            ``spec_config=SpecDecodeConfig(k=3, window=16)``, with a
+            self-draft and a 2-layer llama_7b-width draft of another seed,
+            four prompts of 20-300 tokens and 32 new tokens each, all
+            queued before the first step so the speculative and baseline
+            runs see the same admissions (no prefix hit, no eviction, no
+            preemption: a prefix hit runs other kernels than a cold
+            prompt and moves bf16 logits); then the self-draft on prompts
+            whose whole context fits the window, and the draft's logits
+            against the engine's prefill logits (the bf16 rule, the fp32
+            plain chain as the truth); then at 4 layers with
+            ``ServeQuantConfig(weight_dtype="int8", kv_dtype="int8")``
+            (the verify runs ``wo_dec``, ``rope_kv_write_q8`` and
+            ``paged_attention_q8``; the drafts stay full width).  Each run
+            against the same engine without ``spec_config``: greedy ids
+            identical, the first verify's column-0 logits bit-equal to the
+            baseline step's, ``decode_block`` launches exactly layers x
+            (K+1) a spec step; decode tokens/s both ways,
+            ``engine_steps_per_token``, acceptance rate, draft ms a
+            proposal and verify ms;
 5. gpt serve  GPT-125M (``gpt_125m``, bf16, 12 layers, V 50304) served
             through ``decode_block`` / ``prefill_block`` (the GPT layer:
             LayerNorm with bias, fused qkv stored split per head, bias and
@@ -2240,9 +2262,9 @@ def phase_engine_quant(cfg, bf16, dev="cuda"):
         chunks.append(len(toks))
         return fill(bt_row, start, toks, valid)
 
-    def counted_decode():
+    def counted_decode(*args):
         steps[0] += 1
-        return decode()
+        return decode(*args)
     eng._chunk_fill, eng._decode_step = counted_fill, counted_decode
     lens = [20, 600, 137, 64, 300, 45, 512, 256]
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -3053,6 +3075,244 @@ GPT_GEMMS = 4
 GPT_MATMULS = (("qkv", 768, 2304, "bias"), ("proj", 768, 768, "bias_resid"),
                ("fc1", 768, 3072, "bias_gelu"),
                ("fc2", 3072, 768, "bias_resid"))
+
+
+# ------------------------------------------------- speculative decoding
+# phase engine's settings (B 4, 16-token pages, buckets (16, 64, 256),
+# prefix caching and preemption off) under spec_config: K proposals a step
+# through a window of W tokens, the drafts the target itself and a 2-layer
+# llama_7b-width model of another seed; the int8 + int8-KV run at 4 layers
+SPEC_K, SPEC_W, SPEC_NEW = 3, 16, 32
+SPEC_LENS = (20, 137, 64, 300)
+# prompts whose whole context (prompt + SPEC_SHORT_NEW - 1 tokens) stays
+# inside the draft's window, so a self-draft sees what the target sees
+SPEC_SHORT_LENS, SPEC_SHORT_NEW = (4, 6, 8, 5), 8
+SPEC_DRAFT_LAYERS, SPEC_QUANT_LAYERS = 2, 4
+
+
+def spec_drive(eng, prompts, new):
+    """Serve ``prompts`` (all queued before the first step, so baseline and
+    speculative runs see the same admissions: no prefix hit, no eviction,
+    no preemption) with the plain serving ops refused and the launch
+    counts set to 0 just before and read just after.  Returns ids in
+    request order, the first step's ``last_logits`` (the verify's column 0
+    under speculation), the decode steps' wall and tokens after the first
+    step, the run's wall and its nonzero launch counts."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    torch.cuda.synchronize()
+    layer.reset_counts()
+    rids = [eng.add_request(p, new) for p in prompts]
+    res, first, dec_s, dec_tok = {}, None, 0.0, 0
+    t0 = time.perf_counter()
+    with NoPlainPath():
+        while eng.queue or any(s is not None for s in eng.slots):
+            tok0 = eng.decode_tokens
+            ts = time.perf_counter()
+            res.update(eng.step())
+            te = time.perf_counter()
+            if eng.last_logits is not None:
+                live = [s for s in range(eng.B) if eng.slots[s] is not None]
+                if not np.isfinite(eng.last_logits[live]).all():
+                    raise SmokeFailure("engine spec: non-finite logits")
+            if first is None:
+                first = np.array(eng.last_logits)
+            else:
+                dec_s += te - ts
+                dec_tok += eng.decode_tokens - tok0
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in layer.launch_counts().items() if n}
+    leak = eng.kv_leak_report()
+    if leak["leaked"] or leak["unaccounted"] or \
+            leak["free_blocks"] != eng.alloc.num_blocks:
+        raise SmokeFailure(f"engine spec: KV accounting not clean: {leak}")
+    return dict(ids=[res[r] for r in rids], first=first, dec_s=dec_s,
+                dec_tok=dec_tok, wall=wall, counts=counts)
+
+
+def spec_timers(eng):
+    """Wrap the engine's draft and verify with synchronised host timers;
+    returns ``{"draft": [s a proposal], "verify": [s a verify]}``."""
+    import torch
+    out = {"draft": [], "verify": []}
+    runner = eng._spec
+
+    def timed(fn, t):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+            return r
+        return run
+    runner.draft = timed(runner.draft, out["draft"])
+    runner.verify = timed(runner.verify, out["verify"])
+    return out
+
+
+def spec_case(tag, engine, prompts, new, drafts, totals):
+    """One configuration: the baseline engine, then the same engine
+    settings under each draft of ``drafts`` ({name: (draft cfg, draft
+    params)}).  Checks (a) ids identical to the baseline's, request by
+    request; (b) the first step's logits (the verify's column 0) equal to
+    the baseline step's bit for bit; (c) ``decode_block`` launches exactly
+    layers x (K+1) a spec step, ``prefill_block`` as the baseline's, every
+    kernel the baseline launched launched again.  Returns the summary."""
+    import numpy as np
+    from paddle_tpu_torch.spec_decode import SpecDecodeConfig
+    base_eng = engine(None)
+    L = base_eng.cfg.num_layers
+    base = spec_drive(base_eng, prompts, new)
+    del base_eng
+    out = {"baseline": dict(
+        tokens_per_s=base["dec_tok"] / base["dec_s"], wall_s=base["wall"],
+        engine_steps_per_token=1.0, launches=base["counts"])}
+    for k, n in base["counts"].items():
+        totals[k] = totals.get(k, 0) + n
+    for name, (dcfg, dparams) in drafts.items():
+        eng = engine(SpecDecodeConfig(draft_cfg=dcfg, draft_params=dparams,
+                                      k=SPEC_K, window=SPEC_W))
+        timers = spec_timers(eng)
+        run = spec_drive(eng, prompts, new)
+        stats = eng.spec_stats()
+        del eng
+        for i, (a, b) in enumerate(zip(run["ids"], base["ids"])):
+            if not np.array_equal(a, b):
+                j = int((a != b).nonzero()[0][0]) - len(prompts[i])
+                raise SmokeFailure(
+                    f"{tag} {name}: request {i} differs from the baseline "
+                    f"at generated token {j} ({int(a[len(prompts[i]) + j])} "
+                    f"vs {int(b[len(prompts[i]) + j])})")
+        if not np.array_equal(run["first"].view(np.uint32),
+                              base["first"].view(np.uint32)):
+            diff = float(np.abs(run["first"] - base["first"]).max())
+            raise SmokeFailure(f"{tag} {name}: the first verify's column-0 "
+                               f"logits differ from the baseline step's by "
+                               f"up to {diff:.3e}")
+        want = L * (SPEC_K + 1) * stats["spec_steps"]
+        c = run["counts"]
+        if c.get("decode_block") != want or \
+                c.get("prefill_block") != base["counts"].get("prefill_block") \
+                or set(c) != set(base["counts"]):
+            raise SmokeFailure(
+                f"{tag} {name}: launches {c}, expected decode_block {want} "
+                f"({L} layers x {SPEC_K + 1} x {stats['spec_steps']} spec "
+                f"steps), prefill_block and the kernel set as the "
+                f"baseline's {base['counts']}")
+        for k, n in c.items():
+            totals[k] = totals.get(k, 0) + n
+        draft_ms = 1e3 * sum(timers["draft"]) / len(timers["draft"])
+        verify_ms = 1e3 * sum(timers["verify"]) / len(timers["verify"])
+        out[name] = dict(
+            tokens_per_s=run["dec_tok"] / run["dec_s"], wall_s=run["wall"],
+            engine_steps_per_token=stats["engine_steps_per_token"],
+            acceptance_rate=stats["acceptance_rate"],
+            spec_steps=stats["spec_steps"],
+            rollback_pages=stats["rollback_pages"],
+            draft_ms_per_proposal=draft_ms, verify_ms=verify_ms,
+            launches=c)
+        info(f"{tag} {name} (k {SPEC_K}, window {SPEC_W}): ids identical to "
+             f"the baseline's on {len(prompts)} requests; first verify's "
+             f"column-0 logits bit-equal to the baseline step's; "
+             f"decode_block {c['decode_block']} = {L} x {SPEC_K + 1} x "
+             f"{stats['spec_steps']} spec steps; engine_steps_per_token "
+             f"{stats['engine_steps_per_token']:.4f}, acceptance rate "
+             f"{stats['acceptance_rate']:.4f}; decode tokens/s "
+             f"{out[name]['tokens_per_s']:.1f} (baseline "
+             f"{out['baseline']['tokens_per_s']:.1f}); draft "
+             f"{draft_ms:.3f} ms a proposal, verify {verify_ms:.3f} ms "
+             f"({SPEC_K + 1} decode steps); wall {run['wall']:.2f} s "
+             f"(baseline {base['wall']:.2f} s)")
+    return out
+
+
+def phase_engine_spec(cfg, dev="cuda"):
+    """Speculative decoding through ``ContinuousBatchingEngine(...,
+    spec_config=SpecDecodeConfig(...))`` on phase engine's settings:
+    llama_7b bf16 at full depth (weights from phase engine's seed) with a
+    self-draft and a 2-layer llama_7b-width draft of another seed, then
+    the same at 4 layers PTQ-exported to int8 weights and int8 KV (the
+    verify runs ``wo_dec``, ``rope_kv_write_q8`` and
+    ``paged_attention_q8``; the drafts stay full width).  Each held to
+    the same engine without ``spec_config`` on the same requests
+    (``spec_case``).  Returns the launch counts of every engine run of the
+    phase and its summary."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models.llama import init_params, llama_7b
+    from paddle_tpu_torch.quantization import ServeQuantConfig
+
+    rng = np.random.default_rng(SEED + 29)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SPEC_LENS]
+    short = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in SPEC_SHORT_LENS]
+    dcfg = llama_7b(num_layers=SPEC_DRAFT_LAYERS, dtype=cfg.dtype)
+    dparams = init_params(dcfg, make_generator(SEED + 1, dev), device=dev)
+    totals, summary = {}, {}
+    for tag, layers, qc in (
+            ("engine spec", cfg.num_layers, None),
+            ("engine spec quant", SPEC_QUANT_LAYERS,
+             ServeQuantConfig(**ENGINE_QUANT))):
+        tcfg = llama_7b(num_layers=layers, dtype=cfg.dtype)
+        params = init_params(tcfg, make_generator(SEED, dev), device=dev)
+
+        def engine(spec):
+            return ContinuousBatchingEngine(
+                tcfg, params, max_batch=4, block_size=16, num_blocks=256,
+                prefill_buckets=(16, 64, 256), enable_prefix_caching=False,
+                enable_preemption=False, quant_config=qc, spec_config=spec,
+                device=dev)
+        summary[tag] = spec_case(
+            tag, engine, prompts, SPEC_NEW,
+            {"self-draft": (tcfg, params),
+             f"{SPEC_DRAFT_LAYERS}-layer draft": (dcfg, dparams)}, totals)
+        if qc is None:
+            summary["draft_logits_max_err"] = check_draft_logits(
+                tcfg, params, short[2], dev)
+            summary["engine spec in-window"] = spec_case(
+                "engine spec in-window", engine, short, SPEC_SHORT_NEW,
+                {"self-draft": (tcfg, params)}, totals)
+        del params
+        torch.cuda.empty_cache()
+    return totals, summary
+
+
+def check_draft_logits(cfg, params, prompt, dev="cuda"):
+    """The draft program's logits over a prompt that fits its window
+    (``SpecDecodeConfig``'s draft at llama_7b, bf16: dense masked attention
+    and torch products) against the engine's prefill logits over the same
+    prompt (chunk fills through kernel 2), with the fp32 plain chain as the
+    truth (``check_layer_out``).  Returns the max |error|."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.spec_decode import build_draft_program
+    from paddle_tpu_torch.spec_decode.draft import assemble_windows
+    eng = ContinuousBatchingEngine(cfg, params, max_batch=1, block_size=16,
+                                   num_blocks=8, prefill_buckets=(16,),
+                                   enable_prefix_caching=False,
+                                   enable_preemption=False, device=dev)
+    eng.add_request(prompt, 1)
+    eng.run_to_completion()
+    plain = torch.from_numpy(eng.last_prefill_logits)
+    truth = fp32_last_logits(eng, prompt)
+    win, ctx = assemble_windows([prompt.tolist()], SPEC_W, 1)
+    draft = build_draft_program(cfg, SPEC_W, dev)
+    with torch.no_grad():
+        got = draft.logits(params, torch.from_numpy(win).to(dev),
+                           torch.from_numpy(ctx).to(dev))[0].cpu()
+    err = check_layer_out(f"engine spec draft logits ({len(prompt)} tokens "
+                          f"in a {SPEC_W}-token window)", got, plain, truth,
+                          TOL["bfloat16"])
+    info(f"engine spec draft logits vs the engine's prefill logits: max "
+         f"|err| {err:.3e}, argmax {int(got.argmax())} / "
+         f"{int(plain.argmax())} / {int(truth.argmax())} (draft / engine / "
+         f"fp32)")
+    return err
 
 
 def gpt_paged_rollout(params, cfg, prompts, new_tokens, *, buckets,
@@ -4656,15 +4916,36 @@ def lce_route(key, name):
     return None
 
 
-def lce_kernel(by, name, call_ms):
-    """Device ms a call of kernel ``name`` (its launches in the breakdown
-    ``by`` of one call), its launches a call and its routes."""
+def lce_launches(fn):
+    """Launches of each linear-CE kernel in one call of ``fn``, read from
+    the kernel library's counters (the profiler can miss records, so its
+    counts are not launch counts)."""
+    import torch
+    from paddle_tpu_torch.ops.cuda import layer
+    torch.cuda.synchronize()
+    layer.reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    counts = layer.launch_counts()
+    return {name: counts[name] for name in (*LCE_NAMES, "linear_ce_split_x")}
+
+
+def lce_kernel(by, name, call_ms, launches):
+    """Device ms a call of kernel ``name``: the mean recorded time of its
+    launches in the breakdown ``by`` of one call (instances weighed by
+    their share of the records) times ``launches``, its launches a call
+    from the library's counters; with its routes."""
     hit = {k: (mean, n) for k, (mean, n) in by.items()
            if lce_route(k, name)}
-    return dict(ms=sum(mean * n for mean, n in hit.values()) if hit
-                else None, launches_per_call=sum(n for _, n in hit.values()),
-                call_ms=call_ms,
-                routes=sorted({lce_route(k, name) for k in hit}))
+    recorded = sum(n for _, n in hit.values())
+    return dict(ms=sum(mean * n for mean, n in hit.values()) / recorded
+                * launches if hit else None, launches_per_call=launches,
+                call_ms=call_ms, routes=lce_routes(by, name))
+
+
+def lce_routes(by, name):
+    """The routes of kernel ``name``'s records in the breakdown ``by``."""
+    return sorted({r for r in (lce_route(k, name) for k in by) if r})
 
 
 def lce_times(case, x, w, lab, lse, g):
@@ -4684,17 +4965,24 @@ def lce_times(case, x, w, lab, lse, g):
     _, T, H, V, chunk, _, _, ignore, eps = case
     kw = dict(label_smoothing=eps)
     out, by = {}, {}
-    _, call = time_ms(lambda: lc.linear_ce_fwd_cuda(
-        x, w, lab, ignore_index=ignore, **kw), 5, by)
-    out["linear_ce_fwd"] = lce_kernel(by, "linear_ce_fwd", call)
-    out["linear_ce_split_x"] = lce_kernel(by, "linear_ce_split_x", call)
+
+    def fwd():
+        return lc.linear_ce_fwd_cuda(x, w, lab, ignore_index=ignore, **kw)
+
+    def bwd():
+        return lc.linear_ce_bwd_cuda(x, w, lab, lse, g, chunk=chunk, **kw)
+    _, call = time_ms(fwd, 5, by)
+    n = lce_launches(fwd)
+    out["linear_ce_fwd"] = lce_kernel(by, "linear_ce_fwd", call,
+                                      n["linear_ce_fwd"])
+    out["linear_ce_split_x"] = lce_kernel(by, "linear_ce_split_x", call,
+                                          n["linear_ce_split_x"])
     by = {}
-    _, call = time_ms(lambda: lc.linear_ce_bwd_cuda(
-        x, w, lab, lse, g, chunk=chunk, **kw), 3, by)
+    _, call = time_ms(bwd, 3, by)
+    n = lce_launches(bwd)
     for name in LCE_NAMES[1:]:
-        out[name] = lce_kernel(by, name, call)
-    out["bwd_split_x_launches"] = lce_kernel(by, "linear_ce_split_x",
-                                             call)["launches_per_call"]
+        out[name] = lce_kernel(by, name, call, n[name])
+    out["bwd_split_x_launches"] = n["linear_ce_split_x"]
     plain_fwd = time_ms(lambda: fce.lce_fwd_ref(
         x, w, lab, chunk=chunk, ignore_index=ignore, **kw), 2)
     plain_bwd = time_ms(lambda: fce.lce_bwd_ref(
@@ -4822,7 +5110,7 @@ def phase_linear_ce(results, dev="cuda"):
                 by = {}
                 time_ms(lambda: lc.linear_ce_bwd_cuda(
                     x, w, lab, lse, g, chunk=chunk, **kw), 1, by)
-                routes = {n: lce_kernel(by, n, None)["routes"]
+                routes = {n: lce_routes(by, n)
                           for n in LCE_NAMES[1:]}
                 if routes != {"linear_ce_dz": ["split"],
                               "linear_ce_dx": ["wg"],
@@ -7310,6 +7598,8 @@ def main():
         qcounts, engine_q, qfcounts = phase_engine_quant(cfg, engine)
         torch.cuda.empty_cache()
         fcounts, features = phase_engine_features(cfg)
+        torch.cuda.empty_cache()
+        scounts, spec = phase_engine_spec(cfg)
         del cfg
         torch.cuda.empty_cache()
         gpt_serve_counts, gpt_serve = phase_gpt_serve(kernels)
@@ -7348,7 +7638,7 @@ def main():
     # drive it (the engine, the train steps, the rollouts, the eager steps)
     by_phase = {"engine": counts, "engine quant": qcounts,
                 "engine quant features": qfcounts,
-                "engine features": fcounts,
+                "engine features": fcounts, "engine spec": scounts,
                 "gpt serve": gpt_serve_counts,
                 "gpt serve quant": gpt_quant_counts,
                 "train": train_counts, "gpt": gpt_counts,
@@ -7372,6 +7662,7 @@ def main():
     info(f"engine summary {json.dumps(engine)}")
     info(f"engine quant summary {json.dumps(engine_q)}")
     info(f"engine features summary {json.dumps(features)}")
+    info(f"engine spec summary {json.dumps(spec)}")
     info(f"gpt serve summary {json.dumps(gpt_serve)}")
     info(f"gpt serve quant summary {json.dumps(gpt_quant)}")
     info(f"train summary {json.dumps(train)}")

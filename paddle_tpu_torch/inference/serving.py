@@ -20,6 +20,10 @@ spills a running request's committed pages to a CRC-checked host tier
 from its committed tokens when the bounded tier dropped them; sampled
 requests draw on per-request Threefry streams keyed by (seed, absolute
 position), so a request's tokens do not depend on its batchmates.
+With ``spec_config`` (``spec_decode/``, item 12) every decode iteration
+drafts K tokens a slot, verifies them through the decode step run K+1
+times and commits the accepted prefix; greedy ids are those of the
+baseline engine, bit for bit.
 
 Differences from the JAX engine, by design:
 
@@ -31,11 +35,10 @@ Differences from the JAX engine, by design:
 * the JAX engine's ``REGISTRY`` / ``TRACER`` hooks are not kept (ROADMAP
   queue 1 item 13): the plain ``stats`` and ``resilience`` dicts carry
   the same keys and values;
-* speculative decoding (``spec_config``, item 12), AOT artifacts
-  (``aot_dir``, item 16) and MoE configs (item 15b) raise
-  ``NotImplementedError``; GPT-family configs raise as well: the JAX
-  engine serves Llama configs only, and a GPT layer reaches the serving
-  kernels through the ops (``ops.decode_block``).
+* AOT artifacts (``aot_dir``, item 16) and MoE configs (item 15b, a
+  MoE draft too) raise ``NotImplementedError``; GPT-family configs raise
+  as well: the JAX engine serves Llama configs only, and a GPT layer
+  reaches the serving kernels through the ops (``ops.decode_block``).
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from ..serving.prefix_cache import PrefixCache
 from ..serving.resilience import (SpillCorruptError, SpillTier, read_pages,
                                   restore_into_slot, snapshot_slot,
                                   write_pages)
+from ..spec_decode import SpecDecodeConfig, SpecDecodeRunner
 
 __all__ = ["ContinuousBatchingEngine", "GenRequest", "build_sampler",
            "derive_sample_seed"]
@@ -230,6 +234,15 @@ class ContinuousBatchingEngine:
         port has no per-op CUDA chain to route to (its plain versions are
         a correctness lane, not a fair A/B arm; the bench's serve rows are
         ROADMAP.md queue 1 item 13).
+      spec_config: a :class:`~paddle_tpu_torch.spec_decode.
+        SpecDecodeConfig` (draft model and parameters on this engine's
+        device, ``k``, ``window``, ``enabled``), or None.  Every decode
+        iteration then drafts ``k`` tokens a slot, runs the decode step
+        ``k + 1`` times and commits the accepted prefix (greedy ids equal
+        the baseline's; sampled requests keep their law through
+        rejection sampling); ``enabled=False`` decodes on the baseline
+        path.  Works with ``quant_config``, prefix caching and
+        preemption; the draft is always full width.
       device: ``None`` = CUDA (raises without it); ``"cpu"`` runs the
         plain PyTorch versions of the ops.
     """
@@ -249,9 +262,11 @@ class ContinuousBatchingEngine:
             raise TypeError(f"quant_config must be a ServeQuantConfig or "
                             f"None, got {type(quant_config).__name__}")
         if spec_config is not None:
-            raise NotImplementedError(
-                "spec_config: speculative decoding in the engine is not "
-                "ported yet — ROADMAP.md queue 1 item 12")
+            if not isinstance(spec_config, SpecDecodeConfig):
+                raise TypeError(
+                    f"spec_config must be a SpecDecodeConfig or None, got "
+                    f"{type(spec_config).__name__}")
+            spec_config.validate_against(cfg)
         if aot_dir is not None:
             raise NotImplementedError(
                 "aot_dir: AOT warm starts are not ported yet (their "
@@ -349,6 +364,9 @@ class ContinuousBatchingEngine:
         self.decode_tokens = 0
         self.last_logits: Optional[np.ndarray] = None        # [B, V]
         self.last_prefill_logits: Optional[np.ndarray] = None   # [V]
+        self.spec_config = spec_config
+        self._spec = None if spec_config is None else \
+            SpecDecodeRunner(self, spec_config)
 
     def _leaf_shapes(self):
         """{block leaf: (per-layer shape, dtype)}: the block weights, or
@@ -402,13 +420,24 @@ class ContinuousBatchingEngine:
         xf = self._norm(x, self.params["lnf_w"])
         return xf.float() @ self._head32
 
-    def _decode_step(self) -> torch.Tensor:
+    def _device_state(self):
+        """``(tokens [B] int64, lengths [B] int32, block_table [B, MB]
+        int32)`` of the decode batch, copied to the device."""
         dev = self.device
-        tokens = torch.from_numpy(self.tokens).to(dev, torch.long)
-        lengths = torch.from_numpy(self.lengths).to(dev)
-        bt = torch.from_numpy(self.block_table).to(dev)
+        return (torch.from_numpy(self.tokens).to(dev, torch.long),
+                torch.from_numpy(self.lengths).to(dev),
+                torch.from_numpy(self.block_table).to(dev))
+
+    def _decode_step(self, tokens, lengths, bt) -> torch.Tensor:
+        """One decode step over every slot: ``tokens`` [B] fed at
+        positions ``lengths`` [B] (tokens already stored) through the
+        table ``bt``, all on the device; writes their KV into the pools
+        and returns fp32 logits ``[B, V]``.  The speculative verify calls
+        it K+1 times with ``lengths + i``, which may run past the RoPE
+        table (a row past its budget, never read): positions clamp to
+        its end."""
         x = self.params["wte"][tokens]                        # [B, H]
-        pos = lengths.long()
+        pos = lengths.long().clamp(max=self._cos.shape[0] - 1)
         cos, sin = self._cos[pos].contiguous(), self._sin[pos].contiguous()
         for i, lp in enumerate(self._layers):
             x, _, _ = decode_block(x, lp, layer_pool(self.pool_k, i),
@@ -995,7 +1024,19 @@ class ContinuousBatchingEngine:
             self.last_logits = None
             out, self.finished = self.finished, {}
             return out
-        logits = self._decode_step()
+        if self._spec is not None and self._spec.config.enabled:
+            # speculative decode: draft K, verify K+1, commit the accepted
+            # prefix (spec_decode/runner.py); greedy ids are the baseline
+            # branch's, bit for bit
+            pre = sum(len(self.slots[s].out) for s in active)
+            self._spec.run_decode(active)
+            self.decode_steps += 1
+            self.decode_slot_steps += len(active)
+            self.decode_tokens += \
+                sum(len(self.slots[s].out) for s in active) - pre
+            out, self.finished = self.finished, {}
+            return out
+        logits = self._decode_step(*self._device_state())
         self.last_logits = logits.cpu().numpy()
         for s in active:
             self.lengths[s] += 1            # the fed token's KV is stored
@@ -1097,6 +1138,22 @@ class ContinuousBatchingEngine:
             self.stats["prefill_tokens_computed"]
         lk = s["lookups"]
         s["hit_rate"] = (s["hits"] / lk) if lk else None
+        return s
+
+    def spec_stats(self) -> Optional[Dict[str, object]]:
+        """Speculation counters (the JAX engine's keys), or None without
+        ``spec_config``.  ``engine_steps_per_token`` counts per-slot
+        decode iterations per decode token, so baseline decode measures
+        exactly 1.0 at any batch size — < 1.0 is accepted speculation."""
+        if self._spec is None:
+            return None
+        s: Dict[str, object] = dict(self._spec.stats)
+        s["enabled"] = self._spec.config.enabled
+        s["k"] = self._spec.config.k
+        s["acceptance_rate"] = self._spec.acceptance_rate
+        s["engine_steps_per_token"] = (
+            self.decode_slot_steps / self.decode_tokens
+            if self.decode_tokens else None)
         return s
 
     def bucket_stats(self) -> Dict[str, int]:

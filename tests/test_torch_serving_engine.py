@@ -5,7 +5,7 @@ IDENTICAL greedy token ids, and the decode logits of every step must
 agree to 1e-4 in fp32 (both engines with prefix caching and preemption
 off; the defaults are held in tests/test_torch_prefix_cache.py).  Also
 pins cancellation and KV accounting, the refusals of features outside
-the port's slice (speculative decoding, AOT artifacts, MoE and
+the port's slice (AOT artifacts, MoE configs and MoE drafts, and
 dynamic-NTK RoPE), and the host-side pieces
 (RoPE tables, bucket plans, seeded parameters) against the JAX
 package."""
@@ -27,6 +27,7 @@ from paddle_tpu_torch.device import make_generator
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.quantization import ServeQuantConfig
+from paddle_tpu_torch.spec_decode import SpecDecodeConfig
 
 PROMPT_LENS = (5, 20, 37, 9, 16)
 BUDGETS = (6, 4, 8, 5, 3)
@@ -117,11 +118,18 @@ def test_kv_leak_report_clean_after_drain_with_eos(model):
                    "slot_blocks": 0, "leaked": 0, "unaccounted": 0}
 
 
-@pytest.mark.parametrize("kw", [{"spec_config": object()},
+@pytest.mark.parametrize("kw", [{"spec_config": "moe_draft"},
                                 {"aot_dir": "/nonexistent"}],
                          ids=lambda kw: next(iter(kw)))
 def test_features_outside_the_slice_are_refused(model, kw):
+    """AOT artifacts (item 16), and of speculative decoding (ported) a MoE
+    draft (item 15b)."""
     _, _, np_tree = model
+    if "spec_config" in kw:
+        moe = tllama.llama_tiny(moe_num_experts=4)
+        kw = {"spec_config": SpecDecodeConfig(
+            draft_cfg=moe, draft_params=params_from_numpy(
+                np_tree, "float32", "cpu"))}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _torch_engine(np_tree, **kw)
 
