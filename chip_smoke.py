@@ -108,6 +108,25 @@ card and ``nvcc`` (``/usr/local/cuda``).  Phases:
             (K+1) a spec step; decode tokens/s both ways,
             ``engine_steps_per_token``, acceptance rate, draft ms a
             proposal and verify ms;
+4d. engine graphs  the engine's programs as captured CUDA graphs (the
+            decode step, the fixed-width sampler, the spec draft and
+            verify; phases 4-4c run through them too) against the same
+            engine's eager launch chain (``engine._set_eager``): llama_7b
+            bf16 and int8 + int8 KV over 8 requests of 20-600 prompt
+            tokens and 32 new, ids identical and the first step's logits
+            bit-equal, the launch counts the eager run's plus the
+            captures' warm-up calls exactly, decode step wall and busy and
+            tokens/s both ways; the sampler's ids for 1-4 rows and its ms
+            a call both ways; speculation with both drafts: ids and the
+            first verify's column 0 equal, the pools unchanged byte for
+            byte by the warm-up and capture of every program, draft and
+            verify ms both ways, capture ms and the graph pool's memory;
+            then ``aot.export_engine`` into a temporary directory and a
+            child process (``chip_smoke.py --warm-child``) whose PATH and
+            CUDA_HOME find no ``nvcc`` warm-starting from it: the
+            artifact's library loaded, no ``nvcc`` run, the graphs
+            captured at construction, the parent's ids served; a copy with
+            one library byte flipped falls back (CRC) and serves them;
 5. gpt serve  GPT-125M (``gpt_125m``, bf16, 12 layers, V 50304) served
             through ``decode_block`` / ``prefill_block`` (the GPT layer:
             LayerNorm with bias, fused qkv stored split per head, bias and
@@ -2254,18 +2273,18 @@ def phase_engine_quant(cfg, bf16, dev="cuda"):
     del pk, pv, pk32, pv32, x, x32
 
     # the main path: phase_engine's traffic, counts from zero, every chunk
-    # fill and decode step recorded to predict the launches
-    chunks, steps = [], [0]
-    fill, decode = eng._chunk_fill, eng._decode_step
+    # fill recorded and the decode step's executions read off its graph
+    # (its replays, and the capture's warm-up call when it is captured in
+    # this run) to predict the launches
+    chunks = []
+    fill = eng._chunk_fill
 
     def counted_fill(bt_row, start, toks, valid):
         chunks.append(len(toks))
         return fill(bt_row, start, toks, valid)
-
-    def counted_decode(*args):
-        steps[0] += 1
-        return decode(*args)
-    eng._chunk_fill, eng._decode_step = counted_fill, counted_decode
+    eng._chunk_fill = counted_fill
+    pre_graph = eng._graphs.get("decode")
+    replays0 = 0 if pre_graph is None else pre_graph.replays
     lens = [20, 600, 137, 64, 300, 45, 512, 256]
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
@@ -2295,6 +2314,8 @@ def phase_engine_quant(cfg, bf16, dev="cuda"):
         wall = time.perf_counter() - t0
     counts = layer.launch_counts()
     L = cfg.num_layers
+    steps = [eng._graphs["decode"].replays - replays0
+             + (pre_graph is None)]
     want = {"decode_block": L * steps[0], "prefill_block": L * len(chunks),
             "rms_norm_rows": 2 * L * (steps[0] + len(chunks)),
             "rope_kv_write_q8": L * (steps[0] + len(chunks)),
@@ -2321,9 +2342,10 @@ def phase_engine_quant(cfg, bf16, dev="cuda"):
             leak["free_blocks"] != eng.alloc.num_blocks:
         raise SmokeFailure(f"engine quant: KV accounting not clean: {leak}")
     info(f"engine quant: launches exactly as predicted ({steps[0]} decode "
-         f"steps, {len(chunks)} chunks {sorted(set(chunks))}): {got_counts}")
+         f"steps: the decode graph's replays and its capture's warm-up "
+         f"call; {len(chunks)} chunks {sorted(set(chunks))}): {got_counts}")
     # decode steady state: device busy share of 8 steps at B=4
-    eng._chunk_fill, eng._decode_step = fill, decode
+    eng._chunk_fill = fill
     for p in prompts[:4]:
         eng.add_request(p[:64], 12)
     eng.step()
@@ -3090,18 +3112,21 @@ SPEC_SHORT_LENS, SPEC_SHORT_NEW = (4, 6, 8, 5), 8
 SPEC_DRAFT_LAYERS, SPEC_QUANT_LAYERS = 2, 4
 
 
-def spec_drive(eng, prompts, new):
+def spec_drive(eng, prompts, new, tag="engine spec"):
     """Serve ``prompts`` (all queued before the first step, so baseline and
     speculative runs see the same admissions: no prefix hit, no eviction,
     no preemption) with the plain serving ops refused and the launch
     counts set to 0 just before and read just after.  Returns ids in
     request order, the first step's ``last_logits`` (the verify's column 0
     under speculation), the decode steps' wall and tokens after the first
-    step, the run's wall and its nonzero launch counts."""
+    step, the run's wall, its nonzero launch counts and the warm-up
+    launches of the graphs captured in the run (``warm``, counted in
+    ``counts``)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.ops.cuda import layer
     torch.cuda.synchronize()
+    captured = set(eng._graphs)
     layer.reset_counts()
     rids = [eng.add_request(p, new) for p in prompts]
     res, first, dec_s, dec_tok = {}, None, 0.0, 0
@@ -3115,7 +3140,7 @@ def spec_drive(eng, prompts, new):
             if eng.last_logits is not None:
                 live = [s for s in range(eng.B) if eng.slots[s] is not None]
                 if not np.isfinite(eng.last_logits[live]).all():
-                    raise SmokeFailure("engine spec: non-finite logits")
+                    raise SmokeFailure(f"{tag}: non-finite logits")
             if first is None:
                 first = np.array(eng.last_logits)
             else:
@@ -3123,12 +3148,17 @@ def spec_drive(eng, prompts, new):
                 dec_tok += eng.decode_tokens - tok0
     wall = time.perf_counter() - t0
     counts = {k: n for k, n in layer.launch_counts().items() if n}
+    warm = {}
+    for name, g in eng._graphs.items():
+        if name not in captured:
+            for k, n in g.warmup_launches.items():
+                warm[k] = warm.get(k, 0) + n
     leak = eng.kv_leak_report()
     if leak["leaked"] or leak["unaccounted"] or \
             leak["free_blocks"] != eng.alloc.num_blocks:
-        raise SmokeFailure(f"engine spec: KV accounting not clean: {leak}")
+        raise SmokeFailure(f"{tag}: KV accounting not clean: {leak}")
     return dict(ids=[res[r] for r in rids], first=first, dec_s=dec_s,
-                dec_tok=dec_tok, wall=wall, counts=counts)
+                dec_tok=dec_tok, wall=wall, counts=counts, warm=warm)
 
 
 def spec_timers(eng):
@@ -3158,7 +3188,8 @@ def spec_case(tag, engine, prompts, new, drafts, totals):
     params)}).  Checks (a) ids identical to the baseline's, request by
     request; (b) the first step's logits (the verify's column 0) equal to
     the baseline step's bit for bit; (c) ``decode_block`` launches exactly
-    layers x (K+1) a spec step, ``prefill_block`` as the baseline's, every
+    layers x (K+1) a spec step (replays of the verify's graph) plus its
+    capture's warm-up call, ``prefill_block`` as the baseline's, every
     kernel the baseline launched launched again.  Returns the summary."""
     import numpy as np
     from paddle_tpu_torch.spec_decode import SpecDecodeConfig
@@ -3191,7 +3222,8 @@ def spec_case(tag, engine, prompts, new, drafts, totals):
             raise SmokeFailure(f"{tag} {name}: the first verify's column-0 "
                                f"logits differ from the baseline step's by "
                                f"up to {diff:.3e}")
-        want = L * (SPEC_K + 1) * stats["spec_steps"]
+        want = L * (SPEC_K + 1) * stats["spec_steps"] + \
+            run["warm"].get("decode_block", 0)
         c = run["counts"]
         if c.get("decode_block") != want or \
                 c.get("prefill_block") != base["counts"].get("prefill_block") \
@@ -3199,8 +3231,8 @@ def spec_case(tag, engine, prompts, new, drafts, totals):
             raise SmokeFailure(
                 f"{tag} {name}: launches {c}, expected decode_block {want} "
                 f"({L} layers x {SPEC_K + 1} x {stats['spec_steps']} spec "
-                f"steps), prefill_block and the kernel set as the "
-                f"baseline's {base['counts']}")
+                f"steps + the verify capture's warm-up), prefill_block and "
+                f"the kernel set as the baseline's {base['counts']}")
         for k, n in c.items():
             totals[k] = totals.get(k, 0) + n
         draft_ms = 1e3 * sum(timers["draft"]) / len(timers["draft"])
@@ -3217,7 +3249,9 @@ def spec_case(tag, engine, prompts, new, drafts, totals):
              f"the baseline's on {len(prompts)} requests; first verify's "
              f"column-0 logits bit-equal to the baseline step's; "
              f"decode_block {c['decode_block']} = {L} x {SPEC_K + 1} x "
-             f"{stats['spec_steps']} spec steps; engine_steps_per_token "
+             f"{stats['spec_steps']} spec steps + "
+             f"{run['warm'].get('decode_block', 0)} warm-up; "
+             f"engine_steps_per_token "
              f"{stats['engine_steps_per_token']:.4f}, acceptance rate "
              f"{stats['acceptance_rate']:.4f}; decode tokens/s "
              f"{out[name]['tokens_per_s']:.1f} (baseline "
@@ -3313,6 +3347,425 @@ def check_draft_logits(cfg, params, prompt, dev="cuda"):
          f"{int(plain.argmax())} / {int(truth.argmax())} (draft / engine / "
          f"fp32)")
     return err
+
+
+# ------------------------------------------- the engine's CUDA graphs
+# The decode step, the fixed-width sampler and the spec draft / verify as
+# captured CUDA graphs (aot/graphs.py) against the same engine's eager
+# launch chain (engine._set_eager(True)), phase engine's settings; then
+# the aot_dir warm start in a child process that cannot find nvcc.
+GRAPH_LENS, GRAPH_NEW = (20, 600, 137, 64, 300, 45, 512, 256), 32
+GRAPH_ENGINE = dict(max_batch=4, block_size=16, num_blocks=256,
+                    prefill_buckets=(16, 64, 256),
+                    enable_prefix_caching=False, enable_preemption=False)
+GRAPH_TIMED = 20                       # sampler calls timed a mode
+
+
+def graph_engine(cfg, params, dev="cuda", **kw):
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    return ContinuousBatchingEngine(cfg, params, device=dev,
+                                    **GRAPH_ENGINE, **kw)
+
+
+def graph_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(SEED + 30)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in GRAPH_LENS]
+
+
+def decode_profile(eng, prompts, steps=8):
+    """Phase engine's steady-state window: 4 requests of 64 prompt tokens
+    admitted, then ``steps`` decode steps at B 4 under the profiler;
+    returns (wall ms a step, device busy ms a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts[:4]:
+        eng.add_request(p[:64], steps + 4)
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - ts) * 1e3 / steps
+    busy = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        busy += max(us, 0.0) / steps / 1e3
+    eng.run_to_completion()
+    return wall, busy
+
+
+def decode_host_split(eng, prompts, steps=8):
+    """Unprofiled steady state at B 4: the mean wall of a synchronised
+    ``engine.step()``, of the decode program alone on the batch the next
+    step feeds (``engine._run("decode", ...)`` and a synchronize: its
+    launches and the device; it writes each slot's next KV row, which that
+    step writes again with the same values) and of its logits' copy to
+    the host; the rest of a step is the scheduler's host work.  Returns
+    (step ms, program ms, copy ms)."""
+    import torch
+    for p in prompts[:4]:
+        eng.add_request(p[:64], 3 * steps + 4)
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    step = (time.perf_counter() - t0) * 1e3 / steps
+    prog = copy = 0.0
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng._run("decode", tokens=eng.tokens, lengths=eng.lengths,
+                       bt=eng.block_table)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.cpu()
+        prog += t1 - t0
+        copy += time.perf_counter() - t1
+    eng.run_to_completion()
+    return step, prog * 1e3 / steps, copy * 1e3 / steps
+
+
+def same_run_ids(tag, a, b, prompts):
+    """Ids of two runs over the same prompts identical, request by
+    request, and their first decode step's logits bit-equal."""
+    import numpy as np
+    for i, (x, y) in enumerate(zip(a["ids"], b["ids"])):
+        if not np.array_equal(x, y):
+            j = int((x != y).nonzero()[0][0]) - len(prompts[i])
+            raise SmokeFailure(f"{tag}: request {i} differs at generated "
+                               f"token {j}")
+    if not np.array_equal(a["first"].view(np.uint32),
+                          b["first"].view(np.uint32)):
+        raise SmokeFailure(f"{tag}: the first decode step's logits differ "
+                           f"by up to "
+                           f"{float(np.abs(a['first'] - b['first']).max()):.3e}")
+
+
+def graph_ab(tag, eng, prompts, totals):
+    """The same engine over the same requests with its graphs, then with
+    its eager launch chain: ids identical, the first step's logits
+    bit-equal, the launch counts of the graph run the eager run's plus
+    the warm-up calls of the graphs captured in it; decode wall against
+    busy (profiled) and tokens/s both ways."""
+    graphs = spec_drive(eng, prompts, GRAPH_NEW, tag)
+    g_wall, g_busy = decode_profile(eng, prompts)
+    g_split = decode_host_split(eng, prompts)
+    eng._set_eager(True)
+    eager = spec_drive(eng, prompts, GRAPH_NEW, tag)
+    e_wall, e_busy = decode_profile(eng, prompts)
+    e_split = decode_host_split(eng, prompts)
+    eng._set_eager(False)
+    same_run_ids(f"{tag} graphs vs eager", graphs, eager, prompts)
+    keys = set(eager["counts"]) | set(graphs["warm"])
+    want = {k: eager["counts"].get(k, 0) + graphs["warm"].get(k, 0)
+            for k in keys}
+    if graphs["counts"] != want:
+        raise SmokeFailure(f"{tag}: graph run launches {graphs['counts']}, "
+                           f"expected the eager run's {eager['counts']} plus "
+                           f"the captures' warm-up {graphs['warm']}")
+    for k, n in graphs["counts"].items():
+        totals[k] = totals.get(k, 0) + n
+    stats = eng.aot_stats()["graphs"]
+    split = ("step_ms_unprofiled", "program_ms", "logits_copy_ms")
+    out = dict(
+        decode_step_ms=g_wall, decode_busy_ms=g_busy,
+        decode_tokens_per_s=graphs["dec_tok"] / graphs["dec_s"],
+        **dict(zip(split, g_split)),
+        eager=dict(decode_step_ms=e_wall, decode_busy_ms=e_busy,
+                   decode_tokens_per_s=eager["dec_tok"] / eager["dec_s"],
+                   **dict(zip(split, e_split))),
+        capture_ms={n: g["capture_ms"] for n, g in stats.items()},
+        launches=graphs["counts"], warmup_launches=graphs["warm"])
+    info(f"{tag}: {len(prompts)} requests x {GRAPH_NEW} new, ids identical "
+         f"graphs / eager, first step's logits bit-equal; launches = eager "
+         f"+ warm-up exactly ({graphs['counts']}); decode step wall "
+         f"{g_wall:.3f} ms busy {g_busy:.3f} ms profiled (eager "
+         f"{e_wall:.3f} / {e_busy:.3f}); unprofiled step {g_split[0]:.3f} "
+         f"ms = program {g_split[1]:.3f} + logits copy {g_split[2]:.3f} + "
+         f"host rest (eager {e_split[0]:.3f} = {e_split[1]:.3f} + "
+         f"{e_split[2]:.3f} + rest); tokens/s "
+         f"{out['decode_tokens_per_s']:.1f} (eager "
+         f"{out['eager']['decode_tokens_per_s']:.1f}); capture ms "
+         f"{out['capture_ms']}")
+    return out, graphs["ids"]
+
+
+def graph_sampler_ab(eng, dev="cuda"):
+    """The fixed-width sampler's graph against its eager chain on the same
+    rows: sub-batches of 1 to B rows, ids equal; ms a call at B rows."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.serving import GenRequest
+    V = eng.cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    lg = torch.randn((eng.B, V), generator=gen, device=dev) * 3
+    reqs = [GenRequest(i, np.zeros(1, np.int32), 1, seed=100 + i,
+                       **FEAT_SAMPLED) for i in range(eng.B)]
+    pos = [17 + 9 * i for i in range(eng.B)]
+    ids, ms = {}, {}
+    for eager in (False, True, True, False):
+        eng._set_eager(eager)
+        ids[eager] = [eng._sample_rows(reqs[:n], lg[:n], pos[:n])
+                      for n in range(1, eng.B + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TIMED):
+            eng._sample_rows(reqs, lg, pos)
+        ms.setdefault(eager, []).append(
+            (time.perf_counter() - t0) * 1e3 / GRAPH_TIMED)
+    eng._set_eager(False)
+    for n, (a, b) in enumerate(zip(ids[False], ids[True]), 1):
+        if not np.array_equal(a, b):
+            raise SmokeFailure(f"engine graphs sampler: {n} rows, graph ids "
+                               f"{a.tolist()} vs eager {b.tolist()}")
+    out = dict(sampler_ms=min(ms[False]), eager_sampler_ms=min(ms[True]),
+               turns=ms)
+    info(f"engine graphs sampler: ids of 1..{eng.B} rows identical graph / "
+         f"eager; {out['sampler_ms']:.4f} ms a call (eager "
+         f"{out['eager_sampler_ms']:.4f}; in turns G E E G, each the best "
+         f"of {GRAPH_TIMED} synchronised calls' mean: "
+         f"{[round(t, 4) for t in ms[False]]} / "
+         f"{[round(t, 4) for t in ms[True]]})")
+    return {k: v for k, v in out.items() if k != "turns"}
+
+
+def pool_parts(eng):
+    from paddle_tpu_torch.ops.paged_kv import is_quantized_pool
+    return [p for pool in (eng.pool_k, eng.pool_v)
+            for p in ((pool.data, pool.scale) if is_quantized_pool(pool)
+                      else (pool,))]
+
+
+def graph_spec_ab(cfg, params, dparams, dcfg, prompts, totals, dev="cuda"):
+    """A speculating engine (self-draft, k 3, window 16) over phase engine
+    spec's prompts with its eager chain, then its pools cloned, every
+    program captured (decode, sampler, draft, verify) and the pools held
+    to the clone byte for byte, then the same run through the graphs: ids
+    identical, the first verify's column 0 bit-equal; draft ms a proposal
+    and verify ms both ways; the same for the 2-layer draft's proposals.
+    Returns the summary."""
+    import torch
+    from paddle_tpu_torch.spec_decode import SpecDecodeConfig
+    out = {}
+    for name, (dc, dp) in (("self-draft", (cfg, params)),
+                           (f"{SPEC_DRAFT_LAYERS}-layer draft",
+                            (dcfg, dparams))):
+        eng = graph_engine(cfg, params, dev, spec_config=SpecDecodeConfig(
+            draft_cfg=dc, draft_params=dp, k=SPEC_K, window=SPEC_W))
+        timers = spec_timers(eng)
+        eng._set_eager(True)
+        eager = spec_drive(eng, prompts, SPEC_NEW, "engine graphs spec")
+        e_t = {k: 1e3 * sum(v) / len(v) for k, v in timers.items()}
+        for v in timers.values():
+            v.clear()
+        eng._set_eager(False)
+        parts = pool_parts(eng)
+        before = [p.clone() for p in parts]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        eng._capture_all()
+        torch.cuda.synchronize()
+        pool_mb = (torch.cuda.memory_reserved() - r0) / 2 ** 20
+        for p, b in zip(parts, before):
+            if not torch.equal(p.view(torch.uint8), b.view(torch.uint8)):
+                raise SmokeFailure("engine graphs spec: warm-up or capture "
+                                   "wrote the pools")
+        del before
+        graphs = spec_drive(eng, prompts, SPEC_NEW, "engine graphs spec")
+        g_t = {k: 1e3 * sum(v) / len(v) for k, v in timers.items()}
+        same_run_ids(f"engine graphs spec {name}", graphs, eager, prompts)
+        if graphs["counts"] != eager["counts"]:
+            raise SmokeFailure(f"engine graphs spec {name}: graph run "
+                               f"launches {graphs['counts']} vs eager "
+                               f"{eager['counts']} (captured before it)")
+        for k, n in graphs["counts"].items():
+            totals[k] = totals.get(k, 0) + n
+        stats = eng.aot_stats()["graphs"]
+        out[name] = dict(
+            draft_ms_per_proposal=g_t["draft"], verify_ms=g_t["verify"],
+            eager_draft_ms_per_proposal=e_t["draft"],
+            eager_verify_ms=e_t["verify"],
+            tokens_per_s=graphs["dec_tok"] / graphs["dec_s"],
+            eager_tokens_per_s=eager["dec_tok"] / eager["dec_s"],
+            capture_ms={n: g["capture_ms"] for n, g in stats.items()},
+            graph_pool_mib=pool_mb)
+        info(f"engine graphs spec {name}: ids identical graphs / eager, "
+             f"first verify's column 0 bit-equal, pools unchanged by the "
+             f"warm-up and capture of {sorted(stats)} (+{pool_mb:.1f} MiB "
+             f"reserved); draft {g_t['draft']:.3f} ms a proposal (eager "
+             f"{e_t['draft']:.3f}), verify {g_t['verify']:.3f} ms (eager "
+             f"{e_t['verify']:.3f}); tokens/s "
+             f"{out[name]['tokens_per_s']:.1f} (eager "
+             f"{out[name]['eager_tokens_per_s']:.1f}); capture ms "
+             f"{out[name]['capture_ms']}")
+        del eng, parts
+        torch.cuda.empty_cache()
+    return out
+
+
+def flip_byte(path):
+    with open(path, "r+b") as f:
+        f.seek(0, 2)
+        f.seek(f.tell() // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def graph_warm_start(cfg, eng, prompts, ids, dev="cuda"):
+    """``export_engine`` into a temporary directory; a child process whose
+    ``PATH`` and ``CUDA_HOME`` find no ``nvcc`` warm-starts from it: it
+    must load the artifact's library, run no ``nvcc``, capture at
+    construction and serve ``ids``.  Then a copy with one byte of the
+    library flipped falls back with ``aot_error`` set and serves ``ids``
+    too.  Returns the summary."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.aot import export_engine
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "serve")
+        t0 = time.perf_counter()
+        export_engine(eng, art)
+        export_s = time.perf_counter() - t0
+        np.savez(os.path.join(tmp, "prompts.npz"), *prompts)
+        path = os.pathsep.join(
+            d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc")))
+        env = dict(os.environ, PATH=path,
+                   CUDA_HOME=os.path.join(tmp, "no-cuda"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--warm-child", art,
+             os.path.join(tmp, "prompts.npz")], env=env, capture_output=True,
+            text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SmokeFailure(f"engine graphs warm start: the child exited "
+                               f"{proc.returncode}: {proc.stderr[-3000:]}")
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        lib = os.path.join(art, "libpt_kernels.so")
+        for i, (a, b) in enumerate(zip(rep["ids"], ids)):
+            if not np.array_equal(np.asarray(a), b):
+                raise SmokeFailure(f"engine graphs warm start: the child's "
+                                   f"request {i} differs from the parent's")
+        if not rep["aot_loaded"] or rep["nvcc_runs"] != 0 or \
+                rep["nvcc_found"] or rep["library"] != lib or \
+                set(rep["captured_at_construction"]) != {"decode",
+                                                         "sampler"}:
+            raise SmokeFailure(f"engine graphs warm start: {rep}")
+        bad = os.path.join(tmp, "flipped")
+        shutil.copytree(art, bad)
+        flip_byte(os.path.join(bad, "libpt_kernels.so"))
+        cold = graph_engine(cfg, eng.params, dev, aot_dir=bad)
+        if cold.aot_loaded or "CRC" not in (cold.aot_error or ""):
+            raise SmokeFailure(f"engine graphs: a flipped library byte "
+                               f"loaded ({cold.aot_error})")
+        got = spec_drive(cold, prompts, GRAPH_NEW, "engine graphs fallback")
+        for i, (a, b) in enumerate(zip(got["ids"], ids)):
+            if not np.array_equal(a, b):
+                raise SmokeFailure(f"engine graphs fallback: request {i} "
+                                   f"differs")
+        del cold
+        torch.cuda.empty_cache()
+    out = dict(export_s=export_s, child_s=child_s,
+               child_construct_s=rep["construct_s"],
+               child_capture_ms=rep["capture_ms"],
+               child_nvcc_runs=rep["nvcc_runs"], fallback_error="CRC")
+    info(f"engine graphs warm start: exported in {export_s:.2f} s; the "
+         f"child (no nvcc on PATH or CUDA_HOME) loaded the artifact's "
+         f"library, ran {rep['nvcc_runs']} nvcc, captured "
+         f"{sorted(rep['captured_at_construction'])} at construction "
+         f"({rep['construct_s']:.2f} s, capture ms {rep['capture_ms']}) "
+         f"and served the parent's ids on {len(prompts)} requests "
+         f"({child_s:.1f} s in all); a copy with a library byte flipped "
+         f"fell back (CRC) and served them too")
+    return out
+
+
+def warm_child(art, prompts_file):
+    """The warm start's child: llama_7b bf16 from phase engine's seed,
+    ``ContinuousBatchingEngine(..., aot_dir=art)``, the prompts served;
+    prints one JSON line."""
+    import shutil
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.models.llama import init_params, llama_7b
+    cfg = llama_7b(dtype="bfloat16")
+    params = init_params(cfg, make_generator(SEED, "cuda"), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = graph_engine(cfg, params, aot_dir=art)
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    graphs = eng.aot_stats().get("graphs", {})
+    with np.load(prompts_file) as z:
+        prompts = [z[f"arr_{i}"] for i in range(len(z.files))]
+    run = spec_drive(eng, prompts, GRAPH_NEW, "engine graphs child")
+    print(json.dumps(dict(
+        aot_loaded=eng.aot_loaded, aot_error=eng.aot_error,
+        nvcc_found=shutil.which("nvcc"),
+        captured_at_construction=sorted(graphs),
+        capture_ms={n: g["capture_ms"] for n, g in graphs.items()},
+        construct_s=construct_s, ids=[i.tolist() for i in run["ids"]],
+        **build.build_stats())), flush=True)
+    return 0
+
+
+def phase_engine_graphs(cfg, dev="cuda"):
+    """The engine's captured programs against its eager launch chain:
+    llama_7b bf16 (phase engine's seed and settings) over 8 requests of
+    20-600 prompt tokens and 32 new (``graph_ab``), the sampler
+    (``graph_sampler_ab``), the ``aot_dir`` warm start and its fallback
+    (``graph_warm_start``), the same A/B with ``ServeQuantConfig(
+    weight_dtype="int8", kv_dtype="int8")``, and speculation with both
+    drafts (``graph_spec_ab``, pools held byte for byte through the
+    captures).  Returns the launch counts of its graph runs and its
+    summary."""
+    import torch
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.models.llama import init_params, llama_7b
+    from paddle_tpu_torch.quantization import ServeQuantConfig
+    params = init_params(cfg, make_generator(SEED, dev), device=dev)
+    prompts = graph_prompts(cfg)
+    totals, summary = {}, {}
+    eng = graph_engine(cfg, params, dev)
+    summary["bf16"], ids = graph_ab("engine graphs bf16", eng, prompts,
+                                    totals)
+    summary["sampler"] = graph_sampler_ab(eng, dev)
+    summary["warm_start"] = graph_warm_start(cfg, eng, prompts, ids, dev)
+    del eng
+    torch.cuda.empty_cache()
+    qeng = graph_engine(cfg, params, dev,
+                        quant_config=ServeQuantConfig(**ENGINE_QUANT))
+    summary["int8"], _ = graph_ab("engine graphs int8 + int8 KV", qeng,
+                                  prompts, totals)
+    del qeng
+    torch.cuda.empty_cache()
+    rng = __import__("numpy").random.default_rng(SEED + 29)
+    sprompts = [rng.integers(0, cfg.vocab_size, n).astype("int32")
+                for n in SPEC_LENS]
+    dcfg = llama_7b(num_layers=SPEC_DRAFT_LAYERS, dtype=cfg.dtype)
+    dparams = init_params(dcfg, make_generator(SEED + 1, dev), device=dev)
+    summary["spec"] = graph_spec_ab(cfg, params, dparams, dcfg, sprompts,
+                                    totals, dev)
+    del params, dparams
+    torch.cuda.empty_cache()
+    return totals, summary
 
 
 def gpt_paged_rollout(params, cfg, prompts, new_tokens, *, buckets,
@@ -7600,6 +8053,8 @@ def main():
         fcounts, features = phase_engine_features(cfg)
         torch.cuda.empty_cache()
         scounts, spec = phase_engine_spec(cfg)
+        torch.cuda.empty_cache()
+        gcounts, graphs = phase_engine_graphs(cfg)
         del cfg
         torch.cuda.empty_cache()
         gpt_serve_counts, gpt_serve = phase_gpt_serve(kernels)
@@ -7639,6 +8094,7 @@ def main():
     by_phase = {"engine": counts, "engine quant": qcounts,
                 "engine quant features": qfcounts,
                 "engine features": fcounts, "engine spec": scounts,
+                "engine graphs": gcounts,
                 "gpt serve": gpt_serve_counts,
                 "gpt serve quant": gpt_quant_counts,
                 "train": train_counts, "gpt": gpt_counts,
@@ -7663,6 +8119,7 @@ def main():
     info(f"engine quant summary {json.dumps(engine_q)}")
     info(f"engine features summary {json.dumps(features)}")
     info(f"engine spec summary {json.dumps(spec)}")
+    info(f"engine graphs summary {json.dumps(graphs)}")
     info(f"gpt serve summary {json.dumps(gpt_serve)}")
     info(f"gpt serve quant summary {json.dumps(gpt_quant)}")
     info(f"train summary {json.dumps(train)}")
@@ -7680,4 +8137,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--warm-child"]:
+        sys.exit(warm_child(*sys.argv[2:4]))
     sys.exit(main())

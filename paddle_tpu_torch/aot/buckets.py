@@ -11,7 +11,7 @@ a hit, a padded chunk a miss; both are counted.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["ShapeBucketRegistry", "DEFAULT_CHUNK_BUCKETS"]
 
@@ -61,3 +61,12 @@ class ShapeBucketRegistry:
     def stats(self) -> Dict[str, int]:
         return {"bucket_hits": self.hits, "bucket_misses": self.misses,
                 "bucket_padded_tokens": self.padded_tokens}
+
+    # -- manifest round-trip -------------------------------------------
+    def to_manifest(self) -> Dict[str, Any]:
+        return {"chunk_sizes": list(self.chunk_sizes),
+                "max_batch": self.max_batch}
+
+    @classmethod
+    def from_manifest(cls, m: Dict[str, Any]) -> "ShapeBucketRegistry":
+        return cls(m["chunk_sizes"], max_batch=m.get("max_batch"))

@@ -12,6 +12,17 @@ both ops launch the hand-written CUDA kernels; the dense prefill, the
 sampler and the page copies are plain torch, as their JAX counterparts
 are jnp.
 
+Where the JAX engine runs a fixed-geometry program compiled once
+(``jax.jit``), the port on the card replays a CUDA graph captured once
+(``aot/graphs.py``): the decode step, the fixed-width sampler and, under
+``spec_config``, the draft and the K+1-step verify.  Each is captured at
+its first call, or at construction when the engine warm-starts from an
+``aot_dir`` written by ``aot.export_engine`` (the kernel library is then
+loaded from the artifact, without ``nvcc``).  The chunk fills stay eager
+launches (the prefill kernels plan by the chunk's ``start`` on the host;
+ROADMAP.md queue 1 item 16).  On the CPU the engine calls the plain
+functions, as the JAX reference tier does.
+
 At the JAX engine's defaults: a cross-request prefix cache
 (``serving/prefix_cache.py``) shares committed prompt pages between
 sequences, with an optional host offload tier; priority preemption
@@ -27,18 +38,22 @@ baseline engine, bit for bit.
 
 Differences from the JAX engine, by design:
 
-* ``jax.lax.scan`` over layers is a Python loop, and nothing is
-  compiled, so the sampler takes its rows unpadded;
+* ``jax.lax.scan`` over layers is a Python loop (inside a captured
+  graph on the card);
 * the pools are one ``[L, NB, BS, Hkv, D]`` tensor per K and V, updated
   IN PLACE layer by layer (the JAX engine donates and replaces them);
   a spill, an offload and a restore move only the pages concerned;
 * the JAX engine's ``REGISTRY`` / ``TRACER`` hooks are not kept (ROADMAP
   queue 1 item 13): the plain ``stats`` and ``resilience`` dicts carry
   the same keys and values;
-* AOT artifacts (``aot_dir``, item 16) and MoE configs (item 15b, a
-  MoE draft too) raise ``NotImplementedError``; GPT-family configs raise
-  as well: the JAX engine serves Llama configs only, and a GPT layer
-  reaches the serving kernels through the ops (``ops.decode_block``).
+* an AOT artifact holds program records and the kernel library, not
+  serialized programs (a CUDA graph cannot be serialized), and a warm
+  start captures at construction; ``aot_stats()`` adds ``graphs`` on
+  CUDA;
+* MoE configs (item 15b, a MoE draft too) raise ``NotImplementedError``;
+  GPT-family configs raise as well: the JAX engine serves Llama configs
+  only, and a GPT layer reaches the serving kernels through the ops
+  (``ops.decode_block``).
 """
 
 from __future__ import annotations
@@ -53,14 +68,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..aot.artifact import AotError
 from ..aot.buckets import ShapeBucketRegistry
+from ..aot.graphs import CapturedProgram
+from ..aot.serve import (DECODE, SAMPLER, SPEC_DRAFT, SPEC_VERIFY,
+                         check_captured, load_engine_artifacts)
 from ..device import resolve_device
 from ..models.generation import build_llama_decoder
 from ..models.llama import _rope_cos_sin, block_shapes, torch_dtype
 from ..ops.decode_block import (decode_block, decode_block_spec, make_norm,
                                 prefill_block)
 from ..ops.paged_kv import layer_pool, zeros_kv_pool
-from ..ops.threefry import fold_in, gumbel, prng_key, random_bits
+from ..ops.threefry import gumbel, random_bits, threefry2x32
 from ..quantization.serve import (ServeQuantConfig,
                                   quantize_params_for_serving,
                                   quantized_leaf_names)
@@ -146,11 +165,17 @@ class GenRequest:
     eos_pos: Optional[int] = None
 
 
+_M32 = 0xFFFFFFFF
+
+
 def build_sampler():
     """The engine's sampler: ``sample(logits [n, V], seeds, positions,
-    temperatures, top_k, top_p) -> ids [n]`` on the logits' device, the
-    per-row lists on the host.  Row ``i`` is keyed by ``fold_in(key(
-    seed_i), position_i)``; its logits are divided by the temperature,
+    temperatures, top_k, top_p) -> ids [n]`` on the logits' device; the
+    per-row values are lists or tensors.  Row ``i`` is keyed by
+    ``fold_in(key(seed_i), position_i)`` (Threefry of the key ``(0,
+    seed_i)`` over the counters ``(0, position_i)``, in int64 ops on the
+    device, so the sampler holds no host loop and captures as a graph);
+    its logits are divided by the temperature,
     values under the k-th largest dropped (ties kept), then values under
     the top-p cutoff of the top-k-filtered sorted distribution (the first
     index whose cumulative probability reaches ``top_p``), and the id is
@@ -162,21 +187,22 @@ def build_sampler():
     def sample(logits, seeds, positions, temperatures, top_k, top_p):
         n, V = logits.shape
         dev = logits.device
-        keys = [fold_in(prng_key(s), p) for s, p in zip(seeds, positions)]
-        k0 = torch.tensor([k[0] for k in keys], dtype=torch.int64,
-                          device=dev)[:, None]
-        k1 = torch.tensor([k[1] for k in keys], dtype=torch.int64,
-                          device=dev)[:, None]
-        noise = gumbel(random_bits(k0, k1, V, dev))
-        temp = torch.tensor(temperatures, dtype=torch.float32, device=dev)
-        kk = torch.tensor(top_k, dtype=torch.int64, device=dev)[:, None]
-        tp = torch.tensor(top_p, dtype=torch.float32, device=dev)[:, None]
-        nan = torch.tensor(float("nan"), device=dev)
+
+        def col(v, dt):
+            return torch.as_tensor(v, dtype=dt, device=dev)
+        seeds = col(seeds, torch.int64)
+        k0, k1 = threefry2x32(torch.zeros_like(seeds), seeds & _M32, 0,
+                              col(positions, torch.int64) & _M32)
+        noise = gumbel(random_bits(k0[:, None], k1[:, None], V, dev))
+        temp = col(temperatures, torch.float32)
+        kk = col(top_k, torch.int64)[:, None]
+        tp = col(top_p, torch.float32)[:, None]
         x = logits.float() / temp[:, None]
 
         def take(srt, idx):
             return torch.where(idx < V,
-                               srt.gather(1, idx.clamp(max=V - 1)), nan)
+                               srt.gather(1, idx.clamp(max=V - 1)),
+                               float("nan"))
 
         srt = torch.sort(x, dim=-1, descending=True).values
         kth = take(srt, kk.clamp(min=1) - 1)
@@ -214,6 +240,15 @@ class ContinuousBatchingEngine:
         engine) runs as one chunk fill of its own length, a cold prompt
         through the dense decoder's prefill, its KV then written into the
         slot's pages.
+      aot_dir: warm-start from an artifact directory written by
+        ``paddle_tpu_torch.aot.export_engine`` (or a rotation root, whose
+        ``latest`` pointer is followed): the declared buckets come from
+        its manifest and, on CUDA, the kernel library from its copy, and
+        the engine's graphs are captured here.  Any reason the artifact
+        cannot be used (version or device skew, another geometry,
+        corruption) falls back to a fresh build and capture at first use;
+        the reason is kept on ``self.aot_error`` and ``aot_loaded`` is
+        False.
       enable_preemption: priority classes with preemption; with uniform
         priorities nothing is ever preempted.
       spill_tier: the host tier of preempted requests' pages (default an
@@ -267,10 +302,6 @@ class ContinuousBatchingEngine:
                     f"spec_config must be a SpecDecodeConfig or None, got "
                     f"{type(spec_config).__name__}")
             spec_config.validate_against(cfg)
-        if aot_dir is not None:
-            raise NotImplementedError(
-                "aot_dir: AOT warm starts are not ported yet (their "
-                "counterpart is CUDA graphs) — ROADMAP.md queue 1 item 16")
         qw = quant_config is not None and quant_config.quantized_weights
         if qw and getattr(cfg, "moe_num_experts", 0):
             raise NotImplementedError(
@@ -367,6 +398,28 @@ class ContinuousBatchingEngine:
         self.spec_config = spec_config
         self._spec = None if spec_config is None else \
             SpecDecodeRunner(self, spec_config)
+        # the captured programs (CUDA graphs) by name, captured at first
+        # use into one memory pool; None on the CPU.  ``_eager`` runs the
+        # plain launch chain on CUDA instead (chip_smoke.py's A/B only)
+        cuda = self.device.type == "cuda"
+        self._graphs: Optional[Dict[str, CapturedProgram]] = \
+            {} if cuda else None
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._eager = not cuda
+        self._inputs = None
+        self.aot_loaded = False
+        self.aot_error: Optional[str] = None
+        if aot_dir is not None:
+            try:
+                records, self._buckets = load_engine_artifacts(self, aot_dir)
+                if cuda:
+                    self._capture_all()
+                    check_captured(records, self._graphs)
+                self.aot_loaded = True
+            except AotError as e:
+                # the reference's fallback, loudly: a fresh build and
+                # capture at first use, the reason kept on the engine
+                self.aot_error = str(e)
 
     def _leaf_shapes(self):
         """{block leaf: (per-layer shape, dtype)}: the block weights, or
@@ -420,13 +473,75 @@ class ContinuousBatchingEngine:
         xf = self._norm(x, self.params["lnf_w"])
         return xf.float() @ self._head32
 
-    def _device_state(self):
-        """``(tokens [B] int64, lengths [B] int32, block_table [B, MB]
-        int32)`` of the decode batch, copied to the device."""
-        dev = self.device
-        return (torch.from_numpy(self.tokens).to(dev, torch.long),
-                torch.from_numpy(self.lengths).to(dev),
-                torch.from_numpy(self.block_table).to(dev))
+    def _program_table(self):
+        """``{name: (plain function, {input: template})}`` of the
+        fixed-geometry programs: the decode step, the fixed-width sampler
+        and, under ``spec_config``, the draft and the verify.  The
+        templates fix each input's shape and dtype and hold the idle state
+        a capture runs on: every table row -1 (no page written), lengths
+        0, temperature 1.  Only the templates are kept: an engine that
+        held its own bound methods would be a reference cycle, freed (its
+        pools, GBs on the card) only by a garbage-collector pass."""
+        B, MB, dev = self.B, self.MB, self.device
+        if self._inputs is None:
+            def full(shape, dt=torch.int64, v=0):
+                return torch.full(shape, v, dtype=dt, device=dev)
+            i32, f32 = torch.int32, torch.float32
+            self._inputs = {
+                DECODE: dict(tokens=full((B,)), lengths=full((B,), i32),
+                             bt=full((B, MB), i32, -1)),
+                SAMPLER: dict(logits=full((B, self.cfg.vocab_size), f32),
+                              seeds=full((B,)), positions=full((B,)),
+                              temperatures=full((B,), f32, 1),
+                              top_k=full((B,)), top_p=full((B,), f32))}
+            if self._spec is not None:
+                sc = self.spec_config
+                self._inputs[SPEC_DRAFT] = dict(win=full((B, sc.window)),
+                                                ctx=full((B,), i32))
+                self._inputs[SPEC_VERIFY] = dict(
+                    bt=full((B, MB), i32, -1), lengths=full((B,), i32),
+                    tokens=full((B, sc.k + 1)))
+        fns = {DECODE: self._decode_step, SAMPLER: self._sampler}
+        if self._spec is not None:
+            sc, run = self.spec_config, self._spec
+            fns[SPEC_DRAFT] = lambda win, ctx: run.draft_program(
+                sc.draft_params, win, ctx)
+            fns[SPEC_VERIFY] = lambda bt, lengths, tokens: \
+                run.verify_program(bt, lengths, tokens)
+        return {n: (fns[n], t) for n, t in self._inputs.items()}
+
+    def _capture(self, name: str) -> CapturedProgram:
+        fn, inputs = self._program_table()[name]
+        prog = CapturedProgram(name, fn, inputs, pool=self._graph_pool)
+        self._graphs[name] = prog
+        return prog
+
+    def _capture_all(self) -> None:
+        """Capture every program not captured yet (CUDA)."""
+        for name in self._program_table():
+            if name not in self._graphs:
+                self._capture(name)
+
+    def _set_eager(self, eager: bool) -> None:
+        """On CUDA, run the plain launch chain of each program (True) or
+        replay its graph (False, the default).  For chip_smoke.py's A/B of
+        graphs against eager launches; the engine's users never call
+        it."""
+        if self._graphs is None:
+            raise ValueError("the engine captures no graphs on the CPU")
+        self._eager = bool(eager)
+
+    def _run(self, name: str, **inputs):
+        """Run program ``name`` on ``inputs`` (numpy arrays or tensors):
+        a replay of its graph on CUDA (captured at this first call), the
+        plain function on the CPU.  Returns its outputs on the device."""
+        if self._eager:
+            fn, tmpl = self._program_table()[name]
+            return fn(**{k: _to_like(v, tmpl[k]) for k, v in inputs.items()})
+        prog = self._graphs.get(name)
+        if prog is None:
+            prog = self._capture(name)
+        return prog(**inputs)
 
     def _decode_step(self, tokens, lengths, bt) -> torch.Tensor:
         """One decode step over every slot: ``tokens`` [B] fed at
@@ -581,12 +696,29 @@ class ContinuousBatchingEngine:
     def _sample_rows(self, reqs: List[GenRequest], logits_rows,
                      positions) -> np.ndarray:
         """One sampled token per request (rows of ``logits_rows`` aligned
-        with ``reqs``), on the logits' device."""
-        toks = self._sampler(
-            logits_rows, [r.seed for r in reqs], positions,
-            [r.temperature for r in reqs], [r.top_k or 0 for r in reqs],
-            [r.top_p or 0.0 for r in reqs])
-        return toks.cpu().numpy()
+        with ``reqs``).  Rows are padded to the full decode width
+        ``max_batch``, as the JAX engine pads them, so every call runs the
+        one fixed-width program (a graph on CUDA); pad rows take
+        temperature 1 and no filter, and every row is drawn independently
+        of the others."""
+        n, B = len(reqs), self.B
+        lg = torch.zeros((B, logits_rows.shape[-1]), dtype=torch.float32,
+                         device=self.device)
+        lg[:n] = torch.as_tensor(logits_rows).to(self.device, torch.float32)
+        seeds = np.zeros((B,), np.int64)
+        pos = np.zeros((B,), np.int64)
+        temps = np.ones((B,), np.float32)
+        topk = np.zeros((B,), np.int64)
+        topp = np.zeros((B,), np.float32)
+        pos[:n] = np.asarray(positions, np.int64)
+        for i, r in enumerate(reqs):
+            seeds[i] = int(r.seed) & _M32
+            temps[i] = r.temperature
+            topk[i] = r.top_k or 0
+            topp[i] = r.top_p or 0.0
+        toks = self._run(SAMPLER, logits=lg, seeds=seeds, positions=pos,
+                         temperatures=temps, top_k=topk, top_p=topp)
+        return toks.cpu().numpy()[:n]
 
     def _blocks_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.BS)
@@ -1036,7 +1168,8 @@ class ContinuousBatchingEngine:
                 sum(len(self.slots[s].out) for s in active) - pre
             out, self.finished = self.finished, {}
             return out
-        logits = self._decode_step(*self._device_state())
+        logits = self._run(DECODE, tokens=self.tokens, lengths=self.lengths,
+                           bt=self.block_table)
         self.last_logits = logits.cpu().numpy()
         for s in active:
             self.lengths[s] += 1            # the fed token's KV is stored
@@ -1160,3 +1293,24 @@ class ContinuousBatchingEngine:
         """Declared-bucket hits, misses and padded tokens ({} without
         buckets)."""
         return {} if self._buckets is None else self._buckets.stats()
+
+    def aot_stats(self) -> Dict[str, object]:
+        """Warm-start observability (the JAX engine's keys): whether the
+        artifacts loaded (and why not), the declared-bucket counts and, on
+        CUDA, ``graphs``: each captured program's replays, capture ms and
+        launches a replay."""
+        s: Dict[str, object] = {"aot_loaded": self.aot_loaded}
+        if self.aot_error is not None:
+            s["aot_error"] = self.aot_error
+        if self._buckets is not None:
+            s.update(self._buckets.stats())
+        if self._graphs is not None:
+            s["graphs"] = {n: p.stats() for n, p in self._graphs.items()}
+        return s
+
+
+def _to_like(v, like: torch.Tensor) -> torch.Tensor:
+    """``v`` (a numpy array or a tensor) on ``like``'s device and dtype."""
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+    return v.to(like.device, like.dtype)

@@ -12,6 +12,13 @@ in ``.gitignore``.
 Nothing here runs at import time: :func:`library` builds on its first
 call.  A failed build raises :class:`KernelBuildError` with the
 compiler's output; there is no fallback.
+
+An engine warm-started from an artifact directory (``aot/serve.py``)
+loads the artifact's copy of the library instead (:func:`load_library`),
+after checking that the copy was built from these sources: a digest that
+does not match is a manifest mismatch, never a silent rebuild.
+:func:`build_stats` counts the ``nvcc`` processes this process started and
+names the file it loaded.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from typing import Optional
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "LayerArgs",
            "FlashArgs", "LceArgs", "WoArgs", "NormArgs", "SoftmaxArgs",
-           "library", "check", "NVCC_FLAGS"]
+           "library", "load_library", "library_path", "source_digest",
+           "build_stats", "check", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -123,6 +131,8 @@ class SoftmaxArgs(ctypes.Structure):
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_path: Optional[Path] = None
+_nvcc_runs = 0
 
 
 def _nvcc() -> str:
@@ -154,6 +164,8 @@ def _digest(files) -> str:
 
 def _run_all(cmds):
     """Start every command at once, wait for all, raise on any failure."""
+    global _nvcc_runs
+    _nvcc_runs += len(cmds)
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -218,19 +230,58 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.pt_reset_launch_counts.restype = None
 
 
+def source_digest() -> str:
+    """The digest of the sources and flags a library is built from (the
+    key of its file name under ``_build/``)."""
+    cu, cuh = _sources()
+    return _digest(cu + cuh)
+
+
+def _load(so: Path) -> ctypes.CDLL:
+    global _lib, _lib_path
+    lib = ctypes.CDLL(str(so))
+    _bind(lib)
+    _lib, _lib_path = lib, so
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    global _lib
     with _lock:
         if _lib is None:
-            cu, cuh = _sources()
-            so = BUILD_DIR / f"libpt_kernels_{_digest(cu + cuh)}.so"
+            so = BUILD_DIR / f"libpt_kernels_{source_digest()}.so"
             if not so.exists():
-                _build(so, cu)
-            lib = ctypes.CDLL(str(so))
-            _bind(lib)
-            _lib = lib
+                _build(so, _sources()[0])
+            _load(so)
         return _lib
+
+
+def load_library(path, digest: str) -> ctypes.CDLL:
+    """Make the library at ``path`` (an artifact's copy, built from
+    sources of ``digest``) this process's library.  Raises
+    ``aot.AotManifestMismatchError`` when ``digest`` is not that of these
+    sources.  A process that has loaded a library already keeps it (it
+    was built from these same sources)."""
+    have = source_digest()
+    if digest != have:
+        from ..aot.artifact import AotManifestMismatchError
+        raise AotManifestMismatchError(
+            f"{path}: kernel library built from sources {digest}, these "
+            f"sources are {have} — re-export")
+    with _lock:
+        return _lib if _lib is not None else _load(Path(path))
+
+
+def library_path() -> Optional[Path]:
+    """The file of the loaded library, None before the first load."""
+    return _lib_path
+
+
+def build_stats():
+    """``{"nvcc_runs": nvcc processes this process started, "library":
+    the loaded library's file or None}``."""
+    return {"nvcc_runs": _nvcc_runs,
+            "library": None if _lib_path is None else str(_lib_path)}
 
 
 def check(code: int, what: str) -> None:

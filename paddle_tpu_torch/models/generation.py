@@ -72,9 +72,9 @@ def _dense_masked_attention(q, k, v, mask, scale):
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    logits = torch.where(mask, logits.float(),
-                         torch.tensor(-1e30, dtype=torch.float32,
-                                      device=q.device))
+    # a Python scalar, not a tensor made on the host: the draft program
+    # runs this under CUDA graph capture, where a host copy may not run
+    logits = torch.where(mask, logits.float(), -1e30)
     p = torch.softmax(logits, -1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 

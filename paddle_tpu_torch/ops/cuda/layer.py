@@ -16,7 +16,10 @@ its epilogue; a GPT layer's four), and an int8 KV pool takes
 launches are counted in the kernel library itself, where each kernel is
 launched:
 :func:`launch_counts` reads those counters and :func:`reset_counts` sets
-them to zero.
+them to zero.  A captured CUDA graph (``aot/graphs.py``) launches nothing
+through the library when it replays, and its capture counts launches that
+did not run: :data:`TALLY` holds that difference, and both functions read
+and zero it with the library's counters.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ import torch
 
 from ...kernels import build
 
-__all__ = ["KERNELS", "launch_counts", "reset_counts", "dtype_code",
-           "check_tensor", "layer_args", "layout", "stream_handle",
-           "wo_layout", "WEIGHTS", "MATMULS"]
+__all__ = ["KERNELS", "LaunchTally", "TALLY", "raw_counts",
+           "launch_counts", "reset_counts", "dtype_code", "check_tensor",
+           "layer_args", "layout", "stream_handle", "wo_layout", "WEIGHTS",
+           "MATMULS"]
 
 #: the library's launch counters, in the order of the ``CNT_*`` enum in
 #: ``kernels/csrc/common.cuh``: the two layer entry points, then one per
@@ -72,8 +76,47 @@ _INDEX = ("block_table", "lengths", "blk", "off")
 PER_CHANNEL_GS = 1 << 30
 
 
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_counts`, by name."""
+class LaunchTally:
+    """The launches a graph replay makes and the library does not count.
+
+    The library counts a launch when it returns ``cudaSuccess``, and a
+    launch under stream capture returns it without running: a capture adds
+    its program's launches to the counters once, a replay adds nothing.
+    :meth:`captured` takes the counters before and after a capture, keeps
+    the difference as the program's launches a replay and subtracts it
+    once; :meth:`replayed` adds it once per replay; :meth:`read` is the
+    library's counts plus what the tally holds; :meth:`reset` zeroes it
+    (with the library's counters)."""
+
+    def __init__(self):
+        self.adjust: Dict[str, int] = {}
+
+    def captured(self, before: Dict[str, int],
+                 after: Dict[str, int]) -> Dict[str, int]:
+        delta = {k: after[k] - before.get(k, 0) for k in after
+                 if after[k] != before.get(k, 0)}
+        for k, n in delta.items():
+            self.adjust[k] = self.adjust.get(k, 0) - n
+        return delta
+
+    def replayed(self, delta: Dict[str, int]) -> None:
+        for k, n in delta.items():
+            self.adjust[k] = self.adjust.get(k, 0) + n
+
+    def read(self, raw: Dict[str, int]) -> Dict[str, int]:
+        return {k: n + self.adjust.get(k, 0) for k, n in raw.items()}
+
+    def reset(self) -> None:
+        self.adjust = {}
+
+
+#: the process's tally, beside the library's process-wide counters
+TALLY = LaunchTally()
+
+
+def raw_counts() -> Dict[str, int]:
+    """The library's own counters, by name (captures included, replays
+    not)."""
     buf = (ctypes.c_longlong * len(KERNELS))()
     n = build.library().pt_launch_counts(buf, len(KERNELS))
     if n != len(KERNELS):
@@ -82,8 +125,15 @@ def launch_counts() -> Dict[str, int]:
     return dict(zip(KERNELS, map(int, buf)))
 
 
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_counts`, by name, graph
+    replays included and captures not."""
+    return TALLY.read(raw_counts())
+
+
 def reset_counts() -> None:
     build.library().pt_reset_launch_counts()
+    TALLY.reset()
 
 
 def dtype_code(dt: torch.dtype) -> int:

@@ -26,9 +26,10 @@ overwritten by the next append at the same positions), while the
 refcounted page pool keeps its exactly-once release accounting through
 cancels and retires mid-speculation (``kv_leak_report`` stays zero).
 
-Not ported: the JAX engine's AOT export of the draft and verify
-(``aot_dir``, ROADMAP.md queue 1 item 16) and the serve telemetry
-counters (``observability.REGISTRY``, item 13).
+The draft and the verify are the engine's ``spec_draft`` and
+``spec_verify`` programs: captured CUDA graphs on the card, exported by
+``aot.export_engine`` as the JAX engine exports them.  Not ported: the
+serve telemetry counters (``observability.REGISTRY``, item 13).
 """
 
 from .config import SpecDecodeConfig

@@ -17,10 +17,12 @@ EOS, ``max_new_tokens``) token by token.
 State machine per decode iteration:
 
     DRAFT    k greedy proposals per active slot (windowed recompute;
-             inactive slots ride along as masked rows)
+             inactive slots ride along as masked rows): one fixed
+             [B, window] program run k times
     VERIFY   the engine's decode step K+1 times writes K+1 KV positions
              per slot and returns the K+1 next-token logit rows, copied
-             to the host once
+             to the host once: one fixed [B, K+1] program, the lengths
+             advanced on the device inside it
     COMMIT   per slot: accepted prefix + one correction/bonus token is
              appended (stopping at EOS/budget); ``lengths`` advances by
              exactly the appended count
@@ -36,11 +38,12 @@ carries the same counts.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
+from ..aot.serve import SPEC_DRAFT, SPEC_VERIFY
 from .config import SpecDecodeConfig
 from .draft import assemble_windows, build_draft_program, check_draft_params
 from .sampling import spec_sample_chain, warp_probs
@@ -50,20 +53,33 @@ __all__ = ["SpecDecodeRunner"]
 
 
 class SpecDecodeRunner:
-    """Speculative decode driver bound to one engine instance: ``draft``
-    on the engine's device (``build_draft_program``), ``verify`` over the
-    engine's decode step (``build_verify_program``).  Nothing is
-    compiled, so both are built here (the JAX runner jits them lazily)."""
+    """Speculative decode driver bound to one engine instance.  Its plain
+    programs are ``draft_program`` on the engine's device
+    (``build_draft_program``) and ``verify_program`` over the engine's
+    decode step (``build_verify_program``); the engine runs them as its
+    ``spec_draft`` / ``spec_verify`` programs (replays of captured graphs
+    on CUDA, as the JAX runner runs them jitted).  ``draft(win, ctx)``
+    and ``verify(block_table, lengths, tokens)`` take the host arrays and
+    return device tensors: the seams to wrap (timers, spies).  The runner
+    holds its engine through a weak proxy: the engine holds the runner,
+    and a cycle would keep both (and the pools) alive until a
+    garbage-collector pass."""
 
     def __init__(self, engine, config: SpecDecodeConfig):
         config.validate_against(engine.cfg)
-        self.draft = build_draft_program(config.draft_cfg, config.window,
-                                         engine.device)
+        self.draft_program = build_draft_program(
+            config.draft_cfg, config.window, engine.device)
         check_draft_params(config.draft_cfg, config.draft_params,
                            engine.device)
-        self.engine = engine
+        eng = weakref.proxy(engine)
+        self.engine = eng
         self.config = config
-        self.verify = build_verify_program(engine._decode_step)
+        self.verify_program = build_verify_program(
+            lambda tokens, lengths, bt: eng._decode_step(tokens, lengths,
+                                                         bt))
+        self.draft = lambda win, ctx: eng._run(SPEC_DRAFT, win=win, ctx=ctx)
+        self.verify = lambda bt, lengths, tokens: eng._run(
+            SPEC_VERIFY, bt=bt, lengths=lengths, tokens=tokens)
         self.stats: Dict[str, int] = {
             "spec_steps": 0, "proposed": 0, "accepted": 0,
             "emitted": 0, "rollback_pages": 0,
@@ -80,7 +96,7 @@ class SpecDecodeRunner:
         """Advance every active slot by 1..K+1 tokens (in place of the
         engine's single-token decode)."""
         eng = self.engine
-        K, dev = self.config.k, eng.device
+        K = self.config.k
 
         # DRAFT: K greedy proposals per slot off the windowed recompute
         seqs: List[List[int]] = []
@@ -91,9 +107,7 @@ class SpecDecodeRunner:
         proposals = np.zeros((eng.B, K), np.int32)
         for i in range(K):
             win, ctx = assemble_windows(seqs, self.config.window, eng.B)
-            tok = self.draft(self.config.draft_params,
-                        torch.from_numpy(win).to(dev),
-                        torch.from_numpy(ctx).to(dev)).cpu().numpy()
+            tok = self.draft(win, ctx).cpu().numpy()
             proposals[:, i] = tok
             for s in active:
                 seqs[s].append(int(tok[s]))
@@ -104,9 +118,7 @@ class SpecDecodeRunner:
         tokens_mat[:, 0] = eng.tokens
         tokens_mat[:, 1:] = proposals
         pre_lengths = eng.lengths.copy()
-        tokens, lengths, bt = eng._device_state()
-        logits = self.verify(bt, lengths,
-                             torch.from_numpy(tokens_mat).to(dev))
+        logits = self.verify(eng.block_table, pre_lengths, tokens_mat)
         logits = logits.cpu().numpy()                   # [B, K+1, V]
         eng.last_logits = logits[:, 0]
 

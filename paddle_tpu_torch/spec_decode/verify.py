@@ -15,8 +15,10 @@ and the table's width, never the lengths).
 
 What this buys: one host round trip per K+1 positions instead of per
 token, and one SCHEDULER iteration per accepted run — engine steps per
-token drop below 1.0.  What it does not buy: parallelism across the K+1
-positions (each call is a whole decode step, launched from the host).
+token drop below 1.0.  On the card the K+1 steps are one captured CUDA
+graph (the engine's ``spec_verify`` program, one launch from the host),
+as the JAX verify is one compiled program.  What it does not buy:
+parallelism across the K+1 positions (the steps run one after another).
 
 Rollback contract: the verify ALWAYS writes K+1 positions of KV per
 slot; the host commits only the accepted prefix by advancing

@@ -2096,3 +2096,120 @@ def test_engine_unfused_chain_is_refused_on_cuda(kw):
     eng = ContinuousBatchingEngine(cfg, params, fused_decode_block=True,
                                    fused_prefill=True)
     assert eng.fused_decode_block and eng.fused_prefill
+
+
+# --------------------------------------------------------------------------
+# the engine's programs as CUDA graphs (aot/graphs.py)
+# --------------------------------------------------------------------------
+GRAPH_LENS, GRAPH_NEW = (5, 40, 17, 23, 9), 6
+
+
+def _graph_engine(quant=False, spec=False, **kw):
+    """A bf16 Llama at kernel-legal widths (head_dim 32), B 4, bucketed
+    prefill, the features that reorder admissions off."""
+    from paddle_tpu_torch.device import make_generator
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.quantization import ServeQuantConfig
+    from paddle_tpu_torch.spec_decode import SpecDecodeConfig
+    cfg = llama.llama_tiny(hidden_size=128, intermediate_size=256,
+                           dtype="bfloat16")
+    params = llama.init_params(cfg, make_generator(0, "cuda"), device="cuda")
+    if spec:
+        kw["spec_config"] = SpecDecodeConfig(draft_cfg=cfg,
+                                             draft_params=params, k=3,
+                                             window=8)
+    if quant:
+        kw["quant_config"] = ServeQuantConfig(weight_dtype="int8",
+                                              kv_dtype="int8")
+    return ContinuousBatchingEngine(
+        cfg, params, max_batch=4, block_size=16, num_blocks=32,
+        prefill_buckets=(16,), enable_prefix_caching=False,
+        enable_preemption=False, **kw)
+
+
+def _graph_serve(eng):
+    """Ids and launch counts of one run: every request queued before the
+    first step, the second and fourth sampled."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n).astype(np.int32)
+               for n in GRAPH_LENS]
+    layer.reset_counts()
+    rids = [eng.add_request(p, GRAPH_NEW, **(
+        dict(temperature=0.9, top_k=20, top_p=0.9, seed=i)
+        if i in (1, 3) else {})) for i, p in enumerate(prompts)]
+    out = eng.run_to_completion()
+    counts = {k: n for k, n in layer.launch_counts().items() if n}
+    return [out[r] for r in rids], counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("spec", [False, True], ids=["base", "spec"])
+def test_engine_graphs_serve_the_eager_chains_ids(quant, spec):
+    """Replays of the captured decode step, sampler, draft and verify give
+    the eager launch chain's ids bit for bit (greedy and sampled), and the
+    launch counts through replays are the eager run's plus the captures'
+    warm-up calls."""
+    _need_card()
+    eng = _graph_engine(quant, spec)
+    got, counts = _graph_serve(eng)
+    ref_eng = _graph_engine(quant, spec)
+    ref_eng._set_eager(True)
+    want, ref_counts = _graph_serve(ref_eng)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    graphs = eng.aot_stats()["graphs"]
+    names = {"spec_draft", "spec_verify", "sampler"} if spec else \
+        {"decode", "sampler"}
+    assert set(graphs) == names and all(graphs[n]["replays"]
+                                        for n in names)
+    warm = {}
+    for g in graphs.values():
+        for k, n in g["warmup_launches"].items():
+            warm[k] = warm.get(k, 0) + n
+    assert counts == {k: ref_counts.get(k, 0) + warm.get(k, 0)
+                      for k in set(ref_counts) | set(warm)}
+    assert "graphs" not in ref_eng.aot_stats() or \
+        not ref_eng.aot_stats()["graphs"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_engine_graph_capture_leaves_the_pools(quant):
+    """Warm-up and capture run on a block table of -1: pools full of
+    random bytes are unchanged, byte for byte."""
+    _need_card()
+    from paddle_tpu_torch.ops.paged_kv import is_quantized_pool
+    eng = _graph_engine(quant, spec=True)
+    parts = [p for pool in (eng.pool_k, eng.pool_v)
+             for p in ((pool.data, pool.scale) if is_quantized_pool(pool)
+                       else (pool,))]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for p in parts:
+        p.view(torch.uint8).copy_(torch.randint(
+            0, 256, p.view(torch.uint8).shape, generator=gen,
+            device="cuda", dtype=torch.uint8))
+    before = [p.clone() for p in parts]
+    eng._capture_all()
+    torch.cuda.synchronize()
+    assert set(eng._graphs) == {"decode", "sampler", "spec_draft",
+                                "spec_verify"}
+    for p, b in zip(parts, before):
+        assert torch.equal(p.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises_naming_the_program():
+    """A program that syncs with the host cannot be captured: the capture
+    raises ``GraphCaptureError`` naming it (no eager fallback), and a
+    later capture works."""
+    _need_card()
+    from paddle_tpu_torch.aot.graphs import CapturedProgram, GraphCaptureError
+    x = torch.arange(8.0, device="cuda")
+    with pytest.raises(GraphCaptureError, match="host_sync"):
+        CapturedProgram("host_sync", lambda x: x * float(x.sum().item()),
+                        {"x": x})
+    prog = CapturedProgram("double", lambda x: x * 2, {"x": x})
+    out = prog(x=np.full(8, 3.0, np.float32))
+    assert out.tolist() == [6.0] * 8 and prog.stats()["replays"] == 1

@@ -5,8 +5,8 @@ IDENTICAL greedy token ids, and the decode logits of every step must
 agree to 1e-4 in fp32 (both engines with prefix caching and preemption
 off; the defaults are held in tests/test_torch_prefix_cache.py).  Also
 pins cancellation and KV accounting, the refusals of features outside
-the port's slice (AOT artifacts, MoE configs and MoE drafts, and
-dynamic-NTK RoPE), and the host-side pieces
+the port's slice (MoE configs and MoE drafts, and dynamic-NTK RoPE; an
+``aot_dir`` without an artifact falls back), and the host-side pieces
 (RoPE tables, bucket plans, seeded parameters) against the JAX
 package."""
 
@@ -122,9 +122,17 @@ def test_kv_leak_report_clean_after_drain_with_eos(model):
                                 {"aot_dir": "/nonexistent"}],
                          ids=lambda kw: next(iter(kw)))
 def test_features_outside_the_slice_are_refused(model, kw):
-    """AOT artifacts (item 16), and of speculative decoding (ported) a MoE
-    draft (item 15b)."""
+    """Of speculative decoding (ported) a MoE draft (item 15b); and an
+    ``aot_dir`` that holds no artifact is refused as a warm start, as the
+    JAX engine refuses it: a fresh build, the reason on ``aot_error``
+    (the warm starts themselves: tests/test_torch_aot.py)."""
     _, _, np_tree = model
+    if "aot_dir" in kw:
+        eng = _torch_engine(np_tree, **kw)
+        assert not eng.aot_loaded
+        assert "no AOT manifest" in eng.aot_error
+        assert eng.aot_stats()["aot_error"] == eng.aot_error
+        return
     if "spec_config" in kw:
         moe = tllama.llama_tiny(moe_num_experts=4)
         kw = {"spec_config": SpecDecodeConfig(
